@@ -1,0 +1,154 @@
+"""Blocked layouts and the fused aggregate->combine layer
+(``repro/core/dataflow.py``; paper F5, §5.1-3).
+
+Destination vertices are processed in blocks of ``tile_m`` rows; each block
+is aggregated and immediately combined, so the (V, F_in) aggregate never
+makes a round trip through device memory.  ``block_graph`` regroups a
+destination-sorted edge list into that layout once, on the host;
+``suggest_tile_m`` sizes the block for a ``Machine``; ``fused_gcn_layer``
+runs it on either tier:
+
+  * ``torch`` -- the fused kernel's plain version: a loop over chunks of
+    blocks (the reference's ``lax.scan`` over blocks, :186-193).
+  * ``cuda``  -- the ``fused_agg_combine`` CUDA kernel.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.graph.structure import Graph
+from repro_torch.profile.machine import Machine, get_machine
+
+
+class BlockedGraph(NamedTuple):
+    """Edges regrouped by destination block (``BlockedGraph``, :41).
+
+    src:   (nblocks, emax) int32 global source ids (pad slots: 0).
+    dstl:  (nblocks, emax) int32 destination row LOCAL to the block; over a
+           block's valid slots it is non-decreasing (the kernels rely on it).
+    mask:  (nblocks, emax) f32, 1 for a real edge, 0 for a pad slot.
+    tile_m: rows per block; num_vertices: real vertex count.
+    eidx:  (nblocks, emax) int32 original edge index of each slot (pad
+           slots: 0), so per-edge data regroups with one gather.
+    """
+
+    src: torch.Tensor
+    dstl: torch.Tensor
+    mask: torch.Tensor
+    tile_m: int
+    num_vertices: int
+    eidx: Optional[torch.Tensor] = None
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def emax(self) -> int:
+        return int(self.src.shape[1])
+
+
+def block_offsets(block_ids: np.ndarray, nblocks: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-edge offset within its block (``block_offsets``, :70).
+
+    ``block_ids`` must be non-decreasing (edges are dst-sorted).  Returns
+    (counts, offsets): edge e lands at [block_ids[e], offsets[e]].
+    """
+    counts = np.bincount(block_ids, minlength=nblocks)
+    starts = np.zeros(nblocks + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    offsets = np.arange(len(block_ids), dtype=np.int64) - starts[block_ids]
+    return counts, offsets
+
+
+def block_graph(g: Graph, tile_m: int) -> BlockedGraph:
+    """Host-side regroup of a destination-sorted graph into row blocks
+    (``block_graph``, :85), placed on the graph's device."""
+    return block_graph_arrays(g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                              g.num_vertices, tile_m, device=g.device)
+
+
+def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+                       tile_m: int, *, device="cpu") -> BlockedGraph:
+    """``block_graph`` over raw dst-sorted arrays (``block_graph_arrays``,
+    :91).  ``num_vertices`` is the destination row count; ``emax`` is the
+    largest block's edge count rounded up to 8 (at least 8)."""
+    src = np.asarray(src)
+    dst = np.asarray(dst)
+    v = int(num_vertices)
+    nblocks = -(-v // tile_m)
+    blk = dst // tile_m
+    counts, offs = block_offsets(blk, nblocks)
+    emax = max(8, int(-(-(counts.max() if len(src) else 1) // 8) * 8))
+    bs = np.zeros((nblocks, emax), np.int32)
+    bd = np.zeros((nblocks, emax), np.int32)
+    bm = np.zeros((nblocks, emax), np.float32)
+    be = np.zeros((nblocks, emax), np.int32)
+    bs[blk, offs] = src
+    bd[blk, offs] = dst - blk * tile_m
+    bm[blk, offs] = 1.0
+    be[blk, offs] = np.arange(len(src), dtype=np.int32)
+    dev = torch.device(device)
+    return BlockedGraph(*(torch.from_numpy(a).to(dev)
+                          for a in (bs, bd, bm)), tile_m, v,
+                        torch.from_numpy(be).to(dev))
+
+
+def suggest_tile_m(in_len: int, out_len: int, avg_deg: float,
+                   dtype_bytes: int = 4,
+                   machine: Optional[Machine] = None) -> int:
+    """Largest aligned tile whose fused working set fits the on-chip budget
+    (``suggest_tile_m``, :121), priced on ``machine`` (default ``H100``).
+
+    Working set per block row: input + output row + the gathered rows
+    stream (avg_deg * in, double-buffered).  On a GPU the tile fits a
+    per-CTA share of the SM carveout, warp-aligned and at most 256 rows; on
+    a TPU it fits half of VMEM beside W.
+    """
+    machine = get_machine(machine)
+    per_row = (in_len + out_len + 2 * avg_deg * in_len) * dtype_bytes
+    if machine.kind == "gpu":
+        warp = machine.row_align
+        m = max(warp, int(machine.tile_budget() / max(per_row, 1)))
+        m = (m // warp) * warp
+        return int(max(warp, min(256, m)))
+    align = machine.row_align
+    w = in_len * out_len * dtype_bytes
+    m = max(align, int((machine.tile_budget() - w) / max(per_row, 1)))
+    return int(max(align, min(4096, (m // align) * align)))
+
+
+def fused_gcn_layer(bg: BlockedGraph, x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None, *,
+                    agg_op: str = "mean",
+                    in_deg: Optional[torch.Tensor] = None,
+                    backend: str = "torch") -> torch.Tensor:
+    """Aggregate-then-combine per vertex block (``fused_gcn_layer``, :169).
+
+    Semantics: combine(aggregate(x)) with a single matmul.  The blocked
+    neighbour sum and ``@ w`` run fused (``kernels.ops.fused_agg_combine``);
+    the self term and the mean normalization are linear and applied after
+    the product, outside the kernel, as in the reference (:200-211):
+    ``agg_op`` is "mean" (self + reciprocal of in_deg+1), "sum_self" or
+    "sum".  x: (V, F_in); w: (F_in, F_out).
+    """
+    from repro_torch.core.phases import _mm
+    from repro_torch.kernels import ops as kops
+    out = kops.fused_agg_combine(bg.src, bg.dstl, bg.mask, x, w,
+                                 tile_m=bg.tile_m, backend=backend)
+    out = out[: bg.num_vertices]
+    if agg_op == "mean":
+        if in_deg is None:
+            raise ValueError("agg_op='mean' needs in_deg")
+        out = (out + _mm(x[: bg.num_vertices], w)) * (
+            1.0 / (in_deg.to(out.dtype) + 1.0))[:, None]
+    elif agg_op == "sum_self":
+        out = out + _mm(x[: bg.num_vertices], w)
+    if bias is not None:
+        out = out + bias
+    return out

@@ -1,0 +1,165 @@
+"""The kernels' plain versions against the JAX package's Pallas kernels.
+
+``seg_agg_plain`` / ``fused_agg_combine_plain`` (what the CUDA kernels are
+held against on the card) must match ``seg_agg_blocked`` /
+``fused_agg_combine_blocked`` run in interpret mode, as tests/test_kernels.py
+runs them, and the ``ref.py`` oracles of both packages.  The Pallas kernels
+take pre-gathered rows, so the rows are gathered here with numpy; the
+port's kernels gather ``x`` themselves.  The CUDA kernels need a card:
+tests/test_torch_cuda.py holds them against these plain versions there.
+"""
+
+import numpy as np
+import pytest
+import torch
+from tolerance import assert_allclose_dtype
+
+from repro.config import CORA, reduced_graph
+from repro.core.dataflow import block_graph as jblock_graph
+from repro.graph.datasets import make_synthetic_graph
+from repro.kernels import ref as jref
+from repro.kernels.fused_agg_combine import fused_agg_combine_blocked
+from repro.kernels.seg_agg import seg_agg_blocked
+from repro_torch.kernels import fused_agg_combine as k2
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import seg_agg as k1
+
+torch.set_num_threads(2)
+
+RNG = np.random.default_rng(7)
+GRAPH = make_synthetic_graph(reduced_graph(CORA, 512, 64))
+
+
+def _layout(kind, tile_m):
+    """(src, dstl, mask) numpy arrays: the reference's blocked layout of a
+    reduced Cora ("graph"), or random slots with unsorted local rows and
+    ~20% pad slots ("random"), as tests/test_kernels.py draws them."""
+    if kind == "graph":
+        bg = jblock_graph(GRAPH, tile_m)
+        return (np.asarray(bg.src), np.asarray(bg.dstl), np.asarray(bg.mask),
+                GRAPH.num_vertices)
+    nblocks, emax, v = 3, 40, 97
+    return (RNG.integers(0, v, (nblocks, emax)).astype(np.int32),
+            RNG.integers(0, tile_m, (nblocks, emax)).astype(np.int32),
+            (RNG.random((nblocks, emax)) < 0.8).astype(np.float32), v)
+
+
+def _pallas_inputs(x, src, dstl, mask, tile_e=8):
+    """Rows gathered on the host and emax padded to a tile_e multiple."""
+    nblocks, emax = src.shape
+    pad = -emax % tile_e
+    rows = np.pad(x[src], ((0, 0), (0, pad), (0, 0)))
+    return (rows, np.pad(dstl, ((0, 0), (0, pad))),
+            np.pad(mask, ((0, 0), (0, pad))))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("kind,tile_m,f", [("graph", 32, 7), ("graph", 128, 64),
+                                           ("random", 16, 33)])
+def test_seg_agg_plain_matches_pallas_kernel(kind, tile_m, f):
+    src, dstl, mask, v = _layout(kind, tile_m)
+    x = RNG.standard_normal((v, f)).astype(np.float32)
+    rows, seg_p, mask_p = _pallas_inputs(x, src, dstl, mask)
+    want = seg_agg_blocked(rows, seg_p, mask_p, tile_m=tile_m,
+                           tile_e=rows.shape[1], interpret=True)
+    got = k1.seg_agg_plain(*_t(x, src, dstl, mask), tile_m=tile_m)
+    assert got.shape == tuple(want.shape)
+    assert_allclose_dtype(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind,tile_m", [("graph", 32), ("random", 16)])
+def test_seg_agg_plain_matches_oracles_with_weight(kind, tile_m):
+    src, dstl, mask, v = _layout(kind, tile_m)
+    nblocks, emax = src.shape
+    x = RNG.standard_normal((v, 24)).astype(np.float32)
+    weight = RNG.random((nblocks, emax)).astype(np.float32)
+    gseg = (dstl + np.arange(nblocks)[:, None] * tile_m).reshape(-1)
+    rows = (x[src] * weight[..., None]).reshape(-1, 24)
+    want_j = jref.seg_agg_ref(rows, gseg, mask.reshape(-1), nblocks * tile_m)
+    want_t = tref.seg_agg_ref(*_t(rows, gseg, mask.reshape(-1)),
+                              nblocks * tile_m)
+    got = k1.seg_agg_plain(*_t(x, src, dstl, mask, weight), tile_m=tile_m)
+    assert_allclose_dtype(want_t.numpy(), np.asarray(want_j))
+    assert_allclose_dtype(got.numpy(), np.asarray(want_j))
+
+
+def test_seg_agg_plain_skips_pad_slots():
+    """Pad slots point at row 0 with mask 0: a non-finite row 0 must not
+    reach the output (skipped, not multiplied by 0, which gives NaN)."""
+    src, dstl, mask, v = _layout("graph", 32)
+    src = np.where(mask > 0, np.maximum(src, 1), 0).astype(np.int32)
+    x = RNG.standard_normal((v, 8)).astype(np.float32)
+    x[0] = np.inf
+    got = k1.seg_agg_plain(*_t(x, src, dstl, mask), tile_m=32)
+    assert torch.isfinite(got).all()
+    got = k2.fused_agg_combine_plain(*_t(x, src, dstl, mask, np.eye(8, 4,
+                                     dtype=np.float32)), tile_m=32)
+    assert torch.isfinite(got).all()
+
+
+def test_seg_agg_plain_chunking_is_exact(monkeypatch):
+    """The plain version folds a chunk of blocks at a time; the chunk size
+    does not change a bit of the result."""
+    src, dstl, mask, v = _layout("graph", 32)
+    x = RNG.standard_normal((v, 16)).astype(np.float32)
+    whole = k1.seg_agg_plain(*_t(x, src, dstl, mask), tile_m=32)
+    monkeypatch.setattr(k1, "PLAIN_CHUNK_BYTES", 1)     # one block a step
+    stepped = k1.seg_agg_plain(*_t(x, src, dstl, mask), tile_m=32)
+    assert_allclose_dtype(stepped.numpy(), whole.numpy(), bitwise=True)
+
+
+@pytest.mark.parametrize("kind,tile_m,fi,fo", [("graph", 32, 64, 7),
+                                               ("graph", 32, 300, 16),
+                                               ("random", 16, 40, 24)])
+def test_fused_agg_combine_plain_matches_pallas_kernel(kind, tile_m, fi, fo):
+    """scale=10, as tests/test_kernels.py uses for this kernel: the Pallas
+    kernel reduces through a one-hot matmul and then multiplies, the plain
+    version adds the rows and multiplies -- two f32 summation orders."""
+    src, dstl, mask, v = _layout(kind, tile_m)
+    x = RNG.standard_normal((v, fi)).astype(np.float32)
+    w = (RNG.standard_normal((fi, fo)) * 0.1).astype(np.float32)
+    rows, seg_p, mask_p = _pallas_inputs(x, src, dstl, mask)
+    want = fused_agg_combine_blocked(rows, seg_p, mask_p, w, tile_m=tile_m,
+                                     tile_e=rows.shape[1], interpret=True)
+    got = k2.fused_agg_combine_plain(*_t(x, src, dstl, mask, w),
+                                     tile_m=tile_m)
+    assert got.shape == tuple(want.shape)
+    assert_allclose_dtype(got.numpy(), np.asarray(want), scale=10)
+    nblocks = src.shape[0]
+    gseg = (dstl + np.arange(nblocks)[:, None] * tile_m).reshape(-1)
+    oracle = jref.fused_agg_combine_ref(x[src].reshape(-1, fi), gseg,
+                                        mask.reshape(-1), w, nblocks * tile_m)
+    toracle = tref.fused_agg_combine_ref(
+        *_t(x[src].reshape(-1, fi), gseg, mask.reshape(-1), w),
+        nblocks * tile_m)
+    assert_allclose_dtype(got.numpy(), np.asarray(oracle))
+    assert_allclose_dtype(toracle.numpy(), np.asarray(oracle))
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    """On a CPU tensor the wrapper runs the plain version and launches
+    nothing: its count stays put."""
+    src, dstl, mask, v = _layout("graph", 32)
+    x = RNG.standard_normal((v, 16)).astype(np.float32)
+    w = RNG.standard_normal((16, 5)).astype(np.float32)
+    n1, n2 = k1.seg_agg.launches, k2.fused_agg_combine.launches
+    a = k1.seg_agg(*_t(x, src, dstl, mask), tile_m=32)
+    b = k2.fused_agg_combine(*_t(x, src, dstl, mask, w), tile_m=32)
+    assert_allclose_dtype(
+        a.numpy(), k1.seg_agg_plain(*_t(x, src, dstl, mask),
+                                    tile_m=32).numpy(), bitwise=True)
+    assert_allclose_dtype(
+        b.numpy(), k2.fused_agg_combine_plain(*_t(x, src, dstl, mask, w),
+                                              tile_m=32).numpy(),
+        bitwise=True)
+    assert (k1.seg_agg.launches, k2.fused_agg_combine.launches) == (n1, n2)
+
+
+def test_fused_shared_memory_budget():
+    """The fused kernel's per-block shared memory at the main path's tiles
+    fits the H100's 227 KB; the wrapper's formula is what it checks."""
+    assert k2.smem_bytes(32, 128) + k2._STATIC_SMEM <= k2._H100_SMEM_OPTIN
+    assert k2.smem_bytes(256, 1024) + k2._STATIC_SMEM > k2._H100_SMEM_OPTIN
