@@ -18,6 +18,18 @@ Phases, each printing its own lines; any failure exits non-zero:
                 GCNModel with backend="auto"; launch counts of both
                 kernels, logits against the torch tier on the same card,
                 forward time and peak memory.
+  5. flash   -- K5 (flash_attention) against its plain version in f32 and
+                bf16 at gemma2's and granite's prefill shapes, the kv_len
+                contract and a non-causal case; times of kernel, plain
+                version and a library call (scaled_dot_product_attention
+                where it computes the same function, flex_attention with a
+                tanh score_mod where it compiles).
+  6. lm      -- gemma2-9b at full width and depth (42 layers, bf16, seeded
+                random weights) through the port's ServeEngine: a wave of
+                8 greedy requests of 17 to 6144 prompt tokens, 16 tokens
+                each; K5's launch count, prefill logits against an engine
+                on the torch tier on the same card, prefill, first-token
+                and decode times, tokens/s, peak memory.
 
 The last three lines are nvidia-smi's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and the result line.  The full
@@ -27,6 +39,7 @@ per-shape table is also written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -34,10 +47,32 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
-#: the tensor cores -- both kernels compute in plain f32
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
+#: tensor cores (K1 and K2 compute in plain f32) and bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+#: the bf16 band (tests/tolerance.py): K5 and its plain version both
+#: compute in f32 and round once to bf16, so they differ by about one bf16
+#: ulp of the largest magnitude
+BF16_BAND = 3e-2
+#: K5 shapes: name -> (B, Hq, Hkv, Sq, Sk, D, causal, window, softcap,
+#: kv_len).  (a)/(b) gemma2-9b's global and local prefill layers at the
+#: longest prompt of phase 6, (c) a ragged short gemma2 prompt, (d) a
+#: granite-3-8b layer, (e) the right-aligned kv_len contract, (f) the
+#: reference test's non-causal case.
+FLASH_SHAPES = {
+    "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
+    "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
+    "c": (1, 16, 8, 17, 17, 256, True, 4096, 50.0, None),
+    "d": (1, 32, 8, 4096, 4096, 128, True, 0, 0.0, None),
+    "e": (2, 16, 8, 8, 300, 256, True, 0, 0.0, (50, 300)),
+    "f": (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),
+}
+#: phase 6: the wave's prompt lengths (two of them past gemma2's 4096
+#: window, so the local layers mask rows), slots, cache and tokens
+LM_PROMPTS = (17, 100, 512, 1000, 2048, 4097, 6144, 33)
+LM_MAX_BATCH, LM_CACHE, LM_TOKENS = 4, 6400, 16
 #: unit f32 band (tests/tolerance.py) and the slack this script allows:
 #: kernel and plain version add in different orders (slot order vs the
 #: atomics of index_add_; slab-wise FMA vs cuBLAS), so results agree to a
@@ -81,9 +116,10 @@ def max_err(a, b) -> tuple[float, float]:
     return err, tol
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak: float = F32_FLOPS) -> tuple[float, str]:
     """Least milliseconds for the work on the card, and what sets it."""
-    t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / F32_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -148,7 +184,7 @@ def check_kernels(graphs, models):
             torch.cuda.synchronize()
             err, tol = max_err(out_k, out_p)
             ok = bool(torch.isfinite(out_k).all().item()) and err <= tol
-            del out_k, out_p
+            del out_k
             b_ms, b_by = bound(nbytes, ops)
             rec = {"name": kname, "graph": gname, "f_in": f_in,
                    "f_out": f_out, "tile_m": bg.tile_m, "nblocks": bg.nblocks,
@@ -202,7 +238,323 @@ def drive_main_path(g, x, spec):
     return models, logits, counts, peak
 
 
+def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
+    """(query, key) pairs K5 must compute: summed over the batch, the keys
+    each query row may see (right-aligned positions, as the kernel)."""
+    import numpy as np
+    total = 0
+    for n in kv_len:
+        qpos = n - sq + np.arange(sq, dtype=np.int64)
+        hi = np.minimum(qpos + 1, n) if causal else np.full(sq, n)
+        lo = np.maximum(qpos - window + 1, 0) if window > 0 else 0
+        total += int(np.clip(hi - lo, 0, None).sum())
+    return total
+
+
+def flash_library(shape, q, k, v, want, tol):
+    """(milliseconds, note) of one PyTorch call computing the same function
+    as K5 at ``shape`` -- held against the plain version's ``want`` within
+    ``tol`` -- or (None, reason).  A yardstick: the port never calls
+    these."""
+    import torch
+    import torch.nn.functional as F
+    b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
+
+    def timed(fn, note):
+        err = (fn().float() - want.float()).abs().max().item()
+        if not err <= tol:
+            return None, f"none: {note} differs from the plain version by " \
+                f"{err:.3e}"
+        return time_ms(fn, 5), f"{note}, max_abs_err {err:.3e}"
+
+    if kv_len is None and sq == sk and cap == 0 and window == 0:
+        g = hq // hkv
+        ke = k.repeat_interleave(g, dim=1)   # outside the timed region
+        ve = v.repeat_interleave(g, dim=1)
+        return timed(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=causal),
+            "scaled_dot_product_attention, K/V expanded")
+    if not (kv_len is None and sq == sk and causal and cap > 0
+            and q.dtype == torch.bfloat16 and sq >= 1024):
+        return None, "none: no PyTorch call computes this shape's function"
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def score_mod(score, bi, hi, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        def mask_mod(bi, hi, qi, ki):
+            m = ki <= qi
+            return m & (ki > qi - window) if window > 0 else m
+
+        block_mask = create_block_mask(mask_mod, None, None, sq, sk,
+                                       device=q.device)
+        flex = torch.compile(flex_attention)
+        return timed(lambda: flex(q, k, v, score_mod=score_mod,
+                                  block_mask=block_mask, enable_gqa=True),
+                     "flex_attention (torch.compile), tanh score_mod, "
+                     "block mask")
+    except Exception as e:  # a yardstick only: K5's checks do not need it
+        return None, f"none: flex_attention did not run ({type(e).__name__}:" \
+            f" {str(e).splitlines()[0][:160] if str(e) else ''})"
+
+
+def check_flash():
+    """Phase 5: K5 against its plain version at FLASH_SHAPES, f32 and bf16.
+    Returns one record per (shape, dtype)."""
+    import torch
+    from repro_torch.kernels import flash_attention as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = []
+    for name, shape in FLASH_SHAPES.items():
+        b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shp, generator=gen, device="cuda",
+                                   dtype=dtype)
+                       for shp in ((b, hq, sq, d), (b, hkv, sk, d),
+                                   (b, hkv, sk, d)))
+            kvl = None if kv_len is None else torch.tensor(
+                kv_len, dtype=torch.int32, device="cuda")
+            kw = dict(causal=causal, window=window, softcap=cap)
+            kern = lambda: k5.flash_attention(q, k, v, kvl, **kw)  # noqa
+            plain = lambda: k5.flash_attention_plain(  # noqa: E731
+                q, k, v, kvl, **kw)
+            out_k, out_p = kern(), plain()
+            torch.cuda.synchronize()
+            err = (out_k.float() - out_p.float()).abs().max().item()
+            band = F32_BAND * SCALE if dtype == torch.float32 else BF16_BAND
+            tol = band * max(1.0, out_p.float().abs().max().item())
+            ok = bool(torch.isfinite(out_k).all().item()) and err <= tol
+            del out_k
+            elt = q.element_size()
+            pairs = unmasked_pairs(sq, sk, causal, window,
+                                   kv_len or (sk,) * b)
+            ops = 4 * d * hq * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt + 4 * b
+            peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            b_ms, b_by = bound(nbytes, ops, peak)
+            ms = time_ms(kern, 5)
+            lib_ms, lib_note = flash_library(shape, q, k, v, out_p, tol)
+            del out_p
+            rec = {"name": "flash_attention", "shape": name,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk, "d": d,
+                   "causal": causal, "window": window, "softcap": cap,
+                   "kv_len": kv_len, "max_abs_err": err, "tol": tol,
+                   "ms": ms, "plain_ms": time_ms(plain, 2),
+                   "pairs": pairs, "bytes": nbytes, "ops": ops,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms, "library": lib_note,
+                   "tflops": ops / ms / 1e9}
+            records.append(rec)
+            print(f"[flash] ({name}) {rec['dtype']:8s} B={b} Hq={hq} "
+                  f"Hkv={hkv} Sq={sq} Sk={sk} D={d} causal={causal} "
+                  f"window={window} cap={cap} kv_len={kv_len} "
+                  f"max_abs_err={err:.3e} tol={tol:.3e} ms={ms:.4f} "
+                  f"plain_ms={rec['plain_ms']:.4f} library_ms={lib_ms} "
+                  f"[{lib_note}] bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, "
+                  f"{ops} ops) achieved {rec['tflops']:.2f} TFLOP/s",
+                  flush=True)
+            if not ok:
+                fail(f"flash_attention ({name}) {dtype}: kernel and plain "
+                     f"version differ by {err:.3e} (tolerance {tol:.3e})")
+            del q, k, v
+    return records
+
+
+def profile_lm(model, eng, prompts):
+    """Where the time of one short prefill, one long prefill and one decode
+    step goes: torch.profiler traces each (after the wave, so warm), and
+    the kernel events of the trace give the device's busy time, K5's part
+    of it and the share of the wall time the device is idle.  Traces land
+    in chiprun_out/traces/."""
+    import torch
+    from repro_torch.models.transformer import lm_decode_step, lm_prefill
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir = ROOT / "chiprun_out" / "traces"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dev = model.device
+    toks = torch.as_tensor(eng._last_tokens, device=dev)
+    work = {f"prefill_{len(prompts[0])}": lambda: lm_prefill(
+                model, torch.as_tensor(prompts[0][None], device=dev),
+                LM_CACHE),
+            f"prefill_{len(prompts[6])}": lambda: lm_prefill(
+                model, torch.as_tensor(prompts[6][None], device=dev),
+                LM_CACHE),
+            "decode_step": lambda: lm_decode_step(
+                model, toks, eng._caches, eng._length)}
+    rows = {}
+    for name, fn in work.items():
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        path = out_dir / f"{name}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())
+        events = events.get("traceEvents", events)
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        busy = sum(e["dur"] for e in kern) / 1e3
+        k5_ms = sum(e["dur"] for e in kern
+                    if "flash_attention_kernel" in e.get("name", "")) / 1e3
+        rows[name] = {"wall_ms": wall, "kernels": len(kern),
+                      "device_busy_ms": busy, "k5_ms": k5_ms,
+                      "idle_share": 1 - busy / wall if kern else None}
+        print(f"[lm] profile {name}: wall {wall:.2f} ms, {len(kern)} "
+              f"kernels, device busy {busy:.2f} ms (K5 {k5_ms:.2f} ms), "
+              f"device idle "
+              + (f"{100 * (1 - busy / wall):.1f}%" if kern else
+                 "not measured (no kernel in the trace)"), flush=True)
+    return rows
+
+
+def drive_lm():
+    """Phase 6: gemma2-9b at full width and depth through the port's
+    ServeEngine (attn_impl="auto": K5 for every prefill), then the same
+    wave on the torch tier on the same card with the same weights.
+    Returns the measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    class TimedEngine(ServeEngine):
+        """ServeEngine that records per request the prefill's last-position
+        logits, its time and the time to first token, and per step the
+        decode time and any K5 launch."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.first_logits, self.prefill_ms, self.ttft_ms = {}, {}, {}
+            self.step_ms, self.decode_launches = [], 0
+
+        def _prefill_into_slot(self, slot, req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._prefill_into_slot(slot, req)   # ends in a host copy
+            self.prefill_ms[req.rid] = (time.perf_counter() - t0) * 1e3
+            self.ttft_ms[req.rid] = (time.time() - req.enqueue_t) * 1e3
+
+        def _sample(self, logits, req):
+            if not req.output:
+                self.first_logits[req.rid] = np.array(logits, np.float32)
+            return super()._sample(logits, req)
+
+        def _step(self):
+            n, t0 = k5.flash_attention.launches, time.perf_counter()
+            done = super()._step()                  # ends in a host copy
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.decode_launches += k5.flash_attention.launches - n
+            return done
+
+    cfg = get_config("gemma2-9b")
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters in {cfg.dtype}, made on "
+          f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in LM_PROMPTS]
+
+    def serve(attn_impl):
+        eng = TimedEngine(cfg, model, max_batch=LM_MAX_BATCH,
+                          cache_size=LM_CACHE, attn_impl=attn_impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=LM_TOKENS))
+        done = eng.run()
+        wall = time.perf_counter() - t0
+        launches = k5.flash_attention.launches
+        return eng, done, wall, launches, torch.cuda.max_memory_allocated()
+
+    eng, done, wall, launches, peak = serve("auto")
+    outputs = {r.rid: list(r.output) for r in done}
+    n_tok = sum(len(o) for o in outputs.values())
+    stats = eng.stats()
+    for rid, n in enumerate(LM_PROMPTS):
+        print(f"[lm] prompt {n:5d} tokens: prefill {eng.prefill_ms[rid]:.1f}"
+              f" ms, time to first token {eng.ttft_ms[rid]:.1f} ms",
+              flush=True)
+    steps = sorted(eng.step_ms)
+    print(f"[lm] K5 launches {launches} (expected {cfg.num_layers} x "
+          f"{len(LM_PROMPTS)} prefills = {cfg.num_layers * len(LM_PROMPTS)})"
+          f", in decode steps {eng.decode_launches}; {len(steps)} decode "
+          f"steps, median {steps[len(steps) // 2]:.2f} ms, mean "
+          f"{sum(steps) / len(steps):.2f} ms; {n_tok} tokens in {wall:.2f}"
+          f" s = {n_tok / wall:.1f} tokens/s; latency p50 "
+          f"{stats['p50_ms']:.0f} ms p99 {stats['p99_ms']:.0f} ms; peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    if launches != cfg.num_layers * len(LM_PROMPTS) or eng.decode_launches:
+        fail(f"K5 launches {launches} (decode {eng.decode_launches}); "
+             f"expected one per attention layer per prefill and none in "
+             f"decode")
+    for rid in range(len(LM_PROMPTS)):
+        out = outputs.get(rid, [])
+        if len(out) != LM_TOKENS or not all(0 <= t < cfg.vocab_size
+                                            for t in out):
+            fail(f"request {rid}: {len(out)} tokens {out[:4]}..., expected "
+                 f"{LM_TOKENS} in [0, {cfg.vocab_size})")
+    first = eng.first_logits
+    rec = {"prefill_ms": eng.prefill_ms, "ttft_ms": eng.ttft_ms,
+           "decode_step_ms": eng.step_ms, "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "peak_bytes": peak,
+           "launches": launches, "stats": stats,
+           "profile": profile_lm(model, eng, prompts)}
+    del eng
+    torch.cuda.empty_cache()
+
+    ref, ref_done, ref_wall, ref_launches, _ = serve("torch")
+    ref_out = {r.rid: list(r.output) for r in ref_done}
+    if ref_launches:
+        fail(f"the torch tier launched K5 {ref_launches} times")
+    worst = 0.0
+    for rid, n in enumerate(LM_PROMPTS):
+        a, b = first[rid], ref.first_logits[rid]
+        err = float(np.abs(a - b).max())
+        tol = BF16_BAND * max(1.0, float(np.abs(b).max()))
+        agree = sum(x == y for x, y in zip(outputs[rid], ref_out[rid]))
+        worst = max(worst, err / tol)
+        print(f"[lm] prompt {n:5d}: prefill logits vs torch tier "
+              f"max_abs_err={err:.3e} tol={tol:.3e} (largest "
+              f"{np.abs(b).max():.3f}); greedy tokens {agree} of "
+              f"{LM_TOKENS} agree; torch-tier prefill "
+              f"{ref.prefill_ms[rid]:.1f} ms", flush=True)
+        if not (np.isfinite(a).all() and err <= tol):
+            fail(f"prompt {n}: prefill logits off the torch tier by {err:.3e}"
+                 f" (tolerance {tol:.3e})")
+    rsteps = sorted(ref.step_ms)
+    print(f"[lm] torch tier: {ref_wall:.2f} s for the wave, decode step "
+          f"median {rsteps[len(rsteps) // 2]:.2f} ms", flush=True)
+    rec.update(torch_tier_prefill_ms=ref.prefill_ms,
+               torch_tier_wall_s=ref_wall, worst_err_over_tol=worst)
+    del ref, model
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> None:
+    # the flex_attention yardstick compiles with inductor and Triton: keep
+    # their caches inside the checkout and compile in this process
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -285,6 +637,16 @@ def main() -> None:
                 fail(f"{name} fused={fused}: logits off the torch tier by "
                      f"{err:.3e} or off the other fusion by {cross:.3e}")
             del ref
+    del models, logits, graphs, g_red, x_red
+    torch.cuda.empty_cache()
+
+    # -- 5. K5 against its plain version
+    flash = check_flash()
+
+    # -- 6. the LM serving path: gemma2-9b through the ServeEngine
+    t0 = time.perf_counter()
+    lm = drive_lm()
+    print(f"[lm] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -292,7 +654,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "launches": counts,
-         "peak_bytes": peak, "records": records}, indent=1))
+         "peak_bytes": peak, "records": records, "flash": flash, "lm": lm},
+        indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape
     main_shape = {"seg_agg": (128, 128), "fused_agg_combine": (602, 128)}
@@ -314,6 +677,17 @@ def main() -> None:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"]})
+    rec = next(r for r in flash if r["shape"] == "a" and
+               r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:111",
+        "launches": lm["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash),
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,17 @@
-"""GCN model configs and the paper's Table-2 graph specs.
+"""GCN and LM model configs, the paper's Table-2 graph specs, the registry.
 
-A copy of the GCN part of ``repro/config.py`` (``GCNModelConfig``,
-``GraphSpec``, the Table-2 specs and ``reduced_graph``), kept here so the
-port imports nothing of the JAX package.
+A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
+(``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
+the LM part (``AttentionConfig``, ``LMConfig``, :96-195) and the registry
+(``register``/``get_config``, :349-373) -- kept here so the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -60,3 +62,116 @@ def reduced_graph(spec: GraphSpec, max_vertices: int = 512,
     return dataclasses.replace(
         spec, name=spec.name + "_small", num_vertices=nv, num_edges=ne,
         feature_len=min(spec.feature_len, max_feature))
+
+
+# ---------------------------------------------------------------------------
+# LM architecture configs (``repro/config.py`` :96-195)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    # gemma2: alternate sliding-window ("local") and full ("global") layers.
+    sliding_window: int = 0  # 0 = full attention everywhere
+    local_global_alternate: bool = False
+    logit_softcap: float = 0.0  # gemma2 uses 50.0
+    attn_logit_softcap: float = 0.0
+    rope_theta: float = 10000.0
+    causal: bool = True
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """A decoder-style transformer backbone.  The MoE, SSM and enc-dec
+    fields are kept so the published configs copy over unchanged; the
+    port's model raises ``NotImplementedError`` on them."""
+
+    name: str
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
+    num_layers: int
+    d_model: int
+    d_ff: int
+    vocab_size: int
+    attention: Optional[AttentionConfig] = None
+    moe: Optional[Any] = None   # repro.config.MoEConfig (not ported)
+    ssm: Optional[Any] = None   # repro.config.SSMConfig (not ported)
+    # hybrid (jamba): one attention layer per `attn_every` layers, rest SSM.
+    attn_every: int = 0
+    # enc-dec (seamless): encoder layer count (decoder = num_layers).
+    encoder_layers: int = 0
+    # activation: "swiglu" (3-matrix) | "geglu" | "gelu" (2-matrix)
+    mlp_activation: str = "swiglu"
+    tie_embeddings: bool = False
+    final_logit_softcap: float = 0.0
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    frontend_stub: bool = False
+    shape_skips: Tuple[str, ...] = ()
+    skip_reason: str = ""
+    source: str = ""
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding-table rows: vocab padded to a multiple of 256.  Logits
+        beyond ``vocab_size`` are masked to -1e30."""
+        return -(-self.vocab_size // 256) * 256
+
+    def layer_is_attention(self, i: int) -> bool:
+        if self.ssm is None:
+            return True
+        if self.attention is None:
+            return False
+        if self.attn_every <= 0:
+            return True
+        return i % self.attn_every == self.attn_every // 2
+
+    def layer_is_moe(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        if self.moe.layer_pattern == "all":
+            return True
+        if self.moe.layer_pattern == "every_2":
+            return i % 2 == 1
+        raise ValueError(self.moe.layer_pattern)
+
+    def layer_is_local(self, i: int) -> bool:
+        a = self.attention
+        if a is None or not a.local_global_alternate:
+            return False
+        return i % 2 == 0  # even layers sliding-window (gemma2 convention)
+
+
+# ---------------------------------------------------------------------------
+# Registry (``repro/config.py`` :349-373)
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable[[], Any]] = {}
+
+
+def register(name: str):
+    def deco(fn: Callable[[], Any]):
+        if name in _REGISTRY:
+            raise ValueError(f"duplicate arch {name!r}")
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def get_config(name: str):
+    """Resolve ``--arch <name>`` to its published config."""
+    from repro_torch import configs as _configs  # noqa: F401
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()

@@ -1,0 +1,162 @@
+"""K5 ``flash_attention``: blockwise online-softmax attention.
+
+Port of the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
+(:111, body ``_flash_kernel`` :40) to the hand-written CUDA kernel
+``csrc/flash_attention.cu``.  q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D),
+kv_len: (B,) int32; GQA reads KV head ``h // (Hq // Hkv)``; q is scaled by
+``D^-0.5`` in q's dtype; query i sits at position ``kv_len[b] - Sq + i``
+(right alignment) for the causal mask and the sliding window
+``kpos > qpos - window``; an optional tanh softcap; running max, sum and
+accumulator in f32; an all-masked row gives 0; one rounding to q's dtype.
+
+``flash_attention`` is the wrapper: tensors on the CPU take
+``flash_attention_plain``, CUDA tensors launch the kernel or raise.
+``flash_attention.launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the kernel's tiles (csrc/flash_attention.cu kTileQ, kTileK)
+TILE_Q, TILE_K = 64, 32
+#: per-block shared memory limit (opt-in) of the H100
+_H100_SMEM_OPTIN = 232448
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: Optional[torch.Tensor] = None, *,
+                          causal: bool = True, window: int = 0,
+                          softcap: float = 0.0, q_chunk: int = 512,
+                          kv_chunk: int = 1024) -> torch.Tensor:
+    """The plain PyTorch version: the same online softmax over KV blocks
+    of ``kv_chunk`` keys, one chunk of ``q_chunk`` queries at a time, so
+    that gemma2's S = 6144 at D = 256 never holds an (S, S) score matrix.
+    GQA goes through a (B, Hkv, G, ...) view; nothing is repeated.  Without
+    ``kv_len`` every batch has Sk valid keys, and KV blocks that are
+    entirely masked for a query chunk are skipped."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    bounded = kv_len is None
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=dev)
+    kvl = kv_len.to(dev).long().view(b, 1, 1, 1, 1)
+    qs = (q * d ** -0.5).reshape(b, hkv, g, sq, d)
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, q_chunk):
+        q1 = min(sq, q0 + q_chunk)
+        qc = qs[:, :, :, q0:q1].float()
+        qpos = kvl - sq + torch.arange(q0, q1, device=dev).view(
+            1, 1, 1, -1, 1)
+        shape = (b, hkv, g, q1 - q0, 1)
+        m_run = torch.full(shape, NEG_INF, device=dev)
+        l_run = torch.zeros(shape, device=dev)
+        acc = torch.zeros(shape[:-1] + (d,), device=dev)
+        for k0 in range(0, sk, kv_chunk):
+            k1 = min(sk, k0 + kv_chunk)
+            if bounded and ((causal and k0 > sk - sq + q1 - 1) or (
+                    window > 0 and k1 - 1 <= sk - sq + q0 - window)):
+                continue
+            kpos = torch.arange(k0, k1, device=dev).view(1, 1, 1, 1, -1)
+            mask = kpos < kvl
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window > 0:
+                mask = mask & (kpos > qpos - window)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, k[:, :, k0:k1].float())
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+            m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+            p = torch.exp(torch.where(mask, s - m_safe, NEG_INF))
+            alpha = torch.exp(torch.where(m_run <= NEG_INF / 2, NEG_INF,
+                                          m_run - m_safe))
+            l_run = l_run * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                             v[:, :, k0:k1].float())
+            m_run = m_new
+        o = acc / torch.where(l_run == 0.0, 1.0, l_run)
+        out[:, :, q0:q1] = o.reshape(b, hq, q1 - q0, d).to(q.dtype)
+    return out
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory one launch takes at head dim ``d`` (mirrors the
+    kernel's ``flash_attention_smem_bytes``): the q tile and one K/V tile as
+    f32 with row stride d + 1, and the (TILE_Q, TILE_K + 1) probabilities."""
+    return ((TILE_Q + TILE_K) * (d + 1) + TILE_Q * (TILE_K + 1)) * 4
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[torch.Tensor] = None, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Flash attention: the CUDA kernel for CUDA tensors, the plain version
+    for tensors on the CPU.
+
+    q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), all f32 or all bf16 and
+    contiguous, Hq a multiple of Hkv, D in ``HEAD_DIMS``; kv_len: optional
+    (B,) int32 valid keys per batch, in [0, Sk] (default Sk).  Returns
+    (B, Hq, Sq, D) in q's dtype.  Launches on the current stream and does
+    not synchronize.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_len, causal=causal,
+                                     window=window, softcap=softcap)
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-D (B, H, S, "
+                         f"D); got {tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: q is {q.dtype}, expected "
+                        f"torch.float32 or torch.bfloat16")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    _build.check_args("flash_attention", q.device, {
+        "q": (q, q.dtype, (b, hq, sq, d)),
+        "k": (k, q.dtype, (b, hkv, sk, d)),
+        "v": (v, q.dtype, (b, hkv, sk, d)),
+        "kv_len": (kv_len, torch.int32, (b,))})
+    if d not in HEAD_DIMS or hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: head dim {d} must be one of "
+                         f"{HEAD_DIMS} and Hq={hq} a multiple of Hkv={hkv}")
+    if not (b > 0 and hq > 0 and sq > 0 and sk > 0):
+        raise ValueError(f"flash_attention: empty launch (q {tuple(q.shape)},"
+                         f" k {tuple(k.shape)})")
+    limit = getattr(torch.cuda.get_device_properties(q.device),
+                    "shared_memory_per_block_optin", _H100_SMEM_OPTIN)
+    if smem_bytes(d) > limit:
+        raise ValueError(f"flash_attention: head dim {d} needs "
+                         f"{smem_bytes(d)} bytes of shared memory per block;"
+                         f" this card allows {limit}")
+    out = torch.empty_like(q)
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+        [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
+                 int(window), float(softcap), d ** -0.5,
+                 int(q.dtype == torch.bfloat16),
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA"
+                           f" error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

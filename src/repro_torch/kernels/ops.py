@@ -1,7 +1,8 @@
 """Blocked-layout glue and the tier switch (``repro/kernels/ops.py``).
 
 ``seg_agg_planned`` (:115) and ``fused_agg_combine`` (:167) take a
-plan-owned ``core.dataflow.BlockedGraph`` and dispatch by tier: ``torch``
+plan-owned ``core.dataflow.BlockedGraph``; ``flash_attention`` (:217) takes
+(B, H, S, D) heads.  All three dispatch by tier: ``torch``
 runs the kernels' plain versions on any device, ``cuda`` launches the CUDA
 kernels and raises for tensors that are not on a CUDA device.  No edge rows
 are gathered here: both kernels gather ``x`` themselves, and they walk any
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.backend import CUDA, TORCH, require_device
+from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import fused_agg_combine as k2
 from repro_torch.kernels import seg_agg as k1
 
@@ -59,3 +61,14 @@ def fused_agg_combine(src: torch.Tensor, dst_local: torch.Tensor,
     fn = k2.fused_agg_combine_plain if backend == TORCH \
         else k2.fused_agg_combine
     return fn(x, src, dst_local, mask, w, tile_m=tile_m)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: Optional[torch.Tensor] = None, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, backend: str) -> torch.Tensor:
+    """Online-softmax attention, q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
+    Returns (B, Hq, Sq, D) in q's dtype."""
+    _check_tier(backend, q)
+    fn = k5.flash_attention_plain if backend == TORCH else k5.flash_attention
+    return fn(q, k, v, kv_len, causal=causal, window=window, softcap=softcap)

@@ -1,0 +1,285 @@
+"""Decoder LM backbone: the dense attention stack of the serving path.
+
+Port of ``repro/models/transformer.py``.  The reference stacks the layers'
+parameters per position of a repeating PERIOD and runs them under one
+``lax.scan``; here ``TransformerLM.layers`` is an ``nn.ModuleList`` in
+layer order and a Python loop runs it.  ``LayerPos`` and the period still
+say what each layer is (gemma2: even layers local, sliding-window), and
+``params_from_reference`` maps the stacked pytree onto the list: layer
+``rep * period + i`` is slice ``rep`` of ``pos{i}``.
+
+Entry points (the reference's, with the module in place of ``params`` and
+``cfg``):
+  lm_forward(model, tokens)                      -> logits (B, S, V)
+  lm_prefill(model, tokens, cache_size)          -> (logits, caches, length)
+  lm_decode_step(model, token, caches, length)   -> (logits, caches, length)
+  init_caches(cfg, batch, cache_size, device)    -> zeroed caches
+
+Caches are a list with one ``(k, v)`` pair per layer.  MoE, SSM, the
+enc-dec family and frontend embeddings are not ported and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.config import LMConfig
+from repro_torch.core.backend import resolve_device
+from repro_torch.nn.attention import Attention, KVCache, attention_block
+from repro_torch.nn.layers import (MLP, Embedding, RMSNorm, embed, softcap,
+                                   unembed)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Caches = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# Layer-period machinery
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LayerPos:
+    """Static description of one position inside the repeating period."""
+    index: int
+    kind: str        # "attn" | "ssm"
+    moe: bool
+    local: bool      # sliding-window attention (gemma2 even layers)
+
+
+def layer_period(cfg: LMConfig) -> int:
+    p = 1
+    if cfg.attention is not None and cfg.attention.local_global_alternate:
+        p = math.lcm(p, 2)
+    if cfg.ssm is not None and cfg.attention is not None and cfg.attn_every:
+        p = math.lcm(p, cfg.attn_every)
+    if cfg.moe is not None and cfg.moe.layer_pattern == "every_2":
+        p = math.lcm(p, 2)
+    if cfg.num_layers % p:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers is not a "
+                         f"multiple of the period {p}")
+    return p
+
+
+def layer_positions(cfg: LMConfig) -> List[LayerPos]:
+    return [LayerPos(i,
+                     "attn" if cfg.layer_is_attention(i) else "ssm",
+                     cfg.layer_is_moe(i),
+                     cfg.layer_is_local(i))
+            for i in range(layer_period(cfg))]
+
+
+def _check_supported(cfg: LMConfig) -> None:
+    missing = [what for what, off in (
+        ("MoE", cfg.moe is not None), ("SSM", cfg.ssm is not None),
+        ("enc-dec", cfg.encoder_layers > 0),
+        ("frontend embeddings", cfg.frontend_stub),
+        ("attention-free stacks", cfg.attention is None),
+        ("FFN-free blocks", cfg.d_ff <= 0)) if off]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense attention stacks only; "
+            f"{', '.join(missing)} not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """One transformer block (``_apply_layer``); gemma2 adds the sandwich
+    norms ``ln1_post``/``ln2_post``."""
+
+    def __init__(self, cfg: LMConfig, pos: LayerPos, *, dtype, device,
+                 generator: torch.Generator):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.window = cfg.attention.sliding_window if pos.local else 0
+        self.ln1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg.d_model, cfg.attention, **kw)
+        self.ln2 = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
+        self.sandwich = cfg.name.startswith("gemma2")
+        if self.sandwich:
+            self.ln1_post = RMSNorm(cfg.d_model, device=device)
+            self.ln2_post = RMSNorm(cfg.d_model, device=device)
+
+    def forward(self, x: torch.Tensor, cfg: LMConfig, *,
+                cache: Optional[KVCache] = None, make_cache: bool = False,
+                cache_size: int = 0, attn_impl: str = "auto"):
+        """Returns (x, new_cache)."""
+        eps = cfg.norm_eps
+        out, new_cache = attention_block(
+            self.attn, self.ln1(x, eps), cfg.attention,
+            layer_window=self.window, cache=cache, make_cache=make_cache,
+            cache_size=cache_size, impl=attn_impl)
+        if self.sandwich:
+            out = self.ln1_post(out, eps)
+        x = x + out
+        out = self.mlp(self.ln2(x, eps))
+        if self.sandwich:
+            out = self.ln2_post(out, eps)
+        return x + out, new_cache
+
+
+class TransformerLM(nn.Module):
+    """``embed`` (and ``lm_head`` when untied), ``layers`` in layer order,
+    ``final_ln``.  Weights are drawn from ``generator`` on ``device``
+    (default: a generator seeded with 0 there)."""
+
+    def __init__(self, cfg: LMConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_supported(cfg)
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        kw = dict(dtype=DTYPES[cfg.dtype], device=dev, generator=generator)
+        self.cfg = cfg
+        self.device = dev
+        positions = layer_positions(cfg)
+        period = len(positions)
+        self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
+        self.final_ln = RMSNorm(cfg.d_model, device=dev)
+        self.layers = nn.ModuleList(
+            Block(cfg, positions[n % period], **kw)
+            for n in range(cfg.num_layers))
+        if not cfg.tie_embeddings:
+            self.lm_head = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
+
+    def params_from_reference(self, tree: Dict) -> "TransformerLM":
+        """Load the reference's ``init_lm`` pytree (numpy leaves) in place.
+
+        ``tree["blocks"]["pos{i}"]`` leaves are stacked ``(n_rep, ...)``;
+        layer ``rep * period + i`` takes slice ``rep``.  A ``{"w": ...}``
+        leaf maps onto the parameter named by its parent key.  Raises on a
+        missing or extra leaf or a shape mismatch."""
+        period = len(layer_positions(self.cfg))
+        flat: Dict[str, np.ndarray] = {}
+
+        def walk(prefix, node, rep=None):
+            for key, val in node.items():
+                name = prefix if key == "w" else f"{prefix}.{key}"
+                if isinstance(val, dict):
+                    walk(name, val, rep)
+                else:
+                    flat[name] = val if rep is None else val[rep]
+
+        for key, sub in tree.items():
+            if key != "blocks":
+                walk(key, sub)
+        for pos_key, sub in tree["blocks"].items():
+            i = int(pos_key[len("pos"):])
+            for rep in range(self.cfg.num_layers // period):
+                walk(f"layers.{rep * period + i}", sub, rep)
+        mine = dict(self.named_parameters())
+        if set(flat) != set(mine):
+            raise ValueError(f"parameter names differ: reference only "
+                             f"{sorted(set(flat) - set(mine))}, model only "
+                             f"{sorted(set(mine) - set(flat))}")
+        with torch.no_grad():
+            for name, value in flat.items():
+                value = torch.from_numpy(np.array(value, np.float32))
+                if tuple(value.shape) != tuple(mine[name].shape):
+                    raise ValueError(f"{name}: reference shape "
+                                     f"{tuple(value.shape)} != "
+                                     f"{tuple(mine[name].shape)}")
+                mine[name].copy_(value)
+        return self
+
+    def head_table(self) -> torch.Tensor:
+        return (self.embed if self.cfg.tie_embeddings
+                else self.lm_head).table
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _embed_inputs(model: TransformerLM, tokens: torch.Tensor,
+                  embeds=None) -> torch.Tensor:
+    if embeds is not None:
+        raise NotImplementedError("frontend embeddings (the reference's VLM/"
+                                  "audio stub) are not ported yet")
+    return embed(model.embed.table, tokens.to(model.device),
+                 scale_by_sqrt_d=model.cfg.name.startswith("gemma"))
+
+
+def _run_stack(model: TransformerLM, x: torch.Tensor, *,
+               caches: Optional[Caches] = None, cache_length=None,
+               make_cache: bool = False, cache_size: int = 0,
+               attn_impl: str = "auto"):
+    """Run the layers in order.  Returns (x, new_caches or None)."""
+    cfg = model.cfg
+    new_caches: Caches = []
+    for n, layer in enumerate(model.layers):
+        inner = None
+        if caches is not None:
+            inner = KVCache(caches[n][0], caches[n][1], cache_length)
+        x, new_inner = layer(x, cfg, cache=inner, make_cache=make_cache,
+                             cache_size=cache_size, attn_impl=attn_impl)
+        if new_inner is not None:
+            new_caches.append((new_inner.k, new_inner.v))
+    return x, (new_caches or None)
+
+
+def _logits(model: TransformerLM, x: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = model.final_ln(x, cfg.norm_eps)
+    logits = softcap(unembed(model.head_table(), x), cfg.final_logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:  # mask padding ids
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
+            cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def lm_forward(model: TransformerLM, tokens: torch.Tensor, embeds=None, *,
+               attn_impl: str = "auto") -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> f32 logits (B, S, V)."""
+    x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
+                      attn_impl=attn_impl)
+    return _logits(model, x)
+
+
+def init_caches(cfg: LMConfig, batch: int, cache_size: int,
+                device="cuda") -> Caches:
+    """Zeroed caches, one ``(k, v)`` of (batch, Hkv, cache_size, head_dim)
+    in the model's dtype per layer."""
+    _check_supported(cfg)
+    a = cfg.attention
+    shape = (batch, a.num_kv_heads, cache_size, a.head_dim)
+    dev = resolve_device(device)
+    return [tuple(torch.zeros(shape, dtype=DTYPES[cfg.dtype], device=dev)
+                  for _ in range(2)) for _ in range(cfg.num_layers)]
+
+
+def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cache_size: int,
+               embeds=None, *, attn_impl: str = "auto"):
+    """Forward + cache build.  Returns (last-token logits (B, 1, V),
+    caches padded to ``cache_size``, length () int32)."""
+    x, caches = _run_stack(model, _embed_inputs(model, tokens, embeds),
+                           make_cache=True, cache_size=cache_size,
+                           attn_impl=attn_impl)
+    length = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    return _logits(model, x[:, -1:]), caches, length
+
+
+def lm_decode_step(model: TransformerLM, token: torch.Tensor, caches: Caches,
+                   length: torch.Tensor, *, attn_impl: str = "auto"):
+    """One-token decode.  token: (B, 1); ``length`` () or (B,) int32.
+    Writes the new rows into ``caches`` in place and returns (logits
+    (B, 1, V), caches, length + 1)."""
+    x, new_caches = _run_stack(model, _embed_inputs(model, token),
+                               caches=caches, cache_length=length,
+                               attn_impl=attn_impl)
+    return _logits(model, x), new_caches, length + 1

@@ -1,0 +1,188 @@
+"""GQA attention: projections, the prefill paths, the decode path.
+
+Port of ``repro/nn/attention.py`` for the serving path.  Prefill runs one
+of three paths, chosen by ``attention_block(impl=)``:
+
+  * ``cuda``   -- K5, the hand-written CUDA flash kernel
+    (``kernels/flash_attention.py``), for every prefill on a card;
+  * ``direct`` -- materialize the (Sq, Sk) scores; small sequences, tests;
+  * the torch tier's long path -- K5's plain version (blockwise online
+    softmax), which the reference fills with ``flash_attention_xla``.
+
+Decode (one new token against a padded KV cache whose ``length`` marks
+validity) stays plain PyTorch, as the reference leaves it outside any
+kernel.  GQA never materializes repeated K/V: the einsums run over a
+(B, Hkv, G, ...) view.  Causal masking uses decode-style right alignment
+(see kernels/flash_attention.py).  The reference's sharding hints do
+nothing on one device and are left out.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.config import AttentionConfig
+from repro_torch.core.backend import CUDA, TORCH, resolve_backend
+from repro_torch.kernels import ops
+from repro_torch.nn.layers import apply_rope, init_normal, softcap
+
+NEG_INF = -1e30
+#: the torch tier attends directly up to this many tokens, then runs the
+#: blockwise plain version (the reference's ``s <= 2048`` switch)
+DIRECT_MAX_SEQ = 2048
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor       # (B, Hkv, Smax, D)
+    v: torch.Tensor       # (B, Hkv, Smax, D)
+    length: torch.Tensor  # () or (B,) int32 -- valid entries
+
+
+class Attention(nn.Module):
+    """``wq``/``wk``/``wv`` (d_model, heads * head_dim) and ``wo``."""
+
+    def __init__(self, d_model: int, cfg: AttentionConfig, *, dtype, device,
+                 generator: torch.Generator):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.wq = init_normal((d_model, cfg.q_dim), d_model ** -0.5, **kw)
+        self.wk = init_normal((d_model, cfg.kv_dim), d_model ** -0.5, **kw)
+        self.wv = init_normal((d_model, cfg.kv_dim), d_model ** -0.5, **kw)
+        self.wo = init_normal((cfg.q_dim, d_model), cfg.q_dim ** -0.5, **kw)
+
+
+def _project(p, x: torch.Tensor, cfg: AttentionConfig, positions):
+    """x: (B, S, D) -> q (B,Hq,S,hd), k/v (B,Hkv,S,hd), rope applied."""
+    b, s, _ = x.shape
+    q = (x @ p.wq.to(x.dtype)).view(b, s, cfg.num_heads, cfg.head_dim)
+    k = (x @ p.wk.to(x.dtype)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ p.wv.to(x.dtype)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
+    return q, k, v.transpose(1, 2)
+
+
+def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    b, hq, s, d = q.shape
+    return q.reshape(b, hkv, hq // hkv, s, d)
+
+
+def direct_attention(q, k, v, *, causal: bool, window: int, cap: float,
+                     kv_len=None) -> torch.Tensor:
+    """Scores materialized; ``kv_len`` is a scalar (default Sk)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = _grouped(q, hkv).float() * d ** -0.5
+    s = softcap(torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()), cap)
+    kvl = sk if kv_len is None else int(kv_len)
+    qpos = torch.arange(sq, device=q.device) + (kvl - sq)
+    kpos = torch.arange(sk, device=q.device)
+    m = (kpos[None, :] < kvl).expand(sq, sk)
+    if causal:
+        m = m & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        m = m & (kpos[None, :] > qpos[:, None] - window)
+    s = torch.where(m, s, NEG_INF)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, cache: KVCache, *, window: int = 0,
+                     cap: float = 0.0) -> torch.Tensor:
+    """q: (B, Hq, 1, D) against the padded cache; returns (B, Hq, 1, D).
+
+    ``cache.length`` is () for a uniform batch or (B,) for per-slot lengths
+    (the serving engine's continuous batching)."""
+    b, hq, _, d = q.shape
+    hkv, smax = cache.k.shape[1], cache.k.shape[2]
+    qg = _grouped(q, hkv).float() * d ** -0.5
+    s = softcap(torch.einsum("bhgqd,bhkd->bhgqk", qg, cache.k.float()), cap)
+    kpos = torch.arange(smax, device=q.device)
+    length = cache.length.to(q.device).expand(b)[:, None]
+    m = kpos[None, :] < length                                # (B, Smax)
+    if window > 0:
+        m = m & (kpos[None, :] > length - 1 - window)
+    s = torch.where(m[:, None, None, None, :], s, NEG_INF)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1),
+                     cache.v.float())
+    return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
+                    layer_window: int = 0, cache: Optional[KVCache] = None,
+                    make_cache: bool = False, cache_size: int = 0,
+                    impl: str = "auto",
+                    ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Returns (output (B,S,D), new/updated cache or None).
+
+    ``p`` holds ``wq``/``wk``/``wv``/``wo`` (an ``Attention``).  Modes:
+      * train/eval: cache=None, make_cache=False.
+      * prefill:    cache=None, make_cache=True, cache_size=Smax.
+      * decode:     cache=KVCache, S must be 1.  The new row is written
+                    into the cache tensors IN PLACE at ``cache.length``
+                    (the reference updates functionally; in place saves a
+                    copy of the cache per token) and the returned cache
+                    shares them, with ``length + 1``.
+
+    ``impl`` picks the prefill path: ``"auto"`` resolves by device
+    (``cuda`` on a card, ``torch`` on the CPU), ``"cuda"`` is K5,
+    ``"torch"`` attends directly up to ``DIRECT_MAX_SEQ`` tokens and runs
+    K5's plain version above, ``"direct"`` always attends directly.
+    """
+    b, s, _ = x.shape
+    dev = x.device
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"the decode path is single-token; got S={s}")
+        length = cache.length.to(dev)
+        if length.dim() == 0:
+            positions = (length + torch.arange(s, device=dev))[None, :]
+        else:  # per-slot lengths: (B,) -> (B, 1, 1), broadcast over heads
+            positions = length[:, None, None]
+    else:
+        positions = torch.arange(s, device=dev)[None, :]
+    q, k, v = _project(p, x, cfg, positions)
+
+    new_cache = None
+    cap = cfg.attn_logit_softcap
+    if cache is not None:
+        # A write past the end lands on the last row: only slots the engine
+        # no longer serves run past it (JAX clamps or drops such writes).
+        pos = length.clamp(max=cache.k.shape[2] - 1).long()
+        if pos.dim() == 0:
+            cache.k.index_copy_(2, pos.view(1), k.to(cache.k.dtype))
+            cache.v.index_copy_(2, pos.view(1), v.to(cache.v.dtype))
+        else:  # scatter each slot's row at its own position
+            bidx = torch.arange(b, device=dev)
+            cache.k[bidx, :, pos] = k[:, :, 0].to(cache.k.dtype)
+            cache.v[bidx, :, pos] = v[:, :, 0].to(cache.v.dtype)
+        new_cache = KVCache(cache.k, cache.v, length + 1)
+        o = decode_attention(q, new_cache, window=layer_window, cap=cap)
+    else:
+        tier = impl if impl == "direct" else resolve_backend(impl, dev)
+        if tier == CUDA:
+            o = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=cfg.causal,
+                                    window=layer_window, softcap=cap,
+                                    backend=CUDA)
+        elif tier == "direct" or s <= DIRECT_MAX_SEQ:
+            o = direct_attention(q, k, v, causal=cfg.causal,
+                                 window=layer_window, cap=cap)
+        else:
+            o = ops.flash_attention(q, k, v, causal=cfg.causal,
+                                    window=layer_window, softcap=cap,
+                                    backend=TORCH)
+        if make_cache:
+            if cache_size < s:
+                raise ValueError(f"cache_size={cache_size} < prompt {s}")
+            pad = (0, 0, 0, cache_size - s)
+            new_cache = KVCache(
+                torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad),
+                torch.tensor(s, dtype=torch.int32, device=dev))
+
+    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return o @ p.wo.to(o.dtype), new_cache

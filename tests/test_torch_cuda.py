@@ -10,14 +10,19 @@ the card:
 shapes.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.config import CORA, reduced_graph
+from repro_torch.configs import gemma2_9b
 from repro_torch.graph.datasets import make_features, make_synthetic_graph
+from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import fused_agg_combine as k2
 from repro_torch.kernels import ops
 from repro_torch.kernels import seg_agg as k1
+from repro_torch.models import transformer as ttr
 from repro_torch.models.gcn import make_paper_model
 
 torch.set_num_threads(2)
@@ -26,6 +31,9 @@ pytestmark = pytest.mark.cuda
 
 #: unit f32 band times 10: kernel and plain version add in other orders
 TOL = 1e-4
+#: the bf16 band: both versions compute in f32 and round once to bf16, so
+#: they differ by about one bf16 ulp of the largest magnitude
+BF16_TOL = 3e-2
 
 
 @pytest.fixture(scope="module")
@@ -37,10 +45,10 @@ def card():
     return spec, g, make_features(spec, device="cuda")
 
 
-def _close(a, b):
+def _close(a, b, tol=TOL):
     torch.cuda.synchronize()
     scale = max(1.0, b.abs().max().item())
-    assert (a - b).abs().max().item() <= TOL * scale
+    assert (a.float() - b.float()).abs().max().item() <= tol * scale
 
 
 @pytest.mark.parametrize("f", [1, 7, 41, 128, 300])
@@ -91,3 +99,68 @@ def test_kernel_refuses_gradients(card):
     m = make_paper_model("gcn", spec, device="cuda")
     with pytest.raises(RuntimeError, match="no backward"):
         m(g, x)
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the cuda tier has no CPU mode)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,kv_len", [
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0, None),
+    (1, 8, 4, 100, 260, 32, True, 0, 50.0, None),
+    (2, 2, 1, 64, 192, 64, True, 48, 0.0, None),
+    (1, 4, 4, 1, 300, 64, True, 0, 0.0, None),      # decode shape
+    (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),    # non-causal
+    (2, 4, 2, 8, 192, 256, True, 0, 50.0, (50, 192)),
+    (1, 2, 1, 17, 17, 16, True, 4, 50.0, None),
+    (1, 2, 1, 40, 40, 64, True, 0, 0.0, (3, )),     # rows with no key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
+                                    window, cap, kv_len, dtype):
+    gen = torch.Generator(device=gpu).manual_seed(sq * d)
+    q = torch.randn((b, hq, sq, d), generator=gen, device=gpu).to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=gen, device=gpu).to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=gen, device=gpu).to(dtype)
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                   device=gpu)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    n = k5.flash_attention.launches
+    got = k5.flash_attention(q, k, v, kvl, **kw)
+    assert k5.flash_attention.launches == n + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close(got, k5.flash_attention_plain(q, k, v, kvl, **kw),
+           TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def test_flash_kernel_refuses_gradients_and_bad_input(gpu):
+    q = torch.randn((1, 2, 8, 64), device=gpu, requires_grad=True)
+    k = torch.randn((1, 1, 8, 64), device=gpu)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k5.flash_attention(q, k, k)
+    with torch.no_grad():
+        k5.flash_attention(q, k, k)
+        with pytest.raises(ValueError, match="contiguous"):
+            k5.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                               k, k)
+        with pytest.raises(ValueError, match="head dim"):
+            k5.flash_attention(q[..., :48].contiguous(),
+                               k[..., :48].contiguous(),
+                               k[..., :48].contiguous())
+        with pytest.raises(TypeError):
+            k5.flash_attention(q.half(), k.half(), k.half())
+
+
+def test_reduced_gemma2_cuda_tier_matches_torch_tier(gpu):
+    cfg = dataclasses.replace(gemma2_9b.reduced(), dtype="float32")
+    model = ttr.TransformerLM(cfg, device=gpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=gpu,
+                         generator=torch.Generator(device=gpu).manual_seed(1))
+    n = k5.flash_attention.launches
+    with torch.inference_mode():
+        got = ttr.lm_forward(model, toks)
+        assert k5.flash_attention.launches == n + cfg.num_layers
+        _close(got, ttr.lm_forward(model, toks, attn_impl="torch"))

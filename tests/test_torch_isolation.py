@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.config import CORA, reduced_graph
+from repro_torch.configs import granite_3_8b
 from repro_torch.core import backend
 from repro_torch.core.dataflow import block_graph
 from repro_torch.core.gcn_layers import GCNConv
@@ -27,7 +28,9 @@ from repro_torch.core.plan import build_plan
 from repro_torch.graph import datasets
 from repro_torch.graph.structure import graph_from_coo
 from repro_torch.kernels import ops
+from repro_torch.launch import serve as launch_serve
 from repro_torch.models.gcn import PAPER_MODELS, GCNModel, make_paper_model
+from repro_torch.models.transformer import TransformerLM, init_caches
 
 torch.set_num_threads(2)
 
@@ -83,6 +86,17 @@ def test_default_device_raises_without_card(monkeypatch):
     g = datasets.make_synthetic_graph(SPEC, device="cpu")
     with pytest.raises(RuntimeError):
         build_plan(g, PAPER_MODELS["gcn"], 16, 7)
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = granite_3_8b.reduced()
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        init_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        launch_serve.main(["--arch", "granite-3-8b", "--reduced"])
 
 
 def test_cuda_tier_on_cpu_tensors_raises():
