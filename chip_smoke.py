@@ -12,7 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   3. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, at the shapes the main path gives it on Cora,
                 Citeseer and Reddit, with the tolerance printed; times of
-                kernel, plain version and (for seg_agg) torch.sparse.mm.
+                kernel, plain version and (for seg_agg) torch.sparse.mm;
+                seg_agg's repeat launch bitwise equal to its first.
   4. main    -- the paper's GCN, SAGE and GIN (2 layers, hidden 128) at
                 full width on Reddit, unfused and fused, through
                 GCNModel with backend="auto"; launch counts of both
@@ -20,16 +21,24 @@ Phases, each printing its own lines; any failure exits non-zero:
                 forward time and peak memory.
   5. flash   -- K5 (flash_attention) against its plain version in f32 and
                 bf16 at gemma2's and granite's prefill shapes, the kv_len
-                contract and a non-causal case; times of kernel, plain
-                version and a library call (scaled_dot_product_attention
-                where it computes the same function, flex_attention with a
-                tanh score_mod where it compiles).
+                contract and a non-causal case: the max-abs band, and each
+                row's error against that row's own scale and the relative
+                Frobenius error, which a control that skips one KV tile
+                must fail; times of kernel, plain version and a library
+                call (scaled_dot_product_attention where it computes the
+                same function, flex_attention with a tanh score_mod where
+                it compiles), and at (a) in bf16 the kernel's time without
+                the softcap.
   6. lm      -- gemma2-9b at full width and depth (42 layers, bf16, seeded
                 random weights) through the port's ServeEngine: a wave of
                 8 greedy requests of 17 to 6144 prompt tokens, 16 tokens
                 each; K5's launch count, prefill logits against an engine
-                on the torch tier on the same card, prefill, first-token
+                on the torch tier on the same card (max-abs band and
+                relative Frobenius error), prefill, first-token
                 and decode times, tokens/s, peak memory.
+  7. lm f32  -- gemma2-9b in f32 at full width, depth cut to 2 layers: one
+                6144-token lm_prefill, which takes K5's f32 path; its launch
+                count and logits against the torch tier.
 
 The last three lines are nvidia-smi's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and the result line.  The full
@@ -56,6 +65,21 @@ BF16_FLOPS = 989e12
 #: compute in f32 and round once to bf16, so they differ by about one bf16
 #: ulp of the largest magnitude
 BF16_BAND = 3e-2
+#: phase 5's second check of K5, per dtype: the largest per-row error over
+#: that row's largest magnitude, and the relative Frobenius error
+#: ||kernel - plain|| / ||plain||.  The max-abs band above is relative to
+#: the largest magnitude of the whole output, which the first query rows
+#: (a few keys, magnitudes near 4) set, while a row that averages thousands
+#: of keys is ~0.02: these hold every row to its own scale.  On the H100
+#: the kernel reads at most 7.8e-03 (one bf16 ulp) / 2.2e-03 in bf16 and
+#: 6.1e-06 / 5.3e-07 in f32; ``drop_tile_control``, a kernel that skips one
+#: KV tile, reads at least 0.71 / 0.037 (PERF.md, PR 14)
+ROW_LIMIT = {"float32": 3e-5, "bfloat16": 2e-2}
+FRO_LIMIT = {"float32": 3e-6, "bfloat16": 1e-2}
+#: phase 6: the relative Frobenius error of each prompt's prefill logits
+#: against the torch tier's; the H100 reads 2.1e-02 to 2.6e-02 (PERF.md,
+#: PR 14)
+LOGIT_FRO_LIMIT = 5e-2
 #: K5 shapes: name -> (B, Hq, Hkv, Sq, Sk, D, causal, window, softcap,
 #: kv_len).  (a)/(b) gemma2-9b's global and local prefill layers at the
 #: longest prompt of phase 6, (c) a ragged short gemma2 prompt, (d) a
@@ -69,10 +93,18 @@ FLASH_SHAPES = {
     "e": (2, 16, 8, 8, 300, 256, True, 0, 0.0, (50, 300)),
     "f": (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),
 }
+#: phase 3: seg_agg's column slices timed beside the one the wrapper picks
+#: (slice_cols), at Reddit (F -> widths); every width gives the same sums
+#: bit for bit (slicing does not change any column's fold)
+SLICE_SWEEP = {128: (32, 64), 41: (24, 41), 602: (32, 64)}
+#: phase 7: layers of the f32 gemma2-9b (full width, depth cut)
+LM_F32_LAYERS = 2
 #: phase 6: the wave's prompt lengths (two of them past gemma2's 4096
 #: window, so the local layers mask rows), slots, cache and tokens
 LM_PROMPTS = (17, 100, 512, 1000, 2048, 4097, 6144, 33)
 LM_MAX_BATCH, LM_CACHE, LM_TOKENS = 4, 6400, 16
+#: K5's kernels as the profiler names them (csrc/flash_attention.cu)
+K5_KERNELS = ("wgmma_kernel", "fma_kernel")
 #: unit f32 band (tests/tolerance.py) and the slack this script allows:
 #: kernel and plain version add in different orders (slot order vs the
 #: atomics of index_add_; slab-wise FMA vs cuBLAS), so results agree to a
@@ -121,6 +153,31 @@ def bound(nbytes: float, ops: float,
     """Least milliseconds for the work on the card, and what sets it."""
     t_bytes, t_ops = nbytes / HBM_BW * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ratios(rec) -> dict:
+    """frac_of_bound (bound / kernel time) and vs_library (kernel time /
+    library time, None without a library call) of a record."""
+    lib = rec.get("library_ms")
+    return {"frac_of_bound": rec["bound_ms"] / rec["ms"],
+            "vs_library": None if lib is None else rec["ms"] / lib}
+
+
+def slice_sweep(x, bg, f, kern) -> dict:
+    """seg_agg at each width of SLICE_SWEEP[f]: {width: ms}.  Fails unless
+    every width's sums equal the default launch's bit for bit."""
+    import torch
+    from repro_torch.kernels import seg_agg as k1
+    want, out = kern(), {}
+    for w in SLICE_SWEEP.get(f, ()):
+        run = lambda: k1._launch(x, bg.src, bg.dstl, bg.mask,  # noqa: E731
+                                 None, bg.tile_m, w)
+        if not torch.equal(run(), want):
+            fail(f"seg_agg at F={f}: slice width {w} changes the sums")
+        out[w] = time_ms(run, 10)
+    print(f"[kernels] seg_agg reddit F={f} slice widths: " + ", ".join(
+        f"{w} -> {ms:.4f} ms" for w, ms in out.items()), flush=True)
+    return out
 
 
 def check_kernels(graphs, models):
@@ -184,6 +241,8 @@ def check_kernels(graphs, models):
             torch.cuda.synchronize()
             err, tol = max_err(out_k, out_p)
             ok = bool(torch.isfinite(out_k).all().item()) and err <= tol
+            # the fold is in slot order: a second launch is bit for bit equal
+            same = kname != "seg_agg" or torch.equal(out_k, kern())
             del out_k
             b_ms, b_by = bound(nbytes, ops)
             rec = {"name": kname, "graph": gname, "f_in": f_in,
@@ -196,6 +255,11 @@ def check_kernels(graphs, models):
                    "bound_noreuse_ms": noreuse / HBM_BW * 1e3,
                    "library_ms": None if library is None
                    else time_ms(library, 10)}
+            rec.update(ratios(rec))
+            if kname == "seg_agg":
+                rec["slice_cols"] = k1.slice_cols(f_in)
+                if gname == "reddit":
+                    rec["slice_sweep_ms"] = slice_sweep(x, bg, f_in, kern)
             records.append(rec)
             print(f"[kernels] {kname:17s} {gname:8s} {f_in:4d}->{f_out:<4d} "
                   f"tile_m={bg.tile_m} layout={bg.nblocks}x{bg.emax} "
@@ -203,10 +267,17 @@ def check_kernels(graphs, models):
                   f"plain_ms={rec['plain_ms']:.4f} "
                   f"library_ms={rec['library_ms']} bound_ms={b_ms:.4f} "
                   f"({b_by}; {nbytes} B, {ops} ops) no-reuse_bytes_ms="
-                  f"{rec['bound_noreuse_ms']:.4f} ({noreuse} B)", flush=True)
+                  f"{rec['bound_noreuse_ms']:.4f} ({noreuse} B) "
+                  f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
+                  f"{rec['vs_library']}"
+                  + (f" slice_cols={rec['slice_cols']}"
+                     if kname == "seg_agg" else ""), flush=True)
             if not ok:
                 fail(f"{kname} on {gname} {f_in}->{f_out}: kernel and plain "
                      f"version differ by {err:.3e} (tolerance {tol:.3e})")
+            if not same:
+                fail(f"{kname} on {gname} {f_in}->{f_out}: two launches on "
+                     f"the same input differ")
     return records
 
 
@@ -251,6 +322,46 @@ def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
     return total
 
 
+def rel_errs(out, want) -> tuple[float, float]:
+    """(largest per-row error over that row's largest magnitude, relative
+    Frobenius error) of ``out`` against ``want``, rows along the last dim.
+    A row where ``want`` is all 0 counts its largest |out| (0 if right)."""
+    import torch
+    a, b = out.float().flatten(0, -2), want.float().flatten(0, -2)
+    diff, mag = (a - b).abs().amax(-1), b.abs().amax(-1)
+    row = torch.where(mag > 0, diff / mag.clamp_min(1e-30), diff)
+    fro = (a - b).norm() / b.norm().clamp_min(1e-30)
+    return row.max().item(), fro.item()
+
+
+def drop_tile_control(shape, q, k, v, tile=64):
+    """A control that is wrong on purpose: K5's function, computed densely
+    one head at a time in f32, with the KV tile of ``tile`` keys that holds
+    the middle key of the shortest sequence left out of every row -- what a
+    kernel that skipped that tile would return.  ``rel_errs`` must see it
+    above ROW_LIMIT and FRO_LIMIT."""
+    import torch
+    b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
+    lens = kv_len or (sk,) * b
+    t0 = min(lens) // 2 // tile * tile
+    kpos = torch.arange(sk, device=q.device)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for bi, n in enumerate(lens):
+        qpos = (n - sq + torch.arange(sq, device=q.device))[:, None]
+        keep = (kpos < n) & ((kpos < t0) | (kpos >= t0 + tile))
+        keep = keep & (kpos <= qpos) if causal else keep.expand(sq, sk)
+        if window > 0:
+            keep = keep & (kpos > qpos - window)
+        for h in range(hq):
+            s = (q[bi, h] * d ** -0.5).float() @ \
+                k[bi, h // (hq // hkv)].float().T
+            if cap > 0:
+                s = cap * torch.tanh(s / cap)
+            p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+            out[bi, h] = p.nan_to_num(0.0) @ v[bi, h // (hq // hkv)].float()
+    return out.to(q.dtype)
+
+
 def flash_library(shape, q, k, v, want, tol):
     """(milliseconds, note) of one PyTorch call computing the same function
     as K5 at ``shape`` -- held against the plain version's ``want`` within
@@ -274,8 +385,7 @@ def flash_library(shape, q, k, v, want, tol):
         return timed(lambda: F.scaled_dot_product_attention(
             q, ke, ve, is_causal=causal),
             "scaled_dot_product_attention, K/V expanded")
-    if not (kv_len is None and sq == sk and causal and cap > 0
-            and q.dtype == torch.bfloat16 and sq >= 1024):
+    if not (kv_len is None and sq == sk and causal and cap > 0):
         return None, "none: no PyTorch call computes this shape's function"
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
@@ -327,6 +437,10 @@ def check_flash():
             band = F32_BAND * SCALE if dtype == torch.float32 else BF16_BAND
             tol = band * max(1.0, out_p.float().abs().max().item())
             ok = bool(torch.isfinite(out_k).all().item()) and err <= tol
+            dname = str(dtype).replace("torch.", "")
+            row, fro = rel_errs(out_k, out_p)
+            c_row, c_fro = rel_errs(drop_tile_control(shape, q, k, v),
+                                    out_p)
             del out_k
             elt = q.element_size()
             pairs = unmasked_pairs(sq, sk, causal, window,
@@ -338,28 +452,49 @@ def check_flash():
             ms = time_ms(kern, 5)
             lib_ms, lib_note = flash_library(shape, q, k, v, out_p, tol)
             del out_p
-            rec = {"name": "flash_attention", "shape": name,
-                   "dtype": str(dtype).replace("torch.", ""),
+            rec = {"name": "flash_attention", "shape": name, "dtype": dname,
                    "b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk, "d": d,
                    "causal": causal, "window": window, "softcap": cap,
                    "kv_len": kv_len, "max_abs_err": err, "tol": tol,
+                   "row_rel_err": row, "fro_rel_err": fro,
+                   "control_row_rel_err": c_row,
+                   "control_fro_rel_err": c_fro,
                    "ms": ms, "plain_ms": time_ms(plain, 2),
                    "pairs": pairs, "bytes": nbytes, "ops": ops,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib_ms, "library": lib_note,
                    "tflops": ops / ms / 1e9}
+            rec.update(ratios(rec))
+            if name == "a" and dtype == torch.bfloat16:
+                # what the softcap's tanh costs: the same call without it
+                rec["ms_no_softcap"] = time_ms(lambda: k5.flash_attention(
+                    q, k, v, kvl, causal=causal, window=window), 5)
             records.append(rec)
             print(f"[flash] ({name}) {rec['dtype']:8s} B={b} Hq={hq} "
                   f"Hkv={hkv} Sq={sq} Sk={sk} D={d} causal={causal} "
                   f"window={window} cap={cap} kv_len={kv_len} "
-                  f"max_abs_err={err:.3e} tol={tol:.3e} ms={ms:.4f} "
+                  f"max_abs_err={err:.3e} tol={tol:.3e} row_rel_err="
+                  f"{row:.3e} fro_rel_err={fro:.3e} (limits "
+                  f"{ROW_LIMIT[dname]:.0e}/{FRO_LIMIT[dname]:.0e}; control "
+                  f"skipping a KV tile {c_row:.3e}/{c_fro:.3e}) ms={ms:.4f} "
                   f"plain_ms={rec['plain_ms']:.4f} library_ms={lib_ms} "
                   f"[{lib_note}] bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, "
-                  f"{ops} ops) achieved {rec['tflops']:.2f} TFLOP/s",
-                  flush=True)
+                  f"{ops} ops) achieved {rec['tflops']:.2f} TFLOP/s "
+                  f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
+                  f"{rec['vs_library']}"
+                  + (f" ms_no_softcap={rec['ms_no_softcap']:.4f}"
+                     if "ms_no_softcap" in rec else ""), flush=True)
             if not ok:
                 fail(f"flash_attention ({name}) {dtype}: kernel and plain "
                      f"version differ by {err:.3e} (tolerance {tol:.3e})")
+            if row > ROW_LIMIT[dname] or fro > FRO_LIMIT[dname]:
+                fail(f"flash_attention ({name}) {dtype}: a row off by "
+                     f"{row:.3e} of its scale or {fro:.3e} relative "
+                     f"Frobenius error (limits {ROW_LIMIT[dname]:.0e}, "
+                     f"{FRO_LIMIT[dname]:.0e})")
+            if c_row <= ROW_LIMIT[dname] or c_fro <= FRO_LIMIT[dname]:
+                fail(f"flash_attention ({name}) {dtype}: the check cannot "
+                     f"see a skipped KV tile ({c_row:.3e}, {c_fro:.3e})")
             del q, k, v
     return records
 
@@ -404,7 +539,7 @@ def profile_lm(model, eng, prompts):
         kern = [e for e in events if e.get("cat") == "kernel"]
         busy = sum(e["dur"] for e in kern) / 1e3
         k5_ms = sum(e["dur"] for e in kern
-                    if "flash_attention_kernel" in e.get("name", "")) / 1e3
+                    if any(k in e.get("name", "") for k in K5_KERNELS)) / 1e3
         rows[name] = {"wall_ms": wall, "kernels": len(kern),
                       "device_busy_ms": busy, "k5_ms": k5_ms,
                       "idle_share": 1 - busy / wall if kern else None}
@@ -523,29 +658,83 @@ def drive_lm():
     ref_out = {r.rid: list(r.output) for r in ref_done}
     if ref_launches:
         fail(f"the torch tier launched K5 {ref_launches} times")
-    worst = 0.0
+    worst, fros = 0.0, []
     for rid, n in enumerate(LM_PROMPTS):
         a, b = first[rid], ref.first_logits[rid]
         err = float(np.abs(a - b).max())
         tol = BF16_BAND * max(1.0, float(np.abs(b).max()))
+        fro = float(np.linalg.norm(a - b) / np.linalg.norm(b))
         agree = sum(x == y for x, y in zip(outputs[rid], ref_out[rid]))
         worst = max(worst, err / tol)
+        fros.append(fro)
         print(f"[lm] prompt {n:5d}: prefill logits vs torch tier "
               f"max_abs_err={err:.3e} tol={tol:.3e} (largest "
-              f"{np.abs(b).max():.3f}); greedy tokens {agree} of "
+              f"{np.abs(b).max():.3f}) fro_rel_err={fro:.3e} (limit "
+              f"{LOGIT_FRO_LIMIT:.0e}); greedy tokens {agree} of "
               f"{LM_TOKENS} agree; torch-tier prefill "
               f"{ref.prefill_ms[rid]:.1f} ms", flush=True)
-        if not (np.isfinite(a).all() and err <= tol):
+        if not (np.isfinite(a).all() and err <= tol
+                and fro <= LOGIT_FRO_LIMIT):
             fail(f"prompt {n}: prefill logits off the torch tier by {err:.3e}"
-                 f" (tolerance {tol:.3e})")
+                 f" (tolerance {tol:.3e}) or {fro:.3e} relative Frobenius "
+                 f"error (limit {LOGIT_FRO_LIMIT:.0e})")
     rsteps = sorted(ref.step_ms)
     print(f"[lm] torch tier: {ref_wall:.2f} s for the wave, decode step "
           f"median {rsteps[len(rsteps) // 2]:.2f} ms", flush=True)
     rec.update(torch_tier_prefill_ms=ref.prefill_ms,
-               torch_tier_wall_s=ref_wall, worst_err_over_tol=worst)
+               torch_tier_wall_s=ref_wall, worst_err_over_tol=worst,
+               logits_fro_rel_err=fros)
     del ref, model
     torch.cuda.empty_cache()
     return rec
+
+
+def drive_lm_f32():
+    """Phase 7: K5's f32 path from a user entry point.  gemma2-9b in f32 at
+    full width with the depth cut to LM_F32_LAYERS (42 layers in f32 are
+    37 GB of weights, and phase 6 already drives full depth): one
+    6144-token lm_prefill on the cuda tier, then on the torch tier with the
+    same weights.  Returns the measurements."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.models.transformer import TransformerLM, lm_prefill
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"), dtype="float32",
+                              num_layers=LM_F32_LAYERS)
+    model = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    n = LM_PROMPTS[6]
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, n)[None], device="cuda")
+    with torch.inference_mode():
+        lm_prefill(model, toks, n)            # warm-up
+        torch.cuda.synchronize()
+        k5.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        got = lm_prefill(model, toks, n)[0]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = k5.flash_attention.launches
+        want = lm_prefill(model, toks, n, attn_impl="torch")[0]
+    err, tol = max_err(got, want)
+    print(f"[lm f32] {cfg.name} in f32, {cfg.num_layers} layers, prompt {n}:"
+          f" prefill {wall:.1f} ms, K5 launches {launches} (expected "
+          f"{cfg.num_layers}); logits vs torch tier max_abs_err={err:.3e} "
+          f"tol={tol:.3e}", flush=True)
+    if launches != cfg.num_layers:
+        fail(f"f32 prefill launched K5 {launches} times, expected "
+             f"{cfg.num_layers}")
+    if not (bool(torch.isfinite(got).all().item()) and err <= tol):
+        fail(f"f32 prefill logits off the torch tier by {err:.3e} "
+             f"(tolerance {tol:.3e})")
+    del model
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "prompt": n, "prefill_ms": wall,
+            "launches": launches, "max_abs_err": err, "tol": tol}
 
 
 def main() -> None:
@@ -584,9 +773,10 @@ def main() -> None:
     print(f"[build] {len(_build.SOURCES)} kernel libraries ready; "
           f"{len(logs)} compiled now in {time.perf_counter() - t0:.1f} s "
           f"(the rest were built earlier from the same sources)", flush=True)
-    for name, log in logs.items():
+    for name, log in logs.items():   # nvcc -Xptxas -v, per kernel
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "smem", "arning")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
     # -- 3. kernels against their plain versions
@@ -647,6 +837,9 @@ def main() -> None:
     t0 = time.perf_counter()
     lm = drive_lm()
     print(f"[lm] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 7. K5's f32 path from the LM entry point
+    lm_f32 = drive_lm_f32()
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -654,7 +847,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "launches": counts,
-         "peak_bytes": peak, "records": records, "flash": flash, "lm": lm},
+         "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
+         "lm_f32": lm_f32},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape
@@ -676,18 +870,29 @@ def main() -> None:
                                if r["name"] == kname),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"]})
-    rec = next(r for r in flash if r["shape"] == "a" and
-               r["dtype"] == "bfloat16")
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:111",
-        "launches": lm["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in flash),
-        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-        "library_ms": rec["library_ms"]})
+            "library_ms": rec["library_ms"],
+            "frac_of_bound": rec["frac_of_bound"],
+            "vs_library": rec["vs_library"]})
+    # K5's two paths at shape (a): bf16 (wgmma_kernel) launched by phase 6,
+    # f32 (fma_kernel) by phase 7
+    for dtype, launches in (("bfloat16", lm["launches"]),
+                            ("float32", lm_f32["launches"])):
+        rec = next(r for r in flash if r["shape"] == "a" and
+                   r["dtype"] == dtype)
+        kernels.append({
+            "name": "flash_attention_" + ("bf16" if dtype == "bfloat16"
+                                          else "f32"),
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:111",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in flash
+                               if r["dtype"] == dtype),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "frac_of_bound": rec["frac_of_bound"],
+            "vs_library": rec["vs_library"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

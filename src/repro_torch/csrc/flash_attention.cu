@@ -13,31 +13,70 @@
 // The running max, running sum and accumulator are f32 whatever the input
 // type; the output is rounded once to the input type.  The -1e30 sentinel
 // and the m_safe guard are the reference's, so an all-masked row gives 0.
+// Both kernels below loop only over KV tiles that hold an unmasked key for
+// some row of the q tile (tiles above the causal edge, before the window or
+// past kv_len[b] are never loaded), and launch causal q tiles heaviest
+// first, so the tail of the grid is short.  Ragged Sq and Sk are
+// bounds-checked; nothing is padded in memory.
 //
 // What bounds it on the H100: operations.  At gemma2's prefill (Hq = 16,
 // D = 256, S = 6144, causal) the two products are ~309 GFLOP against
-// ~151 MB of q, k, v and o in bf16: far above the ~295 FLOP/byte ridge.
+// ~151 MB of q, k, v and o in bf16: far above the ~295 FLOP/byte ridge of
+// the bf16 tensor cores (989 TFLOP/s), so the bound is 0.31 ms.
 //
-// What the design does (a first, simple kernel: plain f32 FMA, no tensor
-// cores, no TMA -- those come in a later change):
+// bf16: wgmma_kernel, both products on the tensor cores.
+//   * A consumer warpgroup (128 threads) owns 64 query rows of one head,
+//     the M of one wgmma.  S = Q K^T is wgmma.mma_async m64nTKk16 with
+//     A = the q tile and B = the K tile, both in shared memory (K-major);
+//     O += P V is m64nDk16 with A = P in registers and B = the V tile in
+//     its natural (key, d) layout, read MN-major through wgmma's transpose
+//     flag.  The S accumulator's fragment is the A fragment of the second
+//     product, so P never leaves registers.
+//   * At D = 256 with an even GQA group (Hq / Hkv), a CTA is two
+//     warpgroups, one for each query head of a pair, and both read every
+//     K/V tile it loads: that halves the L2 -> shared memory traffic of K
+//     and V (one warpgroup per CTA took 1.36 ms at gemma2's global layer,
+//     two take 1.20 on the H100).  Otherwise a CTA is one warpgroup and two
+//     CTAs share an SM: at D = 128 a two-warpgroup CTA's registers fill the
+//     SM alone, and it measured slower (0.61 against 0.57 ms).
+//   * Shared memory is in the layout wgmma's descriptors expect: rows of
+//     64 columns (128 bytes; 32/64 bytes at D = 16/32) with the 128-byte
+//     (64-, 32-byte) swizzle, one region per 64 columns.  q is staged once,
+//     scaled and rounded to bf16 by the threads; K and V tiles come by
+//     cp.async (16 bytes a thread, rows past Sk zero-filled) into a ring of
+//     two stages, so the next tile's load overlaps this tile's products.
+//     cp.async needs no tensor map, so the library links no -lcuda.
+//   * Tiles: TK = 64 keys, but 32 for one warpgroup at D = 256 so that two
+//     such CTAs share an SM.  Two warpgroups at D = 256 take 2 x 32 KB of
+//     q and 2 x (32 + 32) KB of K/V stages, 193 KB: one CTA an SM.  The O
+//     accumulator is D / 2 f32 registers a thread (128 at D = 256), S
+//     another TK / 2, P TK / 4.  A producer warp with setmaxnreg and
+//     ping-pong scheduling of the two warpgroups are the next step.
+//   * P's precision: P is rounded to bf16 for the tensor cores, as
+//     flex_attention does, and the row sum l adds the ROUNDED p, so the
+//     output is a convex combination of V rows with the weights the
+//     product used.  The max and sum stay f32; O is accumulated in f32.
+//     On the H100 every row at chip_smoke.py's shapes (up to 6144 keys)
+//     is within one bf16 ulp of its largest magnitude of the plain f32-P
+//     version: the final rounding to bf16 sets that floor, not P's.
+//   * Softcap: tanh(x) = 1 - 2 / (2^(2x log2 e) + 1) with ex2.approx and
+//     rcp.approx: absolute error ~2e-7, so a logit moves by ~cap * 2e-7,
+//     at two MUFU operations.  tanh.approx.f32 (relative error ~2^-11,
+//     up to 0.02 at cap = 50) is not used.  exp is ex2.approx with a
+//     log2(e) prescale.
+//   * Masks are evaluated per element only in KV tiles that straddle the
+//     causal edge, the window start or kv_len[b]; whole tiles need none.
+//
+// f32: fma_kernel, plain f32 FMA from shared memory (no TF32: the f32
+// band is 1e-5, which TF32's 10-bit mantissa cannot hold).
 //   * One CTA of 256 threads per (q tile of 64 rows, head, batch) loops
-//     over KV tiles of 32 keys with an online softmax.  The TPU kernel's
-//     sequential KV grid axis becomes this loop; the running max and sum
-//     live in registers, replicated across the 16 threads of a row group.
-//   * Thread (ty, tx) owns rows ty + 16 i (i < 4) in both products: score
-//     columns tx + 16 j (j < 2) and output columns tx + 16 c (c < D / 16),
-//     so row max and row sum are 16-lane shuffles and the rescale by
-//     alpha touches registers only.
+//     over KV tiles of 32 keys.  Thread (ty, tx) owns rows ty + 16 i
+//     (i < 4) in both products: score columns tx + 16 j (j < 2) and output
+//     columns tx + 16 c (c < D / 16), so row max and row sum are 16-lane
+//     shuffles and the rescale by alpha touches registers only.
 //   * q, k and v are staged in shared memory as f32 with a row stride of
-//     D + 1 (conflict-free column reads).  At D = 256 that is ~105 KB, so
-//     the kernel takes dynamic shared memory with the opt-in; two CTAs fit
-//     on an SM.  K and V share one buffer.
-//   * The KV loop runs only over tiles that hold an unmasked key for some
-//     row of the q tile: tiles above the causal edge, before the window or
-//     past kv_len[b] are never loaded, and the state is never touched.
-//   * Ragged Sq and Sk are bounds-checked; nothing is padded in memory.
-//   * Causal q tiles are launched heaviest first (the last tile of a
-//     sequence has the most keys), so the tail of the grid is short.
+//     D + 1 (conflict-free column reads); ~105 KB at D = 256.  K and V
+//     share one buffer.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,47 +90,32 @@ constexpr int kThreads = 256;     // 16 x 16
 constexpr int kLdP = kTileK + 1;  // row stride of the probabilities
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Rows [row0, row0 + rows) of a (n, D) matrix into shared memory as f32
 // with row stride D + 1; rows at or past n are zero (never NaN, so a zero
 // probability times them stays zero).
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
                                            int row0, int rows, int n,
                                            float scale, bool round_scaled) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     float x = 0.f;
     if (row0 + r < n) {
-      x = to_f32(src[static_cast<int64_t>(row0 + r) * D + c]);
-      // q * D^-0.5 rounded to q's type, as the reference forms it
-      if (round_scaled) x = to_f32(from_f32<T>(x * scale));
+      x = src[static_cast<int64_t>(row0 + r) * D + c];
+      // q * D^-0.5, as the reference forms it
+      if (round_scaled) x *= scale;
     }
     dst[r * (D + 1) + c] = x;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
-                       const int* __restrict__ kv_len, T* __restrict__ out,
-                       int hq, int group, int sq, int sk, int causal,
-                       int window, float cap, float scale) {
+fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const int* __restrict__ kv_len,
+           float* __restrict__ out, int hq, int group, int sq, int sk,
+           int causal, int window, float cap, float scale) {
   constexpr int kLd = D + 1;
   constexpr int kCols = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -109,9 +133,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int len = kv_len[b];
   const int q_lo = len - sq + q0;  // absolute position of the tile's row 0
 
-  const T* qb = q + (static_cast<int64_t>(b) * hq + h) * sq * D;
+  const float* qb = q + (static_cast<int64_t>(b) * hq + h) * sq * D;
   const int64_t kv_off = (static_cast<int64_t>(b) * hkv + h / group) * sk * D;
-  stage_rows<T, D>(s_q, qb, q0, kTileQ, sq, scale, true);
+  stage_rows<D>(s_q, qb, q0, kTileQ, sq, scale, true);
 
   // KV tiles holding an unmasked key for some row of this q tile
   int k_end = min(len, sk);
@@ -131,7 +155,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_beg; k0 < k_end; k0 += kTileK) {
     __syncthreads();  // q staged; the previous tile's V and P are consumed
-    stage_rows<T, D>(s_kv, k + kv_off, k0, kTileK, sk, 0.f, false);
+    stage_rows<D>(s_kv, k + kv_off, k0, kTileK, sk, 0.f, false);
     __syncthreads();
 
     float s[4][2];
@@ -150,7 +174,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 2; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
     __syncthreads();  // every thread is done reading K
-    stage_rows<T, D>(s_kv, v + kv_off, k0, kTileK, sk, 0.f, false);
+    stage_rows<D>(s_kv, v + kv_off, k0, kTileK, sk, 0.f, false);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -206,16 +230,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (static_cast<int64_t>(b) * hq + h) * sq * D;
+  float* ob = out + (static_cast<int64_t>(b) * hq + h) * sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = ty + 16 * i;
     if (row >= nq) continue;
     const float denom = l_run[i] == 0.f ? 1.f : l_run[i];
-    T* o = ob + static_cast<int64_t>(q0 + row) * D;
+    float* o = ob + static_cast<int64_t>(q0 + row) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      o[tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+      o[tx + 16 * c] = acc[i][c] / denom;
   }
 }
 
@@ -224,33 +248,578 @@ constexpr int smem_bytes_for(int d) {
          static_cast<int>(sizeof(float));
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            void* out, int b, int hq, int hkv, int sq, int sk, int causal,
            int window, float cap, float scale, cudaStream_t stream) {
   const int smem = smem_bytes_for(D);
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = fma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kTileQ - 1) / kTileQ, hq, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_len, static_cast<T*>(out), hq, hq / hkv,
-      sq, sk, causal, window, cap, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_len, static_cast<float*>(out), hq,
+      hq / hkv, sq, sk, causal, window, cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// bf16: wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kRows = 64;  // query rows of a warpgroup: one wgmma M
+constexpr float kLog2e = 1.4426950408889634f;
+
+// WGS consumer warpgroups per CTA: 2 at D = 256 when the GQA group is even
+// (the two query heads of a pair share every K/V tile), else 1
+template <int D, int WGS = 1>
+struct Cfg {
+  static constexpr int kThreads = 128 * WGS;
+  // keys per KV tile; 32 at D = 256 for one warpgroup, so that two CTAs
+  // share an SM
+  static constexpr int kTileK = D == 256 && WGS == 1 ? 32 : 64;
+  static constexpr int kPitch = D < 64 ? 2 * D : 128;  // bytes per row
+  static constexpr int kChunksPerRow = kPitch / 16;    // 16-byte chunks
+  static constexpr int kStepsPerRow = kPitch / 32;     // k16 steps a row
+  static constexpr uint64_t kMode = kPitch == 128 ? 1 : (kPitch == 64 ? 2 : 3);
+  static constexpr int kQBytes = kRows * D * 2;        // one head's q tile
+  static constexpr int kTileBytes = kTileK * D * 2;    // one K or V tile
+  // q tiles, two stages of K and V, and slack to align the base to 1024
+  static constexpr int kSmem = WGS * kQBytes + 4 * kTileBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c8 (columns 8 c8 .. 8 c8 + 7) of row r in a
+// tile of `rows` rows: regions of kPitch-byte rows, one per 64 columns,
+// swizzled as wgmma reads them (XOR of address bits 4.. with bits 7..;
+// every region starts on a multiple of its 8-row swizzle atom).
+template <int D>
+__device__ __forceinline__ uint32_t chunk_off(int r, int c8, int rows) {
+  using C = Cfg<D>;
+  const uint32_t off = (c8 / C::kChunksPerRow) * rows * C::kPitch +
+                       r * C::kPitch + (c8 % C::kChunksPerRow) * 16;
+  return off ^ (((off >> 7) & (C::kChunksPerRow - 1)) << 4);
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (mode << 62);
+}
+
+// K-major operand (q or K: rows x D, D contiguous), k16 step ks
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int ks) {
+  using C = Cfg<D>;
+  const uint32_t addr = base + (ks / C::kStepsPerRow) * rows * C::kPitch +
+                        (ks % C::kStepsPerRow) * 32;
+  return make_desc(addr, 16, 8 * C::kPitch, C::kMode);
+}
+
+// MN-major operand (V: keys x D read as B = (keys, D) with the transpose
+// flag), keys 16 kk .. 16 kk + 15: LBO steps between 64-column regions,
+// SBO between 8-key groups
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int kk) {
+  using C = Cfg<D>;
+  return make_desc(base + kk * 16 * C::kPitch, rows * C::kPitch,
+                   8 * C::kPitch, C::kMode);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Registers a wgmma reads or writes asynchronously: keep the compiler from
+// moving their uses across the wait (or reusing them before it).
+__device__ __forceinline__ void fence_reg(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+// tanh(x) = 1 - 2 / (e^{2x} + 1); e^{2x} overflows to inf -> 1, underflows
+// to 0 -> -1.  Absolute error ~2e-7 (ex2.approx and rcp.approx are good to
+// ~2^-22 relative).
+__device__ __forceinline__ float tanh_ex2(float x) {
+  return fmaf(-2.f, rcp(ex2(x * (2.f * kLog2e)) + 1.f), 1.f);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi,
+                                              float& sum) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  const float2 f = __bfloat1622float2(h);
+  sum += f.x + f.y;
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16.  ss: A and B from shared
+// memory (both K-major); rs: A from registers, B MN-major (transposed).
+// scale_d = 0 ignores the accumulator's old value.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n256(d, a, db);
+}
+
+template <int D, int WGS>
+__global__ void __launch_bounds__(128 * WGS, WGS == 1 ? 2 : 1)
+wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v,
+             const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
+             int hq, int group, int sq, int sk, int causal, int window,
+             float cap, float scale) {
+  using C = Cfg<D, WGS>;
+  constexpr int TK = C::kTileK;
+  constexpr int kThreads = C::kThreads;
+  static_assert(C::kSmem <= 232448, "shared memory over the opt-in limit");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;
+  uint8_t* q_tiles = smem_raw + (s_q - raw);
+  auto s_k = [&](int st) {
+    return s_q + WGS * C::kQBytes + st * 2 * C::kTileBytes;
+  };
+  auto s_v = [&](int st) { return s_k(st) + C::kTileBytes; };
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // this thread's warpgroup: head h0 + wgi
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int cb = 2 * (lane % 4);          // and columns cb, cb + 1 of each 8
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
+  const int h0 = blockIdx.y * WGS;
+  const int h = h0 + wgi;
+  const int b = blockIdx.z;
+  const int hkv = hq / group;
+  const int nq = min(kRows, sq - q0);
+  const int len = kv_len[b];
+  const int q_lo = len - sq + q0;  // absolute position of the tile's row 0
+
+  const int64_t kv_off =
+      (static_cast<int64_t>(b) * hkv + h0 / group) * sk * D;
+  const __nv_bfloat16* kb = k + kv_off;
+  const __nv_bfloat16* vb = v + kv_off;
+
+  // KV tiles holding an unmasked key for some row of this q tile
+  int k_end = min(len, sk);
+  if (causal) k_end = min(k_end, q_lo + nq);
+  int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_beg -= k_beg % TK;
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + TK - 1) / TK : 0;
+
+  auto load_kv = [&](int tile, int st) {
+    const int k0 = k_beg + tile * TK;
+    for (int i = tid; i < TK * D / 8; i += kThreads) {
+      const int r = i / (D / 8), c8 = i % (D / 8);
+      const bool in = k0 + r < sk;
+      const int64_t g = static_cast<int64_t>(in ? k0 + r : 0) * D + c8 * 8;
+      const uint32_t off = chunk_off<D>(r, c8, TK);
+      cp_async16(s_k(st) + off, kb + g, in);
+      cp_async16(s_v(st) + off, vb + g, in);
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) load_kv(0, 0);
+
+  // q * D^-0.5 rounded to bf16, as the reference forms it; rows past Sq 0
+  for (int i = tid; i < WGS * kRows * D / 8; i += kThreads) {
+    const int w = i / (kRows * D / 8), j = i % (kRows * D / 8);
+    const int r = j / (D / 8), c8 = j % (D / 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < sq) {
+      val = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<int64_t>(b) * hq + h0 + w) * sq + q0 + r) * D +
+          c8 * 8);
+      __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(hv[e]);
+        hv[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(q_tiles + w * C::kQBytes +
+                              chunk_off<D>(r, c8, kRows)) = val;
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    const int k0 = k_beg + t * TK;
+    if (t + 1 < ntiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // this thread's smem writes -> wgmma's proxy
+    __syncthreads();
+
+    // S = Q K^T
+    float s[TK / 2];
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<TK>(s, desc_k<D>(s_q + wgi * C::kQBytes, kRows, ks),
+                   desc_k<D>(s_k(st), TK, ks), 1);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) fence_reg(s[i]);
+
+    // softcap, masks, online softmax; s[4 j + 2 half + c] is row
+    // row0 + 8 half, key k0 + 8 j + cb + c
+    const bool whole = k0 + TK <= min(len, sk) &&
+                       (!causal || k0 + TK - 1 <= q_lo) &&
+                       (window <= 0 || k0 > q_lo + kRows - 1 - window);
+    float ms2[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = q_lo + row0 + 8 * half;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * half + c];
+          if (cap > 0.f) x = cap * tanh_ex2(x * inv_cap);
+          if (!whole) {
+            const int kpos = k0 + 8 * j + cb + c;
+            const bool ok = kpos < len && kpos < sk &&
+                            (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            x = ok ? x : kNegInf;
+          }
+          s[4 * j + 2 * half + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[half], mx);
+      // guard all-masked rows (m_new is still the sentinel)
+      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+      const float alpha =
+          m_run[half] <= kNegInf / 2 ? 0.f
+                                     : ex2((m_run[half] - m_safe) * kLog2e);
+      m_run[half] = m_new;
+      ms2[half] = m_safe * kLog2e;
+      l_run[half] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * half] *= alpha;
+        o[4 * j + 2 * half + 1] *= alpha;
+      }
+    }
+    // p = exp(s - m_safe) rounded to bf16: pfrag[x] packs s[2x], s[2x + 1]
+    // (row half x & 1), which is the A fragment of the P V product
+    // (k16 step kk = pfrag[4 kk .. 4 kk + 3]).  A masked score (-1e30)
+    // gives exactly 0.
+    uint32_t pfrag[TK / 4];
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < TK / 4; ++x) {
+      const int half = x & 1;
+      pfrag[x] = pack_bf16(ex2(fmaf(s[2 * x], kLog2e, -ms2[half])),
+                           ex2(fmaf(s[2 * x + 1], kLog2e, -ms2[half])),
+                           psum[half]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], 1);
+      psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], 2);
+      l_run[half] += psum[half];
+    }
+
+    // O += P V
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_rs<D>(o, pfrag + 4 * kk, desc_mn<D>(s_v(st), TK, kk));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_reg(o[i]);
+#pragma unroll
+    for (int i = 0; i < TK / 4; ++i) fence_reg(pfrag[i]);
+    __syncthreads();  // every warp is done with this stage's K and V
+  }
+
+  __nv_bfloat16* ob = out + (static_cast<int64_t>(b) * hq + h) * sq * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= nq) continue;
+    const float denom = l_run[half] == 0.f ? 1.f : l_run[half];
+    __nv_bfloat16* orow = ob + static_cast<int64_t>(q0 + row) * D + cb;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * half] / denom,
+                                o[4 * j + 2 * half + 1] / denom);
+  }
+}
+
+template <int D, int WGS>
+int launch_wgs(const void* q, const void* k, const void* v, const int* kv_len,
+               void* out, int b, int hq, int hkv, int sq, int sk, int causal,
+               int window, float cap, float scale, cudaStream_t stream) {
+  using C = Cfg<D, WGS>;
+  auto kernel = wgmma_kernel<D, WGS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kRows - 1) / kRows, hq / WGS, b);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), kv_len,
+      static_cast<__nv_bfloat16*>(out), hq, hq / hkv, sq, sk, causal, window,
+      cap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// two warpgroups per CTA at D = 256 when the two heads of a pair share a KV
+// head; below D = 256 two one-warpgroup CTAs share an SM instead (a
+// two-warpgroup CTA's registers would fill the SM alone)
+template <int D>
+int launch(const void* q, const void* k, const void* v, const int* kv_len,
+           void* out, int b, int hq, int hkv, int sq, int sk, int causal,
+           int window, float cap, float scale, cudaStream_t stream) {
+  if constexpr (D == 256) {
+    if ((hq / hkv) % 2 == 0)
+      return launch_wgs<D, 2>(q, k, v, kv_len, out, b, hq, hkv, sq, sk,
+                              causal, window, cap, scale, stream);
+  }
+  return launch_wgs<D, 1>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
+                          window, cap, scale, stream);
+}
+
+}  // namespace wg
+
+// Launch<D>::run calls the f32 or the bf16 launcher at head dim D
+template <int D>
+struct LaunchFma {
+  static int run(const void* q, const void* k, const void* v,
+                 const int* kv_len, void* out, int b, int hq, int hkv, int sq,
+                 int sk, int causal, int window, float cap, float scale,
+                 cudaStream_t stream) {
+    return launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
+                            window, cap, scale, stream);
+  }
+};
+template <int D>
+struct LaunchWgmma {
+  static int run(const void* q, const void* k, const void* v,
+                 const int* kv_len, void* out, int b, int hq, int hkv, int sq,
+                 int sk, int causal, int window, float cap, float scale,
+                 cudaStream_t stream) {
+    return wg::launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
+                         window, cap, scale, stream);
+  }
+};
+
+template <template <int> class Launch>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
                const int* kv_len, void* out, int b, int hq, int hkv, int sq,
                int sk, int causal, int window, float cap, float scale,
                cudaStream_t stream) {
   switch (d) {
-#define REPRO_FLASH_D(DV)                                                  \
-  case DV:                                                                 \
-    return launch<T, DV>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal, \
-                         window, cap, scale, stream);
+#define REPRO_FLASH_D(DV)                                                    \
+  case DV:                                                                   \
+    return Launch<DV>::run(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal, \
+                           window, cap, scale, stream);
     REPRO_FLASH_D(16)
     REPRO_FLASH_D(32)
     REPRO_FLASH_D(64)
@@ -264,13 +833,10 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Dynamic shared memory one launch takes at head dim d, in bytes (the
-// wrapper checks it against the card's per-block limit).
-extern "C" int flash_attention_smem_bytes(int d) { return smem_bytes_for(d); }
-
 // q: (b, hq, sq, d); k, v: (b, hkv, sk, d); out: (b, hq, sq, d), all of one
-// type (bf16 = 0: f32, bf16 = 1: bf16), contiguous; kv_len: (b,) int32.
-// d is one of 16, 32, 64, 128, 256.  Returns the first CUDA error of the
+// type (bf16 = 0: f32, bf16 = 1: bf16), contiguous and 16-byte aligned;
+// kv_len: (b,) int32.  d is one of 16, 32, 64, 128, 256.  bf16 runs
+// wgmma_kernel, f32 fma_kernel.  Returns the first CUDA error of the
 // attribute call or the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* kv_len,
@@ -280,8 +846,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, kv_len, out, b, hq, hkv,
-                                     sq, sk, causal, window, cap, scale, st);
-  return dispatch_d<float>(d, q, k, v, kv_len, out, b, hq, hkv, sq, sk,
-                           causal, window, cap, scale, st);
+    return dispatch_d<LaunchWgmma>(d, q, k, v, kv_len, out, b, hq, hkv, sq,
+                                   sk, causal, window, cap, scale, st);
+  return dispatch_d<LaunchFma>(d, q, k, v, kv_len, out, b, hq, hkv, sq, sk,
+                               causal, window, cap, scale, st);
 }

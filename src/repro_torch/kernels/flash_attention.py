@@ -1,8 +1,10 @@
 """K5 ``flash_attention``: blockwise online-softmax attention.
 
 Port of the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
-(:111, body ``_flash_kernel`` :40) to the hand-written CUDA kernel
-``csrc/flash_attention.cu``.  q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D),
+(:111, body ``_flash_kernel`` :40) to the hand-written CUDA kernels of
+``csrc/flash_attention.cu``: bf16 inputs run ``wgmma_kernel`` (both
+products on the tensor cores, P rounded to bf16 for the second), f32 inputs
+``fma_kernel`` (plain f32 FMA).  q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D),
 kv_len: (B,) int32; GQA reads KV head ``h // (Hq // Hkv)``; q is scaled by
 ``D^-0.5`` in q's dtype; query i sits at position ``kv_len[b] - Sq + i``
 (right alignment) for the causal mask and the sliding window
@@ -26,8 +28,6 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: the kernel's tiles (csrc/flash_attention.cu kTileQ, kTileK)
-TILE_Q, TILE_K = 64, 32
 #: per-block shared memory limit (opt-in) of the H100
 _H100_SMEM_OPTIN = 232448
 
@@ -91,22 +91,44 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def smem_bytes(d: int) -> int:
-    """Dynamic shared memory one launch takes at head dim ``d`` (mirrors the
-    kernel's ``flash_attention_smem_bytes``): the q tile and one K/V tile as
-    f32 with row stride d + 1, and the (TILE_Q, TILE_K + 1) probabilities."""
-    return ((TILE_Q + TILE_K) * (d + 1) + TILE_Q * (TILE_K + 1)) * 4
+def tiles(d: int, dtype: torch.dtype, group: int = 1) -> tuple[int, int, int]:
+    """(query rows, keys, heads) of one CTA's tiles at head dim ``d`` and
+    GQA group ``group`` = Hq / Hkv (mirrors ``csrc/flash_attention.cu``:
+    fma_kernel's kTileQ/kTileK for f32; wg::Cfg for bf16, which puts the
+    two heads of a pair in one CTA at d = 256 when the group is even and
+    otherwise halves the KV tile for one head at d = 256, so that two such
+    CTAs share an SM)."""
+    if dtype == torch.bfloat16:
+        heads = 2 if d == 256 and group % 2 == 0 else 1
+        return 64, 32 if d == 256 and heads == 1 else 64, heads
+    return 64, 32, 1
+
+
+def smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> int:
+    """Dynamic shared memory one launch takes at head dim ``d`` (mirrors
+    ``smem_bytes_for`` and ``wg::Cfg::kSmem`` in the kernel source).  f32:
+    the q tile and one K/V tile as f32 with row stride d + 1, and the
+    (64, 33) probabilities.  bf16: a q tile per head and two stages of K
+    and V tiles in bf16, plus 1 KB to align the base to the 1024-byte
+    swizzle atom."""
+    tq, tk, heads = tiles(d, dtype, group)
+    if dtype == torch.bfloat16:
+        return (heads * tq * d + 4 * tk * d) * 2 + 1024
+    return ((tq + tk) * (d + 1) + tq * (tk + 1)) * 4
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
-    """Flash attention: the CUDA kernel for CUDA tensors, the plain version
-    for tensors on the CPU.
+    """Flash attention: a CUDA kernel for CUDA tensors, the plain version
+    for tensors on the CPU.  By dtype: bf16 launches the tensor-core kernel
+    (``wgmma_kernel``), f32 the FMA kernel (``fma_kernel``); both count in
+    ``flash_attention.launches``.
 
-    q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), all f32 or all bf16 and
-    contiguous, Hq a multiple of Hkv, D in ``HEAD_DIMS``; kv_len: optional
+    q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), all f32 or all bf16,
+    contiguous and 16-byte aligned, Hq a multiple of Hkv, D in
+    ``HEAD_DIMS``; kv_len: optional
     (B,) int32 valid keys per batch, in [0, Sk] (default Sk).  Returns
     (B, Hq, Sq, D) in q's dtype.  Launches on the current stream and does
     not synchronize.
@@ -137,11 +159,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" k {tuple(k.shape)})")
     limit = getattr(torch.cuda.get_device_properties(q.device),
                     "shared_memory_per_block_optin", _H100_SMEM_OPTIN)
-    if smem_bytes(d) > limit:
-        raise ValueError(f"flash_attention: head dim {d} needs "
-                         f"{smem_bytes(d)} bytes of shared memory per block;"
-                         f" this card allows {limit}")
+    need = smem_bytes(d, q.dtype, hq // hkv)
+    if need > limit:
+        raise ValueError(f"flash_attention: head dim {d} needs {need} bytes "
+                         f"of shared memory per block; this card allows "
+                         f"{limit}")
     out = torch.empty_like(q)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte "
+                         "aligned (the kernels load 16 bytes at a time)")
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
         [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]

@@ -10,7 +10,9 @@ blocked layout's ``src`` and gathers itself, so that slab never exists::
 
 ``seg_agg`` is the wrapper: a tensor on the CPU takes ``seg_agg_plain``, a
 CUDA tensor launches the kernel or raises.  ``seg_agg.launches`` counts the
-launches.
+launches.  The kernel walks x in column slices of ``slice_cols`` with
+16-, 8- or 4-byte loads (``launch_params``), both pure functions of the
+shapes, so the CPU tests hold them.
 """
 
 from __future__ import annotations
@@ -25,6 +27,14 @@ from repro_torch.kernels import _build
 #: bytes of gathered rows one plain-version step may hold; chunking over
 #: blocks keeps Reddit at F=602 (28 GB of gathered rows) inside memory
 PLAIN_CHUNK_BYTES = 1 << 28
+#: widest slice, in columns: a lane of a fold unit holds at most 8 floats
+#: of a slot.  Every slice is another pass over the indices and another
+#: round of per-slot instructions, so the kernel takes the widest: on the
+#: H100 at Reddit, 64-column slices (1.19 x the L2) beat 32-column ones
+#: (0.6 x the L2) at F = 128 and 602
+MAX_SLICE = 64
+#: lanes of a fold unit (csrc/seg_agg.cu kLanes)
+UNIT_LANES = 8
 
 
 def fold_blocks_plain(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
@@ -66,6 +76,28 @@ def seg_agg_plain(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     return out
 
 
+def slice_cols(f: int) -> int:
+    """Columns per slice of x the kernel walks: all of F up to
+    ``MAX_SLICE``; the last slice takes what is left."""
+    return min(f, MAX_SLICE)
+
+
+def launch_params(f: int, width: int, aligned16: bool,
+                  aligned8: bool) -> tuple[int, int]:
+    """(vec, c): floats per load and loads per slot of one lane, for F
+    columns walked in slices of ``width``.  16-byte loads when F and the
+    width are multiples of 4 and x is 16-byte aligned, 8-byte when they are
+    even and 8-byte aligned, else 4-byte; c = ceil(width / (8 vec)) loads a
+    slot for each of a fold unit's ``UNIT_LANES`` lanes."""
+    if f % 4 == 0 and width % 4 == 0 and aligned16:
+        vec = 4
+    elif f % 2 == 0 and width % 2 == 0 and aligned8:
+        vec = 2
+    else:
+        vec = 1
+    return vec, -(-width // (UNIT_LANES * vec))
+
+
 def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
             mask: torch.Tensor, weight: Optional[torch.Tensor] = None,
             *, tile_m: int) -> torch.Tensor:
@@ -73,14 +105,23 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     version for tensors on the CPU.
 
     x: (V, F) f32; src, dstl: (nblocks, emax) int32 (``dstl`` in
-    ``[0, tile_m)``, non-decreasing over the valid slots of a block, as
-    ``core.dataflow.block_graph`` lays it out; ``src`` in ``[0, V)``);
-    mask, weight: (nblocks, emax) f32 (``weight`` optional).  Returns
-    (nblocks * tile_m, F) f32.  Launches on the current stream and does not
-    synchronize.
+    ``[0, tile_m)``; in each block the valid slots, ``mask != 0``, come
+    first and are sorted by ``dstl``, as ``core.dataflow.block_graph`` lays
+    them out; ``src`` in ``[0, V)``); mask, weight: (nblocks, emax) f32
+    (``weight`` optional).  Returns (nblocks * tile_m, F) f32.  Launches on
+    the current stream and does not synchronize.
     """
     if x.device.type == "cpu":
         return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m)
+    return _launch(x, src, dstl, mask, weight, tile_m,
+                   slice_cols(x.shape[-1]))
+
+
+def _launch(x, src, dstl, mask, weight, tile_m: int,
+            width: int) -> torch.Tensor:
+    """Check the arguments and launch the kernel with column slices of
+    ``width``; ``seg_agg`` passes ``slice_cols(F)``, the card tests force
+    narrower slices through here."""
     nblocks, emax = src.shape
     f = x.shape[1] if x.dim() == 2 else -1
     lay = (nblocks, emax)
@@ -93,18 +134,25 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     if not (tile_m > 0 and nblocks > 0 and emax > 0 and f > 0):
         raise ValueError(f"seg_agg: empty launch (tile_m={tile_m}, "
                          f"layout {lay}, F={f})")
+    if not 0 < width <= min(f, MAX_SLICE):
+        raise ValueError(f"seg_agg: slice width {width} must be in "
+                         f"[1, min(F={f}, {MAX_SLICE})]")
     out = torch.empty((nblocks * tile_m, f), dtype=torch.float32,
                       device=x.device)
+    starts = torch.empty((nblocks, tile_m + 1), dtype=torch.int32,
+                         device=x.device)
+    vec, c = launch_params(f, width, x.data_ptr() % 16 == 0,
+                           x.data_ptr() % 8 == 0)
     fn = _build.load("seg_agg").seg_agg_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), src.data_ptr(), dstl.data_ptr(),
                  mask.data_ptr(),
                  None if weight is None else weight.data_ptr(),
-                 out.data_ptr(), nblocks, emax, f, tile_m,
-                 torch.cuda.current_stream().cuda_stream)
+                 starts.data_ptr(), out.data_ptr(), nblocks, emax, f, tile_m,
+                 width, vec, c, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"seg_agg: kernel launch failed with CUDA error "
                            f"{err}")

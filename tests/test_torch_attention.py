@@ -31,6 +31,8 @@ from repro_torch.nn import attention as tattn
 torch.set_num_threads(2)
 
 RNG = np.random.default_rng(13)
+#: shared memory of one H100 SM; the card reserves 1 KB of it per block
+H100_SMEM_PER_SM = 233472
 
 #: tests/test_kernels.py CASES: b, hq, hkv, sq, sk, d, causal, window, cap
 CASES = [
@@ -119,6 +121,30 @@ def test_plain_dtypes_match_pallas(dtype, scale):
                           dtype=jq.dtype, scale=scale)
     ref = mha_ref(tq.float(), tk.float(), tv.float())
     assert_allclose_dtype(got.float(), ref, dtype=jq.dtype, scale=scale)
+
+
+@pytest.mark.parametrize("d", k5.HEAD_DIMS)
+@pytest.mark.parametrize("dtype,group", [(torch.float32, 1),
+                                         (torch.bfloat16, 1),
+                                         (torch.bfloat16, 2),
+                                         (torch.bfloat16, 4)])
+def test_flash_shared_memory_and_tiles(d, dtype, group):
+    """K5's shared memory at every head dim fits the H100's 227 KB per
+    block.  The bf16 kernel's tiles are wgmma-shaped (64 query rows, keys in
+    k16 steps, K/V tiles in whole 1024-byte swizzle atoms); at d = 256 an
+    even GQA group puts two heads in a CTA, otherwise two CTAs share an SM
+    (the card reserves 1 KB per block)."""
+    need = k5.smem_bytes(d, dtype, group)
+    assert 0 < need <= k5._H100_SMEM_OPTIN
+    tq, tk, heads = k5.tiles(d, dtype, group)
+    if dtype == torch.bfloat16:
+        assert tq == 64 and tk % 16 == 0 and tk * d * 2 % 1024 == 0
+        assert heads == (2 if d == 256 and group % 2 == 0 else 1)
+        assert need == (heads * tq * d + 4 * tk * d) * 2 + 1024
+        if heads == 1:
+            assert 2 * (need + 1024) <= H100_SMEM_PER_SM
+    else:
+        assert (tq, tk, heads) == (64, 32, 1)
 
 
 def test_cuda_tier_on_cpu_tensors_raises():

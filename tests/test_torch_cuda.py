@@ -12,11 +12,13 @@ shapes.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.config import CORA, reduced_graph
 from repro_torch.configs import gemma2_9b
+from repro_torch.core.dataflow import block_graph_arrays
 from repro_torch.graph.datasets import make_features, make_synthetic_graph
 from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import fused_agg_combine as k2
@@ -34,6 +36,11 @@ TOL = 1e-4
 #: the bf16 band: both versions compute in f32 and round once to bf16, so
 #: they differ by about one bf16 ulp of the largest magnitude
 BF16_TOL = 3e-2
+#: K5's per-row limits (chip_smoke.py ROW_LIMIT): each row's largest error
+#: over that row's largest magnitude.  The bands above scale with the whole
+#: output's largest magnitude, which rows with few keys set; these hold a
+#: row that averages many keys to its own scale
+ROW_LIMIT = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +58,15 @@ def _close(a, b, tol=TOL):
     assert (a.float() - b.float()).abs().max().item() <= tol * scale
 
 
-@pytest.mark.parametrize("f", [1, 7, 41, 128, 300])
+def _rows_close(a, b, limit):
+    """Each row (last dim) of ``a`` within ``limit`` of that row's largest
+    magnitude in ``b``; a row of ``b`` that is all 0 is 0 in ``a`` too."""
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    diff, mag = (a - b).abs().amax(-1), b.abs().amax(-1)
+    assert (diff <= limit * mag).all()
+
+
+@pytest.mark.parametrize("f", [1, 7, 41, 128, 300, 602])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_seg_agg_kernel_matches_plain(card, f, weighted):
     spec, g, _ = card
@@ -65,6 +80,40 @@ def test_seg_agg_kernel_matches_plain(card, f, weighted):
     _close(ops.seg_agg_planned(bg, x, w, backend="cuda"),
            ops.seg_agg_planned(bg, x, w, backend="torch"))
     assert k1.seg_agg.launches == n + 1
+
+
+def _ragged_layout(v=700, tile_m=128, seed=3):
+    """A power-law blocked layout on the card whose second block gets no
+    edge at all and whose other blocks have rows without edges."""
+    rng = np.random.default_rng(seed)
+    p = np.arange(1, v + 1, dtype=np.float64) ** -1.1
+    dst = np.sort(rng.choice(v, size=6000, p=p / p.sum()))
+    dst = dst[(dst < tile_m) | (dst >= 2 * tile_m)]
+    src = rng.integers(0, v, size=len(dst))
+    return block_graph_arrays(src, dst, v, tile_m, device="cuda")
+
+
+@pytest.mark.parametrize("f,width", [(128, 8), (128, 24), (41, 16), (41, 1),
+                                     (602, 40), (602, 64), (7, 3)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_seg_agg_kernel_column_slices(card, f, width, weighted):
+    """More than one column slice (the last narrower where the width does
+    not divide F), on a layout with an empty block and empty rows; two
+    launches are bitwise equal."""
+    bg = _ragged_layout()
+    gen = torch.Generator(device="cuda").manual_seed(f + width)
+    x = torch.randn((bg.num_vertices, f), generator=gen, device="cuda")
+    w = torch.rand(bg.src.shape, generator=gen, device="cuda") \
+        if weighted else None
+    args = (x, bg.src, bg.dstl, bg.mask, w)
+    n = k1.seg_agg.launches
+    got = k1._launch(*args, bg.tile_m, width)
+    again = k1._launch(*args, bg.tile_m, width)
+    assert k1.seg_agg.launches == n + 2
+    want = k1.seg_agg_plain(*args, tile_m=bg.tile_m)
+    _close(got, want)
+    assert torch.equal(got, again)
+    assert not got[bg.tile_m:2 * bg.tile_m].any()
 
 
 @pytest.mark.parametrize("fi,fo", [(256, 128), (128, 7), (300, 41)])
@@ -132,8 +181,46 @@ def test_flash_kernel_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
     got = k5.flash_attention(q, k, v, kvl, **kw)
     assert k5.flash_attention.launches == n + 1
     assert got.dtype == dtype and torch.isfinite(got).all()
-    _close(got, k5.flash_attention_plain(q, k, v, kvl, **kw),
-           TOL if dtype == torch.float32 else BF16_TOL)
+    want = k5.flash_attention_plain(q, k, v, kvl, **kw)
+    _close(got, want, TOL if dtype == torch.float32 else BF16_TOL)
+    _rows_close(got, want, ROW_LIMIT[dtype])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,kv_len", [
+    # the bf16 kernel's tiles: 64 query rows, 64 keys (32 at d = 256)
+    (1, 2, 2, 63, 65, 64, True, 0, 0.0, None),
+    (1, 2, 1, 65, 63, 64, False, 0, 0.0, None),
+    (1, 4, 1, 64, 64, 16, True, 0, 50.0, None),
+    (1, 2, 2, 1, 1, 128, True, 0, 0.0, None),
+    (2, 4, 2, 1, 129, 256, True, 0, 50.0, None),
+    (1, 2, 1, 129, 31, 256, True, 0, 0.0, None),
+    (1, 8, 2, 33, 33, 256, False, 0, 50.0, None),
+    (1, 4, 4, 200, 200, 128, True, 40, 0.0, None),   # window edge in a tile
+    (1, 4, 2, 130, 130, 256, True, 20, 50.0, None),
+    (2, 4, 1, 100, 160, 64, True, 0, 0.0, (60, 160)),  # rows with no key
+    (1, 2, 1, 70, 70, 256, True, 0, 0.0, (33,)),
+    (1, 2, 2, 127, 127, 32, False, 0, 30.0, None),
+    (1, 2, 1, 257, 257, 16, True, 0, 0.0, None),
+    # d = 256 with an odd group: one warpgroup a CTA, 32-key tiles
+    (1, 2, 2, 65, 97, 256, True, 0, 50.0, None),
+    (1, 3, 1, 40, 70, 256, True, 16, 0.0, (50,)),
+])
+def test_flash_bf16_tile_edges_match_plain(gpu, b, hq, hkv, sq, sk, d,
+                                           causal, window, cap, kv_len):
+    gen = torch.Generator(device=gpu).manual_seed(sq * d + sk)
+    q, k, v = (torch.randn(shp, generator=gen, device=gpu).to(torch.bfloat16)
+               for shp in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                   device=gpu)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    n = k5.flash_attention.launches
+    got = k5.flash_attention(q, k, v, kvl, **kw)
+    assert k5.flash_attention.launches == n + 1
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    want = k5.flash_attention_plain(q, k, v, kvl, **kw)
+    _close(got, want, BF16_TOL)
+    _rows_close(got, want, ROW_LIMIT[torch.bfloat16])
+    assert torch.equal(got, k5.flash_attention(q, k, v, kvl, **kw))
 
 
 def test_flash_kernel_refuses_gradients_and_bad_input(gpu):

@@ -163,3 +163,29 @@ def test_fused_shared_memory_budget():
     fits the H100's 227 KB; the wrapper's formula is what it checks."""
     assert k2.smem_bytes(32, 128) + k2._STATIC_SMEM <= k2._H100_SMEM_OPTIN
     assert k2.smem_bytes(256, 1024) + k2._STATIC_SMEM > k2._H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("f", [1, 5, 7, 8, 41, 63, 64, 65, 128, 602,
+                               1433, 3703])
+def test_seg_agg_slices_cover_f(f):
+    """The column slices cover F exactly (the last one non-empty) and are
+    at most MAX_SLICE wide; the load shape covers a slice."""
+    w = k1.slice_cols(f)
+    n = -(-f // w)
+    assert 1 <= w <= min(f, k1.MAX_SLICE)
+    assert (n - 1) * w < f <= n * w
+    vec, c = k1.launch_params(f, w, True, True)
+    assert f % vec == 0 and w % vec == 0
+    assert k1.UNIT_LANES * vec * c >= w and vec * c <= 8
+
+
+def test_seg_agg_slices_at_reddit():
+    """Reddit on the H100: 64-column slices at F = 128 and 602 (16- and
+    8-byte loads), one slice at F = 41 (4-byte loads); an unaligned x
+    drops to narrower loads."""
+    assert [k1.slice_cols(f) for f in (128, 602, 41)] == [64, 64, 41]
+    assert k1.launch_params(128, 64, True, True) == (4, 2)
+    assert k1.launch_params(602, 64, True, True) == (2, 4)
+    assert k1.launch_params(41, 41, True, True) == (1, 6)
+    assert k1.launch_params(128, 64, False, True) == (2, 4)
+    assert k1.launch_params(128, 64, False, False) == (1, 8)
