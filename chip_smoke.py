@@ -8,12 +8,20 @@ Run from the repository root, with one CUDA card visible:
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device  -- a CUDA card is visible; its name and power limit.
-  2. build   -- nvcc builds the kernels from src/repro_torch/csrc.
+  2. build   -- nvcc builds the kernels from src/repro_torch/csrc and
+                prints ptxas's registers and spills per kernel;
+                cuobjdump -sass shows HGMMA instructions with TF32
+                operands in every instance of K2's fused kernel.
   3. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, at the shapes the main path gives it on Cora,
                 Citeseer and Reddit, with the tolerance printed; times of
                 kernel, plain version and (for seg_agg) torch.sparse.mm;
-                seg_agg's repeat launch bitwise equal to its first.
+                every repeat launch bitwise equal to its first.  K2 is
+                also held to a per-row and a relative Frobenius limit,
+                which a control with one TF32 product instead of three
+                must fail, and timed beside the unfused composition
+                (seg_agg, then torch.matmul) and with its indices read
+                from L2 instead of staged.
   4. main    -- the paper's GCN, SAGE and GIN (2 layers, hidden 128) at
                 full width on Reddit, unfused and fused, through
                 GCNModel with backend="auto"; launch counts of both
@@ -57,10 +65,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
-#: tensor cores (K1 and K2 compute in plain f32) and bf16 tensor-core FLOP/s
+#: tensor cores (K1's adds, K2's adds), bf16 tensor-core FLOP/s, and TF32
+#: tensor-core FLOP/s over three (K2's product is three TF32 products)
 HBM_BW = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32X3_FLOPS = 495e12 / 3
 #: the bf16 band (tests/tolerance.py): K5 and its plain version both
 #: compute in f32 and round once to bf16, so they differ by about one bf16
 #: ulp of the largest magnitude
@@ -107,7 +117,7 @@ LM_MAX_BATCH, LM_CACHE, LM_TOKENS = 4, 6400, 16
 K5_KERNELS = ("wgmma_kernel", "fma_kernel")
 #: unit f32 band (tests/tolerance.py) and the slack this script allows:
 #: kernel and plain version add in different orders (slot order vs the
-#: atomics of index_add_; slab-wise FMA vs cuBLAS), so results agree to a
+#: atomics of index_add_; 3xTF32 slices vs cuBLAS), so results agree to a
 #: few ulp of the largest magnitude, not bitwise
 F32_BAND = 1e-5
 SCALE = 10
@@ -163,6 +173,34 @@ def ratios(rec) -> dict:
             "vs_library": None if lib is None else rec["ms"] / lib}
 
 
+def check_sass(name: str = "fused_agg_combine",
+               kernel: str = "fused_kernel") -> dict:
+    """K2's product on the tensor cores: ``cuobjdump -sass`` of the built
+    library shows HGMMA instructions with TF32 operands in every instance
+    of its fused kernel.  Returns {instance: HGMMA count}; fails if an
+    instance has none."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, example, fn = {}, None, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and "HGMMA" in line and "TF32" in line:
+            counts[fn] += 1
+            example = example or " ".join(line.split("*/", 1)[-1].split())
+    print(f"[build] {name} SASS: {len(counts)} instances of {kernel}, "
+          f"HGMMA with TF32 operands in each: {sorted(counts.values())}; "
+          f"e.g. {example}", flush=True)
+    if not counts or not all(counts.values()):
+        fail(f"{name}: an instance of {kernel} has no TF32 HGMMA ({counts})")
+    return counts
+
+
 def slice_sweep(x, bg, f, kern) -> dict:
     """seg_agg at each width of SLICE_SWEEP[f]: {width: ms}.  Fails unless
     every width's sums equal the default launch's bit for bit."""
@@ -180,9 +218,25 @@ def slice_sweep(x, bg, f, kern) -> dict:
     return out
 
 
+def k2_unstaged(args, tile_m, want) -> float:
+    """fused_agg_combine with its indices read from L2 in every slice
+    instead of staged once in shared memory (cap 0): its ms.  Fails unless
+    it gives the default launch's sums bit for bit."""
+    import torch
+    from repro_torch.kernels import fused_agg_combine as k2
+    run = lambda: k2._launch(*args, tile_m, cap=0)  # noqa: E731
+    if not torch.equal(run(), want):
+        fail(f"fused_agg_combine {tuple(args[-1].shape)}: unstaged indices "
+             f"change the sums")
+    return time_ms(run, 10)
+
+
 def check_kernels(graphs, models):
     """Phase 3: every kernel against its plain version at the main path's
-    shapes.  Returns one record per (kernel, graph, shape)."""
+    shapes.  Returns one record per (kernel, graph, shape).  K2 is also
+    held to K2_LIMITS per row and in Frobenius norm, a one-TF32-product
+    control must fail both, and its time is set beside the unfused
+    composition (seg_agg, then torch.matmul)."""
     import torch
     from repro_torch.core.phases import aggregate_cost
     from repro_torch.kernels import fused_agg_combine as k2
@@ -237,14 +291,32 @@ def check_kernels(graphs, models):
                 noreuse = (nnz * f_in + f_in * f_out
                            + g.num_vertices * f_out) * 4 + 8 * nnz
                 library = None
+                # the composition fusion is weighed against: the unfused
+                # plan's aggregation, then the product
+                unfused = lambda: k1.seg_agg(  # noqa: E731
+                    x, agg_bg.src, agg_bg.dstl, agg_bg.mask, None,
+                    tile_m=agg_bg.tile_m)[:g.num_vertices] @ w
             out_k, out_p = kern(), plain()
             torch.cuda.synchronize()
             err, tol = max_err(out_k, out_p)
             ok = bool(torch.isfinite(out_k).all().item()) and err <= tol
             # the fold is in slot order: a second launch is bit for bit equal
-            same = kname != "seg_agg" or torch.equal(out_k, kern())
+            same = torch.equal(out_k, kern())
+            if kname == "fused_agg_combine":
+                row, fro = rel_errs(out_k, out_p)
+                one = k2._launch(*args, bg.tile_m, terms=1)
+                c_row, c_fro = rel_errs(one, out_p)
+                del one
+                unstaged = k2_unstaged(args, bg.tile_m, out_k) \
+                    if gname == "reddit" else None
             del out_k
             b_ms, b_by = bound(nbytes, ops)
+            if kname == "fused_agg_combine":
+                # the adds in f32, the product on the tensor cores in
+                # 3xTF32: counted as f32 operations of the same time
+                prod = 2 * g.num_vertices * f_in * f_out
+                b_ms, b_by = bound(nbytes, nnz * f_in
+                                   + prod * F32_FLOPS / TF32X3_FLOPS)
             rec = {"name": kname, "graph": gname, "f_in": f_in,
                    "f_out": f_out, "tile_m": bg.tile_m, "nblocks": bg.nblocks,
                    "emax": bg.emax, "max_abs_err": err, "tol": tol,
@@ -260,6 +332,14 @@ def check_kernels(graphs, models):
                 rec["slice_cols"] = k1.slice_cols(f_in)
                 if gname == "reddit":
                     rec["slice_sweep_ms"] = slice_sweep(x, bg, f_in, kern)
+            else:
+                rec.update(
+                    bound_f32fma_ms=bound(nbytes, ops)[0],
+                    row_rel_err=row, fro_rel_err=fro,
+                    control_row_rel_err=c_row, control_fro_rel_err=c_fro,
+                    unfused_ms=time_ms(unfused, 10), unstaged_ms=unstaged,
+                    slot_capacity=k2.slot_capacity(bg.tile_m, bg.emax,
+                                                   f_out))
             records.append(rec)
             print(f"[kernels] {kname:17s} {gname:8s} {f_in:4d}->{f_out:<4d} "
                   f"tile_m={bg.tile_m} layout={bg.nblocks}x{bg.emax} "
@@ -271,13 +351,30 @@ def check_kernels(graphs, models):
                   f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
                   f"{rec['vs_library']}"
                   + (f" slice_cols={rec['slice_cols']}"
-                     if kname == "seg_agg" else ""), flush=True)
+                     if kname == "seg_agg" else
+                     f" bound_f32fma_ms={rec['bound_f32fma_ms']:.4f} "
+                     f"unfused_ms={rec['unfused_ms']:.4f} unstaged_ms="
+                     f"{unstaged} row_rel_err="
+                     f"{row:.3e} fro_rel_err={fro:.3e} (limits "
+                     f"{k2.ROW_LIMIT:.0e}/{k2.FRO_LIMIT:.0e}; control with "
+                     f"one TF32 product {c_row:.3e}/{c_fro:.3e})"),
+                  flush=True)
             if not ok:
                 fail(f"{kname} on {gname} {f_in}->{f_out}: kernel and plain "
                      f"version differ by {err:.3e} (tolerance {tol:.3e})")
             if not same:
                 fail(f"{kname} on {gname} {f_in}->{f_out}: two launches on "
                      f"the same input differ")
+            if kname == "fused_agg_combine":
+                if row > k2.ROW_LIMIT or fro > k2.FRO_LIMIT:
+                    fail(f"{kname} on {gname} {f_in}->{f_out}: a row off by "
+                         f"{row:.3e} of its scale or {fro:.3e} relative "
+                         f"Frobenius error (limits {k2.ROW_LIMIT:.0e}, "
+                         f"{k2.FRO_LIMIT:.0e})")
+                if c_row <= k2.ROW_LIMIT or c_fro <= k2.FRO_LIMIT:
+                    fail(f"{kname} on {gname} {f_in}->{f_out}: the check "
+                         f"cannot see one TF32 product ({c_row:.3e}, "
+                         f"{c_fro:.3e})")
     return records
 
 
@@ -778,6 +875,7 @@ def main() -> None:
             if any(w in line for w in ("Compiling entry", "registers",
                                        "spill", "smem", "arning")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    sass = check_sass()
 
     # -- 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -807,6 +905,7 @@ def main() -> None:
         fail(f"main path launches {counts}, expected {expected}: every "
              f"unfused layer runs seg_agg once, every fused layer runs "
              f"fused_agg_combine once")
+    forwards = {}
     with torch.inference_mode():
         for (name, fused), m in models.items():
             out = logits[(name, fused)]
@@ -819,6 +918,7 @@ def main() -> None:
             err, tol = max_err(out, ref)
             cross, ctol = max_err(out, logits[(name, not fused)])
             ms = time_ms(lambda: m(g_red, x_red), 3)
+            forwards[f"{name}_{'fused' if fused else 'unfused'}"] = ms
             print(f"[main] {name:4s} fused={fused!s:5s} logits "
                   f"{tuple(out.shape)} vs torch tier max_abs_err={err:.3e} "
                   f"tol={tol:.3e}; vs {'un' if fused else ''}fused "
@@ -848,7 +948,8 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
-         "lm_f32": lm_f32},
+         "lm_f32": lm_f32, "k2_sass_hgmma": sass,
+         "forwards_ms": forwards},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape

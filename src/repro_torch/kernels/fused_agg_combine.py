@@ -9,9 +9,14 @@ on chip and multiplied by ``W`` before anything is written::
     out[b*tile_m + m] = (sum_{e: dstl[b,e]=m, mask[b,e]!=0}
                              mask[b,e] * x[src[b,e]]) @ W
 
+The kernel folds 64 destination rows per CTA, 64 input columns at a time,
+and multiplies each slice on the tensor cores in 3xTF32 (f32 accuracy).
+
 ``fused_agg_combine`` is the wrapper: a tensor on the CPU takes
 ``fused_agg_combine_plain``, a CUDA tensor launches the kernel or raises.
-``fused_agg_combine.launches`` counts the launches.
+``fused_agg_combine.launches`` counts the launches.  The launch shapes
+(``cols_per_wg``, ``smem_bytes``, ``slot_capacity``, ``scratch_bytes``)
+are pure functions of the shapes, so the CPU tests hold them.
 """
 
 from __future__ import annotations
@@ -21,12 +26,31 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.seg_agg import blocks_per_chunk, fold_blocks_plain
+from repro_torch.kernels.seg_agg import (blocks_per_chunk, fold_blocks_plain,
+                                         launch_params)
 
-#: static shared memory of the kernel (the staged slot indices)
-_STATIC_SMEM = 3 * 256 * 4
 #: per-block shared memory limit (opt-in) of the H100
 _H100_SMEM_OPTIN = 232448
+#: shared memory a CTA may take for two CTAs to share an H100 SM (228 KB
+#: an SM, 1 KB of it reserved per CTA)
+SMEM_TWO_PER_SM = (233472 - 2 * 1024) // 2
+#: destination rows of a CTA (one wgmma M), input columns of a K-slice,
+#: warpgroups of a CTA (each owns half of the output columns)
+CTA_ROWS = 64
+SLICE = 64
+WARPGROUPS = 2
+#: output columns of one fused launch; wider W runs one launch per 128
+MAX_COLS = 128
+#: output columns a warpgroup may own: the instantiated wgmma widths
+WG_COLS = (8, 16, 24, 32, 48, 64)
+#: the kernel's accuracy against its plain version, beside the max-abs f32
+#: band: each output row's largest error over that row's largest magnitude,
+#: and the relative Frobenius error.  3xTF32 keeps about 22 mantissa bits:
+#: on the H100 the kernel reads at most 2.0e-06 / 6.2e-07 at chip_smoke.py's
+#: six shapes; one TF32 product keeps 10 and reads at least 5.7e-04 /
+#: 2.9e-04 (PERF.md), so it must fail both
+ROW_LIMIT = 3e-5
+FRO_LIMIT = 1e-5
 
 
 def fused_agg_combine_plain(x: torch.Tensor, src: torch.Tensor,
@@ -48,11 +72,44 @@ def fused_agg_combine_plain(x: torch.Tensor, src: torch.Tensor,
     return out
 
 
-def smem_bytes(tile_m: int, f_out: int) -> int:
-    """Dynamic shared memory one launch takes (mirrors the kernel's own
-    ``fused_agg_combine_smem_bytes``): a (tile_m, 256) slab of the
-    aggregate and the (tile_m, f_out) output sums, f32."""
-    return (tile_m * 256 + tile_m * f_out) * 4
+def cols_per_wg(ncols: int) -> int:
+    """Output columns each of the kernel's two warpgroups owns in a launch
+    of ``ncols`` (<= MAX_COLS) columns: half of them rounded up to 8, then
+    up to an instantiated wgmma width (``fused_agg_combine.cu``
+    ``cols_per_wg``)."""
+    half = (-(-ncols // 8) * 8 + 1) // 2
+    return next(n for n in WG_COLS if n >= half)
+
+
+def smem_bytes(f_out: int, cap: int) -> int:
+    """Dynamic shared memory of the widest fused launch for ``f_out``
+    columns with ``cap`` staged slots (the kernel's ``smem_bytes_for``):
+    1 KB of alignment slack, the A tile's hi and lo parts (2 x 16 KB), one
+    stage of the W image (32 K columns, hi and lo: 256 bytes per image row,
+    one row per output column of the two warpgroups), the f32 running sum
+    (64 rows of the image's width plus 8), 1 KB of row starts and segment
+    tables, and 4 bytes per staged slot.  The kernel reserves no static
+    shared memory."""
+    nw = WARPGROUPS * cols_per_wg(min(f_out, MAX_COLS))
+    return (1024 + 2 * CTA_ROWS * SLICE * 4 + nw * SLICE * 4
+            + CTA_ROWS * (nw + 8) * 4 + 1024 + 4 * cap)
+
+
+def slot_capacity(tile_m: int, emax: int, f_out: int) -> int:
+    """Slots whose ``src`` a CTA stages in shared memory: all a CTA can
+    hold (64 / tile_m blocks' emax, or one block's), as far as two CTAs
+    still share an SM.  A CTA with more valid slots reads them from L2 in
+    every slice instead."""
+    most = (CTA_ROWS // tile_m if tile_m <= CTA_ROWS else 1) * emax
+    return max(0, min(most, (SMEM_TWO_PER_SM - smem_bytes(f_out, 0)) // 4))
+
+
+def scratch_bytes(f_in: int, f_out: int) -> int:
+    """Bytes of the W image the prepass writes: per 64-column K-slice, 512
+    bytes per image row (hi and lo), one row per output column of the two
+    warpgroups."""
+    return (-(-f_in // SLICE) * 512 * WARPGROUPS
+            * cols_per_wg(min(f_out, MAX_COLS)))
 
 
 def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
@@ -62,14 +119,27 @@ def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     plain version for tensors on the CPU.
 
     x: (V, F_in) f32; src, dstl: (nblocks, emax) int32 (``dstl`` in
-    ``[0, tile_m)``, non-decreasing over the valid slots of a block, as
-    ``core.dataflow.block_graph`` lays it out; ``src`` in ``[0, V)``);
-    mask: (nblocks, emax) f32; w: (F_in, F_out) f32.  Returns
-    (nblocks * tile_m, F_out) f32, computed in full f32 (no TF32).
-    Launches on the current stream and does not synchronize.
+    ``[0, tile_m)``; in each block the valid slots, ``mask != 0``, come
+    first and are sorted by ``dstl``, as ``core.dataflow.block_graph`` lays
+    them out; ``src`` in ``[0, V)``); mask: (nblocks, emax) f32; w:
+    (F_in, F_out) f32.  Returns (nblocks * tile_m, F_out) f32, to f32
+    accuracy (the product in 3xTF32).  Launches on the current stream and
+    does not synchronize.
     """
     if x.device.type == "cpu":
         return fused_agg_combine_plain(x, src, dstl, mask, w, tile_m=tile_m)
+    out = _launch(x, src, dstl, mask, w, tile_m)
+    fused_agg_combine.launches += 1
+    return out
+
+
+def _launch(x, src, dstl, mask, w, tile_m: int, *, terms: int = 3,
+            cap: int | None = None) -> torch.Tensor:
+    """Check the arguments and launch the prepass and the kernel.
+    ``fused_agg_combine`` passes the defaults; ``terms=1`` (one TF32
+    product, a control that must fail the f32 checks) and ``cap`` (staged
+    slots per CTA; 0 reads every index from L2) are for ``chip_smoke.py``
+    and the card tests."""
     nblocks, emax = src.shape
     f_in, f_out = (w.shape[0], w.shape[1]) if w.dim() == 2 else (-1, -1)
     lay = (nblocks, emax)
@@ -78,31 +148,42 @@ def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
         "src": (src, torch.int32, lay), "dstl": (dstl, torch.int32, lay),
         "mask": (mask, torch.float32, lay),
         "w": (w, torch.float32, (f_in, f_out))})
-    if not (tile_m > 0 and nblocks > 0 and emax > 0 and f_out > 0):
+    if not (tile_m > 0 and nblocks > 0 and emax > 0 and f_in > 0
+            and f_out > 0):
         raise ValueError(f"fused_agg_combine: empty launch (tile_m={tile_m},"
                          f" layout {lay}, W {tuple(w.shape)})")
+    if terms not in (1, 3):
+        raise ValueError(f"fused_agg_combine: terms must be 1 or 3, got "
+                         f"{terms}")
+    if cap is None:
+        cap = slot_capacity(tile_m, emax, f_out)
     limit = getattr(torch.cuda.get_device_properties(x.device),
                     "shared_memory_per_block_optin", _H100_SMEM_OPTIN)
-    if smem_bytes(tile_m, f_out) + _STATIC_SMEM > limit:
+    if smem_bytes(f_out, cap) > limit:
         raise ValueError(
-            f"fused_agg_combine: tile_m={tile_m} with F_out={f_out} needs "
-            f"{smem_bytes(tile_m, f_out) + _STATIC_SMEM} bytes of shared "
-            f"memory per block; this card allows {limit}")
+            f"fused_agg_combine: F_out={f_out} with {cap} staged slots needs "
+            f"{smem_bytes(f_out, cap)} bytes of shared memory per block; "
+            f"this card allows {limit}")
     out = torch.empty((nblocks * tile_m, f_out), dtype=torch.float32,
                       device=x.device)
+    wimg = torch.empty(scratch_bytes(f_in, f_out), dtype=torch.uint8,
+                       device=x.device)
+    # seg_agg's load width for 64-column slices: slices start at multiples
+    # of 64 columns, so every slice keeps x's alignment
+    vec = launch_params(f_in, SLICE, x.data_ptr() % 16 == 0,
+                        x.data_ptr() % 8 == 0)[0]
     fn = _build.load("fused_agg_combine").fused_agg_combine_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), src.data_ptr(), dstl.data_ptr(),
                  mask.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 nblocks, emax, f_in, f_out, tile_m,
-                 torch.cuda.current_stream().cuda_stream)
+                 wimg.data_ptr(), nblocks, emax, f_in, f_out, tile_m, vec,
+                 cap, terms, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_agg_combine: kernel launch failed with "
                            f"CUDA error {err}")
-    fused_agg_combine.launches += 1
     return out
 
 

@@ -126,11 +126,97 @@ def test_fused_kernel_matches_plain(card, fi, fo):
     x = torch.randn((g.num_vertices, fi), generator=gen, device="cuda")
     w = torch.randn((fi, fo), generator=gen, device="cuda") * 0.1
     n = k2.fused_agg_combine.launches
-    _close(k2.fused_agg_combine(x, bg.src, bg.dstl, bg.mask, w,
-                                tile_m=bg.tile_m),
-           k2.fused_agg_combine_plain(x, bg.src, bg.dstl, bg.mask, w,
-                                      tile_m=bg.tile_m))
+    got = k2.fused_agg_combine(x, bg.src, bg.dstl, bg.mask, w,
+                               tile_m=bg.tile_m)
+    want = k2.fused_agg_combine_plain(x, bg.src, bg.dstl, bg.mask, w,
+                                      tile_m=bg.tile_m)
+    _close(got, want)
+    _rows_close(got, want, k2.ROW_LIMIT)
     assert k2.fused_agg_combine.launches == n + 1
+
+
+def _fused_case(tile_m, nblocks, fi, fo, seed, coef=False):
+    """A ragged layout of ``nblocks`` blocks (the second empty, rows
+    without edges elsewhere), x and W on the card; ``coef`` gives the
+    valid slots masks other than 1."""
+    bg = _ragged_layout(v=nblocks * tile_m - tile_m // 3, tile_m=tile_m,
+                        seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mask = bg.mask
+    if coef:
+        mask = torch.where(mask != 0, 0.5 + torch.rand(
+            mask.shape, generator=gen, device="cuda"), 0.0)
+    x = torch.randn((bg.num_vertices, fi), generator=gen, device="cuda")
+    w = torch.randn((fi, fo), generator=gen, device="cuda") * (2 / fi) ** .5
+    return bg, (x, bg.src, bg.dstl, mask, w)
+
+
+@pytest.mark.parametrize("tile_m,nblocks,fi,fo,coef", [
+    # several blocks a CTA (tile_m < 64), the last CTA partial (odd
+    # nblocks); one block a CTA; a block of several 64-row CTAs
+    (32, 7, 7, 7, False), (32, 7, 602, 41, False), (32, 9, 1433, 128, True),
+    (32, 5, 128, 256, False), (64, 5, 602, 128, False), (64, 3, 7, 41, True),
+    (128, 3, 1433, 7, False), (128, 3, 602, 256, False),
+    (256, 3, 602, 41, False), (256, 3, 128, 128, True),
+    # tile_m that does not divide 64 or is a multiple of it: padded rows;
+    # four blocks a CTA; F_out past one launch's 256 columns
+    (48, 5, 41, 7, False), (96, 3, 602, 41, False), (16, 13, 128, 128, False),
+    (32, 3, 64, 300, False),
+])
+def test_fused_kernel_edges(card, tile_m, nblocks, fi, fo, coef):
+    """K2 against its plain version at its edges: blocks a CTA, N padding
+    (F_out 7, 41, 128, 256, 300), K tails (F_in 7, 41, 602, 1433), empty
+    blocks and rows, masks other than 1; within TOL and the per-row
+    limit, two launches bitwise equal, an empty block exactly 0."""
+    bg, args = _fused_case(tile_m, nblocks, fi, fo, fi + fo + tile_m, coef)
+    n = k2.fused_agg_combine.launches
+    got = k2.fused_agg_combine(*args, tile_m=bg.tile_m)
+    again = k2.fused_agg_combine(*args, tile_m=bg.tile_m)
+    assert k2.fused_agg_combine.launches == n + 2
+    want = k2.fused_agg_combine_plain(*args, tile_m=bg.tile_m)
+    assert got.shape == want.shape == (bg.nblocks * tile_m, fo)
+    _close(got, want)
+    _rows_close(got, want, k2.ROW_LIMIT)
+    assert torch.equal(got, again)
+    assert not got[tile_m:2 * tile_m].any()
+    # indices read from L2 instead of shared memory: the same sums
+    assert torch.equal(got, k2._launch(*args, bg.tile_m, cap=0))
+
+
+def test_fused_kernel_pad_slots_do_not_leak(card):
+    """Pad slots point at row 0 with mask 0: a non-finite x[0] must not
+    reach the output (pad slots are skipped, never multiplied by 0)."""
+    bg, (x, src, dstl, mask, w) = _fused_case(32, 7, 602, 41, 5)
+    src = torch.where(mask != 0, src.clamp_min(1), 0).to(torch.int32)
+    x[0] = float("inf")
+    got = k2.fused_agg_combine(x, src, dstl, mask, w, tile_m=bg.tile_m)
+    assert torch.isfinite(got).all()
+    _close(got, k2.fused_agg_combine_plain(x, src, dstl, mask, w,
+                                           tile_m=bg.tile_m))
+
+
+def test_fused_one_tf32_product_fails_the_limits(card):
+    """The control: one TF32 product instead of three is off by more than
+    the per-row limit, so the check sees TF32 rounding."""
+    bg, args = _fused_case(32, 9, 1433, 128, 11)
+    want = k2.fused_agg_combine_plain(*args, tile_m=bg.tile_m)
+    n = k2.fused_agg_combine.launches
+    one = k2._launch(*args, bg.tile_m, terms=1)
+    assert k2.fused_agg_combine.launches == n
+    torch.cuda.synchronize()
+    with pytest.raises(AssertionError):
+        _rows_close(one, want, k2.ROW_LIMIT)
+
+
+def test_fused_kernel_refuses_bad_input(card):
+    bg, (x, src, dstl, mask, w) = _fused_case(32, 3, 64, 8, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.fused_agg_combine(x.t().contiguous().t(), src, dstl, mask, w,
+                             tile_m=32)
+    with pytest.raises(TypeError):
+        k2.fused_agg_combine(x, src, dstl, mask, w.double(), tile_m=32)
+    with pytest.raises(ValueError, match="terms"):
+        k2._launch(x, src, dstl, mask, w, 32, terms=2)
 
 
 @pytest.mark.parametrize("name", ["gcn", "sage", "gin"])

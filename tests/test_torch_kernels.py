@@ -159,10 +159,102 @@ def test_wrappers_take_the_plain_version_on_cpu():
 
 
 def test_fused_shared_memory_budget():
-    """The fused kernel's per-block shared memory at the main path's tiles
-    fits the H100's 227 KB; the wrapper's formula is what it checks."""
-    assert k2.smem_bytes(32, 128) + k2._STATIC_SMEM <= k2._H100_SMEM_OPTIN
-    assert k2.smem_bytes(256, 1024) + k2._STATIC_SMEM > k2._H100_SMEM_OPTIN
+    """The fused kernel's per-block shared memory (``smem_bytes``, what the
+    kernel reserves; it has no static shared memory) lets two CTAs share an
+    H100 SM at every width: at Reddit's tile_m = 32 layout (emax 1760) a
+    CTA stages up to 3328 slots at F_out = 128 (the mean CTA holds 3188)
+    and all 3520 at F_out = 41 and 7; a layout with more slots stages as
+    many as fit; W wider than 128 columns runs in 128-column launches of
+    the same size."""
+    assert k2.slot_capacity(32, 1760, 128) == 3328
+    assert k2.slot_capacity(32, 1760, 41) == k2.slot_capacity(32, 1760, 7) \
+        == 2 * 1760
+    for tile_m, emax, f_out in [(32, 1760, 128), (32, 1760, 256),
+                                (256, 14000, 128), (128, 100000, 1024),
+                                (16, 50, 5)]:
+        cap = k2.slot_capacity(tile_m, emax, f_out)
+        assert 0 <= cap <= (64 // tile_m if tile_m <= 64 else 1) * emax
+        assert k2.smem_bytes(f_out, cap) <= k2.SMEM_TWO_PER_SM
+    assert k2.smem_bytes(1024, 7) == k2.smem_bytes(128, 7)
+    assert k2.scratch_bytes(602, 128) == 10 * 512 * 128
+    assert k2.scratch_bytes(3703, 1024) == k2.scratch_bytes(3703, 128)
+
+
+@pytest.mark.parametrize("f_out,nt", [(1, 8), (7, 8), (16, 8), (17, 16),
+                                      (41, 24), (48, 24), (49, 32),
+                                      (64, 32), (65, 48), (96, 48),
+                                      (97, 64), (128, 64)])
+def test_fused_warpgroup_columns(f_out, nt):
+    """Each of the two warpgroups owns nt columns (an instantiated wgmma
+    width): together F_out rounded up to 8, and less than one width step
+    more than that."""
+    assert k2.cols_per_wg(f_out) == nt
+    assert 2 * nt >= -(-f_out // 8) * 8
+    assert nt in k2.WG_COLS
+    assert nt == k2.WG_COLS[0] or 2 * k2.WG_COLS[k2.WG_COLS.index(nt) - 1] \
+        < -(-f_out // 8) * 8
+
+
+def _tf32_rna(a):
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, on the bit pattern -- what cvt.rna.tf32.f32 does."""
+    b = np.asarray(a, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _round_to_zero(v):
+    """f64 values rounded to f32 toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    return np.where(over, np.nextafter(r, np.float32(0)), r)
+
+
+def _tf32_product(a, w, terms):
+    """``a @ w`` as the kernel forms it: hi = rna(v), lo = rna(v - hi) for
+    both operands; per k8 step the exact sum of A_lo W_hi + A_hi W_lo +
+    A_hi W_hi (terms=3) or A_hi W_hi alone (terms=1), added into the
+    slice's accumulator rounding toward zero, as the tensor cores add; per
+    64-column slice the partial added into an f32 running sum to
+    nearest."""
+    ah = _tf32_rna(a)
+    al = _tf32_rna(a - ah)
+    wh = _tf32_rna(w)
+    wl = _tf32_rna(w - wh)
+    f64 = np.float64
+    total = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for s0 in range(0, a.shape[1], 64):
+        part = np.zeros_like(total)
+        for s in range(s0, min(s0 + 64, a.shape[1]), 8):
+            k = slice(s, s + 8)
+            t = ah[:, k].astype(f64) @ wh[k].astype(f64)
+            if terms == 3:
+                t += al[:, k].astype(f64) @ wh[k].astype(f64)
+                t += ah[:, k].astype(f64) @ wl[k].astype(f64)
+            part = _round_to_zero(part.astype(f64) + t)
+        total = (total + part).astype(np.float32)
+    return total
+
+
+@pytest.mark.parametrize("k", [602, 3703])
+def test_three_tf32_products_hold_the_f32_limits(k):
+    """Why the kernel takes three TF32 products and why chip_smoke.py's
+    one-product control must fail: on a (64, K) @ (K, 128) product shaped
+    like Reddit's and Citeseer's fused layers (aggregates of ~50 N(0, 1)
+    rows, W ~ N(0, 2 / K)), 3xTF32 stays inside the per-row and Frobenius
+    limits against the f32 product, and one TF32 product does not."""
+    rng = np.random.default_rng(k)
+    a = (rng.standard_normal((64, k)) * 7).astype(np.float32)
+    w = (rng.standard_normal((k, 128)) * np.sqrt(2 / k)).astype(np.float32)
+    want = a @ w
+
+    def errs(got):
+        row = (np.abs(got - want).max(1) / np.abs(want).max(1)).max()
+        return row, np.linalg.norm(got - want) / np.linalg.norm(want)
+
+    row3, fro3 = errs(_tf32_product(a, w, 3))
+    row1, fro1 = errs(_tf32_product(a, w, 1))
+    assert row3 <= k2.ROW_LIMIT and fro3 <= k2.FRO_LIMIT
+    assert row1 > k2.ROW_LIMIT and fro1 > k2.FRO_LIMIT
 
 
 @pytest.mark.parametrize("f", [1, 5, 7, 8, 41, 63, 64, 65, 128, 602,
