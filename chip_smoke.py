@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build   -- nvcc builds the kernels from src/repro_torch/csrc and
                 prints ptxas's registers and spills per kernel;
                 cuobjdump -sass shows HGMMA instructions with TF32
-                operands in every instance of K2's fused kernel.
+                operands in every instance of K2's fused kernel and of
+                K5's f32 kernel.
   3. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, at the shapes the main path gives it on Cora,
                 Citeseer and Reddit, with the tolerance printed; times of
@@ -32,11 +33,14 @@ Phases, each printing its own lines; any failure exits non-zero:
                 contract and a non-causal case: the max-abs band, and each
                 row's error against that row's own scale and the relative
                 Frobenius error, which a control that skips one KV tile
-                must fail; times of kernel, plain version and a library
-                call (scaled_dot_product_attention where it computes the
-                same function, flex_attention with a tanh score_mod where
-                it compiles), and at (a) in bf16 the kernel's time without
-                the softcap.
+                must fail, and in f32 so must a control with one TF32
+                product instead of three; two launches bit for bit equal;
+                times of kernel, plain version and a library call
+                (scaled_dot_product_attention where it computes the same
+                function, flex_attention with a tanh score_mod where it
+                compiles), and at (a) the kernel's time without the
+                softcap.  The f32 bound is the tensor cores' 3xTF32 rate,
+                the f32-FMA bound beside it.
   6. lm      -- gemma2-9b at full width and depth (42 layers, bf16, seeded
                 random weights) through the port's ServeEngine: a wave of
                 8 greedy requests of 17 to 6144 prompt tokens, 16 tokens
@@ -66,7 +70,8 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside the
 #: tensor cores (K1's adds, K2's adds), bf16 tensor-core FLOP/s, and TF32
-#: tensor-core FLOP/s over three (K2's product is three TF32 products)
+#: tensor-core FLOP/s over three (K2's product and K5's f32 products are
+#: three TF32 products each)
 HBM_BW = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
@@ -82,8 +87,9 @@ BF16_BAND = 3e-2
 #: (a few keys, magnitudes near 4) set, while a row that averages thousands
 #: of keys is ~0.02: these hold every row to its own scale.  On the H100
 #: the kernel reads at most 7.8e-03 (one bf16 ulp) / 2.2e-03 in bf16 and
-#: 6.1e-06 / 5.3e-07 in f32; ``drop_tile_control``, a kernel that skips one
-#: KV tile, reads at least 0.71 / 0.037 (PERF.md, PR 14)
+#: 5.2e-06 / 8.6e-07 in f32 (3xTF32); ``drop_tile_control``, a kernel that
+#: skips one KV tile, reads at least 0.69 / 0.037, and the f32 kernel with
+#: one TF32 product instead of three at least 8.0e-04 / 2.9e-04 (PERF.md)
 ROW_LIMIT = {"float32": 3e-5, "bfloat16": 2e-2}
 FRO_LIMIT = {"float32": 3e-6, "bfloat16": 1e-2}
 #: phase 6: the relative Frobenius error of each prompt's prefill logits
@@ -114,7 +120,7 @@ LM_F32_LAYERS = 2
 LM_PROMPTS = (17, 100, 512, 1000, 2048, 4097, 6144, 33)
 LM_MAX_BATCH, LM_CACHE, LM_TOKENS = 4, 6400, 16
 #: K5's kernels as the profiler names them (csrc/flash_attention.cu)
-K5_KERNELS = ("wgmma_kernel", "fma_kernel")
+K5_KERNELS = ("wgmma_kernel", "tf32x3_kernel")
 #: unit f32 band (tests/tolerance.py) and the slack this script allows:
 #: kernel and plain version add in different orders (slot order vs the
 #: atomics of index_add_; 3xTF32 slices vs cuBLAS), so results agree to a
@@ -175,10 +181,10 @@ def ratios(rec) -> dict:
 
 def check_sass(name: str = "fused_agg_combine",
                kernel: str = "fused_kernel") -> dict:
-    """K2's product on the tensor cores: ``cuobjdump -sass`` of the built
-    library shows HGMMA instructions with TF32 operands in every instance
-    of its fused kernel.  Returns {instance: HGMMA count}; fails if an
-    instance has none."""
+    """A 3xTF32 kernel on the tensor cores: ``cuobjdump -sass`` of the
+    built library ``name`` shows HGMMA instructions with TF32 operands in
+    every instance of ``kernel`` (K2's fused_kernel, K5's tf32x3_kernel).
+    Returns {instance: HGMMA count}; fails if an instance has none."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(name))],
@@ -509,6 +515,9 @@ def flash_library(shape, q, k, v, want, tol):
 
 def check_flash():
     """Phase 5: K5 against its plain version at FLASH_SHAPES, f32 and bf16.
+    Fails unless every launch meets the band and the per-row and Frobenius
+    limits, the drop-tile control (and in f32 the one-TF32-product control)
+    fails both limits, and a second launch equals the first bit for bit.
     Returns one record per (shape, dtype)."""
     import torch
     from repro_torch.kernels import flash_attention as k5
@@ -538,13 +547,19 @@ def check_flash():
             row, fro = rel_errs(out_k, out_p)
             c_row, c_fro = rel_errs(drop_tile_control(shape, q, k, v),
                                     out_p)
+            same = torch.equal(out_k, kern())
+            t_row = t_fro = None
+            if dtype == torch.float32:  # one TF32 product instead of three
+                t_row, t_fro = rel_errs(k5._launch(q, k, v, kvl, terms=1,
+                                                   **kw), out_p)
             del out_k
             elt = q.element_size()
             pairs = unmasked_pairs(sq, sk, causal, window,
                                    kv_len or (sk,) * b)
             ops = 4 * d * hq * pairs
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * elt + 4 * b
-            peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            # f32: both products on the tensor cores in 3xTF32
+            peak = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
             b_ms, b_by = bound(nbytes, ops, peak)
             ms = time_ms(kern, 5)
             lib_ms, lib_note = flash_library(shape, q, k, v, out_p, tol)
@@ -556,16 +571,24 @@ def check_flash():
                    "row_rel_err": row, "fro_rel_err": fro,
                    "control_row_rel_err": c_row,
                    "control_fro_rel_err": c_fro,
+                   "control_tf32_row_rel_err": t_row,
+                   "control_tf32_fro_rel_err": t_fro, "repeat_equal": same,
                    "ms": ms, "plain_ms": time_ms(plain, 2),
                    "pairs": pairs, "bytes": nbytes, "ops": ops,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib_ms, "library": lib_note,
                    "tflops": ops / ms / 1e9}
+            if dtype == torch.float32:
+                rec["bound_f32fma_ms"] = bound(nbytes, ops, F32_FLOPS)[0]
             rec.update(ratios(rec))
-            if name == "a" and dtype == torch.bfloat16:
+            if name == "a":
                 # what the softcap's tanh costs: the same call without it
                 rec["ms_no_softcap"] = time_ms(lambda: k5.flash_attention(
                     q, k, v, kvl, causal=causal, window=window), 5)
+                if dtype == torch.float32:
+                    # what the two extra TF32 products cost: the control
+                    rec["ms_one_tf32"] = time_ms(lambda: k5._launch(
+                        q, k, v, kvl, terms=1, **kw), 5)
             records.append(rec)
             print(f"[flash] ({name}) {rec['dtype']:8s} B={b} Hq={hq} "
                   f"Hkv={hkv} Sq={sq} Sk={sk} D={d} causal={causal} "
@@ -573,14 +596,21 @@ def check_flash():
                   f"max_abs_err={err:.3e} tol={tol:.3e} row_rel_err="
                   f"{row:.3e} fro_rel_err={fro:.3e} (limits "
                   f"{ROW_LIMIT[dname]:.0e}/{FRO_LIMIT[dname]:.0e}; control "
-                  f"skipping a KV tile {c_row:.3e}/{c_fro:.3e}) ms={ms:.4f} "
+                  f"skipping a KV tile {c_row:.3e}/{c_fro:.3e}"
+                  + (f"; control with one TF32 product {t_row:.3e}/"
+                     f"{t_fro:.3e}" if t_row is not None else "")
+                  + f") repeat_equal={same} ms={ms:.4f} "
                   f"plain_ms={rec['plain_ms']:.4f} library_ms={lib_ms} "
                   f"[{lib_note}] bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, "
                   f"{ops} ops) achieved {rec['tflops']:.2f} TFLOP/s "
                   f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
                   f"{rec['vs_library']}"
+                  + (f" bound_f32fma_ms={rec['bound_f32fma_ms']:.4f}"
+                     if "bound_f32fma_ms" in rec else "")
                   + (f" ms_no_softcap={rec['ms_no_softcap']:.4f}"
-                     if "ms_no_softcap" in rec else ""), flush=True)
+                     if "ms_no_softcap" in rec else "")
+                  + (f" ms_one_tf32={rec['ms_one_tf32']:.4f}"
+                     if "ms_one_tf32" in rec else ""), flush=True)
             if not ok:
                 fail(f"flash_attention ({name}) {dtype}: kernel and plain "
                      f"version differ by {err:.3e} (tolerance {tol:.3e})")
@@ -592,6 +622,13 @@ def check_flash():
             if c_row <= ROW_LIMIT[dname] or c_fro <= FRO_LIMIT[dname]:
                 fail(f"flash_attention ({name}) {dtype}: the check cannot "
                      f"see a skipped KV tile ({c_row:.3e}, {c_fro:.3e})")
+            if t_row is not None and (t_row <= ROW_LIMIT[dname]
+                                      or t_fro <= FRO_LIMIT[dname]):
+                fail(f"flash_attention ({name}) {dtype}: the check cannot "
+                     f"see one TF32 product ({t_row:.3e}, {t_fro:.3e})")
+            if not same:
+                fail(f"flash_attention ({name}) {dtype}: two launches on the "
+                     f"same input differ")
             del q, k, v
     return records
 
@@ -871,11 +908,18 @@ def main() -> None:
           f"{len(logs)} compiled now in {time.perf_counter() - t0:.1f} s "
           f"(the rest were built earlier from the same sources)", flush=True)
     for name, log in logs.items():   # nvcc -Xptxas -v, per kernel
+        arrives = 0
         for line in log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers",
-                                       "spill", "smem", "arning")):
+            if "(C7519)" in line:   # ptxas's own wgmma fences, counted
+                arrives += 1
+            elif any(w in line for w in ("Compiling entry", "registers",
+                                         "spill", "smem", "arning")):
                 print(f"[build] {name}: {line.strip()}", flush=True)
-    sass = check_sass()
+        if arrives:
+            print(f"[build] {name}: ptxas injected warpgroup.arrive at "
+                  f"{arrives} places (C7519)", flush=True)
+    sass = {"fused_agg_combine": check_sass(),
+            "flash_attention": check_sass("flash_attention", "tf32x3_kernel")}
 
     # -- 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -948,7 +992,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
-         "lm_f32": lm_f32, "k2_sass_hgmma": sass,
+         "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
          "forwards_ms": forwards},
         indent=1))
 
@@ -975,7 +1019,7 @@ def main() -> None:
             "frac_of_bound": rec["frac_of_bound"],
             "vs_library": rec["vs_library"]})
     # K5's two paths at shape (a): bf16 (wgmma_kernel) launched by phase 6,
-    # f32 (fma_kernel) by phase 7
+    # f32 (tf32x3_kernel) by phase 7
     for dtype, launches in (("bfloat16", lm["launches"]),
                             ("float32", lm_f32["launches"])):
         rec = next(r for r in flash if r["shape"] == "a" and

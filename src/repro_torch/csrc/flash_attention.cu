@@ -21,8 +21,9 @@
 //
 // What bounds it on the H100: operations.  At gemma2's prefill (Hq = 16,
 // D = 256, S = 6144, causal) the two products are ~309 GFLOP against
-// ~151 MB of q, k, v and o in bf16: far above the ~295 FLOP/byte ridge of
-// the bf16 tensor cores (989 TFLOP/s), so the bound is 0.31 ms.
+// ~151 MB of q, k, v and o in bf16 (302 MB in f32): far above the ridge of
+// the tensor cores, so the bound is 0.31 ms in bf16 (989 TFLOP/s) and
+// 1.87 ms in f32, whose 3xTF32 products run at 495 / 3 = 165 TFLOP/s.
 //
 // bf16: wgmma_kernel, both products on the tensor cores.
 //   * A consumer warpgroup (128 threads) owns 64 query rows of one head,
@@ -67,203 +68,58 @@
 //   * Masks are evaluated per element only in KV tiles that straddle the
 //     causal edge, the window start or kv_len[b]; whole tiles need none.
 //
-// f32: fma_kernel, plain f32 FMA from shared memory (no TF32: the f32
-// band is 1e-5, which TF32's 10-bit mantissa cannot hold).
-//   * One CTA of 256 threads per (q tile of 64 rows, head, batch) loops
-//     over KV tiles of 32 keys.  Thread (ty, tx) owns rows ty + 16 i
-//     (i < 4) in both products: score columns tx + 16 j (j < 2) and output
-//     columns tx + 16 c (c < D / 16), so row max and row sum are 16-lane
-//     shuffles and the rescale by alpha touches registers only.
-//   * q, k and v are staged in shared memory as f32 with a row stride of
-//     D + 1 (conflict-free column reads); ~105 KB at D = 256.  K and V
-//     share one buffer.
+// f32: tf32x3_kernel, both products on the tensor cores in 3xTF32.
+//   * Why 3xTF32: one TF32 product keeps 10 mantissa bits, ~20x past the
+//     f32 per-row limit (3e-5).  Each operand x is split into hi =
+//     rna(x) and lo = rna(x - hi) (cvt.rna.tf32.f32: wgmma itself only
+//     truncates a 32-bit operand), and each k8 step issues A_lo B_hi +
+//     A_hi B_lo + A_hi B_hi with wgmma.mma_async m64nNk8 .f32.tf32, the
+//     small terms first (only lo * lo, ~2^-22 relative, is dropped).
+//   * The tensor cores' f32 accumulation truncates, so no accumulator
+//     spans a long K: S = Q K^T takes a fresh accumulator per 64 columns
+//     of D and adds the partials in f32 to nearest; P V takes a fresh
+//     accumulator per KV tile and per chunk of output columns (64 at
+//     D = 256, else 32: 32 or 16 registers beside O), two chunks in
+//     flight, and O = O alpha + partial is one fmaf on the CUDA cores.  A 6144-key prefill is ~190 tiles: accumulating
+//     P V across them in the tensor cores would drift (K2 measured it).
+//   * A CTA owns 64 query rows of one head (the M of one wgmma).  q is
+//     scaled by D^-0.5 in f32 and split once into hi and lo images (K-major,
+//     128-byte swizzle: a swizzle row holds 32 tf32 values).  S is the SS
+//     form: A = the q images, B = the K tile's images (32 keys, K-major as
+//     stored).  P V is the RS form: A = P split in registers, B = V^T.
+//     tf32 wgmma takes only K-major operands and has no transpose flag, so
+//     V is staged transposed, (D x 32 keys, keys contiguous); within each
+//     8 keys its columns are permuted (vt_col) so that the S accumulator's
+//     fragment (row, keys 2t and 2t + 1) is P's A fragment as it is.
+//   * Shared memory: 64 x D x 4 x 2 of q images (128 KB at D = 256), one
+//     buffer of 32-key hi/lo images that holds the K tile, then the V^T
+//     tile (64 KB), and one raw f32 tile (32 KB) that cp.async fills with
+//     V while S runs and with the next K while P V runs; the threads split
+//     it into the buffer between the products.  225 KB at D = 256: one CTA
+//     an SM; 113 KB and two CTAs at D = 128.
+//   * At D = 256 the CTA is two warpgroups, so that an SM runs 8 warps and
+//     O takes D / 4 = 64 registers a thread, not 128 (one warpgroup a CTA
+//     spilled registers, and its 4 warps could not hide the latency of the
+//     serial softmax and split work).  Each takes two of the four 64-column
+//     slices of S, and the two sums are added through the K buffer (the
+//     SS form reads A from shared memory, so S computed twice was the
+//     slower choice), so both hold the same S, max, sum and P bit for bit;
+//     each multiplies P by its half of V^T.  Below D = 256 a CTA is one
+//     warpgroup and two CTAs share an SM.
+//   * P is split from the f32 p; the row sum l adds the f32 p.  tanh and
+//     exp are tanhf and expf: the bf16 path's ex2/rcp tanh errs by ~2e-7
+//     of cap, ~1e-5 of a logit at cap 50, a third of the f32 per-row limit.
+//   * Determinism: no atomics, one CTA owns its rows; two launches on the
+//     same inputs are equal bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kTileQ = 64;
-constexpr int kTileK = 32;
-constexpr int kThreads = 256;     // 16 x 16
-constexpr int kLdP = kTileK + 1;  // row stride of the probabilities
 constexpr float kNegInf = -1e30f;
-
-// Rows [row0, row0 + rows) of a (n, D) matrix into shared memory as f32
-// with row stride D + 1; rows at or past n are zero (never NaN, so a zero
-// probability times them stays zero).
-template <int D>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           int row0, int rows, int n,
-                                           float scale, bool round_scaled) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    float x = 0.f;
-    if (row0 + r < n) {
-      x = src[static_cast<int64_t>(row0 + r) * D + c];
-      // q * D^-0.5, as the reference forms it
-      if (round_scaled) x *= scale;
-    }
-    dst[r * (D + 1) + c] = x;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const int* __restrict__ kv_len,
-           float* __restrict__ out, int hq, int group, int sq, int sk,
-           int causal, int window, float cap, float scale) {
-  constexpr int kLd = D + 1;
-  constexpr int kCols = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* s_q = smem;                  // (kTileQ, kLd)
-  float* s_kv = s_q + kTileQ * kLd;   // (kTileK, kLd): K, then V
-  float* s_p = s_kv + kTileK * kLd;   // (kTileQ, kLdP)
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileQ;  // heaviest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hkv = hq / group;
-  const int nq = min(kTileQ, sq - q0);
-  const int len = kv_len[b];
-  const int q_lo = len - sq + q0;  // absolute position of the tile's row 0
-
-  const float* qb = q + (static_cast<int64_t>(b) * hq + h) * sq * D;
-  const int64_t kv_off = (static_cast<int64_t>(b) * hkv + h / group) * sk * D;
-  stage_rows<D>(s_q, qb, q0, kTileQ, sq, scale, true);
-
-  // KV tiles holding an unmasked key for some row of this q tile
-  int k_end = min(len, sk);
-  if (causal) k_end = min(k_end, q_lo + nq);
-  int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
-  k_beg -= k_beg % kTileK;
-
-  float acc[4][kCols];
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = kNegInf;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = k_beg; k0 < k_end; k0 += kTileK) {
-    __syncthreads();  // q staged; the previous tile's V and P are consumed
-    stage_rows<D>(s_kv, k + kv_off, k0, kTileK, sk, 0.f, false);
-    __syncthreads();
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = s_q[(ty + 16 * i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) kv[j] = s_kv[(tx + 16 * j) * kLd + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-    __syncthreads();  // every thread is done reading K
-    stage_rows<D>(s_kv, v + kv_off, k0, kTileK, sk, 0.f, false);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_lo + ty + 16 * i;
-      bool ok[2];
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (cap > 0.f) x = cap * tanhf(x / cap);
-        ok[j] = kpos < len && kpos < sk && (!causal || kpos <= qpos) &&
-                (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok[j] ? x : kNegInf;
-        m_cur = fmaxf(m_cur, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off /= 2)
-        m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, off));
-      const float m_new = fmaxf(m_run[i], m_cur);
-      // guard all-masked rows (m_new is still the sentinel)
-      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
-      float p_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_safe) : 0.f;
-        s_p[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
-        p_sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off /= 2)
-        p_sum += __shfl_xor_sync(0xffffffffu, p_sum, off);
-      const float alpha =
-          m_run[i] <= kNegInf / 2 ? 0.f : expf(m_run[i] - m_safe);
-      l_run[i] = l_run[i] * alpha + p_sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // V and P staged
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_p[(ty + 16 * i) * kLdP + kk];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = s_kv[kk * kLd + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-  float* ob = out + (static_cast<int64_t>(b) * hq + h) * sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    if (row >= nq) continue;
-    const float denom = l_run[i] == 0.f ? 1.f : l_run[i];
-    float* o = ob + static_cast<int64_t>(q0 + row) * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      o[tx + 16 * c] = acc[i][c] / denom;
-  }
-}
-
-constexpr int smem_bytes_for(int d) {
-  return ((kTileQ + kTileK) * (d + 1) + kTileQ * kLdP) *
-         static_cast<int>(sizeof(float));
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, const int* kv_len,
-           void* out, int b, int hq, int hkv, int sq, int sk, int causal,
-           int window, float cap, float scale, cudaStream_t stream) {
-  const int smem = smem_bytes_for(D);
-  auto kernel = fma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kTileQ - 1) / kTileQ, hq, b);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_len, static_cast<float*>(out), hq,
-      hq / hkv, sq, sk, causal, window, cap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma on the tensor cores
@@ -788,15 +644,540 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 wgmma
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using wg::cp_async16;
+using wg::cp_async_commit;
+using wg::cp_async_wait;
+using wg::fence_proxy_async;
+using wg::fence_reg;
+using wg::smem_u32;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+
+constexpr int kRows = 64;     // query rows of the warpgroup: one wgmma M
+constexpr int kTileK = 32;    // keys of a KV tile: one 128-byte swizzle row
+constexpr int kSlice = 64;    // D columns of one S accumulator
+
+template <int D>
+struct Cfg {
+  // q and K images: rows of kDp columns in regions of 32 (128 bytes)
+  static constexpr int kDp = (D + 31) / 32 * 32;
+  static constexpr int kQPart = kRows * kDp * 4;    // q hi or lo image
+  static constexpr int kKPart = kTileK * kDp * 4;   // K hi or lo image
+  static constexpr int kVPart = D * kTileK * 4;     // V^T hi or lo image
+  static constexpr int kBufPart = kKPart > kVPart ? kKPart : kVPart;
+  static constexpr int kStage = kTileK * D * 4;     // one raw f32 K or V tile
+  // warpgroups of a CTA: at D = 256 two, each computing the same S and P
+  // and the P V product of its half of D (see the note at the top)
+  static constexpr int kWgs = D == 256 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kDw = D / kWgs;              // output columns of one
+                                                    // warpgroup
+  // alignment slack, q hi and lo, one K / V^T buffer (hi and lo), the raw
+  // tile that cp.async brings in while the products run
+  static constexpr int kSmem = 1024 + 2 * kQPart + 2 * kBufPart + kStage;
+  // float4s of a tile each thread splits
+  static constexpr int kNv4 = kTileK * D / 4 / kThreads;
+  // 16-byte chunks of a raw row, and the XOR that spreads a column of them
+  // over the banks
+  static constexpr int kChunks = D / 4;
+  static constexpr int kSwz = kChunks < 8 ? kChunks : 8;
+  // output columns of one P V accumulator (two are in flight)
+  static constexpr int kNc = D < 32 ? D : (D == 256 ? 64 : 32);
+};
+
+// a value the compiler cannot see through, so that what is derived from it
+// is not hoisted out of a loop
+__device__ __forceinline__ void opaque(uint32_t& x) {
+  asm volatile("" : "+r"(x));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~2^-22: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// Byte offset of element (r, c) of a K-major image of `rows` rows (a
+// multiple of 8): regions of 32 columns, rows of 128 bytes, the 128-byte
+// swizzle (bits 4-6 XOR bits 7-9; region bases 1024-aligned)
+__device__ __forceinline__ uint32_t tile_off(int r, int c, int rows) {
+  const uint32_t off = (c / 32) * rows * 128 + r * 128 + (c % 32) * 4;
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  // K-major, 128-byte swizzle: LBO unused (16), SBO = 8 rows of 128 bytes
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// k8 step ks of a K-major image of `rows` rows at shared address base
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int ks) {
+  return make_desc(base + (ks / 4) * rows * 128 + (ks % 4) * 32);
+}
+
+// Column of key j (< 32) in the V^T image: within each group of 8 keys,
+// even keys take positions 0-3 and odd keys 4-7, so that position t and
+// t + 4 of a k8 step hold keys 2t and 2t + 1 -- the two columns a thread
+// holds of the S accumulator, which is then P's A fragment as it is
+__device__ __forceinline__ int vt_col(int j) {
+  return (j & ~7) + ((j & 7) >> 1) + 4 * (j & 1);
+}
+
+// S += A B, m64n32k8, f32 += tf32 x tf32, A and B K-major in shared memory
+__device__ __forceinline__ void mma_ss_n32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// O-chunk += P V, m64n16k8, A (P) from registers, B (V^T) K-major
+__device__ __forceinline__ void mma_rs_n16(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O-chunk += P V, m64n32k8, A (P) from registers, B (V^T) K-major
+__device__ __forceinline__ void mma_rs_n32(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O-chunk += P V, m64n64k8, A (P) from registers, B (V^T) K-major
+__device__ __forceinline__ void mma_rs_n64(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
+                                       uint64_t db) {
+  if constexpr (N == 16) mma_rs_n16(d, a, db);
+  else if constexpr (N == 32) mma_rs_n32(d, a, db);
+  else mma_rs_n64(d, a, db);
+}
+
+// One CTA per (64 query rows, head, batch); see the note at the top.
+// terms = 3: 3xTF32; 1: one TF32 product (a control that must fail the
+// f32 checks).
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, D == 256 ? 1 : 2)
+tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ kv_len,
+              float* __restrict__ out, int hq, int group, int sq, int sk,
+              int causal, int window, float cap, float scale, int terms) {
+  using C = Cfg<D>;
+  constexpr int TK = kTileK;
+  constexpr int NS = (D + kSlice - 1) / kSlice;  // S accumulators
+  constexpr int kThreads = C::kThreads;
+  constexpr int NCH = C::kDw / C::kNc;           // P V accumulators
+  constexpr int SPW = NS / C::kWgs;              // S slices of a warpgroup
+  static_assert(C::kSmem <= 232448, "shared memory over the opt-in limit");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* q_hi = base;
+  uint8_t* q_lo = base + C::kQPart;
+  uint8_t* buf_hi = base + 2 * C::kQPart;  // K tile, then V^T tile
+  uint8_t* buf_lo = buf_hi + C::kBufPart;
+  uint8_t* stage = buf_lo + C::kBufPart;   // the next raw tile
+  const uint32_t sq_hi = smem_u32(q_hi), sq_lo = smem_u32(q_lo);
+  const uint32_t sb_hi = smem_u32(buf_hi), sb_lo = smem_u32(buf_lo);
+  const uint32_t s_stage = smem_u32(stage);
+
+  const int tid = threadIdx.x;
+  // this warpgroup: output columns wgi * kDw ..
+  const int wgi = C::kWgs == 1 ? 0 : tid / 128;
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int cb = 2 * (lane % 4);          // and columns cb, cb + 1 of each 8
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hkv = hq / group;
+  const int nq = min(kRows, sq - q0);
+  const int len = kv_len[b];
+  const int q_lo_pos = len - sq + q0;  // absolute position of the tile's row 0
+
+  const int64_t kv_off = (static_cast<int64_t>(b) * hkv + h / group) * sk * D;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
+
+  // KV tiles holding an unmasked key for some row of this q tile
+  int k_end = min(len, sk);
+  if (causal) k_end = min(k_end, q_lo_pos + nq);
+  int k_beg = window > 0 ? max(0, q_lo_pos - window + 1) : 0;
+  k_beg -= k_beg % TK;
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + TK - 1) / TK : 0;
+
+  // 16-byte chunk c4 of raw row j in the stage, XOR-swizzled so that the
+  // split passes, which read one chunk column of 8 rows at a time, hit
+  // distinct banks
+  auto raw_off = [](int j, int c4) {
+    return static_cast<uint32_t>((j * C::kChunks + (c4 ^ (j % C::kSwz))) * 16);
+  };
+  // tile `tile` of K or V into the stage by cp.async (coalesced rows; keys
+  // past Sk are zero-filled)
+  auto load_raw = [&](const float* src, int tile) {
+    const int k0 = k_beg + tile * TK;
+    for (int i = tid; i < TK * C::kChunks; i += kThreads) {
+      const int j = i / C::kChunks, c4 = i % C::kChunks;
+      const bool in = k0 + j < sk;
+      cp_async16(s_stage + raw_off(j, c4),
+                 src + static_cast<int64_t>(in ? k0 + j : 0) * D + 4 * c4, in);
+    }
+    cp_async_commit();
+  };
+  // the stage split into the buffer's hi and lo images: K as it is (keys x
+  // D, K-major), V transposed (D x keys); 32 keys across the lanes
+  auto split_k = [&]() {
+#pragma unroll
+    for (int i = 0; i < C::kNv4; ++i) {
+      const int idx = tid + kThreads * i, j = idx % TK, c4 = idx / TK;
+      const float4 x = *reinterpret_cast<const float4*>(stage + raw_off(j, c4));
+      uint4 hi, lo;
+      split(x.x, hi.x, lo.x), split(x.y, hi.y, lo.y);
+      split(x.z, hi.z, lo.z), split(x.w, hi.w, lo.w);
+      const uint32_t off = tile_off(j, 4 * c4, TK);
+      *reinterpret_cast<uint4*>(buf_hi + off) = hi;
+      *reinterpret_cast<uint4*>(buf_lo + off) = lo;
+    }
+  };
+  auto split_v = [&]() {
+#pragma unroll
+    for (int i = 0; i < C::kNv4; ++i) {
+      const int idx = tid + kThreads * i, j = idx % TK, c4 = idx / TK;
+      const float4 x = *reinterpret_cast<const float4*>(stage + raw_off(j, c4));
+      const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        uint32_t hi, lo;
+        split(e[t], hi, lo);
+        const uint32_t off = tile_off(4 * c4 + t, vt_col(j), D);
+        *reinterpret_cast<uint32_t*>(buf_hi + off) = hi;
+        *reinterpret_cast<uint32_t*>(buf_lo + off) = lo;
+      }
+    }
+  };
+
+  if (ntiles > 0) load_raw(kb, 0);
+  // q * D^-0.5 in f32, as the reference forms it, split; rows past Sq 0
+  const float* qb = q + ((static_cast<int64_t>(b) * hq + h) * sq + q0) * D;
+  for (int i = tid; i < kRows * C::kChunks; i += kThreads) {
+    const int r = i / C::kChunks, c4 = i % C::kChunks;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nq) {
+      x = __ldg(reinterpret_cast<const float4*>(qb + r * D + 4 * c4));
+      x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+    }
+    uint4 hi, lo;
+    split(x.x, hi.x, lo.x), split(x.y, hi.y, lo.y);
+    split(x.z, hi.z, lo.z), split(x.w, hi.w, lo.w);
+    const uint32_t off = tile_off(r, 4 * c4, kRows);
+    *reinterpret_cast<uint4*>(q_hi + off) = hi;
+    *reinterpret_cast<uint4*>(q_lo + off) = lo;
+  }
+  if (ntiles > 0) {
+    cp_async_wait<0>();
+    __syncthreads();
+    split_k();
+  }
+
+  float o[C::kDw / 2];
+#pragma unroll
+  for (int i = 0; i < C::kDw / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = k_beg + t * TK;
+    fence_proxy_async();  // this thread's smem writes -> wgmma's proxy
+    __syncthreads();      // K_t (and q) split; the stage is free
+    load_raw(vb, t);      // V_t's raw tile arrives while S runs
+
+    // S = Q K^T: a fresh accumulator per 64 columns of D (the tensor cores'
+    // f32 adds truncate), two in flight, the partials added in f32 to
+    // nearest in slice order; with two warpgroups each takes half of the
+    // slices and the two sums are added through shared memory.
+    // s[4 j + 2 half + c] is row row0 + 8 half, key k0 + 8 j + cb + c.
+    float s[TK / 2], acc[2][TK / 2];
+    auto issue_s = [&](int sl, float* a) {
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) a[i] = 0.f;
+      // opaque copies of the bases: the descriptors are formed at each
+      // wgmma, not hoisted out of the tile loop into ~D registers
+      uint32_t qh = sq_hi, ql = sq_lo, bh0 = sb_hi, bl0 = sb_lo;
+      opaque(qh), opaque(ql), opaque(bh0), opaque(bl0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlice / 8; ++kk) {
+        const int ks = sl * kSlice / 8 + kk;
+        if (ks < D / 8) {
+          const uint64_t ah = desc_k(qh, kRows, ks);
+          const uint64_t bh = desc_k(bh0, TK, ks);
+          if (terms == 3) {  // the small terms first
+            mma_ss_n32(a, desc_k(ql, kRows, ks), bh);
+            mma_ss_n32(a, ah, desc_k(bl0, TK, ks));
+          }
+          mma_ss_n32(a, ah, bh);
+        }
+      }
+      wgmma_commit();
+    };
+    auto add_s = [&](int l, float* a) {
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) {
+        fence_reg(a[i]);
+        s[i] = l == 0 ? a[i] : __fadd_rn(s[i], a[i]);
+      }
+    };
+    // this warpgroup's slices sl0 .. sl0 + SPW - 1, sl0 a constant
+    auto run_s = [&](auto sl0_c) {
+      constexpr int sl0 = decltype(sl0_c)::value;
+#pragma unroll
+      for (int l = 0; l < SPW; ++l) {
+        issue_s(sl0 + l, acc[l & 1]);
+        if (l > 0) {
+          wgmma_wait<1>();
+          add_s(l - 1, acc[(l - 1) & 1]);
+        }
+      }
+      wgmma_wait<0>();
+      add_s(SPW - 1, acc[(SPW - 1) & 1]);
+    };
+    if (wgi == 1)
+      run_s(std::integral_constant<int, SPW>());
+    else
+      run_s(std::integral_constant<int, 0>());
+    if constexpr (C::kWgs == 2) {
+      // each warpgroup's sum into the K buffer, which no product reads any
+      // more; S = sum of warpgroup 0 + sum of warpgroup 1, the same bits
+      // in both
+      __syncthreads();
+      float4* xs = reinterpret_cast<float4*>(buf_hi);
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i)
+        xs[(wgi * TK / 8 + i) * 128 + tid % 128] =
+            make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < TK / 8; ++i) {
+        const float4 x = xs[((1 - wgi) * TK / 8 + i) * 128 + tid % 128];
+        s[4 * i] = __fadd_rn(s[4 * i], x.x);
+        s[4 * i + 1] = __fadd_rn(s[4 * i + 1], x.y);
+        s[4 * i + 2] = __fadd_rn(s[4 * i + 2], x.z);
+        s[4 * i + 3] = __fadd_rn(s[4 * i + 3], x.w);
+      }
+    }
+
+    // softcap, masks, online softmax in f32 (accurate tanhf and expf)
+    const bool whole = k0 + TK <= min(len, sk) &&
+                       (!causal || k0 + TK - 1 <= q_lo_pos) &&
+                       (window <= 0 || k0 > q_lo_pos + kRows - 1 - window);
+    float alpha[2], m_safe[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qpos = q_lo_pos + row0 + 8 * half;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * half + c];
+          if (cap > 0.f) x = cap * tanhf(x / cap);
+          if (!whole) {
+            const int kpos = k0 + 8 * j + cb + c;
+            const bool ok = kpos < len && kpos < sk &&
+                            (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            x = ok ? x : kNegInf;
+          }
+          s[4 * j + 2 * half + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[half], mx);
+      // guard all-masked rows (m_new is still the sentinel)
+      m_safe[half] = m_new <= kNegInf / 2 ? 0.f : m_new;
+      alpha[half] = m_run[half] <= kNegInf / 2
+                        ? 0.f
+                        : expf(m_run[half] - m_safe[half]);
+      m_run[half] = m_new;
+    }
+    // p = exp(s - m_safe) in f32 (a masked score, -1e30, gives exactly 0);
+    // the row sum adds the f32 p.  P's A fragment of k8 step kk holds
+    // (row0, key pos t), (row0 + 8, t), (row0, t + 4), (row0 + 8, t + 4),
+    // t = lane % 4, which vt_col maps to the keys s[4 kk + 0, 2, 1, 3]
+    // hold: fragment slot x takes s index 4 (x / 4) + {0, 2, 1, 3}[x % 4].
+    uint32_t p_hi[TK / 2], p_lo[TK / 2];
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) {
+      const int half = (i >> 1) & 1;
+      const float p = expf(s[i] - m_safe[half]);
+      psum[half] += p;
+      const int slot = (i & ~3) | ((i & 1) << 1) | ((i >> 1) & 1);
+      split(p, p_hi[slot], p_lo[slot]);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], 1);
+      psum[half] += __shfl_xor_sync(0xffffffffu, psum[half], 2);
+      l_run[half] = l_run[half] * alpha[half] + psum[half];
+    }
+
+    cp_async_wait<0>();
+    __syncthreads();  // V_t's raw tile is in; every warp is done with K_t
+    split_v();
+    fence_proxy_async();
+    __syncthreads();  // V_t^T split; the stage is free
+    if (t + 1 < ntiles) load_raw(kb, t + 1);  // arrives while P V runs
+
+    // O = O alpha + P V, kNc columns at a time: a fresh accumulator per
+    // tile and chunk, two in flight, each added to O by fmaf on the CUDA
+    // cores
+    float part[2][C::kNc / 2];
+    auto issue_pv = [&](int c, float* a) {
+#pragma unroll
+      for (int i = 0; i < C::kNc / 2; ++i) a[i] = 0.f;
+      const uint32_t n0 = wgi * C::kDw + c * C::kNc;  // V^T rows
+      uint32_t vh = sb_hi + n0 * 128, vl = sb_lo + n0 * 128;
+      opaque(vh), opaque(vl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk) {
+        const uint64_t bh = make_desc(vh + kk * 32);
+        if (terms == 3) {
+          mma_rs<C::kNc>(a, p_lo + 4 * kk, bh);
+          mma_rs<C::kNc>(a, p_hi + 4 * kk, make_desc(vl + kk * 32));
+        }
+        mma_rs<C::kNc>(a, p_hi + 4 * kk, bh);
+      }
+      wgmma_commit();
+    };
+    auto add_pv = [&](int c, float* a) {
+#pragma unroll
+      for (int j = 0; j < C::kNc / 8; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          fence_reg(a[4 * j + x]);
+          float& od = o[4 * (c * C::kNc / 8 + j) + x];
+          od = fmaf(od, alpha[x >> 1], a[4 * j + x]);
+        }
+    };
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      issue_pv(c, part[c & 1]);
+      if (c > 0) {
+        wgmma_wait<1>();
+        add_pv(c - 1, part[(c - 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+    add_pv(NCH - 1, part[(NCH - 1) & 1]);
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) fence_reg(p_hi[i]), fence_reg(p_lo[i]);
+
+    if (t + 1 < ntiles) {
+      cp_async_wait<0>();
+      __syncthreads();  // K_{t+1}'s raw tile is in; every warp is done with V
+      split_k();
+    }
+  }
+
+  float* ob = out + (static_cast<int64_t>(b) * hq + h) * sq * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= nq) continue;
+    const float denom = l_run[half] == 0.f ? 1.f : l_run[half];
+    float* orow = ob + static_cast<int64_t>(q0 + row) * D + wgi * C::kDw + cb;
+#pragma unroll
+    for (int j = 0; j < C::kDw / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j) =
+          make_float2(o[4 * j + 2 * half] / denom,
+                      o[4 * j + 2 * half + 1] / denom);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const int* kv_len,
+           void* out, int b, int hq, int hkv, int sq, int sk, int causal,
+           int window, float cap, float scale, int terms,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  auto kernel = tf32x3_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kRows - 1) / kRows, hq, b);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_len, static_cast<float*>(out), hq,
+      hq / hkv, sq, sk, causal, window, cap, scale, terms);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
+
 // Launch<D>::run calls the f32 or the bf16 launcher at head dim D
 template <int D>
-struct LaunchFma {
+struct LaunchTf32 {
   static int run(const void* q, const void* k, const void* v,
                  const int* kv_len, void* out, int b, int hq, int hkv, int sq,
                  int sk, int causal, int window, float cap, float scale,
-                 cudaStream_t stream) {
-    return launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
-                            window, cap, scale, stream);
+                 int terms, cudaStream_t stream) {
+    return tf::launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
+                         window, cap, scale, terms, stream);
   }
 };
 template <int D>
@@ -804,7 +1185,7 @@ struct LaunchWgmma {
   static int run(const void* q, const void* k, const void* v,
                  const int* kv_len, void* out, int b, int hq, int hkv, int sq,
                  int sk, int causal, int window, float cap, float scale,
-                 cudaStream_t stream) {
+                 int /*terms*/, cudaStream_t stream) {
     return wg::launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
                          window, cap, scale, stream);
   }
@@ -814,12 +1195,12 @@ template <template <int> class Launch>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
                const int* kv_len, void* out, int b, int hq, int hkv, int sq,
                int sk, int causal, int window, float cap, float scale,
-               cudaStream_t stream) {
+               int terms, cudaStream_t stream) {
   switch (d) {
 #define REPRO_FLASH_D(DV)                                                    \
   case DV:                                                                   \
     return Launch<DV>::run(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal, \
-                           window, cap, scale, stream);
+                           window, cap, scale, terms, stream);
     REPRO_FLASH_D(16)
     REPRO_FLASH_D(32)
     REPRO_FLASH_D(64)
@@ -836,18 +1217,21 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // q: (b, hq, sq, d); k, v: (b, hkv, sk, d); out: (b, hq, sq, d), all of one
 // type (bf16 = 0: f32, bf16 = 1: bf16), contiguous and 16-byte aligned;
 // kv_len: (b,) int32.  d is one of 16, 32, 64, 128, 256.  bf16 runs
-// wgmma_kernel, f32 fma_kernel.  Returns the first CUDA error of the
-// attribute call or the launch.
+// wgmma_kernel, f32 tf32x3_kernel with terms = 3 (3xTF32) or 1 (one TF32
+// product: a control that must fail the f32 checks; bf16 takes 3 only).
+// Returns the first CUDA error of the attribute call or the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* kv_len,
                                    void* out, int b, int hq, int hkv, int sq,
                                    int sk, int d, int causal, int window,
                                    float cap, float scale, int bf16,
-                                   void* stream) {
+                                   int terms, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  if (terms != 3 && (bf16 || terms != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
     return dispatch_d<LaunchWgmma>(d, q, k, v, kv_len, out, b, hq, hkv, sq,
-                                   sk, causal, window, cap, scale, st);
-  return dispatch_d<LaunchFma>(d, q, k, v, kv_len, out, b, hq, hkv, sq, sk,
-                               causal, window, cap, scale, st);
+                                   sk, causal, window, cap, scale, terms, st);
+  return dispatch_d<LaunchTf32>(d, q, k, v, kv_len, out, b, hq, hkv, sq, sk,
+                                causal, window, cap, scale, terms, st);
 }

@@ -2,9 +2,10 @@
 
 Port of the TPU kernel ``repro/kernels/flash_attention.py::flash_attention``
 (:111, body ``_flash_kernel`` :40) to the hand-written CUDA kernels of
-``csrc/flash_attention.cu``: bf16 inputs run ``wgmma_kernel`` (both
-products on the tensor cores, P rounded to bf16 for the second), f32 inputs
-``fma_kernel`` (plain f32 FMA).  q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D),
+``csrc/flash_attention.cu``, both products on the tensor cores: bf16
+inputs run ``wgmma_kernel`` (P rounded to bf16 for the second product),
+f32 inputs ``tf32x3_kernel`` (3xTF32 products, each operand split into TF32
+hi and lo parts, fresh accumulators per 64 columns of D and per KV tile).  q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D),
 kv_len: (B,) int32; GQA reads KV head ``h // (Hq // Hkv)``; q is scaled by
 ``D^-0.5`` in q's dtype; query i sits at position ``kv_len[b] - Sq + i``
 (right alignment) for the causal mask and the sliding window
@@ -94,8 +95,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def tiles(d: int, dtype: torch.dtype, group: int = 1) -> tuple[int, int, int]:
     """(query rows, keys, heads) of one CTA's tiles at head dim ``d`` and
     GQA group ``group`` = Hq / Hkv (mirrors ``csrc/flash_attention.cu``:
-    fma_kernel's kTileQ/kTileK for f32; wg::Cfg for bf16, which puts the
-    two heads of a pair in one CTA at d = 256 when the group is even and
+    tf::kRows/kTileK for f32, one head a CTA; wg::Cfg for bf16, which puts
+    the two heads of a pair in one CTA at d = 256 when the group is even and
     otherwise halves the KV tile for one head at d = 256, so that two such
     CTAs share an SM)."""
     if dtype == torch.bfloat16:
@@ -106,15 +107,17 @@ def tiles(d: int, dtype: torch.dtype, group: int = 1) -> tuple[int, int, int]:
 
 def smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> int:
     """Dynamic shared memory one launch takes at head dim ``d`` (mirrors
-    ``smem_bytes_for`` and ``wg::Cfg::kSmem`` in the kernel source).  f32:
-    the q tile and one K/V tile as f32 with row stride d + 1, and the
-    (64, 33) probabilities.  bf16: a q tile per head and two stages of K
-    and V tiles in bf16, plus 1 KB to align the base to the 1024-byte
-    swizzle atom."""
+    ``tf::Cfg::kSmem`` and ``wg::Cfg::kSmem`` in the kernel source), with
+    1 KB to align the base to the 1024-byte swizzle atom.  f32: TF32 hi and
+    lo images of the q tile (rows of d rounded up to 32 columns), one
+    buffer of hi and lo images that holds the K tile, then the transposed V
+    tile, and the raw f32 tile that cp.async brings in meanwhile.  bf16: a
+    q tile per head and two stages of K and V tiles."""
     tq, tk, heads = tiles(d, dtype, group)
     if dtype == torch.bfloat16:
         return (heads * tq * d + 4 * tk * d) * 2 + 1024
-    return ((tq + tk) * (d + 1) + tq * (tk + 1)) * 4
+    dp = -(-d // 32) * 32
+    return 1024 + (2 * tq * dp + 2 * max(tk * dp, d * tk) + tk * d) * 4
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,9 +125,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
     """Flash attention: a CUDA kernel for CUDA tensors, the plain version
-    for tensors on the CPU.  By dtype: bf16 launches the tensor-core kernel
-    (``wgmma_kernel``), f32 the FMA kernel (``fma_kernel``); both count in
-    ``flash_attention.launches``.
+    for tensors on the CPU.  By dtype: bf16 launches ``wgmma_kernel``, f32
+    ``tf32x3_kernel``; both count in ``flash_attention.launches``.
 
     q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), all f32 or all bf16,
     contiguous and 16-byte aligned, Hq a multiple of Hkv, D in
@@ -136,12 +138,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len, causal=causal,
                                      window=window, softcap=softcap)
+    out = _launch(q, k, v, kv_len, causal=causal, window=window,
+                  softcap=softcap)
+    flash_attention.launches += 1
+    return out
+
+
+def _launch(q, k, v, kv_len=None, *, causal: bool = True, window: int = 0,
+            softcap: float = 0.0, terms: int = 3) -> torch.Tensor:
+    """Check the arguments and launch the kernel; not counted in
+    ``flash_attention.launches``.  ``flash_attention`` passes ``terms=3``;
+    ``terms=1`` (f32 only: one TF32 product instead of three, a control
+    that must fail the f32 checks) is for ``chip_smoke.py`` and the card
+    tests and is never called on a path."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-D (B, H, S, "
                          f"D); got {tuple(q.shape)} and {tuple(k.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention: q is {q.dtype}, expected "
                         f"torch.float32 or torch.bfloat16")
+    if terms != 3 and (terms != 1 or q.dtype != torch.float32):
+        raise ValueError(f"flash_attention: terms must be 3, or 1 for f32; "
+                         f"got {terms} for {q.dtype}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if kv_len is None:
@@ -170,18 +188,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "aligned (the kernels load 16 bytes at a time)")
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
                  int(window), float(softcap), d ** -0.5,
-                 int(q.dtype == torch.bfloat16),
+                 int(q.dtype == torch.bfloat16), terms,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA"
                            f" error {err}")
-    flash_attention.launches += 1
     return out
 
 

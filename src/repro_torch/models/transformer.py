@@ -115,19 +115,29 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, cfg: LMConfig, *,
                 cache: Optional[KVCache] = None, make_cache: bool = False,
                 cache_size: int = 0, attn_impl: str = "auto"):
-        """Returns (x, new_cache)."""
-        eps = cfg.norm_eps
+        """Returns (x, new_cache).
+
+        The residual stream keeps the reference's roundings.  Its compiled
+        scan adds a residual in f32 and feeds that unrounded sum to the next
+        RMSNorm, while the residual itself goes on rounded to the model's
+        dtype (and the scan's carry is rounded once per period, in
+        ``_run_stack``).  So ``x`` may come in as that f32 sum, and the
+        block returns its own f32 sum; in an f32 model every cast here is a
+        no-op."""
+        eps, dt = cfg.norm_eps, DTYPES[cfg.dtype]
+        h = self.ln1(x, eps, dtype=dt)
+        x = x.to(dt)
         out, new_cache = attention_block(
-            self.attn, self.ln1(x, eps), cfg.attention,
+            self.attn, h, cfg.attention,
             layer_window=self.window, cache=cache, make_cache=make_cache,
             cache_size=cache_size, impl=attn_impl)
         if self.sandwich:
             out = self.ln1_post(out, eps)
-        x = x + out
-        out = self.mlp(self.ln2(x, eps))
+        xs = x.float() + out
+        out = self.mlp(self.ln2(xs, eps, dtype=dt))
         if self.sandwich:
             out = self.ln2_post(out, eps)
-        return x + out, new_cache
+        return xs.to(dt).float() + out, new_cache
 
 
 class TransformerLM(nn.Module):
@@ -220,8 +230,11 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
                attn_impl: str = "auto"):
     """Run the layers in order.  Returns (x, new_caches or None)."""
     cfg = model.cfg
+    dt, period = DTYPES[cfg.dtype], layer_period(cfg)
     new_caches: Caches = []
     for n, layer in enumerate(model.layers):
+        if n % period == 0:   # the reference's scan carry, rounded
+            x = x.to(dt)
         inner = None
         if caches is not None:
             inner = KVCache(caches[n][0], caches[n][1], cache_length)
@@ -229,7 +242,7 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
                              cache_size=cache_size, attn_impl=attn_impl)
         if new_inner is not None:
             new_caches.append((new_inner.k, new_inner.v))
-    return x, (new_caches or None)
+    return x.to(dt), (new_caches or None)
 
 
 def _logits(model: TransformerLM, x: torch.Tensor) -> torch.Tensor:

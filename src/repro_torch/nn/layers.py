@@ -36,12 +36,13 @@ def init_normal(shape, scale: float, *, dtype, device,
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm computed in f32 with ``(1 + scale)``, cast back to x's dtype."""
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMSNorm computed in f32 with ``(1 + scale)``, cast to ``dtype``
+    (default: x's dtype)."""
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (1.0 + scale)).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale)).to(dtype or x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -50,8 +51,9 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.zeros(d, dtype=torch.float32,
                                               device=device))
 
-    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-        return rmsnorm(self.scale, x, eps)
+    def forward(self, x: torch.Tensor, eps: float = 1e-6,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        return rmsnorm(self.scale, x, eps, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +64,37 @@ class RMSNorm(nn.Module):
 def dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with ``w`` of shape ``(d_in, d_out)``, in x's dtype."""
     return x @ w.to(x.dtype)
+
+
+def _const(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as the reference casts a constant to
+    its operand's dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` as the reference computes it.
+
+    In bf16 the reference rounds to bf16 after every op of
+    ``x * 0.5 (1 + tanh(c1 (x + c0 x^3)))``, its constants rounded to bf16
+    too; ``F.gelu``, which rounds once, moves ~40% of bf16 activations by
+    an ulp.  So a reduced dtype takes the same ops one by one (each torch op
+    computes in f32 and rounds to x's dtype).  In f32 the one-kernel
+    ``F.gelu`` is within the f32 band of it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c0 = _const(0.044715, x.dtype)
+    c1 = _const((2 / torch.pi) ** 0.5, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c0 * (x * x * x)))))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``, where the reference's bf16
+    sigmoid is ``1 / (1 + exp(-x))`` rounded after each op (see
+    ``gelu_tanh``).  f32 takes ``F.silu``."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 class MLP(nn.Module):
@@ -81,11 +114,11 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = dense(self.wi, x)
         if self.activation == "swiglu":
-            h = F.silu(dense(self.wg, x)) * h
+            h = silu(dense(self.wg, x)) * h
         elif self.activation == "geglu":
-            h = F.gelu(dense(self.wg, x), approximate="tanh") * h
+            h = gelu_tanh(dense(self.wg, x)) * h
         elif self.activation == "gelu":
-            h = F.gelu(h, approximate="tanh")
+            h = gelu_tanh(h)
         elif self.activation == "relu":
             h = F.relu(h)
         else:
@@ -118,15 +151,34 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Logits ``x @ table.T`` as f32.
+#: vocab rows of the table upcast at a time by ``unembed`` on the CPU
+UNEMBED_CHUNK = 4096
 
-    The reference accumulates in f32 and returns f32.  Here the product is
-    taken in x's dtype (f32 accumulation inside the matmul) and rounded
-    once to that dtype before the cast: for bf16 that is one bf16 rounding,
-    inside the bf16 band, and it avoids an f32 copy of the table (256000 x
-    3584 for gemma2) on every call."""
-    return (x @ table.to(x.dtype).t()).float()
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ table.T`` as f32: the operands in x's dtype, the f32
+    accumulator returned as it is, as the reference does
+    (``preferred_element_type=float32``); bf16 logits are never rounded to
+    bf16.
+
+    f32 operands are a plain f32 product.  Reduced-precision operands on a
+    card go through ``torch.mm(..., out_dtype=torch.float32)``; on the CPU,
+    which has no such kernel, ``UNEMBED_CHUNK`` vocab rows of the table at
+    a time are upcast and multiplied in f32 (the products of bf16 values
+    are exact in f32), so no f32 copy of the whole table (256000 x 3584 for
+    gemma2) is made."""
+    table = table.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ table.t()
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type != "cpu":
+        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+    else:
+        x32 = x2.float()
+        out = torch.cat([x32 @ table[v0:v0 + UNEMBED_CHUNK].float().t()
+                         for v0 in range(0, table.shape[0], UNEMBED_CHUNK)],
+                        dim=1)
+    return out.reshape(*x.shape[:-1], table.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,12 @@ from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import mha_ref
 from repro_torch.nn import attention as tattn
+from test_torch_kernels import _round_to_zero, _tf32_rna
 
 torch.set_num_threads(2)
 
 RNG = np.random.default_rng(13)
+NEG = np.float32(k5.NEG_INF)
 #: shared memory of one H100 SM; the card reserves 1 KB of it per block
 H100_SMEM_PER_SM = 233472
 
@@ -144,7 +146,130 @@ def test_flash_shared_memory_and_tiles(d, dtype, group):
         if heads == 1:
             assert 2 * (need + 1024) <= H100_SMEM_PER_SM
     else:
+        # TF32 hi/lo images of q (64 rows) and of one 32-key K or V^T tile,
+        # and the raw f32 tile cp.async brings in; two CTAs an SM below 256
+        dp = -(-d // 32) * 32
         assert (tq, tk, heads) == (64, 32, 1)
+        assert need == 1024 + (2 * 64 * dp + 2 * 32 * dp + 32 * d) * 4
+        if d < 256:
+            assert 2 * (need + 1024) <= H100_SMEM_PER_SM
+
+
+# ---------------------------------------------------------------------------
+# The f32 kernel's arithmetic, emulated: why 3xTF32 and why the control fails
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's f32 limits for K5: each row's largest error over that
+#: row's largest magnitude, and the relative Frobenius error
+F32_ROW_LIMIT, F32_FRO_LIMIT = 3e-5, 3e-6
+
+
+def _split(a):
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def _tc_product(a, b, terms):
+    """``a @ b.T`` on the tensor cores as tf32x3_kernel issues it: per k8
+    step the exact products A_lo B_hi, A_hi B_lo, A_hi B_hi (or A_hi B_hi
+    alone), each added into a fresh accumulator rounding toward zero."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    pairs = [(al, bh), (ah, bl), (ah, bh)] if terms == 3 else [(ah, bh)]
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in pairs:
+            t = x[:, k0:k0 + 8].astype(np.float64) @ \
+                y[:, k0:k0 + 8].astype(np.float64).T
+            acc = _round_to_zero(acc.astype(np.float64) + t)
+    return acc
+
+
+def _emulate_tf32x3(q, k, v, *, causal, window, cap, terms):
+    """tf32x3_kernel's f32 arithmetic in numpy, for B = 1: 64-row q tiles,
+    32-key KV tiles (only those with an unmasked key), S per 64 columns of
+    D in a fresh accumulator with the partials added to nearest (at D = 256
+    two warpgroups' sums of two slices each, added last), tanhf / expf in
+    f32, P V per tile and 64 / 32 output columns in a fresh accumulator,
+    O = fma(O, alpha, partial)."""
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    f32 = np.float32
+    out = np.zeros(q.shape, f32)
+    nc = 64 if d == 256 else min(d, 32)
+    for h in range(hq):
+        kh, vh = k[0, h // (hq // hkv)], v[0, h // (hq // hkv)]
+        for q0 in range(0, sq, 64):
+            nq = min(64, sq - q0)
+            qs = np.zeros((64, d), f32)
+            qs[:nq] = q[0, h, q0:q0 + nq] * f32(d ** -0.5)
+            q_lo = sk - sq + q0
+            k_end = min(sk, q_lo + nq) if causal else sk
+            k_beg = max(0, q_lo - window + 1) if window > 0 else 0
+            k_beg -= k_beg % 32
+            m = np.full(64, NEG, f32)
+            l_sum = np.zeros(64, f32)
+            o = np.zeros((64, d), f32)
+            for k0 in range(k_beg, k_end, 32):
+                kt, vt = np.zeros((32, d), f32), np.zeros((32, d), f32)
+                n = min(32, sk - k0)
+                kt[:n], vt[:n] = kh[k0:k0 + n], vh[k0:k0 + n]
+                parts = [_tc_product(qs[:, c:c + 64], kt[:, c:c + 64], terms)
+                         for c in range(0, d, 64)]
+                if d == 256:
+                    s = (parts[0] + parts[1]) + (parts[2] + parts[3])
+                else:
+                    s = parts[0]
+                    for p_ in parts[1:]:
+                        s = s + p_
+                if cap > 0:
+                    s = f32(cap) * np.tanh(s / f32(cap))
+                qpos = (q_lo + np.arange(64))[:, None]
+                kpos = (k0 + np.arange(32))[None, :]
+                ok = kpos < sk
+                if causal:
+                    ok = ok & (kpos <= qpos)
+                if window > 0:
+                    ok = ok & (kpos > qpos - window)
+                s = np.where(ok, s, NEG).astype(f32)
+                m_new = np.maximum(m, s.max(1))
+                m_safe = np.where(m_new <= NEG / 2, f32(0), m_new)
+                alpha = np.where(m <= NEG / 2, f32(0),
+                                 np.exp(m - m_safe)).astype(f32)
+                p = np.exp(s - m_safe[:, None]).astype(f32)
+                l_sum = (l_sum * alpha + p.sum(1, dtype=f32)).astype(f32)
+                m = m_new
+                for c in range(0, d, nc):
+                    part = _tc_product(p, vt[:, c:c + nc].T.copy(), terms)
+                    o[:, c:c + nc] = (o[:, c:c + nc].astype(np.float64)
+                                      * alpha[:, None] + part).astype(f32)
+            denom = np.where(l_sum == 0, f32(1), l_sum)
+            out[0, h, q0:q0 + nq] = (o / denom[:, None])[:nq]
+    return out
+
+
+@pytest.mark.parametrize("d,window", [(256, 0), (128, 100)])
+def test_three_tf32_products_hold_the_f32_limits(d, window):
+    """Why K5's f32 kernel takes three TF32 products per k8 step with fresh
+    accumulators, and why chip_smoke.py's one-product control must fail:
+    on causal attention with a softcap of 50 over 300 keys (10 KV tiles),
+    the emulated 3xTF32 kernel stays within the f32 per-row and Frobenius
+    limits of the plain version, and one TF32 product misses both."""
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal(shp).astype(np.float32)
+               for shp in ((1, 2, 300, d), (1, 1, 300, d), (1, 1, 300, d)))
+    kw = dict(causal=True, window=window, cap=50.0)
+    want = k5.flash_attention_plain(*_t(q, k, v), causal=True,
+                                    window=window, softcap=50.0).numpy()
+
+    def errs(got):
+        a, b = got.reshape(-1, d), want.reshape(-1, d)
+        row = (np.abs(a - b).max(1) / np.abs(b).max(1)).max()
+        return row, np.linalg.norm(a - b) / np.linalg.norm(b)
+
+    row3, fro3 = errs(_emulate_tf32x3(q, k, v, terms=3, **kw))
+    row1, fro1 = errs(_emulate_tf32x3(q, k, v, terms=1, **kw))
+    assert row3 <= F32_ROW_LIMIT and fro3 <= F32_FRO_LIMIT
+    assert row1 > F32_ROW_LIMIT and fro1 > F32_FRO_LIMIT
 
 
 def test_cuda_tier_on_cpu_tensors_raises():

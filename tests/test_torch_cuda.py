@@ -309,6 +309,82 @@ def test_flash_bf16_tile_edges_match_plain(gpu, b, hq, hkv, sq, sk, d,
     assert torch.equal(got, k5.flash_attention(q, k, v, kvl, **kw))
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,kv_len", [
+    # the f32 kernel's tiles: 64 query rows, 32 keys; every head dim (two
+    # warpgroups a CTA at d = 256)
+    (1, 2, 1, 63, 31, 16, True, 0, 50.0, None),
+    (1, 2, 2, 65, 33, 32, False, 0, 0.0, None),
+    (1, 4, 2, 64, 32, 64, True, 0, 0.0, None),
+    (1, 2, 1, 1, 1, 128, True, 0, 0.0, None),
+    (2, 4, 2, 1, 129, 256, True, 0, 50.0, None),
+    (1, 2, 1, 129, 95, 256, True, 0, 0.0, None),
+    (1, 8, 2, 33, 97, 256, False, 0, 50.0, None),
+    (1, 2, 2, 127, 127, 128, False, 0, 30.0, None),
+    (1, 2, 1, 257, 257, 16, True, 0, 0.0, None),
+    # a window edge inside a tile
+    (1, 4, 4, 200, 200, 128, True, 40, 0.0, None),
+    (1, 4, 2, 130, 130, 256, True, 20, 50.0, None),
+    (1, 2, 1, 96, 96, 64, True, 17, 0.0, None),
+    # kv_len: rows with no key, a batch shorter than Sk
+    (2, 4, 1, 100, 160, 64, True, 0, 0.0, (60, 160)),
+    (1, 2, 1, 70, 70, 256, True, 0, 0.0, (33,)),
+    (2, 2, 1, 40, 90, 32, True, 8, 50.0, (0, 90)),
+])
+def test_flash_f32_tile_edges_match_plain(gpu, b, hq, hkv, sq, sk, d,
+                                          causal, window, cap, kv_len):
+    """K5's 3xTF32 kernel at its tile edges: within TOL and the per-row
+    limit of the plain version, finite, counted once a launch, and two
+    launches equal bit for bit."""
+    gen = torch.Generator(device=gpu).manual_seed(sq * d + sk)
+    q, k, v = (torch.randn(shp, generator=gen, device=gpu)
+               for shp in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                   device=gpu)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    n = k5.flash_attention.launches
+    got = k5.flash_attention(q, k, v, kvl, **kw)
+    again = k5.flash_attention(q, k, v, kvl, **kw)
+    assert k5.flash_attention.launches == n + 2
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = k5.flash_attention_plain(q, k, v, kvl, **kw)
+    _close(got, want)
+    _rows_close(got, want, ROW_LIMIT[torch.float32])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_one_tf32_product_fails_the_limits(gpu, d):
+    """The control: one TF32 product instead of three misses the f32
+    per-row limit and is not counted as a launch, so the check sees TF32
+    rounding; the 3xTF32 launch on the same inputs meets it."""
+    gen = torch.Generator(device=gpu).manual_seed(d)
+    q = torch.randn((1, 4, 256, d), generator=gen, device=gpu)
+    k, v = (torch.randn((1, 2, 256, d), generator=gen, device=gpu)
+            for _ in range(2))
+    want = k5.flash_attention_plain(q, k, v, softcap=50.0)
+    n = k5.flash_attention.launches
+    one = k5._launch(q, k, v, softcap=50.0, terms=1)
+    three = k5._launch(q, k, v, softcap=50.0)
+    assert k5.flash_attention.launches == n
+    torch.cuda.synchronize()
+    _rows_close(three, want, ROW_LIMIT[torch.float32])
+    with pytest.raises(AssertionError):
+        _rows_close(one, want, ROW_LIMIT[torch.float32])
+
+
+def test_flash_f32_launches_are_bitwise_equal(gpu):
+    """No atomics, a fixed order of every sum: two f32 launches at a
+    gemma2-like layer (two warpgroups a CTA, S's halves added through
+    shared memory) give the same bits."""
+    gen = torch.Generator(device=gpu).manual_seed(7)
+    q = torch.randn((1, 4, 1000, 256), generator=gen, device=gpu)
+    k, v = (torch.randn((1, 2, 1000, 256), generator=gen, device=gpu)
+            for _ in range(2))
+    first = k5.flash_attention(q, k, v, softcap=50.0)
+    assert all(torch.equal(first, k5.flash_attention(q, k, v, softcap=50.0))
+               for _ in range(3))
+
+
 def test_flash_kernel_refuses_gradients_and_bad_input(gpu):
     q = torch.randn((1, 2, 8, 64), device=gpu, requires_grad=True)
     k = torch.randn((1, 1, 8, 64), device=gpu)
@@ -325,6 +401,10 @@ def test_flash_kernel_refuses_gradients_and_bad_input(gpu):
                                k[..., :48].contiguous())
         with pytest.raises(TypeError):
             k5.flash_attention(q.half(), k.half(), k.half())
+        with pytest.raises(ValueError, match="terms"):
+            k5._launch(q, k, k, terms=2)
+        with pytest.raises(ValueError, match="terms"):
+            k5._launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), terms=1)
 
 
 def test_reduced_gemma2_cuda_tier_matches_torch_tier(gpu):

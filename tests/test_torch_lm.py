@@ -6,7 +6,10 @@ GeGLU) and granite (dense GQA, SwiGLU, padded vocab): the reference's
 ``params_from_reference``; ``lm_forward``, ``lm_prefill`` and
 ``lm_decode_step`` must match the JAX ones within the f32 band, the port's
 decode its own full forward, and the port's ``ServeEngine`` must emit the
-JAX ``ServeEngine``'s greedy tokens.
+JAX ``ServeEngine``'s greedy tokens.  The same three entry points also run
+in the configs' native bf16 and must match the reference's bf16 logits
+within the bf16 band; ``unembed`` must return the f32 accumulator of bf16
+operands, as the reference does.
 """
 
 import dataclasses
@@ -22,12 +25,14 @@ from repro.config import get_config as jget_config
 from repro.configs import gemma2_9b as jgemma
 from repro.configs import granite_3_8b as jgranite
 from repro.models import transformer as jtr
+from repro.nn import layers as jlayers
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.config import get_config
 from repro_torch.configs import gemma2_9b, granite_3_8b
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as ttr
+from repro_torch.nn import layers
 from repro_torch.serve.engine import Request, ServeEngine
 
 torch.set_num_threads(2)
@@ -127,6 +132,71 @@ def test_lm_forward_prefill_decode_match_reference(pair):
                 model, torch.from_numpy(toks[:, t:t + 1]), caches, length)
             assert_allclose_dtype(lg, jlg, scale=LM_SCALE)
         assert int(length) == int(jlen) == 20
+
+
+@pytest.fixture(scope="module", params=sorted(ARCHS))
+def bf16_pair(request):
+    """(cfg, reference cfg, reference params, port model on the CPU), in
+    the configs' own dtype, bf16."""
+    tmod, jmod = ARCHS[request.param]
+    cfg, jcfg = tmod.reduced(), jmod.reduced()
+    assert cfg.dtype == jcfg.dtype == "bfloat16"
+    params = jtr.init_lm(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    model = ttr.TransformerLM(cfg, device="cpu").params_from_reference(tree)
+    return cfg, jcfg, params, model
+
+
+def _bf16_close(got, want):
+    assert got.dtype == torch.float32
+    assert_allclose_dtype(got, np.asarray(want, np.float32),
+                          dtype=jnp.bfloat16)
+
+
+def test_lm_bf16_forward_prefill_decode_match_reference(bf16_pair):
+    """The bf16 LM path that phase 6 of chip_smoke.py serves, held to the
+    reference's bf16 logits on the same weights (logits, not greedy
+    tokens: random weights leave near-ties)."""
+    cfg, jcfg, params, model = bf16_pair
+    toks = _tokens(cfg, (2, 20), 1)
+    want, _ = jtr.lm_forward(params, jcfg, jnp.asarray(toks))
+    with torch.no_grad():
+        _bf16_close(ttr.lm_forward(model, torch.from_numpy(toks)), want)
+        jlg, jcaches, jlen = jtr.lm_prefill(params, jcfg,
+                                            jnp.asarray(toks[:, :16]),
+                                            cache_size=24)
+        lg, caches, length = ttr.lm_prefill(model,
+                                            torch.from_numpy(toks[:, :16]),
+                                            24)
+        _bf16_close(lg, jlg)
+        assert caches[0][0].dtype == torch.bfloat16
+        for t in range(16, 20):
+            jlg, jcaches, jlen = jtr.lm_decode_step(
+                params, jcfg, jnp.asarray(toks[:, t:t + 1]), jcaches, jlen)
+            lg, caches, length = ttr.lm_decode_step(
+                model, torch.from_numpy(toks[:, t:t + 1]), caches, length)
+            _bf16_close(lg, jlg)
+        assert int(length) == int(jlen) == 20
+
+
+@pytest.mark.parametrize("vocab", [7, layers.UNEMBED_CHUNK + 5])
+def test_unembed_bf16_returns_the_f32_accumulator(vocab):
+    """bf16 operands give the reference's f32 logits within the f32 band
+    (not rounded to bf16), also across the CPU's vocab chunks."""
+    rng = np.random.default_rng(vocab)
+    table = rng.standard_normal((vocab, 64)).astype(np.float32)
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    jt, jx = jnp.asarray(table, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16)
+    want = jlayers.unembed({"table": jt}, jx)
+    tt, tx = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+              .to(torch.bfloat16) for a in (jt, jx))
+    got = layers.unembed(tt, tx)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, vocab)
+    assert_allclose_dtype(got, want)
+    # the f32 accumulator itself: rounding it to bf16 would move it off
+    assert not torch.equal(got, got.bfloat16().float())
+    assert torch.equal(layers.unembed(tt.float(), tx.float()),
+                       tx.float() @ tt.float().t())
 
 
 def test_decode_matches_full_forward(pair):
