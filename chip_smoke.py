@@ -44,15 +44,33 @@ Phases, each printing its own lines; any failure exits non-zero:
   6. lm      -- gemma2-9b at full width and depth (42 layers, bf16, seeded
                 random weights) through the port's ServeEngine: a wave of
                 8 greedy requests of 17 to 6144 prompt tokens, 16 tokens
-                each; K5's launch count, prefill logits against an engine
-                on the torch tier on the same card (max-abs band and
+                each, with the decode step captured once as a CUDA graph
+                and replayed; K5's launch count, prefill logits against an
+                engine on the torch tier on the same card (max-abs band and
                 relative Frobenius error), prefill, first-token
-                and decode times, tokens/s, peak memory.
+                and decode times, tokens/s, peak memory; profiles of a
+                prefill, an eager and a replayed decode step; then the same
+                wave with the decode step run eagerly, whose greedy tokens
+                must equal the captured engine's for every request.
   7. lm f32  -- gemma2-9b in f32 at full width, depth cut to 2 layers: one
                 6144-token lm_prefill, which takes K5's f32 path; its launch
                 count and logits against the torch tier.
+  8. compiled -- (run right after phase 4, on its models and graph) each of
+                the six Reddit forwards through plan.compile(), one CUDA
+                graph each: the capture's K1/K2 launches against the eager
+                forward's, one capture and COMPILED_CALLS - 1 replays, every
+                replay bitwise equal to eager, eager and replayed times over
+                COMPILED_CALLS calls, peak memory with and without the
+                graph, compile(layer=i) against run_layer; a torch-tier
+                compile(dynamic=True) over a second seeded graph of the same
+                V and E, within the f32 band, no recapture.
+  9. report  -- (right after phase 8) plan.instrument().run_model(...,
+                compiled=True) for the six: validated reports, written to
+                chiprun_out/reports/ as JSON and markdown; ms per phase,
+                its share and bound class (H100 and the paper's V100), the
+                compiled speedup per layer; a PageRank row on Reddit.
 
-The last three lines are nvidia-smi's name and power limit, one JSON
+The phases run in the order 1-4, 8, 9, 5-7.  The last three lines are nvidia-smi's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and the result line.  The full
 per-shape table is also written to chiprun_out/chip_smoke.json.
 """
@@ -127,6 +145,11 @@ K5_KERNELS = ("wgmma_kernel", "tf32x3_kernel")
 #: few ulp of the largest magnitude, not bitwise
 F32_BAND = 1e-5
 SCALE = 10
+#: phase 8: calls of each compiled forward (the first captures, the rest
+#: replay), also the count each time is averaged over
+COMPILED_CALLS = 20
+#: phase 9: PageRank power iterations timed on Reddit
+PAGERANK_ITERS = 20
 
 
 def fail(msg: str) -> None:
@@ -412,6 +435,216 @@ def drive_main_path(g, x, spec):
     return models, logits, counts, peak
 
 
+def drive_compiled(models, g, x, spec):
+    """Phase 8: the six Reddit models through plan.compile() (one CUDA
+    graph each).  Fails unless a capture records the eager forward's K1/K2
+    launches, the forward is captured once over COMPILED_CALLS calls with a
+    replay for every call after the first, every replay's logits equal the
+    eager forward's bit for bit, each layer's compile(layer=i) equals
+    run_layer, and a torch-tier dynamic plan serves a second graph of the
+    same V and E within the f32 band with no recapture (another shape
+    raises).  Returns the measurements."""
+    import torch
+    from repro_torch.graph.datasets import make_synthetic_graph
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models.gcn import make_paper_model
+
+    def launched(fn):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: n - before[k] for k, n in launch_counts().items()}
+
+    out = {}
+    for (name, fused), m in models.items():
+        key = f"{name}_{'fused' if fused else 'unfused'}"
+        plan, params = m.plan_for(g), m.tree()
+        with torch.inference_mode():
+            # memory above what is allocated already (x, the layouts and
+            # the earlier models' graphs, which phase 9 reuses)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eager, counts = launched(lambda: plan.run_model(params, x))
+            eager_peak = torch.cuda.max_memory_allocated() - base
+            fn = plan.compile()
+            torch.cuda.reset_peak_memory_stats()
+            first, first_counts = launched(lambda: fn(params, x))
+            same = [torch.equal(first, eager)]
+            _, replay_counts = launched(lambda: [
+                same.append(torch.equal(fn(params, x), eager))
+                for _ in range(COMPILED_CALLS - 1)])
+            compiled_peak = torch.cuda.max_memory_allocated() - base
+            # what the graph keeps: its pool and its static buffers
+            resident = torch.cuda.memory_allocated() - base - \
+                eager.numel() * eager.element_size()
+            traces, replays = fn.num_traces, fn.num_replays
+            captured = {k: fn.capture_launches.get(k, 0) for k in counts}
+            ms = time_ms(lambda: plan.run_model(params, x), COMPILED_CALLS)
+            ms_graph = time_ms(lambda: fn(params, x), COMPILED_CALLS)
+            # the replay alone, without copying the inputs in and the
+            # output out
+            graph = next(iter(fn._traces.values())).graph
+            ms_replay = time_ms(graph.replay, COMPILED_CALLS)
+            layers_equal = []
+            h = x
+            for i in range(plan.num_layers):
+                sub = params[f"conv{i}"]
+                want = plan.run_layer(sub, h, layer=i)
+                fl = plan.compile(layer=i)
+                layers_equal.append(all(torch.equal(fl(sub, h), want)
+                                        for _ in range(3)))
+                h = torch.relu(want)
+        rec = {"eager_ms": ms, "graph_ms": ms_graph,
+               "replay_only_ms": ms_replay,
+               "eager_peak_bytes": eager_peak,
+               "compiled_peak_bytes": compiled_peak,
+               "graph_resident_bytes": resident,
+               "eager_launches": counts,
+               "capture_launches": captured,
+               "first_call_launches": first_counts,
+               "replay_launches": replay_counts,
+               "num_traces": traces, "num_replays": replays,
+               "replays_equal": all(same), "layers_equal": layers_equal}
+        out[key] = rec
+        print(f"[compiled] {name:4s} fused={fused!s:5s} eager {ms:.3f} ms, "
+              f"compiled call {ms_graph:.3f} ms ({ms / ms_graph:.2f}x; the "
+              f"replay alone {ms_replay:.3f} ms) over {COMPILED_CALLS} "
+              f"calls; "
+              f"captures {traces}, replays {replays}; launches eager "
+              f"{counts}, captured {captured}, in "
+              f"{COMPILED_CALLS - 1} replays {replay_counts}; every replay "
+              f"equal to eager bit for bit: {all(same)}; layers "
+              f"{layers_equal}; peak memory above the inputs: eager "
+              f"{eager_peak / 2**30:.3f} GiB, compiled calls "
+              f"{compiled_peak / 2**30:.3f} GiB, the graph keeps "
+              f"{resident / 2**30:.3f} GiB", flush=True)
+        if captured != counts or traces != 1 or \
+                replays != COMPILED_CALLS - 1 or any(replay_counts.values()):
+            fail(f"{key}: captured launches {captured} against eager "
+                 f"{counts}, {traces} captures, {replays} replays, launch "
+                 f"counters moved by {replay_counts} in the replays")
+        if not (all(same) and all(layers_equal)):
+            fail(f"{key}: a replay differs from the eager forward")
+        del eager, first
+
+    # the graph as an argument: torch tier, unfused, a second seeded graph
+    m = make_paper_model("gcn", spec, backend="torch", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    plan, params = m.plan_for(g, fused=False), m.tree()
+    g2 = make_synthetic_graph(spec, SEED + 1, device="cuda")
+    fn = plan.compile(dynamic=True)
+    with torch.inference_mode():
+        want = plan.run_model(params, x, graph=g2)
+        mine = plan.run_model(params, x)
+        own, got = fn(params, x, g), fn(params, x, g2)
+        err, tol = max_err(got, want)
+        own_err, own_tol = max_err(own, mine)
+        ms = time_ms(lambda: plan.run_model(params, x, graph=g2), 3)
+        ms_graph = time_ms(lambda: fn(params, x, g2), 3)
+        try:
+            fn(params, x, g._replace(src=g.src[1:], dst=g.dst[1:]))
+            raised = False
+        except ValueError:
+            raised = True
+    print(f"[compiled] dynamic torch tier gcn over a second graph "
+          f"(V={g2.num_vertices} E={g2.num_edges}, seed {SEED + 1}): "
+          f"max_abs_err={err:.3e} tol={tol:.3e}; own graph {own_err:.3e}; "
+          f"traces {fn.num_traces}, replays {fn.num_replays}; eager "
+          f"{ms:.3f} ms, replay {ms_graph:.3f} ms; another shape raises "
+          f"ValueError: {raised}", flush=True)
+    if not (err <= tol and own_err <= own_tol and fn.num_traces == 1
+            and raised):
+        fail(f"dynamic compiled plan: error {err:.3e} (tol {tol:.3e}), own "
+             f"graph {own_err:.3e}, {fn.num_traces} captures, other shape "
+             f"raised: {raised}")
+    out["dynamic_torch_gcn"] = {"max_abs_err": err, "tol": tol,
+                                "eager_ms": ms, "graph_ms": ms_graph,
+                                "num_traces": fn.num_traces}
+    return out
+
+
+def characterize(models, g, x):
+    """Phase 9: plan.instrument().run_model(..., compiled=True) for the six
+    Reddit models: every report validates, describes what ran
+    (mismatches == []), and lands as JSON and markdown in
+    chiprun_out/reports/.  Prints the paper's Table 3/4 breakdown on this
+    card (ms per phase, share of the forward, bound class against the H100
+    and the paper's V100) and the compiled speedup per layer, then a
+    PageRank row on the same graph.  Returns the measurements."""
+    import torch
+    from repro_torch.models.mlp import mlp_cost
+    from repro_torch.models.pagerank import pagerank, pagerank_cost
+    from repro_torch.profile.machine import H100, V100
+
+    out_dir = ROOT / "chiprun_out" / "reports"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for (name, fused), m in models.items():
+        key = f"{name}_{'fused' if fused else 'unfused'}"
+        plan = m.plan_for(g)
+        rep = plan.instrument().run_model(m.tree(), x, compiled=True)
+        rep.validate()
+        bad = rep.mismatches(plan)
+        (out_dir / f"{key}.json").write_text(rep.to_json())
+        (out_dir / f"{key}.md").write_text(rep.to_markdown())
+        total = rep.totals()["wall_time_s"]
+        phases = {}
+        for r in rep.records:
+            ph = phases.setdefault(r.phase, {"ms": 0.0, "bound": set(),
+                                             "bound_v100": set()})
+            ph["ms"] += r.wall_time_s * 1e3
+            ph["bound"].add(r.bound)
+            ph["bound_v100"].add(V100.classify(r.arithmetic_intensity))
+        sp = rep.compiled_speedup()
+        rows = {ph: {"ms": v["ms"], "share": v["ms"] / (total * 1e3),
+                     "bound": sorted(v["bound"]),
+                     "bound_v100": sorted(v["bound_v100"])}
+                for ph, v in phases.items()}
+        out[key] = {"phases": rows, "eager_ms": total * 1e3,
+                    "compiled_model_ms": rep.compiled_times["model_s"] * 1e3,
+                    "compiled_layers_ms": [t * 1e3 for t in
+                                           rep.compiled_times["layers_s"]],
+                    "speedup": sp, "mismatches": bad}
+        print(f"[report] {name:4s} fused={fused!s:5s} phases: " + "; ".join(
+            f"{ph} {v['ms']:.3f} ms ({100 * v['share']:.1f}%, "
+            f"{'/'.join(v['bound'])} on H100, "
+            f"{'/'.join(v['bound_v100'])} on V100)"
+            for ph, v in rows.items())
+            + f"; eager forward {total * 1e3:.3f} ms (synchronized per "
+            f"phase), compiled {rep.compiled_times['model_s'] * 1e3:.3f} ms"
+            f" = {sp['model']:.2f}x; per layer "
+            + ", ".join(f"{s:.2f}x" for s in sp["layers"]), flush=True)
+        if bad:
+            fail(f"{key}: describe() disagrees with the dispatch: {bad}")
+        if plan.compile().num_traces != 1:
+            fail(f"{key}: phase 9 captured the forward again")
+    with torch.inference_mode():
+        r = pagerank(g, iters=PAGERANK_ITERS)
+        mass = float(r.sum().item())
+        ms = time_ms(lambda: pagerank(g, iters=PAGERANK_ITERS),
+                     3) / PAGERANK_ITERS
+    c = pagerank_cost(g)
+    ai = c["flops"] / c["bytes"]
+    out["pagerank"] = {"ms_per_iter": ms, "bytes": c["bytes"],
+                       "flops": c["flops"], "arithmetic_intensity": ai,
+                       "bound": H100.classify(ai),
+                       "bound_v100": V100.classify(ai), "rank_mass": mass}
+    mc = mlp_cost()
+    out["mlp"] = {**mc, "bound": H100.classify(mc["arithmetic_intensity"]),
+                  "bound_v100": V100.classify(mc["arithmetic_intensity"])}
+    print(f"[report] pagerank on Reddit: {ms:.3f} ms per iteration "
+          f"({PAGERANK_ITERS} iterations, gather + index_add_), "
+          f"{c['bytes']} B and {c['flops']} flops per iteration, AI "
+          f"{ai:.4f} F/B: {H100.classify(ai)}-bound on H100, "
+          f"{V100.classify(ai)}-bound on V100; rank mass {mass:.6f}; MLP "
+          f"784-128 x 1000: AI {mc['arithmetic_intensity']:.1f} F/B, "
+          f"{out['mlp']['bound']}-bound on H100, {out['mlp']['bound_v100']}"
+          f"-bound on V100", flush=True)
+    if not abs(mass - 1.0) < 1e-3:
+        fail(f"pagerank ranks sum to {mass}, expected 1")
+    return out
+
+
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
     """(query, key) pairs K5 must compute: summed over the batch, the keys
     each query row may see (right-aligned positions, as the kernel)."""
@@ -654,7 +887,9 @@ def profile_lm(model, eng, prompts):
                 model, torch.as_tensor(prompts[6][None], device=dev),
                 LM_CACHE),
             "decode_step": lambda: lm_decode_step(
-                model, toks, eng._caches, eng._length)}
+                model, toks, eng._caches, eng._length),
+            # the engine's captured decode step: one replay of its graph
+            "decode_step_graph": lambda: eng._graph[0].replay()}
     rows = {}
     for name, fn in work.items():
         with torch.inference_mode():
@@ -738,9 +973,10 @@ def drive_lm():
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in LM_PROMPTS]
 
-    def serve(attn_impl):
+    def serve(attn_impl, decode_graph=True):
         eng = TimedEngine(cfg, model, max_batch=LM_MAX_BATCH,
-                          cache_size=LM_CACHE, attn_impl=attn_impl)
+                          cache_size=LM_CACHE, attn_impl=attn_impl,
+                          decode_graph=decode_graph)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         k5.flash_attention.launches = 0
@@ -773,6 +1009,18 @@ def drive_lm():
         fail(f"K5 launches {launches} (decode {eng.decode_launches}); "
              f"expected one per attention layer per prefill and none in "
              f"decode")
+    # the decode step: eager once (the warm-up), captured once, replayed
+    replayed = sorted(eng.step_ms[2:])
+    print(f"[lm] decode step as a CUDA graph: {eng.decode_captures} "
+          f"capture, {eng.decode_replays} replays; replayed steps median "
+          f"{replayed[len(replayed) // 2]:.2f} ms (first, eager step "
+          f"{eng.step_ms[0]:.2f} ms; the capturing step "
+          f"{eng.step_ms[1]:.2f} ms)", flush=True)
+    if eng.decode_captures != 1 or eng.decode_replays != len(steps) - 1:
+        fail(f"decode step captured {eng.decode_captures} times and "
+             f"replayed {eng.decode_replays} times in {len(steps)} steps; "
+             f"expected one capture and a replay for every step after the "
+             f"first")
     for rid in range(len(LM_PROMPTS)):
         out = outputs.get(rid, [])
         if len(out) != LM_TOKENS or not all(0 <= t < cfg.vocab_size
@@ -784,8 +1032,32 @@ def drive_lm():
            "decode_step_ms": eng.step_ms, "tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall, "peak_bytes": peak,
            "launches": launches, "stats": stats,
+           "decode_captures": eng.decode_captures,
+           "decode_replays": eng.decode_replays,
+           "replayed_step_median_ms": replayed[len(replayed) // 2],
            "profile": profile_lm(model, eng, prompts)}
     del eng
+    torch.cuda.empty_cache()
+
+    # the same wave with the decode step run eagerly: the same tokens
+    eager, eager_done, eager_wall, _, eager_peak = serve("auto",
+                                                         decode_graph=False)
+    eager_out = {r.rid: list(r.output) for r in eager_done}
+    esteps = sorted(eager.step_ms)
+    differ = [rid for rid in outputs if outputs[rid] != eager_out.get(rid)]
+    print(f"[lm] eager decode engine: {eager_wall:.2f} s for the wave, "
+          f"decode step median {esteps[len(esteps) // 2]:.2f} ms against "
+          f"{replayed[len(replayed) // 2]:.2f} ms replayed; "
+          f"{eager.decode_captures} captures; peak memory "
+          f"{eager_peak / 2**30:.2f} GiB against {peak / 2**30:.2f} GiB "
+          f"with the graph; requests whose greedy tokens differ from the "
+          f"captured engine's: {differ}", flush=True)
+    if differ or eager.decode_captures or len(eager_out) != len(outputs):
+        fail(f"eager-decode engine: tokens differ for requests {differ} "
+             f"({eager.decode_captures} captures)")
+    rec.update(eager_decode_step_ms=eager.step_ms, eager_wall_s=eager_wall,
+               eager_peak_bytes=eager_peak)
+    del eager
     torch.cuda.empty_cache()
 
     ref, ref_done, ref_wall, ref_launches, _ = serve("torch")
@@ -886,6 +1158,7 @@ def main() -> None:
              f"a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.config import CITESEER, CORA
+    from repro_torch.core.plan import clear_plan_cache
     from repro_torch.graph.datasets import load_dataset, make_synthetic_graph
     from repro_torch.kernels import _build
     from repro_torch.models.gcn import make_paper_model
@@ -971,7 +1244,22 @@ def main() -> None:
                 fail(f"{name} fused={fused}: logits off the torch tier by "
                      f"{err:.3e} or off the other fusion by {cross:.3e}")
             del ref
-    del models, logits, graphs, g_red, x_red
+    del logits, graphs
+    torch.cuda.empty_cache()
+
+    # -- 8. compiled execution (CUDA graphs) of the same models on Reddit
+    t0 = time.perf_counter()
+    compiled = drive_compiled(models, g_red, x_red, spec_red)
+    print(f"[compiled] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- 9. characterization: per-phase reports of the same forwards
+    t0 = time.perf_counter()
+    reports = characterize(models, g_red, x_red)
+    print(f"[report] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del models, g_red, x_red
+    clear_plan_cache()          # drops the plans' layouts and CUDA graphs
     torch.cuda.empty_cache()
 
     # -- 5. K5 against its plain version
@@ -993,7 +1281,7 @@ def main() -> None:
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
-         "forwards_ms": forwards},
+         "forwards_ms": forwards, "compiled": compiled, "reports": reports},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape

@@ -8,6 +8,8 @@
     Max has no kernel and runs plain PyTorch on either tier, as the
     reference runs ``segment_max`` on every tier.
   * **Combination** (``combine``, :208) -- the dense per-vertex MLP.
+  * ``phase_ordered_layer`` (:247) -- one layer in an explicit or planned
+    phase order, through the plan.
 
 Only f32 is ported: ``_mm`` is the plain ``@``.
 """
@@ -155,3 +157,25 @@ def combine_cost(num_vertices: int, dims, dtype_bytes: int = 4) -> dict:
             * dtype_bytes
     return {"bytes": byt, "flops": flops,
             "arithmetic_intensity": flops / max(1, byt)}
+
+
+def phase_ordered_layer(g: Graph, x: torch.Tensor, weights, *,
+                        order: Optional[str] = None, agg_op: str = "mean",
+                        edge_weight=None, activation: str = "relu",
+                        plan=None) -> torch.Tensor:
+    """One graph-conv layer with explicit (or planned) phase ordering
+    (``phase_ordered_layer``, :247; paper F2).
+
+    ``order`` is "combine_first" (GCN/SAGE; shrinks the feature length the
+    aggregation moves), "aggregate_first" (GIN semantics) or None, which
+    lets the plan's cost model choose.  Dispatches through a
+    ``GraphExecutionPlan`` (``plan_for_phases``, built and cached per
+    graph, dims, order and aggregation when ``plan`` is not given).
+    """
+    if order not in ("combine_first", "aggregate_first", None):
+        raise ValueError(f"unknown order {order!r}")
+    if plan is None:
+        from repro_torch.core.plan import plan_for_phases
+        plan = plan_for_phases(g, weights, order=order, agg_op=agg_op)
+    return plan.run_phases(x, weights, edge_weight=edge_weight,
+                           activation=activation)

@@ -12,11 +12,14 @@ Decided ONCE per (graph, model, machine) and replayed on every forward:
     it once (``_blocked_for``, cached per graph).  GIN fuses aggregation
     with its FIRST matmul.  Every ``cuda`` layer also owns the layout its
     unfused aggregation runs on (``LayerPlan.agg_layout``).
+  * **Compiled execution.**  ``plan.compile()`` is the forward as a
+    ``CompiledPlan``: on a card one CUDA graph per input signature, on the
+    CPU the eager forward under the same caching and retrace guard.
 
 This is the local, f32 subset of the reference.  ``build_plan`` raises
 ``NotImplementedError`` for what is not ported yet -- ``mesh=``,
 ``reorder`` other than "none", ``dtype`` other than "f32", ``dedup`` other
-than "none" -- and so does ``plan.compile()``; nothing is silently ignored.
+than "none"; nothing is silently ignored.
 
 Public surface::
 
@@ -24,7 +27,10 @@ Public surface::
   plan.run_model(params, x)       full forward through all planned layers
   plan.run_layer(params_i, x, layer=i)
   plan.run_phases(x, weights, ...)
+  plan.compile(donate=, layer=, dynamic=)       -> CompiledPlan
+  plan.instrument(machine=)       -> profile.instrument.InstrumentedPlan
   plan.describe()                 decisions + modeled aggregation cost
+  plan.layer_costs(layer)         analytic per-phase costs (Tables 3/4)
 """
 
 from __future__ import annotations
@@ -88,6 +94,7 @@ class GraphExecutionPlan:
         self.g = g
         self.layers: Tuple[LayerPlan, ...] = tuple(layers)
         self.machine = machine
+        self._compiled: Dict = {}    # (donate, layer, dynamic) -> CompiledPlan
 
     @property
     def num_layers(self) -> int:
@@ -96,6 +103,15 @@ class GraphExecutionPlan:
     @property
     def device(self) -> torch.device:
         return self.g.device
+
+    @property
+    def compile_supported(self) -> bool:
+        """True when every ``cuda`` layer owns its plan-built blocked
+        layout, so the forward does no host work and can be captured.
+        Plans built by the public entry points always qualify; False only
+        for hand-built plans missing ``agg_layout``."""
+        return all(lp.backend != CUDA or lp.agg_layout is not None
+                   for lp in self.layers)
 
     @staticmethod
     def _split_params(lp: LayerPlan, params: Dict):
@@ -109,44 +125,147 @@ class GraphExecutionPlan:
             j += 1
         return weights, None
 
-    def run_layer(self, params: Dict, x: torch.Tensor, *,
-                  layer: int = 0) -> torch.Tensor:
+    def run_layer(self, params: Dict, x: torch.Tensor, *, layer: int = 0,
+                  _probe=None, graph: Optional[Graph] = None) -> torch.Tensor:
         """One planned layer from its conv param subtree ({"lin": ...} or
-        {"mlp1": ..., "mlp2": ...})."""
+        {"mlp1": ..., "mlp2": ...}).  ``graph`` overrides the plan's graph
+        for this dispatch (the dynamic mode of ``compile(dynamic=True)``);
+        only torch-tier unfused plans read nothing but its edge arrays."""
         lp = self.layers[layer]
         weights, bias_post = self._split_params(lp, params)
-        return _execute_layer(self.g, lp, x, weights, bias_post=bias_post)
+        return _execute_layer(self.g if graph is None else graph, lp, x,
+                              weights, bias_post=bias_post, probe=_probe)
 
-    def run_model(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        """Full forward: planned layers with ReLU between them."""
+    def run_model(self, params: Dict, x: torch.Tensor, *, _probe=None,
+                  compiled: bool = False,
+                  graph: Optional[Graph] = None) -> torch.Tensor:
+        """Full forward: planned layers with ReLU between them.
+
+        ``compiled=True`` routes through ``plan.compile()`` (or
+        ``compile(dynamic=True)`` with ``graph=``) instead of the eager
+        per-phase loop.  ``graph=`` substitutes another graph's edge arrays
+        for this dispatch while replaying the same planned decisions; only
+        torch-tier unfused plans accept it, and ``x`` rows must match it.
+        """
+        if compiled:
+            if _probe is not None:
+                raise ValueError(
+                    "per-phase instrumentation needs eager phase "
+                    "boundaries; InstrumentedPlan times the compiled "
+                    "path separately (run_model(..., compiled=True))")
+            if graph is not None:
+                return self.compile(dynamic=True)(params, x, graph)
+            return self.compile()(params, x)
+        if graph is not None:
+            self._check_dynamic_ok()
         h = x
         for i in range(self.num_layers):
-            h = self.run_layer(params[f"conv{i}"], h, layer=i)
+            h = self.run_layer(params[f"conv{i}"], h, layer=i, _probe=_probe,
+                               graph=graph)
             if i < self.num_layers - 1:
                 h = torch.relu(h)
         return h
 
+    def _check_dynamic_ok(self) -> None:
+        """Dynamic (graph-as-argument) dispatch needs a forward that reads
+        the edge arrays as data: torch-tier unfused layers do; ``cuda`` and
+        fused layers run over host-built blocked layouts of the plan's own
+        graph, so they are refused (``_check_dynamic_ok``, :334)."""
+        problems = [
+            f"layer {lp.index} ({lp.backend}{', fused' if lp.fused else ''})"
+            f" runs over a host-built blocked layout"
+            for lp in self.layers if lp.backend == CUDA or lp.fused]
+        if problems:
+            raise ValueError(
+                "dynamic graph dispatch needs a forward that reads the edge "
+                "arrays as data: " + "; ".join(problems) + " (build the "
+                "bucket plan with backend='torch', fused=False)")
+
+    def compile(self, *, donate: bool = False, layer: Optional[int] = None,
+                dynamic: bool = False) -> "CompiledPlan":
+        """The planned forward as ONE callable (``compile``, :358).
+
+        On a CUDA plan, ``CompiledPlan`` captures the forward as a
+        ``torch.cuda.CUDAGraph`` per input signature and replays it; on a
+        CPU plan it runs the eager forward under the same caching,
+        signature and retrace contract.  Eager and compiled results are
+        equal bit for bit on the CPU and on the ``cuda`` tier (no atomics);
+        the ``torch`` tier on a card aggregates with float atomics
+        (``index_add_``), so there they agree within the f32 band.
+
+        Args:
+          donate: the caller gives up each result at the next call: on a
+            card the result IS the graph's static output buffer, which the
+            next replay overwrites (no copy); without it every call returns
+            a fresh clone.  On the CPU every call returns a fresh tensor.
+          layer: compile one planned layer, ``(conv_params, h) -> h'``,
+            instead of the full model (per-layer compiled timing).
+          dynamic: the graph becomes a runtime argument, ``(params, x,
+            graph)``: any ``Graph`` whose ``src``/``dst``/``in_deg`` shapes
+            match the plan's; edge content varies per call with no
+            recapture.  Torch-tier unfused plans only; not with ``layer=``.
+
+        Cached per (donate, layer, dynamic) on the plan::
+
+            >>> fwd = plan.compile()
+            >>> out = fwd(params, x)          # captures once
+            >>> out = fwd(params, x)          # replays
+            >>> fwd.num_traces, fwd.num_replays
+            (1, 1)
+        """
+        if not self.compile_supported:
+            raise ValueError(
+                "plan.compile() needs every cuda layer to own its plan-built "
+                "blocked layout (build plans through build_plan/plan_for_* "
+                "rather than by hand)")
+        if dynamic:
+            if layer is not None:
+                raise ValueError("dynamic compilation covers the full "
+                                 "forward; layer= is incompatible")
+            self._check_dynamic_ok()
+        key = (bool(donate), layer, bool(dynamic))
+        fn = self._compiled.get(key)
+        if fn is None:
+            fn = self._compiled[key] = CompiledPlan(
+                self, donate=donate, layer=layer, dynamic=dynamic)
+        return fn
+
     def run_phases(self, x: torch.Tensor, weights, *, layer: int = 0,
                    edge_weight=None, activation: str = "relu",
-                   bias_post=None) -> torch.Tensor:
-        """Raw weight-list execution: ``weights`` is a list of (W, b) with
-        biases applied inside the MLP; ``bias_post`` is added after
-        aggregation."""
+                   bias_post=None, _probe=None) -> torch.Tensor:
+        """Raw weight-list execution (the ``phase_ordered_layer`` entry):
+        ``weights`` is a list of (W, b) with biases applied inside the MLP;
+        ``bias_post`` is added after aggregation."""
         return _execute_layer(self.g, self.layers[layer], x, weights,
                               edge_weight=edge_weight, activation=activation,
-                              bias_post=bias_post)
+                              bias_post=bias_post, probe=_probe)
 
-    def compile(self, **_):
-        raise NotImplementedError(
-            "compiled execution (plan.compile) is not ported yet; the port "
-            "runs eagerly")
+    def instrument(self, machine=None, warmup: int = 0):
+        """Wrap this plan for characterization (``instrument``, :488).
+
+        Returns a ``profile.instrument.InstrumentedPlan`` whose ``run_*``
+        execute this plan's own dispatch while recording per-layer,
+        per-phase FLOPs / bytes / wall time into a ``WorkloadReport``.
+        ``machine`` is a ``Machine`` or registry name; default the plan's
+        (``H100`` unless the plan was built for another)::
+
+            >>> report = plan.instrument().run_model(params, x)
+            >>> print(report.to_markdown())    # Table-3/4-style breakdown
+        """
+        from repro_torch.profile.instrument import InstrumentedPlan
+        if machine is not None:
+            machine = get_machine(machine)
+        return InstrumentedPlan(self, machine=machine, warmup=warmup)
 
     def describe(self) -> List[Dict]:
         """One dict per layer: every planned decision + modeled agg cost.
-        The keys are the reference's, less those of features not ported
-        (``dtype``/``reorder``/``dedup`` state the only values the port
-        takes)."""
+        The keys are the reference's; ``dtype``/``reorder``/``dedup``/
+        ``interpret``/``distributed``/``partition``/``overlap`` state the
+        only values the port takes, and ``compiled`` whether
+        ``plan.compile()`` works (always, for plans built by the public
+        entry points)."""
         out = []
+        compiled_ok = self.compile_supported
         for lp in self.layers:
             oc = ordering_cost(self.g, lp.din, lp.dout, lp.order)
             out.append({
@@ -154,9 +273,218 @@ class GraphExecutionPlan:
                 "din": lp.din, "dout": lp.dout,
                 "order": lp.order, "backend": lp.backend,
                 "fused": lp.fused, "tile_m": lp.tile_m,
-                "dtype": "f32", "reorder": "none", "dedup": "none",
+                "interpret": False, "distributed": False,
+                "partition": "none", "overlap": "none",
+                "dtype": "f32", "reorder": "none", "compiled": compiled_ok,
+                "dedup": "none",
                 "agg_bytes": oc.agg_bytes, "agg_flops": oc.agg_flops,
             })
+        return out
+
+    def layer_costs(self, layer: int = 0) -> Dict:
+        """Analytic per-phase costs of one planned layer (Tables 3/4;
+        ``layer_costs``, :548)."""
+        lp = self.layers[layer]
+        agg_len = lp.din if lp.order == AGGREGATE_FIRST else lp.dout
+        return {
+            "order": lp.order,
+            "aggregation": phases.aggregate_cost(self.g, agg_len),
+            "combination": phases.combine_cost(self.g.num_vertices, lp.dims),
+            "ordering_cost": ordering_cost(self.g, lp.din, lp.dout, lp.order),
+        }
+
+
+def _leaves(tree: Dict, prefix: Tuple[str, ...] = ()):
+    """(path, tensor) leaves of a nested params dict, in key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _leaves(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def _tree(leaves) -> Dict:
+    """The nested dict back from its ``_leaves``."""
+    tree: Dict = {}
+    for path, t in leaves:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return tree
+
+
+class _Captured:
+    """One input signature's CUDA graph: static buffers for the params
+    leaves and the array arguments, the graph, and its static output.
+
+    Built by the first call of a signature: the inputs are copied into the
+    static buffers, one warm-up forward runs on a side stream (it builds
+    and loads the kernels and sets their attributes, none of which may
+    happen under capture), then the forward is captured once.  The
+    warm-up's result answers that first call.  ``launches`` counts each
+    kernel's launches recorded into the graph; a replay moves no counter.
+    """
+
+    def __init__(self, fn, leaves, arrays, device: torch.device):
+        from repro_torch.kernels.ops import launch_counts
+        # plain tensors even when the caller is in inference mode: later
+        # calls copy into them from anywhere
+        with torch.inference_mode(False), torch.no_grad():
+            self.leaves = [(p, torch.empty_like(t)) for p, t in leaves]
+            self.arrays = [torch.empty_like(a) for a in arrays]
+            self.load(leaves, arrays)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                first = fn(_tree(self.leaves), *self.arrays)
+            torch.cuda.current_stream(device).wait_stream(side)
+            first.record_stream(torch.cuda.current_stream(device))
+            self.first = first
+            self.graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.cuda.graph(self.graph):
+                self.out = fn(_tree(self.leaves), *self.arrays)
+            self.launches = {k: n - before[k]
+                             for k, n in launch_counts().items()}
+
+    def load(self, leaves, arrays) -> None:
+        for (_, dst), (_, src) in zip(self.leaves, leaves):
+            dst.copy_(src)
+        for dst, src in zip(self.arrays, arrays):
+            dst.copy_(src)
+
+
+class CompiledPlan:
+    """A plan's forward as one callable, with a retrace guard
+    (``CompiledPlan``, :560).
+
+    The first call per input signature -- shapes and dtypes of ``x``, of
+    the params leaves and, in dynamic mode, of ``src``/``dst``/``in_deg``
+    -- traces: on a card it captures a CUDA graph (``_Captured``), on the
+    CPU it runs the eager forward.  Later calls of that signature replay:
+    on a card they copy the inputs into the static buffers (so new
+    parameter values take effect, as with ``jax.jit``), replay the graph
+    and clone its output (``donate=True``: no clone, see
+    ``plan.compile``); on the CPU they run the eager forward again.
+    ``num_traces`` counts traces, ``num_replays`` the calls served by an
+    existing trace; a trace for a signature already traced raises
+    ``RuntimeError``.  Inference only: the forward runs under
+    ``torch.no_grad()``.
+
+    The graph binds the plan's layouts and the static buffers by address,
+    so it lives as long as this object (cached on the plan).  A capture or
+    replay that fails raises; nothing falls back to eager execution.
+    """
+
+    def __init__(self, plan: GraphExecutionPlan, *, donate: bool = False,
+                 layer: Optional[int] = None, dynamic: bool = False):
+        self.plan = plan
+        self.donate = donate
+        self.layer = layer
+        self.dynamic = dynamic
+        self._num_traces = 0
+        self._num_replays = 0
+        self._seen = set()
+        #: signature -> _Captured on a card, None on the CPU
+        self._traces: Dict = {}
+
+    @property
+    def num_traces(self) -> int:
+        """Captures (CPU: first calls) made so far."""
+        return self._num_traces
+
+    @property
+    def num_replays(self) -> int:
+        """Calls served by a capture made earlier."""
+        return self._num_replays
+
+    @property
+    def capture_launches(self) -> Dict[str, int]:
+        """Kernel launches recorded into the graphs, summed over
+        signatures (``{}`` on the CPU)."""
+        out: Dict[str, int] = {}
+        for c in self._traces.values():
+            for k, n in (c.launches if c is not None else {}).items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def _forward(self, params, x, *graph_arrays):
+        if graph_arrays:
+            src, dst, in_deg = graph_arrays
+            g = self.plan.g._replace(src=src, dst=dst, in_deg=in_deg,
+                                     row_ptr=None)
+            return self.plan.run_model(params, x, graph=g)
+        if self.layer is None:
+            return self.plan.run_model(params, x)
+        return self.plan.run_layer(params, x, layer=self.layer)
+
+    @staticmethod
+    def _signature(leaves, arrays):
+        return (tuple((tuple(a.shape), a.dtype, a.device) for a in arrays),
+                tuple(p for p, _ in leaves),
+                tuple((tuple(t.shape), t.dtype) for _, t in leaves))
+
+    def _graph_args(self, graph: Graph):
+        """Validate a runtime graph for the dynamic mode: a shape mismatch
+        raises here, never silently absorbed by a recapture."""
+        t = self.plan.g
+        if graph.num_vertices != t.num_vertices or \
+                graph.src.shape != t.src.shape or \
+                graph.in_deg.shape != t.in_deg.shape:
+            raise ValueError(
+                f"dynamic graph shape {graph.num_vertices}V/"
+                f"{graph.src.shape[0]}E does not match the bucket template "
+                f"{t.num_vertices}V/{t.src.shape[0]}E -- pad the block "
+                "into the bucket before dispatch")
+        if graph.device != t.device:
+            raise ValueError(f"dynamic graph on {graph.device}, plan on "
+                             f"{t.device}")
+        return (graph.src, graph.dst, graph.in_deg)
+
+    def __call__(self, params, x, graph: Optional[Graph] = None):
+        if self.dynamic:
+            if graph is None:
+                raise ValueError("dynamic compiled plans take (params, x, "
+                                 "graph)")
+            arrays = (x,) + self._graph_args(graph)
+        else:
+            if graph is not None:
+                raise ValueError("this compiled plan is static; build it "
+                                 "with plan.compile(dynamic=True) to pass "
+                                 "a runtime graph")
+            arrays = (x,)
+        leaves = _leaves(params)
+        sig = self._signature(leaves, arrays)
+        on_card = self.plan.device.type == "cuda"
+        if sig in self._traces:
+            self._num_replays += 1
+            cap = self._traces[sig]
+            if cap is None:
+                with torch.no_grad():
+                    return self._forward(params, *arrays)
+            with torch.no_grad():
+                cap.load(leaves, arrays)
+            cap.graph.replay()
+            return cap.out if self.donate else cap.out.clone()
+        self._num_traces += 1
+        if sig in self._seen:
+            raise RuntimeError(
+                "plan.compile() retraced for an input signature it already "
+                "captured -- something dropped the capture cache")
+        if on_card:
+            cap = _Captured(self._forward, leaves, arrays, self.plan.device)
+            out = cap.first
+            cap.first = None
+        else:
+            cap = None
+            with torch.no_grad():
+                out = self._forward(params, *arrays)
+        self._traces[sig] = cap
+        self._seen.add(sig)
         return out
 
 
@@ -186,38 +514,72 @@ def _can_fuse(lp: LayerPlan, weights, edge_weight) -> bool:
     return b0 is None or lp.order == AGGREGATE_FIRST or lp.agg_op == "mean"
 
 
+def _phase(probe, name: str, thunk, *, lp: LayerPlan, **meta):
+    """Run one phase, observed by an instrumentation probe when one is set
+    (``_phase``, :711).  ``probe`` is ``profile.instrument._Probe``; with
+    None (production) the thunk runs directly, so reports describe the
+    dispatch path that actually ran."""
+    if probe is None:
+        return thunk()
+    return probe.run(name, thunk, lp=lp, **meta)
+
+
 def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
                    edge_weight=None, activation: str = "relu",
-                   bias_post=None) -> torch.Tensor:
+                   bias_post=None, probe=None) -> torch.Tensor:
     """Execute one layer per its plan: fusion > ordering > backend
-    (``_execute_layer``, :762-878, f32 branch)."""
+    (``_execute_layer``, :762-878, f32 branch).  Each phase goes through
+    ``_phase`` where the reference records one."""
+    mlp_dims = tuple([int(w.shape[0]) for (w, _) in weights] +
+                     [int(weights[-1][0].shape[1])])
     if _can_fuse(lp, weights, edge_weight):
         w0, b0 = weights[0]
+        fused_dims = (int(w0.shape[0]), int(w0.shape[1]))
         if len(weights) == 1:
             # whole layer fused; an inline b0 is exact post-aggregation
             # here (what _can_fuse admitted), so fold it into the bias
             bias = b0 if bias_post is None else (
                 bias_post if b0 is None else b0 + bias_post)
-            return fused_gcn_layer(lp.blocked, x, w0, bias,
-                                   agg_op=_fused_agg_op(lp), in_deg=g.in_deg,
-                                   backend=lp.backend)
+            return _phase(
+                probe, "fused_agg_combine",
+                lambda: fused_gcn_layer(lp.blocked, x, w0, bias,
+                                        agg_op=_fused_agg_op(lp),
+                                        in_deg=g.in_deg, backend=lp.backend),
+                lp=lp, dims=fused_dims)
         # multi-layer MLP (GIN): fuse aggregation with the FIRST matmul --
         # exact because the aggregation is linear and the interior
         # nonlinearity only applies after that matmul
-        h = fused_gcn_layer(lp.blocked, x, w0, b0, agg_op=_fused_agg_op(lp),
-                            in_deg=g.in_deg, backend=lp.backend)
+        h = _phase(
+            probe, "fused_agg_combine",
+            lambda: fused_gcn_layer(lp.blocked, x, w0, b0,
+                                    agg_op=_fused_agg_op(lp),
+                                    in_deg=g.in_deg, backend=lp.backend),
+            lp=lp, dims=fused_dims)
         h = phases._act(activation)(h)
-        h = phases.combine(h, weights[1:], activation=activation)
+        h = _phase(probe, "combine",
+                   lambda: phases.combine(h, weights[1:],
+                                          activation=activation),
+                   lp=lp, dims=mlp_dims[1:])
     elif lp.order == COMBINE_FIRST:
-        h = phases.combine(x, weights, activation=activation)
-        h = phases.aggregate(g, h, op=lp.agg_op, edge_weight=edge_weight,
-                             include_self=lp.include_self, backend=lp.backend,
-                             layout=lp.agg_layout)
+        h = _phase(probe, "combine",
+                   lambda: phases.combine(x, weights, activation=activation),
+                   lp=lp, dims=mlp_dims)
+        h = _phase(probe, "aggregate",
+                   lambda: phases.aggregate(
+                       g, h, op=lp.agg_op, edge_weight=edge_weight,
+                       include_self=lp.include_self, backend=lp.backend,
+                       layout=lp.agg_layout),
+                   lp=lp, feature_len=int(h.shape[-1]))
     else:
-        h = phases.aggregate(g, x, op=lp.agg_op, edge_weight=edge_weight,
-                             include_self=lp.include_self, backend=lp.backend,
-                             layout=lp.agg_layout)
-        h = phases.combine(h, weights, activation=activation)
+        h = _phase(probe, "aggregate",
+                   lambda: phases.aggregate(
+                       g, x, op=lp.agg_op, edge_weight=edge_weight,
+                       include_self=lp.include_self, backend=lp.backend,
+                       layout=lp.agg_layout),
+                   lp=lp, feature_len=int(x.shape[-1]))
+        h = _phase(probe, "combine",
+                   lambda: phases.combine(h, weights, activation=activation),
+                   lp=lp, dims=mlp_dims)
     if bias_post is not None:
         h = h + bias_post
     return h

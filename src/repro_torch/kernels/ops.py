@@ -28,6 +28,14 @@ def _check_tier(backend: str, x: torch.Tensor) -> None:
     require_device(backend, x.device)
 
 
+def launch_counts() -> dict:
+    """Launches so far of each kernel wrapper, by kernel name.  The counts
+    are Python-side: a CUDA graph's replay moves none of them."""
+    return {"seg_agg": k1.seg_agg.launches,
+            "fused_agg_combine": k2.fused_agg_combine.launches,
+            "flash_attention": k5.flash_attention.launches}
+
+
 def seg_agg_planned(bg, x: torch.Tensor,
                     edge_weight: Optional[torch.Tensor] = None, *,
                     backend: str) -> torch.Tensor:

@@ -68,6 +68,11 @@ class Machine:
         """FLOPs per HBM byte at which compute and memory time are equal."""
         return self.peak_flops / self.hbm_bw
 
+    @property
+    def interconnect_total(self) -> float:
+        """Aggregate interconnect bandwidth (all links), bytes/s."""
+        return self.interconnect_bw * self.interconnect_links
+
     def tile_budget(self) -> int:
         """On-chip bytes one fused tile may claim: half of VMEM on TPU, an
         SM-carveout share per resident CTA on GPU."""

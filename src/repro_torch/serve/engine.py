@@ -7,12 +7,14 @@ Port of ``repro/serve/engine.py``.  The queue/slot/stats loop is
     every attention layer on a card) written into the batch cache at its
     slot, with per-slot cache lengths, so a slot's RoPE positions restart
     at 0 whatever the other slots hold;
-  * the step is one batched ``lm_decode_step`` over every slot;
+  * the step is one batched ``lm_decode_step`` over every slot; on a card
+    it is captured once as a CUDA graph and replayed (``_decode``);
   * greedy or temperature sampling on the host from a seeded numpy rng;
   * a request stops on EOS, on ``max_tokens`` or when its cache is full.
 
 The forward runs under ``torch.inference_mode()``.  The cache is allocated
-once at ``cache_size`` on the model's device.
+once at ``cache_size`` on the model's device, and the decode step writes
+its new rows into it in place.
 """
 
 from __future__ import annotations
@@ -49,19 +51,37 @@ class ServeEngine(SlotServeCore):
     ``attn_impl`` is the prefill's attention path (``nn.attention.
     attention_block(impl=)``): ``"auto"`` runs K5 on a card; ``"torch"``
     runs the plain PyTorch tier on the same device.
+
+    ``decode_graph`` (default True) captures the decode step, on a CUDA
+    model, as one ``torch.cuda.CUDAGraph`` for the engine's (max_batch,
+    cache_size) -- the counterpart of the reference's jitted step -- and
+    replays it every step after.  The first decode step runs eagerly and
+    is the warm-up; the second is captured and replayed.  The graph reads
+    the tokens from a static buffer and the caches and per-slot lengths
+    from the engine's own tensors, which prefill updates in place, and it
+    binds the model's parameters by address: replacing a parameter tensor
+    (rather than copying into it) after the capture is not seen.  Prefill
+    stays eager: its length varies.  ``decode_graph=False``, or a model on
+    the CPU, runs every step eagerly.  A capture or replay that fails
+    raises.  ``decode_captures`` / ``decode_replays`` count both.
     """
 
     def __init__(self, cfg: LMConfig, model: TransformerLM, *,
                  max_batch: int = 8, cache_size: int = 512, seed: int = 0,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", decode_graph: bool = True):
         super().__init__(max_batch)
         self.cfg = cfg
         self.model = model
         self.cache_size = cache_size
         self.attn_impl = attn_impl
         self.rng = np.random.default_rng(seed)
+        self.decode_graph = decode_graph and model.device.type == "cuda"
+        self.decode_captures = 0
+        self.decode_replays = 0
         self._caches = None
         self._length = None
+        self._tokens = None              # (max_batch, 1) static, on device
+        self._graph = None               # (CUDAGraph, its static logits)
         self._last_tokens = np.zeros((max_batch, 1), np.int64)
 
     # ------------------------------------------------------------- internal
@@ -79,6 +99,9 @@ class ServeEngine(SlotServeCore):
                                        self.cache_size, self.model.device)
             # per-slot lengths: slots are fully independent sequences
             self._length = torch.zeros((self.max_batch,), dtype=torch.int32,
+                                       device=self.model.device)
+            self._tokens = torch.zeros((self.max_batch, 1),
+                                       dtype=torch.int64,
                                        device=self.model.device)
 
     @torch.inference_mode()
@@ -108,14 +131,38 @@ class ServeEngine(SlotServeCore):
         p /= p.sum()
         return int(self.rng.choice(len(p), p=p))
 
+    def _decode_body(self) -> torch.Tensor:
+        """One batched decode step over the static token buffer: the new
+        rows land in the caches in place and ``length + 1`` is copied into
+        ``_length``, so every tensor the step touches keeps its storage."""
+        logits, _, length = lm_decode_step(
+            self.model, self._tokens, self._caches, self._length,
+            attn_impl=self.attn_impl)
+        self._length.copy_(length)
+        return logits
+
+    def _decode(self) -> torch.Tensor:
+        """Logits (max_batch, 1, V) of one decode step: eager for the first
+        step (the warm-up) and without ``decode_graph``, captured on the
+        second, replayed after."""
+        self._tokens.copy_(torch.from_numpy(self._last_tokens))
+        if self._graph is None and self.decode_graph and self._steps > 0:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                logits = self._decode_body()
+            self._graph = (graph, logits)
+            self.decode_captures += 1
+        if self._graph is None:
+            return self._decode_body()
+        self._graph[0].replay()
+        self.decode_replays += 1
+        return self._graph[1]
+
     @torch.inference_mode()
     def _step(self) -> List[Request]:
         if not self._active:
             return []
-        toks = torch.as_tensor(self._last_tokens, device=self.model.device)
-        logits, self._caches, self._length = lm_decode_step(
-            self.model, toks, self._caches, self._length,
-            attn_impl=self.attn_impl)
+        logits = self._decode()
         self._steps += 1
         logits_np = logits[:, 0].cpu().numpy()
         lengths = self._length.tolist()

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.config import CORA, reduced_graph
 from repro_torch.configs import gemma2_9b
+from repro_torch.core import plan as tplan
 from repro_torch.core.dataflow import block_graph_arrays
 from repro_torch.graph.datasets import make_features, make_synthetic_graph
 from repro_torch.kernels import flash_attention as k5
@@ -417,3 +418,117 @@ def test_reduced_gemma2_cuda_tier_matches_torch_tier(gpu):
         got = ttr.lm_forward(model, toks)
         assert k5.flash_attention.launches == n + cfg.num_layers
         _close(got, ttr.lm_forward(model, toks, attn_impl="torch"))
+
+
+def _compiled_case(card, name, fused, seed=0):
+    spec, g, x = card
+    m = make_paper_model(name, spec, device="cuda", fused=fused,
+                         generator=torch.Generator().manual_seed(seed))
+    return m, m.plan_for(g), g, x
+
+
+@pytest.mark.parametrize("name", ["gcn", "gin"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_captured_plan_bitwise_equal_eager(card, name, fused):
+    """plan.compile() on the cuda tier: one CUDA graph, every replay equal
+    to the eager forward bit for bit (K1 and K2 have no atomics); the
+    capture records the eager forward's launches, a replay moves no
+    counter."""
+    m, plan, g, x = _compiled_case(card, name, fused)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        eager = plan.run_model(m.tree(), x)
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert launched["fused_agg_combine" if fused else "seg_agg"] == 2
+    fn = tplan.CompiledPlan(plan)
+    outs = [fn(m.tree(), x) for _ in range(5)]
+    counts = ops.launch_counts()
+    outs += [fn(m.tree(), x) for _ in range(3)]
+    assert ops.launch_counts() == counts
+    assert all(torch.equal(o, eager) for o in outs)
+    assert (fn.num_traces, fn.num_replays) == (1, 7)
+    assert fn.capture_launches == launched
+    for i in range(plan.num_layers):       # each layer on its own
+        sub = m.tree()[f"conv{i}"]
+        h = x if i == 0 else torch.relu(want)
+        with torch.no_grad():
+            want = plan.run_layer(sub, h, layer=i)
+        fl = tplan.CompiledPlan(plan, layer=i)
+        assert all(torch.equal(fl(sub, h), want) for _ in range(3))
+
+
+def test_captured_plan_sees_new_parameters_and_donates(card):
+    m, plan, g, x = _compiled_case(card, "sage", False, seed=4)
+    fn = tplan.CompiledPlan(plan)
+    fn(m.tree(), x)
+    first = fn(m.tree(), x)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.mul_(-0.5).add_(0.01)
+        want = plan.run_model(m.tree(), x)
+    got = fn(m.tree(), x)
+    assert torch.equal(got, want) and not torch.equal(got, first)
+    assert fn.num_traces == 1
+    # donate=True hands out the graph's own output buffer: the next replay
+    # overwrites it; without donation every call returns a fresh copy
+    fd = tplan.CompiledPlan(plan, donate=True)
+    fd(m.tree(), x)
+    a = fd(m.tree(), x)
+    assert torch.equal(a, want)
+    assert fd(m.tree(), x).data_ptr() == a.data_ptr()
+    assert fn(m.tree(), x).data_ptr() != got.data_ptr()
+
+
+def test_dynamic_torch_tier_on_card(card):
+    """compile(dynamic=True) on the card's torch tier: a second graph of
+    the same V and E with no recapture, within the f32 band of eager (the
+    torch tier adds with index_add_'s float atomics)."""
+    spec, g, x = card
+    m = make_paper_model("gcn", spec, backend="torch", device="cuda")
+    plan = m.plan_for(g, fused=False)
+    g2 = make_synthetic_graph(spec, seed=9, device="cuda")
+    fn = tplan.CompiledPlan(plan, dynamic=True)
+    with torch.no_grad():
+        want = plan.run_model(m.tree(), x, graph=g2)
+    for graph in (g, g2, g2):
+        got = fn(m.tree(), x, graph)
+    _close(got, want)
+    assert (fn.num_traces, fn.num_replays) == (1, 2)
+
+
+def test_serve_engine_captured_decode_matches_eager(gpu):
+    """ServeEngine on a card captures its decode step once and gives the
+    eager decode's greedy tokens for every request."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = gemma2_9b.reduced()
+    model = ttr.TransformerLM(cfg, device=gpu)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 17, 9, 30)]
+
+    def serve(decode_graph):
+        eng = ServeEngine(cfg, model, max_batch=2, cache_size=64,
+                          decode_graph=decode_graph)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=6))
+        return eng, {r.rid: r.output for r in eng.run()}
+
+    eng, got = serve(True)
+    ref, want = serve(False)
+    assert got == want and all(len(o) == 6 for o in got.values())
+    assert (eng.decode_captures, eng.decode_replays) == \
+        (1, eng.stats()["decode_steps"] - 1)
+    assert (ref.decode_captures, ref.decode_replays) == (0, 0)
+
+
+def test_capture_failure_raises(card, monkeypatch):
+    """A forward that syncs with the host cannot be captured: the capture
+    raises, nothing is cached, and no eager result stands in for it."""
+    from repro_torch.core import phases
+    m, plan, g, x = _compiled_case(card, "gcn", False)
+    mm = phases._mm
+    monkeypatch.setattr(phases, "_mm",
+                        lambda a, b: mm(a, b) * (a.abs().sum().item() >= 0))
+    fn = tplan.CompiledPlan(plan)
+    with pytest.raises(RuntimeError):
+        fn(m.tree(), x)
+    assert fn.num_traces == 1 and not fn._traces

@@ -164,7 +164,16 @@ def test_unported_options_raise(kw):
 
 
 def test_compile_raises():
-    plan = tplan.build_plan(TG, PAPER_MODELS["gcn"], TSPEC.feature_len,
-                            TSPEC.num_classes, device="cpu")
-    with pytest.raises(NotImplementedError):
-        plan.compile()
+    """compile() refuses what the reference refuses: a runtime graph for a
+    fused plan (its blocked layout is of the plan's own graph), dynamic
+    with layer=, and a runtime graph passed to a static callable."""
+    args = (PAPER_MODELS["gcn"], TSPEC.feature_len, TSPEC.num_classes)
+    fused = tplan.build_plan(TG, *args, device="cpu", fused=True)
+    with pytest.raises(ValueError, match="blocked layout"):
+        fused.compile(dynamic=True)
+    plan = tplan.build_plan(TG, *args, device="cpu")
+    with pytest.raises(ValueError, match="layer="):
+        plan.compile(dynamic=True, layer=0)
+    with pytest.raises(ValueError, match="static"):
+        plan.compile()(make_paper_model("gcn", TSPEC, device="cpu").tree(),
+                       TX, TG)
