@@ -12,7 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                 prints ptxas's registers and spills per kernel;
                 cuobjdump -sass shows HGMMA instructions with TF32
                 operands in every instance of K2's fused kernel and of
-                K5's f32 kernel.
+                K5's f32 kernel, and fewer in each bf16-W instance of K2
+                than in its f32 twin (two TF32 products, not three).
   3. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, at the shapes the main path gives it on Cora,
                 Citeseer and Reddit, with the tolerance printed; times of
@@ -22,7 +23,13 @@ Phases, each printing its own lines; any failure exits non-zero:
                 which a control with one TF32 product instead of three
                 must fail, and timed beside the unfused composition
                 (seg_agg, then torch.matmul) and with its indices read
-                from L2 instead of staged.
+                from L2 instead of staged.  Then K1 in bf16 at Reddit's
+                bf16 shapes and K2 with a bf16 W -- (bf16 x, bf16 W) and
+                the (f32 x, bf16 W) pair of a fused dedup layer -- against
+                their plain versions: the bf16 band, one bf16 ulp a row,
+                repeat launches bitwise; times beside their bounds at 2
+                bytes an element, torch.sparse.mm on a bf16 CSR matrix,
+                and for K2 seg_agg then torch.mm(out_dtype=float32).
   4. main    -- the paper's GCN, SAGE and GIN (2 layers, hidden 128) at
                 full width on Reddit, unfused and fused, through
                 GCNModel with backend="auto"; launch counts of both
@@ -69,8 +76,18 @@ Phases, each printing its own lines; any failure exits non-zero:
                 chiprun_out/reports/ as JSON and markdown; ms per phase,
                 its share and bound class (H100 and the paper's V100), the
                 compiled speedup per layer; a PageRank row on Reddit.
+ 10. decisions -- (right after phase 9) the planner's other decisions for
+                the six on Reddit: dtype="bf16" (K1/K2 bf16 launches,
+                logits against the torch tier in bf16), "int8-agg" (f32
+                kernels, the int8-agg band), reorder="degree" (natural
+                order, the f32 band against the unreordered plan),
+                dedup="pairs" (the reference's pair count, logits bit for
+                bit the naive plan's; with bf16 and fused layers the mixed
+                K2 pair), and "auto" for all three, which must resolve to
+                bf16 / none / none; eager and compiled ms and peak memory
+                beside phase 4's f32 forward.
 
-The phases run in the order 1-4, 8, 9, 5-7.  The last three lines are nvidia-smi's name and power limit, one JSON
+The phases run in the order 1-4, 8, 9, 10, 5-7.  The last three lines are nvidia-smi's name and power limit, one JSON
 object per kernel ({"kernels": [...]}) and the result line.  The full
 per-shape table is also written to chiprun_out/chip_smoke.json.
 """
@@ -94,6 +111,8 @@ HBM_BW = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 TF32X3_FLOPS = 495e12 / 3
+#: K2's product with a bf16 W: two TF32 products (W's lo part is 0)
+TF32X2_FLOPS = 495e12 / 2
 #: the bf16 band (tests/tolerance.py): K5 and its plain version both
 #: compute in f32 and round once to bf16, so they differ by about one bf16
 #: ulp of the largest magnitude
@@ -148,6 +167,30 @@ SCALE = 10
 #: phase 8: calls of each compiled forward (the first captures, the rest
 #: replay), also the count each time is averaged over
 COMPILED_CALLS = 20
+#: phase 3, K1 and K2 with a bf16 output, per row: the largest error over
+#: that row's largest magnitude.  Kernel and plain version round an f32
+#: sum once to bf16, and the two f32 sums differ by a few f32 ulps (other
+#: addition orders; 3xTF32 against cuBLAS), so an element rounds to the
+#: same bf16 or to its neighbour: at most one bf16 ulp, 2^-7 = 7.8e-3 of
+#: the row's largest magnitude
+AGG_BF16_ROW_LIMIT = 1e-2
+#: the int8-agg band (tests/tolerance.py)
+INT8_BAND = 2e-2
+#: phase 10: the pairs dedup_layout_for_graph matches on Reddit (seed 0) and
+#: the edges it removes -- the reference's count on the same graph -- and
+#: what dtype / reorder / dedup "auto" resolve to there on the H100
+REDDIT_DEDUP = (13647, 89344)
+REDDIT_AUTO = ("bf16", "none", "none")
+#: phase 10's cases: (name, build_plan decisions, fused layers only)
+DECISION_CASES = (
+    ("bf16", {"dtype": "bf16"}, False),
+    ("int8-agg", {"dtype": "int8-agg"}, False),
+    ("degree", {"reorder": "degree"}, False),
+    ("pairs", {"dedup": "pairs"}, False),
+    ("bf16+pairs", {"dtype": "bf16", "dedup": "pairs"}, True),
+    ("auto", {"dtype": "auto", "reorder": "auto", "dedup": "auto"}, False))
+#: phase 10: calls each compiled decision plan is timed over
+DECISION_CALLS = 5
 #: phase 9: PageRank power iterations timed on Reddit
 PAGERANK_ITERS = 20
 
@@ -228,6 +271,45 @@ def check_sass(name: str = "fused_agg_combine",
     if not counts or not all(counts.values()):
         fail(f"{name}: an instance of {kernel} has no TF32 HGMMA ({counts})")
     return counts
+
+
+def check_k2_pairs(counts: dict) -> dict:
+    """K2's instances by (x, W) element type: a bf16 W is exact in TF32,
+    so each bf16-W instance must hold fewer TF32 HGMMAs than the
+    (f32, f32) instance of the same load width and wgmma width (two
+    products per k8 step, not three).  ``counts`` is ``check_sass``'s
+    {instance: HGMMA count}.  Returns {pair: sorted counts}."""
+    import re
+    # the mangled template arguments: f (float) or 13__nv_bfloat16, the
+    # second written as a substitution (S1_) when it repeats the first
+    pat = re.compile(r"fused_kernelI(f|13__nv_bfloat16)"
+                     r"(f|13__nv_bfloat16|S\d*_)Li(\d+)ELi(\d+)E")
+    short = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    by_pair, f32 = {}, {}
+    for fn, n in counts.items():
+        m = pat.search(fn)
+        if not m:
+            fail(f"fused_agg_combine: cannot read the instance {fn}")
+        tx = short[m.group(1)]
+        tw = tx if m.group(2).startswith("S") else short[m.group(2)]
+        pair = f"{tx}/{tw}"
+        by_pair.setdefault(pair, []).append((int(m.group(3)),
+                                             int(m.group(4)), n))
+        if pair == "f32/f32":
+            f32[(int(m.group(3)), int(m.group(4)))] = n
+    out = {p: sorted(n for _, _, n in v) for p, v in by_pair.items()}
+    print("[build] fused_agg_combine TF32 HGMMAs per instance by (x, W): "
+          + "; ".join(f"{p}: {v}" for p, v in sorted(out.items())),
+          flush=True)
+    if sorted(out) != ["bf16/bf16", "f32/bf16", "f32/f32"]:
+        fail(f"fused_agg_combine: instances {sorted(out)}, expected the "
+             f"three (x, W) pairs")
+    for pair in ("bf16/bf16", "f32/bf16"):
+        for vec, nt, n in by_pair[pair]:
+            if not 0 < n < f32.get((vec, nt), 0):
+                fail(f"fused_agg_combine {pair} VEC={vec} NT={nt}: {n} TF32 "
+                     f"HGMMAs against {f32.get((vec, nt))} with an f32 W")
+    return out
 
 
 def slice_sweep(x, bg, f, kern) -> dict:
@@ -404,6 +486,134 @@ def check_kernels(graphs, models):
                     fail(f"{kname} on {gname} {f_in}->{f_out}: the check "
                          f"cannot see one TF32 product ({c_row:.3e}, "
                          f"{c_fro:.3e})")
+    return records
+
+
+def check_kernels_bf16(g, spec):
+    """Phase 3 in bf16: K1 at Reddit's bf16 shapes (gcn/sage aggregate at
+    128 and 41, gin at 602 and 128) over the plans' unfused layout, K2
+    with bf16 x and W at the fused layers' shapes (602 -> 128, 128 -> 41,
+    128 -> 128) over a bf16 plan's own layouts, and the (f32 x, bf16 W)
+    pair at 602 -> 128 over a bf16 dedup plan's level-2 layout, from the
+    V + P rows of [x ; partials].  Fails unless each is within the bf16
+    band and AGG_BF16_ROW_LIMIT a row of its plain version and a second
+    launch equals the first bit for bit.  Returns one record per shape."""
+    import torch
+    from repro_torch.kernels import fused_agg_combine as k2
+    from repro_torch.kernels import seg_agg as k1
+    from repro_torch.models.gcn import make_paper_model
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    plans = {name: make_paper_model(name, spec, device="cuda",
+                                    fused=True).plan_for(g, dtype="bf16")
+             for name in ("gcn", "gin")}
+    ded = make_paper_model("gcn", spec, device="cuda", fused=True).plan_for(
+        g, dtype="bf16", dedup="pairs").dedup_layout
+    agg_bg = plans["gcn"].layers[0].agg_layout
+    v, nnz = g.num_vertices, g.num_edges
+    adj = torch.sparse_csr_tensor(g.row_ptr, g.src,
+                                  torch.ones(nnz, device="cuda", dtype=bf16),
+                                  size=(v, v))
+    todo = [("seg_agg_bf16", "bf16", 128, 128, agg_bg, v, nnz),
+            ("seg_agg_bf16", "bf16", 41, 41, agg_bg, v, nnz),
+            ("seg_agg_bf16", "bf16", 602, 602, agg_bg, v, nnz),
+            ("fused_agg_combine_bf16", "bf16", 602, 128,
+             plans["gcn"].layers[0].blocked, v, nnz),
+            ("fused_agg_combine_bf16", "bf16", 128, 41,
+             plans["gcn"].layers[1].blocked, v, nnz),
+            ("fused_agg_combine_bf16", "bf16", 128, 128,
+             plans["gin"].layers[1].blocked, v, nnz),
+            ("fused_agg_combine_bf16", "mixed", 602, 128, ded.blocked,
+             v + ded.num_pairs, ded.num_edges2)]
+    records = []
+    for kname, pair, f_in, f_out, bg, rows, slots in todo:
+        x = torch.randn((rows, f_in), generator=gen, device="cuda")
+        if pair == "bf16":
+            x = x.to(bf16)
+        note = None
+        if kname == "seg_agg_bf16":
+            args = (x, bg.src, bg.dstl, bg.mask, None)
+            kern = lambda: k1.seg_agg(*args, tile_m=bg.tile_m)  # noqa
+            plain = lambda: k1.seg_agg_plain(*args, tile_m=bg.tile_m)  # noqa
+            nbytes = (x.numel() + bg.nblocks * bg.tile_m * f_out) * 2 \
+                + 3 * bg.src.numel() * 4
+            b_ms, b_by = bound(nbytes, slots * f_in)
+        else:
+            w = (torch.randn((f_in, f_out), generator=gen, device="cuda")
+                 * (2.0 / f_in) ** 0.5).to(bf16)
+            args = (x, bg.src, bg.dstl, bg.mask, w)
+            kern = lambda: k2.fused_agg_combine(  # noqa: E731
+                *args, tile_m=bg.tile_m)
+            plain = lambda: k2.fused_agg_combine_plain(  # noqa: E731
+                *args, tile_m=bg.tile_m)
+            nbytes = x.numel() * x.element_size() + (
+                w.numel() + bg.nblocks * bg.tile_m * f_out) * 2 \
+                + 3 * bg.src.numel() * 4
+            prod = 2 * v * f_in * f_out
+            b_ms, b_by = bound(nbytes, slots * f_in
+                               + prod * F32_FLOPS / TF32X2_FLOPS)
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        tol = BF16_BAND * max(1.0, out_p.float().abs().max().item())
+        row, fro = rel_errs(out_k, out_p)
+        ok = bool(torch.isfinite(out_k).all().item()) and err <= tol \
+            and row <= AGG_BF16_ROW_LIMIT and out_k.dtype == bf16
+        same = torch.equal(out_k, kern())
+        del out_k
+        lib_ms = unfused_ms = None
+        if kname == "seg_agg_bf16":
+            try:      # a yardstick only: nothing in the port calls it
+                lerr = (torch.sparse.mm(adj, x).float()
+                        - out_p[:v].float()).abs().max().item()
+                if lerr <= tol:
+                    lib_ms = time_ms(lambda: torch.sparse.mm(adj, x), 10)
+                    note = f"torch.sparse.mm, bf16 CSR, max_abs_err {lerr:.3e}"
+                else:
+                    note = f"none: torch.sparse.mm differs by {lerr:.3e}"
+            except RuntimeError as e:
+                note = f"none: torch.sparse.mm on a bf16 CSR matrix raised " \
+                    f"{str(e).splitlines()[0][:120]}"
+        else:
+            note = "none: no single call"
+            if pair == "bf16":
+                # the unfused composition: seg_agg in bf16, then the product
+                # with an f32 accumulator
+                unfused_ms = time_ms(lambda: torch.mm(k1.seg_agg(
+                    x, agg_bg.src, agg_bg.dstl, agg_bg.mask, None,
+                    tile_m=agg_bg.tile_m)[:v], w, out_dtype=torch.float32),
+                    10)
+        del out_p
+        rec = {"name": kname, "pair": pair, "graph": "reddit", "f_in": f_in,
+               "f_out": f_out, "tile_m": bg.tile_m, "nblocks": bg.nblocks,
+               "emax": bg.emax, "rows": rows, "slots": slots,
+               "max_abs_err": err, "tol": tol, "row_rel_err": row,
+               "fro_rel_err": fro, "repeat_equal": same,
+               "ms": time_ms(kern, 10), "plain_ms": time_ms(plain, 2),
+               "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms, "library": note,
+               "unfused_ms": unfused_ms}
+        rec.update(ratios(rec))
+        records.append(rec)
+        print(f"[kernels] {kname:22s} {pair:5s} reddit {f_in:4d}->"
+              f"{f_out:<4d} tile_m={bg.tile_m} layout={bg.nblocks}x{bg.emax} "
+              f"rows={rows} max_abs_err={err:.3e} tol={tol:.3e} row_rel_err="
+              f"{row:.3e} (limit {AGG_BF16_ROW_LIMIT:.0e}) fro_rel_err="
+              f"{fro:.3e} repeat_equal={same} ms={rec['ms']:.4f} plain_ms="
+              f"{rec['plain_ms']:.4f} library_ms={lib_ms} [{note}]"
+              + (f" seg_agg+torch.mm(out_dtype=f32)_ms={unfused_ms:.4f}"
+                 if unfused_ms is not None else "")
+              + f" bound_ms={b_ms:.4f} ({b_by}; {nbytes} B) frac_of_bound="
+              f"{rec['frac_of_bound']:.4f}", flush=True)
+        if not ok:
+            fail(f"{kname} {pair} {f_in}->{f_out}: kernel and plain version "
+                 f"differ by {err:.3e} (tolerance {tol:.3e}) or a row by "
+                 f"{row:.3e} (limit {AGG_BF16_ROW_LIMIT:.0e})")
+        if not same:
+            fail(f"{kname} {pair} {f_in}->{f_out}: two launches on the same "
+                 f"input differ")
+        del x
     return records
 
 
@@ -643,6 +853,129 @@ def characterize(models, g, x):
     if not abs(mass - 1.0) < 1e-3:
         fail(f"pagerank ranks sum to {mass}, expected 1")
     return out
+
+
+def drive_decisions(models, g, x, forwards):
+    """Phase 10: the planner's other decisions for the six Reddit models,
+    through plan_for(g, ...) on the cuda tier, each with the launch counts
+    zeroed just before its forward and read just after (DECISION_CASES).
+    Fails unless every case launches its kernels (the bf16 instances for a
+    bf16 plan, the mixed K2 pair for a fused bf16 dedup plan, the f32 ones
+    otherwise), its logits are finite and within its band of the torch
+    tier's (bf16, int8-agg) or of the naive plan's (degree: f32 band;
+    pairs: bit for bit), the dedup layout has the reference's pairs,
+    "auto" resolves to REDDIT_AUTO and gives the bf16 plan's logits bit
+    for bit, and its compiled forward equals its eager one bit for bit.
+    Returns the measurements and the launches of each kernel."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    out, launches = {}, {}
+    for (name, fused), m in models.items():
+        key = f"{name}_{'fused' if fused else 'unfused'}"
+        kern = "fused_agg_combine" if fused else "seg_agg"
+        params = m.tree()
+        with torch.inference_mode():
+            naive = m.plan_for(g).run_model(params, x)
+        results = {}
+        for case, kw, fused_only in DECISION_CASES:
+            if fused_only and not fused:
+                continue
+            t0 = time.perf_counter()
+            plan = m.plan_for(g, **kw)
+            build_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            with torch.inference_mode():
+                got = plan.run_model(params, x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            bf16 = plan.dtype == "bf16"
+            want_counts = {kern: 2, kern + "_bf16": 2 if bf16 and (
+                fused or plan.dedup == "none") else 0}
+            if fused and bf16 and plan.dedup == "pairs":
+                want_counts["fused_agg_combine_mixed"] = 2
+            note = ""
+            with torch.inference_mode():
+                if plan.dtype in ("bf16", "int8-agg") and case != "auto":
+                    ref = m(g, x, plan=m.plan_for(g, backend="torch", **kw))
+                    band = BF16_BAND if bf16 else INT8_BAND
+                    err = (got.float() - ref.float()).abs().max().item()
+                    tol = band * max(1.0, ref.float().abs().max().item())
+                    note = f"vs torch tier {plan.dtype}"
+                    del ref
+                elif case == "degree":
+                    err, tol = max_err(got, naive)
+                    note = "natural order vs unreordered cuda plan"
+                elif case == "pairs":
+                    err, tol = (0.0 if torch.equal(got, naive) else
+                                float("inf")), 0.0
+                    note = "bitwise vs naive cuda plan"
+                else:                                  # auto
+                    err, tol = (0.0 if torch.equal(got, results["bf16"][
+                        "logits"]) else float("inf")), 0.0
+                    note = "bitwise vs the bf16 plan"
+            ok = (tuple(got.shape) == tuple(naive.shape)
+                  and bool(torch.isfinite(got.float()).all().item())
+                  and err <= tol
+                  and all(counts[k] == n for k, n in want_counts.items()))
+            pairs = None
+            if plan.dedup == "pairs":
+                lay = plan.dedup_layout
+                pairs = (lay.num_pairs, lay.edges_removed)
+            fn = plan.compile()
+            with torch.inference_mode():
+                ms = time_ms(lambda: plan.run_model(params, x), 3)
+                replays_equal = all(torch.equal(fn(params, x), got)
+                                    for _ in range(2))
+                graph_ms = time_ms(lambda: fn(params, x), DECISION_CALLS)
+            traces = fn.num_traces
+            plan._compiled.clear()
+            del fn
+            resolved = (plan.dtype, plan.reorder, plan.dedup)
+            results[case] = {
+                "resolved": resolved, "build_s": build_s, "eager_ms": ms,
+                "graph_ms": graph_ms, "peak_bytes": peak,
+                "launches": counts, "max_abs_err": err, "tol": tol,
+                "pairs": pairs, "replays_equal": replays_equal,
+                "logits": got if case == "bf16" else None}
+            print(f"[decisions] {name:4s} fused={fused!s:5s} {case:10s} -> "
+                  f"dtype={resolved[0]} reorder={resolved[1]} dedup="
+                  f"{resolved[2]}"
+                  + (f" (pairs {pairs[0]}, edges removed {pairs[1]})"
+                     if pairs else "")
+                  + f"; launches {counts}; {note} max_abs_err={err:.3e} "
+                  f"tol={tol:.3e}; eager {ms:.3f} ms, compiled {graph_ms:.3f}"
+                  f" ms (replays equal eager: {replays_equal}), f32 forward "
+                  f"{forwards[key]:.3f} ms; peak above the inputs "
+                  f"{peak / 2**30:.3f} GiB; planned in {build_s:.1f} s",
+                  flush=True)
+            if not ok:
+                fail(f"{key} {case}: launches {counts} (expected "
+                     f"{want_counts}), logits off by {err:.3e} (tolerance "
+                     f"{tol:.3e}) or not finite")
+            if not replays_equal or traces != 1:
+                fail(f"{key} {case}: the compiled forward differs from eager "
+                     f"({traces} captures)")
+            if pairs is not None and pairs != REDDIT_DEDUP:
+                fail(f"{key} {case}: {pairs[0]} pairs and {pairs[1]} edges "
+                     f"removed; the reference matches {REDDIT_DEDUP[0]} and "
+                     f"removes {REDDIT_DEDUP[1]} on this graph")
+            if case == "auto" and resolved != REDDIT_AUTO:
+                fail(f"{key}: auto resolved to {resolved}, the reference "
+                     f"resolves {REDDIT_AUTO}")
+            del got
+        del naive
+        for r in results.values():
+            r.pop("logits")
+        out[key] = results
+        torch.cuda.empty_cache()
+    return out, launches
 
 
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
@@ -1193,6 +1526,7 @@ def main() -> None:
                   f"{arrives} places (C7519)", flush=True)
     sass = {"fused_agg_combine": check_sass(),
             "flash_attention": check_sass("flash_attention", "tf32x3_kernel")}
+    sass["fused_agg_combine_pairs"] = check_k2_pairs(sass["fused_agg_combine"])
 
     # -- 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1212,6 +1546,8 @@ def main() -> None:
         "reddit": make_paper_model("gcn", spec_red, device="cuda")}
     records = check_kernels(graphs, layout_models)
     del layout_models
+    records += check_kernels_bf16(g_red, spec_red)
+    clear_plan_cache()
 
     # -- 4. the main path at full width on Reddit
     models, logits, counts, peak = drive_main_path(g_red, x_red, spec_red)
@@ -1258,6 +1594,12 @@ def main() -> None:
     reports = characterize(models, g_red, x_red)
     print(f"[report] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # -- 10. the planner's other decisions on the same models
+    t0 = time.perf_counter()
+    decisions, dlaunches = drive_decisions(models, g_red, x_red, forwards)
+    print(f"[decisions] launches over the phase {dlaunches}; phase took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     del models, g_red, x_red
     clear_plan_cache()          # drops the plans' layouts and CUDA graphs
     torch.cuda.empty_cache()
@@ -1281,24 +1623,31 @@ def main() -> None:
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
-         "forwards_ms": forwards, "compiled": compiled, "reports": reports},
+         "forwards_ms": forwards, "compiled": compiled, "reports": reports,
+         "decisions": decisions, "decision_launches": dlaunches},
         indent=1))
 
-    # one line per kernel: the first record of each at Reddit's main shape
-    main_shape = {"seg_agg": (128, 128), "fused_agg_combine": (602, 128)}
-    source = {"seg_agg": ("src/repro_torch/csrc/seg_agg.cu",
-                          "src/repro/kernels/seg_agg.py:74"),
-              "fused_agg_combine": (
-                  "src/repro_torch/csrc/fused_agg_combine.cu",
-                  "src/repro/kernels/fused_agg_combine.py:73")}
+    # one line per kernel: the first record of each at Reddit's main shape;
+    # the f32 instances' launches are phase 4's, the bf16 ones phase 10's
+    main_shape = {"seg_agg": (128, 128), "seg_agg_bf16": (128, 128),
+                  "fused_agg_combine": (602, 128),
+                  "fused_agg_combine_bf16": (602, 128)}
+    k1_src = ("src/repro_torch/csrc/seg_agg.cu",
+              "src/repro/kernels/seg_agg.py:74")
+    k2_src = ("src/repro_torch/csrc/fused_agg_combine.cu",
+              "src/repro/kernels/fused_agg_combine.py:73")
+    source = {"seg_agg": k1_src, "seg_agg_bf16": k1_src,
+              "fused_agg_combine": k2_src, "fused_agg_combine_bf16": k2_src}
     kernels = []
     for kname, (src, replaces) in source.items():
         rec = next(r for r in records if r["name"] == kname and
-                   r["graph"] == "reddit" and
-                   (r["f_in"], r["f_out"]) == main_shape[kname])
+                   r["graph"] == "reddit" and r.get("pair", "bf16") == "bf16"
+                   and (r["f_in"], r["f_out"]) == main_shape[kname])
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[kname],
+            "replaces": replaces,
+            "launches": counts[kname] if kname in counts
+            else dlaunches[kname],
             "max_abs_err": max(r["max_abs_err"] for r in records
                                if r["name"] == kname),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

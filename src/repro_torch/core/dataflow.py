@@ -133,9 +133,13 @@ def fused_gcn_layer(bg: BlockedGraph, x: torch.Tensor, w: torch.Tensor,
     Semantics: combine(aggregate(x)) with a single matmul.  The blocked
     neighbour sum and ``@ w`` run fused (``kernels.ops.fused_agg_combine``);
     the self term and the mean normalization are linear and applied after
-    the product, outside the kernel, as in the reference (:200-211):
+    the product, outside the kernel, as in the reference (:196-211):
     ``agg_op`` is "mean" (self + reciprocal of in_deg+1), "sum_self" or
-    "sum".  x: (V, F_in); w: (F_in, F_out).
+    "sum".  x: (R, F_in), R >= V (a dedup plan passes ``[x ; partials]``;
+    the self term reads the first V rows); w: (F_in, F_out).  With reduced
+    operands the self term is ``phases._mm``'s f32 accumulator and the
+    mean runs in the dtype the two promote to, as the reference's
+    ``norm_dtype``.
     """
     from repro_torch.core.phases import _mm
     from repro_torch.kernels import ops as kops
@@ -145,8 +149,10 @@ def fused_gcn_layer(bg: BlockedGraph, x: torch.Tensor, w: torch.Tensor,
     if agg_op == "mean":
         if in_deg is None:
             raise ValueError("agg_op='mean' needs in_deg")
-        out = (out + _mm(x[: bg.num_vertices], w)) * (
-            1.0 / (in_deg.to(out.dtype) + 1.0))[:, None]
+        self_term = _mm(x[: bg.num_vertices], w)
+        norm_dtype = torch.promote_types(out.dtype, self_term.dtype)
+        out = (out.to(norm_dtype) + self_term) * (
+            1.0 / (in_deg.to(norm_dtype) + 1.0))[:, None]
     elif agg_op == "sum_self":
         out = out + _mm(x[: bg.num_vertices], w)
     if bias is not None:

@@ -3,15 +3,22 @@
   * **Aggregation** (``aggregate``, :71) -- per-vertex reduce over
     in-neighbour rows of a destination-sorted ``Graph``: sum, mean or max.
     On the ``cuda`` tier, sum and mean go through the plan-owned blocked
-    layout to the ``seg_agg`` kernel (``kernels.ops.seg_agg_planned``); the
-    ``torch`` tier gathers and ``index_add_``s edge chunk by edge chunk.
-    Max has no kernel and runs plain PyTorch on either tier, as the
-    reference runs ``segment_max`` on every tier.
+    layout to the ``seg_agg`` kernel (``kernels.ops.seg_agg_planned``), or,
+    on a graph no plan laid out, through the slow host-regrouping
+    ``kernels.ops.seg_agg``; the ``torch`` tier gathers and
+    ``index_add_``s edge chunk by edge chunk.  Max has no kernel and runs
+    plain PyTorch on either tier, as the reference runs ``segment_max`` on
+    every tier.  With a ``graph.dedup.DedupLayout`` sum and mean run
+    two-level (pair partials, then the shortened edge list).
   * **Combination** (``combine``, :208) -- the dense per-vertex MLP.
   * ``phase_ordered_layer`` (:247) -- one layer in an explicit or planned
     phase order, through the plan.
 
-Only f32 is ported: ``_mm`` is the plain ``@``.
+Reduced precision: bf16 operands are stored in bf16 and accumulated in
+f32 -- ``_mm`` returns the f32 accumulator, the torch tier's aggregation
+upcasts the gathered rows, the ``seg_agg`` kernel folds in f32 and rounds
+once.  ``quantize_int8`` is the int8-agg plans' fake quantization.  Every
+cast is guarded, so f32 operands take the f32 path unchanged.
 """
 
 from __future__ import annotations
@@ -30,8 +37,28 @@ EDGE_CHUNK_BYTES = 1 << 28
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The combination matmul (``phases._mm``, :35), f32 only."""
-    return a @ b
+    """The combination matmul (``phases._mm``, :35).  f32 x f32 is the
+    plain ``@``; any reduced operand gives the f32 accumulator: on a card
+    a bf16 x bf16 product runs ``torch.mm(..., out_dtype=float32)``,
+    elsewhere (and for a mixed pair) both operands are upcast, which is
+    exact -- a bf16 x bf16 product fits an f32 mantissa."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def quantize_int8(x: torch.Tensor) -> torch.Tensor:
+    """Per-row symmetric int8 fake quantization of an aggregation operand
+    (``quantize_int8``, :48): each row scaled by ``max|row| / 127`` (a zero
+    row by 1), rounded half to even onto the int8 grid, and returned
+    dequantized in f32."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    return q * scale
 
 
 def _edge_chunks(num_edges: int, width: int):
@@ -56,23 +83,35 @@ def aggregate(g: Graph, x: torch.Tensor, op: str = "mean",
       edge_weight: optional (E,) per-edge scalar.
       edge_mask: optional (E,) 1/0 mask for padded edge lists.
       include_self: add the vertex's own row to the reduction.
-      backend: "torch" (None means torch) or "cuda".  The ``cuda`` tier
-        needs ``layout``, the plan-owned ``core.dataflow.BlockedGraph``.
-      layout: see ``backend``.
-      dedup: not ported; anything but None raises.
+      backend: "torch" (None means torch) or "cuda".
+      layout: the plan-owned ``core.dataflow.BlockedGraph`` the ``cuda``
+        tier aggregates over; without one the cuda tier regroups the edges
+        on the host on every call (``kernels.ops.seg_agg``, the slow path
+        for graphs no plan laid out).
+      dedup: a plan-owned ``graph.dedup.DedupLayout``.  For sum and mean
+        without edge weights, aggregation runs two-level: the pair
+        partials once (in f32), then the shortened edge list over
+        ``[x ; partials]``, through the ``seg_agg`` kernel on the cuda
+        tier (over ``dedup.blocked``, or regrouped on the host per call
+        when the layout has no blocking attached).  In f32 the result equals the naive fold bit for bit wherever the
+        fold runs in edge order.
     """
     if op not in AGGREGATORS:
         raise ValueError(f"unknown aggregation {op!r}; expected {AGGREGATORS}")
     if backend not in (None, TORCH, CUDA):
         raise ValueError(f"backend must be resolved to 'torch' or 'cuda'; "
                          f"got {backend!r}")
-    if dedup is not None:
-        raise NotImplementedError("dedup= (two-level redundancy-eliminated "
-                                  "aggregation) is not ported yet")
+    if dedup is not None and not hasattr(dedup, "pair_left"):
+        raise TypeError(f"dedup must be a graph.dedup.DedupLayout or None; "
+                        f"got {type(dedup).__name__}")
     v, f = x.shape
     w = edge_weight
     if edge_mask is not None:
         w = edge_mask if w is None else w * edge_mask
+
+    if dedup is not None and dedup.num_pairs > 0 and op in ("sum", "mean") \
+            and w is None:
+        return _finish(g, _dedup_sum(dedup, x, backend), x, op, include_self)
 
     if op == "max":
         out = torch.full_like(x, -torch.inf)
@@ -86,21 +125,61 @@ def aggregate(g: Graph, x: torch.Tensor, op: str = "mean",
         return torch.where(torch.isfinite(out), out, 0.0)
 
     if backend == CUDA:
-        if layout is None:
-            raise ValueError("the cuda tier aggregates over a plan-owned "
-                             "blocked layout; pass layout= (plans built by "
-                             "build_plan / plan_for_conv / plan_for_phases "
-                             "carry one in LayerPlan.agg_layout)")
         from repro_torch.kernels import ops as kops
-        summed = kops.seg_agg_planned(layout, x, w, backend=CUDA)
-    else:
-        summed = torch.zeros_like(x)
-        for sl in _edge_chunks(g.num_edges, f):
-            rows = x[g.src[sl].long()]
+        if layout is not None:
+            summed = kops.seg_agg_planned(layout, x, w, backend=CUDA)
+        else:
+            rows = x[g.src.long()]
             if w is not None:
-                rows = rows * w[sl][:, None].to(rows.dtype)
-            summed.index_add_(0, g.dst[sl].long(), rows)
+                rows = rows * w[:, None].to(rows.dtype)
+            summed = kops.seg_agg(rows, g.dst, v, backend=CUDA)
+    else:
+        summed = _segment_sum(x, g.src, g.dst, v, w)
+    return _finish(g, summed, x, op, include_self)
 
+
+def _segment_sum(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                 v: int, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sum_e w_e x[src_e]`` into row ``dst_e``, gathered and
+    ``index_add_``ed edge chunk by edge chunk.  Reduced rows are upcast
+    after the gather (and after the weight, applied in x's dtype, as XLA's
+    branch does): the sum is f32 (``aggregate``, :151-160)."""
+    f = x.shape[1]
+    summed = torch.zeros((v, f), dtype=torch.float32, device=x.device)
+    for sl in _edge_chunks(int(src.shape[0]), f):
+        rows = x[src[sl].long()]
+        if w is not None:
+            rows = rows * w[sl][:, None].to(rows.dtype)
+        if rows.dtype != torch.float32:
+            rows = rows.float()
+        summed.index_add_(0, dst[sl].long(), rows)
+    return summed
+
+
+def _dedup_sum(dedup, x: torch.Tensor, backend) -> torch.Tensor:
+    """The two-level sum (``aggregate``, :118-136): x cast to f32 first
+    (exact), each matched pair's partial added once, then the level-2
+    edges over ``[x ; partials]`` -- on the cuda tier the ``seg_agg``
+    kernel, over ``dedup.blocked`` or, for a layout no plan blocked,
+    through the host-regrouping ``kernels.ops.seg_agg``; ``_segment_sum``
+    on the torch tier."""
+    xf = x if x.dtype == torch.float32 else x.float()
+    partials = xf[dedup.pair_left.long()] + xf[dedup.pair_right.long()]
+    xp = torch.cat([xf, partials], dim=0)
+    if backend == CUDA:
+        from repro_torch.kernels import ops as kops
+        if dedup.blocked is not None:
+            return kops.seg_agg_planned(dedup.blocked, xp, None,
+                                        backend=CUDA)
+        return kops.seg_agg(xp[dedup.src2.long()], dedup.dst2, x.shape[0],
+                            backend=CUDA)
+    return _segment_sum(xp, dedup.src2, dedup.dst2, x.shape[0])
+
+
+def _finish(g: Graph, summed: torch.Tensor, x: torch.Tensor, op: str,
+            include_self: bool) -> torch.Tensor:
+    """The self term and the mean's (V, 1) reciprocal multiply, in the
+    dtype the sum and x promote to."""
     if include_self:
         summed = summed + x
     if op == "mean":

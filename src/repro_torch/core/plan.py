@@ -12,14 +12,27 @@ Decided ONCE per (graph, model, machine) and replayed on every forward:
     it once (``_blocked_for``, cached per graph).  GIN fuses aggregation
     with its FIRST matmul.  Every ``cuda`` layer also owns the layout its
     unfused aggregation runs on (``LayerPlan.agg_layout``).
+  * **Locality reordering (paper F4, §5.1-1).**  ``reorder="degree"``
+    (or "auto", priced by ``graph.reorder.choose_reorder``) renumbers the
+    vertices once at build time; the forward permutes the features at
+    ingress and the logits back at egress, so callers see the natural
+    vertex order.
+  * **Execution dtype.**  "f32"; "bf16" (bf16 storage at every phase
+    boundary, f32 accumulation: the kernels' bf16 instances on the cuda
+    tier); "int8-agg" (the aggregation operand fake-quantized per row,
+    ``phases.quantize_int8``); "auto" priced by
+    ``profile.machine.choose_dtype``.
+  * **Pair dedup.**  ``dedup="pairs"`` (or "auto", priced by
+    ``choose_dedup``) aggregates two-level over a
+    ``graph.dedup.DedupLayout`` matched once at build time.
   * **Compiled execution.**  ``plan.compile()`` is the forward as a
     ``CompiledPlan``: on a card one CUDA graph per input signature, on the
     CPU the eager forward under the same caching and retrace guard.
 
-This is the local, f32 subset of the reference.  ``build_plan`` raises
-``NotImplementedError`` for what is not ported yet -- ``mesh=``,
-``reorder`` other than "none", ``dtype`` other than "f32", ``dedup`` other
-than "none"; nothing is silently ignored.
+The port plans local execution: ``mesh=`` (distributed execution) raises
+``NotImplementedError``, as does ``compile(dynamic=True)`` of a dedup plan
+(runtime dedup arrays serve the minibatch trainer and the graph server,
+not ported yet); nothing is silently ignored.
 
 Public surface::
 
@@ -38,6 +51,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import phases
@@ -90,10 +104,27 @@ class GraphExecutionPlan:
     """Precomputed execution recipe for a model over one fixed graph."""
 
     def __init__(self, g: Graph, layers: Sequence[LayerPlan], *,
-                 machine: Machine):
-        self.g = g
+                 machine: Machine, reorder: str = "none", perm=None,
+                 dtype: str = "f32", dedup: str = "none",
+                 dedup_layout=None):
+        self.g = g                   # the execution graph (renumbered when
+                                     # reorder="degree")
         self.layers: Tuple[LayerPlan, ...] = tuple(layers)
         self.machine = machine
+        self.reorder = reorder       # "none" | "degree" (resolved)
+        self.dtype = dtype           # "f32" | "bf16" | "int8-agg" (resolved)
+        self.dedup = dedup           # "none" | "pairs" (resolved; never
+                                     # "pairs" with zero matched pairs)
+        self.dedup_layout = dedup_layout  # graph.dedup.DedupLayout | None
+        # perm[old_id] = new_id (degree_reorder's contract), inv[new_id] =
+        # old_id: device tensors the ingress and egress gathers read
+        if perm is not None:
+            perm = torch.as_tensor(np.asarray(perm, np.int64))
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(len(perm))
+            self.perm, self.inv = perm.to(g.device), inv.to(g.device)
+        else:
+            self.perm = self.inv = None
         self._compiled: Dict = {}    # (donate, layer, dynamic) -> CompiledPlan
 
     @property
@@ -126,26 +157,56 @@ class GraphExecutionPlan:
         return weights, None
 
     def run_layer(self, params: Dict, x: torch.Tensor, *, layer: int = 0,
-                  _probe=None, graph: Optional[Graph] = None) -> torch.Tensor:
+                  _probe=None, graph: Optional[Graph] = None,
+                  dedup_layout=None) -> torch.Tensor:
         """One planned layer from its conv param subtree ({"lin": ...} or
-        {"mlp1": ..., "mlp2": ...}).  ``graph`` overrides the plan's graph
-        for this dispatch (the dynamic mode of ``compile(dynamic=True)``);
-        only torch-tier unfused plans read nothing but its edge arrays."""
+        {"mlp1": ..., "mlp2": ...}), in the plan's execution layout (on a
+        reordered plan, rows in the renumbered order; ``run_model`` does
+        the permutations).  ``graph`` overrides the plan's graph for this
+        dispatch (the dynamic mode of ``compile(dynamic=True)``); only
+        torch-tier unfused plans read nothing but its edge arrays.
+        ``dedup_layout`` likewise replaces the plan's own two-level
+        layout, which never applies to an overriding graph."""
         lp = self.layers[layer]
         weights, bias_post = self._split_params(lp, params)
+        dedup = dedup_layout if graph is not None or \
+            dedup_layout is not None else self.dedup_layout
         return _execute_layer(self.g if graph is None else graph, lp, x,
-                              weights, bias_post=bias_post, probe=_probe)
+                              weights, bias_post=bias_post, probe=_probe,
+                              dtype=self.dtype, dedup=dedup)
+
+    def _ingress(self, x: torch.Tensor, *, _probe=None) -> torch.Tensor:
+        """Natural (V, F) features -> the execution layout: the planned
+        renumbering, ``x_new = x[inv]`` (``_ingress``, :253)."""
+        if self.inv is None:
+            return x
+        if x.shape[0] != self.g.num_vertices:
+            raise ValueError(
+                f"reordered plans take features in the natural (V, F) "
+                f"layout; got {tuple(x.shape)} for V={self.g.num_vertices}")
+        if _probe is not None:
+            _probe.note_reorder()
+        return x[self.inv]
+
+    def _egress(self, h: torch.Tensor) -> torch.Tensor:
+        """Execution layout -> natural order: ``out_old = h[perm]``
+        (``_egress``, :271)."""
+        return h if self.perm is None else h[self.perm]
 
     def run_model(self, params: Dict, x: torch.Tensor, *, _probe=None,
-                  compiled: bool = False,
-                  graph: Optional[Graph] = None) -> torch.Tensor:
+                  compiled: bool = False, graph: Optional[Graph] = None,
+                  dedup_layout=None) -> torch.Tensor:
         """Full forward: planned layers with ReLU between them.
 
+        Takes ``x`` and returns the logits in the natural vertex order; a
+        reordered plan permutes the rows at ingress and back at egress.
         ``compiled=True`` routes through ``plan.compile()`` (or
         ``compile(dynamic=True)`` with ``graph=``) instead of the eager
         per-phase loop.  ``graph=`` substitutes another graph's edge arrays
         for this dispatch while replaying the same planned decisions; only
-        torch-tier unfused plans accept it, and ``x`` rows must match it.
+        torch-tier unfused unreordered plans accept it, ``x`` rows must
+        match it, and a dedup plan needs that graph's own
+        ``dedup_layout``.
         """
         if compiled:
             if _probe is not None:
@@ -158,20 +219,30 @@ class GraphExecutionPlan:
             return self.compile()(params, x)
         if graph is not None:
             self._check_dynamic_ok()
-        h = x
+            if self.dedup == "pairs" and dedup_layout is None:
+                raise ValueError(
+                    "this plan's dedup='pairs' layout was matched on its own "
+                    "graph; dispatch over a substitute graph needs that "
+                    "graph's layout (dedup_layout=)")
+        h = self._ingress(x, _probe=_probe)
         for i in range(self.num_layers):
             h = self.run_layer(params[f"conv{i}"], h, layer=i, _probe=_probe,
-                               graph=graph)
+                               graph=graph, dedup_layout=dedup_layout)
             if i < self.num_layers - 1:
                 h = torch.relu(h)
-        return h
+        return self._egress(h)
 
     def _check_dynamic_ok(self) -> None:
         """Dynamic (graph-as-argument) dispatch needs a forward that reads
         the edge arrays as data: torch-tier unfused layers do; ``cuda`` and
         fused layers run over host-built blocked layouts of the plan's own
-        graph, so they are refused (``_check_dynamic_ok``, :334)."""
-        problems = [
+        graph, and a reordered plan over a permutation of it, so they are
+        refused (``_check_dynamic_ok``, :334)."""
+        problems = []
+        if self.perm is not None:
+            problems.append("the plan is reordered (an edge-derived "
+                            "permutation of its own graph)")
+        problems += [
             f"layer {lp.index} ({lp.backend}{', fused' if lp.fused else ''})"
             f" runs over a host-built blocked layout"
             for lp in self.layers if lp.backend == CUDA or lp.fused]
@@ -179,7 +250,8 @@ class GraphExecutionPlan:
             raise ValueError(
                 "dynamic graph dispatch needs a forward that reads the edge "
                 "arrays as data: " + "; ".join(problems) + " (build the "
-                "bucket plan with backend='torch', fused=False)")
+                "bucket plan with backend='torch', fused=False, "
+                "reorder='none')")
 
     def compile(self, *, donate: bool = False, layer: Optional[int] = None,
                 dynamic: bool = False) -> "CompiledPlan":
@@ -203,7 +275,14 @@ class GraphExecutionPlan:
           dynamic: the graph becomes a runtime argument, ``(params, x,
             graph)``: any ``Graph`` whose ``src``/``dst``/``in_deg`` shapes
             match the plan's; edge content varies per call with no
-            recapture.  Torch-tier unfused plans only; not with ``layer=``.
+            recapture.  Torch-tier unfused unreordered plans only; not with
+            ``layer=``.  A dedup plan raises ``NotImplementedError``: its
+            bucket form takes runtime dedup arrays, whose users (the
+            minibatch trainer, the graph server) are not ported yet.
+
+        Reorder, bf16, int8-agg and dedup plans capture like any other: the
+        permutation gathers, the casts and the pair partials are device
+        work inside the forward.
 
         Cached per (donate, layer, dynamic) on the plan::
 
@@ -223,6 +302,12 @@ class GraphExecutionPlan:
                 raise ValueError("dynamic compilation covers the full "
                                  "forward; layer= is incompatible")
             self._check_dynamic_ok()
+            if self.dedup == "pairs":
+                raise NotImplementedError(
+                    "compile(dynamic=True) of a dedup='pairs' plan takes "
+                    "runtime dedup arrays per sampled block; its users, the "
+                    "minibatch trainer and the graph server (ROADMAP items "
+                    "9-10), are not ported yet")
         key = (bool(donate), layer, bool(dynamic))
         fn = self._compiled.get(key)
         if fn is None:
@@ -235,10 +320,21 @@ class GraphExecutionPlan:
                    bias_post=None, _probe=None) -> torch.Tensor:
         """Raw weight-list execution (the ``phase_ordered_layer`` entry):
         ``weights`` is a list of (W, b) with biases applied inside the MLP;
-        ``bias_post`` is added after aggregation."""
-        return _execute_layer(self.g, self.layers[layer], x, weights,
-                              edge_weight=edge_weight, activation=activation,
-                              bias_post=bias_post, probe=_probe)
+        ``bias_post`` is added after aggregation.  Takes and returns the
+        natural vertex order; a reordered plan refuses ``edge_weight``,
+        which is indexed by the caller's edge order (``run_phases``,
+        :433-455)."""
+        if self.perm is not None:
+            if edge_weight is not None:
+                raise ValueError(
+                    "edge_weight is indexed by the caller's edge order, "
+                    "which a reordered plan re-sorts; use reorder='none'")
+            x = self._ingress(x, _probe=_probe)
+        h = _execute_layer(self.g, self.layers[layer], x, weights,
+                           edge_weight=edge_weight, activation=activation,
+                           bias_post=bias_post, probe=_probe,
+                           dtype=self.dtype, dedup=self.dedup_layout)
+        return self._egress(h)
 
     def instrument(self, machine=None, warmup: int = 0):
         """Wrap this plan for characterization (``instrument``, :488).
@@ -259,7 +355,8 @@ class GraphExecutionPlan:
 
     def describe(self) -> List[Dict]:
         """One dict per layer: every planned decision + modeled agg cost.
-        The keys are the reference's; ``dtype``/``reorder``/``dedup``/
+        The keys are the reference's: ``dtype``/``reorder``/``dedup`` are
+        the resolved decisions (never "auto");
         ``interpret``/``distributed``/``partition``/``overlap`` state the
         only values the port takes, and ``compiled`` whether
         ``plan.compile()`` works (always, for plans built by the public
@@ -275,8 +372,8 @@ class GraphExecutionPlan:
                 "fused": lp.fused, "tile_m": lp.tile_m,
                 "interpret": False, "distributed": False,
                 "partition": "none", "overlap": "none",
-                "dtype": "f32", "reorder": "none", "compiled": compiled_ok,
-                "dedup": "none",
+                "dtype": self.dtype, "reorder": self.reorder,
+                "compiled": compiled_ok, "dedup": self.dedup,
                 "agg_bytes": oc.agg_bytes, "agg_flops": oc.agg_flops,
             })
         return out
@@ -524,62 +621,133 @@ def _phase(probe, name: str, thunk, *, lp: LayerPlan, **meta):
     return probe.run(name, thunk, lp=lp, **meta)
 
 
+def _round(h: torch.Tensor, dtype: str) -> torch.Tensor:
+    """A phase output back to the plan dtype's storage (``_round``, :725):
+    bf16 for "bf16", unchanged for "f32" and "int8-agg"."""
+    return h.to(torch.bfloat16) if dtype == "bf16" else h
+
+
+def _quant_err(orig: torch.Tensor, reduced: torch.Tensor) -> float:
+    """Largest absolute error a precision reduction introduced
+    (``_quant_err``, :739).  Reads the result on the host, so only the
+    instrumentation probe calls it."""
+    return float((orig.float() - reduced.float()).abs().max().item())
+
+
+def _dedup_fused_inputs(dedup, xa: torch.Tensor) -> torch.Tensor:
+    """The (V + P)-row gather source of a fused dedup layer
+    (``_dedup_fused_inputs``, :748): the features cast to f32 (exact), each
+    matched pair's partial added once, stacked under them."""
+    xf = xa if xa.dtype == torch.float32 else xa.float()
+    partials = xf[dedup.pair_left.long()] + xf[dedup.pair_right.long()]
+    return torch.cat([xf, partials], dim=0)
+
+
 def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
                    edge_weight=None, activation: str = "relu",
-                   bias_post=None, probe=None) -> torch.Tensor:
+                   bias_post=None, probe=None, dtype: str = "f32",
+                   dedup=None) -> torch.Tensor:
     """Execute one layer per its plan: fusion > ordering > backend
-    (``_execute_layer``, :762-878, f32 branch).  Each phase goes through
-    ``_phase`` where the reference records one."""
+    (``_execute_layer``, :762-878).  Each phase goes through ``_phase``
+    where the reference records one.
+
+    ``dtype`` is the plan's resolved precision.  "f32" takes the plain
+    path: every cast below is guarded, so f32 plans are unchanged.  "bf16"
+    casts x, the weights and biases once at entry and rounds each phase
+    output back to bf16; the phases accumulate in f32.  "int8-agg"
+    fake-quantizes only the aggregation operand; the combination stays f32.
+    ``dedup`` (a ``graph.dedup.DedupLayout`` or None) goes to
+    ``phases.aggregate`` on the unfused paths; a fused layer swaps its
+    blocked layout for the layout's level-2 blocking and gathers from
+    ``[x ; partials]``.
+    """
+    entry_err = 0.0
+    if dtype == "bf16":
+        xr = x.to(torch.bfloat16)
+        if probe is not None:
+            entry_err = _quant_err(x, xr)
+        x = xr
+        weights = [(w.to(torch.bfloat16),
+                    None if b is None else b.to(torch.bfloat16))
+                   for (w, b) in weights]
+        if bias_post is not None:
+            bias_post = bias_post.to(torch.bfloat16)
     mlp_dims = tuple([int(w.shape[0]) for (w, _) in weights] +
                      [int(weights[-1][0].shape[1])])
     if _can_fuse(lp, weights, edge_weight):
         w0, b0 = weights[0]
         fused_dims = (int(w0.shape[0]), int(w0.shape[1]))
+        xa, agg_err = x, entry_err
+        if dtype == "int8-agg":
+            xa = phases.quantize_int8(x)
+            if probe is not None:
+                agg_err = _quant_err(x, xa)
+        fbg, fx = lp.blocked, xa
+        if dedup is not None and dedup.num_pairs > 0 \
+                and dedup.blocked is not None:
+            fbg, fx = dedup.blocked, _dedup_fused_inputs(dedup, xa)
         if len(weights) == 1:
             # whole layer fused; an inline b0 is exact post-aggregation
             # here (what _can_fuse admitted), so fold it into the bias
             bias = b0 if bias_post is None else (
                 bias_post if b0 is None else b0 + bias_post)
-            return _phase(
+            h = _phase(
                 probe, "fused_agg_combine",
-                lambda: fused_gcn_layer(lp.blocked, x, w0, bias,
+                lambda: fused_gcn_layer(fbg, fx, w0, bias,
                                         agg_op=_fused_agg_op(lp),
                                         in_deg=g.in_deg, backend=lp.backend),
-                lp=lp, dims=fused_dims)
+                lp=lp, dims=fused_dims, quant_error=agg_err)
+            return _round(h, dtype)
         # multi-layer MLP (GIN): fuse aggregation with the FIRST matmul --
         # exact because the aggregation is linear and the interior
         # nonlinearity only applies after that matmul
         h = _phase(
             probe, "fused_agg_combine",
-            lambda: fused_gcn_layer(lp.blocked, x, w0, b0,
+            lambda: fused_gcn_layer(fbg, fx, w0, b0,
                                     agg_op=_fused_agg_op(lp),
                                     in_deg=g.in_deg, backend=lp.backend),
-            lp=lp, dims=fused_dims)
-        h = phases._act(activation)(h)
+            lp=lp, dims=fused_dims, quant_error=agg_err)
+        h = _round(phases._act(activation)(h), dtype)
         h = _phase(probe, "combine",
-                   lambda: phases.combine(h, weights[1:],
-                                          activation=activation),
+                   lambda hh=h: phases.combine(hh, weights[1:],
+                                               activation=activation),
                    lp=lp, dims=mlp_dims[1:])
+        h = _round(h, dtype)
     elif lp.order == COMBINE_FIRST:
         h = _phase(probe, "combine",
                    lambda: phases.combine(x, weights, activation=activation),
-                   lp=lp, dims=mlp_dims)
+                   lp=lp, dims=mlp_dims, quant_error=entry_err)
+        h = _round(h, dtype)
+        ha, agg_err = h, 0.0
+        if dtype == "int8-agg":
+            ha = phases.quantize_int8(h)
+            if probe is not None:
+                agg_err = _quant_err(h, ha)
         h = _phase(probe, "aggregate",
-                   lambda: phases.aggregate(
-                       g, h, op=lp.agg_op, edge_weight=edge_weight,
+                   lambda hh=ha: phases.aggregate(
+                       g, hh, op=lp.agg_op, edge_weight=edge_weight,
                        include_self=lp.include_self, backend=lp.backend,
-                       layout=lp.agg_layout),
-                   lp=lp, feature_len=int(h.shape[-1]))
+                       layout=lp.agg_layout, dedup=dedup),
+                   lp=lp, feature_len=int(h.shape[-1]), quant_error=agg_err)
+        h = _round(h, dtype)
     else:
+        xa, agg_err = x, entry_err
+        if dtype == "int8-agg":
+            xa = phases.quantize_int8(x)
+            if probe is not None:
+                agg_err = _quant_err(x, xa)
         h = _phase(probe, "aggregate",
                    lambda: phases.aggregate(
-                       g, x, op=lp.agg_op, edge_weight=edge_weight,
+                       g, xa, op=lp.agg_op, edge_weight=edge_weight,
                        include_self=lp.include_self, backend=lp.backend,
-                       layout=lp.agg_layout),
-                   lp=lp, feature_len=int(x.shape[-1]))
+                       layout=lp.agg_layout, dedup=dedup),
+                   lp=lp, feature_len=int(x.shape[-1]), quant_error=agg_err)
+        h = _round(h, dtype)
         h = _phase(probe, "combine",
-                   lambda: phases.combine(h, weights, activation=activation),
+                   lambda hh=h: phases.combine(hh, weights,
+                                               activation=activation),
                    lp=lp, dims=mlp_dims)
+        h = _round(h, dtype)
     if bias_post is not None:
         h = h + bias_post
     return h
@@ -591,6 +759,7 @@ def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
 
 _PLAN_CACHE: Dict = {}      # (graph_key, spec_key) -> (src_ref, plan)
 _BLOCKED_CACHE: Dict = {}   # (graph_key, tile_m)   -> (src_ref, BlockedGraph)
+_REORDER_CACHE: Dict = {}   # graph_key -> (src_ref, reordered Graph, perm)
 _CACHE_LIMIT = 64
 
 #: hits/misses count ``_cached_plan`` lookups; evictions count entries
@@ -599,17 +768,20 @@ _PLAN_CACHE_STATS: Dict[str, int] = {"hits": 0, "misses": 0, "evictions": 0}
 
 
 def plan_cache_stats() -> Dict[str, int]:
-    """``{size, limit, blocked_size, hits, misses, evictions}``."""
+    """``{size, limit, blocked_size, reorder_size, hits, misses,
+    evictions}``."""
     return {"size": len(_PLAN_CACHE), "limit": _CACHE_LIMIT,
-            "blocked_size": len(_BLOCKED_CACHE), **_PLAN_CACHE_STATS}
+            "blocked_size": len(_BLOCKED_CACHE),
+            "reorder_size": len(_REORDER_CACHE), **_PLAN_CACHE_STATS}
 
 
 def clear_plan_cache() -> int:
-    """Drop every cached plan and blocked layout and reset the counters.
-    Returns the number of plans dropped."""
+    """Drop every cached plan, blocked layout and reordered graph and
+    reset the counters.  Returns the number of plans dropped."""
     n = len(_PLAN_CACHE)
     _PLAN_CACHE.clear()
     _BLOCKED_CACHE.clear()
+    _REORDER_CACHE.clear()
     _PLAN_CACHE_STATS.update(hits=0, misses=0, evictions=0)
     return n
 
@@ -641,6 +813,21 @@ def _blocked_for(g: Graph, tile_m: int) -> BlockedGraph:
     return bg
 
 
+def _reordered_for(g: Graph):
+    """The degree-reordered twin of ``g`` and its perm, cached per graph
+    (``_reordered_for``, :992): every plan of the graph shares one
+    renumbering, and so one blocked layout per tile."""
+    key = _graph_key(g)
+    hit = _REORDER_CACHE.get(key)
+    if hit is not None and hit[0] is g.src:
+        return hit[1], hit[2]
+    from repro_torch.graph.reorder import degree_reorder
+    _evict_oldest(_REORDER_CACHE)
+    g2, perm = degree_reorder(g)
+    _REORDER_CACHE[key] = (g.src, g2, perm)
+    return g2, perm
+
+
 def _cached_plan(g: Graph, spec_key, builder):
     key = (_graph_key(g), spec_key)
     hit = _PLAN_CACHE.get(key)
@@ -656,9 +843,12 @@ def _cached_plan(g: Graph, spec_key, builder):
 
 def _plan_layer(g: Graph, index: int, kind: str, dims: Tuple[int, ...], *,
                 agg_op: str, ordering: str, backend: str, fused: bool,
-                include_self: bool = True, machine=None) -> LayerPlan:
+                include_self: bool = True, machine=None,
+                dtype: str = "f32") -> LayerPlan:
     """Resolve one layer's ordering / tier / fusion (``_plan_layer``,
-    :1021), priced on ``machine`` (default ``H100``).
+    :1021), priced on ``machine`` (default ``H100``).  The fused tile is
+    sized at the width the gathered rows are stored in: 2 bytes for a
+    resolved "bf16", else 4 (int8-agg carries its operand as f32).
 
     Plans only: a ``cuda`` layer may be planned over a graph on the CPU
     (nothing launches here); running it there raises.
@@ -677,7 +867,9 @@ def _plan_layer(g: Graph, index: int, kind: str, dims: Tuple[int, ...], *,
     align = 32 if backend == CUDA else 8
     if fused:
         avg_deg = g.num_edges / max(1, g.num_vertices)
-        tile_m = suggest_tile_m(dims[0], dims[1], avg_deg, machine=machine)
+        tile_m = suggest_tile_m(dims[0], dims[1], avg_deg,
+                                dtype_bytes=2 if dtype == "bf16" else 4,
+                                machine=machine)
         # a tile larger than the graph only pads: clamp to |V| rounded up,
         # keeping the tier's alignment (warp rows on cuda)
         tile_m = max(align, min(tile_m, -(-g.num_vertices // align) * align))
@@ -704,7 +896,8 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
                backend: str = AUTO, fused: Optional[bool] = None,
                ordering: Optional[str] = None, machine=None,
                device="cuda", mesh=None, reorder: str = "none",
-               dtype: str = "f32", dedup: str = "none") -> GraphExecutionPlan:
+               dtype: str = "f32", dedup: str = "none",
+               dedup_pad: Optional[tuple] = None) -> GraphExecutionPlan:
     """Plan a full model (``GCNModelConfig``) over one graph
     (``build_plan``, :1092).
 
@@ -713,30 +906,65 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
     "auto" resolves to ``cuda`` on a CUDA device and ``torch`` on the CPU;
     "cuda" on the CPU raises.  ``fused`` / ``ordering`` default from
     ``cfg``; ``machine`` (a ``Machine`` or registry name, default
-    ``H100``) prices the ordering and the fused tile.  Plans are cached
-    per (graph, arguments).
+    ``H100``) prices the ordering, the fused tile and every "auto" below.
+    Plans are cached per (graph, arguments).
 
-    Not ported yet, and raising ``NotImplementedError`` rather than being
-    ignored: ``mesh``, ``reorder`` other than "none", ``dtype`` other than
-    "f32" and ``dedup`` other than "none".
+    The three planned decisions, each resolved once here (reorder first,
+    then the dtype -- priced before the layers, whose fused tiles depend on
+    it -- then dedup) and reported by ``describe()``:
+
+      * ``reorder``: "none"; "degree" (``graph.reorder.degree_reorder``,
+        applied once and cached per graph; the forward permutes x at
+        ingress and the logits back at egress); "auto"
+        (``choose_reorder``: the gather stream's LRU hit ratio at the
+        machine's on-chip rows of ``in_dim`` floats).
+      * ``dtype``: "f32"; "bf16" (bf16 storage at phase boundaries, f32
+        accumulation); "int8-agg" (the aggregation operand fake-quantized
+        per row, the combination in f32; never chosen by "auto"); "auto"
+        (``choose_dtype`` on the widest layer).
+      * ``dedup``: "none"; "pairs" (``graph.dedup.dedup_layout_for_graph``
+        matched once: two-level aggregation, equal to the naive fold bit
+        for bit in f32 wherever the fold runs in order); "auto"
+        (``choose_dedup`` on the widest layer).  Max aggregation and a
+        graph with no matched pair resolve to "none".
+        ``dedup_pad=`` (the reference's bucket form, padded with sink
+        no-ops for ``compile(dynamic=True)``) raises
+        ``NotImplementedError``: the port's dynamic compilation refuses
+        dedup plans until its users (ROADMAP items 9-10) are ported, and a
+        static forward of a padded layout would add the pad edges' copies
+        of the last vertex row.
+
+    ``mesh`` (distributed execution) is not ported and raises
+    ``NotImplementedError`` rather than being ignored.
 
     Example (CPU)::
 
         >>> spec = reduced_graph(CORA, 220, 24)
         >>> g = make_synthetic_graph(spec, device="cpu")
         >>> plan = build_plan(g, PAPER_MODELS["gcn"], spec.feature_len,
-        ...                   spec.num_classes, device="cpu")
-        >>> plan.describe()[0]["backend"]
-        'torch'
+        ...                   spec.num_classes, device="cpu", dtype="bf16")
+        >>> plan.describe()[0]["backend"], plan.describe()[0]["dtype"]
+        ('torch', 'bf16')
     """
-    for name, value, default in (("mesh", mesh, None),
-                                 ("reorder", reorder, "none"),
-                                 ("dtype", dtype, "f32"),
-                                 ("dedup", dedup, "none")):
-        if value != default:
-            raise NotImplementedError(
-                f"build_plan({name}={value!r}) is not ported yet; the port "
-                f"plans local f32 execution only")
+    if mesh is not None:
+        raise NotImplementedError(
+            "build_plan(mesh=...) is not ported yet: the port plans local "
+            "execution (distributed execution is ROADMAP item 11)")
+    if reorder not in ("none", "degree", "auto"):
+        raise ValueError(f"unknown reorder {reorder!r}; expected "
+                         "'none' | 'degree' | 'auto'")
+    if dtype not in ("f32", "bf16", "int8-agg", "auto"):
+        raise ValueError(f"unknown dtype {dtype!r}; expected "
+                         "'f32' | 'bf16' | 'int8-agg' | 'auto'")
+    if dedup not in ("none", "pairs", "auto"):
+        raise ValueError(f"unknown dedup {dedup!r}; expected "
+                         "'none' | 'pairs' | 'auto'")
+    if dedup_pad is not None:
+        raise NotImplementedError(
+            "build_plan(dedup_pad=...) builds the bucket form of "
+            "compile(dynamic=True), which takes runtime dedup arrays; its "
+            "users, the minibatch trainer and the graph server (ROADMAP "
+            "items 9-10), are not ported yet")
     dev = _check_graph_device(g, device)
     machine = get_machine(machine)
     agg = cfg.aggregator
@@ -746,9 +974,20 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
     require_device(tier, dev)
     spec_key = (cfg.name, cfg.conv, agg, tuple(cfg.hidden_dims),
                 cfg.num_layers, int(in_dim), int(num_classes), tier,
-                use_fused, req_order, machine.name)
+                use_fused, req_order, machine.name, reorder, dtype, dedup)
 
     def builder():
+        # -- locality reorder, before anything that depends on the vertex
+        #    numbering (the blocked layouts, the dedup matching)
+        g_exec, perm, decision = g, None, reorder
+        if decision != "none":
+            g2, p = _reordered_for(g)
+            if decision == "auto":
+                from repro_torch.graph.reorder import choose_reorder
+                decision = choose_reorder(g, g2, p, int(in_dim), machine)
+            if decision == "degree":
+                g_exec, perm = g2, p
+
         hid = cfg.hidden_dims[0]
         dims_list = []
         d = in_dim
@@ -757,11 +996,49 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
             dims_list.append((d, cfg.hidden_dims[-1], dout)
                              if cfg.conv == "gin" else (d, dout))
             d = dout
+        # the widest layer, whose bytes dominate, prices the dtype and dedup
+        widest = max(dims_list, key=lambda ds: ds[0] * ds[-1])
+
+        # -- execution dtype, before the layers: the fused tile is sized at
+        #    the resolved dtype's width
+        dt = dtype
+        if dt == "auto":
+            from repro_torch.profile.machine import choose_dtype
+            dt = choose_dtype(g_exec.num_vertices, g_exec.num_edges,
+                              widest[0], widest[-1], machine=machine)
         layers = [
-            _plan_layer(g, i, cfg.conv, dims, agg_op=agg, ordering=req_order,
-                        backend=tier, fused=use_fused, machine=machine)
+            _plan_layer(g_exec, i, cfg.conv, dims, agg_op=agg,
+                        ordering=req_order, backend=tier, fused=use_fused,
+                        machine=machine, dtype=dt)
             for i, dims in enumerate(dims_list)]
-        return GraphExecutionPlan(g, layers, machine=machine)
+
+        # -- pair dedup: the host matching runs once, here
+        dd, dlayout = ("none" if agg == "max" else dedup), None
+        if dd != "none":
+            from repro_torch.graph import dedup as gdedup
+            lay = gdedup.dedup_layout_for_graph(g_exec)
+            if dd == "auto":
+                from repro_torch.profile.machine import choose_dedup
+                dd = choose_dedup(g_exec.num_vertices, g_exec.num_edges,
+                                  widest[0], num_pairs=lay.num_pairs,
+                                  num_edges2=lay.num_edges2, machine=machine,
+                                  dtype=dt)
+            if dd == "pairs" and lay.num_pairs == 0:
+                dd = "none"             # nothing matched: the naive plan
+            if dd == "pairs":
+                if any(lp.fused and lp.blocked is not None for lp in layers) \
+                        or tier == CUDA:
+                    tiles = [lp.blocked.tile_m for lp in layers
+                             if lp.fused and lp.blocked is not None]
+                    align = 32 if tier == CUDA else 8
+                    atile = tiles[0] if tiles else max(
+                        align, min(128, -(-g_exec.num_vertices // align)
+                                   * align))
+                    lay = gdedup.attach_blocked(lay, atile)
+                dlayout = lay
+        return GraphExecutionPlan(g_exec, layers, machine=machine,
+                                  reorder=decision, perm=perm, dtype=dt,
+                                  dedup=dd, dedup_layout=dlayout)
 
     return _cached_plan(g, spec_key, builder)
 

@@ -77,6 +77,18 @@
 //     Reddit), so two CTAs share an SM and one's barriers and products
 //     overlap the other's gathers.
 //
+//   * bf16.  Three (x, W) pairs are instantiated, the output in W's type
+//     as the reference's (which folds in f32, multiplies in f32 and rounds
+//     once): (f32, f32); (bf16, bf16), a bf16 plan's fused layer; and
+//     (f32, bf16), a bf16 plan's fused dedup layer, whose [x ; partials]
+//     rows are f32.  bf16 loads convert exactly to f32 (a fold lane loads
+//     at most 4 elements, 8 bytes of bf16); the fold, the A tiles and the
+//     running sum are the f32 ones above; the store rounds once.  A bf16 W
+//     has 8 mantissa bits, so TF32 holds it exactly: its lo part is 0 and
+//     the bf16-W instances drop the A_hi W_lo product -- two TF32 products
+//     per k8 step, not three (chip_smoke.py phase 2 counts the HGMMAs of
+//     each instance).
+//
 // Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md): Reddit
 // 602 -> 128 5.87 ms (the plain-FMA design before it: 15.32), 128 -> 41
 // 0.98, 128 -> 128 1.03; Citeseer 3703 -> 128 0.38, under its plain
@@ -85,13 +97,17 @@
 // fold is what bounds it: seg_agg at F = 602 then torch.matmul takes 4.64
 // ms, because seg_agg's slice-major grid keeps the CTAs in flight on one
 // slice of x in L2, while here each CTA walks every slice of its rows.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarpgroups = 2;
 constexpr int kThreads = 128 * kWarpgroups;
@@ -268,6 +284,7 @@ __device__ __forceinline__ void mma_tf32<64>(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// VEC elements at p into d as floats, one load of VEC * sizeof(T) bytes
 template <int VEC>
 __device__ __forceinline__ void load_vec(float* d, const float* p) {
   if constexpr (VEC == 4) {
@@ -279,6 +296,36 @@ __device__ __forceinline__ void load_vec(float* d, const float* p) {
   } else {
     d[0] = __ldg(p);
   }
+}
+
+// two bf16 of a 32-bit word, the lower address in the low half; bf16 is
+// the top half of an f32, so the conversion is exact
+__device__ __forceinline__ void unpack2(float* d, uint32_t w) {
+  d[0] = __uint_as_float(w << 16);
+  d[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __uint_as_float(
+      static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+      << 16);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* d, const bf16* p) {
+  if constexpr (VEC == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    unpack2(d, t.x), unpack2(d + 2, t.y);
+  } else if constexpr (VEC == 2) {
+    unpack2(d, __ldg(reinterpret_cast<const unsigned int*>(p)));
+  } else {
+    d[0] = load1(p);
+  }
+}
+
+__device__ __forceinline__ unsigned short to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // First slot e of block slot range [slot0, slot0 + emax) that is a pad slot
@@ -310,8 +357,9 @@ __device__ int row_lower_bound(const int* __restrict__ dstl,
 // Shared-memory W image of one launch: for each W stage (32 K columns),
 // the hi part then the lo part, each nw rows (output columns n0 ..) of 128
 // bytes, swizzled as tile_off lays them out; zero past F_in and F_out.
-// One thread per 4 K values of one column.
-__global__ void split_w_kernel(const float* __restrict__ w, int f_in,
+// One thread per 4 K values of one column.  A bf16 W's lo part is 0.
+template <typename TW>
+__global__ void split_w_kernel(const TW* __restrict__ w, int f_in,
                                int f_out, int n0, int nw, int nslices,
                                uint4* __restrict__ img) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -326,7 +374,7 @@ __global__ void split_w_kernel(const float* __restrict__ w, int f_in,
   for (int t = 0; t < 4; ++t) {
     const int kk = h * kHalf + c * 4 + t;
     const float v = kk < f_in && col < f_out
-                        ? __ldg(w + static_cast<int64_t>(kk) * f_out + col)
+                        ? load1(w + static_cast<int64_t>(kk) * f_out + col)
                         : 0.f;
     hi[t] = tf32_rna(v);
     lo[t] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[t])));
@@ -340,15 +388,19 @@ __global__ void split_w_kernel(const float* __restrict__ w, int f_in,
 // One CTA per 64 destination rows (see the note at the top).  Lane li of a
 // fold unit owns columns (cc * kLanes + li) * VEC .. + VEC - 1 of a slice,
 // cc < C.  Warpgroup g computes output columns n0 + g * NT .. + NT - 1.
-template <int VEC, int NT>
+// TX is x's element type, TW W's and out's; a bf16 W is exact in TF32, so
+// its instances skip the A_hi W_lo product.
+template <typename TX, typename TW, int VEC, int NT>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_kernel(const float* __restrict__ x, int f_in,
+fused_kernel(const TX* __restrict__ x, int f_in,
              const int* __restrict__ src, const int* __restrict__ dstl,
              const float* __restrict__ mask, const uint4* __restrict__ wimg,
-             float* __restrict__ out, int f_out, int n0, int ncols,
+             TW* __restrict__ out, int f_out, int n0, int ncols,
              int nblocks, int emax, int tile_m, int cap, int terms) {
   constexpr int L = kLanes;
   constexpr int C = kSlice / (L * VEC);
+  constexpr bool kWExact = std::is_same<TW, bf16>::value;
+  static_assert(C >= 1, "a fold lane loads at most kSlice / kLanes elements");
   constexpr int NW = kWarpgroups * NT;       // W image rows
   constexpr int kWBytes = NW * kHalf * 8;    // one W stage, hi and lo
   constexpr int kTotLd = tot_ld(NW);
@@ -495,7 +547,7 @@ fused_kernel(const float* __restrict__ x, int f_in,
   for (int k = 0; k < nslices; ++k) {
     const int c0 = k * kSlice;
     const int cols = min(kSlice, f_in - c0);
-    const float* xs = x + c0;
+    const TX* xs = x + c0;
     // a lane whose columns lie past the slice loads column 0 (the line its
     // unit reads anyway) and stores zeros there
     int col_ld[C];
@@ -565,7 +617,7 @@ fused_kernel(const float* __restrict__ x, int f_in,
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int su = __shfl_sync(0xffffffffu, cur_src, u, L);
-        const float* xr = xs + static_cast<int64_t>(su) * f_in;
+        const TX* xr = xs + static_cast<int64_t>(su) * f_in;
 #pragma unroll
         for (int cc = 0; cc < C; ++cc) load_vec<VEC>(v[u][cc], xr + col_ld[cc]);
       }
@@ -639,7 +691,8 @@ fused_kernel(const float* __restrict__ x, int f_in,
             const uint64_t bh = desc_k(sb_hi, NW, q);
             if (terms == 3) {  // the small terms first
               mma_tf32<NT>(d, desc_k(sa_lo, kRows, ks), bh);
-              mma_tf32<NT>(d, ah, desc_k(sb_lo, NW, q));
+              if constexpr (!kWExact)  // a bf16 W's lo part is 0
+                mma_tf32<NT>(d, ah, desc_k(sb_lo, NW, q));
             }
             mma_tf32<NT>(d, ah, bh);
           }
@@ -675,9 +728,27 @@ fused_kernel(const float* __restrict__ x, int f_in,
   }
   __syncthreads();  // the running sums are complete
 
-  // the CTA's rows of out, written once
-  float* orow0 = out + out_row0 * f_out + n0;
-  if (f_out % 4 == 0 && ncols % 4 == 0) {
+  // the CTA's rows of out, written once (a bf16 out rounded once here)
+  TW* orow0 = out + out_row0 * f_out + n0;
+  if constexpr (kWExact) {
+    if (f_out % 2 == 0 && ncols % 2 == 0) {
+      for (int i = tid; i < m_real * (ncols / 2); i += kThreads) {
+        const int r = i / (ncols / 2), c = i % (ncols / 2) * 2;
+        const float* t = s_tot + r * kTotLd + c;
+        __stcs(reinterpret_cast<unsigned int*>(
+                   orow0 + static_cast<int64_t>(r) * f_out + c),
+               static_cast<unsigned int>(to_bf16_bits(t[0])) |
+                   (static_cast<unsigned int>(to_bf16_bits(t[1])) << 16));
+      }
+    } else {
+      for (int i = tid; i < m_real * ncols; i += kThreads) {
+        const int r = i / ncols, c = i % ncols;
+        __stcs(reinterpret_cast<unsigned short*>(
+                   orow0 + static_cast<int64_t>(r) * f_out + c),
+               to_bf16_bits(s_tot[r * kTotLd + c]));
+      }
+    }
+  } else if (f_out % 4 == 0 && ncols % 4 == 0) {
     for (int i = tid; i < m_real * (ncols / 4); i += kThreads) {
       const int r = i / (ncols / 4), c = i % (ncols / 4) * 4;
       __stcs(reinterpret_cast<float4*>(orow0 + static_cast<int64_t>(r) * f_out + c),
@@ -691,13 +762,13 @@ fused_kernel(const float* __restrict__ x, int f_in,
   }
 }
 
-template <int VEC, int NT>
-int launch_fused(const float* x, const int* src, const int* dstl,
-                 const float* mask, const uint4* wimg, float* out,
+template <typename TX, typename TW, int VEC, int NT>
+int launch_fused(const TX* x, const int* src, const int* dstl,
+                 const float* mask, const uint4* wimg, TW* out,
                  int nblocks, int emax, int f_in, int f_out, int n0,
                  int ncols, int tile_m, int cap, int terms,
                  cudaStream_t stream) {
-  auto kernel = fused_kernel<VEC, NT>;
+  auto kernel = fused_kernel<TX, TW, VEC, NT>;
   const int smem = smem_bytes_for(kWarpgroups * NT, cap);
   // the largest carveout, so that two CTAs' shared memory fits an SM
   cudaError_t err = cudaFuncSetAttribute(
@@ -716,18 +787,18 @@ int launch_fused(const float* x, const int* src, const int* dstl,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC>
-int dispatch_nt(int nt, const float* x, const int* src, const int* dstl,
-                const float* mask, const uint4* wimg, float* out,
+template <typename TX, typename TW, int VEC>
+int dispatch_nt(int nt, const TX* x, const int* src, const int* dstl,
+                const float* mask, const uint4* wimg, TW* out,
                 int nblocks, int emax, int f_in, int f_out, int n0,
                 int ncols, int tile_m, int cap, int terms,
                 cudaStream_t stream) {
   switch (nt) {
 #define REPRO_K2_NT(N)                                                      \
   case N:                                                                   \
-    return launch_fused<VEC, N>(x, src, dstl, mask, wimg, out, nblocks,     \
-                                emax, f_in, f_out, n0, ncols, tile_m, cap,  \
-                                terms, stream);
+    return launch_fused<TX, TW, VEC, N>(x, src, dstl, mask, wimg, out,      \
+                                        nblocks, emax, f_in, f_out, n0,     \
+                                        ncols, tile_m, cap, terms, stream);
     REPRO_K2_NT(8)
     REPRO_K2_NT(16)
     REPRO_K2_NT(24)
@@ -740,46 +811,76 @@ int dispatch_nt(int nt, const float* x, const int* src, const int* dstl,
   }
 }
 
-}  // namespace
-
-// x: (V, f_in) f32 (vec * 4-byte aligned, f_in % vec == 0; vec in 1, 2, 4);
-// src, dstl: (nblocks, emax) int32; mask: (nblocks, emax) f32; w: (f_in,
-// f_out) f32; out: (nblocks * tile_m, f_out) f32; wimg: scratch of
-// ceil(f_in / 64) * 512 * 2 * cols_per_wg(min(f_out, 256)) bytes, 16-byte
-// aligned.  CTAs stage up to cap slots' src in shared memory (more are
-// read from L2).  terms = 3: 3xTF32; 1: one TF32 product (a control that
-// must fail the f32 checks).  Returns the first CUDA error of the launches.
-extern "C" int fused_agg_combine_f32(const float* x, const int* src,
-                                     const int* dstl, const float* mask,
-                                     const float* w, float* out, void* wimg,
-                                     int nblocks, int emax, int f_in,
-                                     int f_out, int tile_m, int vec, int cap,
-                                     int terms, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (terms != 1 && terms != 3) return static_cast<int>(cudaErrorInvalidValue);
+// The prepass and the fused launches of one (x, W) pair, per 128 columns
+template <typename TX, typename TW>
+int run(const TX* x, const int* src, const int* dstl, const float* mask,
+        const TW* w, TW* out, uint4* img, int nblocks, int emax, int f_in,
+        int f_out, int tile_m, int vec, int cap, int terms,
+        cudaStream_t st) {
   const int nslices = (f_in + kSlice - 1) / kSlice;
-  auto* img = static_cast<uint4*>(wimg);
   for (int n0 = 0; n0 < f_out; n0 += kMaxCols) {
     const int ncols = f_out - n0 < kMaxCols ? f_out - n0 : kMaxCols;
     const int nt = cols_per_wg(ncols);
     const int64_t units = static_cast<int64_t>(nslices) * 16 * kWarpgroups * nt;
-    split_w_kernel<<<static_cast<unsigned>((units + 255) / 256), 256, 0, st>>>(
-        w, f_in, f_out, n0, kWarpgroups * nt, nslices, img);
+    split_w_kernel<TW><<<static_cast<unsigned>((units + 255) / 256), 256, 0,
+                         st>>>(w, f_in, f_out, n0, kWarpgroups * nt, nslices,
+                               img);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     int rc;
     if (vec == 4)
-      rc = dispatch_nt<4>(nt, x, src, dstl, mask, img, out, nblocks, emax,
-                          f_in, f_out, n0, ncols, tile_m, cap, terms, st);
+      rc = dispatch_nt<TX, TW, 4>(nt, x, src, dstl, mask, img, out, nblocks,
+                                  emax, f_in, f_out, n0, ncols, tile_m, cap,
+                                  terms, st);
     else if (vec == 2)
-      rc = dispatch_nt<2>(nt, x, src, dstl, mask, img, out, nblocks, emax,
-                          f_in, f_out, n0, ncols, tile_m, cap, terms, st);
+      rc = dispatch_nt<TX, TW, 2>(nt, x, src, dstl, mask, img, out, nblocks,
+                                  emax, f_in, f_out, n0, ncols, tile_m, cap,
+                                  terms, st);
     else if (vec == 1)
-      rc = dispatch_nt<1>(nt, x, src, dstl, mask, img, out, nblocks, emax,
-                          f_in, f_out, n0, ncols, tile_m, cap, terms, st);
+      rc = dispatch_nt<TX, TW, 1>(nt, x, src, dstl, mask, img, out, nblocks,
+                                  emax, f_in, f_out, n0, ncols, tile_m, cap,
+                                  terms, st);
     else
       rc = static_cast<int>(cudaErrorInvalidValue);
     if (rc) return rc;
   }
   return 0;
+}
+
+}  // namespace
+
+// x: (V, f_in) (vec elements aligned, f_in % vec == 0; vec in 1, 2, 4);
+// src, dstl: (nblocks, emax) int32; mask: (nblocks, emax) f32; w: (f_in,
+// f_out); out: (nblocks * tile_m, f_out) in w's type; wimg: scratch of
+// ceil(f_in / 64) * 512 * 2 * cols_per_wg(min(f_out, 128)) bytes, 16-byte
+// aligned.  pair: 0 x f32, w f32; 1 x bf16, w bf16; 2 x f32, w bf16.
+// CTAs stage up to cap slots' src in shared memory (more are read from
+// L2).  terms = 3: 3xTF32 (two products for a bf16 W, exact in TF32); 1:
+// one TF32 product (a control that must fail the f32 checks).  Returns
+// the first CUDA error of the launches.
+extern "C" int fused_agg_combine(const void* x, const int* src,
+                                 const int* dstl, const float* mask,
+                                 const void* w, void* out, void* wimg,
+                                 int nblocks, int emax, int f_in, int f_out,
+                                 int tile_m, int vec, int cap, int terms,
+                                 int pair, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (terms != 1 && terms != 3) return static_cast<int>(cudaErrorInvalidValue);
+  auto* img = static_cast<uint4*>(wimg);
+  switch (pair) {
+    case 0:
+      return run(static_cast<const float*>(x), src, dstl, mask,
+                 static_cast<const float*>(w), static_cast<float*>(out), img,
+                 nblocks, emax, f_in, f_out, tile_m, vec, cap, terms, st);
+    case 1:
+      return run(static_cast<const bf16*>(x), src, dstl, mask,
+                 static_cast<const bf16*>(w), static_cast<bf16*>(out), img,
+                 nblocks, emax, f_in, f_out, tile_m, vec, cap, terms, st);
+    case 2:
+      return run(static_cast<const float*>(x), src, dstl, mask,
+                 static_cast<const bf16*>(w), static_cast<bf16*>(out), img,
+                 nblocks, emax, f_in, f_out, tile_m, vec, cap, terms, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

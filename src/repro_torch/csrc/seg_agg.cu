@@ -56,6 +56,14 @@
 //   * No barrier inside the fold: after the row starts are read the units
 //     run independently.  Outputs are streamed (st.cs) so they do not push
 //     the slice of x out of L2.
+//   * bf16 (the reference's bf16 rows, rounded once at its flush): x and
+//     out are bf16, everything between is f32.  A load converts each
+//     element exactly (bf16 is the top half of an f32), the fold is the
+//     f32 fold above, and the store rounds once (__float2bfloat16_rn).
+//     VEC counts elements, so a 16-byte load holds 8 bf16; a row of an
+//     odd-width bf16 matrix may be only 2-byte aligned (F = 41: 82 bytes),
+//     and F = 602 rows are 1,204 bytes, 4-byte aligned: 2-element loads.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -67,6 +75,9 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // slots a row_starts thread loads at once
 constexpr int kLanes = 8;   // lanes of a fold unit: 4 units share a warp
 
+using bf16 = __nv_bfloat16;
+
+// VEC elements at p into d as floats, one load of VEC * sizeof(T) bytes
 template <int VEC>
 __device__ __forceinline__ void load_vec(float* d, const float* p) {
   if constexpr (VEC == 4) {
@@ -80,6 +91,30 @@ __device__ __forceinline__ void load_vec(float* d, const float* p) {
   }
 }
 
+// two bf16 of a 32-bit word, the lower address in the low half
+__device__ __forceinline__ void unpack2(float* d, uint32_t w) {
+  d[0] = __uint_as_float(w << 16);
+  d[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* d, const bf16* p) {
+  if constexpr (VEC == 8) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    unpack2(d, t.x), unpack2(d + 2, t.y), unpack2(d + 4, t.z),
+        unpack2(d + 6, t.w);
+  } else if constexpr (VEC == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    unpack2(d, t.x), unpack2(d + 2, t.y);
+  } else if constexpr (VEC == 2) {
+    unpack2(d, __ldg(reinterpret_cast<const unsigned int*>(p)));
+  } else {
+    d[0] = __uint_as_float(
+        static_cast<uint32_t>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+        << 16);
+  }
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* s) {
   if constexpr (VEC == 4)
@@ -88,6 +123,29 @@ __device__ __forceinline__ void store_vec(float* p, const float* s) {
     __stcs(reinterpret_cast<float2*>(p), make_float2(s[0], s[1]));
   else
     __stcs(p, s[0]);
+}
+
+// the one rounding of the bf16 path: f32 sums to bf16, to nearest even
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+          << 16);
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(bf16* p, const float* s) {
+  if constexpr (VEC == 8)
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(pack2(s[0], s[1]), pack2(s[2], s[3]), pack2(s[4], s[5]),
+                      pack2(s[6], s[7])));
+  else if constexpr (VEC == 4)
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(pack2(s[0], s[1]), pack2(s[2], s[3])));
+  else if constexpr (VEC == 2)
+    __stcs(reinterpret_cast<unsigned int*>(p), pack2(s[0], s[1]));
+  else
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           __bfloat16_as_ushort(__float2bfloat16_rn(s[0])));
 }
 
 // starts[b, m] = first slot of block b holding a row >= m (n_valid, the
@@ -155,18 +213,19 @@ row_starts_kernel(const int* __restrict__ dstl,
 
 // One CTA per (destination block, column slice).  A unit is kLanes lanes;
 // lane li owns columns c0 + (cc * kLanes + li) * VEC .. + VEC - 1 of the
-// slice for cc < C.
-template <int VEC, int C>
+// slice for cc < C.  T is the element type of x and out (float or bf16);
+// the fold is f32 either way.
+template <typename T, int VEC, int C>
 __global__ void __launch_bounds__(kThreads)
-fold_kernel(const float* __restrict__ x, int f, const int* __restrict__ src,
+fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
             const float* __restrict__ mask,
             const float* __restrict__ weight,
-            const int* __restrict__ starts, float* __restrict__ out,
+            const int* __restrict__ starts, T* __restrict__ out,
             int emax, int tile_m, int slice_cols) {
   constexpr int L = kLanes;
   constexpr int kUnits = kThreads / L;  // fold units of a CTA
   constexpr int kBatch = L;             // slots a unit gathers at once
-  static_assert(C * VEC <= 8, "a lane holds at most 8 floats of a slot");
+  static_assert(C * VEC <= 8, "a lane holds at most 8 values of a slot");
   extern __shared__ int s_start[];      // tile_m + 1
   const int tid = threadIdx.x;
   const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * emax;
@@ -203,8 +262,8 @@ fold_kernel(const float* __restrict__ x, int f, const int* __restrict__ src,
 
   const int c0 = blockIdx.y * slice_cols;
   const int cols = min(slice_cols, f - c0);
-  const float* xs = x + c0;
-  float* out_blk = out + static_cast<int64_t>(blockIdx.x) * tile_m * f + c0;
+  const T* xs = x + c0;
+  T* out_blk = out + static_cast<int64_t>(blockIdx.x) * tile_m * f + c0;
   // a lane whose columns lie past the slice loads column 0 (the same line
   // as its unit's other loads) and never stores
   int col_ld[C];
@@ -252,7 +311,7 @@ fold_kernel(const float* __restrict__ x, int f, const int* __restrict__ src,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int su = __shfl_sync(0xffffffffu, cur_src, u, L);
-      const float* xr = xs + static_cast<int64_t>(su) * f;
+      const T* xr = xs + static_cast<int64_t>(su) * f;
 #pragma unroll
       for (int cc = 0; cc < C; ++cc) load_vec<VEC>(v[u][cc], xr + col_ld[cc]);
     }
@@ -313,9 +372,9 @@ fold_kernel(const float* __restrict__ x, int f, const int* __restrict__ src,
   for (; row < r_hi; ++row) store_row(row);  // the last row, empty rows
 }
 
-template <int VEC, int C>
-int launch(const float* x, const int* src, const int* dstl, const float* mask,
-           const float* weight, int* starts, float* out, int nblocks,
+template <typename T, int VEC, int C>
+int launch(const T* x, const int* src, const int* dstl, const float* mask,
+           const float* weight, int* starts, T* out, int nblocks,
            int emax, int f, int tile_m, int slice_cols, cudaStream_t stream) {
   const int smem = (tile_m + 1) * static_cast<int>(sizeof(int));
   row_starts_kernel<<<nblocks, kThreads, smem, stream>>>(dstl, mask, starts,
@@ -323,7 +382,7 @@ int launch(const float* x, const int* src, const int* dstl, const float* mask,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(nblocks, (f + slice_cols - 1) / slice_cols);
-  fold_kernel<VEC, C><<<grid, kThreads, smem, stream>>>(
+  fold_kernel<T, VEC, C><<<grid, kThreads, smem, stream>>>(
       x, f, src, mask, weight, starts, out, emax, tile_m, slice_cols);
   return static_cast<int>(cudaGetLastError());
 }
@@ -346,8 +405,42 @@ extern "C" int seg_agg_f32(const float* x, const int* src, const int* dstl,
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_SEG_AGG(V, CC)                                                 \
   if (vec == V && c == CC)                                                   \
-    return launch<V, CC>(x, src, dstl, mask, weight, starts, out, nblocks,  \
-                         emax, f, tile_m, slice_cols, st);
+    return launch<float, V, CC>(x, src, dstl, mask, weight, starts, out,    \
+                                nblocks, emax, f, tile_m, slice_cols, st);
+  REPRO_SEG_AGG(4, 1)
+  REPRO_SEG_AGG(4, 2)
+  REPRO_SEG_AGG(2, 1)
+  REPRO_SEG_AGG(2, 2)
+  REPRO_SEG_AGG(2, 3)
+  REPRO_SEG_AGG(2, 4)
+  REPRO_SEG_AGG(1, 1)
+  REPRO_SEG_AGG(1, 2)
+  REPRO_SEG_AGG(1, 3)
+  REPRO_SEG_AGG(1, 4)
+  REPRO_SEG_AGG(1, 5)
+  REPRO_SEG_AGG(1, 6)
+  REPRO_SEG_AGG(1, 7)
+  REPRO_SEG_AGG(1, 8)
+#undef REPRO_SEG_AGG
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same with x and out bf16 (f32 fold, one rounding at the store): vec
+// bf16 elements a load, vec in {1, 2, 4, 8} with f % vec == 0 and x
+// vec * 2-byte aligned, 8 * vec * c >= slice_cols and vec * c <= 8.
+extern "C" int seg_agg_bf16(const void* x, const int* src, const int* dstl,
+                            const float* mask, const float* weight,
+                            int* starts, void* out, int nblocks, int emax,
+                            int f, int tile_m, int slice_cols, int vec, int c,
+                            void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* xb = static_cast<const bf16*>(x);
+  auto* ob = static_cast<bf16*>(out);
+#define REPRO_SEG_AGG(V, CC)                                                 \
+  if (vec == V && c == CC)                                                   \
+    return launch<bf16, V, CC>(xb, src, dstl, mask, weight, starts, ob,     \
+                               nblocks, emax, f, tile_m, slice_cols, st);
+  REPRO_SEG_AGG(8, 1)
   REPRO_SEG_AGG(4, 1)
   REPRO_SEG_AGG(4, 2)
   REPRO_SEG_AGG(2, 1)

@@ -12,11 +12,21 @@ on chip and multiplied by ``W`` before anything is written::
 The kernel folds 64 destination rows per CTA, 64 input columns at a time,
 and multiplies each slice on the tensor cores in 3xTF32 (f32 accuracy).
 
+Three (x, W) dtype pairs are instantiated, the output in W's dtype as the
+reference's: (f32, f32); (bf16, bf16), a bf16 plan's fused layer; and
+(f32, bf16), a bf16 plan's fused dedup layer, whose ``[x ; partials]``
+rows are f32.  The fold and the product accumulate in f32 either way and
+a bf16 output is rounded once.  A bf16 W is exact in TF32, so its low
+part is 0 and the bf16-W instances take two TF32 products, not three.
+
 ``fused_agg_combine`` is the wrapper: a tensor on the CPU takes
 ``fused_agg_combine_plain``, a CUDA tensor launches the kernel or raises.
-``fused_agg_combine.launches`` counts the launches.  The launch shapes
-(``cols_per_wg``, ``smem_bytes``, ``slot_capacity``, ``scratch_bytes``)
-are pure functions of the shapes, so the CPU tests hold them.
+``fused_agg_combine.launches`` counts the launches,
+``fused_agg_combine.launches_bf16`` those with a bf16 W among them and
+``fused_agg_combine.launches_mixed`` those of the (f32, bf16) pair.  The
+launch shapes (``cols_per_wg``, ``smem_bytes``, ``slot_capacity``,
+``scratch_bytes``) are pure functions of the shapes, so the CPU tests hold
+them.
 """
 
 from __future__ import annotations
@@ -26,8 +36,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.seg_agg import (blocks_per_chunk, fold_blocks_plain,
-                                         launch_params)
+from repro_torch.kernels.seg_agg import (alignment, blocks_per_chunk,
+                                         fold_blocks_plain, launch_params)
 
 #: per-block shared memory limit (opt-in) of the H100
 _H100_SMEM_OPTIN = 232448
@@ -43,6 +53,13 @@ WARPGROUPS = 2
 MAX_COLS = 128
 #: output columns a warpgroup may own: the instantiated wgmma widths
 WG_COLS = (8, 16, 24, 32, 48, 64)
+#: lanes of a fold unit (csrc/fused_agg_combine.cu kLanes): a lane loads
+#: at most SLICE / FOLD_LANES = 4 elements of a slot at once
+FOLD_LANES = 16
+#: the instantiated (x dtype, W dtype) pairs, with their C entry's code
+PAIRS = {(torch.float32, torch.float32): 0,
+         (torch.bfloat16, torch.bfloat16): 1,
+         (torch.float32, torch.bfloat16): 2}
 #: the kernel's accuracy against its plain version, beside the max-abs f32
 #: band: each output row's largest error over that row's largest magnitude,
 #: and the relative Frobenius error.  3xTF32 keeps about 22 mantissa bits:
@@ -57,19 +74,44 @@ def fused_agg_combine_plain(x: torch.Tensor, src: torch.Tensor,
                             dstl: torch.Tensor, mask: torch.Tensor,
                             w: torch.Tensor, *, tile_m: int) -> torch.Tensor:
     """The plain PyTorch version: per chunk of blocks, the segmented sum of
-    the gathered rows, then ``@ w``.  The loop over blocks is the
+    the gathered rows in f32, then ``@ w`` in f32 (a bf16 W upcast, which
+    is exact), rounded once to W's dtype.  The loop over blocks is the
     ``lax.scan`` of the reference's ``fused_gcn_layer`` (:186-193), taken a
-    chunk of blocks at a time.  Returns ``(nblocks * tile_m, F_out)``."""
+    chunk of blocks at a time.  Returns ``(nblocks * tile_m, F_out)`` in
+    ``w.dtype``."""
     nblocks, emax = src.shape
     step = blocks_per_chunk(emax, x.shape[1])
+    wf = w if w.dtype == torch.float32 else w.float()
     out = torch.empty((nblocks * tile_m, w.shape[1]), dtype=w.dtype,
                       device=x.device)
     for b0 in range(0, nblocks, step):
         b1 = min(nblocks, b0 + step)
         agg = fold_blocks_plain(x, src[b0:b1], dstl[b0:b1], mask[b0:b1],
                                 None, tile_m)
-        out[b0 * tile_m:b1 * tile_m] = agg @ w
+        out[b0 * tile_m:b1 * tile_m] = agg @ wf
     return out
+
+
+def pair_code(x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """The C entry's code for an (x, W) dtype pair (``PAIRS``); a pair the
+    kernel is not instantiated for raises ``TypeError``."""
+    try:
+        return PAIRS[(x_dtype, w_dtype)]
+    except KeyError:
+        raise TypeError(
+            f"fused_agg_combine: x {x_dtype} with W {w_dtype}; the kernel "
+            f"takes (x, W) in " + ", ".join(
+                f"({a}, {b})" for a, b in PAIRS)) from None
+
+
+def load_vec(f_in: int, elt: int, align: int) -> int:
+    """Elements a fold lane loads at once for ``f_in`` columns of
+    ``elt``-byte elements at an address that is a multiple of ``align``:
+    ``seg_agg``'s load for 64-column slices (slices start at multiples of
+    64 columns, so every slice keeps x's alignment), at most
+    ``SLICE // FOLD_LANES`` = 4 elements (8 bytes of bf16)."""
+    return min(launch_params(f_in, SLICE, elt, align)[0],
+               SLICE // FOLD_LANES)
 
 
 def cols_per_wg(ncols: int) -> int:
@@ -118,18 +160,24 @@ def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     """Fused aggregate -> combine: the CUDA kernel for CUDA tensors, the
     plain version for tensors on the CPU.
 
-    x: (V, F_in) f32; src, dstl: (nblocks, emax) int32 (``dstl`` in
+    x: (V, F_in); src, dstl: (nblocks, emax) int32 (``dstl`` in
     ``[0, tile_m)``; in each block the valid slots, ``mask != 0``, come
     first and are sorted by ``dstl``, as ``core.dataflow.block_graph`` lays
     them out; ``src`` in ``[0, V)``); mask: (nblocks, emax) f32; w:
-    (F_in, F_out) f32.  Returns (nblocks * tile_m, F_out) f32, to f32
-    accuracy (the product in 3xTF32).  Launches on the current stream and
-    does not synchronize.
+    (F_in, F_out); (x, w) f32 and f32, bf16 and bf16, or f32 and bf16
+    (``PAIRS``).  Returns (nblocks * tile_m, F_out) in w's dtype: the
+    aggregate and the product (3xTF32, or two TF32 products for a bf16 W,
+    which TF32 holds exactly) to f32 accuracy, rounded once for bf16.
+    Launches on the current stream and does not synchronize.
     """
     if x.device.type == "cpu":
         return fused_agg_combine_plain(x, src, dstl, mask, w, tile_m=tile_m)
     out = _launch(x, src, dstl, mask, w, tile_m)
     fused_agg_combine.launches += 1
+    if w.dtype == torch.bfloat16:
+        fused_agg_combine.launches_bf16 += 1
+        if x.dtype == torch.float32:
+            fused_agg_combine.launches_mixed += 1
     return out
 
 
@@ -143,11 +191,12 @@ def _launch(x, src, dstl, mask, w, tile_m: int, *, terms: int = 3,
     nblocks, emax = src.shape
     f_in, f_out = (w.shape[0], w.shape[1]) if w.dim() == 2 else (-1, -1)
     lay = (nblocks, emax)
+    pair = pair_code(x.dtype, w.dtype)
     _build.check_args("fused_agg_combine", x.device, {
-        "x": (x, torch.float32, (None, f_in)),
+        "x": (x, x.dtype, (None, f_in)),
         "src": (src, torch.int32, lay), "dstl": (dstl, torch.int32, lay),
         "mask": (mask, torch.float32, lay),
-        "w": (w, torch.float32, (f_in, f_out))})
+        "w": (w, w.dtype, (f_in, f_out))})
     if not (tile_m > 0 and nblocks > 0 and emax > 0 and f_in > 0
             and f_out > 0):
         raise ValueError(f"fused_agg_combine: empty launch (tile_m={tile_m},"
@@ -164,23 +213,20 @@ def _launch(x, src, dstl, mask, w, tile_m: int, *, terms: int = 3,
             f"fused_agg_combine: F_out={f_out} with {cap} staged slots needs "
             f"{smem_bytes(f_out, cap)} bytes of shared memory per block; "
             f"this card allows {limit}")
-    out = torch.empty((nblocks * tile_m, f_out), dtype=torch.float32,
+    out = torch.empty((nblocks * tile_m, f_out), dtype=w.dtype,
                       device=x.device)
     wimg = torch.empty(scratch_bytes(f_in, f_out), dtype=torch.uint8,
                        device=x.device)
-    # seg_agg's load width for 64-column slices: slices start at multiples
-    # of 64 columns, so every slice keeps x's alignment
-    vec = launch_params(f_in, SLICE, x.data_ptr() % 16 == 0,
-                        x.data_ptr() % 8 == 0)[0]
-    fn = _build.load("fused_agg_combine").fused_agg_combine_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
+    vec = load_vec(f_in, x.element_size(), alignment(x))
+    fn = _build.load("fused_agg_combine").fused_agg_combine
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), src.data_ptr(), dstl.data_ptr(),
                  mask.data_ptr(), w.data_ptr(), out.data_ptr(),
                  wimg.data_ptr(), nblocks, emax, f_in, f_out, tile_m, vec,
-                 cap, terms, torch.cuda.current_stream().cuda_stream)
+                 cap, terms, pair, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"fused_agg_combine: kernel launch failed with "
                            f"CUDA error {err}")
@@ -188,3 +234,5 @@ def _launch(x, src, dstl, mask, w, tile_m: int, *, terms: int = 3,
 
 
 fused_agg_combine.launches = 0
+fused_agg_combine.launches_bf16 = 0
+fused_agg_combine.launches_mixed = 0

@@ -2,17 +2,25 @@
 
 ``seg_agg_planned`` (:115) and ``fused_agg_combine`` (:167) take a
 plan-owned ``core.dataflow.BlockedGraph``; ``flash_attention`` (:217) takes
-(B, H, S, D) heads.  All three dispatch by tier: ``torch``
-runs the kernels' plain versions on any device, ``cuda`` launches the CUDA
-kernels and raises for tensors that are not on a CUDA device.  No edge rows
-are gathered here: both kernels gather ``x`` themselves, and they walk any
-``emax``, so the reference's ``tile_e`` padding has no counterpart.
+(B, H, S, D) heads.  All dispatch by tier: ``torch`` runs the kernels'
+plain versions on any device, ``cuda`` launches the CUDA kernels and
+raises for tensors that are not on a CUDA device.  The planned entries
+gather no edge rows here: both kernels gather ``x`` themselves, and they
+walk any ``emax``, so the reference's ``tile_e`` padding has no
+counterpart.
+
+``seg_agg`` (:58) and ``seg_agg_pregrouped`` (:103) take rows already
+gathered: the slow path for one-off calls on graphs no plan laid out.
+They hand the rows to the ``seg_agg`` kernel as its ``x`` with the slots'
+sources ``arange``: ``seg_agg`` regroups the edges into blocks on the host
+on every call, ``seg_agg_pregrouped`` takes them blocked.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.backend import CUDA, TORCH, require_device
@@ -30,10 +38,72 @@ def _check_tier(backend: str, x: torch.Tensor) -> None:
 
 def launch_counts() -> dict:
     """Launches so far of each kernel wrapper, by kernel name.  The counts
-    are Python-side: a CUDA graph's replay moves none of them."""
+    are Python-side: a CUDA graph's replay moves none of them.
+    ``seg_agg`` and ``fused_agg_combine`` count every launch; the bf16
+    entries count those with a bf16 output among them (for
+    ``fused_agg_combine_bf16`` the f32-rows, bf16-W pair too, which
+    ``fused_agg_combine_mixed`` counts on its own)."""
     return {"seg_agg": k1.seg_agg.launches,
+            "seg_agg_bf16": k1.seg_agg.launches_bf16,
             "fused_agg_combine": k2.fused_agg_combine.launches,
+            "fused_agg_combine_bf16": k2.fused_agg_combine.launches_bf16,
+            "fused_agg_combine_mixed": k2.fused_agg_combine.launches_mixed,
             "flash_attention": k5.flash_attention.launches}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    k1.seg_agg.launches = k1.seg_agg.launches_bf16 = 0
+    k2.fused_agg_combine.launches = k2.fused_agg_combine.launches_bf16 = 0
+    k2.fused_agg_combine.launches_mixed = 0
+    k5.flash_attention.launches = 0
+
+
+def seg_agg(rows: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
+            tile_m: int = 128, *, backend: str) -> torch.Tensor:
+    """``segment_sum(rows, seg_ids)`` over pre-gathered rows -- the SLOW
+    path for one-off calls (``seg_agg``, :58).  ``seg_ids`` must be sorted
+    (destination-sorted edges).  Regroups the edges into blocks of
+    ``tile_m`` rows on the host on every call (a device-to-host copy of
+    ``seg_ids``), so it cannot run under a CUDA-graph capture; plans
+    regroup once and call ``seg_agg_planned``.  Returns
+    ``(num_segments, F)`` in ``rows.dtype``."""
+    from repro_torch.core.dataflow import block_graph_arrays
+    _check_tier(backend, rows)
+    seg = seg_ids.cpu().numpy()
+    if len(seg) and not (np.diff(seg) >= 0).all():
+        raise ValueError("seg_agg: seg_ids must be sorted (regroup the "
+                         "edges by destination first)")
+    bg = block_graph_arrays(np.arange(len(seg), dtype=np.int64), seg,
+                            num_segments, tile_m, device=rows.device)
+    fn = k1.seg_agg_plain if backend == TORCH else k1.seg_agg
+    return fn(rows, bg.src, bg.dstl, bg.mask, None,
+              tile_m=tile_m)[:num_segments]
+
+
+def seg_agg_pregrouped(rows_blocked: torch.Tensor, seg_local: torch.Tensor,
+                       mask: torch.Tensor, tile_m: int, *,
+                       backend: str) -> torch.Tensor:
+    """The kernel's entry for rows already grouped by destination block
+    (``seg_agg_pregrouped``, :103): rows (nblocks, emax, F), seg_local and
+    mask (nblocks, emax).  Each block's valid slots are moved first and
+    sorted by row on the device (stable, so each row keeps its slot
+    order), the order the kernel folds in.  Returns
+    ``(nblocks * tile_m, F)`` in ``rows_blocked.dtype``."""
+    _check_tier(backend, rows_blocked)
+    nblocks, emax, f = rows_blocked.shape
+    dev = rows_blocked.device
+    mask = mask.to(torch.float32)
+    seg_local = seg_local.to(torch.int32)
+    key = torch.where(mask != 0, seg_local, tile_m)
+    order = torch.sort(key, dim=1, stable=True).indices
+    src = (torch.arange(nblocks, device=dev)[:, None] * emax
+           + order).to(torch.int32)
+    dstl = torch.gather(seg_local, 1, order).contiguous()
+    mask = torch.gather(mask, 1, order).contiguous()
+    fn = k1.seg_agg_plain if backend == TORCH else k1.seg_agg
+    return fn(rows_blocked.reshape(nblocks * emax, f).contiguous(),
+              src.contiguous(), dstl, mask, None, tile_m=tile_m)
 
 
 def seg_agg_planned(bg, x: torch.Tensor,
@@ -41,9 +111,11 @@ def seg_agg_planned(bg, x: torch.Tensor,
                     backend: str) -> torch.Tensor:
     """Segmented sum over a plan-owned blocked layout.
 
-    x: (V, F); ``edge_weight``: optional (E,) per-edge scalar, regrouped
-    into the blocked layout through ``bg.eidx`` (one gather).  Returns
-    (V, F): ``sum_{(u,v) in E} w_uv * x_u`` per destination v.
+    x: (R, F), where R is V or, for a dedup plan's level-2 layout, the
+    V + P rows of ``[x ; partials]``; ``edge_weight``: optional (E,)
+    per-edge scalar, regrouped into the blocked layout through ``bg.eidx``
+    (one gather).  Returns (V, F) in x's dtype: ``sum_{(u,v) in E} w_uv *
+    x_u`` per destination v.
     """
     _check_tier(backend, x)
     weight = None
@@ -62,8 +134,10 @@ def fused_agg_combine(src: torch.Tensor, dst_local: torch.Tensor,
                       tile_m: int, backend: str) -> torch.Tensor:
     """Fused segmented sum + ``@ w`` per destination block.
 
-    src/dst_local/mask: (nblocks, emax) BlockedGraph layout; x: (V, F_in);
-    w: (F_in, F_out).  Returns (nblocks * tile_m, F_out).
+    src/dst_local/mask: (nblocks, emax) BlockedGraph layout; x: (V, F_in)
+    (``src`` may index past V: a dedup plan gathers from ``[x ;
+    partials]``); w: (F_in, F_out).  Returns (nblocks * tile_m, F_out) in
+    ``w.dtype``.
     """
     _check_tier(backend, x)
     fn = k2.fused_agg_combine_plain if backend == TORCH \

@@ -8,11 +8,15 @@ blocked layout's ``src`` and gathers itself, so that slab never exists::
     out[b*tile_m + m] = sum_{e: dstl[b,e]=m, mask[b,e]!=0}
                             mask[b,e] * weight[b,e] * x[src[b,e]]
 
+x and the output are f32 or bf16 (the reference's ``rows.dtype``); the
+fold is f32 either way and a bf16 output is rounded once, at the store.
+
 ``seg_agg`` is the wrapper: a tensor on the CPU takes ``seg_agg_plain``, a
 CUDA tensor launches the kernel or raises.  ``seg_agg.launches`` counts the
-launches.  The kernel walks x in column slices of ``slice_cols`` with
-16-, 8- or 4-byte loads (``launch_params``), both pure functions of the
-shapes, so the CPU tests hold them.
+launches, ``seg_agg.launches_bf16`` the bf16 ones among them.  The kernel
+walks x in column slices of ``slice_cols`` with 16-, 8-, 4- or (bf16)
+2-byte loads (``launch_params``), both pure functions of the shapes, so
+the CPU tests hold them.
 """
 
 from __future__ import annotations
@@ -35,21 +39,29 @@ PLAIN_CHUNK_BYTES = 1 << 28
 MAX_SLICE = 64
 #: lanes of a fold unit (csrc/seg_agg.cu kLanes)
 UNIT_LANES = 8
+#: what a lane of a fold unit holds of one slot, in elements
+LANE_ELEMS = 8
+#: the element types the kernel takes, with its C entry for each
+ENTRIES = {torch.float32: "seg_agg_f32", torch.bfloat16: "seg_agg_bf16"}
 
 
 def fold_blocks_plain(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
                       mask: torch.Tensor, weight: Optional[torch.Tensor],
                       tile_m: int) -> torch.Tensor:
     """Segmented sum of the gathered rows of a few blocks, plain PyTorch:
-    ``(nb, emax)`` layout in, ``(nb * tile_m, F)`` out.  Pad slots
+    ``(nb, emax)`` layout in, ``(nb * tile_m, F)`` f32 out.  The gathered
+    rows are upcast to f32 (exact) before the coefficients; pad slots
     (``mask == 0``) are dropped with ``where``, never multiplied by 0."""
     nb = src.shape[0]
     coef = mask if weight is None else mask * weight
-    rows = x[src.reshape(-1).long()] * coef.reshape(-1, 1)
+    rows = x[src.reshape(-1).long()]
+    if rows.dtype != torch.float32:
+        rows = rows.float()
+    rows = rows * coef.reshape(-1, 1)
     rows = torch.where((mask != 0).reshape(-1, 1), rows, 0.0)
     seg = (torch.arange(nb, device=x.device)[:, None] * tile_m
            + dstl).reshape(-1).long()
-    out = torch.zeros((nb * tile_m, x.shape[1]), dtype=x.dtype,
+    out = torch.zeros((nb * tile_m, x.shape[1]), dtype=torch.float32,
                       device=x.device)
     return out.index_add_(0, seg, rows)
 
@@ -63,7 +75,8 @@ def seg_agg_plain(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
                   mask: torch.Tensor, weight: Optional[torch.Tensor] = None,
                   *, tile_m: int) -> torch.Tensor:
     """The plain PyTorch version of the kernel: the same function, folded a
-    chunk of blocks at a time.  Returns ``(nblocks * tile_m, F)``."""
+    chunk of blocks at a time in f32.  Returns ``(nblocks * tile_m, F)``
+    in x's dtype (one rounding for bf16)."""
     nblocks, emax = src.shape
     step = blocks_per_chunk(emax, x.shape[1])
     out = torch.empty((nblocks * tile_m, x.shape[1]), dtype=x.dtype,
@@ -82,20 +95,40 @@ def slice_cols(f: int) -> int:
     return min(f, MAX_SLICE)
 
 
-def launch_params(f: int, width: int, aligned16: bool,
-                  aligned8: bool) -> tuple[int, int]:
-    """(vec, c): floats per load and loads per slot of one lane, for F
-    columns walked in slices of ``width``.  16-byte loads when F and the
-    width are multiples of 4 and x is 16-byte aligned, 8-byte when they are
-    even and 8-byte aligned, else 4-byte; c = ceil(width / (8 vec)) loads a
-    slot for each of a fold unit's ``UNIT_LANES`` lanes."""
-    if f % 4 == 0 and width % 4 == 0 and aligned16:
-        vec = 4
-    elif f % 2 == 0 and width % 2 == 0 and aligned8:
-        vec = 2
-    else:
-        vec = 1
+def launch_params(f: int, width: int, elt: int,
+                  align: int) -> tuple[int, int]:
+    """(vec, c): elements per load and loads per slot of one lane, for F
+    columns of ``elt``-byte elements (4: f32, 2: bf16) walked in slices of
+    ``width``, x's address a multiple of ``align`` bytes.  The widest load
+    of 16, 8, 4 or 2 bytes (at least one element) whose element count
+    divides F and the width and whose size divides ``align``; then
+    c = ceil(width / (8 vec)) loads a slot for each of a fold unit's
+    ``UNIT_LANES`` lanes.  For bf16: F = 128 takes 16-byte loads; F = 602
+    (1,204-byte rows) 4-byte; F = 41 (82-byte rows) 2-byte."""
+    vec = 1
+    for nbytes in (16, 8, 4):
+        n = nbytes // elt
+        if f % n == 0 and width % n == 0 and align % nbytes == 0:
+            vec = n
+            break
     return vec, -(-width // (UNIT_LANES * vec))
+
+
+def alignment(t: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides ``t``'s address."""
+    a = 16
+    while t.data_ptr() % a:
+        a //= 2
+    return a
+
+
+def _entry(kernel: str, dtype: torch.dtype) -> str:
+    """The C entry for x's dtype; any other dtype raises ``TypeError``."""
+    try:
+        return ENTRIES[dtype]
+    except KeyError:
+        raise TypeError(f"{kernel}: x is {dtype}; the kernel takes "
+                        f"{' or '.join(str(d) for d in ENTRIES)}") from None
 
 
 def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
@@ -104,12 +137,13 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     """Blocked segmented sum: the CUDA kernel for CUDA tensors, the plain
     version for tensors on the CPU.
 
-    x: (V, F) f32; src, dstl: (nblocks, emax) int32 (``dstl`` in
+    x: (V, F) f32 or bf16; src, dstl: (nblocks, emax) int32 (``dstl`` in
     ``[0, tile_m)``; in each block the valid slots, ``mask != 0``, come
     first and are sorted by ``dstl``, as ``core.dataflow.block_graph`` lays
     them out; ``src`` in ``[0, V)``); mask, weight: (nblocks, emax) f32
-    (``weight`` optional).  Returns (nblocks * tile_m, F) f32.  Launches on
-    the current stream and does not synchronize.
+    (``weight`` optional).  Returns (nblocks * tile_m, F) in x's dtype:
+    f32 sums, rounded once for bf16.  Launches on the current stream and
+    does not synchronize.
     """
     if x.device.type == "cpu":
         return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m)
@@ -125,7 +159,8 @@ def _launch(x, src, dstl, mask, weight, tile_m: int,
     nblocks, emax = src.shape
     f = x.shape[1] if x.dim() == 2 else -1
     lay = (nblocks, emax)
-    args = {"x": (x, torch.float32, (None, f)),
+    entry = _entry("seg_agg", x.dtype)
+    args = {"x": (x, x.dtype, (None, f)),
             "src": (src, torch.int32, lay), "dstl": (dstl, torch.int32, lay),
             "mask": (mask, torch.float32, lay)}
     if weight is not None:
@@ -137,13 +172,11 @@ def _launch(x, src, dstl, mask, weight, tile_m: int,
     if not 0 < width <= min(f, MAX_SLICE):
         raise ValueError(f"seg_agg: slice width {width} must be in "
                          f"[1, min(F={f}, {MAX_SLICE})]")
-    out = torch.empty((nblocks * tile_m, f), dtype=torch.float32,
-                      device=x.device)
+    out = torch.empty((nblocks * tile_m, f), dtype=x.dtype, device=x.device)
     starts = torch.empty((nblocks, tile_m + 1), dtype=torch.int32,
                          device=x.device)
-    vec, c = launch_params(f, width, x.data_ptr() % 16 == 0,
-                           x.data_ptr() % 8 == 0)
-    fn = _build.load("seg_agg").seg_agg_f32
+    vec, c = launch_params(f, width, x.element_size(), alignment(x))
+    fn = getattr(_build.load("seg_agg"), entry)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -157,7 +190,10 @@ def _launch(x, src, dstl, mask, weight, tile_m: int,
         raise RuntimeError(f"seg_agg: kernel launch failed with CUDA error "
                            f"{err}")
     seg_agg.launches += 1
+    if x.dtype == torch.bfloat16:
+        seg_agg.launches_bf16 += 1
     return out
 
 
 seg_agg.launches = 0
+seg_agg.launches_bf16 = 0

@@ -17,10 +17,14 @@ the aggregation, the dtype, and whether compiled times contradict
 On a card the probe synchronizes before and after each phase, so a phase's
 wall time is its device work plus its launches.  ``run_model(...,
 compiled=True)`` also times ``plan.compile()`` (whole forward and each
-layer) with ``profile.bench.timeit``.  The port's plans are local and f32,
-so the collective, overlap, dedup and quantization fields of every record
-are 0; they stay in the schema shared with the reference
-(``tests/golden/workload_report.schema.json``).
+layer) with ``profile.bench.timeit``.  Each record carries the plan's
+dtype as the phase ran it (an int8-agg plan's combine is f32), the
+quantization error the probe measured, and for a dedup plan's
+aggregations the matched pairs, the adds they save and the two-level
+layout's bytes (``graph.dedup.dedup_cost``); the report says whether the
+reorder permutation ran at ingress.  The port's plans are local, so the
+collective and overlap fields are 0; they stay in the schema shared with
+the reference (``tests/golden/workload_report.schema.json``).
 """
 
 from __future__ import annotations
@@ -114,6 +118,13 @@ class _Probe:
         self.plan = plan
         self.machine = machine
         self.records: List[PhaseRecord] = []
+        self.reorder_applied = False   # set by the plan's ingress permute
+
+    def note_reorder(self) -> None:
+        """Called by ``GraphExecutionPlan._ingress`` when the planned
+        renumbering runs: what ``mismatches`` holds describe()'s
+        ``reorder`` against."""
+        self.reorder_applied = True
 
     def _sync(self) -> None:
         if self.plan.device.type == "cuda":
@@ -127,6 +138,10 @@ class _Probe:
         self._sync()
         dt = time.perf_counter() - t0
         flops, byt, flen = self._cost(name, lp, meta)
+        # the storage precision the phase ran at: int8-agg quantizes only
+        # the aggregation operand, so its combine records stay f32
+        pd = self.plan.dtype
+        lay = self._dedup_layout(name)
         self.records.append(PhaseRecord(
             layer=lp.index, phase=name, order=lp.order,
             # the tier as dispatch resolves it at call time, not lp.backend
@@ -136,18 +151,43 @@ class _Probe:
             fused=(name == "fused_agg_combine"),
             feature_len=int(flen), flops=float(flops), bytes=float(byt),
             collective_bytes=0.0, wall_time_s=float(dt),
-            bound=self.machine.classify(flops / max(1.0, byt))))
+            bound=self.machine.classify(flops / max(1.0, byt)),
+            dtype="f32" if (pd == "int8-agg" and name == "combine") else pd,
+            quant_error=float(meta.get("quant_error", 0.0)),
+            dedup_pairs=lay.num_pairs if lay else 0,
+            dedup_flops_saved=float(lay.flops_saved(int(flen)))
+            if lay else 0.0))
         return out
+
+    def _dedup_layout(self, phase_name: str):
+        """The plan's two-level layout when this phase ran over it (an
+        aggregation of a resolved ``dedup="pairs"`` plan)."""
+        if phase_name not in ("aggregate", "fused_agg_combine") or \
+                self.plan.dedup != "pairs":
+            return None
+        return self.plan.dedup_layout
+
+    def _agg_cost(self, name, lp, flen):
+        """The aggregation's analytic cost: ``dedup_cost`` of the
+        two-level layout when this phase ran over it, ``aggregate_cost``
+        otherwise (``_agg_cost``, :208)."""
+        from repro_torch.core.phases import aggregate_cost
+        lay = self._dedup_layout(name)
+        if lay is not None:
+            from repro_torch.graph.dedup import dedup_cost
+            return dedup_cost(lay, flen, include_self=lp.include_self)
+        return aggregate_cost(self.plan.g, flen,
+                              include_self=lp.include_self)
 
     def _cost(self, name, lp, meta):
         """(flops, bytes, feature_len) of one phase, from the models the
         scheduler prices (``_cost``, :220)."""
-        from repro_torch.core.phases import aggregate_cost, combine_cost
+        from repro_torch.core.phases import combine_cost
         g = self.plan.g
         v = g.num_vertices
         if name == "aggregate":
             flen = meta["feature_len"]
-            c = aggregate_cost(g, flen, include_self=lp.include_self)
+            c = self._agg_cost(name, lp, flen)
             return c["flops"], c["bytes"], flen
         if name == "combine":
             dims = meta["dims"]
@@ -158,7 +198,7 @@ class _Probe:
             # intermediate never round-trips memory, so its write + read
             # bytes are subtracted
             din, dout = meta["dims"]
-            agg = aggregate_cost(g, din, include_self=lp.include_self)
+            agg = self._agg_cost(name, lp, din)
             comb = combine_cost(v, (din, dout))
             saved = 2 * v * din * _DTYPE_BYTES
             byt = max(agg["bytes"] + comb["bytes"] - saved, 1)
@@ -333,6 +373,11 @@ class WorkloadReport:
     #: {"model_s": float, "layers_s": [float per layer]} when the run also
     #: timed ``plan.compile()`` (None otherwise)
     compiled_times: Optional[Dict[str, Any]] = None
+    #: whether the plan's ingress permutation was observed running
+    reorder_applied: bool = False
+    #: the instrumented entry ("model" runs the ingress and egress;
+    #: "layer" and "phases" do not)
+    entry: str = "model"
 
     def totals(self) -> Dict[str, float]:
         """Summed FLOPs / bytes / collective bytes / wall time over phases."""
@@ -415,6 +460,17 @@ class WorkloadReport:
             f"{tot['flops'] / max(1.0, tot['bytes']):.2f} |  | "
             f"{tot['collective_bytes']:.3g} | "
             f"{tot['wall_time_s'] * 1e6:.1f} | 100.0 |")
+        ded = [r for r in self.records if r.dedup_pairs > 0]
+        if ded:
+            saved = sum(r.dedup_flops_saved for r in ded)
+            naive = saved + tot["flops"]
+            lines += [
+                "",
+                f"Dedup: {ded[0].dedup_pairs} matched pairs — "
+                f"{saved:.3e} aggregation FLOPs eliminated "
+                f"({100 * saved / max(naive, 1e-12):.1f}% of the naive "
+                "fold's total)",
+            ]
         sp = self.compiled_speedup()
         if sp is not None:
             ct = self.compiled_times
@@ -439,14 +495,21 @@ class WorkloadReport:
 
     def mismatches(self, plan) -> List[str]:
         """Cross-check ``plan.describe()`` against the dispatched phases
-        (``mismatches``, :651): whether the fused phase ran, the dtype of
-        every record, the tier each aggregation resolved to, the executed
-        phase order, and compiled times against ``compiled=False``.  The
-        reference's reorder, dedup and overlap checks have nothing to
-        observe on the port's local f32 plans.  Empty list == describe()
-        is truthful."""
+        (``mismatches``, :651): whether the reorder permutation ran at
+        ingress (``run_model`` reports only), whether the fused phase ran,
+        the dtype of every record (f32 for an int8-agg plan's combine),
+        whether each aggregation ran over the dedup layout, the tier each
+        aggregation resolved to, the executed phase order, and compiled
+        times against ``compiled=False``.  The reference's overlap check
+        has nothing to observe on the port's local plans.  Empty list ==
+        describe() is truthful."""
         out: List[str] = []
         for d in plan.describe():
+            if self.entry == "model":
+                seen = "degree" if self.reorder_applied else "none"
+                if d["reorder"] != seen:
+                    out.append(f"layer {d['layer']}: describe reorder="
+                               f"{d['reorder']} but ingress observed {seen}")
             if self.compiled_times is not None and \
                     d.get("compiled") is False:
                 out.append(f"layer {d['layer']}: describe compiled=False "
@@ -460,10 +523,18 @@ class WorkloadReport:
                 out.append(f"layer {d['layer']}: describe fused={d['fused']} "
                            f"but executed phases {seq}")
             for r in recs:
-                if r.dtype != d["dtype"]:
+                want = "f32" if (d["dtype"] == "int8-agg"
+                                 and r.phase == "combine") else d["dtype"]
+                if r.dtype != want:
                     out.append(f"layer {d['layer']}: describe dtype="
                                f"{d['dtype']} but {r.phase} record carries "
                                f"{r.dtype}")
+                if r.phase in ("aggregate", "fused_agg_combine"):
+                    seen = "pairs" if r.dedup_pairs > 0 else "none"
+                    if d["dedup"] != seen:
+                        out.append(f"layer {d['layer']}: describe dedup="
+                                   f"{d['dedup']} but {r.phase} record "
+                                   f"carries dedup_pairs={r.dedup_pairs}")
                 if r.phase != "combine" and r.backend != d["backend"]:
                     out.append(f"layer {d['layer']}: describe backend="
                                f"{d['backend']} but {r.phase} used "
@@ -503,10 +574,12 @@ class InstrumentedPlan:
         return {"num_layers": self.plan.num_layers, "partition": "none",
                 "interpret": False, "layers": self.plan.describe()}
 
-    def _report(self, probe: _Probe, out) -> WorkloadReport:
+    def _report(self, probe: _Probe, out, entry: str) -> WorkloadReport:
         return WorkloadReport(machine=self.machine,
                               plan_summary=self._summary(),
-                              records=probe.records, output=out)
+                              records=probe.records, output=out,
+                              reorder_applied=probe.reorder_applied,
+                              entry=entry)
 
     @staticmethod
     def _time(fn, *args) -> float:
@@ -518,11 +591,12 @@ class InstrumentedPlan:
     def _compiled_times(self, params, x) -> Dict[str, Any]:
         """Wall times of ``plan.compile()`` -- the whole forward and each
         planned layer compiled on its own (``plan.compile(layer=i)``),
-        walking the layer/ReLU sequence ``run_model`` executes."""
+        walking the ingress/layer/ReLU sequence ``run_model`` executes, in
+        the plan's execution layout."""
         plan = self.plan
         model_s = self._time(plan.compile(), params, x)
         layers_s = []
-        h = x
+        h = plan._ingress(x)
         for i in range(plan.num_layers):
             sub = params[f"conv{i}"]
             fl = plan.compile(layer=i)
@@ -544,7 +618,7 @@ class InstrumentedPlan:
                 self.plan.run_model(params, x)
             probe = _Probe(self.plan, self.machine)
             out = self.plan.run_model(params, x, _probe=probe)
-        report = self._report(probe, out)
+        report = self._report(probe, out, "model")
         if compiled:
             report.compiled_times = self._compiled_times(params, x)
         return report
@@ -554,11 +628,11 @@ class InstrumentedPlan:
         probe = _Probe(self.plan, self.machine)
         with torch.no_grad():
             out = self.plan.run_layer(params, x, layer=layer, _probe=probe)
-        return self._report(probe, out)
+        return self._report(probe, out, "layer")
 
     def run_phases(self, x, weights, **kw) -> WorkloadReport:
         """Instrumented raw weight-list layer (``plan.run_phases``)."""
         probe = _Probe(self.plan, self.machine)
         with torch.no_grad():
             out = self.plan.run_phases(x, weights, _probe=probe, **kw)
-        return self._report(probe, out)
+        return self._report(probe, out, "phases")

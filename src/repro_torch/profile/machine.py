@@ -1,9 +1,13 @@
 """Machine: one dataclass describing the hardware a cost model targets.
 
 A copy of ``Machine``, its five presets and ``get_machine`` from
-``repro/profile/machine.py`` (:51-219).  The port's default machine is
-``H100`` (the card it runs on); the reference's ``machine_for_backend``,
-which maps its GPU tier to ``A100``, is deliberately not carried over.
+``repro/profile/machine.py`` (:51-219), and of the two priced decisions of
+``build_plan``: the execution dtype (``dtype_model`` / ``choose_dtype``,
+:244-337) and pair dedup (``dedup_model`` / ``choose_dedup``, :340-413).
+The port's default machine is ``H100`` (the card it runs on); the
+reference's ``machine_for_backend``, which maps its GPU tier to ``A100``,
+is deliberately not carried over, so a ``machine=None`` here prices on
+``H100`` where the reference's functions default to ``TPU_V5E``.
 
 Presets::
 
@@ -18,7 +22,7 @@ Presets::
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 
 @dataclass(frozen=True)
@@ -72,6 +76,12 @@ class Machine:
     def interconnect_total(self) -> float:
         """Aggregate interconnect bandwidth (all links), bytes/s."""
         return self.interconnect_bw * self.interconnect_links
+
+    def hop_time(self, nbytes: float) -> float:
+        """Seconds for one interconnect hop moving ``nbytes`` over a single
+        link (``hop_time``, :113): ``link_latency_s + nbytes /
+        interconnect_bw``."""
+        return self.link_latency_s + nbytes / self.interconnect_bw
 
     def tile_budget(self) -> int:
         """On-chip bytes one fused tile may claim: half of VMEM on TPU, an
@@ -155,3 +165,129 @@ def get_machine(name_or_machine) -> Machine:
     except KeyError:
         raise ValueError(f"unknown machine {name_or_machine!r}; "
                          f"known: {sorted(MACHINES)}") from None
+
+
+# --------------------------------------------------------------------------
+# Execution dtype as a priced decision (build_plan(dtype="auto"))
+# --------------------------------------------------------------------------
+
+#: storage bytes per element at each plan dtype; ``int8-agg`` is the width
+#: of the aggregation operand only (combination stays f32)
+DTYPE_BYTES: Dict[str, int] = {"f32": 4, "bf16": 2, "int8-agg": 1}
+
+#: least modeled fractional saving before ``choose_dtype`` leaves f32
+DTYPE_SAVING_THRESHOLD = 0.05
+
+
+def dtype_model(num_vertices: int, num_edges: int, feature_len: int,
+                out_len: Optional[int] = None, *,
+                machine: Machine = None, num_shards: int = 1,
+                dtypes=("f32", "bf16")) -> Dict[str, Dict[str, float]]:
+    """Modeled time of one layer at each candidate dtype (``dtype_model``,
+    :247): the aggregation's HBM bytes (E gathered rows, V rows read and
+    written, 8-byte edge indices) at the dtype's width, the combination's
+    FLOPs at ``matmul_peak(dtype)`` against its bytes, the ring halo's
+    hops when sharded, and the rows of ``feature_len`` one tile budget
+    holds.  Returns ``{dtype: {"agg_s", "combine_s", "halo_s", "total_s",
+    "tile_rows"}}``."""
+    machine = get_machine(machine)
+    out_len = feature_len if out_len is None else out_len
+    v, e, f = float(num_vertices), float(num_edges), float(feature_len)
+    out = {}
+    for dt in dtypes:
+        b = float(DTYPE_BYTES[dt])
+        comb_b = 4.0 if dt == "int8-agg" else b
+        agg_s = ((e + 2.0 * v) * f * b + e * 8.0) / machine.hbm_bw
+        flops = 2.0 * v * f * out_len
+        comb_bytes = v * (f + out_len) * comb_b + f * out_len * comb_b
+        comb_s = max(flops / machine.matmul_peak(dt),
+                     comb_bytes / machine.hbm_bw)
+        halo_s = 0.0
+        if num_shards > 1:
+            block = -(-num_vertices // num_shards)
+            halo_s = (num_shards - 1) * machine.hop_time(block * f * b)
+        out[dt] = {"agg_s": agg_s, "combine_s": comb_s, "halo_s": halo_s,
+                   "total_s": agg_s + comb_s + halo_s,
+                   "tile_rows": float(machine.tile_budget() //
+                                      max(1, int(f * b)))}
+    return out
+
+
+def choose_dtype(num_vertices: int, num_edges: int, feature_len: int,
+                 out_len: Optional[int] = None, *,
+                 machine: Machine = None, num_shards: int = 1) -> str:
+    """Resolve ``build_plan(dtype="auto")`` to "f32" or "bf16"
+    (``choose_dtype``, :299): bf16 when ``dtype_model`` prices it at least
+    ``DTYPE_SAVING_THRESHOLD`` below f32.  "int8-agg" is never chosen.
+
+    >>> choose_dtype(256, 1024, 128, machine=V100)
+    'f32'
+    >>> choose_dtype(256, 1024, 128, machine=TPU_V5E)
+    'bf16'
+    """
+    model = dtype_model(num_vertices, num_edges, feature_len, out_len,
+                        machine=machine, num_shards=num_shards,
+                        dtypes=("f32", "bf16"))
+    f32_s, bf16_s = model["f32"]["total_s"], model["bf16"]["total_s"]
+    if f32_s <= 0:
+        return "f32"
+    return "bf16" if (f32_s - bf16_s) / f32_s >= DTYPE_SAVING_THRESHOLD \
+        else "f32"
+
+
+# --------------------------------------------------------------------------
+# Pair-redundancy elimination as a priced decision (build_plan(dedup="auto"))
+# --------------------------------------------------------------------------
+
+#: least modeled fractional aggregation saving before ``choose_dedup``
+#: leaves the naive layout
+DEDUP_SAVING_THRESHOLD = 0.05
+
+
+def dedup_model(num_vertices: int, num_edges: int, feature_len: int, *,
+                num_pairs: int, num_edges2: int,
+                machine: Machine = None,
+                dtype: str = "f32") -> Dict[str, Dict[str, float]]:
+    """The aggregation naive against two-level dedup (``dedup_model``,
+    :343), both as HBM bytes over ``machine.hbm_bw`` at the dtype's width:
+    naive ``(E + 2V) F B + 8E``; pairs ``(E2 + 3P + 2V) F B + 8 E2 + 8P``.
+    Returns ``{"none": {...}, "pairs": {...}}`` with ``agg_bytes``,
+    ``agg_s``, ``flops`` and ``saving`` (fraction of the naive time)."""
+    machine = get_machine(machine)
+    b = float(DTYPE_BYTES.get(dtype, 4))
+    v, e, f = float(num_vertices), float(num_edges), float(feature_len)
+    p, e2 = float(num_pairs), float(num_edges2)
+    naive_bytes = (e + 2.0 * v) * f * b + e * 8.0
+    dedup_bytes = (e2 + 3.0 * p + 2.0 * v) * f * b + e2 * 8.0 + 2.0 * p * 4.0
+    naive_s = naive_bytes / machine.hbm_bw
+    dedup_s = dedup_bytes / machine.hbm_bw
+    saving = (naive_s - dedup_s) / naive_s if naive_s > 0 else 0.0
+    return {
+        "none": {"agg_bytes": naive_bytes, "agg_s": naive_s,
+                 "flops": (e + v) * f, "saving": 0.0},
+        "pairs": {"agg_bytes": dedup_bytes, "agg_s": dedup_s,
+                  "flops": (p + e2 + v) * f, "saving": saving},
+    }
+
+
+def choose_dedup(num_vertices: int, num_edges: int, feature_len: int, *,
+                 num_pairs: int, num_edges2: int,
+                 machine: Machine = None, dtype: str = "f32") -> str:
+    """Resolve ``build_plan(dedup="auto")`` to "none" or "pairs"
+    (``choose_dedup``, :385): "pairs" when ``dedup_model`` saves at least
+    ``DEDUP_SAVING_THRESHOLD`` of the naive aggregation time.
+
+    >>> choose_dedup(96, 128, 128, num_pairs=8, num_edges2=80,
+    ...              machine=TPU_V5E)
+    'pairs'
+    >>> choose_dedup(96, 128, 128, num_pairs=2, num_edges2=126,
+    ...              machine=TPU_V5E)
+    'none'
+    """
+    if num_pairs <= 0:
+        return "none"
+    model = dedup_model(num_vertices, num_edges, feature_len,
+                        num_pairs=num_pairs, num_edges2=num_edges2,
+                        machine=machine, dtype=dtype)
+    return "pairs" if model["pairs"]["saving"] >= DEDUP_SAVING_THRESHOLD \
+        else "none"

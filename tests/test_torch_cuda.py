@@ -42,6 +42,16 @@ BF16_TOL = 3e-2
 #: output's largest magnitude, which rows with few keys set; these hold a
 #: row that averages many keys to its own scale
 ROW_LIMIT = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+#: K1's and K2's bf16 outputs per row (chip_smoke.py AGG_BF16_ROW_LIMIT):
+#: kernel and plain version both round an f32 sum once, and the two f32
+#: sums differ by a few f32 ulps (other addition orders, 3xTF32), so an
+#: element rounds to the same bf16 or to its neighbour: at most one bf16
+#: ulp, 2^-7 = 7.8e-3 of the row's largest magnitude
+AGG_BF16_ROW_LIMIT = 1e-2
+#: the int8-agg band: the tiers' f32 sums differ by ulps, and a value near
+#: a step of the int8 grid then lands on the neighbouring step of the other
+#: tier's quantization, one step of max|row| / 127
+INT8_TOL = 2e-2
 
 
 @pytest.fixture(scope="module")
@@ -532,3 +542,229 @@ def test_capture_failure_raises(card, monkeypatch):
     with pytest.raises(RuntimeError):
         fn(m.tree(), x)
     assert fn.num_traces == 1 and not fn._traces
+
+
+# ---------------------------------------------------------------------------
+# bf16 instances of K1 and K2, and the planner's other decisions on the card
+# ---------------------------------------------------------------------------
+
+
+def _offset(x, k):
+    """A contiguous copy of ``x`` starting ``k`` elements into a buffer, so
+    that its address is only ``k * element_size`` aligned (for k = 1, 2:
+    2- or 4-byte aligned bf16)."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[k:k + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("f", [1, 7, 41, 128, 602])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_seg_agg_bf16_matches_plain(card, f, offset, weighted):
+    """K1 in bf16 over a ragged layout (an empty block, rows without
+    edges), x offset so rows are only 2- or 4-byte aligned: bf16 out,
+    within the bf16 band and one bf16 ulp a row, two launches bitwise
+    equal, the empty block exactly 0, launches counted under bf16."""
+    bg = _ragged_layout()
+    gen = torch.Generator(device="cuda").manual_seed(f + offset)
+    x = _offset(torch.randn((bg.num_vertices, f), generator=gen,
+                            device="cuda").to(torch.bfloat16), offset)
+    w = torch.rand(bg.src.shape, generator=gen, device="cuda") \
+        if weighted else None
+    args = (x, bg.src, bg.dstl, bg.mask, w)
+    n, nb = k1.seg_agg.launches, k1.seg_agg.launches_bf16
+    got = k1.seg_agg(*args, tile_m=bg.tile_m)
+    again = k1.seg_agg(*args, tile_m=bg.tile_m)
+    assert (k1.seg_agg.launches, k1.seg_agg.launches_bf16) == (n + 2, nb + 2)
+    want = k1.seg_agg_plain(*args, tile_m=bg.tile_m)
+    assert got.dtype == want.dtype == torch.bfloat16
+    _close(got, want, BF16_TOL)
+    _rows_close(got, want, AGG_BF16_ROW_LIMIT)
+    assert torch.equal(got, again)
+    assert not got[bg.tile_m:2 * bg.tile_m].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_agg_over_dedup_rows(card, dtype):
+    """A dedup plan's level-2 layout gathers from the V + P rows of
+    [x ; partials]; K1 in both dtypes against its plain version."""
+    from repro_torch.graph.dedup import attach_blocked, dedup_layout_for_graph
+    spec, g, x = card
+    lay = attach_blocked(dedup_layout_for_graph(g), 128)
+    assert lay.num_pairs > 0
+    xp = torch.cat([x, x[lay.pair_left.long()] + x[lay.pair_right.long()]])
+    xp = xp.to(dtype)
+    got = ops.seg_agg_planned(lay.blocked, xp, backend="cuda")
+    want = ops.seg_agg_planned(lay.blocked, xp, backend="torch")
+    assert got.shape == (g.num_vertices, x.shape[1]) and got.dtype == dtype
+    tol, row = (TOL, 3e-5) if dtype == torch.float32 else \
+        (BF16_TOL, AGG_BF16_ROW_LIMIT)
+    _close(got, want, tol)
+    _rows_close(got, want, row)
+
+
+@pytest.mark.parametrize("pair", ["bf16", "mixed"])
+@pytest.mark.parametrize("tile_m,nblocks,fi,fo", [
+    (32, 7, 602, 128), (32, 7, 128, 41), (32, 9, 128, 128), (64, 5, 41, 7),
+    (128, 3, 1433, 128), (256, 3, 602, 41), (48, 5, 7, 300),
+    (16, 13, 128, 256)])
+def test_fused_bf16_matches_plain(card, pair, tile_m, nblocks, fi, fo):
+    """K2 with a bf16 W: (bf16 x, bf16 W) and (f32 x, bf16 W), the output
+    bf16; its edges as for f32 (blocks a CTA, padded rows, K tails, N
+    padding, F_out past 128); within the bf16 band and one bf16 ulp a row,
+    two launches bitwise equal, an empty block 0, the indices read from L2
+    giving the same sums."""
+    bg, (x, src, dstl, mask, w) = _fused_case(tile_m, nblocks, fi, fo,
+                                              fi + fo + tile_m)
+    w = w.to(torch.bfloat16)
+    if pair == "bf16":
+        x = x.to(torch.bfloat16)
+    args = (x, src, dstl, mask, w)
+    n, nb = k2.fused_agg_combine.launches, k2.fused_agg_combine.launches_bf16
+    got = k2.fused_agg_combine(*args, tile_m=bg.tile_m)
+    again = k2.fused_agg_combine(*args, tile_m=bg.tile_m)
+    assert (k2.fused_agg_combine.launches,
+            k2.fused_agg_combine.launches_bf16) == (n + 2, nb + 2)
+    want = k2.fused_agg_combine_plain(*args, tile_m=bg.tile_m)
+    assert got.dtype == want.dtype == torch.bfloat16
+    _close(got, want, BF16_TOL)
+    _rows_close(got, want, AGG_BF16_ROW_LIMIT)
+    assert torch.equal(got, again)
+    assert not got[tile_m:2 * tile_m].any()
+    assert torch.equal(got, k2._launch(*args, bg.tile_m, cap=0))
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_fused_bf16_unaligned_x(card, offset):
+    """bf16 x whose rows are 2- or 4-byte aligned: narrower loads, the
+    same sums as an aligned copy, bit for bit."""
+    bg, (x, src, dstl, mask, w) = _fused_case(32, 7, 41, 41, 13)
+    x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    want = k2.fused_agg_combine(x, src, dstl, mask, w, tile_m=32)
+    got = k2.fused_agg_combine(_offset(x, offset), src, dstl, mask, w,
+                               tile_m=32)
+    assert torch.equal(got, want)
+
+
+def test_fused_refuses_other_pairs(card):
+    bg, (x, src, dstl, mask, w) = _fused_case(32, 3, 64, 8, 2)
+    with pytest.raises(TypeError, match="W torch.float32"):
+        k2.fused_agg_combine(x.to(torch.bfloat16), src, dstl, mask, w,
+                             tile_m=32)
+    with pytest.raises(TypeError):
+        k1.seg_agg(x.half(), src, dstl, mask, tile_m=32)
+
+
+DECISIONS = {"bf16": {"dtype": "bf16"}, "int8": {"dtype": "int8-agg"},
+             "degree": {"reorder": "degree"}, "pairs": {"dedup": "pairs"},
+             "all": {"dtype": "bf16", "reorder": "degree", "dedup": "pairs"}}
+
+
+@pytest.mark.parametrize("case", list(DECISIONS))
+@pytest.mark.parametrize("name", ["gcn", "sage", "gin"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_decision_plans_cuda_tier_match_torch_tier(card, case, name, fused):
+    """Each decision's cuda plan against the same plan on the torch tier
+    on the card, in its dtype's band; the bf16 plans launch the bf16
+    instances (the fused dedup layer the mixed pair), the others f32."""
+    spec, g, x = card
+    kw = DECISIONS[case]
+    m = make_paper_model(name, spec, device="cuda", fused=fused,
+                         generator=torch.Generator().manual_seed(0))
+    plan = m.plan_for(g, **kw)
+    before = ops.launch_counts()
+    with torch.no_grad():
+        got = m(g, x, plan=plan)
+        launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        want = m(g, x, plan=m.plan_for(g, backend="torch", **kw))
+    kern = "fused_agg_combine" if fused else "seg_agg"
+    bf16 = kw.get("dtype") == "bf16"
+    assert launched[kern] == 2
+    # the unfused dedup bf16 layer aggregates [x ; partials] in f32
+    assert launched[kern + "_bf16"] == (
+        2 if bf16 and (fused or "dedup" not in kw) else 0)
+    _close(got, want, {"bf16": BF16_TOL, "int8-agg": INT8_TOL}.get(
+        kw.get("dtype"), TOL))
+
+
+@pytest.mark.parametrize("name", ["gcn", "sage", "gin"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_dedup_f32_plan_bitwise_naive_on_cuda(card, name, fused):
+    """The cuda tier folds each row in slot order from its first slot and
+    a level-1 partial is one IEEE add: a dedup f32 plan equals the naive
+    plan bit for bit."""
+    spec, g, x = card
+    m = make_paper_model(name, spec, device="cuda", fused=fused,
+                         generator=torch.Generator().manual_seed(1))
+    plan = m.plan_for(g, dedup="pairs")
+    assert plan.dedup == "pairs" and plan.dedup_layout.num_pairs > 0
+    with torch.no_grad():
+        assert torch.equal(m(g, x, plan=plan), m(g, x))
+
+
+def test_unplanned_cuda_aggregation(card):
+    """The cuda tier without a plan's layout regroups on the host per call
+    (ops.seg_agg) and gives the torch tier's sums; seg_agg_pregrouped
+    sorts any slot order into the kernel's."""
+    from repro_torch.core import phases
+    spec, g, x = card
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = x.to(dtype)
+        got = phases.aggregate(g, xx, op="mean", backend="cuda")
+        want = phases.aggregate(g, xx, op="mean", backend="torch")
+        _close(got, want, TOL if dtype == torch.float32 else BF16_TOL)
+    bg = _ragged_layout(v=300, tile_m=32)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    perm = torch.argsort(torch.rand(bg.src.shape, generator=gen,
+                                    device="cuda"), dim=1)
+    rows = torch.randn((*bg.src.shape, 24), generator=gen, device="cuda")
+    seg = torch.gather(bg.dstl, 1, perm)
+    mask = torch.gather(bg.mask, 1, perm)
+    _close(ops.seg_agg_pregrouped(rows, seg, mask, 32, backend="cuda"),
+           ops.seg_agg_pregrouped(rows, seg, mask, 32, backend="torch"))
+
+
+def test_unblocked_dedup_layout_launches_k1(card):
+    """A dedup layout no plan blocked, passed to ``phases.aggregate`` or
+    to ``run_layer`` on a cuda plan, still runs its level-2 sum through
+    K1 (regrouped on the host per call), and in f32 equals the naive fold
+    bit for bit."""
+    from repro_torch.core import phases
+    from repro_torch.graph.dedup import dedup_layout_for_graph
+    spec, g, x = card
+    lay = dedup_layout_for_graph(g)
+    assert lay.blocked is None and lay.num_pairs > 0
+    before = ops.launch_counts()["seg_agg"]
+    got = phases.aggregate(g, x, op="sum", backend="cuda", dedup=lay)
+    assert ops.launch_counts()["seg_agg"] == before + 1
+    assert torch.equal(got, phases.aggregate(g, x, op="sum", backend="cuda"))
+    m = make_paper_model("gcn", spec, device="cuda",
+                         generator=torch.Generator().manual_seed(1))
+    plan = m.plan_for(g)
+    assert plan.layers[0].backend == "cuda" and not plan.layers[0].fused
+    with torch.no_grad():
+        before = ops.launch_counts()["seg_agg"]
+        h = plan.run_layer(m.tree()["conv0"], x, layer=0, dedup_layout=lay)
+        assert ops.launch_counts()["seg_agg"] == before + 1
+        assert torch.equal(h, plan.run_layer(m.tree()["conv0"], x, layer=0))
+
+
+@pytest.mark.parametrize("case", list(DECISIONS))
+@pytest.mark.parametrize("fused", [False, True])
+def test_captured_decision_plans_bitwise_equal_eager(card, case, fused):
+    """plan.compile() of reorder, bf16, int8-agg and dedup plans: the
+    permutation gathers, casts and pair partials are captured, and every
+    replay equals the eager forward bit for bit."""
+    spec, g, x = card
+    m = make_paper_model("gin" if fused else "gcn", spec, device="cuda",
+                         fused=fused,
+                         generator=torch.Generator().manual_seed(2))
+    plan = m.plan_for(g, **DECISIONS[case])
+    with torch.no_grad():
+        eager = plan.run_model(m.tree(), x)
+    fn = tplan.CompiledPlan(plan)
+    outs = [fn(m.tree(), x) for _ in range(4)]
+    assert all(torch.equal(o, eager) for o in outs)
+    assert (fn.num_traces, fn.num_replays) == (1, 3)

@@ -266,7 +266,7 @@ def test_seg_agg_slices_cover_f(f):
     n = -(-f // w)
     assert 1 <= w <= min(f, k1.MAX_SLICE)
     assert (n - 1) * w < f <= n * w
-    vec, c = k1.launch_params(f, w, True, True)
+    vec, c = k1.launch_params(f, w, 4, 16)
     assert f % vec == 0 and w % vec == 0
     assert k1.UNIT_LANES * vec * c >= w and vec * c <= 8
 
@@ -276,8 +276,120 @@ def test_seg_agg_slices_at_reddit():
     8-byte loads), one slice at F = 41 (4-byte loads); an unaligned x
     drops to narrower loads."""
     assert [k1.slice_cols(f) for f in (128, 602, 41)] == [64, 64, 41]
-    assert k1.launch_params(128, 64, True, True) == (4, 2)
-    assert k1.launch_params(602, 64, True, True) == (2, 4)
-    assert k1.launch_params(41, 41, True, True) == (1, 6)
-    assert k1.launch_params(128, 64, False, True) == (2, 4)
-    assert k1.launch_params(128, 64, False, False) == (1, 8)
+    assert k1.launch_params(128, 64, 4, 16) == (4, 2)
+    assert k1.launch_params(602, 64, 4, 16) == (2, 4)
+    assert k1.launch_params(41, 41, 4, 16) == (1, 6)
+    assert k1.launch_params(128, 64, 4, 8) == (2, 4)
+    assert k1.launch_params(128, 64, 4, 4) == (1, 8)
+
+
+# ---------------------------------------------------------------------------
+# bf16 and the mixed pair (bf16 and int8-agg plans, fused dedup in bf16)
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    """(numpy array of the reference's bf16, torch bf16 tensor) of one
+    array rounded to bf16 once."""
+    import jax.numpy as jnp
+    t = torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return np.asarray(t.float().numpy()).astype(jnp.bfloat16), t
+
+
+@pytest.mark.parametrize("kind,tile_m,f", [("graph", 32, 7), ("graph", 128, 64),
+                                           ("random", 16, 33)])
+def test_seg_agg_plain_bf16_matches_pallas_kernel(kind, tile_m, f):
+    """bf16 rows: both fold in f32 and round once to bf16, so the outputs
+    are bf16 and agree within the bf16 band (mostly exactly)."""
+    rng = np.random.default_rng(17)
+    src, dstl, mask, v = _layout(kind, tile_m)
+    xj, xt = _bf16(rng.standard_normal((v, f)))
+    rows, seg_p, mask_p = _pallas_inputs(xj, src, dstl, mask)
+    want = seg_agg_blocked(rows, seg_p, mask_p, tile_m=tile_m,
+                           tile_e=rows.shape[1], interpret=True)
+    got = k1.seg_agg_plain(xt, *_t(src, dstl, mask), tile_m=tile_m)
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    assert_allclose_dtype(got.float().numpy(), np.asarray(want, np.float32),
+                          "bf16")
+    assert np.mean(got.float().numpy() == np.asarray(want, np.float32)) > 0.9
+
+
+@pytest.mark.parametrize("pair", ["bf16", "mixed"])
+@pytest.mark.parametrize("kind,tile_m,fi,fo", [("graph", 32, 64, 7),
+                                               ("graph", 32, 300, 16),
+                                               ("random", 16, 40, 24)])
+def test_fused_plain_bf16_matches_pallas_kernel(pair, kind, tile_m, fi, fo):
+    """(bf16 rows, bf16 W) and (f32 rows, bf16 W): the output takes W's
+    dtype, bf16, in both, after an f32 fold and an f32 product."""
+    rng = np.random.default_rng(19)
+    src, dstl, mask, v = _layout(kind, tile_m)
+    x = rng.standard_normal((v, fi)).astype(np.float32)
+    wj, wt = _bf16(rng.standard_normal((fi, fo)) * 0.1)
+    if pair == "bf16":
+        xj, xt = _bf16(x)
+    else:
+        xj, xt = x, torch.from_numpy(x)
+    rows, seg_p, mask_p = _pallas_inputs(xj, src, dstl, mask)
+    want = fused_agg_combine_blocked(rows, seg_p, mask_p, wj, tile_m=tile_m,
+                                     tile_e=rows.shape[1], interpret=True)
+    got = k2.fused_agg_combine_plain(xt, *_t(src, dstl, mask), wt,
+                                     tile_m=tile_m)
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    assert_allclose_dtype(got.float().numpy(), np.asarray(want, np.float32),
+                          "bf16")
+    assert np.mean(got.float().numpy() == np.asarray(want, np.float32)) > 0.9
+
+
+def test_bf16_launch_params_and_entries():
+    """Byte-based loads: bf16 F = 128 takes 16-byte loads (8 elements),
+    F = 602 (1,204-byte rows) 4-byte, F = 41 (82-byte rows) 2-byte, each
+    covering a slice with a lane holding at most 8 values; K2's lanes load
+    at most 4 elements.  The wrappers pick their C entry by dtype and raise
+    TypeError for what the kernels do not take."""
+    assert k1.launch_params(128, 64, 2, 16) == (8, 1)
+    assert k1.launch_params(602, 64, 2, 16) == (2, 4)
+    assert k1.launch_params(41, 41, 2, 16) == (1, 6)
+    assert k1.launch_params(128, 64, 2, 4) == (2, 4)
+    assert k1.launch_params(128, 64, 2, 2) == (1, 8)
+    for f in (1, 7, 41, 64, 128, 602, 1433):
+        w = k1.slice_cols(f)
+        for align in (2, 4, 8, 16):
+            vec, c = k1.launch_params(f, w, 2, align)
+            assert f % vec == 0 and w % vec == 0 and 2 * vec <= align
+            assert k1.UNIT_LANES * vec * c >= w and vec * c <= k1.LANE_ELEMS
+    assert [k2.load_vec(f, 2, 16) for f in (602, 128, 41)] == [2, 4, 1]
+    assert [k2.load_vec(f, 4, 16) for f in (602, 128, 41)] == [2, 4, 1]
+    assert k1._entry("seg_agg", torch.bfloat16) == "seg_agg_bf16"
+    assert k1._entry("seg_agg", torch.float32) == "seg_agg_f32"
+    with pytest.raises(TypeError, match="float16"):
+        k1._entry("seg_agg", torch.float16)
+    assert [k2.pair_code(a, b) for a, b in k2.PAIRS] == [0, 1, 2]
+    with pytest.raises(TypeError, match="W torch.float32"):
+        k2.pair_code(torch.bfloat16, torch.float32)
+
+
+def test_host_regrouping_entries_match_reference():
+    """ops.seg_agg (regroups on the host per call) and
+    ops.seg_agg_pregrouped (blocked rows, any slot order) against the
+    reference's, whose Pallas kernel runs in interpret mode."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+    rng = np.random.default_rng(23)
+    g = GRAPH
+    rows = rng.standard_normal((g.num_edges, 12)).astype(np.float32)
+    seg = np.asarray(g.dst)
+    want = jops.seg_agg(rows, seg, g.num_vertices, tile_m=32, tile_e=8)
+    got = tops.seg_agg(*_t(rows, seg), g.num_vertices, 32, backend="torch")
+    assert got.shape == (g.num_vertices, 12)
+    assert_allclose_dtype(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="sorted"):
+        tops.seg_agg(*_t(rows, seg[::-1].copy()), g.num_vertices,
+                     backend="torch")
+    src, dstl, mask, v = _layout("random", 16)
+    x = rng.standard_normal((v, 9)).astype(np.float32)
+    blocked, seg_p, mask_p = _pallas_inputs(x, src, dstl, mask)
+    want = jops.seg_agg_pregrouped(blocked, seg_p, mask_p, 16, tile_e=8)
+    got = tops.seg_agg_pregrouped(*_t(blocked, seg_p, mask_p), 16,
+                                  backend="torch")
+    assert_allclose_dtype(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError):
+        tops.seg_agg(*_t(rows, seg), g.num_vertices, backend="cuda")

@@ -145,7 +145,7 @@ def test_fused_gcn_layer_matches_reference(agg_op):
 def test_unknown_tier_and_dedup_raise():
     with pytest.raises(ValueError):
         tphases.aggregate(TG, TX, backend="xla")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):       # dedup takes a DedupLayout
         tphases.aggregate(TG, TX, dedup=object())
     with pytest.raises(ValueError):
         tphases.aggregate(TG, TX, op="median")
