@@ -86,9 +86,31 @@ Phases, each printing its own lines; any failure exits non-zero:
                 K2 pair), and "auto" for all three, which must resolve to
                 bf16 / none / none; eager and compiled ms and peak memory
                 beside phase 4's f32 forward.
+ 11. train   -- (right after phase 10) minibatch GraphSAGE training on
+                Reddit at GraphSAGE's setting (602 -> 128 -> 41, batch
+                512, fanouts 25/10, f32) through PlannedSageTrainer on
+                the cuda tier: K1's backward (K1 over the first block's
+                transposed layout) at F=128 and F=41 against the plain
+                version's autograd per row, two launches bit for bit, its
+                time beside its bound and torch.sparse.mm on the
+                transposed CSR; step 0's loss and each gradient leaf
+                against a torch-tier step on the same block, within the
+                band of the leaf's own largest magnitude; 20 steps with dedup "none" and 20 with "pairs"
+                (finite losses, K1's forward and backward launches per
+                step as the plan's ordering implies), what "auto"
+                resolves to; 10 steps, a checkpoint, a fresh trainer
+                restored and 10 more, bit for bit the uninterrupted run;
+                predict through compile(dynamic=True): one capture, every
+                replay bit for bit the eager forward; a few steps of the
+                per-block train_minibatch_sage.  Per step: host ms of
+                sampling, union and padding, layouts, dedup matching and
+                the feature gather, the step's wall ms; over a profiled
+                window the device's busy ms per step and idle share; peak
+                memory.
 
-The phases run in the order 1-4, 8, 9, 10, 5-7.  The last three lines are nvidia-smi's name and power limit, one JSON
-object per kernel ({"kernels": [...]}) and the result line.  The full
+The phases run in the order 1-4, 8, 9, 10, 11, 5-7.  The last three
+lines are nvidia-smi's name and power limit, one JSON object per kernel
+({"kernels": [...]}) and the result line.  The full
 per-shape table is also written to chiprun_out/chip_smoke.json.
 """
 
@@ -191,6 +213,19 @@ DECISION_CASES = (
     ("auto", {"dtype": "auto", "reorder": "auto", "dedup": "auto"}, False))
 #: phase 10: calls each compiled decision plan is timed over
 DECISION_CALLS = 5
+#: phase 11: GraphSAGE's Reddit setting (Hamilton et al., NeurIPS 2017:
+#: K = 2, S1 = 25, S2 = 10, minibatch 512) at the Table-1 SAGE width
+TRAIN_KW = dict(hidden=128, batch_size=512, fanouts=(25, 10), lr=0.1,
+                seed=SEED)
+#: phase 11: steps per training run, and the step the resume splits at
+TRAIN_STEPS = 20
+RESUME_AT = 10
+#: phase 11: steps of the none run traced by torch.profiler
+TRAIN_PROFILE = (5, 8)
+#: phase 11: K1's backward against the plain version's autograd, per row
+#: (K1's f32 limit): each row's largest error over that row's largest
+#: magnitude
+K1_BWD_ROW_LIMIT = 3e-5
 #: phase 9: PageRank power iterations timed on Reddit
 PAGERANK_ITERS = 20
 
@@ -978,6 +1013,316 @@ def drive_decisions(models, g, x, forwards):
     return out, launches
 
 
+def check_k1_backward(tr, prep, f: int):
+    """Phase 11 (1): K1's backward at width ``f`` -- K1 over the first
+    block's transposed layout, through its autograd Function -- against
+    the plain version's autograd on the same card, per row; two launches
+    bit for bit; time of the backward fold, of the plain version's and of
+    torch.sparse.mm on the transposed CSR, and the bound.  Returns the
+    record."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import seg_agg as k1
+
+    _, _, bg, _ = tr._inputs(prep)
+    t = bg.transposed
+    dev = tr.device
+    rows = tr.bucket.num_inputs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((rows, f), generator=gen, device=dev)
+    gout = torch.randn((bg.nblocks * bg.tile_m, f), generator=gen,
+                       device=dev)
+
+    def grad(fn):
+        xx = x.clone().requires_grad_()
+        out = fn(xx, bg.src, bg.dstl, bg.mask, None, tile_m=bg.tile_m)
+        return torch.autograd.grad(out, [xx], gout)[0]
+
+    kernel = lambda: grad(lambda *a, **kw: k1.seg_agg(  # noqa: E731
+        *a, transposed=t, **kw))
+    before = k1.seg_agg.launches_bwd
+    got, again = kernel(), kernel()
+    launched = k1.seg_agg.launches_bwd - before
+    want = grad(k1.seg_agg_plain)
+    torch.cuda.synchronize()
+    diff = (got - want).abs().amax(-1)
+    mag = want.abs().amax(-1)
+    row = float((diff / torch.clamp(mag, min=1e-30)).max().item())
+    err = float(diff.max().item())
+    if launched != 2:
+        fail(f"K1 backward launched {launched} times for two gradients")
+    if not torch.equal(got, again):
+        fail("K1 backward: two launches on the same input differ")
+    if not bool((diff <= K1_BWD_ROW_LIMIT * mag).all().item()):
+        fail(f"K1 backward: a row off the plain version's autograd by "
+             f"{row:.3e} of its scale (limit {K1_BWD_ROW_LIMIT:.0e})")
+    # the fold the backward runs, alone: gout gathered over the transposed
+    # layout into the x rows
+    fold = lambda: k1.seg_agg(gout, t.src, t.dstl, t.mask,  # noqa: E731
+                              tile_m=t.tile_m)
+    plain = lambda: k1.seg_agg_plain(gout, t.src, t.dstl,  # noqa: E731
+                                     t.mask, tile_m=t.tile_m)
+    e = prep["edges"]
+    src, dst = prep["src"][:e].astype(np.int64), prep["dst"][:e]
+    order = np.argsort(src, kind="stable")
+    crow = np.zeros(rows + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=rows), out=crow[1:])
+    adj_t = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).to(dev),
+        torch.from_numpy(dst[order].astype(np.int64)).to(dev),
+        torch.ones(e, device=dev), size=(rows, gout.shape[0]))
+    library = lambda: torch.sparse.mm(adj_t, gout)  # noqa: E731
+    lib_err = (library()[:rows] - want).abs().max().item()
+    # the function's bytes: the gout rows its edges read, the x rows it
+    # writes, and src, dstl and mask of its e edges; the layout's pad
+    # slots are the kernel's cost, not the function's
+    gathered = len(np.unique(dst))
+    nbytes = (gathered * f + rows * f + 3 * e) * 4
+    pad_bytes = 3 * (t.src.numel() - e) * 4
+    ops = e * f
+    b_ms, b_by = bound(nbytes, ops)
+    rec = {"name": "seg_agg_bwd", "graph": "reddit-train-block0",
+           "f_in": f, "f_out": f, "tile_m": t.tile_m, "nblocks": t.nblocks,
+           "emax": t.emax, "forward_emax": bg.emax, "edges": e,
+           "max_abs_err": err, "row_rel_err": row,
+           "library_max_abs_err": lib_err,
+           "ms": time_ms(fold, 10), "plain_ms": time_ms(plain, 2),
+           "library_ms": time_ms(library, 10), "bytes": nbytes, "ops": ops,
+           "pad_slot_bytes": pad_bytes, "bound_ms": b_ms, "bound_by": b_by}
+    rec.update(ratios(rec))
+    print(f"[train] K1 backward block 0 F={f}: transposed layout "
+          f"{t.nblocks}x{t.emax} (forward {bg.nblocks}x{bg.emax}), {e} "
+          f"edges; max_abs_err={err:.3e} row_rel_err={row:.3e} (limit "
+          f"{K1_BWD_ROW_LIMIT:.0e}); ms={rec['ms']:.4f} plain_ms="
+          f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+          f"(torch.sparse.mm, transposed CSR; max_abs_err {lib_err:.3e}) "
+          f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {ops} ops; the "
+          f"layout's pad slots {pad_bytes} B more) "
+          f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
+          f"{rec['vs_library']:.3f}", flush=True)
+    del adj_t, gout, x, got, again, want
+    return rec
+
+
+def train_run(tr, steps: int, expect: dict, label: str,
+              profile_steps=None) -> dict:
+    """``steps`` steps of a trainer with K1's launches checked per step
+    against ``expect``; host ms per stage, step wall ms, and over
+    ``profile_steps`` (a range) the device's busy ms and idle share from
+    a torch.profiler trace.  Returns the measurements."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from torch.profiler import ProfilerActivity, profile
+
+    stages, prof, window = [], None, None
+    for i in range(steps):
+        if profile_steps is not None and i == profile_steps[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+            window = time.perf_counter()
+        before = launch_counts()
+        loss = tr.step()
+        torch.cuda.synchronize()
+        got = {k: launch_counts()[k] - before[k] for k in expect}
+        if got != expect:
+            fail(f"{label} step {i}: K1 launches {got}, expected {expect}")
+        if not (loss == loss and abs(loss) < float("inf")):
+            fail(f"{label} step {i}: loss {loss} is not finite")
+        stages.append(dict(tr.stage_ms, loss=loss))
+        if profile_steps is not None and i == profile_steps[1] - 1:
+            wall = (time.perf_counter() - window) * 1e3
+            prof.__exit__(None, None, None)
+            out_dir = ROOT / "chiprun_out" / "traces"
+            out_dir.mkdir(parents=True, exist_ok=True)
+            path = out_dir / f"train_{label}.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())
+            events = events.get("traceEvents", events)
+            kern = [e for e in events if e.get("cat") == "kernel"]
+            busy = sum(e["dur"] for e in kern) / 1e3
+            n = profile_steps[1] - profile_steps[0]
+            k1_ms = sum(e["dur"] for e in kern
+                        if "fold_kernel" in e.get("name", "")
+                        or "row_starts_kernel" in e.get("name", "")) / 1e3
+            window = {"steps": n, "wall_ms": wall / n,
+                      "device_busy_ms": busy / n, "k1_ms": k1_ms / n,
+                      "kernels": len(kern) / n,
+                      "idle_share": 1 - busy / wall if kern else None}
+            print(f"[train] {label} profile of steps {profile_steps[0]}-"
+                  f"{profile_steps[1] - 1}: per step wall "
+                  f"{window['wall_ms']:.1f} ms, device busy "
+                  f"{window['device_busy_ms']:.2f} ms (K1 "
+                  f"{window['k1_ms']:.2f} ms), {window['kernels']:.0f} "
+                  f"kernels, device idle "
+                  + (f"{100 * window['idle_share']:.1f}%" if kern
+                     else "not measured (no kernel in the trace)"),
+                  flush=True)
+    for i, st in enumerate(stages):
+        print(f"[train] {label} step {i:2d}: loss {st['loss']:.6f}; host ms "
+              f"sample {st['sample']:.1f}, union+pad {st['union']:.1f}, "
+              f"layouts {st['layouts']:.1f}, dedup {st['dedup']:.1f}, x "
+              f"{st['x']:.1f}; step {st['step']:.1f}", flush=True)
+    return {"stages": stages, "profile": window}
+
+
+def drive_train(g, x, y, spec):
+    """Phase 11: minibatch GraphSAGE training on Reddit through
+    PlannedSageTrainer on the cuda tier (see the module docstring).
+    Returns the measurements and the K1 backward record."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.plan import _leaves
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.sage_minibatch import (PlannedSageTrainer,
+                                                   train_minibatch_sage)
+
+    def trainer(**kw):
+        return PlannedSageTrainer(g, spec, x, y, device=g.device,
+                                  **dict(TRAIN_KW, **kw))
+
+    t0 = time.perf_counter()
+    tr = trainer(dedup="none")
+    plan = tr.plan
+    orders = [lp.order for lp in plan.layers]
+    # K1 launches a step: one forward per layer; one backward per layer
+    # whose aggregation operand needs a gradient (layer 1's x does not when
+    # it aggregates first)
+    n_bwd = sum(i > 0 or o == "combine_first" for i, o in enumerate(orders))
+    expect = {"seg_agg": plan.num_layers + n_bwd, "seg_agg_bwd": n_bwd,
+              "fused_agg_combine": 0}
+    print(f"[train] bucket {tuple(tr.bucket)} (seeds, inputs, edges), "
+          f"plan {plan.describe()[0]['backend']} tier, orders {orders}, "
+          f"aggregation tile {plan.agg_tile}; K1 launches a step {expect}; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    auto = trainer(dedup="auto").dedup
+    print(f"[train] dedup='auto' resolves to {auto!r} on the H100 machine "
+          f"model", flush=True)
+
+    # -- (1) K1's backward at the first block, at both widths the steps
+    #    run it (layer 1's hidden, layer 2's classes)
+    prep0 = tr._prepare(tr.pipeline.batch_at(0))
+    bwd = [check_k1_backward(tr, prep0, f)
+           for f in (TRAIN_KW["hidden"], spec.num_classes)]
+
+    # -- (2) step 0 against a torch-tier step on the same card and block
+    tt = trainer(dedup="none", backend="torch")
+    loss_c, grads_c = tr.loss_and_grads(prep0)
+    loss_t, grads_t = tt.loss_and_grads(prep0)
+    # each gradient leaf within the band of its own largest magnitude
+    # (the leaves are far below 1, so max_err's floor of 1 would not do)
+    errs = [((gc - gt).abs().max().item(),
+             F32_BAND * SCALE * gt.abs().max().item())
+            for gc, gt in zip(grads_c, grads_t)]
+    loss_c, loss_t = loss_c.item(), loss_t.item()
+    loss_err = abs(loss_c - loss_t)
+    print(f"[train] step 0 vs torch tier: loss {loss_c:.7f} / "
+          f"{loss_t:.7f}; gradients max_abs_err "
+          + ", ".join(f"{e:.3e} (tol {t:.3e})" for e, t in errs), flush=True)
+    if loss_err > F32_BAND * SCALE * max(1.0, abs(loss_t)) or \
+            any(e > t for e, t in errs):
+        fail("train: step 0's loss or gradients off the torch tier")
+    del tt, grads_c, grads_t
+
+    # -- predict's one capture, before training: pairs and none must agree
+    #    bit for bit on the same parameters
+    tp = trainer(dedup="pairs")
+    p_none, p_pairs = tr.predict(step=0), tp.predict(step=0)
+    if not np.array_equal(p_none, p_pairs):
+        fail("train: predict with dedup='pairs' differs from 'none'")
+
+    # -- (3) training, none then pairs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_none = train_run(tr, TRAIN_STEPS, expect, "none", TRAIN_PROFILE)
+    run_none["seconds"] = time.perf_counter() - t0
+    run_none["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    launches = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_pairs = train_run(tp, TRAIN_STEPS, expect, "pairs")
+    run_pairs["seconds"] = time.perf_counter() - t0
+    run_pairs["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    run_pairs["last_pairs"] = tp.last_pairs
+    for label, run in (("none", run_none), ("pairs", run_pairs)):
+        st = run["stages"][1:]
+        mean = {k: sum(s[k] for s in st) / len(st)
+                for k in ("sample", "union", "layouts", "dedup", "x",
+                          "step")}
+        run["mean_ms"] = mean
+        print(f"[train] {label}: {TRAIN_STEPS} steps in "
+              f"{run['seconds']:.1f} s; mean of steps 1-: host ms sample "
+              f"{mean['sample']:.1f}, union+pad {mean['union']:.1f}, layouts "
+              f"{mean['layouts']:.1f}, dedup {mean['dedup']:.1f}, x "
+              f"{mean['x']:.1f}, step {mean['step']:.1f}; peak memory "
+              f"{run['peak_bytes'] / 2**30:.2f} GiB above the inputs"
+              + (f"; {tp.last_pairs} pairs in the last block"
+                 if label == "pairs" else ""), flush=True)
+    gap = max(abs(a - b) for a, b in zip(tr.losses, tp.losses))
+    print(f"[train] pairs vs none losses: largest difference {gap:.3e}",
+          flush=True)
+    if gap > 1e-4 * max(abs(v) for v in tr.losses) + 1e-5:
+        fail(f"train: pairs and none losses differ by {gap:.3e}")
+    del tp
+
+    # -- (4) resume: 10 steps, save, a fresh trainer restores, 10 more
+    ck = Checkpointer(str(ROOT / "build" / "train_ckpt"), keep=1)
+    a = trainer(dedup="none")
+    a.train(RESUME_AT)
+    a.save(ck, blocking=True)
+    del a
+    b = trainer(dedup="none")
+    at = b.restore(ck)
+    b.train(TRAIN_STEPS - RESUME_AT)
+    same = b.losses == tr.losses and all(
+        torch.equal(p, q) for (_, p), (_, q) in zip(_leaves(b.params),
+                                                    _leaves(tr.params)))
+    print(f"[train] resume at step {at}: losses and parameters "
+          f"{'bit for bit' if same else 'DIFFERENT from'} the uninterrupted "
+          f"run", flush=True)
+    if not same or at != RESUME_AT:
+        fail("train: the resumed run differs from the uninterrupted one")
+    del b
+
+    # -- (5) predict: one capture, replays bit for bit the eager forward
+    for step in (TRAIN_STEPS, TRAIN_STEPS + 1, TRAIN_STEPS + 2):
+        prep = tr._prepare(tr.pipeline.batch_at(step))
+        xx, gg, glay, ded = tr._inputs(prep, capacity=True)
+        with torch.no_grad():
+            eager = tr.plan.run_model(tr.params, xx, graph=gg,
+                                      graph_layout=glay, dedup_layout=ded)
+        got = tr.fwd(tr.params, xx, gg, dedup=ded, layout=glay)
+        if not torch.equal(got, eager):
+            fail(f"train: predict's replay at step {step} differs from the "
+                 f"eager forward")
+    print(f"[train] predict: {tr.fwd.num_traces} capture, "
+          f"{tr.fwd.num_replays} replays, each bit for bit the eager "
+          f"forward; retraces {tr.retraces}", flush=True)
+    if tr.fwd.num_traces != 1 or tr.retraces:
+        fail("train: predict captured more than once")
+
+    # -- (6) the per-block demo
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, demo_losses, _ = train_minibatch_sage(g, spec, x, y, steps=3,
+                                             device=g.device)
+    demo = launch_counts()
+    print(f"[train] train_minibatch_sage: 3 steps, losses "
+          f"{[round(v, 5) for v in demo_losses]}, K1 launches "
+          f"{demo['seg_agg']} ({demo['seg_agg_bwd']} backward), "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not all(np.isfinite(demo_losses)) or demo["seg_agg_bwd"] < 3:
+        fail("train: the per-block demo did not train through K1")
+    return {"orders": orders, "expect": expect, "auto": auto,
+            "launches": launches, "none": run_none, "pairs": run_pairs,
+            "k1_bwd": bwd, "step0_grad_errs": errs, "demo": demo_losses}
+
+
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
     """(query, key) pairs K5 must compute: summed over the batch, the keys
     each query row may see (right-aligned positions, as the kernel)."""
@@ -1530,8 +1875,8 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions
     t0 = time.perf_counter()
-    g_red, x_red, _, spec_red = load_dataset("reddit", seed=SEED,
-                                             device="cuda")
+    g_red, x_red, y_red, spec_red = load_dataset("reddit", seed=SEED,
+                                                 device="cuda")
     graphs = {"cora": load_dataset("cora", seed=SEED, device="cuda")[0],
               "citeseer": make_synthetic_graph(CITESEER, SEED,
                                                device="cuda"),
@@ -1600,8 +1945,16 @@ def main() -> None:
     decisions, dlaunches = drive_decisions(models, g_red, x_red, forwards)
     print(f"[decisions] launches over the phase {dlaunches}; phase took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    del models, g_red, x_red
+    del models
     clear_plan_cache()          # drops the plans' layouts and CUDA graphs
+    torch.cuda.empty_cache()
+
+    # -- 11. minibatch GraphSAGE training on Reddit
+    t0 = time.perf_counter()
+    train = drive_train(g_red, x_red, y_red, spec_red)
+    print(f"[train] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    del g_red, x_red, y_red
+    clear_plan_cache()
     torch.cuda.empty_cache()
 
     # -- 5. K5 against its plain version
@@ -1624,8 +1977,8 @@ def main() -> None:
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
-         "decisions": decisions, "decision_launches": dlaunches},
-        indent=1))
+         "decisions": decisions, "decision_launches": dlaunches,
+         "train": train}, indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;
     # the f32 instances' launches are phase 4's, the bf16 ones phase 10's
@@ -1655,6 +2008,18 @@ def main() -> None:
             "library_ms": rec["library_ms"],
             "frac_of_bound": rec["frac_of_bound"],
             "vs_library": rec["vs_library"]})
+    # K1's backward at F=128: its launches are phase 11's 20-step none
+    # run, its error the larger of the F=128 and F=41 checks
+    rec = train["k1_bwd"][0]
+    kernels.append({
+        "name": "seg_agg_bwd", "route": "cuda", "source": k1_src[0],
+        "replaces": k1_src[1], "launches": train["launches"]["seg_agg_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in train["k1_bwd"]),
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+        "frac_of_bound": rec["frac_of_bound"],
+        "vs_library": rec["vs_library"]})
     # K5's two paths at shape (a): bf16 (wgmma_kernel) launched by phase 6,
     # f32 (tf32x3_kernel) by phase 7
     for dtype, launches in (("bfloat16", lm["launches"]),

@@ -2,16 +2,32 @@
 
 A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
 (``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
-the LM part (``AttentionConfig``, ``LMConfig``, :96-195) and the registry
-(``register``/``get_config``, :349-373) -- kept here so the port imports
-nothing of the JAX package.
+the LM part (``AttentionConfig``, ``LMConfig``, :96-195), the training
+part (``ShapeSpec`` :27, ``OptimizerConfig`` :310, ``TrainConfig`` :330)
+and the registry (``register``/``get_config``, :349-373) -- kept here so
+the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One (seq_len, global_batch) workload cell (``ShapeSpec``, :27);
+    ``kind`` is "train", "prefill" or "decode"."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+    def __post_init__(self):
+        if self.kind not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown shape kind {self.kind!r}")
 
 
 @dataclass(frozen=True)
@@ -150,6 +166,50 @@ class LMConfig:
         if a is None or not a.local_global_alternate:
             return False
         return i % 2 == 0  # even layers sliding-window (gemma2 convention)
+
+
+# ---------------------------------------------------------------------------
+# Training configs (``repro/config.py`` :310-343)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW with warmup + cosine decay and global-norm clipping
+    (``OptimizerConfig``, :310).  ``moment_dtype`` "bfloat16" stores the
+    moments in bf16; ``grad_compression`` "int8_ef" names the int8
+    error-feedback reduction, whose all-reduce is not ported (ROADMAP
+    item 11)."""
+
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+    grad_compression: str = "none"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """What ``train.trainer.Trainer`` reads (``TrainConfig``, :330): the
+    step count, logging and checkpoint cadence, where checkpoints go and
+    how many are kept.  The mesh, remat and microbatch fields are not
+    ported (distributed training is ROADMAP item 11)."""
+
+    model: str
+    shape: str = "train_4k"
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3
 
 
 # ---------------------------------------------------------------------------

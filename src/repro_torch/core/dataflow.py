@@ -11,6 +11,15 @@ runs it on either tier:
   * ``torch`` -- the fused kernel's plain version: a loop over chunks of
     blocks (the reference's ``lax.scan`` over blocks, :186-193).
   * ``cuda``  -- the ``fused_agg_combine`` CUDA kernel.
+
+K1's backward (``kernels.seg_agg.SegAgg``) is K1 over the TRANSPOSED
+layout: the same edges regrouped by source, each slot naming the forward
+slot it mirrors, so per-edge weights regroup with one gather.
+``block_graph_arrays(..., transpose_rows=)`` builds both at once from
+host arrays (the minibatch trainer's runtime layouts, with a fixed
+``emax`` for a CUDA-graph capture); ``transposed_layout`` builds it from a
+layout already on the device (a plan keeps the one of each layout it owns,
+``GraphExecutionPlan.with_transposed``).
 """
 
 from __future__ import annotations
@@ -33,7 +42,11 @@ class BlockedGraph(NamedTuple):
     mask:  (nblocks, emax) f32, 1 for a real edge, 0 for a pad slot.
     tile_m: rows per block; num_vertices: real vertex count.
     eidx:  (nblocks, emax) int32 original edge index of each slot (pad
-           slots: 0), so per-edge data regroups with one gather.
+           slots: 0), so per-edge data regroups with one gather; in a
+           transposed layout, the forward layout's slot (``b * emax + j``)
+           each slot mirrors.
+    transposed: the layout K1's backward runs over (rows: the sources),
+           or None (``transposed_layout`` builds it from this one).
     """
 
     src: torch.Tensor
@@ -42,6 +55,7 @@ class BlockedGraph(NamedTuple):
     tile_m: int
     num_vertices: int
     eidx: Optional[torch.Tensor] = None
+    transposed: Optional["BlockedGraph"] = None
 
     @property
     def nblocks(self) -> int:
@@ -50,6 +64,15 @@ class BlockedGraph(NamedTuple):
     @property
     def emax(self) -> int:
         return int(self.src.shape[1])
+
+    def to(self, device) -> "BlockedGraph":
+        """The same layout (and its transposed one) on ``device``."""
+        return self._replace(
+            src=self.src.to(device), dstl=self.dstl.to(device),
+            mask=self.mask.to(device),
+            eidx=None if self.eidx is None else self.eidx.to(device),
+            transposed=None if self.transposed is None
+            else self.transposed.to(device))
 
 
 def block_offsets(block_ids: np.ndarray, nblocks: int
@@ -73,30 +96,87 @@ def block_graph(g: Graph, tile_m: int) -> BlockedGraph:
                               g.num_vertices, tile_m, device=g.device)
 
 
-def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
-                       tile_m: int, *, device="cpu") -> BlockedGraph:
-    """``block_graph`` over raw dst-sorted arrays (``block_graph_arrays``,
-    :91).  ``num_vertices`` is the destination row count; ``emax`` is the
-    largest block's edge count rounded up to 8 (at least 8)."""
-    src = np.asarray(src)
-    dst = np.asarray(dst)
-    v = int(num_vertices)
+def _block_layout(src: np.ndarray, dst: np.ndarray, v: int, tile_m: int,
+                  dev, emax: Optional[int] = None,
+                  eidx: Optional[np.ndarray] = None):
+    """The layout of dst-sorted edges on ``dev`` and each edge's slot
+    ``b * emax + j``.  The slots are placed on the host; the padded arrays
+    are made on ``dev`` and only the edges' entries are copied there.
+    ``emax`` fixes the slots per block (a block with more edges raises);
+    by default it is the largest block's edge count rounded up to 8 (at
+    least 8).  ``eidx`` gives each edge's ``eidx`` entry (default: its
+    index)."""
     nblocks = -(-v // tile_m)
     blk = dst // tile_m
     counts, offs = block_offsets(blk, nblocks)
-    emax = max(8, int(-(-(counts.max() if len(src) else 1) // 8) * 8))
-    bs = np.zeros((nblocks, emax), np.int32)
-    bd = np.zeros((nblocks, emax), np.int32)
-    bm = np.zeros((nblocks, emax), np.float32)
-    be = np.zeros((nblocks, emax), np.int32)
-    bs[blk, offs] = src
-    bd[blk, offs] = dst - blk * tile_m
-    bm[blk, offs] = 1.0
-    be[blk, offs] = np.arange(len(src), dtype=np.int32)
+    most = int(counts.max()) if len(src) else 0
+    if emax is None:
+        emax = max(8, -(-max(most, 1) // 8) * 8)
+    elif most > emax:
+        raise ValueError(f"a block of {tile_m} rows holds {most} edges, "
+                         f"over the layout's capacity of {emax} slots")
+    slot = blk * emax + offs
+    at = torch.from_numpy(slot).to(dev)
+
+    def place(values, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(values, dtype))
+        out = torch.zeros(nblocks * emax, dtype=t.dtype, device=dev)
+        out[at] = t.to(dev)
+        return out.view(nblocks, emax)
+
+    if eidx is None:
+        eidx = np.arange(len(src))
+    bg = BlockedGraph(place(src, np.int32),
+                      place(dst - blk * tile_m, np.int32),
+                      place(np.ones(len(src)), np.float32), tile_m, v,
+                      place(eidx, np.int32))
+    return bg, slot
+
+
+def _transposed(src: np.ndarray, dst: np.ndarray, slot: np.ndarray,
+                num_rows: int, tile_m: int, dev) -> BlockedGraph:
+    """The transposed layout of edges ``src -> dst`` held in forward slots
+    ``slot``: regrouped by source (stable, so each source keeps its edges'
+    forward order), gathering from the destinations, ``eidx`` the forward
+    slots."""
+    order = np.argsort(src, kind="stable")
+    return _block_layout(dst[order], src[order], num_rows, tile_m, dev,
+                         eidx=slot[order])[0]
+
+
+def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
+                       tile_m: int, *, device="cpu",
+                       emax: Optional[int] = None,
+                       transpose_rows: Optional[int] = None) -> BlockedGraph:
+    """``block_graph`` over raw dst-sorted arrays (``block_graph_arrays``,
+    :91).  ``num_vertices`` is the destination row count; ``emax`` is the
+    largest block's edge count rounded up to 8 (at least 8), or the fixed
+    capacity given (a block over it raises).  ``transpose_rows`` (the rows
+    of the gathered matrix) also builds the transposed layout K1's
+    backward runs over, from the same host arrays."""
+    src = np.asarray(src)
+    dst = np.asarray(dst)
     dev = torch.device(device)
-    return BlockedGraph(*(torch.from_numpy(a).to(dev)
-                          for a in (bs, bd, bm)), tile_m, v,
-                        torch.from_numpy(be).to(dev))
+    bg, slot = _block_layout(src, dst, int(num_vertices), tile_m, dev, emax)
+    if transpose_rows is not None:
+        bg = bg._replace(transposed=_transposed(
+            src.astype(np.int64), dst.astype(np.int64), slot,
+            int(transpose_rows), tile_m, dev))
+    return bg
+
+
+def transposed_layout(bg: BlockedGraph, num_rows: int) -> BlockedGraph:
+    """The transposed layout of ``bg``, a layout already on its device,
+    for K1's backward over ``num_rows`` rows of the gathered matrix: read
+    back to the host and built there, on every call (a plan keeps the
+    result for the layouts it owns)."""
+    m = bg.mask.cpu().numpy() != 0
+    b, j = np.nonzero(m)                 # forward slot order
+    emax = m.shape[1]
+    s = bg.src.cpu().numpy()[b, j].astype(np.int64)
+    d = b * bg.tile_m + bg.dstl.cpu().numpy()[b, j].astype(np.int64)
+    return _transposed(s, d, b * emax + j, int(num_rows), bg.tile_m,
+                       bg.src.device)
 
 
 def suggest_tile_m(in_len: int, out_len: int, avg_deg: float,

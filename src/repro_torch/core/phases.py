@@ -9,7 +9,12 @@
     ``index_add_``s edge chunk by edge chunk.  Max has no kernel and runs
     plain PyTorch on either tier, as the reference runs ``segment_max`` on
     every tier.  With a ``graph.dedup.DedupLayout`` sum and mean run
-    two-level (pair partials, then the shortened edge list).
+    two-level (pair partials, then the shortened edge list).  Both tiers
+    are differentiable in ``x``: the cuda tier's sums run through K1's
+    autograd Function (``kernels.seg_agg.SegAgg``, whose backward is K1
+    over the transposed layout), the torch tier's through
+    ``index_add_``; the mean's reciprocal stays outside the kernel
+    (``_finish``), so autograd scales it.
   * **Combination** (``combine``, :208) -- the dense per-vertex MLP.
   * ``phase_ordered_layer`` (:247) -- one layer in an explicit or planned
     phase order, through the plan.

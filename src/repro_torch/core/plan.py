@@ -30,9 +30,14 @@ Decided ONCE per (graph, model, machine) and replayed on every forward:
     CPU the eager forward under the same caching and retrace guard.
 
 The port plans local execution: ``mesh=`` (distributed execution) raises
-``NotImplementedError``, as does ``compile(dynamic=True)`` of a dedup plan
-(runtime dedup arrays serve the minibatch trainer and the graph server,
-not ported yet); nothing is silently ignored.
+``NotImplementedError``; nothing is silently ignored.  A bucket plan (the
+minibatch trainer's) dispatches runtime graphs, each bringing its own
+edge arrays, its dedup arrays (``dedup_pad=``) and, on the cuda tier, its
+host-built blocked layouts (``runtime_layout``, passed beside the graph),
+eagerly or through ``compile(dynamic=True)``.  On the cuda tier the eager
+forward is differentiable: K1's backward runs over each layout's
+transposed layout, which a plan builds for its own layouts on first need
+and keeps (``with_transposed``).
 
 Public surface::
 
@@ -41,6 +46,8 @@ Public surface::
   plan.run_layer(params_i, x, layer=i)
   plan.run_phases(x, weights, ...)
   plan.compile(donate=, layer=, dynamic=)       -> CompiledPlan
+  plan.runtime_layout(src, dst, ...)             a runtime graph's layout
+  plan.with_transposed(bg)        a plan layout with its transposed layout
   plan.instrument(machine=)       -> profile.instrument.InstrumentedPlan
   plan.describe()                 decisions + modeled aggregation cost
   plan.layer_costs(layer)         analytic per-phase costs (Tables 3/4)
@@ -58,7 +65,8 @@ from repro_torch.core import phases
 from repro_torch.core.backend import (AUTO, CUDA, require_device,
                                       resolve_backend, resolve_device)
 from repro_torch.core.dataflow import (BlockedGraph, block_graph,
-                                       fused_gcn_layer, suggest_tile_m)
+                                       block_graph_arrays, fused_gcn_layer,
+                                       suggest_tile_m)
 from repro_torch.core.scheduler import (AGGREGATE_FIRST, COMBINE_FIRST,
                                         choose_ordering, ordering_cost)
 from repro_torch.graph.structure import Graph
@@ -106,7 +114,7 @@ class GraphExecutionPlan:
     def __init__(self, g: Graph, layers: Sequence[LayerPlan], *,
                  machine: Machine, reorder: str = "none", perm=None,
                  dtype: str = "f32", dedup: str = "none",
-                 dedup_layout=None):
+                 dedup_layout=None, dedup_pad: Optional[tuple] = None):
         self.g = g                   # the execution graph (renumbered when
                                      # reorder="degree")
         self.layers: Tuple[LayerPlan, ...] = tuple(layers)
@@ -116,6 +124,9 @@ class GraphExecutionPlan:
         self.dedup = dedup           # "none" | "pairs" (resolved; never
                                      # "pairs" with zero matched pairs)
         self.dedup_layout = dedup_layout  # graph.dedup.DedupLayout | None
+        #: (num_pairs, num_edges2) of a bucket plan, whose dedup layout is
+        #: padded with sink edges: it serves runtime dispatch only
+        self.dedup_pad = dedup_pad
         # perm[old_id] = new_id (degree_reorder's contract), inv[new_id] =
         # old_id: device tensors the ingress and egress gathers read
         if perm is not None:
@@ -126,6 +137,7 @@ class GraphExecutionPlan:
         else:
             self.perm = self.inv = None
         self._compiled: Dict = {}    # (donate, layer, dynamic) -> CompiledPlan
+        self._transposed: Dict = {}  # (id(layout), rows) -> its transposed
 
     @property
     def num_layers(self) -> int:
@@ -134,6 +146,56 @@ class GraphExecutionPlan:
     @property
     def device(self) -> torch.device:
         return self.g.device
+
+    @property
+    def agg_tile(self) -> int:
+        """Rows per block of the cuda tier's aggregation layouts (every
+        layer's, since they share the graph); 0 on the torch tier."""
+        return next((lp.agg_layout.tile_m for lp in self.layers
+                     if lp.agg_layout is not None), 0)
+
+    def runtime_layout(self, src, dst, *, num_rows: Optional[int] = None,
+                       max_in_deg: Optional[int] = None,
+                       transposed: bool = False) -> BlockedGraph:
+        """The cuda tier's blocked layout of a graph dispatched at run
+        time, built on the host over the plan's V destination rows: the
+        graph's (passed beside it, ``graph_layout=``), or for a runtime
+        dedup layout its level 2 (``DedupLayout.blocked``).
+
+        src, dst: the REAL edges, destination-sorted numpy arrays.  Pad
+        edges stay out: they are sink no-ops, so every row but the sink is
+        what the padded edge list gives.  ``num_rows``: rows of the
+        gathered matrix (default V; V + P for level 2).  ``max_in_deg``
+        bounds each row's edges, fixing ``emax`` at ``agg_tile *
+        max_in_deg`` rounded up to 8, the static shape a
+        ``compile(dynamic=True)`` capture needs (a block over it raises);
+        by default ``emax`` fits this graph.  ``transposed`` also builds
+        the layout K1's backward runs over."""
+        tile = self.agg_tile
+        if not tile:
+            raise ValueError("runtime layouts serve cuda-tier plans; this "
+                             "plan aggregates on the torch tier")
+        emax = None if max_in_deg is None \
+            else -(-tile * int(max_in_deg) // 8) * 8
+        v = self.g.num_vertices
+        return block_graph_arrays(
+            src, dst, v, tile, device=self.device, emax=emax,
+            transpose_rows=(v if num_rows is None else int(num_rows))
+            if transposed else None)
+
+    def with_transposed(self, bg: BlockedGraph,
+                        num_rows: Optional[int] = None) -> BlockedGraph:
+        """``bg``, a layout this plan owns, with the transposed layout K1's
+        backward runs over (``num_rows`` rows of the gathered matrix,
+        default V) attached: built on the host on first need and kept by
+        the plan, so it goes with the plan (``clear_plan_cache``)."""
+        rows = self.g.num_vertices if num_rows is None else int(num_rows)
+        key = (id(bg), rows)
+        t = self._transposed.get(key)
+        if t is None:
+            from repro_torch.core.dataflow import transposed_layout
+            t = self._transposed[key] = transposed_layout(bg, rows)
+        return bg._replace(transposed=t)
 
     @property
     def compile_supported(self) -> bool:
@@ -158,22 +220,50 @@ class GraphExecutionPlan:
 
     def run_layer(self, params: Dict, x: torch.Tensor, *, layer: int = 0,
                   _probe=None, graph: Optional[Graph] = None,
+                  graph_layout: Optional[BlockedGraph] = None,
                   dedup_layout=None) -> torch.Tensor:
         """One planned layer from its conv param subtree ({"lin": ...} or
         {"mlp1": ..., "mlp2": ...}), in the plan's execution layout (on a
         reordered plan, rows in the renumbered order; ``run_model`` does
         the permutations).  ``graph`` overrides the plan's graph for this
-        dispatch (the dynamic mode of ``compile(dynamic=True)``); only
-        torch-tier unfused plans read nothing but its edge arrays.
-        ``dedup_layout`` likewise replaces the plan's own two-level
-        layout, which never applies to an overriding graph."""
+        dispatch (the dynamic mode of ``compile(dynamic=True)``): a
+        torch-tier layer reads its edge arrays, a cuda-tier layer the
+        graph's blocked layout, ``graph_layout`` (``runtime_layout``).
+        ``dedup_layout`` likewise replaces the plan's own two-level layout,
+        which never applies to an overriding graph.  A cuda-tier layer
+        whose result needs a gradient runs over the plan's layouts with
+        their transposed ones (``with_transposed``)."""
         lp = self.layers[layer]
         weights, bias_post = self._split_params(lp, params)
+        if graph is None and dedup_layout is None and \
+                self.dedup_pad is not None:
+            raise ValueError(
+                "this plan was built with dedup_pad= for runtime dispatch: "
+                "its own dedup layout is padded with sink edges, so it "
+                "takes a graph (graph=) and that graph's dedup layout "
+                "(dedup_layout=) on every forward")
         dedup = dedup_layout if graph is not None or \
             dedup_layout is not None else self.dedup_layout
+        layout = None
+        if graph is not None and lp.backend == CUDA:
+            if graph_layout is None:
+                raise ValueError(
+                    "a graph dispatched at run time on the cuda tier brings "
+                    "its own blocked layout: graph_layout="
+                    "plan.runtime_layout(src, dst)")
+            layout = graph_layout
+        elif graph is None and lp.backend == CUDA and \
+                lp.agg_layout is not None and torch.is_grad_enabled() and \
+                (x.requires_grad or any(t.requires_grad
+                                        for _, t in _leaves(params))):
+            layout = self.with_transposed(lp.agg_layout)
+            if dedup is self.dedup_layout and dedup is not None and \
+                    dedup.blocked is not None:
+                dedup = dedup._replace(blocked=self.with_transposed(
+                    dedup.blocked, self.g.num_vertices + dedup.num_pairs))
         return _execute_layer(self.g if graph is None else graph, lp, x,
                               weights, bias_post=bias_post, probe=_probe,
-                              dtype=self.dtype, dedup=dedup)
+                              dtype=self.dtype, dedup=dedup, layout=layout)
 
     def _ingress(self, x: torch.Tensor, *, _probe=None) -> torch.Tensor:
         """Natural (V, F) features -> the execution layout: the planned
@@ -195,6 +285,7 @@ class GraphExecutionPlan:
 
     def run_model(self, params: Dict, x: torch.Tensor, *, _probe=None,
                   compiled: bool = False, graph: Optional[Graph] = None,
+                  graph_layout: Optional[BlockedGraph] = None,
                   dedup_layout=None) -> torch.Tensor:
         """Full forward: planned layers with ReLU between them.
 
@@ -204,9 +295,12 @@ class GraphExecutionPlan:
         ``compile(dynamic=True)`` with ``graph=``) instead of the eager
         per-phase loop.  ``graph=`` substitutes another graph's edge arrays
         for this dispatch while replaying the same planned decisions; only
-        torch-tier unfused unreordered plans accept it, ``x`` rows must
-        match it, and a dedup plan needs that graph's own
-        ``dedup_layout``.
+        unfused unreordered plans accept it, ``x`` rows must match it, a
+        cuda-tier plan needs the graph's own blocked layout
+        (``graph_layout``, ``runtime_layout``) and a dedup plan that
+        graph's own ``dedup_layout``.  A plan built with ``dedup_pad=``
+        serves runtime dispatch only.  The eager forward is differentiable
+        on both tiers (K1's backward on the cuda tier).
         """
         if compiled:
             if _probe is not None:
@@ -215,7 +309,9 @@ class GraphExecutionPlan:
                     "boundaries; InstrumentedPlan times the compiled "
                     "path separately (run_model(..., compiled=True))")
             if graph is not None:
-                return self.compile(dynamic=True)(params, x, graph)
+                return self.compile(dynamic=True)(
+                    params, x, graph, dedup=dedup_layout,
+                    layout=graph_layout)
             return self.compile()(params, x)
         if graph is not None:
             self._check_dynamic_ok()
@@ -227,31 +323,30 @@ class GraphExecutionPlan:
         h = self._ingress(x, _probe=_probe)
         for i in range(self.num_layers):
             h = self.run_layer(params[f"conv{i}"], h, layer=i, _probe=_probe,
-                               graph=graph, dedup_layout=dedup_layout)
+                               graph=graph, graph_layout=graph_layout,
+                               dedup_layout=dedup_layout)
             if i < self.num_layers - 1:
                 h = torch.relu(h)
         return self._egress(h)
 
     def _check_dynamic_ok(self) -> None:
-        """Dynamic (graph-as-argument) dispatch needs a forward that reads
-        the edge arrays as data: torch-tier unfused layers do; ``cuda`` and
-        fused layers run over host-built blocked layouts of the plan's own
-        graph, and a reordered plan over a permutation of it, so they are
-        refused (``_check_dynamic_ok``, :334)."""
+        """Dynamic (graph-as-argument) dispatch needs a forward over what
+        the runtime graph brings: torch-tier unfused layers read its edge
+        arrays, cuda-tier unfused layers its blocked layout.  Fused layers
+        run over the fused tile's layout of the plan's own graph and a
+        reordered plan over a permutation of it, so they are refused
+        (``_check_dynamic_ok``, :334)."""
         problems = []
         if self.perm is not None:
             problems.append("the plan is reordered (an edge-derived "
                             "permutation of its own graph)")
-        problems += [
-            f"layer {lp.index} ({lp.backend}{', fused' if lp.fused else ''})"
-            f" runs over a host-built blocked layout"
-            for lp in self.layers if lp.backend == CUDA or lp.fused]
+        problems += [f"layer {lp.index} is fused over its own graph's "
+                     f"blocked layout" for lp in self.layers if lp.fused]
         if problems:
             raise ValueError(
-                "dynamic graph dispatch needs a forward that reads the edge "
-                "arrays as data: " + "; ".join(problems) + " (build the "
-                "bucket plan with backend='torch', fused=False, "
-                "reorder='none')")
+                "dynamic graph dispatch needs a forward over the runtime "
+                "graph's arrays: " + "; ".join(problems) + " (build the "
+                "bucket plan with fused=False, reorder='none')")
 
     def compile(self, *, donate: bool = False, layer: Optional[int] = None,
                 dynamic: bool = False) -> "CompiledPlan":
@@ -273,12 +368,16 @@ class GraphExecutionPlan:
           layer: compile one planned layer, ``(conv_params, h) -> h'``,
             instead of the full model (per-layer compiled timing).
           dynamic: the graph becomes a runtime argument, ``(params, x,
-            graph)``: any ``Graph`` whose ``src``/``dst``/``in_deg`` shapes
-            match the plan's; edge content varies per call with no
-            recapture.  Torch-tier unfused unreordered plans only; not with
-            ``layer=``.  A dedup plan raises ``NotImplementedError``: its
-            bucket form takes runtime dedup arrays, whose users (the
-            minibatch trainer, the graph server) are not ported yet.
+            graph, dedup=, layout=)``: any ``Graph`` whose ``src``/``dst``/
+            ``in_deg`` shapes match the plan's -- on the cuda tier with its
+            blocked layout at a fixed capacity (``layout=runtime_layout(
+            ..., max_in_deg=)``), whose shape joins the signature -- and,
+            for a dedup plan, the block's dedup layout padded to the plan's
+            ``dedup_pad`` (``graph.dedup.pad_dedup_arrays``; on the cuda
+            tier with its level-2 ``blocked`` layout); edge content varies
+            per call with no recapture.  Unfused unreordered plans only;
+            not with ``layer=``.  A plan built with ``dedup_pad=`` compiles
+            only this mode.
 
         Reorder, bf16, int8-agg and dedup plans capture like any other: the
         permutation gathers, the casts and the pair partials are device
@@ -297,17 +396,14 @@ class GraphExecutionPlan:
                 "plan.compile() needs every cuda layer to own its plan-built "
                 "blocked layout (build plans through build_plan/plan_for_* "
                 "rather than by hand)")
+        if not dynamic and self.dedup_pad is not None:
+            raise ValueError("a plan built with dedup_pad= serves runtime "
+                             "dispatch only: compile(dynamic=True)")
         if dynamic:
             if layer is not None:
                 raise ValueError("dynamic compilation covers the full "
                                  "forward; layer= is incompatible")
             self._check_dynamic_ok()
-            if self.dedup == "pairs":
-                raise NotImplementedError(
-                    "compile(dynamic=True) of a dedup='pairs' plan takes "
-                    "runtime dedup arrays per sampled block; its users, the "
-                    "minibatch trainer and the graph server (ROADMAP items "
-                    "9-10), are not ported yet")
         key = (bool(donate), layer, bool(dynamic))
         fn = self._compiled.get(key)
         if fn is None:
@@ -460,9 +556,10 @@ class CompiledPlan:
     (``CompiledPlan``, :560).
 
     The first call per input signature -- shapes and dtypes of ``x``, of
-    the params leaves and, in dynamic mode, of ``src``/``dst``/``in_deg``
-    -- traces: on a card it captures a CUDA graph (``_Captured``), on the
-    CPU it runs the eager forward.  Later calls of that signature replay:
+    the params leaves and, in dynamic mode, of ``src``/``dst``/``in_deg``,
+    the dedup arrays and, on the cuda tier, the runtime layouts -- traces:
+    on a card it captures a CUDA graph (``_Captured``), on the CPU it runs
+    the eager forward.  Later calls of that signature replay:
     on a card they copy the inputs into the static buffers (so new
     parameter values take effect, as with ``jax.jit``), replay the graph
     and clone its output (``donate=True``: no clone, see
@@ -509,12 +606,30 @@ class CompiledPlan:
                 out[k] = out.get(k, 0) + n
         return out
 
+    @property
+    def _on_cuda_tier(self) -> bool:
+        return self.plan.agg_tile > 0
+
+    def _layout(self, arrays) -> BlockedGraph:
+        """A runtime layout from its static (src, dstl, mask) buffers."""
+        return BlockedGraph(*arrays, self.plan.agg_tile,
+                            self.plan.g.num_vertices)
+
     def _forward(self, params, x, *graph_arrays):
         if graph_arrays:
-            src, dst, in_deg = graph_arrays
+            n = 6 if self._on_cuda_tier else 3
+            src, dst, in_deg = graph_arrays[:3]
             g = self.plan.g._replace(src=src, dst=dst, in_deg=in_deg,
                                      row_ptr=None)
-            return self.plan.run_model(params, x, graph=g)
+            glay = self._layout(graph_arrays[3:6]) if n == 6 else None
+            lay, ded = None, graph_arrays[n:]
+            if ded:
+                pl, pr, s2, d2 = ded[:4]
+                lay = self.plan.dedup_layout._replace(
+                    pair_left=pl, pair_right=pr, src2=s2, dst2=d2,
+                    blocked=self._layout(ded[4:]) if ded[4:] else None)
+            return self.plan.run_model(params, x, graph=g,
+                                       graph_layout=glay, dedup_layout=lay)
         if self.layer is None:
             return self.plan.run_model(params, x)
         return self.plan.run_layer(params, x, layer=self.layer)
@@ -525,9 +640,24 @@ class CompiledPlan:
                 tuple(p for p, _ in leaves),
                 tuple((tuple(t.shape), t.dtype) for _, t in leaves))
 
-    def _graph_args(self, graph: Graph):
-        """Validate a runtime graph for the dynamic mode: a shape mismatch
-        raises here, never silently absorbed by a recapture."""
+    def _layout_args(self, lay, what: str):
+        """A runtime layout's arrays, checked against the plan's tile."""
+        if lay is None:
+            raise ValueError(f"a cuda-tier dynamic plan takes the {what}'s "
+                             f"blocked layout (plan.runtime_layout(..., "
+                             f"max_in_deg=))")
+        if (lay.tile_m, lay.num_vertices) != (self.plan.agg_tile,
+                                               self.plan.g.num_vertices):
+            raise ValueError(
+                f"the {what}'s layout has tile {lay.tile_m} over "
+                f"{lay.num_vertices} rows; the plan's is {self.plan.agg_tile}"
+                f" over {self.plan.g.num_vertices}")
+        return (lay.src, lay.dstl, lay.mask)
+
+    def _graph_args(self, graph: Graph, layout):
+        """Validate a runtime graph (and, on the cuda tier, its blocked
+        ``layout``) for the dynamic mode: a shape mismatch raises here,
+        never silently absorbed by a recapture."""
         t = self.plan.g
         if graph.num_vertices != t.num_vertices or \
                 graph.src.shape != t.src.shape or \
@@ -540,14 +670,48 @@ class CompiledPlan:
         if graph.device != t.device:
             raise ValueError(f"dynamic graph on {graph.device}, plan on "
                              f"{t.device}")
-        return (graph.src, graph.dst, graph.in_deg)
+        arrays = (graph.src, graph.dst, graph.in_deg)
+        if self._on_cuda_tier:
+            arrays += self._layout_args(layout, "graph")
+        return arrays
 
-    def __call__(self, params, x, graph: Optional[Graph] = None):
+    def _dedup_args(self, dedup):
+        """Validate runtime dedup arrays (a ``DedupLayout`` or its
+        ``(pair_left, pair_right, src2, dst2)``) padded to the plan's
+        ``dedup_pad`` (``_dedup_args``, :636); on the cuda tier the layout
+        also brings its level-2 ``blocked`` layout."""
+        t = self.plan.dedup_layout
+        blocked = getattr(dedup, "blocked", None)
+        if hasattr(dedup, "pair_left"):
+            dedup = (dedup.pair_left, dedup.pair_right, dedup.src2,
+                     dedup.dst2)
+        pl, pr, s2, d2 = dedup
+        if pl.shape[0] != t.num_pairs or s2.shape[0] != t.num_edges2:
+            raise ValueError(
+                f"dynamic dedup shapes {pl.shape[0]}P/{s2.shape[0]}E2 do "
+                f"not match the bucket template {t.num_pairs}P/"
+                f"{t.num_edges2}E2 -- pad via graph.dedup.pad_dedup_arrays")
+        arrays = (pl, pr, s2, d2)
+        if self._on_cuda_tier:
+            arrays += self._layout_args(blocked, "dedup layout")
+        return arrays
+
+    def __call__(self, params, x, graph: Optional[Graph] = None,
+                 dedup=None, layout: Optional[BlockedGraph] = None):
         if self.dynamic:
             if graph is None:
                 raise ValueError("dynamic compiled plans take (params, x, "
                                  "graph)")
-            arrays = (x,) + self._graph_args(graph)
+            arrays = (x,) + self._graph_args(graph, layout)
+            if self.plan.dedup == "pairs":
+                if dedup is None:
+                    raise ValueError(
+                        "this dynamic plan was compiled with dedup='pairs'; "
+                        "pass the block's padded dedup layout (dedup=)")
+                arrays += self._dedup_args(dedup)
+            elif dedup is not None:
+                raise ValueError("dedup arrays passed to a dedup='none' "
+                                 "compiled plan")
         else:
             if graph is not None:
                 raise ValueError("this compiled plan is static; build it "
@@ -646,7 +810,7 @@ def _dedup_fused_inputs(dedup, xa: torch.Tensor) -> torch.Tensor:
 def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
                    edge_weight=None, activation: str = "relu",
                    bias_post=None, probe=None, dtype: str = "f32",
-                   dedup=None) -> torch.Tensor:
+                   dedup=None, layout=None) -> torch.Tensor:
     """Execute one layer per its plan: fusion > ordering > backend
     (``_execute_layer``, :762-878).  Each phase goes through ``_phase``
     where the reference records one.
@@ -659,8 +823,10 @@ def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
     ``dedup`` (a ``graph.dedup.DedupLayout`` or None) goes to
     ``phases.aggregate`` on the unfused paths; a fused layer swaps its
     blocked layout for the layout's level-2 blocking and gathers from
-    ``[x ; partials]``.
+    ``[x ; partials]``.  ``layout`` replaces ``lp.agg_layout`` (a runtime
+    graph's, on the cuda tier).
     """
+    agg_layout = lp.agg_layout if layout is None else layout
     entry_err = 0.0
     if dtype == "bf16":
         xr = x.to(torch.bfloat16)
@@ -727,7 +893,7 @@ def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
                    lambda hh=ha: phases.aggregate(
                        g, hh, op=lp.agg_op, edge_weight=edge_weight,
                        include_self=lp.include_self, backend=lp.backend,
-                       layout=lp.agg_layout, dedup=dedup),
+                       layout=agg_layout, dedup=dedup),
                    lp=lp, feature_len=int(h.shape[-1]), quant_error=agg_err)
         h = _round(h, dtype)
     else:
@@ -740,7 +906,7 @@ def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
                    lambda: phases.aggregate(
                        g, xa, op=lp.agg_op, edge_weight=edge_weight,
                        include_self=lp.include_self, backend=lp.backend,
-                       layout=lp.agg_layout, dedup=dedup),
+                       layout=agg_layout, dedup=dedup),
                    lp=lp, feature_len=int(x.shape[-1]), quant_error=agg_err)
         h = _round(h, dtype)
         h = _phase(probe, "combine",
@@ -927,12 +1093,19 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
         for bit in f32 wherever the fold runs in order); "auto"
         (``choose_dedup`` on the widest layer).  Max aggregation and a
         graph with no matched pair resolve to "none".
-        ``dedup_pad=`` (the reference's bucket form, padded with sink
-        no-ops for ``compile(dynamic=True)``) raises
-        ``NotImplementedError``: the port's dynamic compilation refuses
-        dedup plans until its users (ROADMAP items 9-10) are ported, and a
-        static forward of a padded layout would add the pad edges' copies
-        of the last vertex row.
+        ``dedup_pad=(num_pairs, num_edges2)`` is the bucket form: the
+        template's layout padded to those static capacities with sink
+        no-ops on the last vertex row (``graph.dedup.pad_dedup_arrays``),
+        so one ``compile(dynamic=True)`` callable, or one eager bucket
+        dispatch, takes any block's runtime dedup arrays padded the same
+        way.  ``num_edges2`` is normally the bucket's edge capacity and
+        ``num_pairs`` its ``num_edges // 4`` (a kept pair needs two
+        matched destinations of two edges each).  Only with dedup
+        "pairs" or "auto".  Such a plan serves runtime dispatch only:
+        its own padded layout would add the sink edges' copies into the
+        last row, so a forward without ``graph=`` and ``dedup_layout=``
+        raises, and it has no level-2 blocking of its own (each
+        dispatch brings one on the cuda tier).
 
     ``mesh`` (distributed execution) is not ported and raises
     ``NotImplementedError`` rather than being ignored.
@@ -960,11 +1133,10 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
         raise ValueError(f"unknown dedup {dedup!r}; expected "
                          "'none' | 'pairs' | 'auto'")
     if dedup_pad is not None:
-        raise NotImplementedError(
-            "build_plan(dedup_pad=...) builds the bucket form of "
-            "compile(dynamic=True), which takes runtime dedup arrays; its "
-            "users, the minibatch trainer and the graph server (ROADMAP "
-            "items 9-10), are not ported yet")
+        if dedup == "none":
+            raise ValueError("dedup_pad= is only meaningful with "
+                             "dedup='pairs'/'auto'")
+        dedup_pad = (int(dedup_pad[0]), int(dedup_pad[1]))
     dev = _check_graph_device(g, device)
     machine = get_machine(machine)
     agg = cfg.aggregator
@@ -974,7 +1146,8 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
     require_device(tier, dev)
     spec_key = (cfg.name, cfg.conv, agg, tuple(cfg.hidden_dims),
                 cfg.num_layers, int(in_dim), int(num_classes), tier,
-                use_fused, req_order, machine.name, reorder, dtype, dedup)
+                use_fused, req_order, machine.name, reorder, dtype, dedup,
+                dedup_pad)
 
     def builder():
         # -- locality reorder, before anything that depends on the vertex
@@ -1025,7 +1198,18 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
                                   dtype=dt)
             if dd == "pairs" and lay.num_pairs == 0:
                 dd = "none"             # nothing matched: the naive plan
-            if dd == "pairs":
+            if dd == "pairs" and dedup_pad is not None:
+                # the bucket form: the template's arrays padded to the
+                # static capacities with sink no-ops on the last row
+                pcap, ecap = dedup_pad
+                arrays = gdedup.pad_dedup_arrays(
+                    lay, pcap, ecap, g_exec.num_vertices - 1)
+                pl_, pr_, s2_, d2_ = (torch.from_numpy(a).to(dev)
+                                      for a in arrays)
+                lay = lay._replace(pair_left=pl_, pair_right=pr_, src2=s2_,
+                                   dst2=d2_, num_pairs=pcap, num_edges2=ecap)
+            # a bucket plan's level-2 blocking comes with each dispatch
+            if dd == "pairs" and dedup_pad is None:
                 if any(lp.fused and lp.blocked is not None for lp in layers) \
                         or tier == CUDA:
                     tiles = [lp.blocked.tile_m for lp in layers
@@ -1035,10 +1219,12 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
                         align, min(128, -(-g_exec.num_vertices // align)
                                    * align))
                     lay = gdedup.attach_blocked(lay, atile)
+            if dd == "pairs":
                 dlayout = lay
-        return GraphExecutionPlan(g_exec, layers, machine=machine,
-                                  reorder=decision, perm=perm, dtype=dt,
-                                  dedup=dd, dedup_layout=dlayout)
+        return GraphExecutionPlan(
+            g_exec, layers, machine=machine, reorder=decision, perm=perm,
+            dtype=dt, dedup=dd, dedup_layout=dlayout,
+            dedup_pad=dedup_pad if dd == "pairs" else None)
 
     return _cached_plan(g, spec_key, builder)
 

@@ -97,8 +97,9 @@ def check_args(kernel: str, device, args) -> None:
     """Raise unless each ``name: (tensor, dtype, shape)`` in ``args`` lies on
     ``device`` with that dtype and shape (``None`` = any extent) and is
     contiguous -- the kernels take nothing else.  Also raises when autograd
-    would want a gradient through the kernel: the CUDA kernels have no
-    backward yet, and silently dropping the gradient would be wrong."""
+    would want a gradient through a launch: a launch has no backward of its
+    own (K1's wrapper launches inside its autograd Function, where grad
+    mode is off), and silently dropping the gradient would be wrong."""
     for name, (t, dtype, shape) in args.items():
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, "
@@ -115,5 +116,5 @@ def check_args(kernel: str, device, args) -> None:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t, _, _ in args.values()):
         raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward; run the cuda tier "
-            f"under torch.no_grad() or train on the torch tier")
+            f"{kernel}: the CUDA kernel launch has no backward; call it "
+            f"under torch.no_grad() or through a differentiable wrapper")

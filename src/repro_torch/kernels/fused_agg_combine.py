@@ -154,6 +154,11 @@ def scratch_bytes(f_in: int, f_out: int) -> int:
             * cols_per_wg(min(f_out, MAX_COLS)))
 
 
+def _is_cpu(t: torch.Tensor) -> bool:
+    """True when ``t`` takes the plain version (it lies on the CPU)."""
+    return t.device.type == "cpu"
+
+
 def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
                       mask: torch.Tensor, w: torch.Tensor, *,
                       tile_m: int) -> torch.Tensor:
@@ -169,9 +174,18 @@ def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     aggregate and the product (3xTF32, or two TF32 products for a bf16 W,
     which TF32 holds exactly) to f32 accuracy, rounded once for bf16.
     Launches on the current stream and does not synchronize.
+
+    The kernel has no backward: on a card, an ``x`` or ``w`` that requires
+    a gradient (with grad mode on) raises ``NotImplementedError`` rather
+    than cutting the gradient.  Train with unfused plans.
     """
-    if x.device.type == "cpu":
+    if _is_cpu(x):
         return fused_agg_combine_plain(x, src, dstl, mask, w, tile_m=tile_m)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "fused_agg_combine has no backward on the card (ROADMAP §2: K2 "
+            "backward for a fused training path); train with fused=False, "
+            "whose aggregation K1 differentiates")
     out = _launch(x, src, dstl, mask, w, tile_m)
     fused_agg_combine.launches += 1
     if w.dtype == torch.bfloat16:

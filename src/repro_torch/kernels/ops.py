@@ -14,6 +14,11 @@ gathered: the slow path for one-off calls on graphs no plan laid out.
 They hand the rows to the ``seg_agg`` kernel as its ``x`` with the slots'
 sources ``arange``: ``seg_agg`` regroups the edges into blocks on the host
 on every call, ``seg_agg_pregrouped`` takes them blocked.
+
+On the ``cuda`` tier every entry reaches K1 through its autograd Function
+(``kernels.seg_agg.SegAgg``), so a gradient flows through the kernel: its
+backward is K1 over the layout's transposed twin.  The ``torch`` tier's
+plain versions are differentiable as they stand.
 """
 
 from __future__ import annotations
@@ -40,11 +45,13 @@ def launch_counts() -> dict:
     """Launches so far of each kernel wrapper, by kernel name.  The counts
     are Python-side: a CUDA graph's replay moves none of them.
     ``seg_agg`` and ``fused_agg_combine`` count every launch; the bf16
-    entries count those with a bf16 output among them (for
+    entries count those with a bf16 output among them, ``seg_agg_bwd``
+    K1's backward launches (``SegAgg.backward``) among them (for
     ``fused_agg_combine_bf16`` the f32-rows, bf16-W pair too, which
     ``fused_agg_combine_mixed`` counts on its own)."""
     return {"seg_agg": k1.seg_agg.launches,
             "seg_agg_bf16": k1.seg_agg.launches_bf16,
+            "seg_agg_bwd": k1.seg_agg.launches_bwd,
             "fused_agg_combine": k2.fused_agg_combine.launches,
             "fused_agg_combine_bf16": k2.fused_agg_combine.launches_bf16,
             "fused_agg_combine_mixed": k2.fused_agg_combine.launches_mixed,
@@ -54,6 +61,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
     k1.seg_agg.launches = k1.seg_agg.launches_bf16 = 0
+    k1.seg_agg.launches_bwd = 0
     k2.fused_agg_combine.launches = k2.fused_agg_combine.launches_bf16 = 0
     k2.fused_agg_combine.launches_mixed = 0
     k5.flash_attention.launches = 0
@@ -115,7 +123,8 @@ def seg_agg_planned(bg, x: torch.Tensor,
     V + P rows of ``[x ; partials]``; ``edge_weight``: optional (E,)
     per-edge scalar, regrouped into the blocked layout through ``bg.eidx``
     (one gather).  Returns (V, F) in x's dtype: ``sum_{(u,v) in E} w_uv *
-    x_u`` per destination v.
+    x_u`` per destination v.  On the cuda tier the backward runs over
+    ``bg.transposed`` (built from ``bg`` in the backward when None).
     """
     _check_tier(backend, x)
     weight = None
@@ -124,8 +133,12 @@ def seg_agg_planned(bg, x: torch.Tensor,
             raise ValueError("BlockedGraph built without eidx cannot "
                              "regroup edge weights; rebuild via block_graph")
         weight = edge_weight.to(torch.float32)[bg.eidx.long()]
-    fn = k1.seg_agg_plain if backend == TORCH else k1.seg_agg
-    out = fn(x, bg.src, bg.dstl, bg.mask, weight, tile_m=bg.tile_m)
+    if backend == TORCH:
+        out = k1.seg_agg_plain(x, bg.src, bg.dstl, bg.mask, weight,
+                               tile_m=bg.tile_m)
+    else:
+        out = k1.seg_agg(x, bg.src, bg.dstl, bg.mask, weight,
+                         tile_m=bg.tile_m, transposed=bg.transposed)
     return out[:bg.num_vertices]
 
 

@@ -12,8 +12,15 @@ x and the output are f32 or bf16 (the reference's ``rows.dtype``); the
 fold is f32 either way and a bf16 output is rounded once, at the store.
 
 ``seg_agg`` is the wrapper: a tensor on the CPU takes ``seg_agg_plain``, a
-CUDA tensor launches the kernel or raises.  ``seg_agg.launches`` counts the
-launches, ``seg_agg.launches_bf16`` the bf16 ones among them.  The kernel
+CUDA tensor launches the kernel or raises.  It runs through the autograd
+Function ``SegAgg``, whose backward for ``x`` is the same fold over the
+transposed layout (``core.dataflow``)::
+
+    gx[u] = sum_{slots e with src[e] = u} mask[e] * weight[e] * gout[dst[e]]
+
+so on a card both directions launch the kernel.  ``seg_agg.launches``
+counts the launches, ``seg_agg.launches_bf16`` the bf16 ones and
+``seg_agg.launches_bwd`` the backward ones among them.  The kernel
 walks x in column slices of ``slice_cols`` with 16-, 8-, 4- or (bf16)
 2-byte loads (``launch_params``), both pure functions of the shapes, so
 the CPU tests hold them.
@@ -131,24 +138,74 @@ def _entry(kernel: str, dtype: torch.dtype) -> str:
                         f"{' or '.join(str(d) for d in ENTRIES)}") from None
 
 
+def _fold(x, src, dstl, mask, weight, tile_m: int, *,
+          backward: bool = False) -> torch.Tensor:
+    """One fold: the plain version on the CPU, the kernel on a card (a
+    ``backward`` one counted in ``seg_agg.launches_bwd`` too)."""
+    if x.device.type == "cpu":
+        return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m)
+    out = _launch(x, src, dstl, mask, weight, tile_m,
+                  slice_cols(x.shape[-1]))
+    if backward:
+        seg_agg.launches_bwd += 1
+    return out
+
+
+class SegAgg(torch.autograd.Function):
+    """K1 with its backward.  Forward: the fold.  Backward for ``x``: the
+    same fold over the transposed layout (the one given, or else
+    ``core.dataflow.transposed_layout`` of the forward one, built in this
+    backward), the weights regrouped through its ``eidx``; nothing
+    launches when ``x`` needs no gradient.  The layout, mask and weights
+    get none."""
+
+    @staticmethod
+    def forward(ctx, x, src, dstl, mask, weight, tile_m, transposed):
+        ctx.save_for_backward(src, dstl, mask, weight)
+        ctx.tile_m, ctx.transposed, ctx.rows = tile_m, transposed, x.shape[0]
+        return _fold(x, src, dstl, mask, weight, tile_m)
+
+    @staticmethod
+    def backward(ctx, gout):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 7
+        src, dstl, mask, weight = ctx.saved_tensors
+        t = ctx.transposed
+        if t is None:
+            from repro_torch.core.dataflow import (BlockedGraph,
+                                                   transposed_layout)
+            t = transposed_layout(
+                BlockedGraph(src, dstl, mask, ctx.tile_m, ctx.rows),
+                ctx.rows)
+        wt = None if weight is None else \
+            weight.reshape(-1)[t.eidx.long()].contiguous()
+        gx = _fold(gout.contiguous(), t.src, t.dstl, t.mask, wt, t.tile_m,
+                   backward=True)
+        return (gx[:ctx.rows],) + (None,) * 6
+
+
 def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
             mask: torch.Tensor, weight: Optional[torch.Tensor] = None,
-            *, tile_m: int) -> torch.Tensor:
+            *, tile_m: int, transposed=None) -> torch.Tensor:
     """Blocked segmented sum: the CUDA kernel for CUDA tensors, the plain
-    version for tensors on the CPU.
+    version for tensors on the CPU, differentiable in ``x`` (``SegAgg``).
 
     x: (V, F) f32 or bf16; src, dstl: (nblocks, emax) int32 (``dstl`` in
     ``[0, tile_m)``; in each block the valid slots, ``mask != 0``, come
     first and are sorted by ``dstl``, as ``core.dataflow.block_graph`` lays
     them out; ``src`` in ``[0, V)``); mask, weight: (nblocks, emax) f32
-    (``weight`` optional).  Returns (nblocks * tile_m, F) in x's dtype:
-    f32 sums, rounded once for bf16.  Launches on the current stream and
-    does not synchronize.
+    (``weight`` optional; neither may require a gradient); transposed: the
+    layout's ``core.dataflow.BlockedGraph.transposed`` for the backward,
+    or None to build it from this layout in each backward (a host
+    regroup: callers that run many backward passes keep it).
+    Returns (nblocks * tile_m, F) in x's dtype: f32 sums, rounded once for
+    bf16.  Launches on the current stream and does not synchronize.
     """
-    if x.device.type == "cpu":
-        return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m)
-    return _launch(x, src, dstl, mask, weight, tile_m,
-                   slice_cols(x.shape[-1]))
+    if torch.is_grad_enabled() and (mask.requires_grad or (
+            weight is not None and weight.requires_grad)):
+        raise ValueError("seg_agg: the mask and the edge weights get no "
+                         "gradient; detach them")
+    return SegAgg.apply(x, src, dstl, mask, weight, tile_m, transposed)
 
 
 def _launch(x, src, dstl, mask, weight, tile_m: int,
@@ -197,3 +254,4 @@ def _launch(x, src, dstl, mask, weight, tile_m: int,
 
 seg_agg.launches = 0
 seg_agg.launches_bf16 = 0
+seg_agg.launches_bwd = 0

@@ -158,13 +158,14 @@ def test_dynamic_refuses_other_shapes_and_layouts():
         m.plan_for(TG, fused=True).compile(dynamic=True)
     with pytest.raises(ValueError, match="blocked layout"):
         m.plan_for(TG, fused=True).run_model(m.tree(), TX, graph=TG2)
-    # a cuda-tier plan (planned over CPU tensors; planning launches nothing)
+    # a cuda-tier plan (planned over CPU tensors; planning launches
+    # nothing) compiles, and a runtime graph must bring its blocked layout
     lp = tplan._plan_layer(TG, 0, "gcn", (TSPEC.feature_len, 7),
                            agg_op="mean", ordering="auto", backend="cuda",
                            fused=False)
     cuda_plan = tplan.GraphExecutionPlan(TG, [lp], machine=H100)
-    with pytest.raises(ValueError, match=r"\(cuda\)"):
-        cuda_plan.compile(dynamic=True)
+    with pytest.raises(ValueError, match="blocked layout"):
+        cuda_plan.compile(dynamic=True)(m.tree(), TX, TG2)
 
 
 def test_new_parameter_values_take_effect():

@@ -241,10 +241,15 @@ def test_model_cuda_tier_matches_torch_tier(card, name, fused):
 
 
 def test_kernel_refuses_gradients(card):
+    """K2 has no backward: a fused forward that needs a gradient raises.
+    K1 differentiates (its autograd Function), so the unfused forward
+    keeps the gradient (test_k1_backward_matches_plain)."""
     spec, g, x = card
-    m = make_paper_model("gcn", spec, device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
+    m = make_paper_model("gcn", spec, device="cuda", fused=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
         m(g, x)
+    assert make_paper_model("gcn", spec, device="cuda")(g, x).grad_fn \
+        is not None
 
 
 @pytest.fixture(scope="module")
@@ -768,3 +773,108 @@ def test_captured_decision_plans_bitwise_equal_eager(card, case, fused):
     outs = [fn(m.tree(), x) for _ in range(4)]
     assert all(torch.equal(o, eager) for o in outs)
     assert (fn.num_traces, fn.num_replays) == (1, 3)
+
+
+# ---------------------------------------------------------------------------
+# minibatch training: K1's backward and the trainer on the card
+# ---------------------------------------------------------------------------
+
+
+def test_k1_backward_matches_plain(card):
+    """K1's autograd Function: the x gradient -- K1 over the transposed
+    layout, given with the forward one or built on first need -- against
+    the plain version's autograd per row (K1's f32 limit), with edge
+    weights; launches bit for bit equal; one backward launch a gradient."""
+    spec, g, _ = card
+    bg = block_graph_arrays(g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                            g.num_vertices, 128, device="cuda",
+                            transpose_rows=g.num_vertices)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.rand(g.num_edges, generator=gen,
+                   device="cuda")[bg.eidx.long()].contiguous()
+    x = torch.randn((g.num_vertices, 40), generator=gen, device="cuda")
+    gout = torch.randn((bg.nblocks * bg.tile_m, 40), generator=gen,
+                       device="cuda")
+
+    def grad(fn, **kw):
+        xr = x.clone().requires_grad_()
+        out = fn(xr, bg.src, bg.dstl, bg.mask, w, tile_m=bg.tile_m, **kw)
+        assert out.grad_fn is not None
+        return torch.autograd.grad(out, [xr], gout)[0]
+
+    before = ops.launch_counts()
+    got = [grad(k1.seg_agg, transposed=bg.transposed), grad(k1.seg_agg),
+           grad(k1.seg_agg)]
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert (launched["seg_agg"], launched["seg_agg_bwd"]) == (6, 3)
+    assert all(torch.equal(got[0], o) for o in got[1:])
+    _rows_close(got[0], grad(k1.seg_agg_plain), ROW_LIMIT[torch.float32])
+
+
+def _train_case(card):
+    from repro_torch.config import REDDIT
+    spec = reduced_graph(REDDIT, 2000, 64)
+    g = make_synthetic_graph(spec, device="cuda")
+    return spec, g, make_features(spec, device="cuda"), \
+        torch.from_numpy(np.random.default_rng(0).integers(
+            0, spec.num_classes, spec.num_vertices))
+
+
+TRAIN_KW = dict(hidden=32, batch_size=16, fanouts=(5, 3), lr=0.1, seed=0)
+
+
+@pytest.mark.parametrize("dedup", ["none", "pairs"])
+def test_trainer_first_step_cuda_vs_torch(card, dedup):
+    """The trainer's first step on the cuda tier against the torch tier on
+    the same card and block (loss and gradients, unit f32 band times 10);
+    K1 launches forward and backward as the ordering implies; predict
+    captures once and replays the eager forward's bits."""
+    from repro_torch.models.sage_minibatch import PlannedSageTrainer
+    spec, g, x, y = _train_case(card)
+    tc = PlannedSageTrainer(g, spec, x, y, dedup=dedup, **TRAIN_KW)
+    tt = PlannedSageTrainer(g, spec, x, y, dedup=dedup, backend="torch",
+                            **TRAIN_KW)
+    assert tc.plan.agg_tile > 0 and tt.plan.agg_tile == 0
+    prep = tc._prepare(tc.pipeline.batch_at(0))
+    before = ops.launch_counts()
+    lc, gc = tc.loss_and_grads(prep)
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    lt, gt = tt.loss_and_grads(prep)
+    _close(lc, lt)
+    for a, b in zip(gc, gt):
+        _close(a, b)
+    n_bwd = sum(i > 0 or lp.order == "combine_first"
+                for i, lp in enumerate(tc.plan.layers))
+    assert (launched["seg_agg"], launched["seg_agg_bwd"]) == (2 + n_bwd,
+                                                              n_bwd)
+    first = tc.predict(step=1)
+    xx, gg, glay, ded = tc._inputs(
+        tc._prepare(tc.pipeline.batch_at(2)), capacity=True)
+    with torch.no_grad():
+        eager = tc.plan.run_model(tc.params, xx, graph=gg,
+                                  graph_layout=glay, dedup_layout=ded)
+    assert torch.equal(tc.fwd(tc.params, xx, gg, dedup=ded, layout=glay),
+                       eager)
+    assert np.isfinite(first).all()
+    assert (tc.fwd.num_traces, tc.fwd.num_replays) == (1, 1)
+
+
+def test_trainer_resume_bitwise_on_card(card, tmp_path):
+    """K1 folds without atomics: a run resumed from a checkpoint equals
+    the uninterrupted one bit for bit on the card."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.models.sage_minibatch import PlannedSageTrainer
+    spec, g, x, y = _train_case(card)
+    straight = PlannedSageTrainer(g, spec, x, y, dedup="none", **TRAIN_KW)
+    straight.train(6)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    a = PlannedSageTrainer(g, spec, x, y, dedup="none", **TRAIN_KW)
+    a.train(3)
+    a.save(ck)
+    b = PlannedSageTrainer(g, spec, x, y, dedup="none", **TRAIN_KW)
+    assert b.restore(ck) == 3
+    b.train(3)
+    assert b.losses == straight.losses
+    for (_, p), (_, q) in zip(tplan._leaves(b.params),
+                              tplan._leaves(straight.params)):
+        assert torch.equal(p, q) and p.device.type == "cuda"

@@ -351,12 +351,48 @@ def test_plan_cache_keys_on_every_decision():
     stats = tplan.plan_cache_stats()
     assert (stats["size"], stats["hits"]) == (len(plans), len(plans))
     assert stats["reorder_size"] == 1           # one renumbering, shared
-    # the bucket form's padding waits for its users (ROADMAP items 9-10)
-    with pytest.raises(NotImplementedError, match="items 9-10"):
-        tplan.build_plan(TG, *args, device="cpu", dedup="pairs",
-                         dedup_pad=(40, 1100))
+    # the bucket form (dedup_pad=) is its own plan, its layout padded to
+    # the capacities with sink no-ops
+    padded = tplan.build_plan(TG, *args, device="cpu", dedup="pairs",
+                              dedup_pad=(40, 1100))
+    assert padded is not plans[(("dedup", "pairs"),)]
+    assert tplan.build_plan(TG, *args, device="cpu", dedup="pairs",
+                            dedup_pad=(40, 1100)) is padded
+    lay = padded.dedup_layout
+    assert (lay.num_pairs, lay.num_edges2) == (40, 1100)
+    assert int(lay.dst2[-1]) == TG.num_vertices - 1
+    with pytest.raises(ValueError, match="dedup_pad"):
+        tplan.build_plan(TG, *args, device="cpu", dedup_pad=(40, 1100))
     tplan.clear_plan_cache()
     assert tplan.plan_cache_stats()["reorder_size"] == 0
+
+
+def test_padded_dedup_plan_serves_runtime_dispatch_only(monkeypatch):
+    """A plan built with dedup_pad= refuses a static forward and a static
+    compile (its padded layout would add the sink edges' copies into the
+    last row); given a graph and that graph's dedup layout it equals the
+    unpadded plan.  On the cuda tier it keeps no level-2 blocking of its
+    own: each dispatch brings one."""
+    _, tm = _models("gcn")
+    plain = tm.plan_for(TG, fused=False, dedup="pairs")
+    padded = tm.plan_for(TG, fused=False, dedup="pairs",
+                         dedup_pad=(40, 1100))
+    assert padded.dedup_pad == (40, 1100) and plain.dedup_pad is None
+    with pytest.raises(ValueError, match="dedup_pad"):
+        padded.run_model(tm.tree(), TX)
+    with pytest.raises(ValueError, match="dedup_pad"):
+        padded.compile()
+    with torch.no_grad():
+        got = padded.run_model(tm.tree(), TX, graph=TG,
+                               dedup_layout=plain.dedup_layout)
+        assert torch.equal(got, plain.run_model(tm.tree(), TX))
+    monkeypatch.setattr(tplan, "require_device", lambda backend, dev: None)
+    on_cuda = {k: tm.plan_for(TG, fused=False, backend="cuda", dedup="pairs",
+                              **kw)
+               for k, kw in (("plain", {}), ("padded",
+                                           {"dedup_pad": (40, 1100)}))}
+    assert on_cuda["plain"].dedup_layout.blocked is not None
+    assert on_cuda["padded"].dedup_layout.blocked is None
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -382,10 +418,16 @@ def test_compile_equals_eager_bitwise(case, fused):
 
 
 def test_dynamic_compile_of_dedup_plan_raises():
+    """A dynamic dedup plan raises without the block's dedup arrays, and
+    with them equals the eager forward."""
     _, tm = _models("gcn")
     plan = tm.plan_for(TG, dedup="pairs")
-    with pytest.raises(NotImplementedError, match="items 9-10"):
-        plan.compile(dynamic=True)
+    fn = plan.compile(dynamic=True)
+    with pytest.raises(ValueError, match="dedup="):
+        fn(tm.tree(), TX, TG)
+    with torch.no_grad():
+        want = plan.run_model(tm.tree(), TX)
+    assert torch.equal(fn(tm.tree(), TX, TG, dedup=plan.dedup_layout), want)
     with pytest.raises(ValueError, match="dedup_layout"):
         plan.run_model(tm.tree(), TX, graph=TG)
     # the graph's own layout, handed in, serves an eager dispatch
