@@ -107,8 +107,26 @@ Phases, each printing its own lines; any failure exits non-zero:
                 the feature gather, the step's wall ms; over a profiled
                 window the device's busy ms per step and idle share; peak
                 memory.
+ 12. serve   -- (right after phase 11) GCN node-prediction serving on
+                Reddit through GraphServeEngine on the cuda tier: gcn,
+                sage and gin (602 -> 128 -> 41, f32, unfused) under two
+                traffic mixes of 50 requests (A: fanouts 5/5, 1-16 seeds,
+                the reference's example; B: fanouts 25/10, 1-64 seeds,
+                GraphSAGE's Reddit setting), buckets at 4/16/64 seeds, 8
+                slots.  Each bucket captured once by warmup(), K1 once a
+                layer in each capture as in an eager forward of its plan;
+                0 retraces, 0 misses and no launch outside the graphs in
+                the wave; the first 8 replays bit for bit the eager
+                forward over the padded block and within the f32 band of
+                the unpadded one; every request within 1e-4 of a
+                torch-tier plan; one 96-seed miss (mix A) served eagerly
+                through K1 and counted; workload_report() valid.  Latency
+                percentiles, throughput, the host split of a request, the
+                largest bucket's compiled call and its x copy-in, the
+                device's busy ms and idle share over 10 profiled requests,
+                peak memory.
 
-The phases run in the order 1-4, 8, 9, 10, 11, 5-7.  The last three
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 5-7.  The last three
 lines are nvidia-smi's name and power limit, one JSON object per kernel
 ({"kernels": [...]}) and the result line.  The full
 per-shape table is also written to chiprun_out/chip_smoke.json.
@@ -228,6 +246,16 @@ TRAIN_PROFILE = (5, 8)
 K1_BWD_ROW_LIMIT = 3e-5
 #: phase 9: PageRank power iterations timed on Reddit
 PAGERANK_ITERS = 20
+#: phase 12: the serving traffic mixes, name -> (fanouts, most seeds a
+#: request): A the reference's own example (examples/serve_gcn.py), B
+#: GraphSAGE's Reddit fanouts (Hamilton et al., NeurIPS 2017)
+SERVE_MIXES = {"A": ((5, 5), 16), "B": ((25, 10), 64)}
+#: phase 12: requests a wave, the first ones held against the eager
+#: oracles, requests in the profiled window, seeds of the deliberate miss
+SERVE_REQUESTS, SERVE_ORACLE, SERVE_PROFILE, SERVE_MISS = 50, 8, 10, 96
+#: phase 12: served logits against a torch-tier plan on the same card,
+#: relative to the torch tier's largest magnitude
+SERVE_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1104,6 +1132,28 @@ def check_k1_backward(tr, prep, f: int):
     return rec
 
 
+def kernel_window(name: str, prof, wall_ms: float, n: int) -> dict:
+    """Per unit (a step or a request) over a profiled window of ``n``
+    units that took ``wall_ms`` on the host clock: wall ms, the device's
+    busy ms (kernels of the trace), K1's share of it, kernels, and the
+    device's idle share (None when the trace holds no kernel).  The trace
+    goes to chiprun_out/traces/<name>.json."""
+    out_dir = ROOT / "chiprun_out" / "traces"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    events = events.get("traceEvents", events)
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e["dur"] for e in kern) / 1e3
+    k1 = sum(e["dur"] for e in kern
+             if "fold_kernel" in e.get("name", "")
+             or "row_starts_kernel" in e.get("name", "")) / 1e3
+    return {"n": n, "wall_ms": wall_ms / n, "device_busy_ms": busy / n,
+            "k1_ms": k1 / n, "kernels": len(kern) / n,
+            "idle_share": 1 - busy / wall_ms if kern else None}
+
+
 def train_run(tr, steps: int, expect: dict, label: str,
               profile_steps=None) -> dict:
     """``steps`` steps of a trainer with K1's launches checked per step
@@ -1134,29 +1184,16 @@ def train_run(tr, steps: int, expect: dict, label: str,
         if profile_steps is not None and i == profile_steps[1] - 1:
             wall = (time.perf_counter() - window) * 1e3
             prof.__exit__(None, None, None)
-            out_dir = ROOT / "chiprun_out" / "traces"
-            out_dir.mkdir(parents=True, exist_ok=True)
-            path = out_dir / f"train_{label}.json"
-            prof.export_chrome_trace(str(path))
-            events = json.loads(path.read_text())
-            events = events.get("traceEvents", events)
-            kern = [e for e in events if e.get("cat") == "kernel"]
-            busy = sum(e["dur"] for e in kern) / 1e3
-            n = profile_steps[1] - profile_steps[0]
-            k1_ms = sum(e["dur"] for e in kern
-                        if "fold_kernel" in e.get("name", "")
-                        or "row_starts_kernel" in e.get("name", "")) / 1e3
-            window = {"steps": n, "wall_ms": wall / n,
-                      "device_busy_ms": busy / n, "k1_ms": k1_ms / n,
-                      "kernels": len(kern) / n,
-                      "idle_share": 1 - busy / wall if kern else None}
+            window = kernel_window(f"train_{label}", prof, wall,
+                                   profile_steps[1] - profile_steps[0])
             print(f"[train] {label} profile of steps {profile_steps[0]}-"
                   f"{profile_steps[1] - 1}: per step wall "
                   f"{window['wall_ms']:.1f} ms, device busy "
                   f"{window['device_busy_ms']:.2f} ms (K1 "
                   f"{window['k1_ms']:.2f} ms), {window['kernels']:.0f} "
                   f"kernels, device idle "
-                  + (f"{100 * window['idle_share']:.1f}%" if kern
+                  + (f"{100 * window['idle_share']:.1f}%"
+                     if window["idle_share"] is not None
                      else "not measured (no kernel in the trace)"),
                   flush=True)
     for i, st in enumerate(stages):
@@ -1321,6 +1358,252 @@ def drive_train(g, x, y, spec):
     return {"orders": orders, "expect": expect, "auto": auto,
             "launches": launches, "none": run_none, "pairs": run_pairs,
             "k1_bwd": bwd, "step0_grad_errs": errs, "demo": demo_losses}
+
+
+def serve_run(g_host, x, spec, name: str, mix: str) -> dict:
+    """Phase 12, one model under one traffic mix: a GraphServeEngine on
+    the cuda tier (see the module docstring for the checks).  Returns the
+    measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.core.plan import build_plan
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.gcn import PAPER_MODELS
+    from repro_torch.serve import (GraphRequest, GraphServeEngine,
+                                   default_buckets)
+    from torch.profiler import ProfilerActivity, profile
+
+    fanouts, most = SERVE_MIXES[mix]
+    label = f"{name}/{mix}"
+    cfg, dev, v = PAPER_MODELS[name], x.device, spec.num_vertices
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = GraphServeEngine(
+        g_host, cfg, None, x, spec.num_classes, fanouts=fanouts,
+        buckets=default_buckets(fanouts, seed_levels=(4, 16, 64),
+                                max_inputs=v),
+        max_batch=8, seed=SEED, device=dev)
+    eng.params = eng.init_params(torch.Generator().manual_seed(SEED))
+    traces = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = launch_counts()
+    if set(traces.values()) != {1} or warm["seg_agg"] == 0 or \
+            warm["fused_agg_combine"]:
+        fail(f"serve {label}: warm-up traces {traces}, launches {warm}: "
+             f"each bucket must capture once, through K1 only")
+    # -- K1's launches in each capture against an eager forward of the
+    #    same plan over the bucket's template
+    captured = {}
+    for b in eng.buckets:
+        plan, fn = eng._bucket_plan(b)
+        t = plan.g
+        before = launch_counts()
+        with torch.no_grad():
+            plan.run_model(eng.params, torch.zeros(
+                (b.num_inputs, eng.in_dim), device=dev), graph=t,
+                graph_layout=eng._layout(plan, b, t.src.cpu().numpy(),
+                                         t.dst.cpu().numpy()))
+        eager = {k: n - before[k] for k, n in launch_counts().items()}
+        cap = fn.capture_launches
+        captured[eng._bucket_name(b)] = cap["seg_agg"]
+        if cap["seg_agg"] != eager["seg_agg"] or \
+                cap["seg_agg"] != plan.num_layers or \
+                cap["fused_agg_combine"] or eager["fused_agg_combine"]:
+            fail(f"serve {label}: bucket {tuple(b)} captured {cap}, its "
+                 f"eager forward launched {eager}; expected seg_agg once "
+                 f"a layer ({plan.num_layers})")
+
+    # -- the wave: SERVE_REQUESTS requests, seeds without replacement
+    rng = np.random.default_rng(SEED)
+
+    def seeds():
+        return rng.choice(v, size=int(rng.integers(1, most + 1)),
+                          replace=False)
+
+    reqs = [GraphRequest(rid=i, seeds=seeds())
+            for i in range(SERVE_REQUESTS)]
+    before = launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    torch.cuda.synchronize()
+    eager_in_wave = {k: n - before[k] for k, n in launch_counts().items()}
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated() - base
+    if len(done) != SERVE_REQUESTS or st["retraces"] or \
+            st["bucket_misses"] or any(eager_in_wave.values()):
+        fail(f"serve {label}: {len(done)} served, retraces "
+             f"{st['retraces']}, misses {st['bucket_misses']}, kernel "
+             f"launches outside the captured graphs {eager_in_wave}")
+    hits = {eng._bucket_name(b): n for b, n in eng._bucket_hits.items()}
+    replayed_k1 = sum(hits[k] * n for k, n in captured.items())
+    for r in done:
+        if r.logits.shape != (len(r.seeds), spec.num_classes) or \
+                not np.isfinite(r.logits).all():
+            fail(f"serve {label}: request {r.rid}: logits "
+                 f"{r.logits.shape} not finite or of the wrong shape")
+
+    # -- the oracles: the first requests against the bucket plan's eager
+    #    forward over the padded block (bit for bit) and over the
+    #    unpadded one (the f32 band)
+    by_rid = {r.rid: r for r in done}
+    same_unpadded, oracle_err = 0, 0.0
+    for rid in range(SERVE_ORACLE):
+        r = by_rid[rid]
+        if not np.array_equal(r.logits, eng.run_eager(r.prep, padded=True)):
+            fail(f"serve {label}: request {rid}: the replay differs from "
+                 f"the eager forward over the same padded block")
+        un = eng.run_eager(r.prep)
+        same_unpadded += int(np.array_equal(r.logits, un))
+        err = float(np.abs(r.logits - un).max())
+        oracle_err = max(oracle_err, err)
+        if err > F32_BAND * SCALE * max(1.0, float(np.abs(un).max())):
+            fail(f"serve {label}: request {rid}: the replay is {err:.3e} "
+                 f"off the eager forward over the unpadded block")
+
+    # -- every request against a torch-tier plan on the same card
+    tplans, tier_err = {}, 0.0
+    for r in done:
+        b = r.bucket
+        if b not in tplans:
+            tplans[b] = build_plan(eng._plans[b].g, cfg, eng.in_dim,
+                                   spec.num_classes, backend="torch",
+                                   fused=False, device=dev)
+        with torch.no_grad():
+            out = tplans[b].run_model(eng.params,
+                                      eng._gather(r.prep.frontier),
+                                      graph=r.prep.graph.to(dev))
+        ref = out[torch.from_numpy(r.prep.seed_pos.astype(np.int64))
+                  .to(dev)].cpu().numpy()
+        err = float(np.abs(r.logits - ref).max())
+        tier_err = max(tier_err, err / float(np.abs(ref).max()))
+        if err > SERVE_TOL * float(np.abs(ref).max()):
+            fail(f"serve {label}: request {r.rid}: {err:.3e} off the torch "
+                 f"tier (tolerance {SERVE_TOL} of {np.abs(ref).max():.3e})")
+    del tplans
+
+    # -- the largest bucket's compiled call and its copy of x, timed
+    big = eng.buckets[-1]
+    plan, fn = eng._bucket_plan(big)
+    xx, gg, lay = eng._pad_into(eng.prepare(seeds()), big)
+    call_ms = time_ms(lambda: fn(eng.params, xx, gg, layout=lay), 20)
+    dst = torch.empty_like(xx)
+    copy_ms = time_ms(lambda: dst.copy_(xx), 20)
+    del dst, xx, gg, lay
+
+    # -- a profiled window of SERVE_PROFILE more requests, served one at a
+    #    time: each one's service time (no queueing) beside its bucket and
+    #    its real frontier
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    w0 = time.perf_counter()
+    service = []
+    for i in range(SERVE_PROFILE):
+        r = GraphRequest(rid=SERVE_REQUESTS + i, seeds=seeds())
+        t1 = time.perf_counter()
+        eng.submit(r)
+        eng.run()                        # ends with the logits on the host
+        service.append(((time.perf_counter() - t1) * 1e3, len(r.seeds),
+                        r.frontier_size, r.bucket.num_seeds))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - w0) * 1e3
+    prof.__exit__(None, None, None)
+    window = kernel_window(f"serve_{name}_{mix}", prof, wall, SERVE_PROFILE)
+
+    # -- the deliberate miss (mix A): served eagerly through a per-request
+    #    plan, counted, and within the band of the torch tier
+    miss = None
+    if mix == "A":
+        r = GraphRequest(rid=-1, seeds=rng.choice(v, size=SERVE_MISS,
+                                                  replace=False))
+        before = launch_counts()
+        eng.submit(r)
+        eng.run()
+        launched = launch_counts()["seg_agg"] - before["seg_agg"]
+        tp = build_plan(r.prep.graph.to(dev), cfg, eng.in_dim,
+                        spec.num_classes, backend="torch", fused=False,
+                        device=dev)
+        with torch.no_grad():
+            ref = tp.run_model(eng.params, eng._gather(r.prep.frontier))
+        ref = ref[torch.from_numpy(r.prep.seed_pos.astype(np.int64))
+                  .to(dev)].cpu().numpy()
+        err = float(np.abs(r.logits - ref).max())
+        miss = {"frontier": r.frontier_size, "edges": r.edge_count,
+                "k1_launches": launched, "max_abs_err": err}
+        print(f"[serve] {label} miss: {SERVE_MISS} seeds, frontier "
+              f"{r.frontier_size}, {r.edge_count} edges, served eagerly "
+              f"({launched} K1 launches), vs torch tier {err:.3e}; misses "
+              f"{eng.stats()['bucket_misses']}", flush=True)
+        if r.bucket is not None or eng.stats()["bucket_misses"] != 1 or \
+                launched != plan.num_layers or \
+                err > SERVE_TOL * float(np.abs(ref).max()):
+            fail(f"serve {label}: the {SERVE_MISS}-seed miss was not "
+                 f"served eagerly through K1 within the band")
+
+    report = eng.workload_report()
+    sweeps = eng.stats()["cache_sweeps"]
+    h = st["host_ms"]
+    print(f"[serve] {label}: buckets {[tuple(b) for b in eng.buckets]}, "
+          f"hits {hits}; warm-up {warm_s:.1f} s, K1 per capture "
+          f"{captured}; {SERVE_REQUESTS} requests p50 {st['p50_ms']:.2f} / "
+          f"p95 {st['p95_ms']:.2f} / p99 {st['p99_ms']:.2f} ms, "
+          f"{st['throughput_rps']:.1f} req/s; K1 launches replayed "
+          f"{replayed_k1}, outside the graphs 0; retraces 0, misses 0",
+          flush=True)
+    print(f"[serve] {label}: host ms a request: sample {h['sample']:.2f}, "
+          f"union {h['union']:.2f}, pad {h['pad']:.2f}, layouts "
+          f"{h['layouts']:.2f}, gather {h['gather']:.2f}, replay+readback "
+          f"{h['replay']:.2f}; bucket {tuple(big)} call {call_ms:.4f} ms "
+          f"(x copy-in {copy_ms:.4f}); peak memory {peak / 2**20:.1f} MiB "
+          f"above the inputs", flush=True)
+    print(f"[serve] {label}: oracle (first {SERVE_ORACLE}): replay bit for "
+          f"bit the padded eager forward, {same_unpadded} of "
+          f"{SERVE_ORACLE} bit for bit the unpadded one (largest "
+          f"difference {oracle_err:.3e}); vs torch tier {tier_err:.3e} of "
+          f"the largest magnitude; profile of {SERVE_PROFILE} requests: "
+          f"wall {window['wall_ms']:.2f} ms, device busy "
+          f"{window['device_busy_ms']:.3f} ms (K1 {window['k1_ms']:.3f}), "
+          f"{window['kernels']:.0f} kernels a request, device idle "
+          + (f"{100 * window['idle_share']:.1f}%"
+             if window["idle_share"] is not None
+             else "not measured (no kernel in the trace)")
+          + f"; report valid, {sweeps} cache sweeps", flush=True)
+    print(f"[serve] {label}: service ms (seeds, real frontier, bucket "
+          f"seeds) one at a time under the profiler: " + ", ".join(
+              f"{ms:.2f} ({n}, {f}, {b})" for ms, n, f, b in service),
+          flush=True)
+    out = {"buckets": [tuple(b) for b in eng.buckets], "hits": hits,
+           "warmup_s": warm_s, "captured_k1": captured,
+           "replayed_k1": replayed_k1, "stats": {
+               k: st[k] for k in ("p50_ms", "p95_ms", "p99_ms",
+                                  "throughput_rps", "host_ms", "steps")},
+           "peak_bytes": peak, "call_ms": call_ms, "copy_ms": copy_ms,
+           "oracle_unpadded_bitwise": same_unpadded,
+           "oracle_max_diff": oracle_err, "torch_tier_rel_err": tier_err,
+           "profile": window, "service": service, "miss": miss,
+           "report_serving": report.serving}
+    del eng, report
+    return out
+
+
+def drive_serve(g, x, spec) -> dict:
+    """Phase 12: GCN node-prediction serving on Reddit, the three Table-1
+    models under both traffic mixes (see the module docstring)."""
+    import torch
+    from repro_torch.core.plan import clear_plan_cache
+    g_host = g.to("cpu")                 # sampled on the host, copied once
+    out = {}
+    for name in ("gcn", "sage", "gin"):
+        for mix in SERVE_MIXES:
+            out[f"{name}/{mix}"] = serve_run(g_host, x, spec, name, mix)
+            clear_plan_cache()           # the engine's plans and graphs
+            torch.cuda.empty_cache()
+    return out
 
 
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
@@ -1953,6 +2236,13 @@ def main() -> None:
     t0 = time.perf_counter()
     train = drive_train(g_red, x_red, y_red, spec_red)
     print(f"[train] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+
+    # -- 12. GCN node-prediction serving on Reddit
+    t0 = time.perf_counter()
+    serve = drive_serve(g_red, x_red, spec_red)
+    print(f"[serve] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     del g_red, x_red, y_red
     clear_plan_cache()
     torch.cuda.empty_cache()
@@ -1978,7 +2268,7 @@ def main() -> None:
          "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
-         "train": train}, indent=1))
+         "train": train, "serve": serve}, indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;
     # the f32 instances' launches are phase 4's, the bf16 ones phase 10's

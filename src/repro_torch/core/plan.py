@@ -929,27 +929,50 @@ _REORDER_CACHE: Dict = {}   # graph_key -> (src_ref, reordered Graph, perm)
 _CACHE_LIMIT = 64
 
 #: hits/misses count ``_cached_plan`` lookups; evictions count entries
-#: dropped by FIFO aging
+#: dropped by FIFO aging or by ``clear_plan_cache(keep=...)``
 _PLAN_CACHE_STATS: Dict[str, int] = {"hits": 0, "misses": 0, "evictions": 0}
 
 
 def plan_cache_stats() -> Dict[str, int]:
     """``{size, limit, blocked_size, reorder_size, hits, misses,
-    evictions}``."""
+    evictions}``.  The graph serving engine polls ``size`` to decide when
+    to sweep its transient per-request plans."""
     return {"size": len(_PLAN_CACHE), "limit": _CACHE_LIMIT,
             "blocked_size": len(_BLOCKED_CACHE),
             "reorder_size": len(_REORDER_CACHE), **_PLAN_CACHE_STATS}
 
 
-def clear_plan_cache() -> int:
-    """Drop every cached plan, blocked layout and reordered graph and
-    reset the counters.  Returns the number of plans dropped."""
-    n = len(_PLAN_CACHE)
-    _PLAN_CACHE.clear()
-    _BLOCKED_CACHE.clear()
-    _REORDER_CACHE.clear()
-    _PLAN_CACHE_STATS.update(hits=0, misses=0, evictions=0)
-    return n
+def clear_plan_cache(keep=None) -> int:
+    """Drop cached plans and their blocked layouts and reordered graphs
+    (``clear_plan_cache``, :917).  Returns the number of plans dropped.
+
+    ``keep=None`` drops everything and resets the counters.
+    ``keep=<plans>`` is the serving engine's sweep: every cached plan not
+    in ``keep`` goes, while the kept plans -- and so the CUDA graphs they
+    hold -- and the blocked layouts and reordered graphs of their graphs
+    stay.  Each dropped line counts as an eviction, plans and layouts
+    alike, and the hit and miss counters go on accumulating."""
+    if keep is None:
+        n = len(_PLAN_CACHE)
+        _PLAN_CACHE.clear()
+        _BLOCKED_CACHE.clear()
+        _REORDER_CACHE.clear()
+        _PLAN_CACHE_STATS.update(hits=0, misses=0, evictions=0)
+        return n
+    keep_ids = {id(p) for p in keep}
+    # a kept plan's graphs: the one it was cached under and the one it
+    # runs over (its degree-reordered twin on a reordered plan)
+    keep_graphs = {k[0] for k, (_, p) in _PLAN_CACHE.items()
+                   if id(p) in keep_ids} | {_graph_key(p.g) for p in keep}
+    drop = [k for k, (_, p) in _PLAN_CACHE.items() if id(p) not in keep_ids]
+    blocked = [k for k in _BLOCKED_CACHE if k[0] not in keep_graphs]
+    reorder = [k for k in _REORDER_CACHE if k not in keep_graphs]
+    for cache, keys in ((_PLAN_CACHE, drop), (_BLOCKED_CACHE, blocked),
+                        (_REORDER_CACHE, reorder)):
+        for k in keys:
+            del cache[k]
+    _PLAN_CACHE_STATS["evictions"] += len(drop) + len(blocked) + len(reorder)
+    return len(drop)
 
 
 def _graph_key(g: Graph):

@@ -35,13 +35,14 @@ from repro_torch.config import GCNModelConfig, GraphSpec
 from repro_torch.core.backend import AUTO, resolve_device
 from repro_torch.core.plan import _leaves, _tree, build_plan, plan_for_conv
 from repro_torch.graph.sampling import SampledBlock, two_hop_batch
-from repro_torch.graph.structure import Graph, graph_from_coo
+from repro_torch.graph.structure import Graph
 from repro_torch.data.pipeline import GraphPipeline
 from repro_torch.graph.dedup import build_dedup_layout, pad_dedup_arrays
 from repro_torch.models.gcn import GCNModel
 from repro_torch.optim.optimizer import adamw_update
 from repro_torch.profile.machine import choose_dedup, get_machine
-from repro_torch.serve.graph_engine import (_index_of, default_buckets,
+from repro_torch.serve.graph_engine import (_bucket_template_graph,
+                                            _index_of, default_buckets,
                                             union_two_hop)
 
 
@@ -183,25 +184,6 @@ def make_sage_train_step(model: SageMiniBatchModel, features, labels,
 # ---------------------------------------------------------------------------
 # Bucketed minibatch training (the production loop)
 # ---------------------------------------------------------------------------
-
-
-def _bucket_template_graph(n: int, e: int, paired: bool, *,
-                           device="cuda") -> Graph:
-    """A deterministic graph with a bucket's static shapes
-    (``_bucket_template_graph``, :111).  Only its shapes matter: every
-    step dispatches a runtime graph.  ``paired`` plants one matched
-    leading pair (destinations 0 and 1 both drawing from sources {0, 1})
-    so ``build_plan(dedup="pairs")`` does not resolve to "none"; the pair
-    capacity comes from ``dedup_pad``.  Filler edges are self-loops."""
-    if not paired:
-        idx = np.arange(e, dtype=np.int32) % n
-        return graph_from_coo(idx, idx, n, device=device)
-    if n < 4 or e < 4:
-        raise ValueError("bucket too small for a paired template")
-    fill = np.arange(e - 4, dtype=np.int32) % (n - 2) + 2
-    src = np.concatenate([np.array([0, 1, 0, 1], np.int32), fill])
-    dst = np.concatenate([np.array([0, 0, 1, 1], np.int32), fill])
-    return graph_from_coo(src, dst, n, device=device)
 
 
 class PlannedSageTrainer:

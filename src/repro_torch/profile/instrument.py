@@ -361,9 +361,9 @@ class WorkloadReport:
     """Typed per-phase characterization of one instrumented forward.
 
     ``records`` are in execution order.  ``output`` carries the forward's
-    result, left out of ``to_dict``/``to_json``.  The reference's
-    ``serving`` section belongs to its graph serving engine, not ported
-    yet; ``validate_report_dict`` checks one in a dict all the same.
+    result, left out of ``to_dict``/``to_json``.  ``serving`` is the
+    serving section ``serve.graph_engine.GraphServeEngine``
+    attaches (``workload_report``), checked by ``_validate_serving``.
     """
 
     machine: Machine
@@ -375,6 +375,10 @@ class WorkloadReport:
     compiled_times: Optional[Dict[str, Any]] = None
     #: whether the plan's ingress permutation was observed running
     reorder_applied: bool = False
+    #: serving stats (``GraphServeEngine.serving_summary``):
+    #: requests, p50/p95/p99 ms, throughput_rps, bucket_misses, retraces,
+    #: per-bucket hits; None for plain characterization reports
+    serving: Optional[Dict[str, Any]] = None
     #: the instrumented entry ("model" runs the ingress and egress;
     #: "layer" and "phases" do not)
     entry: str = "model"
@@ -423,6 +427,8 @@ class WorkloadReport:
         if self.compiled_times is not None:
             out["compiled"] = {**self.compiled_times,
                                "speedup": self.compiled_speedup()}
+        if self.serving is not None:
+            out["serving"] = dict(self.serving)
         return out
 
     def to_json(self, indent: int = 2) -> str:
@@ -470,6 +476,16 @@ class WorkloadReport:
                 f"{saved:.3e} aggregation FLOPs eliminated "
                 f"({100 * saved / max(naive, 1e-12):.1f}% of the naive "
                 "fold's total)",
+            ]
+        if self.serving is not None:
+            s = self.serving
+            lines += [
+                "",
+                f"Serving: {s['requests']} requests at "
+                f"{s['throughput_rps']:.1f} req/s — p50 {s['p50_ms']:.2f} ms"
+                f", p95 {s['p95_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms "
+                f"({s['bucket_misses']} bucket misses, "
+                f"{s['retraces']} retraces)",
             ]
         sp = self.compiled_speedup()
         if sp is not None:

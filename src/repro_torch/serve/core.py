@@ -1,9 +1,8 @@
 """Slot-based continuous-batching serving core (``repro/serve/core.py``).
 
-The port's copy of the reference's framework-free loop.  In the reference
-the LM ``ServeEngine`` and the GCN ``GraphServeEngine`` are the same loop
-with different step bodies (the port has the LM engine so far): an
-admission queue feeds a fixed set of
+The port's copy of the reference's framework-free loop.  The LM
+``ServeEngine`` and the GCN ``GraphServeEngine`` are the same loop with
+different step bodies: an admission queue feeds a fixed set of
 ``max_batch`` *slots*; a finished request frees its slot and the next queued
 request is admitted into it immediately (continuous batching -- no
 wave barriers); per-request enqueue/finish walltimes accumulate into

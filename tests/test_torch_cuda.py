@@ -878,3 +878,67 @@ def test_trainer_resume_bitwise_on_card(card, tmp_path):
     for (_, p), (_, q) in zip(tplan._leaves(b.params),
                               tplan._leaves(straight.params)):
         assert torch.equal(p, q) and p.device.type == "cuda"
+
+
+def _serve_engine(card, name="gcn"):
+    """A GraphServeEngine on the card with one small bucket (4 seeds,
+    fanouts 3/3: 65 rows, 60 edges)."""
+    from repro_torch.models.gcn import PAPER_MODELS
+    from repro_torch.serve import GraphServeEngine, default_buckets
+    spec, g, x = card
+    eng = GraphServeEngine(
+        g, PAPER_MODELS[name], None, x, spec.num_classes, fanouts=(3, 3),
+        buckets=default_buckets((3, 3), seed_levels=(4,),
+                                max_inputs=spec.num_vertices))
+    eng.params = eng.init_params(torch.Generator().manual_seed(0))
+    return eng
+
+
+@pytest.mark.parametrize("name", ["gcn", "sage", "gin"])
+def test_graph_serving_replay_matches_eager(card, name):
+    """The bucket's CUDA graph replays the bucket plan's eager forward
+    over the same padded block bit for bit, and is within the f32 band of
+    the eager forward over the unpadded block (the combination's matmuls
+    run over other row counts there); the capture records K1 once a
+    layer, as the eager forward launches it, and serving makes no launch
+    outside the graph."""
+    eng = _serve_engine(card, name)
+    eng.warmup()
+    b = eng.buckets[0]
+    plan, fn = eng._bucket_plan(b)
+    assert fn.num_traces == 1 and plan.agg_tile > 0
+    cap = fn.capture_launches
+    rng = np.random.default_rng(0)
+    for s in (1, 3, 4):
+        prep = eng.prepare(rng.choice(card[0].num_vertices, size=s,
+                                      replace=False))
+        assert prep.bucket == b
+        before = ops.launch_counts()
+        served = eng.run_prepared(prep)
+        assert ops.launch_counts() == before      # a replay, nothing else
+        padded = eng.run_eager(prep, padded=True)
+        eager = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        assert np.array_equal(served, padded)
+        assert cap["seg_agg"] == eager["seg_agg"] == plan.num_layers
+        assert cap["fused_agg_combine"] == eager["fused_agg_combine"] == 0
+        _close(torch.from_numpy(served), torch.from_numpy(
+            eng.run_eager(prep)))
+    assert eng.retraces() == 0 and fn.num_replays == 3
+
+
+def test_graph_serving_device_gather(card):
+    """The padded x gathered on the card equals the host's gather (zero
+    pad rows); the runtime layout has the bucket's fixed capacity and only
+    the real edges."""
+    spec, _, x = card
+    eng = _serve_engine(card)
+    prep = eng.prepare(np.array([5, 17, 301], np.int32))
+    b = prep.bucket
+    xx, gg, lay = eng._pad_into(prep, b)
+    want = np.zeros((b.num_inputs, spec.feature_len), np.float32)
+    want[: len(prep.frontier)] = x.cpu().numpy()[prep.frontier]
+    assert xx.device.type == "cuda" and np.array_equal(xx.cpu().numpy(), want)
+    tile = eng._bucket_plan(b)[0].agg_tile
+    assert lay.emax == -(-tile * 6 // 8) * 8
+    assert int(lay.mask.sum().item()) == prep.graph.num_edges
+    assert gg.num_edges == b.num_edges and gg.num_vertices == b.num_inputs
