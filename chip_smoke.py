@@ -30,6 +30,11 @@ Phases, each printing its own lines; any failure exits non-zero:
                 repeat launches bitwise; times beside their bounds at 2
                 bytes an element, torch.sparse.mm on a bf16 CSR matrix,
                 and for K2 seg_agg then torch.mm(out_dtype=float32).
+                Then K1's row split over long rows (LONG_ROWS: T, T + 1,
+                T k, T k + 1, 7,000 and 50,000 slots) in f32 and bf16,
+                weighted and not: per row against the plain version, two
+                launches bitwise, rows of at most T slots bit for bit one
+                in-order fold.
   4. main    -- the paper's GCN, SAGE and GIN (2 layers, hidden 128) at
                 full width on Reddit, unfused and fused, through
                 GCNModel with backend="auto"; launch counts of both
@@ -93,7 +98,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                 transposed layout) at F=128 and F=41 against the plain
                 version's autograd per row, two launches bit for bit, its
                 time beside its bound and torch.sparse.mm on the
-                transposed CSR; step 0's loss and each gradient leaf
+                transposed CSR (and both on the device alone, CUDA-graph
+                replays), the split threshold, split rows and chunks, the
+                bytes K1's row_starts reads; step 0's loss and each gradient leaf
                 against a torch-tier step on the same block, within the
                 band of the leaf's own largest magnitude; 20 steps with dedup "none" and 20 with "pairs"
                 (finite losses, K1's forward and backward launches per
@@ -107,7 +114,12 @@ Phases, each printing its own lines; any failure exits non-zero:
                 the feature gather, the step's wall ms; over a profiled
                 window the device's busy ms per step and idle share; peak
                 memory.
- 12. serve   -- (right after phase 11) GCN node-prediction serving on
+ 12. serve   -- (right after phase 11) first, in two fresh processes
+                (chip_smoke.py --serve-fresh), one gcn/A engine warmed by
+                its captures alone and one by warmup(), each serving the
+                wave: the first request's service time and stages beside
+                the median of the others; after warmup() it must be
+                within WARM_LIMIT of it.  Then GCN node-prediction serving on
                 Reddit through GraphServeEngine on the cuda tier: gcn,
                 sage and gin (602 -> 128 -> 41, f32, unfused) under two
                 traffic mixes of 50 requests (A: fanouts 5/5, 1-16 seeds,
@@ -244,6 +256,23 @@ TRAIN_PROFILE = (5, 8)
 #: (K1's f32 limit): each row's largest error over that row's largest
 #: magnitude
 K1_BWD_ROW_LIMIT = 3e-5
+#: phase 3: K1 over long rows, name -> (emax, rows of each block as {row:
+#: slots}) at tile 32, sources from 3,000 rows.  T = split_threshold(emax)
+#: is 256 at 7,120 slots (phase 11's transposed block 0) and 1,024 at
+#: 65,536: rows of T, T + 1, T k and T k + 1 slots, a 7,000-slot hub, a
+#: 50,000-slot row, an empty block and a block of short rows
+#: (tests/test_torch_cuda.py LONG_ROWS)
+LONG_ROWS = {
+    "e7120": (7120, [{0: 256, 1: 257, 2: 512, 3: 513, 4: 5, 9: 1, 31: 40},
+                     {3: 7000, 4: 50, 30: 7}, {},
+                     {r: 3 for r in range(32)}]),
+    "e65536": (65536, [{0: 1024, 1: 1025, 2: 3072, 3: 3073, 4: 7000,
+                        5: 2}, {7: 50000, 8: 20},
+                       {r: r for r in range(32)}]),
+}
+#: phase 12: the first request after warmup() in a fresh process may take
+#: at most this many times the median service time of the later ones
+WARM_LIMIT = 2.0
 #: phase 9: PageRank power iterations timed on Reddit
 PAGERANK_ITERS = 20
 #: phase 12: the serving traffic mixes, name -> (fanouts, most seeds a
@@ -283,6 +312,34 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def replay_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Mean device milliseconds of ``fn()`` without the host: ``reps``
+    calls captured in one CUDA graph, replayed ``rounds`` times between
+    CUDA events (``time_ms`` times launches from the host, which bounds a
+    call whose device work is shorter than its Python)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * rounds)
 
 
 def max_err(a, b) -> tuple[float, float]:
@@ -680,6 +737,96 @@ def check_kernels_bf16(g, spec):
     return records
 
 
+def long_row_layout(name: str, v: int = 3000, tile_m: int = 32):
+    """``LONG_ROWS[name]`` as a blocked layout on the card (sources drawn
+    from ``v`` rows, seeded), and each row's length."""
+    import numpy as np
+    from repro_torch.core.dataflow import block_graph_arrays
+    emax, blocks = LONG_ROWS[name]
+    lengths = np.zeros(len(blocks) * tile_m, np.int64)
+    for b, rows in enumerate(blocks):
+        for r, n in rows.items():
+            lengths[b * tile_m + r] = n
+    dst = np.repeat(np.arange(len(lengths)), lengths)
+    src = np.random.default_rng(SEED).integers(0, v, len(dst))
+    return block_graph_arrays(src, dst, len(lengths), tile_m, device="cuda",
+                              emax=emax), lengths
+
+
+def in_order_fold(x, bg, w):
+    """Each row of ``bg`` as one f32 fold in slot order from 0, on the
+    host (numpy): what K1 must give a row of at most T slots, bit for
+    bit."""
+    import numpy as np
+    import torch
+    xs = x.float().cpu().numpy()
+    src, dstl = bg.src.cpu().numpy(), bg.dstl.cpu().numpy()
+    mask = bg.mask.cpu().numpy()
+    coef = mask if w is None else mask * w.cpu().numpy()
+    out = np.zeros((bg.nblocks * bg.tile_m, xs.shape[1]), np.float32)
+    for b, e in zip(*np.nonzero(mask)):
+        r = b * bg.tile_m + dstl[b, e]
+        out[r] = out[r] + coef[b, e] * xs[src[b, e]]
+    return torch.from_numpy(out)
+
+
+def check_k1_long_rows() -> list:
+    """Phase 3, K1's row split: over LONG_ROWS in f32 and bf16, weighted
+    and not, at F = 128: each row within K1's per-row limit of the plain
+    version (f32 3e-5, bf16 AGG_BF16_ROW_LIMIT), two launches bit for bit,
+    every row of at most T slots bit for bit one in-order fold; the
+    kernel's time.  Returns one record per case."""
+    import torch
+    from repro_torch.kernels import seg_agg as k1
+    out = []
+    for name in LONG_ROWS:
+        bg, lengths = long_row_layout(name)
+        t = k1.split_threshold(bg.emax)
+        short = torch.from_numpy(lengths <= t)
+        for dtype in (torch.float32, torch.bfloat16):
+            for weighted in (False, True):
+                gen = torch.Generator(device="cuda").manual_seed(SEED)
+                x = torch.randn((3000, 128), generator=gen,
+                                device="cuda").to(dtype)
+                w = torch.rand(bg.src.shape, generator=gen, device="cuda") \
+                    if weighted else None
+                args = (x, bg.src, bg.dstl, bg.mask, w)
+                got = k1.seg_agg(*args, tile_m=bg.tile_m)
+                same = torch.equal(got, k1.seg_agg(*args, tile_m=bg.tile_m))
+                want = k1.seg_agg_plain(*args, tile_m=bg.tile_m)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs().amax(-1)
+                mag = want.float().abs().amax(-1)
+                row = float((diff / torch.clamp(mag, min=1e-30)).max())
+                limit = K1_BWD_ROW_LIMIT if dtype == torch.float32 \
+                    else AGG_BF16_ROW_LIMIT
+                exact = torch.equal(got.cpu()[short], in_order_fold(
+                    x, bg, w).to(dtype)[short])
+                rec = {"name": "seg_agg_long_rows", "layout": name,
+                       "dtype": str(dtype).split(".")[-1],
+                       "weighted": weighted, "emax": bg.emax,
+                       "split_threshold": t,
+                       "split_rows": int((lengths > t).sum()),
+                       "longest_row": int(lengths.max()),
+                       "max_abs_err": float(diff.max()),
+                       "row_rel_err": row,
+                       "ms": time_ms(lambda: k1.seg_agg(  # noqa: E731
+                           *args, tile_m=bg.tile_m), 10)}
+                out.append(rec)
+                print(f"[kernels] seg_agg long rows {name} "
+                      f"{rec['dtype']} weighted={weighted}: T = {t}, "
+                      f"{rec['split_rows']} split rows (longest "
+                      f"{rec['longest_row']} slots); row_rel_err={row:.3e} "
+                      f"(limit {limit:.0e}); rows <= T bit for bit one "
+                      f"in-order fold: {exact}; two launches equal: {same}; "
+                      f"ms={rec['ms']:.4f}", flush=True)
+                if row > limit or not same or not exact:
+                    fail(f"seg_agg long rows {name} {dtype} weighted="
+                         f"{weighted}: row error {row:.3e}, launches equal "
+                         f"{same}, short rows in order {exact}")
+    return out
+
+
 def drive_main_path(g, x, spec):
     """Phase 4: GCN, SAGE and GIN at full width, unfused and fused, through
     the user entry point GCNModel(g, x) with backend="auto".  Returns the
@@ -1041,6 +1188,26 @@ def drive_decisions(models, g, x, forwards):
     return out, launches
 
 
+def row_starts_bytes(mask) -> int:
+    """Bytes K1's row_starts kernel reads over a layout whose ``mask`` (a
+    host array, blocks by slots) is given: the mask probes of its search
+    for n_valid (kThreads a round at a stride, csrc/seg_agg.cu) and dstl
+    over the valid slots."""
+    import numpy as np
+    emax, total = mask.shape[1], 0
+    for nv in (mask != 0).sum(1).tolist():
+        lo, hi = 0, emax
+        while lo < hi:
+            step = -(-(hi - lo) // 256)
+            probes = -(-(hi - lo) // step)
+            k = min(probes, -(-(nv - lo) // step)) if nv > lo else 0
+            total += probes
+            lo, hi = (lo + (k - 1) * step + 1 if k else lo,
+                      min(hi, lo + k * step))
+        total += nv
+    return 4 * int(np.int64(total))
+
+
 def check_k1_backward(tr, prep, f: int):
     """Phase 11 (1): K1's backward at width ``f`` -- K1 over the first
     block's transposed layout, through its autograd Function -- against
@@ -1085,9 +1252,15 @@ def check_k1_backward(tr, prep, f: int):
         fail(f"K1 backward: a row off the plain version's autograd by "
              f"{row:.3e} of its scale (limit {K1_BWD_ROW_LIMIT:.0e})")
     # the fold the backward runs, alone: gout gathered over the transposed
-    # layout into the x rows
-    fold = lambda: k1.seg_agg(gout, t.src, t.dstl, t.mask,  # noqa: E731
-                              tile_m=t.tile_m)
+    # layout into the x rows (narrow slices, CTAs block by block); beside
+    # it the forward's schedule over the same layout (wide slices, slice by
+    # slice), which must give the same sums
+    fold = lambda: k1._fold(gout, t.src, t.dstl, t.mask,  # noqa: E731
+                            None, t.tile_m, backward=True)
+    slices_first = lambda: k1._launch(  # noqa: E731
+        gout, t.src, t.dstl, t.mask, None, t.tile_m, k1.slice_cols(f))
+    if not torch.equal(fold(), slices_first()):
+        fail("K1 backward: its schedule changes the sums")
     plain = lambda: k1.seg_agg_plain(gout, t.src, t.dstl,  # noqa: E731
                                      t.mask, tile_m=t.tile_m)
     e = prep["edges"]
@@ -1109,25 +1282,58 @@ def check_k1_backward(tr, prep, f: int):
     pad_bytes = 3 * (t.src.numel() - e) * 4
     ops = e * f
     b_ms, b_by = bound(nbytes, ops)
+    # the row split: rows of more than T slots fold as chunks; what
+    # row_starts reads now, beside the whole layout it read before
+    mask = t.mask.cpu().numpy()
+    lengths = np.zeros(t.nblocks * t.tile_m, np.int64)
+    blk, slot = np.nonzero(mask)
+    np.add.at(lengths, blk * t.tile_m + t.dstl.cpu().numpy()[blk, slot], 1)
+    thresh = k1.split_threshold(t.emax)
+    split = int((lengths > thresh).sum())
+    per_block = lengths.reshape(t.nblocks, t.tile_m)
+    chunks = [e - s for b in np.nonzero((per_block > thresh).any(1))[0]
+              for _, s, e, o in k1.chunk_plan(per_block[b].tolist(), t.emax)
+              if o >= 0]
+    rs_bytes = row_starts_bytes(mask)
     rec = {"name": "seg_agg_bwd", "graph": "reddit-train-block0",
            "f_in": f, "f_out": f, "tile_m": t.tile_m, "nblocks": t.nblocks,
            "emax": t.emax, "forward_emax": bg.emax, "edges": e,
            "max_abs_err": err, "row_rel_err": row,
            "library_max_abs_err": lib_err,
-           "ms": time_ms(fold, 10), "plain_ms": time_ms(plain, 2),
-           "library_ms": time_ms(library, 10), "bytes": nbytes, "ops": ops,
-           "pad_slot_bytes": pad_bytes, "bound_ms": b_ms, "bound_by": b_by}
+           "ms": time_ms(fold, 10), "slices_first_ms": time_ms(
+               slices_first, 10), "plain_ms": time_ms(plain, 2),
+           "library_ms": time_ms(library, 10),
+           "device_ms": replay_ms(fold), "library_device_ms":
+           replay_ms(library), "slice_cols": k1.backward_slice_cols(
+               f, 4, k1.alignment(gout)),
+           "bytes": nbytes, "ops": ops,
+           "pad_slot_bytes": pad_bytes, "bound_ms": b_ms, "bound_by": b_by,
+           "split_threshold": thresh, "split_rows": split,
+           "chunks": len(chunks), "longest_chunk": max(chunks, default=0),
+           "longest_row": int(lengths.max()),
+           "row_starts_bytes": rs_bytes,
+           "row_starts_bytes_whole_layout": 8 * t.src.numel()}
     rec.update(ratios(rec))
     print(f"[train] K1 backward block 0 F={f}: transposed layout "
           f"{t.nblocks}x{t.emax} (forward {bg.nblocks}x{bg.emax}), {e} "
           f"edges; max_abs_err={err:.3e} row_rel_err={row:.3e} (limit "
-          f"{K1_BWD_ROW_LIMIT:.0e}); ms={rec['ms']:.4f} plain_ms="
+          f"{K1_BWD_ROW_LIMIT:.0e}); ms={rec['ms']:.4f} ({rec['slice_cols']}"
+          f"-column slices block by block; {k1.slice_cols(f)}-column slice "
+          f"by slice {rec['slices_first_ms']:.4f}) plain_ms="
           f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
           f"(torch.sparse.mm, transposed CSR; max_abs_err {lib_err:.3e}) "
           f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {ops} ops; the "
           f"layout's pad slots {pad_bytes} B more) "
           f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
-          f"{rec['vs_library']:.3f}", flush=True)
+          f"{rec['vs_library']:.3f}; row split: T = {thresh}, {split} "
+          f"split rows (longest {rec['longest_row']} slots) in "
+          f"{len(chunks)} chunks (longest {rec['longest_chunk']}), row_starts "
+          f"reads {rs_bytes} B (the whole layout's mask and dstl: "
+          f"{rec['row_starts_bytes_whole_layout']} B); "
+          + ("faster" if rec["ms"] < rec["library_ms"] else "NOT faster")
+          + f" than torch.sparse.mm; device time (CUDA-graph replays, no "
+          f"host) {rec['device_ms']:.4f} against torch.sparse.mm's "
+          f"{rec['library_device_ms']:.4f}", flush=True)
     del adj_t, gout, x, got, again, want
     return rec
 
@@ -1591,13 +1797,117 @@ def serve_run(g_host, x, spec, name: str, mix: str) -> dict:
     return out
 
 
+def serve_fresh(mode: str) -> None:
+    """``chip_smoke.py --serve-fresh MODE``, in a fresh process: one
+    GraphServeEngine (gcn, mix A) on Reddit on the cuda tier, warmed by
+    ``warmup()`` (MODE "warmup") or by its bucket captures alone (MODE
+    "captures": the warm-up before it drove the request path), then
+    phase 12's wave of SERVE_REQUESTS requests, all submitted at once.
+    Prints one JSON line: each request's service time on the host clock
+    (its admission, which samples, plus its padding, gather, replay and
+    readback, without queueing) with its stages, the wave's p50."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.graph.datasets import load_dataset
+    from repro_torch.models.gcn import PAPER_MODELS
+    from repro_torch.serve import (GraphRequest, GraphServeEngine,
+                                   default_buckets)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g, x, _, spec = load_dataset("reddit", seed=SEED, device="cuda")
+    fanouts, most = SERVE_MIXES["A"]
+    eng = GraphServeEngine(
+        g.to("cpu"), PAPER_MODELS["gcn"], None, x, spec.num_classes,
+        fanouts=fanouts, buckets=default_buckets(
+            fanouts, seed_levels=(4, 16, 64), max_inputs=spec.num_vertices),
+        max_batch=8, seed=SEED, device="cuda")
+    eng.params = eng.init_params(torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    if mode == "warmup":
+        eng.warmup()
+    else:
+        eng._capture_buckets()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # each request's service time: its admission (prepare) and its
+    # run_prepared, keyed by request
+    svc, rid_of = {}, {}
+    admit, run = eng._admit_into_slot, eng.run_prepared
+
+    def timed_admit(slot, req):
+        t = time.perf_counter()
+        out = admit(slot, req)
+        svc[req.rid] = {"ms": (time.perf_counter() - t) * 1e3,
+                        **{k: eng.stage_ms[k] for k in ("sample", "union")}}
+        rid_of[id(req.prep)] = req.rid
+        return out
+
+    def timed_run(prep):
+        t = time.perf_counter()
+        out = run(prep)
+        rec = svc[rid_of[id(prep)]]
+        rec["ms"] += (time.perf_counter() - t) * 1e3
+        rec.update({k: eng.stage_ms[k]
+                    for k in ("pad", "layouts", "gather", "replay")})
+        return out
+    eng._admit_into_slot, eng.run_prepared = timed_admit, timed_run
+    rng = np.random.default_rng(SEED)
+    for i in range(SERVE_REQUESTS):
+        eng.submit(GraphRequest(rid=i, seeds=rng.choice(
+            spec.num_vertices, size=int(rng.integers(1, most + 1)),
+            replace=False)))
+    done = eng.run()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    if len(done) != SERVE_REQUESTS or st["retraces"] or st["bucket_misses"]:
+        fail(f"fresh serve ({mode}): {len(done)} served, retraces "
+             f"{st['retraces']}, misses {st['bucket_misses']}")
+    first = svc[0]
+    rest = sorted(svc[i]["ms"] for i in range(1, SERVE_REQUESTS))
+    print(json.dumps({"mode": mode, "warm_s": warm_s, "first": first,
+                      "median_rest_ms": rest[len(rest) // 2],
+                      "p50_ms": st["p50_ms"], "host_ms": st["host_ms"]}))
+
+
+def check_serve_fresh() -> dict:
+    """Phase 12's warm-up check: ``serve_fresh`` in a fresh process after
+    the captures alone, which shows the stage that held the first-use
+    costs, and after ``warmup()``, whose first request must take at most
+    WARM_LIMIT times the median service time of the later ones.  Returns
+    both runs' records."""
+    out = {}
+    for mode in ("captures", "warmup"):
+        res = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-fresh",
+             mode], capture_output=True, text=True, timeout=600, cwd=ROOT)
+        if res.returncode != 0:
+            fail(f"fresh serve ({mode}) exited {res.returncode}: "
+                 f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+        rec = out[mode] = json.loads(res.stdout.strip().splitlines()[-1])
+        f = rec["first"]
+        print(f"[serve] fresh process, gcn/A after {mode}: first request "
+              f"{f['ms']:.2f} ms (sample {f['sample']:.2f}, union "
+              f"{f['union']:.2f}, pad {f['pad']:.2f}, layouts "
+              f"{f['layouts']:.2f}, gather {f['gather']:.2f}, "
+              f"replay+readback {f['replay']:.2f}), median of the other "
+              f"{SERVE_REQUESTS - 1} {rec['median_rest_ms']:.2f} ms; wave "
+              f"p50 {rec['p50_ms']:.2f} ms; warm-up {rec['warm_s']:.2f} s",
+              flush=True)
+    rec = out["warmup"]
+    if rec["first"]["ms"] > WARM_LIMIT * rec["median_rest_ms"]:
+        fail(f"serve: after warmup() the first request took "
+             f"{rec['first']['ms']:.2f} ms, over {WARM_LIMIT} x the median "
+             f"{rec['median_rest_ms']:.2f} ms")
+    return out
+
+
 def drive_serve(g, x, spec) -> dict:
     """Phase 12: GCN node-prediction serving on Reddit, the three Table-1
     models under both traffic mixes (see the module docstring)."""
     import torch
     from repro_torch.core.plan import clear_plan_cache
     g_host = g.to("cpu")                 # sampled on the host, copied once
-    out = {}
+    out = {"fresh": check_serve_fresh()}
     for name in ("gcn", "sage", "gin"):
         for mix in SERVE_MIXES:
             out[f"{name}/{mix}"] = serve_run(g_host, x, spec, name, mix)
@@ -2175,6 +2485,7 @@ def main() -> None:
     records = check_kernels(graphs, layout_models)
     del layout_models
     records += check_kernels_bf16(g_red, spec_red)
+    long_rows = check_k1_long_rows()
     clear_plan_cache()
 
     # -- 4. the main path at full width on Reddit
@@ -2268,7 +2579,8 @@ def main() -> None:
          "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
-         "train": train, "serve": serve}, indent=1))
+         "train": train, "serve": serve, "long_rows": long_rows},
+        indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;
     # the f32 instances' launches are phase 4's, the bf16 ones phase 10's
@@ -2337,4 +2649,11 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--serve-fresh"]:
+        import torch
+        if not (torch.cuda.is_available()
+                and (ROOT / "src" / "repro_torch").is_dir()):
+            fail("--serve-fresh needs a card and a checkout")
+        serve_fresh(sys.argv[2])
+    else:
+        main()

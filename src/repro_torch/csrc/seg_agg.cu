@@ -14,35 +14,75 @@
 // block the valid slots (mask != 0) come first and are sorted by dstl; pad
 // slots follow.  Pad slots are never read past, so never multiplied by 0.
 // Every output row is written once; each term is rounded as coef * x and
-// then added (__fmul_rn/__fadd_rn, no FMA contraction); each row is folded
-// in slot order, so the result is deterministic.
+// then added (__fmul_rn/__fadd_rn, no FMA contraction), and the order of
+// the adds depends on the layout alone, so the result is deterministic:
+// two launches, and a CUDA graph's replays, agree bit for bit.
 //
 // What bounds it on the H100: bytes.  One add per gathered element, far
 // below the card's ~20 FLOP/byte f32 balance.  Each input read once is the
 // floor (0.11 ms at Reddit's F = 128), but the gathered rows are E * F * 4
 // bytes (5.9 GB at F = 128): a source row is gathered ~50 times, so what
 // the kernel can reach is set by where those gathers hit -- HBM (3.35 TB/s)
-// or the 50 MB L2.
+// or the 50 MB L2.  K1's backward runs over the transposed layout of a
+// sampled block, whose rows are the sources: few edges (66,620 in 1145
+// blocks of 128 rows at phase 11's block 0), most rows empty, and a hub
+// source's row of ~7,000 slots in one block.  Its floor is writing the
+// output (75 MB at F = 128); what held it far above was work on one unit:
+// the hub row folded by one unit in ~875 batches, and in the sparse
+// blocks every empty row after the last slots stored by one unit.
 //
 // What the design does about it (two launches: row_starts, then fold):
+//   * row_starts, one CTA of 128 threads per block (16 an SM, so 1,145
+//     blocks are one wave), reads only what it needs: the valid slots come
+//     first, so it finds n_valid with a search over mask (128 probes a
+//     round, each round cutting the interval below its stride: two rounds
+//     at emax = 7,120, three at 2^20), then reads dstl over
+//     [0, n_valid) only -- not the pad slots, which at the transposed
+//     layout of 1145 x 7120 slots were 65 MB of reads.  It writes per block
+//     where each row's slots start (no atomics) and the chunk table.
+//   * Units share work, not rows.  A fold CTA of 256 threads is 32 fold
+//     units of 8 lanes.  A block is W = n_valid + tile_m positions: each
+//     row's store, then its slots.  Unit k starts at position k W / 32, so
+//     every unit folds and stores about W / 32 -- a sparse block's empty
+//     rows are spread over its units, and a hub row's slots too.
+//   * A row of at most T slots is folded whole by the unit that reaches it,
+//     one slot at a time in slot order from 0, and stored when it ends with
+//     no barrier on its path: bit for bit the sum it had before the split
+//     existed -- every forward row of the paper's graphs, and every row on
+//     which graph/dedup.py's bitwise contract rests.  A longer row is cut
+//     at each unit start inside it: each chunk is folded in slot order from
+//     0 and its f32 sum goes to shared memory at its ordinal in the chunk
+//     table; after one __syncthreads, which every thread reaches (the
+//     branch to it is uniform over the CTA), the row is the left fold of
+//     its chunks' sums in chunk order (__fadd_rn), stored once.  The hub
+//     of phase 11's block 0 is ~31 chunks of ~226 slots, ~29 batches on
+//     its CTA where one unit folded ~875.
+//   * T = max(256, ceil(emax / 64)) (kernels/seg_agg.py split_threshold):
+//     a function of emax alone, so the chunk table's scratch and the shared
+//     memory are fixed by the shapes and a CUDA graph captured over one
+//     layout replays over any other of its shape; the cuts themselves are
+//     read from the layout in every launch.  At most emax / (T + 1) <= 64
+//     rows are split and 31 unit starts cut them, so a block has at most
+//     95 chunks, whose sums fit shared memory (95 x 64 columns x 4 B =
+//     24 KB); 256 keeps the rows the paper's graphs give the forward whole.
 //   * Column slices.  The fold's slow grid dimension is a slice of
 //     slice_cols columns, so the CTAs in flight at any moment all gather
 //     from one slice of x and a source row's slice is read from HBM about
-//     once per slice, not once per edge.  Each slice is one more pass over
+//     once per slice, not once per edge.  K1's backward orders its CTAs
+//     block by block instead (blocks_first): its layout gathers each row
+//     about once (66,620 edges over 146,560 rows at phase 11's block 0),
+//     so there is no reuse to keep, and every slice of the hub's block
+//     then starts in the first wave, not after every other block's first
+//     slice.  Its slices are as narrow as one load a lane a slot
+//     (kernels/seg_agg.py backward_slice_cols: 32 columns at F = 128):
+//     the hub's block is then folded on more SMs at once, each keeping
+//     fewer bytes in flight, and the instance's registers (64, not 110)
+//     let 4 CTAs share an SM, not 2, which the many sparse blocks need.  Each slice is one more pass over
 //     the indices and one more round of per-slot instructions, so the slice
 //     is as wide as a fold unit holds: 64 columns, 59.6 MB of x at Reddit,
 //     1.19 x the L2.  The power-law sources keep their hot rows resident
 //     even so (measured on the H100 at Reddit: 64 columns beat 32 at
 //     F = 128 and 602; chip_smoke.py's slice sweep).
-//   * Warps split a block by destination rows.  row_starts finds, once per
-//     block, where each destination row's slots start (no atomics); every
-//     slice's fold CTA reads those tile_m + 1 integers instead of the
-//     block's dstl.  A fold CTA of 256 threads is 32 fold units of 8
-//     lanes; each unit gets a contiguous range of rows holding an equal
-//     share of the block's slots and folds them one slot at a time in slot
-//     order, so no two units touch one row and the serial chain is a few
-//     hundred slots, not the block's thousands.  Four units share a warp,
-//     so one warp instruction advances four slots.
 //   * Memory-level parallelism and vector loads.  Lane i of a unit loads
 //     slot i of the next batch (src, mask, weight) one batch ahead, and the
 //     unit broadcasts them with shuffles; then each lane starts all of the
@@ -53,16 +93,26 @@
 //     busiest unit, so the shuffles are full-warp; a batch inside one row
 //     adds without per-slot checks, and without the multiply when every
 //     coefficient is 1 (1 * x == x, so the sum is bit for bit the same).
-//   * No barrier inside the fold: after the row starts are read the units
-//     run independently.  Outputs are streamed (st.cs) so they do not push
-//     the slice of x out of L2.
+//     A batch that crosses a row's end adds in runs, with one call site of
+//     the row's store: inlined once a slot it cost ~6% at F = 41 and 602.
+//     Outputs are streamed (st.cs) so they do not push the slice of x out
+//     of L2.
 //   * bf16 (the reference's bf16 rows, rounded once at its flush): x and
-//     out are bf16, everything between is f32.  A load converts each
-//     element exactly (bf16 is the top half of an f32), the fold is the
-//     f32 fold above, and the store rounds once (__float2bfloat16_rn).
-//     VEC counts elements, so a 16-byte load holds 8 bf16; a row of an
-//     odd-width bf16 matrix may be only 2-byte aligned (F = 41: 82 bytes),
-//     and F = 602 rows are 1,204 bytes, 4-byte aligned: 2-element loads.
+//     out are bf16, everything between is f32, chunk sums included.  A load
+//     converts each element exactly (bf16 is the top half of an f32), the
+//     fold is the f32 fold above, and the store of the whole row rounds
+//     once (__float2bfloat16_rn).  VEC counts elements, so a 16-byte load
+//     holds 8 bf16; a row of an odd-width bf16 matrix may be only 2-byte
+//     aligned (F = 41: 82 bytes), and F = 602 rows are 1,204 bytes, 4-byte
+//     aligned: 2-element loads.
+//
+// Limit: a block is one CTA per column slice, so a row is split across the
+// 32 units of one SM and no further.  A row far longer than a block's
+// share of the grid -- such as full-graph Reddit's top source, ~1.2 M
+// edges under the generator's alpha = 1.05, in a transposed full-graph
+// layout -- still runs on one CTA, ~W / 32 slots a unit, while the rest of
+// the grid idles; splitting it across CTAs needs a second pass over
+// partial sums in device memory, and no path of the port needs that now.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -71,9 +121,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // a fold CTA
+constexpr int kRowThreads = 128;   // a row_starts CTA: 16 an SM, so a
+                                   // layout of up to 2,112 blocks is one wave
 constexpr int kUnroll = 4;  // slots a row_starts thread loads at once
 constexpr int kLanes = 8;   // lanes of a fold unit: 4 units share a warp
+constexpr int kUnits = kThreads / kLanes;  // fold units of a CTA
 
 using bf16 = __nv_bfloat16;
 
@@ -148,49 +201,69 @@ __device__ __forceinline__ void store_vec(bf16* p, const float* s) {
            __bfloat16_as_ushort(__float2bfloat16_rn(s[0])));
 }
 
-// starts[b, m] = first slot of block b holding a row >= m (n_valid, the
-// first pad slot, if none), for m <= tile_m: rows [a, c) of the block own
-// slots [starts[b, a], starts[b, c]).  One CTA per block.
-__global__ void __launch_bounds__(kThreads)
+// Work positions: a block of tile_m rows and n_valid valid slots is
+// W = n_valid + tile_m positions, row m's store at s_start[m] + m and its
+// slots at the positions after it, so a unit's share counts the rows it
+// stores (an empty row is a store too) beside the slots it folds.  Unit k
+// of kUnits starts at position t_k = k W / kUnits (rounded down).
+// cuts_before(x, w): #{k in 1..kUnits-1 : t_k <= x}.
+__device__ __forceinline__ int cuts_before(int x, int w) {
+  const int64_t c = (static_cast<int64_t>(kUnits) * (x + 1) - 1) / w;
+  return static_cast<int>(min(c, static_cast<int64_t>(kUnits - 1)));
+}
+
+// The chunk table of block b, tables[b] = (starts, parts), 2 (tile_m + 1)
+// ints: starts[m] = first slot of block b holding a row >= m (n_valid, the
+// first pad slot, if none), for m <= tile_m, so rows [a, c) own slots
+// [starts[a], starts[c]); parts[m] = chunks of the split rows (more than
+// `split` slots) before m, parts[tile_m] = all of them.  A split row is cut
+// at the unit starts inside it, so it has one chunk more than it has cuts.
+// One CTA per block; it reads NT = 128 mask probes a round and dstl on the
+// valid slots.
+__global__ void __launch_bounds__(kRowThreads)
 row_starts_kernel(const int* __restrict__ dstl,
-                  const float* __restrict__ mask, int* __restrict__ starts,
-                  int emax, int tile_m) {
-  extern __shared__ int s_start[];  // tile_m + 1
-  __shared__ int s_nvalid;
-  const int tid = threadIdx.x;
+                  const float* __restrict__ mask, int* __restrict__ tables,
+                  int emax, int tile_m, int split) {
+  constexpr int NT = kRowThreads;
+  extern __shared__ int s_tab[];  // starts, then parts: 2 (tile_m + 1)
   const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * emax;
-  for (int m = tid; m < tile_m; m += kThreads) s_start[m] = INT_MAX;
-  if (tid == 0) s_nvalid = emax;
+  int* s_start = s_tab;
+  int* s_part = s_tab + tile_m + 1;
+  const int tid = threadIdx.x;
+  for (int m = tid; m < tile_m; m += NT) s_start[m] = INT_MAX;
   __syncthreads();
-  // slot e starts its row if it is valid and its predecessor (valid, as
-  // valid slots come first) has another row; the first pad slot is n_valid
-  for (int base = tid; base < emax; base += kThreads * kUnroll) {
-    float mk[kUnroll], mp[kUnroll];
+  // n_valid in [lo, hi]: probe NT slots at a stride; the valid ones are a
+  // prefix of the probes (valid slots come first), so their count k puts
+  // n_valid after probe k - 1 and at or before probe k.  The counting
+  // barrier is uniform, and every thread narrows [lo, hi] alike.
+  int lo = 0, hi = emax;
+  while (lo < hi) {
+    const int step = (hi - lo + NT - 1) / NT;
+    const int p = lo + tid * step;
+    const int k = __syncthreads_count(p < hi && __ldg(mask + slot0 + p) != 0.f);
+    const int nlo = k > 0 ? lo + (k - 1) * step + 1 : lo;
+    hi = min(hi, lo + k * step);
+    lo = nlo;
+  }
+  const int nvalid = lo;
+  // slot e < n_valid starts its row if its predecessor has another row
+  for (int base = tid; base < nvalid; base += NT * kUnroll) {
     int r[kUnroll], rp[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int e = base + u * kThreads;
-      const bool in = e < emax, prev = in && e > 0;
-      mk[u] = in ? __ldcs(mask + slot0 + e) : 0.f;
-      mp[u] = prev ? __ldg(mask + slot0 + e - 1) : 0.f;
-      r[u] = in ? __ldcs(dstl + slot0 + e) : -1;
-      rp[u] = prev ? __ldg(dstl + slot0 + e - 1) : -1;
+      const int e = base + u * NT;
+      r[u] = e < nvalid ? __ldcs(dstl + slot0 + e) : -1;
+      rp[u] = e < nvalid && e > 0 ? __ldg(dstl + slot0 + e - 1) : -1;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const int e = base + u * kThreads;
-      if (e >= emax) continue;
-      if (mk[u] != 0.f) {
-        if (e == 0 || rp[u] != r[u]) s_start[r[u]] = e;
-      } else if (e == 0 || mp[u] != 0.f) {
-        s_nvalid = e;
-      }
+      const int e = base + u * NT;
+      if (e < nvalid && (e == 0 || rp[u] != r[u])) s_start[r[u]] = e;
     }
   }
   __syncthreads();
-  // suffix minimum over rows: an empty row starts where the next row does
   if (tid < 32) {
-    const int nvalid = s_nvalid;
+    // suffix minimum over rows: an empty row starts where the next row does
     int carry = nvalid;
     for (int base = (tile_m - 1) / 32 * 32; base >= 0; base -= 32) {
       const int m = base + tid;
@@ -205,53 +278,101 @@ row_starts_kernel(const int* __restrict__ dstl,
       carry = __shfl_sync(0xffffffffu, v, 0);
     }
     if (tid == 0) s_start[tile_m] = nvalid;
+    __syncwarp();
+    // the split rows' chunks, prefix-summed in row order: row m's slots are
+    // positions s + m + 1 .. t + m, and a unit start strictly inside them
+    // cuts the row
+    const int w = nvalid + tile_m;
+    int total = 0;
+    for (int base = 0; base < tile_m; base += 32) {
+      const int m = base + tid;
+      int c = 0;
+      if (m < tile_m) {
+        const int s = s_start[m], t = s_start[m + 1];
+        if (t - s > split)
+          c = 1 + cuts_before(t + m, w) - cuts_before(s + m + 1, w);
+      }
+      int incl = c;
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (tid >= off) incl += o;
+      }
+      if (m < tile_m) s_part[m] = total + incl - c;
+      total += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (tid == 0) s_part[tile_m] = total;
   }
   __syncthreads();
-  int* out = starts + static_cast<int64_t>(blockIdx.x) * (tile_m + 1);
-  for (int m = tid; m <= tile_m; m += kThreads) out[m] = s_start[m];
+  int* out = tables + static_cast<int64_t>(blockIdx.x) * 2 * (tile_m + 1);
+  for (int m = tid; m < 2 * (tile_m + 1); m += NT) out[m] = s_tab[m];
 }
 
 // One CTA per (destination block, column slice).  A unit is kLanes lanes;
 // lane li owns columns c0 + (cc * kLanes + li) * VEC .. + VEC - 1 of the
 // slice for cc < C.  T is the element type of x and out (float or bf16);
-// the fold is f32 either way.
+// the fold is f32 either way.  Shared memory: the block's chunk table, then
+// max_chunks x slice_cols f32 chunk sums (the launch sizes it from emax).
 template <typename T, int VEC, int C>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
             const float* __restrict__ mask,
             const float* __restrict__ weight,
-            const int* __restrict__ starts, T* __restrict__ out,
-            int emax, int tile_m, int slice_cols) {
+            const int* __restrict__ tables, T* __restrict__ out,
+            int emax, int tile_m, int slice_cols, int split,
+            int blocks_first) {
   constexpr int L = kLanes;
-  constexpr int kUnits = kThreads / L;  // fold units of a CTA
   constexpr int kBatch = L;             // slots a unit gathers at once
   static_assert(C * VEC <= 8, "a lane holds at most 8 values of a slot");
-  extern __shared__ int s_start[];      // tile_m + 1
+  extern __shared__ int s_tab[];
+  int* s_start = s_tab;                 // tile_m + 1
+  int* s_part = s_tab + tile_m + 1;     // tile_m + 1
+  float* s_sum = reinterpret_cast<float*>(s_tab + 2 * (tile_m + 1));
   const int tid = threadIdx.x;
-  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * emax;
-  const int* blk = starts + static_cast<int64_t>(blockIdx.x) * (tile_m + 1);
-  for (int m = tid; m <= tile_m; m += kThreads) s_start[m] = __ldg(blk + m);
+  // the grid's fast dimension: blocks (slice-major) or slices
+  const int b = blocks_first ? blockIdx.y : blockIdx.x;
+  const int slice = blocks_first ? blockIdx.x : blockIdx.y;
+  const int64_t slot0 = static_cast<int64_t>(b) * emax;
+  const int* blk = tables + static_cast<int64_t>(b) * 2 * (tile_m + 1);
+  for (int m = tid; m < 2 * (tile_m + 1); m += kThreads)
+    s_tab[m] = __ldg(blk + m);
   __syncthreads();
 
-  // this unit's rows [r_lo, r_hi): unit k starts at the first row whose
-  // slots start at or after k / kUnits of the block's valid slots
   const int unit = tid / L, li = tid % L;
   const int nvalid = s_start[tile_m];
-  auto first_row = [&](int k) {
-    if (k == 0) return 0;
-    if (k == kUnits) return tile_m;
+  const int w = nvalid + tile_m;
+  // Where unit k starts: its first slot, that slot's row and, when it
+  // starts inside a split row, its chunk of the row.  Position t_k lies in
+  // row lo - 1, lo the first row whose store position is at or after it:
+  // a split row is cut at the slot there, any other row is left whole to
+  // the unit that reached it first.
+  auto first_slot = [&](int k, int& r, int& part) {
+    part = 0;
+    if (k == 0) { r = 0; return 0; }
+    if (k == kUnits) { r = tile_m; return nvalid; }
     const int target =
-        static_cast<int>(static_cast<int64_t>(k) * nvalid / kUnits);
-    int lo = 0, hi = tile_m;  // s_start[tile_m] = nvalid >= target
+        static_cast<int>(static_cast<int64_t>(k) * w / kUnits);
+    int lo = 0, hi = tile_m;  // s_start[tile_m] + tile_m = w >= target
     while (lo < hi) {
       const int mid = (lo + hi) / 2;
-      if (s_start[mid] >= target) hi = mid;
+      if (s_start[mid] + mid >= target) hi = mid;
       else lo = mid + 1;
     }
-    return lo;
+    r = lo;
+    if (lo > 0) {
+      const int m = lo - 1, s = s_start[m], t = s_start[lo];
+      const int e = target - m - 1;  // the slot at position target
+      if (t - s > split && s <= e && e < t) {
+        r = m;
+        if (e > s) part = k - cuts_before(s + m + 1, w);
+        return e;
+      }
+    }
+    return s_start[lo];
   };
-  const int r_lo = first_row(unit), r_hi = first_row(unit + 1);
-  const int e_lo = s_start[r_lo], e_hi = s_start[r_hi];
+  int row, r_hi, part, next_part;  // next_part: the next unit's, unused
+  const int e_lo = first_slot(unit, row, part);
+  const int e_hi = first_slot(unit + 1, r_hi, next_part);
   // Every lane of a warp runs the same number of batches (the most any of
   // its units needs), so the shuffles below are full-warp and need no
   // convergence check; a unit past its end just adds nothing.
@@ -260,10 +381,10 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   for (int off = L; off < 32; off *= 2)
     batches = max(batches, __shfl_xor_sync(0xffffffffu, batches, off));
 
-  const int c0 = blockIdx.y * slice_cols;
+  const int c0 = slice * slice_cols;
   const int cols = min(slice_cols, f - c0);
   const T* xs = x + c0;
-  T* out_blk = out + static_cast<int64_t>(blockIdx.x) * tile_m * f + c0;
+  T* out_blk = out + static_cast<int64_t>(b) * tile_m * f + c0;
   // a lane whose columns lie past the slice loads column 0 (the same line
   // as its unit's other loads) and never stores
   int col_ld[C];
@@ -277,28 +398,61 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   for (int cc = 0; cc < C; ++cc)
 #pragma unroll
     for (int q = 0; q < VEC; ++q) acc[cc][q] = 0.f;
-  auto store_row = [&](int r) {
+
+  // The current row ends at `next` (this unit's share of it may end
+  // earlier, at e_hi); pslot is the ordinal in the chunk table of this
+  // unit's chunk of it when the row is split, -1 when the row is whole.
+  // Entering a row reads one entry of shared memory (two when it is split).
+  int next = 0, pslot = -1;
+  if (row < tile_m) {
+    next = s_start[row + 1];
+    if (next - s_start[row] > split) pslot = s_part[row] + part;
+  }
+  // The current row is complete (or empty): a whole row is stored, a
+  // chunk's sum goes to shared memory; the next row becomes current.
+  // (Past the last row, s_start[tile_m + 1] reads the chunk table's first
+  // entry: harmless, as no row is left to use it.)
+  auto finish = [&]() {
+    if (pslot < 0) {
 #pragma unroll
-    for (int cc = 0; cc < C; ++cc) {
-      const int col = (cc * L + li) * VEC;
-      if (col < cols)
-        store_vec<VEC>(out_blk + static_cast<int64_t>(r) * f + col, acc[cc]);
+      for (int cc = 0; cc < C; ++cc) {
+        const int col = (cc * L + li) * VEC;
+        if (col < cols)
+          store_vec<VEC>(out_blk + static_cast<int64_t>(row) * f + col,
+                         acc[cc]);
+      }
+    } else {
+      float* dst = s_sum + pslot * slice_cols;
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) {
+        const int col = (cc * L + li) * VEC;
+        if (col < cols)
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) dst[col + q] = acc[cc][q];
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < C; ++cc)
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[cc][q] = 0.f;
-    }
+    ++row;
+    const int s = next;
+    next = s_start[row + 1];
+    pslot = next - s > split ? s_part[row] : -1;
   };
 
-  int row = r_lo;
-  int next = r_lo < r_hi ? s_start[r_lo + 1] : 0;  // first slot past `row`
-  int p_src = 0;  // always a valid row of x: 0 or a loaded src
+  int p_src = 0;  // always a valid row of x: a loaded src
   float p_coef = 0.f;
-  auto fetch = [&](int e) {  // lane li: slot e + li of the next batch
-    if (e + li < e_hi) {
-      const int64_t s = slot0 + e + li;
-      p_src = __ldg(src + s);
-      const float m = __ldg(mask + s);
-      p_coef = weight != nullptr ? m * __ldg(weight + s) : m;
-    }
+  // lane li: slot e + li of the next batch, clamped into the unit's slots
+  // (or to slot 0 of the block), so the load is unconditional and the
+  // gathers need not wait on it; a lane past the unit's end feeds only
+  // slots the fold never adds
+  const int last = max(e_hi - 1, 0);
+  auto fetch = [&](int e) {
+    const int64_t s = slot0 + min(e + li, last);
+    p_src = __ldg(src + s);
+    const float m = __ldg(mask + s);
+    p_coef = weight != nullptr ? m * __ldg(weight + s) : m;
   };
   fetch(e_lo);
   for (int i = 0; i < batches; ++i) {
@@ -350,63 +504,112 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
                   __fadd_rn(acc[cc][q], __fmul_rn(cf[u], v[u][cc][q]));
       }
     } else {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (u < n) {
-          while (e + u >= next) {  // row `row` is complete (or empty)
-            store_row(row);
-            next = s_start[++row + 1];
-          }
-          // no contraction into an FMA: each term is rounded as the plain
-          // version rounds it (coef * x, then the add)
-#pragma unroll
-          for (int cc = 0; cc < C; ++cc)
-#pragma unroll
-            for (int q = 0; q < VEC; ++q)
-              acc[cc][q] =
-                  __fadd_rn(acc[cc][q], __fmul_rn(cf[u], v[u][cc][q]));
+      // the batch crosses the end of a row: its slots go in runs inside one
+      // row, each row finished when the next slot is past it (one call site
+      // of finish keeps the loop's code small)
+      int u0 = 0;
+      while (u0 < n) {
+        if (e + u0 >= next) {
+          finish();
+          continue;
         }
+        const int u1 = min(n, next - e);
+        // no contraction into an FMA: each term is rounded as the plain
+        // version rounds it (coef * x, then the add)
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (u >= u0 && u < u1) {
+#pragma unroll
+            for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+              for (int q = 0; q < VEC; ++q)
+                acc[cc][q] =
+                    __fadd_rn(acc[cc][q], __fmul_rn(cf[u], v[u][cc][q]));
+          }
+        }
+        u0 = u1;
       }
     }
   }
-  for (; row < r_hi; ++row) store_row(row);  // the last row, empty rows
+  // the last row, then the empty rows after it: this unit's rows are those
+  // before r_hi and, when the next unit starts inside row r_hi, its share
+  // of that row
+  while (row < r_hi ||
+         (row == r_hi && row < tile_m && max(e_lo, s_start[row]) < e_hi))
+    finish();
+
+  // the split rows: each the left fold of its chunks' sums in chunk order,
+  // stored once.  The branch is uniform over the CTA, so every thread
+  // reaches the barrier.
+  if (s_part[tile_m] > 0) {
+    __syncthreads();
+    for (int i = tid; i < tile_m * cols; i += kThreads) {
+      const int m = i / cols, col = i - m * cols;
+      const int p0 = s_part[m], p1 = s_part[m + 1];
+      if (p0 == p1) continue;
+      const float* p = s_sum + p0 * slice_cols + col;
+      float sum = p[0];
+      for (int j = 1; j < p1 - p0; ++j)
+        sum = __fadd_rn(sum, p[j * slice_cols]);
+      store_vec<1>(out_blk + static_cast<int64_t>(m) * f + col, &sum);
+    }
+  }
 }
 
 template <typename T, int VEC, int C>
 int launch(const T* x, const int* src, const int* dstl, const float* mask,
-           const float* weight, int* starts, T* out, int nblocks,
-           int emax, int f, int tile_m, int slice_cols, cudaStream_t stream) {
-  const int smem = (tile_m + 1) * static_cast<int>(sizeof(int));
-  row_starts_kernel<<<nblocks, kThreads, smem, stream>>>(dstl, mask, starts,
-                                                         emax, tile_m);
+           const float* weight, int* tables, T* out, int nblocks, int emax,
+           int f, int tile_m, int slice_cols, int split, int max_chunks,
+           int blocks_first, cudaStream_t stream) {
+  const int tab = 2 * (tile_m + 1) * static_cast<int>(sizeof(int));
+  row_starts_kernel<<<nblocks, kRowThreads, tab, stream>>>(
+      dstl, mask, tables, emax, tile_m, split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nblocks, (f + slice_cols - 1) / slice_cols);
-  fold_kernel<T, VEC, C><<<grid, kThreads, smem, stream>>>(
-      x, f, src, mask, weight, starts, out, emax, tile_m, slice_cols);
+  auto kernel = fold_kernel<T, VEC, C>;
+  const int smem =
+      tab + max_chunks * slice_cols * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int slices = (f + slice_cols - 1) / slice_cols;
+  const dim3 grid = blocks_first ? dim3(slices, nblocks)
+                                 : dim3(nblocks, slices);
+  kernel<<<grid, kThreads, smem, stream>>>(x, f, src, mask, weight, tables,
+                                           out, emax, tile_m, slice_cols,
+                                           split, blocks_first);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x: (V, f) f32; src, dstl: (nblocks, emax) int32; mask: (nblocks, emax) f32;
-// weight: (nblocks, emax) f32 or null; starts: (nblocks, tile_m + 1) int32
-// scratch; out: (nblocks * tile_m, f) f32.  Columns go in slices of
+// weight: (nblocks, emax) f32 or null; tables: (nblocks, 2 (tile_m + 1))
+// int32 scratch; out: (nblocks * tile_m, f) f32.  Columns go in slices of
 // slice_cols (a multiple of vec; the last may be narrower), each lane vec
 // floats wide, c loads per slot: vec in {1, 2, 4} with f % vec == 0 and x
-// vec * 4-byte aligned, 8 * vec * c >= slice_cols and vec * c <= 8.
-// Returns the first cudaGetLastError() of the two launches
-// (cudaErrorInvalidValue for another (vec, c)).
+// vec * 4-byte aligned, 8 * vec * c >= slice_cols and vec * c <= 8.  Rows
+// of more than `split` slots are cut at the fold units' starts inside them;
+// max_chunks >= the chunks a block can hold (emax / (split + 1) + 31) sizes
+// the shared memory (kernels/seg_agg.py split_threshold, max_chunks).
+// blocks_first orders the fold's CTAs block by block (all slices of a
+// block together; nblocks <= 65535), else slice by slice.  Returns the
+// first CUDA error of the two launches (cudaErrorInvalidValue for another
+// (vec, c)).
 extern "C" int seg_agg_f32(const float* x, const int* src, const int* dstl,
                            const float* mask, const float* weight,
-                           int* starts, float* out, int nblocks, int emax,
+                           int* tables, float* out, int nblocks, int emax,
                            int f, int tile_m, int slice_cols, int vec, int c,
+                           int split, int max_chunks, int blocks_first,
                            void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_SEG_AGG(V, CC)                                                 \
   if (vec == V && c == CC)                                                   \
-    return launch<float, V, CC>(x, src, dstl, mask, weight, starts, out,    \
-                                nblocks, emax, f, tile_m, slice_cols, st);
+    return launch<float, V, CC>(x, src, dstl, mask, weight, tables, out,    \
+                                nblocks, emax, f, tile_m, slice_cols, split, \
+                                max_chunks, blocks_first, st);
   REPRO_SEG_AGG(4, 1)
   REPRO_SEG_AGG(4, 2)
   REPRO_SEG_AGG(2, 1)
@@ -425,21 +628,24 @@ extern "C" int seg_agg_f32(const float* x, const int* src, const int* dstl,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The same with x and out bf16 (f32 fold, one rounding at the store): vec
-// bf16 elements a load, vec in {1, 2, 4, 8} with f % vec == 0 and x
-// vec * 2-byte aligned, 8 * vec * c >= slice_cols and vec * c <= 8.
+// The same with x and out bf16 (f32 fold and chunk sums, one rounding at
+// the store): vec bf16 elements a load, vec in {1, 2, 4, 8} with
+// f % vec == 0 and x vec * 2-byte aligned, 8 * vec * c >= slice_cols and
+// vec * c <= 8.
 extern "C" int seg_agg_bf16(const void* x, const int* src, const int* dstl,
                             const float* mask, const float* weight,
-                            int* starts, void* out, int nblocks, int emax,
+                            int* tables, void* out, int nblocks, int emax,
                             int f, int tile_m, int slice_cols, int vec, int c,
-                            void* stream) {
+                            int split, int max_chunks, int blocks_first,
+                           void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto* xb = static_cast<const bf16*>(x);
   auto* ob = static_cast<bf16*>(out);
 #define REPRO_SEG_AGG(V, CC)                                                 \
   if (vec == V && c == CC)                                                   \
-    return launch<bf16, V, CC>(xb, src, dstl, mask, weight, starts, ob,     \
-                               nblocks, emax, f, tile_m, slice_cols, st);
+    return launch<bf16, V, CC>(xb, src, dstl, mask, weight, tables, ob,     \
+                               nblocks, emax, f, tile_m, slice_cols, split,  \
+                               max_chunks, blocks_first, st);
   REPRO_SEG_AGG(8, 1)
   REPRO_SEG_AGG(4, 1)
   REPRO_SEG_AGG(4, 2)

@@ -17,7 +17,12 @@ edges in order from 0, so the naive ``((0 + a) + b) + rest`` and the dedup
 ``(0 + (a + b)) + rest`` are the same IEEE operations (``0 + x == x``,
 and addition commutes, so the canonical ``(min, max)`` key is safe): an
 f32 dedup plan equals the naive plan bit for bit wherever the fold is in
-order (the CPU's ``index_add_`` and the cuda tier's kernels).
+order: the CPU's ``index_add_``, and the cuda tier's kernels on rows of at
+most T slots (``kernels.seg_agg.split_threshold(emax)``, at least 256).  K1
+folds a longer row as chunks whose sums it adds in order, cut where its
+fold units start, and a dedup layout shortens the row by one slot, which
+moves the cuts, so no split rule keeps the contract there; every forward
+row of the paper's graphs is shorter.
 
 The layout is built once at plan time (O(E) numpy); its arrays are int32
 tensors on the plan's device.  ``attach_blocked`` blocks the level-2 list

@@ -23,7 +23,9 @@ counts the launches, ``seg_agg.launches_bf16`` the bf16 ones and
 ``seg_agg.launches_bwd`` the backward ones among them.  The kernel
 walks x in column slices of ``slice_cols`` with 16-, 8-, 4- or (bf16)
 2-byte loads (``launch_params``), both pure functions of the shapes, so
-the CPU tests hold them.
+the CPU tests hold them; so are the split threshold and the shared
+memory the chunk sums take (``split_threshold``, ``max_chunks``,
+``fold_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,18 @@ MAX_SLICE = 64
 UNIT_LANES = 8
 #: what a lane of a fold unit holds of one slot, in elements
 LANE_ELEMS = 8
+#: fold units of a CTA (csrc/seg_agg.cu kUnits): 256 threads of 8 lanes
+FOLD_UNITS = 32
+#: a row of at most MIN_SPLIT slots is never split: one in-order fold
+MIN_SPLIT = 256
+#: only a row of more than emax / SPLIT_WAYS slots is split, so a block
+#: has at most SPLIT_WAYS split rows and their chunks' sums fit shared
+#: memory
+SPLIT_WAYS = 64
+#: dynamic shared memory a CTA may take on the H100, and what it takes
+#: without opting in (csrc/seg_agg.cu sets the attribute above that)
+SMEM_LIMIT = 232448
+SMEM_DEFAULT = 48 * 1024
 #: the element types the kernel takes, with its C entry for each
 ENTRIES = {torch.float32: "seg_agg_f32", torch.bfloat16: "seg_agg_bf16"}
 
@@ -102,6 +116,19 @@ def slice_cols(f: int) -> int:
     return min(f, MAX_SLICE)
 
 
+def backward_slice_cols(f: int, elt: int, align: int) -> int:
+    """Columns per slice of K1's backward: one load a lane a slot, the
+    widest that holds (``UNIT_LANES`` times the load ``launch_params``
+    picks for F's widest slice, at most F): 32 at F = 128 in f32, 8 at F =
+    41.  A transposed layout of a sampled block gathers each row about
+    once, so wide slices buy no reuse there, while narrow ones spread a
+    hub's block over more SMs and let more CTAs share one (measured on
+    the H100 at phase 11's block 0: 32 columns beat 64 at F = 128, 8 beat
+    41 at F = 41; chip_smoke.py phase 11)."""
+    vec, _ = launch_params(f, slice_cols(f), elt, align)
+    return min(f, UNIT_LANES * vec)
+
+
 def launch_params(f: int, width: int, elt: int,
                   align: int) -> tuple[int, int]:
     """(vec, c): elements per load and loads per slot of one lane, for F
@@ -119,6 +146,67 @@ def launch_params(f: int, width: int, elt: int,
             vec = n
             break
     return vec, -(-width // (UNIT_LANES * vec))
+
+
+def split_threshold(emax: int) -> int:
+    """T in ``csrc/seg_agg.cu``: a row of more than T slots is split, a
+    shorter one folded whole, in slot order.  A function of ``emax`` alone
+    -- never of the layout's contents, so the shared memory is fixed by the
+    shapes and a CUDA graph captured over one layout replays over any other
+    of its shape: ``max(MIN_SPLIT, ceil(emax / SPLIT_WAYS))``."""
+    return max(MIN_SPLIT, -(-int(emax) // SPLIT_WAYS))
+
+
+def max_chunks(emax: int) -> int:
+    """The most chunks a block of ``emax`` slots can hold: at most
+    emax / (T + 1) rows are split, and each of the FOLD_UNITS - 1 unit
+    starts cuts at most one of them once more."""
+    return int(emax) // (split_threshold(emax) + 1) + FOLD_UNITS - 1
+
+
+def fold_smem_bytes(tile_m: int, emax: int, width: int) -> int:
+    """Dynamic shared memory of a fold CTA (``csrc/seg_agg.cu`` launch):
+    the block's chunk table, 2 (tile_m + 1) ints, then an f32 sum of
+    ``width`` columns for each chunk the block can hold."""
+    return 4 * (2 * (tile_m + 1) + max_chunks(emax) * width)
+
+
+def unit_starts(row_lengths) -> list[int]:
+    """Where the kernel's fold units start in a block whose rows hold
+    ``row_lengths`` valid slots: for each unit, a position of the block's
+    W = n_valid + tile_m (row m's store at its first slot + m, its slots
+    after it), ``k W // FOLD_UNITS``, so units share the slots to fold and
+    the rows to store alike."""
+    w = sum(int(n) for n in row_lengths) + len(row_lengths)
+    return [k * w // FOLD_UNITS for k in range(1, FOLD_UNITS)]
+
+
+def chunk_plan(row_lengths, emax: int) -> list[tuple[int, int, int, int]]:
+    """The kernel's rows and chunks over one block of ``emax`` slots whose
+    rows hold ``row_lengths`` valid slots: ``(row, first slot, end,
+    ordinal)`` in slot order.  A row of at most ``split_threshold(emax)``
+    slots (an empty one too) is one item, ``ordinal`` -1, folded in slot
+    order and stored.  A longer row is cut at every unit start
+    (``unit_starts``) strictly inside its slots; each chunk is folded in
+    slot order from 0, and its sum (``ordinal``: its place in the block's
+    chunk table) is added to the row's in chunk order."""
+    t = split_threshold(emax)
+    starts = unit_starts(row_lengths)
+    items, slot, ordinal = [], 0, 0
+    for row, n in enumerate(int(v) for v in row_lengths):
+        if n <= t:
+            items.append((row, slot, slot + n, -1))
+        else:
+            # the slot at position p of row `row` is p - row - 1
+            cuts = [p - row - 1 for p in starts
+                    if slot < p - row - 1 < slot + n]
+            for a, b in zip([slot] + cuts, cuts + [slot + n]):
+                items.append((row, a, b, ordinal))
+                ordinal += 1
+        slot += n
+    if slot > emax:
+        raise ValueError(f"rows of {slot} slots in a block of {emax}")
+    return items
 
 
 def alignment(t: torch.Tensor) -> int:
@@ -141,11 +229,15 @@ def _entry(kernel: str, dtype: torch.dtype) -> str:
 def _fold(x, src, dstl, mask, weight, tile_m: int, *,
           backward: bool = False) -> torch.Tensor:
     """One fold: the plain version on the CPU, the kernel on a card (a
-    ``backward`` one counted in ``seg_agg.launches_bwd`` too)."""
+    ``backward`` one -- narrow slices, CTAs block by block -- counted in
+    ``seg_agg.launches_bwd`` too)."""
     if x.device.type == "cpu":
         return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m)
-    out = _launch(x, src, dstl, mask, weight, tile_m,
-                  slice_cols(x.shape[-1]))
+    f = x.shape[-1]
+    width = backward_slice_cols(f, x.element_size(), alignment(x)) \
+        if backward else slice_cols(f)
+    out = _launch(x, src, dstl, mask, weight, tile_m, width,
+                  blocks_first=backward)
     if backward:
         seg_agg.launches_bwd += 1
     return out
@@ -201,18 +293,41 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     Returns (nblocks * tile_m, F) in x's dtype: f32 sums, rounded once for
     bf16.  Launches on the current stream and does not synchronize.
     """
-    if torch.is_grad_enabled() and (mask.requires_grad or (
-            weight is not None and weight.requires_grad)):
-        raise ValueError("seg_agg: the mask and the edge weights get no "
-                         "gradient; detach them")
-    return SegAgg.apply(x, src, dstl, mask, weight, tile_m, transposed)
+    if torch.is_grad_enabled():
+        if mask.requires_grad or (weight is not None and
+                                  weight.requires_grad):
+            raise ValueError("seg_agg: the mask and the edge weights get "
+                             "no gradient; detach them")
+        if x.requires_grad:
+            return SegAgg.apply(x, src, dstl, mask, weight, tile_m,
+                                transposed)
+    return _fold(x, src, dstl, mask, weight, tile_m)  # no gradient to carry
 
 
-def _launch(x, src, dstl, mask, weight, tile_m: int,
-            width: int) -> torch.Tensor:
+def _c_entry(entry: str):
+    """The C entry's ctypes function, built and loaded at first use, its
+    signature set once (a launch's host time is most of a small fold's)."""
+    fn = _C_ENTRIES.get(entry)
+    if fn is None:
+        fn = getattr(_build.load("seg_agg"), entry)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _C_ENTRIES[entry] = fn
+    return fn
+
+
+_C_ENTRIES: dict = {}
+
+
+def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
+            blocks_first: bool = False) -> torch.Tensor:
     """Check the arguments and launch the kernel with column slices of
     ``width``; ``seg_agg`` passes ``slice_cols(F)``, the card tests force
-    narrower slices through here."""
+    narrower slices through here.  ``blocks_first`` orders the CTAs block
+    by block (K1's backward, whose layout gathers each row about once, so
+    slice-major order has no reuse to keep; at most 65,535 blocks), else
+    slice by slice; the sums are the same either way."""
     nblocks, emax = src.shape
     f = x.shape[1] if x.dim() == 2 else -1
     lay = (nblocks, emax)
@@ -229,20 +344,26 @@ def _launch(x, src, dstl, mask, weight, tile_m: int,
     if not 0 < width <= min(f, MAX_SLICE):
         raise ValueError(f"seg_agg: slice width {width} must be in "
                          f"[1, min(F={f}, {MAX_SLICE})]")
+    smem = fold_smem_bytes(tile_m, emax, width)
+    if smem > SMEM_LIMIT or 8 * (tile_m + 1) > SMEM_DEFAULT:
+        raise ValueError(f"seg_agg: tile_m={tile_m}, emax={emax} need "
+                         f"{smem} B of shared memory a CTA (at most "
+                         f"{SMEM_LIMIT})")
     out = torch.empty((nblocks * tile_m, f), dtype=x.dtype, device=x.device)
-    starts = torch.empty((nblocks, tile_m + 1), dtype=torch.int32,
+    # the chunk table: row starts and split chunks before each row, per
+    # block, written by the first launch and read by the second
+    tables = torch.empty((nblocks, 2 * (tile_m + 1)), dtype=torch.int32,
                          device=x.device)
     vec, c = launch_params(f, width, x.element_size(), alignment(x))
-    fn = getattr(_build.load("seg_agg"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _c_entry(entry)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), src.data_ptr(), dstl.data_ptr(),
                  mask.data_ptr(),
                  None if weight is None else weight.data_ptr(),
-                 starts.data_ptr(), out.data_ptr(), nblocks, emax, f, tile_m,
-                 width, vec, c, torch.cuda.current_stream().cuda_stream)
+                 tables.data_ptr(), out.data_ptr(), nblocks, emax, f, tile_m,
+                 width, vec, c, split_threshold(emax), max_chunks(emax),
+                 int(blocks_first and nblocks <= 65535),
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"seg_agg: kernel launch failed with CUDA error "
                            f"{err}")

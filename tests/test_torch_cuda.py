@@ -777,6 +777,133 @@ def test_captured_decision_plans_bitwise_equal_eager(card, case, fused):
 
 # ---------------------------------------------------------------------------
 # minibatch training: K1's backward and the trainer on the card
+#: K1's long-row layouts, name -> (emax, rows of each block as {row:
+#: slots}); T = split_threshold(emax) is 256 at 7,120 slots (phase 11's
+#: transposed block 0) and 1,024 at 65,536.  Rows of T, T + 1, T k and
+#: T k + 1 slots, a 7,000-slot hub, a 50,000-slot row, an empty block and
+#: a block of short rows
+_C7, _C64 = 256, 1024
+LONG_ROWS = {
+    "e7120": (7120, [{0: _C7, 1: _C7 + 1, 2: 2 * _C7, 3: 2 * _C7 + 1,
+                      4: 5, 9: 1, 31: 40},
+                     {3: 7000, 4: 50, 30: 7},
+                     {},
+                     {r: 3 for r in range(32)}]),
+    "e65536": (65536, [{0: _C64, 1: _C64 + 1, 2: 3 * _C64,
+                        3: 3 * _C64 + 1, 4: 7000, 5: 2},
+                       {7: 50000, 8: 20},
+                       {r: r for r in range(32)}]),
+}
+
+
+def _long_row_layout(name, v=3000, tile_m=32, seed=0):
+    """``LONG_ROWS[name]`` as a blocked layout on the card (sources drawn
+    at random from ``v`` rows), its rows' lengths, and its T."""
+    emax, blocks = LONG_ROWS[name]
+    rng = np.random.default_rng(seed)
+    lengths = np.zeros(len(blocks) * tile_m, np.int64)
+    for b, rows in enumerate(blocks):
+        for r, n in rows.items():
+            lengths[b * tile_m + r] = n
+    dst = np.repeat(np.arange(len(lengths)), lengths)
+    src = rng.integers(0, v, len(dst))
+    bg = block_graph_arrays(src, dst, len(lengths), tile_m, device="cuda",
+                            emax=emax)
+    assert k1.split_threshold(emax) == (_C7 if emax == 7120 else _C64)
+    return bg, lengths, k1.split_threshold(emax)
+
+
+def _in_order(x, bg, w):
+    """Each row as one fold in slot order from 0, f32 (numpy, on the
+    host): the sum the kernel must give a row of at most T slots, bit for
+    bit."""
+    xs = x.float().cpu().numpy()
+    src, dstl = bg.src.cpu().numpy(), bg.dstl.cpu().numpy()
+    mask = bg.mask.cpu().numpy()
+    coef = mask if w is None else mask * w.cpu().numpy()
+    out = np.zeros((bg.nblocks * bg.tile_m, xs.shape[1]), np.float32)
+    for b, e in zip(*np.nonzero(mask)):
+        r = b * bg.tile_m + dstl[b, e]
+        out[r] = out[r] + coef[b, e] * xs[src[b, e]]
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("name", list(LONG_ROWS))
+@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_seg_agg_long_rows_match_plain(card, name, f, dtype, weighted):
+    """K1 over rows of T, T + 1, T k, T k + 1, 7,000 and 50,000 slots:
+    each row within K1's per-row limit of the plain version (f32 3e-5,
+    bf16 one bf16 ulp); two launches, and one with the backward's CTA
+    order, bit for bit; every row of at most T
+    slots bit for bit one in-order fold (the dedup contract's rows); the
+    empty block exactly 0."""
+    bg, lengths, t = _long_row_layout(name)
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    x = torch.randn((3000, f), generator=gen, device="cuda").to(dtype)
+    w = torch.rand(bg.src.shape, generator=gen, device="cuda") \
+        if weighted else None
+    args = (x, bg.src, bg.dstl, bg.mask, w)
+    got = k1.seg_agg(*args, tile_m=bg.tile_m)
+    again = k1.seg_agg(*args, tile_m=bg.tile_m)
+    want = k1.seg_agg_plain(*args, tile_m=bg.tile_m)
+    assert torch.equal(got, again)
+    # the backward's CTA order (block by block) gives the same sums
+    assert torch.equal(got, k1._launch(*args, bg.tile_m, k1.slice_cols(f),
+                                       blocks_first=True))
+    _rows_close(got, want, 3e-5 if dtype == torch.float32
+                else AGG_BF16_ROW_LIMIT)
+    short = torch.from_numpy(lengths <= t)
+    ref = _in_order(x, bg, w).to(dtype)
+    assert torch.equal(got.cpu()[short], ref[short])
+    assert (lengths > t).sum() >= 4
+    if name == "e7120":
+        assert not got[2 * bg.tile_m:3 * bg.tile_m].any()
+
+
+def test_seg_agg_capture_over_hub_rows_replays_eager(card):
+    """A CUDA graph captured over one long-row layout replays bit for bit
+    the eager launch over it, and over another layout of the same shape
+    copied into its inputs (the chunk table is read from the layout in
+    every launch; the scratch depends on the shapes alone)."""
+    bg, _, _ = _long_row_layout("e7120")
+    alt = block_graph_arrays(  # the hub moved to another row and block
+        *[a.cpu().numpy() for a in _hub_elsewhere(bg)], bg.num_vertices,
+        bg.tile_m, device="cuda", emax=bg.emax)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((3000, 64), generator=gen, device="cuda")
+    static = [t.clone() for t in (bg.src, bg.dstl, bg.mask)]
+    n = k1.seg_agg.launches
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k1.seg_agg(x, *static, tile_m=bg.tile_m)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k1.seg_agg(x, *static, tile_m=bg.tile_m)
+    for lay in (bg, alt, bg):
+        for s, t in zip(static, (lay.src, lay.dstl, lay.mask)):
+            s.copy_(t)
+        graph.replay()
+        want = k1.seg_agg(x, lay.src, lay.dstl, lay.mask, tile_m=lay.tile_m)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert k1.seg_agg.launches == n + 5      # warm-up, capture, 3 eager
+
+
+def _hub_elsewhere(bg):
+    """(src, dst) of ``bg``'s edges with each block's rows reversed, so its
+    hub and its split rows sit at other rows and slots."""
+    m = bg.mask.cpu().numpy() != 0
+    b, j = np.nonzero(m)
+    dst = b * bg.tile_m + (bg.tile_m - 1 - bg.dstl.cpu().numpy()[b, j])
+    src = bg.src.cpu().numpy()[b, j]
+    order = np.argsort(dst, kind="stable")
+    return torch.from_numpy(src[order]), torch.from_numpy(dst[order])
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -923,7 +1050,8 @@ def test_graph_serving_replay_matches_eager(card, name):
         assert cap["fused_agg_combine"] == eager["fused_agg_combine"] == 0
         _close(torch.from_numpy(served), torch.from_numpy(
             eng.run_eager(prep)))
-    assert eng.retraces() == 0 and fn.num_replays == 3
+    # warmup() replays once, for its template request through the bucket
+    assert eng.retraces() == 0 and fn.num_replays == 1 + 3
 
 
 def test_graph_serving_device_gather(card):

@@ -279,6 +279,48 @@ def test_graph_warmup_once_and_zero_retraces(drained_engine):
     assert all(v >= 0 for v in s["host_ms"].values())
 
 
+#: the stats a warm-up leaves as a fresh engine has them
+_FRESH_STATS = ("steps", "served", "active", "queued", "slot_assignments",
+                "p50_ms", "p95_ms", "p99_ms", "throughput_rps",
+                "bucket_hits", "bucket_misses", "retraces", "host_ms")
+
+
+@pytest.mark.parametrize("tier", ["torch", "cuda"])
+def test_warmup_drives_the_request_path_uncounted(graph_setup, request,
+                                                  tier):
+    """``warmup()`` runs one template request per bucket through the path a
+    request takes (prepare, padding with the capacity layout, the gather,
+    the replay, the seed rows), drawing from an RNG of its own: the
+    engine's RNG state, its stats and ``retraces()`` stay as a fresh
+    engine's, one trace per bucket.  (``test_engine_matches_reference``
+    holds the frontiers served after a warm-up to the reference's.)"""
+    if tier == "cuda":
+        request.getfixturevalue("cuda_tier_on_cpu")
+    fresh = _engine(graph_setup, backend=tier)
+    eng = _engine(graph_setup, backend=tier)
+    seen = {"prepare": 0, "pad": 0, "seed_rows": 0}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            seen[name] += 1
+            return fn(*args, **kw)
+        return wrapped
+    eng.prepare = spy("prepare", eng.prepare)
+    eng._pad_into = spy("pad", eng._pad_into)
+    eng._seed_rows = spy("seed_rows", eng._seed_rows)
+    traces = eng.warmup()
+    n = len(eng.buckets)
+    assert seen == {"prepare": n, "pad": n, "seed_rows": n}
+    assert traces == {eng._bucket_name(b): 1 for b in eng.buckets}
+    assert eng.rng.bit_generator.state == fresh.rng.bit_generator.state
+    got, want = eng.stats(), fresh.stats()
+    assert {k: got[k] for k in _FRESH_STATS} == \
+        {k: want[k] for k in _FRESH_STATS}
+    assert eng.stage_ms == {} and eng.latencies_s == [] and \
+        eng.retraces() == 0
+    assert eng.warmup() == traces and seen["prepare"] == n   # once only
+
+
 def test_graph_latency_percentiles_monotone(drained_engine):
     eng, _, _ = drained_engine
     s = eng.stats()
