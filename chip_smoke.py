@@ -137,8 +137,30 @@ Phases, each printing its own lines; any failure exits non-zero:
                 largest bucket's compiled call and its x copy-in, the
                 device's busy ms and idle share over 10 profiled requests,
                 peak memory.
+ 13. distributed -- (right after phase 12) GCN inference on a LocalMesh
+                (every shard on this card): phase 4's gcn (602 -> 128 ->
+                41, its params) on full-width Reddit through
+                build_plan(mesh=...) -- LocalMesh((4,), ("data",)) with
+                allgather, ring none / pipelined / auto and ring pipelined
+                in bf16, and the 2-D plan on LocalMesh((4, 2), ("node",
+                "feat")), ring none and pipelined.  Each run: the logits in
+                the band of phase 4's f32 forward (bf16 3e-2), two calls
+                bit for bit, none bit for bit pipelined, K1's launches the
+                partition implies (layers x held shards x hops), the
+                mesh's counted bytes per layer equal to
+                schedule_wire_bytes (the instrumented run), CUDA-event ms
+                per forward beside phase 4's (median of DIST_ROUNDS), a
+                profiled window (device busy, K1 and copy ms, the copy
+                time beside a kernel, idle share; traces in
+                chiprun_out/traces/dist_*.json), peak memory.  K1's
+                bf16-in/f32-out entry over the bf16 run's 16 ring
+                sub-layouts at F = 128 and 41 against its plain version.
+                Then a fresh process (chip_smoke.py --dist-nccl) inits a
+                world-size-1 NCCL group from a FileStore and runs the plan
+                at P = 1 through a ProcessGroupMesh: bit for bit
+                LocalMesh((1,)), in the band of phase 4.
 
-The phases run in the order 1-4, 8, 9, 10, 11, 12, 5-7.  The last three
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 5-7.  The last three
 lines are nvidia-smi's name and power limit, one JSON object per kernel
 ({"kernels": [...]}) and the result line.  The full
 per-shape table is also written to chiprun_out/chip_smoke.json.
@@ -285,6 +307,21 @@ SERVE_REQUESTS, SERVE_ORACLE, SERVE_PROFILE, SERVE_MISS = 50, 8, 10, 96
 #: phase 12: served logits against a torch-tier plan on the same card,
 #: relative to the torch tier's largest magnitude
 SERVE_TOL = 1e-4
+#: phase 13's runs: (label, mesh shape, strategy, overlap, dtype)
+DIST_CASES = [("allgather", (4,), "allgather", "none", "f32"),
+              ("ring/none", (4,), "ring", "none", "f32"),
+              ("ring/pipelined", (4,), "ring", "pipelined", "f32"),
+              ("ring/auto", (4,), "ring", "auto", "f32"),
+              ("ring/pipelined bf16", (4,), "ring", "pipelined", "bf16"),
+              ("2d ring/none", (4, 2), "ring", "none", "f32"),
+              ("2d ring/pipelined", (4, 2), "ring", "pipelined", "f32")]
+#: phase 13: forwards each case's time is averaged over, in each of
+#: DIST_ROUNDS rounds (the median round is reported); forwards profiled
+DIST_REPS = 5
+DIST_ROUNDS = 3
+DIST_PROFILED = 3
+#: phase 13's world-size-1 NCCL process: the cases it runs at P = 1
+NCCL_CASES = [("allgather", "none"), ("ring", "none"), ("ring", "pipelined")]
 
 
 def fail(msg: str) -> None:
@@ -1916,6 +1953,401 @@ def drive_serve(g, x, spec) -> dict:
     return out
 
 
+def dist_expected_k1(plan) -> int:
+    """K1 launches of one forward of a distributed plan: a launch per held
+    shard a layer, P of them on the ring (one a hop)."""
+    node_ax = plan.axes[0] if plan.partition_kind == "2d" else plan.axis
+    hops = plan.mesh.axis_size(node_ax) if plan.strategy == "ring" else 1
+    return plan.num_layers * len(plan.mesh.coords) * hops
+
+
+def dist_wire(plan) -> list:
+    """``schedule_wire_bytes`` of each layer of a distributed plan."""
+    from repro_torch.core.distributed import schedule_wire_bytes
+    two_d = plan.partition_kind == "2d"
+    return [schedule_wire_bytes(
+        plan.partition, lp.din if lp.order == "aggregate_first" else lp.dout,
+        strategy=plan.strategy, overlap=plan.overlap, dtype=plan.dtype,
+        combine_out_len=lp.dout if two_d else None)["total_bytes"]
+        for lp in plan.layers]
+
+
+def dist_window(name: str, prof, wall_ms: float, n: int) -> dict:
+    """Per forward over a profiled window of ``n`` distributed forwards:
+    wall ms, the device's busy ms (the union of kernel and copy intervals
+    in the trace), K1's kernels' ms, the ring's copies' ms, the ms in
+    which a copy ran beside a kernel (the overlap the pipelined schedule
+    is for), kernels and copies, and the idle share.  The trace goes to
+    chiprun_out/traces/<name>.json."""
+    out_dir = ROOT / "chiprun_out" / "traces"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    events = events.get("traceEvents", events)
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    copy = [e for e in events if e.get("cat") == "gpu_memcpy"]
+
+    def union(evs):
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
+        total, end = 0.0, -1e300
+        for a, b in spans:
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    busy = union(kern + copy) / 1e3
+    k_ms, c_ms = union(kern) / 1e3, sum(e["dur"] for e in copy) / 1e3
+    k1 = sum(e["dur"] for e in kern
+             if "fold_kernel" in e.get("name", "")
+             or "row_starts_kernel" in e.get("name", "")) / 1e3
+    return {"n": n, "wall_ms": wall_ms / n, "device_busy_ms": busy / n,
+            "k1_ms": k1 / n, "copy_ms": c_ms / n,
+            "copy_beside_kernel_ms": (k_ms + union(copy) / 1e3 - busy) / n,
+            "kernels": len(kern) / n, "copies": len(copy) / n,
+            "idle_share": 1 - busy / wall_ms}
+
+
+def check_k1_bf16_f32(plan) -> list:
+    """K1's bf16-in/f32-out entry at phase 13's bf16 shapes: each of the
+    plan's 16 ring sub-layouts (shard p, owner o) over a random bf16 slab
+    of a block's rows, F = 128 (layer 0's exchange) and 41 (layer 1's),
+    against its plain version (the f32 fold of the same rows): the f32
+    band and ROW_LIMIT a row, a repeat launch bit for bit.  Times summed
+    over the 16 launches (one layer's halo sums), beside their bound and
+    torch.sparse.mm on each sub-layout's bf16 CSR matrix (bf16 output: the
+    same sums rounded once).  Returns one record per F."""
+    import torch
+    from repro_torch.kernels import seg_agg as k1
+    pg = plan.partition
+    block, nsh = pg.block_size, pg.num_shards
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    f32 = torch.float32
+    records = []
+    for f in (128, 41):
+        x = torch.randn((block, f), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+               "slots": 0}
+        err = row = fro = 0.0
+        tol, same, lib_err, lib_note = 0.0, True, 0.0, None
+        for p in range(nsh):
+            src, dstl = pg.shard_edges(p)
+            for o, lay in enumerate(plan.shard_layouts[p]):
+                args = (x, lay.src, lay.dstl, lay.mask, None)
+                kern = lambda: k1.seg_agg(  # noqa: E731
+                    *args, tile_m=lay.tile_m, out_dtype=f32)
+                plain = lambda: k1.seg_agg_plain(  # noqa: E731
+                    *args, tile_m=lay.tile_m, out_dtype=f32)
+                out_k, out_p = kern(), plain()
+                torch.cuda.synchronize()
+                e = (out_k - out_p).abs().max().item()
+                t = F32_BAND * SCALE * max(1.0, out_p.abs().max().item())
+                r, fr = rel_errs(out_k, out_p)
+                if not (bool(torch.isfinite(out_k).all().item())
+                        and out_k.dtype == f32 and e <= t
+                        and r <= ROW_LIMIT["float32"]):
+                    fail(f"seg_agg_bf16_f32 F={f} sub-layout ({p}, {o}): "
+                         f"kernel and plain version differ by {e:.3e} "
+                         f"(tolerance {t:.3e}) or a row by {r:.3e}")
+                same = same and torch.equal(out_k, kern())
+                err, row, fro, tol = max(err, e), max(row, r), max(fro, fr), \
+                    max(tol, t)
+                # the same sums by a library call: a bf16 CSR matrix of the
+                # sub-layout's edges times the slab
+                sel = (src // block) == o
+                cnt = torch.bincount(torch.from_numpy(dstl[sel]),
+                                     minlength=block)
+                crow = torch.zeros(block + 1, dtype=torch.int64)
+                crow[1:] = torch.cumsum(cnt, 0)
+                adj = torch.sparse_csr_tensor(
+                    crow.cuda(), torch.from_numpy(src[sel] - o * block).cuda(),
+                    torch.ones(int(sel.sum()), device="cuda",
+                               dtype=torch.bfloat16), size=(block, block))
+                if lib_note is None:
+                    try:      # a yardstick only: nothing in the port calls it
+                        lib = torch.sparse.mm(adj, x)
+                        lib_err = max(lib_err, (lib.float() - out_p[:block])
+                                      .abs().max().item())
+                        tot["library_ms"] += time_ms(
+                            lambda: torch.sparse.mm(adj, x), 10)
+                        del lib
+                    except RuntimeError as e:
+                        lib_note = f"none: torch.sparse.mm on a bf16 CSR " \
+                            f"matrix raised {str(e).splitlines()[0][:120]}"
+                tot["ms"] += time_ms(kern, 10)
+                tot["plain_ms"] += time_ms(plain, 2)
+                slots = int(lay.mask.sum().item())
+                tot["slots"] += slots
+                tot["bytes"] += x.numel() * 2 + lay.nblocks * lay.tile_m * f \
+                    * 4 + 3 * lay.src.numel() * 4
+                del out_k, out_p, adj
+        if not same:
+            fail(f"seg_agg_bf16_f32 F={f}: two launches on the same input "
+                 f"differ")
+        lib_tol = BF16_BAND * max(1.0, tol / (F32_BAND * SCALE))
+        if lib_note is None:
+            lib_note = f"torch.sparse.mm, bf16 CSR (bf16 out), max_abs_err " \
+                f"{lib_err:.3e}" if lib_err <= lib_tol else \
+                f"none: torch.sparse.mm differs by {lib_err:.3e}"
+        lib_ok = lib_note.startswith("torch")
+        b_ms, b_by = bound(tot["bytes"], tot["slots"] * f)
+        rec = {"name": "seg_agg_bf16_f32", "graph": "reddit", "f_in": f,
+               "f_out": f, "layouts": nsh * nsh, "rows": block,
+               "slots": tot["slots"], "max_abs_err": err, "tol": tol,
+               "row_rel_err": row, "fro_rel_err": fro, "repeat_equal": same,
+               "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+               "bytes": tot["bytes"], "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": tot["library_ms"] if lib_ok else None,
+               "library": lib_note}
+        rec.update(ratios(rec))
+        records.append(rec)
+        print(f"[dist] seg_agg_bf16_f32 F={f}: {nsh * nsh} ring sub-layouts "
+              f"of {block} rows, {tot['slots']} slots: max_abs_err="
+              f"{err:.3e} tol={tol:.3e} row_rel_err={row:.3e} (limit "
+              f"{ROW_LIMIT['float32']:.0e}) fro_rel_err={fro:.3e} "
+              f"repeat_equal={same} ms={tot['ms']:.4f} plain_ms="
+              f"{tot['plain_ms']:.4f} library_ms={rec['library_ms']} "
+              f"[{rec['library']}] bound_ms={b_ms:.4f} ({b_by}; "
+              f"{tot['bytes']} B) frac_of_bound={rec['frac_of_bound']:.4f}",
+              flush=True)
+        del x
+    return records
+
+
+def drive_distributed(g, x, spec, ref, local_ms: float) -> dict:
+    """Phase 13: phase 4's gcn through distributed plans on LocalMeshes of
+    this card (DIST_CASES), then the world-size-1 NCCL process (see the
+    module docstring).  ``ref`` is phase 4's f32 logits of the same model,
+    ``local_ms`` its forward time."""
+    import torch
+    from repro_torch.core.characterize import collective_bytes
+    from repro_torch.core.distributed import LocalMesh
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.gcn import make_paper_model
+    from torch.profiler import ProfilerActivity, profile
+
+    m = make_paper_model("gcn", spec, backend="auto", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    meshes = {(4,): LocalMesh((4,), ("data",)),
+              (4, 2): LocalMesh((4, 2), ("node", "feat"))}
+    keep, runs, k1_recs, launches_bf16_f32 = {}, {}, [], None
+    for label, shape, strategy, overlap, dtype in DIST_CASES:
+        mesh = meshes[shape]
+        t0 = time.perf_counter()
+        plan = m.plan_for(g, mesh=mesh, strategy=strategy, overlap=overlap,
+                          dtype=dtype)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        mesh.reset_counts()
+        with torch.inference_mode():
+            out = m(g, x, plan=plan)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        counted = collective_bytes(mesh)
+        peak = torch.cuda.max_memory_allocated() - base
+        want_k1 = dist_expected_k1(plan)
+        wire = dist_wire(plan)
+        if dtype == "bf16":
+            launches_bf16_f32 = counts["seg_agg_bf16_f32"]
+            want_counts = (want_k1, want_k1, 0)
+        else:
+            want_counts = (want_k1, 0, 0)
+        got_counts = (counts["seg_agg"], counts["seg_agg_bf16_f32"],
+                      counts["fused_agg_combine"])
+        if got_counts != want_counts:
+            fail(f"{label}: launches (seg_agg, seg_agg_bf16_f32, "
+                 f"fused_agg_combine) {got_counts}, expected {want_counts}")
+        if counted["total"] != sum(wire):
+            fail(f"{label}: the mesh counted {counted['total']} B a shard, "
+                 f"the schedule moves {sum(wire)}")
+        with torch.inference_mode():
+            again = m(g, x, plan=plan)
+        same = torch.equal(out, again)
+        del again
+        if tuple(out.shape) != tuple(ref.shape) or \
+                not bool(torch.isfinite(out).all().item()):
+            fail(f"{label}: logits {tuple(out.shape)} not finite or of the "
+                 f"wrong shape")
+        if dtype == "bf16":
+            err = (out.float() - ref).abs().max().item()
+            tol = BF16_BAND * max(1.0, ref.abs().max().item())
+        else:
+            err, tol = max_err(out, ref)
+        with torch.inference_mode():
+            rounds = sorted(time_ms(lambda: m(g, x, plan=plan), DIST_REPS)
+                            for _ in range(DIST_ROUNDS))
+            ms = rounds[DIST_ROUNDS // 2]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                for _ in range(DIST_PROFILED):
+                    m(g, x, plan=plan)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+        win = dist_window("dist_" + label.replace("/", "_").replace(" ", "_"),
+                          prof, wall, DIST_PROFILED)
+        # per layer: the probe raises unless the mesh counted what the
+        # schedule moves
+        rep = plan.instrument().run_model(m.tree(), x).validate()
+        if rep.mismatches(plan):
+            fail(f"{label}: describe() against the records: "
+                 f"{rep.mismatches(plan)}")
+        layer_ms = [r.wall_time_s * 1e3 for r in rep.records]
+        runs[label] = {
+            "mesh": list(shape), "strategy": strategy,
+            "overlap": plan.overlap, "dtype": dtype,
+            "orders": [lp.order for lp in plan.layers],
+            "block": plan._node_partition.block_size,
+            "build_s": build_s, "k1_launches": counts["seg_agg"],
+            "counted_bytes": counted, "wire_per_layer": wire,
+            "halo_bytes": [r.collective_bytes for r in rep.records],
+            "exposed_s": [r.exposed_collective_time for r in rep.records],
+            "overlapped_s": [r.overlapped_collective_time
+                             for r in rep.records],
+            "max_abs_err": err, "tol": tol, "repeat_equal": same,
+            "ms": ms, "ms_rounds": rounds, "vs_local": ms / local_ms,
+            "layer_ms_synced": layer_ms, "peak_bytes": peak,
+            "profiled": win}
+        print(f"[dist] {label:20s} mesh={shape} overlap={plan.overlap} "
+              f"orders={runs[label]['orders']} block={runs[label]['block']} "
+              f"build {build_s:.1f} s; K1 {counts['seg_agg']} launches "
+              f"(bf16->f32 {counts['seg_agg_bf16_f32']}); counted "
+              f"{counted['total']} B a shard = schedule {wire}; logits vs "
+              f"phase 4 max_abs_err={err:.3e} tol={tol:.3e}; repeat_equal="
+              f"{same}; forward {ms:.3f} ms ({ms / local_ms:.2f}x phase 4's "
+              f"{local_ms:.3f}; rounds {['%.3f' % t for t in rounds]}); "
+              f"layers synced {['%.3f' % t for t in layer_ms]} ms; peak "
+              f"{peak / 2**30:.3f} GiB above the inputs", flush=True)
+        print(f"[dist] {label:20s} profiled {DIST_PROFILED} forwards: wall "
+              f"{win['wall_ms']:.3f} ms, device busy "
+              f"{win['device_busy_ms']:.3f} (K1 {win['k1_ms']:.3f}, copies {win['copy_ms']:.3f}, a copy "
+              f"beside a kernel {win['copy_beside_kernel_ms']:.3f}), "
+              f"{win['kernels']:.0f} kernels and {win['copies']:.0f} copies a "
+              f"forward, idle {win['idle_share']:.3f}", flush=True)
+        if err > tol or not same:
+            fail(f"{label}: logits off phase 4's by {err:.3e} (tolerance "
+                 f"{tol:.3e}) or two calls differ")
+        if label in ("ring/none", "2d ring/none"):
+            keep[label] = out
+        elif label in ("ring/pipelined", "2d ring/pipelined"):
+            twin = keep.pop(label.replace("pipelined", "none"))
+            if not torch.equal(out, twin):
+                fail(f"{label}: not bit for bit the single-buffered ring")
+            print(f"[dist] {label}: bit for bit the single-buffered ring",
+                  flush=True)
+            del twin
+        if dtype == "bf16":
+            k1_recs = check_k1_bf16_f32(plan)
+        del out, plan, rep
+        torch.cuda.empty_cache()
+    if runs["ring/auto"]["overlap"] != "pipelined":
+        fail(f"ring/auto resolved to {runs['ring/auto']['overlap']}; "
+             f"choose_overlap on the H100 preset prices pipelined")
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+    nccl = check_dist_nccl(ref)
+    return {"runs": runs, "k1_bf16_f32": k1_recs, "nccl": nccl,
+            "launches_bf16_f32": launches_bf16_f32}
+
+
+def check_dist_nccl(ref) -> dict:
+    """Phase 13's fresh process: ``chip_smoke.py --dist-nccl`` (a
+    world-size-1 NCCL group, the plan at P = 1 on a ProcessGroupMesh
+    against LocalMesh((1,)) bit for bit); its logits against phase 4's in
+    the f32 band."""
+    import torch
+    out_dir = ROOT / "build" / "dist"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dist-nccl", str(out_dir)], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith("[nccl]"):
+            print(line, flush=True)
+    if proc.returncode != 0:
+        fail(f"--dist-nccl exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in res["cases"]:
+        got = torch.load(out_dir / f"{name}.pt").cuda()
+        err, tol = max_err(got, ref)
+        res["cases"][name].update(max_abs_err_phase4=err, tol=tol)
+        print(f"[dist] nccl P=1 {name}: ProcessGroupMesh bit for bit "
+              f"LocalMesh((1,)); vs phase 4 max_abs_err={err:.3e} "
+              f"tol={tol:.3e}", flush=True)
+        if err > tol:
+            fail(f"nccl P=1 {name}: logits off phase 4's by {err:.3e}")
+    res["wall_s"] = wall
+    print(f"[dist] the NCCL process took {wall:.1f} s", flush=True)
+    return res
+
+
+def dist_nccl(out_dir: str) -> None:
+    """``chip_smoke.py --dist-nccl DIR``: a world-size-1 NCCL group from a
+    FileStore (no network), phase 4's gcn on Reddit through a
+    ProcessGroupMesh((1,)) plan per NCCL_CASES, each bit for bit a
+    LocalMesh((1,)) plan's and its counted bytes as scheduled (plus the
+    logits' gather at egress).  Saves each PG plan's logits to DIR and
+    prints one JSON line last."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.distributed import LocalMesh, ProcessGroupMesh
+    from repro_torch.graph.datasets import load_dataset
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.gcn import make_paper_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = Path(out_dir) / "store"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    init_s = time.perf_counter() - t0
+    g, x, _, spec = load_dataset("reddit", seed=SEED, device="cuda")
+    m = make_paper_model("gcn", spec, backend="auto", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    pgm = ProcessGroupMesh((1,), ("data",), device="cuda")
+    local = LocalMesh((1,), ("data",), device="cuda")
+    cases = {}
+    for strategy, overlap in NCCL_CASES:
+        name = f"{strategy}-{overlap}"
+        plan = m.plan_for(g, mesh=pgm, strategy=strategy, overlap=overlap)
+        reset_launch_counts()
+        pgm.reset_counts()
+        with torch.inference_mode():
+            out = m(g, x, plan=plan)
+            torch.cuda.synchronize()
+            k1n = launch_counts()["seg_agg"]
+            counted = pgm.collective_bytes()["total"]
+            want = m(g, x, plan=m.plan_for(g, mesh=local, strategy=strategy,
+                                           overlap=overlap))
+        egress = out.numel() * out.element_size()
+        sched = sum(dist_wire(plan)) + egress
+        same = torch.equal(out, want)
+        print(f"[nccl] {name}: K1 {k1n} launches, counted {counted} B = "
+              f"schedule + egress {sched}; bit for bit LocalMesh((1,)) "
+              f"{same}", flush=True)
+        if not same or counted != sched or k1n != dist_expected_k1(plan):
+            fail(f"nccl {name}: bitwise={same}, counted {counted} against "
+                 f"{sched}, K1 {k1n} against {dist_expected_k1(plan)}")
+        torch.save(out.cpu(), Path(out_dir) / f"{name}.pt")
+        cases[name] = {"bitwise_local": same, "counted": counted,
+                       "k1_launches": k1n}
+    dist.destroy_process_group()
+    print(json.dumps({"backend": "nccl", "world_size": 1, "init_s": init_s,
+                      "cases": cases}))
+
+
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
     """(query, key) pairs K5 must compute: summed over the batch, the keys
     each query row may see (right-aligned positions, as the kernel)."""
@@ -2498,6 +2930,7 @@ def main() -> None:
              f"unfused layer runs seg_agg once, every fused layer runs "
              f"fused_agg_combine once")
     forwards = {}
+    ref13 = logits[("gcn", False)]     # phase 13's yardstick
     with torch.inference_mode():
         for (name, fused), m in models.items():
             out = logits[(name, fused)]
@@ -2554,7 +2987,15 @@ def main() -> None:
     t0 = time.perf_counter()
     serve = drive_serve(g_red, x_red, spec_red)
     print(f"[serve] phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    del g_red, x_red, y_red
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+
+    # -- 13. distributed inference on LocalMeshes of this card
+    t0 = time.perf_counter()
+    dist13 = drive_distributed(g_red, x_red, spec_red, ref13,
+                               forwards["gcn_unfused"])
+    print(f"[dist] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    del g_red, x_red, y_red, ref13
     clear_plan_cache()
     torch.cuda.empty_cache()
 
@@ -2579,7 +3020,8 @@ def main() -> None:
          "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
-         "train": train, "serve": serve, "long_rows": long_rows},
+         "train": train, "serve": serve, "long_rows": long_rows,
+         "distributed": dist13},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;
@@ -2622,6 +3064,19 @@ def main() -> None:
         "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         "frac_of_bound": rec["frac_of_bound"],
         "vs_library": rec["vs_library"]})
+    # K1 over bf16 x with an f32 output at F = 128, summed over the 16 ring
+    # sub-layouts (one layer's halo sums): its launches are phase 13's bf16
+    # forward's
+    rec = dist13["k1_bf16_f32"][0]
+    kernels.append({
+        "name": "seg_agg_bf16_f32", "route": "cuda", "source": k1_src[0],
+        "replaces": k1_src[1], "launches": dist13["launches_bf16_f32"],
+        "max_abs_err": max(r["max_abs_err"] for r in dist13["k1_bf16_f32"]),
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+        "frac_of_bound": rec["frac_of_bound"],
+        "vs_library": rec["vs_library"]})
     # K5's two paths at shape (a): bf16 (wgmma_kernel) launched by phase 6,
     # f32 (tf32x3_kernel) by phase 7
     for dtype, launches in (("bfloat16", lm["launches"]),
@@ -2649,7 +3104,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--serve-fresh"]:
+    if sys.argv[1:2] == ["--dist-nccl"]:
+        import torch
+        if not (torch.cuda.is_available()
+                and (ROOT / "src" / "repro_torch").is_dir()):
+            fail("--dist-nccl needs a card and a checkout")
+        dist_nccl(sys.argv[2])
+    elif sys.argv[1:2] == ["--serve-fresh"]:
         import torch
         if not (torch.cuda.is_available()
                 and (ROOT / "src" / "repro_torch").is_dir()):

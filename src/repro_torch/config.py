@@ -199,7 +199,7 @@ class TrainConfig:
     """What ``train.trainer.Trainer`` reads (``TrainConfig``, :330): the
     step count, logging and checkpoint cadence, where checkpoints go and
     how many are kept.  The mesh, remat and microbatch fields are not
-    ported (distributed training is ROADMAP item 11)."""
+    ported (distributed training is ROADMAP item 11b)."""
 
     model: str
     shape: str = "train_4k"

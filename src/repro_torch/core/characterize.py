@@ -6,12 +6,14 @@
   * ``Roofline`` / ``roofline`` -- the three terms (compute, memory,
     collective) of a step against one ``Machine``;
   * ``phase_report`` -- each phase's arithmetic intensity classified
-    against the paper's V100 balance and against a ``Machine``.
+    against the paper's V100 balance and against a ``Machine``;
+  * ``collective_bytes`` -- the bytes a distributed plan's collectives
+    moved, per shard.  The reference sums operand bytes of the
+    collectives in compiled XLA HLO (:59); the port counts them in its
+    own collectives (``core.distributed.Mesh``), under the same keys.
 
-Only this half is ported.  The reference's other half reads costs out of
-compiled XLA HLO (``collective_bytes``, ``cost_from_compiled``,
-``cost_of``) for its dry run and distributed execution, which the port
-does not have yet.  The default machine is ``H100``.
+The reference's HLO cost extraction (``cost_from_compiled``, ``cost_of``)
+for its dry run is not ported.  The default machine is ``H100``.
 """
 
 from __future__ import annotations
@@ -81,6 +83,17 @@ class Roofline:
             "roofline_fraction": self.roofline_fraction,
             "machine": self.machine.name,
         }
+
+
+def collective_bytes(mesh) -> Dict[str, Any]:
+    """``{collective: bytes, ..., "total": bytes, "counts": {collective:
+    calls}}`` one shard's collectives moved since ``mesh.reset_counts()``
+    (``collective_bytes``, :59): the operand each takes in, counted by the
+    mesh (``core.distributed.Mesh.collective_bytes``), keyed by the
+    reference's HLO names ("all-gather", "reduce-scatter",
+    "collective-permute", ...).  A plan's layer moves what
+    ``core.distributed.schedule_wire_bytes`` prices for it."""
+    return mesh.collective_bytes()
 
 
 def roofline(cost: StepCost, chips: int, model_flops: float = 0.0,

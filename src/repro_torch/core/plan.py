@@ -28,9 +28,16 @@ Decided ONCE per (graph, model, machine) and replayed on every forward:
   * **Compiled execution.**  ``plan.compile()`` is the forward as a
     ``CompiledPlan``: on a card one CUDA graph per input signature, on the
     CPU the eager forward under the same caching and retrace guard.
+  * **Shard partition.**  ``mesh=`` (a ``core.distributed`` ``LocalMesh``
+    or ``ProcessGroupMesh``) plans distributed execution: one named axis
+    gives the 1-D vertex partition (``graph.partition.partition_1d``), two
+    (node, feature) the 2-D one (``partition_2d``); the layers run through
+    ``core.distributed``'s ring or all-gather halo with each shard's sums
+    in K1 (``strategy=``, the ring's ``overlap=`` schedule, "auto" priced
+    by ``choose_overlap``).  Distributed forwards are inference only, and
+    ``compile()`` of a distributed plan raises (ROADMAP item 11b).
 
-The port plans local execution: ``mesh=`` (distributed execution) raises
-``NotImplementedError``; nothing is silently ignored.  A bucket plan (the
+A bucket plan (the
 minibatch trainer's) dispatches runtime graphs, each bringing its own
 edge arrays, its dedup arrays (``dedup_pad=``) and, on the cuda tier, its
 host-built blocked layouts (``runtime_layout``, passed beside the graph),
@@ -69,6 +76,7 @@ from repro_torch.core.dataflow import (BlockedGraph, block_graph,
                                        suggest_tile_m)
 from repro_torch.core.scheduler import (AGGREGATE_FIRST, COMBINE_FIRST,
                                         choose_ordering, ordering_cost)
+from repro_torch.graph.partition import Partition2D
 from repro_torch.graph.structure import Graph
 from repro_torch.profile.machine import Machine, get_machine
 
@@ -114,11 +122,23 @@ class GraphExecutionPlan:
     def __init__(self, g: Graph, layers: Sequence[LayerPlan], *,
                  machine: Machine, reorder: str = "none", perm=None,
                  dtype: str = "f32", dedup: str = "none",
-                 dedup_layout=None, dedup_pad: Optional[tuple] = None):
+                 dedup_layout=None, dedup_pad: Optional[tuple] = None,
+                 mesh=None, partition=None, strategy: str = "ring",
+                 axis: str = "data", axes: Tuple[str, str] = ("node", "feat"),
+                 overlap: str = "none", shard_layouts=None):
         self.g = g                   # the execution graph (renumbered when
                                      # reorder="degree")
         self.layers: Tuple[LayerPlan, ...] = tuple(layers)
         self.machine = machine
+        self.mesh = mesh
+        self.partition = partition   # None | PartitionedGraph | Partition2D
+        self.strategy = strategy     # "ring" | "allgather"
+        self.axis = axis             # 1-D partition: the mesh's one axis
+        self.axes = axes             # 2-D partition: (node, feature) axes
+        self.overlap = overlap       # "none" | "pipelined" (resolved)
+        #: K1's layouts of the held node shards (core.distributed
+        #: .shard_layouts), shared by every layer
+        self.shard_layouts = shard_layouts
         self.reorder = reorder       # "none" | "degree" (resolved)
         self.dtype = dtype           # "f32" | "bf16" | "int8-agg" (resolved)
         self.dedup = dedup           # "none" | "pairs" (resolved; never
@@ -146,6 +166,23 @@ class GraphExecutionPlan:
     @property
     def device(self) -> torch.device:
         return self.g.device
+
+    @property
+    def distributed(self) -> bool:
+        return self.partition is not None
+
+    @property
+    def partition_kind(self) -> str:
+        """"none" | "1d" | "2d": which shard partition the plan owns."""
+        if self.partition is None:
+            return "none"
+        return "2d" if isinstance(self.partition, Partition2D) else "1d"
+
+    @property
+    def _node_partition(self):
+        """The node partition (a 2-D partition's ``nodes``)."""
+        return self.partition.nodes if self.partition_kind == "2d" \
+            else self.partition
 
     @property
     def agg_tile(self) -> int:
@@ -201,10 +238,12 @@ class GraphExecutionPlan:
     def compile_supported(self) -> bool:
         """True when every ``cuda`` layer owns its plan-built blocked
         layout, so the forward does no host work and can be captured.
-        Plans built by the public entry points always qualify; False only
-        for hand-built plans missing ``agg_layout``."""
-        return all(lp.backend != CUDA or lp.agg_layout is not None
-                   for lp in self.layers)
+        Local plans built by the public entry points always qualify;
+        False for hand-built plans missing ``agg_layout`` and for
+        distributed plans, whose ``compile()`` is not ported."""
+        return not self.distributed and all(
+            lp.backend != CUDA or lp.agg_layout is not None
+            for lp in self.layers)
 
     @staticmethod
     def _split_params(lp: LayerPlan, params: Dict):
@@ -232,9 +271,17 @@ class GraphExecutionPlan:
         ``dedup_layout`` likewise replaces the plan's own two-level layout,
         which never applies to an overriding graph.  A cuda-tier layer
         whose result needs a gradient runs over the plan's layouts with
-        their transposed ones (``with_transposed``)."""
+        their transposed ones (``with_transposed``).  On a distributed
+        plan ``x`` is the padded partition layout (``_ingress``) and so is
+        the result."""
         lp = self.layers[layer]
         weights, bias_post = self._split_params(lp, params)
+        if self.distributed:
+            if graph is not None or dedup_layout is not None:
+                self._check_dynamic_ok()
+            shards = self._run_distributed(lp, self._split(x), weights,
+                                           bias_post, probe=_probe)
+            return self._assemble(shards)
         if graph is None and dedup_layout is None and \
                 self.dedup_pad is not None:
             raise ValueError(
@@ -265,9 +312,8 @@ class GraphExecutionPlan:
                               weights, bias_post=bias_post, probe=_probe,
                               dtype=self.dtype, dedup=dedup, layout=layout)
 
-    def _ingress(self, x: torch.Tensor, *, _probe=None) -> torch.Tensor:
-        """Natural (V, F) features -> the execution layout: the planned
-        renumbering, ``x_new = x[inv]`` (``_ingress``, :253)."""
+    def _permute_in(self, x: torch.Tensor, *, _probe=None) -> torch.Tensor:
+        """The planned renumbering, ``x_new = x[inv]``."""
         if self.inv is None:
             return x
         if x.shape[0] != self.g.num_vertices:
@@ -278,10 +324,51 @@ class GraphExecutionPlan:
             _probe.note_reorder()
         return x[self.inv]
 
+    def _ingress(self, x: torch.Tensor, *, _probe=None) -> torch.Tensor:
+        """Natural (V, F) features -> the execution layout: the planned
+        renumbering, then on a distributed plan the partition padding
+        (rows; on a 2-D partition feature columns too) (``_ingress``,
+        :251)."""
+        x = self._permute_in(x, _probe=_probe)
+        if self.distributed and x.shape[0] == self.g.num_vertices:
+            from repro_torch.core import distributed as dist
+            if self.partition_kind == "2d":
+                return dist.pad_features_2d(x, self.partition)
+            return dist.pad_features(x, self.partition.block_size,
+                                     self.partition.num_shards)
+        return x
+
     def _egress(self, h: torch.Tensor) -> torch.Tensor:
-        """Execution layout -> natural order: ``out_old = h[perm]``
-        (``_egress``, :271)."""
+        """Execution layout -> natural order: the partition padding
+        trimmed, then ``out_old = h[perm]`` (``_egress``, :274)."""
+        if self.distributed:
+            h = h[:self.g.num_vertices]
+            if self.partition_kind == "2d":
+                h = h[:, :self.layers[-1].dout]
         return h if self.perm is None else h[self.perm]
+
+    def _dist_axes(self):
+        """(node axis, feature axis or None) of the plan's mesh."""
+        if self.partition_kind == "2d":
+            return self.axes[0], self.axes[1]
+        return self.axis, None
+
+    def _split(self, x: torch.Tensor) -> list:
+        """The held shards' slabs of ``x`` (natural or padded layout)."""
+        from repro_torch.core.distributed import split_shards
+        node_ax, feat_ax = self._dist_axes()
+        # natural F columns or the padded Q * fb: either way fb columns
+        fb = self.partition.feature_block(x.shape[1]) if feat_ax else None
+        return split_shards(self.mesh, x, self._node_partition.block_size,
+                            node_axis=node_ax, feat_axis=feat_ax,
+                            feature_block=fb)
+
+    def _assemble(self, shards) -> torch.Tensor:
+        """The padded global tensor of every shard's slab."""
+        from repro_torch.core.distributed import assemble_shards
+        node_ax, feat_ax = self._dist_axes()
+        return assemble_shards(self.mesh, shards, node_axis=node_ax,
+                               feat_axis=feat_ax)
 
     def run_model(self, params: Dict, x: torch.Tensor, *, _probe=None,
                   compiled: bool = False, graph: Optional[Graph] = None,
@@ -300,7 +387,10 @@ class GraphExecutionPlan:
         (``graph_layout``, ``runtime_layout``) and a dedup plan that
         graph's own ``dedup_layout``.  A plan built with ``dedup_pad=``
         serves runtime dispatch only.  The eager forward is differentiable
-        on both tiers (K1's backward on the cuda tier).
+        on both tiers (K1's backward on the cuda tier).  A distributed
+        plan splits ``x`` into its shards' slabs, runs every layer over
+        them and assembles the logits (a process group gathers them on
+        every rank); it is inference only.
         """
         if compiled:
             if _probe is not None:
@@ -320,6 +410,17 @@ class GraphExecutionPlan:
                     "this plan's dedup='pairs' layout was matched on its own "
                     "graph; dispatch over a substitute graph needs that "
                     "graph's layout (dedup_layout=)")
+        if self.distributed:
+            shards = self._split(self._permute_in(x, _probe=_probe))
+            for i in range(self.num_layers):
+                lp = self.layers[i]
+                weights, bias_post = self._split_params(
+                    lp, params[f"conv{i}"])
+                shards = self._run_distributed(lp, shards, weights,
+                                               bias_post, probe=_probe)
+                if i < self.num_layers - 1:
+                    shards = [torch.relu(s) for s in shards]
+            return self._egress(self._assemble(shards))
         h = self._ingress(x, _probe=_probe)
         for i in range(self.num_layers):
             h = self.run_layer(params[f"conv{i}"], h, layer=i, _probe=_probe,
@@ -337,6 +438,8 @@ class GraphExecutionPlan:
         reordered plan over a permutation of it, so they are refused
         (``_check_dynamic_ok``, :334)."""
         problems = []
+        if self.distributed:
+            problems.append("partitioned plans bake edge-derived shards")
         if self.perm is not None:
             problems.append("the plan is reordered (an edge-derived "
                             "permutation of its own graph)")
@@ -391,6 +494,10 @@ class GraphExecutionPlan:
             >>> fwd.num_traces, fwd.num_replays
             (1, 1)
         """
+        if self.distributed:
+            raise NotImplementedError(
+                "compile() of a distributed plan is not ported yet (ROADMAP "
+                "item 11b); run it eagerly with plan.run_model")
         if not self.compile_supported:
             raise ValueError(
                 "plan.compile() needs every cuda layer to own its plan-built "
@@ -432,6 +539,48 @@ class GraphExecutionPlan:
                            dtype=self.dtype, dedup=self.dedup_layout)
         return self._egress(h)
 
+    def _run_distributed(self, lp: LayerPlan, shards, weights, bias_post, *,
+                         probe=None) -> list:
+        """One layer over the held shards' slabs (``_run_distributed``,
+        :457): the 1-D or 2-D layer of ``core.distributed`` with the plan's
+        strategy, schedule and dtype, each shard's sums in K1 over the
+        plan's shard layouts."""
+        from repro_torch.core import distributed as dist
+        (w, b_inline), = weights  # build_plan admits single-matmul layers
+        bias = bias_post if bias_post is not None else b_inline
+        if bias is None:
+            bias = torch.zeros((w.shape[1],), dtype=w.dtype, device=w.device)
+        dist._check_no_grad(w, bias, *shards)
+        node_ax, feat_ax = self._dist_axes()
+        pg = self._node_partition
+        rdeg = dist._rdeg(self.g.in_deg, shards[0].dtype,
+                          pg.block_size * pg.num_shards)
+        rdegs = dist.split_shards(self.mesh, rdeg, pg.block_size,
+                                  node_axis=node_ax)
+        lays = dist._held_layouts(self.mesh, self.shard_layouts, node_ax)
+        kw = dict(order=lp.order, strategy=self.strategy,
+                  overlap=self.overlap, dtype=self.dtype,
+                  backend=lp.backend)
+        if feat_ax is not None:
+            thunk = lambda: dist.gcn_layer_2d_shards(  # noqa: E731
+                self.mesh, shards, w, bias, rdegs, lays, p2=self.partition,
+                axes=self.axes, **kw)
+        else:
+            thunk = lambda: dist.gcn_layer_shards(  # noqa: E731
+                self.mesh, shards, w, bias, rdegs, lays, axis=self.axis,
+                **kw)
+        # the width the exchange moves under this ordering; the schedule
+        # rides along so the probe prices what dispatched; a reduced
+        # plan's quantization error is the layer input's
+        agg_len = lp.din if lp.order == AGGREGATE_FIRST else lp.dout
+        qerr = 0.0
+        if probe is not None and self.dtype != "f32":
+            qerr = max(_quant_err(s, dist._reduce_wire(s, self.dtype))
+                       for s in shards)
+        return _phase(probe, "distributed", thunk, lp=lp,
+                      feature_len=agg_len, overlap=self.overlap,
+                      quant_error=qerr)
+
     def instrument(self, machine=None, warmup: int = 0):
         """Wrap this plan for characterization (``instrument``, :488).
 
@@ -451,12 +600,12 @@ class GraphExecutionPlan:
 
     def describe(self) -> List[Dict]:
         """One dict per layer: every planned decision + modeled agg cost.
-        The keys are the reference's: ``dtype``/``reorder``/``dedup`` are
-        the resolved decisions (never "auto");
-        ``interpret``/``distributed``/``partition``/``overlap`` state the
-        only values the port takes, and ``compiled`` whether
-        ``plan.compile()`` works (always, for plans built by the public
-        entry points)."""
+        The keys are the reference's: ``dtype``/``reorder``/``dedup``/
+        ``overlap`` are the resolved decisions (never "auto"),
+        ``distributed``/``partition`` the shard partition, ``interpret``
+        is always False, and ``compiled`` whether ``plan.compile()`` works
+        (always for local plans built by the public entry points, never
+        for distributed ones)."""
         out = []
         compiled_ok = self.compile_supported
         for lp in self.layers:
@@ -466,8 +615,8 @@ class GraphExecutionPlan:
                 "din": lp.din, "dout": lp.dout,
                 "order": lp.order, "backend": lp.backend,
                 "fused": lp.fused, "tile_m": lp.tile_m,
-                "interpret": False, "distributed": False,
-                "partition": "none", "overlap": "none",
+                "interpret": False, "distributed": self.distributed,
+                "partition": self.partition_kind, "overlap": self.overlap,
                 "dtype": self.dtype, "reorder": self.reorder,
                 "compiled": compiled_ok, "dedup": self.dedup,
                 "agg_bytes": oc.agg_bytes, "agg_flops": oc.agg_flops,
@@ -926,6 +1075,8 @@ def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
 _PLAN_CACHE: Dict = {}      # (graph_key, spec_key) -> (src_ref, plan)
 _BLOCKED_CACHE: Dict = {}   # (graph_key, tile_m)   -> (src_ref, BlockedGraph)
 _REORDER_CACHE: Dict = {}   # graph_key -> (src_ref, reordered Graph, perm)
+#: (graph_key, shards, strategy, held nodes, device) -> (src_ref, layouts)
+_SHARD_CACHE: Dict = {}
 _CACHE_LIMIT = 64
 
 #: hits/misses count ``_cached_plan`` lookups; evictions count entries
@@ -943,8 +1094,9 @@ def plan_cache_stats() -> Dict[str, int]:
 
 
 def clear_plan_cache(keep=None) -> int:
-    """Drop cached plans and their blocked layouts and reordered graphs
-    (``clear_plan_cache``, :917).  Returns the number of plans dropped.
+    """Drop cached plans and their blocked layouts, shard layouts and
+    reordered graphs (``clear_plan_cache``, :917).  Returns the number of
+    plans dropped.
 
     ``keep=None`` drops everything and resets the counters.
     ``keep=<plans>`` is the serving engine's sweep: every cached plan not
@@ -957,6 +1109,7 @@ def clear_plan_cache(keep=None) -> int:
         _PLAN_CACHE.clear()
         _BLOCKED_CACHE.clear()
         _REORDER_CACHE.clear()
+        _SHARD_CACHE.clear()
         _PLAN_CACHE_STATS.update(hits=0, misses=0, evictions=0)
         return n
     keep_ids = {id(p) for p in keep}
@@ -967,11 +1120,13 @@ def clear_plan_cache(keep=None) -> int:
     drop = [k for k, (_, p) in _PLAN_CACHE.items() if id(p) not in keep_ids]
     blocked = [k for k in _BLOCKED_CACHE if k[0] not in keep_graphs]
     reorder = [k for k in _REORDER_CACHE if k not in keep_graphs]
+    shards = [k for k in _SHARD_CACHE if k[0] not in keep_graphs]
     for cache, keys in ((_PLAN_CACHE, drop), (_BLOCKED_CACHE, blocked),
-                        (_REORDER_CACHE, reorder)):
+                        (_REORDER_CACHE, reorder), (_SHARD_CACHE, shards)):
         for k in keys:
             del cache[k]
-    _PLAN_CACHE_STATS["evictions"] += len(drop) + len(blocked) + len(reorder)
+    _PLAN_CACHE_STATS["evictions"] += len(drop) + len(blocked) + \
+        len(reorder) + len(shards)
     return len(drop)
 
 
@@ -1000,6 +1155,22 @@ def _blocked_for(g: Graph, tile_m: int) -> BlockedGraph:
     bg = block_graph(g, tile_m)
     _BLOCKED_CACHE[key] = (g.src, bg)
     return bg
+
+
+def _shard_layouts_for(g: Graph, pg, strategy: str, nodes: Tuple[int, ...]):
+    """K1's layouts of the node shards ``nodes`` of ``g``'s uniform
+    partition ``pg`` (``core.distributed.shard_layouts``), built once per
+    graph, shard count, strategy and device: every plan of the graph that
+    shares them (the ring's schedules, its dtypes) reuses them."""
+    from repro_torch.core.distributed import shard_layouts
+    key = (_graph_key(g), pg.num_shards, strategy, nodes, str(g.device))
+    hit = _SHARD_CACHE.get(key)
+    if hit is not None and hit[0] is g.src:
+        return hit[1]
+    _evict_oldest(_SHARD_CACHE)
+    lays = shard_layouts(pg, strategy, nodes=nodes, device=g.device)
+    _SHARD_CACHE[key] = (g.src, lays)
+    return lays
 
 
 def _reordered_for(g: Graph):
@@ -1033,14 +1204,16 @@ def _cached_plan(g: Graph, spec_key, builder):
 def _plan_layer(g: Graph, index: int, kind: str, dims: Tuple[int, ...], *,
                 agg_op: str, ordering: str, backend: str, fused: bool,
                 include_self: bool = True, machine=None,
-                dtype: str = "f32") -> LayerPlan:
+                dtype: str = "f32", local: bool = True) -> LayerPlan:
     """Resolve one layer's ordering / tier / fusion (``_plan_layer``,
     :1021), priced on ``machine`` (default ``H100``).  The fused tile is
     sized at the width the gathered rows are stored in: 2 bytes for a
     resolved "bf16", else 4 (int8-agg carries its operand as f32).
 
     Plans only: a ``cuda`` layer may be planned over a graph on the CPU
-    (nothing launches here); running it there raises.
+    (nothing launches here); running it there raises.  A layer of a
+    distributed plan (``local=False``) aggregates over the plan's shard
+    layouts and owns no layout of its own.
     """
     machine = get_machine(machine)
     semantic = AGGREGATE_FIRST if len(dims) > 2 else COMBINE_FIRST
@@ -1064,7 +1237,7 @@ def _plan_layer(g: Graph, index: int, kind: str, dims: Tuple[int, ...], *,
         tile_m = max(align, min(tile_m, -(-g.num_vertices // align) * align))
         blocked = _blocked_for(g, tile_m)
     agg_layout = None
-    if backend == CUDA:
+    if backend == CUDA and local:
         atile = max(align, min(128, -(-g.num_vertices // align) * align))
         agg_layout = _blocked_for(g, atile)
     return LayerPlan(index=index, kind=kind, dims=tuple(int(d) for d in dims),
@@ -1081,10 +1254,49 @@ def _check_graph_device(g: Graph, device) -> torch.device:
     return dev
 
 
+def _mesh_key(mesh):
+    """Cache key of a mesh: its identity plus its axis names and shape, so
+    an address reused by another mesh never aliases a cached plan
+    (``_mesh_key``, :1083)."""
+    from repro_torch.core.distributed import Mesh
+    if mesh is None:
+        return None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh= takes a core.distributed LocalMesh or "
+                        f"ProcessGroupMesh; got {type(mesh).__name__}")
+    return (id(mesh), tuple(mesh.axis_names), tuple(mesh.shape.values()))
+
+
+def _mesh_partition(g: Graph, mesh, num_shards: int, axis: str, dev):
+    """(partition, axes) of a mesh plan: two named axes give the 2-D
+    partition over (node, feature), one the uniform 1-D partition of
+    ``num_shards`` (default the axis's size) blocks."""
+    from repro_torch.graph.partition import partition_1d, partition_2d
+    if mesh.device != dev:
+        raise ValueError(f"the mesh computes on {mesh.device} but the plan "
+                         f"runs on {dev}")
+    names = mesh.axis_names
+    if len(names) == 2:
+        return (partition_2d(g, mesh.shape[names[0]], mesh.shape[names[1]],
+                             device=dev), names)
+    if len(names) != 1:
+        raise ValueError(f"a mesh plan takes one axis (1-D) or two (node, "
+                         f"feature); got {names}")
+    size = mesh.axis_size(axis)
+    shards = num_shards or size
+    if shards != size:
+        raise ValueError(f"num_shards={num_shards} on a mesh axis {axis!r} "
+                         f"of {size} shards")
+    return partition_1d(g, shards, edge_balanced=False, device=dev), \
+        ("node", "feat")
+
+
 def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
                backend: str = AUTO, fused: Optional[bool] = None,
                ordering: Optional[str] = None, machine=None,
-               device="cuda", mesh=None, reorder: str = "none",
+               device="cuda", mesh=None, num_shards: int = 0,
+               strategy: str = "ring", axis: str = "data",
+               overlap: str = "none", reorder: str = "none",
                dtype: str = "f32", dedup: str = "none",
                dedup_pad: Optional[tuple] = None) -> GraphExecutionPlan:
     """Plan a full model (``GCNModelConfig``) over one graph
@@ -1130,8 +1342,29 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
         raises, and it has no level-2 blocking of its own (each
         dispatch brings one on the cuda tier).
 
-    ``mesh`` (distributed execution) is not ported and raises
-    ``NotImplementedError`` rather than being ignored.
+    ``mesh`` (a ``core.distributed.LocalMesh`` or ``ProcessGroupMesh``
+    computing on ``device``) plans distributed execution; the partition is
+    built from the mesh shape (``build_plan``, :1209-1220):
+
+      * one named axis: the uniform 1-D vertex partition
+        (``partition_1d(..., edge_balanced=False)``) of ``num_shards``
+        blocks (default, and at most, the size of the mesh axis ``axis``);
+      * two named axes (node, feature), e.g. ``LocalMesh((4, 2), ("node",
+        "feat"))``: the 2-D partition (``partition_2d``); ``num_shards``
+        and ``axis`` are not used.
+
+    ``strategy`` ("ring" | "allgather") picks the node-axis halo;
+    ``overlap`` the ring's schedule: "none" (single-buffered), "pipelined"
+    (each hop's send in flight under its partial combine; bit for bit
+    equal, ring only) or "auto" (``core.distributed.choose_overlap`` on
+    the layers' exchanged widths, priced on ``machine``); a local plan
+    resolves it to "none".  As in the reference, a mesh plan runs its
+    layers unfused (``fused`` is coerced to False) with dedup "none", on
+    single-matmul convs only (GIN raises); reorder and every dtype apply.
+    Its layers run each shard's sums through K1 on the cuda tier (its
+    plain version on the torch tier) over layouts built once here
+    (``core.distributed.shard_layouts``).  Its forward is inference only
+    and ``compile()`` raises ``NotImplementedError``.
 
     Example (CPU)::
 
@@ -1142,10 +1375,6 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
         >>> plan.describe()[0]["backend"], plan.describe()[0]["dtype"]
         ('torch', 'bf16')
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "build_plan(mesh=...) is not ported yet: the port plans local "
-            "execution (distributed execution is ROADMAP item 11)")
     if reorder not in ("none", "degree", "auto"):
         raise ValueError(f"unknown reorder {reorder!r}; expected "
                          "'none' | 'degree' | 'auto'")
@@ -1155,6 +1384,16 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
     if dedup not in ("none", "pairs", "auto"):
         raise ValueError(f"unknown dedup {dedup!r}; expected "
                          "'none' | 'pairs' | 'auto'")
+    if overlap not in ("none", "pipelined", "auto"):
+        raise ValueError(f"unknown overlap {overlap!r}; expected "
+                         "'none' | 'pipelined' | 'auto'")
+    if overlap == "pipelined" and mesh is not None and strategy != "ring":
+        raise ValueError("overlap='pipelined' requires strategy='ring'; "
+                         "the all-gather halo has no per-hop structure "
+                         "to pipeline")
+    if mesh is not None and strategy not in ("ring", "allgather"):
+        raise ValueError(f"unknown strategy {strategy!r}; expected "
+                         "'ring' | 'allgather'")
     if dedup_pad is not None:
         if dedup == "none":
             raise ValueError("dedup_pad= is only meaningful with "
@@ -1170,7 +1409,8 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
     spec_key = (cfg.name, cfg.conv, agg, tuple(cfg.hidden_dims),
                 cfg.num_layers, int(in_dim), int(num_classes), tier,
                 use_fused, req_order, machine.name, reorder, dtype, dedup,
-                dedup_pad)
+                dedup_pad, _mesh_key(mesh), num_shards, strategy, axis,
+                overlap)
 
     def builder():
         # -- locality reorder, before anything that depends on the vertex
@@ -1183,6 +1423,16 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
                 decision = choose_reorder(g, g2, p, int(in_dim), machine)
             if decision == "degree":
                 g_exec, perm = g2, p
+
+        partition, axes = None, ("node", "feat")
+        if mesh is not None:
+            if cfg.conv == "gin":
+                raise ValueError(
+                    "distributed plans support single-matmul convs "
+                    "(gcn/sage); GIN's interior nonlinearity needs the "
+                    "local path")
+            partition, axes = _mesh_partition(g_exec, mesh, num_shards,
+                                              axis, dev)
 
         hid = cfg.hidden_dims[0]
         dims_list = []
@@ -1200,16 +1450,22 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
         dt = dtype
         if dt == "auto":
             from repro_torch.profile.machine import choose_dtype
+            shards = 1 if partition is None else \
+                getattr(partition, "nodes", partition).num_shards
             dt = choose_dtype(g_exec.num_vertices, g_exec.num_edges,
-                              widest[0], widest[-1], machine=machine)
+                              widest[0], widest[-1], machine=machine,
+                              num_shards=int(shards))
         layers = [
             _plan_layer(g_exec, i, cfg.conv, dims, agg_op=agg,
-                        ordering=req_order, backend=tier, fused=use_fused,
-                        machine=machine, dtype=dt)
+                        ordering=req_order, backend=tier,
+                        fused=use_fused and partition is None,
+                        machine=machine, dtype=dt, local=partition is None)
             for i, dims in enumerate(dims_list)]
 
-        # -- pair dedup: the host matching runs once, here
-        dd, dlayout = ("none" if agg == "max" else dedup), None
+        # -- pair dedup: the host matching runs once, here (a distributed
+        #    plan folds per shard, max has no shareable adds: "none")
+        dd, dlayout = ("none" if agg == "max" or partition is not None
+                       else dedup), None
         if dd != "none":
             from repro_torch.graph import dedup as gdedup
             lay = gdedup.dedup_layout_for_graph(g_exec)
@@ -1244,10 +1500,34 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
                     lay = gdedup.attach_blocked(lay, atile)
             if dd == "pairs":
                 dlayout = lay
+
+        # -- the halo schedule, resolved here so describe(), instrument()
+        #    and the cache state what dispatch runs; a local plan has no
+        #    collective to schedule
+        ov, lays = (overlap if partition is not None else "none"), None
+        if partition is not None:
+            from repro_torch.core.distributed import choose_overlap
+            pg = getattr(partition, "nodes", partition)
+            width = partition.feature_block \
+                if isinstance(partition, Partition2D) else (lambda f: f)
+            if ov == "auto":
+                # one schedule per plan, priced on what each layer's
+                # exchange moves (dout combine-first, din otherwise; the
+                # F/Q column slice on a 2-D partition)
+                lens = [width(lp.din if lp.order == AGGREGATE_FIRST
+                              else lp.dout) for lp in layers]
+                ov = choose_overlap(pg, lens, machine, strategy=strategy)
+            node_ax = axes[0] if isinstance(partition, Partition2D) \
+                else axis
+            nodes = tuple(sorted({mesh.index(c, node_ax)
+                                  for c in mesh.coords}))
+            lays = _shard_layouts_for(g_exec, pg, strategy, nodes)
         return GraphExecutionPlan(
             g_exec, layers, machine=machine, reorder=decision, perm=perm,
             dtype=dt, dedup=dd, dedup_layout=dlayout,
-            dedup_pad=dedup_pad if dd == "pairs" else None)
+            dedup_pad=dedup_pad if dd == "pairs" else None, mesh=mesh,
+            partition=partition, strategy=strategy, axis=axis, axes=axes,
+            overlap=ov, shard_layouts=lays)
 
     return _cached_plan(g, spec_key, builder)
 

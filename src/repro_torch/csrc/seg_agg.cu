@@ -104,7 +104,10 @@
 //     once (__float2bfloat16_rn).  VEC counts elements, so a 16-byte load
 //     holds 8 bf16; a row of an odd-width bf16 matrix may be only 2-byte
 //     aligned (F = 41: 82 bytes), and F = 602 rows are 1,204 bytes, 4-byte
-//     aligned: 2-element loads.
+//     aligned: 2-element loads.  The seg_agg_bf16_f32 entry is the same
+//     fold with an f32 output, stored unrounded: a distributed layer's halo
+//     partials over a bf16 wire slab (core/distributed.py), which the
+//     reference accumulates in f32 so the wire keeps its 2 bytes.
 //
 // Limit: a block is one CTA per column slice, so a row is split across the
 // 32 units of one SM and no further.  A row far longer than a block's
@@ -170,7 +173,11 @@ __device__ __forceinline__ void load_vec(float* d, const bf16* p) {
 
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* s) {
-  if constexpr (VEC == 4)
+  if constexpr (VEC == 8) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(s[0], s[1], s[2], s[3]));
+    __stcs(reinterpret_cast<float4*>(p) + 1,
+           make_float4(s[4], s[5], s[6], s[7]));
+  } else if constexpr (VEC == 4)
     __stcs(reinterpret_cast<float4*>(p), make_float4(s[0], s[1], s[2], s[3]));
   else if constexpr (VEC == 2)
     __stcs(reinterpret_cast<float2*>(p), make_float2(s[0], s[1]));
@@ -310,15 +317,17 @@ row_starts_kernel(const int* __restrict__ dstl,
 
 // One CTA per (destination block, column slice).  A unit is kLanes lanes;
 // lane li owns columns c0 + (cc * kLanes + li) * VEC .. + VEC - 1 of the
-// slice for cc < C.  T is the element type of x and out (float or bf16);
-// the fold is f32 either way.  Shared memory: the block's chunk table, then
-// max_chunks x slice_cols f32 chunk sums (the launch sizes it from emax).
-template <typename T, int VEC, int C>
+// slice for cc < C.  T is the element type of x (float or bf16), TO that of
+// out (T, or float for bf16 x: the halo's f32 partials over a bf16 wire
+// slab); the fold is f32 either way.  Shared memory: the block's chunk
+// table, then max_chunks x slice_cols f32 chunk sums (the launch sizes it
+// from emax).
+template <typename T, typename TO, int VEC, int C>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
             const float* __restrict__ mask,
             const float* __restrict__ weight,
-            const int* __restrict__ tables, T* __restrict__ out,
+            const int* __restrict__ tables, TO* __restrict__ out,
             int emax, int tile_m, int slice_cols, int split,
             int blocks_first) {
   constexpr int L = kLanes;
@@ -384,7 +393,7 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   const int c0 = slice * slice_cols;
   const int cols = min(slice_cols, f - c0);
   const T* xs = x + c0;
-  T* out_blk = out + static_cast<int64_t>(b) * tile_m * f + c0;
+  TO* out_blk = out + static_cast<int64_t>(b) * tile_m * f + c0;
   // a lane whose columns lie past the slice loads column 0 (the same line
   // as its unit's other loads) and never stores
   int col_ld[C];
@@ -556,9 +565,9 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   }
 }
 
-template <typename T, int VEC, int C>
+template <typename T, typename TO, int VEC, int C>
 int launch(const T* x, const int* src, const int* dstl, const float* mask,
-           const float* weight, int* tables, T* out, int nblocks, int emax,
+           const float* weight, int* tables, TO* out, int nblocks, int emax,
            int f, int tile_m, int slice_cols, int split, int max_chunks,
            int blocks_first, cudaStream_t stream) {
   const int tab = 2 * (tile_m + 1) * static_cast<int>(sizeof(int));
@@ -566,7 +575,7 @@ int launch(const T* x, const int* src, const int* dstl, const float* mask,
       dstl, mask, tables, emax, tile_m, split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = fold_kernel<T, VEC, C>;
+  auto kernel = fold_kernel<T, TO, VEC, C>;
   const int smem =
       tab + max_chunks * slice_cols * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
@@ -607,9 +616,10 @@ extern "C" int seg_agg_f32(const float* x, const int* src, const int* dstl,
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_SEG_AGG(V, CC)                                                 \
   if (vec == V && c == CC)                                                   \
-    return launch<float, V, CC>(x, src, dstl, mask, weight, tables, out,    \
-                                nblocks, emax, f, tile_m, slice_cols, split, \
-                                max_chunks, blocks_first, st);
+    return launch<float, float, V, CC>(x, src, dstl, mask, weight, tables, \
+                                       out, nblocks, emax, f, tile_m,      \
+                                       slice_cols, split, max_chunks,      \
+                                       blocks_first, st);
   REPRO_SEG_AGG(4, 1)
   REPRO_SEG_AGG(4, 2)
   REPRO_SEG_AGG(2, 1)
@@ -643,9 +653,49 @@ extern "C" int seg_agg_bf16(const void* x, const int* src, const int* dstl,
   auto* ob = static_cast<bf16*>(out);
 #define REPRO_SEG_AGG(V, CC)                                                 \
   if (vec == V && c == CC)                                                   \
-    return launch<bf16, V, CC>(xb, src, dstl, mask, weight, tables, ob,     \
-                               nblocks, emax, f, tile_m, slice_cols, split,  \
-                               max_chunks, blocks_first, st);
+    return launch<bf16, bf16, V, CC>(xb, src, dstl, mask, weight, tables,   \
+                                     ob, nblocks, emax, f, tile_m,         \
+                                     slice_cols, split, max_chunks,        \
+                                     blocks_first, st);
+  REPRO_SEG_AGG(8, 1)
+  REPRO_SEG_AGG(4, 1)
+  REPRO_SEG_AGG(4, 2)
+  REPRO_SEG_AGG(2, 1)
+  REPRO_SEG_AGG(2, 2)
+  REPRO_SEG_AGG(2, 3)
+  REPRO_SEG_AGG(2, 4)
+  REPRO_SEG_AGG(1, 1)
+  REPRO_SEG_AGG(1, 2)
+  REPRO_SEG_AGG(1, 3)
+  REPRO_SEG_AGG(1, 4)
+  REPRO_SEG_AGG(1, 5)
+  REPRO_SEG_AGG(1, 6)
+  REPRO_SEG_AGG(1, 7)
+  REPRO_SEG_AGG(1, 8)
+#undef REPRO_SEG_AGG
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x bf16, out f32: the bf16 entry's fold (bf16 loads converted exactly, f32
+// sums) stored without the rounding -- the f32 partial sums of a halo hop
+// over a bf16 wire slab (core/distributed.py), as the reference's
+// promote_types(bf16, f32) accumulator.  Arguments as seg_agg_bf16's; out
+// is (nblocks * tile_m, f) f32.
+extern "C" int seg_agg_bf16_f32(const void* x, const int* src,
+                                const int* dstl, const float* mask,
+                                const float* weight, int* tables, float* out,
+                                int nblocks, int emax, int f, int tile_m,
+                                int slice_cols, int vec, int c, int split,
+                                int max_chunks, int blocks_first,
+                                void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* xb = static_cast<const bf16*>(x);
+#define REPRO_SEG_AGG(V, CC)                                                 \
+  if (vec == V && c == CC)                                                   \
+    return launch<bf16, float, V, CC>(xb, src, dstl, mask, weight, tables,  \
+                                      out, nblocks, emax, f, tile_m,        \
+                                      slice_cols, split, max_chunks,        \
+                                      blocks_first, st);
   REPRO_SEG_AGG(8, 1)
   REPRO_SEG_AGG(4, 1)
   REPRO_SEG_AGG(4, 2)

@@ -45,12 +45,15 @@ def launch_counts() -> dict:
     """Launches so far of each kernel wrapper, by kernel name.  The counts
     are Python-side: a CUDA graph's replay moves none of them.
     ``seg_agg`` and ``fused_agg_combine`` count every launch; the bf16
-    entries count those with a bf16 output among them, ``seg_agg_bwd``
+    entries count those with a bf16 output among them,
+    ``seg_agg_bf16_f32`` K1's launches over bf16 x with an f32 output (a
+    distributed layer's halo partials), ``seg_agg_bwd``
     K1's backward launches (``SegAgg.backward``) among them (for
     ``fused_agg_combine_bf16`` the f32-rows, bf16-W pair too, which
     ``fused_agg_combine_mixed`` counts on its own)."""
     return {"seg_agg": k1.seg_agg.launches,
             "seg_agg_bf16": k1.seg_agg.launches_bf16,
+            "seg_agg_bf16_f32": k1.seg_agg.launches_bf16_f32,
             "seg_agg_bwd": k1.seg_agg.launches_bwd,
             "fused_agg_combine": k2.fused_agg_combine.launches,
             "fused_agg_combine_bf16": k2.fused_agg_combine.launches_bf16,
@@ -61,6 +64,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch counts to 0."""
     k1.seg_agg.launches = k1.seg_agg.launches_bf16 = 0
+    k1.seg_agg.launches_bf16_f32 = 0
     k1.seg_agg.launches_bwd = 0
     k2.fused_agg_combine.launches = k2.fused_agg_combine.launches_bf16 = 0
     k2.fused_agg_combine.launches_mixed = 0
@@ -116,15 +120,17 @@ def seg_agg_pregrouped(rows_blocked: torch.Tensor, seg_local: torch.Tensor,
 
 def seg_agg_planned(bg, x: torch.Tensor,
                     edge_weight: Optional[torch.Tensor] = None, *,
-                    backend: str) -> torch.Tensor:
+                    backend: str,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Segmented sum over a plan-owned blocked layout.
 
     x: (R, F), where R is V or, for a dedup plan's level-2 layout, the
     V + P rows of ``[x ; partials]``; ``edge_weight``: optional (E,)
     per-edge scalar, regrouped into the blocked layout through ``bg.eidx``
     (one gather).  Returns (V, F) in x's dtype: ``sum_{(u,v) in E} w_uv *
-    x_u`` per destination v.  On the cuda tier the backward runs over
-    ``bg.transposed`` (built from ``bg`` in the backward when None).
+    x_u`` per destination v; ``out_dtype`` (default x's) may be f32 for
+    bf16 x (the f32 sums unrounded).  On the cuda tier the backward runs
+    over ``bg.transposed`` (built from ``bg`` in the backward when None).
     """
     _check_tier(backend, x)
     weight = None
@@ -135,10 +141,11 @@ def seg_agg_planned(bg, x: torch.Tensor,
         weight = edge_weight.to(torch.float32)[bg.eidx.long()]
     if backend == TORCH:
         out = k1.seg_agg_plain(x, bg.src, bg.dstl, bg.mask, weight,
-                               tile_m=bg.tile_m)
+                               tile_m=bg.tile_m, out_dtype=out_dtype)
     else:
         out = k1.seg_agg(x, bg.src, bg.dstl, bg.mask, weight,
-                         tile_m=bg.tile_m, transposed=bg.transposed)
+                         tile_m=bg.tile_m, transposed=bg.transposed,
+                         out_dtype=out_dtype)
     return out[:bg.num_vertices]
 
 

@@ -10,6 +10,9 @@ blocked layout's ``src`` and gathers itself, so that slab never exists::
 
 x and the output are f32 or bf16 (the reference's ``rows.dtype``); the
 fold is f32 either way and a bf16 output is rounded once, at the store.
+``out_dtype=torch.float32`` with bf16 x stores the f32 sums unrounded (the
+entry ``seg_agg_bf16_f32``): a distributed layer's halo partials over a
+bf16 wire slab, which the reference accumulates in f32.
 
 ``seg_agg`` is the wrapper: a tensor on the CPU takes ``seg_agg_plain``, a
 CUDA tensor launches the kernel or raises.  It runs through the autograd
@@ -19,7 +22,8 @@ transposed layout (``core.dataflow``)::
     gx[u] = sum_{slots e with src[e] = u} mask[e] * weight[e] * gout[dst[e]]
 
 so on a card both directions launch the kernel.  ``seg_agg.launches``
-counts the launches, ``seg_agg.launches_bf16`` the bf16 ones and
+counts the launches, ``seg_agg.launches_bf16`` the bf16 ones,
+``seg_agg.launches_bf16_f32`` those of bf16 x with an f32 output and
 ``seg_agg.launches_bwd`` the backward ones among them.  The kernel
 walks x in column slices of ``slice_cols`` with 16-, 8-, 4- or (bf16)
 2-byte loads (``launch_params``), both pure functions of the shapes, so
@@ -62,8 +66,11 @@ SPLIT_WAYS = 64
 #: without opting in (csrc/seg_agg.cu sets the attribute above that)
 SMEM_LIMIT = 232448
 SMEM_DEFAULT = 48 * 1024
-#: the element types the kernel takes, with its C entry for each
+#: the element types the kernel takes, with its C entry for each (the
+#: output in x's dtype)
 ENTRIES = {torch.float32: "seg_agg_f32", torch.bfloat16: "seg_agg_bf16"}
+#: the element types that also take an f32 output, with that C entry
+F32_OUT_ENTRIES = {torch.bfloat16: "seg_agg_bf16_f32"}
 
 
 def fold_blocks_plain(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
@@ -94,14 +101,15 @@ def blocks_per_chunk(emax: int, width: int) -> int:
 
 def seg_agg_plain(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
                   mask: torch.Tensor, weight: Optional[torch.Tensor] = None,
-                  *, tile_m: int) -> torch.Tensor:
+                  *, tile_m: int,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The plain PyTorch version of the kernel: the same function, folded a
     chunk of blocks at a time in f32.  Returns ``(nblocks * tile_m, F)``
-    in x's dtype (one rounding for bf16)."""
+    in ``out_dtype`` (default x's dtype; one rounding for bf16)."""
     nblocks, emax = src.shape
     step = blocks_per_chunk(emax, x.shape[1])
-    out = torch.empty((nblocks * tile_m, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
+    out = torch.empty((nblocks * tile_m, x.shape[1]),
+                      dtype=out_dtype or x.dtype, device=x.device)
     for b0 in range(0, nblocks, step):
         b1 = min(nblocks, b0 + step)
         out[b0 * tile_m:b1 * tile_m] = fold_blocks_plain(
@@ -217,27 +225,34 @@ def alignment(t: torch.Tensor) -> int:
     return a
 
 
-def _entry(kernel: str, dtype: torch.dtype) -> str:
-    """The C entry for x's dtype; any other dtype raises ``TypeError``."""
-    try:
+def _entry(kernel: str, dtype: torch.dtype,
+           out_dtype: Optional[torch.dtype] = None) -> str:
+    """The C entry for x's dtype and the output's (default x's); any other
+    pair raises ``TypeError``."""
+    if out_dtype in (None, dtype) and dtype in ENTRIES:
         return ENTRIES[dtype]
-    except KeyError:
-        raise TypeError(f"{kernel}: x is {dtype}; the kernel takes "
-                        f"{' or '.join(str(d) for d in ENTRIES)}") from None
+    if out_dtype == torch.float32 and dtype in F32_OUT_ENTRIES:
+        return F32_OUT_ENTRIES[dtype]
+    raise TypeError(f"{kernel}: x is {dtype} with a {out_dtype or dtype} "
+                    f"output; the kernel takes "
+                    f"{' or '.join(str(d) for d in ENTRIES)} with an output "
+                    f"of x's dtype, or bf16 with an f32 output")
 
 
 def _fold(x, src, dstl, mask, weight, tile_m: int, *,
-          backward: bool = False) -> torch.Tensor:
+          backward: bool = False,
+          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """One fold: the plain version on the CPU, the kernel on a card (a
     ``backward`` one -- narrow slices, CTAs block by block -- counted in
     ``seg_agg.launches_bwd`` too)."""
     if x.device.type == "cpu":
-        return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m)
+        return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
+                             out_dtype=out_dtype)
     f = x.shape[-1]
     width = backward_slice_cols(f, x.element_size(), alignment(x)) \
         if backward else slice_cols(f)
     out = _launch(x, src, dstl, mask, weight, tile_m, width,
-                  blocks_first=backward)
+                  blocks_first=backward, out_dtype=out_dtype)
     if backward:
         seg_agg.launches_bwd += 1
     return out
@@ -252,15 +267,17 @@ class SegAgg(torch.autograd.Function):
     get none."""
 
     @staticmethod
-    def forward(ctx, x, src, dstl, mask, weight, tile_m, transposed):
+    def forward(ctx, x, src, dstl, mask, weight, tile_m, transposed,
+                out_dtype=None):
         ctx.save_for_backward(src, dstl, mask, weight)
         ctx.tile_m, ctx.transposed, ctx.rows = tile_m, transposed, x.shape[0]
-        return _fold(x, src, dstl, mask, weight, tile_m)
+        ctx.x_dtype = x.dtype
+        return _fold(x, src, dstl, mask, weight, tile_m, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, gout):
         if not ctx.needs_input_grad[0]:
-            return (None,) * 7
+            return (None,) * 8
         src, dstl, mask, weight = ctx.saved_tensors
         t = ctx.transposed
         if t is None:
@@ -273,12 +290,13 @@ class SegAgg(torch.autograd.Function):
             weight.reshape(-1)[t.eidx.long()].contiguous()
         gx = _fold(gout.contiguous(), t.src, t.dstl, t.mask, wt, t.tile_m,
                    backward=True)
-        return (gx[:ctx.rows],) + (None,) * 6
+        return (gx[:ctx.rows].to(ctx.x_dtype),) + (None,) * 7
 
 
 def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
             mask: torch.Tensor, weight: Optional[torch.Tensor] = None,
-            *, tile_m: int, transposed=None) -> torch.Tensor:
+            *, tile_m: int, transposed=None,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Blocked segmented sum: the CUDA kernel for CUDA tensors, the plain
     version for tensors on the CPU, differentiable in ``x`` (``SegAgg``).
 
@@ -289,9 +307,12 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     (``weight`` optional; neither may require a gradient); transposed: the
     layout's ``core.dataflow.BlockedGraph.transposed`` for the backward,
     or None to build it from this layout in each backward (a host
-    regroup: callers that run many backward passes keep it).
-    Returns (nblocks * tile_m, F) in x's dtype: f32 sums, rounded once for
-    bf16.  Launches on the current stream and does not synchronize.
+    regroup: callers that run many backward passes keep it); out_dtype:
+    the output's dtype, default x's (``torch.float32`` with bf16 x: the
+    f32 sums unrounded).
+    Returns (nblocks * tile_m, F) in out_dtype: f32 sums, rounded once for
+    a bf16 output.  Launches on the current stream and does not
+    synchronize.
     """
     if torch.is_grad_enabled():
         if mask.requires_grad or (weight is not None and
@@ -300,8 +321,9 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
                              "no gradient; detach them")
         if x.requires_grad:
             return SegAgg.apply(x, src, dstl, mask, weight, tile_m,
-                                transposed)
-    return _fold(x, src, dstl, mask, weight, tile_m)  # no gradient to carry
+                                transposed, out_dtype)
+    # no gradient to carry
+    return _fold(x, src, dstl, mask, weight, tile_m, out_dtype=out_dtype)
 
 
 def _c_entry(entry: str):
@@ -321,7 +343,8 @@ _C_ENTRIES: dict = {}
 
 
 def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
-            blocks_first: bool = False) -> torch.Tensor:
+            blocks_first: bool = False,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Check the arguments and launch the kernel with column slices of
     ``width``; ``seg_agg`` passes ``slice_cols(F)``, the card tests force
     narrower slices through here.  ``blocks_first`` orders the CTAs block
@@ -331,7 +354,8 @@ def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
     nblocks, emax = src.shape
     f = x.shape[1] if x.dim() == 2 else -1
     lay = (nblocks, emax)
-    entry = _entry("seg_agg", x.dtype)
+    out_dtype = out_dtype or x.dtype
+    entry = _entry("seg_agg", x.dtype, out_dtype)
     args = {"x": (x, x.dtype, (None, f)),
             "src": (src, torch.int32, lay), "dstl": (dstl, torch.int32, lay),
             "mask": (mask, torch.float32, lay)}
@@ -349,7 +373,8 @@ def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
         raise ValueError(f"seg_agg: tile_m={tile_m}, emax={emax} need "
                          f"{smem} B of shared memory a CTA (at most "
                          f"{SMEM_LIMIT})")
-    out = torch.empty((nblocks * tile_m, f), dtype=x.dtype, device=x.device)
+    out = torch.empty((nblocks * tile_m, f), dtype=out_dtype,
+                      device=x.device)
     # the chunk table: row starts and split chunks before each row, per
     # block, written by the first launch and read by the second
     tables = torch.empty((nblocks, 2 * (tile_m + 1)), dtype=torch.int32,
@@ -369,10 +394,14 @@ def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
                            f"{err}")
     seg_agg.launches += 1
     if x.dtype == torch.bfloat16:
-        seg_agg.launches_bf16 += 1
+        if out_dtype == torch.float32:
+            seg_agg.launches_bf16_f32 += 1
+        else:
+            seg_agg.launches_bf16 += 1
     return out
 
 
 seg_agg.launches = 0
 seg_agg.launches_bf16 = 0
+seg_agg.launches_bf16_f32 = 0
 seg_agg.launches_bwd = 0

@@ -7,7 +7,7 @@ The residual carries each step's quantization error into the next, so
 over time the sent values track the true gradients.  The all-reduce that
 puts ``q`` on the wire (``compressed_psum_leaf``,
 ``make_compressed_allreduce``) needs a process group and goes with
-distributed execution (ROADMAP item 11).
+distributed training (ROADMAP item 11b).
 """
 
 from __future__ import annotations

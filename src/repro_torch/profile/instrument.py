@@ -22,9 +22,14 @@ dtype as the phase ran it (an int8-agg plan's combine is f32), the
 quantization error the probe measured, and for a dedup plan's
 aggregations the matched pairs, the adds they save and the two-level
 layout's bytes (``graph.dedup.dedup_cost``); the report says whether the
-reorder permutation ran at ingress.  The port's plans are local, so the
-collective and overlap fields are 0; they stay in the schema shared with
-the reference (``tests/golden/workload_report.schema.json``).
+reorder permutation ran at ingress.  A distributed plan's layer is one
+``"distributed"`` record: its collective bytes from the halo model
+(``core.distributed.halo_bytes``, the cut edges at the exchanged width
+and the wire's dtype), its schedule-exact wire bytes
+(``schedule_wire_bytes``, which the probe holds equal to the bytes the
+mesh counted over the layer) and its exposed and overlapped collective
+time (``overlap_model`` for the schedule that ran) -- the schema shared
+with the reference (``tests/golden/workload_report.schema.json``).
 """
 
 from __future__ import annotations
@@ -132,12 +137,24 @@ class _Probe:
 
     def run(self, name: str, thunk, *, lp, **meta):
         from repro_torch.core.backend import resolve_backend
+        mesh = getattr(self.plan, "mesh", None)
+        counted = mesh.collective_bytes()["total"] if mesh else 0
         self._sync()
         t0 = time.perf_counter()
         out = thunk()
         self._sync()
         dt = time.perf_counter() - t0
         flops, byt, flen = self._cost(name, lp, meta)
+        coll = wire = exp_s = ovl_s = 0.0
+        if name == "distributed":
+            coll = self._halo_bytes(flen)
+            wire = self._wire_bytes(lp, flen, meta)
+            exp_s, ovl_s = self._overlap_times(flen, meta["overlap"])
+            counted = mesh.collective_bytes()["total"] - counted
+            if counted != wire:
+                raise RuntimeError(
+                    f"layer {lp.index}: the mesh counted {counted} bytes of "
+                    f"collectives a shard, the schedule moves {wire:.0f}")
         # the storage precision the phase ran at: int8-agg quantizes only
         # the aggregation operand, so its combine records stay f32
         pd = self.plan.dtype
@@ -150,8 +167,11 @@ class _Probe:
             if name != "combine" else "torch",
             fused=(name == "fused_agg_combine"),
             feature_len=int(flen), flops=float(flops), bytes=float(byt),
-            collective_bytes=0.0, wall_time_s=float(dt),
+            collective_bytes=float(coll), wall_time_s=float(dt),
             bound=self.machine.classify(flops / max(1.0, byt)),
+            exposed_collective_time=float(exp_s),
+            overlapped_collective_time=float(ovl_s),
+            wire_collective_bytes=float(wire),
             dtype="f32" if (pd == "int8-agg" and name == "combine") else pd,
             quant_error=float(meta.get("quant_error", 0.0)),
             dedup_pairs=lay.num_pairs if lay else 0,
@@ -203,7 +223,57 @@ class _Probe:
             saved = 2 * v * din * _DTYPE_BYTES
             byt = max(agg["bytes"] + comb["bytes"] - saved, 1)
             return agg["flops"] + comb["flops"], byt, din
+        if name == "distributed":
+            # the whole layer: aggregation at the width the exchange moves
+            # and the combination (``_cost``, :248)
+            flen = meta["feature_len"]
+            from repro_torch.core.phases import aggregate_cost
+            agg = aggregate_cost(g, flen, include_self=lp.include_self)
+            comb = combine_cost(v, lp.dims)
+            return (agg["flops"] + comb["flops"],
+                    agg["bytes"] + comb["bytes"], flen)
         raise ValueError(f"unknown phase {name!r}")
+
+    def _halo_bytes(self, feature_len: int) -> float:
+        """The halo model's cut-edge bytes at the exchanged width, scaled
+        to the wire's element size (``_halo_bytes``, :257)."""
+        from repro_torch.core.distributed import halo_bytes, halo_bytes_2d
+        from repro_torch.profile.machine import DTYPE_BYTES
+        if self.plan.partition_kind == "2d":
+            base = float(halo_bytes_2d(self.plan.partition,
+                                       feature_len)["min_halo_bytes"])
+        else:
+            base = float(halo_bytes(self.plan.partition,
+                                    feature_len)["min_halo_bytes"])
+        return base * DTYPE_BYTES.get(self.plan.dtype, 4) / 4.0
+
+    def _wire_bytes(self, lp, feature_len: int, meta) -> float:
+        """Schedule-exact bytes one shard's collectives move over this
+        layer (``schedule_wire_bytes``; ``_wire_bytes``, :274)."""
+        from repro_torch.core.distributed import schedule_wire_bytes
+        two_d = self.plan.partition_kind == "2d"
+        acc = schedule_wire_bytes(
+            self.plan.partition, int(feature_len),
+            strategy=self.plan.strategy, overlap=meta["overlap"],
+            dtype=self.plan.dtype, combine_out_len=lp.dout if two_d else None)
+        return float(acc["total_bytes"])
+
+    def _overlap_times(self, feature_len: int, overlap: str):
+        """(exposed_s, overlapped_s) of one layer's exchange from
+        ``overlap_model`` on the report's machine, for the schedule that
+        ran (``_overlap_times``, :291): analytic, as the reference's."""
+        from repro_torch.core.distributed import overlap_model
+        if self.plan.partition_kind == "2d":
+            p2 = self.plan.partition
+            pg, flen = p2.nodes, p2.feature_block(feature_len)
+        else:
+            pg, flen = self.plan.partition, feature_len
+        m = overlap_model(pg, flen, self.machine,
+                          strategy=self.plan.strategy)
+        if overlap == "pipelined":
+            return (float(m["exposed_pipelined_s"]),
+                    float(m["overlapped_pipelined_s"]))
+        return float(m["exposed_none_s"]), 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -515,10 +585,10 @@ class WorkloadReport:
         ingress (``run_model`` reports only), whether the fused phase ran,
         the dtype of every record (f32 for an int8-agg plan's combine),
         whether each aggregation ran over the dedup layout, the tier each
-        aggregation resolved to, the executed phase order, and compiled
-        times against ``compiled=False``.  The reference's overlap check
-        has nothing to observe on the port's local plans.  Empty list ==
-        describe() is truthful."""
+        aggregation (and distributed layer) resolved to, the halo schedule
+        a distributed record priced (overlapped time only under
+        "pipelined"), the executed phase order, and compiled times against
+        ``compiled=False``.  Empty list == describe() is truthful."""
         out: List[str] = []
         for d in plan.describe():
             if self.entry == "model":
@@ -555,6 +625,15 @@ class WorkloadReport:
                     out.append(f"layer {d['layer']}: describe backend="
                                f"{d['backend']} but {r.phase} used "
                                f"{r.backend}")
+                if r.phase == "distributed" and (
+                        r.exposed_collective_time > 0
+                        or r.overlapped_collective_time > 0):
+                    seen = "pipelined" if r.overlapped_collective_time > 0 \
+                        else "none"
+                    if d["overlap"] != seen:
+                        out.append(f"layer {d['layer']}: describe overlap="
+                                   f"{d['overlap']} but probe recorded "
+                                   f"{seen} collective split")
             if not fused_ran and "aggregate" in seq and "combine" in seq:
                 observed = ("combine_first"
                             if seq.index("combine") < seq.index("aggregate")
@@ -587,7 +666,8 @@ class InstrumentedPlan:
         self.warmup = warmup
 
     def _summary(self) -> Dict[str, Any]:
-        return {"num_layers": self.plan.num_layers, "partition": "none",
+        return {"num_layers": self.plan.num_layers,
+                "partition": self.plan.partition_kind,
                 "interpret": False, "layers": self.plan.describe()}
 
     def _report(self, probe: _Probe, out, entry: str) -> WorkloadReport:

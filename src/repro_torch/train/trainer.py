@@ -13,7 +13,7 @@
     (checkpoint, then raise) after ``max_straggler_steps`` in a row.
 
 Sharded state and batches (``state_shardings``, ``batch_shardings``) go
-with distributed execution (ROADMAP item 11) and raise.  The port has no
+with distributed training (ROADMAP item 11b) and raise.  The port has no
 ``jax.eval_shape``: the restore template is ``make_state()`` itself, whose
 leaves give the shapes, dtypes and devices the restored state takes.
 """
@@ -91,7 +91,7 @@ class Trainer:
         if state_shardings is not None or batch_shardings is not None:
             raise NotImplementedError(
                 "sharded training state and batches are not ported yet "
-                "(distributed execution is ROADMAP item 11)")
+                "(distributed training is ROADMAP item 11b)")
         self.cfg = cfg
         self.make_state = make_state
         self.step_fn = step_fn

@@ -1070,3 +1070,101 @@ def test_graph_serving_device_gather(card):
     assert lay.emax == -(-tile * 6 // 8) * 8
     assert int(lay.mask.sum().item()) == prep.graph.num_edges
     assert gg.num_edges == b.num_edges and gg.num_vertices == b.num_inputs
+
+
+# ---------------------------------------------------------------------------
+# distributed inference: K1's bf16-in/f32-out entry, the shard layouts and
+# a LocalMesh on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("f", [1, 7, 41, 128, 602])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_seg_agg_bf16_f32_matches_plain(card, f, offset, weighted):
+    """K1 over bf16 x with an f32 output (the halo partials over a bf16
+    wire slab): per row within the f32 limit of ``fold_blocks_plain`` (the
+    f32 fold of the same bf16 rows), two launches bitwise equal, the empty
+    block exactly 0, launches counted under ``seg_agg_bf16_f32`` and not
+    under ``seg_agg_bf16``."""
+    bg = _ragged_layout()
+    gen = torch.Generator(device="cuda").manual_seed(100 + f + offset)
+    x = _offset(torch.randn((bg.num_vertices, f), generator=gen,
+                            device="cuda").to(torch.bfloat16), offset)
+    w = torch.rand(bg.src.shape, generator=gen, device="cuda") \
+        if weighted else None
+    args = (x, bg.src, bg.dstl, bg.mask, w)
+    before = ops.launch_counts()
+    got = k1.seg_agg(*args, tile_m=bg.tile_m, out_dtype=torch.float32)
+    again = k1.seg_agg(*args, tile_m=bg.tile_m, out_dtype=torch.float32)
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert (launched["seg_agg"], launched["seg_agg_bf16_f32"],
+            launched["seg_agg_bf16"]) == (2, 2, 0)
+    want = k1.fold_blocks_plain(*args, bg.tile_m)
+    assert got.dtype == want.dtype == torch.float32
+    _close(got, want)
+    _rows_close(got, want, ROW_LIMIT[torch.float32])
+    assert torch.equal(got, again)
+    assert not got[bg.tile_m:2 * bg.tile_m].any()
+    # rounded once, it is the bf16 entry's output bit for bit
+    assert torch.equal(got.to(torch.bfloat16),
+                       k1.seg_agg(*args, tile_m=bg.tile_m))
+
+
+@pytest.mark.parametrize("strategy", ["ring", "allgather"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shard_layouts_launch_against_plain(card, strategy, dtype):
+    """K1 over each shard layout of a 4-way partition -- the ring's (shard,
+    owner) sub-layouts over an owner's slab, the all-gather's over the
+    gathered rows -- against the plain version, f32 out; repeat launches
+    bitwise."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.graph.partition import partition_1d
+    spec, g, x = card
+    pg = partition_1d(g, 4, edge_balanced=False)
+    lays = tdist.shard_layouts(pg, strategy)
+    xp = tdist.pad_features(x[:, :128], pg.block_size, 4).to(dtype)
+    n = k1.seg_agg.launches
+    for p in range(4):
+        for o, lay in enumerate(lays[p] if strategy == "ring"
+                                else [lays[p]]):
+            slab = xp[o * pg.block_size:(o + 1) * pg.block_size] \
+                if strategy == "ring" else xp
+            got = tdist._local_agg(slab, lay, backend="cuda")
+            again = tdist._local_agg(slab, lay, backend="cuda")
+            want = k1.fold_blocks_plain(slab, lay.src, lay.dstl, lay.mask,
+                                        None, lay.tile_m)[:pg.block_size]
+            assert got.dtype == torch.float32
+            _rows_close(got, want, ROW_LIMIT[torch.float32])
+            assert torch.equal(got, again)
+    assert k1.seg_agg.launches - n == (32 if strategy == "ring" else 8)
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_local_mesh_pipelined_bitwise_none_on_card(card, shape, dtype):
+    """The pipelined ring copies each hop's slab on the mesh's own stream
+    while K1 folds the resident one (events order them, the sent slabs are
+    held until the compute stream waits): its logits equal the
+    single-buffered ring's bit for bit, and two calls agree; K1 runs P
+    hops a held shard a layer; within the band of the torch tier on the
+    card."""
+    from repro_torch.core.distributed import LocalMesh
+    spec, g, x = card
+    names = ("data",) if len(shape) == 1 else ("node", "feat")
+    mesh = LocalMesh(shape, names)
+    m = make_paper_model("gcn", spec, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    outs = []
+    with torch.no_grad():
+        for ov in ("none", "pipelined", "pipelined"):
+            plan = m.plan_for(g, mesh=mesh, overlap=ov, dtype=dtype)
+            n = k1.seg_agg.launches
+            outs.append(m(g, x, plan=plan))
+            assert k1.seg_agg.launches - n == \
+                2 * mesh.size * shape[0]   # 2 layers x shards x hops
+        want = m(g, x, plan=m.plan_for(g, mesh=LocalMesh(
+            shape, names, device="cuda"), overlap="none", dtype=dtype,
+            backend="torch"))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
+    _close(outs[0], want, BF16_TOL if dtype == "bf16" else TOL)

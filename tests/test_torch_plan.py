@@ -158,10 +158,11 @@ def test_plan_cache_identity():
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"reorder": "rcm"},
                                 {"dtype": "fp8"}, {"dedup": "triples"}])
 def test_unported_options_raise(kw):
-    """``mesh`` (distributed execution) is not ported and raises
-    ``NotImplementedError``; reorder, dtype and dedup are, and a value
-    outside their vocabulary raises ``ValueError``, as the reference's."""
-    exc = NotImplementedError if "mesh" in kw else ValueError
+    """``mesh`` takes one of the port's meshes (``core.distributed``
+    ``LocalMesh`` or ``ProcessGroupMesh``) and refuses any other object
+    with ``TypeError``; reorder, dtype and dedup raise ``ValueError`` for a
+    value outside their vocabulary, as the reference's."""
+    exc = TypeError if "mesh" in kw else ValueError
     with pytest.raises(exc):
         tplan.build_plan(TG, PAPER_MODELS["gcn"], TSPEC.feature_len,
                          TSPEC.num_classes, device="cpu", **kw)
