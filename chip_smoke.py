@@ -158,9 +158,35 @@ Phases, each printing its own lines; any failure exits non-zero:
                 Then a fresh process (chip_smoke.py --dist-nccl) inits a
                 world-size-1 NCCL group from a FileStore and runs the plan
                 at P = 1 through a ProcessGroupMesh: bit for bit
-                LocalMesh((1,)), in the band of phase 4.
+                LocalMesh((1,)), in the band of phase 4; and one training
+                step (phase 14's), gradients and the int8 error-feedback
+                all-reduce bit for bit LocalMesh((1,))'s.
+ 14. dist-train -- (right after phase 13) phase 4's gcn (602 -> 128 -> 41)
+                trained on full-width Reddit through build_plan(mesh=...):
+                LocalMesh((4,)) ring none, ring pipelined (its gradients
+                through the int8 error-feedback all-reduce), allgather,
+                ring pipelined bf16, and LocalMesh((4, 2)) ring pipelined,
+                DIST_TRAIN_STEPS SGD steps each from the same params.  The
+                capped transposed sub-layouts' slots, bytes and build
+                seconds beside what the uncapped ones would hold; step 0:
+                K1's forward and backward launches (layers x held shards
+                x hops; backward twice held shards x P: the pieces and the
+                fold-back), the backward's counted bytes against the
+                forward's, the loss and each gradient leaf: f32 against
+                the model's gradients in float64 on the card, apart from
+                the port (GRAD_F32_LIMIT of the leaf's largest magnitude),
+                bf16 against the torch tier's autograd of the same mesh
+                plan (3e-2), each beside the torch tier's own distance from
+                the f64 gradients; ring none bit for
+                bit pipelined; then steps timed (forward, backward,
+                update) and profiled (device busy, copy time beside a
+                kernel, idle share; traces in
+                chiprun_out/traces/dist_train_*.json), peak memory.  K1's
+                backward over the 16 capped transposed ring sub-layouts
+                at F = 128 and 41 against its plain version, beside its
+                bound and torch.sparse.mm on each transposed CSR matrix.
 
-The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 5-7.  The last three
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 5-7.  The last three
 lines are nvidia-smi's name and power limit, one JSON object per kernel
 ({"kernels": [...]}) and the result line.  The full
 per-shape table is also written to chiprun_out/chip_smoke.json.
@@ -322,6 +348,27 @@ DIST_ROUNDS = 3
 DIST_PROFILED = 3
 #: phase 13's world-size-1 NCCL process: the cases it runs at P = 1
 NCCL_CASES = [("allgather", "none"), ("ring", "none"), ("ring", "pipelined")]
+#: phase 14's runs: (label, mesh shape, strategy, overlap, dtype, whether
+#: the gradients go through the int8 error-feedback all-reduce)
+DIST_TRAIN_CASES = [
+    ("ring/none", (4,), "ring", "none", "f32", False),
+    ("ring/pipelined", (4,), "ring", "pipelined", "f32", True),
+    ("allgather", (4,), "allgather", "none", "f32", False),
+    ("ring/pipelined bf16", (4,), "ring", "pipelined", "bf16", False),
+    ("2d ring/pipelined", (4, 2), "ring", "pipelined", "f32", False)]
+#: phase 14: an f32 gradient leaf against the float64 yardstick
+#: (``gcn_f64_grads``), over the leaf's largest magnitude.  The W and bias
+#: gradients of the first layer sum terms that cancel, so any f32 order
+#: lands well off the f64 sums: on the H100 the plain versions' own (the
+#: torch tier, local or the same mesh plan) read up to 1.9e-4 in 1-D and
+#: 3.3e-4 in 2-D, two torch-tier runs 6.1e-5 and 1.9e-4 (PERF.md §6);
+#: the second layer's leaves read ~1e-6
+GRAD_F32_LIMIT = 1e-3
+#: phase 14: SGD steps a run -- step 0 checked against the torch tier,
+#: DIST_TRAIN_TIMED timed (forward, backward, update) and the last
+#: DIST_TRAIN_PROFILED profiled -- and the learning rate
+DIST_TRAIN_STEPS, DIST_TRAIN_TIMED, DIST_TRAIN_PROFILED = 6, 3, 2
+DIST_TRAIN_LR = 0.1
 
 
 def fail(msg: str) -> None:
@@ -2279,6 +2326,8 @@ def check_dist_nccl(ref) -> dict:
              f"\n{proc.stderr[-3000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in res["cases"]:
+        if name == "train":
+            continue
         got = torch.load(out_dir / f"{name}.pt").cuda()
         err, tol = max_err(got, ref)
         res["cases"][name].update(max_abs_err_phase4=err, tol=tol)
@@ -2290,6 +2339,50 @@ def check_dist_nccl(ref) -> dict:
     res["wall_s"] = wall
     print(f"[dist] the NCCL process took {wall:.1f} s", flush=True)
     return res
+
+
+def nccl_train_step(m, g, x, y, pgm, local) -> dict:
+    """Phase 14 in the NCCL process: one SGD step of the ring/none plan at
+    P = 1 on the ProcessGroupMesh -- the loss, each gradient (summed over
+    the world of one by NCCL's all-reduce) and the int8 error-feedback
+    all-reduce's output and residual -- bit for bit a LocalMesh((1,))
+    step's; K1's backward launches as the partition implies."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.optim.compression import (init_residuals,
+                                               make_compressed_allreduce)
+    names = [n for n, _ in m.named_parameters()]
+    params = [p for _, p in m.named_parameters()]
+    res = []
+    for mesh in (pgm, local):
+        plan = m.plan_for(g, mesh=mesh, strategy="ring", overlap="none")
+        loss = m.loss_fn(g, x, y, plan=plan)
+        reset_launch_counts()
+        mesh.reset_counts()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        k1b = launch_counts()["seg_agg_bwd"]
+        tree = dict(zip(names, grads))
+        out, resid = make_compressed_allreduce(mesh, "data")(
+            tree, init_residuals(tree))
+        res.append((loss, grads, out, resid, k1b, mesh.collective_bytes(),
+                    dist_expected_k1_bwd(plan)))
+    (lp, gp, op, rp, kp, bp, want), (ll, gl, ol, rl, kl, _, _) = res
+    same = bool(torch.equal(lp, ll)) and all(
+        torch.equal(a, b) for a, b in zip(gp, gl)) and all(
+        torch.equal(op[n], ol[n]) and torch.equal(rp[n], rl[n])
+        for n in names)
+    psum = sum(p.numel() * 4 for p in params)
+    print(f"[nccl] train ring-none: loss {lp.item():.6f}; K1 backward {kp} "
+          f"launches; the backward counted {bp['total']} B (an all-reduce of "
+          f"the {psum} B of gradients, then the int8 wire's); gradients and "
+          f"the int8 error-feedback all-reduce bit for bit LocalMesh((1,)) "
+          f"{same}", flush=True)
+    if not same or kp != kl or kp != want:
+        fail(f"nccl train step: bitwise={same}, K1 backward {kp} / {kl} "
+             f"against {want}")
+    return {"bitwise_local": same, "loss": lp.item(), "k1_bwd": kp,
+            "counted_backward": bp}
 
 
 def dist_nccl(out_dir: str) -> None:
@@ -2313,7 +2406,7 @@ def dist_nccl(out_dir: str) -> None:
     dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
                             rank=0, world_size=1)
     init_s = time.perf_counter() - t0
-    g, x, _, spec = load_dataset("reddit", seed=SEED, device="cuda")
+    g, x, y, spec = load_dataset("reddit", seed=SEED, device="cuda")
     m = make_paper_model("gcn", spec, backend="auto", device="cuda",
                          generator=torch.Generator().manual_seed(SEED))
     pgm = ProcessGroupMesh((1,), ("data",), device="cuda")
@@ -2343,9 +2436,427 @@ def dist_nccl(out_dir: str) -> None:
         torch.save(out.cpu(), Path(out_dir) / f"{name}.pt")
         cases[name] = {"bitwise_local": same, "counted": counted,
                        "k1_launches": k1n}
+    cases["train"] = nccl_train_step(m, g, x, y, pgm, local)
     dist.destroy_process_group()
     print(json.dumps({"backend": "nccl", "world_size": 1, "init_s": init_s,
                       "cases": cases}))
+
+
+def dist_expected_k1_bwd(plan) -> int:
+    """K1 launches of one backward of a distributed plan: for each layer
+    and held shard, P transposed sub-layouts (one a hop on the ring, all P
+    after the all-gather), each the pieces' launch and the fold-back's."""
+    node_ax = plan.axes[0] if plan.partition_kind == "2d" else plan.axis
+    return plan.num_layers * len(plan.mesh.coords) * \
+        plan.mesh.axis_size(node_ax) * 2
+
+
+def transposed_slots(plan) -> dict:
+    """The halos' backward layouts of a plan (its held owners' capped
+    transposed sub-layouts, built here on first need and timed) beside
+    what the uncapped ones would hold -- counted from the partition, never
+    built: each (shard p, owner o) sub-layout's blocks of ``tile`` source
+    rows times its longest block's edges rounded up to 8."""
+    import numpy as np
+    from repro_torch.core.distributed import TRANSPOSE_CAP, shard_tile
+    t0 = time.perf_counter()
+    tl = plan.shard_transposed()
+    build_s = time.perf_counter() - t0
+    pg = plan._node_partition
+    block, nsh = pg.block_size, pg.num_shards
+    tile = shard_tile(block)
+    nblocks = -(-block // tile)
+    uncapped = 0
+    for p in range(nsh):
+        src, _ = pg.shard_edges(p)
+        for o in range(nsh):
+            cnt = np.bincount((src[src // block == o] - o * block) // tile,
+                              minlength=nblocks)
+            uncapped += nblocks * max(8, -(-int(cnt.max()) // 8) * 8)
+    lays = [lay for per in tl.values() for lay in per]
+    pieces = sum(lay.nblocks * lay.emax for lay in lays)
+    folds = sum(lay.fold.nblocks * lay.fold.emax for lay in lays)
+    edges = int(pg.mask.sum().item())
+    return {"layouts": len(lays), "edges": edges, "build_s": build_s,
+            "slots": pieces + folds, "piece_slots": pieces,
+            "fold_slots": folds, "uncapped_slots": uncapped,
+            "bytes_12": 12 * (pieces + folds),
+            "uncapped_bytes_12": 12 * uncapped,
+            "cap": TRANSPOSE_CAP,
+            "max_emax": max(lay.emax for lay in lays),
+            "max_fold_emax": max(lay.fold.emax for lay in lays)}
+
+
+def check_k1_bwd_shards(plan, f: int) -> dict:
+    """Phase 14's kernel check: K1's backward over each of the plan's 16
+    capped transposed ring sub-layouts (shard p, owner o) -- the pieces'
+    launch and the fold-back's -- over a random f32 gradient slab of p's
+    rows at width ``f``, against its plain version (the same two folds
+    in plain PyTorch) per row; two launches bit for bit.  Summed over the
+    16 (one layer's backward sums): kernel ms, plain ms,
+    torch.sparse.mm over each transposed CSR matrix, and the bound over
+    the edges' src, dstl and mask, the gradient rows they read and the
+    rows written."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import seg_agg as k1
+    pg = plan._node_partition
+    block, nsh = pg.block_size, pg.num_shards
+    tl = plan.shard_transposed()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "ops": 0}
+    err = row = lib_err = top = 0.0
+    same, n_launch, slabs, adjs = True, 0, {}, {}
+    for p in range(nsh):
+        src, dstl = pg.shard_edges(p)
+        g = slabs[p] = torch.randn((block, f), generator=gen, device="cuda")
+        for o in range(nsh):
+            t = tl[o][p]
+            kern = lambda: k1.fold_transposed(g, t)  # noqa: E731
+            plain = lambda: kops.seg_agg_transposed(  # noqa: E731
+                t, g, backend="torch")
+            before = k1.seg_agg.launches_bwd
+            got = kern()[:block]
+            n_launch += k1.seg_agg.launches_bwd - before
+            want = plain()
+            torch.cuda.synchronize()
+            diff = (got - want).abs().amax(-1)
+            mag = want.abs().amax(-1)
+            if not bool((diff <= K1_BWD_ROW_LIMIT * mag).all().item()):
+                fail(f"K1 backward over transposed sub-layout ({p}, {o}) "
+                     f"F={f}: a row off the plain version by "
+                     f"{(diff / mag.clamp(min=1e-30)).max().item():.3e}")
+            err = max(err, diff.max().item())
+            row = max(row, (diff / mag.clamp(min=1e-30)).max().item())
+            top = max(top, mag.max().item())
+            same = same and torch.equal(got, kern()[:block])
+            sel = src // block == o
+            s_loc = (src[sel] - o * block).astype(np.int64)
+            d_loc = dstl[sel].astype(np.int64)
+            order = np.argsort(s_loc, kind="stable")
+            crow = np.zeros(block + 1, np.int64)
+            np.cumsum(np.bincount(s_loc, minlength=block), out=crow[1:])
+            adj_t = adjs[p, o] = torch.sparse_csr_tensor(
+                torch.from_numpy(crow).cuda(),
+                torch.from_numpy(d_loc[order]).cuda(),
+                torch.ones(len(s_loc), device="cuda"), size=(block, block))
+            lib_err = max(lib_err, (torch.sparse.mm(adj_t, g) - want)
+                          .abs().max().item())
+            tot["library_ms"] += time_ms(lambda: torch.sparse.mm(adj_t, g),
+                                         5)
+            tot["ms"] += time_ms(kern, 5)
+            tot["plain_ms"] += time_ms(plain, 1)
+            e = len(s_loc)
+            tot["bytes"] += (len(np.unique(d_loc)) * f + block * f
+                             + 3 * e) * 4
+            tot["ops"] += e * f
+            del adj_t, got, want
+    if not same or n_launch != 2 * nsh * nsh:
+        fail(f"K1 backward over the sub-layouts F={f}: repeat equal {same}, "
+             f"{n_launch} launches for {nsh * nsh} sub-layouts")
+    # the same 32 launches (and 16 library calls) on the device alone:
+    # captured in one CUDA graph, replayed
+    pairs = [(p, o) for p in range(nsh) for o in range(nsh)]
+    device_ms = replay_ms(lambda: [k1.fold_transposed(slabs[p], tl[o][p])
+                                   for p, o in pairs], reps=2, rounds=3)
+    library_device_ms = replay_ms(lambda: [torch.sparse.mm(adjs[p, o],
+                                                           slabs[p])
+                                           for p, o in pairs], reps=2,
+                                  rounds=3)
+    del slabs, adjs
+    b_ms, b_by = bound(tot["bytes"], tot["ops"])
+    tol = F32_BAND * SCALE * max(1.0, top)
+    rec = {"name": "seg_agg_bwd_shards", "graph": "reddit", "f_in": f,
+           "f_out": f, "layouts": nsh * nsh, "launches_checked": n_launch,
+           "max_abs_err": err, "row_rel_err": row, "repeat_equal": same,
+           "library_max_abs_err": lib_err, "library_tol": tol,
+           "ms": tot["ms"],
+           "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
+           "library": "torch.sparse.mm, each sub-layout's transposed CSR",
+           "device_ms": device_ms, "library_device_ms": library_device_ms,
+           "bytes": tot["bytes"], "ops": tot["ops"], "bound_ms": b_ms,
+           "bound_by": b_by}
+    rec.update(ratios(rec))
+    print(f"[dist-train] K1 backward over the {nsh * nsh} capped transposed "
+          f"ring sub-layouts F={f}: max_abs_err={err:.3e} row_rel_err="
+          f"{row:.3e} (limit {K1_BWD_ROW_LIMIT:.0e}); repeat_equal={same}; "
+          f"{n_launch // 2} x (pieces + fold-back); ms={tot['ms']:.4f} "
+          f"plain_ms={tot['plain_ms']:.4f} library_ms="
+          f"{tot['library_ms']:.4f} (torch.sparse.mm, max_abs_err "
+          f"{lib_err:.3e}, tol {tol:.3e}) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{tot['bytes']} B) "
+          f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
+          f"{rec['vs_library']:.3f}; on the device alone (CUDA-graph "
+          f"replays) {device_ms:.4f} against torch.sparse.mm's "
+          f"{library_device_ms:.4f}", flush=True)
+    if lib_err > tol:
+        fail(f"torch.sparse.mm off the plain version by {lib_err:.3e}")
+    return rec
+
+
+def gcn_f64_grads(g, x, y, params) -> tuple:
+    """The yardstick of phase 14's gradients: phase 4's gcn (two
+    combine-first GCN layers, mean over the in-neighbours and the vertex,
+    the bias after, ReLU between) and its mean NLL in plain PyTorch in
+    float64 on this card, apart from the port -- (loss, each parameter's
+    gradient in ``params`` order).  The neighbour sums run in chunks of
+    edges through ``index_add_``; at f64 their atomics' order is far
+    below the f32 errors measured against it."""
+    import torch
+    f64 = torch.float64
+    leaves = [p.detach().to(f64).requires_grad_() for p in params]
+    src, dst = g.src.long(), g.dst.long()
+    rdeg = 1.0 / (g.in_deg.to(f64) + 1.0)[:, None]
+    step = 1 << 21
+    h = x.to(f64)
+    for i in range(0, len(leaves), 2):
+        hw = h @ leaves[i]
+        agg = torch.zeros_like(hw)
+        for e in range(0, len(src), step):
+            agg = agg.index_add(0, dst[e:e + step], hw[src[e:e + step]])
+        h = (agg + hw) * rdeg + leaves[i + 1]
+        if i + 2 < len(leaves):
+            h = torch.relu(h)
+    loss = -torch.log_softmax(h, -1).gather(-1, y.long()[:, None]).mean()
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def drive_dist_train(g, x, y, spec) -> dict:
+    """Phase 14: phase 4's gcn trained on full-width Reddit through
+    distributed plans on LocalMeshes of this card (DIST_TRAIN_CASES), then
+    K1's backward over the 16 capped transposed sub-layouts against its
+    plain version (see the module docstring)."""
+    import torch
+    from repro_torch.core.characterize import collective_bytes
+    from repro_torch.core.distributed import LocalMesh
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models.gcn import make_paper_model
+    from repro_torch.optim.compression import (init_residuals,
+                                               make_compressed_allreduce)
+    from torch.profiler import ProfilerActivity, profile
+
+    m = make_paper_model("gcn", spec, backend="auto", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    names = [n for n, _ in m.named_parameters()]
+    params = [p for _, p in m.named_parameters()]
+    init = [p.detach().clone() for p in params]
+    # the yardsticks: for f32 the model's gradients in float64 apart from
+    # the port (GRAD_F32_LIMIT); for bf16 the torch tier's autograd of the
+    # same mesh plan on this card (the plain versions) -- a bf16 gradient
+    # sums terms that cancel, so where its forward rounds moves it by a
+    # large part of its size (the local bf16 plan's is off the f64 one by
+    # several times a leaf's largest magnitude).  Each run also prints the
+    # torch tier's own distance from the f64 gradients
+    ref64 = gcn_f64_grads(g, x, y, params)
+    meshes = {(4,): LocalMesh((4,), ("data",)),
+              (4, 2): LocalMesh((4, 2), ("node", "feat"))}
+    runs, keep, layouts, k1_recs, bwd_launches = {}, {}, None, [], None
+    for label, shape, strategy, overlap, dtype, ef in DIST_TRAIN_CASES:
+        mesh = meshes[shape]
+        with torch.no_grad():
+            for p, v in zip(params, init):
+                p.copy_(v)
+        plan = m.plan_for(g, mesh=mesh, strategy=strategy, overlap=overlap,
+                          dtype=dtype)
+        node_ax = plan.axes[0] if plan.partition_kind == "2d" else plan.axis
+        lay = transposed_slots(plan)
+        if layouts is None and shape == (4,):
+            layouts = lay
+            print(f"[dist-train] the {lay['layouts']} capped transposed "
+                  f"sub-layouts: {lay['slots']} slots ({lay['piece_slots']} "
+                  f"pieces + {lay['fold_slots']} fold-back; "
+                  f"{lay['slots'] / lay['edges']:.3f}x the {lay['edges']} "
+                  f"edges), {lay['bytes_12']} B at 12 B a slot, emax at most "
+                  f"{lay['max_emax']} (fold-back {lay['max_fold_emax']}), "
+                  f"built in {lay['build_s']:.1f} s; uncapped they would "
+                  f"hold {lay['uncapped_slots']} slots "
+                  f"({lay['uncapped_slots'] / lay['edges']:.1f}x, "
+                  f"{lay['uncapped_bytes_12']} B)", flush=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        mesh.reset_counts()
+        loss = m.loss_fn(g, x, y, plan=plan)
+        torch.cuda.synchronize()
+        fwd_c, fwd_b = launch_counts(), collective_bytes(mesh)
+        reset_launch_counts()
+        mesh.reset_counts()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        bwd_c, bwd_b = launch_counts(), collective_bytes(mesh)
+        peak = torch.cuda.max_memory_allocated() - base
+        want_f, want_b = dist_expected_k1(plan), dist_expected_k1_bwd(plan)
+        got = (fwd_c["seg_agg"], bwd_c["seg_agg"], bwd_c["seg_agg_bwd"],
+               fwd_c["fused_agg_combine"] + bwd_c["fused_agg_combine"])
+        if got != (want_f, want_b, want_b, 0):
+            fail(f"{label}: K1 launches (forward, backward, counted "
+                 f"backward, K2) {got}, expected "
+                 f"{(want_f, want_b, want_b, 0)}")
+        if dtype == "bf16" and (fwd_c["seg_agg_bf16_f32"],
+                                bwd_c["seg_agg_bf16_f32"]) != \
+                (want_f, want_b // 2):
+            fail(f"{label}: bf16->f32 launches {fwd_c['seg_agg_bf16_f32']} / "
+                 f"{bwd_c['seg_agg_bf16_f32']}")
+        run_bwd = bwd_c["seg_agg_bwd"]
+        # the backward's wire: the halo's bytes as the forward's; on the
+        # 2-D mesh one (block, fb_out) all-gather a layer for the
+        # psum_scatter
+        pgn = plan._node_partition
+        rs_adj = sum(pgn.block_size * plan.partition.feature_block(lp.dout)
+                     * 4 for lp in plan.layers) \
+            if plan.partition_kind == "2d" else 0
+        wire = dist_wire(plan)
+        if fwd_b["total"] != sum(wire) or \
+                bwd_b["collective-permute"] != fwd_b["collective-permute"] \
+                or bwd_b["all-gather"] != fwd_b["all-gather"] + rs_adj or \
+                bwd_b["reduce-scatter"] or bwd_b["all-reduce"]:
+            fail(f"{label}: counted forward {fwd_b} / backward {bwd_b} "
+                 f"against the schedule {wire}")
+        tloss = m.loss_fn(g, x, y, plan=m.plan_for(
+            g, mesh=mesh, strategy=strategy, overlap=overlap, dtype=dtype,
+            backend="torch"))
+        tier = (tloss.item(), torch.autograd.grad(tloss, params))
+        del tloss
+        if dtype == "bf16":
+            (ref_loss, ref_g), band, yard = tier, BF16_BAND, "torch tier"
+        else:
+            (ref_loss, ref_g), band, yard = ref64, GRAD_F32_LIMIT, "f64"
+        leaf_err = {}
+        for n, a, b, t, r in zip(names, grads, ref_g, tier[1], ref64[1]):
+            top = b.abs().max().item()
+            e = (a.double() - b.double()).abs().max().item() / top
+            leaf_err[n] = {"rel_err": e, "limit": band,
+                           "torch_tier_vs_f64": (t.double() - r).abs().max()
+                           .item() / r.abs().max().item(),
+                           "vs_f64": (a.double() - r).abs().max().item()
+                           / r.abs().max().item()}
+            if not (e <= band and bool(torch.isfinite(a).all().item())):
+                fail(f"{label}: gradient {n} off the {yard} one by {e:.3e} "
+                     f"of its largest magnitude (limit {band:.0e})")
+        if abs(loss.item() - ref_loss) > F32_BAND * SCALE * max(
+                1.0, abs(ref_loss)):
+            fail(f"{label}: loss {loss.item()} against the {yard}'s "
+                 f"{ref_loss}")
+        bitwise = None
+        if label in ("ring/none",):
+            keep[label] = grads
+        elif label == "ring/pipelined":
+            bitwise = all(torch.equal(a, b) for a, b in
+                          zip(grads, keep.pop("ring/none")))
+            if not bitwise:
+                fail("ring/pipelined: step 0's gradients not bit for bit "
+                     "the single-buffered ring's")
+        print(f"[dist-train] {label:20s} step 0: loss {loss.item():.7f} "
+              f"({yard} {ref_loss:.7f}); K1 forward {got[0]} / backward "
+              f"{got[1]} launches (pieces + fold-back); backward counted "
+              f"{bwd_b['total']} B a shard (forward {fwd_b['total']}); "
+              f"gradients vs the {yard} ones over each leaf's largest "
+              f"magnitude (limit {band:.0e}): "
+              + ", ".join(f"{n} {v['rel_err']:.2e}"
+                          for n, v in leaf_err.items())
+              + "; vs f64: this run "
+              + ", ".join(f"{v['vs_f64']:.2e}" for v in leaf_err.values())
+              + ", the torch tier's "
+              + ", ".join(f"{v['torch_tier_vs_f64']:.2e}"
+                          for v in leaf_err.values())
+              + ("" if bitwise is None else
+                 f"; bit for bit ring/none: {bitwise}")
+              + f"; peak {peak / 2**30:.3f} GiB above the inputs",
+              flush=True)
+        # the rest of the run: SGD (through the int8 error-feedback
+        # all-reduce when ef), timed, then profiled
+        allreduce = make_compressed_allreduce(mesh, node_ax) if ef else None
+        residuals = init_residuals(dict(zip(names, params)))
+
+        def update(gr):
+            nonlocal residuals
+            if allreduce is not None:
+                tree, residuals = allreduce(dict(zip(names, gr)), residuals)
+                gr = [tree[n] for n in names]
+            with torch.no_grad():
+                for p, d in zip(params, gr):
+                    p.sub_(DIST_TRAIN_LR * d)
+
+        update(grads)
+        del grads
+        losses, times, prof = [loss.item()], [], None
+        for i in range(1, DIST_TRAIN_STEPS):
+            if i == DIST_TRAIN_STEPS - DIST_TRAIN_PROFILED:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+                window = time.perf_counter()
+            c0 = launch_counts()
+            t0 = time.perf_counter()
+            loss = m.loss_fn(g, x, y, plan=plan)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            c1 = launch_counts()
+            gr = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            c2 = launch_counts()
+            update(gr)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            losses.append(loss.item())
+            run_bwd += c2["seg_agg_bwd"] - c1["seg_agg_bwd"]
+            if (c1["seg_agg"] - c0["seg_agg"], c2["seg_agg"] - c1["seg_agg"],
+                    c2["seg_agg_bwd"] - c1["seg_agg_bwd"]) != \
+                    (want_f, want_b, want_b):
+                fail(f"{label} step {i}: K1 launches off the partition's")
+            if not (losses[-1] == losses[-1] and abs(losses[-1]) < 1e30):
+                fail(f"{label} step {i}: loss {losses[-1]} is not finite")
+            if i <= DIST_TRAIN_TIMED:
+                times.append(((t3 - t0) * 1e3, (t1 - t0) * 1e3,
+                              (t2 - t1) * 1e3))
+            del gr
+        wall = (time.perf_counter() - window) * 1e3
+        prof.__exit__(None, None, None)
+        win = dist_window("dist_train_" + label.replace("/", "_")
+                          .replace(" ", "_"), prof, wall,
+                          DIST_TRAIN_PROFILED)
+        step_ms = sorted(t[0] for t in times)[len(times) // 2]
+        bwd_share = sum(t[2] for t in times) / sum(t[0] for t in times)
+        runs[label] = {
+            "mesh": list(shape), "strategy": strategy,
+            "overlap": plan.overlap, "dtype": dtype, "int8_ef": ef,
+            "losses": losses, "k1_forward": got[0], "k1_backward": got[1],
+            "counted_forward": fwd_b, "counted_backward": bwd_b,
+            "wire_per_layer": wire, "grad_err": leaf_err,
+
+            "bitwise_none": bitwise, "peak_bytes": peak,
+            "step_ms": step_ms, "steps_ms": times, "backward_share":
+            bwd_share, "transposed_build_s": lay["build_s"],
+            "profiled": win}
+        print(f"[dist-train] {label:20s} losses "
+              f"{['%.5f' % v for v in losses]}"
+              + (" (int8 error-feedback all-reduce)" if ef else "")
+              + f"; step {step_ms:.3f} ms on the host clock (median of "
+              f"{len(times)}; forward "
+              f"{sorted(t[1] for t in times)[len(times) // 2]:.3f}, "
+              f"backward {sorted(t[2] for t in times)[len(times) // 2]:.3f}"
+              f", backward share {bwd_share:.3f}); profiled "
+              f"{DIST_TRAIN_PROFILED} steps: wall {win['wall_ms']:.3f} ms, "
+              f"device busy {win['device_busy_ms']:.3f} (K1 "
+              f"{win['k1_ms']:.3f}, copies {win['copy_ms']:.3f}, a copy "
+              f"beside a kernel {win['copy_beside_kernel_ms']:.3f}), "
+              f"{win['kernels']:.0f} kernels a step, idle "
+              f"{win['idle_share']:.3f}", flush=True)
+        if label == "ring/none":
+            bwd_launches = run_bwd
+            k1_recs = [check_k1_bwd_shards(plan, f) for f in (128, 41)]
+        del plan, loss
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        for p, v in zip(params, init):
+            p.copy_(v)
+    return {"runs": runs, "layouts": layouts, "k1_bwd_shards": k1_recs,
+            "bwd_launches": bwd_launches}
 
 
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
@@ -2995,7 +3506,16 @@ def main() -> None:
     dist13 = drive_distributed(g_red, x_red, spec_red, ref13,
                                forwards["gcn_unfused"])
     print(f"[dist] phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    del g_red, x_red, y_red, ref13
+    del ref13
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+
+    # -- 14. distributed training on LocalMeshes of this card
+    t0 = time.perf_counter()
+    dist14 = drive_dist_train(g_red, x_red, y_red, spec_red)
+    print(f"[dist-train] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del g_red, x_red, y_red
     clear_plan_cache()
     torch.cuda.empty_cache()
 
@@ -3021,7 +3541,7 @@ def main() -> None:
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
          "train": train, "serve": serve, "long_rows": long_rows,
-         "distributed": dist13},
+         "distributed": dist13, "dist_train": dist14},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;
@@ -3072,6 +3592,20 @@ def main() -> None:
         "name": "seg_agg_bf16_f32", "route": "cuda", "source": k1_src[0],
         "replaces": k1_src[1], "launches": dist13["launches_bf16_f32"],
         "max_abs_err": max(r["max_abs_err"] for r in dist13["k1_bf16_f32"]),
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+        "frac_of_bound": rec["frac_of_bound"],
+        "vs_library": rec["vs_library"]})
+    # K1's backward over the 16 capped transposed ring sub-layouts at F =
+    # 128, summed (one layer's backward sums, pieces and fold-back): its
+    # launches are phase 14's ring/none run's backward launches
+    rec = dist14["k1_bwd_shards"][0]
+    kernels.append({
+        "name": "seg_agg_bwd_shards", "route": "cuda", "source": k1_src[0],
+        "replaces": k1_src[1], "launches": dist14["bwd_launches"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in dist14["k1_bwd_shards"]),
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],

@@ -20,6 +20,16 @@ host arrays (the minibatch trainer's runtime layouts, with a fixed
 ``emax`` for a CUDA-graph capture); ``transposed_layout`` builds it from a
 layout already on the device (a plan keeps the one of each layout it owns,
 ``GraphExecutionPlan.with_transposed``).
+
+A hub source makes the transposed layout's block as long as its row: a
+dense ``(nblocks, emax)`` array then holds many times the edges (the
+distributed plans' shard sub-layouts of Reddit, 86.5x).  ``cap=`` builds
+the CAPPED form instead: each row is cut into pieces of at most ``cap``
+slots, the pieces packed in order into blocks of at most ``tile_m`` pieces
+and ``cap`` slots, and a small fold-back layout (``BlockedGraph.fold``)
+adds each row's pieces in piece order.  K1 runs both: the first launch
+sums the pieces, the second folds them back into rows, so no row is
+longer than ``cap`` slots and no atomics are needed.
 """
 
 from __future__ import annotations
@@ -47,6 +57,9 @@ class BlockedGraph(NamedTuple):
            each slot mirrors.
     transposed: the layout K1's backward runs over (rows: the sources),
            or None (``transposed_layout`` builds it from this one).
+    fold:  on a capped transposed layout, whose rows are pieces of the
+           sources' rows, the fold-back layout: one row a source, whose
+           slots gather its pieces' sums in piece order; else None.
     """
 
     src: torch.Tensor
@@ -56,6 +69,7 @@ class BlockedGraph(NamedTuple):
     num_vertices: int
     eidx: Optional[torch.Tensor] = None
     transposed: Optional["BlockedGraph"] = None
+    fold: Optional["BlockedGraph"] = None
 
     @property
     def nblocks(self) -> int:
@@ -66,13 +80,15 @@ class BlockedGraph(NamedTuple):
         return int(self.src.shape[1])
 
     def to(self, device) -> "BlockedGraph":
-        """The same layout (and its transposed one) on ``device``."""
+        """The same layout (its transposed and fold-back ones too) on
+        ``device``."""
         return self._replace(
             src=self.src.to(device), dstl=self.dstl.to(device),
             mask=self.mask.to(device),
             eidx=None if self.eidx is None else self.eidx.to(device),
             transposed=None if self.transposed is None
-            else self.transposed.to(device))
+            else self.transposed.to(device),
+            fold=None if self.fold is None else self.fold.to(device))
 
 
 def block_offsets(block_ids: np.ndarray, nblocks: int
@@ -134,26 +150,78 @@ def _block_layout(src: np.ndarray, dst: np.ndarray, v: int, tile_m: int,
 
 
 def _transposed(src: np.ndarray, dst: np.ndarray, slot: np.ndarray,
-                num_rows: int, tile_m: int, dev) -> BlockedGraph:
+                num_rows: int, tile_m: int, dev,
+                cap: Optional[int] = None) -> BlockedGraph:
     """The transposed layout of edges ``src -> dst`` held in forward slots
     ``slot``: regrouped by source (stable, so each source keeps its edges'
     forward order), gathering from the destinations, ``eidx`` the forward
-    slots."""
+    slots; with ``cap``, its capped form (``_capped``)."""
     order = np.argsort(src, kind="stable")
+    if cap is not None:
+        return _capped(dst[order], src[order], slot[order], num_rows,
+                       tile_m, dev, int(cap))
     return _block_layout(dst[order], src[order], num_rows, tile_m, dev,
                          eidx=slot[order])[0]
+
+
+def pack_pieces(lengths: np.ndarray, tile_m: int, cap: int) -> np.ndarray:
+    """First piece of each block when pieces of ``lengths`` slots (each at
+    most ``cap``) are packed in order, greedily: a block takes pieces while
+    it holds fewer than ``tile_m`` and their slots stay within ``cap``."""
+    ends = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])
+    starts, i, n = [], 0, len(lengths)
+    while i < n:
+        starts.append(i)
+        fit = int(np.searchsorted(ends, ends[i] + cap, side="right")) - 1
+        i = max(i + 1, min(i + tile_m, fit))
+    return np.asarray(starts, np.int64)
+
+
+def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
+            num_rows: int, tile_m: int, dev, cap: int) -> BlockedGraph:
+    """The capped transposed layout of slots sorted by ``rows`` (each
+    gathering ``gather``, mirroring ``eidx``): row r's slots cut into
+    pieces of at most ``cap`` in slot order, the pieces packed
+    (``pack_pieces``) into blocks whose piece k is output row ``b * tile_m
+    + k``, and ``fold`` the layout of ``num_rows`` rows gathering each
+    row's pieces in order.  At least one block, so an empty layout still
+    launches."""
+    if cap < 8 or cap % 8:
+        raise ValueError(f"cap must be a positive multiple of 8; got {cap}")
+    n = np.bincount(rows, minlength=num_rows).astype(np.int64)
+    npieces = -(-n // cap)
+    piece_row = np.repeat(np.arange(num_rows, dtype=np.int64), npieces)
+    first_piece = np.concatenate([[0], np.cumsum(npieces)])[:-1]
+    j = np.arange(len(piece_row), dtype=np.int64) - first_piece[piece_row]
+    lengths = np.minimum(cap, n[piece_row] - j * cap)
+    starts = pack_pieces(lengths, tile_m, cap)
+    block = np.searchsorted(starts, np.arange(len(lengths)),
+                            side="right") - 1
+    out_row = block * tile_m + (np.arange(len(lengths)) - starts[block])
+    # slot s of row r lies in piece first_piece[r] + (s - row start) // cap
+    row_start = np.concatenate([[0], np.cumsum(n)])[:-1]
+    piece = first_piece[rows] + (np.arange(len(rows)) - row_start[rows]) \
+        // cap
+    nblocks = max(1, len(starts))
+    pieces = _block_layout(gather, out_row[piece], nblocks * tile_m, tile_m,
+                           dev, eidx=eidx)[0]
+    fold = _block_layout(out_row, piece_row, num_rows, tile_m, dev)[0]
+    return pieces._replace(fold=fold)
 
 
 def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
                        tile_m: int, *, device="cpu",
                        emax: Optional[int] = None,
-                       transpose_rows: Optional[int] = None) -> BlockedGraph:
+                       transpose_rows: Optional[int] = None,
+                       transpose_cap: Optional[int] = None) -> BlockedGraph:
     """``block_graph`` over raw dst-sorted arrays (``block_graph_arrays``,
     :91).  ``num_vertices`` is the destination row count; ``emax`` is the
     largest block's edge count rounded up to 8 (at least 8), or the fixed
     capacity given (a block over it raises).  ``transpose_rows`` (the rows
     of the gathered matrix) also builds the transposed layout K1's
-    backward runs over, from the same host arrays."""
+    backward runs over, from the same host arrays; ``transpose_cap`` its
+    capped form (rows cut into pieces of at most that many slots, with
+    their fold-back layout)."""
     src = np.asarray(src)
     dst = np.asarray(dst)
     dev = torch.device(device)
@@ -161,7 +229,7 @@ def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
     if transpose_rows is not None:
         bg = bg._replace(transposed=_transposed(
             src.astype(np.int64), dst.astype(np.int64), slot,
-            int(transpose_rows), tile_m, dev))
+            int(transpose_rows), tile_m, dev, transpose_cap))
     return bg
 
 

@@ -54,10 +54,40 @@ the node axis on rows F/Q wide, and the Combination is a partial product
 by W's matching row block closed by one ``psum_scatter`` over the feature
 axis.
 
+**Gradients.**  A halo is one ``autograd.Function`` (``_Halo``) over the
+held shards' slabs: its forward is the body above, its backward the SAME
+body run over the output gradients at the wire's dtype, each owner o
+folding the transposed sub-layouts (p, o) -- at ring hop k owner o holds
+``g_{(o-k) mod P}`` and folds sub-layout ((o-k) mod P, o); the all-gather
+gathers the gradients and each owner folds all P.  So the backward moves
+the forward's bytes, adds its partials left to right in the same order
+(none and pipelined bit for bit), and K1 runs it over the capped
+transposed sub-layouts (``shard_transposed_layouts``: rows cut into
+pieces, then K1 over the fold-back), built once on the host, never in a
+backward.  The 2-D layer's ``psum_scatter`` has the all-gather over the
+feature axis as its adjoint (``_PsumScatter``, counted).  On a process
+group three adjoints are not what autograd would give by itself, and
+follow ``shard_map``'s transposes:
+
+  (a) ``assemble`` all-gathers the logits, so every rank computes the
+      same global loss: its adjoint is this rank's own slice of the
+      incoming gradient (``_Assemble``), not a reduce-scatter sum, which
+      would scale every gradient by P;
+  (b) the halo's all-gather feeds each rank different work: its adjoint
+      is a sum over the ranks, which the halo's backward folds make;
+  (c) a replicated parameter (W, the bias) gets this rank's partial
+      gradient: ``Mesh.replicated`` sums it over the world (``psum``, an
+      all-reduce) before the optimizer sees it.
+
+On a ``LocalMesh`` (a) and (c) fall out of autograd (``torch.cat``; one
+shared W).  ``Mesh.psum`` is the counted all-reduce ("all-reduce"):
+``all_reduce`` on a group, the sum of the held shards on a ``LocalMesh``;
+an integer tensor sums in its own dtype (``optim.compression``'s int8
+wire sums int32).
+
 ``halo_bytes``, ``overlap_model``, ``choose_overlap`` and
 ``schedule_wire_bytes`` price the schedules; they are pure arithmetic and
-equal the reference's.  Gradients through the partition are not ported:
-a forward that would need one raises.
+equal the reference's.
 """
 
 from __future__ import annotations
@@ -70,7 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import AUTO, resolve_backend, resolve_device
-from repro_torch.core.dataflow import BlockedGraph, _block_layout
+from repro_torch.core.dataflow import BlockedGraph, _block_layout, _transposed
 from repro_torch.graph.partition import Partition2D, PartitionedGraph
 
 #: the collectives a mesh counts, by the reference's HLO names
@@ -85,6 +115,13 @@ OVERLAP_MODES = ("none", "pipelined")
 #: least modeled saving (a fraction of the single-buffered exchange time)
 #: at which ``choose_overlap`` commits to the pipelined schedule
 OVERLAP_SAVING_THRESHOLD = 0.02
+
+#: slots a row of a transposed shard sub-layout holds at most
+#: (``core.dataflow`` ``cap=``).  At Reddit's 4 shards the uncapped
+#: layouts would hold 86.5x the edges (a hub source's row fills its
+#: block); capped at 1,024 they hold 1.30x, fold-backs included
+#: (``chip_smoke.py`` phase 14 counts both)
+TRANSPOSE_CAP = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +247,13 @@ class Mesh:
         """One ring hop along ``axis``, waited for (``ppermute_start``)."""
         return self.ppermute_start(xs, axis).wait()
 
+    def replicated(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a parameter every shard holds whole, as a layer uses it:
+        on a process group, when ``t`` needs a gradient, through
+        ``_Replicated``, whose backward sums this rank's partial gradient
+        over the world (adjoint (c)); else ``t`` itself."""
+        return t
+
     def _along(self, coord: tuple, axis: str) -> List[tuple]:
         """The coordinates of ``coord``'s group along ``axis``, in order."""
         i = self.axis_names.index(axis)
@@ -292,6 +336,21 @@ class LocalMesh(Mesh):
             outs.append(acc)
         return outs
 
+    def psum(self, xs, axis: Optional[str] = None) -> list:
+        """Each shard gets the sum of its group's tensors along ``axis``
+        (every shard when None), added left to right in coordinate order
+        in their own dtype (``psum``)."""
+        self._count("all-reduce", xs)
+        outs = []
+        for c in self.coords:
+            group = self.coords if axis is None else self._along(c, axis)
+            parts = [xs[self._pos[g]] for g in group]
+            acc = parts[0].clone()
+            for part in parts[1:]:
+                acc = acc + part
+            outs.append(acc)
+        return outs
+
     def assemble(self, xs) -> list:
         """Every shard's tensor, in ``all_coords`` order (all are held)."""
         return list(xs)
@@ -369,15 +428,59 @@ class ProcessGroupMesh(Mesh):
                                          group=self._group(axis))
         return [out]
 
+    def psum(self, xs, axis: Optional[str] = None) -> list:
+        """This rank's tensor summed over its group along ``axis`` (the
+        world when None): one ``all_reduce``, in the tensor's dtype."""
+        self._count("all-reduce", xs)
+        out = xs[0].clone()
+        self._dist.all_reduce(out, group=None if axis is None
+                              else self._group(axis))
+        return [out]
+
+    def replicated(self, t: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and t.requires_grad:
+            return _Replicated.apply(self, t)
+        return t
+
     def assemble(self, xs) -> list:
         """Every shard's tensor in ``all_coords`` order: one all-gather over
-        the world (counted)."""
-        self._count("all-gather", xs)
-        x = xs[0]
-        full = self._gather(x, None, self.size).view(
-            (self.size,) + tuple(x.shape))
+        the world (counted).  Differentiable: the adjoint is this rank's
+        own slice of the gradient (``_Assemble``)."""
+        full = _Assemble.apply(self, xs[0])
         by_rank = {r: full[r] for r in range(self.size)}
         return [by_rank[self.rank_of[c]] for c in self.all_coords]
+
+
+class _Assemble(torch.autograd.Function):
+    """A process group's gather of every rank's tensor, ``(world, ...)``.
+    Every rank then computes the same global function of it, so the
+    gradient a rank receives for its own tensor is its own slice of the
+    incoming one (adjoint (a)); nothing crosses the wire."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        mesh._count("all-gather", [x])
+        ctx.me = mesh.rank_of[mesh.coords[0]]
+        return mesh._gather(x, None, mesh.size).view(
+            (mesh.size,) + tuple(x.shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g[ctx.me].contiguous()
+
+
+class _Replicated(torch.autograd.Function):
+    """Identity forward; the backward sums this rank's partial gradient of
+    a replicated parameter over the world (``mesh.psum``, adjoint (c))."""
+
+    @staticmethod
+    def forward(ctx, mesh, t):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.mesh.psum([g.contiguous()])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +519,35 @@ def shard_layouts(pg: PartitionedGraph, strategy: str, *,
     return out
 
 
+def shard_transposed_layouts(pg: PartitionedGraph, *,
+                             nodes: Optional[Sequence[int]] = None,
+                             device=None) -> Dict[int, list]:
+    """The halos' backward layouts of the owners in ``nodes`` (default
+    all), built on the host once: for owner o a list over shards p of the
+    capped transposed layout of shard p's edges from o's block -- rows
+    o's sources (local to its block), each gathering the gradient row of
+    its edge's destination in p's block, rows longer than
+    ``TRANSPOSE_CAP`` slots cut into pieces with a fold-back layout
+    (``core.dataflow``).  Both strategies' backwards fold them (the
+    all-gather's global-source layouts would have as many rows as the
+    graph)."""
+    dev = pg.src.device if device is None else torch.device(device)
+    block, nsh = pg.block_size, pg.num_shards
+    tile = shard_tile(block)
+    nodes = range(nsh) if nodes is None else nodes
+    out: Dict[int, list] = {o: [] for o in nodes}
+    for p in range(nsh):
+        src, dstl = pg.shard_edges(p)
+        owner = src // block
+        for o in nodes:
+            sel = owner == o
+            s = (src[sel] - o * block).astype(np.int64)
+            out[o].append(_transposed(
+                s, dstl[sel].astype(np.int64), np.arange(len(s)), block,
+                tile, dev, TRANSPOSE_CAP))
+    return out
+
+
 def _check_strategy(strategy: str) -> None:
     if strategy not in _STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; "
@@ -446,8 +578,11 @@ def _local_agg(x_full: torch.Tensor, layout: BlockedGraph, *,
                backend: str) -> torch.Tensor:
     """One shard's local sum over its layout (``_local_agg``, :87):
     ``sum_e x_full[src_e]`` into each of its ``block`` rows, f32 (K1, the
-    bf16-in/f32-out entry for a bf16 slab)."""
+    bf16-in/f32-out entry for a bf16 slab).  Over a capped transposed
+    sub-layout (a backward's), K1 over the pieces, then the fold-back."""
     from repro_torch.kernels import ops as kops
+    if layout.fold is not None:
+        return kops.seg_agg_transposed(layout, x_full, backend=backend)
     return kops.seg_agg_planned(layout, x_full, backend=backend,
                                 out_dtype=torch.float32)
 
@@ -517,6 +652,24 @@ def _ring_local_pipelined(mesh: Mesh, xs, layouts, axis: str, *,
     return accs
 
 
+def _allgather_local_t(mesh: Mesh, gs, tlayouts, axis: str, *,
+                       backend: str) -> list:
+    """The all-gather halo's backward body: gather the axis's output
+    gradients (the forward's bytes), then each owner o folds the
+    transposed sub-layouts (p, o) over shard p's rows, p = 0 .. P-1,
+    adding the partials left to right onto zeros."""
+    nsh = mesh.axis_size(axis)
+    fulls = mesh.all_gather(gs, axis)
+    outs = []
+    for gf, acc, lays in zip(fulls, _ring_acc0(gs), tlayouts):
+        block = gf.shape[0] // nsh
+        for p, lay in enumerate(lays):
+            acc.add_(_local_agg(gf[p * block:(p + 1) * block], lay,
+                                backend=backend))
+        outs.append(acc)
+    return outs
+
+
 _STRATEGIES = {"ring": _ring_local, "allgather": _allgather_local}
 
 
@@ -538,6 +691,66 @@ def _halo_body(strategy: str, overlap: str):
                 "structure to pipeline")
         return _ring_local_pipelined
     return _STRATEGIES[strategy]
+
+
+class _Halo(torch.autograd.Function):
+    """A halo over the held shards' slabs, ``(op, *xs) -> accs`` (f32
+    partial sums).  ``op.forward(xs)`` runs the body; the backward casts
+    the accs' gradients to the wire's dtype (the slabs') and runs
+    ``op.backward`` over them -- the same halo, folding the transposed
+    sub-layouts -- and rounds its f32 sums once to each slab's dtype.  It
+    drives the mesh itself: no gradient flows through a collective."""
+
+    @staticmethod
+    def forward(ctx, op, *xs):
+        ctx.op, ctx.dtypes = op, [x.dtype for x in xs]
+        return tuple(op.forward(list(xs)))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        wire = [g.to(dt).contiguous() for g, dt in zip(gs, ctx.dtypes)]
+        gxs = ctx.op.backward(wire)
+        return (None,) + tuple(g.to(dt) for g, dt in zip(gxs, ctx.dtypes))
+
+
+def _halo(mesh: Mesh, xs, layouts, tlayouts, axis: str, *, strategy: str,
+          overlap: str, backend: str) -> list:
+    """The halo of ``_halo_body(strategy, overlap)`` over the held slabs
+    ``xs`` with their layouts; when a slab needs a gradient, through
+    ``_Halo`` with the held owners' transposed sub-layouts ``tlayouts``
+    (a ring's backward is its own body over them; the all-gather's,
+    ``_allgather_local_t``)."""
+    body = _halo_body(strategy, overlap)
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return body(mesh, xs, layouts, axis, backend=backend)
+    if tlayouts is None:
+        raise ValueError("a halo under autograd needs the transposed shard "
+                         "sub-layouts (shard_transposed_layouts)")
+    back = body if strategy == "ring" else _allgather_local_t
+    op = types.SimpleNamespace(
+        forward=lambda v: body(mesh, v, layouts, axis, backend=backend),
+        backward=lambda g: back(mesh, g, tlayouts, axis, backend=backend))
+    return list(_Halo.apply(op, *xs))
+
+
+class _PsumScatter(torch.autograd.Function):
+    """``mesh.psum_scatter`` over the feature axis, ``(mesh, axis, *xs)``;
+    its adjoint is the all-gather of the output gradients over that axis,
+    laid side by side along the columns (counted by the mesh)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(mesh.psum_scatter(list(xs), axis))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        q = ctx.mesh.axis_size(ctx.axis)
+        gs = [g.contiguous() for g in gs]
+        fulls = ctx.mesh.all_gather(gs, ctx.axis)
+        out = [f.view((q,) + tuple(g.shape)).transpose(0, 1).reshape(
+            g.shape[0], q * g.shape[1]) for f, g in zip(fulls, gs)]
+        return (None, None) + tuple(out)
 
 
 def _held_layouts(mesh: Mesh, layouts, axis: str) -> list:
@@ -598,39 +811,60 @@ def _require_1d(mesh: Mesh, axis: str) -> None:
                          f"{axis!r}; got {mesh}")
 
 
+def _grad_wanted(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _layouts_for(pg: PartitionedGraph, mesh: Mesh, axis: str, strategy: str,
+                 layouts, tlayouts, want_grad: bool, device):
+    """The held shards' forward layouts and, when a gradient is wanted,
+    the held owners' transposed sub-layouts: those given, else built here
+    (on the host, before the forward)."""
+    if layouts is None:
+        layouts = shard_layouts(pg, strategy, device=device)
+    if want_grad and tlayouts is None:
+        tlayouts = shard_transposed_layouts(pg, device=device)
+    return (_held_layouts(mesh, layouts, axis),
+            _held_layouts(mesh, tlayouts, axis) if want_grad else None)
+
+
 def aggregate_allgather(pg: PartitionedGraph, x: torch.Tensor, mesh: Mesh,
-                        axis: str = "data", *, layouts=None,
+                        axis: str = "data", *, layouts=None, tlayouts=None,
                         backend: str = AUTO) -> torch.Tensor:
     """x: (P*block, F) in the partition layout -> the neighbour sums
     (P*block, F), f32 (``aggregate_allgather``, :203).  ``layouts``: the
-    shards' all-gather layouts (default built here, ``shard_layouts``)."""
-    _require_uniform(pg)
-    _require_1d(mesh, axis)
-    backend = resolve_backend(backend, x.device)
-    if layouts is None:
-        layouts = shard_layouts(pg, "allgather", device=x.device)
-    xs = split_shards(mesh, x, pg.block_size, node_axis=axis)
-    out = _allgather_local(mesh, xs, _held_layouts(mesh, layouts, axis),
-                           axis, backend=backend)
-    return assemble_shards(mesh, out, node_axis=axis)
+    shards' all-gather layouts (default built here, ``shard_layouts``);
+    ``tlayouts``: the owners' transposed sub-layouts for a gradient
+    (default built here when ``x`` needs one,
+    ``shard_transposed_layouts``)."""
+    return _aggregate(pg, x, mesh, axis, "allgather", "none", layouts,
+                      tlayouts, backend)
 
 
 def aggregate_ring(pg: PartitionedGraph, x: torch.Tensor, mesh: Mesh,
                    axis: str = "data", *, overlap: str = "none",
-                   layouts=None, backend: str = AUTO) -> torch.Tensor:
+                   layouts=None, tlayouts=None,
+                   backend: str = AUTO) -> torch.Tensor:
     """Ring halo exchange with a partial reduce per hop
     (``aggregate_ring``, :223); ``overlap`` picks the schedule, both equal
-    bit for bit.  ``layouts``: the shards' ring sub-layouts (default built
-    here)."""
+    bit for bit.  ``layouts``: the shards' ring sub-layouts, ``tlayouts``
+    their transposed ones for a gradient (default built here)."""
+    return _aggregate(pg, x, mesh, axis, "ring", overlap, layouts, tlayouts,
+                      backend)
+
+
+def _aggregate(pg, x, mesh, axis, strategy, overlap, layouts, tlayouts,
+               backend) -> torch.Tensor:
     _require_uniform(pg)
     _require_1d(mesh, axis)
-    body = _halo_body("ring", overlap)
+    _halo_body(strategy, overlap)     # validate the (strategy, overlap) pair
     backend = resolve_backend(backend, x.device)
-    if layouts is None:
-        layouts = shard_layouts(pg, "ring", device=x.device)
+    lays, tlays = _layouts_for(pg, mesh, axis, strategy, layouts, tlayouts,
+                               _grad_wanted(x), x.device)
     xs = split_shards(mesh, x, pg.block_size, node_axis=axis)
-    out = body(mesh, xs, _held_layouts(mesh, layouts, axis), axis,
-               backend=backend)
+    out = _halo(mesh, xs, lays, tlays, axis, strategy=strategy,
+                overlap=overlap, backend=backend)
     return assemble_shards(mesh, out, node_axis=axis)
 
 
@@ -826,42 +1060,54 @@ def _resolve_order(pg: PartitionedGraph, order, f_in: int, f_out: int):
                            agg_op="mean", n_mlp_layers=1)
 
 
-def _check_no_grad(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            "gradients through the partition are not ported yet (ROADMAP "
-            "item 11b); run distributed forwards under torch.no_grad()")
-
-
 def gcn_layer_shards(mesh: Mesh, xs, w, bias, rdegs, layouts, *, order: str,
                      strategy: str, axis: str, overlap: str, dtype: str,
-                     backend: str) -> list:
+                     backend: str, tlayouts=None) -> list:
     """One 1-D distributed GCN layer over the held shards' slabs ``xs``
     (each (block, din)), their (block, 1) reciprocal degrees and their
-    layouts; returns the held shards' (block, dout) outputs."""
+    layouts; returns the held shards' (block, dout) outputs.  Under
+    autograd the halo needs the held owners' transposed sub-layouts
+    ``tlayouts``; ``w`` and ``bias`` are replicated (``Mesh.replicated``)."""
     from repro_torch.core.phases import _mm
-    halo = _halo_body(strategy, overlap)
+    _halo_body(strategy, overlap)     # validate the (strategy, overlap) pair
+    ws, bs = _shard_params(mesh, w, bias, len(xs), dtype)
     if dtype == "bf16":
         xs = [x.to(torch.bfloat16) for x in xs]
-        w, bias = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+    def halo(slabs):
+        return _halo(mesh, slabs, layouts, tlayouts, axis,
+                     strategy=strategy, overlap=overlap, backend=backend)
+
     if order == "combine_first":
-        hs = [_reduce_wire(_mm(x, w), dtype) for x in xs]   # the wire's h
-        aggs = halo(mesh, hs, layouts, axis, backend=backend)
-        outs = [(a + h) * r for a, h, r in zip(aggs, hs, rdegs)]
+        hs = [_reduce_wire(_mm(x, wi), dtype)               # the wire's h
+              for x, wi in zip(xs, ws)]
+        outs = [(a + h) * r for a, h, r in zip(halo(hs), hs, rdegs)]
     else:
         xws = [_reduce_wire(x, dtype) for x in xs]          # the wire's x
-        aggs = halo(mesh, xws, layouts, axis, backend=backend)
-        outs = [_mm((a + xw) * r, w) for a, xw, r in zip(aggs, xws, rdegs)]
-    outs = [o + bias for o in outs]
+        outs = [_mm((a + xw) * r, wi)
+                for a, xw, r, wi in zip(halo(xws), xws, rdegs, ws)]
+    outs = [o + b for o, b in zip(outs, bs)]
     return [o.to(torch.bfloat16) for o in outs] if dtype == "bf16" else outs
+
+
+def _shard_params(mesh: Mesh, w, bias, n: int, dtype: str):
+    """W and the bias as each of ``n`` held shards uses them: replicated
+    (``Mesh.replicated``) and, in a bf16 layer, cast once a shard, so each
+    shard's gradient reaches the f32 parameter unrounded and the shards'
+    partials add in f32, as on a process group (and in the reference's
+    ``shard_map``)."""
+    w, bias = mesh.replicated(w), mesh.replicated(bias)
+    if dtype != "bf16":
+        return [w] * n, [bias] * n
+    return ([w.to(torch.bfloat16) for _ in range(n)],
+            [bias.to(torch.bfloat16) for _ in range(n)])
 
 
 def distributed_gcn_layer(pg: PartitionedGraph, x, w, bias, in_deg,
                           mesh: Mesh, *, order: Optional[str] = None,
                           strategy: str = "ring", axis: str = "data",
                           overlap: str = "none", dtype: str = "f32",
-                          layouts=None, backend: str = AUTO):
+                          layouts=None, tlayouts=None, backend: str = AUTO):
     """One distributed GCN layer with explicit phase ordering
     (``distributed_gcn_layer``, :408): combine-first projects each shard's
     rows and exchanges dout-wide rows; aggregate-first exchanges din-wide
@@ -869,24 +1115,24 @@ def distributed_gcn_layer(pg: PartitionedGraph, x, w, bias, in_deg,
     picks the ring's schedule (bit for bit equal); ``dtype`` the plan's
     precision: "bf16" moves bf16 slabs and accumulates f32 partials,
     "int8-agg" fake-quantizes the exchanged operand.  x: (V or P*block,
-    din); returns (P*block, dout).  Model code reaches it through a plan
+    din); returns (P*block, dout), differentiable in x, w and bias (the
+    transposed sub-layouts ``tlayouts`` built here when a gradient is
+    wanted and none are given).  Model code reaches it through a plan
     built with ``mesh=`` (``core/plan.py``)."""
     _require_uniform(pg)
     _require_1d(mesh, axis)
-    _check_no_grad(x, w, bias)
     _halo_body(strategy, overlap)     # validate the (strategy, overlap) pair
     order = _resolve_order(pg, order, int(w.shape[0]), int(w.shape[1]))
     backend = resolve_backend(backend, x.device)
-    if layouts is None:
-        layouts = shard_layouts(pg, strategy, device=x.device)
+    lays, tlays = _layouts_for(pg, mesh, axis, strategy, layouts, tlayouts,
+                               _grad_wanted(x, w, bias), x.device)
     block = pg.block_size
     xs = split_shards(mesh, x, block, node_axis=axis)
     rdeg = _rdeg(in_deg, x.dtype, block * pg.num_shards)
     rdegs = split_shards(mesh, rdeg, block, node_axis=axis)
-    out = gcn_layer_shards(mesh, xs, w, bias, rdegs,
-                           _held_layouts(mesh, layouts, axis), order=order,
+    out = gcn_layer_shards(mesh, xs, w, bias, rdegs, lays, order=order,
                            strategy=strategy, axis=axis, overlap=overlap,
-                           dtype=dtype, backend=backend)
+                           dtype=dtype, backend=backend, tlayouts=tlays)
     return assemble_shards(mesh, out, node_axis=axis)
 
 
@@ -901,45 +1147,54 @@ def pad_features_2d(x: torch.Tensor, p2: Partition2D) -> torch.Tensor:
 
 def gcn_layer_2d_shards(mesh: Mesh, xs, w, bias, rdegs, layouts, *,
                         p2: Partition2D, order: str, strategy: str, axes,
-                        overlap: str, dtype: str, backend: str) -> list:
+                        overlap: str, dtype: str, backend: str,
+                        tlayouts=None) -> list:
     """One 2-D layer over the held shards' (block, fb_in) slabs: the halo
     along the node axis on F/Q-wide columns, a partial product by W's
     matching row block and one ``psum_scatter`` over the feature axis;
-    returns (block, fb_out) slabs (pad columns exact zeros)."""
+    returns (block, fb_out) slabs (pad columns exact zeros).  Under
+    autograd as ``gcn_layer_shards``; the ``psum_scatter``'s adjoint is an
+    all-gather over the feature axis."""
     from repro_torch.core.phases import _mm
     node_ax, feat_ax = axes
     q_sh = p2.feat_shards
     f_in, f_out = int(w.shape[0]), int(w.shape[1])
     fb_in, fb_out = p2.feature_block(f_in), p2.feature_block(f_out)
-    halo = _halo_body(strategy, overlap)
+    _halo_body(strategy, overlap)     # validate the (strategy, overlap) pair
+    ws, bs = _shard_params(mesh, w, bias, len(xs), dtype)
     if dtype == "bf16":
         xs = [x.to(torch.bfloat16) for x in xs]
-        w, bias = w.to(torch.bfloat16), bias.to(torch.bfloat16)
-    # W and the bias zero-padded onto the (Q*fb_in, Q*fb_out) grid: pad x
-    # columns meet zero W rows, pad W columns give zero outputs
-    wp = torch.zeros((q_sh * fb_in, q_sh * fb_out), dtype=w.dtype,
-                     device=w.device)
-    wp[:f_in, :f_out] = w
-    bp = torch.zeros((q_sh * fb_out,), dtype=w.dtype, device=w.device)
-    bp[:f_out] = bias
+    # each shard's W rows and bias columns, zero-padded onto the (Q*fb_in,
+    # Q*fb_out) grid: pad x columns meet zero W rows, pad W columns give
+    # zero outputs
+    pad = torch.nn.functional.pad
     qs = [mesh.index(c, feat_ax) for c in mesh.coords]
-    w_blocks = [wp[q * fb_in:(q + 1) * fb_in] for q in qs]
+    w_blocks = [pad(wi[q * fb_in:(q + 1) * fb_in],
+                    (0, q_sh * fb_out - f_out,
+                     0, fb_in - max(0, min(fb_in, f_in - q * fb_in))))
+                for wi, q in zip(ws, qs)]
+    b_blocks = [pad(bi, (0, q_sh * fb_out - f_out))[q * fb_out:
+                                                    (q + 1) * fb_out]
+                for bi, q in zip(bs, qs)]
 
     def combine(hs):
         # the partial product, closed by a reduce-scatter over the feature
         # axis: each shard receives its own (block, fb_out) columns
-        return mesh.psum_scatter([_mm(h, wq) for h, wq in zip(hs, w_blocks)],
-                                 feat_ax)
+        return list(_PsumScatter.apply(
+            mesh, feat_ax, *[_mm(h, wq) for h, wq in zip(hs, w_blocks)]))
+
+    def halo(slabs):
+        return _halo(mesh, slabs, layouts, tlayouts, node_ax,
+                     strategy=strategy, overlap=overlap, backend=backend)
 
     if order == "combine_first":
         hq = [_reduce_wire(h, dtype) for h in combine(xs)]
-        aggs = halo(mesh, hq, layouts, node_ax, backend=backend)
-        outs = [(a + h) * r for a, h, r in zip(aggs, hq, rdegs)]
+        outs = [(a + h) * r for a, h, r in zip(halo(hq), hq, rdegs)]
     else:
         xws = [_reduce_wire(x, dtype) for x in xs]
-        aggs = halo(mesh, xws, layouts, node_ax, backend=backend)
-        outs = combine([(a + xw) * r for a, xw, r in zip(aggs, xws, rdegs)])
-    outs = [o + bp[q * fb_out:(q + 1) * fb_out] for o, q in zip(outs, qs)]
+        outs = combine([(a + xw) * r
+                        for a, xw, r in zip(halo(xws), xws, rdegs)])
+    outs = [o + b for o, b in zip(outs, b_blocks)]
     return [o.to(torch.bfloat16) for o in outs] if dtype == "bf16" else outs
 
 
@@ -947,7 +1202,8 @@ def distributed_gcn_layer_2d(p2: Partition2D, x, w, bias, in_deg,
                              mesh: Mesh, *, order: Optional[str] = None,
                              strategy: str = "ring", axes=("node", "feat"),
                              overlap: str = "none", dtype: str = "f32",
-                             layouts=None, backend: str = AUTO):
+                             layouts=None, tlayouts=None,
+                             backend: str = AUTO):
     """One GCN layer on a 2-D (node x feature) mesh
     (``distributed_gcn_layer_2d``, :480).  ``x`` in the padded (P*block,
     Q*fblock_in) layout (``pad_features_2d``); returns (P*block,
@@ -955,7 +1211,6 @@ def distributed_gcn_layer_2d(p2: Partition2D, x, w, bias, in_deg,
     ``distributed_gcn_layer``'s; ``axes`` names the (node, feature) axes."""
     pg = p2.nodes
     _require_uniform(pg)
-    _check_no_grad(x, w, bias)
     node_ax, feat_ax = axes
     if mesh.axis_names != tuple(axes):
         raise ValueError(f"a 2-D layer runs on a mesh of axes {tuple(axes)};"
@@ -970,22 +1225,23 @@ def distributed_gcn_layer_2d(p2: Partition2D, x, w, bias, in_deg,
         raise ValueError(f"x must be in the padded 2-D layout {expect}, "
                          f"got {tuple(x.shape)} (see pad_features_2d)")
     backend = resolve_backend(backend, x.device)
-    if layouts is None:
-        layouts = shard_layouts(pg, strategy, device=x.device)
+    lays, tlays = _layouts_for(pg, mesh, node_ax, strategy, layouts,
+                               tlayouts, _grad_wanted(x, w, bias), x.device)
     xs = split_shards(mesh, x, block, node_axis=node_ax, feat_axis=feat_ax,
                       feature_block=fb_in)
     rdeg = _rdeg(in_deg, x.dtype, block * nsh)
     rdegs = split_shards(mesh, rdeg, block, node_axis=node_ax)
-    out = gcn_layer_2d_shards(mesh, xs, w, bias, rdegs,
-                              _held_layouts(mesh, layouts, node_ax), p2=p2,
+    out = gcn_layer_2d_shards(mesh, xs, w, bias, rdegs, lays, p2=p2,
                               order=order, strategy=strategy, axes=axes,
-                              overlap=overlap, dtype=dtype, backend=backend)
+                              overlap=overlap, dtype=dtype, backend=backend,
+                              tlayouts=tlays)
     return assemble_shards(mesh, out, node_axis=node_ax, feat_axis=feat_ax)
 
 
 __all__ = [
     "COLLECTIVES", "OVERLAP_MODES", "OVERLAP_SAVING_THRESHOLD", "Mesh",
-    "LocalMesh", "ProcessGroupMesh", "shard_tile", "shard_layouts",
+    "TRANSPOSE_CAP", "LocalMesh", "ProcessGroupMesh", "shard_tile",
+    "shard_layouts", "shard_transposed_layouts",
     "pad_features", "pad_features_2d", "split_shards", "assemble_shards",
     "aggregate_allgather", "aggregate_ring", "halo_bytes", "halo_bytes_2d",
     "overlap_model", "choose_overlap", "wire_dtype_bytes",

@@ -41,15 +41,39 @@ AGGREGATORS = ("sum", "mean", "max")
 EDGE_CHUNK_BYTES = 1 << 28
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` of two bf16 operands with a
+    backward, which that call lacks: each operand's gradient is the f32
+    product of the f32 output gradient with the other operand upcast
+    (exact), rounded once to bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = (g @ b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] \
+            else None
+        gb = (a.float().t() @ g).to(b.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return ga, gb
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The combination matmul (``phases._mm``, :35).  f32 x f32 is the
     plain ``@``; any reduced operand gives the f32 accumulator: on a card
-    a bf16 x bf16 product runs ``torch.mm(..., out_dtype=float32)``,
-    elsewhere (and for a mixed pair) both operands are upcast, which is
-    exact -- a bf16 x bf16 product fits an f32 mantissa."""
+    a bf16 x bf16 product runs ``torch.mm(..., out_dtype=float32)``
+    (through ``_MmF32`` when a gradient is wanted), elsewhere (and for a
+    mixed pair) both operands are upcast, which is exact -- a bf16 x bf16
+    product fits an f32 mantissa."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return a @ b
     if a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MmF32.apply(a, b)
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 

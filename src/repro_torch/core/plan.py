@@ -34,8 +34,11 @@ Decided ONCE per (graph, model, machine) and replayed on every forward:
     (node, feature) the 2-D one (``partition_2d``); the layers run through
     ``core.distributed``'s ring or all-gather halo with each shard's sums
     in K1 (``strategy=``, the ring's ``overlap=`` schedule, "auto" priced
-    by ``choose_overlap``).  Distributed forwards are inference only, and
-    ``compile()`` of a distributed plan raises (ROADMAP item 11b).
+    by ``choose_overlap``).  The eager distributed forward is
+    differentiable: the halos' backward folds the capped transposed shard
+    sub-layouts, which the plan builds on first need and caches with the
+    shard layouts.  ``compile()`` of a distributed plan raises (ROADMAP
+    item 11b).
 
 A bucket plan (the
 minibatch trainer's) dispatches runtime graphs, each bringing its own
@@ -390,7 +393,9 @@ class GraphExecutionPlan:
         on both tiers (K1's backward on the cuda tier).  A distributed
         plan splits ``x`` into its shards' slabs, runs every layer over
         them and assembles the logits (a process group gathers them on
-        every rank); it is inference only.
+        every rank); under autograd each replicated parameter's gradient
+        comes out summed over the mesh, on every rank
+        (``core.distributed``'s adjoints).
         """
         if compiled:
             if _probe is not None:
@@ -550,7 +555,6 @@ class GraphExecutionPlan:
         bias = bias_post if bias_post is not None else b_inline
         if bias is None:
             bias = torch.zeros((w.shape[1],), dtype=w.dtype, device=w.device)
-        dist._check_no_grad(w, bias, *shards)
         node_ax, feat_ax = self._dist_axes()
         pg = self._node_partition
         rdeg = dist._rdeg(self.g.in_deg, shards[0].dtype,
@@ -558,9 +562,12 @@ class GraphExecutionPlan:
         rdegs = dist.split_shards(self.mesh, rdeg, pg.block_size,
                                   node_axis=node_ax)
         lays = dist._held_layouts(self.mesh, self.shard_layouts, node_ax)
+        tlays = dist._held_layouts(self.mesh, self.shard_transposed(),
+                                   node_ax) \
+            if dist._grad_wanted(w, bias, *shards) else None
         kw = dict(order=lp.order, strategy=self.strategy,
                   overlap=self.overlap, dtype=self.dtype,
-                  backend=lp.backend)
+                  backend=lp.backend, tlayouts=tlays)
         if feat_ax is not None:
             thunk = lambda: dist.gcn_layer_2d_shards(  # noqa: E731
                 self.mesh, shards, w, bias, rdegs, lays, p2=self.partition,
@@ -580,6 +587,16 @@ class GraphExecutionPlan:
         return _phase(probe, "distributed", thunk, lp=lp,
                       feature_len=agg_len, overlap=self.overlap,
                       quant_error=qerr)
+
+    def shard_transposed(self) -> Dict[int, list]:
+        """The halos' backward layouts of the held node shards
+        (``core.distributed.shard_transposed_layouts``): built on the host
+        on first need, then cached with the shard layouts, so no backward
+        builds one."""
+        node_ax, _ = self._dist_axes()
+        nodes = tuple(sorted({self.mesh.index(c, node_ax)
+                              for c in self.mesh.coords}))
+        return _shard_transposed_for(self.g, self._node_partition, nodes)
 
     def instrument(self, machine=None, warmup: int = 0):
         """Wrap this plan for characterization (``instrument``, :488).
@@ -1075,7 +1092,9 @@ def _execute_layer(g: Graph, lp: LayerPlan, x: torch.Tensor, weights, *,
 _PLAN_CACHE: Dict = {}      # (graph_key, spec_key) -> (src_ref, plan)
 _BLOCKED_CACHE: Dict = {}   # (graph_key, tile_m)   -> (src_ref, BlockedGraph)
 _REORDER_CACHE: Dict = {}   # graph_key -> (src_ref, reordered Graph, perm)
-#: (graph_key, shards, strategy, held nodes, device) -> (src_ref, layouts)
+#: (graph_key, shards, strategy, held nodes, device) -> (src_ref, layouts);
+#: (graph_key, shards, "transposed", held nodes, device, cap) -> (src_ref,
+#: the halos' backward layouts)
 _SHARD_CACHE: Dict = {}
 _CACHE_LIMIT = 64
 
@@ -1169,6 +1188,24 @@ def _shard_layouts_for(g: Graph, pg, strategy: str, nodes: Tuple[int, ...]):
         return hit[1]
     _evict_oldest(_SHARD_CACHE)
     lays = shard_layouts(pg, strategy, nodes=nodes, device=g.device)
+    _SHARD_CACHE[key] = (g.src, lays)
+    return lays
+
+
+def _shard_transposed_for(g: Graph, pg, nodes: Tuple[int, ...]):
+    """The capped transposed shard sub-layouts of owners ``nodes``
+    (``core.distributed.shard_transposed_layouts``), built once per graph,
+    shard count and device, beside the shard layouts in ``_SHARD_CACHE``:
+    both strategies' backwards fold the same ones."""
+    from repro_torch.core.distributed import (TRANSPOSE_CAP,
+                                              shard_transposed_layouts)
+    key = (_graph_key(g), pg.num_shards, "transposed", nodes,
+           str(g.device), TRANSPOSE_CAP)
+    hit = _SHARD_CACHE.get(key)
+    if hit is not None and hit[0] is g.src:
+        return hit[1]
+    _evict_oldest(_SHARD_CACHE)
+    lays = shard_transposed_layouts(pg, nodes=nodes, device=g.device)
     _SHARD_CACHE[key] = (g.src, lays)
     return lays
 

@@ -21,7 +21,11 @@ transposed layout (``core.dataflow``)::
 
     gx[u] = sum_{slots e with src[e] = u} mask[e] * weight[e] * gout[dst[e]]
 
-so on a card both directions launch the kernel.  ``seg_agg.launches``
+so on a card both directions launch the kernel.  Over a capped transposed
+layout (``core.dataflow``, ``cap=``: rows cut into pieces) the backward
+is two launches of the same kernel, ``fold_transposed``: the pieces' sums
+in f32, then the fold-back layout adding each row's pieces in order,
+rounded once to x's dtype.  ``seg_agg.launches``
 counts the launches, ``seg_agg.launches_bf16`` the bf16 ones,
 ``seg_agg.launches_bf16_f32`` those of bf16 x with an f32 output and
 ``seg_agg.launches_bwd`` the backward ones among them.  The kernel
@@ -258,13 +262,32 @@ def _fold(x, src, dstl, mask, weight, tile_m: int, *,
     return out
 
 
+def fold_transposed(g: torch.Tensor, t, weight: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """K1's backward fold of ``g`` over the transposed layout ``t`` (a
+    ``core.dataflow.BlockedGraph``), ``(t rows, F)``: one backward launch,
+    or over a capped layout two -- the pieces' sums in f32 (x's own dtype
+    when uncapped), then ``t.fold`` adding each row's pieces in piece
+    order, in f32.  ``weight``: the per-slot weights of ``t``'s slots.
+    The plain version on the CPU, as ``_fold``."""
+    if t.fold is None:
+        return _fold(g, t.src, t.dstl, t.mask, weight, t.tile_m,
+                     backward=True)
+    parts = _fold(g, t.src, t.dstl, t.mask, weight, t.tile_m, backward=True,
+                  out_dtype=torch.float32)
+    f = t.fold
+    return _fold(parts, f.src, f.dstl, f.mask, None, f.tile_m, backward=True)
+
+
 class SegAgg(torch.autograd.Function):
     """K1 with its backward.  Forward: the fold.  Backward for ``x``: the
     same fold over the transposed layout (the one given, or else
     ``core.dataflow.transposed_layout`` of the forward one, built in this
-    backward), the weights regrouped through its ``eidx``; nothing
-    launches when ``x`` needs no gradient.  The layout, mask and weights
-    get none."""
+    backward), the weights regrouped through its ``eidx``; over a capped
+    transposed layout, the pieces and then the fold-back
+    (``fold_transposed``), rounded once to x's dtype.  Nothing launches
+    when ``x`` needs no gradient.  The layout, mask and weights get
+    none."""
 
     @staticmethod
     def forward(ctx, x, src, dstl, mask, weight, tile_m, transposed,
@@ -288,8 +311,7 @@ class SegAgg(torch.autograd.Function):
                 ctx.rows)
         wt = None if weight is None else \
             weight.reshape(-1)[t.eidx.long()].contiguous()
-        gx = _fold(gout.contiguous(), t.src, t.dstl, t.mask, wt, t.tile_m,
-                   backward=True)
+        gx = fold_transposed(gout.contiguous(), t, wt)
         return (gx[:ctx.rows].to(ctx.x_dtype),) + (None,) * 7
 
 
@@ -305,9 +327,10 @@ def seg_agg(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     first and are sorted by ``dstl``, as ``core.dataflow.block_graph`` lays
     them out; ``src`` in ``[0, V)``); mask, weight: (nblocks, emax) f32
     (``weight`` optional; neither may require a gradient); transposed: the
-    layout's ``core.dataflow.BlockedGraph.transposed`` for the backward,
-    or None to build it from this layout in each backward (a host
-    regroup: callers that run many backward passes keep it); out_dtype:
+    layout's ``core.dataflow.BlockedGraph.transposed`` for the backward
+    (its capped form too), or None to build it from this layout in each
+    backward (a host regroup: callers that run many backward passes keep
+    it); out_dtype:
     the output's dtype, default x's (``torch.float32`` with bf16 x: the
     f32 sums unrounded).
     Returns (nblocks * tile_m, F) in out_dtype: f32 sums, rounded once for

@@ -1,13 +1,22 @@
-"""int8 error-feedback gradient compression, the math
-(``repro/optim/compression.py``, :33-98).
+"""int8 error-feedback gradient compression
+(``repro/optim/compression.py``).
 
 Per leaf: ``g_eff = g + residual``, ``scale = max|g_eff| / 127``,
 ``q = round(g_eff / scale)`` in int8, ``residual' = g_eff - q * scale``.
 The residual carries each step's quantization error into the next, so
-over time the sent values track the true gradients.  The all-reduce that
-puts ``q`` on the wire (``compressed_psum_leaf``,
-``make_compressed_allreduce``) needs a process group and goes with
-distributed training (ROADMAP item 11b).
+over time the sent values track the true gradients.
+
+``compressed_psum_leaf`` puts ``q`` on the wire: an all-reduce of ``q``
+as an int32 sum (``Mesh.psum`` of ``core.distributed``: ``all_reduce`` on
+a process group, the sum of the held shards on a ``LocalMesh``) and one of
+the scales, the output ``wire * mean scale / n``.
+``make_compressed_allreduce(mesh, axis)`` applies it to every leaf of a
+gradient tree.  Its contract is the reference's: gradients replicated
+along ``axis`` in, their mean out (on a ``LocalMesh`` every held shard
+holds the same replica and residual), and the new residuals.  On a
+process group, the plan's backward already sums each rank's partial
+gradient over the world (``core.distributed``, adjoint (c)), so the
+gradients that come in are the replicas this contract takes.
 """
 
 from __future__ import annotations
@@ -16,7 +25,8 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch.optim.optimizer import tree_map
+from repro_torch.optim.optimizer import tree_leaves, tree_map, \
+    tree_unflatten
 
 
 def _quantize(g: torch.Tensor, residual: torch.Tensor
@@ -28,6 +38,37 @@ def _quantize(g: torch.Tensor, residual: torch.Tensor
     q = torch.clamp(torch.round(g_eff / scale), -127, 127).to(torch.int8)
     new_residual = g_eff - q.float() * scale
     return q, scale, new_residual
+
+
+def compressed_psum_leaf(mesh, g: torch.Tensor, residual: torch.Tensor,
+                         axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-reduce one gradient leaf in int8 over ``axis`` of ``mesh``
+    (``compressed_psum_leaf``, :42): (the mean gradient in g's dtype, the
+    new residual).  ``g`` and ``residual`` are this process's replica; on
+    a ``LocalMesh`` every held shard contributes the same one.  The wire
+    is ``q`` summed as int32 (at most 127 P, exact); each shard sent
+    ``q_i * scale_i``, and dequantizing with the mean scale is exact when
+    the scales agree -- the error lands in the residual either way."""
+    q, scale, new_residual = _quantize(g, residual)
+    held = len(mesh.coords)
+    wire = mesh.psum([q.to(torch.int32)] * held, axis)[0]
+    scale_sum = mesh.psum([scale] * held, axis)[0]
+    n = float(mesh.axis_size(axis))
+    g_out = wire.to(torch.float32) * (scale_sum / n) / n
+    return g_out.to(g.dtype), new_residual
+
+
+def make_compressed_allreduce(mesh, axis: str = "data"):
+    """``fn(grads, residuals) -> (mean grads, new residuals)`` over trees
+    of tensors (``make_compressed_allreduce``, :55): each leaf through
+    ``compressed_psum_leaf``, in ``tree_leaves`` order (every process of
+    a group takes the same order)."""
+    def allreduce(grads: Any, residuals: Any):
+        outs = [compressed_psum_leaf(mesh, g, r, axis)
+                for g, r in zip(tree_leaves(grads), tree_leaves(residuals))]
+        return (tree_unflatten(grads, [o[0] for o in outs]),
+                tree_unflatten(residuals, [o[1] for o in outs]))
+    return allreduce
 
 
 def init_residuals(grads_like: Any) -> Any:

@@ -1168,3 +1168,136 @@ def test_local_mesh_pipelined_bitwise_none_on_card(card, shape, dtype):
             backend="torch"))
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
     _close(outs[0], want, BF16_TOL if dtype == "bf16" else TOL)
+
+
+# ---------------------------------------------------------------------------
+# distributed training: K1's backward over capped transposed layouts (the
+# pieces, then the fold-back) and gradients through a LocalMesh on the card
+# ---------------------------------------------------------------------------
+
+
+def _hub_transposed(cap, v=70000, fanout=60000, other=40000, seed=5):
+    """A graph whose source 0 feeds ``fanout`` destinations, with its
+    forward layout and the capped transposed one on the card."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.zeros(fanout, np.int64),
+                          rng.integers(1, v, other)])
+    dst = np.concatenate([np.arange(1, fanout + 1),
+                          rng.integers(0, v, other)])
+    order = np.argsort(dst, kind="stable")
+    return block_graph_arrays(src[order], dst[order], v, 128, device="cuda",
+                              transpose_rows=v, transpose_cap=cap)
+
+
+@pytest.mark.parametrize("cap", [256, 1024, 2048])
+@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capped_transposed_fold_matches_plain(card, cap, f, dtype):
+    """K1's backward over a capped transposed layout with a hub row of
+    60,000 slots -- the pieces' sums in f32 (the bf16-in/f32-out entry for
+    bf16), then the fold-back -- per row within the f32 limit of the plain
+    version's two folds and of the uncapped plain fold; two launches each
+    bitwise; both counted as backward launches."""
+    bg = _hub_transposed(cap)
+    t = bg.transposed
+    assert t.emax <= cap and t.fold is not None
+    gen = torch.Generator(device="cuda").manual_seed(cap + f)
+    g = torch.randn((bg.nblocks * bg.tile_m, f), generator=gen,
+                    device="cuda").to(dtype)
+    before = ops.launch_counts()
+    got = k1.fold_transposed(g, t)
+    again = k1.fold_transposed(g, t)
+    launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert launched["seg_agg_bwd"] == launched["seg_agg"] == 4
+    assert launched["seg_agg_bf16_f32"] == (2 if dtype == torch.bfloat16
+                                            else 0)
+    want = ops.seg_agg_transposed(t, g, backend="torch")
+    got = got[:want.shape[0]]
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, again[:want.shape[0]])
+    _rows_close(got, want, ROW_LIMIT[torch.float32])
+    plain = dataflow_plain_transposed(bg, g)
+    _rows_close(got, plain, ROW_LIMIT[torch.float32])
+
+
+def dataflow_plain_transposed(bg, g):
+    """The uncapped transposed layout's plain fold of ``g``, f32."""
+    from repro_torch.core.dataflow import transposed_layout
+    t = transposed_layout(bg, bg.num_vertices)
+    return k1.seg_agg_plain(g, t.src, t.dstl, t.mask, tile_m=t.tile_m,
+                            out_dtype=torch.float32)[:bg.num_vertices]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_bf16_entries_backward_over_capped_layout(card, out_dtype):
+    """The x gradient of K1 over bf16 x (bf16 output, or f32 through the
+    bf16-in/f32-out entry) with the capped transposed layout: the f32
+    gradient folded by K1 and rounded once to bf16, per row within one
+    bf16 ulp of the plain version's autograd over the same x upcast (the
+    plain version's own autograd over bf16 x adds each row's terms in
+    bf16: 60,000 of them at the hub)."""
+    bg = _hub_transposed(1024)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((bg.num_vertices, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    cot = torch.randn((bg.nblocks * bg.tile_m, 128), generator=gen,
+                      device="cuda")
+    xk = x.clone().requires_grad_()
+    out = k1.seg_agg(xk, bg.src, bg.dstl, bg.mask, tile_m=bg.tile_m,
+                     transposed=bg.transposed, out_dtype=out_dtype)
+    n = k1.seg_agg.launches_bwd
+    (gk,) = torch.autograd.grad((out.float() * cot).sum(), [xk])
+    assert k1.seg_agg.launches_bwd - n == 2 and gk.dtype == torch.bfloat16
+    xp = x.float().requires_grad_()
+    ref = k1.seg_agg_plain(xp, bg.src, bg.dstl, bg.mask, tile_m=bg.tile_m)
+    cot_b = cot if out_dtype is not None else cot.to(torch.bfloat16).float()
+    (gp,) = torch.autograd.grad((ref * cot_b).sum(), [xp])
+    _rows_close(gk, gp.to(torch.bfloat16), AGG_BF16_ROW_LIMIT)
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+@pytest.mark.parametrize("strategy", ["ring", "allgather"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_local_mesh_gradients_on_card(card, shape, strategy, dtype):
+    """Gradients of a mesh plan on the card: K1 forward and backward at
+    the counts the partition implies (a layer: held shards x hops
+    forward, and twice held shards x P backward -- the pieces and the
+    fold-back), ring none bit for bit pipelined, each leaf within the
+    band of the torch tier's autograd of the same mesh plan on the card
+    (the plain versions), relative to the leaf's largest magnitude; in
+    f32 1-D also of the local plan's.  (A gradient sums terms that
+    cancel: where a bf16 forward rounds, or the order of a 2-D plan's Q
+    partial products, moves it by far more than a kernel's ulps.)"""
+    from repro_torch.core.distributed import LocalMesh
+    spec, g, x = card
+    y = torch.from_numpy(np.random.default_rng(0).integers(
+        0, spec.num_classes, spec.num_vertices)).cuda()
+    names = ("data",) if len(shape) == 1 else ("node", "feat")
+    m = make_paper_model("gcn", spec, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    params = list(m.parameters())
+    local = torch.autograd.grad(m.loss_fn(g, x, y, plan=m.plan_for(
+        g, backend="torch")), params)
+    ref = torch.autograd.grad(m.loss_fn(g, x, y, plan=m.plan_for(
+        g, mesh=LocalMesh(shape, names), strategy=strategy, dtype=dtype,
+        backend="torch")), params)
+    overlaps = ("none", "pipelined") if strategy == "ring" else ("none",)
+    grads = []
+    for ov in overlaps:
+        mesh = LocalMesh(shape, names)
+        plan = m.plan_for(g, mesh=mesh, strategy=strategy, overlap=ov,
+                          dtype=dtype)
+        loss = m.loss_fn(g, x, y, plan=plan)
+        ops.reset_launch_counts()
+        grads.append(torch.autograd.grad(loss, params))
+        c = ops.launch_counts()
+        held, p = mesh.size, shape[0]
+        assert c["seg_agg_bwd"] == c["seg_agg"] == 2 * 2 * held * p
+    for a, b in zip(grads[0], grads[-1]):
+        assert torch.equal(a, b)
+    tol = BF16_TOL if dtype == "bf16" else TOL
+    for a, b in zip(grads[0], ref):
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+    if dtype == "f32" and len(shape) == 1:
+        for a, b in zip(grads[0], local):
+            assert (a - b).abs().max().item() <= tol * b.abs().max().item()

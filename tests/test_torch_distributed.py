@@ -560,8 +560,15 @@ def test_distributed_plan_refusals():
         plan.compile()
     with pytest.raises(ValueError, match="edge-derived shards"):
         plan.run_model(tm.tree(), TX, graph=TG)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tm(TG, TX, plan=plan)              # grad mode, parameters need one
+    # grad mode, parameters need one: the forward is differentiable, and
+    # the logits' backward fills every parameter's gradient
+    tm.zero_grad()
+    logits = tm(TG, TX, plan=plan)
+    assert logits.requires_grad
+    logits.sum().backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               and bool(p.grad.abs().sum() > 0) for p in tm.parameters())
+    tm.zero_grad()
     with pytest.raises(ValueError, match="computes on"):
         tplan.build_plan(TG, TCFG, TSPEC.feature_len, TSPEC.num_classes,
                          device="cpu", mesh=tdist.LocalMesh(

@@ -1,4 +1,5 @@
-"""Distributed GCN inference on ``torch.distributed`` ranks (gloo, CPU).
+"""Distributed GCN inference and training on ``torch.distributed`` ranks
+(gloo, CPU).
 
 Each test spawns one process per rank (this file run as a script, which
 imports torch and the port only), with the rendezvous through a
@@ -13,6 +14,19 @@ that
 the bytes its collectives counted equal ``schedule_wire_bytes`` layer by
 layer (the instrumented run) and over the forward.  The test then holds
 the logits to the reference's unsharded eager forward, in the band.
+
+Training (``--train-worker``): each rank takes one SGD step of the mean
+NLL through a ``ProcessGroupMesh`` plan (TRAIN_CASES).  Its gradients --
+the rank's partials summed over the world by the plan's backward
+(``core.distributed`` adjoint (c)) -- are held to a ``LocalMesh`` plan's
+in the same process: bit for bit at world 2, where the two partials a
+sum adds come out the same in either order, and in the f32 band at
+worlds 4 and 2 x 2, where gloo's all-reduce adds four partials in its
+own order.  The backward's counted bytes: the halo's as the forward's,
+the logits' gather none (its adjoint is the rank's own slice), one
+all-reduce of every parameter's gradient.  World 2 also runs the int8
+error-feedback all-reduce (``make_compressed_allreduce``) over the
+gradients, bit for bit the ``LocalMesh``'s.
 
 By hand (two ranks, 1-D)::
 
@@ -41,6 +55,9 @@ PG_TIMEOUT_S = 60
 #: the cases each rank runs: (strategy, overlap, dtype)
 CASES = [("allgather", "none", "f32"), ("ring", "none", "f32"),
          ("ring", "pipelined", "f32"), ("ring", "pipelined", "bf16")]
+#: the training step's cases
+TRAIN_CASES = [("allgather", "none", "f32"), ("ring", "none", "f32"),
+               ("ring", "pipelined", "f32"), ("ring", "pipelined", "bf16")]
 
 
 def _setup():
@@ -113,7 +130,88 @@ def worker(rank: int, world: int, store: str, shape: str, out_dir: str):
     dist.destroy_process_group()
 
 
-def _spawn(tmp_path, world: int, shape: str) -> list:
+def train_worker(rank: int, world: int, store: str, shape: str,
+                 out_dir: str):
+    """One SGD step a TRAIN_CASES case on a ProcessGroupMesh, against a
+    LocalMesh plan of the same shape in this process."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.graph.datasets import make_labels
+    from repro_torch.optim.compression import (init_residuals,
+                                               make_compressed_allreduce)
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    dims = tuple(int(n) for n in shape.split("x"))
+    names = ("data",) if len(dims) == 1 else ("node", "feat")
+    spec, g, x, _, model = _setup()
+    y = make_labels(spec, device="cpu")
+    mesh = tdist.ProcessGroupMesh(dims, names, device="cpu")
+    local = tdist.LocalMesh(dims, names, device="cpu")
+    names_p = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    param_bytes = sum(p.numel() * 4 for p in params)
+    results = {}
+    for strategy, overlap, dtype in TRAIN_CASES:
+        kw = dict(strategy=strategy, overlap=overlap, dtype=dtype)
+        plan = model.plan_for(g, mesh=mesh, **kw)
+        mesh.reset_counts()
+        loss = model.loss_fn(g, x, y, plan=plan)
+        fwd = mesh.collective_bytes()
+        mesh.reset_counts()
+        grads = torch.autograd.grad(loss, params)
+        bwd = mesh.collective_bytes()
+        want_loss = model.loss_fn(g, x, y, plan=model.plan_for(
+            g, mesh=local, **kw))
+        want = torch.autograd.grad(want_loss, params)
+        two_d = plan.partition_kind == "2d"
+        pg = plan.partition.nodes if two_d else plan.partition
+        last = plan.layers[-1]
+        fb = plan.partition.feature_block(last.dout) if two_d else last.dout
+        egress = pg.block_size * fb * (2 if dtype == "bf16" else 4)
+        # the psum_scatter's adjoint: one (block, fb_out) all-gather a layer
+        rs_adj = sum(pg.block_size * plan.partition.feature_block(lp.dout)
+                     * 4 for lp in plan.layers) if two_d else 0
+        name = f"{strategy}-{overlap}-{dtype}"
+        results[name] = {
+            "loss_bitwise": bool(torch.equal(loss, want_loss)),
+            "bitwise": [bool(torch.equal(a, b)) for a, b in zip(grads, want)],
+            "rel_err": [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(grads, want)],
+            "ppermute": [fwd["collective-permute"],
+                         bwd["collective-permute"]],
+            "all_gather": [fwd["all-gather"] - egress + rs_adj,
+                           bwd["all-gather"]],
+            "all_reduce": [param_bytes, bwd["all-reduce"]],
+            "reduce_scatter_bwd": bwd["reduce-scatter"],
+            "names": names_p,
+        }
+        if world == 2 and name == "ring-none-f32":
+            tree = dict(zip(names_p, grads))
+            ltree = dict(zip(names_p, want))
+            out, res = make_compressed_allreduce(mesh, "data")(
+                tree, init_residuals(tree))
+            lout, lres = make_compressed_allreduce(local, "data")(
+                ltree, init_residuals(ltree))
+            results["int8_ef"] = {
+                "bitwise": all(torch.equal(out[n], lout[n])
+                               and torch.equal(res[n], lres[n])
+                               for n in names_p),
+                "err_over_scale": max(
+                    float((out[n] - tree[n]).abs().max()
+                          / (tree[n].abs().max() / 127)) for n in names_p)}
+    with open(os.path.join(out_dir, f"train-{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.destroy_process_group()
+
+
+def _spawn(tmp_path, world: int, shape: str,
+           mode: str = "--worker") -> list:
     """Run ``world`` ranks to completion within ``DEADLINE_S``; returns
     each rank's results.  Any rank failing or the deadline passing fails
     the test, and every rank is killed."""
@@ -121,7 +219,7 @@ def _spawn(tmp_path, world: int, shape: str) -> list:
                OMP_NUM_THREADS="1")
     store = str(tmp_path / "store")
     procs = [subprocess.Popen(
-        [sys.executable, __file__, "--worker", str(r), str(world), store,
+        [sys.executable, __file__, mode, str(r), str(world), store,
          shape, str(tmp_path)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline = time.monotonic() + DEADLINE_S
@@ -137,7 +235,8 @@ def _spawn(tmp_path, world: int, shape: str) -> list:
     logs = [p.communicate()[0] for p in procs]
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log[-3000:]}"
-    return [json.loads((tmp_path / f"result-{r}.json").read_text())
+    prefix = "result" if mode == "--worker" else "train"
+    return [json.loads((tmp_path / f"{prefix}-{r}.json").read_text())
             for r in range(world)]
 
 
@@ -203,6 +302,35 @@ def test_gloo_ranks_2d_match_local_mesh(tmp_path):
     _check(tmp_path, results, 4)
 
 
+@pytest.mark.parametrize("shape", ["2", "4", "2x2"])
+def test_gloo_ranks_train_step_matches_local_mesh(tmp_path, shape):
+    """One SGD step's gradients on gloo ranks (world 2, 4, 2 x 2) equal a
+    LocalMesh plan's: bit for bit at world 2, in the f32 band (bf16's for
+    the bf16 case) at 4 and 2 x 2; the loss bit for bit; the backward's
+    bytes as scheduled; at world 2 the int8 error-feedback all-reduce
+    bit for bit the LocalMesh's, within a scale of the gradient."""
+    world = int(np.prod([int(n) for n in shape.split("x")]))
+    results = _spawn(tmp_path, world, shape, "--train-worker")
+    band = {"f32": 1e-5 * 10, "bf16": 3e-2}
+    for r, res in enumerate(results):
+        for strategy, overlap, dtype in TRAIN_CASES:
+            got = res[f"{strategy}-{overlap}-{dtype}"]
+            assert got["loss_bitwise"], (r, strategy, overlap, dtype)
+            if world == 2:
+                assert all(got["bitwise"]), (r, strategy, overlap, got)
+            else:
+                assert max(got["rel_err"]) <= band[dtype], (r, got)
+            for key in ("ppermute", "all_gather", "all_reduce"):
+                assert got[key][0] == got[key][1], (r, key, got)
+            assert got["reduce_scatter_bwd"] == 0
+        if world == 2:
+            assert res["int8_ef"]["bitwise"], res["int8_ef"]
+            assert res["int8_ef"]["err_over_scale"] <= 1.01
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
     worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5],
            sys.argv[6])
+elif __name__ == "__main__" and sys.argv[1:2] == ["--train-worker"]:
+    train_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                 sys.argv[5], sys.argv[6])
