@@ -174,7 +174,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                 fold-back), the backward's counted bytes against the
                 forward's, the loss and each gradient leaf: f32 against
                 the model's gradients in float64 on the card, apart from
-                the port (GRAD_F32_LIMIT of the leaf's largest magnitude),
+                the port (GRAD_F32_LIMITS of the leaf's largest magnitude,
+                a limit for each layer's leaves),
                 bf16 against the torch tier's autograd of the same mesh
                 plan (3e-2), each beside the torch tier's own distance from
                 the f64 gradients; ring none bit for
@@ -357,13 +358,14 @@ DIST_TRAIN_CASES = [
     ("ring/pipelined bf16", (4,), "ring", "pipelined", "bf16", False),
     ("2d ring/pipelined", (4, 2), "ring", "pipelined", "f32", False)]
 #: phase 14: an f32 gradient leaf against the float64 yardstick
-#: (``gcn_f64_grads``), over the leaf's largest magnitude.  The W and bias
-#: gradients of the first layer sum terms that cancel, so any f32 order
-#: lands well off the f64 sums: on the H100 the plain versions' own (the
-#: torch tier, local or the same mesh plan) read up to 1.9e-4 in 1-D and
-#: 3.3e-4 in 2-D, two torch-tier runs 6.1e-5 and 1.9e-4 (PERF.md §6);
-#: the second layer's leaves read ~1e-6
-GRAD_F32_LIMIT = 1e-3
+#: (``gcn_f64_grads``), over the leaf's largest magnitude, a limit for
+#: each layer's leaves.  The W and bias gradients of the first layer sum
+#: terms that cancel, so any f32 order lands well off the f64 sums: on the
+#: H100 the plain versions' own (the torch tier of the same mesh plan)
+#: read up to 1.9e-4 in 1-D and 3.3e-4 in 2-D.  The second layer's leaves
+#: read 0.95e-6 to 1.14e-6 on every path, the torch tier's too; bf16, the
+#: control, reads 0.24 or more on every leaf (PERF.md §6)
+GRAD_F32_LIMITS = {"conv0": 1e-3, "conv1": 1e-5}
 #: phase 14: SGD steps a run -- step 0 checked against the torch tier,
 #: DIST_TRAIN_TIMED timed (forward, backward, update) and the last
 #: DIST_TRAIN_PROFILED profiled -- and the learning rate
@@ -2643,7 +2645,7 @@ def drive_dist_train(g, x, y, spec) -> dict:
     params = [p for _, p in m.named_parameters()]
     init = [p.detach().clone() for p in params]
     # the yardsticks: for f32 the model's gradients in float64 apart from
-    # the port (GRAD_F32_LIMIT); for bf16 the torch tier's autograd of the
+    # the port (GRAD_F32_LIMITS); for bf16 the torch tier's autograd of the
     # same mesh plan on this card (the plain versions) -- a bf16 gradient
     # sums terms that cancel, so where its forward rounds moves it by a
     # large part of its size (the local bf16 plan's is off the f64 one by
@@ -2723,19 +2725,21 @@ def drive_dist_train(g, x, y, spec) -> dict:
         if dtype == "bf16":
             (ref_loss, ref_g), band, yard = tier, BF16_BAND, "torch tier"
         else:
-            (ref_loss, ref_g), band, yard = ref64, GRAD_F32_LIMIT, "f64"
+            (ref_loss, ref_g), band, yard = ref64, None, "f64"
         leaf_err = {}
         for n, a, b, t, r in zip(names, grads, ref_g, tier[1], ref64[1]):
             top = b.abs().max().item()
             e = (a.double() - b.double()).abs().max().item() / top
-            leaf_err[n] = {"rel_err": e, "limit": band,
+            lim = GRAD_F32_LIMITS[n.split(".")[0]] if band is None \
+                else band
+            leaf_err[n] = {"rel_err": e, "limit": lim,
                            "torch_tier_vs_f64": (t.double() - r).abs().max()
                            .item() / r.abs().max().item(),
                            "vs_f64": (a.double() - r).abs().max().item()
                            / r.abs().max().item()}
-            if not (e <= band and bool(torch.isfinite(a).all().item())):
+            if not (e <= lim and bool(torch.isfinite(a).all().item())):
                 fail(f"{label}: gradient {n} off the {yard} one by {e:.3e} "
-                     f"of its largest magnitude (limit {band:.0e})")
+                     f"of its largest magnitude (limit {lim:.0e})")
         if abs(loss.item() - ref_loss) > F32_BAND * SCALE * max(
                 1.0, abs(ref_loss)):
             fail(f"{label}: loss {loss.item()} against the {yard}'s "
@@ -2754,8 +2758,8 @@ def drive_dist_train(g, x, y, spec) -> dict:
               f"{got[1]} launches (pieces + fold-back); backward counted "
               f"{bwd_b['total']} B a shard (forward {fwd_b['total']}); "
               f"gradients vs the {yard} ones over each leaf's largest "
-              f"magnitude (limit {band:.0e}): "
-              + ", ".join(f"{n} {v['rel_err']:.2e}"
+              f"magnitude (limit): "
+              + ", ".join(f"{n} {v['rel_err']:.2e} ({v['limit']:.0e})"
                           for n, v in leaf_err.items())
               + "; vs f64: this run "
               + ", ".join(f"{v['vs_f64']:.2e}" for v in leaf_err.values())

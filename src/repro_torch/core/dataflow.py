@@ -23,8 +23,10 @@ layout already on the device (a plan keeps the one of each layout it owns,
 
 A hub source makes the transposed layout's block as long as its row: a
 dense ``(nblocks, emax)`` array then holds many times the edges (the
-distributed plans' shard sub-layouts of Reddit, 86.5x).  ``cap=`` builds
-the CAPPED form instead: each row is cut into pieces of at most ``cap``
+distributed plans' shard sub-layouts of Reddit, 86.5x).
+``_transposed(..., cap)`` builds the CAPPED form instead (the halos'
+backward layouts, ``core.distributed.shard_transposed_layouts``; the
+local plans keep the uncapped form): each row is cut into pieces of at most ``cap``
 slots, the pieces packed in order into blocks of at most ``tile_m`` pieces
 and ``cap`` slots, and a small fold-back layout (``BlockedGraph.fold``)
 adds each row's pieces in piece order.  K1 runs both: the first launch
@@ -212,16 +214,13 @@ def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
 def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
                        tile_m: int, *, device="cpu",
                        emax: Optional[int] = None,
-                       transpose_rows: Optional[int] = None,
-                       transpose_cap: Optional[int] = None) -> BlockedGraph:
+                       transpose_rows: Optional[int] = None) -> BlockedGraph:
     """``block_graph`` over raw dst-sorted arrays (``block_graph_arrays``,
     :91).  ``num_vertices`` is the destination row count; ``emax`` is the
     largest block's edge count rounded up to 8 (at least 8), or the fixed
     capacity given (a block over it raises).  ``transpose_rows`` (the rows
     of the gathered matrix) also builds the transposed layout K1's
-    backward runs over, from the same host arrays; ``transpose_cap`` its
-    capped form (rows cut into pieces of at most that many slots, with
-    their fold-back layout)."""
+    backward runs over, from the same host arrays."""
     src = np.asarray(src)
     dst = np.asarray(dst)
     dev = torch.device(device)
@@ -229,7 +228,7 @@ def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
     if transpose_rows is not None:
         bg = bg._replace(transposed=_transposed(
             src.astype(np.int64), dst.astype(np.int64), slot,
-            int(transpose_rows), tile_m, dev, transpose_cap))
+            int(transpose_rows), tile_m, dev))
     return bg
 
 

@@ -117,7 +117,7 @@ OVERLAP_MODES = ("none", "pipelined")
 OVERLAP_SAVING_THRESHOLD = 0.02
 
 #: slots a row of a transposed shard sub-layout holds at most
-#: (``core.dataflow`` ``cap=``).  At Reddit's 4 shards the uncapped
+#: (``core.dataflow._transposed``'s ``cap``).  At Reddit's 4 shards the uncapped
 #: layouts would hold 86.5x the edges (a hub source's row fills its
 #: block); capped at 1,024 they hold 1.30x, fold-backs included
 #: (``chip_smoke.py`` phase 14 counts both)

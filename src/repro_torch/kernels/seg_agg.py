@@ -21,12 +21,13 @@ transposed layout (``core.dataflow``)::
 
     gx[u] = sum_{slots e with src[e] = u} mask[e] * weight[e] * gout[dst[e]]
 
-so on a card both directions launch the kernel.  Over a capped transposed
-layout (``core.dataflow``, ``cap=``: rows cut into pieces) the backward
-is two launches of the same kernel, ``fold_transposed``: the pieces' sums
-in f32, then the fold-back layout adding each row's pieces in order,
-rounded once to x's dtype.  ``seg_agg.launches``
-counts the launches, ``seg_agg.launches_bf16`` the bf16 ones,
+so on a card both directions launch the kernel.  Over a capped
+transposed layout (``core.dataflow._transposed`` with a cap: rows cut
+into pieces) the backward is two launches of the same kernel,
+``fold_transposed``: the pieces' sums in f32, then the fold-back layout
+adding each row's pieces in order, rounded once to x's dtype.
+``seg_agg.launches`` counts the launches, ``seg_agg.launches_bf16`` the
+bf16 ones,
 ``seg_agg.launches_bf16_f32`` those of bf16 x with an f32 output and
 ``seg_agg.launches_bwd`` the backward ones among them.  The kernel
 walks x in column slices of ``slice_cols`` with 16-, 8-, 4- or (bf16)

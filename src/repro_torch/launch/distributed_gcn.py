@@ -12,8 +12,8 @@ reduced synthetic Cora (``--dataset``, ``--vertices``, ``--features``).
 
 ``--train`` is ``examples/distributed_gcn.py``: cora cut to 512
 vertices and 64 features, x boosted by 4 one-hot(label), GCN 64 -> 16 ->
-7 over 8 ring shards, ``--steps`` (30) SGD steps at ``--lr`` (0.25) on
-the mean NLL, the gradients through ``make_compressed_allreduce`` (int8
+7 over 8 ring shards, ``STEPS`` (30) SGD steps at ``LR`` (0.25) on the
+mean NLL, the gradients through ``make_compressed_allreduce`` (int8
 error feedback), the loss every 5 steps and the final accuracy; then the
 trained params' forward on a 2-D (4, 2) mesh beside the 1-D logits.
 
@@ -45,6 +45,10 @@ from repro_torch.optim.compression import (compression_wire_bytes,
                                            init_residuals,
                                            make_compressed_allreduce)
 from repro_torch.optim.optimizer import tree_map
+
+#: the example's SGD steps and learning rate
+STEPS = 30
+LR = 0.25
 
 
 def example_data(device, vertices: int = 512, features: int = 64):
@@ -112,7 +116,7 @@ def run_train(args, dev) -> None:
     print(f"grad wire bytes/step: fp32 {wire['fp32_bytes']:,.0f} -> "
           f"int8+EF {wire['int8_ef_bytes']:,.0f} "
           f"({wire['reduction_vs_fp32']:.0f}x)")
-    train(model, plan, g, x, y, steps=args.steps, lr=args.lr,
+    train(model, plan, g, x, y, steps=STEPS, lr=LR,
           allreduce=make_compressed_allreduce(mesh, "data"))
     with torch.no_grad():
         logits = model(g, x, plan=plan)
@@ -150,8 +154,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--train", action="store_true",
                     help="the example's int8 error-feedback training run")
-    ap.add_argument("--steps", type=int, default=30)
-    ap.add_argument("--lr", type=float, default=0.25)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.config import CORA, reduced_graph
 from repro_torch.configs import gemma2_9b
+from repro_torch.core import dataflow
 from repro_torch.core import plan as tplan
 from repro_torch.core.dataflow import block_graph_arrays
 from repro_torch.graph.datasets import make_features, make_synthetic_graph
@@ -1185,8 +1186,11 @@ def _hub_transposed(cap, v=70000, fanout=60000, other=40000, seed=5):
     dst = np.concatenate([np.arange(1, fanout + 1),
                           rng.integers(0, v, other)])
     order = np.argsort(dst, kind="stable")
-    return block_graph_arrays(src[order], dst[order], v, 128, device="cuda",
-                              transpose_rows=v, transpose_cap=cap)
+    src, dst = src[order], dst[order]
+    dev = torch.device("cuda")
+    bg, slot = dataflow._block_layout(src, dst, v, 128, dev)
+    return bg._replace(transposed=dataflow._transposed(
+        src, dst, slot, v, 128, dev, cap))
 
 
 @pytest.mark.parametrize("cap", [256, 1024, 2048])
@@ -1222,8 +1226,7 @@ def test_capped_transposed_fold_matches_plain(card, cap, f, dtype):
 
 def dataflow_plain_transposed(bg, g):
     """The uncapped transposed layout's plain fold of ``g``, f32."""
-    from repro_torch.core.dataflow import transposed_layout
-    t = transposed_layout(bg, bg.num_vertices)
+    t = dataflow.transposed_layout(bg, bg.num_vertices)
     return k1.seg_agg_plain(g, t.src, t.dstl, t.mask, tile_m=t.tile_m,
                             out_dtype=torch.float32)[:bg.num_vertices]
 

@@ -5,13 +5,14 @@ The port's gradient through a mesh plan is its own: each halo is one
 gradients, folding the capped transposed shard sub-layouts (K1 over row
 pieces, then over the fold-back).  It is held here to the reference:
 
-* the capped transposed builder (``core/dataflow.py``, ``cap=``): every
-  edge once, pieces in slot order and at most ``cap`` long, blocks of at
-  most ``tile_m`` pieces and ``cap`` slots, the fold-back's rows mapping
-  each row's pieces back in order; a hub-row graph's gradient through
-  ``SegAgg`` on the cuda tier's path (device check lifted, the kernel's
-  plain version inside) against ``jax.grad`` of the reference's
-  ``aggregate``, at several caps, in the f32 band;
+* the capped transposed builder (``core/dataflow.py``,
+  ``_transposed(..., cap)``): every edge once, pieces in slot order and
+  at most ``cap`` long, blocks of at most ``tile_m`` pieces and ``cap``
+  slots, the fold-back's rows mapping each row's pieces back in order;
+  a hub-row graph's gradient through ``SegAgg`` on the cuda tier's path
+  (device check lifted, the kernel's plain version inside) against
+  ``jax.grad`` of the reference's ``aggregate``, at several caps, in the
+  f32 band;
 * each layer's W and bias gradient of the mean NLL of a mesh plan
   (``LocalMesh`` (2,), (4,), (4, 2); all-gather, ring none and pipelined;
   f32, bf16, int8-agg) against ``jax.grad`` of the reference on the same
@@ -233,6 +234,18 @@ def _hub_edges():
     return src[order], dst[order]
 
 
+def _capped_layout(src, dst, cap):
+    """The forward layout of the dst-sorted hub edges with the capped
+    transposed layout over their ``HUB_V`` sources, built as
+    ``shard_transposed_layouts`` builds the halos' (``_transposed`` with
+    a cap)."""
+    dev = torch.device("cpu")
+    bg, slot = dataflow._block_layout(src, dst, HUB_V, TILE, dev)
+    return bg._replace(transposed=dataflow._transposed(
+        np.asarray(src, np.int64), np.asarray(dst, np.int64), slot, HUB_V,
+        TILE, dev, cap))
+
+
 @pytest.mark.parametrize("cap", [8, 64, 1024])
 def test_capped_layout_holds_every_edge_once_in_order(cap):
     """The capped transposed layout of the hub graph: each forward slot
@@ -241,9 +254,7 @@ def test_capped_layout_holds_every_edge_once_in_order(cap):
     in order, and the pieces, read in that order, hold u's edges in their
     forward order."""
     src, dst = _hub_edges()
-    bg = dataflow.block_graph_arrays(src, dst, HUB_V, TILE,
-                                     transpose_rows=HUB_V,
-                                     transpose_cap=cap)
+    bg = _capped_layout(src, dst, cap)
     t, f = bg.transposed, bg.transposed.fold
     plain = dataflow.block_graph_arrays(src, dst, HUB_V, TILE,
                                         transpose_rows=HUB_V).transposed
@@ -330,9 +341,7 @@ def test_hub_gradient_through_capped_layout_matches_reference(
     x = rng.standard_normal((HUB_V, 4)).astype(np.float32)
     cot = rng.standard_normal((HUB_V, 4)).astype(np.float32)
     w = rng.random(len(src)).astype(np.float32) if weighted else None
-    layout = dataflow.block_graph_arrays(tg.src.numpy(), tg.dst.numpy(),
-                                         HUB_V, TILE, transpose_rows=HUB_V,
-                                         transpose_cap=cap)
+    layout = _capped_layout(tg.src.numpy(), tg.dst.numpy(), cap)
 
     def jloss(xx):
         return jnp.sum(jaggregate(jg, xx, op="sum", backend="xla",
@@ -651,9 +660,11 @@ def test_example_training_matches_reference_loop():
                               scale=10, err_msg=name)
 
 
-def test_launcher_trains_on_cpu(capsys):
+def test_launcher_trains_on_cpu(capsys, monkeypatch):
+    """``--train`` on the CPU, cut to 6 of the example's steps."""
     from repro_torch.launch import distributed_gcn
-    distributed_gcn.main(["--device", "cpu", "--train", "--steps", "6"])
+    monkeypatch.setattr(distributed_gcn, "STEPS", 6)
+    distributed_gcn.main(["--device", "cpu", "--train"])
     out = capsys.readouterr().out
     assert "step  0" in out and "step  5" in out
     assert "int8+EF" in out and "final accuracy" in out
