@@ -167,11 +167,13 @@ Phases, each printing its own lines; any failure exits non-zero:
                 through the int8 error-feedback all-reduce), allgather,
                 ring pipelined bf16, and LocalMesh((4, 2)) ring pipelined,
                 DIST_TRAIN_STEPS SGD steps each from the same params.  The
-                capped transposed sub-layouts' slots, bytes and build
-                seconds beside what the uncapped ones would hold; step 0:
-                K1's forward and backward launches (layers x held shards
-                x hops; backward twice held shards x P: the pieces and the
-                fold-back), the backward's counted bytes against the
+                capped transposed sub-layouts' slots, bytes, cut and
+                scratch rows and build seconds beside PR 23's and what the
+                uncapped ones would hold; step 0: K1's forward and
+                backward launches (layers x held shards x hops; backward,
+                for each held shard's P sub-layouts, the pieces and, where
+                a row was cut, the fold-back), the backward's counted
+                bytes against the
                 forward's, the loss and each gradient leaf: f32 against
                 the model's gradients in float64 on the card, apart from
                 the port (GRAD_F32_LIMITS of the leaf's largest magnitude,
@@ -185,7 +187,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                 chiprun_out/traces/dist_train_*.json), peak memory.  K1's
                 backward over the 16 capped transposed ring sub-layouts
                 at F = 128 and 41 against its plain version, beside its
-                bound and torch.sparse.mm on each transposed CSR matrix.
+                bound and torch.sparse.mm on each transposed CSR matrix,
+                and the sweeps of its slice width and CTA order and of
+                the cap (CAP_SWEEP).
 
 The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 5-7.  The last three
 lines are nvidia-smi's name and power limit, one JSON object per kernel
@@ -2446,21 +2450,40 @@ def dist_nccl(out_dir: str) -> None:
 
 def dist_expected_k1_bwd(plan) -> int:
     """K1 launches of one backward of a distributed plan: for each layer
-    and held shard, P transposed sub-layouts (one a hop on the ring, all P
-    after the all-gather), each the pieces' launch and the fold-back's."""
+    and held shard, its owner's P transposed sub-layouts (one a hop on the
+    ring, all P after the all-gather), each the pieces' launch and, where
+    a row was cut, the fold-back's."""
     node_ax = plan.axes[0] if plan.partition_kind == "2d" else plan.axis
-    return plan.num_layers * len(plan.mesh.coords) * \
-        plan.mesh.axis_size(node_ax) * 2
+    tl = plan.shard_transposed()
+    return plan.num_layers * sum(
+        1 + (lay.fold is not None) for c in plan.mesh.coords
+        for lay in tl[plan.mesh.index(c, node_ax)])
+
+
+#: the caps phase 14 builds the 16 capped transposed sub-layouts at, K1's
+#: backward over each timed beside TRANSPOSE_CAP's
+CAP_SWEEP = (1024, 2048, 4096)
+
+#: PR 23's capped layouts of phase 14's 16 ring sub-layouts, every block
+#: row stored and every row folded back (PERF.md section 6, PR 23 run 4):
+#: slots in pieces and in fold-backs, and K1 launches a layer's backward
+PR23_LAYOUT = {"piece_slots": 13415424, "fold_slots": 1699968,
+               "launches": 32}
 
 
 def transposed_slots(plan) -> dict:
     """The halos' backward layouts of a plan (its held owners' capped
-    transposed sub-layouts, built here on first need and timed) beside
-    what the uncapped ones would hold -- counted from the partition, never
-    built: each (shard p, owner o) sub-layout's blocks of ``tile`` source
-    rows times its longest block's edges rounded up to 8."""
+    transposed sub-layouts, built here on first need and timed): their
+    slots, the cut rows with their scratch rows and fold-backs, the rows
+    stored in place (empty ones, and those over T, which one fold unit
+    folds whole), beside what the uncapped ones would hold -- counted from
+    the partition, never built: each (shard p, owner o) sub-layout's
+    blocks of ``tile`` source rows times its longest block's edges rounded
+    up to 8."""
     import numpy as np
+    import torch
     from repro_torch.core.distributed import TRANSPOSE_CAP, shard_tile
+    from repro_torch.kernels import seg_agg as k1
     t0 = time.perf_counter()
     tl = plan.shard_transposed()
     build_s = time.perf_counter() - t0
@@ -2476,31 +2499,81 @@ def transposed_slots(plan) -> dict:
                               minlength=nblocks)
             uncapped += nblocks * max(8, -(-int(cnt.max()) // 8) * 8)
     lays = [lay for per in tl.values() for lay in per]
+    folds = [lay.fold for lay in lays if lay.fold is not None]
     pieces = sum(lay.nblocks * lay.emax for lay in lays)
-    folds = sum(lay.fold.nblocks * lay.fold.emax for lay in lays)
+    fold_slots = sum(f.nblocks * f.emax for f in folds)
     edges = int(pg.mask.sum().item())
+    # the rows the pieces' launch stores in place: those over T are folded
+    # whole by one fold unit (a cut row's pieces may be split)
+    whole_over_t = longest_whole = empty = unused = 0
+    for lay in lays:
+        m = lay.mask != 0
+        brow = (torch.arange(lay.nblocks, device=m.device)[:, None]
+                * lay.tile_m + lay.dstl)[m].long()
+        lens = torch.bincount(brow, minlength=lay.nblocks * lay.tile_m)
+        dest = lay.out_rows.reshape(-1)
+        whole = (dest >= 0) & (dest < lay.num_vertices)
+        whole_over_t += int((whole & (lens > k1.split_threshold(lay.emax)))
+                            .sum().item())
+        longest_whole = max(longest_whole, int(lens[whole].max().item()))
+        empty += int((whole & (lens == 0)).sum().item())
+        unused += int((dest < 0).sum().item())
     return {"layouts": len(lays), "edges": edges, "build_s": build_s,
-            "slots": pieces + folds, "piece_slots": pieces,
-            "fold_slots": folds, "uncapped_slots": uncapped,
-            "bytes_12": 12 * (pieces + folds),
+            "slots": pieces + fold_slots, "piece_slots": pieces,
+            "fold_slots": fold_slots, "uncapped_slots": uncapped,
+            "bytes_12": 12 * (pieces + fold_slots),
             "uncapped_bytes_12": 12 * uncapped,
-            "cap": TRANSPOSE_CAP,
+            "cap": TRANSPOSE_CAP, "blocks": sum(lay.nblocks for lay in lays),
             "max_emax": max(lay.emax for lay in lays),
-            "max_fold_emax": max(lay.fold.emax for lay in lays)}
+            "with_fold_back": len(folds),
+            "cut_rows": sum(int((f.out_rows >= 0).sum().item())
+                            for f in folds),
+            "scratch_rows": sum(f.num_vertices for f in folds),
+            "max_fold_emax": max((f.emax for f in folds), default=0),
+            "empty_rows": empty, "unused_block_rows": unused,
+            "whole_rows_over_t": whole_over_t,
+            "longest_whole_row": longest_whole, "pr23": PR23_LAYOUT}
+
+
+def packed_fold(g, t, width: int, blocks_first: bool):
+    """``fold_transposed``'s launches over the capped layout ``t`` at
+    another slice width and CTA order (phase 14's sweep; uncounted): the
+    same sums, bit for bit, as neither changes what a fold unit adds."""
+    import torch
+    from repro_torch.kernels import seg_agg as k1
+    n, fb = t.num_vertices, t.fold
+    out = torch.empty((n + (0 if fb is None else fb.num_vertices),
+                       g.shape[1]), dtype=torch.float32, device=g.device)
+    k1._launch(g, t.src, t.dstl, t.mask, None, t.tile_m, width,
+               blocks_first=blocks_first, out_dtype=torch.float32, out=out,
+               out_rows=t.out_rows, split_from=n,
+               split=k1.packed_split(t.emax, t.tile_m))
+    if fb is not None:
+        k1._launch(out[n:], fb.src, fb.dstl, fb.mask, None, fb.tile_m,
+                   width, blocks_first=blocks_first, out=out,
+                   out_rows=fb.out_rows, split_from=n,
+                   split=k1.packed_split(fb.emax, fb.tile_m))
+    return out
 
 
 def check_k1_bwd_shards(plan, f: int) -> dict:
     """Phase 14's kernel check: K1's backward over each of the plan's 16
     capped transposed ring sub-layouts (shard p, owner o) -- the pieces'
-    launch and the fold-back's -- over a random f32 gradient slab of p's
-    rows at width ``f``, against its plain version (the same two folds
-    in plain PyTorch) per row; two launches bit for bit.  Summed over the
-    16 (one layer's backward sums): kernel ms, plain ms,
+    launch and, where a row was cut, the fold-back's -- over a random f32
+    gradient slab of p's rows at width ``f``, against its plain version
+    (the same folds and row maps in plain PyTorch) per row; two launches
+    bit for bit; one launch a sub-layout, or two with a cut row.  Summed
+    over the 16 (one layer's backward sums): kernel ms, plain ms,
     torch.sparse.mm over each transposed CSR matrix, and the bound over
     the edges' src, dstl and mask, the gradient rows they read and the
-    rows written."""
+    rows written.  Then the sweep of ``packed_launch``'s settings: slices
+    of 64 columns and of ``PACKED_SLICE``, in each CTA order, over the 16
+    on the device alone, bit for bit the launches' sums; and the 16 built
+    at each cap of ``CAP_SWEEP``, timed alike."""
     import numpy as np
     import torch
+    from repro_torch.core.dataflow import _transposed
+    from repro_torch.core.distributed import TRANSPOSE_CAP, shard_tile
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import seg_agg as k1
     pg = plan._node_partition
@@ -2510,7 +2583,8 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
            "ops": 0}
     err = row = lib_err = top = 0.0
-    same, n_launch, slabs, adjs = True, 0, {}, {}
+    same, n_launch, want_launch, slabs, adjs = True, 0, 0, {}, {}
+    sub_edges = {}
     for p in range(nsh):
         src, dstl = pg.shard_edges(p)
         g = slabs[p] = torch.randn((block, f), generator=gen, device="cuda")
@@ -2522,6 +2596,7 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
             before = k1.seg_agg.launches_bwd
             got = kern()[:block]
             n_launch += k1.seg_agg.launches_bwd - before
+            want_launch += 1 + (t.fold is not None)
             want = plain()
             torch.cuda.synchronize()
             diff = (got - want).abs().amax(-1)
@@ -2537,6 +2612,7 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
             sel = src // block == o
             s_loc = (src[sel] - o * block).astype(np.int64)
             d_loc = dstl[sel].astype(np.int64)
+            sub_edges[p, o] = (s_loc, d_loc)
             order = np.argsort(s_loc, kind="stable")
             crow = np.zeros(block + 1, np.int64)
             np.cumsum(np.bincount(s_loc, minlength=block), out=crow[1:])
@@ -2555,10 +2631,12 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
                              + 3 * e) * 4
             tot["ops"] += e * f
             del adj_t, got, want
-    if not same or n_launch != 2 * nsh * nsh:
+    if not same or n_launch != want_launch:
         fail(f"K1 backward over the sub-layouts F={f}: repeat equal {same}, "
-             f"{n_launch} launches for {nsh * nsh} sub-layouts")
-    # the same 32 launches (and 16 library calls) on the device alone:
+             f"{n_launch} launches for {nsh * nsh} sub-layouts (expected "
+             f"{want_launch}: the pieces, and a fold-back where a row was "
+             f"cut)")
+    # the same launches (and 16 library calls) on the device alone:
     # captured in one CUDA graph, replayed
     pairs = [(p, o) for p in range(nsh) for o in range(nsh)]
     device_ms = replay_ms(lambda: [k1.fold_transposed(slabs[p], tl[o][p])
@@ -2567,6 +2645,39 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
                                                            slabs[p])
                                            for p, o in pairs], reps=2,
                                   rounds=3)
+    # the sweep: slices of 64 columns and of PACKED_SLICE, each in both CTA
+    # orders; every setting's sums bit for bit the launches'
+    chosen = k1.packed_launch(f, 4, 16)
+    sweep = []
+    for width in sorted({min(f, 64), min(f, k1.PACKED_SLICE)}):
+        for blocks_first in (True, False):
+            sums_equal = all(torch.equal(
+                packed_fold(slabs[p], tl[o][p], width, blocks_first),
+                k1.fold_transposed(slabs[p], tl[o][p])) for p, o in pairs)
+            ms = replay_ms(lambda: [packed_fold(slabs[p], tl[o][p], width,
+                                                blocks_first)
+                                    for p, o in pairs], reps=2, rounds=3)
+            sweep.append({"slice_cols": width, "blocks_first": blocks_first,
+                          "device_ms": ms, "sums_equal": sums_equal,
+                          "chosen": (width, blocks_first) == chosen})
+            if not sums_equal:
+                fail(f"K1 backward over the sub-layouts F={f}: slices of "
+                     f"{width} columns, blocks_first={blocks_first}, "
+                     f"changed the sums")
+    # the caps: the 16 sub-layouts built at each (as
+    # shard_transposed_layouts builds them at TRANSPOSE_CAP), K1's backward
+    # over them on the device alone
+    caps = []
+    for cap in CAP_SWEEP:
+        lays = {(p, o): tl[o][p] if cap == TRANSPOSE_CAP else _transposed(
+            s, d, np.arange(len(s)), block, shard_tile(block), "cuda", cap)
+            for (p, o), (s, d) in sub_edges.items()}
+        caps.append({"cap": cap, "slots": sum(
+            t.nblocks * t.emax for t in lays.values()),
+            "device_ms": replay_ms(lambda: [k1.fold_transposed(
+                slabs[p], lays[p, o]) for p, o in pairs], reps=2,
+                rounds=3)})
+        del lays
     del slabs, adjs
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
     tol = F32_BAND * SCALE * max(1.0, top)
@@ -2579,12 +2690,13 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
            "library": "torch.sparse.mm, each sub-layout's transposed CSR",
            "device_ms": device_ms, "library_device_ms": library_device_ms,
            "bytes": tot["bytes"], "ops": tot["ops"], "bound_ms": b_ms,
-           "bound_by": b_by}
+           "bound_by": b_by, "sweep": sweep, "caps": caps}
     rec.update(ratios(rec))
     print(f"[dist-train] K1 backward over the {nsh * nsh} capped transposed "
           f"ring sub-layouts F={f}: max_abs_err={err:.3e} row_rel_err="
           f"{row:.3e} (limit {K1_BWD_ROW_LIMIT:.0e}); repeat_equal={same}; "
-          f"{n_launch // 2} x (pieces + fold-back); ms={tot['ms']:.4f} "
+          f"{n_launch} launches over {nsh * nsh} sub-layouts (the pieces, "
+          f"{n_launch - nsh * nsh} fold-backs); ms={tot['ms']:.4f} "
           f"plain_ms={tot['plain_ms']:.4f} library_ms="
           f"{tot['library_ms']:.4f} (torch.sparse.mm, max_abs_err "
           f"{lib_err:.3e}, tol {tol:.3e}) bound_ms={b_ms:.4f} ({b_by}; "
@@ -2592,7 +2704,13 @@ def check_k1_bwd_shards(plan, f: int) -> dict:
           f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
           f"{rec['vs_library']:.3f}; on the device alone (CUDA-graph "
           f"replays) {device_ms:.4f} against torch.sparse.mm's "
-          f"{library_device_ms:.4f}", flush=True)
+          f"{library_device_ms:.4f}; sweep (slice columns, blocks first: "
+          f"device ms): " + ", ".join(
+              f"({r['slice_cols']}, {r['blocks_first']}: "
+              f"{r['device_ms']:.4f}{' chosen' if r['chosen'] else ''})"
+              for r in sweep) + "; caps (slots: device ms): " + ", ".join(
+              f"{r['cap']} ({r['slots']}: {r['device_ms']:.4f})"
+              for r in caps), flush=True)
     if lib_err > tol:
         fail(f"torch.sparse.mm off the plain version by {lib_err:.3e}")
     return rec
@@ -2670,9 +2788,18 @@ def drive_dist_train(g, x, y, spec) -> dict:
                   f"sub-layouts: {lay['slots']} slots ({lay['piece_slots']} "
                   f"pieces + {lay['fold_slots']} fold-back; "
                   f"{lay['slots'] / lay['edges']:.3f}x the {lay['edges']} "
-                  f"edges), {lay['bytes_12']} B at 12 B a slot, emax at most "
-                  f"{lay['max_emax']} (fold-back {lay['max_fold_emax']}), "
-                  f"built in {lay['build_s']:.1f} s; uncapped they would "
+                  f"edges; PR 23's {PR23_LAYOUT['piece_slots']} + "
+                  f"{PR23_LAYOUT['fold_slots']}), {lay['bytes_12']} B at 12 "
+                  f"B a slot, {lay['blocks']} blocks, emax at most "
+                  f"{lay['max_emax']}; {lay['cut_rows']} cut rows in "
+                  f"{lay['scratch_rows']} scratch rows, fold-backs in "
+                  f"{lay['with_fold_back']} of {lay['layouts']} (emax at "
+                  f"most {lay['max_fold_emax']}); stored in place: "
+                  f"{lay['empty_rows']} empty rows, "
+                  f"{lay['whole_rows_over_t']} rows over T (the longest "
+                  f"{lay['longest_whole_row']} slots); "
+                  f"{lay['unused_block_rows']} block rows unused; built in "
+                  f"{lay['build_s']:.1f} s; uncapped they would "
                   f"hold {lay['uncapped_slots']} slots "
                   f"({lay['uncapped_slots'] / lay['edges']:.1f}x, "
                   f"{lay['uncapped_bytes_12']} B)", flush=True)
@@ -2755,7 +2882,8 @@ def drive_dist_train(g, x, y, spec) -> dict:
                      "the single-buffered ring's")
         print(f"[dist-train] {label:20s} step 0: loss {loss.item():.7f} "
               f"({yard} {ref_loss:.7f}); K1 forward {got[0]} / backward "
-              f"{got[1]} launches (pieces + fold-back); backward counted "
+              f"{got[1]} launches (pieces, and fold-backs of cut rows); "
+              f"backward counted "
               f"{bwd_b['total']} B a shard (forward {fwd_b['total']}); "
               f"gradients vs the {yard} ones over each leaf's largest "
               f"magnitude (limit): "
@@ -3602,8 +3730,9 @@ def main() -> None:
         "frac_of_bound": rec["frac_of_bound"],
         "vs_library": rec["vs_library"]})
     # K1's backward over the 16 capped transposed ring sub-layouts at F =
-    # 128, summed (one layer's backward sums, pieces and fold-back): its
-    # launches are phase 14's ring/none run's backward launches
+    # 128, summed (one layer's backward sums, the pieces and the cut rows'
+    # fold-backs): its launches are phase 14's ring/none run's backward
+    # launches
     rec = dist14["k1_bwd_shards"][0]
     kernels.append({
         "name": "seg_agg_bwd_shards", "route": "cuda", "source": k1_src[0],

@@ -26,12 +26,19 @@ dense ``(nblocks, emax)`` array then holds many times the edges (the
 distributed plans' shard sub-layouts of Reddit, 86.5x).
 ``_transposed(..., cap)`` builds the CAPPED form instead (the halos'
 backward layouts, ``core.distributed.shard_transposed_layouts``; the
-local plans keep the uncapped form): each row is cut into pieces of at most ``cap``
-slots, the pieces packed in order into blocks of at most ``tile_m`` pieces
-and ``cap`` slots, and a small fold-back layout (``BlockedGraph.fold``)
-adds each row's pieces in piece order.  K1 runs both: the first launch
-sums the pieces, the second folds them back into rows, so no row is
-longer than ``cap`` slots and no atomics are needed.
+local plans keep the uncapped form): each row is one piece, or, over
+``cap`` slots, cut into pieces of at most ``cap``; the pieces are packed
+in order into blocks of at most ``tile_m`` pieces and ``cap`` slots, and
+a row map (``BlockedGraph.out_rows``) gives each block row its
+destination: a short row's own row, written once and in place (an empty
+row too, by a piece of no slots), a piece of a cut row -- one longer
+than about a fold unit's share of a block, which K1 splits across its
+fold units -- a scratch row after the rows, an unused block row none.  A
+small fold-back layout (``BlockedGraph.fold``) holds the cut rows only,
+each gathering its scratch rows in piece order into its own row.  K1
+runs the pieces, then, only when a row was cut, the fold-back: no row is
+longer than ``cap`` slots, none is written twice, every row stored in
+place is one in-order fold, and no atomics are needed.
 """
 
 from __future__ import annotations
@@ -59,9 +66,17 @@ class BlockedGraph(NamedTuple):
            each slot mirrors.
     transposed: the layout K1's backward runs over (rows: the sources),
            or None (``transposed_layout`` builds it from this one).
-    fold:  on a capped transposed layout, whose rows are pieces of the
-           sources' rows, the fold-back layout: one row a source, whose
-           slots gather its pieces' sums in piece order; else None.
+    fold:  on a capped transposed layout with a cut row, the fold-back
+           layout: one row a cut source, whose slots gather its pieces'
+           scratch rows (``src``: 0 .. scratch - 1) in piece order, its
+           ``out_rows`` the source's row and its ``num_vertices`` the
+           scratch rows; else None.
+    out_rows: on a capped transposed layout (and its fold-back), the
+           ``(nblocks, tile_m)`` int32 row map: where K1 stores each
+           block row -- an uncut source's piece at the source's row in
+           ``[0, num_vertices)``, a cut source's piece at scratch row
+           ``num_vertices + i``, an unused block row -1 (not stored);
+           else None.
     """
 
     src: torch.Tensor
@@ -72,6 +87,7 @@ class BlockedGraph(NamedTuple):
     eidx: Optional[torch.Tensor] = None
     transposed: Optional["BlockedGraph"] = None
     fold: Optional["BlockedGraph"] = None
+    out_rows: Optional[torch.Tensor] = None
 
     @property
     def nblocks(self) -> int:
@@ -82,15 +98,17 @@ class BlockedGraph(NamedTuple):
         return int(self.src.shape[1])
 
     def to(self, device) -> "BlockedGraph":
-        """The same layout (its transposed and fold-back ones too) on
-        ``device``."""
+        """The same layout (its transposed and fold-back ones and its row
+        map too) on ``device``."""
         return self._replace(
             src=self.src.to(device), dstl=self.dstl.to(device),
             mask=self.mask.to(device),
             eidx=None if self.eidx is None else self.eidx.to(device),
             transposed=None if self.transposed is None
             else self.transposed.to(device),
-            fold=None if self.fold is None else self.fold.to(device))
+            fold=None if self.fold is None else self.fold.to(device),
+            out_rows=None if self.out_rows is None
+            else self.out_rows.to(device))
 
 
 def block_offsets(block_ids: np.ndarray, nblocks: int
@@ -182,16 +200,27 @@ def pack_pieces(lengths: np.ndarray, tile_m: int, cap: int) -> np.ndarray:
 def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
             num_rows: int, tile_m: int, dev, cap: int) -> BlockedGraph:
     """The capped transposed layout of slots sorted by ``rows`` (each
-    gathering ``gather``, mirroring ``eidx``): row r's slots cut into
-    pieces of at most ``cap`` in slot order, the pieces packed
-    (``pack_pieces``) into blocks whose piece k is output row ``b * tile_m
-    + k``, and ``fold`` the layout of ``num_rows`` rows gathering each
-    row's pieces in order.  At least one block, so an empty layout still
+    gathering ``gather``, mirroring ``eidx``) over ``num_rows`` rows.
+    Each row is one piece -- a row of no slots too, so K1 stores its zero
+    row -- or, over ``cap`` slots, is cut into pieces of ``cap`` in slot
+    order; the pieces are packed (``pack_pieces``), piece k of block b in
+    block row k.  A row of one piece and at most
+    ``packed_split(cap, tile_m)`` slots (about a fold unit's share of a
+    block, which K1 folds whole, in slot order) is stored in place:
+    ``out_rows`` maps its piece to the row.  A longer row is a cut row,
+    whatever its length: its pieces map to scratch rows ``num_rows + i``
+    in piece order (K1 splits them across its fold units, so no unit
+    folds a long row alone), and ``fold``, the layout of the cut rows,
+    gathers them in that order into the row (None when no row is cut).
+    The block rows no piece took map to -1.  So each row of ``[0,
+    num_rows)`` is written once, and every row stored in place is one
+    in-order fold.  At least one block, so an empty layout still
     launches."""
+    from repro_torch.kernels.seg_agg import packed_split
     if cap < 8 or cap % 8:
         raise ValueError(f"cap must be a positive multiple of 8; got {cap}")
     n = np.bincount(rows, minlength=num_rows).astype(np.int64)
-    npieces = -(-n // cap)
+    npieces = np.maximum(1, -(-n // cap))
     piece_row = np.repeat(np.arange(num_rows, dtype=np.int64), npieces)
     first_piece = np.concatenate([[0], np.cumsum(npieces)])[:-1]
     j = np.arange(len(piece_row), dtype=np.int64) - first_piece[piece_row]
@@ -205,10 +234,35 @@ def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
     piece = first_piece[rows] + (np.arange(len(rows)) - row_start[rows]) \
         // cap
     nblocks = max(1, len(starts))
+    # a cut row's pieces go to scratch rows, numbered in piece order
+    long_rows = n > min(cap, packed_split(cap, tile_m))
+    cut = long_rows[piece_row]
+    dest = piece_row.copy()
+    dest[cut] = num_rows + np.arange(int(cut.sum()))
+    row_map = np.full(nblocks * tile_m, -1, np.int64)
+    row_map[out_row] = dest
     pieces = _block_layout(gather, out_row[piece], nblocks * tile_m, tile_m,
                            dev, eidx=eidx)[0]
-    fold = _block_layout(out_row, piece_row, num_rows, tile_m, dev)[0]
+    pieces = pieces._replace(num_vertices=num_rows,
+                             out_rows=_row_map(row_map, tile_m, dev))
+    if not cut.any():
+        return pieces
+    cut_rows = np.flatnonzero(long_rows)
+    # fold-back row i: cut row cut_rows[i], its scratch rows in order
+    fold_row = np.repeat(np.arange(len(cut_rows)), npieces[cut_rows])
+    fold = _block_layout(dest[cut] - num_rows, fold_row, len(cut_rows),
+                         tile_m, dev)[0]
+    fold_map = np.full(fold.nblocks * tile_m, -1, np.int64)
+    fold_map[:len(cut_rows)] = cut_rows
+    fold = fold._replace(num_vertices=int(cut.sum()),
+                         out_rows=_row_map(fold_map, tile_m, dev))
     return pieces._replace(fold=fold)
+
+
+def _row_map(row_map: np.ndarray, tile_m: int, dev) -> torch.Tensor:
+    """A row map as K1 takes it: ``(nblocks, tile_m)`` int32 on ``dev``."""
+    return torch.from_numpy(row_map.astype(np.int32)).view(
+        -1, tile_m).to(dev)
 
 
 def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,

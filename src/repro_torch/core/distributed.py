@@ -116,12 +116,15 @@ OVERLAP_MODES = ("none", "pipelined")
 #: at which ``choose_overlap`` commits to the pipelined schedule
 OVERLAP_SAVING_THRESHOLD = 0.02
 
-#: slots a row of a transposed shard sub-layout holds at most
-#: (``core.dataflow._transposed``'s ``cap``).  At Reddit's 4 shards the uncapped
-#: layouts would hold 86.5x the edges (a hub source's row fills its
-#: block); capped at 1,024 they hold 1.30x, fold-backs included
-#: (``chip_smoke.py`` phase 14 counts both)
-TRANSPOSE_CAP = 1024
+#: slots a row of a transposed shard sub-layout holds at most, and a block
+#: of its pieces (``core.dataflow._transposed``'s ``cap``).  At Reddit's 4
+#: shards the uncapped layouts would hold 86.5x the edges (a hub source's
+#: row fills its block); capped they hold under 2x, fold-backs included
+#: (``chip_smoke.py`` phase 14 counts both).  2,048 rather than 1,024:
+#: blocks of 128 pieces then fill before their slots do, and a hub row
+#: folds back from half the pieces (K1's backward over the 16 sub-layouts
+#: on the H100, ``chip_smoke.py`` phase 14)
+TRANSPOSE_CAP = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -527,10 +530,10 @@ def shard_transposed_layouts(pg: PartitionedGraph, *,
     capped transposed layout of shard p's edges from o's block -- rows
     o's sources (local to its block), each gathering the gradient row of
     its edge's destination in p's block, rows longer than
-    ``TRANSPOSE_CAP`` slots cut into pieces with a fold-back layout
-    (``core.dataflow``).  Both strategies' backwards fold them (the
-    all-gather's global-source layouts would have as many rows as the
-    graph)."""
+    ``TRANSPOSE_CAP`` slots cut into pieces, long rows folded back from
+    scratch rows (``core.dataflow._capped``).  Both strategies' backwards
+    fold them (the all-gather's global-source layouts would have as many
+    rows as the graph)."""
     dev = pg.src.device if device is None else torch.device(device)
     block, nsh = pg.block_size, pg.num_shards
     tile = shard_tile(block)
@@ -579,9 +582,10 @@ def _local_agg(x_full: torch.Tensor, layout: BlockedGraph, *,
     """One shard's local sum over its layout (``_local_agg``, :87):
     ``sum_e x_full[src_e]`` into each of its ``block`` rows, f32 (K1, the
     bf16-in/f32-out entry for a bf16 slab).  Over a capped transposed
-    sub-layout (a backward's), K1 over the pieces, then the fold-back."""
+    sub-layout (a backward's), K1 over the pieces, then, when a row was
+    cut, the fold-back."""
     from repro_torch.kernels import ops as kops
-    if layout.fold is not None:
+    if layout.out_rows is not None:
         return kops.seg_agg_transposed(layout, x_full, backend=backend)
     return kops.seg_agg_planned(layout, x_full, backend=backend,
                                 out_dtype=torch.float32)

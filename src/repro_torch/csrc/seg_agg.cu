@@ -31,7 +31,8 @@
 // the hub row folded by one unit in ~875 batches, and in the sparse
 // blocks every empty row after the last slots stored by one unit.
 //
-// What the design does about it (two launches: row_starts, then fold):
+// What the design does about it (two kernels: row_starts, then fold;
+// a packed launch, below, is the fold alone):
 //   * row_starts, one CTA of 128 threads per block (16 an SM, so 1,145
 //     blocks are one wave), reads only what it needs: the valid slots come
 //     first, so it finds n_valid with a search over mask (128 probes a
@@ -68,8 +69,9 @@
 //   * Column slices.  The fold's slow grid dimension is a slice of
 //     slice_cols columns, so the CTAs in flight at any moment all gather
 //     from one slice of x and a source row's slice is read from HBM about
-//     once per slice, not once per edge.  K1's backward orders its CTAs
-//     block by block instead (blocks_first): its layout gathers each row
+//     once per slice, not once per edge.  K1's backward over an uncapped
+//     transposed layout (a sampled block's) orders its CTAs block by
+//     block instead (blocks_first): its layout gathers each row
 //     about once (66,620 edges over 146,560 rows at phase 11's block 0),
 //     so there is no reuse to keep, and every slice of the hub's block
 //     then starts in the first wave, not after every other block's first
@@ -77,8 +79,9 @@
 //     (kernels/seg_agg.py backward_slice_cols: 32 columns at F = 128):
 //     the hub's block is then folded on more SMs at once, each keeping
 //     fewer bytes in flight, and the instance's registers (64, not 110)
-//     let 4 CTAs share an SM, not 2, which the many sparse blocks need.  Each slice is one more pass over
-//     the indices and one more round of per-slot instructions, so the slice
+//     let 4 CTAs share an SM, not 2, which the many sparse blocks need.
+//     Each slice is one more pass over the indices and one more round of
+//     per-slot instructions, so the forward's slice
 //     is as wide as a fold unit holds: 64 columns, 59.6 MB of x at Reddit,
 //     1.19 x the L2.  The power-law sources keep their hot rows resident
 //     even so (measured on the H100 at Reddit: 64 columns beat 32 at
@@ -97,6 +100,39 @@
 //     the row's store: inlined once a slot it cost ~6% at F = 41 and 602.
 //     Outputs are streamed (st.cs) so they do not push the slice of x out
 //     of L2.
+//   * Packed launches: K1's backward over a capped transposed layout
+//     (core/dataflow.py _capped; the distributed halos' backward).  Its
+//     blocks are packed pieces of source rows: ~12.5 slots a row on
+//     average at Reddit's shard sub-layouts, many of one slot, so nearly
+//     every batch of a unit crosses a row's end.  A row map out_rows names
+//     each block row's output row -- a short source's own row, written
+//     once and in place (an empty source by a piece of no slots, stored as
+//     zeros), a piece of a long (cut) source a scratch row after the rows,
+//     an unused block row none (-1, not stored).  Such a launch differs
+//     in three ways, fixed at compile time (PACKED):
+//       - A fold unit is a whole warp (32 lanes, 8 units a CTA), so the
+//         lanes of a warp meet the same row ends: with 8-lane units the
+//         4 units of a warp branch apart at every row end, and the warp
+//         runs each unit's path in turn.  A slice is all of F up to 128
+//         columns (kernels/seg_agg.py packed_launch), one row a slot per
+//         warp, so F = 128 and F = 41 are one slice each.
+//       - The launch is one kernel: each CTA builds its block's chunk
+//         table in shared memory (chunk_table, the code row_starts_kernel
+//         runs) instead of a separate launch writing it to device memory.
+//       - A row stored below split_from (the rows stored in place) is
+//         never split, so it is bit for bit the in-order f32 fold of its
+//         slots; the layout stores in place only rows of at most about a
+//         unit's share of a block (packed_split), and cuts the longer
+//         ones, whose scratch pieces are split across the units at that
+//         threshold.  Whether a row is split is decided once, by the
+//         table, and the fold reads it there (row m is split exactly when
+//         parts[m + 1] > parts[m]).
+//     The second launch, over the fold-back layout (only when a row was
+//     cut), reads the scratch rows as its x and adds each cut row's
+//     pieces in piece order into its row (its rows, all below split_from,
+//     are one in-order fold each).  With no map, block row m of block b
+//     is stored at b tile_m + m by 8-lane units after row_starts, as
+//     before: the forward's sums and stores are unchanged.
 //   * bf16 (the reference's bf16 rows, rounded once at its flush): x and
 //     out are bf16, everything between is f32, chunk sums included.  A load
 //     converts each element exactly (bf16 is the top half of an f32), the
@@ -109,13 +145,17 @@
 //     partials over a bf16 wire slab (core/distributed.py), which the
 //     reference accumulates in f32 so the wire keeps its 2 bytes.
 //
-// Limit: a block is one CTA per column slice, so a row is split across the
-// 32 units of one SM and no further.  A row far longer than a block's
-// share of the grid -- such as full-graph Reddit's top source, ~1.2 M
-// edges under the generator's alpha = 1.05, in a transposed full-graph
-// layout -- still runs on one CTA, ~W / 32 slots a unit, while the rest of
-// the grid idles; splitting it across CTAs needs a second pass over
-// partial sums in device memory, and no path of the port needs that now.
+// Limit: a block is one CTA per column slice, so within one layout a row
+// is split across the units of one SM and no further.  Across CTAs a
+// row is split by its layout: a capped transposed layout cuts a row over
+// its cap into pieces, each a block row of its own stored to a scratch
+// row, and the fold-back launch adds them (the distributed backward's hub
+// rows).  The uncapped transposed layouts (the local plans' and the
+// minibatch trainer's) do not: a row far longer than a block's share of
+// the grid -- such as full-graph Reddit's top source, ~1.2 M edges under
+// the generator's alpha = 1.05 -- still runs on one CTA, ~W / 32 slots a
+// unit, while the rest of the grid idles.  No row is written twice and no
+// atomics are used anywhere.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -130,6 +170,8 @@ constexpr int kRowThreads = 128;   // a row_starts CTA: 16 an SM, so a
 constexpr int kUnroll = 4;  // slots a row_starts thread loads at once
 constexpr int kLanes = 8;   // lanes of a fold unit: 4 units share a warp
 constexpr int kUnits = kThreads / kLanes;  // fold units of a CTA
+constexpr int kPackedLanes = 32;  // a packed launch's fold unit: a warp
+constexpr int kBatch = 8;   // slots a fold unit gathers at once
 
 using bf16 = __nv_bfloat16;
 
@@ -212,28 +254,31 @@ __device__ __forceinline__ void store_vec(bf16* p, const float* s) {
 // W = n_valid + tile_m positions, row m's store at s_start[m] + m and its
 // slots at the positions after it, so a unit's share counts the rows it
 // stores (an empty row is a store too) beside the slots it folds.  Unit k
-// of kUnits starts at position t_k = k W / kUnits (rounded down).
-// cuts_before(x, w): #{k in 1..kUnits-1 : t_k <= x}.
-__device__ __forceinline__ int cuts_before(int x, int w) {
-  const int64_t c = (static_cast<int64_t>(kUnits) * (x + 1) - 1) / w;
-  return static_cast<int>(min(c, static_cast<int64_t>(kUnits - 1)));
+// of `units` starts at position t_k = k W / units (rounded down).
+// cuts_before(x, w, units): #{k in 1..units-1 : t_k <= x}.
+__device__ __forceinline__ int cuts_before(int x, int w, int units) {
+  const int64_t c = (static_cast<int64_t>(units) * (x + 1) - 1) / w;
+  return static_cast<int>(min(c, static_cast<int64_t>(units - 1)));
 }
 
-// The chunk table of block b, tables[b] = (starts, parts), 2 (tile_m + 1)
-// ints: starts[m] = first slot of block b holding a row >= m (n_valid, the
-// first pad slot, if none), for m <= tile_m, so rows [a, c) own slots
-// [starts[a], starts[c]); parts[m] = chunks of the split rows (more than
-// `split` slots) before m, parts[tile_m] = all of them.  A split row is cut
-// at the unit starts inside it, so it has one chunk more than it has cuts.
-// One CTA per block; it reads NT = 128 mask probes a round and dstl on the
-// valid slots.
-__global__ void __launch_bounds__(kRowThreads)
-row_starts_kernel(const int* __restrict__ dstl,
-                  const float* __restrict__ mask, int* __restrict__ tables,
-                  int emax, int tile_m, int split) {
-  constexpr int NT = kRowThreads;
-  extern __shared__ int s_tab[];  // starts, then parts: 2 (tile_m + 1)
-  const int64_t slot0 = static_cast<int64_t>(blockIdx.x) * emax;
+// The chunk table of a block, (starts, parts), 2 (tile_m + 1) ints, built
+// in shared memory s_tab by the NT threads of a CTA: starts[m] = first slot
+// of the block (slot0 .. slot0 + emax - 1) holding a row >= m (n_valid,
+// the first pad slot, if none), for m <= tile_m, so rows [a, c) own slots
+// [starts[a], starts[c]); parts[m] = chunks of the split rows before m,
+// parts[tile_m] = all of them.  A row is split when it has more than
+// `split` slots and, under a row map (map: the block's, in shared memory),
+// is stored at or after row split_from (a scratch row; a row stored below
+// it is folded whole).  A split row is cut at the starts of the `units`
+// fold units inside it, so it has one chunk more than it has cuts: row m
+// is split exactly when parts[m + 1] > parts[m].  It reads NT mask probes
+// a round and dstl on the valid slots; every thread returns after a
+// barrier.
+template <int NT>
+__device__ __forceinline__ void chunk_table(
+    int* s_tab, const int* __restrict__ dstl, const float* __restrict__ mask,
+    const int* map, int64_t slot0, int emax, int tile_m, int split,
+    int split_from, int units) {
   int* s_start = s_tab;
   int* s_part = s_tab + tile_m + 1;
   const int tid = threadIdx.x;
@@ -296,8 +341,9 @@ row_starts_kernel(const int* __restrict__ dstl,
       int c = 0;
       if (m < tile_m) {
         const int s = s_start[m], t = s_start[m + 1];
-        if (t - s > split)
-          c = 1 + cuts_before(t + m, w) - cuts_before(s + m + 1, w);
+        if (t - s > split && (map == nullptr || map[m] >= split_from))
+          c = 1 + cuts_before(t + m, w, units) -
+              cuts_before(s + m + 1, w, units);
       }
       int incl = c;
 #pragma unroll
@@ -311,41 +357,67 @@ row_starts_kernel(const int* __restrict__ dstl,
     if (tid == 0) s_part[tile_m] = total;
   }
   __syncthreads();
-  int* out = tables + static_cast<int64_t>(blockIdx.x) * 2 * (tile_m + 1);
-  for (int m = tid; m < 2 * (tile_m + 1); m += NT) out[m] = s_tab[m];
 }
 
-// One CTA per (destination block, column slice).  A unit is kLanes lanes;
-// lane li owns columns c0 + (cc * kLanes + li) * VEC .. + VEC - 1 of the
-// slice for cc < C.  T is the element type of x (float or bf16), TO that of
-// out (T, or float for bf16 x: the halo's f32 partials over a bf16 wire
-// slab); the fold is f32 either way.  Shared memory: the block's chunk
-// table, then max_chunks x slice_cols f32 chunk sums (the launch sizes it
-// from emax).
-template <typename T, typename TO, int VEC, int C>
+// The chunk tables of a launch with no row map, tables[b] for block b:
+// one CTA of kRowThreads per block, read by the fold kernel's CTAs (every
+// column slice of the block).
+__global__ void __launch_bounds__(kRowThreads)
+row_starts_kernel(const int* __restrict__ dstl,
+                  const float* __restrict__ mask, int* __restrict__ tables,
+                  int emax, int tile_m, int split) {
+  extern __shared__ int s_tab[];  // starts, then parts: 2 (tile_m + 1)
+  chunk_table<kRowThreads>(s_tab, dstl, mask, nullptr,
+                           static_cast<int64_t>(blockIdx.x) * emax, emax,
+                           tile_m, split, 0, kUnits);
+  int* out = tables + static_cast<int64_t>(blockIdx.x) * 2 * (tile_m + 1);
+  for (int m = threadIdx.x; m < 2 * (tile_m + 1); m += kRowThreads)
+    out[m] = s_tab[m];
+}
+
+// One CTA per (destination block, column slice).  A unit is L lanes (kLanes,
+// or a warp in a PACKED launch); lane li owns columns
+// c0 + (cc * L + li) * VEC .. + VEC - 1 of the slice for cc < C.  T is the
+// element type of x (float or bf16), TO that of out (T, or float for bf16
+// x: the halo's f32 partials over a bf16 wire slab); the fold is f32
+// either way.  Block row m is stored to out row b tile_m + m, or in a
+// PACKED launch to out_rows[b tile_m + m] (-1: not stored), and the CTA
+// builds its block's chunk table itself (chunk_table; else row_starts_kernel
+// wrote it to `tables`).  Shared memory: the chunk table, the row map
+// (tile_m ints, PACKED), then max_chunks x slice_cols f32 chunk sums (the
+// launch sizes it from emax and split).
+template <typename T, typename TO, int VEC, int C, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
-            const float* __restrict__ mask,
+            const int* __restrict__ dstl, const float* __restrict__ mask,
             const float* __restrict__ weight,
             const int* __restrict__ tables, TO* __restrict__ out,
-            int emax, int tile_m, int slice_cols, int split,
-            int blocks_first) {
-  constexpr int L = kLanes;
-  constexpr int kBatch = L;             // slots a unit gathers at once
+            const int* __restrict__ out_rows, int emax, int tile_m,
+            int slice_cols, int blocks_first, int split, int split_from) {
+  constexpr int L = PACKED ? kPackedLanes : kLanes;
+  constexpr int kU = kThreads / L;      // fold units of the CTA
   static_assert(C * VEC <= 8, "a lane holds at most 8 values of a slot");
   extern __shared__ int s_tab[];
   int* s_start = s_tab;                 // tile_m + 1
   int* s_part = s_tab + tile_m + 1;     // tile_m + 1
-  float* s_sum = reinterpret_cast<float*>(s_tab + 2 * (tile_m + 1));
+  int* s_map = s_tab + 2 * (tile_m + 1);  // tile_m, PACKED
+  float* s_sum = reinterpret_cast<float*>(s_map + (PACKED ? tile_m : 0));
   const int tid = threadIdx.x;
   // the grid's fast dimension: blocks (slice-major) or slices
   const int b = blocks_first ? blockIdx.y : blockIdx.x;
   const int slice = blocks_first ? blockIdx.x : blockIdx.y;
   const int64_t slot0 = static_cast<int64_t>(b) * emax;
-  const int* blk = tables + static_cast<int64_t>(b) * 2 * (tile_m + 1);
-  for (int m = tid; m < 2 * (tile_m + 1); m += kThreads)
-    s_tab[m] = __ldg(blk + m);
-  __syncthreads();
+  if constexpr (PACKED) {
+    for (int m = tid; m < tile_m; m += kThreads)
+      s_map[m] = __ldg(out_rows + static_cast<int64_t>(b) * tile_m + m);
+    chunk_table<kThreads>(s_tab, dstl, mask, s_map, slot0, emax, tile_m,
+                          split, split_from, kU);
+  } else {
+    const int* blk = tables + static_cast<int64_t>(b) * 2 * (tile_m + 1);
+    for (int m = tid; m < 2 * (tile_m + 1); m += kThreads)
+      s_tab[m] = __ldg(blk + m);
+    __syncthreads();
+  }
 
   const int unit = tid / L, li = tid % L;
   const int nvalid = s_start[tile_m];
@@ -358,9 +430,8 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   auto first_slot = [&](int k, int& r, int& part) {
     part = 0;
     if (k == 0) { r = 0; return 0; }
-    if (k == kUnits) { r = tile_m; return nvalid; }
-    const int target =
-        static_cast<int>(static_cast<int64_t>(k) * w / kUnits);
+    if (k == kU) { r = tile_m; return nvalid; }
+    const int target = static_cast<int>(static_cast<int64_t>(k) * w / kU);
     int lo = 0, hi = tile_m;  // s_start[tile_m] + tile_m = w >= target
     while (lo < hi) {
       const int mid = (lo + hi) / 2;
@@ -371,9 +442,9 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
     if (lo > 0) {
       const int m = lo - 1, s = s_start[m], t = s_start[lo];
       const int e = target - m - 1;  // the slot at position target
-      if (t - s > split && s <= e && e < t) {
+      if (s_part[lo] > s_part[m] && s <= e && e < t) {
         r = m;
-        if (e > s) part = k - cuts_before(s + m + 1, w);
+        if (e > s) part = k - cuts_before(s + m + 1, w, kU);
         return e;
       }
     }
@@ -393,7 +464,12 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   const int c0 = slice * slice_cols;
   const int cols = min(slice_cols, f - c0);
   const T* xs = x + c0;
-  TO* out_blk = out + static_cast<int64_t>(b) * tile_m * f + c0;
+  TO* out_c = out + c0;
+  // the out row of block row m: b tile_m + m, or its map entry (-1: none)
+  auto out_row = [&](int m) -> int64_t {
+    if constexpr (PACKED) return s_map[m];
+    return static_cast<int64_t>(b) * tile_m + m;
+  };
   // a lane whose columns lie past the slice loads column 0 (the same line
   // as its unit's other loads) and never stores
   int col_ld[C];
@@ -415,7 +491,7 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   int next = 0, pslot = -1;
   if (row < tile_m) {
     next = s_start[row + 1];
-    if (next - s_start[row] > split) pslot = s_part[row] + part;
+    if (s_part[row + 1] > s_part[row]) pslot = s_part[row] + part;
   }
   // The current row is complete (or empty): a whole row is stored, a
   // chunk's sum goes to shared memory; the next row becomes current.
@@ -423,12 +499,14 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   // entry: harmless, as no row is left to use it.)
   auto finish = [&]() {
     if (pslot < 0) {
+      const int64_t r = out_row(row);
+      if (r >= 0) {
+        TO* dst = out_c + r * f;
 #pragma unroll
-      for (int cc = 0; cc < C; ++cc) {
-        const int col = (cc * L + li) * VEC;
-        if (col < cols)
-          store_vec<VEC>(out_blk + static_cast<int64_t>(row) * f + col,
-                         acc[cc]);
+        for (int cc = 0; cc < C; ++cc) {
+          const int col = (cc * L + li) * VEC;
+          if (col < cols) store_vec<VEC>(dst + col, acc[cc]);
+        }
       }
     } else {
       float* dst = s_sum + pslot * slice_cols;
@@ -445,9 +523,8 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
 #pragma unroll
       for (int q = 0; q < VEC; ++q) acc[cc][q] = 0.f;
     ++row;
-    const int s = next;
     next = s_start[row + 1];
-    pslot = next - s > split ? s_part[row] : -1;
+    pslot = row < tile_m && s_part[row + 1] > s_part[row] ? s_part[row] : -1;
   };
 
   int p_src = 0;  // always a valid row of x: a loaded src
@@ -458,7 +535,7 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
   // slots the fold never adds
   const int last = max(e_hi - 1, 0);
   auto fetch = [&](int e) {
-    const int64_t s = slot0 + min(e + li, last);
+    const int64_t s = slot0 + min(e + (li & (kBatch - 1)), last);
     p_src = __ldg(src + s);
     const float m = __ldg(mask + s);
     p_coef = weight != nullptr ? m * __ldg(weight + s) : m;
@@ -556,28 +633,38 @@ fold_kernel(const T* __restrict__ x, int f, const int* __restrict__ src,
       const int m = i / cols, col = i - m * cols;
       const int p0 = s_part[m], p1 = s_part[m + 1];
       if (p0 == p1) continue;
+      const int64_t r = out_row(m);
+      if (r < 0) continue;
       const float* p = s_sum + p0 * slice_cols + col;
       float sum = p[0];
       for (int j = 1; j < p1 - p0; ++j)
         sum = __fadd_rn(sum, p[j * slice_cols]);
-      store_vec<1>(out_blk + static_cast<int64_t>(m) * f + col, &sum);
+      store_vec<1>(out_c + r * f + col, &sum);
     }
   }
 }
 
-template <typename T, typename TO, int VEC, int C>
+// A launch with no row map: row_starts_kernel writes the chunk tables,
+// then the fold (kLanes-lane units); with one (PACKED): the fold alone,
+// warp-wide units, each CTA building its block's table.
+template <typename T, typename TO, int VEC, int C, bool PACKED>
 int launch(const T* x, const int* src, const int* dstl, const float* mask,
-           const float* weight, int* tables, TO* out, int nblocks, int emax,
-           int f, int tile_m, int slice_cols, int split, int max_chunks,
-           int blocks_first, cudaStream_t stream) {
+           const float* weight, int* tables, TO* out, const int* out_rows,
+           int nblocks, int emax, int f, int tile_m, int slice_cols,
+           int split, int max_chunks, int blocks_first, int split_from,
+           cudaStream_t stream) {
   const int tab = 2 * (tile_m + 1) * static_cast<int>(sizeof(int));
-  row_starts_kernel<<<nblocks, kRowThreads, tab, stream>>>(
-      dstl, mask, tables, emax, tile_m, split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = fold_kernel<T, TO, VEC, C>;
-  const int smem =
-      tab + max_chunks * slice_cols * static_cast<int>(sizeof(float));
+  cudaError_t err;
+  if constexpr (!PACKED) {
+    row_starts_kernel<<<nblocks, kRowThreads, tab, stream>>>(
+        dstl, mask, tables, emax, tile_m, split);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto kernel = fold_kernel<T, TO, VEC, C, PACKED>;
+  const int map_bytes = PACKED ? tile_m * static_cast<int>(sizeof(int)) : 0;
+  const int smem = tab + map_bytes +
+                   max_chunks * slice_cols * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -586,9 +673,9 @@ int launch(const T* x, const int* src, const int* dstl, const float* mask,
   const int slices = (f + slice_cols - 1) / slice_cols;
   const dim3 grid = blocks_first ? dim3(slices, nblocks)
                                  : dim3(nblocks, slices);
-  kernel<<<grid, kThreads, smem, stream>>>(x, f, src, mask, weight, tables,
-                                           out, emax, tile_m, slice_cols,
-                                           split, blocks_first);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      x, f, src, dstl, mask, weight, tables, out, out_rows, emax, tile_m,
+      slice_cols, blocks_first, split, split_from);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,30 +683,53 @@ int launch(const T* x, const int* src, const int* dstl, const float* mask,
 
 // x: (V, f) f32; src, dstl: (nblocks, emax) int32; mask: (nblocks, emax) f32;
 // weight: (nblocks, emax) f32 or null; tables: (nblocks, 2 (tile_m + 1))
-// int32 scratch; out: (nblocks * tile_m, f) f32.  Columns go in slices of
-// slice_cols (a multiple of vec; the last may be narrower), each lane vec
-// floats wide, c loads per slot: vec in {1, 2, 4} with f % vec == 0 and x
-// vec * 4-byte aligned, 8 * vec * c >= slice_cols and vec * c <= 8.  Rows
-// of more than `split` slots are cut at the fold units' starts inside them;
-// max_chunks >= the chunks a block can hold (emax / (split + 1) + 31) sizes
-// the shared memory (kernels/seg_agg.py split_threshold, max_chunks).
-// blocks_first orders the fold's CTAs block by block (all slices of a
-// block together; nblocks <= 65535), else slice by slice.  Returns the
-// first CUDA error of the two launches (cudaErrorInvalidValue for another
-// (vec, c)).
+// int32 scratch (unused with a row map); out: (nblocks * tile_m, f) f32.
+// With a row map out_rows ((nblocks, tile_m) int32, or null) the launch is
+// PACKED: block row m of block b is stored to out row
+// out_rows[b tile_m + m], or nowhere at -1, and x and the rows stored must
+// not overlap.  Columns go in slices of slice_cols (a multiple of vec; the
+// last may be narrower), each lane vec floats wide, c loads per slot: vec
+// in {1, 2, 4} with f % vec == 0 and x vec * 4-byte aligned; with no map
+// a unit is 8 lanes, 8 * vec * c >= slice_cols and vec * c <= 8; PACKED a
+// unit is a warp, 32 * vec * c >= slice_cols and (vec, c) one of (4, 1),
+// (2, 1), (2, 2), (1, 1) .. (1, 4).  Rows of more than `split` slots are
+// cut at the fold units' starts inside them -- PACKED only those stored at
+// or after row split_from; max_chunks >= the chunks a block can hold
+// (emax / (split + 1) + units - 1) sizes the shared memory
+// (kernels/seg_agg.py max_chunks).  blocks_first orders the fold's CTAs
+// block by block (all slices of a block together; nblocks <= 65535), else
+// slice by slice.  Returns the first CUDA error of the launches
+// (cudaErrorInvalidValue for another (vec, c)).
+#define REPRO_SEG_AGG_CASE(T, TO, XP, OP, V, CC, P)                          \
+  if (vec == V && c == CC)                                                   \
+    return launch<T, TO, V, CC, P>(XP, src, dstl, mask, weight, tables, OP,  \
+                                   out_rows, nblocks, emax, f, tile_m,       \
+                                   slice_cols, split, max_chunks,            \
+                                   blocks_first, split_from,                 \
+                                   static_cast<cudaStream_t>(stream));
+// the PACKED instances of an entry
+#define REPRO_SEG_AGG_PACKED(T, TO, XP, OP)                                   \
+  if (out_rows != nullptr) {                                                 \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 4, 1, true)                            \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 2, 1, true)                            \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 2, 2, true)                            \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 1, 1, true)                            \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 1, 2, true)                            \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 1, 3, true)                            \
+    REPRO_SEG_AGG_CASE(T, TO, XP, OP, 1, 4, true)                            \
+    return static_cast<int>(cudaErrorInvalidValue);                         \
+  }
+
 extern "C" int seg_agg_f32(const float* x, const int* src, const int* dstl,
                            const float* mask, const float* weight,
-                           int* tables, float* out, int nblocks, int emax,
-                           int f, int tile_m, int slice_cols, int vec, int c,
-                           int split, int max_chunks, int blocks_first,
+                           int* tables, float* out, const int* out_rows,
+                           int nblocks, int emax, int f, int tile_m,
+                           int slice_cols, int vec, int c, int split,
+                           int max_chunks, int blocks_first, int split_from,
                            void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-#define REPRO_SEG_AGG(V, CC)                                                 \
-  if (vec == V && c == CC)                                                   \
-    return launch<float, float, V, CC>(x, src, dstl, mask, weight, tables, \
-                                       out, nblocks, emax, f, tile_m,      \
-                                       slice_cols, split, max_chunks,      \
-                                       blocks_first, st);
+  REPRO_SEG_AGG_PACKED(float, float, x, out)
+#define REPRO_SEG_AGG(V, CC) \
+  REPRO_SEG_AGG_CASE(float, float, x, out, V, CC, false)
   REPRO_SEG_AGG(4, 1)
   REPRO_SEG_AGG(4, 2)
   REPRO_SEG_AGG(2, 1)
@@ -640,77 +750,55 @@ extern "C" int seg_agg_f32(const float* x, const int* src, const int* dstl,
 
 // The same with x and out bf16 (f32 fold and chunk sums, one rounding at
 // the store): vec bf16 elements a load, vec in {1, 2, 4, 8} with
-// f % vec == 0 and x vec * 2-byte aligned, 8 * vec * c >= slice_cols and
-// vec * c <= 8.
+// f % vec == 0 and x vec * 2-byte aligned; with no map 8 * vec * c >=
+// slice_cols and vec * c <= 8; PACKED as seg_agg_f32's.
+#define REPRO_SEG_AGG_BF16(TO, OP)                    \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 8, 1, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 4, 1, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 4, 2, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 2, 1, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 2, 2, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 2, 3, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 2, 4, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 1, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 2, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 3, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 4, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 5, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 6, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 7, false)   \
+  REPRO_SEG_AGG_CASE(bf16, TO, xb, OP, 1, 8, false)
+
 extern "C" int seg_agg_bf16(const void* x, const int* src, const int* dstl,
                             const float* mask, const float* weight,
-                            int* tables, void* out, int nblocks, int emax,
-                            int f, int tile_m, int slice_cols, int vec, int c,
-                            int split, int max_chunks, int blocks_first,
-                           void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
+                            int* tables, void* out, const int* out_rows,
+                            int nblocks, int emax, int f, int tile_m,
+                            int slice_cols, int vec, int c, int split,
+                            int max_chunks, int blocks_first, int split_from,
+                            void* stream) {
   auto* xb = static_cast<const bf16*>(x);
   auto* ob = static_cast<bf16*>(out);
-#define REPRO_SEG_AGG(V, CC)                                                 \
-  if (vec == V && c == CC)                                                   \
-    return launch<bf16, bf16, V, CC>(xb, src, dstl, mask, weight, tables,   \
-                                     ob, nblocks, emax, f, tile_m,         \
-                                     slice_cols, split, max_chunks,        \
-                                     blocks_first, st);
-  REPRO_SEG_AGG(8, 1)
-  REPRO_SEG_AGG(4, 1)
-  REPRO_SEG_AGG(4, 2)
-  REPRO_SEG_AGG(2, 1)
-  REPRO_SEG_AGG(2, 2)
-  REPRO_SEG_AGG(2, 3)
-  REPRO_SEG_AGG(2, 4)
-  REPRO_SEG_AGG(1, 1)
-  REPRO_SEG_AGG(1, 2)
-  REPRO_SEG_AGG(1, 3)
-  REPRO_SEG_AGG(1, 4)
-  REPRO_SEG_AGG(1, 5)
-  REPRO_SEG_AGG(1, 6)
-  REPRO_SEG_AGG(1, 7)
-  REPRO_SEG_AGG(1, 8)
-#undef REPRO_SEG_AGG
+  REPRO_SEG_AGG_PACKED(bf16, bf16, xb, ob)
+  REPRO_SEG_AGG_BF16(bf16, ob)
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x bf16, out f32: the bf16 entry's fold (bf16 loads converted exactly, f32
 // sums) stored without the rounding -- the f32 partial sums of a halo hop
 // over a bf16 wire slab (core/distributed.py), as the reference's
-// promote_types(bf16, f32) accumulator.  Arguments as seg_agg_bf16's; out
-// is (nblocks * tile_m, f) f32.
+// promote_types(bf16, f32) accumulator, and the f32 rows of K1's backward
+// over a capped layout of bf16 gradients.  Arguments as seg_agg_bf16's;
+// out is f32.
 extern "C" int seg_agg_bf16_f32(const void* x, const int* src,
                                 const int* dstl, const float* mask,
                                 const float* weight, int* tables, float* out,
-                                int nblocks, int emax, int f, int tile_m,
-                                int slice_cols, int vec, int c, int split,
-                                int max_chunks, int blocks_first,
+                                const int* out_rows, int nblocks, int emax,
+                                int f, int tile_m, int slice_cols, int vec,
+                                int c, int split, int max_chunks,
+                                int blocks_first, int split_from,
                                 void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
   auto* xb = static_cast<const bf16*>(x);
-#define REPRO_SEG_AGG(V, CC)                                                 \
-  if (vec == V && c == CC)                                                   \
-    return launch<bf16, float, V, CC>(xb, src, dstl, mask, weight, tables,  \
-                                      out, nblocks, emax, f, tile_m,        \
-                                      slice_cols, split, max_chunks,        \
-                                      blocks_first, st);
-  REPRO_SEG_AGG(8, 1)
-  REPRO_SEG_AGG(4, 1)
-  REPRO_SEG_AGG(4, 2)
-  REPRO_SEG_AGG(2, 1)
-  REPRO_SEG_AGG(2, 2)
-  REPRO_SEG_AGG(2, 3)
-  REPRO_SEG_AGG(2, 4)
-  REPRO_SEG_AGG(1, 1)
-  REPRO_SEG_AGG(1, 2)
-  REPRO_SEG_AGG(1, 3)
-  REPRO_SEG_AGG(1, 4)
-  REPRO_SEG_AGG(1, 5)
-  REPRO_SEG_AGG(1, 6)
-  REPRO_SEG_AGG(1, 7)
-  REPRO_SEG_AGG(1, 8)
-#undef REPRO_SEG_AGG
+  REPRO_SEG_AGG_PACKED(bf16, float, xb, out)
+  REPRO_SEG_AGG_BF16(float, out)
   return static_cast<int>(cudaErrorInvalidValue);
 }

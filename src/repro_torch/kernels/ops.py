@@ -18,9 +18,10 @@ on every call, ``seg_agg_pregrouped`` takes them blocked.
 On the ``cuda`` tier every entry reaches K1 through its autograd Function
 (``kernels.seg_agg.SegAgg``), so a gradient flows through the kernel: its
 backward is K1 over the layout's transposed twin (over a capped one, K1
-over the pieces and then over the fold-back).  The ``torch`` tier's plain
-versions are differentiable as they stand.  ``seg_agg_transposed`` runs
-that backward fold alone, for callers that drive their own backward.
+over the pieces and, when a row was cut, over the fold-back).  The
+``torch`` tier's plain versions are differentiable as they stand.
+``seg_agg_transposed`` runs that backward fold alone, for callers that
+drive their own backward.
 """
 
 from __future__ import annotations
@@ -154,23 +155,16 @@ def seg_agg_planned(bg, x: torch.Tensor,
 def seg_agg_transposed(t, g: torch.Tensor, *, backend: str) -> torch.Tensor:
     """K1's backward fold over a transposed layout ``t`` on its own:
     ``(rows, F)``, the sums ``sum_{slots e of row u} g[src[e]]`` of the
-    rows ``t`` (or, capped, its fold-back) lays out.  A capped layout runs
-    the pieces' sums in f32 and then the fold-back (two launches on the
-    cuda tier, ``kernels.seg_agg.fold_transposed``), so the result is
-    f32; an uncapped one gives g's dtype.  The distributed halos'
-    backward (``core.distributed``) folds each transposed shard
-    sub-layout through here."""
+    rows ``t`` lays out.  A capped layout stores its uncut rows in place
+    and folds its cut rows back from their pieces (one launch, or two
+    when a row was cut, on the cuda tier: ``kernels.seg_agg.
+    fold_transposed``; the same folds and row maps in plain PyTorch on the
+    torch tier), so the result is f32; an uncapped one gives g's dtype.
+    The distributed halos' backward (``core.distributed``) folds each
+    transposed shard sub-layout through here."""
     _check_tier(backend, g)
-    if backend == TORCH:
-        rows = k1.seg_agg_plain
-        out = rows(g, t.src, t.dstl, t.mask, tile_m=t.tile_m,
-                   out_dtype=None if t.fold is None else torch.float32)
-        if t.fold is not None:
-            f = t.fold
-            out = rows(out, f.src, f.dstl, f.mask, tile_m=f.tile_m)
-    else:
-        out = k1.fold_transposed(g, t)
-    return out[:(t if t.fold is None else t.fold).num_vertices]
+    out = k1.fold_transposed(g, t, plain=backend == TORCH)
+    return out[:t.num_vertices]
 
 
 def fused_agg_combine(src: torch.Tensor, dst_local: torch.Tensor,

@@ -22,14 +22,19 @@ transposed layout (``core.dataflow``)::
     gx[u] = sum_{slots e with src[e] = u} mask[e] * weight[e] * gout[dst[e]]
 
 so on a card both directions launch the kernel.  Over a capped
-transposed layout (``core.dataflow._transposed`` with a cap: rows cut
-into pieces) the backward is two launches of the same kernel,
-``fold_transposed``: the pieces' sums in f32, then the fold-back layout
-adding each row's pieces in order, rounded once to x's dtype.
-``seg_agg.launches`` counts the launches, ``seg_agg.launches_bf16`` the
-bf16 ones,
-``seg_agg.launches_bf16_f32`` those of bf16 x with an f32 output and
-``seg_agg.launches_bwd`` the backward ones among them.  The kernel
+transposed layout (``core.dataflow._transposed`` with a cap: packed
+pieces of rows, each block row with a destination in the layout's row
+map ``out_rows``) the backward is ``fold_transposed``: one launch that
+stores each uncut row's f32 sum in place, once, and each piece of a cut
+row to a scratch row after them; then, only when some row was cut, a
+second launch over the fold-back layout adding each cut row's pieces in
+piece order into its row.  Both are packed launches: one kernel each,
+warp-wide fold units, slices of ``packed_launch`` and the split
+threshold ``packed_split``; the result is f32, rounded once to x's
+dtype by ``SegAgg``.  ``seg_agg.launches`` counts the launches,
+``seg_agg.launches_bf16`` the bf16 ones, ``seg_agg.launches_bf16_f32``
+those of bf16 x with an f32 output and ``seg_agg.launches_bwd`` the
+backward ones among them.  The kernel
 walks x in column slices of ``slice_cols`` with 16-, 8-, 4- or (bf16)
 2-byte loads (``launch_params``), both pure functions of the shapes, so
 the CPU tests hold them; so are the split threshold and the shared
@@ -61,6 +66,13 @@ UNIT_LANES = 8
 LANE_ELEMS = 8
 #: fold units of a CTA (csrc/seg_agg.cu kUnits): 256 threads of 8 lanes
 FOLD_UNITS = 32
+#: a packed launch's fold unit (a launch with a row map, over a capped
+#: transposed layout): one warp, so the lanes of a warp meet the same row
+#: ends (its rows are short: most batches cross one); 8 units a CTA
+PACKED_LANES = 32
+PACKED_UNITS = 8
+#: a packed launch's widest slice: 32 lanes of 4 floats
+PACKED_SLICE = 128
 #: a row of at most MIN_SPLIT slots is never split: one in-order fold
 MIN_SPLIT = 256
 #: only a row of more than emax / SPLIT_WAYS slots is split, so a block
@@ -142,23 +154,33 @@ def backward_slice_cols(f: int, elt: int, align: int) -> int:
     return min(f, UNIT_LANES * vec)
 
 
-def launch_params(f: int, width: int, elt: int,
-                  align: int) -> tuple[int, int]:
+def packed_launch(f: int, elt: int, align: int) -> tuple[int, bool]:
+    """(columns per slice, CTAs block by block) of K1's packed launches,
+    those over a capped transposed layout (``fold_transposed``): all of F
+    up to ``PACKED_SLICE`` columns in one slice, slices in order."""
+    return min(f, PACKED_SLICE), False
+
+
+def launch_params(f: int, width: int, elt: int, align: int,
+                  lanes: int = UNIT_LANES) -> tuple[int, int]:
     """(vec, c): elements per load and loads per slot of one lane, for F
     columns of ``elt``-byte elements (4: f32, 2: bf16) walked in slices of
-    ``width``, x's address a multiple of ``align`` bytes.  The widest load
-    of 16, 8, 4 or 2 bytes (at least one element) whose element count
-    divides F and the width and whose size divides ``align``; then
-    c = ceil(width / (8 vec)) loads a slot for each of a fold unit's
-    ``UNIT_LANES`` lanes.  For bf16: F = 128 takes 16-byte loads; F = 602
-    (1,204-byte rows) 4-byte; F = 41 (82-byte rows) 2-byte."""
+    ``width``, x's address a multiple of ``align`` bytes, by fold units of
+    ``lanes`` lanes.  The widest load of 16, 8, 4 or 2 bytes (at least one
+    element) whose element count divides F and the width and whose size
+    divides ``align`` -- in a packed launch (``PACKED_LANES``) also no
+    wider than keeps every lane busy (lanes x vec <= width); then
+    c = ceil(width / (lanes vec)) loads a slot for each lane.  For bf16
+    with 8-lane units: F = 128 takes 16-byte loads; F = 602 (1,204-byte
+    rows) 4-byte; F = 41 (82-byte rows) 2-byte."""
     vec = 1
     for nbytes in (16, 8, 4):
         n = nbytes // elt
-        if f % n == 0 and width % n == 0 and align % nbytes == 0:
+        if f % n == 0 and width % n == 0 and align % nbytes == 0 and (
+                lanes == UNIT_LANES or n * lanes <= width):
             vec = n
             break
-    return vec, -(-width // (UNIT_LANES * vec))
+    return vec, -(-width // (lanes * vec))
 
 
 def split_threshold(emax: int) -> int:
@@ -170,18 +192,41 @@ def split_threshold(emax: int) -> int:
     return max(MIN_SPLIT, -(-int(emax) // SPLIT_WAYS))
 
 
-def max_chunks(emax: int) -> int:
-    """The most chunks a block of ``emax`` slots can hold: at most
-    emax / (T + 1) rows are split, and each of the FOLD_UNITS - 1 unit
-    starts cuts at most one of them once more."""
-    return int(emax) // (split_threshold(emax) + 1) + FOLD_UNITS - 1
+def packed_split(emax: int, tile_m: int) -> int:
+    """The split threshold of K1's packed launches (over a capped
+    transposed layout, ``fold_transposed``): a fold unit's share of a
+    full block, ``(emax + tile_m) // PACKED_UNITS`` positions (at least
+    1).  Its rows are pieces of ~12.5 slots on average (Reddit's shard
+    sub-layouts), so
+    a row far longer than a unit's share keeps one unit busy while the
+    CTA's others idle; ``core.dataflow._capped`` stores in place only the
+    rows of at most ``packed_split(cap, tile_m)`` slots, which K1 folds
+    whole, and sends the longer ones through scratch rows, which K1
+    splits across its units at this threshold."""
+    return max(1, (int(emax) + int(tile_m)) // PACKED_UNITS)
 
 
-def fold_smem_bytes(tile_m: int, emax: int, width: int) -> int:
+def max_chunks(emax: int, split: Optional[int] = None,
+               units: int = FOLD_UNITS) -> int:
+    """The most chunks a block of ``emax`` slots can hold when rows of
+    more than ``split`` slots (default ``split_threshold(emax)``) are
+    split at the starts of ``units`` fold units: at most emax / (split +
+    1) rows are, and each of the units - 1 unit starts cuts at most one of
+    them once more."""
+    split = split_threshold(emax) if split is None else split
+    return int(emax) // (split + 1) + units - 1
+
+
+def fold_smem_bytes(tile_m: int, emax: int, width: int,
+                    mapped: bool = False,
+                    split: Optional[int] = None) -> int:
     """Dynamic shared memory of a fold CTA (``csrc/seg_agg.cu`` launch):
-    the block's chunk table, 2 (tile_m + 1) ints, then an f32 sum of
-    ``width`` columns for each chunk the block can hold."""
-    return 4 * (2 * (tile_m + 1) + max_chunks(emax) * width)
+    the block's chunk table, 2 (tile_m + 1) ints, its row map (tile_m
+    ints, in a packed launch: ``mapped``), then an f32 sum of ``width``
+    columns for each chunk the block can hold (``max_chunks``)."""
+    units = PACKED_UNITS if mapped else FOLD_UNITS
+    return 4 * (2 * (tile_m + 1) + (tile_m if mapped else 0)
+                + max_chunks(emax, split, units) * width)
 
 
 def unit_starts(row_lengths) -> list[int]:
@@ -246,38 +291,69 @@ def _entry(kernel: str, dtype: torch.dtype,
 
 def _fold(x, src, dstl, mask, weight, tile_m: int, *,
           backward: bool = False,
-          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """One fold: the plain version on the CPU, the kernel on a card (a
-    ``backward`` one -- narrow slices, CTAs block by block -- counted in
-    ``seg_agg.launches_bwd`` too)."""
-    if x.device.type == "cpu":
-        return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
+          out_dtype: Optional[torch.dtype] = None,
+          out: Optional[torch.Tensor] = None,
+          out_rows: Optional[torch.Tensor] = None, split_from: int = 0,
+          plain: bool = False) -> torch.Tensor:
+    """One fold: the plain version on the CPU (or when ``plain``), the
+    kernel on a card (a ``backward`` one counted in
+    ``seg_agg.launches_bwd`` too: without a row map narrow slices, CTAs
+    block by block; with one ``packed_launch``'s).  With ``out_rows``
+    block row m of block b goes to row ``out_rows[b, m]`` of ``out``
+    (-1: nowhere), and ``out`` is returned."""
+    if plain or x.device.type == "cpu":
+        rows = seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
                              out_dtype=out_dtype)
+        if out_rows is None:
+            return rows
+        to = out_rows.reshape(-1).long()
+        keep = to >= 0
+        out[to[keep]] = rows[keep]
+        return out
     f = x.shape[-1]
-    width = backward_slice_cols(f, x.element_size(), alignment(x)) \
-        if backward else slice_cols(f)
+    elt, align = x.element_size(), alignment(x)
+    split = None
+    if out_rows is not None:
+        width, blocks_first = packed_launch(f, elt, align)
+        split = packed_split(src.shape[1], tile_m)
+    else:
+        width = backward_slice_cols(f, elt, align) if backward \
+            else slice_cols(f)
+        blocks_first = backward
     out = _launch(x, src, dstl, mask, weight, tile_m, width,
-                  blocks_first=backward, out_dtype=out_dtype)
+                  blocks_first=blocks_first, out_dtype=out_dtype, out=out,
+                  out_rows=out_rows, split_from=split_from, split=split)
     if backward:
         seg_agg.launches_bwd += 1
     return out
 
 
-def fold_transposed(g: torch.Tensor, t, weight: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+def fold_transposed(g: torch.Tensor, t, weight: Optional[torch.Tensor] = None,
+                    *, plain: bool = False) -> torch.Tensor:
     """K1's backward fold of ``g`` over the transposed layout ``t`` (a
-    ``core.dataflow.BlockedGraph``), ``(t rows, F)``: one backward launch,
-    or over a capped layout two -- the pieces' sums in f32 (x's own dtype
-    when uncapped), then ``t.fold`` adding each row's pieces in piece
-    order, in f32.  ``weight``: the per-slot weights of ``t``'s slots.
-    The plain version on the CPU, as ``_fold``."""
-    if t.fold is None:
+    ``core.dataflow.BlockedGraph``), ``weight`` the per-slot weights of
+    its slots.  Uncapped: one backward launch, ``(t rows, F)`` in g's
+    dtype.  Capped (``t.out_rows``): ``(t.num_vertices + scratch, F)``
+    f32, its first ``t.num_vertices`` rows the result -- the pieces'
+    launch stores each uncut row there, its one in-order fold, and each
+    piece of a cut row to a scratch row after them; the fold-back's
+    launch (``t.fold``, only when a row was cut) reads the scratch rows
+    and adds each cut row's pieces in piece order into its row.  No row
+    is written twice.  The plain version on the CPU or when ``plain``, as
+    ``_fold``."""
+    if t.out_rows is None:
         return _fold(g, t.src, t.dstl, t.mask, weight, t.tile_m,
-                     backward=True)
-    parts = _fold(g, t.src, t.dstl, t.mask, weight, t.tile_m, backward=True,
-                  out_dtype=torch.float32)
-    f = t.fold
-    return _fold(parts, f.src, f.dstl, f.mask, None, f.tile_m, backward=True)
+                     backward=True, plain=plain)
+    n, f = t.num_vertices, t.fold
+    out = torch.empty((n + (0 if f is None else f.num_vertices),
+                       g.shape[1]), dtype=torch.float32, device=g.device)
+    _fold(g, t.src, t.dstl, t.mask, weight, t.tile_m, backward=True,
+          out_dtype=torch.float32, out=out, out_rows=t.out_rows,
+          split_from=n, plain=plain)
+    if f is not None:
+        _fold(out[n:], f.src, f.dstl, f.mask, None, f.tile_m, backward=True,
+              out=out, out_rows=f.out_rows, split_from=n, plain=plain)
+    return out
 
 
 class SegAgg(torch.autograd.Function):
@@ -285,7 +361,7 @@ class SegAgg(torch.autograd.Function):
     same fold over the transposed layout (the one given, or else
     ``core.dataflow.transposed_layout`` of the forward one, built in this
     backward), the weights regrouped through its ``eidx``; over a capped
-    transposed layout, the pieces and then the fold-back
+    transposed layout, the pieces and, when a row was cut, the fold-back
     (``fold_transposed``), rounded once to x's dtype.  Nothing launches
     when ``x`` needs no gradient.  The layout, mask and weights get
     none."""
@@ -356,7 +432,7 @@ def _c_entry(entry: str):
     fn = _C_ENTRIES.get(entry)
     if fn is None:
         fn = getattr(_build.load("seg_agg"), entry)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _C_ENTRIES[entry] = fn
@@ -368,14 +444,28 @@ _C_ENTRIES: dict = {}
 
 def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
             blocks_first: bool = False,
-            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+            out_dtype: Optional[torch.dtype] = None,
+            out: Optional[torch.Tensor] = None,
+            out_rows: Optional[torch.Tensor] = None,
+            split_from: int = 0,
+            split: Optional[int] = None) -> torch.Tensor:
     """Check the arguments and launch the kernel with column slices of
     ``width``; ``seg_agg`` passes ``slice_cols(F)``, the card tests force
     narrower slices through here.  ``blocks_first`` orders the CTAs block
     by block (K1's backward, whose layout gathers each row about once, so
     slice-major order has no reuse to keep; at most 65,535 blocks), else
-    slice by slice; the sums are the same either way."""
+    slice by slice; the sums are the same either way.  Rows of more than
+    ``split`` slots (default T, ``split_threshold(emax)``) are split.
+    ``out_rows``, an ``(nblocks, tile_m)`` int32 row map, makes the launch
+    packed: block row m of block b goes to row ``out_rows[b, m]`` of
+    ``out`` (given, ``(R, F)`` of ``out_dtype``; the map's entries in
+    ``[-1, R)``, -1 not stored, x's rows apart from the stored ones), only
+    the rows stored at or after row ``split_from`` are split, a fold unit
+    is a warp (``PACKED_LANES``, slices up to ``PACKED_SLICE`` columns)
+    and the launch is one kernel.  Else the output is a new ``(nblocks *
+    tile_m, F)``."""
     nblocks, emax = src.shape
+    packed = out_rows is not None
     f = x.shape[1] if x.dim() == 2 else -1
     lay = (nblocks, emax)
     out_dtype = out_dtype or x.dtype
@@ -385,34 +475,49 @@ def _launch(x, src, dstl, mask, weight, tile_m: int, width: int, *,
             "mask": (mask, torch.float32, lay)}
     if weight is not None:
         args["weight"] = (weight, torch.float32, lay)
+    if packed:
+        if out is None:
+            raise ValueError("seg_agg: a row map stores into a given out")
+        args["out_rows"] = (out_rows, torch.int32, (nblocks, tile_m))
+        args["out"] = (out, out_dtype, (None, f))
     _build.check_args("seg_agg", x.device, args)
     if not (tile_m > 0 and nblocks > 0 and emax > 0 and f > 0):
         raise ValueError(f"seg_agg: empty launch (tile_m={tile_m}, "
                          f"layout {lay}, F={f})")
-    if not 0 < width <= min(f, MAX_SLICE):
+    widest = PACKED_SLICE if packed else MAX_SLICE
+    if not 0 < width <= min(f, widest):
         raise ValueError(f"seg_agg: slice width {width} must be in "
-                         f"[1, min(F={f}, {MAX_SLICE})]")
-    smem = fold_smem_bytes(tile_m, emax, width)
+                         f"[1, min(F={f}, {widest})]")
+    split = split_threshold(emax) if split is None else split
+    smem = fold_smem_bytes(tile_m, emax, width, packed, split)
     if smem > SMEM_LIMIT or 8 * (tile_m + 1) > SMEM_DEFAULT:
         raise ValueError(f"seg_agg: tile_m={tile_m}, emax={emax} need "
                          f"{smem} B of shared memory a CTA (at most "
                          f"{SMEM_LIMIT})")
-    out = torch.empty((nblocks * tile_m, f), dtype=out_dtype,
-                      device=x.device)
-    # the chunk table: row starts and split chunks before each row, per
-    # block, written by the first launch and read by the second
-    tables = torch.empty((nblocks, 2 * (tile_m + 1)), dtype=torch.int32,
-                         device=x.device)
-    vec, c = launch_params(f, width, x.element_size(), alignment(x))
+    tables = None
+    if not packed:
+        out = torch.empty((nblocks * tile_m, f), dtype=out_dtype,
+                          device=x.device)
+        # the chunk table: row starts and split chunks before each row, per
+        # block, written by the first launch and read by the second (a
+        # packed launch's CTAs build their own in shared memory)
+        tables = torch.empty((nblocks, 2 * (tile_m + 1)), dtype=torch.int32,
+                             device=x.device)
+    vec, c = launch_params(f, width, x.element_size(), alignment(x),
+                           PACKED_LANES if packed else UNIT_LANES)
     fn = _c_entry(entry)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), src.data_ptr(), dstl.data_ptr(),
                  mask.data_ptr(),
                  None if weight is None else weight.data_ptr(),
-                 tables.data_ptr(), out.data_ptr(), nblocks, emax, f, tile_m,
-                 width, vec, c, split_threshold(emax), max_chunks(emax),
+                 None if tables is None else tables.data_ptr(),
+                 out.data_ptr(),
+                 None if out_rows is None else out_rows.data_ptr(), nblocks,
+                 emax, f, tile_m, width, vec, c, split,
+                 max_chunks(emax, split,
+                            PACKED_UNITS if packed else FOLD_UNITS),
                  int(blocks_first and nblocks <= 65535),
-                 torch.cuda.current_stream().cuda_stream)
+                 split_from, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"seg_agg: kernel launch failed with CUDA error "
                            f"{err}")

@@ -829,6 +829,58 @@ def _in_order(x, bg, w):
     return torch.from_numpy(out)
 
 
+@pytest.mark.parametrize("name", ["e7120", "e65536"])
+@pytest.mark.parametrize("f", [41, 128])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)])
+def test_seg_agg_row_map_matches_plain(card, name, f, dtypes):
+    """K1's entries (f32, bf16, bf16 -> f32) with a row map over
+    ``LONG_ROWS``: block rows stored to shuffled rows of a sentinel-filled
+    output, every fourth block row to none (-1); rows over T stored below
+    ``split_from`` folded whole, those at or after it split.  Each stored
+    row within K1's per-row limit of the plain version; each row stored
+    below ``split_from`` bit for bit one in-order fold, whatever its
+    length; the rows no block row names keep the sentinel; two launches
+    bit for bit."""
+    x_dtype, out_dtype = dtypes
+    bg, lengths, t = _long_row_layout(name)
+    rows = bg.nblocks * bg.tile_m
+    rng = np.random.default_rng(f)
+    dest = rng.permutation(rows + 40)[:rows]
+    long = np.flatnonzero(lengths > t)
+    dest[np.setdiff1d(np.arange(0, rows, 4), long)] = -1
+    # half the rows over T stored below split_from, half at or after it
+    split_from = int(np.sort(dest[long])[len(long) // 2])
+    out_rows = torch.from_numpy(dest.astype(np.int32)).view(
+        bg.nblocks, bg.tile_m).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(f)
+    x = torch.randn((3000, f), generator=gen, device="cuda").to(x_dtype)
+    args = (x, bg.src, bg.dstl, bg.mask, None, bg.tile_m, k1.slice_cols(f))
+
+    def launch():
+        out = torch.full((rows + 40, f), 7.0, dtype=out_dtype,
+                         device="cuda")
+        return k1._launch(*args, out_dtype=out_dtype, out=out,
+                          out_rows=out_rows, split_from=split_from)
+    got = launch()
+    assert torch.equal(got, launch())
+    want = k1.seg_agg_plain(x, bg.src, bg.dstl, bg.mask, tile_m=bg.tile_m,
+                            out_dtype=out_dtype)
+    named = torch.from_numpy(dest >= 0)
+    to = torch.from_numpy(dest[dest >= 0]).long()
+    _rows_close(got.cpu()[to], want.cpu()[named],
+                3e-5 if out_dtype == torch.float32 else AGG_BF16_ROW_LIMIT)
+    whole = torch.from_numpy((dest >= 0) & (dest < split_from))
+    assert bool((torch.from_numpy(lengths) > t)[whole].any())
+    ref = _in_order(x, bg, None).to(out_dtype)
+    assert torch.equal(got.cpu()[torch.from_numpy(dest[whole.numpy()])
+                                 .long()], ref[whole])
+    free = torch.ones(rows + 40, dtype=torch.bool)
+    free[to] = False
+    assert bool((got.cpu()[free] == 7.0).all())
+
+
 @pytest.mark.parametrize("name", list(LONG_ROWS))
 @pytest.mark.parametrize("f", [41, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1193,18 +1245,24 @@ def _hub_transposed(cap, v=70000, fanout=60000, other=40000, seed=5):
         src, dst, slot, v, 128, dev, cap))
 
 
-@pytest.mark.parametrize("cap", [256, 1024, 2048])
+@pytest.mark.parametrize("cap,fanout", [(256, 60000), (1024, 60000),
+                                        (2048, 60000), (1024, 0)])
 @pytest.mark.parametrize("f", [41, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_capped_transposed_fold_matches_plain(card, cap, f, dtype):
+def test_capped_transposed_fold_matches_plain(card, cap, fanout, f, dtype):
     """K1's backward over a capped transposed layout with a hub row of
-    60,000 slots -- the pieces' sums in f32 (the bf16-in/f32-out entry for
-    bf16), then the fold-back -- per row within the f32 limit of the plain
-    version's two folds and of the uncapped plain fold; two launches each
-    bitwise; both counted as backward launches."""
-    bg = _hub_transposed(cap)
+    60,000 slots (or none: no row cut, no fold-back) -- the pieces'
+    launch storing each uncut row in place and each cut row's pieces to
+    scratch rows (f32; the bf16-in/f32-out entry for bf16), then, when a
+    row was cut, the fold-back -- per row within the f32 limit of the
+    plain version's folds and of the uncapped plain fold; every uncut row
+    bit for bit the in-order f32 fold of its slots, every cut row the
+    left fold of its scratch rows in piece order; two calls bitwise; one
+    launch a call, or two with a cut row, each counted as a backward
+    launch."""
+    bg = _hub_transposed(cap, fanout=fanout)
     t = bg.transposed
-    assert t.emax <= cap and t.fold is not None
+    assert t.emax <= cap and (t.fold is not None) == (fanout > 0)
     gen = torch.Generator(device="cuda").manual_seed(cap + f)
     g = torch.randn((bg.nblocks * bg.tile_m, f), generator=gen,
                     device="cuda").to(dtype)
@@ -1212,16 +1270,36 @@ def test_capped_transposed_fold_matches_plain(card, cap, f, dtype):
     got = k1.fold_transposed(g, t)
     again = k1.fold_transposed(g, t)
     launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
-    assert launched["seg_agg_bwd"] == launched["seg_agg"] == 4
+    per_call = 1 + (t.fold is not None)
+    assert launched["seg_agg_bwd"] == launched["seg_agg"] == 2 * per_call
     assert launched["seg_agg_bf16_f32"] == (2 if dtype == torch.bfloat16
                                             else 0)
+    assert torch.equal(got, again)
+    n = t.num_vertices
     want = ops.seg_agg_transposed(t, g, backend="torch")
-    got = got[:want.shape[0]]
-    assert got.dtype == want.dtype == torch.float32
-    assert torch.equal(got, again[:want.shape[0]])
-    _rows_close(got, want, ROW_LIMIT[torch.float32])
+    rows = got[:n]
+    assert rows.dtype == want.dtype == torch.float32
+    _rows_close(rows, want, ROW_LIMIT[torch.float32])
     plain = dataflow_plain_transposed(bg, g)
-    _rows_close(got, plain, ROW_LIMIT[torch.float32])
+    _rows_close(rows, plain, ROW_LIMIT[torch.float32])
+    # uncut rows: the in-order fold of their slots, stored in place
+    tmap = t.out_rows.cpu().numpy().ravel()
+    whole = (tmap >= 0) & (tmap < n)
+    ref = _in_order(g, t, None)
+    assert torch.equal(rows.cpu()[torch.from_numpy(tmap[whole]).long()],
+                       ref[torch.from_numpy(whole)])
+    if t.fold is None:
+        return
+    # cut rows: their scratch rows added left to right in piece order
+    scratch, fold = got[n:].cpu().numpy(), t.fold
+    fmask = fold.mask.cpu().numpy() != 0
+    fsrc, fdst = fold.src.cpu().numpy(), fold.dstl.cpu().numpy()
+    fmap = fold.out_rows.cpu().numpy().reshape(fold.nblocks, -1)
+    for b, m in zip(*np.nonzero(fmap >= 0)):
+        acc = np.zeros(f, np.float32)
+        for p in fsrc[b][fmask[b] & (fdst[b] == m)]:
+            acc = acc + scratch[p]
+        assert np.array_equal(rows[fmap[b, m]].cpu().numpy(), acc)
 
 
 def dataflow_plain_transposed(bg, g):
@@ -1250,6 +1328,7 @@ def test_bf16_entries_backward_over_capped_layout(card, out_dtype):
                      transposed=bg.transposed, out_dtype=out_dtype)
     n = k1.seg_agg.launches_bwd
     (gk,) = torch.autograd.grad((out.float() * cot).sum(), [xk])
+    assert bg.transposed.fold is not None
     assert k1.seg_agg.launches_bwd - n == 2 and gk.dtype == torch.bfloat16
     xp = x.float().requires_grad_()
     ref = k1.seg_agg_plain(xp, bg.src, bg.dstl, bg.mask, tile_m=bg.tile_m)
@@ -1264,8 +1343,9 @@ def test_bf16_entries_backward_over_capped_layout(card, out_dtype):
 def test_local_mesh_gradients_on_card(card, shape, strategy, dtype):
     """Gradients of a mesh plan on the card: K1 forward and backward at
     the counts the partition implies (a layer: held shards x hops
-    forward, and twice held shards x P backward -- the pieces and the
-    fold-back), ring none bit for bit pipelined, each leaf within the
+    forward; backward, for each held shard's P transposed sub-layouts,
+    the pieces and, where a row was cut, the fold-back), ring none bit
+    for bit pipelined, each leaf within the
     band of the torch tier's autograd of the same mesh plan on the card
     (the plain versions), relative to the leaf's largest magnitude; in
     f32 1-D also of the local plan's.  (A gradient sums terms that
@@ -1294,8 +1374,11 @@ def test_local_mesh_gradients_on_card(card, shape, strategy, dtype):
         ops.reset_launch_counts()
         grads.append(torch.autograd.grad(loss, params))
         c = ops.launch_counts()
-        held, p = mesh.size, shape[0]
-        assert c["seg_agg_bwd"] == c["seg_agg"] == 2 * 2 * held * p
+        tl = plan.shard_transposed()
+        node_ax = plan.axes[0] if len(shape) == 2 else plan.axis
+        per_layer = sum(1 + (lay.fold is not None) for crd in mesh.coords
+                        for lay in tl[mesh.index(crd, node_ax)])
+        assert c["seg_agg_bwd"] == c["seg_agg"] == 2 * per_layer
     for a, b in zip(grads[0], grads[-1]):
         assert torch.equal(a, b)
     tol = BF16_TOL if dtype == "bf16" else TOL

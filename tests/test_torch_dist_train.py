@@ -246,50 +246,165 @@ def _capped_layout(src, dst, cap):
         TILE, dev, cap))
 
 
+def _block_rows(lay):
+    """The valid slots of a layout in slot order: (block row b * tile_m +
+    dstl, the row each gathers, its eidx), and its row map flattened."""
+    m = lay.mask.numpy() != 0
+    b, j = np.nonzero(m)
+    row = b * lay.tile_m + lay.dstl.numpy()[b, j]
+    eidx = None if lay.eidx is None else lay.eidx.numpy()[b, j]
+    return row, lay.src.numpy()[b, j], eidx, lay.out_rows.numpy().ravel()
+
+
 @pytest.mark.parametrize("cap", [8, 64, 1024])
 def test_capped_layout_holds_every_edge_once_in_order(cap):
     """The capped transposed layout of the hub graph: each forward slot
     once; each piece at most ``cap`` slots and each block at most
-    ``tile_m`` pieces; the fold-back row of source u gathers u's pieces
-    in order, and the pieces, read in that order, hold u's edges in their
+    ``tile_m`` pieces; every row of ``[0, HUB_V)`` written exactly once,
+    by the pieces' row map (an uncut row: its piece holds its edges in
+    their forward order) or by the fold-back's (a cut row: one over
+    ``cap`` or over ``packed_split``); scratch rows only for the cut
+    rows' pieces, each once; the fold-back holds exactly the cut sources,
+    each gathering its pieces in order, which hold its edges in their
     forward order."""
     src, dst = _hub_edges()
     bg = _capped_layout(src, dst, cap)
     t, f = bg.transposed, bg.transposed.fold
     plain = dataflow.block_graph_arrays(src, dst, HUB_V, TILE,
                                         transpose_rows=HUB_V).transposed
-    assert t.emax <= cap and f is not None and plain.fold is None
-    m = t.mask.numpy() != 0
-    eidx, gath = t.eidx.numpy()[m], t.src.numpy()[m]
-    assert sorted(eidx.tolist()) == sorted(
+    assert t.emax <= cap and plain.fold is None and plain.out_rows is None
+    assert t.num_vertices == HUB_V and t.out_rows.shape == (t.nblocks, TILE)
+    row, _, eidx, tmap = _block_rows(t)
+    assert len(eidx) == len(src) and sorted(eidx.tolist()) == sorted(
         plain.eidx.numpy()[plain.mask.numpy() != 0].tolist())
-    assert len(eidx) == len(src)
-    # pieces: their output rows, and the rows' lengths a block
-    b, j = np.nonzero(m)
-    piece = b * TILE + t.dstl.numpy()[b, j]
-    assert np.all(np.diff(piece) >= 0)
-    assert np.bincount(piece).max() <= cap
-    assert all(len(set(t.dstl.numpy()[k][m[k]])) <= TILE
-               for k in range(t.nblocks))
-    # the fold-back: each source's pieces, in increasing order
-    fm = f.mask.numpy() != 0
-    fb, fj = np.nonzero(fm)
-    row = fb * TILE + f.dstl.numpy()[fb, fj]
-    pieces_of = f.src.numpy()[fb, fj]
-    assert f.num_vertices == HUB_V and sorted(pieces_of.tolist()) == \
-        sorted(set(piece.tolist()))
-    fwd_slot = dict(zip(zip(b, j), eidx))
+    # pieces: block rows in slot order, at most cap slots each, and only
+    # block rows with a destination hold slots
+    assert np.all(np.diff(row) >= 0)
+    assert np.bincount(row).max() <= cap
+    assert np.all(tmap[row] >= 0)
+    # each source's edges in forward order, and which sources are cut
     fwd = plain.eidx.numpy()[plain.mask.numpy() != 0]
-    fwd_rows = np.repeat(np.arange(HUB_V), np.bincount(
-        src, minlength=HUB_V))
-    for u in (0, 1, int(src[-1])):
-        ps = pieces_of[row == u]
+    n = np.bincount(src, minlength=HUB_V)
+    fwd_of = np.split(fwd, np.cumsum(n)[:-1])
+    cut = np.flatnonzero(n > min(cap, k1.packed_split(cap, TILE)))
+    assert 0 in cut.tolist()
+    # the pieces' map: each uncut row once, scratch rows once each, in
+    # piece order; the rows no piece took are -1
+    used = tmap[tmap >= 0]
+    final, scratch = used[used < HUB_V], used[used >= HUB_V]
+    assert len(set(final.tolist())) == len(final)
+    assert sorted(final.tolist()) == sorted(set(range(HUB_V)) - set(
+        cut.tolist()))
+    assert sorted(scratch.tolist()) == list(range(HUB_V, HUB_V + len(
+        scratch)))
+    assert len(scratch) == int((-(-n[cut] // cap)).sum())
+    slots_of = {int(r): eidx[row == r].tolist() for r in np.unique(row)}
+    for u in set(range(HUB_V)) - set(cut.tolist()):
+        (k,) = np.flatnonzero(tmap == u)
+        assert slots_of.get(int(k), []) == fwd_of[u].tolist()
+    # the fold-back: exactly the cut rows, each its scratch rows in order
+    assert f is not None and f.num_vertices == len(scratch)
+    frow, fsrc, _, fmap = _block_rows(f)
+    assert sorted(fmap[fmap >= 0].tolist()) == cut.tolist()
+    assert np.all(fmap[frow] >= 0)
+    assert sorted(fsrc.tolist()) == list(range(len(scratch)))
+    for k in np.unique(frow):
+        u = int(fmap[k])
+        ps = fsrc[frow == k]
         assert np.all(np.diff(ps) > 0)
-        mine = [fwd_slot[(bb, jj)] for p in ps for bb, jj in zip(b, j)
-                if bb * TILE + t.dstl.numpy()[bb, jj] == p]
-        assert mine == fwd[fwd_rows == u].tolist()
-    hub_pieces = -(-HUB_FANOUT // cap)
-    assert int((row == 0).sum()) == hub_pieces
+        mine = [e for p in ps
+                for e in slots_of[int(np.flatnonzero(tmap == HUB_V + p)[0])]]
+        assert mine == fwd_of[u].tolist()
+    assert int((frow == np.flatnonzero(fmap == 0)[0]).sum()) == \
+        -(-HUB_FANOUT // cap)
+
+
+def test_capped_layout_with_no_cut_row_has_no_fold_back(monkeypatch):
+    """The hub graph without its hub: no row over ``packed_split``, so
+    no fold-back, each row's piece stored in place, and K1's backward one
+    fold (one launch on a card), equal to the uncapped layout's plain
+    fold."""
+    folds = []
+    fold = k1._fold
+    monkeypatch.setattr(k1, "_fold", lambda *a, **kw: folds.append(1)
+                        or fold(*a, **kw))
+    src, dst = _hub_edges()
+    src, dst = src[src != 0], dst[src != 0]
+    assert np.bincount(src).max() <= k1.packed_split(1024, TILE)
+    t = _capped_layout(src, dst, 1024).transposed
+    assert t.fold is None and t.emax <= 1024
+    tmap = t.out_rows.numpy().ravel()
+    assert sorted(tmap[tmap >= 0].tolist()) == list(range(HUB_V))
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (HUB_V, 5)).astype(np.float32))
+    got = ops.seg_agg_transposed(t, g, backend="torch")
+    assert len(folds) == 1 and got.shape == (HUB_V, 5)
+    plain = dataflow.block_graph_arrays(src, dst, HUB_V, TILE,
+                                        transpose_rows=HUB_V).transposed
+    want = ops.seg_agg_transposed(plain, g, backend="torch")
+    assert torch.equal(got, want)
+
+
+#: the (vec, c) instances csrc/seg_agg.cu builds for a packed launch
+PACKED_INSTANCES = {(4, 1), (2, 1), (2, 2), (1, 1), (1, 2), (1, 3), (1, 4)}
+
+
+@pytest.mark.parametrize("f", [1, 7, 41, 64, 128, 602])
+@pytest.mark.parametrize("elt", [4, 2])
+@pytest.mark.parametrize("align", [16, 8, 4, 2])
+def test_packed_launches_have_an_instance(f, elt, align):
+    """A packed launch (over a capped transposed layout) at any width: its
+    slice is all of F up to ``PACKED_SLICE`` columns, and its (vec, c)
+    over warp-wide units covers the slice with one of the instances the
+    kernel builds, every lane's load inside the slice."""
+    width, blocks_first = k1.packed_launch(f, elt, align)
+    assert width == min(f, k1.PACKED_SLICE) and not blocks_first
+    if align < elt:
+        return
+    vec, c = k1.launch_params(f, width, elt, align, k1.PACKED_LANES)
+    assert (vec, c) in PACKED_INSTANCES
+    assert k1.PACKED_LANES * vec * c >= width and vec * c <= 8
+    assert f % vec == 0 and width % vec == 0 and align % (vec * elt) == 0
+    # the forward's 8-lane units keep their own choice
+    assert k1.launch_params(f, k1.slice_cols(f), elt, align) == \
+        k1.launch_params(f, k1.slice_cols(f), elt, align, k1.UNIT_LANES)
+
+
+@pytest.mark.parametrize("cap", [8, 256, 1024, 2048, 4096])
+def test_packed_split_and_shared_memory(cap):
+    """``packed_split``: a warp unit's share of a full block, the longest
+    row the capped layout stores in place; a packed launch's shared memory
+    (chunk table, row map, chunk sums of ``PACKED_SLICE`` columns) fits a
+    CTA at every cap, and its chunk count bounds what the split rows of a
+    full block can hold."""
+    t = k1.packed_split(cap, 128)
+    assert t == max(1, (cap + 128) // k1.PACKED_UNITS)
+    chunks = k1.max_chunks(cap, t, k1.PACKED_UNITS)
+    assert chunks == cap // (t + 1) + k1.PACKED_UNITS - 1
+    smem = k1.fold_smem_bytes(128, cap, k1.PACKED_SLICE, True, t)
+    assert smem == 4 * (2 * 129 + 128 + chunks * k1.PACKED_SLICE)
+    assert smem <= k1.SMEM_LIMIT
+    # the forward's default is unchanged
+    assert k1.fold_smem_bytes(128, cap, 64) == \
+        4 * (2 * 129 + k1.max_chunks(cap) * 64)
+
+
+def test_plain_row_mapped_fold_leaves_unnamed_rows():
+    """The plain version of a row-mapped fold (``_fold`` on the CPU):
+    each block row's sum lands on the row its map names, the rows no map
+    entry names keep what they held, and -1 rows are dropped."""
+    src, dst = _hub_edges()
+    t = _capped_layout(src, dst, 64).transposed
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (HUB_V, 3)).astype(np.float32))
+    out = torch.full((HUB_V + t.fold.num_vertices + 5, 3), 7.0)
+    k1._fold(g, t.src, t.dstl, t.mask, None, t.tile_m, backward=True,
+             out=out, out_rows=t.out_rows, split_from=HUB_V)
+    rows = k1.seg_agg_plain(g, t.src, t.dstl, t.mask, tile_m=t.tile_m)
+    tmap = t.out_rows.reshape(-1)
+    named = tmap >= 0
+    assert torch.equal(out[tmap[named].long()], rows[named])
+    assert bool((out[-5:] == 7.0).all())
 
 
 def test_pack_pieces_respects_both_limits():
@@ -302,9 +417,15 @@ def test_pack_pieces_respects_both_limits():
 
 
 def test_capped_layout_of_no_edges_is_one_empty_block():
+    """No edges: empty blocks of one empty piece a row (the 50 rows fill
+    two blocks of 32), so K1 stores each row's zeros once; no
+    fold-back."""
     t = dataflow._transposed(np.zeros(0, np.int64), np.zeros(0, np.int64),
                              np.zeros(0, np.int64), 50, TILE, "cpu", 64)
-    assert t.nblocks == 1 and not t.mask.any() and t.fold.num_vertices == 50
+    assert t.nblocks == -(-50 // TILE) and not t.mask.any()
+    assert t.fold is None
+    tmap = t.out_rows.numpy().ravel()
+    assert sorted(tmap[tmap >= 0].tolist()) == list(range(50))
     out = ops.seg_agg_transposed(t, torch.ones(70, 3), backend="torch")
     assert out.shape == (50, 3) and not out.any()
 
@@ -324,8 +445,10 @@ def test_hub_gradient_through_capped_layout_matches_reference(
         cuda_tier_on_cpu, monkeypatch, cap, weighted):
     """The x gradient of a sum aggregation over the hub graph through
     K1's Function with the capped transposed layout -- one backward fold
-    over the pieces and one over the fold-back -- equals ``jax.grad`` of
-    the reference's ``aggregate``, in the f32 band at every cap."""
+    over the pieces and, where the hub's row is cut (its 3,000 slots over
+    ``packed_split``), one over the fold-back -- equals
+    ``jax.grad`` of the reference's ``aggregate``, in the f32 band at
+    every cap."""
     folds = {"fwd": 0, "bwd": 0}
     fold = k1._fold
 
@@ -353,7 +476,9 @@ def test_hub_gradient_through_capped_layout_matches_reference(
                   edge_weight=None if w is None else torch.from_numpy(w))
     (got,) = torch.autograd.grad((h * torch.from_numpy(cot)).sum(), [xt])
     assert_allclose_dtype(got.numpy(), want)
-    assert folds == {"fwd": 1, "bwd": 2}
+    cut = HUB_FANOUT > min(cap, k1.packed_split(cap, TILE))
+    assert (layout.transposed.fold is not None) == cut
+    assert folds == {"fwd": 1, "bwd": 1 + cut}
 
 
 def test_shard_transposes_stay_near_the_edges(monkeypatch):
@@ -402,7 +527,8 @@ def test_mesh_plan_gradients_match_reference(shape, strategy, overlap,
 @pytest.mark.parametrize("strategy", ["ring", "allgather"])
 def test_gradients_through_cut_rows_match_reference(monkeypatch, strategy):
     """With the transposed sub-layouts cut at 8 slots (every source row
-    of more than 8 out-edges in a sub-layout folds back from pieces), the
+    of more than 8 out-edges in a sub-layout, and those over
+    ``packed_split``, folds back from its pieces), the
     gradients stay in the f32 band of the reference's and within it of the
     uncut layouts' (another addition order)."""
     from repro_torch.core import plan as tplan
@@ -415,6 +541,8 @@ def test_gradients_through_cut_rows_match_reference(monkeypatch, strategy):
     lays = [lay for per in plan.shard_transposed().values() for lay in per]
 
     def pieces_and_rows(lay):
+        if lay.fold is None:
+            return 0, 0
         m = lay.fold.mask != 0
         rows = torch.nonzero(m)[:, 0] * lay.tile_m + lay.fold.dstl[m]
         return int(m.sum()), len(rows.unique())
