@@ -73,7 +73,14 @@ Phases, each printing its own lines; any failure exits non-zero:
                 forward's, one capture and COMPILED_CALLS - 1 replays, every
                 replay bitwise equal to eager, eager and replayed times over
                 COMPILED_CALLS calls, peak memory with and without the
-                graph, compile(layer=i) against run_layer; a torch-tier
+                graph, compile(layer=i) against run_layer; for gcn, sage
+                and gin unfused a loss through plan.compile() under
+                autograd (a forward and a backward graph, K1's backward
+                over the plan's capped transposed layout): one capture over
+                COMPILED_GRAD_CALLS steps, the loss and every gradient leaf
+                bit for bit eager autograd's on every step, the captured
+                launches eager's forward and backward ones, eager and
+                compiled forward+backward ms; a torch-tier
                 compile(dynamic=True) over a second seeded graph of the same
                 V and E, within the f32 band, no recapture.
   9. report  -- (right after phase 8) plan.instrument().run_model(...,
@@ -158,9 +165,13 @@ Phases, each printing its own lines; any failure exits non-zero:
                 Then a fresh process (chip_smoke.py --dist-nccl) inits a
                 world-size-1 NCCL group from a FileStore and runs the plan
                 at P = 1 through a ProcessGroupMesh: bit for bit
-                LocalMesh((1,)), in the band of phase 4; and one training
-                step (phase 14's), gradients and the int8 error-feedback
-                all-reduce bit for bit LocalMesh((1,))'s.
+                LocalMesh((1,)), in the band of phase 4; each plan
+                compiled (its NCCL all-gather captured), replays bit for
+                bit eager; and one training step (phase 14's), gradients
+                and the int8 error-feedback all-reduce bit for bit
+                LocalMesh((1,))'s, then the step through plan.compile()
+                under autograd (the all-reduce of the gradients captured in
+                the backward graph) bit for bit the eager one.
  14. dist-train -- (right after phase 13) phase 4's gcn (602 -> 128 -> 41)
                 trained on full-width Reddit through build_plan(mesh=...):
                 LocalMesh((4,)) ring none, ring pipelined (its gradients
@@ -190,11 +201,31 @@ Phases, each printing its own lines; any failure exits non-zero:
                 bound and torch.sparse.mm on each transposed CSR matrix,
                 and the sweeps of its slice width and CTA order and of
                 the cap (CAP_SWEEP).
+ 15. dist-compiled -- (right after phase 14, over the layouts phases 13
+                and 14 built) the same plans through plan.compile(): for
+                each of phase 13's forwards one capture over
+                DIST_COMPILED_CALLS calls, every replay bit for bit the
+                eager forward, the captured K1 launches as the partition
+                implies, the collective bytes the mesh counted while
+                capturing equal to schedule_wire_bytes and none moved by a
+                replay, compile(layer=i) against run_layer; compiled and
+                eager ms (median of DIST_ROUNDS rounds of DIST_REPS), a
+                profiled window of replays (device busy, idle share;
+                traces in chiprun_out/traces/dist_compiled_*.json), peak
+                memory and what the graph keeps.  For each of phase 14's
+                training cases DIST_TRAIN_STEPS SGD steps through the
+                compiled forward and backward (int8 error feedback where
+                the case has it), each step's loss and gradient leaves bit
+                for bit an eager step's on the same parameters, the
+                captured K1 forward and backward launches; the step's
+                host-clock ms compiled and eager (turns of
+                DIST_TRAIN_TIMED), device busy and idle share over
+                DIST_TRAIN_PROFILED compiled steps.
 
-The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 5-7.  The last three
-lines are nvidia-smi's name and power limit, one JSON object per kernel
-({"kernels": [...]}) and the result line.  The full
-per-shape table is also written to chiprun_out/chip_smoke.json.
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 5-7.  The
+last three lines are nvidia-smi's name and power limit, one JSON object
+per kernel ({"kernels": [...]}) and the result line.  The full per-shape
+table is also written to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -272,6 +303,10 @@ SCALE = 10
 #: phase 8: calls of each compiled forward (the first captures, the rest
 #: replay), also the count each time is averaged over
 COMPILED_CALLS = 20
+#: phase 8: steps of a loss through each unfused model's compiled forward
+#: under autograd (the first captures the forward and backward graphs), also
+#: the count each step's time is averaged over
+COMPILED_GRAD_CALLS = 5
 #: phase 3, K1 and K2 with a bf16 output, per row: the largest error over
 #: that row's largest magnitude.  Kernel and plain version round an f32
 #: sum once to bf16, and the two f32 sums differ by a few f32 ulps (other
@@ -375,6 +410,9 @@ GRAD_F32_LIMITS = {"conv0": 1e-3, "conv1": 1e-5}
 #: DIST_TRAIN_PROFILED profiled -- and the learning rate
 DIST_TRAIN_STEPS, DIST_TRAIN_TIMED, DIST_TRAIN_PROFILED = 6, 3, 2
 DIST_TRAIN_LR = 0.1
+#: phase 15: calls of each compiled distributed forward (the first
+#: captures, the rest replay)
+DIST_COMPILED_CALLS = 5
 
 
 def fail(msg: str) -> None:
@@ -945,15 +983,103 @@ def drive_main_path(g, x, spec):
     return models, logits, counts, peak
 
 
-def drive_compiled(models, g, x, spec):
+def nll(logits, y):
+    """The mean NLL of the labels ``y`` (``GCNModel.loss_fn``'s)."""
+    import torch
+    return -torch.log_softmax(logits, dim=-1).gather(
+        -1, y.long()[:, None])[:, 0].mean()
+
+
+def drive_compiled_grad(m, g, x, y, key: str) -> dict:
+    """Phase 8's gradient: a loss through plan.compile() of an unfused
+    model under autograd (a forward and a backward CUDA graph).  Fails
+    unless the grad signature is captured once and replayed on every later
+    call of COMPILED_GRAD_CALLS, the loss and every gradient leaf equal
+    eager autograd's bit for bit on every call, and the graphs record the
+    eager forward's and backward's K1 launches (the backward's over the
+    plan's capped transposed layout, built on the host by the eager step
+    first).  Returns the measurements."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    plan, params = m.plan_for(g), list(m.parameters())
+    fn = plan.compile()
+    t0 = time.perf_counter()
+    plan.with_transposed(plan.layers[0].agg_layout)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = launch_counts()
+    loss = nll(plan.run_model(m.tree(), x), y)
+    c1 = launch_counts()
+    want = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    c2 = launch_counts()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    eager = {k: c2[k] - c0[k] for k in c0}
+    eager_bwd = {k: c2[k] - c1[k] for k in c0}
+    before = dict(fn.capture_launches)
+    traces0, replays0 = fn.num_traces, fn.num_replays
+    torch.cuda.reset_peak_memory_stats()
+    same = []
+    for i in range(COMPILED_GRAD_CALLS):
+        if i == 1:
+            c3 = launch_counts()
+        got_loss = nll(fn(m.tree(), x), y)
+        got = torch.autograd.grad(got_loss, params)
+        same.append(bool(torch.equal(got_loss, loss)) and all(
+            torch.equal(a, b) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    moved = {k: n - c3[k] for k, n in launch_counts().items() if n != c3[k]}
+    compiled_peak = torch.cuda.max_memory_allocated() - base
+    captured = {k: fn.capture_launches.get(k, 0) - before.get(k, 0)
+                for k in eager}
+    traces, replays = fn.num_traces - traces0, fn.num_replays - replays0
+
+    def eager_step():
+        torch.autograd.grad(nll(plan.run_model(m.tree(), x), y), params)
+
+    def compiled_step():
+        torch.autograd.grad(nll(fn(m.tree(), x), y), params)
+
+    ms = time_ms(eager_step, COMPILED_GRAD_CALLS)
+    ms_graph = time_ms(compiled_step, COMPILED_GRAD_CALLS)
+    rec = {"eager_ms": ms, "graph_ms": ms_graph, "num_traces": traces,
+           "num_replays": replays, "eager_launches": eager,
+           "eager_backward_launches": eager_bwd,
+           "capture_launches": captured, "replays_equal": all(same),
+           "transposed_build_s": build_s, "eager_peak_bytes": eager_peak,
+           "compiled_peak_bytes": compiled_peak}
+    print(f"[compiled] {key:14s} grad: forward+backward eager {ms:.3f} ms, "
+          f"compiled {ms_graph:.3f} ms ({ms / ms_graph:.2f}x) over "
+          f"{COMPILED_GRAD_CALLS} steps; captures {traces}, replays "
+          f"{replays}; K1 launches eager forward "
+          f"{eager['seg_agg'] - eager['seg_agg_bwd']} + backward "
+          f"{eager_bwd['seg_agg_bwd']}, captured "
+          f"{captured['seg_agg']} ({captured['seg_agg_bwd']} backward); "
+          f"every call's loss and gradients equal to eager bit for bit: "
+          f"{same}; the capped transposed layout built in {build_s:.1f} s; "
+          f"peak above the inputs eager {eager_peak / 2**30:.3f} GiB, "
+          f"compiled {compiled_peak / 2**30:.3f} GiB", flush=True)
+    if not all(same) or (traces, replays) != (1, COMPILED_GRAD_CALLS - 1):
+        fail(f"{key} grad: bitwise {same}, {traces} captures, {replays} "
+             f"replays")
+    if captured != eager or moved:
+        fail(f"{key} grad: captured launches {captured} against eager "
+             f"forward and backward {eager}; replays moved {moved}")
+    return rec
+
+
+def drive_compiled(models, g, x, y, spec):
     """Phase 8: the six Reddit models through plan.compile() (one CUDA
     graph each).  Fails unless a capture records the eager forward's K1/K2
     launches, the forward is captured once over COMPILED_CALLS calls with a
     replay for every call after the first, every replay's logits equal the
     eager forward's bit for bit, each layer's compile(layer=i) equals
-    run_layer, and a torch-tier dynamic plan serves a second graph of the
-    same V and E within the f32 band with no recapture (another shape
-    raises).  Returns the measurements."""
+    run_layer, the unfused models' losses through it are differentiable
+    (``drive_compiled_grad``), and a torch-tier dynamic plan serves a
+    second graph of the same V and E within the f32 band with no recapture
+    (another shape raises).  Returns the measurements."""
     import torch
     from repro_torch.graph.datasets import make_synthetic_graph
     from repro_torch.kernels.ops import launch_counts
@@ -1036,6 +1162,8 @@ def drive_compiled(models, g, x, spec):
         if not (all(same) and all(layers_equal)):
             fail(f"{key}: a replay differs from the eager forward")
         del eager, first
+        if not fused:
+            out[key + "_grad"] = drive_compiled_grad(m, g, x, y, key)
 
     # the graph as an argument: torch tier, unfused, a second seeded graph
     m = make_paper_model("gcn", spec, backend="torch", device="cuda",
@@ -1092,6 +1220,8 @@ def characterize(models, g, x):
     for (name, fused), m in models.items():
         key = f"{name}_{'fused' if fused else 'unfused'}"
         plan = m.plan_for(g)
+        # phase 8's captures: the forward, and an unfused model's grad
+        traces0 = plan.compile().num_traces
         rep = plan.instrument().run_model(m.tree(), x, compiled=True)
         rep.validate()
         bad = rep.mismatches(plan)
@@ -1126,7 +1256,7 @@ def characterize(models, g, x):
             + ", ".join(f"{s:.2f}x" for s in sp["layers"]), flush=True)
         if bad:
             fail(f"{key}: describe() disagrees with the dispatch: {bad}")
-        if plan.compile().num_traces != 1:
+        if plan.compile().num_traces != traces0:
             fail(f"{key}: phase 9 captured the forward again")
     with torch.inference_mode():
         r = pagerank(g, iters=PAGERANK_ITERS)
@@ -1629,7 +1759,7 @@ def drive_train(g, x, y, spec):
         with torch.no_grad():
             eager = tr.plan.run_model(tr.params, xx, graph=gg,
                                       graph_layout=glay, dedup_layout=ded)
-        got = tr.fwd(tr.params, xx, gg, dedup=ded, layout=glay)
+            got = tr.fwd(tr.params, xx, gg, dedup=ded, layout=glay)
         if not torch.equal(got, eager):
             fail(f"train: predict's replay at step {step} differs from the "
                  f"eager forward")
@@ -1786,7 +1916,8 @@ def serve_run(g_host, x, spec, name: str, mix: str) -> dict:
     big = eng.buckets[-1]
     plan, fn = eng._bucket_plan(big)
     xx, gg, lay = eng._pad_into(eng.prepare(seeds()), big)
-    call_ms = time_ms(lambda: fn(eng.params, xx, gg, layout=lay), 20)
+    with torch.no_grad():
+        call_ms = time_ms(lambda: fn(eng.params, xx, gg, layout=lay), 20)
     dst = torch.empty_like(xx)
     copy_ms = time_ms(lambda: dst.copy_(xx), 20)
     del dst, xx, gg, lay
@@ -2374,6 +2505,25 @@ def nccl_train_step(m, g, x, y, pgm, local) -> dict:
         res.append((loss, grads, out, resid, k1b, mesh.collective_bytes(),
                     dist_expected_k1_bwd(plan)))
     (lp, gp, op, rp, kp, bp, want), (ll, gl, ol, rl, kl, _, _) = res
+    # compiled under autograd: the forward and backward graphs capture the
+    # assemble's all-gather and the replicated parameters' all-reduce
+    # (the forward phase compiled this plan without a gradient already)
+    fn = m.plan_for(g, mesh=pgm, strategy="ring", overlap="none").compile()
+    traces0, k1b0 = fn.num_traces, fn.capture_launches.get("seg_agg_bwd", 0)
+    comp = []
+    for _ in range(3):
+        lc = nll(fn(m.tree(), x), y)
+        gc = torch.autograd.grad(lc, params)
+        comp.append(bool(torch.equal(lc, lp)) and all(
+            torch.equal(a, b) for a, b in zip(gc, gp)))
+    traces = fn.num_traces - traces0
+    k1b = fn.capture_launches["seg_agg_bwd"] - k1b0
+    print(f"[nccl] train ring-none compiled: captures {traces}; loss and "
+          f"gradients bit for bit eager {comp}; captured K1 backward {k1b}",
+          flush=True)
+    if not all(comp) or traces != 1 or k1b != want:
+        fail(f"nccl compiled train step: bitwise {comp}, {traces} "
+             f"captures, K1 backward {k1b} against {want}")
     same = bool(torch.equal(lp, ll)) and all(
         torch.equal(a, b) for a, b in zip(gp, gl)) and all(
         torch.equal(op[n], ol[n]) and torch.equal(rp[n], rl[n])
@@ -2388,7 +2538,7 @@ def nccl_train_step(m, g, x, y, pgm, local) -> dict:
         fail(f"nccl train step: bitwise={same}, K1 backward {kp} / {kl} "
              f"against {want}")
     return {"bitwise_local": same, "loss": lp.item(), "k1_bwd": kp,
-            "counted_backward": bp}
+            "counted_backward": bp, "compiled_bitwise": all(comp)}
 
 
 def dist_nccl(out_dir: str) -> None:
@@ -2439,9 +2589,23 @@ def dist_nccl(out_dir: str) -> None:
         if not same or counted != sched or k1n != dist_expected_k1(plan):
             fail(f"nccl {name}: bitwise={same}, counted {counted} against "
                  f"{sched}, K1 {k1n} against {dist_expected_k1(plan)}")
+        # compiled: the graph captures the assemble's NCCL all-gather
+        fn = plan.compile()
+        with torch.inference_mode():
+            reps = [torch.equal(fn(m.tree(), x), out) for _ in range(3)]
+        cap = fn.capture_collectives.get("total")
+        print(f"[nccl] {name} compiled: captures {fn.num_traces}, replays "
+              f"{fn.num_replays}, bit for bit eager {reps}; captured K1 "
+              f"{fn.capture_launches['seg_agg']}, collectives {cap} B = "
+              f"{sched}", flush=True)
+        if not all(reps) or fn.num_traces != 1 or cap != sched or \
+                fn.capture_launches["seg_agg"] != k1n:
+            fail(f"nccl {name} compiled: replays {reps}, {fn.num_traces} "
+                 f"captures, collectives {cap} against {sched}")
         torch.save(out.cpu(), Path(out_dir) / f"{name}.pt")
         cases[name] = {"bitwise_local": same, "counted": counted,
-                       "k1_launches": k1n}
+                       "k1_launches": k1n, "compiled_bitwise": all(reps),
+                       "capture_bytes": cap}
     cases["train"] = nccl_train_step(m, g, x, y, pgm, local)
     dist.destroy_process_group()
     print(json.dumps({"backend": "nccl", "world_size": 1, "init_s": init_s,
@@ -2989,6 +3153,269 @@ def drive_dist_train(g, x, y, spec) -> dict:
             p.copy_(v)
     return {"runs": runs, "layouts": layouts, "k1_bwd_shards": k1_recs,
             "bwd_launches": bwd_launches}
+
+
+def dist_compiled_forward(m, g, x, mesh, label, shape, strategy, overlap,
+                          dtype) -> dict:
+    """Phase 15, one forward case: see ``drive_dist_compiled``."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from torch.profiler import ProfilerActivity, profile
+    plan = m.plan_for(g, mesh=mesh, strategy=strategy, overlap=overlap,
+                      dtype=dtype)
+    params = m.tree()
+    with torch.inference_mode():
+        eager = m(g, x, plan=plan)
+    fn = plan.compile()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        first = fn(params, x)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        c0, b0 = launch_counts(), mesh.collective_bytes()["total"]
+        same = [torch.equal(first, eager)]
+        same += [torch.equal(fn(params, x), eager)
+                 for _ in range(DIST_COMPILED_CALLS - 1)]
+        torch.cuda.synchronize()
+        traces, replays = fn.num_traces, fn.num_replays
+    moved = {k: n - c0[k] for k, n in launch_counts().items() if n != c0[k]}
+    moved_bytes = mesh.collective_bytes()["total"] - b0
+    peak = torch.cuda.max_memory_allocated() - base
+    # what the graph keeps: its pool and its static buffers
+    resident = torch.cuda.memory_allocated() - base - \
+        first.numel() * first.element_size()
+    captured = fn.capture_launches
+    coll = fn.capture_collectives
+    want_k1, wire = dist_expected_k1(plan), dist_wire(plan)
+    want = {"seg_agg": want_k1,
+            "seg_agg_bf16_f32": want_k1 if dtype == "bf16" else 0,
+            "seg_agg_bwd": 0, "fused_agg_combine": 0}
+    got = {k: captured.get(k, 0) for k in want}
+    with torch.inference_mode():
+        eager_ms = sorted(time_ms(lambda: m(g, x, plan=plan), DIST_REPS)
+                          for _ in range(DIST_ROUNDS))
+        graph_ms = sorted(time_ms(lambda: fn(params, x), DIST_REPS)
+                          for _ in range(DIST_ROUNDS))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(DIST_PROFILED):
+                fn(params, x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        win = dist_window("dist_compiled_" + label.replace("/", "_")
+                          .replace(" ", "_"), prof, wall, DIST_PROFILED)
+        layers_equal, h = [], plan._ingress(x)
+        for i in range(plan.num_layers):
+            sub = params[f"conv{i}"]
+            want_h = plan.run_layer(sub, h, layer=i)
+            fl = plan.compile(layer=i)
+            layers_equal.append(all(torch.equal(fl(sub, h), want_h)
+                                    for _ in range(2)))
+            h = torch.relu(want_h)
+    em, gm = eager_ms[DIST_ROUNDS // 2], graph_ms[DIST_ROUNDS // 2]
+    rec = {"mesh": list(shape), "strategy": strategy,
+           "overlap": plan.overlap, "dtype": dtype, "eager_ms": em,
+           "graph_ms": gm, "eager_ms_rounds": eager_ms,
+           "graph_ms_rounds": graph_ms, "capture_s": capture_s,
+           "num_traces": traces, "num_replays": replays,
+           "capture_launches": got, "capture_bytes": coll.get("total"),
+           "wire_per_layer": wire, "replays_equal": all(same),
+           "layers_equal": layers_equal, "peak_bytes": peak,
+           "graph_resident_bytes": resident, "profiled": win}
+    print(f"[dist-compiled] {label:20s} captures {traces}, replays "
+          f"{replays} (capture {capture_s:.2f} s); every replay bit "
+          f"for bit eager {all(same)}; layers {layers_equal}; captured K1 "
+          f"{got['seg_agg']} (bf16->f32 {got['seg_agg_bf16_f32']}) = "
+          f"{want_k1}; captured collectives {coll.get('total')} B a shard "
+          f"= schedule {sum(wire)}, replays moved counters {moved} and "
+          f"{moved_bytes} B; forward eager {em:.3f} ms, compiled {gm:.3f} "
+          f"({em / gm:.2f}x; rounds {['%.3f' % t for t in graph_ms]}); "
+          f"profiled {DIST_PROFILED} replays: wall {win['wall_ms']:.3f} ms, "
+          f"device busy {win['device_busy_ms']:.3f} (K1 {win['k1_ms']:.3f},"
+          f" copies {win['copy_ms']:.3f}), {win['kernels']:.0f} kernels a "
+          f"forward, idle {win['idle_share']:.3f}; peak {peak / 2**30:.3f} "
+          f"GiB above the inputs, the graph keeps {resident / 2**30:.3f} "
+          f"GiB", flush=True)
+    if not (all(same) and all(layers_equal)) or \
+            (traces, replays) != (1, DIST_COMPILED_CALLS - 1):
+        fail(f"dist-compiled {label}: replays bit for bit {same}, layers "
+             f"{layers_equal}, {traces} captures, {replays} replays")
+    if got != want or coll.get("total") != sum(wire) or moved or \
+            moved_bytes:
+        fail(f"dist-compiled {label}: captured launches {got} against "
+             f"{want}, collectives {coll} against the schedule {wire}; "
+             f"replays moved {moved} and {moved_bytes} B")
+    return rec
+
+
+def dist_compiled_train(m, g, x, y, mesh, label, shape, strategy, overlap,
+                        dtype, ef, init) -> dict:
+    """Phase 15, one training case: see ``drive_dist_compiled``."""
+    import torch
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.optim.compression import (init_residuals,
+                                               make_compressed_allreduce)
+    from torch.profiler import ProfilerActivity, profile
+    names = [n for n, _ in m.named_parameters()]
+    params = [p for _, p in m.named_parameters()]
+    with torch.no_grad():
+        for p, v in zip(params, init):
+            p.copy_(v)
+    plan = m.plan_for(g, mesh=mesh, strategy=strategy, overlap=overlap,
+                      dtype=dtype)
+    node_ax = plan.axes[0] if plan.partition_kind == "2d" else plan.axis
+    # the forward cases compiled some of these plans without a gradient
+    fn = plan.compile()
+    traces0, replays0 = fn.num_traces, fn.num_replays
+    launches0, coll0 = dict(fn.capture_launches), fn.capture_collectives
+    allreduce = make_compressed_allreduce(mesh, node_ax) if ef else None
+    residuals = init_residuals(dict(zip(names, params)))
+
+    def update(gr):
+        nonlocal residuals
+        if allreduce is not None:
+            tree, residuals = allreduce(dict(zip(names, gr)), residuals)
+            gr = [tree[n] for n in names]
+        with torch.no_grad():
+            for p, d in zip(params, gr):
+                p.sub_(DIST_TRAIN_LR * d)
+
+    def eager_step():
+        gr = torch.autograd.grad(m.loss_fn(g, x, y, plan=plan), params)
+        update(gr)
+
+    def compiled_step():
+        gr = torch.autograd.grad(nll(fn(m.tree(), x), y), params)
+        update(gr)
+
+    losses, same, moved, moved_bytes = [], [], {}, 0
+    for step in range(DIST_TRAIN_STEPS):
+        want_loss = m.loss_fn(g, x, y, plan=plan)
+        want = torch.autograd.grad(want_loss, params)
+        torch.cuda.synchronize()
+        if step == 0:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        c0, b0 = launch_counts(), mesh.collective_bytes()["total"]
+        t0 = time.perf_counter()
+        loss = nll(fn(m.tree(), x), y)
+        got = torch.autograd.grad(loss, params)
+        if step == 0:
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+        else:           # a replay's forward and backward move no counter
+            for k, n in launch_counts().items():
+                if n != c0[k]:
+                    moved[k] = moved.get(k, 0) + n - c0[k]
+            moved_bytes += mesh.collective_bytes()["total"] - b0
+        same.append(bool(torch.equal(loss, want_loss)) and all(
+            torch.equal(a, b) for a, b in zip(got, want)))
+        losses.append(loss.item())
+        update(got)
+        del want, got
+    captured = {k: fn.capture_launches.get(k, 0) - launches0.get(k, 0)
+                for k in ("seg_agg", "seg_agg_bwd")}
+    cap_bytes = fn.capture_collectives.get("total", 0) - \
+        coll0.get("total", 0)
+    traces, replays = fn.num_traces - traces0, fn.num_replays - replays0
+    want_f, want_b = dist_expected_k1(plan), dist_expected_k1_bwd(plan)
+    got_k1 = (captured.get("seg_agg", 0) - captured.get("seg_agg_bwd", 0),
+              captured.get("seg_agg_bwd", 0))
+    timed = {}
+    for name, step_fn in (("eager", eager_step), ("compiled", compiled_step),
+                          ("compiled", compiled_step),
+                          ("eager", eager_step)):
+        for _ in range(DIST_TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn()
+            torch.cuda.synchronize()
+            timed.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(DIST_TRAIN_PROFILED):
+            compiled_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    win = dist_window("dist_compiled_train_" + label.replace("/", "_")
+                      .replace(" ", "_"), prof, wall, DIST_TRAIN_PROFILED)
+    med = {k: sorted(v)[len(v) // 2] for k, v in timed.items()}
+    rec = {"mesh": list(shape), "strategy": strategy,
+           "overlap": plan.overlap, "dtype": dtype, "int8_ef": ef,
+           "losses": losses, "steps_equal": same,
+           "num_traces": traces, "num_replays": replays,
+           "capture_k1": got_k1, "capture_bytes": cap_bytes,
+           "capture_s": capture_s,
+           "eager_step_ms": med["eager"], "graph_step_ms": med["compiled"],
+           "steps_ms": timed, "peak_bytes": peak, "profiled": win}
+    print(f"[dist-compiled] train {label:20s} losses "
+          f"{['%.5f' % v for v in losses]}"
+          + (" (int8 error-feedback all-reduce)" if ef else "")
+          + f"; every step's loss and gradients bit for bit eager {same}; "
+          f"captures {traces}, replays {replays} (capture "
+          f"{capture_s:.2f} s); captured K1 forward {got_k1[0]} = {want_f}, "
+          f"backward {got_k1[1]} = {want_b}; captured collectives "
+          f"{cap_bytes} B a shard; step on the host"
+          f" clock eager {med['eager']:.3f} ms, compiled "
+          f"{med['compiled']:.3f} ({med['eager'] / med['compiled']:.2f}x); "
+          f"profiled {DIST_TRAIN_PROFILED} compiled steps: wall "
+          f"{win['wall_ms']:.3f} ms, device busy {win['device_busy_ms']:.3f}"
+          f" (K1 {win['k1_ms']:.3f}), {win['kernels']:.0f} kernels a step, "
+          f"idle {win['idle_share']:.3f}; peak {peak / 2**30:.3f} GiB above "
+          f"the inputs", flush=True)
+    if not all(same) or (traces, replays) != (1, DIST_TRAIN_STEPS - 1):
+        fail(f"dist-compiled train {label}: steps bit for bit {same}, "
+             f"{traces} captures, {replays} replays")
+    if got_k1 != (want_f, want_b) or moved or moved_bytes:
+        fail(f"dist-compiled train {label}: captured K1 {got_k1} against "
+             f"{(want_f, want_b)}; replays moved {moved} and {moved_bytes} "
+             f"B")
+    return rec
+
+
+def drive_dist_compiled(g, x, y, spec) -> dict:
+    """Phase 15: plan.compile() of phase 13's and phase 14's distributed
+    plans (DIST_CASES, DIST_TRAIN_CASES) on LocalMeshes of this card, over
+    the layouts phases 13 and 14 built.  A forward case fails unless one
+    capture serves DIST_COMPILED_CALLS calls, every replay equal to the
+    eager forward bit for bit, the graph records K1's launches as the
+    partition implies and the mesh counted, while capturing, the bytes
+    schedule_wire_bytes prices a forward (a replay moves no counter), and
+    compile(layer=i) equals run_layer.  A training case fails unless each
+    of DIST_TRAIN_STEPS SGD steps through the compiled forward and
+    backward (int8 error feedback where the case has it) gives the loss
+    and every gradient leaf of an eager step on the same parameters bit
+    for bit, and the backward graph records K1's backward launches.
+    Times (compiled against eager), device busy and idle share over a
+    profiled window, peak memory."""
+    import torch
+    from repro_torch.core.distributed import LocalMesh
+    from repro_torch.models.gcn import make_paper_model
+    m = make_paper_model("gcn", spec, backend="auto", device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    init = [p.detach().clone() for p in m.parameters()]
+    meshes = {(4,): LocalMesh((4,), ("data",)),
+              (4, 2): LocalMesh((4, 2), ("node", "feat"))}
+    forward, train = {}, {}
+    for label, shape, strategy, overlap, dtype in DIST_CASES:
+        forward[label] = dist_compiled_forward(
+            m, g, x, meshes[shape], label, shape, strategy, overlap, dtype)
+        torch.cuda.empty_cache()
+    for label, shape, strategy, overlap, dtype, ef in DIST_TRAIN_CASES:
+        train[label] = dist_compiled_train(
+            m, g, x, y, meshes[shape], label, shape, strategy, overlap,
+            dtype, ef, init)
+        torch.cuda.empty_cache()
+    return {"forward": forward, "train": train}
 
 
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
@@ -3600,7 +4027,7 @@ def main() -> None:
 
     # -- 8. compiled execution (CUDA graphs) of the same models on Reddit
     t0 = time.perf_counter()
-    compiled = drive_compiled(models, g_red, x_red, spec_red)
+    compiled = drive_compiled(models, g_red, x_red, y_red, spec_red)
     print(f"[compiled] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3647,6 +4074,12 @@ def main() -> None:
     dist14 = drive_dist_train(g_red, x_red, y_red, spec_red)
     print(f"[dist-train] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # -- 15. the same plans compiled: CUDA graphs of forwards and steps
+    t0 = time.perf_counter()
+    dist15 = drive_dist_compiled(g_red, x_red, y_red, spec_red)
+    print(f"[dist-compiled] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     del g_red, x_red, y_red
     clear_plan_cache()
     torch.cuda.empty_cache()
@@ -3673,7 +4106,8 @@ def main() -> None:
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
          "train": train, "serve": serve, "long_rows": long_rows,
-         "distributed": dist13, "dist_train": dist14},
+         "distributed": dist13, "dist_train": dist14,
+         "dist_compiled": dist15},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;

@@ -18,15 +18,16 @@ slot it mirrors, so per-edge weights regroup with one gather.
 ``block_graph_arrays(..., transpose_rows=)`` builds both at once from
 host arrays (the minibatch trainer's runtime layouts, with a fixed
 ``emax`` for a CUDA-graph capture); ``transposed_layout`` builds it from a
-layout already on the device (a plan keeps the one of each layout it owns,
-``GraphExecutionPlan.with_transposed``).
+layout already on the device (a plan keeps the capped one of each layout
+it owns, ``GraphExecutionPlan.with_transposed``).
 
 A hub source makes the transposed layout's block as long as its row: a
 dense ``(nblocks, emax)`` array then holds many times the edges (the
 distributed plans' shard sub-layouts of Reddit, 86.5x).
 ``_transposed(..., cap)`` builds the CAPPED form instead (the halos'
-backward layouts, ``core.distributed.shard_transposed_layouts``; the
-local plans keep the uncapped form): each row is one piece, or, over
+backward layouts, ``core.distributed.shard_transposed_layouts``, and the
+layouts a plan keeps for its own; a runtime graph's keeps the uncapped
+form): each row is one piece, or, over
 ``cap`` slots, cut into pieces of at most ``cap``; the pieces are packed
 in order into blocks of at most ``tile_m`` pieces and ``cap`` slots, and
 a row map (``BlockedGraph.out_rows``) gives each block row its
@@ -286,18 +287,19 @@ def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
     return bg
 
 
-def transposed_layout(bg: BlockedGraph, num_rows: int) -> BlockedGraph:
+def transposed_layout(bg: BlockedGraph, num_rows: int,
+                      cap: Optional[int] = None) -> BlockedGraph:
     """The transposed layout of ``bg``, a layout already on its device,
-    for K1's backward over ``num_rows`` rows of the gathered matrix: read
-    back to the host and built there, on every call (a plan keeps the
-    result for the layouts it owns)."""
+    for K1's backward over ``num_rows`` rows of the gathered matrix (its
+    capped form with ``cap``): read back to the host and built there, on
+    every call (a plan keeps the result for the layouts it owns)."""
     m = bg.mask.cpu().numpy() != 0
     b, j = np.nonzero(m)                 # forward slot order
     emax = m.shape[1]
     s = bg.src.cpu().numpy()[b, j].astype(np.int64)
     d = b * bg.tile_m + bg.dstl.cpu().numpy()[b, j].astype(np.int64)
     return _transposed(s, d, b * emax + j, int(num_rows), bg.tile_m,
-                       bg.src.device)
+                       bg.src.device, cap)
 
 
 def suggest_tile_m(in_len: int, out_len: int, avg_deg: float,

@@ -26,19 +26,21 @@ Decided ONCE per (graph, model, machine) and replayed on every forward:
     ``choose_dedup``) aggregates two-level over a
     ``graph.dedup.DedupLayout`` matched once at build time.
   * **Compiled execution.**  ``plan.compile()`` is the forward as a
-    ``CompiledPlan``: on a card one CUDA graph per input signature, on the
-    CPU the eager forward under the same caching and retrace guard.
+    ``CompiledPlan``: on a card one CUDA graph per input signature (and,
+    when a gradient is wanted, a second one for the backward), on the CPU
+    the eager forward under the same caching and retrace guard.
   * **Shard partition.**  ``mesh=`` (a ``core.distributed`` ``LocalMesh``
     or ``ProcessGroupMesh``) plans distributed execution: one named axis
     gives the 1-D vertex partition (``graph.partition.partition_1d``), two
     (node, feature) the 2-D one (``partition_2d``); the layers run through
     ``core.distributed``'s ring or all-gather halo with each shard's sums
     in K1 (``strategy=``, the ring's ``overlap=`` schedule, "auto" priced
-    by ``choose_overlap``).  The eager distributed forward is
-    differentiable: the halos' backward folds the capped transposed shard
-    sub-layouts, which the plan builds on first need and caches with the
-    shard layouts.  ``compile()`` of a distributed plan raises (ROADMAP
-    item 11b).
+    by ``choose_overlap``).  The distributed forward is differentiable:
+    the halos' backward folds the capped transposed shard sub-layouts,
+    which the plan builds on first need and caches with the shard layouts.
+    ``compile()`` captures it like a local forward, the mesh's
+    communication stream and a process group's NCCL collectives inside
+    the graphs.
 
 A bucket plan (the
 minibatch trainer's) dispatches runtime graphs, each bringing its own
@@ -227,26 +229,33 @@ class GraphExecutionPlan:
                         num_rows: Optional[int] = None) -> BlockedGraph:
         """``bg``, a layout this plan owns, with the transposed layout K1's
         backward runs over (``num_rows`` rows of the gathered matrix,
-        default V) attached: built on the host on first need and kept by
-        the plan, so it goes with the plan (``clear_plan_cache``)."""
+        default V) attached: the capped form (``core.distributed.
+        TRANSPOSE_CAP``, as the halos' backward layouts: a hub source's row
+        would make the uncapped layout's blocks as long as the hub), built
+        on the host on first need and kept by the plan, so it goes with the
+        plan (``clear_plan_cache``)."""
         rows = self.g.num_vertices if num_rows is None else int(num_rows)
         key = (id(bg), rows)
         t = self._transposed.get(key)
         if t is None:
             from repro_torch.core.dataflow import transposed_layout
-            t = self._transposed[key] = transposed_layout(bg, rows)
+            from repro_torch.core.distributed import TRANSPOSE_CAP
+            t = self._transposed[key] = transposed_layout(bg, rows,
+                                                          TRANSPOSE_CAP)
         return bg._replace(transposed=t)
 
     @property
     def compile_supported(self) -> bool:
-        """True when every ``cuda`` layer owns its plan-built blocked
-        layout, so the forward does no host work and can be captured.
-        Local plans built by the public entry points always qualify;
-        False for hand-built plans missing ``agg_layout`` and for
-        distributed plans, whose ``compile()`` is not ported."""
-        return not self.distributed and all(
-            lp.backend != CUDA or lp.agg_layout is not None
-            for lp in self.layers)
+        """True when every ``cuda`` layer owns its plan-built layouts --
+        a local layer its ``agg_layout``, a distributed one the plan's
+        shard layouts -- so the forward does no host work and can be
+        captured (``compile_supported``, :183).  Plans built by the public
+        entry points always qualify; False for hand-built plans missing
+        them."""
+        if self.distributed:
+            return self.shard_layouts is not None
+        return all(lp.backend != CUDA or lp.agg_layout is not None
+                   for lp in self.layers)
 
     @staticmethod
     def _split_params(lp: LayerPlan, params: Dict):
@@ -489,7 +498,21 @@ class GraphExecutionPlan:
 
         Reorder, bf16, int8-agg and dedup plans capture like any other: the
         permutation gathers, the casts and the pair partials are device
-        work inside the forward.
+        work inside the forward.  So do distributed plans: the shard
+        slabs, the halos' copies on a ``LocalMesh``'s communication stream
+        (forked from and joined back to the captured stream by events) and
+        a ``ProcessGroupMesh``'s NCCL collectives are device work, and the
+        mesh's byte counters, which run on the host, move at the capture
+        only (``CompiledPlan.capture_collectives``); ``layer=i`` takes and
+        returns the padded partition layout, as ``run_layer``.
+
+        Under autograd -- grad mode on and a params leaf or ``x`` requiring
+        a gradient -- the call is differentiable in them, as ``jax.grad``
+        of the reference's jitted forward: on a card the signature gets a
+        forward graph that keeps the activations and a backward graph over
+        a static output gradient (K1's backward, the halos' adjoints), one
+        ``torch.autograd.Function`` replaying each.  Not with
+        ``dynamic=True``.
 
         Cached per (donate, layer, dynamic) on the plan::
 
@@ -499,10 +522,6 @@ class GraphExecutionPlan:
             >>> fwd.num_traces, fwd.num_replays
             (1, 1)
         """
-        if self.distributed:
-            raise NotImplementedError(
-                "compile() of a distributed plan is not ported yet (ROADMAP "
-                "item 11b); run it eagerly with plan.run_model")
         if not self.compile_supported:
             raise ValueError(
                 "plan.compile() needs every cuda layer to own its plan-built "
@@ -621,8 +640,8 @@ class GraphExecutionPlan:
         ``overlap`` are the resolved decisions (never "auto"),
         ``distributed``/``partition`` the shard partition, ``interpret``
         is always False, and ``compiled`` whether ``plan.compile()`` works
-        (always for local plans built by the public entry points, never
-        for distributed ones)."""
+        (``compile_supported``: always for plans built by the public entry
+        points)."""
         out = []
         compiled_ok = self.compile_supported
         for lp in self.layers:
@@ -676,45 +695,155 @@ def _tree(leaves) -> Dict:
     return tree
 
 
+class _Counted:
+    """What the kernels' launch counters and a mesh's byte counters
+    (``Mesh.collective_bytes``) moved since this object was made: both run
+    on the host, so they move while a graph is captured and never when it
+    replays."""
+
+    def __init__(self, mesh):
+        from repro_torch.kernels.ops import launch_counts
+        self.mesh = mesh
+        self.launches0 = launch_counts()
+        self.bytes0 = None if mesh is None else mesh.collective_bytes()
+
+    def since(self) -> Tuple[Dict[str, int], Dict]:
+        from repro_torch.kernels.ops import launch_counts
+        launches = {k: n - self.launches0[k]
+                    for k, n in launch_counts().items()}
+        if self.mesh is None:
+            return launches, {}
+        now, b = self.mesh.collective_bytes(), self.bytes0
+        moved = {k: v - b[k] for k, v in now.items() if k != "counts"}
+        moved["counts"] = {k: v - b["counts"][k]
+                           for k, v in now["counts"].items()}
+        return launches, moved
+
+
+def _count_sum(a: Dict, b: Dict) -> Dict:
+    """``a + b`` of two ``Mesh.collective_bytes()`` dicts (``{}``: zero)."""
+    if not a or not b:
+        return dict(a or b)
+    out = {k: v + b[k] for k, v in a.items() if k != "counts"}
+    out["counts"] = {k: v + b["counts"][k] for k, v in a["counts"].items()}
+    return out
+
+
 class _Captured:
-    """One input signature's CUDA graph: static buffers for the params
-    leaves and the array arguments, the graph, and its static output.
+    """One input signature's CUDA graphs: static buffers for the params
+    leaves and the array arguments, the forward graph and its static
+    output, and, when the signature wants a gradient (``wants``: a flag a
+    leaf, then an array), the backward graph over a static output
+    gradient, whose static results are the wanted inputs' gradients.
 
     Built by the first call of a signature: the inputs are copied into the
-    static buffers, one warm-up forward runs on a side stream (it builds
-    and loads the kernels and sets their attributes, none of which may
-    happen under capture), then the forward is captured once.  The
-    warm-up's result answers that first call.  ``launches`` counts each
-    kernel's launches recorded into the graph; a replay moves no counter.
+    static buffers, one warm-up forward -- and backward, when a gradient is
+    wanted -- runs on a side stream (it builds and loads the kernels, sets
+    their attributes, creates the mesh's stream and a process group's
+    communicators, and builds the layouts a backward folds on the host,
+    none of which may happen under capture), then the forward is captured
+    once and the backward once, into the forward graph's memory pool.
+    Without a gradient the warm-up's result answers that first call.
+    ``launches`` counts each kernel's launches recorded into the graphs,
+    ``collectives`` the bytes the plan's mesh counted while they were
+    captured (``{}`` without a mesh); a replay moves no counter.
+    ``calls`` numbers the grad replays and ``backed`` is the last one
+    whose backward ran: the graphs hold one call's activations at a time.
     """
 
-    def __init__(self, fn, leaves, arrays, device: torch.device):
-        from repro_torch.kernels.ops import launch_counts
+    def __init__(self, fn, leaves, arrays, device: torch.device, *,
+                 wants: Optional[Tuple[bool, ...]] = None, mesh=None):
         # plain tensors even when the caller is in inference mode: later
         # calls copy into them from anywhere
-        with torch.inference_mode(False), torch.no_grad():
+        grad = wants is not None
+        with torch.inference_mode(False):
             self.leaves = [(p, torch.empty_like(t)) for p, t in leaves]
             self.arrays = [torch.empty_like(a) for a in arrays]
             self.load(leaves, arrays)
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                first = fn(_tree(self.leaves), *self.arrays)
-            torch.cuda.current_stream(device).wait_stream(side)
-            first.record_stream(torch.cuda.current_stream(device))
-            self.first = first
-            self.graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            with torch.cuda.graph(self.graph):
-                self.out = fn(_tree(self.leaves), *self.arrays)
-            self.launches = {k: n - before[k]
-                             for k, n in launch_counts().items()}
+            inputs = [t for _, t in self.leaves] + self.arrays
+            if grad:
+                for t, w in zip(inputs, wants):
+                    t.requires_grad_(w)
+            wanted = [t for t in inputs if t.requires_grad]
+            with torch.set_grad_enabled(grad):
+                cur = torch.cuda.current_stream(device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    first = fn(_tree(self.leaves), *self.arrays)
+                    if grad:
+                        torch.autograd.grad(first, wanted,
+                                            torch.zeros_like(first),
+                                            allow_unused=True)
+                        first = None
+                cur.wait_stream(side)
+                if first is not None:
+                    first.record_stream(cur)
+                self.first = first
+                counted = _Counted(mesh)
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    self.out = fn(_tree(self.leaves), *self.arrays)
+                self.backward_graph, self.grads = None, ()
+                if grad:
+                    self.gout = torch.zeros_like(self.out,
+                                                 requires_grad=False)
+                    self.backward_graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(self.backward_graph,
+                                          pool=self.graph.pool()):
+                        gs = iter(torch.autograd.grad(
+                            self.out, wanted, self.gout, allow_unused=True))
+                    self.grads = tuple(next(gs) if t.requires_grad else None
+                                       for t in inputs)
+                self.launches, self.collectives = counted.since()
+        self.calls = self.backed = 0
 
     def load(self, leaves, arrays) -> None:
-        for (_, dst), (_, src) in zip(self.leaves, leaves):
-            dst.copy_(src)
-        for dst, src in zip(self.arrays, arrays):
-            dst.copy_(src)
+        with torch.no_grad():
+            for (_, dst), (_, src) in zip(self.leaves, leaves):
+                dst.copy_(src)
+            for dst, src in zip(self.arrays, arrays):
+                dst.copy_(src)
+
+
+class _Replay(torch.autograd.Function):
+    """A grad capture's replay, ``(cap, donate, *leaves, *arrays) ->
+    logits``, differentiable in the caller's tensors: the forward copies
+    them in and replays the forward graph; the backward copies the output
+    gradient in, replays the backward graph and returns clones of the
+    static gradients.  The graphs hold the activations of the signature's
+    latest call only, so the backward of an older call, or a second
+    backward of one call, raises instead of reading another call's
+    buffers."""
+
+    @staticmethod
+    def forward(ctx, cap, donate, *inputs):
+        n = len(cap.leaves)
+        cap.load([(None, t) for t in inputs[:n]], inputs[n:])
+        cap.graph.replay()
+        cap.calls += 1
+        ctx.cap, ctx.call = cap, cap.calls
+        out = cap.out.detach()
+        return out if donate else out.clone()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        cap = ctx.cap
+        if ctx.call != cap.calls:
+            raise RuntimeError(
+                "backward of a compiled call after a newer call of the same "
+                "signature: the graphs now hold the newer call's "
+                "activations; take each call's backward before the next "
+                "call")
+        if cap.backed == ctx.call:
+            raise RuntimeError("a second backward of one compiled call: its "
+                               "graph's buffers are single-use")
+        cap.backed = ctx.call
+        cap.gout.copy_(gout)
+        cap.backward_graph.replay()
+        return (None, None) + tuple(None if g is None else g.clone()
+                                    for g in cap.grads)
 
 
 class CompiledPlan:
@@ -723,17 +852,20 @@ class CompiledPlan:
 
     The first call per input signature -- shapes and dtypes of ``x``, of
     the params leaves and, in dynamic mode, of ``src``/``dst``/``in_deg``,
-    the dedup arrays and, on the cuda tier, the runtime layouts -- traces:
-    on a card it captures a CUDA graph (``_Captured``), on the CPU it runs
-    the eager forward.  Later calls of that signature replay:
+    the dedup arrays and, on the cuda tier, the runtime layouts, and which
+    of them want a gradient -- traces: on a card it captures a CUDA graph
+    (``_Captured``; under autograd a forward and a backward graph), on the
+    CPU it runs the eager forward.  Later calls of that signature replay:
     on a card they copy the inputs into the static buffers (so new
     parameter values take effect, as with ``jax.jit``), replay the graph
     and clone its output (``donate=True``: no clone, see
-    ``plan.compile``); on the CPU they run the eager forward again.
-    ``num_traces`` counts traces, ``num_replays`` the calls served by an
-    existing trace; a trace for a signature already traced raises
-    ``RuntimeError``.  Inference only: the forward runs under
-    ``torch.no_grad()``.
+    ``plan.compile``); on the CPU they run the eager forward again, under
+    autograd when a gradient is wanted.  ``num_traces`` counts traces,
+    ``num_replays`` the calls served by an existing trace; a trace for a
+    signature already traced raises ``RuntimeError``.  Under autograd on a
+    card each call's result is an ``autograd.Function``'s (``_Replay``),
+    whose backward replays the backward graph once, before the
+    signature's next call.
 
     The graph binds the plan's layouts and the static buffers by address,
     so it lives as long as this object (cached on the plan).  A capture or
@@ -770,6 +902,18 @@ class CompiledPlan:
         for c in self._traces.values():
             for k, n in (c.launches if c is not None else {}).items():
                 out[k] = out.get(k, 0) + n
+        return out
+
+    @property
+    def capture_collectives(self) -> Dict:
+        """The bytes the plan's mesh counted while the graphs were
+        captured, summed over signatures, in ``Mesh.collective_bytes()``'s
+        form: what each replay moves (``{}`` on the CPU and for a local
+        plan)."""
+        out: Dict = {}
+        for c in self._traces.values():
+            if c is not None:
+                out = _count_sum(out, c.collectives)
         return out
 
     @property
@@ -885,34 +1029,57 @@ class CompiledPlan:
                                  "a runtime graph")
             arrays = (x,)
         leaves = _leaves(params)
-        sig = self._signature(leaves, arrays)
-        on_card = self.plan.device.type == "cuda"
+        wants = _grad_wanted(leaves, arrays)
+        if wants is not None and self.dynamic:
+            raise NotImplementedError(
+                "compile(dynamic=True) under autograd is not ported (ROADMAP "
+                "item 15): its backward would need the runtime graph's "
+                "transposed layouts as arguments; call it under "
+                "torch.no_grad(), or train through the eager forward")
+        sig = self._signature(leaves, arrays) + (wants,)
         if sig in self._traces:
             self._num_replays += 1
-            cap = self._traces[sig]
-            if cap is None:
-                with torch.no_grad():
-                    return self._forward(params, *arrays)
-            with torch.no_grad():
-                cap.load(leaves, arrays)
-            cap.graph.replay()
-            return cap.out if self.donate else cap.out.clone()
+            return self._run(self._traces[sig], params, leaves, arrays,
+                             wants)
         self._num_traces += 1
         if sig in self._seen:
             raise RuntimeError(
                 "plan.compile() retraced for an input signature it already "
                 "captured -- something dropped the capture cache")
-        if on_card:
-            cap = _Captured(self._forward, leaves, arrays, self.plan.device)
-            out = cap.first
-            cap.first = None
-        else:
-            cap = None
-            with torch.no_grad():
-                out = self._forward(params, *arrays)
+        cap = None
+        if self.plan.device.type == "cuda":
+            cap = _Captured(self._forward, leaves, arrays, self.plan.device,
+                            wants=wants, mesh=self.plan.mesh)
         self._traces[sig] = cap
         self._seen.add(sig)
-        return out
+        if cap is not None and wants is None:
+            out, cap.first = cap.first, None
+            return out
+        return self._run(cap, params, leaves, arrays, wants)
+
+    def _run(self, cap, params, leaves, arrays, wants):
+        """One call served by the signature's trace: the eager forward on
+        the CPU (under autograd when a gradient is wanted), else a
+        replay."""
+        if cap is None:
+            with torch.set_grad_enabled(wants is not None):
+                return self._forward(params, *arrays)
+        if wants is not None:
+            return _Replay.apply(cap, self.donate,
+                                 *[t for _, t in leaves], *arrays)
+        cap.load(leaves, arrays)
+        cap.graph.replay()
+        return cap.out if self.donate else cap.out.clone()
+
+
+def _grad_wanted(leaves, arrays) -> Optional[Tuple[bool, ...]]:
+    """Which inputs (params leaves, then arrays) want a gradient, or None
+    when none does (grad mode off, or nothing requires one)."""
+    if not torch.is_grad_enabled():
+        return None
+    flags = tuple(t.requires_grad for _, t in leaves) + \
+        tuple(a.requires_grad for a in arrays)
+    return flags if any(flags) else None
 
 
 # ---------------------------------------------------------------------------
@@ -1400,8 +1567,8 @@ def build_plan(g: Graph, cfg, in_dim: int, num_classes: int, *,
     single-matmul convs only (GIN raises); reorder and every dtype apply.
     Its layers run each shard's sums through K1 on the cuda tier (its
     plain version on the torch tier) over layouts built once here
-    (``core.distributed.shard_layouts``).  Its forward is inference only
-    and ``compile()`` raises ``NotImplementedError``.
+    (``core.distributed.shard_layouts``).  Its forward is differentiable
+    and compiles, under autograd too (``compile``).
 
     Example (CPU)::
 

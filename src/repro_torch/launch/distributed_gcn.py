@@ -15,7 +15,11 @@ vertices and 64 features, x boosted by 4 one-hot(label), GCN 64 -> 16 ->
 7 over 8 ring shards, ``STEPS`` (30) SGD steps at ``LR`` (0.25) on the
 mean NLL, the gradients through ``make_compressed_allreduce`` (int8
 error feedback), the loss every 5 steps and the final accuracy; then the
-trained params' forward on a 2-D (4, 2) mesh beside the 1-D logits.
+trained params' forward on a 2-D (4, 2) mesh beside the 1-D logits.  As
+the reference jits ``value_and_grad`` of the loss, the logits come from
+``plan.compile()`` under autograd: on a card the forward and the
+backward are CUDA graphs, the loss's ``log_softmax`` and NLL, the int8
+all-reduce and the update run eagerly.
 
 It runs on the card by default; ``--device cpu`` runs the torch tier on
 the CPU:
@@ -66,18 +70,20 @@ def example_data(device, vertices: int = 512, features: int = 64):
 
 def train(model: GCNModel, plan, g, x, y, *, steps: int, lr: float,
           allreduce, every: int = 5) -> list:
-    """``steps`` SGD steps of ``model`` through ``plan`` on the mean NLL,
-    each gradient tree through ``allreduce`` (``fn(grads, residuals) ->
-    (grads, residuals)``, the residuals kept here); updates the model in
-    place, prints the loss every ``every`` steps and returns every
-    step's loss (before its update)."""
+    """``steps`` SGD steps of ``model`` through ``plan.compile()`` on the
+    mean NLL, each gradient tree through ``allreduce`` (``fn(grads,
+    residuals) -> (grads, residuals)``, the residuals kept here); updates
+    the model in place, prints the loss every ``every`` steps and returns
+    every step's loss (before its update)."""
     params = model.tree()
     leaves = [t for sub in params.values() for leaf in sub.values()
               for t in leaf.values()]
     residuals = init_residuals(params)
     losses = []
     for step in range(steps):
-        loss = model.loss_fn(g, x, y, plan=plan)
+        logits = plan.run_model(params, x, compiled=True)
+        loss = -torch.log_softmax(logits, dim=-1).gather(
+            -1, y.long()[:, None])[:, 0].mean()
         grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
         grads = tree_map(lambda t: grads[id(t)], params)
         grads, residuals = allreduce(grads, residuals)

@@ -424,7 +424,8 @@ class PlannedSageTrainer:
             self.pipeline.step if step is None else int(step))
         prep = self._prepare(batch)
         x, g, glay, ded = self._inputs(prep, capacity=True)
-        out = self.fwd(self.params, x, g, dedup=ded, layout=glay)
+        with torch.no_grad():
+            out = self.fwd(self.params, x, g, dedup=ded, layout=glay)
         return out[_on(prep["seed_pos"], self.device).long()].cpu().numpy()
 
     # ---------------------------------------------------- checkpoint/resume

@@ -690,16 +690,17 @@ class InstrumentedPlan:
         walking the ingress/layer/ReLU sequence ``run_model`` executes, in
         the plan's execution layout."""
         plan = self.plan
-        model_s = self._time(plan.compile(), params, x)
-        layers_s = []
-        h = plan._ingress(x)
-        for i in range(plan.num_layers):
-            sub = params[f"conv{i}"]
-            fl = plan.compile(layer=i)
-            layers_s.append(self._time(fl, sub, h))
-            h = fl(sub, h)
-            if i < plan.num_layers - 1:
-                h = torch.relu(h)
+        with torch.no_grad():
+            model_s = self._time(plan.compile(), params, x)
+            layers_s = []
+            h = plan._ingress(x)
+            for i in range(plan.num_layers):
+                sub = params[f"conv{i}"]
+                fl = plan.compile(layer=i)
+                layers_s.append(self._time(fl, sub, h))
+                h = fl(sub, h)
+                if i < plan.num_layers - 1:
+                    h = torch.relu(h)
         return {"model_s": model_s, "layers_s": layers_s}
 
     def run_model(self, params, x, *, compiled: bool = False

@@ -346,8 +346,10 @@ class GraphServeEngine(SlotServeCore):
                 t = plan.g
                 x = torch.zeros((b.num_inputs, self.in_dim),
                                 dtype=torch.float32, device=self.device)
-                fn(self.params, x, t, layout=self._layout(
-                    plan, b, t.src.cpu().numpy(), t.dst.cpu().numpy()))
+                layout = self._layout(plan, b, t.src.cpu().numpy(),
+                                      t.dst.cpu().numpy())
+                with torch.no_grad():
+                    fn(self.params, x, t, layout=layout)
 
     def _warm_request(self, bucket: Bucket, rng: np.random.Generator
                       ) -> None:
@@ -365,7 +367,8 @@ class GraphServeEngine(SlotServeCore):
         prep.bucket = bucket
         _, fn = self._bucket_plan(bucket)
         x, g, layout = self._pad_into(prep, bucket)
-        self._seed_rows(fn(self.params, x, g, layout=layout), prep)
+        with torch.no_grad():
+            self._seed_rows(fn(self.params, x, g, layout=layout), prep)
 
     @staticmethod
     def _bucket_name(b: Bucket) -> str:
@@ -468,7 +471,9 @@ class GraphServeEngine(SlotServeCore):
         _, fn = self._bucket_plan(prep.bucket)
         x, g, layout = self._pad_into(prep, prep.bucket)
         t0 = time.perf_counter()
-        logits = self._seed_rows(fn(self.params, x, g, layout=layout), prep)
+        with torch.no_grad():
+            logits = self._seed_rows(fn(self.params, x, g, layout=layout),
+                                     prep)
         self.stage_ms["replay"] = (time.perf_counter() - t0) * 1e3
         for k in STAGES:
             self._stage_total[k] += self.stage_ms[k]

@@ -24,6 +24,7 @@ from repro.graph import dedup as jdedup
 from repro.graph.datasets import make_synthetic_graph as jgraph
 from repro_torch import config as tconfig
 from repro_torch.core import dataflow
+from repro_torch.core import distributed as tdist
 from repro_torch.core import plan as tplan
 from repro_torch.core.phases import aggregate
 from repro_torch.graph import dedup as tdedup
@@ -173,8 +174,11 @@ def test_transposed_layouts_agree():
     kept = plan.with_transposed(own)
     assert kept.src is own.src
     assert plan.with_transposed(own).transposed is kept.transposed
-    want = dataflow.transposed_layout(own, TG.num_vertices)
-    for a, b in zip(kept.transposed[:3], want[:3]):
+    want = dataflow.transposed_layout(own, TG.num_vertices,
+                                      tdist.TRANSPOSE_CAP)
+    assert kept.transposed.out_rows is not None     # the capped form
+    for a, b in zip(kept.transposed[:3] + (kept.transposed.out_rows,),
+                    want[:3] + (want.out_rows,)):
         assert torch.equal(a, b)
     # each transposed slot mirrors a forward slot with the swapped edge
     t, m = bg.transposed, bg.transposed.mask != 0

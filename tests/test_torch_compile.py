@@ -72,7 +72,7 @@ def test_compiled_matches_reference_eager(name, fused, order):
     for _ in range(CALLS):
         got = fn(tm.tree(), TX)
         assert torch.equal(got, eager)
-        assert_allclose_dtype(got.numpy(), want)
+        assert_allclose_dtype(got.detach().numpy(), want)
     assert (fn.num_traces, fn.num_replays) == (1, CALLS - 1)
     assert fn.capture_launches == {}      # nothing is captured on the CPU
 
@@ -136,13 +136,13 @@ def test_dynamic_substitute_graph(name):
     with torch.no_grad():
         eager1 = plan.run_model(tree, TX)
         eager2 = plan.run_model(tree, TX, graph=TG2)
-    assert torch.equal(fn(tree, TX, TG), eager1)
-    got2 = fn(tree, TX, TG2)
-    assert torch.equal(got2, eager2)
-    assert_allclose_dtype(got2.numpy(), want2)
-    assert not torch.equal(got2, eager1)
-    assert torch.equal(plan.run_model(tree, TX, compiled=True, graph=TG2),
-                       eager2)
+        assert torch.equal(fn(tree, TX, TG), eager1)
+        got2 = fn(tree, TX, TG2)
+        assert torch.equal(got2, eager2)
+        assert_allclose_dtype(got2.numpy(), want2)
+        assert not torch.equal(got2, eager1)
+        assert torch.equal(plan.run_model(tree, TX, compiled=True,
+                                          graph=TG2), eager2)
     assert (fn.num_traces, fn.num_replays) == (1, 2)
 
 
@@ -241,3 +241,123 @@ def test_describe_layer_keys_match_reference(name, fused):
     for t, j in zip(trows, jrows):
         assert {k: t[k] for k in keys} == {k: j[k] for k in keys}
         assert t["interpret"] is False
+
+
+# ---------------------------------------------------------------------------
+# training: the gradient flows through the compiled callable
+# ---------------------------------------------------------------------------
+
+#: the reference's grad-through-compile test graph (``tests/test_compile.py``
+#: fixture ``data``)
+JSPEC_S = reduced_graph(CORA, 220, 24)
+TSPEC_S = tconfig.reduced_graph(tconfig.CORA, 220, 24)
+JG_S, TG_S = jgraph(JSPEC_S), tgraph(TSPEC_S, device="cpu")
+JX_S, TX_S = jfeatures(JSPEC_S), tfeatures(TSPEC_S, device="cpu")
+LABELS_S = np.random.default_rng(0).integers(0, JSPEC_S.num_classes,
+                                             JSPEC_S.num_vertices)
+
+
+@pytest.fixture
+def one_thread():
+    """The torch tier's CPU scatter-adds (the backward of its gathers) add
+    in a thread-dependent order; one thread makes two eager backward
+    passes, and so compiled and eager, equal bit for bit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _nll(logits, labels):
+    return -torch.log_softmax(logits, dim=-1).gather(
+        -1, labels[:, None])[:, 0].mean()
+
+
+@pytest.mark.parametrize("name", ["gcn", "sage", "gin"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_grad_through_compile_training_step(one_thread, name, fused):
+    """The reference's ``test_grad_through_compile_training_step``: a loss
+    through ``plan.compile()`` is differentiable (the compiled logits need
+    a gradient -- before the repair they did not), its gradients equal
+    eager autograd's bit for bit on every call and the reference's
+    ``jax.grad`` of its eager forward within its own rtol 1e-4 / atol
+    1e-6, and one SGD step lowers the loss."""
+    jm = JGCNModel(JMODELS[name], JSPEC_S.feature_len, JSPEC_S.num_classes)
+    params = jm.init(jax.random.PRNGKey(3))
+    tm = GCNModel(PAPER_MODELS[name], TSPEC_S.feature_len,
+                  TSPEC_S.num_classes, device="cpu")
+    tm.params_from_reference(jax.tree_util.tree_map(np.asarray, params))
+    jplan = jbuild_plan(JG_S, JMODELS[name], JSPEC_S.feature_len,
+                        JSPEC_S.num_classes, backend="xla", machine="h100",
+                        fused=fused)
+    jlabels = jax.numpy.asarray(LABELS_S)
+
+    def loss_e(pp):
+        ll = jax.nn.log_softmax(jplan.run_model(pp, JX_S), axis=-1)
+        return -jax.numpy.take_along_axis(ll, jlabels[:, None],
+                                          axis=-1).mean()
+
+    jgrads = dict(tplan._leaves(jax.tree_util.tree_map(
+        np.asarray, jax.grad(loss_e)(params))))
+    labels = torch.from_numpy(LABELS_S)
+    plan = tm.plan_for(TG_S, fused=fused)
+    leaves = tplan._leaves(tm.tree())
+    tensors = [t for _, t in leaves]
+    eager_loss = _nll(plan.run_model(tm.tree(), TX_S), labels)
+    eager = torch.autograd.grad(eager_loss, tensors)
+    fn = plan.compile()
+    for _ in range(3):
+        logits = fn(tm.tree(), TX_S)
+        assert logits.requires_grad
+        loss = _nll(logits, labels)
+        grads = torch.autograd.grad(loss, tensors)
+        assert torch.equal(loss, eager_loss)
+        assert all(torch.equal(a, b) for a, b in zip(grads, eager))
+    assert (fn.num_traces, fn.num_replays) == (1, 2)
+    for (path, _), gr in zip(leaves, grads):
+        assert bool(torch.isfinite(gr).all())
+        np.testing.assert_allclose(gr.numpy(), jgrads[path], rtol=1e-4,
+                                   atol=1e-6)
+    # the reference's step of 0.5; GIN sums its neighbours unnormalised,
+    # so its gradients are larger and that step overshoots
+    lr = 0.05 if name == "gin" else 0.5
+    with torch.no_grad():
+        for t, gr in zip(tensors, grads):
+            t.sub_(lr * gr)
+        assert float(_nll(fn(tm.tree(), TX_S), labels)) < float(loss)
+
+
+def test_grad_and_inference_signatures_are_separate_traces():
+    """Whether a gradient is wanted joins the signature: a call under
+    no_grad and one under autograd are two traces, each replayed after,
+    and the retrace guard still fires on a dropped trace."""
+    m = make_paper_model("gcn", TSPEC, device="cpu")
+    plan = m.plan_for(TG)
+    fn = tplan.CompiledPlan(plan)
+    with torch.no_grad():
+        a = fn(m.tree(), TX)
+    b = fn(m.tree(), TX)
+    assert not a.requires_grad and b.requires_grad
+    with torch.no_grad():
+        fn(m.tree(), TX)
+    fn(m.tree(), TX)
+    assert (fn.num_traces, fn.num_replays) == (2, 2)
+    # x needing a gradient is a third signature
+    x = TX.clone().requires_grad_()
+    gx, = torch.autograd.grad(fn(m.tree(), x).sum(), [x])
+    assert gx.shape == x.shape and fn.num_traces == 3
+    fn._traces.clear()
+    with pytest.raises(RuntimeError, match="retraced"):
+        fn(m.tree(), TX)
+
+
+def test_dynamic_compile_under_grad_raises():
+    """compile(dynamic=True) under autograd is not ported: it raises,
+    naming the ROADMAP item; under no_grad it serves as before."""
+    m = make_paper_model("gcn", TSPEC, device="cpu")
+    fn = m.plan_for(TG, fused=False).compile(dynamic=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        fn(m.tree(), TX, TG2)
+    with torch.no_grad():
+        fn(m.tree(), TX, TG2)
+    assert fn.num_traces == 1

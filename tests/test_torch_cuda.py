@@ -457,9 +457,10 @@ def test_captured_plan_bitwise_equal_eager(card, name, fused):
     launched = {k: n - before[k] for k, n in ops.launch_counts().items()}
     assert launched["fused_agg_combine" if fused else "seg_agg"] == 2
     fn = tplan.CompiledPlan(plan)
-    outs = [fn(m.tree(), x) for _ in range(5)]
-    counts = ops.launch_counts()
-    outs += [fn(m.tree(), x) for _ in range(3)]
+    with torch.no_grad():
+        outs = [fn(m.tree(), x) for _ in range(5)]
+        counts = ops.launch_counts()
+        outs += [fn(m.tree(), x) for _ in range(3)]
     assert ops.launch_counts() == counts
     assert all(torch.equal(o, eager) for o in outs)
     assert (fn.num_traces, fn.num_replays) == (1, 7)
@@ -470,9 +471,11 @@ def test_captured_plan_bitwise_equal_eager(card, name, fused):
         with torch.no_grad():
             want = plan.run_layer(sub, h, layer=i)
         fl = tplan.CompiledPlan(plan, layer=i)
-        assert all(torch.equal(fl(sub, h), want) for _ in range(3))
+        with torch.no_grad():
+            assert all(torch.equal(fl(sub, h), want) for _ in range(3))
 
 
+@torch.no_grad()
 def test_captured_plan_sees_new_parameters_and_donates(card):
     m, plan, g, x = _compiled_case(card, "sage", False, seed=4)
     fn = tplan.CompiledPlan(plan)
@@ -506,8 +509,8 @@ def test_dynamic_torch_tier_on_card(card):
     fn = tplan.CompiledPlan(plan, dynamic=True)
     with torch.no_grad():
         want = plan.run_model(m.tree(), x, graph=g2)
-    for graph in (g, g2, g2):
-        got = fn(m.tree(), x, graph)
+        for graph in (g, g2, g2):
+            got = fn(m.tree(), x, graph)
     _close(got, want)
     assert (fn.num_traces, fn.num_replays) == (1, 2)
 
@@ -771,7 +774,8 @@ def test_captured_decision_plans_bitwise_equal_eager(card, case, fused):
     with torch.no_grad():
         eager = plan.run_model(m.tree(), x)
     fn = tplan.CompiledPlan(plan)
-    outs = [fn(m.tree(), x) for _ in range(4)]
+    with torch.no_grad():
+        outs = [fn(m.tree(), x) for _ in range(4)]
     assert all(torch.equal(o, eager) for o in outs)
     assert (fn.num_traces, fn.num_replays) == (1, 3)
 
@@ -1033,8 +1037,8 @@ def test_trainer_first_step_cuda_vs_torch(card, dedup):
     with torch.no_grad():
         eager = tc.plan.run_model(tc.params, xx, graph=gg,
                                   graph_layout=glay, dedup_layout=ded)
-    assert torch.equal(tc.fwd(tc.params, xx, gg, dedup=ded, layout=glay),
-                       eager)
+        assert torch.equal(tc.fwd(tc.params, xx, gg, dedup=ded,
+                                  layout=glay), eager)
     assert np.isfinite(first).all()
     assert (tc.fwd.num_traces, tc.fwd.num_replays) == (1, 1)
 
@@ -1387,3 +1391,120 @@ def test_local_mesh_gradients_on_card(card, shape, strategy, dtype):
     if dtype == "f32" and len(shape) == 1:
         for a, b in zip(grads[0], local):
             assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# compiled execution under autograd, and compiled mesh plans
+# ---------------------------------------------------------------------------
+
+
+def _nll(logits, y):
+    return -torch.log_softmax(logits, dim=-1).gather(
+        -1, y.long()[:, None])[:, 0].mean()
+
+
+def _labels(spec):
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, spec.num_classes, spec.num_vertices)).cuda()
+
+
+@pytest.mark.parametrize("name", ["gcn", "sage"])
+def test_captured_plan_gradients_bitwise_eager(card, name):
+    """plan.compile() under autograd on the card: a forward and a backward
+    CUDA graph, the loss and every gradient equal to eager autograd's bit
+    for bit on every call, the capture records the eager forward's and
+    backward's launches (K1's backward over the plan's capped transposed
+    layout), a replay moves no counter; the backward of an older call and
+    a second backward of one call raise."""
+    spec, g, x = card
+    y = _labels(spec)
+    m, plan, _, _ = _compiled_case(card, name, False, seed=1)
+    params = list(m.parameters())
+    before = ops.launch_counts()
+    loss = _nll(plan.run_model(m.tree(), x), y)
+    want = torch.autograd.grad(loss, params)
+    eager = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert eager["seg_agg_bwd"] >= 1
+    fn = tplan.CompiledPlan(plan)
+    for i in range(4):
+        if i == 1:
+            counts = ops.launch_counts()
+        got_loss = _nll(fn(m.tree(), x), y)
+        got = torch.autograd.grad(got_loss, params)
+        assert torch.equal(got_loss, loss)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ops.launch_counts() == counts
+    assert (fn.num_traces, fn.num_replays) == (1, 3)
+    assert fn.capture_launches == eager
+    older, newer = _nll(fn(m.tree(), x), y), _nll(fn(m.tree(), x), y)
+    with pytest.raises(RuntimeError, match="newer call"):
+        torch.autograd.grad(older, params)
+    torch.autograd.grad(newer, params, retain_graph=True)
+    with pytest.raises(RuntimeError, match="second backward"):
+        torch.autograd.grad(newer, params)
+
+
+def test_fused_capture_under_grad_raises(card):
+    """A fused plan under autograd raises on the card as its eager forward
+    does (K2 has no backward), and nothing is cached."""
+    m, plan, g, x = _compiled_case(card, "gcn", True)
+    fn = tplan.CompiledPlan(plan)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        fn(m.tree(), x)
+    assert not fn._traces
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+@pytest.mark.parametrize("strategy,overlap", [("ring", "none"),
+                                              ("ring", "pipelined"),
+                                              ("allgather", "none")])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_captured_mesh_plan_bitwise_eager(card, shape, strategy, overlap,
+                                          dtype):
+    """compile() of a LocalMesh plan on the card: the halos' copies on the
+    mesh's stream and K1 a shard are captured; every replay equals the
+    eager forward bit for bit, the capture counts K1's launches as the
+    partition implies and the mesh's bytes as scheduled while a replay
+    moves no counter; under autograd the loss and gradients equal eager's
+    bit for bit and the backward graph records K1's backward launches."""
+    from repro_torch.core.distributed import LocalMesh, schedule_wire_bytes
+    spec, g, x = card
+    y = _labels(spec)
+    names = ("data",) if len(shape) == 1 else ("node", "feat")
+    mesh = LocalMesh(shape, names)
+    m = make_paper_model("gcn", spec, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    plan = m.plan_for(g, mesh=mesh, strategy=strategy, overlap=overlap,
+                      dtype=dtype)
+    two_d = len(shape) == 2
+    wire = sum(schedule_wire_bytes(
+        plan.partition, lp.din if lp.order == "aggregate_first" else lp.dout,
+        strategy=strategy, overlap=plan.overlap, dtype=dtype,
+        combine_out_len=lp.dout if two_d else None)["total_bytes"]
+        for lp in plan.layers)
+    hops = shape[0] if strategy == "ring" else 1
+    fn = tplan.CompiledPlan(plan)
+    with torch.no_grad():
+        eager = plan.run_model(m.tree(), x)
+        first = fn(m.tree(), x)
+        counts, sent = ops.launch_counts(), mesh.collective_bytes()["total"]
+        outs = [first] + [fn(m.tree(), x) for _ in range(3)]
+    assert all(torch.equal(o, eager) for o in outs)
+    assert ops.launch_counts() == counts
+    assert mesh.collective_bytes()["total"] == sent
+    assert fn.capture_launches["seg_agg"] == 2 * mesh.size * hops
+    assert fn.capture_collectives["total"] == wire
+    params = list(m.parameters())
+    loss = _nll(plan.run_model(m.tree(), x), y)
+    want = torch.autograd.grad(loss, params)
+    for _ in range(3):
+        got_loss = _nll(fn(m.tree(), x), y)
+        got = torch.autograd.grad(got_loss, params)
+        assert torch.equal(got_loss, loss)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    tl = plan.shard_transposed()
+    node_ax = plan.axes[0] if two_d else plan.axis
+    per_layer = sum(1 + (lay.fold is not None) for crd in mesh.coords
+                    for lay in tl[mesh.index(crd, node_ax)])
+    assert fn.capture_launches["seg_agg_bwd"] == 2 * per_layer
+    assert fn.num_traces == 2

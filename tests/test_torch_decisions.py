@@ -427,7 +427,8 @@ def test_dynamic_compile_of_dedup_plan_raises():
         fn(tm.tree(), TX, TG)
     with torch.no_grad():
         want = plan.run_model(tm.tree(), TX)
-    assert torch.equal(fn(tm.tree(), TX, TG, dedup=plan.dedup_layout), want)
+        assert torch.equal(fn(tm.tree(), TX, TG, dedup=plan.dedup_layout),
+                           want)
     with pytest.raises(ValueError, match="dedup_layout"):
         plan.run_model(tm.tree(), TX, graph=TG)
     # the graph's own layout, handed in, serves an eager dispatch

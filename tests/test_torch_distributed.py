@@ -419,11 +419,11 @@ def test_bare_layers_match_reference_layer():
 # plan metadata against the reference
 # ---------------------------------------------------------------------------
 
-#: every key but the tier, ``compiled`` and ``interpret`` (the reference's
-#: Pallas interpret mode, which the port has no counterpart of)
+#: every key but the tier and ``interpret`` (the reference's Pallas
+#: interpret mode, which the port has no counterpart of)
 DESCRIBE_KEYS = ("layer", "kind", "din", "dout", "order", "fused", "tile_m",
                  "distributed", "partition", "overlap", "dtype", "reorder",
-                 "dedup", "agg_bytes", "agg_flops")
+                 "compiled", "dedup", "agg_bytes", "agg_flops")
 
 
 @pytest.mark.parametrize("shape", [1, 4, 8, (4, 2)])
@@ -432,8 +432,8 @@ DESCRIBE_KEYS = ("layer", "kind", "din", "dout", "order", "fused", "tile_m",
 def test_describe_matches_reference(shape, strategy, overlap, dtype):
     """The reference builds its mesh plan on the host (a stand-in mesh of
     the same shape); every decision and the partition equal the port's.
-    The reference's tier is xla, the port's torch here; the port's
-    distributed plans do not compile."""
+    The reference's tier is xla, the port's torch here; both compile
+    their mesh plans."""
     kw = dict(strategy=strategy, overlap=overlap, dtype=dtype)
     jp = jbuild_plan(JG, JCFG, JSPEC.feature_len, JSPEC.num_classes,
                      mesh=_fake_jmesh(shape), machine="h100", **kw)
@@ -445,7 +445,7 @@ def test_describe_matches_reference(shape, strategy, overlap, dtype):
         assert {k: t[k] for k in DESCRIBE_KEYS} == \
             {k: j[k] for k in DESCRIBE_KEYS}
         assert (t["backend"], j["backend"]) == ("torch", "xla")
-        assert t["compiled"] is False and t["interpret"] is False
+        assert t["compiled"] is True and t["interpret"] is False
     jpart_ = jp.partition.nodes if jp.partition_kind == "2d" else jp.partition
     tpart_ = tp._node_partition
     assert np.array_equal(tpart_.src.numpy(), np.asarray(jpart_.src))
@@ -556,8 +556,12 @@ def test_plan_cache_keys_on_the_mesh_and_schedule():
 def test_distributed_plan_refusals():
     _, tm = _model()
     plan = tm.plan_for(TG, mesh=_mesh(2))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        plan.compile()
+    # compile() works on a mesh plan (its graph-as-argument mode does not)
+    fn = plan.compile()
+    with torch.no_grad():
+        assert torch.equal(fn(tm.tree(), TX), tm(TG, TX, plan=plan))
+    with pytest.raises(ValueError, match="edge-derived shards"):
+        plan.compile(dynamic=True)
     with pytest.raises(ValueError, match="edge-derived shards"):
         plan.run_model(tm.tree(), TX, graph=TG)
     # grad mode, parameters need one: the forward is differentiable, and

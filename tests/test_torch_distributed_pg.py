@@ -12,8 +12,10 @@ mesh shape bit for bit (the 2-D mesh's ``psum_scatter`` over Q = 2 adds
 two partials, which IEEE addition gives the same in either order) and
 that
 the bytes its collectives counted equal ``schedule_wire_bytes`` layer by
-layer (the instrumented run) and over the forward.  The test then holds
-the logits to the reference's unsharded eager forward, in the band.
+layer (the instrumented run) and over the forward, and that the plan's
+``compile()`` -- on gloo the eager forward under the capture contract --
+gives the same logits with one trace.  The test then holds the logits
+to the reference's unsharded eager forward, in the band.
 
 Training (``--train-worker``): each rank takes one SGD step of the mean
 NLL through a ``ProcessGroupMesh`` plan (TRAIN_CASES).  Its gradients --
@@ -107,6 +109,10 @@ def worker(rank: int, world: int, store: str, shape: str, out_dir: str):
             out = model(g, x, plan=plan)
             counted = mesh.collective_bytes()
             want = model(g, x, plan=model.plan_for(g, mesh=local, **kw))
+            # compiled: on gloo the eager forward under the contract
+            comp = plan.compile()
+            compiled = [torch.equal(comp(model.tree(), x), out)
+                        for _ in range(2)] + [comp.num_traces == 1]
         # the logits' gather at egress: one slab of every shard
         pg = plan.partition.nodes if two_d else plan.partition
         fb = plan.partition.feature_block(plan.layers[-1].dout) if two_d \
@@ -119,6 +125,7 @@ def worker(rank: int, world: int, store: str, shape: str, out_dir: str):
                 out.float().numpy())
         results[name] = {
             "bitwise_local": bool(torch.equal(out, want)),
+            "compiled": compiled,
             "max_diff_local": float((out.float() - want.float()).abs().max()),
             "counted": counted["total"], "scheduled": sum(sched) + egress,
             "layer_wire": [r.wire_collective_bytes for r in rep.records],
@@ -275,6 +282,7 @@ def _check(tmp_path, results, world: int):
             got = res[name]
             assert got["overlap"] == overlap
             assert got["bitwise_local"], (r, name, got["max_diff_local"])
+            assert all(got["compiled"]), (r, name, got["compiled"])
             assert got["counted"] == got["scheduled"], (r, name, got)
             assert got["layer_wire"] == got["layer_sched"], (r, name, got)
             # every rank returns the whole logits
