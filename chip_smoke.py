@@ -222,7 +222,24 @@ Phases, each printing its own lines; any failure exits non-zero:
                 DIST_TRAIN_TIMED), device busy and idle share over
                 DIST_TRAIN_PROFILED compiled steps.
 
-The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 5-7.  The
+ 16. analysis -- (right after phase 15, on the same Reddit graph)
+                repro_torch.analysis: its self-test (every rule catches
+                its plant), its matrix of small plans on the card (both
+                tiers), then fake-tensor traces of the full-width plans of
+                the earlier phases -- phase 4's models, phase 10's
+                decisions, phase 12's dynamic bucket plan over its runtime
+                layout, phase 13's mesh plans -- K1 and K2 opaque nodes,
+                every launch count 0 across the traces and no error
+                finding (host syncs, f64, bf16 products without an f32
+                accumulator, the dedup fold, the dynamic plan's constants,
+                collective bytes against schedule_wire_bytes); the
+                donation rule on captured compile(donate=True) plans (gcn
+                unfused and fused, the f32 pipelined rings), each replay
+                bit for bit the eager forward and the capture's bytes as
+                scheduled; cells, errors, warnings, info, traced launches
+                and the phase's seconds.
+
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 5-7.  The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
 table is also written to chiprun_out/chip_smoke.json.
@@ -3418,6 +3435,154 @@ def drive_dist_compiled(g, x, y, spec) -> dict:
     return {"forward": forward, "train": train}
 
 
+def analysis_cells(g, x, spec):
+    """Phase 16's plans, built on the Reddit graph of the earlier phases:
+    yields ``(case, plan, params, lint_plan kwargs, donation)``, where
+    ``donation`` asks for a captured ``compile(donate=True)`` checked bit
+    for bit against the eager forward.  Phase 4's gcn/sage/gin unfused and
+    fused in f32; phase 10's decisions (DECISION_CASES) for each of them;
+    the dynamic plan of phase 12's gcn/A smallest bucket over its runtime
+    layout; phase 13's mesh plans (DIST_CASES).  The plans are built one
+    case at a time, their layouts shared through the plan caches."""
+    import torch
+    from repro_torch.core.distributed import LocalMesh
+    from repro_torch.models.gcn import PAPER_MODELS, make_paper_model
+    from repro_torch.serve import GraphServeEngine, default_buckets
+
+    def model(name, fused=False):
+        return make_paper_model(
+            name, spec, backend="auto", device="cuda", fused=fused,
+            generator=torch.Generator().manual_seed(SEED))
+
+    for name in ("gcn", "sage", "gin"):
+        for fused in (False, True):
+            m = model(name, fused)
+            key = f"{name} {'fused' if fused else 'unfused'}"
+            yield key, m.plan_for(g), m.tree(), {}, name == "gcn"
+            for case, kw, fused_only in DECISION_CASES:
+                if fused_only and not fused:
+                    continue
+                yield f"{key} {case}", m.plan_for(g, **kw), m.tree(), {}, \
+                    False
+    # phase 12's gcn under mix A: its smallest bucket's plan, dynamic over
+    # the runtime layout of the bucket's template
+    fanouts, _ = SERVE_MIXES["A"]
+    eng = GraphServeEngine(
+        g.to("cpu"), PAPER_MODELS["gcn"], None, x, spec.num_classes,
+        fanouts=fanouts, buckets=default_buckets(
+            fanouts, seed_levels=(4, 16, 64), max_inputs=spec.num_vertices),
+        max_batch=8, seed=SEED, device=x.device)
+    eng.params = eng.init_params(torch.Generator().manual_seed(SEED))
+    b = eng.buckets[0]
+    plan, _ = eng._bucket_plan(b)
+    t = plan.g
+    layout = eng._layout(plan, b, t.src.cpu().numpy(), t.dst.cpu().numpy())
+    yield f"serve gcn/A bucket {tuple(b)}", plan, eng.params, {
+        "dynamic": True, "dynamic_args": (t, layout, None),
+        "x": torch.zeros((b.num_inputs, eng.in_dim), device=x.device)}, \
+        False
+    del eng
+    m = model("gcn")
+    meshes = {(4,): LocalMesh((4,), ("data",)),
+              (4, 2): LocalMesh((4, 2), ("node", "feat"))}
+    for label, shape, strategy, overlap, dtype in DIST_CASES:
+        yield f"dist {label}", m.plan_for(
+            g, mesh=meshes[shape], strategy=strategy, overlap=overlap,
+            dtype=dtype), m.tree(), {}, overlap == "pipelined" and \
+            dtype == "f32"
+
+
+def drive_analysis(g, x, spec) -> dict:
+    """Phase 16: ``repro_torch.analysis`` on the card.  Its self-test (every
+    rule catches its plant, the pragmas suppress), its matrix on the cuda
+    device (both tiers; the donation cells captured), then the full-width
+    Reddit plans of ``analysis_cells``: each linted from fake-tensor traces
+    of its eager and compiled forwards (K1 and K2 opaque nodes) with the
+    launch counts zeroed just before and read just after -- every count
+    must stay 0 -- and no error finding; a mesh plan's bytes counted
+    across the trace equal schedule_wire_bytes, and so do those its
+    capture counted where phase 15's capture is still cached.  The
+    donation cases then capture compile(donate=True) and compile(): two
+    replays of the first in the graph's static output, of the second in
+    fresh storage, the replay bit for bit the eager forward, K1 (K2 when
+    fused) launched, the capture's collective bytes as scheduled.
+    Nothing is caught: a failed rule fails the phase."""
+    import torch
+    from repro_torch.analysis import run_matrix
+    from repro_torch.analysis.selftest import run_selftest
+    from repro_torch.analysis.trace_lint import (donation_replays,
+                                                 lint_plan, plan_label)
+    from repro_torch.core.plan import clear_plan_cache
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    detected, _ = run_selftest()
+    missed = sorted(r for r, ok in detected.items() if not ok)
+    print(f"[analysis] selftest: {len(detected) - len(missed)} of "
+          f"{len(detected)} rules caught their plants", flush=True)
+    if missed:
+        fail(f"analysis: rules missed their plants: {missed}")
+    report, small = run_matrix("cuda")
+    counts = report.counts()
+    print(f"[analysis] matrix on the card: {small} cells, {counts}",
+          flush=True)
+    if not report.ok(strict=True):
+        fail("analysis: the matrix on the card has errors:\n"
+             + report.render())
+    cells, traced, out = 0, 0, {"selftest": detected, "matrix": counts}
+    totals = dict(counts)
+    for case, plan, params, kw, donation in analysis_cells(g, x, spec):
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        rep = lint_plan(plan, params=params, x=kw.pop("x", x), **kw)
+        torch.cuda.synchronize()
+        moved = sum(launch_counts().values())
+        traced += moved
+        cells += 1
+        for sev, n in rep.counts().items():
+            totals[sev] += n
+        print(f"[analysis] {case:34s} {plan_label(plan)}: "
+              f"{rep.counts()}, launches across the traces {moved}, "
+              f"{time.perf_counter() - t1:.2f} s", flush=True)
+        if moved or not rep.ok(strict=True):
+            fail(f"analysis {case}: {moved} launches across its traces, "
+                 f"findings:\n{rep.render()}")
+        if donation:
+            reset_launch_counts()
+            rep = lint_plan(plan, params=params, x=x, donate=True)
+            launched = launch_counts()
+            with torch.inference_mode():
+                eager = plan.run_model(params, x)
+            replay, _, _ = donation_replays(plan, params, x, True)
+            same = torch.equal(replay, eager)
+            kern = "fused_agg_combine" if plan.layers[0].fused \
+                else "seg_agg"
+            coll = plan.compile(donate=True).capture_collectives
+            print(f"[analysis] {case:34s} donation: {rep.counts()}, "
+                  f"replay bit for bit eager {same}, launches "
+                  f"{ {k: n for k, n in launched.items() if n} }"
+                  + (f", captured bytes {coll['total']} (checked against "
+                     f"schedule_wire_bytes)" if coll else ""), flush=True)
+            if not rep.ok(strict=True) or not same or not launched[kern]:
+                fail(f"analysis {case}: donation findings:\n"
+                     f"{rep.render()}\nreplay equal eager {same}, "
+                     f"launches {launched}")
+            out[case] = {"donation": rep.counts(), "bitwise": same}
+            del eager, replay
+        del plan
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"[analysis] cells={cells} errors={totals['error']} "
+          f"warnings={totals['warning']} info={totals['info']} "
+          f"traced_launches={traced} took {took:.1f} s", flush=True)
+    if totals["error"] or traced:
+        fail("analysis: errors or traced launches")
+    out.update(cells=cells, totals=totals, traced_launches=traced,
+               seconds=took)
+    return out
+
+
 def unmasked_pairs(sq, sk, causal, window, kv_len) -> int:
     """(query, key) pairs K5 must compute: summed over the batch, the keys
     each query row may see (right-aligned positions, as the kernel)."""
@@ -4080,6 +4245,9 @@ def main() -> None:
     dist15 = drive_dist_compiled(g_red, x_red, y_red, spec_red)
     print(f"[dist-compiled] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # -- 16. static checks of the plans above, from fake-tensor traces
+    analysis = drive_analysis(g_red, x_red, spec_red)
     del g_red, x_red, y_red
     clear_plan_cache()
     torch.cuda.empty_cache()
@@ -4107,7 +4275,7 @@ def main() -> None:
          "decisions": decisions, "decision_launches": dlaunches,
          "train": train, "serve": serve, "long_rows": long_rows,
          "distributed": dist13, "dist_train": dist14,
-         "dist_compiled": dist15},
+         "dist_compiled": dist15, "analysis": analysis},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;

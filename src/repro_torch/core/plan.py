@@ -67,6 +67,8 @@ Public surface::
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -729,6 +731,25 @@ def _count_sum(a: Dict, b: Dict) -> Dict:
     return out
 
 
+@contextlib.contextmanager
+def capture_graph(graph, pool=None):
+    """``torch.cuda.graph(graph, pool=pool)`` with Python's cyclic garbage
+    collector paused for the capture.  A dead reference cycle can hold an
+    earlier capture's graph (a plan dropped from the cache keeps its
+    ``CompiledPlan``, and so its graphs, through plan <-> CompiledPlan);
+    if the collector ran mid-capture it would destroy that graph, which a
+    capturing stream does not permit, and the capture would be lost.
+    The cycle is freed at the collector's next run after the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _Captured:
     """One input signature's CUDA graphs: static buffers for the params
     leaves and the array arguments, the forward graph and its static
@@ -782,15 +803,15 @@ class _Captured:
                 self.first = first
                 counted = _Counted(mesh)
                 self.graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.graph):
+                with capture_graph(self.graph):
                     self.out = fn(_tree(self.leaves), *self.arrays)
                 self.backward_graph, self.grads = None, ()
                 if grad:
                     self.gout = torch.zeros_like(self.out,
                                                  requires_grad=False)
                     self.backward_graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(self.backward_graph,
-                                          pool=self.graph.pool()):
+                    with capture_graph(self.backward_graph,
+                                       pool=self.graph.pool()):
                         gs = iter(torch.autograd.grad(
                             self.out, wanted, self.gout, allow_unused=True))
                     self.grads = tuple(next(gs) if t.requires_grad else None

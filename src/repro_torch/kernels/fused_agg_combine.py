@@ -21,6 +21,12 @@ part is 0 and the bf16-W instances take two TF32 products, not three.
 
 ``fused_agg_combine`` is the wrapper: a tensor on the CPU takes
 ``fused_agg_combine_plain``, a CUDA tensor launches the kernel or raises.
+Both go through one opaque torch op, ``repro_torch::fused_agg_combine``
+(``fused_agg_combine_op``), whose fake implementation gives the output's
+shape and dtype alone, so a fake-tensor trace sees K2 as one node and
+launches nothing; the counts below move in its real body only.  An eager
+call outside any trace runs the body directly
+(``kernels.seg_agg.opaque_call``).
 ``fused_agg_combine.launches`` counts the launches,
 ``fused_agg_combine.launches_bf16`` those with a bf16 W among them and
 ``fused_agg_combine.launches_mixed`` those of the (f32, bf16) pair.  The
@@ -37,7 +43,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.seg_agg import (alignment, blocks_per_chunk,
-                                         fold_blocks_plain, launch_params)
+                                         fold_blocks_plain, launch_params,
+                                         opaque_call)
 
 #: per-block shared memory limit (opt-in) of the H100
 _H100_SMEM_OPTIN = 232448
@@ -179,13 +186,28 @@ def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
     a gradient (with grad mode on) raises ``NotImplementedError`` rather
     than cutting the gradient.  Train with unfused plans.
     """
-    if _is_cpu(x):
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if _is_cpu(x) and grad:
+        # the plain version is differentiable as it stands; the op is not
         return fused_agg_combine_plain(x, src, dstl, mask, w, tile_m=tile_m)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if grad:
         raise NotImplementedError(
             "fused_agg_combine has no backward on the card (ROADMAP §2: K2 "
             "backward for a fused training path); train with fused=False, "
             "whose aggregation K1 differentiates")
+    return opaque_call(torch.ops.repro_torch.fused_agg_combine.default,
+                       _fused_agg_combine_body, x, src, dstl, mask, w, tile_m)
+
+
+def _fused_agg_combine_body(x: torch.Tensor, src: torch.Tensor,
+                            dstl: torch.Tensor, mask: torch.Tensor,
+                            w: torch.Tensor, tile_m: int) -> torch.Tensor:
+    """The body of K2's opaque op ``repro_torch::fused_agg_combine``
+    (``fused_agg_combine_op``) for its three (x, W) pairs: on the CPU the
+    plain version, on a card the prepass and the kernel, and their
+    counts.  ``(nblocks * tile_m, F_out)`` in W's dtype."""
+    if _is_cpu(x):
+        return fused_agg_combine_plain(x, src, dstl, mask, w, tile_m=tile_m)
     out = _launch(x, src, dstl, mask, w, tile_m)
     fused_agg_combine.launches += 1
     if w.dtype == torch.bfloat16:
@@ -193,6 +215,17 @@ def fused_agg_combine(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
         if x.dtype == torch.float32:
             fused_agg_combine.launches_mixed += 1
     return out
+
+
+fused_agg_combine_op = torch.library.custom_op(
+    "repro_torch::fused_agg_combine", _fused_agg_combine_body,
+    mutates_args=())
+
+
+@fused_agg_combine_op.register_fake
+def _fused_agg_combine_fake(x, src, dstl, mask, w, tile_m):
+    pair_code(x.dtype, w.dtype)
+    return x.new_empty((src.shape[0] * tile_m, w.shape[-1]), dtype=w.dtype)
 
 
 def _launch(x, src, dstl, mask, w, tile_m: int, *, terms: int = 3,

@@ -44,6 +44,29 @@ def _check_tier(backend: str, x: torch.Tensor) -> None:
     require_device(backend, x.device)
 
 
+#: ONE remediation text shared by the ``seg_agg`` ValueError under a trace
+#: or a capture and the ``host-in-trace`` source rule
+#: (``repro_torch.analysis.ast_lint``), so the error a user hits and the
+#: finding a reviewer reads agree verbatim on the fix: route through the
+#: capture-safe planned entry points (``SEG_AGG_REMEDIATION``, :38).
+SEG_AGG_REMEDIATION = (
+    "seg_agg regroups edges on the host and cannot run inside a fake-tensor "
+    "trace or a CUDA-graph capture; dispatch the capture-safe "
+    "seg_agg_planned instead -- via a plan from build_plan, plan_for_conv, "
+    "or plan_for_phases (each owns a blocked layout), or call "
+    "seg_agg_planned directly with a core.dataflow.block_graph layout")
+
+
+def _tracing(*tensors) -> bool:
+    """True under a fake-tensor trace (a fake tensor argument or an active
+    ``FakeTensorMode``) or while the current CUDA stream is capturing."""
+    from torch._guards import detect_fake_mode
+    if detect_fake_mode(tensors) is not None:
+        return True
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def launch_counts() -> dict:
     """Launches so far of each kernel wrapper, by kernel name.  The counts
     are Python-side: a CUDA graph's replay moves none of them.
@@ -82,10 +105,15 @@ def seg_agg(rows: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
     ``tile_m`` rows on the host on every call (a device-to-host copy of
     ``seg_ids``), so it cannot run under a CUDA-graph capture; plans
     regroup once and call ``seg_agg_planned``.  Returns
-    ``(num_segments, F)`` in ``rows.dtype``."""
+    ``(num_segments, F)`` in ``rows.dtype``.  Under a fake-tensor trace or
+    a CUDA-graph capture it raises ``ValueError(SEG_AGG_REMEDIATION)``
+    before it touches the host (:82)."""
     from repro_torch.core.dataflow import block_graph_arrays
     _check_tier(backend, rows)
-    seg = seg_ids.cpu().numpy()
+    if _tracing(rows, seg_ids):
+        raise ValueError(SEG_AGG_REMEDIATION)
+    # the documented host path -- the guard above is the contract
+    seg = seg_ids.cpu().numpy()  # analysis: allow(host-in-trace)
     if len(seg) and not (np.diff(seg) >= 0).all():
         raise ValueError("seg_agg: seg_ids must be sorted (regroup the "
                          "edges by destination first)")

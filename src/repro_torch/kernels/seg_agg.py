@@ -15,7 +15,14 @@ entry ``seg_agg_bf16_f32``): a distributed layer's halo partials over a
 bf16 wire slab, which the reference accumulates in f32.
 
 ``seg_agg`` is the wrapper: a tensor on the CPU takes ``seg_agg_plain``, a
-CUDA tensor launches the kernel or raises.  It runs through the autograd
+CUDA tensor launches the kernel or raises.  Each fold goes through one of
+two opaque torch ops, ``repro_torch::seg_agg`` (``seg_agg_op``) and, with a
+row map, ``repro_torch::seg_agg_packed`` (``seg_agg_packed_op``), whose
+fake implementations give the output's shape and dtype alone: a
+fake-tensor trace (``make_fx``, ``repro_torch.analysis``) sees K1 as one
+node and launches nothing, and the counts below move in the ops' real
+bodies only.  An eager call outside any trace runs the body directly
+(``opaque_call``), without the op's dispatch cost.  It runs through the autograd
 Function ``SegAgg``, whose backward for ``x`` is the same fold over the
 transposed layout (``core.dataflow``)::
 
@@ -289,43 +296,140 @@ def _entry(kernel: str, dtype: torch.dtype,
                     f"of x's dtype, or bf16 with an f32 output")
 
 
+#: the tensor types an eager call may hand a kernel's body directly
+_PLAIN_TENSORS = (torch.Tensor, torch.nn.Parameter)
+
+
+def opaque_call(op, body, *args):
+    """Call a kernel through its opaque op (``op``) where a tracer can see
+    it -- under a dispatch mode (a fake-tensor or proxy trace), inside
+    ``torch.compile``, or with a tensor subclass (a fake tensor) among the
+    arguments -- and its body directly otherwise: the same function,
+    without the custom op's dispatch cost, which an eager many-launch path
+    (a halo's K1 over shard sub-layouts, K1's backward over their
+    transposed ones) would pay on every launch (PERF.md §6 measures it on
+    the H100's host)."""
+    if torch._C._len_torch_dispatch_stack() or \
+            torch.compiler.is_compiling() or \
+            any(isinstance(a, torch.Tensor) and
+                type(a) not in _PLAIN_TENSORS for a in args):
+        return op(*args)
+    return body(*args)
+
+
 def _fold(x, src, dstl, mask, weight, tile_m: int, *,
           backward: bool = False,
           out_dtype: Optional[torch.dtype] = None,
           out: Optional[torch.Tensor] = None,
           out_rows: Optional[torch.Tensor] = None, split_from: int = 0,
           plain: bool = False) -> torch.Tensor:
-    """One fold: the plain version on the CPU (or when ``plain``), the
-    kernel on a card (a ``backward`` one counted in
-    ``seg_agg.launches_bwd`` too: without a row map narrow slices, CTAs
-    block by block; with one ``packed_launch``'s).  With ``out_rows``
-    block row m of block b goes to row ``out_rows[b, m]`` of ``out``
-    (-1: nowhere), and ``out`` is returned."""
-    if plain or x.device.type == "cpu":
-        rows = seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
-                             out_dtype=out_dtype)
-        if out_rows is None:
-            return rows
-        to = out_rows.reshape(-1).long()
-        keep = to >= 0
-        out[to[keep]] = rows[keep]
-        return out
-    f = x.shape[-1]
-    elt, align = x.element_size(), alignment(x)
-    split = None
-    if out_rows is not None:
-        width, blocks_first = packed_launch(f, elt, align)
-        split = packed_split(src.shape[1], tile_m)
+    """One fold: the plain version when ``plain``, else K1's opaque op
+    (``seg_agg_op``, or ``seg_agg_packed_op`` with a row map; its body
+    directly outside a trace, ``opaque_call``), which runs the plain
+    version on the CPU and the kernel on a card (a ``backward``
+    one counted in ``seg_agg.launches_bwd`` too: without a row map narrow
+    slices, CTAs block by block; with one ``packed_launch``'s).  With
+    ``out_rows`` block row m of block b goes to row ``out_rows[b, m]`` of
+    ``out`` (-1: nowhere), and ``out`` is returned."""
+    if out_rows is None:
+        if plain:
+            return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
+                                 out_dtype=out_dtype)
+        return opaque_call(torch.ops.repro_torch.seg_agg.default,
+                           _seg_agg_body, x, src, dstl, mask, weight, tile_m,
+                           backward, out_dtype)
+    if out_dtype not in (None, out.dtype):
+        raise TypeError(f"seg_agg: a {out_dtype} fold stored into a "
+                        f"{out.dtype} out")
+    if plain:
+        _store_plain(x, src, dstl, mask, weight, out, out_rows, tile_m)
     else:
-        width = backward_slice_cols(f, elt, align) if backward \
-            else slice_cols(f)
-        blocks_first = backward
+        opaque_call(torch.ops.repro_torch.seg_agg_packed.default,
+                    _seg_agg_packed_body, x, src, dstl, mask, weight, out,
+                    out_rows, tile_m, split_from, backward)
+    return out
+
+
+def _store_plain(x, src, dstl, mask, weight, out, out_rows,
+                 tile_m: int) -> None:
+    """A packed fold's plain version: every block row with a destination
+    in ``out_rows`` stored into that row of ``out``."""
+    rows = seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
+                         out_dtype=out.dtype)
+    to = out_rows.reshape(-1).long()
+    keep = to >= 0
+    out[to[keep]] = rows[keep]
+
+
+def _seg_agg_body(x: torch.Tensor, src: torch.Tensor, dstl: torch.Tensor,
+                  mask: torch.Tensor, weight: Optional[torch.Tensor],
+                  tile_m: int, backward: bool,
+                  out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The body of K1's opaque op ``repro_torch::seg_agg`` (``seg_agg_op``):
+    the fold, ``(nblocks * tile_m, F)`` in ``out_dtype`` (default x's): on
+    the CPU the plain version, on a card
+    one launch (``backward``: ``backward_slice_cols``'s slices, CTAs block
+    by block; else ``slice_cols``'s) and its counts.  Its fake
+    implementation gives the shape and dtype alone, so a fake-tensor trace
+    (``repro_torch.analysis``) sees one node and launches nothing."""
+    if x.device.type == "cpu":
+        return seg_agg_plain(x, src, dstl, mask, weight, tile_m=tile_m,
+                             out_dtype=out_dtype)
+    f = x.shape[-1]
+    width = backward_slice_cols(f, x.element_size(), alignment(x)) \
+        if backward else slice_cols(f)
     out = _launch(x, src, dstl, mask, weight, tile_m, width,
-                  blocks_first=blocks_first, out_dtype=out_dtype, out=out,
-                  out_rows=out_rows, split_from=split_from, split=split)
+                  blocks_first=backward, out_dtype=out_dtype)
     if backward:
         seg_agg.launches_bwd += 1
     return out
+
+
+seg_agg_op = torch.library.custom_op("repro_torch::seg_agg", _seg_agg_body,
+                                     mutates_args=())
+
+
+@seg_agg_op.register_fake
+def _seg_agg_fake(x, src, dstl, mask, weight, tile_m, backward, out_dtype):
+    _entry("seg_agg", x.dtype, out_dtype)
+    return x.new_empty((src.shape[0] * tile_m, x.shape[-1]),
+                       dtype=out_dtype or x.dtype)
+
+
+def _seg_agg_packed_body(x: torch.Tensor, src: torch.Tensor,
+                         dstl: torch.Tensor, mask: torch.Tensor,
+                         weight: Optional[torch.Tensor], out: torch.Tensor,
+                         out_rows: torch.Tensor, tile_m: int,
+                         split_from: int, backward: bool) -> None:
+    """The body of K1's opaque op ``repro_torch::seg_agg_packed``
+    (``seg_agg_packed_op``): the packed fold (a row map ``out_rows``, over
+    a capped transposed layout), stored into ``out`` in ``out``'s dtype:
+    on the CPU the plain version, on a card one launch with
+    ``packed_launch``'s slices and ``packed_split``'s threshold, the rows
+    stored at or after ``split_from`` split.  Its fake implementation
+    stores nothing."""
+    if x.device.type == "cpu":
+        _store_plain(x, src, dstl, mask, weight, out, out_rows, tile_m)
+        return
+    width, blocks_first = packed_launch(x.shape[-1], x.element_size(),
+                                        alignment(x))
+    _launch(x, src, dstl, mask, weight, tile_m, width,
+            blocks_first=blocks_first, out_dtype=out.dtype, out=out,
+            out_rows=out_rows, split_from=split_from,
+            split=packed_split(src.shape[1], tile_m))
+    if backward:
+        seg_agg.launches_bwd += 1
+
+
+seg_agg_packed_op = torch.library.custom_op(
+    "repro_torch::seg_agg_packed", _seg_agg_packed_body,
+    mutates_args=("out",))
+
+
+@seg_agg_packed_op.register_fake
+def _seg_agg_packed_fake(x, src, dstl, mask, weight, out, out_rows, tile_m,
+                         split_from, backward):
+    _entry("seg_agg", x.dtype, out.dtype)
 
 
 def fold_transposed(g: torch.Tensor, t, weight: Optional[torch.Tensor] = None,

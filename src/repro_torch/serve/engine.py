@@ -147,8 +147,9 @@ class ServeEngine(SlotServeCore):
         second, replayed after."""
         self._tokens.copy_(torch.from_numpy(self._last_tokens))
         if self._graph is None and self.decode_graph and self._steps > 0:
+            from repro_torch.core.plan import capture_graph
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with capture_graph(graph):
                 logits = self._decode_body()
             self._graph = (graph, logits)
             self.decode_captures += 1

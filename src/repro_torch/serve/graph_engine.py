@@ -54,6 +54,7 @@ Example (CPU)::
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -323,7 +324,12 @@ class GraphServeEngine(SlotServeCore):
         first-use costs of those stages here, so first-request latency is
         honest; none of it counts in the stats (stage times, latencies,
         hits, misses) or as a trace.  Then sweeps the plan cache down to
-        the bucket plans (``clear_plan_cache(keep=...)``).  Idempotent;
+        the bucket plans (``clear_plan_cache(keep=...)``) and runs the
+        garbage collector: a swept plan and its compiled callable form a
+        reference cycle that holds device memory and CUDA graphs, and the
+        captures ran with the collector paused (``core.plan.
+        capture_graph``), so that collection is paid here, not by the
+        first request.  Idempotent;
         returns ``{bucket-name: num_traces}``, every value 1 after a
         warm-up and through serving (the zero-retrace contract)."""
         self._capture_buckets()
@@ -333,6 +339,7 @@ class GraphServeEngine(SlotServeCore):
                 self._warm_request(b, rng)
             self.stage_ms = {}
         clear_plan_cache(keep=list(self._plans.values()))
+        gc.collect()
         self._cache_sweeps += 1
         self._warmed = True
         return {self._bucket_name(b): self._fns[b].num_traces
@@ -346,8 +353,10 @@ class GraphServeEngine(SlotServeCore):
                 t = plan.g
                 x = torch.zeros((b.num_inputs, self.in_dim),
                                 dtype=torch.float32, device=self.device)
-                layout = self._layout(plan, b, t.src.cpu().numpy(),
-                                      t.dst.cpu().numpy())
+                # the template's edges regrouped on the host, before its
+                # capture  # analysis: allow(host-in-trace)
+                src, dst = t.src.cpu().numpy(), t.dst.cpu().numpy()
+                layout = self._layout(plan, b, src, dst)
                 with torch.no_grad():
                     fn(self.params, x, t, layout=layout)
 

@@ -256,7 +256,7 @@ def test_k2_raises_under_grad_on_card(monkeypatch):
     monkeypatch.setattr(k2.fused_agg_combine, "launches", 0)
     launched = []
     monkeypatch.setattr(k2, "_launch",
-                        lambda *a, **kw: launched.append(1) or a[0])
+                        lambda *a, **kw: launched.append(1) or a[0].clone())
     bg = _layout(False)
     x = torch.zeros((TG.num_vertices, 8))
     w = torch.zeros((8, 4), requires_grad=True)

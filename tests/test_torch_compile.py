@@ -361,3 +361,27 @@ def test_dynamic_compile_under_grad_raises():
     with torch.no_grad():
         fn(m.tree(), TX, TG2)
     assert fn.num_traces == 1
+
+
+def test_capture_graph_pauses_the_collector(monkeypatch):
+    """``capture_graph`` runs ``torch.cuda.graph`` with the cyclic garbage
+    collector off (a dead cycle's graph freed mid-capture would invalidate
+    the capture) and turns it back on after, also when the capture
+    raises."""
+    import contextlib
+    import gc
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None):
+        seen.append((gc.isenabled(), g, pool))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    with tplan.capture_graph("g", pool="p"):
+        seen.append(gc.isenabled())
+    assert seen == [(False, "g", "p"), False] and gc.isenabled()
+    with pytest.raises(RuntimeError, match="inside"):
+        with tplan.capture_graph("g"):
+            raise RuntimeError("inside")
+    assert gc.isenabled()

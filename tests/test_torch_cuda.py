@@ -1508,3 +1508,160 @@ def test_captured_mesh_plan_bitwise_eager(card, shape, strategy, overlap,
                     for lay in tl[mesh.index(crd, node_ax)])
     assert fn.capture_launches["seg_agg_bwd"] == 2 * per_layer
     assert fn.num_traces == 2
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 as opaque torch ops; repro_torch.analysis on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_seg_agg_op_real_body_matches_plain(card, dtype, out_dtype,
+                                            backward):
+    """K1's op launches the kernel once (a backward one counted as such)
+    and agrees with the plain version; its fake gives the same shape and
+    dtype and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    spec, g, x = card
+    bg = block_graph_arrays(g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                            spec.num_vertices, 128, device="cuda")
+    xd = x.to(dtype)
+    args = (xd, bg.src, bg.dstl, bg.mask, None, 128, backward, out_dtype)
+    before = ops.launch_counts()
+    got = torch.ops.repro_torch.seg_agg(*args)
+    moved = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert moved["seg_agg"] == 1 and moved["seg_agg_bwd"] == int(backward)
+    want = k1.seg_agg_plain(xd, bg.src, bg.dstl, bg.mask, tile_m=128,
+                            out_dtype=out_dtype)
+    assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    _close(got, want, BF16_TOL if got.dtype == torch.bfloat16 else TOL)
+    before = ops.launch_counts()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = torch.ops.repro_torch.seg_agg(*args)
+    assert (fake.shape, fake.dtype) == (want.shape, want.dtype)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("xd,wd", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.bfloat16)])
+def test_fused_agg_combine_op_real_body_matches_plain(card, xd, wd):
+    spec, g, x = card
+    bg = block_graph_arrays(g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                            spec.num_vertices, 64, device="cuda")
+    w = (torch.randn((spec.feature_len, 48), device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(0))
+         / spec.feature_len ** 0.5).to(wd)
+    before = ops.launch_counts()
+    got = torch.ops.repro_torch.fused_agg_combine(x.to(xd), bg.src, bg.dstl,
+                                                  bg.mask, w, 64)
+    moved = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    assert moved["fused_agg_combine"] == 1
+    assert moved["fused_agg_combine_mixed"] == int(xd != wd)
+    want = k2.fused_agg_combine_plain(x.to(xd), bg.src, bg.dstl, bg.mask, w,
+                                      tile_m=64)
+    assert (got.shape, got.dtype) == (want.shape, want.dtype)
+    _close(got, want, BF16_TOL if wd == torch.bfloat16 else TOL)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_analysis_traces_card_plans_without_launching(card, fused):
+    """A fake-tensor trace of a cuda-tier plan on the card: K1 (K2 when
+    fused) one opaque node a layer, no launch, no finding; the donation
+    rule on its captured compile(donate=True) and compile() holds, and a
+    donate=True claim over compile()'s fresh replays fires."""
+    from repro_torch.analysis import trace_lint as tl
+    spec, g, x = card
+    m = make_paper_model("gcn", spec, device="cuda", fused=fused,
+                         generator=torch.Generator().manual_seed(0))
+    plan = m.plan_for(g)
+    before = ops.launch_counts()
+    tr = tl.trace(lambda p, xx: plan.run_model(p, xx), m.tree(), x)
+    assert ops.launch_counts() == before
+    kern = "repro_torch.fused_agg_combine" if fused else \
+        "repro_torch.seg_agg"
+    assert [op.packet for op in tr.ops].count(kern) == plan.num_layers
+    assert tl.lint_plan(plan, params=m.tree(), x=x).ok(strict=False)
+    rep = tl.lint_plan(plan, params=m.tree(), x=x, donate=True)
+    assert not rep.findings, rep.render()
+    first, second, captured = tl.donation_replays(plan, m.tree(), x, False)
+    assert captured
+    from repro_torch.analysis.report import AnalysisReport
+    bad = AnalysisReport()
+    tl.check_donation(first, second, True, "claimed", bad)
+    assert [f.rule for f in bad.findings] == ["donation"]
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+def test_analysis_mesh_capture_collectives(card, shape):
+    """A mesh plan's bytes across a fake trace and in its capture equal
+    schedule_wire_bytes (lint_plan holds both), with no launch in the
+    trace."""
+    from repro_torch.analysis import trace_lint as tl
+    from repro_torch.core.distributed import LocalMesh
+    spec, g, x = card
+    axes = ("data",) if len(shape) == 1 else ("node", "feat")
+    mesh = LocalMesh(shape, axes)
+    m = make_paper_model("gcn", spec, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    plan = m.plan_for(g, mesh=mesh, overlap="pipelined")
+    before = ops.launch_counts()
+    tr = tl.trace(lambda p, xx: plan.run_model(p, xx), m.tree(), x,
+                  mesh=mesh)
+    assert ops.launch_counts() == before
+    assert tr.collectives == tl.plan_expected_collectives(plan)
+    rep = tl.lint_plan(plan, params=m.tree(), x=x, donate=True)
+    assert not rep.findings, rep.render()
+    got = plan.compile(donate=True).capture_collectives
+    want = tl.plan_expected_collectives(plan)
+    assert {p: got[tl.MESH_NAMES[p]] for p in tl.COLLECTIVE_PRIMS} == want
+
+
+def test_seg_agg_raises_under_capture(card):
+    """The slow host path refuses a CUDA-graph capture before its host
+    copy, with the remediation text."""
+    spec, g, x = card
+    rows = x[g.src.long()]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with pytest.raises(ValueError) as ei:
+            with torch.cuda.graph(graph):
+                ops.seg_agg(rows, g.dst, spec.num_vertices, backend="cuda")
+    torch.cuda.current_stream().wait_stream(side)
+    assert str(ei.value) == ops.SEG_AGG_REMEDIATION
+
+
+def test_capture_survives_a_dead_graph_in_a_cycle(card):
+    """A reference cycle that holds a captured graph, dropped before a
+    capture: with the collector set to run at every allocation the
+    capture still succeeds (``capture_graph`` pauses the collector; a
+    graph destroyed mid-capture invalidates the capture) and replays."""
+    import gc
+    spec, g, x = card
+
+    class Holder:
+        pass
+
+    h = Holder()
+    h.me = h
+    h.graph = torch.cuda.CUDAGraph()
+    with tplan.capture_graph(h.graph):
+        h.out = x * 2.0
+    del h
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with tplan.capture_graph(graph):
+            out = x + 1.0
+            junk = [[i] for i in range(1000)]
+        assert gc.isenabled() and junk
+    finally:
+        gc.set_threshold(*old)
+    graph.replay()
+    _close(out, x + 1.0, 0.0)

@@ -71,6 +71,20 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_analysis_is_covered_and_defaults_to_cuda(monkeypatch):
+    """``repro_torch.analysis`` is among the files held to the rules above,
+    and its runner, an entry point of the port, raises without a card."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "analysis" in p.parts}
+    assert {"analysis/__init__.py", "analysis/__main__.py",
+            "analysis/report.py", "analysis/trace_lint.py",
+            "analysis/ast_lint.py", "analysis/selftest.py"} <= names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.analysis.__main__ import main
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        main([])
+
+
 def test_default_device_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cuda'"):
