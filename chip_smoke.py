@@ -101,25 +101,34 @@ Phases, each printing its own lines; any failure exits non-zero:
  11. train   -- (right after phase 10) minibatch GraphSAGE training on
                 Reddit at GraphSAGE's setting (602 -> 128 -> 41, batch
                 512, fanouts 25/10, f32) through PlannedSageTrainer on
-                the cuda tier: K1's backward (K1 over the first block's
-                transposed layout) at F=128 and F=41 against the plain
-                version's autograd per row, two launches bit for bit, its
-                time beside its bound and torch.sparse.mm on the
-                transposed CSR (and both on the device alone, CUDA-graph
-                replays), the split threshold, split rows and chunks, the
-                bytes K1's row_starts reads; step 0's loss and each gradient leaf
-                against a torch-tier step on the same block, within the
-                band of the leaf's own largest magnitude; 20 steps with dedup "none" and 20 with "pairs"
-                (finite losses, K1's forward and backward launches per
-                step as the plan's ordering implies), what "auto"
-                resolves to; 10 steps, a checkpoint, a fresh trainer
-                restored and 10 more, bit for bit the uninterrupted run;
-                predict through compile(dynamic=True): one capture, every
-                replay bit for bit the eager forward; a few steps of the
+                the cuda tier, each step one replay of the bucket's
+                captured step (forward, mean NLL, backward, SGD update in
+                place): K1's backward (K1 over the first block's capped
+                transposed layout at the bucket's capacity: the pieces,
+                then the fold-back) at F=128 and F=41 against the plain
+                version's autograd per row, two launches a fold, repeat
+                launches bit for bit, its time beside its bound and
+                torch.sparse.mm on the transposed CSR (and both on the
+                device alone, CUDA-graph replays); step 0's loss and each
+                gradient leaf against a torch-tier step on the same
+                block, within the band of the leaf's own largest
+                magnitude; 20 steps with dedup "none" and 20 with
+                "pairs", each beside the eager step (loss_and_grads,
+                _sgd) of a second trainer from the same state on the same
+                block: one capture, no retrace, every loss and parameter
+                bit for bit, K1's launches on the host only at the
+                capture (and its warm-up), none at a replay, and the
+                captured K1 kernels counted in a profiled replayed step;
+                what "auto" resolves to; 10 captured steps, a checkpoint,
+                a fresh trainer restored and 10 more, bit for bit the
+                uninterrupted run; predict through compile(dynamic=True):
+                one capture, every replay bit for bit the eager forward;
+                the step's replay alone (CUDA events); a few steps of the
                 per-block train_minibatch_sage.  Per step: host ms of
                 sampling, union and padding, layouts, dedup matching and
-                the feature gather, the step's wall ms; over a profiled
-                window the device's busy ms per step and idle share; peak
+                the feature gather, the step's wall ms, captured beside
+                eager; over profiled windows of 3 captured and 3 eager
+                steps the device's busy ms per step and idle share; peak
                 memory.
  12. serve   -- (right after phase 11) first, in two fresh processes
                 (chip_smoke.py --serve-fresh), one gcn/A engine warmed by
@@ -238,8 +247,22 @@ Phases, each printing its own lines; any failure exits non-zero:
                 bit for bit the eager forward and the capture's bytes as
                 scheduled; cells, errors, warnings, info, traced launches
                 and the phase's seconds.
+ 17. paper   -- (right after phase 16, on the same Reddit graph) the
+                two paper launchers' functions: repro_torch.launch.
+                gcn_phase_ordering over the whole of Reddit at 602 -> 128
+                (the analytic data and operation reductions of Table 4
+                beside the paper's 4.75x / 4.72x, the planner's decision,
+                combine-first and aggregate-first timed with CUDA events,
+                their speedup beside the paper's measured 4.76x, the fused
+                plan through K2 against the unfused plan in the f32 band,
+                K1 and K2 launched) and repro_torch.launch.quickstart on
+                its reduced Cora (the characterization, the V100 report,
+                plan.compile()'s forward bit for bit the report's output,
+                120 SGD steps through plan.compile() under autograd: one
+                trace a signature, the loss falling).
 
-The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 5-7.  The
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7.
+The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
 table is also written to chiprun_out/chip_smoke.json.
@@ -355,8 +378,9 @@ TRAIN_KW = dict(hidden=128, batch_size=512, fanouts=(25, 10), lr=0.1,
 #: phase 11: steps per training run, and the step the resume splits at
 TRAIN_STEPS = 20
 RESUME_AT = 10
-#: phase 11: steps of the none run traced by torch.profiler
-TRAIN_PROFILE = (5, 8)
+#: phase 11: steps of each run traced by torch.profiler after its checked
+#: steps, captured and eager alike
+TRAIN_PROFILE = 3
 #: phase 11: K1's backward against the plain version's autograd, per row
 #: (K1's f32 limit): each row's largest error over that row's largest
 #: magnitude
@@ -375,6 +399,8 @@ LONG_ROWS = {
                         5: 2}, {7: 50000, 8: 20},
                        {r: r for r in range(32)}]),
 }
+#: phase 17: timed calls of each ordering's plan over Reddit
+PAPER_ITERS = 5
 #: phase 12: the first request after warmup() in a fresh process may take
 #: at most this many times the median service time of the later ones
 WARM_LIMIT = 2.0
@@ -1425,31 +1451,13 @@ def drive_decisions(models, g, x, forwards):
     return out, launches
 
 
-def row_starts_bytes(mask) -> int:
-    """Bytes K1's row_starts kernel reads over a layout whose ``mask`` (a
-    host array, blocks by slots) is given: the mask probes of its search
-    for n_valid (kThreads a round at a stride, csrc/seg_agg.cu) and dstl
-    over the valid slots."""
-    import numpy as np
-    emax, total = mask.shape[1], 0
-    for nv in (mask != 0).sum(1).tolist():
-        lo, hi = 0, emax
-        while lo < hi:
-            step = -(-(hi - lo) // 256)
-            probes = -(-(hi - lo) // step)
-            k = min(probes, -(-(nv - lo) // step)) if nv > lo else 0
-            total += probes
-            lo, hi = (lo + (k - 1) * step + 1 if k else lo,
-                      min(hi, lo + k * step))
-        total += nv
-    return 4 * int(np.int64(total))
-
-
 def check_k1_backward(tr, prep, f: int):
-    """Phase 11 (1): K1's backward at width ``f`` -- K1 over the first
-    block's transposed layout, through its autograd Function -- against
-    the plain version's autograd on the same card, per row; two launches
-    bit for bit; time of the backward fold, of the plain version's and of
+    """Phase 11 (1): K1's backward at width ``f`` as the captured step
+    runs it -- K1 over the first block's capped transposed layout at the
+    bucket's capacity (the pieces, then the fold-back, empty or not),
+    through its autograd Function -- against the plain version's autograd
+    on the same card, per row; two launches a gradient, repeat launches
+    bit for bit; time of the fold, of the plain version's and of
     torch.sparse.mm on the transposed CSR, and the bound.  Returns the
     record."""
     import numpy as np
@@ -1457,7 +1465,7 @@ def check_k1_backward(tr, prep, f: int):
     from repro_torch.kernels import seg_agg as k1
 
     _, _, bg, _ = tr._inputs(prep)
-    t = bg.transposed
+    t, fb = bg.transposed, bg.transposed.fold
     dev = tr.device
     rows = tr.bucket.num_inputs
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1481,25 +1489,16 @@ def check_k1_backward(tr, prep, f: int):
     mag = want.abs().amax(-1)
     row = float((diff / torch.clamp(mag, min=1e-30)).max().item())
     err = float(diff.max().item())
-    if launched != 2:
-        fail(f"K1 backward launched {launched} times for two gradients")
+    if launched != 4:
+        fail(f"K1 backward launched {launched} times for two gradients "
+             f"(the pieces and the fold-back each)")
     if not torch.equal(got, again):
         fail("K1 backward: two launches on the same input differ")
     if not bool((diff <= K1_BWD_ROW_LIMIT * mag).all().item()):
         fail(f"K1 backward: a row off the plain version's autograd by "
              f"{row:.3e} of its scale (limit {K1_BWD_ROW_LIMIT:.0e})")
-    # the fold the backward runs, alone: gout gathered over the transposed
-    # layout into the x rows (narrow slices, CTAs block by block); beside
-    # it the forward's schedule over the same layout (wide slices, slice by
-    # slice), which must give the same sums
-    fold = lambda: k1._fold(gout, t.src, t.dstl, t.mask,  # noqa: E731
-                            None, t.tile_m, backward=True)
-    slices_first = lambda: k1._launch(  # noqa: E731
-        gout, t.src, t.dstl, t.mask, None, t.tile_m, k1.slice_cols(f))
-    if not torch.equal(fold(), slices_first()):
-        fail("K1 backward: its schedule changes the sums")
-    plain = lambda: k1.seg_agg_plain(gout, t.src, t.dstl,  # noqa: E731
-                                     t.mask, tile_m=t.tile_m)
+    fold = lambda: k1.fold_transposed(gout, t)  # noqa: E731
+    plain = lambda: k1.fold_transposed(gout, t, plain=True)  # noqa: E731
     e = prep["edges"]
     src, dst = prep["src"][:e].astype(np.int64), prep["dst"][:e]
     order = np.argsort(src, kind="stable")
@@ -1512,63 +1511,46 @@ def check_k1_backward(tr, prep, f: int):
     library = lambda: torch.sparse.mm(adj_t, gout)  # noqa: E731
     lib_err = (library()[:rows] - want).abs().max().item()
     # the function's bytes: the gout rows its edges read, the x rows it
-    # writes, and src, dstl and mask of its e edges; the layout's pad
-    # slots are the kernel's cost, not the function's
+    # writes, and src, dstl and mask of its e edges; the capacity's pad
+    # slots and the fold-back are the kernel's cost, not the function's
     gathered = len(np.unique(dst))
     nbytes = (gathered * f + rows * f + 3 * e) * 4
-    pad_bytes = 3 * (t.src.numel() - e) * 4
+    pad_bytes = 3 * (t.src.numel() + fb.src.numel() - e) * 4
     ops = e * f
     b_ms, b_by = bound(nbytes, ops)
-    # the row split: rows of more than T slots fold as chunks; what
-    # row_starts reads now, beside the whole layout it read before
-    mask = t.mask.cpu().numpy()
-    lengths = np.zeros(t.nblocks * t.tile_m, np.int64)
-    blk, slot = np.nonzero(mask)
-    np.add.at(lengths, blk * t.tile_m + t.dstl.cpu().numpy()[blk, slot], 1)
-    thresh = k1.split_threshold(t.emax)
-    split = int((lengths > thresh).sum())
-    per_block = lengths.reshape(t.nblocks, t.tile_m)
-    chunks = [e - s for b in np.nonzero((per_block > thresh).any(1))[0]
-              for _, s, e, o in k1.chunk_plan(per_block[b].tolist(), t.emax)
-              if o >= 0]
-    rs_bytes = row_starts_bytes(mask)
+    cut = int((fb.out_rows >= 0).sum().item())
+    scratch_used = int((fb.mask != 0).sum().item())
     rec = {"name": "seg_agg_bwd", "graph": "reddit-train-block0",
            "f_in": f, "f_out": f, "tile_m": t.tile_m, "nblocks": t.nblocks,
            "emax": t.emax, "forward_emax": bg.emax, "edges": e,
+           "fold_nblocks": fb.nblocks, "fold_emax": fb.emax,
+           "scratch_rows": fb.num_vertices, "cut_rows": cut,
+           "scratch_rows_used": scratch_used,
            "max_abs_err": err, "row_rel_err": row,
            "library_max_abs_err": lib_err,
-           "ms": time_ms(fold, 10), "slices_first_ms": time_ms(
-               slices_first, 10), "plain_ms": time_ms(plain, 2),
+           "ms": time_ms(fold, 10), "plain_ms": time_ms(plain, 2),
            "library_ms": time_ms(library, 10),
            "device_ms": replay_ms(fold), "library_device_ms":
-           replay_ms(library), "slice_cols": k1.backward_slice_cols(
-               f, 4, k1.alignment(gout)),
+           replay_ms(library), "slice_cols": k1.packed_launch(
+               f, 4, k1.alignment(gout))[0],
+           "split_threshold": k1.packed_split(t.emax, t.tile_m),
            "bytes": nbytes, "ops": ops,
-           "pad_slot_bytes": pad_bytes, "bound_ms": b_ms, "bound_by": b_by,
-           "split_threshold": thresh, "split_rows": split,
-           "chunks": len(chunks), "longest_chunk": max(chunks, default=0),
-           "longest_row": int(lengths.max()),
-           "row_starts_bytes": rs_bytes,
-           "row_starts_bytes_whole_layout": 8 * t.src.numel()}
+           "pad_slot_bytes": pad_bytes, "bound_ms": b_ms, "bound_by": b_by}
     rec.update(ratios(rec))
-    print(f"[train] K1 backward block 0 F={f}: transposed layout "
-          f"{t.nblocks}x{t.emax} (forward {bg.nblocks}x{bg.emax}), {e} "
-          f"edges; max_abs_err={err:.3e} row_rel_err={row:.3e} (limit "
-          f"{K1_BWD_ROW_LIMIT:.0e}); ms={rec['ms']:.4f} ({rec['slice_cols']}"
-          f"-column slices block by block; {k1.slice_cols(f)}-column slice "
-          f"by slice {rec['slices_first_ms']:.4f}) plain_ms="
-          f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-          f"(torch.sparse.mm, transposed CSR; max_abs_err {lib_err:.3e}) "
-          f"bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, {ops} ops; the "
-          f"layout's pad slots {pad_bytes} B more) "
-          f"frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
-          f"{rec['vs_library']:.3f}; row split: T = {thresh}, {split} "
-          f"split rows (longest {rec['longest_row']} slots) in "
-          f"{len(chunks)} chunks (longest {rec['longest_chunk']}), row_starts "
-          f"reads {rs_bytes} B (the whole layout's mask and dstl: "
-          f"{rec['row_starts_bytes_whole_layout']} B); "
-          + ("faster" if rec["ms"] < rec["library_ms"] else "NOT faster")
-          + f" than torch.sparse.mm; device time (CUDA-graph replays, no "
+    print(f"[train] K1 backward block 0 F={f}: capped transposed layout at "
+          f"the bucket's capacity {t.nblocks}x{t.emax} + fold-back "
+          f"{fb.nblocks}x{fb.emax} over {fb.num_vertices} scratch rows "
+          f"({cut} rows cut into {scratch_used} pieces; forward "
+          f"{bg.nblocks}x{bg.emax}), {e} edges; max_abs_err={err:.3e} "
+          f"row_rel_err={row:.3e} (limit {K1_BWD_ROW_LIMIT:.0e}); "
+          f"ms={rec['ms']:.4f} (two packed launches, "
+          f"{rec['slice_cols']}-column slices, split threshold "
+          f"{rec['split_threshold']}) plain_ms={rec['plain_ms']:.4f} "
+          f"library_ms={rec['library_ms']:.4f} (torch.sparse.mm, transposed "
+          f"CSR; max_abs_err {lib_err:.3e}) bound_ms={b_ms:.4f} ({b_by}; "
+          f"{nbytes} B, {ops} ops; the capacity's pad slots {pad_bytes} B "
+          f"more) frac_of_bound={rec['frac_of_bound']:.4f} vs_library="
+          f"{rec['vs_library']:.3f}; device time (CUDA-graph replays, no "
           f"host) {rec['device_ms']:.4f} against torch.sparse.mm's "
           f"{rec['library_device_ms']:.4f}", flush=True)
     del adj_t, gout, x, got, again, want
@@ -1589,72 +1571,138 @@ def kernel_window(name: str, prof, wall_ms: float, n: int) -> dict:
     events = events.get("traceEvents", events)
     kern = [e for e in events if e.get("cat") == "kernel"]
     busy = sum(e["dur"] for e in kern) / 1e3
-    k1 = sum(e["dur"] for e in kern
-             if "fold_kernel" in e.get("name", "")
-             or "row_starts_kernel" in e.get("name", "")) / 1e3
+    k1 = [e for e in kern if "fold_kernel" in e.get("name", "")
+          or "row_starts_kernel" in e.get("name", "")]
     return {"n": n, "wall_ms": wall_ms / n, "device_busy_ms": busy / n,
-            "k1_ms": k1 / n, "kernels": len(kern) / n,
+            "k1_ms": sum(e["dur"] for e in k1) / 1e3 / n,
+            "k1_kernels": len(k1) / n, "kernels": len(kern) / n,
             "idle_share": 1 - busy / wall_ms if kern else None}
 
 
-def train_run(tr, steps: int, expect: dict, label: str,
-              profile_steps=None) -> dict:
-    """``steps`` steps of a trainer with K1's launches checked per step
-    against ``expect``; host ms per stage, step wall ms, and over
-    ``profile_steps`` (a range) the device's busy ms and idle share from
-    a torch.profiler trace.  Returns the measurements."""
+def eager_step(tr) -> tuple:
+    """The eager step of trainer ``tr`` on its pipeline's next block
+    (``loss_and_grads`` and ``_sgd``, what a captured step is held to),
+    timed as ``PlannedSageTrainer.step`` times its stages.  Returns (loss,
+    host ms per stage)."""
+    import torch
+    from repro_torch.models.sage_minibatch import _sgd
+    t0 = time.perf_counter()
+    batch = tr.pipeline.batch_at(tr.pipeline.step)
+    tr.pipeline.step += 1
+    t1 = time.perf_counter()
+    prep = tr._prepare(batch)
+    t2 = time.perf_counter()
+    loss, grads = tr.loss_and_grads(prep)
+    _sgd(list(tr.model.parameters()), grads, tr.lr)
+    value = loss.item()
+    torch.cuda.synchronize()
+    tr.losses.append(value)
+    return value, dict(tr.stage_ms, sample=(t1 - t0) * 1e3,
+                       union=(t2 - t1) * 1e3,
+                       step=(time.perf_counter() - t0) * 1e3)
+
+
+def same_state(tr, ref) -> bool:
+    """Every parameter of two trainers equal bit for bit."""
+    import torch
+    return all(torch.equal(p, q) for p, q in zip(tr.model.parameters(),
+                                                ref.model.parameters()))
+
+
+def profiled(name: str, n: int, fn) -> dict:
+    """``fn()`` ``n`` times under torch.profiler: ``kernel_window``'s
+    per-call numbers (trace in chiprun_out/traces/<name>.json)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return kernel_window(name, prof, wall, n)
+
+
+def train_run(tr, ref, steps: int, capture: dict, label: str) -> dict:
+    """``steps`` steps of trainer ``tr`` through its captured step, each
+    beside the eager step of ``ref`` from the same state on the same
+    block: the loss and every parameter after it bit for bit.  Step 0
+    captures (K1's launches then: the warm-up's and the capture's, twice
+    ``capture``); no counter moves at a replay.  Then TRAIN_PROFILE more
+    steps of each profiled: the device's busy ms, K1 kernels and idle
+    share a step, captured beside eager.  Host ms per stage and step wall
+    ms of both.  Returns the measurements."""
     import torch
     from repro_torch.kernels.ops import launch_counts
-    from torch.profiler import ProfilerActivity, profile
 
-    stages, prof, window = [], None, None
-    for i in range(steps):
-        if profile_steps is not None and i == profile_steps[0]:
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.__enter__()
-            window = time.perf_counter()
-        before = launch_counts()
-        loss = tr.step()
-        torch.cuda.synchronize()
-        got = {k: launch_counts()[k] - before[k] for k in expect}
-        if got != expect:
-            fail(f"{label} step {i}: K1 launches {got}, expected {expect}")
+    def check(i, loss, want):
+        if loss != want or not same_state(tr, ref):
+            fail(f"{label} step {i}: the captured step's loss {loss!r} or "
+                 f"parameters differ from the eager step's ({want!r})")
         if not (loss == loss and abs(loss) < float("inf")):
             fail(f"{label} step {i}: loss {loss} is not finite")
+
+    stages, eager, launched = [], [], dict.fromkeys(capture, 0)
+    for i in range(steps):
+        before = launch_counts()
+        loss = tr.step()
+        got = {k: launch_counts()[k] - before[k] for k in capture}
+        launched = {k: n + got[k] for k, n in launched.items()}
+        want = {k: 2 * n for k, n in capture.items()} if i == 0 \
+            else {k: 0 for k in capture}
+        if got != want:
+            fail(f"{label} step {i}: K1 launches {got} on the host, "
+                 f"expected {want}")
+        value, st = eager_step(ref)
+        check(i, loss, value)
         stages.append(dict(tr.stage_ms, loss=loss))
-        if profile_steps is not None and i == profile_steps[1] - 1:
-            wall = (time.perf_counter() - window) * 1e3
-            prof.__exit__(None, None, None)
-            window = kernel_window(f"train_{label}", prof, wall,
-                                   profile_steps[1] - profile_steps[0])
-            print(f"[train] {label} profile of steps {profile_steps[0]}-"
-                  f"{profile_steps[1] - 1}: per step wall "
-                  f"{window['wall_ms']:.1f} ms, device busy "
-                  f"{window['device_busy_ms']:.2f} ms (K1 "
-                  f"{window['k1_ms']:.2f} ms), {window['kernels']:.0f} "
-                  f"kernels, device idle "
-                  + (f"{100 * window['idle_share']:.1f}%"
-                     if window["idle_share"] is not None
-                     else "not measured (no kernel in the trace)"),
-                  flush=True)
-    for i, st in enumerate(stages):
+        eager.append(st)
+    if len(tr._steps) != 1 or tr.retraces:
+        fail(f"{label}: {len(tr._steps)} step captures, retraces "
+             f"{tr.retraces}")
+    params = [p.detach().clone() for p in tr.model.parameters()]
+    n = TRAIN_PROFILE
+    window = profiled(f"train_{label}", n, tr.step)
+    window_eager = profiled(f"train_{label}_eager", n,
+                            lambda: eager_step(ref))
+    check(steps + n - 1, tr.losses[-1], ref.losses[-1])
+    if tr.losses != ref.losses:
+        fail(f"{label}: the profiled steps' losses differ")
+    want_k1 = 2 * (capture["seg_agg"] - capture["seg_agg_bwd"]) + \
+        capture["seg_agg_bwd"]
+    if window["k1_kernels"] != want_k1:
+        fail(f"{label}: {window['k1_kernels']} K1 kernels a replayed step, "
+             f"the capture recorded {want_k1}")
+    for tag, w in (("captured", window), ("eager", window_eager)):
+        print(f"[train] {label} profile of {n} {tag} steps: per step wall "
+              f"{w['wall_ms']:.1f} ms, device busy "
+              f"{w['device_busy_ms']:.3f} ms (K1 {w['k1_ms']:.3f} ms, "
+              f"{w['k1_kernels']:.0f} K1 kernels), {w['kernels']:.0f} "
+              f"kernels, device idle "
+              + (f"{100 * w['idle_share']:.1f}%"
+                 if w["idle_share"] is not None
+                 else "not measured (no kernel in the trace)"), flush=True)
+    for i, (st, ev) in enumerate(zip(stages, eager)):
         print(f"[train] {label} step {i:2d}: loss {st['loss']:.6f}; host ms "
               f"sample {st['sample']:.1f}, union+pad {st['union']:.1f}, "
               f"layouts {st['layouts']:.1f}, dedup {st['dedup']:.1f}, x "
-              f"{st['x']:.1f}; step {st['step']:.1f}", flush=True)
-    return {"stages": stages, "profile": window}
+              f"{st['x']:.1f}; step {st['step']:.1f} (eager "
+              f"{ev['step']:.1f}); bit for bit the eager step", flush=True)
+    return {"stages": stages, "eager_stages": eager, "profile": window,
+            "profile_eager": window_eager, "params": params,
+            "launches": launched}
 
 
 def drive_train(g, x, y, spec):
     """Phase 11: minibatch GraphSAGE training on Reddit through
-    PlannedSageTrainer on the cuda tier (see the module docstring).
-    Returns the measurements and the K1 backward record."""
+    PlannedSageTrainer on the cuda tier, each step one replay of the
+    bucket's captured step (see the module docstring).  Returns the
+    measurements and the K1 backward record."""
     import numpy as np
     import torch
     from repro_torch.checkpoint.checkpointer import Checkpointer
-    from repro_torch.core.plan import _leaves
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models.sage_minibatch import (PlannedSageTrainer,
                                                    train_minibatch_sage)
@@ -1667,16 +1715,18 @@ def drive_train(g, x, y, spec):
     tr = trainer(dedup="none")
     plan = tr.plan
     orders = [lp.order for lp in plan.layers]
-    # K1 launches a step: one forward per layer; one backward per layer
-    # whose aggregation operand needs a gradient (layer 1's x does not when
-    # it aggregates first)
+    # K1 launches a step: one forward per layer; for each layer whose
+    # aggregation operand needs a gradient (layer 1's x does not when it
+    # aggregates first) two backward ones over the capacity layout: the
+    # pieces and the fold-back
     n_bwd = sum(i > 0 or o == "combine_first" for i, o in enumerate(orders))
-    expect = {"seg_agg": plan.num_layers + n_bwd, "seg_agg_bwd": n_bwd,
-              "fused_agg_combine": 0}
+    capture = {"seg_agg": plan.num_layers + 2 * n_bwd,
+               "seg_agg_bwd": 2 * n_bwd, "fused_agg_combine": 0}
     print(f"[train] bucket {tuple(tr.bucket)} (seeds, inputs, edges), "
           f"plan {plan.describe()[0]['backend']} tier, orders {orders}, "
-          f"aggregation tile {plan.agg_tile}; K1 launches a step {expect}; "
-          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+          f"aggregation tile {plan.agg_tile}; K1 launches a step "
+          f"{capture}, recorded once into the step's CUDA graph; set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     auto = trainer(dedup="auto").dedup
     print(f"[train] dedup='auto' resolves to {auto!r} on the H100 machine "
           f"model", flush=True)
@@ -1713,33 +1763,43 @@ def drive_train(g, x, y, spec):
     if not np.array_equal(p_none, p_pairs):
         fail("train: predict with dedup='pairs' differs from 'none'")
 
-    # -- (3) training, none then pairs
+    # -- (3) training through the captured step, none then pairs, each
+    #    step bit for bit an eager step's from the same state
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    run_none = train_run(tr, TRAIN_STEPS, expect, "none", TRAIN_PROFILE)
-    run_none["seconds"] = time.perf_counter() - t0
-    run_none["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    launches = launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    run_pairs = train_run(tp, TRAIN_STEPS, expect, "pairs")
-    run_pairs["seconds"] = time.perf_counter() - t0
-    run_pairs["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    runs = {}
+    for label, cur in (("none", tr), ("pairs", tp)):
+        t0 = time.perf_counter()
+        run = train_run(cur, trainer(dedup=label), TRAIN_STEPS, capture,
+                        label)
+        run["seconds"] = time.perf_counter() - t0
+        run["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        (cap,) = cur._steps.values()
+        run["captured_launches"] = cap.launches
+        torch.cuda.reset_peak_memory_stats()
+        runs[label] = run
+    run_none, run_pairs = runs["none"], runs["pairs"]
     run_pairs["last_pairs"] = tp.last_pairs
-    for label, run in (("none", run_none), ("pairs", run_pairs)):
-        st = run["stages"][1:]
-        mean = {k: sum(s[k] for s in st) / len(st)
-                for k in ("sample", "union", "layouts", "dedup", "x",
-                          "step")}
-        run["mean_ms"] = mean
-        print(f"[train] {label}: {TRAIN_STEPS} steps in "
-              f"{run['seconds']:.1f} s; mean of steps 1-: host ms sample "
-              f"{mean['sample']:.1f}, union+pad {mean['union']:.1f}, layouts "
-              f"{mean['layouts']:.1f}, dedup {mean['dedup']:.1f}, x "
-              f"{mean['x']:.1f}, step {mean['step']:.1f}; peak memory "
+    for label, run in runs.items():
+        for key, st in (("mean_ms", run["stages"][1:]),
+                        ("eager_mean_ms", run["eager_stages"][1:])):
+            run[key] = {k: sum(s[k] for s in st) / len(st)
+                        for k in ("sample", "union", "layouts", "dedup",
+                                  "x", "step")}
+        mean, ev = run["mean_ms"], run["eager_mean_ms"]
+        print(f"[train] {label}: {TRAIN_STEPS} captured steps (one capture, "
+              f"{TRAIN_STEPS - 1} replays, retraces 0) each bit for bit "
+              f"the eager step, in {run['seconds']:.1f} s with the eager "
+              f"steps beside them; mean of steps 1-: host ms sample "
+              f"{mean['sample']:.1f}, union+pad {mean['union']:.1f}, "
+              f"layouts {mean['layouts']:.1f}, dedup {mean['dedup']:.1f}, "
+              f"x {mean['x']:.1f}, step {mean['step']:.1f} (eager: "
+              f"layouts {ev['layouts']:.1f}, dedup {ev['dedup']:.1f}, x "
+              f"{ev['x']:.1f}, step {ev['step']:.1f}); launches on the "
+              f"host {run['launches']} (warm-up and capture), captured a "
+              f"step {run['captured_launches']}; peak memory "
               f"{run['peak_bytes'] / 2**30:.2f} GiB above the inputs"
               + (f"; {tp.last_pairs} pairs in the last block"
                  if label == "pairs" else ""), flush=True)
@@ -1750,7 +1810,8 @@ def drive_train(g, x, y, spec):
         fail(f"train: pairs and none losses differ by {gap:.3e}")
     del tp
 
-    # -- (4) resume: 10 steps, save, a fresh trainer restores, 10 more
+    # -- (4) resume through captured steps: 10 steps, save, a fresh
+    #    trainer restores, 10 more -- the uninterrupted run's first 20
     ck = Checkpointer(str(ROOT / "build" / "train_ckpt"), keep=1)
     a = trainer(dedup="none")
     a.train(RESUME_AT)
@@ -1759,20 +1820,22 @@ def drive_train(g, x, y, spec):
     b = trainer(dedup="none")
     at = b.restore(ck)
     b.train(TRAIN_STEPS - RESUME_AT)
-    same = b.losses == tr.losses and all(
-        torch.equal(p, q) for (_, p), (_, q) in zip(_leaves(b.params),
-                                                    _leaves(tr.params)))
-    print(f"[train] resume at step {at}: losses and parameters "
-          f"{'bit for bit' if same else 'DIFFERENT from'} the uninterrupted "
-          f"run", flush=True)
-    if not same or at != RESUME_AT:
+    same = b.losses == tr.losses[:TRAIN_STEPS] and all(
+        torch.equal(p, q) for p, q in zip(b.model.parameters(),
+                                          run_none["params"]))
+    print(f"[train] resume at step {at} through captured steps: losses and "
+          f"parameters {'bit for bit' if same else 'DIFFERENT from'} the "
+          f"uninterrupted run's; retraces {b.retraces}", flush=True)
+    if not same or at != RESUME_AT or b.retraces:
         fail("train: the resumed run differs from the uninterrupted one")
     del b
+    for run in runs.values():
+        del run["params"]
 
     # -- (5) predict: one capture, replays bit for bit the eager forward
     for step in (TRAIN_STEPS, TRAIN_STEPS + 1, TRAIN_STEPS + 2):
         prep = tr._prepare(tr.pipeline.batch_at(step))
-        xx, gg, glay, ded = tr._inputs(prep, capacity=True)
+        xx, gg, glay, ded = tr._inputs(prep, backward=False)
         with torch.no_grad():
             eager = tr.plan.run_model(tr.params, xx, graph=gg,
                                       graph_layout=glay, dedup_layout=ded)
@@ -1786,6 +1849,14 @@ def drive_train(g, x, y, spec):
     if tr.fwd.num_traces != 1 or tr.retraces:
         fail("train: predict captured more than once")
 
+    # -- the step's replay alone (it trains tr on, so it comes last)
+    (cap,) = tr._steps.values()
+    run_none["replay_ms"] = time_ms(cap.graph.replay, 10)
+    print(f"[train] the captured step's replay: {run_none['replay_ms']:.3f} "
+          f"ms (CUDA events), against a captured step's "
+          f"{run_none['mean_ms']['step']:.1f} ms on the host clock and the "
+          f"eager step's {run_none['eager_mean_ms']['step']:.1f}", flush=True)
+
     # -- (6) the per-block demo
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1798,9 +1869,65 @@ def drive_train(g, x, y, spec):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if not all(np.isfinite(demo_losses)) or demo["seg_agg_bwd"] < 3:
         fail("train: the per-block demo did not train through K1")
-    return {"orders": orders, "expect": expect, "auto": auto,
-            "launches": launches, "none": run_none, "pairs": run_pairs,
-            "k1_bwd": bwd, "step0_grad_errs": errs, "demo": demo_losses}
+    return {"orders": orders, "capture": capture, "auto": auto,
+            "launches": run_none["launches"], "none": run_none,
+            "pairs": run_pairs, "k1_bwd": bwd, "step0_grad_errs": errs,
+            "demo": demo_losses}
+
+
+def drive_paper(g, x) -> dict:
+    """Phase 17: the paper launchers' functions -- gcn_phase_ordering over
+    the whole of Reddit, quickstart on its reduced Cora (see the module
+    docstring).  Returns their numbers."""
+    import numpy as np
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.launch import gcn_phase_ordering, quickstart
+
+    reset_launch_counts()
+    po = gcn_phase_ordering.phase_ordering(g, x, PAPER_ITERS)
+    launched = launch_counts()
+    paper = gcn_phase_ordering.PAPER
+    r = po["ratios"]
+    tol = F32_BAND * SCALE * max(1.0, po["unfused_scale"])
+    print(f"[paper] Table 4 on Reddit (V={g.num_vertices}, E={g.num_edges}"
+          f", 602 -> 128): data-access reduction "
+          f"{r['data_access_reduction']:.4f}x (paper {paper['data']}x), "
+          f"computation reduction {r['computation_reduction']:.4f}x (paper "
+          f"{paper['ops']}x); planner order {po['decision']['order']} on "
+          f"the {po['decision']['backend']} tier; combine-first "
+          f"{po['combine_first_ms']:.3f} ms, aggregate-first "
+          f"{po['aggregate_first_ms']:.3f} ms, speedup {po['speedup']:.3f}x "
+          f"(paper, measured: {paper['speedup']}x); fused through K2 "
+          f"{po['fused_ms']:.3f} ms, max_abs_err vs unfused "
+          f"{po['fused_err']:.3e} (tol {tol:.3e}); launches {launched}",
+          flush=True)
+    if po["decision"]["order"] != "combine_first" or \
+            po["fused_backend"] != "cuda" or po["fused_err"] > tol or \
+            not launched["fused_agg_combine"] or not launched["seg_agg"]:
+        fail("paper: the phase-ordering views did not run K1 and K2 on the "
+             "card, or the fused plan is off the unfused one")
+    qs = quickstart.quickstart("cuda", quickstart.STEPS)
+    losses = qs["losses"]
+    print(f"[paper] quickstart on {qs['spec'].name} (V="
+          f"{qs['spec'].num_vertices}, F={qs['spec'].feature_len}): order "
+          f"{qs['costs']['order']}, data-access reduction "
+          f"{qs['ratios']['data_access_reduction']:.4f}x; plan.compile() "
+          f"bit for bit the report's output: {qs['compiled_equal']}; "
+          f"{len(losses)} steps through plan.compile(), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {qs['traces']} traces; "
+          f"accuracy {qs['accuracy']:.3f}", flush=True)
+    if not (qs["compiled_equal"] and np.isfinite(losses).all()
+            and losses[-1] < losses[0] and qs["traces"] == 2):
+        fail("paper: quickstart's compiled forward or training failed")
+    return {"ratios": {k: r[k] for k in ("data_access_reduction",
+                                         "computation_reduction")},
+            "order": po["decision"]["order"],
+            "combine_first_ms": po["combine_first_ms"],
+            "aggregate_first_ms": po["aggregate_first_ms"],
+            "speedup": po["speedup"], "fused_ms": po["fused_ms"],
+            "fused_err": po["fused_err"], "launches": launched,
+            "quickstart": {"losses": losses, "accuracy": qs["accuracy"],
+                           "report": qs["report"].to_dict()}}
 
 
 def serve_run(g_host, x, spec, name: str, mix: str) -> dict:
@@ -4248,6 +4375,13 @@ def main() -> None:
 
     # -- 16. static checks of the plans above, from fake-tensor traces
     analysis = drive_analysis(g_red, x_red, spec_red)
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+
+    # -- 17. the paper's Table-4 launchers
+    t0 = time.perf_counter()
+    paper = drive_paper(g_red, x_red)
+    print(f"[paper] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     del g_red, x_red, y_red
     clear_plan_cache()
     torch.cuda.empty_cache()
@@ -4275,7 +4409,7 @@ def main() -> None:
          "decisions": decisions, "decision_launches": dlaunches,
          "train": train, "serve": serve, "long_rows": long_rows,
          "distributed": dist13, "dist_train": dist14,
-         "dist_compiled": dist15, "analysis": analysis},
+         "dist_compiled": dist15, "analysis": analysis, "paper": paper},
         indent=1))
 
     # one line per kernel: the first record of each at Reddit's main shape;
@@ -4307,7 +4441,9 @@ def main() -> None:
             "frac_of_bound": rec["frac_of_bound"],
             "vs_library": rec["vs_library"]})
     # K1's backward at F=128: its launches are phase 11's 20-step none
-    # run, its error the larger of the F=128 and F=41 checks
+    # run's on the host (the step's warm-up and its capture; each replay
+    # runs the captured ones), its error the larger of the F=128 and F=41
+    # checks
     rec = train["k1_bwd"][0]
     kernels.append({
         "name": "seg_agg_bwd", "route": "cuda", "source": k1_src[0],

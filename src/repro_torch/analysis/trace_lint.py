@@ -576,9 +576,10 @@ def lint_plan(plan, *, params=None, x=None, donate: bool = False,
         if layout is None and tier == "cuda":
             layout = plan.runtime_layout(g.src.cpu().numpy(),
                                          g.dst.cpu().numpy())
-        arrays = cpd._graph_args(g, layout)
+        # no gradient: the layouts come without their transposed ones
+        arrays = cpd._graph_args(g, layout, False)[0]
         if plan.dedup == "pairs":
-            arrays += cpd._dedup_args(dedup)
+            arrays += cpd._dedup_args(dedup, False)[0]
         w = f"{where}:dynamic"
         tr = trace(cpd._forward, params, x, *arrays)
         check_no_callbacks(tr, w, report)

@@ -16,18 +16,18 @@ K1's backward (``kernels.seg_agg.SegAgg``) is K1 over the TRANSPOSED
 layout: the same edges regrouped by source, each slot naming the forward
 slot it mirrors, so per-edge weights regroup with one gather.
 ``block_graph_arrays(..., transpose_rows=)`` builds both at once from
-host arrays (the minibatch trainer's runtime layouts, with a fixed
-``emax`` for a CUDA-graph capture); ``transposed_layout`` builds it from a
-layout already on the device (a plan keeps the capped one of each layout
-it owns, ``GraphExecutionPlan.with_transposed``).
+host arrays (the minibatch trainer's runtime layouts, capped, at a fixed
+capacity for a CUDA-graph capture); ``transposed_layout`` builds it from
+a layout already on the device (a plan keeps the capped one of each
+layout it owns, ``GraphExecutionPlan.with_transposed``).
 
 A hub source makes the transposed layout's block as long as its row: a
 dense ``(nblocks, emax)`` array then holds many times the edges (the
 distributed plans' shard sub-layouts of Reddit, 86.5x).
 ``_transposed(..., cap)`` builds the CAPPED form instead (the halos'
-backward layouts, ``core.distributed.shard_transposed_layouts``, and the
-layouts a plan keeps for its own; a runtime graph's keeps the uncapped
-form): each row is one piece, or, over
+backward layouts, ``core.distributed.shard_transposed_layouts``, the
+layouts a plan keeps for its own and a runtime graph's; ``TRANSPOSE_CAP``
+slots): each row is one piece, or, over
 ``cap`` slots, cut into pieces of at most ``cap``; the pieces are packed
 in order into blocks of at most ``tile_m`` pieces and ``cap`` slots, and
 a row map (``BlockedGraph.out_rows``) gives each block row its
@@ -39,7 +39,10 @@ small fold-back layout (``BlockedGraph.fold``) holds the cut rows only,
 each gathering its scratch rows in piece order into its own row.  K1
 runs the pieces, then, only when a row was cut, the fold-back: no row is
 longer than ``cap`` slots, none is written twice, every row stored in
-place is one in-order fold, and no atomics are needed.
+place is one in-order fold, and no atomics are needed.  At a fixed capacity
+(``transposed_capacity``: the shapes that hold any graph of a bucket's
+edge count) the layout has a fold-back always, an empty one when no row
+is cut, so K1's backward over it launches the same kernels every time.
 """
 
 from __future__ import annotations
@@ -51,6 +54,20 @@ import torch
 
 from repro_torch.graph.structure import Graph
 from repro_torch.profile.machine import Machine, get_machine
+
+#: slots a row of a capped transposed layout holds at most, and a block of
+#: its pieces (``_transposed``'s ``cap``): the layouts a plan keeps for its
+#: own layouts (``GraphExecutionPlan.with_transposed``), a runtime graph's
+#: (``GraphExecutionPlan.runtime_layout``) and the halos' backward shard
+#: sub-layouts (``core.distributed.shard_transposed_layouts``, which
+#: re-exports it).  At Reddit's 4 shards the uncapped sub-layouts would
+#: hold 86.5x the edges (a hub source's row fills its block); capped they
+#: hold under 2x, fold-backs included (``chip_smoke.py`` phase 14 counts
+#: both).  2,048 rather than 1,024: blocks of 128 pieces then fill before
+#: their slots do, and a hub row folds back from half the pieces (K1's
+#: backward over the 16 sub-layouts on the H100, ``chip_smoke.py`` phase
+#: 14)
+TRANSPOSE_CAP = 2048
 
 
 class BlockedGraph(NamedTuple):
@@ -172,17 +189,31 @@ def _block_layout(src: np.ndarray, dst: np.ndarray, v: int, tile_m: int,
 
 def _transposed(src: np.ndarray, dst: np.ndarray, slot: np.ndarray,
                 num_rows: int, tile_m: int, dev,
-                cap: Optional[int] = None) -> BlockedGraph:
+                cap: Optional[int] = None,
+                max_edges: Optional[int] = None) -> BlockedGraph:
     """The transposed layout of edges ``src -> dst`` held in forward slots
     ``slot``: regrouped by source (stable, so each source keeps its edges'
     forward order), gathering from the destinations, ``eidx`` the forward
-    slots; with ``cap``, its capped form (``_capped``)."""
-    order = np.argsort(src, kind="stable")
+    slots; with ``cap``, its capped form (``_capped``), and with
+    ``max_edges`` too, that form at the capacity of any ``max_edges``
+    edges over ``num_rows`` rows (``transposed_capacity``)."""
+    order = _stable_order(src)
     if cap is not None:
         return _capped(dst[order], src[order], slot[order], num_rows,
-                       tile_m, dev, int(cap))
+                       tile_m, dev, int(cap), max_edges)
     return _block_layout(dst[order], src[order], num_rows, tile_m, dev,
                          eidx=slot[order])[0]
+
+
+def _stable_order(keys: np.ndarray) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` of non-negative integer keys,
+    by one unstable sort of the distinct keys ``key * n + index`` --
+    several times faster than numpy's stable sort (a merge sort) on the
+    10^5 edges of a sampled block -- where those fit an int64."""
+    n = len(keys)
+    if n and int(keys.max()) >= (1 << 62) // n:
+        return np.argsort(keys, kind="stable")
+    return np.sort(keys.astype(np.int64) * n + np.arange(n)) % max(n, 1)
 
 
 def pack_pieces(lengths: np.ndarray, tile_m: int, cap: int) -> np.ndarray:
@@ -190,16 +221,71 @@ def pack_pieces(lengths: np.ndarray, tile_m: int, cap: int) -> np.ndarray:
     most ``cap``) are packed in order, greedily: a block takes pieces while
     it holds fewer than ``tile_m`` and their slots stay within ``cap``."""
     ends = np.concatenate([[0], np.cumsum(lengths, dtype=np.int64)])
-    starts, i, n = [], 0, len(lengths)
+    n = len(lengths)
+    # whether the next tile_m pieces (or the rest) fit from each piece on,
+    # all at once: most blocks close at tile_m pieces, and only the others
+    # search for the last piece that fits
+    full = ends[np.minimum(np.arange(n) + tile_m, n)] - ends[:-1] <= cap
+    starts, i = [], 0
     while i < n:
         starts.append(i)
-        fit = int(np.searchsorted(ends, ends[i] + cap, side="right")) - 1
-        i = max(i + 1, min(i + tile_m, fit))
+        if full[i]:
+            i = min(i + tile_m, n)
+        else:
+            fit = int(np.searchsorted(ends, ends[i] + cap,
+                                      side="right")) - 1
+            i = max(i + 1, min(i + tile_m, fit))
     return np.asarray(starts, np.int64)
 
 
+class Capacity(NamedTuple):
+    """The fixed shapes of a capped transposed layout that holds any
+    ``max_edges`` edges over ``num_rows`` rows (``transposed_capacity``).
+
+    nblocks: the pieces' blocks, each of ``cap`` slots (its ``emax``).
+    cut_rows: the most rows that can be cut -- over ``min(cap,
+           packed_split(cap, tile_m))`` slots each.
+    scratch: the most scratch rows their pieces can take.
+    fold_nblocks, fold_emax: the fold-back layout's blocks (``tile_m``
+           cut rows each) and their slots.
+    """
+
+    nblocks: int
+    cut_rows: int
+    scratch: int
+    fold_nblocks: int
+    fold_emax: int
+
+
+def transposed_capacity(num_rows: int, max_edges: int, tile_m: int,
+                        cap: int) -> Capacity:
+    """Shapes that hold the capped transposed layout (``_capped``) of ANY
+    ``max_edges`` edges over ``num_rows`` rows, so that two graphs of one
+    bucket give tensors of equal shapes: a CUDA graph captured over one
+    replays over the other.  Rows of ``n`` slots take ``ceil(n / cap)``
+    pieces (at least one), so at most ``num_rows + max_edges // cap``
+    pieces; a block closes at ``tile_m`` pieces, or when the next piece
+    would take it past ``cap`` slots -- that block's slots and the next
+    piece's sum past ``cap``, and the two are disjoint slots of at most
+    ``2 max_edges``, so fewer than ``2 max_edges / cap`` blocks close so;
+    plus the last.  A cut row has over ``min(cap, packed_split(cap,
+    tile_m))`` slots; its pieces number at most one more than its slots
+    over ``cap``.  At least one block and one scratch row each, so every
+    launch has work to walk."""
+    from repro_torch.kernels.seg_agg import packed_split
+    e, cap = int(max_edges), int(cap)
+    pieces = int(num_rows) + e // cap
+    nblocks = -(-pieces // tile_m) + 2 * e // cap + 1
+    cut = e // (min(cap, packed_split(cap, tile_m)) + 1)
+    scratch = max(1, cut + e // cap)
+    fold_emax = max(8, -(-min(scratch, tile_m + e // cap) // 8) * 8)
+    return Capacity(nblocks, cut, scratch, max(1, -(-cut // tile_m)),
+                    fold_emax)
+
+
 def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
-            num_rows: int, tile_m: int, dev, cap: int) -> BlockedGraph:
+            num_rows: int, tile_m: int, dev, cap: int,
+            max_edges: Optional[int] = None) -> BlockedGraph:
     """The capped transposed layout of slots sorted by ``rows`` (each
     gathering ``gather``, mirroring ``eidx``) over ``num_rows`` rows.
     Each row is one piece -- a row of no slots too, so K1 stores its zero
@@ -216,10 +302,23 @@ def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
     The block rows no piece took map to -1.  So each row of ``[0,
     num_rows)`` is written once, and every row stored in place is one
     in-order fold.  At least one block, so an empty layout still
-    launches."""
+    launches.
+
+    With ``max_edges`` the layout takes the shapes of
+    ``transposed_capacity``: ``nblocks`` blocks of ``cap`` slots, and a
+    fold-back always, of ``fold_nblocks`` blocks of ``fold_emax`` slots
+    over ``scratch`` scratch rows -- with no row cut, one whose row maps
+    are all -1, which stores nothing.  Padding slots are masked, padding
+    block rows map to -1; more edges than ``max_edges`` raise."""
     from repro_torch.kernels.seg_agg import packed_split
     if cap < 8 or cap % 8:
         raise ValueError(f"cap must be a positive multiple of 8; got {cap}")
+    room = None
+    if max_edges is not None:
+        if len(rows) > max_edges:
+            raise ValueError(f"{len(rows)} edges, over the transposed "
+                             f"layout's capacity of {max_edges}")
+        room = transposed_capacity(num_rows, max_edges, tile_m, cap)
     n = np.bincount(rows, minlength=num_rows).astype(np.int64)
     npieces = np.maximum(1, -(-n // cap))
     piece_row = np.repeat(np.arange(num_rows, dtype=np.int64), npieces)
@@ -227,14 +326,19 @@ def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
     j = np.arange(len(piece_row), dtype=np.int64) - first_piece[piece_row]
     lengths = np.minimum(cap, n[piece_row] - j * cap)
     starts = pack_pieces(lengths, tile_m, cap)
-    block = np.searchsorted(starts, np.arange(len(lengths)),
-                            side="right") - 1
+    block = np.repeat(np.arange(len(starts)),
+                      np.diff(np.append(starts, len(lengths))))
     out_row = block * tile_m + (np.arange(len(lengths)) - starts[block])
     # slot s of row r lies in piece first_piece[r] + (s - row start) // cap
     row_start = np.concatenate([[0], np.cumsum(n)])[:-1]
     piece = first_piece[rows] + (np.arange(len(rows)) - row_start[rows]) \
         // cap
     nblocks = max(1, len(starts))
+    if room is not None:
+        if nblocks > room.nblocks:
+            raise ValueError(f"{nblocks} blocks of pieces, over the "
+                             f"capacity of {room.nblocks}")
+        nblocks = room.nblocks
     # a cut row's pieces go to scratch rows, numbered in piece order
     long_rows = n > min(cap, packed_split(cap, tile_m))
     cut = long_rows[piece_row]
@@ -243,19 +347,28 @@ def _capped(gather: np.ndarray, rows: np.ndarray, eidx: np.ndarray,
     row_map = np.full(nblocks * tile_m, -1, np.int64)
     row_map[out_row] = dest
     pieces = _block_layout(gather, out_row[piece], nblocks * tile_m, tile_m,
-                           dev, eidx=eidx)[0]
+                           dev, emax=None if room is None else cap,
+                           eidx=eidx)[0]
     pieces = pieces._replace(num_vertices=num_rows,
                              out_rows=_row_map(row_map, tile_m, dev))
-    if not cut.any():
+    if room is None and not cut.any():
         return pieces
     cut_rows = np.flatnonzero(long_rows)
     # fold-back row i: cut row cut_rows[i], its scratch rows in order
     fold_row = np.repeat(np.arange(len(cut_rows)), npieces[cut_rows])
-    fold = _block_layout(dest[cut] - num_rows, fold_row, len(cut_rows),
-                         tile_m, dev)[0]
+    fold_rows, scratch = len(cut_rows), int(cut.sum())
+    if room is not None:
+        if fold_rows > room.cut_rows or scratch > room.scratch:
+            raise ValueError(f"{fold_rows} cut rows in {scratch} scratch "
+                             f"rows, over the capacity of {room.cut_rows} "
+                             f"in {room.scratch}")
+        fold_rows, scratch = room.fold_nblocks * tile_m, room.scratch
+    fold = _block_layout(dest[cut] - num_rows, fold_row, fold_rows, tile_m,
+                         dev, emax=None if room is None
+                         else room.fold_emax)[0]
     fold_map = np.full(fold.nblocks * tile_m, -1, np.int64)
     fold_map[:len(cut_rows)] = cut_rows
-    fold = fold._replace(num_vertices=int(cut.sum()),
+    fold = fold._replace(num_vertices=scratch,
                          out_rows=_row_map(fold_map, tile_m, dev))
     return pieces._replace(fold=fold)
 
@@ -269,13 +382,18 @@ def _row_map(row_map: np.ndarray, tile_m: int, dev) -> torch.Tensor:
 def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
                        tile_m: int, *, device="cpu",
                        emax: Optional[int] = None,
-                       transpose_rows: Optional[int] = None) -> BlockedGraph:
+                       transpose_rows: Optional[int] = None,
+                       transpose_cap: Optional[int] = None,
+                       max_edges: Optional[int] = None) -> BlockedGraph:
     """``block_graph`` over raw dst-sorted arrays (``block_graph_arrays``,
     :91).  ``num_vertices`` is the destination row count; ``emax`` is the
     largest block's edge count rounded up to 8 (at least 8), or the fixed
     capacity given (a block over it raises).  ``transpose_rows`` (the rows
     of the gathered matrix) also builds the transposed layout K1's
-    backward runs over, from the same host arrays."""
+    backward runs over, from the same host arrays: uncapped, or capped
+    at ``transpose_cap`` (``_capped``), and then, with ``max_edges``, at
+    the fixed capacity of any ``max_edges`` edges
+    (``transposed_capacity``)."""
     src = np.asarray(src)
     dst = np.asarray(dst)
     dev = torch.device(device)
@@ -283,7 +401,7 @@ def block_graph_arrays(src: np.ndarray, dst: np.ndarray, num_vertices: int,
     if transpose_rows is not None:
         bg = bg._replace(transposed=_transposed(
             src.astype(np.int64), dst.astype(np.int64), slot,
-            int(transpose_rows), tile_m, dev))
+            int(transpose_rows), tile_m, dev, transpose_cap, max_edges))
     return bg
 
 

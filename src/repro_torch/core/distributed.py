@@ -100,7 +100,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import AUTO, resolve_backend, resolve_device
-from repro_torch.core.dataflow import BlockedGraph, _block_layout, _transposed
+# TRANSPOSE_CAP is re-exported: the halos' backward layouts read it here
+from repro_torch.core.dataflow import (TRANSPOSE_CAP, BlockedGraph,
+                                       _block_layout, _transposed)
 from repro_torch.graph.partition import Partition2D, PartitionedGraph
 
 #: the collectives a mesh counts, by the reference's HLO names
@@ -115,16 +117,6 @@ OVERLAP_MODES = ("none", "pipelined")
 #: least modeled saving (a fraction of the single-buffered exchange time)
 #: at which ``choose_overlap`` commits to the pipelined schedule
 OVERLAP_SAVING_THRESHOLD = 0.02
-
-#: slots a row of a transposed shard sub-layout holds at most, and a block
-#: of its pieces (``core.dataflow._transposed``'s ``cap``).  At Reddit's 4
-#: shards the uncapped layouts would hold 86.5x the edges (a hub source's
-#: row fills its block); capped they hold under 2x, fold-backs included
-#: (``chip_smoke.py`` phase 14 counts both).  2,048 rather than 1,024:
-#: blocks of 128 pieces then fill before their slots do, and a hub row
-#: folds back from half the pieces (K1's backward over the 16 sub-layouts
-#: on the H100, ``chip_smoke.py`` phase 14)
-TRANSPOSE_CAP = 2048
 
 
 # ---------------------------------------------------------------------------

@@ -46,10 +46,11 @@ A bucket plan (the
 minibatch trainer's) dispatches runtime graphs, each bringing its own
 edge arrays, its dedup arrays (``dedup_pad=``) and, on the cuda tier, its
 host-built blocked layouts (``runtime_layout``, passed beside the graph),
-eagerly or through ``compile(dynamic=True)``.  On the cuda tier the eager
-forward is differentiable: K1's backward runs over each layout's
-transposed layout, which a plan builds for its own layouts on first need
-and keeps (``with_transposed``).
+eagerly or through ``compile(dynamic=True)``, under autograd too.  On the
+cuda tier the forward is differentiable: K1's backward runs over each
+layout's capped transposed layout -- a runtime graph's built with it at
+the bucket's fixed capacity, a plan's own built on first need and kept
+(``with_transposed``).
 
 Public surface::
 
@@ -68,6 +69,7 @@ Public surface::
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -78,9 +80,9 @@ import torch
 from repro_torch.core import phases
 from repro_torch.core.backend import (AUTO, CUDA, require_device,
                                       resolve_backend, resolve_device)
-from repro_torch.core.dataflow import (BlockedGraph, block_graph,
-                                       block_graph_arrays, fused_gcn_layer,
-                                       suggest_tile_m)
+from repro_torch.core.dataflow import (TRANSPOSE_CAP, BlockedGraph,
+                                       block_graph, block_graph_arrays,
+                                       fused_gcn_layer, suggest_tile_m)
 from repro_torch.core.scheduler import (AGGREGATE_FIRST, COMBINE_FIRST,
                                         choose_ordering, ordering_cost)
 from repro_torch.graph.partition import Partition2D
@@ -214,24 +216,35 @@ class GraphExecutionPlan:
         max_in_deg`` rounded up to 8, the static shape a
         ``compile(dynamic=True)`` capture needs (a block over it raises);
         by default ``emax`` fits this graph.  ``transposed`` also builds
-        the layout K1's backward runs over."""
+        the layout K1's backward runs over, in its capped form
+        (``TRANSPOSE_CAP``, as a plan keeps for its own layouts); with
+        ``max_in_deg`` at the fixed capacity of as many edges as the
+        plan's graph has -- a bucket plan's template holds the bucket's
+        edge count, which a runtime graph's real edges (and a dedup
+        layout's level 2) never pass (``core.dataflow.
+        transposed_capacity``) -- so the layouts of two graphs of one
+        bucket have equal shapes and a graph captured over one replays
+        over the other."""
         tile = self.agg_tile
         if not tile:
             raise ValueError("runtime layouts serve cuda-tier plans; this "
                              "plan aggregates on the torch tier")
-        emax = None if max_in_deg is None \
-            else -(-tile * int(max_in_deg) // 8) * 8
         v = self.g.num_vertices
+        emax = edges = None
+        if max_in_deg is not None:
+            emax = -(-tile * int(max_in_deg) // 8) * 8
+            edges = self.g.num_edges
         return block_graph_arrays(
             src, dst, v, tile, device=self.device, emax=emax,
             transpose_rows=(v if num_rows is None else int(num_rows))
-            if transposed else None)
+            if transposed else None, transpose_cap=TRANSPOSE_CAP,
+            max_edges=edges)
 
     def with_transposed(self, bg: BlockedGraph,
                         num_rows: Optional[int] = None) -> BlockedGraph:
         """``bg``, a layout this plan owns, with the transposed layout K1's
         backward runs over (``num_rows`` rows of the gathered matrix,
-        default V) attached: the capped form (``core.distributed.
+        default V) attached: the capped form (``core.dataflow.
         TRANSPOSE_CAP``, as the halos' backward layouts: a hub source's row
         would make the uncapped layout's blocks as long as the hub), built
         on the host on first need and kept by the plan, so it goes with the
@@ -241,7 +254,6 @@ class GraphExecutionPlan:
         t = self._transposed.get(key)
         if t is None:
             from repro_torch.core.dataflow import transposed_layout
-            from repro_torch.core.distributed import TRANSPOSE_CAP
             t = self._transposed[key] = transposed_layout(bg, rows,
                                                           TRANSPOSE_CAP)
         return bg._replace(transposed=t)
@@ -513,8 +525,12 @@ class GraphExecutionPlan:
         of the reference's jitted forward: on a card the signature gets a
         forward graph that keeps the activations and a backward graph over
         a static output gradient (K1's backward, the halos' adjoints), one
-        ``torch.autograd.Function`` replaying each.  Not with
-        ``dynamic=True``.
+        ``torch.autograd.Function`` replaying each.  With
+        ``dynamic=True`` a cuda-tier call then takes each runtime layout
+        with its capped transposed layout at a fixed capacity
+        (``runtime_layout(..., max_in_deg=, transposed=True)``), which
+        K1's backward folds: the graphs' static inputs, copied in at each
+        call, their capacity in the signature.
 
         Cached per (donate, layer, dynamic) on the plan::
 
@@ -873,8 +889,10 @@ class CompiledPlan:
 
     The first call per input signature -- shapes and dtypes of ``x``, of
     the params leaves and, in dynamic mode, of ``src``/``dst``/``in_deg``,
-    the dedup arrays and, on the cuda tier, the runtime layouts, and which
-    of them want a gradient -- traces: on a card it captures a CUDA graph
+    the dedup arrays and, on the cuda tier, the runtime layouts (under
+    autograd with their transposed layouts, whose capacity -- rows and
+    scratch rows -- joins it), and which of them want a gradient --
+    traces: on a card it captures a CUDA graph
     (``_Captured``; under autograd a forward and a backward graph), on the
     CPU it runs the eager forward.  Later calls of that signature replay:
     on a card they copy the inputs into the static buffers (so new
@@ -941,24 +959,40 @@ class CompiledPlan:
     def _on_cuda_tier(self) -> bool:
         return self.plan.agg_tile > 0
 
-    def _layout(self, arrays) -> BlockedGraph:
-        """A runtime layout from its static (src, dstl, mask) buffers."""
-        return BlockedGraph(*arrays, self.plan.agg_tile,
-                            self.plan.g.num_vertices)
+    def _layout(self, arrays, meta) -> BlockedGraph:
+        """A runtime layout from its static buffers: (src, dstl, mask), and
+        with ``meta`` -- (rows, scratch rows) of its transposed layout --
+        the transposed layout's (src, dstl, mask, eidx, out_rows) and its
+        fold-back's (src, dstl, mask, out_rows) after them."""
+        tile = self.plan.agg_tile
+        bg = BlockedGraph(*arrays[:3], tile, self.plan.g.num_vertices)
+        if meta is None:
+            return bg
+        rows, scratch = meta
+        fold = BlockedGraph(*arrays[8:11], tile, scratch,
+                            out_rows=arrays[11])
+        return bg._replace(transposed=BlockedGraph(
+            *arrays[3:6], tile, rows, eidx=arrays[6], out_rows=arrays[7],
+            fold=fold))
 
-    def _forward(self, params, x, *graph_arrays):
+    def _forward(self, params, x, *graph_arrays, meta=(None, None)):
+        """The forward over static buffers: ``graph_arrays`` in dynamic
+        mode (``_graph_args`` then ``_dedup_args``), their layouts rebuilt
+        with ``meta`` (the two layouts' ``_layout_args`` meta)."""
         if graph_arrays:
-            n = 6 if self._on_cuda_tier else 3
             src, dst, in_deg = graph_arrays[:3]
             g = self.plan.g._replace(src=src, dst=dst, in_deg=in_deg,
                                      row_ptr=None)
-            glay = self._layout(graph_arrays[3:6]) if n == 6 else None
-            lay, ded = None, graph_arrays[n:]
-            if ded:
-                pl, pr, s2, d2 = ded[:4]
+            rest, glay, lay = graph_arrays[3:], None, None
+            if self._on_cuda_tier:
+                n = 3 if meta[0] is None else 12
+                glay, rest = self._layout(rest[:n], meta[0]), rest[n:]
+            if rest:
+                pl, pr, s2, d2 = rest[:4]
                 lay = self.plan.dedup_layout._replace(
                     pair_left=pl, pair_right=pr, src2=s2, dst2=d2,
-                    blocked=self._layout(ded[4:]) if ded[4:] else None)
+                    blocked=self._layout(rest[4:], meta[1])
+                    if rest[4:] else None)
             return self.plan.run_model(params, x, graph=g,
                                        graph_layout=glay, dedup_layout=lay)
         if self.layer is None:
@@ -971,8 +1005,10 @@ class CompiledPlan:
                 tuple(p for p, _ in leaves),
                 tuple((tuple(t.shape), t.dtype) for _, t in leaves))
 
-    def _layout_args(self, lay, what: str):
-        """A runtime layout's arrays, checked against the plan's tile."""
+    def _layout_args(self, lay, what: str, grad: bool):
+        """A runtime layout's arrays, checked against the plan's tile, and
+        the meta ``_layout`` rebuilds it with: under autograd (``grad``)
+        with its transposed layout's at a fixed capacity, else None."""
         if lay is None:
             raise ValueError(f"a cuda-tier dynamic plan takes the {what}'s "
                              f"blocked layout (plan.runtime_layout(..., "
@@ -983,12 +1019,26 @@ class CompiledPlan:
                 f"the {what}'s layout has tile {lay.tile_m} over "
                 f"{lay.num_vertices} rows; the plan's is {self.plan.agg_tile}"
                 f" over {self.plan.g.num_vertices}")
-        return (lay.src, lay.dstl, lay.mask)
+        arrays = (lay.src, lay.dstl, lay.mask)
+        if not grad:
+            return arrays, None
+        t = lay.transposed
+        if t is None or t.out_rows is None or t.fold is None:
+            raise ValueError(
+                f"a cuda-tier dynamic plan under autograd takes the {what}'s "
+                f"layout with its capped transposed layout at a fixed "
+                f"capacity, which K1's backward folds "
+                f"(plan.runtime_layout(..., max_in_deg=, transposed=True))")
+        f = t.fold
+        return arrays + (t.src, t.dstl, t.mask, t.eidx, t.out_rows, f.src,
+                         f.dstl, f.mask, f.out_rows), \
+            (t.num_vertices, f.num_vertices)
 
-    def _graph_args(self, graph: Graph, layout):
+    def _graph_args(self, graph: Graph, layout, grad: bool):
         """Validate a runtime graph (and, on the cuda tier, its blocked
         ``layout``) for the dynamic mode: a shape mismatch raises here,
-        never silently absorbed by a recapture."""
+        never silently absorbed by a recapture.  Returns its arrays and
+        the layout's meta (``_layout_args``)."""
         t = self.plan.g
         if graph.num_vertices != t.num_vertices or \
                 graph.src.shape != t.src.shape or \
@@ -1001,16 +1051,18 @@ class CompiledPlan:
         if graph.device != t.device:
             raise ValueError(f"dynamic graph on {graph.device}, plan on "
                              f"{t.device}")
-        arrays = (graph.src, graph.dst, graph.in_deg)
+        arrays, meta = (graph.src, graph.dst, graph.in_deg), None
         if self._on_cuda_tier:
-            arrays += self._layout_args(layout, "graph")
-        return arrays
+            lay, meta = self._layout_args(layout, "graph", grad)
+            arrays += lay
+        return arrays, meta
 
-    def _dedup_args(self, dedup):
+    def _dedup_args(self, dedup, grad: bool):
         """Validate runtime dedup arrays (a ``DedupLayout`` or its
         ``(pair_left, pair_right, src2, dst2)``) padded to the plan's
         ``dedup_pad`` (``_dedup_args``, :636); on the cuda tier the layout
-        also brings its level-2 ``blocked`` layout."""
+        also brings its level-2 ``blocked`` layout (under autograd with
+        its transposed layout).  Returns the arrays and the meta."""
         t = self.plan.dedup_layout
         blocked = getattr(dedup, "blocked", None)
         if hasattr(dedup, "pair_left"):
@@ -1022,46 +1074,46 @@ class CompiledPlan:
                 f"dynamic dedup shapes {pl.shape[0]}P/{s2.shape[0]}E2 do "
                 f"not match the bucket template {t.num_pairs}P/"
                 f"{t.num_edges2}E2 -- pad via graph.dedup.pad_dedup_arrays")
-        arrays = (pl, pr, s2, d2)
+        arrays, meta = (pl, pr, s2, d2), None
         if self._on_cuda_tier:
-            arrays += self._layout_args(blocked, "dedup layout")
-        return arrays
+            lay, meta = self._layout_args(blocked, "dedup layout", grad)
+            arrays += lay
+        return arrays, meta
 
     def __call__(self, params, x, graph: Optional[Graph] = None,
                  dedup=None, layout: Optional[BlockedGraph] = None):
+        leaves = _leaves(params)
+        meta = (None, None)
         if self.dynamic:
             if graph is None:
                 raise ValueError("dynamic compiled plans take (params, x, "
                                  "graph)")
-            arrays = (x,) + self._graph_args(graph, layout)
+            grad = _grad_wanted(leaves, (x,)) is not None
+            more, gmeta = self._graph_args(graph, layout, grad)
+            arrays, dmeta = (x,) + more, None
             if self.plan.dedup == "pairs":
                 if dedup is None:
                     raise ValueError(
                         "this dynamic plan was compiled with dedup='pairs'; "
                         "pass the block's padded dedup layout (dedup=)")
-                arrays += self._dedup_args(dedup)
+                more, dmeta = self._dedup_args(dedup, grad)
+                arrays += more
             elif dedup is not None:
                 raise ValueError("dedup arrays passed to a dedup='none' "
                                  "compiled plan")
+            meta = (gmeta, dmeta)
         else:
             if graph is not None:
                 raise ValueError("this compiled plan is static; build it "
                                  "with plan.compile(dynamic=True) to pass "
                                  "a runtime graph")
             arrays = (x,)
-        leaves = _leaves(params)
         wants = _grad_wanted(leaves, arrays)
-        if wants is not None and self.dynamic:
-            raise NotImplementedError(
-                "compile(dynamic=True) under autograd is not ported (ROADMAP "
-                "item 15): its backward would need the runtime graph's "
-                "transposed layouts as arguments; call it under "
-                "torch.no_grad(), or train through the eager forward")
-        sig = self._signature(leaves, arrays) + (wants,)
+        sig = self._signature(leaves, arrays) + (wants, meta)
         if sig in self._traces:
             self._num_replays += 1
             return self._run(self._traces[sig], params, leaves, arrays,
-                             wants)
+                             wants, meta)
         self._num_traces += 1
         if sig in self._seen:
             raise RuntimeError(
@@ -1069,22 +1121,23 @@ class CompiledPlan:
                 "captured -- something dropped the capture cache")
         cap = None
         if self.plan.device.type == "cuda":
-            cap = _Captured(self._forward, leaves, arrays, self.plan.device,
-                            wants=wants, mesh=self.plan.mesh)
+            cap = _Captured(functools.partial(self._forward, meta=meta),
+                            leaves, arrays, self.plan.device, wants=wants,
+                            mesh=self.plan.mesh)
         self._traces[sig] = cap
         self._seen.add(sig)
         if cap is not None and wants is None:
             out, cap.first = cap.first, None
             return out
-        return self._run(cap, params, leaves, arrays, wants)
+        return self._run(cap, params, leaves, arrays, wants, meta)
 
-    def _run(self, cap, params, leaves, arrays, wants):
+    def _run(self, cap, params, leaves, arrays, wants, meta):
         """One call served by the signature's trace: the eager forward on
         the CPU (under autograd when a gradient is wanted), else a
         replay."""
         if cap is None:
             with torch.set_grad_enabled(wants is not None):
-                return self._forward(params, *arrays)
+                return self._forward(params, *arrays, meta=meta)
         if wants is not None:
             return _Replay.apply(cap, self.donate,
                                  *[t for _, t in leaves], *arrays)

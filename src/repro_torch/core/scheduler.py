@@ -2,9 +2,10 @@
 
 Executing Combination before Aggregation cuts the Aggregation phase's data
 by the in/out feature-length ratio (Reddit 602->128: 4.7x).  This module
-prices both orderings (``ordering_cost``, ``ordering_time``) and picks the
-cheaper LEGAL one (``choose_ordering``): swapping is legal only for linear
-aggregation and a single affine combination (``swap_is_legal``).
+prices both orderings (``ordering_cost``, ``ordering_time``; Table 4's
+ratios, ``reduction_ratios``) and picks the cheaper LEGAL one
+(``choose_ordering``): swapping is legal only for linear aggregation and
+a single affine combination (``swap_is_legal``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,19 @@ def ordering_time(oc: OrderingCost, machine: Machine) -> float:
     comb = max(oc.comb_flops / machine.peak_flops,
                oc.comb_bytes / machine.hbm_bw)
     return agg + comb
+
+
+def reduction_ratios(g: Graph, in_len: int, out_len: int) -> dict:
+    """Paper Table 4's reductions, analytically (``reduction_ratios``,
+    :86): the aggregation's bytes and operations aggregate-first over
+    combine-first, and both orderings' costs."""
+    cf = ordering_cost(g, in_len, out_len, COMBINE_FIRST)
+    af = ordering_cost(g, in_len, out_len, AGGREGATE_FIRST)
+    return {
+        "data_access_reduction": af.agg_bytes / max(1, cf.agg_bytes),
+        "computation_reduction": af.agg_flops / max(1, cf.agg_flops),
+        "combine_first": cf, "aggregate_first": af,
+    }
 
 
 def swap_is_legal(agg_op: str, n_mlp_layers: int) -> bool:

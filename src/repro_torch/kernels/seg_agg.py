@@ -33,7 +33,8 @@ transposed layout (``core.dataflow._transposed`` with a cap: packed
 pieces of rows, each block row with a destination in the layout's row
 map ``out_rows``) the backward is ``fold_transposed``: one launch that
 stores each uncut row's f32 sum in place, once, and each piece of a cut
-row to a scratch row after them; then, only when some row was cut, a
+row to a scratch row after them; then, when some row was cut (and
+always at a fixed capacity, where an empty fold-back stores nothing), a
 second launch over the fold-back layout adding each cut row's pieces in
 piece order into its row.  Both are packed launches: one kernel each,
 warp-wide fold units, slices of ``packed_launch`` and the split
@@ -441,10 +442,12 @@ def fold_transposed(g: torch.Tensor, t, weight: Optional[torch.Tensor] = None,
     f32, its first ``t.num_vertices`` rows the result -- the pieces'
     launch stores each uncut row there, its one in-order fold, and each
     piece of a cut row to a scratch row after them; the fold-back's
-    launch (``t.fold``, only when a row was cut) reads the scratch rows
-    and adds each cut row's pieces in piece order into its row.  No row
-    is written twice.  The plain version on the CPU or when ``plain``, as
-    ``_fold``."""
+    launch (``t.fold``: when a row was cut, and always over a layout at a
+    fixed capacity, whose fold-back with no row cut stores nothing) reads
+    the scratch rows and adds each cut row's pieces in piece order into
+    its row.  No row is written twice, and nothing is read back to the
+    host, so the launches are the layout's alone.  The plain version on
+    the CPU or when ``plain``, as ``_fold``."""
     if t.out_rows is None:
         return _fold(g, t.src, t.dstl, t.mask, weight, t.tile_m,
                      backward=True, plain=plain)
@@ -463,12 +466,14 @@ def fold_transposed(g: torch.Tensor, t, weight: Optional[torch.Tensor] = None,
 class SegAgg(torch.autograd.Function):
     """K1 with its backward.  Forward: the fold.  Backward for ``x``: the
     same fold over the transposed layout (the one given, or else
-    ``core.dataflow.transposed_layout`` of the forward one, built in this
-    backward), the weights regrouped through its ``eidx``; over a capped
-    transposed layout, the pieces and, when a row was cut, the fold-back
-    (``fold_transposed``), rounded once to x's dtype.  Nothing launches
-    when ``x`` needs no gradient.  The layout, mask and weights get
-    none."""
+    ``core.dataflow.transposed_layout`` of the forward one, built on the
+    host in this backward -- which raises under a CUDA-graph capture, as
+    ``kernels.ops.seg_agg`` does: a captured backward takes its
+    transposed layout with the forward one), the weights regrouped
+    through its ``eidx``; over a capped transposed layout, the pieces and
+    the fold-back (``fold_transposed``), rounded once to x's dtype.
+    Nothing launches when ``x`` needs no gradient.  The layout, mask and
+    weights get none."""
 
     @staticmethod
     def forward(ctx, x, src, dstl, mask, weight, tile_m, transposed,
@@ -485,6 +490,12 @@ class SegAgg(torch.autograd.Function):
         src, dstl, mask, weight = ctx.saved_tensors
         t = ctx.transposed
         if t is None:
+            if gout.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise ValueError(
+                    "K1's backward builds a missing transposed layout on "
+                    "the host, which a CUDA-graph capture cannot run; pass "
+                    "the layout's transposed one (transposed=, "
+                    "plan.runtime_layout(..., transposed=True))")
             from repro_torch.core.dataflow import (BlockedGraph,
                                                    transposed_layout)
             t = transposed_layout(

@@ -115,6 +115,11 @@ class GCNModel(nn.Module):
             return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         return nll.mean()
 
+    def layer_costs(self, g: Graph, layer: int = 0) -> Dict:
+        """Analytic per-phase costs of one planned layer over ``g`` (paper
+        Tables 3/4; ``layer_costs``, :86)."""
+        return self.plan_for(g).layer_costs(layer)
+
 
 def make_paper_model(name: str, spec: GraphSpec, backend: str = AUTO, *,
                      device="cuda", generator: Optional[torch.Generator] = None,

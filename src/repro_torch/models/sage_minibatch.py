@@ -14,13 +14,22 @@ Two training paths:
     plans, the block's two-level pair layout -- and checkpoint-resume is
     exact because the pipeline state IS the step counter.
 
-A step is eager autograd and then SGD, ``p - lr * g``, under
-``torch.no_grad()``.  On the cuda tier K1 carries the aggregation both
-ways: the forward over the block's blocked layout, the backward over its
-transposed layout (``kernels.seg_agg.SegAgg``); both layouts are built on
-the host beside the block's padding.  K1 folds without atomics, so on the
-card, as on the CPU, a resumed run equals the uninterrupted one bit for
-bit.  The trainer runs unfused: K2 has no backward.
+A step is the forward, the mean NLL at the seeds, the backward and the
+SGD update ``p - lr * g`` of the parameters in place -- the port of the
+reference's ``jax.jit`` of its step (``_make_step``): on a card ONE CUDA
+graph per bucket, captured at the first step and replayed at every step
+after (``_CapturedStep``), its static inputs the padded block's arrays,
+layouts, features (gathered straight into the graph's buffer), seed
+positions and labels; on the CPU the same step eagerly.  Only the host
+stages run outside the graph: sampling, union and padding, the layouts,
+dedup matching.  On the cuda tier K1 carries the aggregation both ways:
+the forward over the block's blocked layout, the backward over its capped
+transposed layout (``kernels.seg_agg.SegAgg``), both built on the host at
+the bucket's fixed capacity, so every block of the bucket launches the
+same kernels.  K1 folds without atomics, so on the card, as on the CPU, a
+replayed step equals the eager one (``loss_and_grads``, ``_sgd``) bit for
+bit, and a resumed run the uninterrupted one.  The trainer runs unfused:
+K2 has no backward.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch
 
 from repro_torch.config import GCNModelConfig, GraphSpec
 from repro_torch.core.backend import AUTO, resolve_device
-from repro_torch.core.plan import _leaves, _tree, build_plan, plan_for_conv
+from repro_torch.core.plan import (CompiledPlan, _leaves, _tree, build_plan,
+                                   capture_graph, plan_for_conv)
 from repro_torch.graph.sampling import SampledBlock, two_hop_batch
 from repro_torch.graph.structure import Graph
 from repro_torch.data.pipeline import GraphPipeline
@@ -186,6 +196,46 @@ def make_sage_train_step(model: SageMiniBatchModel, features, labels,
 # ---------------------------------------------------------------------------
 
 
+class _CapturedStep:
+    """One bucket's training step as a CUDA graph: ``body()`` -- the loss
+    and the parameters' gradients over static input buffers -- then the
+    SGD update of ``leaves`` in place, captured once and replayed.
+
+    A warm-up forward and backward (no update) runs on a side stream
+    first: it builds and loads the kernels and sets their attributes,
+    none of which may happen under capture.  The capture itself runs
+    nothing, so the parameters are untouched until the first replay.
+    ``loss`` is the graph's static loss; ``launches`` the kernels' launch
+    counts recorded into the graph (a replay moves no counter)."""
+
+    def __init__(self, body, statics, leaves, lr: float,
+                 device: torch.device):
+        from repro_torch.kernels.ops import launch_counts
+        self.statics = statics
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body()
+        cur.wait_stream(side)
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with capture_graph(self.graph):
+            loss, grads = body()
+            _sgd(leaves, grads, lr)
+            self.loss = loss.detach()
+        self.launches = {k: n - before[k] for k, n in launch_counts().items()}
+
+    def replay(self, arrays) -> torch.Tensor:
+        """Copy ``arrays`` into the static buffers, replay, and return the
+        static loss."""
+        with torch.no_grad():
+            for dst, src in zip(self.statics, arrays):
+                dst.copy_(src)
+        self.graph.replay()
+        return self.loss
+
+
 class PlannedSageTrainer:
     """Steady-state minibatch training through ONE bucketed plan
     (``PlannedSageTrainer``, :133).
@@ -201,11 +251,14 @@ class PlannedSageTrainer:
 
     A step: ``GraphPipeline.batch_at(step)`` samples on the host, the
     union block is padded into the bucket, on the cuda tier its forward
-    and transposed layouts are built on the host, on a pairs plan its dedup
-    layout is matched (``predict`` pads it to the bucket's pair capacity,
-    ``pad_dedup_arrays``), the features are gathered on the device, and
-    the plan -- re-fetched through ``build_plan``, a plan-cache hit -- runs
-    forward and backward.
+    and capped transposed layouts are built on the host at the bucket's
+    fixed capacity, on a pairs plan its dedup layout is matched and padded
+    to the bucket's pair capacity (``pad_dedup_arrays``), the features are
+    gathered on the device, and the plan -- re-fetched through
+    ``build_plan``, a plan-cache hit -- runs forward and backward and the
+    parameters take the SGD update: on a card through the bucket's
+    captured step (``_CapturedStep``: its buffers take the block's
+    arrays, the feature gather writes into its ``x``), on the CPU eagerly.
     ``stage_ms`` holds the last step's host milliseconds per stage.
 
     Exactness: the forward (``predict``, and each step's loss) equals
@@ -263,6 +316,12 @@ class PlannedSageTrainer:
             generator=generator or torch.Generator().manual_seed(seed))
         #: compiled inference forward over the same bucket (``predict``)
         self.fwd = self.plan.compile(dynamic=True, donate=donate)
+        #: the training step's traces: per input signature its
+        #: ``_CapturedStep`` (None on the CPU, whose steps run eagerly);
+        #: the features' buffer its graphs read
+        self._steps: Dict = {}
+        self._step_traces = 0
+        self._x: Optional[torch.Tensor] = None
         self.losses: list = []
         self.last_pairs = 0   # matched pairs of the most recent block
         self.stage_ms: Dict[str, float] = {}
@@ -286,10 +345,12 @@ class PlannedSageTrainer:
 
     @property
     def retraces(self) -> int:
-        """Bucket-plan rebuilds after set-up plus ``predict`` captures
-        beyond the first (0 = steady state).  The train step is eager, so
-        it has no trace of its own."""
-        return self._rebuilds + max(0, self.fwd.num_traces - 1)
+        """Bucket-plan rebuilds after set-up, plus training-step traces
+        beyond the first (the reference's ``retraces``: on a card step
+        captures, on the CPU new step signatures), plus ``predict``
+        captures beyond the first (0 = steady state)."""
+        return self._rebuilds + max(0, self._step_traces - 1) + \
+            max(0, self.fwd.num_traces - 1)
 
     # ---------------------------------------------------------- block prep
 
@@ -320,19 +381,22 @@ class PlannedSageTrainer:
         return build_dedup_layout(prep["src"], prep["dst"],
                                   self.bucket.num_inputs, device="cpu")
 
-    def _inputs(self, prep, *, capacity: bool = False):
+    def _inputs(self, prep, *, backward: bool = True,
+                x: Optional[torch.Tensor] = None):
         """(x, graph, graph layout, dedup layout) of a prepared block on
-        the device.  On the cuda tier the graph's blocked layout (else
-        None) and the dedup layout's level 2 are built on the host over
-        the real edges: with the transposed ones for the backward, or
-        (``capacity``, the captured ``predict``) at the fixed
-        ``emax`` of ``tile * (f1 + f2)`` slots, as a destination row of a
-        union block has at most f1 + f2 edges, and with the pairs padded
-        to the bucket's capacity."""
+        the device, at the bucket's fixed shapes.  On the cuda tier the
+        graph's blocked layout (else None) and the dedup layout's level 2
+        are built on the host over the real edges at the fixed ``emax`` of
+        ``tile * (f1 + f2)`` slots (a destination row of a union block has
+        at most f1 + f2 edges) and, for a step (``backward``; ``predict``
+        needs none), with their capped transposed layouts at the capacity
+        of the bucket's edge count.  The pairs are padded to the bucket's
+        pair capacity.  The features are gathered into ``x`` when given
+        (the captured step's buffer), else into a new tensor."""
         t0 = time.perf_counter()
         b, dev = self.bucket, self.device
         cuda = self.plan.agg_tile > 0
-        cap = sum(self.fanouts) if capacity else None
+        cap = sum(self.fanouts)
         g = Graph(src=_on(prep["src"], dev), dst=_on(prep["dst"], dev),
                   in_deg=_on(prep["in_deg"], dev),
                   out_deg=_on(prep["in_deg"], dev),
@@ -340,51 +404,109 @@ class PlannedSageTrainer:
         e = prep["edges"]
         glay = self.plan.runtime_layout(
             prep["src"][:e], prep["dst"][:e], max_in_deg=cap,
-            transposed=not capacity) if cuda else None
+            transposed=backward) if cuda else None
         t1 = time.perf_counter()
         ded = None
         if self.dedup == "pairs":
             lay = self._block_layout(prep)
             self.last_pairs = lay.num_pairs
-            # the capture takes the bucket's pair capacity; an eager step
-            # only the block's pairs (pad pairs are (sink, sink), and their
-            # gradients would all pile onto the sink row)
-            pcap = self.pair_cap if capacity else lay.num_pairs
-            arrays = pad_dedup_arrays(lay, pcap, b.num_edges,
+            arrays = pad_dedup_arrays(lay, self.pair_cap, b.num_edges,
                                       b.num_inputs - 1)
+            # the pad pairs' partial rows are read by no level-2 edge, so
+            # their gradients are zero rows: pad pair k gathers row k (mod
+            # the bucket's rows) rather than the sink, so the gather's
+            # backward (an accumulating index_put) adds each zero to a row
+            # of its own instead of thousands onto the sink in series
+            # (~96 ms a step on the H100, PERF.md section 6); the forward
+            # is unchanged
+            pad = np.arange(self.pair_cap - lay.num_pairs) % b.num_inputs
+            for a in arrays[:2]:
+                a[lay.num_pairs:] = pad
             pl, pr, s2, d2 = (_on(a, dev) for a in arrays)
             ded = self.plan.dedup_layout._replace(
                 pair_left=pl, pair_right=pr, src2=s2, dst2=d2,
-                num_pairs=pcap, blocked=None)
+                num_pairs=self.pair_cap, blocked=None)
             if cuda:
                 real = lay.num_edges2 - (b.num_edges - e)
                 ded = ded._replace(blocked=self.plan.runtime_layout(
                     arrays[2][:real], arrays[3][:real],
-                    num_rows=b.num_inputs + pcap, max_in_deg=cap,
-                    transposed=not capacity))
+                    num_rows=b.num_inputs + self.pair_cap, max_in_deg=cap,
+                    transposed=backward))
         t2 = time.perf_counter()
         n = len(prep["frontier"])
-        x = torch.zeros((b.num_inputs, self.in_dim), dtype=torch.float32,
-                        device=dev)
-        x[:n] = self.features[_on(prep["frontier"], dev).long()]
+        if x is None:
+            x = torch.empty((b.num_inputs, self.in_dim),
+                            dtype=torch.float32, device=dev)
+        torch.index_select(self.features, 0,
+                           _on(prep["frontier"], dev).long(), out=x[:n])
+        x[n:].zero_()
         self.stage_ms.update(layouts=(t1 - t0) * 1e3,
                              dedup=(t2 - t1) * 1e3,
                              x=(time.perf_counter() - t2) * 1e3)
         return x, g, glay, ded
 
-    def loss_and_grads(self, prep):
-        """The loss of a prepared block and the gradients of the
-        parameters (in ``model.parameters()`` order)."""
-        x, g, glay, ded = self._inputs(prep)
-        seed_pos = _on(prep["seed_pos"], self.device).long()
-        y = _on(prep["y"], self.device)
+    def _targets(self, prep) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(seed positions, labels) of a prepared block on the device."""
+        return (_on(prep["seed_pos"], self.device).long(),
+                _on(prep["y"], self.device))
+
+    def _loss_grads(self, forward, seed_pos, y):
+        """The loss of ``forward(params)``'s logits at the seeds and the
+        gradients of the parameters (in ``model.parameters()`` order)."""
         leaves = list(self.model.parameters())
-        logits = self.plan.run_model(self.model.tree(), x, graph=g,
-                                     graph_layout=glay, dedup_layout=ded)
-        loss = _nll(logits[seed_pos], y)
+        loss = _nll(forward(self.model.tree())[seed_pos], y)
         return loss, torch.autograd.grad(loss, leaves)
 
+    def loss_and_grads(self, prep):
+        """The eager step's loss of a prepared block and the gradients of
+        the parameters (in ``model.parameters()`` order): what a captured
+        step computes, before its update."""
+        x, g, glay, ded = self._inputs(prep)
+        return self._loss_grads(
+            lambda p: self.plan.run_model(p, x, graph=g, graph_layout=glay,
+                                          dedup_layout=ded),
+            *self._targets(prep))
+
     # ------------------------------------------------------------- training
+
+    def _run_step(self, prep) -> torch.Tensor:
+        """The step over a prepared block: the loss, the parameters
+        updated.  Its arrays go through the bucket forward's argument
+        form (``CompiledPlan``), and each signature -- one per bucket --
+        is traced once: on a card captured (``_CapturedStep``) and
+        replayed after, its buffers taking each block's arrays; on the CPU
+        run eagerly."""
+        fwd = self.fwd
+        leaves = list(self.model.parameters())
+        x, g, glay, ded = self._inputs(prep, x=self._x)
+        arrays, gmeta = fwd._graph_args(g, glay, True)
+        dmeta = None
+        if self.dedup == "pairs":
+            more, dmeta = fwd._dedup_args(ded, True)
+            arrays += more
+        arrays += self._targets(prep)
+        meta = (gmeta, dmeta)
+
+        def body(ins):
+            return self._loss_grads(
+                lambda p: fwd._forward(p, x, *ins[:-2], meta=meta),
+                *ins[-2:])
+        sig = (CompiledPlan._signature([], (x,) + arrays), meta)
+        if sig not in self._steps:
+            self._step_traces += 1
+            self._steps[sig] = None
+            if self.device.type == "cuda":
+                self._x = x
+                statics = [a.clone() for a in arrays]
+                self._steps[sig] = _CapturedStep(
+                    lambda: body(statics), statics, leaves, self.lr,
+                    self.device)
+        cap = self._steps[sig]
+        if cap is not None:
+            return cap.replay(arrays)
+        loss, grads = body(arrays)
+        _sgd(leaves, grads, self.lr)
+        return loss.detach()
 
     def step(self) -> float:
         """One SGD step on the pipeline's next block."""
@@ -395,9 +517,7 @@ class PlannedSageTrainer:
         prep = self._prepare(batch)
         t2 = time.perf_counter()
         self.plan = self._plan()
-        loss, grads = self.loss_and_grads(prep)
-        _sgd(list(self.model.parameters()), grads, self.lr)
-        value = float(loss.detach())
+        value = float(self._run_step(prep))
         self.stage_ms.update(sample=(t1 - t0) * 1e3, union=(t2 - t1) * 1e3,
                              step=(time.perf_counter() - t0) * 1e3)
         self.losses.append(value)
@@ -423,7 +543,7 @@ class PlannedSageTrainer:
         batch = self.pipeline.batch_at(
             self.pipeline.step if step is None else int(step))
         prep = self._prepare(batch)
-        x, g, glay, ded = self._inputs(prep, capacity=True)
+        x, g, glay, ded = self._inputs(prep, backward=False)
         with torch.no_grad():
             out = self.fwd(self.params, x, g, dedup=ded, layout=glay)
         return out[_on(prep["seed_pos"], self.device).long()].cpu().numpy()

@@ -312,35 +312,37 @@ class GraphServeEngine(SlotServeCore):
         return None
 
     def warmup(self) -> Dict[str, int]:
-        """Capture every bucket before admission, drive the request path
-        once per bucket, and pin the bucket plans.
+        """Capture every bucket before admission, pin the bucket plans,
+        and drive the request path once per bucket.
 
         Runs each bucket's callable once on its template (so the first
-        request pays no capture), then -- on the first call -- one
-        template request per bucket through what a real request runs:
-        ``prepare`` (from a throwaway RNG, so the engine's own draws are
-        untouched), ``_pad_into`` with the capacity layout, the feature
-        gather, the replay and ``_seed_rows``.  That pays the process's
-        first-use costs of those stages here, so first-request latency is
-        honest; none of it counts in the stats (stage times, latencies,
-        hits, misses) or as a trace.  Then sweeps the plan cache down to
-        the bucket plans (``clear_plan_cache(keep=...)``) and runs the
-        garbage collector: a swept plan and its compiled callable form a
-        reference cycle that holds device memory and CUDA graphs, and the
-        captures ran with the collector paused (``core.plan.
-        capture_graph``), so that collection is paid here, not by the
-        first request.  Idempotent;
+        request pays no capture), sweeps the plan cache down to the bucket
+        plans (``clear_plan_cache(keep=...)``) and runs the garbage
+        collector: a swept plan and its compiled callable form a reference
+        cycle that holds device memory and CUDA graphs, and the captures
+        ran with the collector paused (``core.plan.capture_graph``), so
+        that collection is paid here, not by the first request.  Then --
+        on the first call -- one template request per bucket through what
+        a real request runs: ``prepare`` (from a throwaway RNG, so the
+        engine's own draws are untouched), ``_pad_into`` with the capacity
+        layout, the feature gather, the replay and ``_seed_rows``.  That
+        pays the process's first-use costs of those stages here, and,
+        coming after the sweep and the collection (which walk every
+        object and free what the captures left), it leaves the request
+        path's code and memory as a served request leaves them, so
+        first-request latency is honest; none of it counts in the stats
+        (stage times, latencies, hits, misses) or as a trace.  Idempotent;
         returns ``{bucket-name: num_traces}``, every value 1 after a
         warm-up and through serving (the zero-retrace contract)."""
         self._capture_buckets()
+        clear_plan_cache(keep=list(self._plans.values()))
+        gc.collect()
+        self._cache_sweeps += 1
         if not self._warmed:
             rng = np.random.default_rng(0)
             for b in self.buckets:
                 self._warm_request(b, rng)
             self.stage_ms = {}
-        clear_plan_cache(keep=list(self._plans.values()))
-        gc.collect()
-        self._cache_sweeps += 1
         self._warmed = True
         return {self._bucket_name(b): self._fns[b].num_traces
                 for b in self.buckets}

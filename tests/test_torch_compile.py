@@ -351,16 +351,27 @@ def test_grad_and_inference_signatures_are_separate_traces():
         fn(m.tree(), TX)
 
 
-def test_dynamic_compile_under_grad_raises():
-    """compile(dynamic=True) under autograd is not ported: it raises,
-    naming the ROADMAP item; under no_grad it serves as before."""
+def test_dynamic_compile_gradients_equal_eager(one_thread):
+    """Gradients through ``compile(dynamic=True)`` on the CPU: a loss over
+    each of two runtime graphs differentiates, bit for bit the eager
+    forward's autograd over the same graph, on every call; the grad
+    signature is one trace and the no_grad one another."""
     m = make_paper_model("gcn", TSPEC, device="cpu")
-    fn = m.plan_for(TG, fused=False).compile(dynamic=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fn(m.tree(), TX, TG2)
+    plan = m.plan_for(TG, fused=False)
+    fn = tplan.CompiledPlan(plan, dynamic=True)
+    labels = torch.from_numpy(np.random.default_rng(1).integers(
+        0, TSPEC.num_classes, TSPEC.num_vertices))
+    tensors = [t for _, t in tplan._leaves(m.tree())]
+    for graph in (TG2, TG, TG2):
+        eager = torch.autograd.grad(
+            _nll(plan.run_model(m.tree(), TX, graph=graph), labels), tensors)
+        logits = fn(m.tree(), TX, graph)
+        assert logits.requires_grad
+        grads = torch.autograd.grad(_nll(logits, labels), tensors)
+        assert all(torch.equal(a, b) for a, b in zip(grads, eager))
     with torch.no_grad():
         fn(m.tree(), TX, TG2)
-    assert fn.num_traces == 1
+    assert (fn.num_traces, fn.num_replays) == (2, 2)
 
 
 def test_capture_graph_pauses_the_collector(monkeypatch):

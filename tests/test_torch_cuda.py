@@ -1011,7 +1011,8 @@ TRAIN_KW = dict(hidden=32, batch_size=16, fanouts=(5, 3), lr=0.1, seed=0)
 def test_trainer_first_step_cuda_vs_torch(card, dedup):
     """The trainer's first step on the cuda tier against the torch tier on
     the same card and block (loss and gradients, unit f32 band times 10);
-    K1 launches forward and backward as the ordering implies; predict
+    K1 launches forward and backward as the ordering implies (backward:
+    the capacity layout's pieces and its fold-back a layer); predict
     captures once and replays the eager forward's bits."""
     from repro_torch.models.sage_minibatch import PlannedSageTrainer
     spec, g, x, y = _train_case(card)
@@ -1029,11 +1030,11 @@ def test_trainer_first_step_cuda_vs_torch(card, dedup):
         _close(a, b)
     n_bwd = sum(i > 0 or lp.order == "combine_first"
                 for i, lp in enumerate(tc.plan.layers))
-    assert (launched["seg_agg"], launched["seg_agg_bwd"]) == (2 + n_bwd,
-                                                              n_bwd)
+    assert (launched["seg_agg"], launched["seg_agg_bwd"]) == (
+        2 + 2 * n_bwd, 2 * n_bwd)
     first = tc.predict(step=1)
     xx, gg, glay, ded = tc._inputs(
-        tc._prepare(tc.pipeline.batch_at(2)), capacity=True)
+        tc._prepare(tc.pipeline.batch_at(2)), backward=False)
     with torch.no_grad():
         eager = tc.plan.run_model(tc.params, xx, graph=gg,
                                   graph_layout=glay, dedup_layout=ded)
@@ -1041,6 +1042,63 @@ def test_trainer_first_step_cuda_vs_torch(card, dedup):
                                   layout=glay), eager)
     assert np.isfinite(first).all()
     assert (tc.fwd.num_traces, tc.fwd.num_replays) == (1, 1)
+
+
+@pytest.mark.parametrize("dedup", ["none", "pairs"])
+def test_trainer_captured_step_bitwise_eager(card, dedup):
+    """The trainer's steps through its one captured step against the eager
+    step (``loss_and_grads``, ``_sgd``) of a second trainer from the same
+    state on the same blocks: each loss and every parameter bit for bit;
+    one capture, no retrace; a replay moves no launch counter, and the
+    capture recorded K1's forward and backward (pieces and fold-back)
+    launches."""
+    from repro_torch.models.sage_minibatch import PlannedSageTrainer, _sgd
+    spec, g, x, y = _train_case(card)
+    tr = PlannedSageTrainer(g, spec, x, y, dedup=dedup, **TRAIN_KW)
+    ref = PlannedSageTrainer(g, spec, x, y, dedup=dedup, **TRAIN_KW)
+    n_bwd = sum(i > 0 or lp.order == "combine_first"
+                for i, lp in enumerate(tr.plan.layers))
+    for step in range(5):
+        before = ops.launch_counts()
+        got = tr.step()
+        moved = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        loss, grads = ref.loss_and_grads(
+            ref._prepare(ref.pipeline.batch_at(step)))
+        _sgd(list(ref.model.parameters()), grads, ref.lr)
+        assert got == loss.item()
+        for p, q in zip(tr.model.parameters(), ref.model.parameters()):
+            assert torch.equal(p, q)
+        if step:
+            assert moved["seg_agg"] == 0
+    (cap,) = tr._steps.values()
+    assert (cap.launches["seg_agg"], cap.launches["seg_agg_bwd"]) == (
+        2 + 2 * n_bwd, 2 * n_bwd)
+    assert tr._step_traces == 1 and tr.retraces == 0
+
+
+def test_k1_backward_at_capacity_matches_plain(card):
+    """K1's backward over a trainer block's capped transposed layout at
+    the bucket's capacity (pieces, then the fold-back, empty or not)
+    against the plain version's fold per row; two launches a fold, the
+    same whichever block; repeat launches bit for bit."""
+    from repro_torch.models.sage_minibatch import PlannedSageTrainer
+    spec, g, x, y = _train_case(card)
+    tr = PlannedSageTrainer(g, spec, x, y, dedup="none", **TRAIN_KW)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for step in range(3):
+        _, _, lay, _ = tr._inputs(tr._prepare(tr.pipeline.batch_at(step)))
+        t = lay.transposed
+        assert t.fold is not None and t.emax == dataflow.TRANSPOSE_CAP
+        gout = torch.randn((lay.nblocks * lay.tile_m, 41), generator=gen,
+                           device="cuda")
+        n = k1.seg_agg.launches_bwd
+        got = k1.fold_transposed(gout, t)
+        again = k1.fold_transposed(gout, t)
+        assert k1.seg_agg.launches_bwd - n == 4
+        want = k1.fold_transposed(gout, t, plain=True)
+        rows = t.num_vertices
+        assert torch.equal(got[:rows], again[:rows])
+        _rows_close(got[:rows], want[:rows], ROW_LIMIT[torch.float32])
 
 
 def test_trainer_resume_bitwise_on_card(card, tmp_path):

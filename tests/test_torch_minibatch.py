@@ -35,13 +35,14 @@ from repro.models import sage_minibatch as jsm
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.config import CORA, GraphSpec, reduced_graph
 from repro_torch.core import plan as tplan
+from repro_torch.core.dataflow import block_graph_arrays
 from repro_torch.graph.datasets import make_synthetic_graph as tgraph
 from repro_torch.graph.sampling import two_hop_batch
 from repro_torch.graph.structure import graph_from_coo
 from repro_torch.kernels import ops
 from repro_torch.kernels import seg_agg as k1
 from repro_torch.models.sage_minibatch import (PlannedSageTrainer,
-                                               SageMiniBatchModel,
+                                               SageMiniBatchModel, _nll, _sgd,
                                                train_minibatch_planned,
                                                train_minibatch_sage)
 
@@ -196,8 +197,10 @@ def test_cuda_tier_trainer_equals_torch_tier(fixture, cuda_tier_on_cpu,
     """The cuda tier's trainer path (runtime layouts, K1's Function both
     ways) against the torch tier: losses and parameters within the f32
     band, predict's capture over fixed-capacity layouts equal to the eager
-    forward over them.  K1 folds once a layer forward, and once more
-    backward for each layer whose operand needs a gradient."""
+    forward over them.  K1 folds once a layer forward, and twice more
+    backward for each layer whose operand needs a gradient: the pieces of
+    the capped transposed layout at the bucket's capacity, then its
+    fold-back, there whether or not a row was cut."""
     _, tg, _, tspec, x, y = fixture
     folds = {"n": 0}
     fold = k1._fold
@@ -219,12 +222,12 @@ def test_cuda_tier_trainer_equals_torch_tier(fixture, cuda_tier_on_cpu,
                               tplan._leaves(tt.params)):
         assert_allclose_dtype(a.detach().numpy(), b.detach().numpy())
     orders = [lp.order for lp in tc.plan.layers]
-    per_step = 2 + sum(i > 0 or o == "combine_first"
-                       for i, o in enumerate(orders))
+    per_step = 2 + 2 * sum(i > 0 or o == "combine_first"
+                           for i, o in enumerate(orders))
     assert folds["n"] == 3 * per_step
     # predict: the fixed-capacity layouts, one capture, eager bits
     prep = tc._prepare(tc.pipeline.batch_at(4))
-    xx, g, glay, ded = tc._inputs(prep, capacity=True)
+    xx, g, glay, ded = tc._inputs(prep, backward=False)
     assert glay.emax == -(-tc.plan.agg_tile * 4 // 8) * 8
     assert glay.transposed is None
     with torch.no_grad():
@@ -323,3 +326,177 @@ def test_minibatch_training_matches_reference_and_reduces_loss(cora):
     _, own, _ = train_minibatch_sage(tg, tspec, x, y, steps=25,
                                      device="cpu", **kw)
     assert np.mean(own[-5:]) < np.mean(own[:5])
+
+
+# ---------------------------------------------------------------------------
+# the captured step's inputs: capped transposed layouts at the bucket's
+# capacity, K1's backward over them, the step's trace count
+# ---------------------------------------------------------------------------
+
+#: TRANSPOSE_CAP as shipped, and cut at 8 slots so that the test blocks'
+#: hub sources are cut and fold back from scratch rows
+CAPS = [None, 8]
+#: blocks wide enough for a hub source to have more than 8 out-edges
+WIDE = dict(KW, batch_size=32, fanouts=(3, 3))
+
+
+def _cut_at(monkeypatch, cap):
+    if cap is not None:
+        monkeypatch.setattr(tplan, "TRANSPOSE_CAP", cap)
+
+
+def _step_layouts(tr, steps):
+    """Each block's forward and transposed layouts as a step takes them
+    (the graph's, then a pairs plan's level 2)."""
+    out = []
+    for s in steps:
+        _, _, glay, ded = tr._inputs(tr._prepare(tr.pipeline.batch_at(s)))
+        out.append([glay] + ([] if ded is None else [ded.blocked]))
+    return out
+
+
+def _arrays(lay):
+    t, f = lay.transposed, lay.transposed.fold
+    return [lay.src, lay.dstl, lay.mask, t.src, t.dstl, t.mask, t.eidx,
+            t.out_rows, f.src, f.dstl, f.mask, f.out_rows]
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("dedup", ["none", "pairs"])
+def test_capacity_transposed_layouts_have_equal_shapes(
+        fixture, cuda_tier_on_cpu, monkeypatch, dedup, cap):
+    """The step's layouts of several sampled blocks: every tensor of the
+    forward layout, its capped transposed layout and the fold-back (there
+    for every block, cut row or not) has the same shape and dtype in
+    every block, and the counts a layout is rebuilt from (rows, scratch
+    rows) agree; each transposed layout holds each real edge once."""
+    _cut_at(monkeypatch, cap)
+    _, tg, _, tspec, x, y = fixture
+    tr = PlannedSageTrainer(tg, tspec, x, y, dedup=dedup, device="cpu",
+                            backend="cuda", **WIDE)
+    blocks = _step_layouts(tr, range(6))
+    first = blocks[0]
+    cut = False
+    for lays in blocks:
+        assert len(lays) == len(first)
+        for lay, ref in zip(lays, first):
+            assert [(a.shape, a.dtype) for a in _arrays(lay)] == \
+                [(a.shape, a.dtype) for a in _arrays(ref)]
+            t = lay.transposed
+            assert (t.num_vertices, t.fold.num_vertices, t.emax) == \
+                (ref.transposed.num_vertices, ref.transposed.fold
+                 .num_vertices, tplan.TRANSPOSE_CAP)
+            assert int(t.mask.sum()) == int(lay.mask.sum())
+            cut |= bool((t.fold.out_rows >= 0).any())
+    assert cut == (cap is not None)
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("dedup", ["none", "pairs"])
+def test_k1_backward_at_capacity_equals_uncapped(fixture, cuda_tier_on_cpu,
+                                                 monkeypatch, dedup, cap):
+    """K1's plain backward over each block's capacity layout (the pieces,
+    then the fold-back) against the uncapped transposed layout of the same
+    edges: bit for bit when no row is cut (each row one in-order fold),
+    within the f32 band when rows over the cap fold back from pieces."""
+    _cut_at(monkeypatch, cap)
+    _, tg, _, tspec, x, y = fixture
+    tr = PlannedSageTrainer(tg, tspec, x, y, dedup=dedup, device="cpu",
+                            backend="cuda", **WIDE)
+    rng = np.random.default_rng(11)
+    for lays in _step_layouts(tr, range(4)):
+        for lay in lays:
+            t = lay.transposed
+            m = lay.mask.numpy() != 0
+            b, j = np.nonzero(m)
+            src = lay.src.numpy()[b, j]
+            dst = b * lay.tile_m + lay.dstl.numpy()[b, j]
+            uncapped = block_graph_arrays(
+                src, dst, lay.num_vertices, lay.tile_m,
+                transpose_rows=t.num_vertices).transposed
+            g = torch.from_numpy(rng.standard_normal(
+                (lay.nblocks * lay.tile_m, 6)).astype(np.float32))
+            got = ops.seg_agg_transposed(t, g, backend="torch")
+            want = ops.seg_agg_transposed(uncapped, g, backend="torch")
+            assert got.shape == want.shape
+            if cap is None:
+                assert torch.equal(got, want)
+            else:
+                assert_allclose_dtype(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("cap", CAPS)
+def test_capacity_layout_raises_past_its_edges(monkeypatch, cap):
+    """A transposed layout at a capacity smaller than its edges raises;
+    at the capacity of its own edges it holds them."""
+    src, dst = _hub_edges(60)
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    c = cap or tplan.TRANSPOSE_CAP
+    lay = block_graph_arrays(src, dst, 60, 8, transpose_rows=60,
+                             transpose_cap=c, max_edges=len(src))
+    assert int(lay.transposed.mask.sum()) == len(src)
+    with pytest.raises(ValueError, match="capacity"):
+        block_graph_arrays(src, dst, 60, 8, transpose_rows=60,
+                           transpose_cap=c, max_edges=len(src) - 1)
+
+
+@pytest.mark.parametrize("dedup", ["none", "pairs"])
+def test_trainer_step_equals_eager_step_and_never_retraces(
+        fixture, cuda_tier_on_cpu, dedup):
+    """The trainer's steps on the cuda tier's path -- through the bucket
+    forward's argument form, one trace for the bucket -- against the eager
+    step (``loss_and_grads``, ``_sgd``) from the same state on the same
+    blocks: losses and parameters bit for bit; ``retraces`` stays 0."""
+    _, tg, _, tspec, x, y = fixture
+    kw = dict(KW, dedup=dedup, device="cpu", backend="cuda")
+    tr = PlannedSageTrainer(tg, tspec, x, y, **kw)
+    ref = PlannedSageTrainer(tg, tspec, x, y, **kw)
+    for step in range(4):
+        got = tr.step()
+        loss, grads = ref.loss_and_grads(
+            ref._prepare(ref.pipeline.batch_at(step)))
+        _sgd(list(ref.model.parameters()), grads, ref.lr)
+        assert got == float(loss.detach())
+        for p, q in zip(tr.model.parameters(), ref.model.parameters()):
+            assert torch.equal(p, q)
+    assert tr._step_traces == 1 and tr.retraces == 0
+
+
+@pytest.mark.parametrize("dedup", ["none", "pairs"])
+def test_dynamic_compile_under_grad_takes_capacity_layouts(
+        fixture, cuda_tier_on_cpu, dedup):
+    """``compile(dynamic=True)`` under autograd on the cuda tier's path:
+    the gradients over a block's capacity layouts (transposed ones
+    included) equal the eager forward's bit for bit, each block one
+    signature; a layout without its transposed layout raises."""
+    _, tg, _, tspec, x, y = fixture
+    tr = PlannedSageTrainer(tg, tspec, x, y, dedup=dedup, device="cpu",
+                            backend="cuda", **KW)
+    fn = tplan.CompiledPlan(tr.plan, dynamic=True)
+    leaves = list(tr.model.parameters())
+    for step in range(3):
+        prep = tr._prepare(tr.pipeline.batch_at(step))
+        xx, g, glay, ded = tr._inputs(prep)
+        pos, lab = tr._targets(prep)
+        eager = torch.autograd.grad(_nll(tr.plan.run_model(
+            tr.params, xx, graph=g, graph_layout=glay,
+            dedup_layout=ded)[pos], lab), leaves)
+        got = torch.autograd.grad(_nll(fn(tr.params, xx, g, dedup=ded,
+                                          layout=glay)[pos], lab), leaves)
+        assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    assert (fn.num_traces, fn.num_replays) == (1, 2)
+    _, _, bare, ded = tr._inputs(prep, backward=False)
+    with pytest.raises(ValueError, match="transposed layout"):
+        fn(tr.params, xx, g, dedup=ded, layout=bare)
+
+
+@pytest.mark.parametrize("n,top", [(0, 1), (7, 3), (5000, 40), (3, 1 << 61)])
+def test_stable_order_is_a_stable_argsort(n, top):
+    """The capped builder's source order (``core.dataflow._stable_order``)
+    is numpy's stable argsort: equal keys keep their edges' order, also
+    past the range its packed keys take."""
+    from repro_torch.core.dataflow import _stable_order
+    keys = np.random.default_rng(n).integers(0, top, n)
+    assert np.array_equal(_stable_order(keys),
+                          np.argsort(keys, kind="stable"))
