@@ -67,6 +67,27 @@ Phases, each printing its own lines; any failure exits non-zero:
   7. lm f32  -- gemma2-9b in f32 at full width, depth cut to 2 layers: one
                 6144-token lm_prefill, which takes K5's f32 path; its launch
                 count and logits against the torch tier.
+ 18. lm-train -- (right after phase 7) K5's backward kernels
+                (bwd_dq_kernel, bwd_dkdv_kernel) against
+                flash_attention_bwd_plain in f32 and bf16 at gemma2's
+                training layers (global and local, 6144 tokens), a
+                granite-3-8b layer, Sq < Sk with a ragged kv_len and a
+                non-causal case: per-row and relative Frobenius limits, which
+                a control without the softcap's Jacobian (without a softcap:
+                without a KV tile) must fail, two calls bit for bit, times of
+                kernels, plain version and the library's backward
+                (flex_attention's, or scaled_dot_product_attention's without
+                a softcap) beside the bound.  Then gemma2-9b at full width in
+                f32, 2 layers, through launch/train_lm.py's functions: step
+                0's loss and every gradient leaf against the torch tier from
+                the same weights, 6 make_train_step steps of 2 x 6144
+                TokenPipeline tokens under Trainer (K5 forward once and its
+                backward kernels twice a layer a step, counted), each step's
+                loss and host and CUDA-event ms, peak memory, a profiled
+                step (K5's forward and backward share, idle share), and one
+                step in bf16 for K5's bf16 backward.  Phase 5 also holds
+                K5's row logsumexp (return_lse=True) to the plain version's
+                and its out bit for bit to the launch without it.
   8. compiled -- (run right after phase 4, on its models and graph) each of
                 the six Reddit forwards through plan.compile(), one CUDA
                 graph each: the capture's K1/K2 launches against the eager
@@ -261,7 +282,8 @@ Phases, each printing its own lines; any failure exits non-zero:
                 120 SGD steps through plan.compile() under autograd: one
                 trace a signature, the loss falling).
 
-The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7.
+The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7,
+18.
 The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
@@ -322,6 +344,50 @@ FLASH_SHAPES = {
     "e": (2, 16, 8, 8, 300, 256, True, 0, 0.0, (50, 300)),
     "f": (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),
 }
+#: phase 5: K5's row logsumexp (``return_lse=True``) against the plain
+#: version's, absolute, over rows with a key (an all-masked row must read
+#: -1e30 in both).  f32: the scores agree to ~1e-6 relative; bf16: the
+#: kernel's row sum adds P rounded to bf16 (2^-9 relative each), so log l
+#: moves by up to ~2e-3
+LSE_LIMIT = {"float32": 2e-5, "bfloat16": 4e-3}
+#: phase 18: K5's backward shapes, as FLASH_SHAPES: (a)/(b) gemma2-9b's
+#: global and local layers at the training run's 6144 tokens, (d) a
+#: granite-3-8b layer (D 128, no softcap), (e) Sq < Sk with a ragged
+#: kv_len and a window, (f) the non-causal case
+FLASH_BWD_SHAPES = {
+    "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
+    "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
+    "d": (1, 32, 8, 4096, 4096, 128, True, 0, 0.0, None),
+    "e": (2, 16, 8, 100, 300, 256, True, 64, 50.0, (250, 300)),
+    "f": (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),
+}
+#: phase 18: q and k are drawn with this std, so the logits (std ~9) reach
+#: where the softcap of 50 bends them and its Jacobian moves dS by percents
+#: -- which the bf16 limits can see; q of std 1 would move it by ~4e-4
+BWD_INPUT_SCALE = 3.0
+#: phase 18: K5's backward against its plain version, per dtype: each
+#: row's (last dim's) largest error over that row's largest magnitude,
+#: floored at BWD_ROW_FLOOR of the tensor's largest magnitude (a causal
+#: first row sees one key, and its dq is 0 up to rounding), and the
+#: relative Frobenius error, the largest over dq, dk and dv.  Two passes
+#: of f32 FMA against the plain version's f32 einsums; bf16 rounds each
+#: output once.  A control without the softcap's Jacobian (or, without a
+#: softcap, without one KV tile) must exceed both.
+BWD_ROW_LIMIT = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_FRO_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
+BWD_ROW_FLOOR = 1e-2
+#: phase 18: gemma2-9b training at full width, f32, depth cut: layers,
+#: batch x tokens (past the 4096 window), steps through the Trainer, and
+#: the step-0 gradient limit (each leaf over its largest magnitude, as
+#: phase 11's step 0)
+LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2, 6144, 6
+LM_TRAIN_GRAD_LIMIT = 1e-4
+#: phase 18: the shapes whose backward is also timed through a library call
+#: (flex_attention compiles for each, so only the main path's global layer
+#: and the no-softcap shape, where scaled_dot_product_attention serves)
+LIBRARY_BWD_SHAPES = ("a", "d")
+#: K5's backward kernels as the profiler names them
+K5_BWD_KERNELS = ("bwd_dq_kernel", "bwd_dkdv_kernel")
 #: phase 3: seg_agg's column slices timed beside the one the wrapper picks
 #: (slice_cols), at Reddit (F -> widths); every width gives the same sums
 #: bit for bit (slicing does not change any column's fold)
@@ -3836,7 +3902,19 @@ def check_flash():
             plain = lambda: k5.flash_attention_plain(  # noqa: E731
                 q, k, v, kvl, **kw)
             out_k, out_p = kern(), plain()
+            # the row logsumexp the backward needs: out bit for bit the
+            # same, lse against the plain version's
+            out_l, lse_k = k5.flash_attention(q, k, v, kvl, return_lse=True,
+                                              **kw)
+            lse_p = k5.flash_attention_plain(q, k, v, kvl, return_lse=True,
+                                             **kw)[1]
             torch.cuda.synchronize()
+            lse_same = torch.equal(out_l, out_k)
+            seen = lse_p > -1e29
+            lse_err = (lse_k - lse_p)[seen].abs().max().item() \
+                if bool(seen.any()) else 0.0
+            lse_masked = bool((lse_k[~seen] <= -1e29).all())
+            del out_l, lse_k, lse_p, seen
             err = (out_k.float() - out_p.float()).abs().max().item()
             band = F32_BAND * SCALE if dtype == torch.float32 else BF16_BAND
             tol = band * max(1.0, out_p.float().abs().max().item())
@@ -3871,6 +3949,8 @@ def check_flash():
                    "control_fro_rel_err": c_fro,
                    "control_tf32_row_rel_err": t_row,
                    "control_tf32_fro_rel_err": t_fro, "repeat_equal": same,
+                   "out_equal_with_lse": lse_same, "lse_err": lse_err,
+                   "lse_masked_rows_ok": lse_masked,
                    "ms": ms, "plain_ms": time_ms(plain, 2),
                    "pairs": pairs, "bytes": nbytes, "ops": ops,
                    "bound_ms": b_ms, "bound_by": b_by,
@@ -3880,6 +3960,9 @@ def check_flash():
                 rec["bound_f32fma_ms"] = bound(nbytes, ops, F32_FLOPS)[0]
             rec.update(ratios(rec))
             if name == "a":
+                # what storing the row logsumexp costs
+                rec["ms_lse"] = time_ms(lambda: k5.flash_attention(
+                    q, k, v, kvl, return_lse=True, **kw), 5)
                 # what the softcap's tanh costs: the same call without it
                 rec["ms_no_softcap"] = time_ms(lambda: k5.flash_attention(
                     q, k, v, kvl, causal=causal, window=window), 5)
@@ -3908,7 +3991,12 @@ def check_flash():
                   + (f" ms_no_softcap={rec['ms_no_softcap']:.4f}"
                      if "ms_no_softcap" in rec else "")
                   + (f" ms_one_tf32={rec['ms_one_tf32']:.4f}"
-                     if "ms_one_tf32" in rec else ""), flush=True)
+                     if "ms_one_tf32" in rec else "")
+                  + (f" ms_lse={rec['ms_lse']:.4f}" if "ms_lse" in rec
+                     else "")
+                  + f" out_equal_with_lse={lse_same} lse_err={lse_err:.3e}"
+                  f" (limit {LSE_LIMIT[dname]:.0e}) lse_masked_rows_ok="
+                  f"{lse_masked}", flush=True)
             if not ok:
                 fail(f"flash_attention ({name}) {dtype}: kernel and plain "
                      f"version differ by {err:.3e} (tolerance {tol:.3e})")
@@ -3927,6 +4015,11 @@ def check_flash():
             if not same:
                 fail(f"flash_attention ({name}) {dtype}: two launches on the "
                      f"same input differ")
+            if not (lse_same and lse_masked and lse_err <= LSE_LIMIT[dname]):
+                fail(f"flash_attention ({name}) {dtype}: with the lse, out "
+                     f"equal {lse_same}, lse off the plain version's by "
+                     f"{lse_err:.3e} (limit {LSE_LIMIT[dname]:.0e}), masked "
+                     f"rows {lse_masked}")
             del q, k, v
     return records
 
@@ -4208,6 +4301,430 @@ def drive_lm_f32():
             "launches": launches, "max_abs_err": err, "tol": tol}
 
 
+def bwd_rel_errs(got, want) -> tuple[float, float]:
+    """(largest per-row error over the row's largest magnitude floored at
+    BWD_ROW_FLOOR of the tensor's, relative Frobenius error), each the
+    largest over the gradients in ``got`` against ``want``."""
+    import torch
+    row = fro = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+        diff = (a - b).abs().amax(-1)
+        mag = b.abs().amax(-1).clamp_min(
+            BWD_ROW_FLOOR * b.abs().max().item()).clamp_min(1e-30)
+        row = max(row, (diff / mag).max().item())
+        fro = max(fro, ((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+    return row, fro
+
+
+def bwd_control(shape, q, k, v, dout):
+    """A control that is wrong on purpose: K5's gradients computed densely
+    one head at a time in f32, without the softcap's Jacobian where there
+    is a softcap, else without the KV tile of 64 keys that holds the middle
+    key of the shortest sequence (as ``drop_tile_control``).
+    ``bwd_rel_errs`` must see it above BWD_ROW_LIMIT and BWD_FRO_LIMIT."""
+    import torch
+    b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
+    g = hq // hkv
+    lens = kv_len or (sk,) * b
+    t0 = min(lens) // 2 // 64 * 64
+    kpos = torch.arange(sk, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for bi, n in enumerate(lens):
+        qpos = (n - sq + torch.arange(sq, device=q.device))[:, None]
+        keep = (kpos < n).expand(sq, sk)
+        if cap == 0:
+            keep = keep & ((kpos < t0) | (kpos >= t0 + 64))
+        if causal:
+            keep = keep & (kpos <= qpos)
+        if window > 0:
+            keep = keep & (kpos > qpos - window)
+        for h in range(hq):
+            kh, vh = k[bi, h // g].float(), v[bi, h // g].float()
+            qs = (q[bi, h] * d ** -0.5).float()
+            s = qs @ kh.T
+            if cap > 0:
+                s = cap * torch.tanh(s / cap)
+            p = torch.softmax(s.masked_fill(~keep, float("-inf")), -1)
+            p = p.nan_to_num(0.0)
+            do = dout[bi, h].float()
+            dp = do @ vh.T
+            ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+            dq[bi, h] = ds @ kh * d ** -0.5
+            dk[bi, h // g] += ds.T @ qs
+            dv[bi, h // g] += p.T @ do
+    return dq, dk, dv
+
+
+def bwd_library(shape, q, k, v, dout, want, tol):
+    """(milliseconds, note) of one PyTorch backward computing K5's
+    gradients at ``shape`` -- flex_attention's (compiled, tanh score_mod,
+    causal / window block mask) where there is a softcap,
+    scaled_dot_product_attention's without one -- held against the plain
+    version's ``want`` within ``tol`` of each gradient's largest
+    magnitude, or (None, reason).  The backward's time is a forward with
+    its backward less the forward alone (a compiled backward may donate
+    its buffers, so one graph cannot be run twice).  A yardstick: the
+    port never calls these."""
+    import torch
+    import torch.nn.functional as F
+    b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
+    if kv_len is not None or sq != sk:
+        return None, "none: no PyTorch call computes this shape's function"
+    g = hq // hkv
+    try:
+        if cap == 0 and window == 0:
+            ke = k.repeat_interleave(g, dim=1).requires_grad_()
+            ve = v.repeat_interleave(g, dim=1).requires_grad_()
+            qe = q.detach().clone().requires_grad_()
+
+            def fwd():
+                return F.scaled_dot_product_attention(qe, ke, ve,
+                                                      is_causal=causal)
+            note = "scaled_dot_product_attention backward, K/V expanded"
+
+            def fold(gr):   # the expanded K/V's gradients summed per group
+                return gr[0], gr[1].unflatten(1, (hkv, g)).sum(2), \
+                    gr[2].unflatten(1, (hkv, g)).sum(2)
+        elif causal:
+            from torch.nn.attention.flex_attention import (
+                create_block_mask, flex_attention)
+
+            def score_mod(score, bi, hi, qi, ki):
+                return cap * torch.tanh(score / cap)
+
+            def mask_mod(bi, hi, qi, ki):
+                m = ki <= qi
+                return m & (ki > qi - window) if window > 0 else m
+
+            block_mask = create_block_mask(mask_mod, None, None, sq, sk,
+                                           device=q.device)
+            qe, ke, ve = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            flex = torch.compile(flex_attention)
+
+            def fwd():
+                return flex(qe, ke, ve, score_mod=score_mod,
+                            block_mask=block_mask, enable_gqa=True)
+            note = "flex_attention backward (torch.compile), tanh " \
+                "score_mod, block mask"
+            fold = tuple
+        else:
+            return None, "none: no PyTorch call computes this shape's " \
+                "function"
+        args = (qe, ke, ve)
+        got = fold(torch.autograd.grad(fwd(), args, dout))
+        errs = [(a.float() - w.float()).abs().max().item() /
+                max(w.float().abs().max().item(), 1e-30)
+                for a, w in zip(got, want)]
+        if max(errs) > tol:
+            return None, f"none: {note} differs from the plain version " \
+                f"by {max(errs):.3e} of a gradient's largest magnitude"
+        both = time_ms(lambda: torch.autograd.grad(fwd(), args, dout), 3)
+        ms = both - time_ms(fwd, 3)
+        return ms, f"{note} (forward and backward {both:.4f} ms less the " \
+            f"forward), error {max(errs):.3e}"
+    except Exception as e:  # a yardstick only: K5's checks do not need it
+        return None, f"none: the library call did not run ({type(e).__name__}" \
+            f": {str(e).splitlines()[0][:160] if str(e) else ''})"
+
+
+def check_flash_bwd():
+    """Phase 18, first part: K5's backward kernels against
+    ``flash_attention_bwd_plain`` at FLASH_BWD_SHAPES in f32 and bf16, from
+    K5's own forward (out and lse).  Fails unless every call is finite and
+    within BWD_ROW_LIMIT / BWD_FRO_LIMIT, the control exceeds both, and a
+    second call equals the first bit for bit.  Returns one record per
+    (shape, dtype)."""
+    import torch
+    from repro_torch.kernels import flash_attention as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = []
+    for name, shape in FLASH_BWD_SHAPES.items():
+        b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            q, k = ((torch.randn(shp, generator=gen, device="cuda")
+                     * BWD_INPUT_SCALE).to(dtype)
+                    for shp in ((b, hq, sq, d), (b, hkv, sk, d)))
+            v = torch.randn((b, hkv, sk, d), generator=gen, device="cuda",
+                            dtype=dtype)
+            dout = torch.randn((b, hq, sq, d), generator=gen, device="cuda",
+                               dtype=dtype)
+            kvl = None if kv_len is None else torch.tensor(
+                kv_len, dtype=torch.int32, device="cuda")
+            kw = dict(causal=causal, window=window, softcap=cap)
+            with torch.no_grad():
+                out, lse = k5.flash_attention(q, k, v, kvl, return_lse=True,
+                                              **kw)
+            kern = lambda: k5.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, dout, kvl, **kw)
+            plain = lambda: k5.flash_attention_bwd_plain(  # noqa: E731
+                q, k, v, out, lse, dout, kvl, **kw)
+            n0 = k5.flash_attention_bwd.launches
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            launched = k5.flash_attention_bwd.launches - n0
+            finite = all(bool(torch.isfinite(t).all().item()) for t in got)
+            same = all(torch.equal(x, y) for x, y in zip(got, kern()))
+            row, fro = bwd_rel_errs(got, want)
+            c_row, c_fro = bwd_rel_errs(bwd_control(shape, q, k, v, dout),
+                                        want)
+            err = max((x.float() - y.float()).abs().max().item()
+                      for x, y in zip(got, want))
+            del got
+            elt = q.element_size()
+            pairs = unmasked_pairs(sq, sk, causal, window,
+                                   kv_len or (sk,) * b)
+            # five products of 2 Sq Sk D over the unmasked pairs: dP, dV,
+            # dQ, dK and the recomputed S (the kernels form S and dP in both
+            # passes: seven)
+            ops = 10 * d * hq * pairs
+            # read q, out, dout, k, v, lse, kv_len once; write dq, dk, dv
+            nbytes = 4 * (q.numel() + k.numel()) * elt + 4 * b * hq * sq \
+                + 4 * b
+            peak = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
+            b_ms, b_by = bound(nbytes, ops, peak)
+            ms = time_ms(kern, 3)
+            plain_ms = time_ms(plain, 1)
+            if name in LIBRARY_BWD_SHAPES:
+                lib_ms, lib_note = bwd_library(
+                    shape, q, k, v, dout, want,
+                    BF16_BAND if dtype == torch.bfloat16 else 1e-2)
+            else:
+                lib_ms, lib_note = None, "not timed at this shape"
+            del want
+            rec = {"name": "flash_attention_bwd", "shape": name,
+                   "dtype": dname, "b": b, "hq": hq, "hkv": hkv, "sq": sq,
+                   "sk": sk, "d": d, "causal": causal, "window": window,
+                   "softcap": cap, "kv_len": kv_len, "max_abs_err": err,
+                   "row_rel_err": row, "fro_rel_err": fro,
+                   "control": "no softcap Jacobian" if cap > 0
+                   else "a KV tile dropped",
+                   "control_row_rel_err": c_row,
+                   "control_fro_rel_err": c_fro, "repeat_equal": same,
+                   "launches_a_call": launched, "ms": ms,
+                   "plain_ms": plain_ms, "pairs": pairs, "bytes": nbytes,
+                   "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_f32fma_ms": bound(nbytes, ops, F32_FLOPS)[0],
+                   "library_ms": lib_ms, "library": lib_note,
+                   "tflops": ops / ms / 1e9}
+            rec.update(ratios(rec))
+            records.append(rec)
+            print(f"[lm-train] K5 backward ({name}) {dname:8s} B={b} Hq={hq}"
+                  f" Hkv={hkv} Sq={sq} Sk={sk} D={d} causal={causal} "
+                  f"window={window} cap={cap} kv_len={kv_len} "
+                  f"max_abs_err={err:.3e} row_rel_err={row:.3e} "
+                  f"fro_rel_err={fro:.3e} (limits "
+                  f"{BWD_ROW_LIMIT[dname]:.0e}/{BWD_FRO_LIMIT[dname]:.0e}; "
+                  f"control {rec['control']} {c_row:.3e}/{c_fro:.3e}) "
+                  f"repeat_equal={same} launches={launched} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+                  f"[{lib_note}] bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, "
+                  f"{ops} ops) bound_f32fma_ms={rec['bound_f32fma_ms']:.4f} "
+                  f"achieved {rec['tflops']:.2f} TFLOP/s frac_of_bound="
+                  f"{rec['frac_of_bound']:.4f} vs_library="
+                  f"{rec['vs_library']}", flush=True)
+            if not finite or launched != 2:
+                fail(f"flash_attention_bwd ({name}) {dname}: finite={finite}"
+                     f", {launched} launches (expected 2)")
+            if row > BWD_ROW_LIMIT[dname] or fro > BWD_FRO_LIMIT[dname]:
+                fail(f"flash_attention_bwd ({name}) {dname}: a row off by "
+                     f"{row:.3e} or {fro:.3e} relative Frobenius error "
+                     f"(limits {BWD_ROW_LIMIT[dname]:.0e}, "
+                     f"{BWD_FRO_LIMIT[dname]:.0e})")
+            if c_row <= BWD_ROW_LIMIT[dname] or \
+                    c_fro <= BWD_FRO_LIMIT[dname]:
+                fail(f"flash_attention_bwd ({name}) {dname}: the check "
+                     f"cannot see the control ({rec['control']}: "
+                     f"{c_row:.3e}, {c_fro:.3e})")
+            if not same:
+                fail(f"flash_attention_bwd ({name}) {dname}: two calls on "
+                     f"the same input differ")
+            del q, k, v, dout, out, lse
+            torch.cuda.empty_cache()
+    return records
+
+
+def k5_shares(name: str) -> dict:
+    """K5's forward and backward kernels' device ms in the profiler trace
+    ``chiprun_out/traces/<name>.json`` (written by ``kernel_window``)."""
+    events = json.loads((ROOT / "chiprun_out" / "traces" /
+                         f"{name}.json").read_text())
+    events = events.get("traceEvents", events)
+    kern = [e for e in events if e.get("cat") == "kernel"]
+
+    def ms(names):
+        return sum(e["dur"] for e in kern
+                   if any(n in e.get("name", "") for n in names)) / 1e3
+    return {"k5_fwd_ms": ms(K5_KERNELS), "k5_bwd_ms": ms(K5_BWD_KERNELS)}
+
+
+def drive_lm_train():
+    """Phase 18, second part: the LM training path on the card through
+    ``launch/train_lm.py``'s functions -- gemma2-9b at full width in f32,
+    LM_TRAIN_LAYERS layers, batch LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from
+    ``TokenPipeline`` seed 0.  Step 0's loss and every gradient leaf
+    against the torch tier from the same weights; LM_TRAIN_STEPS steps of
+    ``make_train_step`` under ``Trainer`` with K5's forward and backward
+    launch counts asserted; a profiled step; one step of the config's own
+    bf16, for K5's bf16 backward.  Returns the measurements."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.launch import train_lm
+    from repro_torch.models.transformer import TransformerLM, lm_loss
+
+    cfg = train_lm.make_config("gemma2-9b", width="full",
+                               layers=LM_TRAIN_LAYERS)
+    n_layers = cfg.num_layers
+    trainer = train_lm.make_trainer(
+        cfg, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+        ckpt_dir=str(ROOT / "build" / "lm_train"), device="cuda",
+        log_every=1, checkpoint_every=0)
+    batch = trainer.pipeline.batch_at(0)
+    toks = torch.as_tensor(batch["tokens"], device="cuda")
+    labels = torch.as_tensor(batch["labels"], device="cuda")
+    skel = TransformerLM(cfg, device="meta")
+
+    # -- step 0 against the torch tier, from the same weights
+    state = trainer.make_state()
+    leaves = {n: p.requires_grad_(True) for n, p in state.params.items()}
+    torch.cuda.synchronize()
+    k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    loss_c, _ = lm_loss(skel, toks, labels, params=leaves)
+    grads_c = torch.autograd.grad(loss_c, list(leaves.values()))
+    torch.cuda.synchronize()
+    step0_ms = (time.perf_counter() - t0) * 1e3
+    launches0 = (k5.flash_attention.launches,
+                 k5.flash_attention_bwd.launches)
+    loss_t, _ = lm_loss(skel, toks, labels, params=leaves, attn_impl="torch")
+    grads_t = torch.autograd.grad(loss_t, list(leaves.values()))
+    loss_err = abs(loss_c.item() - loss_t.item())
+    loss_tol = F32_BAND * SCALE * max(1.0, abs(loss_t.item()))
+    leaf_errs = {}
+    for n, a, w in zip(leaves, grads_c, grads_t):
+        leaf_errs[n] = ((a - w).abs().max() /
+                        w.abs().max().clamp_min(1e-30)).item()
+    worst = max(leaf_errs, key=leaf_errs.get)
+    print(f"[lm-train] {cfg.name} f32 full width, {n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params, batch "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: step 0 loss "
+          f"{loss_c.item():.6f} vs torch tier {loss_t.item():.6f} "
+          f"(|diff| {loss_err:.3e}, tol {loss_tol:.3e}); worst gradient "
+          f"leaf {worst} {leaf_errs[worst]:.3e} of its largest magnitude "
+          f"(limit {LM_TRAIN_GRAD_LIMIT:.0e}) over {len(leaf_errs)} leaves; "
+          f"K5 launches forward {launches0[0]}, backward {launches0[1]}; "
+          f"loss and gradients {step0_ms:.1f} ms host", flush=True)
+    if launches0 != (n_layers, 2 * n_layers):
+        fail(f"lm-train step 0 launched K5 {launches0} times, expected "
+             f"({n_layers}, {2 * n_layers})")
+    if not (loss_err <= loss_tol and
+            leaf_errs[worst] <= LM_TRAIN_GRAD_LIMIT):
+        fail(f"lm-train step 0: loss off the torch tier by {loss_err:.3e} "
+             f"or gradient leaf {worst} by {leaf_errs[worst]:.3e}")
+    del state, leaves, grads_c, grads_t, loss_c, loss_t
+    torch.cuda.empty_cache()
+
+    # -- LM_TRAIN_STEPS steps through the Trainer
+    events = []
+    step_fn = trainer.step_fn
+
+    def timed_step(st, bt):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = step_fn(st, bt)
+        e1.record()
+        events.append((e0, e1))
+        return out
+    trainer.step_fn = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
+    result = trainer.run()
+    torch.cuda.synchronize()
+    launches = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    hist = result["history"]
+    losses = [h["loss"] for h in hist]
+    host_ms = [h["dt"] * 1e3 for h in hist]
+    dev_ms = [a.elapsed_time(b) for a, b in events]
+    for h, d_ms in zip(hist, dev_ms):
+        print(f"[lm-train] step {h['step']}: loss {h['loss']:.6f} "
+              f"grad_norm {h['grad_norm']:.4f} lr {h['lr']:.3e}; host "
+              f"{h['dt'] * 1e3:.1f} ms, CUDA events {d_ms:.1f} ms",
+              flush=True)
+    want = (n_layers * LM_TRAIN_STEPS, 2 * n_layers * LM_TRAIN_STEPS)
+    print(f"[lm-train] Trainer: {len(hist)} steps, K5 launches forward "
+          f"{launches[0]}, backward {launches[1]} (expected {want}); peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    if launches != want:
+        fail(f"lm-train: the Trainer's steps launched K5 {launches} times, "
+             f"expected {want}")
+    if len(losses) != LM_TRAIN_STEPS or not all(
+            x == x and abs(x) < float("inf") for x in losses):
+        fail(f"lm-train: losses {losses} are not {LM_TRAIN_STEPS} finite "
+             f"values")
+
+    # -- one profiled step from the trained state
+    state = result["state"]
+    nxt = trainer.pipeline.batch_at(LM_TRAIN_STEPS)
+    holder = {"state": state}
+
+    def one():
+        holder["state"] = step_fn(holder["state"], nxt)[0]
+    prof = profiled("lm_train", 1, one)
+    prof.update(k5_shares("lm_train"))
+    busy = prof["device_busy_ms"]
+    if prof["idle_share"] is None:   # the trace holds no kernel
+        print("[lm-train] profiled step: the profiler saw no kernel; device"
+              " shares not measured", flush=True)
+    else:
+        print(f"[lm-train] profiled step: wall {prof['wall_ms']:.1f} ms, "
+              f"device busy {busy:.1f} ms, idle share "
+              f"{prof['idle_share']:.4f}, {prof['kernels']:.0f} kernels; K5 "
+              f"forward {prof['k5_fwd_ms']:.2f} ms "
+              f"({prof['k5_fwd_ms'] / busy:.2%} of busy), K5 backward "
+              f"{prof['k5_bwd_ms']:.2f} ms ({prof['k5_bwd_ms'] / busy:.2%})",
+              flush=True)
+    del state, holder, result, trainer
+    torch.cuda.empty_cache()
+
+    # -- one step in the config's own bf16, for K5's bf16 backward
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    tr16 = train_lm.make_trainer(
+        cfg16, steps=1, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+        ckpt_dir=str(ROOT / "build" / "lm_train"), device="cuda",
+        checkpoint_every=0)
+    st16 = tr16.make_state()
+    k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
+    st16, m16 = tr16.step_fn(st16, batch)
+    torch.cuda.synchronize()
+    launches16 = (k5.flash_attention.launches,
+                  k5.flash_attention_bwd.launches)
+    loss16 = m16["loss"].item()
+    print(f"[lm-train] bf16 step: loss {loss16:.6f}, K5 launches forward "
+          f"{launches16[0]}, backward {launches16[1]}", flush=True)
+    if launches16 != (n_layers, 2 * n_layers) or not loss16 == loss16:
+        fail(f"lm-train bf16 step: K5 launches {launches16}, loss {loss16}")
+    del st16, tr16
+    torch.cuda.empty_cache()
+    return {"layers": n_layers, "batch": LM_TRAIN_BATCH,
+            "seq": LM_TRAIN_SEQ, "params": cfg.param_count(),
+            "step0_loss_err": loss_err, "step0_loss_tol": loss_tol,
+            "step0_worst_leaf": worst,
+            "step0_worst_leaf_err": leaf_errs[worst],
+            "step0_launches": launches0, "step0_host_ms": step0_ms,
+            "losses": losses, "host_ms": host_ms, "device_ms": dev_ms,
+            "launches": launches, "peak_bytes": peak, "profile": prof,
+            "bf16_launches": launches16, "bf16_loss": loss16}
+
+
 def main() -> None:
     # the flex_attention yardstick compiles with inductor and Triton: keep
     # their caches inside the checkout and compile in this process
@@ -4396,6 +4913,13 @@ def main() -> None:
 
     # -- 7. K5's f32 path from the LM entry point
     lm_f32 = drive_lm_f32()
+
+    # -- 18. LM training: K5's backward kernels, then gemma2-9b steps
+    t0 = time.perf_counter()
+    flash_bwd = check_flash_bwd()
+    lm_train = drive_lm_train()
+    print(f"[lm-train] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -4404,7 +4928,8 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
-         "lm_f32": lm_f32, "sass_tf32_hgmma": sass,
+         "lm_f32": lm_f32, "flash_bwd": flash_bwd, "lm_train": lm_train,
+         "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
          "train": train, "serve": serve, "long_rows": long_rows,
@@ -4496,6 +5021,26 @@ def main() -> None:
             "replaces": "src/repro/kernels/flash_attention.py:111",
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in flash
+                               if r["dtype"] == dtype),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "frac_of_bound": rec["frac_of_bound"],
+            "vs_library": rec["vs_library"]})
+    # K5's backward at shape (a): f32 launched by phase 18's Trainer steps,
+    # bf16 by its bf16 step
+    for dtype, launches in (("bfloat16", lm_train["bf16_launches"][1]),
+                            ("float32", lm_train["launches"][1])):
+        rec = next(r for r in flash_bwd if r["shape"] == "a" and
+                   r["dtype"] == dtype)
+        kernels.append({
+            "name": "flash_attention_bwd_" + ("bf16" if dtype == "bfloat16"
+                                              else "f32"),
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:111",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in flash_bwd
                                if r["dtype"] == dtype),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

@@ -2,10 +2,11 @@
 
 A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
 (``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
-the LM part (``AttentionConfig``, ``LMConfig``, :96-195), the training
-part (``ShapeSpec`` :27, ``OptimizerConfig`` :310, ``TrainConfig`` :330)
-and the registry (``register``/``get_config``, :349-373) -- kept here so
-the port imports nothing of the JAX package.
+the LM part (``AttentionConfig``, ``LMConfig``, :96-195, with
+``param_count`` and ``_count_params`` :188-237 for the dense stacks the
+port runs), the training part (``ShapeSpec`` :27, ``OptimizerConfig``
+:310, ``TrainConfig`` :330) and the registry (``register``/``get_config``,
+:349-373) -- kept here so the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -167,6 +168,37 @@ class LMConfig:
             return False
         return i % 2 == 0  # even layers sliding-window (gemma2 convention)
 
+    def param_count(self) -> int:
+        """Analytic total parameter count (embedding + layers), as the
+        reference counts it (``param_count``, :188): the unpadded vocab,
+        no norm scales.  MoE, SSM and enc-dec layers raise (not
+        ported)."""
+        return _count_params(self)
+
+
+def _mlp_params(d_model: int, d_ff: int, activation: str) -> int:
+    mats = 3 if activation in ("swiglu", "geglu") else 2
+    return mats * d_model * d_ff
+
+
+def _attn_params(d_model: int, a: AttentionConfig) -> int:
+    return d_model * a.q_dim * 2 + d_model * a.kv_dim * 2
+
+
+def _count_params(cfg: LMConfig) -> int:
+    """``_count_params`` (:208) for dense attention stacks."""
+    if cfg.moe is not None or cfg.ssm is not None or cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: parameter counts of MoE, SSM and enc-dec stacks "
+            f"are not ported (ROADMAP item 13.7)")
+    total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    for _ in range(cfg.num_layers):
+        if cfg.attention is not None:
+            total += _attn_params(cfg.d_model, cfg.attention)
+        if cfg.d_ff > 0:
+            total += _mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_activation)
+    return total
+
 
 # ---------------------------------------------------------------------------
 # Training configs (``repro/config.py`` :310-343)
@@ -177,9 +209,10 @@ class LMConfig:
 class OptimizerConfig:
     """AdamW with warmup + cosine decay and global-norm clipping
     (``OptimizerConfig``, :310).  ``moment_dtype`` "bfloat16" stores the
-    moments in bf16; ``grad_compression`` "int8_ef" names the int8
-    error-feedback reduction, whose all-reduce is not ported (ROADMAP
-    item 11)."""
+    moments in bf16; ``accum_dtype`` is the gradient-accumulation buffer's
+    dtype of a microbatched step (``launch/steps.py``); ``grad_compression``
+    "int8_ef" names the int8 error-feedback reduction, whose all-reduce is
+    ``optim/compression.py::make_compressed_allreduce``."""
 
     name: str = "adamw"
     lr: float = 3e-4
@@ -191,6 +224,7 @@ class OptimizerConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
     moment_dtype: str = "float32"
+    accum_dtype: str = "float32"
     grad_compression: str = "none"
 
 
@@ -198,8 +232,10 @@ class OptimizerConfig:
 class TrainConfig:
     """What ``train.trainer.Trainer`` reads (``TrainConfig``, :330): the
     step count, logging and checkpoint cadence, where checkpoints go and
-    how many are kept.  The mesh, remat and microbatch fields are not
-    ported (distributed training is ROADMAP item 11b)."""
+    how many are kept.  Not ported: the ``mesh`` field (the reference's
+    ``MeshConfig``; LM training on a mesh is ROADMAP item 13.8), and
+    ``remat`` and ``microbatch``, which the port's callers pass to
+    ``launch/steps.py::make_train_step`` instead."""
 
     model: str
     shape: str = "train_4k"

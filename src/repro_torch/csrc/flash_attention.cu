@@ -408,8 +408,8 @@ wgmma_kernel(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v,
              const int* __restrict__ kv_len, __nv_bfloat16* __restrict__ out,
-             int hq, int group, int sq, int sk, int causal, int window,
-             float cap, float scale) {
+             float* __restrict__ lse, int hq, int group, int sq, int sk,
+             int causal, int window, float cap, float scale) {
   using C = Cfg<D, WGS>;
   constexpr int TK = C::kTileK;
   constexpr int kThreads = C::kThreads;
@@ -598,6 +598,11 @@ wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + 8 * half;
     if (row >= nq) continue;
     const float denom = l_run[half] == 0.f ? 1.f : l_run[half];
+    // the row's logsumexp for the backward: m + log(l_safe), -1e30 for an
+    // all-masked row (the four lanes of a row hold the same m and l)
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + q0 + row] =
+          m_run[half] + logf(denom);
     __nv_bfloat16* orow = ob + static_cast<int64_t>(q0 + row) * D + cb;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -609,8 +614,9 @@ wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D, int WGS>
 int launch_wgs(const void* q, const void* k, const void* v, const int* kv_len,
-               void* out, int b, int hq, int hkv, int sq, int sk, int causal,
-               int window, float cap, float scale, cudaStream_t stream) {
+               void* out, float* lse, int b, int hq, int hkv, int sq, int sk,
+               int causal, int window, float cap, float scale,
+               cudaStream_t stream) {
   using C = Cfg<D, WGS>;
   auto kernel = wgmma_kernel<D, WGS>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -621,8 +627,8 @@ int launch_wgs(const void* q, const void* k, const void* v, const int* kv_len,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_len,
-      static_cast<__nv_bfloat16*>(out), hq, hq / hkv, sq, sk, causal, window,
-      cap, scale);
+      static_cast<__nv_bfloat16*>(out), lse, hq, hq / hkv, sq, sk, causal,
+      window, cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -631,15 +637,16 @@ int launch_wgs(const void* q, const void* k, const void* v, const int* kv_len,
 // two-warpgroup CTA's registers would fill the SM alone)
 template <int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
-           void* out, int b, int hq, int hkv, int sq, int sk, int causal,
-           int window, float cap, float scale, cudaStream_t stream) {
+           void* out, float* lse, int b, int hq, int hkv, int sq, int sk,
+           int causal, int window, float cap, float scale,
+           cudaStream_t stream) {
   if constexpr (D == 256) {
     if ((hq / hkv) % 2 == 0)
-      return launch_wgs<D, 2>(q, k, v, kv_len, out, b, hq, hkv, sq, sk,
+      return launch_wgs<D, 2>(q, k, v, kv_len, out, lse, b, hq, hkv, sq, sk,
                               causal, window, cap, scale, stream);
   }
-  return launch_wgs<D, 1>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
-                          window, cap, scale, stream);
+  return launch_wgs<D, 1>(q, k, v, kv_len, out, lse, b, hq, hkv, sq, sk,
+                          causal, window, cap, scale, stream);
 }
 
 }  // namespace wg
@@ -814,8 +821,9 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, D == 256 ? 1 : 2)
 tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ kv_len,
-              float* __restrict__ out, int hq, int group, int sq, int sk,
-              int causal, int window, float cap, float scale, int terms) {
+              float* __restrict__ out, float* __restrict__ lse, int hq,
+              int group, int sq, int sk, int causal, int window, float cap,
+              float scale, int terms) {
   using C = Cfg<D>;
   constexpr int TK = kTileK;
   constexpr int NS = (D + kSlice - 1) / kSlice;  // S accumulators
@@ -1140,6 +1148,11 @@ tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = row0 + 8 * half;
     if (row >= nq) continue;
     const float denom = l_run[half] == 0.f ? 1.f : l_run[half];
+    // the row's logsumexp for the backward, as in wgmma_kernel; both
+    // warpgroups hold the same m and l, the first stores them
+    if (lse != nullptr && wgi == 0 && lane % 4 == 0)
+      lse[(static_cast<int64_t>(b) * hq + h) * sq + q0 + row] =
+          m_run[half] + logf(denom);
     float* orow = ob + static_cast<int64_t>(q0 + row) * D + wgi * C::kDw + cb;
 #pragma unroll
     for (int j = 0; j < C::kDw / 8; ++j)
@@ -1151,8 +1164,8 @@ tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
-           void* out, int b, int hq, int hkv, int sq, int sk, int causal,
-           int window, float cap, float scale, int terms,
+           void* out, float* lse, int b, int hq, int hkv, int sq, int sk,
+           int causal, int window, float cap, float scale, int terms,
            cudaStream_t stream) {
   using C = Cfg<D>;
   auto kernel = tf32x3_kernel<D>;
@@ -1162,45 +1175,494 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
   const dim3 grid((sq + kRows - 1) / kRows, hq, b);
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_len, static_cast<float*>(out), hq,
-      hq / hkv, sq, sk, causal, window, cap, scale, terms);
+      static_cast<const float*>(v), kv_len, static_cast<float*>(out), lse,
+      hq, hq / hkv, sq, sk, causal, window, cap, scale, terms);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tf
 
+// ---------------------------------------------------------------------------
+// Backward: two passes on the CUDA cores, f32 FMA
+// ---------------------------------------------------------------------------
+//
+// No TPU kernel: the reference differentiates its XLA flash path
+// (src/repro/nn/flash_vjp.py::_flash_bwd), whose two passes these follow,
+// on K5's contract (q scaled by D^-0.5 in q's dtype, GQA, right alignment
+// to kv_len[b], causal mask, window, softcap).  Per (64 query rows x 32
+// keys) tile, in f32 whatever the input type (bf16 is converted on load):
+//
+//   Z = qs K^T, S = cap tanh(Z / cap), P = exp(S - lse) where unmasked,
+//   dP = dO V^T, dS = P (dP - delta), dZ = dS (1 - (S / cap)^2),
+//   dq = scale dZ K,  dk = dZ^T qs,  dv = P^T dO,
+//
+// delta = rowsum(dO O).  Two passes and no atomics, so two launches are
+// equal bit for bit:
+//   * bwd_dq_kernel: one CTA per (64 query rows, q head, batch), heaviest
+//     first.  It stages qs and dO, computes delta (and stores it for the
+//     second pass), and loops over the KV tiles the forward visits for the
+//     same rows; dq's 64 x D accumulator lives in registers (D / 4 a
+//     thread).
+//   * bwd_dkdv_kernel: one CTA per (32 keys, KV head, batch).  It stages
+//     K^T and V^T once and loops over the G query heads of its group and
+//     every q tile with a row that sees one of its keys; dk's and dv's 32 x
+//     D accumulators live in registers (D / 8 each a thread).
+// Thread maps: for S and dP, warp w takes rows 8w .. 8w + 7 and lane j key
+// j; K and V are staged transposed with a row stride of 33, so a warp
+// reading key j's column (S) and one reading a row of 32 d's (dq += dS K)
+// both hit 32 distinct banks, and the q / dO rows a warp reads are one
+// broadcast.  Shared memory at D = 256: 203 KB (dq), 211 KB (dk/dv), one
+// CTA an SM; at D = 128 two.
+//
+// What bounds it: operations.  Five products of 2 Sq Sk D per head over
+// the unmasked share (seven computed: S and dP are formed in both passes)
+// on the CUDA cores' 67 TFLOP/s f32 rate; the tensor cores (wgmma) are the
+// next step.
+namespace bw {
+
+constexpr int kRows = 64;       // query rows of a tile
+constexpr int kKeys = 32;       // keys of a tile: one per lane
+constexpr int kPad = kKeys + 1; // row stride of the transposed K, V tiles
+constexpr int kThreads = 256;   // 8 warps, 8 query rows each
+
+template <int D>
+struct Cfg {
+  // floats: K^T and V^T, q and dO tiles, lse and delta of each row
+  static constexpr int kCommon = 2 * D * kPad + 2 * kRows * D + 2 * kRows;
+  static constexpr int kSmemDq = 4 * (kCommon + kRows * kPad);
+  static constexpr int kSmemDkdv = 4 * (kCommon + 2 * kRows * kPad);
+  static_assert(kSmemDq <= 232448 && kSmemDkdv <= 232448,
+                "shared memory over the opt-in limit");
+};
+
+// Accumulator c of a thread holds element e = lane + 32 c of its warp's
+// (rows x D) block: row e / D, column e % D.  From D = 32 up the lane moves
+// only the column, so the row is a constant once c is unrolled.
+template <int D>
+__device__ __forceinline__ int e_row(int c, int lane) {
+  return D >= 32 ? 32 * c / D : (lane + 32 * c) / D;
+}
+template <int D>
+__device__ __forceinline__ int e_col(int c, int lane) {
+  return D >= 32 ? 32 * c % D + lane : (lane + 32 * c) % D;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T and back: q * scale as the forward forms it
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// Rows r0 .. r0 + 63 of the (sq, D) slices at q_off: qs = q scale rounded
+// to T, dO, and each row's lse and delta (0 past sq)
+template <typename T, int D>
+__device__ void stage_rows(const T* __restrict__ q, const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, int64_t q_off,
+                           int64_t row_off, int r0, int sq, float scale,
+                           float* sQ, float* sdO, float* sL, float* sDl) {
+  const int nq = min(kRows, sq - r0);
+  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+    const int r = i / D;
+    float qv = 0.f, dv = 0.f;
+    if (r < nq) {
+      const int64_t g = q_off + static_cast<int64_t>(r0) * D + i;
+      qv = round_to<T>(to_f(q[g]) * scale);
+      dv = to_f(dout[g]);
+    }
+    sQ[i] = qv;
+    sdO[i] = dv;
+  }
+  if (threadIdx.x < kRows) {
+    const int r = threadIdx.x;
+    sL[r] = r < nq ? lse[row_off + r0 + r] : 0.f;
+    if (delta != nullptr) sDl[r] = r < nq ? delta[row_off + r0 + r] : 0.f;
+  }
+}
+
+// Keys k0 .. k0 + 31 of the (sk, D) slices at kv_off, transposed (D x
+// kPad); keys past sk are 0
+template <typename T, int D>
+__device__ void stage_kv(const T* __restrict__ k, const T* __restrict__ v,
+                         int64_t kv_off, int k0, int sk, float* sKt,
+                         float* sVt) {
+  for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
+    const int j = i / D, c = i % D;
+    const bool in = k0 + j < sk;
+    const int64_t g = kv_off + static_cast<int64_t>(k0 + j) * D + c;
+    sKt[c * kPad + j] = in ? to_f(k[g]) : 0.f;
+    sVt[c * kPad + j] = in ? to_f(v[g]) : 0.f;
+  }
+}
+
+// The tile's dS (and P) for this thread's key (lane) and the warp's 8
+// rows: S = qs K^T and dP = dO V^T over D, then softcap, mask, P, dS.
+// Row r of the tile sits at absolute position q_pos0 + r; rows at or past
+// nq are masked.
+template <int D>
+__device__ __forceinline__ void tile_ds(const float* sQ, const float* sdO,
+                                        const float* sKt, const float* sVt,
+                                        const float* sL, const float* sDl,
+                                        int k0, int q_pos0, int nq, int len,
+                                        int sk, int causal, int window,
+                                        float cap, float* ds, float* p) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float s[8], dp[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) s[r] = dp[r] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float kt[4], vt[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      kt[x] = sKt[(c + x) * kPad + lane];
+      vt[x] = sVt[(c + x) * kPad + lane];
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float4 q4 =
+          *reinterpret_cast<const float4*>(sQ + (8 * warp + r) * D + c);
+      const float4 d4 =
+          *reinterpret_cast<const float4*>(sdO + (8 * warp + r) * D + c);
+      s[r] = fmaf(q4.x, kt[0], s[r]);
+      s[r] = fmaf(q4.y, kt[1], s[r]);
+      s[r] = fmaf(q4.z, kt[2], s[r]);
+      s[r] = fmaf(q4.w, kt[3], s[r]);
+      dp[r] = fmaf(d4.x, vt[0], dp[r]);
+      dp[r] = fmaf(d4.y, vt[1], dp[r]);
+      dp[r] = fmaf(d4.z, vt[2], dp[r]);
+      dp[r] = fmaf(d4.w, vt[3], dp[r]);
+    }
+  }
+  const int kpos = k0 + lane;
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = 8 * warp + r;
+    const int qpos = q_pos0 + row;
+    const bool ok = row < nq && kpos < len && kpos < sk &&
+                    (!causal || kpos <= qpos) &&
+                    (window <= 0 || kpos > qpos - window);
+    float x = s[r], jac = 1.f;
+    if (cap > 0.f) {
+      const float th = tanhf(x * inv_cap);
+      x = cap * th;
+      jac = 1.f - th * th;
+    }
+    const float pr = ok ? expf(x - sL[row]) : 0.f;
+    ds[r] = pr * (dp[r] - sDl[row]) * jac;
+    p[r] = pr;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 2)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ o,
+              const float* __restrict__ lse, const T* __restrict__ dout,
+              const int* __restrict__ kv_len, float* __restrict__ delta,
+              T* __restrict__ dq, int hq, int group, int sq, int sk,
+              int causal, int window, float cap, float scale) {
+  constexpr int kPer = D / 4;  // dq accumulators a thread: 8 rows x D / 32
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);
+  float* sdO = sQ + kRows * D;
+  float* sKt = sdO + kRows * D;
+  float* sVt = sKt + D * kPad;
+  float* sL = sVt + D * kPad;
+  float* sDl = sL + kRows;
+  float* sdS = sDl + kRows;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hkv = hq / group;
+  const int nq = min(kRows, sq - q0);
+  const int len = kv_len[b];
+  const int q_lo = len - sq + q0;  // absolute position of the tile's row 0
+  const int64_t row_off = (static_cast<int64_t>(b) * hq + h) * sq;
+  const int64_t q_off = row_off * D;
+  const int64_t kv_off = (static_cast<int64_t>(b) * hkv + h / group) * sk * D;
+
+  stage_rows<T, D>(q, dout, lse, nullptr, q_off, row_off, q0, sq, scale, sQ,
+                   sdO, sL, sDl);
+  // delta = rowsum(dO O) in f32: warp w sums rows 8w .. 8w + 7
+  for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
+    float acc = 0.f;
+    if (r < nq) {
+      const int64_t g = q_off + static_cast<int64_t>(q0 + r) * D;
+      for (int c = lane; c < D; c += 32)
+        acc = fmaf(to_f(dout[g + c]), to_f(o[g + c]), acc);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2)
+      acc += __shfl_xor_sync(0xffffffffu, acc, m);
+    if (lane == 0) {
+      sDl[r] = acc;
+      if (r < nq) delta[row_off + q0 + r] = acc;
+    }
+  }
+
+  // the KV tiles the forward visits for these rows
+  int k_end = min(len, sk);
+  if (causal) k_end = min(k_end, q_lo + nq);
+  int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_beg -= k_beg % kKeys;
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + kKeys - 1) / kKeys : 0;
+
+  float acc[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) acc[c] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = k_beg + t * kKeys;
+    __syncthreads();  // every warp is done with the last tile (and staging)
+    stage_kv<T, D>(k, v, kv_off, k0, sk, sKt, sVt);
+    __syncthreads();
+    float ds[8], p[8];
+    tile_ds<D>(sQ, sdO, sKt, sVt, sL, sDl, k0, q_lo, nq, len, sk, causal,
+               window, cap, ds, p);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) sdS[(8 * warp + r) * kPad + lane] = ds[r];
+    __syncwarp();  // the warp's own rows of dS
+    // dq += dS K over the warp's rows
+#pragma unroll 2
+    for (int j = 0; j < kKeys; ++j) {
+#pragma unroll
+      for (int c = 0; c < kPer; ++c)
+        acc[c] = fmaf(sdS[(8 * warp + e_row<D>(c, lane)) * kPad + j],
+                      sKt[e_col<D>(c, lane) * kPad + j], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const int r = 8 * warp + e_row<D>(c, lane);
+    if (r < nq)
+      dq[q_off + static_cast<int64_t>(q0 + r) * D + e_col<D>(c, lane)] =
+          from_f<T>(acc[c] * scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 2)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ lse,
+                const T* __restrict__ dout, const int* __restrict__ kv_len,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, int hq, int group, int sq, int sk,
+                int causal, int window, float cap, float scale) {
+  constexpr int kPer = D / 8;  // dk (and dv) accumulators: 4 keys x D / 32
+  extern __shared__ float4 smem_f4[];
+  float* sQ = reinterpret_cast<float*>(smem_f4);
+  float* sdO = sQ + kRows * D;
+  float* sKt = sdO + kRows * D;
+  float* sVt = sKt + D * kPad;
+  float* sL = sVt + D * kPad;
+  float* sDl = sL + kRows;
+  float* sdS = sDl + kRows;
+  float* sP = sdS + kRows * kPad;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * kKeys;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int hkv = hq / group;
+  const int len = kv_len[b];
+  const int k_valid = min(len, sk);  // keys past this are masked
+  const int64_t kv_off = (static_cast<int64_t>(b) * hkv + hk) * sk * D;
+
+  // the q rows with an unmasked key in this tile: qpos = len - sq + i sees
+  // key kpos iff kpos <= qpos (causal) and kpos > qpos - window
+  int i_lo = 0, i_hi = -1;
+  if (k0 < k_valid) {
+    const int k_last = min(k0 + kKeys, k_valid) - 1;
+    i_lo = causal ? max(0, k0 - (len - sq)) : 0;
+    i_hi = window > 0 ? min(sq - 1, k_last + window - 1 - (len - sq))
+                      : sq - 1;
+  }
+  const int t_lo = i_lo / kRows, t_hi = i_hi < i_lo ? -1 : i_hi / kRows;
+
+  stage_kv<T, D>(k, v, kv_off, k0, sk, sKt, sVt);
+  float acc_k[kPer], acc_v[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) acc_k[c] = acc_v[c] = 0.f;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const int64_t row_off = (static_cast<int64_t>(b) * hq + h) * sq;
+    for (int t = t_lo; t <= t_hi; ++t) {
+      const int q0 = t * kRows;
+      __syncthreads();  // every warp is done with the last q tile
+      stage_rows<T, D>(q, dout, lse, delta, row_off * D, row_off, q0, sq,
+                       scale, sQ, sdO, sL, sDl);
+      __syncthreads();
+      float ds[8], p[8];
+      tile_ds<D>(sQ, sdO, sKt, sVt, sL, sDl, k0, len - sq + q0,
+                 min(kRows, sq - q0), len, sk, causal, window, cap, ds, p);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        sdS[(8 * warp + r) * kPad + lane] = ds[r];
+        sP[(8 * warp + r) * kPad + lane] = p[r];
+      }
+      __syncthreads();
+      // dk += dS^T qs, dv += P^T dO over the warp's 4 keys
+#pragma unroll 2
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int c = 0; c < kPer; ++c) {
+          const int j = 4 * warp + e_row<D>(c, lane), col = e_col<D>(c, lane);
+          acc_k[c] = fmaf(sdS[i * kPad + j], sQ[i * D + col], acc_k[c]);
+          acc_v[c] = fmaf(sP[i * kPad + j], sdO[i * D + col], acc_v[c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) {
+    const int j = 4 * warp + e_row<D>(c, lane);
+    if (k0 + j < sk) {
+      const int64_t g = kv_off + static_cast<int64_t>(k0 + j) * D +
+                        e_col<D>(c, lane);
+      dk[g] = from_f<T>(acc_k[c]);
+      dv[g] = from_f<T>(acc_v[c]);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const float* lse, const void* dout, const int* kv_len,
+              float* delta, void* dq, int b, int hq, int hkv, int sq, int sk,
+              int causal, int window, float cap, float scale,
+              cudaStream_t stream) {
+  auto kernel = bwd_dq_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmemDq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kRows - 1) / kRows, hq, b);
+  kernel<<<grid, kThreads, Cfg<D>::kSmemDq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o), lse,
+      static_cast<const T*>(dout), kv_len, delta, static_cast<T*>(dq), hq,
+      hq / hkv, sq, sk, causal, window, cap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkdv(const void* q, const void* k, const void* v,
+                const float* lse, const void* dout, const int* kv_len,
+                const float* delta, void* dk, void* dv, int b, int hq,
+                int hkv, int sq, int sk, int causal, int window, float cap,
+                float scale, cudaStream_t stream) {
+  auto kernel = bwd_dkdv_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<D>::kSmemDkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sk + kKeys - 1) / kKeys, hkv, b);
+  kernel<<<grid, kThreads, Cfg<D>::kSmemDkdv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), lse, static_cast<const T*>(dout), kv_len,
+      delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hq / hkv, sq, sk,
+      causal, window, cap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass 0: dq (and delta); pass 1: dk, dv
+template <typename T, int D>
+int launch_pass(int pass, const void* q, const void* k, const void* v,
+                const void* o, const float* lse, const void* dout,
+                const int* kv_len, float* delta, void* dq, void* dk, void* dv,
+                int b, int hq, int hkv, int sq, int sk, int causal,
+                int window, float cap, float scale, cudaStream_t stream) {
+  if (pass == 0)
+    return launch_dq<T, D>(q, k, v, o, lse, dout, kv_len, delta, dq, b, hq,
+                           hkv, sq, sk, causal, window, cap, scale, stream);
+  return launch_dkdv<T, D>(q, k, v, lse, dout, kv_len, delta, dk, dv, b, hq,
+                           hkv, sq, sk, causal, window, cap, scale, stream);
+}
+
+template <typename T>
+int dispatch(int pass, int d, const void* q, const void* k, const void* v,
+             const void* o, const float* lse, const void* dout,
+             const int* kv_len, float* delta, void* dq, void* dk, void* dv,
+             int b, int hq, int hkv, int sq, int sk, int causal, int window,
+             float cap, float scale, cudaStream_t stream) {
+  switch (d) {
+#define REPRO_FLASH_BWD_D(DV)                                               \
+  case DV:                                                                  \
+    return launch_pass<T, DV>(pass, q, k, v, o, lse, dout, kv_len, delta,   \
+                              dq, dk, dv, b, hq, hkv, sq, sk, causal,       \
+                              window, cap, scale, stream);
+    REPRO_FLASH_BWD_D(16)
+    REPRO_FLASH_BWD_D(32)
+    REPRO_FLASH_BWD_D(64)
+    REPRO_FLASH_BWD_D(128)
+    REPRO_FLASH_BWD_D(256)
+#undef REPRO_FLASH_BWD_D
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int run(int pass, const void* q, const void* k, const void* v, const void* o,
+        const float* lse, const void* dout, const int* kv_len, float* delta,
+        void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
+        int d, int causal, int window, float cap, float scale, int bf16,
+        void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return dispatch<__nv_bfloat16>(pass, d, q, k, v, o, lse, dout, kv_len,
+                                   delta, dq, dk, dv, b, hq, hkv, sq, sk,
+                                   causal, window, cap, scale, st);
+  return dispatch<float>(pass, d, q, k, v, o, lse, dout, kv_len, delta, dq,
+                         dk, dv, b, hq, hkv, sq, sk, causal, window, cap,
+                         scale, st);
+}
+
+}  // namespace bw
+
 // Launch<D>::run calls the f32 or the bf16 launcher at head dim D
 template <int D>
 struct LaunchTf32 {
   static int run(const void* q, const void* k, const void* v,
-                 const int* kv_len, void* out, int b, int hq, int hkv, int sq,
-                 int sk, int causal, int window, float cap, float scale,
-                 int terms, cudaStream_t stream) {
-    return tf::launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
-                         window, cap, scale, terms, stream);
+                 const int* kv_len, void* out, float* lse, int b, int hq,
+                 int hkv, int sq, int sk, int causal, int window, float cap,
+                 float scale, int terms, cudaStream_t stream) {
+    return tf::launch<D>(q, k, v, kv_len, out, lse, b, hq, hkv, sq, sk,
+                         causal, window, cap, scale, terms, stream);
   }
 };
 template <int D>
 struct LaunchWgmma {
   static int run(const void* q, const void* k, const void* v,
-                 const int* kv_len, void* out, int b, int hq, int hkv, int sq,
-                 int sk, int causal, int window, float cap, float scale,
-                 int /*terms*/, cudaStream_t stream) {
-    return wg::launch<D>(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal,
-                         window, cap, scale, stream);
+                 const int* kv_len, void* out, float* lse, int b, int hq,
+                 int hkv, int sq, int sk, int causal, int window, float cap,
+                 float scale, int /*terms*/, cudaStream_t stream) {
+    return wg::launch<D>(q, k, v, kv_len, out, lse, b, hq, hkv, sq, sk,
+                         causal, window, cap, scale, stream);
   }
 };
 
 template <template <int> class Launch>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const int* kv_len, void* out, int b, int hq, int hkv, int sq,
-               int sk, int causal, int window, float cap, float scale,
-               int terms, cudaStream_t stream) {
+               const int* kv_len, void* out, float* lse, int b, int hq,
+               int hkv, int sq, int sk, int causal, int window, float cap,
+               float scale, int terms, cudaStream_t stream) {
   switch (d) {
-#define REPRO_FLASH_D(DV)                                                    \
-  case DV:                                                                   \
-    return Launch<DV>::run(q, k, v, kv_len, out, b, hq, hkv, sq, sk, causal, \
-                           window, cap, scale, terms, stream);
+#define REPRO_FLASH_D(DV)                                                  \
+  case DV:                                                                 \
+    return Launch<DV>::run(q, k, v, kv_len, out, lse, b, hq, hkv, sq, sk,  \
+                           causal, window, cap, scale, terms, stream);
     REPRO_FLASH_D(16)
     REPRO_FLASH_D(32)
     REPRO_FLASH_D(64)
@@ -1219,19 +1681,50 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // kv_len: (b,) int32.  d is one of 16, 32, 64, 128, 256.  bf16 runs
 // wgmma_kernel, f32 tf32x3_kernel with terms = 3 (3xTF32) or 1 (one TF32
 // product: a control that must fail the f32 checks; bf16 takes 3 only).
+// lse: null, or (b, hq, sq) f32 that receives each row's logsumexp
+// m + log(l) (-1e30 for an all-masked row) for the backward; out is the
+// same bit for bit either way.
 // Returns the first CUDA error of the attribute call or the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* kv_len,
-                                   void* out, int b, int hq, int hkv, int sq,
-                                   int sk, int d, int causal, int window,
-                                   float cap, float scale, int bf16,
-                                   int terms, void* stream) {
+                                   void* out, float* lse, int b, int hq,
+                                   int hkv, int sq, int sk, int d, int causal,
+                                   int window, float cap, float scale,
+                                   int bf16, int terms, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (terms != 3 && (bf16 || terms != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bf16)
-    return dispatch_d<LaunchWgmma>(d, q, k, v, kv_len, out, b, hq, hkv, sq,
-                                   sk, causal, window, cap, scale, terms, st);
-  return dispatch_d<LaunchTf32>(d, q, k, v, kv_len, out, b, hq, hkv, sq, sk,
-                                causal, window, cap, scale, terms, st);
+    return dispatch_d<LaunchWgmma>(d, q, k, v, kv_len, out, lse, b, hq, hkv,
+                                   sq, sk, causal, window, cap, scale, terms,
+                                   st);
+  return dispatch_d<LaunchTf32>(d, q, k, v, kv_len, out, lse, b, hq, hkv, sq,
+                                sk, causal, window, cap, scale, terms, st);
+}
+
+// The backward's two passes, on K5's shapes and types (bf16 = 0: f32, 1:
+// bf16): q, o, dout, dq (b, hq, sq, d); k, v, dk, dv (b, hkv, sk, d); lse
+// and delta (b, hq, sq) f32; kv_len (b,) int32.  flash_attention_bwd_dq
+// writes dq and delta (rowsum(dout o)); flash_attention_bwd_dkdv reads
+// delta and writes dk and dv, so it runs after the first on the same
+// stream.  The two take the same arguments.  Returns the first CUDA error
+// of the attribute call or the launch.
+extern "C" int flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dout, const int* kv_len, float* delta,
+    void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
+    int d, int causal, int window, float cap, float scale, int bf16,
+    void* stream) {
+  return bw::run(0, q, k, v, o, lse, dout, kv_len, delta, dq, dk, dv, b, hq,
+                 hkv, sq, sk, d, causal, window, cap, scale, bf16, stream);
+}
+
+extern "C" int flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* o,
+    const float* lse, const void* dout, const int* kv_len, float* delta,
+    void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
+    int d, int causal, int window, float cap, float scale, int bf16,
+    void* stream) {
+  return bw::run(1, q, k, v, o, lse, dout, kv_len, delta, dq, dk, dv, b, hq,
+                 hkv, sq, sk, d, causal, window, cap, scale, bf16, stream);
 }

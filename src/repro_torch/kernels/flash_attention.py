@@ -14,7 +14,20 @@ accumulator in f32; an all-masked row gives 0; one rounding to q's dtype.
 
 ``flash_attention`` is the wrapper: tensors on the CPU take
 ``flash_attention_plain``, CUDA tensors launch the kernel or raise.
-``flash_attention.launches`` counts the launches.
+``flash_attention.launches`` counts the launches.  With ``return_lse=True``
+the kernel also stores each row's logsumexp ``m + log(l)`` (f32, (B, Hq,
+Sq)), which the backward needs; ``out`` is the same bit for bit.
+
+The backward (no TPU kernel: the reference differentiates its XLA flash
+path, ``repro/nn/flash_vjp.py::_flash_bwd``, whose two passes this
+follows) is ``flash_attention_bwd``: on CUDA tensors two kernels of
+``csrc/flash_attention.cu``, ``bwd_dq_kernel`` (dq, and the row sums
+``rowsum(dO * O)`` the second pass reads) and ``bwd_dkdv_kernel`` (dk and
+dv, summed over each GQA group), f32 FMA on the CUDA cores with bf16
+converted on load; on the CPU ``flash_attention_bwd_plain``.
+``flash_attention_bwd.launches`` counts both kernels' launches.
+``FlashAttention`` is the ``torch.autograd.Function`` over the two: its
+forward is K5 with the lse, its backward the two kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +42,8 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: (query rows, keys) of one tile of the backward kernels
+BWD_TILES = (64, 32)
 #: per-block shared memory limit (opt-in) of the H100
 _H100_SMEM_OPTIN = 232448
 
@@ -37,13 +52,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: Optional[torch.Tensor] = None, *,
                           causal: bool = True, window: int = 0,
                           softcap: float = 0.0, q_chunk: int = 512,
-                          kv_chunk: int = 1024) -> torch.Tensor:
+                          kv_chunk: int = 1024, return_lse: bool = False):
     """The plain PyTorch version: the same online softmax over KV blocks
     of ``kv_chunk`` keys, one chunk of ``q_chunk`` queries at a time, so
     that gemma2's S = 6144 at D = 256 never holds an (S, S) score matrix.
     GQA goes through a (B, Hkv, G, ...) view; nothing is repeated.  Without
     ``kv_len`` every batch has Sk valid keys, and KV blocks that are
-    entirely masked for a query chunk are skipped."""
+    entirely masked for a query chunk are skipped.  ``return_lse=True``
+    returns ``(out, lse)`` with lse (B, Hq, Sq) f32 = ``m + log(l_safe)``
+    as ``repro/nn/flash_vjp.py::_fwd_scan`` forms it (about -1e30 for an
+    all-masked row)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -54,6 +72,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvl = kv_len.to(dev).long().view(b, 1, 1, 1, 1)
     qs = (q * d ** -0.5).reshape(b, hkv, g, sq, d)
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     for q0 in range(0, sq, q_chunk):
         q1 = min(sq, q0 + q_chunk)
         qc = qs[:, :, :, q0:q1].float()
@@ -87,9 +106,84 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p,
                                              v[:, :, k0:k1].float())
             m_run = m_new
-        o = acc / torch.where(l_run == 0.0, 1.0, l_run)
+        l_safe = torch.where(l_run == 0.0, 1.0, l_run)
+        o = acc / l_safe
         out[:, :, q0:q1] = o.reshape(b, hq, q1 - q0, d).to(q.dtype)
-    return out
+        lse[:, :, q0:q1] = (m_run + torch.log(l_safe)).reshape(b, hq, q1 - q0)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor,
+                              kv_len: Optional[torch.Tensor] = None, *,
+                              causal: bool = True, window: int = 0,
+                              softcap: float = 0.0, q_chunk: int = 512,
+                              kv_chunk: int = 1024):
+    """The backward's plain version: (dq, dk, dv) of K5's function for the
+    output gradient ``dout``, given the forward's ``out`` and ``lse``.
+
+    Per (query chunk, KV chunk) tile, in f32 (``repro/nn/flash_vjp.py``'s
+    math; q scaled by ``D^-0.5`` in q's dtype as the forward forms it):
+    ``Z = qs K^T``, ``S = cap tanh(Z / cap)``, ``P = exp(S - lse)`` where
+    unmasked, ``dP = dO V^T``, ``dS = P (dP - D)`` with ``D = rowsum(dO
+    O)``, ``dZ = dS (1 - (S / cap)^2)``; ``dq = scale dZ K``, ``dk = dZ^T
+    qs``, ``dv = P^T dO``, the latter two summed over each GQA group.
+    Masks, right alignment and the skipped tiles are the forward's.  An
+    all-masked row (lse about -1e30) gets zero gradients.  Returns the
+    three in the inputs' dtypes."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    scale = d ** -0.5
+    bounded = kv_len is None
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=dev)
+    kvl = kv_len.to(dev).long().view(b, 1, 1, 1, 1)
+    qs = (q * scale).reshape(b, hkv, g, sq, d)
+    dog = dout.reshape(b, hkv, g, sq, d)
+    lseg = lse.float().reshape(b, hkv, g, sq, 1)
+    delta = (dout.float() * out.float()).sum(-1).reshape(b, hkv, g, sq, 1)
+    dq = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, q_chunk):
+        q1 = min(sq, q0 + q_chunk)
+        qc = qs[:, :, :, q0:q1].float()
+        doc = dog[:, :, :, q0:q1].float()
+        lc, dc = lseg[:, :, :, q0:q1], delta[:, :, :, q0:q1]
+        qpos = kvl - sq + torch.arange(q0, q1, device=dev).view(
+            1, 1, 1, -1, 1)
+        dqc = torch.zeros((b, hkv, g, q1 - q0, d), device=dev)
+        for k0 in range(0, sk, kv_chunk):
+            k1 = min(sk, k0 + kv_chunk)
+            if bounded and ((causal and k0 > sk - sq + q1 - 1) or (
+                    window > 0 and k1 - 1 <= sk - sq + q0 - window)):
+                continue
+            kpos = torch.arange(k0, k1, device=dev).view(1, 1, 1, 1, -1)
+            mask = kpos < kvl
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window > 0:
+                mask = mask & (kpos > qpos - window)
+            kc, vc = k[:, :, k0:k1].float(), v[:, :, k0:k1].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc)
+            if softcap > 0:
+                th = torch.tanh(s / softcap)
+                s = softcap * th
+            p = torch.where(mask, torch.exp(torch.where(mask, s - lc, 0.0)),
+                            0.0)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", doc, vc)
+            ds = p * (dp - dc)
+            if softcap > 0:
+                ds = ds * (1.0 - th * th)
+            dqc += torch.einsum("bhgqk,bhkd->bhgqd", ds, kc)
+            dk[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc)
+            dv[:, :, k0:k1] += torch.einsum("bhgqk,bhgqd->bhkd", p, doc)
+        dq[:, :, :, q0:q1] = dqc * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def tiles(d: int, dtype: torch.dtype, group: int = 1) -> tuple[int, int, int]:
@@ -120,10 +214,24 @@ def smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> int:
     return 1024 + (2 * tq * dp + 2 * max(tk * dp, d * tk) + tk * d) * 4
 
 
+def bwd_smem_bytes(d: int) -> dict:
+    """Dynamic shared memory of the backward kernels at head dim ``d``
+    (mirrors ``bw::Cfg`` in the kernel source), f32 whatever the input
+    type: ``dq`` holds the scaled q and dO tiles (64 x d each), K^T and
+    V^T tiles (d x 33: 32 keys and a pad column, so that both a row and a
+    column read hit distinct banks), the dS tile (64 x 33) and two f32 per
+    row; ``dkdv`` the same K^T, V^T, q and dO tiles, P and dS tiles and two
+    f32 per row."""
+    rows, kp = BWD_TILES[0], BWD_TILES[1] + 1
+    common = 2 * d * kp + 2 * rows * d + 2 * rows
+    return {"dq": 4 * (common + rows * kp),
+            "dkdv": 4 * (common + 2 * rows * kp)}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, return_lse: bool = False):
     """Flash attention: a CUDA kernel for CUDA tensors, the plain version
     for tensors on the CPU.  By dtype: bf16 launches ``wgmma_kernel``, f32
     ``tf32x3_kernel``; both count in ``flash_attention.launches``.
@@ -132,74 +240,178 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous and 16-byte aligned, Hq a multiple of Hkv, D in
     ``HEAD_DIMS``; kv_len: optional
     (B,) int32 valid keys per batch, in [0, Sk] (default Sk).  Returns
-    (B, Hq, Sq, D) in q's dtype.  Launches on the current stream and does
-    not synchronize.
+    (B, Hq, Sq, D) in q's dtype, and with ``return_lse=True`` also each
+    row's logsumexp, (B, Hq, Sq) f32.  Launches on the current stream and
+    does not synchronize.  A launch has no backward of its own: under
+    autograd go through ``FlashAttention``.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_len, causal=causal,
-                                     window=window, softcap=softcap)
+                                     window=window, softcap=softcap,
+                                     return_lse=return_lse)
     out = _launch(q, k, v, kv_len, causal=causal, window=window,
-                  softcap=softcap)
+                  softcap=softcap, return_lse=return_lse)
     flash_attention.launches += 1
     return out
 
 
+def _check(q, k, v, kv_len, name: str):
+    """The checks both directions share; returns kv_len (default Sk)."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q and k must be 4-D (B, H, S, D); got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q is {q.dtype}, expected torch.float32 "
+                        f"or torch.bfloat16")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS or hkv == 0 or hq % hkv:
+        raise ValueError(f"{name}: head dim {d} must be one of {HEAD_DIMS} "
+                         f"and Hq={hq} a multiple of Hkv={hkv}")
+    if not (b > 0 and hq > 0 and sq > 0 and sk > 0):
+        raise ValueError(f"{name}: empty launch (q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)})")
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    return kv_len
+
+
+def _smem_limit(device) -> int:
+    return getattr(torch.cuda.get_device_properties(device),
+                   "shared_memory_per_block_optin", _H100_SMEM_OPTIN)
+
+
 def _launch(q, k, v, kv_len=None, *, causal: bool = True, window: int = 0,
-            softcap: float = 0.0, terms: int = 3) -> torch.Tensor:
+            softcap: float = 0.0, terms: int = 3, return_lse: bool = False):
     """Check the arguments and launch the kernel; not counted in
     ``flash_attention.launches``.  ``flash_attention`` passes ``terms=3``;
     ``terms=1`` (f32 only: one TF32 product instead of three, a control
     that must fail the f32 checks) is for ``chip_smoke.py`` and the card
     tests and is never called on a path."""
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"flash_attention: q and k must be 4-D (B, H, S, "
-                         f"D); got {tuple(q.shape)} and {tuple(k.shape)}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: q is {q.dtype}, expected "
-                        f"torch.float32 or torch.bfloat16")
     if terms != 3 and (terms != 1 or q.dtype != torch.float32):
         raise ValueError(f"flash_attention: terms must be 3, or 1 for f32; "
                          f"got {terms} for {q.dtype}")
+    kv_len = _check(q, k, v, kv_len, "flash_attention")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if kv_len is None:
-        kv_len = torch.full((b,), sk, dtype=torch.int32, device=q.device)
     _build.check_args("flash_attention", q.device, {
         "q": (q, q.dtype, (b, hq, sq, d)),
         "k": (k, q.dtype, (b, hkv, sk, d)),
         "v": (v, q.dtype, (b, hkv, sk, d)),
         "kv_len": (kv_len, torch.int32, (b,))})
-    if d not in HEAD_DIMS or hkv == 0 or hq % hkv:
-        raise ValueError(f"flash_attention: head dim {d} must be one of "
-                         f"{HEAD_DIMS} and Hq={hq} a multiple of Hkv={hkv}")
-    if not (b > 0 and hq > 0 and sq > 0 and sk > 0):
-        raise ValueError(f"flash_attention: empty launch (q {tuple(q.shape)},"
-                         f" k {tuple(k.shape)})")
-    limit = getattr(torch.cuda.get_device_properties(q.device),
-                    "shared_memory_per_block_optin", _H100_SMEM_OPTIN)
+    limit = _smem_limit(q.device)
     need = smem_bytes(d, q.dtype, hq // hkv)
     if need > limit:
         raise ValueError(f"flash_attention: head dim {d} needs {need} bytes "
                          f"of shared memory per block; this card allows "
                          f"{limit}")
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("flash_attention: q, k and v must be 16-byte "
                          "aligned (the kernels load 16 bytes at a time)")
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
         [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 out.data_ptr(), b, hq, hkv, sq, sk, d, int(causal),
-                 int(window), float(softcap), d ** -0.5,
-                 int(q.dtype == torch.bfloat16), terms,
+                 out.data_ptr(), None if lse is None else lse.data_ptr(), b,
+                 hq, hkv, sq, sk, d, int(causal), int(window), float(softcap),
+                 d ** -0.5, int(q.dtype == torch.bfloat16), terms,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA"
                            f" error {err}")
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor,
+                        kv_len: Optional[torch.Tensor] = None, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """K5's backward: (dq, dk, dv) for the output gradient ``dout``, given
+    the forward's ``out`` and ``lse`` (``flash_attention(...,
+    return_lse=True)``).  The plain version for tensors on the CPU; on
+    CUDA tensors ``bwd_dq_kernel`` then ``bwd_dkdv_kernel``, each counted
+    in ``flash_attention_bwd.launches`` (two a call).  q, k, v, out and
+    dout share one dtype (f32 or bf16) and K5's shapes, contiguous; lse is
+    (B, Hq, Sq) f32.  Returns the gradients in that dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, kv_len,
+                                         causal=causal, window=window,
+                                         softcap=softcap)
+    kv_len = _check(q, k, v, kv_len, "flash_attention_bwd")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    _build.check_args("flash_attention_bwd", q.device, {
+        "q": (q, q.dtype, (b, hq, sq, d)),
+        "k": (k, q.dtype, (b, hkv, sk, d)),
+        "v": (v, q.dtype, (b, hkv, sk, d)),
+        "out": (out, q.dtype, (b, hq, sq, d)),
+        "lse": (lse, torch.float32, (b, hq, sq)),
+        "dout": (dout, q.dtype, (b, hq, sq, d)),
+        "kv_len": (kv_len, torch.int32, (b,))})
+    limit = _smem_limit(q.device)
+    need = max(bwd_smem_bytes(d).values())
+    if need > limit:
+        raise ValueError(f"flash_attention_bwd: head dim {d} needs {need} "
+                         f"bytes of shared memory per block; this card "
+                         f"allows {limit}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    dq_fn = _build.load("flash_attention").flash_attention_bwd_dq
+    dkdv_fn = _build.load("flash_attention").flash_attention_bwd_dkdv
+    args = (q, k, v, out, lse, dout, kv_len, delta, dq, dk, dv)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for fn in (dq_fn, dkdv_fn):   # dkdv reads the row sums dq wrote
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
+                [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*(t.data_ptr() for t in args), b, hq, hkv, sq, sk, d,
+                     int(causal), int(window), float(softcap), d ** -0.5,
+                     int(q.dtype == torch.bfloat16), stream)
+            if err:
+                raise RuntimeError(f"flash_attention_bwd: kernel launch "
+                                   f"failed with CUDA error {err}")
+            flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 under autograd, K5's contract: ``apply(q, k, v, kv_len, causal,
+    window, softcap)`` with q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), the
+    kernel's own ``D^-0.5`` scale and ``kv_len`` right alignment.  The
+    forward is one ``flash_attention(..., return_lse=True)`` (one K5
+    launch on a card), which saves ``out`` and ``lse``; the backward is
+    ``flash_attention_bwd`` -- its two kernels for CUDA tensors, the plain
+    versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, window, softcap):
+        out, lse = flash_attention(q, k, v, kv_len, causal=causal,
+                                   window=window, softcap=softcap,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_len = kv_len
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), ctx.kv_len,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None

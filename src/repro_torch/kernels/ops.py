@@ -84,7 +84,8 @@ def launch_counts() -> dict:
             "fused_agg_combine": k2.fused_agg_combine.launches,
             "fused_agg_combine_bf16": k2.fused_agg_combine.launches_bf16,
             "fused_agg_combine_mixed": k2.fused_agg_combine.launches_mixed,
-            "flash_attention": k5.flash_attention.launches}
+            "flash_attention": k5.flash_attention.launches,
+            "flash_attention_bwd": k5.flash_attention_bwd.launches}
 
 
 def reset_launch_counts() -> None:
@@ -95,6 +96,7 @@ def reset_launch_counts() -> None:
     k2.fused_agg_combine.launches = k2.fused_agg_combine.launches_bf16 = 0
     k2.fused_agg_combine.launches_mixed = 0
     k5.flash_attention.launches = 0
+    k5.flash_attention_bwd.launches = 0
 
 
 def seg_agg(rows: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
@@ -216,7 +218,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, backend: str) -> torch.Tensor:
     """Online-softmax attention, q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
-    Returns (B, Hq, Sq, D) in q's dtype."""
+    Returns (B, Hq, Sq, D) in q's dtype.  On the ``cuda`` tier, when grad
+    is enabled and q, k or v requires a gradient, K5 runs through its
+    ``FlashAttention`` Function (the backward is K5's backward kernels);
+    the ``torch`` tier's plain version is differentiable as it stands."""
     _check_tier(backend, q)
-    fn = k5.flash_attention_plain if backend == TORCH else k5.flash_attention
-    return fn(q, k, v, kv_len, causal=causal, window=window, softcap=softcap)
+    if backend == TORCH:
+        return k5.flash_attention_plain(q, k, v, kv_len, causal=causal,
+                                        window=window, softcap=softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return k5.FlashAttention.apply(q, k, v, kv_len, causal, window,
+                                       softcap)
+    return k5.flash_attention(q, k, v, kv_len, causal=causal, window=window,
+                              softcap=softcap)

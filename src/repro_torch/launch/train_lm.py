@@ -1,0 +1,142 @@
+"""Train a decoder LM end to end: the port's ``examples/train_lm.py``.
+
+The full runtime -- ``TokenPipeline`` (Zipf tokens, a pure function of
+(seed, step)), ``make_train_step`` (AdamW with warmup and cosine decay),
+``make_train_state(init_lm(...))`` and the fault-tolerant ``Trainer`` with
+its atomic checkpoints -- over a ~100M granite-family model by default:
+
+  PYTHONPATH=src python -m repro_torch.launch.train_lm --steps 300
+  PYTHONPATH=src python -m repro_torch.launch.train_lm --arch gemma2-9b \\
+      --preset smoke --device cpu
+
+On a card the attention of every layer runs K5 and its backward kernels
+(``--device cuda``, the default).  ``--arch`` takes the archs whose
+configs the port has (``granite-100m``, ``gemma2-9b``, ``granite-3-8b``),
+reduced and in f32 as the example trains them (``make_config(...,
+width="full", layers=n)`` keeps the published widths and cuts the depth,
+as ``chip_smoke.py``'s phase 18 trains gemma2-9b).  Re-running the same
+command resumes from the newest checkpoint.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib
+import logging
+from typing import Optional
+
+import torch
+
+from repro_torch.config import (AttentionConfig, LMConfig, OptimizerConfig,
+                                ShapeSpec, TrainConfig)
+from repro_torch.core.backend import resolve_device
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.transformer import init_lm
+from repro_torch.optim.optimizer import make_train_state
+from repro_torch.train.trainer import Trainer
+
+#: --arch -> the port's config module (the example's MODULES, cut to the
+#: archs the port has)
+MODULES = {"gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b"}
+
+
+def model_100m() -> LMConfig:
+    """granite-family ~100M: 12L d=640 10H kv=2 ffn 1792 vocab 32768."""
+    return LMConfig(
+        name="granite-100m", family="dense", num_layers=12, d_model=640,
+        d_ff=1792, vocab_size=32768,
+        attention=AttentionConfig(num_heads=10, num_kv_heads=2, head_dim=64),
+        mlp_activation="swiglu", tie_embeddings=True, dtype="float32")
+
+
+def make_config(arch: str = "granite-100m", preset: str = "full", *,
+                width: str = "reduced",
+                layers: Optional[int] = None) -> LMConfig:
+    """The example's config choice: ``granite-100m`` or an arch's reduced
+    config in f32 (``width="full"``: its published widths in f32), the
+    ``tiny`` preset's narrow widths; ``layers`` cuts the depth."""
+    if arch == "granite-100m":
+        cfg = model_100m()
+    elif arch in MODULES:
+        mod = importlib.import_module(f"repro_torch.configs.{MODULES[arch]}")
+        base = mod.config() if width == "full" else mod.reduced()
+        cfg = dataclasses.replace(base, dtype="float32")
+    else:
+        raise NotImplementedError(
+            f"--arch {arch}: not ported (the port has configs for "
+            f"granite-100m and {', '.join(sorted(MODULES))})")
+    if preset == "tiny":
+        cfg = dataclasses.replace(cfg, num_layers=4, d_model=256, d_ff=704,
+                                  vocab_size=8192)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def make_trainer(cfg: LMConfig, *, steps: int, batch: int, seq: int,
+                 lr: float = 3e-4, ckpt_dir: str, device="cuda",
+                 log_every: int = 10, checkpoint_every: int = 50) -> Trainer:
+    """A ``Trainer`` over ``TokenPipeline(cfg, (seq, batch), seed=0)``,
+    ``make_train_step(cfg, opt)`` and ``make_train_state(init_lm(cfg))``
+    with the weights drawn from a generator seeded with 0 on ``device``
+    (the example's seeds)."""
+    dev = resolve_device(device)
+    shape = ShapeSpec("train_cli", seq, batch, "train")
+    opt = OptimizerConfig(lr=lr, warmup_steps=max(10, steps // 20),
+                          total_steps=steps)
+    tc = TrainConfig(model=cfg.name, steps=steps, optimizer=opt,
+                     checkpoint_dir=ckpt_dir,
+                     checkpoint_every=checkpoint_every, log_every=log_every)
+
+    def make_state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = init_lm(cfg, generator=gen, device=dev)
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        return make_train_state(params, opt)
+
+    return Trainer(tc, make_state=make_state,
+                   step_fn=make_train_step(cfg, opt),
+                   pipeline=TokenPipeline(cfg, shape, seed=0))
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="granite-100m",
+                    help="granite-100m | gemma2-9b | granite-3-8b")
+    ap.add_argument("--preset", default="full",
+                    choices=["full", "tiny", "smoke"])
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="checkpoints/train_lm")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+    cfg = make_config(args.arch, args.preset)
+    if args.preset == "smoke":
+        args.steps, args.batch, args.seq = min(args.steps, 5), 2, 32
+    print(f"arch={cfg.name}  params={cfg.param_count() / 1e6:.1f}M  "
+          f"steps={args.steps}  batch={args.batch}x{args.seq}  "
+          f"device={args.device}")
+    trainer = make_trainer(cfg, steps=args.steps, batch=args.batch,
+                           seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
+                           device=args.device)
+    result = trainer.run()
+    hist = result["history"]
+    if hist:
+        print(f"\ndone: loss {hist[0]['loss']:.3f} -> "
+              f"{hist[-1]['loss']:.3f} over {args.steps} steps; "
+              f"checkpoints in {args.ckpt_dir}")
+    else:   # resumed from a checkpoint at the last step
+        print(f"\ndone: {args.ckpt_dir} already holds step "
+              f"{args.steps - 1}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -10,10 +10,15 @@ say what each layer is (gemma2: even layers local, sliding-window), and
 
 Entry points (the reference's, with the module in place of ``params`` and
 ``cfg``):
+  init_lm(cfg, generator=, device=)              -> TransformerLM
   lm_forward(model, tokens)                      -> logits (B, S, V)
+  lm_loss(model, tokens, labels)                 -> (loss, {"ce", "aux"})
   lm_prefill(model, tokens, cache_size)          -> (logits, caches, length)
   lm_decode_step(model, token, caches, length)   -> (logits, caches, length)
   init_caches(cfg, batch, cache_size, device)    -> zeroed caches
+
+``model(tokens, labels)`` is ``lm_loss``, so ``torch.func.functional_call``
+runs the loss over a dict of parameters by name (``launch/steps.py``).
 
 Caches are a list with one ``(k, v)`` pair per layer.  MoE, SSM, the
 enc-dec family and frontend embeddings are not ported and raise
@@ -28,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch.config import LMConfig
@@ -150,7 +156,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         kw = dict(dtype=DTYPES[cfg.dtype], device=dev, generator=generator)
         self.cfg = cfg
@@ -165,31 +171,18 @@ class TransformerLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
 
+    def forward(self, tokens: torch.Tensor, labels: torch.Tensor,
+                embeds=None, **kw):
+        """``lm_loss(self, tokens, labels, embeds, **kw)``: the module's
+        call is its loss, which ``torch.func.functional_call`` runs over
+        parameters by name."""
+        return lm_loss(self, tokens, labels, embeds, **kw)
+
     def params_from_reference(self, tree: Dict) -> "TransformerLM":
-        """Load the reference's ``init_lm`` pytree (numpy leaves) in place.
-
-        ``tree["blocks"]["pos{i}"]`` leaves are stacked ``(n_rep, ...)``;
-        layer ``rep * period + i`` takes slice ``rep``.  A ``{"w": ...}``
-        leaf maps onto the parameter named by its parent key.  Raises on a
-        missing or extra leaf or a shape mismatch."""
-        period = len(layer_positions(self.cfg))
-        flat: Dict[str, np.ndarray] = {}
-
-        def walk(prefix, node, rep=None):
-            for key, val in node.items():
-                name = prefix if key == "w" else f"{prefix}.{key}"
-                if isinstance(val, dict):
-                    walk(name, val, rep)
-                else:
-                    flat[name] = val if rep is None else val[rep]
-
-        for key, sub in tree.items():
-            if key != "blocks":
-                walk(key, sub)
-        for pos_key, sub in tree["blocks"].items():
-            i = int(pos_key[len("pos"):])
-            for rep in range(self.cfg.num_layers // period):
-                walk(f"layers.{rep * period + i}", sub, rep)
+        """Load the reference's ``init_lm`` pytree (numpy leaves) in place
+        (``flatten_reference`` names its leaves).  Raises on a missing or
+        extra leaf or a shape mismatch."""
+        flat = flatten_reference(tree, self.cfg)
         mine = dict(self.named_parameters())
         if set(flat) != set(mine):
             raise ValueError(f"parameter names differ: reference only "
@@ -210,6 +203,46 @@ class TransformerLM(nn.Module):
                 else self.lm_head).table
 
 
+def flatten_reference(tree: Dict, cfg: LMConfig) -> Dict[str, np.ndarray]:
+    """The reference's ``init_lm`` pytree (or a gradient of it) as
+    ``{parameter name: leaf}`` in the port's names.
+
+    ``tree["blocks"]["pos{i}"]`` leaves are stacked ``(n_rep, ...)``; layer
+    ``rep * period + i`` takes slice ``rep``.  A ``{"w": ...}`` leaf maps
+    onto the parameter named by its parent key."""
+    period = len(layer_positions(cfg))
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix, node, rep=None):
+        for key, val in node.items():
+            name = prefix if key == "w" else f"{prefix}.{key}"
+            if isinstance(val, dict):
+                walk(name, val, rep)
+            else:
+                flat[name] = val if rep is None else val[rep]
+
+    for key, sub in tree.items():
+        if key != "blocks":
+            walk(key, sub)
+    for pos_key, sub in tree["blocks"].items():
+        i = int(pos_key[len("pos"):])
+        for rep in range(cfg.num_layers // period):
+            walk(f"layers.{rep * period + i}", sub, rep)
+    return flat
+
+
+def init_lm(cfg: LMConfig, *, generator: Optional[torch.Generator] = None,
+            device="cuda") -> TransformerLM:
+    """A model of ``cfg`` with weights drawn as the reference's ``init_lm``
+    draws them, leaf by leaf: dense ``(d_in, d_out)`` weights
+    ``N(0, 1) d_in^-0.5`` (the output projections ``wo`` over their own
+    input width: ``q_dim^-0.5``, ``d_ff^-0.5``), embedding tables ``N(0, 1)
+    d^-0.5``, norm scales 0; drawn in f32 and cast to ``cfg.dtype``.  The
+    generator's stream is torch's, not ``jax.random``'s: the values differ
+    from the reference's, their distributions do not."""
+    return TransformerLM(cfg, device=device, generator=generator)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -220,28 +253,54 @@ def _embed_inputs(model: TransformerLM, tokens: torch.Tensor,
     if embeds is not None:
         raise NotImplementedError("frontend embeddings (the reference's VLM/"
                                   "audio stub) are not ported yet")
-    return embed(model.embed.table, tokens.to(model.device),
+    table = model.embed.table
+    return embed(table, tokens.to(table.device),
                  scale_by_sqrt_d=model.cfg.name.startswith("gemma"))
+
+
+#: the ported ``remat`` modes of the training forward
+REMAT = ("none", "full")
 
 
 def _run_stack(model: TransformerLM, x: torch.Tensor, *,
                caches: Optional[Caches] = None, cache_length=None,
                make_cache: bool = False, cache_size: int = 0,
-               attn_impl: str = "auto"):
-    """Run the layers in order.  Returns (x, new_caches or None)."""
+               attn_impl: str = "auto", remat: str = "none"):
+    """Run the layers in order.  Returns (x, new_caches or None).
+
+    ``remat="full"`` runs each period of layers under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scan body): only the period's input is kept, and the backward runs the
+    period's forward again.  The reference's ``"selective"`` policy (keep
+    the products without batch dimensions) is not ported and raises."""
     cfg = model.cfg
     dt, period = DTYPES[cfg.dtype], layer_period(cfg)
+    if remat not in REMAT:
+        raise NotImplementedError(
+            f"remat={remat!r}: the port runs {REMAT} (the reference's "
+            f"'selective' policy is ROADMAP item 13.8)")
+    if remat == "full" and (caches is not None or make_cache):
+        raise ValueError("remat applies to the training forward only")
     new_caches: Caches = []
-    for n, layer in enumerate(model.layers):
-        if n % period == 0:   # the reference's scan carry, rounded
-            x = x.to(dt)
-        inner = None
-        if caches is not None:
-            inner = KVCache(caches[n][0], caches[n][1], cache_length)
-        x, new_inner = layer(x, cfg, cache=inner, make_cache=make_cache,
-                             cache_size=cache_size, attn_impl=attn_impl)
-        if new_inner is not None:
-            new_caches.append((new_inner.k, new_inner.v))
+
+    def run_period(x, n0):
+        x = x.to(dt)      # the reference's scan carry, rounded
+        for n in range(n0, n0 + period):
+            inner = None
+            if caches is not None:
+                inner = KVCache(caches[n][0], caches[n][1], cache_length)
+            x, new_inner = model.layers[n](
+                x, cfg, cache=inner, make_cache=make_cache,
+                cache_size=cache_size, attn_impl=attn_impl)
+            if new_inner is not None:
+                new_caches.append((new_inner.k, new_inner.v))
+        return x
+
+    for n0 in range(0, cfg.num_layers, period):
+        if remat == "full":
+            x = ckpt.checkpoint(run_period, x, n0, use_reentrant=False)
+        else:
+            x = run_period(x, n0)
     return x.to(dt), (new_caches or None)
 
 
@@ -262,6 +321,67 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, embeds=None, *,
     x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
                       attn_impl=attn_impl)
     return _logits(model, x)
+
+
+def lm_loss(model: TransformerLM, tokens: torch.Tensor,
+            labels: torch.Tensor, embeds=None, *, attn_impl: str = "auto",
+            ce_chunk: int = 2048, remat: str = "none", params=None):
+    """Next-token cross-entropy, computed CHUNKED over tokens
+    (``lm_loss``, :256).  Returns ``(loss, {"ce": loss, "aux": aux})``.
+
+    The final norm's output is cut into ``ce_chunk`` tokens (all ``t`` of
+    them when ``t % ce_chunk``); each chunk's logits are the product
+    against the head table in x's dtype accumulated in f32, the final
+    softcap, the padded vocabulary's -1e30 added, ``log_softmax``, and the
+    label's negative log-likelihood, labels -100 masked.  Each chunk runs
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
+    so no (tokens, vocab) f32 logits are kept for the backward, which
+    computes each chunk's again.  Tied embeddings take gradients from the
+    lookup and the head.  ``aux`` is 0 (MoE is not ported).
+
+    ``params`` (a dict of tensors by parameter name) runs the loss through
+    ``torch.func.functional_call`` with those tensors in place of the
+    module's."""
+    if params is not None:
+        return torch.func.functional_call(
+            model, params, (tokens, labels, embeds),
+            dict(attn_impl=attn_impl, ce_chunk=ce_chunk, remat=remat))
+    cfg = model.cfg
+    x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
+                      attn_impl=attn_impl, remat=remat)
+    x = model.final_ln(x, cfg.norm_eps)
+    table = model.head_table()
+    b, s, d = x.shape
+    t = b * s
+    chunk = min(ce_chunk, t)
+    if t % chunk:
+        chunk = t   # the reference's fallback: unchunked for odd shapes
+    xf = x.reshape(t, d)
+    lf = labels.to(x.device).reshape(t)
+    pad = None
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.where(torch.arange(cfg.padded_vocab, device=x.device) <
+                          cfg.vocab_size, 0.0, -1e30)
+
+    def chunk_ce(x_c, l_c):
+        logits = softcap(unembed(table, x_c), cfg.final_logit_softcap)
+        if pad is not None:
+            logits = logits + pad
+        valid = l_c >= 0
+        safe = torch.where(valid, l_c, 0).long()
+        ll = torch.log_softmax(logits, dim=-1)
+        nll = -ll.gather(1, safe[:, None])[:, 0]
+        return (nll * valid).sum(), valid.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, t, chunk):
+        ls, n = ckpt.checkpoint(chunk_ce, xf[c0:c0 + chunk],
+                                lf[c0:c0 + chunk], use_reentrant=False)
+        tot, cnt = tot + ls, cnt + n
+    loss = tot / torch.clamp(cnt, min=1)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 def init_caches(cfg: LMConfig, batch: int, cache_size: int,

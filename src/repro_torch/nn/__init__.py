@@ -1,1 +1,2 @@
-"""LM building blocks: layers and GQA attention (``repro/nn``)."""
+"""LM building blocks: layers, GQA attention and flash attention's
+hand-written backward (``repro/nn``)."""

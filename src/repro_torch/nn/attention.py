@@ -1,13 +1,17 @@
 """GQA attention: projections, the prefill paths, the decode path.
 
-Port of ``repro/nn/attention.py`` for the serving path.  Prefill runs one
-of three paths, chosen by ``attention_block(impl=)``:
+Port of ``repro/nn/attention.py`` for the serving and training paths.
+A prefill (or a training forward) runs one of three paths, chosen by
+``attention_block(impl=)``:
 
   * ``cuda``   -- K5, the hand-written CUDA flash kernel
-    (``kernels/flash_attention.py``), for every prefill on a card;
+    (``kernels/flash_attention.py``), for every prefill on a card; under
+    autograd its ``FlashAttention`` Function, whose backward is K5's two
+    backward kernels;
   * ``direct`` -- materialize the (Sq, Sk) scores; small sequences, tests;
   * the torch tier's long path -- K5's plain version (blockwise online
-    softmax), which the reference fills with ``flash_attention_xla``.
+    softmax) without a gradient, and under autograd ``flash_attention_xla``
+    (``nn/flash_vjp.py``), as the reference.
 
 Decode (one new token against a padded KV cache whose ``length`` marks
 validity) stays plain PyTorch, as the reference leaves it outside any
@@ -27,6 +31,7 @@ from torch import nn
 from repro_torch.config import AttentionConfig
 from repro_torch.core.backend import CUDA, TORCH, resolve_backend
 from repro_torch.kernels import ops
+from repro_torch.nn.flash_vjp import flash_mha
 from repro_torch.nn.layers import apply_rope, init_normal, softcap
 
 NEG_INF = -1e30
@@ -90,6 +95,37 @@ def direct_attention(q, k, v, *, causal: bool, window: int, cap: float,
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
+                        cap: float = 0.0, q_chunk: int = 2048,
+                        kv_chunk: int = 1024) -> torch.Tensor:
+    """``flash_mha`` (``nn/flash_vjp.py``, hand-written backward) on the
+    (B, Hq, S, D) layout (``flash_attention_xla``, :158): q is grouped and
+    scaled by ``D^-0.5`` in its dtype, query row 0 sits at Sk - Sq.  The
+    chunks are the reference's single-device choice: the live tile
+    ``b * hq * qc * kc`` is capped at 2^27 elements, then each chunk is
+    halved until it divides its sequence.  The reference's
+    context-parallel branch (query slabs over a mesh axis, chosen by its
+    sharding context) is not ported: the port has no such context yet
+    (ROADMAP item 13.8)."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = _grouped(q, hkv) * (d ** -0.5)
+    qc, kc = min(q_chunk, sq), min(kv_chunk, sk)
+    while b * hq * qc * kc > (1 << 27) and (qc > 256 or kc > 256):
+        if qc >= kc and qc > 256:
+            qc //= 2
+        elif kc > 256:
+            kc //= 2
+        else:
+            break
+    while sq % qc != 0 and qc > 1:
+        qc //= 2
+    while sk % kc != 0 and kc > 1:
+        kc //= 2
+    out = flash_mha(qg, k, v, sk - sq, causal, window, cap, qc, kc)
+    return out.reshape(b, hq, sq, d)
+
+
 def decode_attention(q: torch.Tensor, cache: KVCache, *, window: int = 0,
                      cap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, 1, D) against the padded cache; returns (B, Hq, 1, D).
@@ -129,8 +165,13 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
 
     ``impl`` picks the prefill path: ``"auto"`` resolves by device
     (``cuda`` on a card, ``torch`` on the CPU), ``"cuda"`` is K5,
-    ``"torch"`` attends directly up to ``DIRECT_MAX_SEQ`` tokens and runs
-    K5's plain version above, ``"direct"`` always attends directly.
+    ``"torch"`` attends directly up to ``DIRECT_MAX_SEQ`` tokens and above
+    runs K5's plain version (``flash_attention_xla`` when a gradient is
+    wanted), ``"direct"`` always attends directly.  When grad is enabled
+    and q, k or v requires a gradient, the cuda tier runs K5 through its
+    ``FlashAttention`` Function (a forward that also stores the row
+    logsumexp, and K5's backward kernels); without a gradient the launch
+    is the serving path's, bit for bit.
     """
     b, s, _ = x.shape
     dev = x.device
@@ -163,6 +204,8 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
         o = decode_attention(q, new_cache, window=layer_window, cap=cap)
     else:
         tier = impl if impl == "direct" else resolve_backend(impl, dev)
+        grad = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
         if tier == CUDA:
             o = ops.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=cfg.causal,
@@ -171,6 +214,9 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
         elif tier == "direct" or s <= DIRECT_MAX_SEQ:
             o = direct_attention(q, k, v, causal=cfg.causal,
                                  window=layer_window, cap=cap)
+        elif grad:
+            o = flash_attention_xla(q, k, v, causal=cfg.causal,
+                                    window=layer_window, cap=cap)
         else:
             o = ops.flash_attention(q, k, v, causal=cfg.causal,
                                     window=layer_window, softcap=cap,

@@ -155,6 +155,28 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
 UNEMBED_CHUNK = 4096
 
 
+class _UnembedF32(torch.autograd.Function):
+    """``x @ table.T`` of reduced-precision operands as the f32
+    accumulator (``torch.mm(..., out_dtype=torch.float32)``, which has no
+    derivative of its own).  The backward multiplies the f32 output
+    gradient by the other operand upcast to f32 (its values are exact
+    there) and rounds each gradient once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        dx = (g @ table.float()).to(x2.dtype) \
+            if ctx.needs_input_grad[0] else None
+        dt = (g.t() @ x2.float()).to(table.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dt
+
+
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Logits ``x @ table.T`` as f32: the operands in x's dtype, the f32
     accumulator returned as it is, as the reference does
@@ -162,7 +184,8 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     bf16.
 
     f32 operands are a plain f32 product.  Reduced-precision operands on a
-    card go through ``torch.mm(..., out_dtype=torch.float32)``; on the CPU,
+    card go through ``torch.mm(..., out_dtype=torch.float32)``
+    (``_UnembedF32``, differentiable for the training loss); on the CPU,
     which has no such kernel, ``UNEMBED_CHUNK`` vocab rows of the table at
     a time are upcast and multiplied in f32 (the products of bf16 values
     are exact in f32), so no f32 copy of the whole table (256000 x 3584 for
@@ -172,7 +195,7 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return x @ table.t()
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type != "cpu":
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        out = _UnembedF32.apply(x2, table)
     else:
         x32 = x2.float()
         out = torch.cat([x32 @ table[v0:v0 + UNEMBED_CHUNK].float().t()

@@ -4,6 +4,8 @@
   * **Checkpoint/restart** -- atomic checkpoints every ``checkpoint_every``
     steps with the data pipeline's state; ``run()`` resumes from the
     newest one, so a killed run re-invoked goes on where it stopped.
+    ``checkpoint_every`` <= 0 writes none (the reference's would divide by
+    zero): a run that only measures steps, whose state is gigabytes.
   * **Failure handling** -- a failure raised mid-step (``FailureInjector``
     in tests) is caught, the state is restored from the last checkpoint
     and the run continues: bit for bit the run that never failed, since
@@ -113,6 +115,8 @@ class Trainer:
         return state, step
 
     def _save(self, step: int, state, blocking=False):
+        if self.cfg.checkpoint_every <= 0:
+            return
         self.ckpt.save(step, state,
                        extra={"pipeline": self.pipeline.state_dict()},
                        blocking=blocking)
@@ -159,7 +163,8 @@ class Trainer:
                 self.metrics_history.append(host)
                 log.info("step %d: %s", step, host)
             last_metrics = metrics
-            if (step + 1) % self.cfg.checkpoint_every == 0:
+            if self.cfg.checkpoint_every > 0 and \
+                    (step + 1) % self.cfg.checkpoint_every == 0:
                 self._save(step, state)
             if need_restart:
                 self._save(step, state, blocking=True)

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import seg_agg as k1
 from repro_torch.models import transformer as ttr
 from repro_torch.models.gcn import make_paper_model
+from repro_torch.nn import layers
 
 torch.set_num_threads(2)
 
@@ -400,6 +401,156 @@ def test_flash_f32_launches_are_bitwise_equal(gpu):
     first = k5.flash_attention(q, k, v, softcap=50.0)
     assert all(torch.equal(first, k5.flash_attention(q, k, v, softcap=50.0))
                for _ in range(3))
+
+
+#: K5's backward against its plain version (chip_smoke.py BWD_ROW_LIMIT,
+#: BWD_ROW_FLOOR): each row's largest error over that row's largest
+#: magnitude, floored at 1% of the tensor's (a causal first row sees one
+#: key and its dq is 0 up to rounding)
+BWD_ROW_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_rows_close(a, b, limit):
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    diff = (a - b).abs().amax(-1)
+    mag = b.abs().amax(-1).clamp_min(1e-2 * b.abs().max().item())
+    assert (diff <= limit * mag).all() and torch.isfinite(a).all()
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,kv_len", [
+    (2, 4, 2, 128, 128, 64, True, 0, 0.0, None),
+    (1, 8, 4, 100, 260, 32, True, 0, 50.0, None),
+    (2, 2, 1, 64, 192, 64, True, 48, 0.0, None),
+    (1, 4, 4, 1, 300, 64, True, 0, 0.0, None),      # decode shape
+    (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),    # non-causal
+    (2, 4, 2, 8, 192, 256, True, 0, 50.0, (50, 192)),
+    (1, 2, 1, 17, 17, 16, True, 4, 50.0, None),
+    (1, 16, 8, 300, 300, 256, True, 100, 50.0, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
+                                      window, cap, kv_len, dtype):
+    """K5's two backward kernels against ``flash_attention_bwd_plain``
+    from K5's own out and lse: two launches a call, each row in its
+    limit, a second call bit for bit; the lse against the plain one's."""
+    gen = torch.Generator(device=gpu).manual_seed(sq * d + 1)
+    q, k, v = (torch.randn(shp, generator=gen, device=gpu).to(dtype)
+               for shp in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)))
+    dout = torch.randn((b, hq, sq, d), generator=gen, device=gpu).to(dtype)
+    kvl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                   device=gpu)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = k5.flash_attention(q, k, v, kvl, return_lse=True, **kw)
+    assert torch.equal(out, k5.flash_attention(q, k, v, kvl, **kw))
+    want_lse = k5.flash_attention_plain(q, k, v, kvl, return_lse=True,
+                                        **kw)[1]
+    seen = want_lse > -1e29
+    assert (lse[~seen] <= -1e29).all()
+    lse_limit = 2e-5 if dtype == torch.float32 else 4e-3
+    assert (lse - want_lse)[seen].abs().max().item() <= lse_limit
+    n = k5.flash_attention_bwd.launches
+    got = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, **kw)
+    assert k5.flash_attention_bwd.launches == n + 2
+    want = k5.flash_attention_bwd_plain(q, k, v, out, lse, dout, kvl, **kw)
+    again = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, **kw)
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == dtype and x.shape == y.shape
+        _bwd_rows_close(x, y, BWD_ROW_LIMIT[dtype])
+        assert torch.equal(x, z)
+
+
+def test_flash_backward_all_masked_rows_are_zero(gpu):
+    """kv_len 0 masks every key of batch 0: its gradients are 0, not
+    NaN, and batch 1's match the plain version."""
+    gen = torch.Generator(device=gpu).manual_seed(5)
+    q, dout = (torch.randn((2, 4, 40, 128), generator=gen, device=gpu)
+               for _ in range(2))
+    k, v = (torch.randn((2, 2, 70, 128), generator=gen, device=gpu)
+            for _ in range(2))
+    kvl = torch.tensor([0, 70], dtype=torch.int32, device=gpu)
+    out, lse = k5.flash_attention(q, k, v, kvl, softcap=50.0,
+                                  return_lse=True)
+    got = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, softcap=50.0)
+    want = k5.flash_attention_bwd_plain(q, k, v, out, lse, dout, kvl,
+                                        softcap=50.0)
+    for x, y in zip(got, want):
+        assert torch.isfinite(x).all() and (x[0] == 0).all()
+        _bwd_rows_close(x[1], y[1], BWD_ROW_LIMIT[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_function_launches_the_backward_kernels(gpu, dtype):
+    """Under autograd the cuda tier's K5 is ``FlashAttention``: one forward
+    launch (with the lse), two backward launches, the gradients those of
+    the plain versions; without a gradient the launch is the serving
+    path's, bit for bit."""
+    gen = torch.Generator(device=gpu).manual_seed(3)
+    q, k, v = (torch.randn(shp, generator=gen, device=gpu).to(dtype)
+               .requires_grad_() for shp in ((1, 8, 200, 256),
+                                            (1, 4, 200, 256),
+                                            (1, 4, 200, 256)))
+    dout = torch.randn((1, 8, 200, 256), generator=gen, device=gpu).to(dtype)
+    n = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    out = ops.flash_attention(q, k, v, window=64, softcap=50.0,
+                              backend="cuda")
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (k5.flash_attention.launches - n[0],
+            k5.flash_attention_bwd.launches - n[1]) == (1, 2)
+    with torch.no_grad():
+        assert torch.equal(out, ops.flash_attention(
+            q, k, v, window=64, softcap=50.0, backend="cuda"))
+        o, lse = k5.flash_attention(q, k, v, window=64, softcap=50.0,
+                                    return_lse=True)
+        want = k5.flash_attention_bwd_plain(q, k, v, o, lse, dout, window=64,
+                                            softcap=50.0)
+    for x, y in zip(grads, want):
+        _bwd_rows_close(x, y, BWD_ROW_LIMIT[dtype])
+
+
+def test_unembed_bf16_gradient_matches_f32(gpu):
+    """The bf16 logits' f32 product has a gradient: the f32 output
+    gradient times the other operand in f32, rounded once to bf16 --
+    autograd through the f32 product of the same (exact) values."""
+    gen = torch.Generator(device=gpu).manual_seed(7)
+    x = torch.randn((64, 128), generator=gen, device=gpu).bfloat16()
+    table = torch.randn((1000, 128), generator=gen, device=gpu).bfloat16()
+    g = torch.randn((64, 1000), generator=gen, device=gpu)
+    xa, ta = x.clone().requires_grad_(), table.clone().requires_grad_()
+    out = layers.unembed(ta, xa)
+    assert out.dtype == torch.float32
+    dx, dt = torch.autograd.grad(out, (xa, ta), g)
+    xb, tb = x.float().requires_grad_(), table.float().requires_grad_()
+    wx, wt = torch.autograd.grad(xb @ tb.t(), (xb, tb), g)
+    _close(out, (xb @ tb.t()).detach())
+    assert dx.dtype == dt.dtype == torch.bfloat16
+    _close(dx, wx.bfloat16(), BF16_TOL)
+    _close(dt, wt.bfloat16(), BF16_TOL)
+
+
+def test_lm_loss_on_the_card_matches_the_torch_tier(gpu):
+    """A reduced f32 gemma2's loss and gradients through K5 and its
+    backward against the torch tier's, each leaf within 1e-4 of its
+    largest magnitude; K5 launched once forward and twice backward a
+    layer."""
+    cfg = dataclasses.replace(gemma2_9b.reduced(), dtype="float32")
+    model = ttr.init_lm(cfg, generator=torch.Generator(
+        device=gpu).manual_seed(0), device=gpu)
+    gen = np.random.default_rng(0)
+    toks = torch.as_tensor(gen.integers(0, cfg.vocab_size, (2, 40)),
+                           device=gpu)
+    labels = torch.roll(toks, -1, 1)
+    params = list(model.parameters())
+    n = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    loss, _ = ttr.lm_loss(model, toks, labels)
+    grads = torch.autograd.grad(loss, params)
+    assert (k5.flash_attention.launches - n[0],
+            k5.flash_attention_bwd.launches - n[1]) == \
+        (cfg.num_layers, 2 * cfg.num_layers)
+    want_loss, _ = ttr.lm_loss(model, toks, labels, attn_impl="torch")
+    want = torch.autograd.grad(want_loss, params)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 def test_flash_kernel_refuses_gradients_and_bad_input(gpu):
