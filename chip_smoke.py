@@ -4570,8 +4570,9 @@ def drive_lm_train():
     ``TokenPipeline`` seed 0.  Step 0's loss and every gradient leaf
     against the torch tier from the same weights; LM_TRAIN_STEPS steps of
     ``make_train_step`` under ``Trainer`` with K5's forward and backward
-    launch counts asserted; a profiled step; one step of the config's own
-    bf16, for K5's bf16 backward.  Returns the measurements."""
+    launch counts asserted; a profiled step; two steps of the config's own
+    bf16, for K5's bf16 backward, the second timed with the peak memory of
+    both.  Returns the measurements."""
     import dataclasses
 
     import torch
@@ -4587,6 +4588,7 @@ def drive_lm_train():
         ckpt_dir=str(ROOT / "build" / "lm_train"), device="cuda",
         log_every=1, checkpoint_every=0)
     batch = trainer.pipeline.batch_at(0)
+    trainer_batch1 = trainer.pipeline.batch_at(1)
     toks = torch.as_tensor(batch["tokens"], device="cuda")
     labels = torch.as_tensor(batch["labels"], device="cuda")
     skel = TransformerLM(cfg, device="meta")
@@ -4695,23 +4697,41 @@ def drive_lm_train():
     del state, holder, result, trainer
     torch.cuda.empty_cache()
 
-    # -- one step in the config's own bf16, for K5's bf16 backward
+    # -- two steps in the config's own bf16, for K5's bf16 backward
     cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     tr16 = train_lm.make_trainer(
         cfg16, steps=1, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
         ckpt_dir=str(ROOT / "build" / "lm_train"), device="cuda",
         checkpoint_every=0)
     st16 = tr16.make_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
     st16, m16 = tr16.step_fn(st16, batch)
     torch.cuda.synchronize()
     launches16 = (k5.flash_attention.launches,
                   k5.flash_attention_bwd.launches)
     loss16 = m16["loss"].item()
-    print(f"[lm-train] bf16 step: loss {loss16:.6f}, K5 launches forward "
-          f"{launches16[0]}, backward {launches16[1]}", flush=True)
-    if launches16 != (n_layers, 2 * n_layers) or not loss16 == loss16:
-        fail(f"lm-train bf16 step: K5 launches {launches16}, loss {loss16}")
+    # a second step, timed: the first one built and warmed the kernels
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    st16, m16b = tr16.step_fn(st16, trainer_batch1)
+    e1.record()
+    torch.cuda.synchronize()
+    host16 = (time.perf_counter() - t0) * 1e3
+    dev16 = e0.elapsed_time(e1)
+    peak16 = torch.cuda.max_memory_allocated()
+    loss16b = m16b["loss"].item()
+    print(f"[lm-train] bf16 steps: losses {loss16:.6f} {loss16b:.6f}, K5 "
+          f"launches forward {launches16[0]}, backward {launches16[1]} in "
+          f"the first; the second {host16:.1f} ms host, CUDA events "
+          f"{dev16:.1f} ms; peak memory {peak16 / 2**30:.2f} GiB",
+          flush=True)
+    if launches16 != (n_layers, 2 * n_layers) or not (
+            loss16 == loss16 and loss16b == loss16b):
+        fail(f"lm-train bf16 step: K5 launches {launches16}, losses "
+             f"{loss16} {loss16b}")
     del st16, tr16
     torch.cuda.empty_cache()
     return {"layers": n_layers, "batch": LM_TRAIN_BATCH,
@@ -4722,7 +4742,9 @@ def drive_lm_train():
             "step0_launches": launches0, "step0_host_ms": step0_ms,
             "losses": losses, "host_ms": host_ms, "device_ms": dev_ms,
             "launches": launches, "peak_bytes": peak, "profile": prof,
-            "bf16_launches": launches16, "bf16_loss": loss16}
+            "bf16_launches": launches16, "bf16_loss": loss16,
+            "bf16_step_host_ms": host16, "bf16_step_device_ms": dev16,
+            "bf16_peak_bytes": peak16}
 
 
 def main() -> None:

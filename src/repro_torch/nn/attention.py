@@ -9,9 +9,9 @@ A prefill (or a training forward) runs one of three paths, chosen by
     autograd its ``FlashAttention`` Function, whose backward is K5's two
     backward kernels;
   * ``direct`` -- materialize the (Sq, Sk) scores; small sequences, tests;
-  * the torch tier's long path -- K5's plain version (blockwise online
-    softmax) without a gradient, and under autograd ``flash_attention_xla``
-    (``nn/flash_vjp.py``), as the reference.
+  * the torch tier's long path -- ``flash_attention_xla`` (``flash_mha``
+    of ``nn/flash_vjp.py``, blockwise online softmax with its own
+    backward), as the reference's, with or without a gradient.
 
 Decode (one new token against a padded KV cache whose ``length`` marks
 validity) stays plain PyTorch, as the reference leaves it outside any
@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import AttentionConfig
-from repro_torch.core.backend import CUDA, TORCH, resolve_backend
+from repro_torch.core.backend import CUDA, resolve_backend
 from repro_torch.kernels import ops
 from repro_torch.nn.flash_vjp import flash_mha
 from repro_torch.nn.layers import apply_rope, init_normal, softcap
@@ -101,9 +101,12 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
     """``flash_mha`` (``nn/flash_vjp.py``, hand-written backward) on the
     (B, Hq, S, D) layout (``flash_attention_xla``, :158): q is grouped and
     scaled by ``D^-0.5`` in its dtype, query row 0 sits at Sk - Sq.  The
-    chunks are the reference's single-device choice: the live tile
-    ``b * hq * qc * kc`` is capped at 2^27 elements, then each chunk is
-    halved until it divides its sequence.  The reference's
+    chunks are the reference's single-device choice, the live tile
+    ``b * hq * qc * kc`` capped at 2^27 elements, but not halved until
+    they divide the sequences: the port's ``flash_mha`` takes a ragged
+    last chunk, where the reference's halving goes down to chunks of 1
+    for an odd length (a prompt of 4097 tokens would loop over 4097^2
+    tiles a layer).  The reference's
     context-parallel branch (query slabs over a mesh axis, chosen by its
     sharding context) is not ported: the port has no such context yet
     (ROADMAP item 13.8)."""
@@ -118,10 +121,6 @@ def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
             kc //= 2
         else:
             break
-    while sq % qc != 0 and qc > 1:
-        qc //= 2
-    while sk % kc != 0 and kc > 1:
-        kc //= 2
     out = flash_mha(qg, k, v, sk - sq, causal, window, cap, qc, kc)
     return out.reshape(b, hq, sq, d)
 
@@ -165,9 +164,9 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
 
     ``impl`` picks the prefill path: ``"auto"`` resolves by device
     (``cuda`` on a card, ``torch`` on the CPU), ``"cuda"`` is K5,
-    ``"torch"`` attends directly up to ``DIRECT_MAX_SEQ`` tokens and above
-    runs K5's plain version (``flash_attention_xla`` when a gradient is
-    wanted), ``"direct"`` always attends directly.  When grad is enabled
+    ``"torch"`` attends directly up to ``DIRECT_MAX_SEQ`` tokens and runs
+    ``flash_attention_xla`` above (the reference's switch, :297-305),
+    ``"direct"`` always attends directly.  When grad is enabled
     and q, k or v requires a gradient, the cuda tier runs K5 through its
     ``FlashAttention`` Function (a forward that also stores the row
     logsumexp, and K5's backward kernels); without a gradient the launch
@@ -204,8 +203,6 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
         o = decode_attention(q, new_cache, window=layer_window, cap=cap)
     else:
         tier = impl if impl == "direct" else resolve_backend(impl, dev)
-        grad = torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad)
         if tier == CUDA:
             o = ops.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=cfg.causal,
@@ -214,13 +211,9 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
         elif tier == "direct" or s <= DIRECT_MAX_SEQ:
             o = direct_attention(q, k, v, causal=cfg.causal,
                                  window=layer_window, cap=cap)
-        elif grad:
+        else:
             o = flash_attention_xla(q, k, v, causal=cfg.causal,
                                     window=layer_window, cap=cap)
-        else:
-            o = ops.flash_attention(q, k, v, causal=cfg.causal,
-                                    window=layer_window, softcap=cap,
-                                    backend=TORCH)
         if make_cache:
             if cache_size < s:
                 raise ValueError(f"cache_size={cache_size} < prompt {s}")

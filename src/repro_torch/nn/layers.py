@@ -151,16 +151,37 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-#: vocab rows of the table upcast at a time by ``unembed`` on the CPU
+#: vocab rows of the table upcast at a time by ``unembed`` on the CPU and
+#: by ``unembed_grads``
 UNEMBED_CHUNK = 4096
+
+
+def unembed_grads(g: torch.Tensor, x2: torch.Tensor, table: torch.Tensor,
+                  need_x: bool = True, need_table: bool = True):
+    """Gradients of the f32 logits ``x2 @ table.T`` (x2 (T, D), table
+    (V, D), both reduced precision) given their f32 gradient ``g`` (T, V):
+    ``(dx, dtable)``, each rounded once to its operand's dtype.  The
+    table is taken ``UNEMBED_CHUNK`` vocab rows at a time, upcast to f32
+    (its values are exact there), so no f32 copy of the whole table or of
+    its gradient (each 3.7 GB for gemma2) is made; dx accumulates over
+    the slices in f32."""
+    dx = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device) \
+        if need_x else None
+    dt = torch.empty_like(table) if need_table else None
+    x32 = x2.float() if need_table else None
+    for v0 in range(0, table.shape[0], UNEMBED_CHUNK):
+        gs = g[:, v0:v0 + UNEMBED_CHUNK]
+        if need_x:
+            dx.addmm_(gs, table[v0:v0 + UNEMBED_CHUNK].float())
+        if need_table:
+            dt[v0:v0 + UNEMBED_CHUNK] = (gs.t() @ x32).to(table.dtype)
+    return (dx.to(x2.dtype) if need_x else None), dt
 
 
 class _UnembedF32(torch.autograd.Function):
     """``x @ table.T`` of reduced-precision operands as the f32
     accumulator (``torch.mm(..., out_dtype=torch.float32)``, which has no
-    derivative of its own).  The backward multiplies the f32 output
-    gradient by the other operand upcast to f32 (its values are exact
-    there) and rounds each gradient once to its operand's dtype."""
+    derivative of its own).  The backward is ``unembed_grads``."""
 
     @staticmethod
     def forward(ctx, x2, table):
@@ -170,11 +191,7 @@ class _UnembedF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, table = ctx.saved_tensors
-        dx = (g @ table.float()).to(x2.dtype) \
-            if ctx.needs_input_grad[0] else None
-        dt = (g.t() @ x2.float()).to(table.dtype) \
-            if ctx.needs_input_grad[1] else None
-        return dx, dt
+        return unembed_grads(g, x2, table, *ctx.needs_input_grad)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

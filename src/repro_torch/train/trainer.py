@@ -9,7 +9,9 @@
   * **Failure handling** -- a failure raised mid-step (``FailureInjector``
     in tests) is caught, the state is restored from the last checkpoint
     and the run continues: bit for bit the run that never failed, since
-    every batch is a pure function of (seed, step).
+    every batch is a pure function of (seed, step).  A run that writes no
+    checkpoints has nothing to restore from, so there the failure (a
+    straggler restart too) is raised to the caller.
   * **Straggler watch** -- ``StepWatchdog`` keeps an EWMA of step times,
     counts steps slower than ``factor`` times it, and asks for a restart
     (checkpoint, then raise) after ``max_straggler_steps`` in a row.
@@ -123,14 +125,16 @@ class Trainer:
 
     def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
         """Train to ``steps`` (default ``cfg.steps``), recovering from up
-        to 10 failures.  Returns {"state", "metrics", "history",
-        "recoveries"}."""
+        to 10 failures (none when ``checkpoint_every`` <= 0).  Returns
+        {"state", "metrics", "history", "recoveries"}."""
         steps = steps or self.cfg.steps
         attempt = 0
         while True:
             try:
                 return self._run_once(steps)
             except RuntimeError as e:
+                if self.cfg.checkpoint_every <= 0:
+                    raise
                 attempt += 1
                 self.recoveries += 1
                 log.warning("step failure (%s); recovery #%d", e, attempt)

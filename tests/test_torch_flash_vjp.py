@@ -250,9 +250,10 @@ def test_attention_block_cuda_tier_trains_through_the_function(
 
 def test_attention_block_torch_tier_past_2048_takes_flash_attention_xla(
         monkeypatch):
-    """The torch tier attends directly up to 2048 tokens; past it, under
-    autograd, ``flash_attention_xla`` (the flash_vjp Function), without a
-    gradient K5's plain version -- the same output either way."""
+    """The torch tier attends directly up to 2048 tokens and past it runs
+    ``flash_attention_xla`` (the flash_vjp Function), as the reference
+    does, with a gradient and without one -- the same output either
+    way, and K5's plain version against it within the f32 band."""
     calls = {"n": 0}
     xla = tattn.flash_attention_xla
 
@@ -264,8 +265,35 @@ def test_attention_block_torch_tier_past_2048_takes_flash_attention_xla(
     out, grads = _block_grads("torch", cfg, p, x, 16)
     assert calls["n"] == 1
     with torch.no_grad():
-        plain, _ = tattn.attention_block(p, x, cfg, layer_window=16,
+        again, _ = tattn.attention_block(p, x, cfg, layer_window=16,
                                          impl="torch")
-    assert calls["n"] == 1
-    assert_allclose_dtype(out, plain)
+        q, k, v = tattn._project(p, x, cfg, torch.arange(2560)[None, :])
+        plain = ops.flash_attention(q, k, v, causal=cfg.causal, window=16,
+                                    softcap=cfg.attn_logit_softcap,
+                                    backend="torch")
+        plain = plain.transpose(1, 2).reshape(1, 2560, cfg.q_dim) @ p.wo
+    assert calls["n"] == 2 and torch.equal(again, out)
+    assert_allclose_dtype(again, plain)
     assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_flash_attention_xla_keeps_its_chunks_at_an_odd_length(monkeypatch):
+    """At an odd length the chunks stay (2048, 1024) with a ragged last
+    one, not halved to 1 until they divide it, and the output matches
+    direct attention within the f32 band."""
+    seen = []
+    mha = tattn.flash_mha
+
+    def spy(*a):
+        seen.append(a[-2:])
+        return mha(*a)
+    monkeypatch.setattr(tattn, "flash_mha", spy)
+    s = 2561
+    q = torch.from_numpy(RNG.standard_normal((1, 2, s, 8)).astype(np.float32))
+    k, v = (torch.from_numpy(RNG.standard_normal((1, 1, s, 8))
+                             .astype(np.float32)) for _ in range(2))
+    got = tattn.flash_attention_xla(q, k, v, causal=True, window=300,
+                                    cap=30.0)
+    assert seen == [(2048, 1024)]
+    want = tattn.direct_attention(q, k, v, causal=True, window=300, cap=30.0)
+    assert_allclose_dtype(got, want)

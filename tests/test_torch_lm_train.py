@@ -35,6 +35,7 @@ from repro.configs import gemma2_9b as jgemma
 from repro.configs import granite_3_8b as jgranite
 from repro.launch import steps as jsteps
 from repro.models import transformer as jtr
+from repro.nn import layers as jlayers
 from repro.optim import optimizer as jopt
 from repro_torch.config import OptimizerConfig, ShapeSpec, get_config
 from repro_torch.configs import gemma2_9b, granite_3_8b
@@ -42,7 +43,9 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train_lm
 from repro_torch.models import transformer as ttr
+from repro_torch.nn import layers
 from repro_torch.optim.optimizer import make_train_state
+from repro_torch.train.trainer import FailureInjector
 
 torch.set_num_threads(2)
 
@@ -338,3 +341,37 @@ def test_trainer_without_checkpoints_writes_none(tmp_path):
     result = _trainer(tmp_path, 2, 0).run()
     assert int(result["state"].step) == 2
     assert not any(tmp_path.iterdir())
+
+
+def test_trainer_without_checkpoints_raises_failures(tmp_path):
+    """``checkpoint_every`` 0 leaves nothing to restore from: a failure
+    mid-run reaches the caller, not a silent restart from step 0."""
+    trainer = _trainer(tmp_path, 3, 0)
+    trainer.failure_injector = FailureInjector(fail_at=[1])
+    with pytest.raises(RuntimeError, match="injected node failure at "
+                                           "step 1"):
+        trainer.run()
+    assert trainer.recoveries == 0
+    assert [h["step"] for h in trainer.metrics_history] == [0]
+
+
+@pytest.mark.parametrize("vocab", [7, 2 * layers.UNEMBED_CHUNK + 5])
+def test_unembed_grads_match_reference_vjp(vocab):
+    """The bf16 head's backward, a slice of ``UNEMBED_CHUNK`` vocab rows at
+    a time, against ``jax.vjp`` of the reference's f32-accumulated
+    ``unembed``: dx and the table's gradient in bf16, within its band."""
+    rng = np.random.default_rng(vocab)
+    jt = jnp.asarray(rng.standard_normal((vocab, 64)), jnp.bfloat16)
+    jx = jnp.asarray(rng.standard_normal((6, 64)), jnp.bfloat16)
+    g = rng.standard_normal((6, vocab)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t, x: jlayers.unembed({"table": t}, x), jt, jx)
+    want_t, want_x = vjp(jnp.asarray(g))
+    tt, tx = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+              .to(torch.bfloat16) for a in (jt, jx))
+    dx, dt = layers.unembed_grads(torch.from_numpy(g), tx, tt)
+    assert dx.dtype == dt.dtype == torch.bfloat16
+    assert_allclose_dtype(dx.float(), np.asarray(want_x, np.float32), "bf16")
+    assert_allclose_dtype(dt.float(), np.asarray(want_t, np.float32), "bf16")
+    only_x = layers.unembed_grads(torch.from_numpy(g), tx, tt,
+                                  need_table=False)
+    assert only_x[1] is None and torch.equal(only_x[0], dx)
