@@ -13,7 +13,10 @@ Phases, each printing its own lines; any failure exits non-zero:
                 cuobjdump -sass shows HGMMA instructions with TF32
                 operands in every instance of K2's fused kernel and of
                 K5's f32 kernel, and fewer in each bf16-W instance of K2
-                than in its f32 twin (two TF32 products, not three).
+                than in its f32 twin (two TF32 products, not three); and
+                with bf16 operands in every instance of K5's bf16
+                backward kernels (wgmma_bwd_dq_kernel,
+                wgmma_bwd_dkdv_kernel).
   3. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, at the shapes the main path gives it on Cora,
                 Citeseer and Reddit, with the tolerance printed; times of
@@ -67,8 +70,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   7. lm f32  -- gemma2-9b in f32 at full width, depth cut to 2 layers: one
                 6144-token lm_prefill, which takes K5's f32 path; its launch
                 count and logits against the torch tier.
- 18. lm-train -- (right after phase 7) K5's backward kernels
-                (bwd_dq_kernel, bwd_dkdv_kernel) against
+ 18. lm-train -- (right after phase 7) K5's backward kernels (bf16:
+                wgmma_bwd_dq_kernel, wgmma_bwd_dkdv_kernel on the tensor
+                cores; f32: bwd_dq_kernel, bwd_dkdv_kernel) against
                 flash_attention_bwd_plain in f32 and bf16 at gemma2's
                 training layers (global and local, 6144 tokens), a
                 granite-3-8b layer, Sq < Sk with a ragged kv_len and a
@@ -84,8 +88,9 @@ Phases, each printing its own lines; any failure exits non-zero:
                 TokenPipeline tokens under Trainer (K5 forward once and its
                 backward kernels twice a layer a step, counted), each step's
                 loss and host and CUDA-event ms, peak memory, a profiled
-                step (K5's forward and backward share, idle share), and one
-                step in bf16 for K5's bf16 backward.  Phase 5 also holds
+                step (K5's forward and backward share, idle share), and two
+                steps in bf16 for K5's bf16 backward, the second timed and
+                profiled with its own peak memory.  Phase 5 also holds
                 K5's row logsumexp (return_lse=True) to the plain version's
                 and its out bit for bit to the launch without it.
   8. compiled -- (run right after phase 4, on its models and graph) each of
@@ -386,8 +391,12 @@ LM_TRAIN_GRAD_LIMIT = 1e-4
 #: (flex_attention compiles for each, so only the main path's global layer
 #: and the no-softcap shape, where scaled_dot_product_attention serves)
 LIBRARY_BWD_SHAPES = ("a", "d")
-#: K5's backward kernels as the profiler names them
+#: K5's backward kernels as the profiler names them: the substrings match
+#: both the f32 bw:: kernels and the bf16 wgmma_bwd_* ones, and neither
+#: holds a forward kernel's name (K5_KERNELS)
 K5_BWD_KERNELS = ("bwd_dq_kernel", "bwd_dkdv_kernel")
+#: K5's bf16 backward kernels, whose every instance must issue bf16 HGMMAs
+K5_BWD_BF16_KERNELS = ("wgmma_bwd_dq_kernel", "wgmma_bwd_dkdv_kernel")
 #: phase 3: seg_agg's column slices timed beside the one the wrapper picks
 #: (slice_cols), at Reddit (F -> widths); every width gives the same sums
 #: bit for bit (slicing does not change any column's fold)
@@ -603,11 +612,13 @@ def ratios(rec) -> dict:
 
 
 def check_sass(name: str = "fused_agg_combine",
-               kernel: str = "fused_kernel") -> dict:
-    """A 3xTF32 kernel on the tensor cores: ``cuobjdump -sass`` of the
-    built library ``name`` shows HGMMA instructions with TF32 operands in
-    every instance of ``kernel`` (K2's fused_kernel, K5's tf32x3_kernel).
-    Returns {instance: HGMMA count}; fails if an instance has none."""
+               kernel: str = "fused_kernel", operand: str = "TF32") -> dict:
+    """A kernel on the tensor cores: ``cuobjdump -sass`` of the built
+    library ``name`` shows HGMMA instructions with ``operand`` operands in
+    every instance of ``kernel`` (TF32: K2's fused_kernel, K5's
+    tf32x3_kernel; BF16: K5's wgmma_bwd_dq_kernel and
+    wgmma_bwd_dkdv_kernel).  Returns {instance: HGMMA count}; fails if an
+    instance has none."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(name))],
@@ -619,14 +630,15 @@ def check_sass(name: str = "fused_agg_combine",
             fn = line.split("Function :", 1)[1].strip()
             if kernel in fn:
                 counts[fn] = 0
-        elif fn in counts and "HGMMA" in line and "TF32" in line:
+        elif fn in counts and "HGMMA" in line and operand in line:
             counts[fn] += 1
             example = example or " ".join(line.split("*/", 1)[-1].split())
     print(f"[build] {name} SASS: {len(counts)} instances of {kernel}, "
-          f"HGMMA with TF32 operands in each: {sorted(counts.values())}; "
-          f"e.g. {example}", flush=True)
+          f"HGMMA with {operand} operands in each: "
+          f"{sorted(counts.values())}; e.g. {example}", flush=True)
     if not counts or not all(counts.values()):
-        fail(f"{name}: an instance of {kernel} has no TF32 HGMMA ({counts})")
+        fail(f"{name}: an instance of {kernel} has no {operand} HGMMA "
+             f"({counts})")
     return counts
 
 
@@ -4705,29 +4717,47 @@ def drive_lm_train():
         checkpoint_every=0)
     st16 = tr16.make_state()
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
     st16, m16 = tr16.step_fn(st16, batch)
     torch.cuda.synchronize()
     launches16 = (k5.flash_attention.launches,
                   k5.flash_attention_bwd.launches)
     loss16 = m16["loss"].item()
-    # a second step, timed: the first one built and warmed the kernels
+    # a second step, timed and profiled, with its own peak memory: the
+    # first one built and warmed the kernels
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    e0.record()
-    st16, m16b = tr16.step_fn(st16, trainer_batch1)
-    e1.record()
+    holder16 = {"state": st16}
+
+    def one16():
+        e0.record()
+        holder16["state"], holder16["m"] = tr16.step_fn(holder16["state"],
+                                                       trainer_batch1)
+        e1.record()
     torch.cuda.synchronize()
-    host16 = (time.perf_counter() - t0) * 1e3
-    dev16 = e0.elapsed_time(e1)
+    torch.cuda.reset_peak_memory_stats()
+    prof16 = profiled("lm_train_bf16", 1, one16)
     peak16 = torch.cuda.max_memory_allocated()
-    loss16b = m16b["loss"].item()
+    prof16.update(k5_shares("lm_train_bf16"))
+    host16, dev16 = prof16["wall_ms"], e0.elapsed_time(e1)
+    loss16b = holder16["m"]["loss"].item()
+    st16 = holder16.pop("state")
+    busy16 = prof16["device_busy_ms"]
     print(f"[lm-train] bf16 steps: losses {loss16:.6f} {loss16b:.6f}, K5 "
           f"launches forward {launches16[0]}, backward {launches16[1]} in "
-          f"the first; the second {host16:.1f} ms host, CUDA events "
-          f"{dev16:.1f} ms; peak memory {peak16 / 2**30:.2f} GiB",
-          flush=True)
+          f"the first; the second (profiled) {host16:.1f} ms host, CUDA "
+          f"events {dev16:.1f} ms, peak memory {peak16 / 2**30:.2f} GiB "
+          f"(reset just before it)", flush=True)
+    if prof16["idle_share"] is None:   # the trace holds no kernel
+        print("[lm-train] profiled bf16 step: the profiler saw no kernel; "
+              "device shares not measured", flush=True)
+    else:
+        print(f"[lm-train] profiled bf16 step: device busy {busy16:.1f} ms, "
+              f"idle share {prof16['idle_share']:.4f}, "
+              f"{prof16['kernels']:.0f} kernels; K5 forward "
+              f"{prof16['k5_fwd_ms']:.2f} ms "
+              f"({prof16['k5_fwd_ms'] / busy16:.2%} of busy), K5 backward "
+              f"{prof16['k5_bwd_ms']:.2f} ms "
+              f"({prof16['k5_bwd_ms'] / busy16:.2%})", flush=True)
     if launches16 != (n_layers, 2 * n_layers) or not (
             loss16 == loss16 and loss16b == loss16b):
         fail(f"lm-train bf16 step: K5 launches {launches16}, losses "
@@ -4744,7 +4774,7 @@ def drive_lm_train():
             "launches": launches, "peak_bytes": peak, "profile": prof,
             "bf16_launches": launches16, "bf16_loss": loss16,
             "bf16_step_host_ms": host16, "bf16_step_device_ms": dev16,
-            "bf16_peak_bytes": peak16}
+            "bf16_peak_bytes": peak16, "bf16_profile": prof16}
 
 
 def main() -> None:
@@ -4797,6 +4827,8 @@ def main() -> None:
                   f"{arrives} places (C7519)", flush=True)
     sass = {"fused_agg_combine": check_sass(),
             "flash_attention": check_sass("flash_attention", "tf32x3_kernel")}
+    for kern in K5_BWD_BF16_KERNELS:
+        sass[kern] = check_sass("flash_attention", kern, "BF16")
     sass["fused_agg_combine_pairs"] = check_k2_pairs(sass["fused_agg_combine"])
 
     # -- 3. kernels against their plain versions

@@ -196,6 +196,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(in ? 16 : 0)
                : "memory");
 }
+// 4 bytes, zero-filled when !in (a row's lse or delta)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -1183,14 +1190,15 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 }  // namespace tf
 
 // ---------------------------------------------------------------------------
-// Backward: two passes on the CUDA cores, f32 FMA
+// Backward, f32: two passes on the CUDA cores, FMA
 // ---------------------------------------------------------------------------
 //
 // No TPU kernel: the reference differentiates its XLA flash path
 // (src/repro/nn/flash_vjp.py::_flash_bwd), whose two passes these follow,
 // on K5's contract (q scaled by D^-0.5 in q's dtype, GQA, right alignment
-// to kv_len[b], causal mask, window, softcap).  Per (64 query rows x 32
-// keys) tile, in f32 whatever the input type (bf16 is converted on load):
+// to kv_len[b], causal mask, window, softcap).  f32 inputs only (T =
+// float; bf16 runs wgb::'s tensor-core kernels below).  Per (64 query rows
+// x 32 keys) tile, in f32:
 //
 //   Z = qs K^T, S = cap tanh(Z / cap), P = exp(S - lse) where unmasked,
 //   dP = dO V^T, dS = P (dP - delta), dZ = dS (1 - (S / cap)^2),
@@ -1248,17 +1256,10 @@ __device__ __forceinline__ int e_col(int c, int lane) {
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 // x rounded to T and back: q * scale as the forward forms it
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -1591,45 +1592,636 @@ int launch_pass(int pass, const void* q, const void* k, const void* v,
                            hkv, sq, sk, causal, window, cap, scale, stream);
 }
 
-template <typename T>
-int dispatch(int pass, int d, const void* q, const void* k, const void* v,
-             const void* o, const float* lse, const void* dout,
-             const int* kv_len, float* delta, void* dq, void* dk, void* dv,
-             int b, int hq, int hkv, int sq, int sk, int causal, int window,
-             float cap, float scale, cudaStream_t stream) {
-  switch (d) {
-#define REPRO_FLASH_BWD_D(DV)                                               \
-  case DV:                                                                  \
-    return launch_pass<T, DV>(pass, q, k, v, o, lse, dout, kv_len, delta,   \
-                              dq, dk, dv, b, hq, hkv, sq, sk, causal,       \
-                              window, cap, scale, stream);
-    REPRO_FLASH_BWD_D(16)
-    REPRO_FLASH_BWD_D(32)
-    REPRO_FLASH_BWD_D(64)
-    REPRO_FLASH_BWD_D(128)
-    REPRO_FLASH_BWD_D(256)
-#undef REPRO_FLASH_BWD_D
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+}  // namespace bw
+
+// ---------------------------------------------------------------------------
+// Backward, bf16: two passes on the tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+//
+// Replaces, for bf16 inputs, bw::'s FMA kernels above (which keep the f32
+// path); like them it replaces no TPU kernel.  Same function, same two
+// passes and no atomics (two launches are equal bit for bit), every
+// product a wgmma.mma_async m64nNk16 .f32.bf16.bf16:
+//   * wgmma_bwd_dq_kernel: a warpgroup owns 64 query rows of one head (the
+//     M of one wgmma).  Its prologue stages qs (q * D^-0.5 rounded to bf16,
+//     as the forward stages it) and dO, forms delta = rowsum(dO O) in f32,
+//     and stores delta and qs for the second pass.  Per KV tile: S = qs K^T
+//     and dP = dO V^T are SS products (A and B K-major in shared memory),
+//     committed as two groups, so that the softcap, masks, P = exp(S - lse)
+//     and P (1 - (S / cap)^2) run while dP is still in the tensor cores;
+//     then dS = P (dP - delta)(1 - (S / cap)^2) in registers, and dQ += dS K
+//     is an RS product whose A is the S accumulator's fragment (as the
+//     forward's P) and whose B is the same K tile read MN-major through the
+//     transpose flag.  At D = 256 with an even GQA group a CTA is two
+//     warpgroups, the two query heads of a pair, sharing every K/V tile
+//     (the forward's WGS = 2).
+//   * wgmma_bwd_dkdv_kernel: a CTA owns 64 keys of one KV head, stages K and
+//     V once and loops over the group's query heads and the q tiles that
+//     see its keys (key tiles launched in order, heaviest first under the
+//     causal mask).  S^T = K qs^T and dP^T = V dO^T are SS products; dV +=
+//     P^T dO is issued as soon as P is formed, while dP^T finishes, then dS
+//     and dK += dS^T qs: RS products, B being the streamed qs and dO tiles
+//     read MN-major.  At D = 256 the dK and dV accumulators (64 x 256 f32
+//     each, 256 registers a thread for one warpgroup) are split: two
+//     warpgroups, each holding 128 columns of both and forming S^T and dP^T
+//     over all of D itself.  Forming half of D each and adding the halves
+//     through shared memory (the f32 forward's trick) needs 64 KB for the
+//     partial tiles, which the ring of qs / dO stages holds; the exchange
+//     that fits (one warpgroup forms S^T, the other dP^T, 32 KB) was slower
+//     on the H100 than the redundant products at gemma2's global layer
+//     (scripts/flash_bwd_variants.py times the two), so it was not kept.
+// Both stage every operand once a tile in the forward's natural image (rows
+// x D, D contiguous, 128-byte swizzle; 64/32 bytes at D = 32/16) and read it
+// K-major or MN-major as the product needs; streamed tiles (and the dk/dv
+// pass's rows of lse and delta) come by cp.async into a ring of two stages.
+// Storing qs in the dq pass spares the dk/dv pass a scaling pass over each
+// q tile in shared memory.
+// Precision: P is rounded to bf16 before dV, dS before dQ and dK, as the
+// forward rounds P; S, the softcap and its Jacobian, lse, delta and the
+// accumulators stay f32, and each output is rounded once.  Masks are
+// evaluated per element only in tiles that straddle the causal edge, the
+// window start, kv_len[b] or Sq; a masked element's P is selected to 0, so
+// an all-masked row (lse -1e30) gets zero gradients, never exp(+1e30).
+//
+// What bounds it: operations.  Five products of 2 Sq Sk D a head over the
+// unmasked pairs at 989 TFLOP/s; the two passes compute seven (S and dP in
+// both; nine at D = 256 in dk/dv, where each warpgroup forms S^T and dP^T),
+// so 0.71 (0.56) of the bound is the ceiling of this design.  Within it,
+// a warpgroup still waits for its products before the elementwise work
+// and the two warpgroups of a CTA meet at every tile: a producer warp with
+// TMA and setmaxnreg, and ping-pong scheduling of the warpgroups, are the
+// next steps.
+namespace wgb {
+
+using wg::chunk_off;
+using wg::cp_async16;
+using wg::cp_async4;
+using wg::cp_async_commit;
+using wg::cp_async_wait;
+using wg::desc_k;
+using wg::desc_mn;
+using wg::ex2;
+using wg::fence_proxy_async;
+using wg::fence_reg;
+using wg::kLog2e;
+using wg::kRows;
+using wg::smem_u32;
+using wg::tanh_ex2;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_rs;
+using wg::wgmma_ss;
+using wg::wgmma_wait0;
+
+// dq pass: WGS warpgroups (query heads) a CTA, each 64 rows of qs and dO;
+// KV tiles of kTileK keys in two stages
+template <int D, int WGS>
+struct DqCfg {
+  static constexpr int kThreads = 128 * WGS;
+  static constexpr int kTileK = D == 256 ? 32 : 64;
+  static constexpr int kRowBytes = kRows * D * 2;    // one q or dO tile
+  static constexpr int kTileBytes = kTileK * D * 2;  // one K or V tile
+  // alignment slack, q and dO tiles, two stages of K and V, delta per row
+  static constexpr int kSmem =
+      1024 + 2 * WGS * kRowBytes + 4 * kTileBytes + WGS * kRows * 4;
+};
+
+// dk/dv pass: 64 keys a CTA, kWgs warpgroups splitting D; q / dO tiles of
+// kTileQ rows in two stages, with their rows' lse and delta
+template <int D>
+struct KvCfg {
+  static constexpr int kWgs = D == 256 ? 2 : 1;
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kDw = D / kWgs;  // dK and dV columns of a warpgroup
+  static constexpr int kTileQ = 64;
+  static constexpr int kKvBytes = kRows * D * 2;   // the CTA's K or V tile
+  static constexpr int kQBytes = kTileQ * D * 2;   // one q or dO tile
+  // alignment slack, K and V, two stages of q and dO, and of lse and delta
+  static constexpr int kSmem = 1024 + 2 * kKvBytes + 4 * kQBytes +
+                               4 * kTileQ * 4;
+};
+
+// rounds lo, hi to bf16 and packs them (lo in the low half): an A fragment
+// register of the RS products
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 8 bf16 values of q scaled by `scale` and rounded to bf16, as the forward
+// forms qs
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 val, float scale) {
+  __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(hv[e]);
+    hv[e] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  }
+  return val;
+}
+
+template <int D, int WGS>
+__global__ void __launch_bounds__(128 * WGS, D <= 128 ? 2 : 1)
+wgmma_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ o,
+                    const float* __restrict__ lse,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const int* __restrict__ kv_len, float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ qs,
+                    __nv_bfloat16* __restrict__ dq, int hq, int group, int sq,
+                    int sk, int causal, int window, float cap, float scale) {
+  using C = DqCfg<D, WGS>;
+  constexpr int TK = C::kTileK;
+  constexpr int kThreads = C::kThreads;
+  constexpr int kC8 = D / 8;  // 16-byte chunks of a row
+  static_assert(C::kSmem <= 232448, "shared memory over the opt-in limit");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_q = (raw + 1023) & ~1023u;        // WGS qs tiles
+  const uint32_t s_do = s_q + WGS * C::kRowBytes;    // WGS dO tiles
+  uint8_t* base = smem_raw + (s_q - raw);
+  auto s_k = [&](int st) {
+    return s_do + WGS * C::kRowBytes + st * 2 * C::kTileBytes;
+  };
+  auto s_v = [&](int st) { return s_k(st) + C::kTileBytes; };
+  float* s_delta = reinterpret_cast<float*>(base + 2 * WGS * C::kRowBytes +
+                                            4 * C::kTileBytes);
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // this thread's warpgroup: head h0 + wgi
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int cb = 2 * (lane % 4);          // and columns cb, cb + 1 of each 8
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
+  const int h0 = blockIdx.y * WGS;
+  const int h = h0 + wgi;
+  const int b = blockIdx.z;
+  const int hkv = hq / group;
+  const int nq = min(kRows, sq - q0);
+  const int len = kv_len[b];
+  const int q_lo = len - sq + q0;  // absolute position of the tile's row 0
+
+  const int64_t kv_off =
+      (static_cast<int64_t>(b) * hkv + h0 / group) * sk * D;
+  const __nv_bfloat16* kb = k + kv_off;
+  const __nv_bfloat16* vb = v + kv_off;
+
+  // the KV tiles the forward visits for these rows
+  int k_end = min(len, sk);
+  if (causal) k_end = min(k_end, q_lo + nq);
+  int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_beg -= k_beg % TK;
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + TK - 1) / TK : 0;
+
+  auto load_kv = [&](int tile, int st) {
+    const int k0 = k_beg + tile * TK;
+    for (int i = tid; i < TK * kC8; i += kThreads) {
+      const int r = i / kC8, c8 = i % kC8;
+      const bool in = k0 + r < sk;
+      const int64_t g = static_cast<int64_t>(in ? k0 + r : 0) * D + c8 * 8;
+      const uint32_t off = chunk_off<D>(r, c8, TK);
+      cp_async16(s_k(st) + off, kb + g, in);
+      cp_async16(s_v(st) + off, vb + g, in);
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) load_kv(0, 0);
+
+  // qs and dO of each head's rows (0 past Sq; qs also stored for the dk/dv
+  // pass), and delta = rowsum(dO O) in f32: the kC8 chunks of a row are kC8 neighbouring lanes (kC8 divides
+  // 32), each adding its 8 products in order, then a butterfly over them
+  for (int i = tid; i < WGS * kRows * kC8; i += kThreads) {
+    const int w = i / (kRows * kC8), j = i % (kRows * kC8);
+    const int r = j / kC8, c8 = j % kC8;
+    uint4 qv = make_uint4(0u, 0u, 0u, 0u), dv = qv;
+    float part = 0.f;
+    const int64_t row_off = (static_cast<int64_t>(b) * hq + h0 + w) * sq;
+    if (r < nq) {
+      const int64_t g = (row_off + q0 + r) * D + c8 * 8;
+      qv = scale_bf16x8(*reinterpret_cast<const uint4*>(q + g), scale);
+      *reinterpret_cast<uint4*>(qs + g) = qv;  // for the dk/dv pass
+      dv = *reinterpret_cast<const uint4*>(dout + g);
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + g);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(d2[e]);
+        const float2 c = __bfloat1622float2(o2[e]);
+        part = fmaf(a.x, c.x, part);
+        part = fmaf(a.y, c.y, part);
+      }
+    }
+    const uint32_t off = chunk_off<D>(r, c8, kRows);
+    *reinterpret_cast<uint4*>(base + w * C::kRowBytes + off) = qv;
+    *reinterpret_cast<uint4*>(base + (WGS + w) * C::kRowBytes + off) = dv;
+#pragma unroll
+    for (int m = 1; m < kC8 && m < 32; m *= 2)
+      part += __shfl_xor_sync(0xffffffffu, part, m);
+    if (c8 == 0) {
+      s_delta[w * kRows + r] = part;
+      if (r < nq) delta[row_off + q0 + r] = part;
+    }
+  }
+  __syncthreads();  // delta of every row
+  // this thread's two rows: lse (0 past Sq: those rows have qs = dO = 0,
+  // so dS = 0, and are not stored) and delta, both times log2(e) where the
+  // exponent takes them
+  float lse2[2], dl[2];
+  const int64_t h_rows = (static_cast<int64_t>(b) * hq + h) * sq;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + 8 * half;
+    lse2[half] = r < nq ? lse[h_rows + q0 + r] * kLog2e : 0.f;
+    dl[half] = s_delta[wgi * kRows + r];
+  }
+
+  float acc[D / 2];  // dQ / scale
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+  const uint32_t a_q = s_q + wgi * C::kRowBytes;
+  const uint32_t a_do = s_do + wgi * C::kRowBytes;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1;
+    const int k0 = k_beg + t * TK;
+    if (t + 1 < ntiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // this thread's smem writes -> wgmma's proxy
+    __syncthreads();
+
+    // S = qs K^T and dP = dO V^T; s[4 j + 2 half + c] is row row0 + 8 half,
+    // key k0 + 8 j + cb + c (dp alike)
+    float s[TK / 2], dp[TK / 2];  // the first k16 step ignores them
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<TK>(s, desc_k<D>(a_q, kRows, ks), desc_k<D>(s_k(st), TK, ks),
+                   ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<TK>(dp, desc_k<D>(a_do, kRows, ks), desc_k<D>(s_v(st), TK, ks),
+                   ks > 0);
+    wgmma_commit();
+    tf::wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) fence_reg(s[i]);
+
+    // dS = P (dP - delta) (1 - (S / cap)^2), rounded to bf16: dsf[x] packs
+    // elements 2x, 2x + 1 (row half x & 1), the A fragment of dS K
+    const bool whole = k0 + TK <= min(len, sk) &&
+                       (!causal || k0 + TK - 1 <= q_lo) &&
+                       (window <= 0 || k0 > q_lo + kRows - 1 - window);
+    uint32_t dsf[TK / 4];
+#pragma unroll
+    for (int x = 0; x < TK / 4; ++x) {
+      const int half = x & 1;
+      const int qpos = q_lo + row0 + 8 * half;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * x + c;
+        float z = s[e], jac = 1.f;
+        if (cap > 0.f) {
+          const float th = tanh_ex2(z * inv_cap);
+          z = cap * th;
+          jac = fmaf(-th, th, 1.f);
+        }
+        float p = ex2(fmaf(z, kLog2e, -lse2[half]));
+        if (!whole) {
+          const int kpos = k0 + 8 * (x / 2) + cb + c;
+          const bool ok = kpos < len && kpos < sk &&
+                          (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          p = ok ? p : 0.f;
+        }
+        s[e] = p * jac;
+      }
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < TK / 2; ++i) fence_reg(dp[i]);
+#pragma unroll
+    for (int x = 0; x < TK / 4; ++x)
+      dsf[x] = pack2(s[2 * x] * (dp[2 * x] - dl[x & 1]),
+                     s[2 * x + 1] * (dp[2 * x + 1] - dl[x & 1]));
+
+    // dQ += dS K: B is the K tile read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma_rs<D>(acc, dsf + 4 * kk, desc_mn<D>(s_k(st), TK, kk));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) fence_reg(acc[i]);
+#pragma unroll
+    for (int i = 0; i < TK / 4; ++i) fence_reg(dsf[i]);
+    __syncthreads();  // every warp is done with this stage's K and V
+  }
+
+  __nv_bfloat16* dqb = dq + h_rows * D;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= nq) continue;
+    __nv_bfloat16* drow = dqb + static_cast<int64_t>(q0 + row) * D + cb;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half] * scale,
+                                acc[4 * j + 2 * half + 1] * scale);
   }
 }
 
-int run(int pass, const void* q, const void* k, const void* v, const void* o,
-        const float* lse, const void* dout, const int* kv_len, float* delta,
-        void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
-        int d, int causal, int window, float cap, float scale, int bf16,
-        void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(pass, d, q, k, v, o, lse, dout, kv_len,
-                                   delta, dq, dk, dv, b, hq, hkv, sq, sk,
-                                   causal, window, cap, scale, st);
-  return dispatch<float>(pass, d, q, k, v, o, lse, dout, kv_len, delta, dq,
-                         dk, dv, b, hq, hkv, sq, sk, causal, window, cap,
-                         scale, st);
+template <int D>
+__global__ void __launch_bounds__(KvCfg<D>::kThreads, D <= 128 ? 2 : 1)
+wgmma_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ qs,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ lse,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const int* __restrict__ kv_len,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int hq, int group,
+                      int sq, int sk, int causal, int window, float cap) {
+  using C = KvCfg<D>;
+  constexpr int TQ = C::kTileQ;
+  constexpr int kThreads = C::kThreads;
+  constexpr int kC8 = D / 8;
+  static_assert(C::kSmem <= 232448, "shared memory over the opt-in limit");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t s_k = (raw + 1023) & ~1023u;
+  const uint32_t s_v = s_k + C::kKvBytes;
+  uint8_t* base = smem_raw + (s_k - raw);
+  auto s_q = [&](int st) { return s_v + C::kKvBytes + st * 2 * C::kQBytes; };
+  auto s_do = [&](int st) { return s_q(st) + C::kQBytes; };
+  // lse and delta of each stage's rows
+  const uint32_t s_ls = s_v + C::kKvBytes + 4 * C::kQBytes;
+  const uint32_t s_dl = s_ls + 2 * TQ * 4;
+  const float* ls_rows = reinterpret_cast<const float*>(
+      base + 2 * C::kKvBytes + 4 * C::kQBytes);
+  const float* dl_rows = ls_rows + 2 * TQ;
+
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // this warpgroup: columns wgi * kDw ..
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // this thread's keys: row0, row0 + 8
+  const int cb = 2 * (lane % 4);          // and q rows cb, cb + 1 of each 8
+  const int k0 = blockIdx.x * kRows;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int hkv = hq / group;
+  const int len = kv_len[b];
+  const int k_valid = min(len, sk);  // keys past this are masked
+  const int64_t kv_off = (static_cast<int64_t>(b) * hkv + hk) * sk * D;
+
+  // the q rows with an unmasked key in this tile: qpos = len - sq + i sees
+  // key kpos iff kpos <= qpos (causal) and kpos > qpos - window
+  int i_lo = 0, i_hi = -1;
+  if (k0 < k_valid) {
+    const int k_last = min(k0 + kRows, k_valid) - 1;
+    i_lo = causal ? max(0, k0 - (len - sq)) : 0;
+    i_hi = window > 0 ? min(sq - 1, k_last + window - 1 - (len - sq))
+                      : sq - 1;
+  }
+  const int t_lo = i_lo / TQ;
+  const int ntq = i_hi < i_lo ? 0 : i_hi / TQ - t_lo + 1;
+  const int nitems = group * ntq;  // (query head, q tile) pairs
+
+  for (int i = tid; i < kRows * kC8; i += kThreads) {
+    const int r = i / kC8, c8 = i % kC8;
+    const bool in = k0 + r < sk;
+    const int64_t g = kv_off + static_cast<int64_t>(in ? k0 + r : 0) * D +
+                      c8 * 8;
+    const uint32_t off = chunk_off<D>(r, c8, kRows);
+    cp_async16(s_k + off, k + g, in);
+    cp_async16(s_v + off, v + g, in);
+  }
+  cp_async_commit();
+
+  auto load_q = [&](int item, int st) {
+    const int h = hk * group + item / ntq;
+    const int qq0 = (t_lo + item % ntq) * TQ;
+    const int64_t row_off = (static_cast<int64_t>(b) * hq + h) * sq;
+    for (int i = tid; i < TQ * kC8; i += kThreads) {
+      const int r = i / kC8, c8 = i % kC8;
+      const bool in = qq0 + r < sq;
+      const int64_t g = (row_off + (in ? qq0 + r : 0)) * D + c8 * 8;
+      const uint32_t off = chunk_off<D>(r, c8, TQ);
+      cp_async16(s_q(st) + off, qs + g, in);
+      cp_async16(s_do(st) + off, dout + g, in);
+    }
+    // rows past Sq: lse 0 and delta 0 (their qs and dO are 0, and masked)
+    if (tid < 2 * TQ) {
+      const int r = tid % TQ;
+      const bool in = qq0 + r < sq;
+      const int64_t g = row_off + (in ? qq0 + r : 0);
+      if (tid < TQ)
+        cp_async4(s_ls + (st * TQ + r) * 4, lse + g, in);
+      else
+        cp_async4(s_dl + (st * TQ + r) * 4, delta + g, in);
+    }
+    cp_async_commit();
+  };
+
+  float acc_k[C::kDw / 2], acc_v[C::kDw / 2];
+#pragma unroll
+  for (int i = 0; i < C::kDw / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
+  // this warpgroup's columns of the q and dO tiles (B of dK and dV)
+  const uint32_t col_off = wgi * (C::kDw / 64) * TQ * wg::Cfg<D>::kPitch;
+
+  if (nitems > 0) load_q(0, 0);
+  for (int it = 0; it < nitems; ++it) {
+    const int st = it & 1;
+    const int qq0 = (t_lo + it % ntq) * TQ;
+    const int q_lo = len - sq + qq0;  // absolute position of row 0
+    if (it + 1 < nitems) {
+      load_q(it + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();  // this thread's smem writes -> wgmma's proxy
+    __syncthreads();
+
+    // S^T = K qs^T and dP^T = V dO^T; s[4 j + 2 half + c] is key row0 +
+    // 8 half, q row qq0 + 8 j + cb + c (dp alike)
+    float s[TQ / 2], dp[TQ / 2];  // the first k16 step ignores them
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<TQ>(s, desc_k<D>(s_k, kRows, ks), desc_k<D>(s_q(st), TQ, ks),
+                   ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<TQ>(dp, desc_k<D>(s_v, kRows, ks), desc_k<D>(s_do(st), TQ, ks),
+                   ks > 0);
+    wgmma_commit();
+    tf::wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < TQ / 2; ++i) fence_reg(s[i]);
+
+    // P and dS, rounded to bf16: pf[x] and dsf[x] pack elements 2x, 2x + 1
+    // (key half x & 1), the A fragments of P^T dO and dS^T qs
+    const bool whole = k0 + kRows <= k_valid && qq0 + TQ <= sq &&
+                       (!causal || k0 + kRows - 1 <= q_lo) &&
+                       (window <= 0 || k0 > q_lo + TQ - 1 - window);
+    const float* ls = ls_rows + st * TQ;
+    const float* dl = dl_rows + st * TQ;
+    uint32_t pf[TQ / 4], dsf[TQ / 4];
+#pragma unroll
+    for (int x = 0; x < TQ / 4; ++x) {
+      const int half = x & 1;
+      const int kpos = k0 + row0 + 8 * half;
+      const int i0 = 8 * (x / 2) + cb;  // this pair's first q row
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + i0);
+      float p[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * x + c;
+        float z = s[e], jac = 1.f;
+        if (cap > 0.f) {
+          const float th = tanh_ex2(z * inv_cap);
+          z = cap * th;
+          jac = fmaf(-th, th, 1.f);
+        }
+        p[c] = ex2(fmaf(z, kLog2e, -(c ? l2.y : l2.x) * kLog2e));
+        if (!whole) {
+          const int i = i0 + c, qpos = q_lo + i;
+          const bool ok = kpos < k_valid && qq0 + i < sq &&
+                          (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          p[c] = ok ? p[c] : 0.f;
+        }
+        s[e] = p[c] * jac;
+      }
+      pf[x] = pack2(p[0], p[1]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk)
+      wgmma_rs<C::kDw>(acc_v, pf + 4 * kk,
+                       desc_mn<D>(s_do(st) + col_off, TQ, kk));
+    wgmma_commit();
+    tf::wgmma_wait<1>();
+#pragma unroll
+    for (int i = 0; i < TQ / 2; ++i) fence_reg(dp[i]);
+#pragma unroll
+    for (int x = 0; x < TQ / 4; ++x) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(dl + 8 * (x / 2) + cb);
+      dsf[x] = pack2(s[2 * x] * (dp[2 * x] - d2.x),
+                     s[2 * x + 1] * (dp[2 * x + 1] - d2.y));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TQ / 16; ++kk)
+      wgmma_rs<C::kDw>(acc_k, dsf + 4 * kk,
+                       desc_mn<D>(s_q(st) + col_off, TQ, kk));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < C::kDw / 2; ++i) fence_reg(acc_k[i]), fence_reg(acc_v[i]);
+#pragma unroll
+    for (int i = 0; i < TQ / 4; ++i) fence_reg(pf[i]), fence_reg(dsf[i]);
+    __syncthreads();  // every warp is done with this stage
+  }
+  if (nitems == 0) cp_async_wait<0>();  // K and V, unread
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + row0 + 8 * half;
+    if (key >= sk) continue;
+    const int64_t g = kv_off + static_cast<int64_t>(key) * D +
+                      wgi * C::kDw + cb;
+#pragma unroll
+    for (int j = 0; j < C::kDw / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + g + 8 * j) =
+          __floats2bfloat162_rn(acc_k[4 * j + 2 * half],
+                                acc_k[4 * j + 2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + g + 8 * j) =
+          __floats2bfloat162_rn(acc_v[4 * j + 2 * half],
+                                acc_v[4 * j + 2 * half + 1]);
+    }
+  }
 }
 
-}  // namespace bw
+template <int D, int WGS>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const float* lse, const void* dout, const int* kv_len,
+              float* delta, void* qs, void* dq, int b, int hq, int hkv,
+              int sq, int sk, int causal, int window, float cap, float scale,
+              cudaStream_t stream) {
+  using C = DqCfg<D, WGS>;
+  auto kernel = wgmma_bwd_dq_kernel<D, WGS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kRows - 1) / kRows, hq / WGS, b);
+  using T = __nv_bfloat16;
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o), lse,
+      static_cast<const T*>(dout), kv_len, delta, static_cast<T*>(qs),
+      static_cast<T*>(dq), hq, hq / hkv, sq, sk, causal, window, cap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkdv(const void* qs, const void* k, const void* v,
+                const float* lse, const void* dout, const int* kv_len,
+                const float* delta, void* dk, void* dv, int b, int hq,
+                int hkv, int sq, int sk, int causal, int window, float cap,
+                cudaStream_t stream) {
+  using C = KvCfg<D>;
+  auto kernel = wgmma_bwd_dkdv_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sk + kRows - 1) / kRows, hkv, b);
+  using T = __nv_bfloat16;
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      static_cast<const T*>(qs), static_cast<const T*>(k),
+      static_cast<const T*>(v), lse, static_cast<const T*>(dout), kv_len,
+      delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hq / hkv, sq, sk,
+      causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pass 0: dq (and delta and qs), two heads a CTA at D = 256 when the GQA
+// group is even; pass 1: dk, dv
+template <int D>
+int launch_pass(int pass, const void* q, const void* k, const void* v,
+                const void* o, const float* lse, const void* dout,
+                const int* kv_len, float* delta, void* qs, void* dq,
+                void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
+                int causal, int window, float cap, float scale,
+                cudaStream_t stream) {
+  if (pass == 1)
+    return launch_dkdv<D>(qs, k, v, lse, dout, kv_len, delta, dk, dv, b, hq,
+                          hkv, sq, sk, causal, window, cap, stream);
+  if constexpr (D == 256) {
+    if ((hq / hkv) % 2 == 0)
+      return launch_dq<D, 2>(q, k, v, o, lse, dout, kv_len, delta, qs, dq, b,
+                             hq, hkv, sq, sk, causal, window, cap, scale,
+                             stream);
+  }
+  return launch_dq<D, 1>(q, k, v, o, lse, dout, kv_len, delta, qs, dq, b, hq,
+                         hkv, sq, sk, causal, window, cap, scale, stream);
+}
+
+}  // namespace wgb
 
 // Launch<D>::run calls the f32 or the bf16 launcher at head dim D
 template <int D>
@@ -1674,6 +2266,37 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// The backward at head dim d: bf16 on the tensor cores (wgb::), f32 on
+// the CUDA cores (bw::); pass 0 writes dq and delta, pass 1 dk and dv
+int bwd_run(int pass, const void* q, const void* k, const void* v,
+            const void* o, const float* lse, const void* dout,
+            const int* kv_len, float* delta, void* qs, void* dq, void* dk,
+            void* dv,
+            int b, int hq, int hkv, int sq, int sk, int d, int causal,
+            int window, float cap, float scale, int bf16, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+#define REPRO_FLASH_BWD_D(DV)                                               \
+  case DV:                                                                  \
+    return bf16 ? wgb::launch_pass<DV>(pass, q, k, v, o, lse, dout, kv_len, \
+                                       delta, qs, dq, dk, dv, b, hq, hkv,   \
+                                       sq, sk, causal, window, cap, scale,  \
+                                       st)                                  \
+                : bw::launch_pass<float, DV>(                               \
+                      pass, q, k, v, o, lse, dout, kv_len, delta, dq, dk,   \
+                      dv, b, hq, hkv, sq, sk, causal, window, cap, scale,   \
+                      st);
+    REPRO_FLASH_BWD_D(16)
+    REPRO_FLASH_BWD_D(32)
+    REPRO_FLASH_BWD_D(64)
+    REPRO_FLASH_BWD_D(128)
+    REPRO_FLASH_BWD_D(256)
+#undef REPRO_FLASH_BWD_D
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q: (b, hq, sq, d); k, v: (b, hkv, sk, d); out: (b, hq, sq, d), all of one
@@ -1703,28 +2326,34 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The backward's two passes, on K5's shapes and types (bf16 = 0: f32, 1:
-// bf16): q, o, dout, dq (b, hq, sq, d); k, v, dk, dv (b, hkv, sk, d); lse
-// and delta (b, hq, sq) f32; kv_len (b,) int32.  flash_attention_bwd_dq
-// writes dq and delta (rowsum(dout o)); flash_attention_bwd_dkdv reads
-// delta and writes dk and dv, so it runs after the first on the same
-// stream.  The two take the same arguments.  Returns the first CUDA error
-// of the attribute call or the launch.
+// bf16): q, o, dout, dq (b, hq, sq, d); k, v, dk, dv (b, hkv, sk, d), all
+// contiguous and 16-byte aligned; lse and delta (b, hq, sq) f32; kv_len
+// (b,) int32; qs: bf16 only, (b, hq, sq, d) bf16 scratch (null for f32).
+// bf16 runs wgmma_bwd_dq_kernel and wgmma_bwd_dkdv_kernel, f32
+// bwd_dq_kernel and bwd_dkdv_kernel.  flash_attention_bwd_dq writes dq,
+// delta (rowsum(dout o)) and, in bf16, qs (q * d^-0.5 rounded to bf16);
+// flash_attention_bwd_dkdv reads delta (and qs) and writes dk and dv, so it
+// runs after the first on the same stream.  The
+// two take the same arguments.  Returns the first CUDA error of the
+// attribute call or the launch.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, const int* kv_len, float* delta,
-    void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
-    int d, int causal, int window, float cap, float scale, int bf16,
+    void* qs, void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq,
+    int sk, int d, int causal, int window, float cap, float scale, int bf16,
     void* stream) {
-  return bw::run(0, q, k, v, o, lse, dout, kv_len, delta, dq, dk, dv, b, hq,
-                 hkv, sq, sk, d, causal, window, cap, scale, bf16, stream);
+  return bwd_run(0, q, k, v, o, lse, dout, kv_len, delta, qs, dq, dk, dv, b,
+                 hq, hkv, sq, sk, d, causal, window, cap, scale, bf16,
+                 stream);
 }
 
 extern "C" int flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* o,
     const float* lse, const void* dout, const int* kv_len, float* delta,
-    void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
-    int d, int causal, int window, float cap, float scale, int bf16,
+    void* qs, void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq,
+    int sk, int d, int causal, int window, float cap, float scale, int bf16,
     void* stream) {
-  return bw::run(1, q, k, v, o, lse, dout, kv_len, delta, dq, dk, dv, b, hq,
-                 hkv, sq, sk, d, causal, window, cap, scale, bf16, stream);
+  return bwd_run(1, q, k, v, o, lse, dout, kv_len, delta, qs, dq, dk, dv, b,
+                 hq, hkv, sq, sk, d, causal, window, cap, scale, bf16,
+                 stream);
 }

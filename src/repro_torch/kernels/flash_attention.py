@@ -21,10 +21,14 @@ Sq)), which the backward needs; ``out`` is the same bit for bit.
 The backward (no TPU kernel: the reference differentiates its XLA flash
 path, ``repro/nn/flash_vjp.py::_flash_bwd``, whose two passes this
 follows) is ``flash_attention_bwd``: on CUDA tensors two kernels of
-``csrc/flash_attention.cu``, ``bwd_dq_kernel`` (dq, and the row sums
-``rowsum(dO * O)`` the second pass reads) and ``bwd_dkdv_kernel`` (dk and
-dv, summed over each GQA group), f32 FMA on the CUDA cores with bf16
-converted on load; on the CPU ``flash_attention_bwd_plain``.
+``csrc/flash_attention.cu`` -- a dq pass (dq, and the row sums
+``rowsum(dO * O)`` the second pass reads; in bf16 also q scaled and
+rounded as the forward stages it) and a dk/dv pass (dk and dv, summed over
+each GQA group).  bf16 inputs run ``wgmma_bwd_dq_kernel`` and
+``wgmma_bwd_dkdv_kernel``, every product a bf16 ``wgmma`` with f32
+accumulation (P and dS rounded to bf16 before the products that take
+them); f32 inputs ``bwd_dq_kernel`` and ``bwd_dkdv_kernel``, f32 FMA on
+the CUDA cores.  On the CPU ``flash_attention_bwd_plain``.
 ``flash_attention_bwd.launches`` counts both kernels' launches.
 ``FlashAttention`` is the ``torch.autograd.Function`` over the two: its
 forward is K5 with the lse, its backward the two kernels.
@@ -42,8 +46,6 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: (query rows, keys) of one tile of the backward kernels
-BWD_TILES = (64, 32)
 #: per-block shared memory limit (opt-in) of the H100
 _H100_SMEM_OPTIN = 232448
 
@@ -214,15 +216,43 @@ def smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> int:
     return 1024 + (2 * tq * dp + 2 * max(tk * dp, d * tk) + tk * d) * 4
 
 
-def bwd_smem_bytes(d: int) -> dict:
+def bwd_tiles(d: int, dtype: torch.dtype, group: int = 1) -> dict:
+    """The backward kernels' tiles at head dim ``d`` and GQA group ``group``
+    (mirrors ``csrc/flash_attention.cu``): ``dq`` is (query rows, keys of a
+    KV tile, query heads a CTA), ``dkdv`` (keys a CTA, query rows of a q
+    tile, warpgroups splitting D).  bf16 (``wgb::DqCfg``, ``wgb::KvCfg``):
+    64 query rows a warpgroup; 32-key tiles at d = 256, where two heads of
+    an even group share a CTA, else 64; 64 keys a CTA and 64-row q tiles,
+    D split between two warpgroups at d = 256.  f32 (``bw::``): 64 query
+    rows by 32 keys in both passes, one head a CTA."""
+    if dtype == torch.bfloat16:
+        heads = 2 if d == 256 and group % 2 == 0 else 1
+        return {"dq": (64, 32 if d == 256 else 64, heads),
+                "dkdv": (64, 64, 2 if d == 256 else 1)}
+    return {"dq": (64, 32, 1), "dkdv": (32, 64, 1)}
+
+
+def bwd_smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> dict:
     """Dynamic shared memory of the backward kernels at head dim ``d``
-    (mirrors ``bw::Cfg`` in the kernel source), f32 whatever the input
-    type: ``dq`` holds the scaled q and dO tiles (64 x d each), K^T and
-    V^T tiles (d x 33: 32 keys and a pad column, so that both a row and a
+    (mirrors ``wgb::DqCfg::kSmem``, ``wgb::KvCfg::kSmem`` and ``bw::Cfg``).
+    bf16, with 1 KB to align the base to the 1024-byte swizzle atom:
+    ``dq`` holds each head's qs and dO tiles (64 x d), two stages of K and
+    V tiles and each row's delta; ``dkdv`` the CTA's K and V tiles, two
+    stages of qs and dO tiles and of their rows' lse and delta.  f32:
+    ``dq`` holds the scaled q and dO tiles (64 x d each), K^T and V^T
+    tiles (d x 33: 32 keys and a pad column, so that both a row and a
     column read hit distinct banks), the dS tile (64 x 33) and two f32 per
     row; ``dkdv`` the same K^T, V^T, q and dO tiles, P and dS tiles and two
     f32 per row."""
-    rows, kp = BWD_TILES[0], BWD_TILES[1] + 1
+    t = bwd_tiles(d, dtype, group)
+    if dtype == torch.bfloat16:
+        rows, keys, heads = t["dq"]
+        kv, tq, _ = t["dkdv"]
+        return {"dq": 1024 + (2 * heads * rows * d + 4 * keys * d) * 2
+                + heads * rows * 4,
+                "dkdv": 1024 + (2 * kv * d + 4 * tq * d) * 2 + 4 * tq * 4}
+    rows, keys, _ = t["dq"]
+    kp = keys + 1
     common = 2 * d * kp + 2 * rows * d + 2 * rows
     return {"dq": 4 * (common + rows * kp),
             "dkdv": 4 * (common + 2 * rows * kp)}
@@ -339,10 +369,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K5's backward: (dq, dk, dv) for the output gradient ``dout``, given
     the forward's ``out`` and ``lse`` (``flash_attention(...,
     return_lse=True)``).  The plain version for tensors on the CPU; on
-    CUDA tensors ``bwd_dq_kernel`` then ``bwd_dkdv_kernel``, each counted
+    CUDA tensors the dq pass then the dk/dv pass -- bf16
+    ``wgmma_bwd_dq_kernel`` and ``wgmma_bwd_dkdv_kernel`` on the tensor
+    cores, f32 ``bwd_dq_kernel`` and ``bwd_dkdv_kernel`` -- each counted
     in ``flash_attention_bwd.launches`` (two a call).  q, k, v, out and
-    dout share one dtype (f32 or bf16) and K5's shapes, contiguous; lse is
-    (B, Hq, Sq) f32.  Returns the gradients in that dtype."""
+    dout share one dtype (f32 or bf16) and K5's shapes, contiguous and
+    16-byte aligned; lse is (B, Hq, Sq) f32.  Returns the gradients in that
+    dtype."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, kv_len,
                                          causal=causal, window=window,
@@ -359,7 +392,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "dout": (dout, q.dtype, (b, hq, sq, d)),
         "kv_len": (kv_len, torch.int32, (b,))})
     limit = _smem_limit(q.device)
-    need = max(bwd_smem_bytes(d).values())
+    need = max(bwd_smem_bytes(d, q.dtype, hq // hkv).values())
     if need > limit:
         raise ValueError(f"flash_attention_bwd: head dim {d} needs {need} "
                          f"bytes of shared memory per block; this card "
@@ -367,18 +400,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout, dq, dk, dv)):
+        raise ValueError("flash_attention_bwd: q, k, v, out and dout must be "
+                         "16-byte aligned (the kernels load 16 bytes at a "
+                         "time)")
+    # bf16: the dq pass also stores q * D^-0.5 rounded to bf16 for the dk/dv
+    # pass, which reads it instead of scaling q again
+    bf16 = q.dtype == torch.bfloat16
+    qs = torch.empty_like(q) if bf16 else None
     dq_fn = _build.load("flash_attention").flash_attention_bwd_dq
     dkdv_fn = _build.load("flash_attention").flash_attention_bwd_dkdv
-    args = (q, k, v, out, lse, dout, kv_len, delta, dq, dk, dv)
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (q, k, v, out, lse, dout, kv_len, delta, qs, dq, dk, dv)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for fn in (dq_fn, dkdv_fn):   # dkdv reads the row sums dq wrote
-            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
+        for fn in (dq_fn, dkdv_fn):   # dkdv reads what the dq pass wrote
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + \
                 [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            err = fn(*(t.data_ptr() for t in args), b, hq, hkv, sq, sk, d,
-                     int(causal), int(window), float(softcap), d ** -0.5,
-                     int(q.dtype == torch.bfloat16), stream)
+            err = fn(*ptrs, b, hq, hkv, sq, sk, d, int(causal), int(window),
+                     float(softcap), d ** -0.5, int(bf16), stream)
             if err:
                 raise RuntimeError(f"flash_attention_bwd: kernel launch "
                                    f"failed with CUDA error {err}")

@@ -426,6 +426,15 @@ def _bwd_rows_close(a, b, limit):
     (2, 4, 2, 8, 192, 256, True, 0, 50.0, (50, 192)),
     (1, 2, 1, 17, 17, 16, True, 4, 50.0, None),
     (1, 16, 8, 300, 300, 256, True, 100, 50.0, None),
+    # the bf16 kernels' tile edges: Sq and Sk off the 64-row tiles at the
+    # narrow swizzles (D 32 and 16), D 256 with an odd group (one head a
+    # dq CTA), a window straddling a 64-key tile, kv_len short of Sk
+    (1, 4, 2, 150, 170, 32, True, 0, 50.0, None),
+    (1, 4, 4, 130, 130, 16, False, 0, 0.0, None),
+    (1, 6, 2, 200, 200, 256, True, 0, 50.0, None),
+    (1, 3, 3, 100, 140, 256, True, 0, 0.0, None),
+    (1, 8, 4, 256, 256, 128, True, 70, 0.0, None),
+    (2, 4, 2, 100, 200, 128, True, 0, 30.0, (120, 200)),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
