@@ -13,10 +13,11 @@ Phases, each printing its own lines; any failure exits non-zero:
                 cuobjdump -sass shows HGMMA instructions with TF32
                 operands in every instance of K2's fused kernel and of
                 K5's f32 kernel, and fewer in each bf16-W instance of K2
-                than in its f32 twin (two TF32 products, not three); and
-                with bf16 operands in every instance of K5's bf16
-                backward kernels (wgmma_bwd_dq_kernel,
-                wgmma_bwd_dkdv_kernel).
+                than in its f32 twin (two TF32 products, not three), and
+                in every instance of K5's f32 backward kernels
+                (tf32x3_bwd_dq_kernel, tf32x3_bwd_dkdv_kernel); and with
+                bf16 operands in every instance of K5's bf16 backward
+                kernels (wgmma_bwd_dq_kernel, wgmma_bwd_dkdv_kernel).
   3. kernels -- each CUDA kernel against its plain PyTorch version on the
                 card, at the shapes the main path gives it on Cora,
                 Citeseer and Reddit, with the tolerance printed; times of
@@ -70,15 +71,19 @@ Phases, each printing its own lines; any failure exits non-zero:
   7. lm f32  -- gemma2-9b in f32 at full width, depth cut to 2 layers: one
                 6144-token lm_prefill, which takes K5's f32 path; its launch
                 count and logits against the torch tier.
- 18. lm-train -- (right after phase 7) K5's backward kernels (bf16:
-                wgmma_bwd_dq_kernel, wgmma_bwd_dkdv_kernel on the tensor
-                cores; f32: bwd_dq_kernel, bwd_dkdv_kernel) against
+ 18. lm-train -- (right after phase 7) K5's backward kernels, all on the
+                tensor cores (bf16: wgmma_bwd_dq_kernel,
+                wgmma_bwd_dkdv_kernel; f32: tf32x3_bwd_dq_kernel,
+                tf32x3_bwd_dkdv_kernel, 3xTF32) against
                 flash_attention_bwd_plain in f32 and bf16 at gemma2's
                 training layers (global and local, 6144 tokens), a
                 granite-3-8b layer, Sq < Sk with a ragged kv_len and a
                 non-causal case: per-row and relative Frobenius limits, which
                 a control without the softcap's Jacobian (without a softcap:
-                without a KV tile) must fail, two calls bit for bit, times of
+                without a KV tile) must fail, and in f32 so must the kernels
+                with one TF32 product instead of three (f32 against the
+                plain version in f64, whose f32 evaluation's own error is
+                printed beside); two calls bit for bit, times of
                 kernels, plain version and the library's backward
                 (flex_attention's, or scaled_dot_product_attention's without
                 a softcap) beside the bound.  Then gemma2-9b at full width in
@@ -374,10 +379,16 @@ BWD_INPUT_SCALE = 3.0
 #: row's (last dim's) largest error over that row's largest magnitude,
 #: floored at BWD_ROW_FLOOR of the tensor's largest magnitude (a causal
 #: first row sees one key, and its dq is 0 up to rounding), and the
-#: relative Frobenius error, the largest over dq, dk and dv.  Two passes
-#: of f32 FMA against the plain version's f32 einsums; bf16 rounds each
-#: output once.  A control without the softcap's Jacobian (or, without a
-#: softcap, without one KV tile) must exceed both.
+#: relative Frobenius error, the largest over dq, dk and dv.  f32: two
+#: passes of 3xTF32 products against the plain version evaluated in f64
+#: (the inputs, out and lse as the kernels take them): its f32 evaluation
+#: is itself up to 1.1e-4 a row off its f64 one at FLASH_BWD_SHAPES
+#: (printed beside each f32 record), which the row limit would read as the
+#: kernels' error; bf16 rounds each output
+#: once, against the plain version in f32.  A control without the
+#: softcap's Jacobian (or, without a softcap, without one KV tile) must
+#: exceed both, and in f32 so must the kernels with one TF32 product
+#: instead of three (terms=1).
 BWD_ROW_LIMIT = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_FRO_LIMIT = {"float32": 1e-5, "bfloat16": 1e-2}
 BWD_ROW_FLOOR = 1e-2
@@ -392,11 +403,13 @@ LM_TRAIN_GRAD_LIMIT = 1e-4
 #: and the no-softcap shape, where scaled_dot_product_attention serves)
 LIBRARY_BWD_SHAPES = ("a", "d")
 #: K5's backward kernels as the profiler names them: the substrings match
-#: both the f32 bw:: kernels and the bf16 wgmma_bwd_* ones, and neither
-#: holds a forward kernel's name (K5_KERNELS)
+#: both the f32 tf32x3_bwd_* kernels and the bf16 wgmma_bwd_* ones, and
+#: neither holds a forward kernel's name (K5_KERNELS)
 K5_BWD_KERNELS = ("bwd_dq_kernel", "bwd_dkdv_kernel")
 #: K5's bf16 backward kernels, whose every instance must issue bf16 HGMMAs
 K5_BWD_BF16_KERNELS = ("wgmma_bwd_dq_kernel", "wgmma_bwd_dkdv_kernel")
+#: K5's f32 backward kernels, whose every instance must issue TF32 HGMMAs
+K5_BWD_F32_KERNELS = ("tf32x3_bwd_dq_kernel", "tf32x3_bwd_dkdv_kernel")
 #: phase 3: seg_agg's column slices timed beside the one the wrapper picks
 #: (slice_cols), at Reddit (F -> widths); every width gives the same sums
 #: bit for bit (slicing does not change any column's fold)
@@ -616,9 +629,9 @@ def check_sass(name: str = "fused_agg_combine",
     """A kernel on the tensor cores: ``cuobjdump -sass`` of the built
     library ``name`` shows HGMMA instructions with ``operand`` operands in
     every instance of ``kernel`` (TF32: K2's fused_kernel, K5's
-    tf32x3_kernel; BF16: K5's wgmma_bwd_dq_kernel and
-    wgmma_bwd_dkdv_kernel).  Returns {instance: HGMMA count}; fails if an
-    instance has none."""
+    tf32x3_kernel, tf32x3_bwd_dq_kernel and tf32x3_bwd_dkdv_kernel; BF16:
+    K5's wgmma_bwd_dq_kernel and wgmma_bwd_dkdv_kernel).  Returns
+    {instance: HGMMA count}; fails if an instance has none."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(_build.lib_path(name))],
@@ -4447,9 +4460,10 @@ def check_flash_bwd():
     """Phase 18, first part: K5's backward kernels against
     ``flash_attention_bwd_plain`` at FLASH_BWD_SHAPES in f32 and bf16, from
     K5's own forward (out and lse).  Fails unless every call is finite and
-    within BWD_ROW_LIMIT / BWD_FRO_LIMIT, the control exceeds both, and a
-    second call equals the first bit for bit.  Returns one record per
-    (shape, dtype)."""
+    within BWD_ROW_LIMIT / BWD_FRO_LIMIT, the control exceeds both (in f32
+    also the kernels with one TF32 product, terms=1), and a second call
+    equals the first bit for bit.  Returns one record per (shape,
+    dtype)."""
     import torch
     from repro_torch.kernels import flash_attention as k5
 
@@ -4477,7 +4491,12 @@ def check_flash_bwd():
             plain = lambda: k5.flash_attention_bwd_plain(  # noqa: E731
                 q, k, v, out, lse, dout, kvl, **kw)
             n0 = k5.flash_attention_bwd.launches
-            got, want = kern(), plain()
+            got = kern()
+            # f32: the yardstick is the plain version in f64 (BWD_ROW_LIMIT)
+            want = plain() if dtype == torch.bfloat16 else \
+                k5.flash_attention_bwd_plain(
+                    *(t.double() for t in (q, k, v, out)), lse,
+                    dout.double(), kvl, **kw)
             torch.cuda.synchronize()
             launched = k5.flash_attention_bwd.launches - n0
             finite = all(bool(torch.isfinite(t).all().item()) for t in got)
@@ -4485,6 +4504,13 @@ def check_flash_bwd():
             row, fro = bwd_rel_errs(got, want)
             c_row, c_fro = bwd_rel_errs(bwd_control(shape, q, k, v, dout),
                                         want)
+            # f32: the kernels with one TF32 product instead of three, and
+            # the plain version's own f32 evaluation against its f64 one
+            t_row = t_fro = p_row = p_fro = None
+            if dtype == torch.float32:
+                t_row, t_fro = bwd_rel_errs(k5.flash_attention_bwd(
+                    q, k, v, out, lse, dout, kvl, terms=1, **kw), want)
+                p_row, p_fro = bwd_rel_errs(plain(), want)
             err = max((x.float() - y.float()).abs().max().item()
                       for x, y in zip(got, want))
             del got
@@ -4517,7 +4543,11 @@ def check_flash_bwd():
                    "control": "no softcap Jacobian" if cap > 0
                    else "a KV tile dropped",
                    "control_row_rel_err": c_row,
-                   "control_fro_rel_err": c_fro, "repeat_equal": same,
+                   "control_fro_rel_err": c_fro,
+                   "terms1_row_rel_err": t_row, "terms1_fro_rel_err": t_fro,
+                   "plain_f32_row_rel_err": p_row,
+                   "plain_f32_fro_rel_err": p_fro,
+                   "repeat_equal": same,
                    "launches_a_call": launched, "ms": ms,
                    "plain_ms": plain_ms, "pairs": pairs, "bytes": nbytes,
                    "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
@@ -4532,7 +4562,10 @@ def check_flash_bwd():
                   f"max_abs_err={err:.3e} row_rel_err={row:.3e} "
                   f"fro_rel_err={fro:.3e} (limits "
                   f"{BWD_ROW_LIMIT[dname]:.0e}/{BWD_FRO_LIMIT[dname]:.0e}; "
-                  f"control {rec['control']} {c_row:.3e}/{c_fro:.3e}) "
+                  f"control {rec['control']} {c_row:.3e}/{c_fro:.3e}"
+                  + (f"; one TF32 product {t_row:.3e}/{t_fro:.3e}; the "
+                     f"plain version in f32 {p_row:.3e}/{p_fro:.3e}"
+                     if t_row is not None else "") + ") "
                   f"repeat_equal={same} launches={launched} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
                   f"[{lib_note}] bound_ms={b_ms:.4f} ({b_by}; {nbytes} B, "
@@ -4553,6 +4586,11 @@ def check_flash_bwd():
                 fail(f"flash_attention_bwd ({name}) {dname}: the check "
                      f"cannot see the control ({rec['control']}: "
                      f"{c_row:.3e}, {c_fro:.3e})")
+            if t_row is not None and (t_row <= BWD_ROW_LIMIT[dname] or
+                                      t_fro <= BWD_FRO_LIMIT[dname]):
+                fail(f"flash_attention_bwd ({name}) {dname}: the check "
+                     f"cannot see one TF32 product instead of three "
+                     f"({t_row:.3e}, {t_fro:.3e})")
             if not same:
                 fail(f"flash_attention_bwd ({name}) {dname}: two calls on "
                      f"the same input differ")
@@ -4829,6 +4867,8 @@ def main() -> None:
             "flash_attention": check_sass("flash_attention", "tf32x3_kernel")}
     for kern in K5_BWD_BF16_KERNELS:
         sass[kern] = check_sass("flash_attention", kern, "BF16")
+    for kern in K5_BWD_F32_KERNELS:
+        sass[kern] = check_sass("flash_attention", kern, "TF32")
     sass["fused_agg_combine_pairs"] = check_k2_pairs(sass["fused_agg_combine"])
 
     # -- 3. kernels against their plain versions

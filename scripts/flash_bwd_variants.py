@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time K5's bf16 backward passes against design variants on one card.
+"""Time K5's backward passes against design variants on one card.
 
 Builds ``src/repro_torch/csrc/flash_attention.cu`` as it is ("kept") and
 variants derived from it by textual patches, one nvcc process each, into
 ``build/variants/``; loads each library with ctypes; runs both backward
 passes (``flash_attention_bwd_dq``, then ``flash_attention_bwd_dkdv``) on
-the same bf16 inputs; holds each variant's gradients against
-``flash_attention_bwd_plain`` within chip_smoke.py's bf16 limits; and
-times each pass with CUDA events at chip_smoke.py's FLASH_BWD_SHAPES
-(a), (b) and (d).  Variants:
+the same inputs; holds each variant's gradients against
+``flash_attention_bwd_plain`` (in f64 for f32 inputs) within chip_smoke.py's
+limits for the dtype;
+and times each pass with CUDA events at chip_smoke.py's FLASH_BWD_SHAPES
+(a), (b) and (d).  bf16 variants (the default):
 
   exchange -- at D = 256 the dk/dv pass's two warpgroups form one product
               each over all of D (warpgroup 0 S^T, warpgroup 1 dP^T) and
@@ -19,9 +20,20 @@ times each pass with CUDA events at chip_smoke.py's FLASH_BWD_SHAPES
               warpgroup 1 S^T, dP^T, dS and dK (five products' worth
               against six, unevenly split).
 
+f32 variants (``--f32``), of the 3xTF32 kernels (tfb::):
+
+  sk1      -- S and dP take a fresh accumulator per k8 step of D instead
+              of per four (per two in the dk/dv pass at D = 256): more
+              commit groups and f64 adds.
+  f64sum   -- S's and dP's partials added in f64 instead of f32 and
+              rounded once (a conversion and a double add a partial).
+  parent   -- with ``--parent FILE``: another revision's flash_attention.cu
+              (e.g. the FMA kernels that the 3xTF32 ones replaced), built
+              and called through the C interface without ``terms``.
+
 Run from the repository root on a machine with a card and nvcc:
 
-    python3 scripts/flash_bwd_variants.py [shape,...]
+    python3 scripts/flash_bwd_variants.py [--f32 [--parent FILE]] [shape,...]
 
 Prints the card's name and power limit, then one line per shape.  Exits
 non-zero if a variant fails to build or to meet the limits.
@@ -270,14 +282,53 @@ ROLES = """  if constexpr (C::kWgs == 2) {
 """
 
 
-VARIANTS = {"kept": SRC, "exchange": exchange(SRC), "roles": roles(SRC)}
+def sk1(s: str) -> str:
+    """S and dP: a fresh accumulator per k8 step of D."""
+    s = _rep(s, "static constexpr int kSliceKs = 4;  // k8 steps of one S or "
+             "dP accumulator", "static constexpr int kSliceKs = 1;")
+    return _rep(s, "static constexpr int kSliceKs = D == 256 ? 2 : 4;",
+                "static constexpr int kSliceKs = 1;")
 
 
-def build() -> dict:
+def f64sum(s: str) -> str:
+    """S's and dP's partials added in f64 and rounded once."""
+    s = _rep(s, "template <int D, int N, int SK>\n__device__ "
+             "__forceinline__ void product_s(float* x,", "template <int D, "
+             "int N, int SK>\n__device__ __forceinline__ void "
+             "product_s_f64(double* x,")
+    s = _rep(s, "x[i] = sl == 0 ? part[slot][i] : __fadd_rn(x[i], "
+             "part[slot][i]);", "x[i] = sl == 0 ? part[slot][i] : x[i] + "
+             "part[slot][i];")
+    return _rep(s, "// P = exp(S' - lse) and dS", F64SUM + "// P = exp(S' - lse) and dS")
+
+
+F64SUM = """template <int D, int N, int SK>
+__device__ __forceinline__ void product_s(float* x, const uint8_t* a,
+                                          uint32_t sb_hi, uint32_t sb_lo,
+                                          int terms) {
+  double y[N / 2];
+  product_s_f64<D, N, SK>(y, a, sb_hi, sb_lo, terms);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) x[i] = static_cast<float>(y[i]);
+}
+
+"""
+
+
+def variants(f32: bool, parent) -> dict:
+    if not f32:
+        return {"kept": SRC, "exchange": exchange(SRC), "roles": roles(SRC)}
+    out = {"kept": SRC, "sk1": sk1(SRC), "f64sum": f64sum(SRC)}
+    if parent:
+        out["parent"] = Path(parent).read_text()
+    return out
+
+
+def build(sources: dict) -> dict:
     out = ROOT / "build" / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in VARIANTS.items():
+    for name, text in sources.items():
         (out / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
@@ -294,9 +345,12 @@ def build() -> dict:
 
 
 def run_pass(lib, which: int, ptrs, dims) -> None:
+    """One pass; dims ends with (bf16, terms), or (bf16,) for a revision
+    whose C interface has no ``terms``."""
     fn = lib.flash_attention_bwd_dkdv if which else lib.flash_attention_bwd_dq
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+        [ctypes.c_float] * 2 + [ctypes.c_int] * (len(dims) - 10) + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(*ptrs, *dims, torch.cuda.current_stream().cuda_stream)
     if err:
@@ -304,10 +358,17 @@ def run_pass(lib, which: int, ptrs, dims) -> None:
 
 
 def main() -> None:
-    names = sys.argv[1].split(",") if len(sys.argv) > 1 else ["a", "b", "d"]
+    args = sys.argv[1:]
+    f32 = "--f32" in args
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
+    rest = [a for i, a in enumerate(args) if not a.startswith("--")
+            and (i == 0 or args[i - 1] != "--parent")]
+    names = rest[0].split(",") if rest else ["a", "b", "d"]
+    dtype = torch.float32 if f32 else torch.bfloat16
+    dname = "float32" if f32 else "bfloat16"
     print(cs.nvidia_smi(), flush=True)
     t0 = time.perf_counter()
-    libs = build()
+    libs = build(variants(f32, parent))
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -316,37 +377,41 @@ def main() -> None:
         b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = \
             cs.FLASH_BWD_SHAPES[name]
         q, k = ((torch.randn(s, generator=gen, device="cuda")
-                 * cs.BWD_INPUT_SCALE).bfloat16()
+                 * cs.BWD_INPUT_SCALE).to(dtype)
                 for s in ((b, hq, sq, d), (b, hkv, sk, d)))
         v = torch.randn((b, hkv, sk, d), generator=gen,
-                        device="cuda").bfloat16()
+                        device="cuda").to(dtype)
         dout = torch.randn((b, hq, sq, d), generator=gen,
-                           device="cuda").bfloat16()
+                           device="cuda").to(dtype)
         kvl = torch.tensor(kv_len or (sk,) * b, dtype=torch.int32,
                            device="cuda")
         kw = dict(causal=causal, window=window, softcap=cap)
         out, lse = k5.flash_attention(q, k, v, kvl, return_lse=True, **kw)
-        want = k5.flash_attention_bwd_plain(q, k, v, out, lse, dout, kvl,
-                                            **kw)
+        # f32: the plain version evaluated in f64, as chip_smoke.py holds it
+        want = k5.flash_attention_bwd_plain(
+            *(t.to(torch.float64 if f32 else dtype) for t in (q, k, v, out)),
+            lse, dout.to(torch.float64 if f32 else dtype), kvl, **kw)
         pairs = cs.unmasked_pairs(sq, sk, causal, window, kv_len or (sk,) * b)
-        bound = cs.bound(4 * (q.numel() + k.numel()) * 2 + 4 * b * hq * sq
-                         + 4 * b, 10 * d * hq * pairs, cs.BF16_FLOPS)[0]
+        bound = cs.bound(4 * (q.numel() + k.numel()) * q.element_size()
+                         + 4 * b * hq * sq + 4 * b, 10 * d * hq * pairs,
+                         cs.TF32X3_FLOPS if f32 else cs.BF16_FLOPS)[0]
         dims = (b, hq, hkv, sq, sk, d, int(causal), int(window), float(cap),
-                d ** -0.5, 1)
+                d ** -0.5, int(not f32))
         line = [f"({name})"]
         for vname, lib in libs.items():
             delta = torch.empty((b, hq, sq), device="cuda")
             qs, dq, dk, dv = (torch.empty_like(t) for t in (q, q, k, v))
             ptrs = [t.data_ptr() for t in (q, k, v, out, lse, dout, kvl,
                                            delta, qs, dq, dk, dv)]
-            run_pass(lib, 0, ptrs, dims)
-            run_pass(lib, 1, ptrs, dims)
+            vdims = dims if vname == "parent" else dims + (3,)
+            run_pass(lib, 0, ptrs, vdims)
+            run_pass(lib, 1, ptrs, vdims)
             torch.cuda.synchronize()
             row, fro = cs.bwd_rel_errs((dq, dk, dv), want)
-            ok = row <= cs.BWD_ROW_LIMIT["bfloat16"] and \
-                fro <= cs.BWD_FRO_LIMIT["bfloat16"]
+            ok = row <= cs.BWD_ROW_LIMIT[dname] and \
+                fro <= cs.BWD_FRO_LIMIT[dname]
             bad |= not ok
-            ms = [cs.time_ms(lambda w=w: run_pass(lib, w, ptrs, dims), 5)
+            ms = [cs.time_ms(lambda w=w: run_pass(lib, w, ptrs, vdims), 5)
                   for w in (0, 1)]
             line.append(f"{vname}: row {row:.3e} fro {fro:.3e} "
                         f"{'ok' if ok else 'OVER THE LIMITS'}; dq "

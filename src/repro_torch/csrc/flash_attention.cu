@@ -1190,292 +1190,665 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
 }  // namespace tf
 
 // ---------------------------------------------------------------------------
-// Backward, f32: two passes on the CUDA cores, FMA
+// Backward, f32: two passes on the tensor cores (3xTF32 wgmma)
 // ---------------------------------------------------------------------------
 //
 // No TPU kernel: the reference differentiates its XLA flash path
 // (src/repro/nn/flash_vjp.py::_flash_bwd), whose two passes these follow,
-// on K5's contract (q scaled by D^-0.5 in q's dtype, GQA, right alignment
-// to kv_len[b], causal mask, window, softcap).  f32 inputs only (T =
-// float; bf16 runs wgb::'s tensor-core kernels below).  Per (64 query rows
-// x 32 keys) tile, in f32:
+// on K5's contract (q scaled by D^-0.5 in f32, GQA, right alignment to
+// kv_len[b], causal mask, window, softcap).  Per tile, in f32:
 //
 //   Z = qs K^T, S = cap tanh(Z / cap), P = exp(S - lse) where unmasked,
-//   dP = dO V^T, dS = P (dP - delta), dZ = dS (1 - (S / cap)^2),
-//   dq = scale dZ K,  dk = dZ^T qs,  dv = P^T dO,
+//   dP = dO V^T, dS = P (dP - delta) (1 - (S / cap)^2),
+//   dq = scale dS K,  dk = dS^T qs,  dv = P^T dO,
 //
 // delta = rowsum(dO O).  Two passes and no atomics, so two launches are
-// equal bit for bit:
-//   * bwd_dq_kernel: one CTA per (64 query rows, q head, batch), heaviest
-//     first.  It stages qs and dO, computes delta (and stores it for the
-//     second pass), and loops over the KV tiles the forward visits for the
-//     same rows; dq's 64 x D accumulator lives in registers (D / 4 a
-//     thread).
-//   * bwd_dkdv_kernel: one CTA per (32 keys, KV head, batch).  It stages
-//     K^T and V^T once and loops over the G query heads of its group and
-//     every q tile with a row that sees one of its keys; dk's and dv's 32 x
-//     D accumulators live in registers (D / 8 each a thread).
-// Thread maps: for S and dP, warp w takes rows 8w .. 8w + 7 and lane j key
-// j; K and V are staged transposed with a row stride of 33, so a warp
-// reading key j's column (S) and one reading a row of 32 d's (dq += dS K)
-// both hit 32 distinct banks, and the q / dO rows a warp reads are one
-// broadcast.  Shared memory at D = 256: 203 KB (dq), 211 KB (dk/dv), one
-// CTA an SM; at D = 128 two.
+// equal bit for bit.  Every product is a 3xTF32 wgmma.mma_async m64nNk8
+// .f32.tf32.tf32, as tf32x3_kernel's: each operand x split into hi =
+// rna(x) and lo = rna(x - hi), per k8 step A_lo B_hi + A_hi B_lo + A_hi
+// B_hi, the small terms first (only lo * lo, ~2^-22 relative, is dropped).
+//   * No accumulator spans a long reduction (the tensor cores truncate
+//     each sum into the f32 accumulator; see the forward's note): S and dP
+//     take a fresh accumulator per kSliceKs k8 steps of D, dQ one per KV
+//     tile, dK and dV one per q tile, each added on the CUDA cores in f32
+//     to nearest, in a fixed order.  Within an accumulator every step's
+//     small terms are issued first and then every step's A_hi B_hi
+//     (mma_steps), so that it truncates about once a step at its full
+//     size, not three times.
+//   * tf32 wgmma takes only K-major operands, with no transpose flag: a
+//     product that reduces over the keys (dQ = dS K) or over the q rows
+//     (dK, dV) would need its streamed tile a second time, transposed, as
+//     hi and lo images (at D = 256 one image of a 64-row tile is 64 KB).
+//     These three are formed transposed instead -- dQ^T = K^T dS^T, dV^T
+//     = dO^T P, dK^T = qs^T dS, M = 64 columns of D (rows past D zero
+//     below D = 64) -- so that their A operand comes from registers,
+//     loaded in any order from the streamed tile's own hi and lo images,
+//     and their B operand is the dS (P) tile, which the threads write as
+//     hi and lo images anyway.  Each staged tile is one pair of images.
+//   * The resident 64-row tile of a pass (qs and dO in the dq pass, K and
+//     V in the dk/dv pass) is the A operand of S and dP, read from
+//     registers (the RS form): raw f32 in a per-thread fragment order, one
+//     16-byte load a k8 step, split in registers (as hi and lo images it
+//     would take 256 KB at D = 256; split once below D = 256 measured no
+//     faster).  The streamed tile (K and V, or qs and dO) is the B
+//     operand: hi and lo images, loaded from device memory into registers
+//     while the tile before is formed, split and stored between tiles.
+//   * A CTA is two warpgroups, one product each: warpgroup 0 forms S (S^T
+//     in the dk/dv pass), warpgroup 1 dP (dP^T), each over all of D; each
+//     writes its result into the dS (P, dS^T) images, and all 256 threads
+//     form P and dS from them in place.  Then in the dq pass the two split
+//     dQ^T's columns of D (its q rows below D = 128); in the dk/dv pass
+//     warpgroup 0 forms dV^T and warpgroup 1 dK^T.
+//   * tf32x3_bwd_dq_kernel: a CTA per (64 query rows, q head, batch),
+//     heaviest first, over the KV tiles the forward visits, kTK keys a
+//     tile (16 at D = 256, where qs and dO take 128 KB, else 32).  It
+//     stores delta (summed in f64, rounded once) for the second pass.
+//   * tf32x3_bwd_dkdv_kernel: a CTA per (64 keys, KV head, batch), over
+//     the group's query heads and the q tiles that see its keys, kTQ rows a
+//     tile (16 at D = 256, 32 at D = 128, else 64); qs = q D^-0.5 is formed
+//     again as each tile is staged.
+// Shared memory at D = 256: 209.5 KB (dq), 225.1 KB (dk/dv); one CTA an
+// SM.  P and dS are split from the f32 values; tanh and exp are tanhf and
+// expf (the bf16 path's ex2 / rcp tanh errs by ~1e-5 of a logit at cap
+// 50).  Masks are evaluated per element only in tiles that straddle the
+// causal edge, the window start, kv_len[b] or Sq; a masked element's P is
+// selected to 0, so an all-masked row (lse -1e30) gets zero gradients.
+// On the H100 at chip_smoke.py's shapes every row is within ~4e-5 of its
+// scale of the plain version evaluated in f64, whose f32 evaluation is
+// itself up to ~1.1e-4 off it.
 //
-// What bounds it: operations.  Five products of 2 Sq Sk D per head over
-// the unmasked share (seven computed: S and dP are formed in both passes)
-// on the CUDA cores' 67 TFLOP/s f32 rate; the tensor cores (wgmma) are the
-// next step.
-namespace bw {
+// What bounds it: operations.  Five products of 2 Sq Sk D a head over the
+// unmasked pairs at 495 / 3 = 165 TFLOP/s; the passes compute seven (S and
+// dP in both), so 5/7 of the bound is this design's ceiling.  Within it:
+// at D = 256 the S and dP products are N = 16 wide (no wider KV or q tile
+// fits beside the 128 KB resident tile), which the tensor cores run far
+// below their rate; the warpgroups wait for their products before the
+// elementwise work; and every tile ends in barriers, with the tensor cores
+// idle while the next tile is split and staged.
+namespace tfb {
 
-constexpr int kRows = 64;       // query rows of a tile
-constexpr int kKeys = 32;       // keys of a tile: one per lane
-constexpr int kPad = kKeys + 1; // row stride of the transposed K, V tiles
-constexpr int kThreads = 256;   // 8 warps, 8 query rows each
+using tf::desc_k;
+using tf::opaque;
+using tf::split;
+using tf::tile_off;
+using tf::wgmma_wait;
+using wg::fence_proxy_async;
+using wg::fence_reg;
+using wg::smem_u32;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
 
+constexpr int kRows = 64;      // rows of the resident tile: one wgmma M
+constexpr int kThreads = 256;  // two warpgroups, one product each
+
+// columns of an image: rounded up to a 128-byte swizzle row
+constexpr int padded(int n) { return (n + 31) / 32 * 32; }
+
+// dq pass: qs and dO raw (64 x D each), the KV tile's hi and lo images
+// (kTK x D), the dS images (64 x kTK), each row's lse and delta
 template <int D>
-struct Cfg {
-  // floats: K^T and V^T, q and dO tiles, lse and delta of each row
-  static constexpr int kCommon = 2 * D * kPad + 2 * kRows * D + 2 * kRows;
-  static constexpr int kSmemDq = 4 * (kCommon + kRows * kPad);
-  static constexpr int kSmemDkdv = 4 * (kCommon + 2 * kRows * kPad);
-  static_assert(kSmemDq <= 232448 && kSmemDkdv <= 232448,
-                "shared memory over the opt-in limit");
+struct DqCfg {
+  static constexpr int kTK = D == 256 ? 16 : 32;  // keys of a KV tile
+  static constexpr int kSliceKs = 4;  // k8 steps of one S or dP accumulator
+  static constexpr int kRes = kRows * D * 4;
+  static constexpr int kImg = kTK * padded(D) * 4;
+  static constexpr int kXImg = kRows * padded(kTK) * 4;
+  static constexpr int kSmem =
+      1024 + 2 * kRes + 4 * kImg + 2 * kXImg + 2 * kRows * 4;
+  // transposed products in flight (dQ^T's chunks; one at D = 256, where
+  // two would take the registers of the next tile's loads)
+  static constexpr int kInflight = D == 256 ? 1 : 2;
 };
 
-// Accumulator c of a thread holds element e = lane + 32 c of its warp's
-// (rows x D) block: row e / D, column e % D.  From D = 32 up the lane moves
-// only the column, so the row is a constant once c is unrolled.
+// dk/dv pass: K and V raw (64 x D each), the q tile's qs and dO hi and lo
+// images (kTQ x D), the P^T and dS^T images (64 x kTQ), the tile rows' lse
+// and delta
 template <int D>
-__device__ __forceinline__ int e_row(int c, int lane) {
-  return D >= 32 ? 32 * c / D : (lane + 32 * c) / D;
+struct KvCfg {
+  static constexpr int kTQ = D == 256 ? 16 : (D == 128 ? 32 : 64);
+  // at D = 256 the dK^T and dV^T accumulators take 128 registers a thread
+  static constexpr int kSliceKs = D == 256 ? 2 : 4;
+  static constexpr int kRes = kRows * D * 4;
+  static constexpr int kImg = kTQ * padded(D) * 4;
+  static constexpr int kXImg = kRows * padded(kTQ) * 4;
+  static constexpr int kSmem =
+      1024 + 2 * kRes + 4 * kImg + 4 * kXImg + 2 * kTQ * 4;
+  // one transposed product in flight from D = 128, where the dK^T and
+  // dV^T accumulators take 64 and 128 registers a thread
+  static constexpr int kInflight = D >= 128 ? 1 : 2;
+};
+
+// d (+)= A B, m64nNk8, f32 += tf32 x tf32: A from registers (this thread's
+// fragment), B K-major in shared memory; scale_d = 0 ignores d's old value
+__device__ __forceinline__ void mma_n16(float* d, const uint32_t* a,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+
+__device__ __forceinline__ void mma_n32(float* d, const uint32_t* a,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_n64(float* d, const uint32_t* a,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t db,
+                                    int scale_d) {
+  if constexpr (N == 16) mma_n16(d, a, db, scale_d);
+  else if constexpr (N == 32) mma_n32(d, a, db, scale_d);
+  else mma_n64(d, a, db, scale_d);
+}
+
+// KS k8 steps into one fresh accumulator d: 3xTF32 (terms = 3) or one
+// TF32 product (terms = 1).  Every step's small terms A_lo B_hi + A_hi B_lo
+// are issued first, then every step's A_hi B_hi: the tensor cores
+// truncate each sum into d, so in this order d truncates about once a
+// step at its full size, not three times (a small term added after a
+// large one loses its low bits at the large one's scale).  ah[kk], al[kk]:
+// step kk's A fragment; its B descriptors are desc_k(b_hi / b_lo, rows,
+// ks0 + kk); steps at or past `valid` are skipped.
+template <int N, int KS>
+__device__ __forceinline__ void mma_steps(float* d, uint32_t (*ah)[4],
+                                          uint32_t (*al)[4], uint32_t b_hi,
+                                          uint32_t b_lo, int rows, int ks0,
+                                          int valid, int terms) {
+  if (terms == 3) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      if (kk < valid) {
+        mma<N>(d, al[kk], desc_k(b_hi, rows, ks0 + kk), kk > 0);
+        mma<N>(d, ah[kk], desc_k(b_lo, rows, ks0 + kk), 1);
+      }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    if (kk < valid)
+      mma<N>(d, ah[kk], desc_k(b_hi, rows, ks0 + kk), terms == 3 || kk > 0);
+}
+
+// x split into hi and lo, 16 bytes stored at each image
+__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo,
+                                            float4 x) {
+  uint4 h, l;
+  split(x.x, h.x, l.x), split(x.y, h.y, l.y);
+  split(x.z, h.z, l.z), split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi) = h;
+  *reinterpret_cast<uint4*>(lo) = l;
+}
+
+// The resident tile (64 rows x D) in fragment order: thread lt of a
+// warpgroup finds its A fragment of k8 step ks -- elements (16 (lt / 32) +
+// lt % 32 / 4 + 8 (j & 1), 8 ks + lt % 4 + 4 (j >> 1)), j = 0..3 -- as the
+// 16 bytes at (ks 128 + lt) 16, so one conflict-free load brings it.
+// Byte offset of element (m, k):
+__device__ __forceinline__ uint32_t frag_off(int m, int k) {
+  const int lt = 32 * (m / 16) + 4 * (m % 8) + k % 4;
+  const int j = (m / 8) % 2 + 2 * ((k % 8) / 4);
+  return ((k / 8) * 128 + lt) * 16 + j * 4;
+}
+
+// Columns 4 c4 .. 4 c4 + 3 of row r of the resident tile, x, into its
+// fragment-order image
+__device__ __forceinline__ void put_res(uint8_t* tile, int r, int c4,
+                                        float4 x) {
+  const float e[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    *reinterpret_cast<float*>(tile + frag_off(r, 4 * c4 + c)) = e[c];
+}
+
+// This thread's A fragment of k8 step kk of a transposed product over the
+// 64-column chunk of D from column c0: element j, (m, k) = (row0 + 8 (j &
+// 1), t + 4 (j >> 1)), is column c0 + m of row 8 kk + k of a streamed
+// tile's hi and lo images (KR rows), at tile_off's offset written out for
+// row0 = 16 warp + lane / 4 and t = lane % 4; columns past D are 0
+template <int D, int KR>
+__device__ __forceinline__ void frag_t(const uint8_t* hi_img,
+                                       const uint8_t* lo_img, int c0,
+                                       uint32_t warp, uint32_t lane, int kk,
+                                       uint32_t* hi, uint32_t* lo) {
+  const uint32_t t = lane % 4, s = lane / 4;
+  const uint32_t base = (c0 / 32 + warp / 2) * KR * 128 + 128 * t + 1024 * kk;
+  const uint32_t xa = 64 * (warp % 2) + 4 * s;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int jl = j & 1, jh = j >> 1;
+    if (D >= 64 || static_cast<int>(16 * warp + s) + 8 * jl < D) {
+      const uint32_t off =
+          base + 512 * jh + ((xa + 32 * jl) ^ (16 * t + 64 * jh));
+      hi[j] = *reinterpret_cast<const uint32_t*>(hi_img + off);
+      lo[j] = *reinterpret_cast<const uint32_t*>(lo_img + off);
+    } else {
+      hi[j] = lo[j] = 0u;
+    }
+  }
+}
+
+// x = A B^T over all of D: A the resident tile `a` (raw, fragment order,
+// split in registers), B the streamed tile's hi and lo images at shared
+// addresses sb_hi, sb_lo (N rows, K-major).  A
+// fresh accumulator per SK k8 steps (mma_steps' order), two in flight, the
+// partials added in f32 to nearest in order.  x[4 j + 2 half + c] is row
+// row0 + 8 half, column 8 j + 2 t + c.
+template <int D, int N, int SK>
+__device__ __forceinline__ void product_s(float* x, const uint8_t* a,
+                                          uint32_t sb_hi, uint32_t sb_lo,
+                                          int terms) {
+  constexpr int KS = D / 8;  // k8 steps over D
+  constexpr int NSL = (KS + SK - 1) / SK;  // accumulators
+  float part[2][N / 2];
+  uint32_t ah[2][SK][4], al[2][SK][4];
+  auto issue = [&](int sl, int slot) {
+    // opaque copies of the bases and the thread's offset: the addresses
+    // and descriptors are formed at each use, not hoisted out of the tile
+    // loop into registers
+    uint32_t bh0 = sb_hi, bl0 = sb_lo, lt = threadIdx.x % 128;
+    opaque(bh0), opaque(bl0), opaque(lt);
+#pragma unroll
+    for (int kk = 0; kk < SK; ++kk) {
+      const int ks = sl * SK + kk;
+      if (ks < KS) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + (ks * 128 + lt) * 16);
+        split(v.x, ah[slot][kk][0], al[slot][kk][0]);
+        split(v.y, ah[slot][kk][1], al[slot][kk][1]);
+        split(v.z, ah[slot][kk][2], al[slot][kk][2]);
+        split(v.w, ah[slot][kk][3], al[slot][kk][3]);
+      }
+    }
+    wgmma_fence();
+    mma_steps<N, SK>(part[slot], ah[slot], al[slot], bh0, bl0, N, sl * SK,
+                     KS - sl * SK, terms);
+    wgmma_commit();
+  };
+  auto add = [&](int sl, int slot) {
+#pragma unroll
+    for (int kk = 0; kk < SK; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fence_reg(ah[slot][kk][j]), fence_reg(al[slot][kk][j]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      fence_reg(part[slot][i]);
+      x[i] = sl == 0 ? part[slot][i] : __fadd_rn(x[i], part[slot][i]);
+    }
+  };
+#pragma unroll
+  for (int l = 0; l < NSL; ++l) {
+    issue(l, l & 1);
+    if (l > 0) {
+      wgmma_wait<1>();
+      add(l - 1, (l - 1) & 1);
+    }
+  }
+  wgmma_wait<0>();
+  add(NSL - 1, (NSL - 1) & 1);
+}
+
+// acc += A B for NC 64-row chunks of a transposed product, chunk c from
+// column c0 + 64 c of D: A[m][k] is column c0 + 64 c + m of row k of a
+// streamed tile's images (KR rows, frag_t), B the dS or P images at sb_hi,
+// sb_lo (64 rows, K-major, N read from there).  A fresh accumulator a
+// chunk (mma_steps' order), P in flight, each added to its chunk of acc in
+// f32 to nearest.
+template <int D, int KR, int N, int NC, int P>
+__device__ __forceinline__ void product_t(float* acc, const uint8_t* a_hi,
+                                          const uint8_t* a_lo, int c0,
+                                          uint32_t sb_hi, uint32_t sb_lo,
+                                          int terms) {
+  constexpr int KK = KR / 8;
+  float part[P][N / 2];
+  uint32_t ah[P][KK][4], al[P][KK][4];
+  auto issue = [&](int c, int slot) {
+    // opaque copies, as in product_s
+    uint32_t bh0 = sb_hi, bl0 = sb_lo, warp = threadIdx.x % 128 / 32,
+             lane = threadIdx.x % 32;
+    opaque(bh0), opaque(bl0), opaque(warp), opaque(lane);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      frag_t<D, KR>(a_hi, a_lo, c0 + 64 * c, warp, lane, kk, ah[slot][kk],
+                    al[slot][kk]);
+    wgmma_fence();
+    mma_steps<N, KK>(part[slot], ah[slot], al[slot], bh0, bl0, kRows, 0, KK,
+                     terms);
+    wgmma_commit();
+  };
+  auto add = [&](int c, int slot) {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        fence_reg(ah[slot][kk][j]), fence_reg(al[slot][kk][j]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      fence_reg(part[slot][i]);
+      acc[c * N / 2 + i] = __fadd_rn(acc[c * N / 2 + i], part[slot][i]);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    issue(c, c % P);
+    if (c >= P - 1) {
+      if constexpr (P == 2) wgmma_wait<1>();
+      else wgmma_wait<0>();
+      add(c - P + 1, (c - P + 1) % P);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = NC - P + 1; c < NC; ++c)
+    if (c >= 0) add(c, c % P);
+}
+
+// P = exp(S' - lse) and dS = P (dP - delta) (1 - (S' / cap)^2), S' =
+// cap tanh(S / cap) (S' = S without a softcap); p = 0 where !ok
+__device__ __forceinline__ void p_ds(float s, float dp, float l, float dl,
+                                     float cap, bool ok, float& p,
+                                     float& ds) {
+  float jac = 1.f;
+  if (cap > 0.f) {
+    const float th = tanhf(s / cap);
+    s = cap * th;
+    jac = 1.f - th * th;
+  }
+  p = ok ? expf(s - l) : 0.f;
+  ds = p * (dp - dl) * jac;
+}
+
+// One CTA per (64 query rows, q head, batch); see the note above.
+// terms = 3: 3xTF32; 1: one TF32 product (a control that must fail the
+// f32 checks).
 template <int D>
-__device__ __forceinline__ int e_col(int c, int lane) {
-  return D >= 32 ? 32 * c % D + lane : (lane + 32 * c) % D;
-}
+__global__ void __launch_bounds__(kThreads, 1)
+tf32x3_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ o,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dout,
+                     const int* __restrict__ kv_len,
+                     float* __restrict__ delta, float* __restrict__ dq,
+                     int hq, int group, int sq, int sk, int causal,
+                     int window, float cap, float scale, int terms) {
+  using C = DqCfg<D>;
+  constexpr int TK = C::kTK;
+  constexpr int kC4 = D / 4;  // float4s of a row
+  constexpr int kF = (TK * kC4 + kThreads - 1) / kThreads;  // staged a thread
+  // dQ^T of a warpgroup: NW chunks of 64 columns of D and NN q rows
+  constexpr int NW = D >= 128 ? D / 128 : 1;
+  constexpr int NN = D >= 128 ? kRows : kRows / 2;
+  static_assert(C::kSmem <= 232448, "shared memory over the opt-in limit");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* s_qs = base;              // raw qs (64 x D), fragment order
+  uint8_t* s_do = s_qs + C::kRes;    // raw dO
+  uint8_t* k_hi = s_do + C::kRes;    // the KV tile's images (TK x D)
+  uint8_t* k_lo = k_hi + C::kImg;
+  uint8_t* v_hi = k_lo + C::kImg;
+  uint8_t* v_lo = v_hi + C::kImg;
+  uint8_t* x_hi = v_lo + C::kImg;    // S, then dS's hi image (64 x TK)
+  uint8_t* x_lo = x_hi + C::kXImg;   // dP, then dS's lo image
+  float* s_lse = reinterpret_cast<float*>(x_lo + C::kXImg);
+  float* s_dl = s_lse + kRows;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-// x rounded to T and back: q * scale as the forward forms it
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// Rows r0 .. r0 + 63 of the (sq, D) slices at q_off: qs = q scale rounded
-// to T, dO, and each row's lse and delta (0 past sq)
-template <typename T, int D>
-__device__ void stage_rows(const T* __restrict__ q, const T* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta, int64_t q_off,
-                           int64_t row_off, int r0, int sq, float scale,
-                           float* sQ, float* sdO, float* sL, float* sDl) {
-  const int nq = min(kRows, sq - r0);
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D;
-    float qv = 0.f, dv = 0.f;
-    if (r < nq) {
-      const int64_t g = q_off + static_cast<int64_t>(r0) * D + i;
-      qv = round_to<T>(to_f(q[g]) * scale);
-      dv = to_f(dout[g]);
-    }
-    sQ[i] = qv;
-    sdO[i] = dv;
-  }
-  if (threadIdx.x < kRows) {
-    const int r = threadIdx.x;
-    sL[r] = r < nq ? lse[row_off + r0 + r] : 0.f;
-    if (delta != nullptr) sDl[r] = r < nq ? delta[row_off + r0 + r] : 0.f;
-  }
-}
-
-// Keys k0 .. k0 + 31 of the (sk, D) slices at kv_off, transposed (D x
-// kPad); keys past sk are 0
-template <typename T, int D>
-__device__ void stage_kv(const T* __restrict__ k, const T* __restrict__ v,
-                         int64_t kv_off, int k0, int sk, float* sKt,
-                         float* sVt) {
-  for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
-    const int j = i / D, c = i % D;
-    const bool in = k0 + j < sk;
-    const int64_t g = kv_off + static_cast<int64_t>(k0 + j) * D + c;
-    sKt[c * kPad + j] = in ? to_f(k[g]) : 0.f;
-    sVt[c * kPad + j] = in ? to_f(v[g]) : 0.f;
-  }
-}
-
-// The tile's dS (and P) for this thread's key (lane) and the warp's 8
-// rows: S = qs K^T and dP = dO V^T over D, then softcap, mask, P, dS.
-// Row r of the tile sits at absolute position q_pos0 + r; rows at or past
-// nq are masked.
-template <int D>
-__device__ __forceinline__ void tile_ds(const float* sQ, const float* sdO,
-                                        const float* sKt, const float* sVt,
-                                        const float* sL, const float* sDl,
-                                        int k0, int q_pos0, int nq, int len,
-                                        int sk, int causal, int window,
-                                        float cap, float* ds, float* p) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float s[8], dp[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) s[r] = dp[r] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; c += 4) {
-    float kt[4], vt[4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      kt[x] = sKt[(c + x) * kPad + lane];
-      vt[x] = sVt[(c + x) * kPad + lane];
-    }
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const float4 q4 =
-          *reinterpret_cast<const float4*>(sQ + (8 * warp + r) * D + c);
-      const float4 d4 =
-          *reinterpret_cast<const float4*>(sdO + (8 * warp + r) * D + c);
-      s[r] = fmaf(q4.x, kt[0], s[r]);
-      s[r] = fmaf(q4.y, kt[1], s[r]);
-      s[r] = fmaf(q4.z, kt[2], s[r]);
-      s[r] = fmaf(q4.w, kt[3], s[r]);
-      dp[r] = fmaf(d4.x, vt[0], dp[r]);
-      dp[r] = fmaf(d4.y, vt[1], dp[r]);
-      dp[r] = fmaf(d4.z, vt[2], dp[r]);
-      dp[r] = fmaf(d4.w, vt[3], dp[r]);
-    }
-  }
-  const int kpos = k0 + lane;
-  const float inv_cap = cap > 0.f ? 1.f / cap : 0.f;
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = 8 * warp + r;
-    const int qpos = q_pos0 + row;
-    const bool ok = row < nq && kpos < len && kpos < sk &&
-                    (!causal || kpos <= qpos) &&
-                    (window <= 0 || kpos > qpos - window);
-    float x = s[r], jac = 1.f;
-    if (cap > 0.f) {
-      const float th = tanhf(x * inv_cap);
-      x = cap * th;
-      jac = 1.f - th * th;
-    }
-    const float pr = ok ? expf(x - sL[row]) : 0.f;
-    ds[r] = pr * (dp[r] - sDl[row]) * jac;
-    p[r] = pr;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 2)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ o,
-              const float* __restrict__ lse, const T* __restrict__ dout,
-              const int* __restrict__ kv_len, float* __restrict__ delta,
-              T* __restrict__ dq, int hq, int group, int sq, int sk,
-              int causal, int window, float cap, float scale) {
-  constexpr int kPer = D / 4;  // dq accumulators a thread: 8 rows x D / 32
-  extern __shared__ float4 smem_f4[];
-  float* sQ = reinterpret_cast<float*>(smem_f4);
-  float* sdO = sQ + kRows * D;
-  float* sKt = sdO + kRows * D;
-  float* sVt = sKt + D * kPad;
-  float* sL = sVt + D * kPad;
-  float* sDl = sL + kRows;
-  float* sdS = sDl + kRows;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // 0: S, 1: dP
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int t4 = lane % 4, cb = 2 * t4;   // and columns cb, cb + 1 of each 8
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hkv = hq / group;
   const int nq = min(kRows, sq - q0);
   const int len = kv_len[b];
-  const int q_lo = len - sq + q0;  // absolute position of the tile's row 0
+  const int q_pos = len - sq + q0;  // absolute position of the tile's row 0
   const int64_t row_off = (static_cast<int64_t>(b) * hq + h) * sq;
-  const int64_t q_off = row_off * D;
   const int64_t kv_off = (static_cast<int64_t>(b) * hkv + h / group) * sk * D;
-
-  stage_rows<T, D>(q, dout, lse, nullptr, q_off, row_off, q0, sq, scale, sQ,
-                   sdO, sL, sDl);
-  // delta = rowsum(dO O) in f32: warp w sums rows 8w .. 8w + 7
-  for (int r = 8 * warp; r < 8 * warp + 8; ++r) {
-    float acc = 0.f;
-    if (r < nq) {
-      const int64_t g = q_off + static_cast<int64_t>(q0 + r) * D;
-      for (int c = lane; c < D; c += 32)
-        acc = fmaf(to_f(dout[g + c]), to_f(o[g + c]), acc);
-    }
-#pragma unroll
-    for (int m = 16; m > 0; m /= 2)
-      acc += __shfl_xor_sync(0xffffffffu, acc, m);
-    if (lane == 0) {
-      sDl[r] = acc;
-      if (r < nq) delta[row_off + q0 + r] = acc;
-    }
-  }
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
 
   // the KV tiles the forward visits for these rows
   int k_end = min(len, sk);
-  if (causal) k_end = min(k_end, q_lo + nq);
-  int k_beg = window > 0 ? max(0, q_lo - window + 1) : 0;
-  k_beg -= k_beg % kKeys;
-  const int ntiles = k_end > k_beg ? (k_end - k_beg + kKeys - 1) / kKeys : 0;
+  if (causal) k_end = min(k_end, q_pos + nq);
+  int k_beg = window > 0 ? max(0, q_pos - window + 1) : 0;
+  k_beg -= k_beg % TK;
+  const int ntiles = k_end > k_beg ? (k_end - k_beg + TK - 1) / TK : 0;
 
-  float acc[kPer];
+  // qs = q D^-0.5 in f32 and dO (0 past Sq), and delta = rowsum(dO O) of
+  // the f32 values, summed in f64 and rounded once: the kL lanes of a row
+  // are neighbours, each adding its kPer float4s' products in order, then a
+  // butterfly over them
+  constexpr int kL = kC4 < 32 ? kC4 : 32;
+  constexpr int kPer = kC4 / kL;
+  for (int i = tid; i < kRows * kL; i += kThreads) {
+    const int r = i / kL, l = i % kL;
+    double part = 0.0;
 #pragma unroll
-  for (int c = 0; c < kPer; ++c) acc[c] = 0.f;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = k_beg + t * kKeys;
-    __syncthreads();  // every warp is done with the last tile (and staging)
-    stage_kv<T, D>(k, v, kv_off, k0, sk, sKt, sVt);
-    __syncthreads();
-    float ds[8], p[8];
-    tile_ds<D>(sQ, sdO, sKt, sVt, sL, sDl, k0, q_lo, nq, len, sk, causal,
-               window, cap, ds, p);
+    for (int e = 0; e < kPer; ++e) {
+      const int c4 = l + kL * e;
+      float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), dv = qv;
+      if (r < nq) {
+        const int64_t g = (row_off + q0 + r) * D + 4 * c4;
+        qv = __ldg(reinterpret_cast<const float4*>(q + g));
+        qv.x *= scale, qv.y *= scale, qv.z *= scale, qv.w *= scale;
+        dv = __ldg(reinterpret_cast<const float4*>(dout + g));
+        const float4 ov = __ldg(reinterpret_cast<const float4*>(o + g));
+        const double d4[4] = {dv.x, dv.y, dv.z, dv.w};
+        const double o4[4] = {ov.x, ov.y, ov.z, ov.w};
 #pragma unroll
-    for (int r = 0; r < 8; ++r) sdS[(8 * warp + r) * kPad + lane] = ds[r];
-    __syncwarp();  // the warp's own rows of dS
-    // dq += dS K over the warp's rows
-#pragma unroll 2
-    for (int j = 0; j < kKeys; ++j) {
+        for (int c = 0; c < 4; ++c) part = __fma_rn(d4[c], o4[c], part);
+      }
+      put_res(s_qs, r, c4, qv);
+      put_res(s_do, r, c4, dv);
+    }
 #pragma unroll
-      for (int c = 0; c < kPer; ++c)
-        acc[c] = fmaf(sdS[(8 * warp + e_row<D>(c, lane)) * kPad + j],
-                      sKt[e_col<D>(c, lane) * kPad + j], acc[c]);
+    for (int m = 1; m < kL; m *= 2)
+      part += __shfl_xor_sync(0xffffffffu, part, m);
+    if (l == 0) {
+      s_dl[r] = static_cast<float>(part);
+      if (r < nq) delta[row_off + q0 + r] = static_cast<float>(part);
     }
   }
+  // lse 0 past Sq: those rows have qs = dO = 0, so dS = 0, and are not
+  // stored
+  if (tid < kRows) s_lse[tid] = tid < nq ? lse[row_off + q0 + tid] : 0.f;
+
+  // KV tile `tile` into registers (keys past Sk 0), then split into the
+  // images once the last tile's products are done
+  float4 fk[kF], fv[kF];
+  auto fetch = [&](int tile) {
+    const int k0 = k_beg + tile * TK;
 #pragma unroll
-  for (int c = 0; c < kPer; ++c) {
-    const int r = 8 * warp + e_row<D>(c, lane);
-    if (r < nq)
-      dq[q_off + static_cast<int64_t>(q0 + r) * D + e_col<D>(c, lane)] =
-          from_f<T>(acc[c] * scale);
+    for (int e = 0; e < kF; ++e) {
+      const int i = tid + kThreads * e, j = i / kC4, c4 = i % kC4;
+      fk[e] = fv[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < TK * kC4 && k0 + j < sk) {
+        const int64_t g = static_cast<int64_t>(k0 + j) * D + 4 * c4;
+        fk[e] = __ldg(reinterpret_cast<const float4*>(kb + g));
+        fv[e] = __ldg(reinterpret_cast<const float4*>(vb + g));
+      }
+    }
+  };
+  auto stage = [&]() {
+    uint32_t z = 0;
+    opaque(z);
+#pragma unroll
+    for (int e = 0; e < kF; ++e) {
+      const int i = tid + kThreads * e;
+      if (i < TK * kC4) {
+        const uint32_t off = z + tile_off(i / kC4, 4 * (i % kC4), TK);
+        store_split(k_hi + off, k_lo + off, fk[e]);
+        store_split(v_hi + off, v_lo + off, fv[e]);
+      }
+    }
+  };
+
+  // dQ^T / scale: chunk c, element 4 j + 2 half + cc is column d0 + 64 c +
+  // row0 + 8 half of D, q row n0 + 8 j + cb + cc
+  float acc[NW * NN / 2];
+#pragma unroll
+  for (int i = 0; i < NW * NN / 2; ++i) acc[i] = 0.f;
+  const int d0 = D >= 128 ? wgi * NW * 64 : 0;
+  const int n0 = D >= 128 ? 0 : wgi * NN;
+  // S = qs K^T (warpgroup 0) or dP = dO V^T (warpgroup 1), and where it goes
+  const uint8_t* a_res = wgi ? s_do : s_qs;
+  const uint32_t b_hi = smem_u32(wgi ? v_hi : k_hi);
+  const uint32_t b_lo = smem_u32(wgi ? v_lo : k_lo);
+  uint8_t* x_out = wgi ? x_lo : x_hi;
+  const uint32_t sx_hi = smem_u32(x_hi) + n0 * 128;
+  const uint32_t sx_lo = smem_u32(x_lo) + n0 * 128;
+
+  if (ntiles > 0) {
+    fetch(0);
+    stage();
   }
+  fence_proxy_async();  // this thread's smem writes -> wgmma's proxy
+  __syncthreads();
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = k_beg + t * TK;
+
+    if (t + 1 < ntiles) fetch(t + 1);  // in flight while this tile runs
+    float x[TK / 2];
+    product_s<D, TK, C::kSliceKs>(x, a_res, b_hi, b_lo, terms);
+    uint32_t z = 0;  // an opaque 0: the addresses are formed here
+    opaque(z);
+#pragma unroll
+    for (int j = 0; j < TK / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(
+            x_out + z + tile_off(row0 + 8 * half, 8 * j + cb, kRows)) =
+            make_float2(x[4 * j + 2 * half], x[4 * j + 2 * half + 1]);
+    __syncthreads();  // S and dP of every row
+
+    // P and dS in place, 4 keys a step: dS's hi and lo images
+    const bool whole = k0 + TK <= min(len, sk) &&
+                       (!causal || k0 + TK - 1 <= q_pos) &&
+                       (window <= 0 || k0 > q_pos + kRows - 1 - window);
+#pragma unroll
+    for (int e = 0; e < kRows * TK / 4 / kThreads; ++e) {
+      const int i = tid + kThreads * e, r = i / (TK / 4), c4 = i % (TK / 4);
+      const uint32_t off = z + tile_off(r, 4 * c4, kRows);
+      const float4 s4 = *reinterpret_cast<const float4*>(x_hi + off);
+      const float4 d4 = *reinterpret_cast<const float4*>(x_lo + off);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float dpv[4] = {d4.x, d4.y, d4.z, d4.w};
+      const int qpos = q_pos + r;
+      float p, ds[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + 4 * c4 + c;
+        const bool ok = whole || (r < nq && kpos < len && kpos < sk &&
+                                  (!causal || kpos <= qpos) &&
+                                  (window <= 0 || kpos > qpos - window));
+        p_ds(sv[c], dpv[c], s_lse[r], s_dl[r], cap, ok, p, ds[c]);
+      }
+      store_split(x_hi + off, x_lo + off,
+                  make_float4(ds[0], ds[1], ds[2], ds[3]));
+    }
+    fence_proxy_async();
+    __syncthreads();  // dS's images of every row
+
+    // dQ^T += K^T dS^T
+    product_t<D, TK, NN, NW, C::kInflight>(acc, k_hi, k_lo, d0, sx_hi, sx_lo,
+                                           terms);
+    __syncthreads();  // every warp is done with this tile's images
+    if (t + 1 < ntiles) {
+      stage();
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+
+  float* dqb = dq + row_off * D;
+#pragma unroll
+  for (int c = 0; c < NW; ++c)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = d0 + 64 * c + row0 + 8 * half;
+      if (D < 64 && d >= D) continue;
+#pragma unroll
+      for (int j = 0; j < NN / 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int r = n0 + 8 * j + cb + cc;
+          if (r < nq)
+            dqb[static_cast<int64_t>(q0 + r) * D + d] =
+                acc[c * NN / 2 + 4 * j + 2 * half + cc] * scale;
+        }
+    }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D == 256 ? 1 : 2)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ lse,
-                const T* __restrict__ dout, const int* __restrict__ kv_len,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int hq, int group, int sq, int sk,
-                int causal, int window, float cap, float scale) {
-  constexpr int kPer = D / 8;  // dk (and dv) accumulators: 4 keys x D / 32
-  extern __shared__ float4 smem_f4[];
-  float* sQ = reinterpret_cast<float*>(smem_f4);
-  float* sdO = sQ + kRows * D;
-  float* sKt = sdO + kRows * D;
-  float* sVt = sKt + D * kPad;
-  float* sL = sVt + D * kPad;
-  float* sDl = sL + kRows;
-  float* sdS = sDl + kRows;
-  float* sP = sdS + kRows * kPad;
+// One CTA per (64 keys, KV head, batch); see the note above.  terms as in
+// tf32x3_bwd_dq_kernel.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+tf32x3_bwd_dkdv_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dout,
+                       const int* __restrict__ kv_len,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int hq, int group, int sq, int sk, int causal,
+                       int window, float cap, float scale, int terms) {
+  using C = KvCfg<D>;
+  constexpr int TQ = C::kTQ;
+  constexpr int kC4 = D / 4;
+  constexpr int kF = (TQ * kC4 + kThreads - 1) / kThreads;
+  constexpr int NC = D >= 64 ? D / 64 : 1;  // 64-column chunks of dK^T, dV^T
+  static_assert(C::kSmem <= 232448, "shared memory over the opt-in limit");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* s_k = base;              // raw K (64 keys x D), fragment order
+  uint8_t* s_v = s_k + C::kRes;     // raw V
+  uint8_t* qs_hi = s_v + C::kRes;   // the q tile's images (TQ x D)
+  uint8_t* qs_lo = qs_hi + C::kImg;
+  uint8_t* do_hi = qs_lo + C::kImg;
+  uint8_t* do_lo = do_hi + C::kImg;
+  uint8_t* p_hi = do_lo + C::kImg;  // S^T, then P^T's hi image (64 x TQ)
+  uint8_t* p_lo = p_hi + C::kXImg;
+  uint8_t* g_hi = p_lo + C::kXImg;  // dP^T, then dS^T's hi image
+  uint8_t* g_lo = g_hi + C::kXImg;
+  float* s_ld = reinterpret_cast<float*>(g_lo + C::kXImg);  // lse, delta
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * kKeys;
+  const int tid = threadIdx.x;
+  const int wgi = tid / 128;  // 0: S^T and dV^T, 1: dP^T and dK^T
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int row0 = 16 * warp + lane / 4;  // this thread's keys: row0, row0 + 8
+  const int t4 = lane % 4, cb = 2 * t4;   // and columns cb, cb + 1 of each 8
+  const int k0 = blockIdx.x * kRows;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int hkv = hq / group;
   const int len = kv_len[b];
@@ -1486,120 +1859,222 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // key kpos iff kpos <= qpos (causal) and kpos > qpos - window
   int i_lo = 0, i_hi = -1;
   if (k0 < k_valid) {
-    const int k_last = min(k0 + kKeys, k_valid) - 1;
+    const int k_last = min(k0 + kRows, k_valid) - 1;
     i_lo = causal ? max(0, k0 - (len - sq)) : 0;
     i_hi = window > 0 ? min(sq - 1, k_last + window - 1 - (len - sq))
                       : sq - 1;
   }
-  const int t_lo = i_lo / kRows, t_hi = i_hi < i_lo ? -1 : i_hi / kRows;
+  const int t_lo = i_lo / TQ;
+  const int ntq = i_hi < i_lo ? 0 : i_hi / TQ - t_lo + 1;
+  const int nitems = group * ntq;  // (query head, q tile) pairs
 
-  stage_kv<T, D>(k, v, kv_off, k0, sk, sKt, sVt);
-  float acc_k[kPer], acc_v[kPer];
-#pragma unroll
-  for (int c = 0; c < kPer; ++c) acc_k[c] = acc_v[c] = 0.f;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
+  // K and V (keys past Sk 0)
+  for (int i = tid; i < kRows * kC4; i += kThreads) {
+    const int r = i / kC4, c4 = i % kC4;
+    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+    if (k0 + r < sk) {
+      const int64_t g = kv_off + static_cast<int64_t>(k0 + r) * D + 4 * c4;
+      kx = __ldg(reinterpret_cast<const float4*>(k + g));
+      vx = __ldg(reinterpret_cast<const float4*>(v + g));
+    }
+    put_res(s_k, r, c4, kx);
+    put_res(s_v, r, c4, vx);
+  }
+
+  // item's q tile into registers -- qs = q D^-0.5 in f32 and dO, 0 past
+  // Sq, and the rows' lse (threads 0 .. TQ - 1) and delta (TQ .. 2 TQ - 1),
+  // 0 past Sq -- then split into the images once the last item is done
+  float4 fq[kF], fo[kF];
+  float fl = 0.f;
+  auto fetch = [&](int item) {
+    const int h = hk * group + item / ntq;
+    const int qq0 = (t_lo + item % ntq) * TQ;
     const int64_t row_off = (static_cast<int64_t>(b) * hq + h) * sq;
-    for (int t = t_lo; t <= t_hi; ++t) {
-      const int q0 = t * kRows;
-      __syncthreads();  // every warp is done with the last q tile
-      stage_rows<T, D>(q, dout, lse, delta, row_off * D, row_off, q0, sq,
-                       scale, sQ, sdO, sL, sDl);
-      __syncthreads();
-      float ds[8], p[8];
-      tile_ds<D>(sQ, sdO, sKt, sVt, sL, sDl, k0, len - sq + q0,
-                 min(kRows, sq - q0), len, sk, causal, window, cap, ds, p);
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        sdS[(8 * warp + r) * kPad + lane] = ds[r];
-        sP[(8 * warp + r) * kPad + lane] = p[r];
+    for (int e = 0; e < kF; ++e) {
+      const int i = tid + kThreads * e, j = i / kC4, c4 = i % kC4;
+      fq[e] = fo[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < TQ * kC4 && qq0 + j < sq) {
+        const int64_t g = (row_off + qq0 + j) * D + 4 * c4;
+        fq[e] = __ldg(reinterpret_cast<const float4*>(q + g));
+        fq[e].x *= scale, fq[e].y *= scale, fq[e].z *= scale,
+            fq[e].w *= scale;
+        fo[e] = __ldg(reinterpret_cast<const float4*>(dout + g));
       }
-      __syncthreads();
-      // dk += dS^T qs, dv += P^T dO over the warp's 4 keys
-#pragma unroll 2
-      for (int i = 0; i < kRows; ++i) {
+    }
+    const int r = tid % TQ;
+    fl = 0.f;
+    if (tid < 2 * TQ && qq0 + r < sq)
+      fl = (tid < TQ ? lse : delta)[row_off + qq0 + r];
+  };
+  auto stage = [&]() {
+    uint32_t z = 0;
+    opaque(z);
 #pragma unroll
-        for (int c = 0; c < kPer; ++c) {
-          const int j = 4 * warp + e_row<D>(c, lane), col = e_col<D>(c, lane);
-          acc_k[c] = fmaf(sdS[i * kPad + j], sQ[i * D + col], acc_k[c]);
-          acc_v[c] = fmaf(sP[i * kPad + j], sdO[i * D + col], acc_v[c]);
+    for (int e = 0; e < kF; ++e) {
+      const int i = tid + kThreads * e;
+      if (i < TQ * kC4) {
+        const uint32_t off = z + tile_off(i / kC4, 4 * (i % kC4), TQ);
+        store_split(qs_hi + off, qs_lo + off, fq[e]);
+        store_split(do_hi + off, do_lo + off, fo[e]);
+      }
+    }
+    if (tid < 2 * TQ) s_ld[tid] = fl;
+  };
+
+  // warpgroup 0: dV^T, 1: dK^T; chunk c, element 4 j + 2 half + cc is
+  // column 64 c + row0 + 8 half of D, key 8 j + cb + cc
+  float acc[NC * kRows / 2];
+#pragma unroll
+  for (int i = 0; i < NC * kRows / 2; ++i) acc[i] = 0.f;
+  // S^T = K qs^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), and where
+  // it goes
+  const uint8_t* a_res = wgi ? s_v : s_k;
+  const uint32_t b_hi = smem_u32(wgi ? do_hi : qs_hi);
+  const uint32_t b_lo = smem_u32(wgi ? do_lo : qs_lo);
+  uint8_t* x_out = wgi ? g_hi : p_hi;
+  // dV^T = dO^T P (warpgroup 0) or dK^T = qs^T dS (warpgroup 1)
+  const uint8_t* ta_hi = wgi ? qs_hi : do_hi;
+  const uint8_t* ta_lo = wgi ? qs_lo : do_lo;
+  const uint32_t tb_hi = smem_u32(wgi ? g_hi : p_hi);
+  const uint32_t tb_lo = smem_u32(wgi ? g_lo : p_lo);
+
+  if (nitems > 0) {
+    fetch(0);
+    stage();
+  }
+  fence_proxy_async();  // this thread's smem writes -> wgmma's proxy
+  __syncthreads();
+
+  for (int it = 0; it < nitems; ++it) {
+    const int qq0 = (t_lo + it % ntq) * TQ;
+    const int q_pos = len - sq + qq0;  // absolute position of row 0
+    float x[TQ / 2];
+    product_s<D, TQ, C::kSliceKs>(x, a_res, b_hi, b_lo, terms);
+    uint32_t z = 0;  // an opaque 0: the addresses are formed here
+    opaque(z);
+#pragma unroll
+    for (int j = 0; j < TQ / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(
+            x_out + z + tile_off(row0 + 8 * half, 8 * j + cb, kRows)) =
+            make_float2(x[4 * j + 2 * half], x[4 * j + 2 * half + 1]);
+    __syncthreads();  // S^T and dP^T of every key
+
+    // P^T and dS^T in place, 4 q rows a step: their hi and lo images
+    const bool whole = k0 + kRows <= k_valid && qq0 + TQ <= sq &&
+                       (!causal || k0 + kRows - 1 <= q_pos) &&
+                       (window <= 0 || k0 > q_pos + TQ - 1 - window);
+#pragma unroll
+    for (int e = 0; e < kRows * TQ / 4 / kThreads; ++e) {
+      const int i = tid + kThreads * e, r = i / (TQ / 4), c4 = i % (TQ / 4);
+      const uint32_t off = z + tile_off(r, 4 * c4, kRows);
+      const float4 s4 = *reinterpret_cast<const float4*>(p_hi + off);
+      const float4 d4 = *reinterpret_cast<const float4*>(g_hi + off);
+      const float4 l4 = *reinterpret_cast<const float4*>(s_ld + 4 * c4);
+      const float4 dl4 = *reinterpret_cast<const float4*>(s_ld + TQ + 4 * c4);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float dpv[4] = {d4.x, d4.y, d4.z, d4.w};
+      const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+      const float dlv[4] = {dl4.x, dl4.y, dl4.z, dl4.w};
+      const int kpos = k0 + r;
+      float p[4], ds[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = 4 * c4 + c, qpos = q_pos + qi;
+        const bool ok = whole || (kpos < k_valid && qq0 + qi < sq &&
+                                  (!causal || kpos <= qpos) &&
+                                  (window <= 0 || kpos > qpos - window));
+        p_ds(sv[c], dpv[c], lv[c], dlv[c], cap, ok, p[c], ds[c]);
+      }
+      store_split(p_hi + off, p_lo + off, make_float4(p[0], p[1], p[2], p[3]));
+      store_split(g_hi + off, g_lo + off,
+                  make_float4(ds[0], ds[1], ds[2], ds[3]));
+    }
+    fence_proxy_async();
+    __syncthreads();  // P^T's and dS^T's images of every key
+
+    // the next item's loads are in flight while this one's transposed
+    // products run (not earlier: at D = 256 the dK^T and dV^T accumulators
+    // leave no registers for them beside S^T's, dP^T's and dS's)
+    if (it + 1 < nitems) fetch(it + 1);
+    // dV^T += dO^T P or dK^T += qs^T dS
+    product_t<D, TQ, kRows, NC, C::kInflight>(acc, ta_hi, ta_lo, 0, tb_hi,
+                                              tb_lo, terms);
+    __syncthreads();  // every warp is done with this item's images
+    if (it + 1 < nitems) {
+      stage();
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+
+  float* dst = wgi ? dk : dv;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d = 64 * c + row0 + 8 * half;
+      if (D < 64 && d >= D) continue;
+#pragma unroll
+      for (int j = 0; j < kRows / 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int key = k0 + 8 * j + cb + cc;
+          if (key < sk)
+            dst[kv_off + static_cast<int64_t>(key) * D + d] =
+                acc[c * kRows / 2 + 4 * j + 2 * half + cc];
         }
-      }
     }
-  }
-#pragma unroll
-  for (int c = 0; c < kPer; ++c) {
-    const int j = 4 * warp + e_row<D>(c, lane);
-    if (k0 + j < sk) {
-      const int64_t g = kv_off + static_cast<int64_t>(k0 + j) * D +
-                        e_col<D>(c, lane);
-      dk[g] = from_f<T>(acc_k[c]);
-      dv[g] = from_f<T>(acc_v[c]);
-    }
-  }
 }
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* o,
-              const float* lse, const void* dout, const int* kv_len,
-              float* delta, void* dq, int b, int hq, int hkv, int sq, int sk,
-              int causal, int window, float cap, float scale,
-              cudaStream_t stream) {
-  auto kernel = bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmemDq);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kRows - 1) / kRows, hq, b);
-  kernel<<<grid, kThreads, Cfg<D>::kSmemDq, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o), lse,
-      static_cast<const T*>(dout), kv_len, delta, static_cast<T*>(dq), hq,
-      hq / hkv, sq, sk, causal, window, cap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int D>
-int launch_dkdv(const void* q, const void* k, const void* v,
-                const float* lse, const void* dout, const int* kv_len,
-                const float* delta, void* dk, void* dv, int b, int hq,
-                int hkv, int sq, int sk, int causal, int window, float cap,
-                float scale, cudaStream_t stream) {
-  auto kernel = bwd_dkdv_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<D>::kSmemDkdv);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sk + kKeys - 1) / kKeys, hkv, b);
-  kernel<<<grid, kThreads, Cfg<D>::kSmemDkdv, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lse, static_cast<const T*>(dout), kv_len,
-      delta, static_cast<T*>(dk), static_cast<T*>(dv), hq, hq / hkv, sq, sk,
-      causal, window, cap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// pass 0: dq (and delta); pass 1: dk, dv
-template <typename T, int D>
+// pass 0: dq and delta; pass 1: dk and dv
+template <int D>
 int launch_pass(int pass, const void* q, const void* k, const void* v,
                 const void* o, const float* lse, const void* dout,
-                const int* kv_len, float* delta, void* dq, void* dk, void* dv,
-                int b, int hq, int hkv, int sq, int sk, int causal,
-                int window, float cap, float scale, cudaStream_t stream) {
-  if (pass == 0)
-    return launch_dq<T, D>(q, k, v, o, lse, dout, kv_len, delta, dq, b, hq,
-                           hkv, sq, sk, causal, window, cap, scale, stream);
-  return launch_dkdv<T, D>(q, k, v, lse, dout, kv_len, delta, dk, dv, b, hq,
-                           hkv, sq, sk, causal, window, cap, scale, stream);
+                const int* kv_len, float* delta, void* dq, void* dk,
+                void* dv, int b, int hq, int hkv, int sq, int sk, int causal,
+                int window, float cap, float scale, int terms,
+                cudaStream_t stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* df = static_cast<const float*>(dout);
+  if (pass == 0) {
+    constexpr int smem = DqCfg<D>::kSmem;
+    auto kernel = tf32x3_bwd_dq_kernel<D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((sq + kRows - 1) / kRows, hq, b);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        qf, kf, vf, static_cast<const float*>(o), lse, df, kv_len, delta,
+        static_cast<float*>(dq), hq, hq / hkv, sq, sk, causal, window, cap,
+        scale, terms);
+  } else {
+    constexpr int smem = KvCfg<D>::kSmem;
+    auto kernel = tf32x3_bwd_dkdv_kernel<D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((sk + kRows - 1) / kRows, hkv, b);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        qf, kf, vf, lse, df, kv_len, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), hq, hq / hkv, sq, sk, causal, window, cap,
+        scale, terms);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace bw
+}  // namespace tfb
 
 // ---------------------------------------------------------------------------
 // Backward, bf16: two passes on the tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 //
-// Replaces, for bf16 inputs, bw::'s FMA kernels above (which keep the f32
-// path); like them it replaces no TPU kernel.  Same function, same two
+// The bf16 instance of K5's backward; like tfb:: above (the f32 one) it
+// replaces no TPU kernel.  Same function, same two
 // passes and no atomics (two launches are equal bit for bit), every
 // product a wgmma.mma_async m64nNk16 .f32.bf16.bf16:
 //   * wgmma_bwd_dq_kernel: a warpgroup owns 64 query rows of one head (the
@@ -2266,15 +2741,18 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
   }
 }
 
-// The backward at head dim d: bf16 on the tensor cores (wgb::), f32 on
-// the CUDA cores (bw::); pass 0 writes dq and delta, pass 1 dk and dv
+// The backward at head dim d, both dtypes on the tensor cores: bf16
+// wgb::, f32 tfb:: (3xTF32, or one TF32 product with terms = 1); pass 0
+// writes dq and delta, pass 1 dk and dv
 int bwd_run(int pass, const void* q, const void* k, const void* v,
             const void* o, const float* lse, const void* dout,
             const int* kv_len, float* delta, void* qs, void* dq, void* dk,
-            void* dv,
-            int b, int hq, int hkv, int sq, int sk, int d, int causal,
-            int window, float cap, float scale, int bf16, void* stream) {
+            void* dv, int b, int hq, int hkv, int sq, int sk, int d,
+            int causal, int window, float cap, float scale, int bf16,
+            int terms, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  if (terms != 3 && (bf16 || terms != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
 #define REPRO_FLASH_BWD_D(DV)                                               \
   case DV:                                                                  \
@@ -2282,10 +2760,10 @@ int bwd_run(int pass, const void* q, const void* k, const void* v,
                                        delta, qs, dq, dk, dv, b, hq, hkv,   \
                                        sq, sk, causal, window, cap, scale,  \
                                        st)                                  \
-                : bw::launch_pass<float, DV>(                               \
-                      pass, q, k, v, o, lse, dout, kv_len, delta, dq, dk,   \
-                      dv, b, hq, hkv, sq, sk, causal, window, cap, scale,   \
-                      st);
+                : tfb::launch_pass<DV>(pass, q, k, v, o, lse, dout,       \
+                                       kv_len, delta, dq, dk, dv, b, hq,    \
+                                       hkv, sq, sk, causal, window, cap,    \
+                                       scale, terms, st);
     REPRO_FLASH_BWD_D(16)
     REPRO_FLASH_BWD_D(32)
     REPRO_FLASH_BWD_D(64)
@@ -2330,7 +2808,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // contiguous and 16-byte aligned; lse and delta (b, hq, sq) f32; kv_len
 // (b,) int32; qs: bf16 only, (b, hq, sq, d) bf16 scratch (null for f32).
 // bf16 runs wgmma_bwd_dq_kernel and wgmma_bwd_dkdv_kernel, f32
-// bwd_dq_kernel and bwd_dkdv_kernel.  flash_attention_bwd_dq writes dq,
+// tf32x3_bwd_dq_kernel and tf32x3_bwd_dkdv_kernel with terms = 3 (3xTF32)
+// or 1 (one TF32 product: a control that must fail the f32 checks; bf16
+// takes 3 only).  flash_attention_bwd_dq writes dq,
 // delta (rowsum(dout o)) and, in bf16, qs (q * d^-0.5 rounded to bf16);
 // flash_attention_bwd_dkdv reads delta (and qs) and writes dk and dv, so it
 // runs after the first on the same stream.  The
@@ -2341,9 +2821,9 @@ extern "C" int flash_attention_bwd_dq(
     const float* lse, const void* dout, const int* kv_len, float* delta,
     void* qs, void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq,
     int sk, int d, int causal, int window, float cap, float scale, int bf16,
-    void* stream) {
+    int terms, void* stream) {
   return bwd_run(0, q, k, v, o, lse, dout, kv_len, delta, qs, dq, dk, dv, b,
-                 hq, hkv, sq, sk, d, causal, window, cap, scale, bf16,
+                 hq, hkv, sq, sk, d, causal, window, cap, scale, bf16, terms,
                  stream);
 }
 
@@ -2352,8 +2832,8 @@ extern "C" int flash_attention_bwd_dkdv(
     const float* lse, const void* dout, const int* kv_len, float* delta,
     void* qs, void* dq, void* dk, void* dv, int b, int hq, int hkv, int sq,
     int sk, int d, int causal, int window, float cap, float scale, int bf16,
-    void* stream) {
+    int terms, void* stream) {
   return bwd_run(1, q, k, v, o, lse, dout, kv_len, delta, qs, dq, dk, dv, b,
-                 hq, hkv, sq, sk, d, causal, window, cap, scale, bf16,
+                 hq, hkv, sq, sk, d, causal, window, cap, scale, bf16, terms,
                  stream);
 }

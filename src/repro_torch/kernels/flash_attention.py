@@ -27,8 +27,10 @@ rounded as the forward stages it) and a dk/dv pass (dk and dv, summed over
 each GQA group).  bf16 inputs run ``wgmma_bwd_dq_kernel`` and
 ``wgmma_bwd_dkdv_kernel``, every product a bf16 ``wgmma`` with f32
 accumulation (P and dS rounded to bf16 before the products that take
-them); f32 inputs ``bwd_dq_kernel`` and ``bwd_dkdv_kernel``, f32 FMA on
-the CUDA cores.  On the CPU ``flash_attention_bwd_plain``.
+them); f32 inputs ``tf32x3_bwd_dq_kernel`` and ``tf32x3_bwd_dkdv_kernel``,
+every product a 3xTF32 ``wgmma`` (dQ, dK and dV formed transposed, fresh
+accumulators per KV or q tile added in f32).  On the CPU
+``flash_attention_bwd_plain``.
 ``flash_attention_bwd.launches`` counts both kernels' launches.
 ``FlashAttention`` is the ``torch.autograd.Function`` over the two: its
 forward is K5 with the lse, its backward the two kernels.
@@ -133,11 +135,15 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     qs``, ``dv = P^T dO``, the latter two summed over each GQA group.
     Masks, right alignment and the skipped tiles are the forward's.  An
     all-masked row (lse about -1e30) gets zero gradients.  Returns the
-    three in the inputs' dtypes."""
+    three in the inputs' dtypes.  f64 inputs are computed in f64 (the
+    card's checks of the f32 kernels hold them against this f64
+    evaluation: the f32 one is itself up to ~1e-4 a row off it at
+    chip_smoke.py's shapes)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
     dev = q.device
+    wide = torch.promote_types(q.dtype, torch.float32)
     scale = d ** -0.5
     bounded = kv_len is None
     if kv_len is None:
@@ -145,19 +151,19 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     kvl = kv_len.to(dev).long().view(b, 1, 1, 1, 1)
     qs = (q * scale).reshape(b, hkv, g, sq, d)
     dog = dout.reshape(b, hkv, g, sq, d)
-    lseg = lse.float().reshape(b, hkv, g, sq, 1)
-    delta = (dout.float() * out.float()).sum(-1).reshape(b, hkv, g, sq, 1)
-    dq = torch.empty((b, hkv, g, sq, d), dtype=torch.float32, device=dev)
-    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=dev)
+    lseg = lse.to(wide).reshape(b, hkv, g, sq, 1)
+    delta = (dout.to(wide) * out.to(wide)).sum(-1).reshape(b, hkv, g, sq, 1)
+    dq = torch.empty((b, hkv, g, sq, d), dtype=wide, device=dev)
+    dk = torch.zeros((b, hkv, sk, d), dtype=wide, device=dev)
+    dv = torch.zeros((b, hkv, sk, d), dtype=wide, device=dev)
     for q0 in range(0, sq, q_chunk):
         q1 = min(sq, q0 + q_chunk)
-        qc = qs[:, :, :, q0:q1].float()
-        doc = dog[:, :, :, q0:q1].float()
+        qc = qs[:, :, :, q0:q1].to(wide)
+        doc = dog[:, :, :, q0:q1].to(wide)
         lc, dc = lseg[:, :, :, q0:q1], delta[:, :, :, q0:q1]
         qpos = kvl - sq + torch.arange(q0, q1, device=dev).view(
             1, 1, 1, -1, 1)
-        dqc = torch.zeros((b, hkv, g, q1 - q0, d), device=dev)
+        dqc = torch.zeros((b, hkv, g, q1 - q0, d), dtype=wide, device=dev)
         for k0 in range(0, sk, kv_chunk):
             k1 = min(sk, k0 + kv_chunk)
             if bounded and ((causal and k0 > sk - sq + q1 - 1) or (
@@ -169,7 +175,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                 mask = mask & (kpos <= qpos)
             if window > 0:
                 mask = mask & (kpos > qpos - window)
-            kc, vc = k[:, :, k0:k1].float(), v[:, :, k0:k1].float()
+            kc, vc = k[:, :, k0:k1].to(wide), v[:, :, k0:k1].to(wide)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc)
             if softcap > 0:
                 th = torch.tanh(s / softcap)
@@ -220,30 +226,36 @@ def bwd_tiles(d: int, dtype: torch.dtype, group: int = 1) -> dict:
     """The backward kernels' tiles at head dim ``d`` and GQA group ``group``
     (mirrors ``csrc/flash_attention.cu``): ``dq`` is (query rows, keys of a
     KV tile, query heads a CTA), ``dkdv`` (keys a CTA, query rows of a q
-    tile, warpgroups splitting D).  bf16 (``wgb::DqCfg``, ``wgb::KvCfg``):
-    64 query rows a warpgroup; 32-key tiles at d = 256, where two heads of
-    an even group share a CTA, else 64; 64 keys a CTA and 64-row q tiles,
-    D split between two warpgroups at d = 256.  f32 (``bw::``): 64 query
-    rows by 32 keys in both passes, one head a CTA."""
+    tile, warpgroups a CTA).  bf16 (``wgb::DqCfg``, ``wgb::KvCfg``): 64
+    query rows a warpgroup; 32-key tiles at d = 256, where two heads of an
+    even group share a CTA, else 64; 64 keys a CTA and 64-row q tiles, D
+    split between two warpgroups at d = 256.  f32 (``tfb::DqCfg``,
+    ``tfb::KvCfg``): one head a CTA of two warpgroups, one product each;
+    64 query rows with KV tiles of 16 keys at d = 256, else 32; 64 keys
+    with q tiles of 16 rows at d = 256, 32 at d = 128, else 64."""
     if dtype == torch.bfloat16:
         heads = 2 if d == 256 and group % 2 == 0 else 1
         return {"dq": (64, 32 if d == 256 else 64, heads),
                 "dkdv": (64, 64, 2 if d == 256 else 1)}
-    return {"dq": (64, 32, 1), "dkdv": (32, 64, 1)}
+    return {"dq": (64, 16 if d == 256 else 32, 1),
+            "dkdv": (64, {256: 16, 128: 32}.get(d, 64), 2)}
 
 
 def bwd_smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> dict:
     """Dynamic shared memory of the backward kernels at head dim ``d``
-    (mirrors ``wgb::DqCfg::kSmem``, ``wgb::KvCfg::kSmem`` and ``bw::Cfg``).
-    bf16, with 1 KB to align the base to the 1024-byte swizzle atom:
-    ``dq`` holds each head's qs and dO tiles (64 x d), two stages of K and
-    V tiles and each row's delta; ``dkdv`` the CTA's K and V tiles, two
-    stages of qs and dO tiles and of their rows' lse and delta.  f32:
-    ``dq`` holds the scaled q and dO tiles (64 x d each), K^T and V^T
-    tiles (d x 33: 32 keys and a pad column, so that both a row and a
-    column read hit distinct banks), the dS tile (64 x 33) and two f32 per
-    row; ``dkdv`` the same K^T, V^T, q and dO tiles, P and dS tiles and two
-    f32 per row."""
+    (mirrors ``wgb::DqCfg::kSmem``, ``wgb::KvCfg::kSmem``,
+    ``tfb::DqCfg::kSmem`` and ``tfb::KvCfg::kSmem``), with 1 KB to align
+    the base to the 1024-byte swizzle atom.  bf16: ``dq`` holds each head's
+    qs and dO tiles (64 x d), two stages of K and V tiles and each row's
+    delta; ``dkdv`` the CTA's K and V tiles, two stages of qs and dO tiles
+    and of their rows' lse and delta.  f32: ``dq`` holds qs and dO raw (64
+    x d each, the A operands of S and dP, split in registers), the KV
+    tile's K and V as TF32 hi and lo images (keys x d, rows of d rounded up
+    to 32 columns, the 128-byte swizzle row), the dS tile's hi and lo
+    images (64 x keys, at least 32 columns) and each row's lse and delta;
+    ``dkdv`` K and V raw (64 x d each), the q tile's qs and dO hi and lo
+    images (q rows x d), P^T's and dS^T's hi and lo images (64 x q rows, at
+    least 32 columns) and the tile rows' lse and delta."""
     t = bwd_tiles(d, dtype, group)
     if dtype == torch.bfloat16:
         rows, keys, heads = t["dq"]
@@ -251,11 +263,15 @@ def bwd_smem_bytes(d: int, dtype: torch.dtype, group: int = 1) -> dict:
         return {"dq": 1024 + (2 * heads * rows * d + 4 * keys * d) * 2
                 + heads * rows * 4,
                 "dkdv": 1024 + (2 * kv * d + 4 * tq * d) * 2 + 4 * tq * 4}
+
+    def padded(n):
+        return -(-n // 32) * 32
     rows, keys, _ = t["dq"]
-    kp = keys + 1
-    common = 2 * d * kp + 2 * rows * d + 2 * rows
-    return {"dq": 4 * (common + rows * kp),
-            "dkdv": 4 * (common + 2 * rows * kp)}
+    kv, tq, _ = t["dkdv"]
+    return {"dq": 1024 + 4 * (2 * rows * d + 4 * keys * padded(d)
+                              + 2 * rows * padded(keys) + 2 * rows),
+            "dkdv": 1024 + 4 * (2 * kv * d + 4 * tq * padded(d)
+                                + 4 * kv * padded(tq) + 2 * tq)}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -365,17 +381,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor,
                         kv_len: Optional[torch.Tensor] = None, *,
                         causal: bool = True, window: int = 0,
-                        softcap: float = 0.0):
+                        softcap: float = 0.0, terms: int = 3):
     """K5's backward: (dq, dk, dv) for the output gradient ``dout``, given
     the forward's ``out`` and ``lse`` (``flash_attention(...,
     return_lse=True)``).  The plain version for tensors on the CPU; on
-    CUDA tensors the dq pass then the dk/dv pass -- bf16
-    ``wgmma_bwd_dq_kernel`` and ``wgmma_bwd_dkdv_kernel`` on the tensor
-    cores, f32 ``bwd_dq_kernel`` and ``bwd_dkdv_kernel`` -- each counted
-    in ``flash_attention_bwd.launches`` (two a call).  q, k, v, out and
-    dout share one dtype (f32 or bf16) and K5's shapes, contiguous and
-    16-byte aligned; lse is (B, Hq, Sq) f32.  Returns the gradients in that
-    dtype."""
+    CUDA tensors the dq pass then the dk/dv pass, both on the tensor cores
+    -- bf16 ``wgmma_bwd_dq_kernel`` and ``wgmma_bwd_dkdv_kernel``, f32
+    ``tf32x3_bwd_dq_kernel`` and ``tf32x3_bwd_dkdv_kernel`` -- each
+    counted in ``flash_attention_bwd.launches`` (two a call).  q, k, v,
+    out and dout share one dtype (f32 or bf16) and K5's shapes, contiguous
+    and 16-byte aligned; lse is (B, Hq, Sq) f32.  Returns the gradients in
+    that dtype.  ``terms=3`` (3xTF32) is the f32 kernels' arithmetic;
+    ``terms=1`` (CUDA f32 only: one TF32 product instead of three, a
+    control that must fail the f32 checks) is for ``chip_smoke.py`` and
+    the card tests and is never called on a path."""
+    if terms != 3 and (terms != 1 or q.dtype != torch.float32
+                       or q.device.type == "cpu"):
+        raise ValueError(f"flash_attention_bwd: terms must be 3, or 1 for "
+                         f"f32 CUDA tensors; got {terms} for {q.dtype} on "
+                         f"{q.device}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, kv_len,
                                          causal=causal, window=window,
@@ -416,10 +440,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         for fn in (dq_fn, dkdv_fn):   # dkdv reads what the dq pass wrote
             fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + \
-                [ctypes.c_float] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+                [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + \
+                [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             err = fn(*ptrs, b, hq, hkv, sq, sk, d, int(causal), int(window),
-                     float(softcap), d ** -0.5, int(bf16), stream)
+                     float(softcap), d ** -0.5, int(bf16), terms, stream)
             if err:
                 raise RuntimeError(f"flash_attention_bwd: kernel launch "
                                    f"failed with CUDA error {err}")

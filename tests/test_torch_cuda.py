@@ -410,6 +410,18 @@ def test_flash_f32_launches_are_bitwise_equal(gpu):
 BWD_ROW_LIMIT = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
+def _bwd_plain_for(dtype, q, k, v, out, lse, dout, kvl, **kw):
+    """The yardstick of K5's backward in ``dtype``: the plain version in
+    f32 for bf16; for f32 the plain version evaluated in f64 (chip_smoke.py
+    phase 18), since its f32 evaluation is itself up to ~1e-4 a row off
+    the f64 one at these limits."""
+    if dtype == torch.bfloat16:
+        return k5.flash_attention_bwd_plain(q, k, v, out, lse, dout, kvl,
+                                            **kw)
+    return k5.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, out)), lse, dout.double(), kvl, **kw)
+
+
 def _bwd_rows_close(a, b, limit):
     a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
     diff = (a - b).abs().amax(-1)
@@ -460,12 +472,93 @@ def test_flash_backward_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
     n = k5.flash_attention_bwd.launches
     got = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, **kw)
     assert k5.flash_attention_bwd.launches == n + 2
-    want = k5.flash_attention_bwd_plain(q, k, v, out, lse, dout, kvl, **kw)
+    want = _bwd_plain_for(dtype, q, k, v, out, lse, dout, kvl, **kw)
     again = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, **kw)
     for x, y, z in zip(got, want, again):
         assert x.dtype == dtype and x.shape == y.shape
         _bwd_rows_close(x, y, BWD_ROW_LIMIT[dtype])
         assert torch.equal(x, z)
+
+
+#: K5's f32 backward's relative Frobenius limit (chip_smoke.py
+#: BWD_FRO_LIMIT), the largest over dq, dk and dv
+BWD_FRO_LIMIT_F32 = 1e-5
+
+
+def _bwd_rel_errs(got, want):
+    """(largest per-row error over the row's largest magnitude floored at
+    1% of the tensor's, relative Frobenius error), each the largest over
+    the three gradients (chip_smoke.py ``bwd_rel_errs``)."""
+    row = fro = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+        diff = (a - b).abs().amax(-1)
+        mag = b.abs().amax(-1).clamp_min(1e-2 * b.abs().max().item())
+        row = max(row, (diff / mag.clamp_min(1e-30)).max().item())
+        fro = max(fro, ((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+    return row, fro
+
+
+def _f32_bwd_case(gpu, d, group, terms=3):
+    """K5's f32 backward at head dim ``d`` and GQA group ``group`` at its
+    tile edges: Sq and Sk off the 64-row tiles and the 16- and 32-key ones,
+    a batch whose kv_len is short of Sk, a window for even groups and a
+    softcap of 50 for odd ones.  Returns (got, again, want, launches)."""
+    b, hkv = 2, 2
+    hq = hkv * group
+    sq = 77 + d // 4
+    sk = sq + 53
+    kv_len, window = (sk - 13, sk), (40 if group % 2 == 0 else 0)
+    cap = 50.0 if group % 2 else 0.0
+    gen = torch.Generator(device=gpu).manual_seed(31 * d + group)
+    q, dout = (torch.randn((b, hq, sq, d), generator=gen, device=gpu)
+               for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=gen, device=gpu)
+            for _ in range(2))
+    kvl = torch.tensor(kv_len, dtype=torch.int32, device=gpu)
+    kw = dict(causal=True, window=window, softcap=cap)
+    out, lse = k5.flash_attention(q, k, v, kvl, return_lse=True, **kw)
+    n = k5.flash_attention_bwd.launches
+    got = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, terms=terms,
+                                 **kw)
+    launched = k5.flash_attention_bwd.launches - n
+    again = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, terms=terms,
+                                   **kw)
+    want = _bwd_plain_for(torch.float32, q, k, v, out, lse, dout, kvl, **kw)
+    return got, again, want, launched
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", k5.HEAD_DIMS)
+def test_flash_f32_backward_tile_edges_match_plain(gpu, d, group):
+    """The 3xTF32 backward kernels at every head dim and GQA group, at
+    ragged Sq and Sk, a short kv_len, a window or a softcap: finite, within
+    the f32 per-row and Frobenius limits of the plain version, two
+    launches a call, and a second call bit for bit."""
+    got, again, want, launched = _f32_bwd_case(gpu, d, group)
+    assert launched == 2
+    row, fro = _bwd_rel_errs(got, want)
+    assert row <= BWD_ROW_LIMIT[torch.float32] and \
+        fro <= BWD_FRO_LIMIT_F32, (row, fro)
+    for x, y, z in zip(got, want, again):
+        assert x.dtype == torch.float32 and x.shape == y.shape
+        assert torch.isfinite(x).all() and torch.equal(x, z)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_f32_backward_one_tf32_product_fails_the_limits(gpu, d):
+    """The control: the backward kernels with one TF32 product instead of
+    three exceed both f32 limits, so the checks see TF32 rounding; the
+    3xTF32 launches on the same inputs meet them."""
+    three = _f32_bwd_case(gpu, d, 3)
+    one = _f32_bwd_case(gpu, d, 3, terms=1)
+    torch.cuda.synchronize()
+    row, fro = _bwd_rel_errs(three[0], three[2])
+    assert row <= BWD_ROW_LIMIT[torch.float32] and fro <= BWD_FRO_LIMIT_F32
+    row, fro = _bwd_rel_errs(one[0], one[2])
+    assert row > BWD_ROW_LIMIT[torch.float32] and fro > BWD_FRO_LIMIT_F32
+    with pytest.raises(ValueError, match="terms"):
+        _f32_bwd_case(gpu, d, 3, terms=2)
 
 
 def test_flash_backward_all_masked_rows_are_zero(gpu):
@@ -480,8 +573,8 @@ def test_flash_backward_all_masked_rows_are_zero(gpu):
     out, lse = k5.flash_attention(q, k, v, kvl, softcap=50.0,
                                   return_lse=True)
     got = k5.flash_attention_bwd(q, k, v, out, lse, dout, kvl, softcap=50.0)
-    want = k5.flash_attention_bwd_plain(q, k, v, out, lse, dout, kvl,
-                                        softcap=50.0)
+    want = _bwd_plain_for(torch.float32, q, k, v, out, lse, dout, kvl,
+                          softcap=50.0)
     for x, y in zip(got, want):
         assert torch.isfinite(x).all() and (x[0] == 0).all()
         _bwd_rows_close(x[1], y[1], BWD_ROW_LIMIT[torch.float32])
@@ -510,8 +603,8 @@ def test_flash_function_launches_the_backward_kernels(gpu, dtype):
             q, k, v, window=64, softcap=50.0, backend="cuda"))
         o, lse = k5.flash_attention(q, k, v, window=64, softcap=50.0,
                                     return_lse=True)
-        want = k5.flash_attention_bwd_plain(q, k, v, o, lse, dout, window=64,
-                                            softcap=50.0)
+        want = _bwd_plain_for(dtype, q, k, v, o, lse, dout, None, window=64,
+                              softcap=50.0)
     for x, y in zip(grads, want):
         _bwd_rows_close(x, y, BWD_ROW_LIMIT[dtype])
 

@@ -1,14 +1,16 @@
 """K5's backward kernels' design, checked on the CPU.
 
 The kernels (``csrc/flash_attention.cu``: bf16 ``wgmma_bwd_dq_kernel`` and
-``wgmma_bwd_dkdv_kernel``, f32 ``bwd_dq_kernel`` and ``bwd_dkdv_kernel``)
-run only on a card, where tests/test_torch_cuda.py holds them against
-``flash_attention_bwd_plain``.  Here: their shared memory and tiles as
-``kernels/flash_attention.py`` mirrors them; the bf16 kernels' arithmetic
-(P and dS rounded to bf16 before the products, everything else f32),
-emulated, against the plain version within the card's bf16 limits, with a
-control that must fail them; and the tile schedules (which KV tiles the dq
-pass visits, which q tiles the dk/dv pass visits, which tiles skip the
+``wgmma_bwd_dkdv_kernel``, f32 ``tf32x3_bwd_dq_kernel`` and
+``tf32x3_bwd_dkdv_kernel``) run only on a card, where
+tests/test_torch_cuda.py holds them against ``flash_attention_bwd_plain``.
+Here: their shared memory and tiles as ``kernels/flash_attention.py``
+mirrors them; the bf16 kernels' arithmetic (P and dS rounded to bf16
+before the products, everything else f32) and the f32 kernels' (3xTF32
+products, fresh accumulators per slice of D and per tile added in f32),
+emulated, against the plain version within the card's limits, with
+controls that must fail them; and the tile schedules (which KV tiles the
+dq pass visits, which q tiles the dk/dv pass visits, which tiles skip the
 per-element masks), emulated, against the masks.
 """
 
@@ -27,6 +29,8 @@ H100_SMEM_PER_SM = 233472
 #: largest magnitude floored at 1% of the tensor's, and the relative
 #: Frobenius error, the largest over dq, dk and dv
 BF16_ROW_LIMIT, BF16_FRO_LIMIT, ROW_FLOOR = 2e-2, 1e-2, 1e-2
+#: the same limits in f32
+F32_ROW_LIMIT, F32_FRO_LIMIT = 1e-4, 1e-5
 
 
 @pytest.mark.parametrize("d", k5.HEAD_DIMS)
@@ -38,7 +42,13 @@ def test_flash_bwd_shared_memory_and_tiles(d, dtype, group):
     keys and q rows in k16 steps, every tile in whole 1024-byte swizzle
     atoms; at d = 256 an even group puts two heads in a dq CTA and the
     dk/dv CTA splits D between two warpgroups; below d = 256 two CTAs of
-    each bf16 pass share an SM (the card reserves 1 KB per block)."""
+    each bf16 pass share an SM (the card reserves 1 KB per block).  f32
+    tiles are 3xTF32-wgmma-shaped: 64 rows (one M) of the resident tile,
+    KV and q tiles in k8 steps of 16 (d = 256), 32 or 64 rows, two
+    warpgroups a CTA; qs and dO (K and V) raw, the streamed tile and the
+    dS (P^T, dS^T) tile as TF32 hi and lo images of whole 1024-byte
+    swizzle atoms; below d = 128 (the dk/dv pass: at d = 16) they leave
+    room for a second CTA on an SM."""
     need = k5.bwd_smem_bytes(d, dtype, group)
     t = k5.bwd_tiles(d, dtype, group)
     assert set(need) == set(t) == {"dq", "dkdv"}
@@ -57,15 +67,23 @@ def test_flash_bwd_shared_memory_and_tiles(d, dtype, group):
             + heads * 64 * 4
         assert need["dkdv"] == 1024 + (2 * 64 * d + 4 * tq * d) * 2 + 4 * tq * 4
     else:
-        assert (rows, keys, heads) == (64, 32, 1) and (kv, tq, wgs) == \
-            (32, 64, 1)
-        common = 2 * d * 33 + 2 * 64 * d + 2 * 64
-        assert need == {"dq": 4 * (common + 64 * 33),
-                        "dkdv": 4 * (common + 2 * 64 * 33)}
-    # the bf16 passes share an SM two CTAs at a time below d = 256; the f32
-    # dk/dv pass's P and dS tiles leave it one CTA an SM from d = 128
-    two = {"dq": d < 256,
-           "dkdv": d < (256 if dtype == torch.bfloat16 else 128)}
+        assert (rows, heads, kv, wgs) == (64, 1, 64, 2)
+        assert keys == (16 if d == 256 else 32)
+        assert tq == {256: 16, 128: 32}.get(d, 64)
+        dp = -(-d // 32) * 32   # rows of d in 32-column swizzle regions
+        for tile_rows in (rows, keys, kv, tq):
+            assert tile_rows % 8 == 0 and tile_rows * dp * 4 % 1024 == 0
+        res = 2 * 64 * d   # the resident tiles, raw
+        assert need["dq"] == 1024 + 4 * (res + 4 * keys * dp
+                                         + 2 * 64 * max(32, keys) + 2 * 64)
+        assert need["dkdv"] == 1024 + 4 * (res + 4 * tq * dp
+                                           + 4 * 64 * max(32, tq) + 2 * tq)
+    # the bf16 passes share an SM two CTAs at a time below d = 256; of the
+    # f32 passes the dq pass does below d = 128, the dk/dv pass at d = 16
+    if dtype == torch.bfloat16:
+        two = {"dq": d < 256, "dkdv": d < 256}
+    else:
+        two = {"dq": d < 128, "dkdv": d == 16}
     for name, n in need.items():
         assert (2 * (n + 1024) <= H100_SMEM_PER_SM) == two[name]
 
@@ -173,6 +191,143 @@ def test_bf16_backward_arithmetic_fits_the_limits(b, hq, hkv, sq, sk, d,
 
 
 # ---------------------------------------------------------------------------
+# The f32 kernels' 3xTF32 arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+
+def _tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, by bit masks: cvt.rna.tf32.f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_mm(a, b, terms, out_dtype=torch.float32):
+    """a (m, K) @ b (n, K)^T as one fresh tensor-core accumulator: each
+    operand split into hi = rna(x) and lo = rna(x - hi); 3xTF32 (terms =
+    3) adds A_lo B_hi + A_hi B_lo + A_hi B_hi, lo * lo dropped, one TF32
+    product (terms = 1) A_hi B_hi; the products exact, the sum rounded
+    once to f32 (and held in ``out_dtype``)."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    out = ah @ bh.T
+    if terms == 3:
+        out = out + al @ bh.T + ah @ bl.T
+    return out.float().to(out_dtype)
+
+
+def _emulated_f32_bwd(q, k, v, out, lse, dout, kv_len, *, causal, window,
+                      cap, terms=3):
+    """(dq, dk, dv) in the f32 kernels' arithmetic, their tiles as
+    ``bwd_tiles`` gives them: S = qs K^T and dP = dO V^T from a fresh
+    accumulator per 32 columns of D (the dq pass's four k8 steps), the
+    partials added in f64 and rounded once; softcap, P = exp(S - lse) and
+    dS in f32, delta = rowsum(dO O) summed in f64; dQ from a fresh
+    accumulator per KV tile, dK and dV per q tile, each added in f32;
+    every product ``_tf32_mm``."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    t = k5.bwd_tiles(d, torch.float32)
+    tk, tq = t["dq"][1], t["dkdv"][1]
+    scale = d ** -0.5
+
+    def summed(parts):
+        total = None
+        for p in parts:
+            total = p if total is None else total + p
+        return total
+
+    qs = q * scale
+    dq = torch.zeros((b, hq, sq, d))
+    dk = torch.zeros((b, hkv, sk, d))
+    dv = torch.zeros((b, hkv, sk, d))
+    for bi in range(b):
+        keep = _mask(sq, sk, int(kv_len[bi]), causal, window)
+        for h in range(hq):
+            kh, vh, do = k[bi, h // g], v[bi, h // g], dout[bi, h]
+            qh = qs[bi, h]
+            s, dp = (summed(_tf32_mm(x[:, c:c + 32], y[:, c:c + 32], terms,
+                                     torch.float64)
+                            for c in range(0, d, 32)).float()
+                     for x, y in ((qh, kh), (do, vh)))
+            jac = torch.ones_like(s)
+            if cap > 0:
+                th = torch.tanh(s / cap)
+                s = cap * th
+                jac = 1.0 - th * th
+            p = torch.where(keep, torch.exp(torch.where(
+                keep, s - lse[bi, h, :, None], 0.0)), 0.0)
+            delta = (do.double() * out[bi, h].double()).sum(
+                -1, keepdim=True).float()
+            ds = p * (dp - delta) * jac
+            dq[bi, h] = summed(_tf32_mm(ds[:, c:c + tk], kh[c:c + tk].T,
+                                        terms)
+                               for c in range(0, sk, tk)) * scale
+            for r in range(0, sq, tq):
+                dk[bi, h // g] += _tf32_mm(ds[r:r + tq].T, qh[r:r + tq].T,
+                                           terms)
+                dv[bi, h // g] += _tf32_mm(p[r:r + tq].T, do[r:r + tq].T,
+                                           terms)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window,cap,kv_len", [
+    (1, 4, 2, 192, 192, 64, True, 0, 50.0, None),
+    (2, 4, 2, 100, 170, 128, True, 70, 50.0, (150, 170)),
+    (1, 2, 1, 130, 130, 256, True, 0, 50.0, None),
+    (1, 8, 2, 128, 128, 128, True, 0, 0.0, None),
+])
+def test_f32_backward_arithmetic_fits_the_limits(b, hq, hkv, sq, sk, d,
+                                                 causal, window, cap,
+                                                 kv_len):
+    """With q and k of std 3 (chip_smoke.py's BWD_INPUT_SCALE), softcap 50
+    or none, the f32 kernels' 3xTF32 products and fresh accumulators keep
+    every gradient within the card's f32 limits of the plain version, which
+    the card's checks evaluate in f64 (so here too); the same tiles with
+    one TF32 product instead of three (the kernels' terms=1 control) exceed
+    both, so the limits see TF32 rounding."""
+    rng = np.random.default_rng(29)
+    q, k = (torch.from_numpy(rng.standard_normal(shp).astype(np.float32)
+                             * 3.0)
+            for shp in ((b, hq, sq, d), (b, hkv, sk, d)))
+    v, dout = (torch.from_numpy(rng.standard_normal(shp).astype(np.float32))
+               for shp in ((b, hkv, sk, d), (b, hq, sq, d)))
+    kvl = torch.tensor(kv_len or (sk,) * b, dtype=torch.int32)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, lse = k5.flash_attention_plain(q, k, v, kvl, return_lse=True, **kw)
+    want = k5.flash_attention_bwd_plain(
+        *(t.double() for t in (q, k, v, out)), lse, dout.double(), kvl, **kw)
+    opts = dict(causal=causal, window=window, cap=cap)
+    row, fro = _rel_errs(
+        _emulated_f32_bwd(q, k, v, out, lse, dout, kvl, **opts), want)
+    assert row <= F32_ROW_LIMIT and fro <= F32_FRO_LIMIT, (row, fro)
+    c_row, c_fro = _rel_errs(
+        _emulated_f32_bwd(q, k, v, out, lse, dout, kvl, terms=1, **opts),
+        want)
+    assert c_row > F32_ROW_LIMIT and c_fro > F32_FRO_LIMIT, (c_row, c_fro)
+
+
+def test_backward_terms_are_checked():
+    """``terms`` selects the f32 kernels' arithmetic on a card: 3 (3xTF32,
+    the default) or the one-TF32-product control 1, which the plain
+    version on the CPU does not compute and bf16 does not take."""
+    q = torch.randn((1, 2, 8, 16))
+    k = torch.randn((1, 1, 8, 16))
+    out, lse = k5.flash_attention_plain(q, k, k, return_lse=True)
+    want = k5.flash_attention_bwd_plain(q, k, k, out, lse, q)
+    got = k5.flash_attention_bwd(q, k, k, out, lse, q, terms=3)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for terms, dtype in ((1, torch.float32), (2, torch.float32),
+                         (1, torch.bfloat16)):
+        qt, kt = q.to(dtype), k.to(dtype)
+        with pytest.raises(ValueError, match="terms"):
+            k5.flash_attention_bwd(qt, kt, kt, out.to(dtype), lse, qt,
+                                   terms=terms)
+
+
+# ---------------------------------------------------------------------------
 # The tile schedules, emulated
 # ---------------------------------------------------------------------------
 
@@ -198,10 +353,11 @@ def _dq_tiles(sq, sk, n, causal, window, tk):
     return out
 
 
-def _dkdv_tiles(sq, sk, n, causal, window):
-    """The dk/dv pass: per 64-key tile, the q tiles it visits as (q0,
-    whole) -- ``wgmma_bwd_dkdv_kernel``'s i_lo / i_hi / ntq and its
-    ``whole`` test."""
+def _dkdv_tiles(sq, sk, n, causal, window, tq=64):
+    """The dk/dv pass: per 64-key tile, the q tiles of ``tq`` rows it visits
+    as (q0, whole) -- ``wgmma_bwd_dkdv_kernel``'s and
+    ``tf32x3_bwd_dkdv_kernel``'s i_lo / i_hi / ntq and their ``whole``
+    test."""
     out = {}
     k_valid = min(n, sk)
     for k0 in range(0, sk, 64):
@@ -211,15 +367,15 @@ def _dkdv_tiles(sq, sk, n, causal, window):
             i_lo = max(0, k0 - (n - sq)) if causal else 0
             i_hi = min(sq - 1, k_last + window - 1 - (n - sq)) \
                 if window > 0 else sq - 1
-        t_lo = i_lo // 64
-        ntq = 0 if i_hi < i_lo else i_hi // 64 - t_lo + 1
+        t_lo = i_lo // tq
+        ntq = 0 if i_hi < i_lo else i_hi // tq - t_lo + 1
         tiles = []
         for t in range(t_lo, t_lo + ntq):
-            q0 = 64 * t
+            q0 = tq * t
             q_lo = n - sq + q0
-            tiles.append((q0, k0 + 64 <= k_valid and q0 + 64 <= sq and
+            tiles.append((q0, k0 + 64 <= k_valid and q0 + tq <= sq and
                           (not causal or k0 + 63 <= q_lo) and
-                          (window <= 0 or k0 > q_lo + 63 - window)))
+                          (window <= 0 or k0 > q_lo + tq - 1 - window)))
         out[k0] = tiles
     return out
 
@@ -234,12 +390,12 @@ def _dkdv_tiles(sq, sk, n, causal, window):
 def test_backward_schedules_cover_every_unmasked_pair(sq, sk, n, causal,
                                                       window):
     """Each unmasked (query, key) pair lies in exactly one tile that the
-    dq pass visits (for 32- and 64-key tiles) and in exactly one that the
-    dk/dv pass visits, and no tile either pass treats as whole (no
-    per-element mask) holds a masked pair, a key past Sk or a row past
-    Sq."""
+    dq pass visits (for the 16-, 32- and 64-key tiles of both dtypes) and
+    in exactly one that the dk/dv pass visits (64 keys by 16, 32 or 64 q
+    rows), and no tile either pass treats as whole (no per-element mask)
+    holds a masked pair, a key past Sk or a row past Sq."""
     keep = _mask(sq, sk, n, causal, window).numpy()
-    for tk in (32, 64):
+    for tk in (16, 32, 64):
         seen = np.zeros((sq, sk), int)
         for q0, tiles in _dq_tiles(sq, sk, n, causal, window, tk).items():
             for k0, whole in tiles:
@@ -248,11 +404,12 @@ def test_backward_schedules_cover_every_unmasked_pair(sq, sk, n, causal,
                     assert k0 + tk <= sk and \
                         keep[q0:q0 + 64, k0:k0 + tk].all()
         assert (seen[keep] == 1).all()
-    seen = np.zeros((sq, sk), int)
-    for k0, tiles in _dkdv_tiles(sq, sk, n, causal, window).items():
-        for q0, whole in tiles:
-            seen[q0:q0 + 64, k0:k0 + 64] += 1
-            if whole:
-                assert q0 + 64 <= sq and k0 + 64 <= sk and \
-                    keep[q0:q0 + 64, k0:k0 + 64].all()
-    assert (seen[keep] == 1).all()
+    for tq in (16, 32, 64):
+        seen = np.zeros((sq, sk), int)
+        for k0, tiles in _dkdv_tiles(sq, sk, n, causal, window, tq).items():
+            for q0, whole in tiles:
+                seen[q0:q0 + tq, k0:k0 + 64] += 1
+                if whole:
+                    assert q0 + tq <= sq and k0 + 64 <= sk and \
+                        keep[q0:q0 + tq, k0:k0 + 64].all()
+        assert (seen[keep] == 1).all()
