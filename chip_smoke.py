@@ -98,6 +98,27 @@ Phases, each printing its own lines; any failure exits non-zero:
                 profiled with its own peak memory.  Phase 5 also holds
                 K5's row logsumexp (return_lse=True) to the plain version's
                 and its out bit for bit to the launch without it.
+ 19. encdec -- (right after phase 18) seamless-m4t-medium, the enc-dec
+                stack, at full width and depth (12 + 12 layers, D 64 MHA,
+                seeded random weights) through launch/steps.py: 4
+                requests of 4096 frames and 64-token prompts through
+                make_prefill_step, then 16 greedy make_decode_steps (K5
+                non-causal in the encoder and every cross-attention, the
+                decode steps' at Sq = 1, causal in the decoder's prefill
+                self-attention; launches asserted); prefill ms, decode ms
+                and tokens/s (CUDA events), profiles; the prefill logits
+                against the torch tier's and the decode consistency (each
+                step's logits against one decode_stack), in the bf16 band
+                and LOGIT_FRO_LIMIT; in f32 a prefill and a decode step in
+                phase 7's band.  Then training in f32 through
+                launch/train_lm.py's functions, 2 x 4096 TokenPipeline
+                tokens over 4096 frames: step 0's loss and every gradient
+                leaf against the torch tier, 3 Trainer steps (K5 launches
+                asserted: the checkpointed layers recompute their
+                forwards), a profiled step, and a timed bf16 step.  Phases
+                5 and 18 hold K5 at its shapes (g)-(k); every launch of
+                these segments is counted by shape at the wrapper and must
+                fall on one of them.
   8. compiled -- (run right after phase 4, on its models and graph) each of
                 the six Reddit forwards through plan.compile(), one CUDA
                 graph each: the capture's K1/K2 launches against the eager
@@ -293,7 +314,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                 trace a signature, the loss falling).
 
 The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7,
-18.
+18, 19.
 The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
@@ -345,7 +366,12 @@ LOGIT_FRO_LIMIT = 5e-2
 #: kv_len).  (a)/(b) gemma2-9b's global and local prefill layers at the
 #: longest prompt of phase 6, (c) a ragged short gemma2 prompt, (d) a
 #: granite-3-8b layer, (e) the right-aligned kv_len contract, (f) the
-#: reference test's non-causal case.
+#: reference test's non-causal case; seamless-m4t-medium (D 64, MHA) as
+#: phase 19 gives them: (g) the encoder (non-causal) over its 4 requests'
+#: 4096 frames, (h) the prefill's cross-attention (its 64-token prompts
+#: over the frames), (i) the decoder's causal self-attention at the
+#: training length (2 x 4096), (j) a decode step's cross-attention (Sq 1),
+#: (k) the prefill's causal self-attention over the 64-token prompts.
 FLASH_SHAPES = {
     "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
     "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
@@ -353,6 +379,11 @@ FLASH_SHAPES = {
     "d": (1, 32, 8, 4096, 4096, 128, True, 0, 0.0, None),
     "e": (2, 16, 8, 8, 300, 256, True, 0, 0.0, (50, 300)),
     "f": (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),
+    "g": (4, 16, 16, 4096, 4096, 64, False, 0, 0.0, None),
+    "h": (4, 16, 16, 64, 4096, 64, False, 0, 0.0, None),
+    "i": (2, 16, 16, 4096, 4096, 64, True, 0, 0.0, None),
+    "j": (4, 16, 16, 1, 4096, 64, False, 0, 0.0, None),
+    "k": (4, 16, 16, 64, 64, 64, True, 0, 0.0, None),
 }
 #: phase 5: K5's row logsumexp (``return_lse=True``) against the plain
 #: version's, absolute, over rows with a key (an all-masked row must read
@@ -363,13 +394,21 @@ LSE_LIMIT = {"float32": 2e-5, "bfloat16": 4e-3}
 #: phase 18: K5's backward shapes, as FLASH_SHAPES: (a)/(b) gemma2-9b's
 #: global and local layers at the training run's 6144 tokens, (d) a
 #: granite-3-8b layer (D 128, no softcap), (e) Sq < Sk with a ragged
-#: kv_len and a window, (f) the non-causal case
+#: kv_len and a window, (f) the non-causal case; seamless-m4t-medium's:
+#: (g) the encoder's and the cross-attention's at phase 19's training
+#: batch (2 x 4096 tokens over 4096 frames), (i) the decoder's causal
+#: self-attention there, and off the training path, non-causal, (h) Sq <
+#: Sk and (j) Sq = 1 at the serving shapes
 FLASH_BWD_SHAPES = {
     "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
     "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
     "d": (1, 32, 8, 4096, 4096, 128, True, 0, 0.0, None),
     "e": (2, 16, 8, 100, 300, 256, True, 64, 50.0, (250, 300)),
     "f": (1, 2, 2, 96, 96, 128, False, 0, 0.0, None),
+    "g": (2, 16, 16, 4096, 4096, 64, False, 0, 0.0, None),
+    "h": (4, 16, 16, 64, 4096, 64, False, 0, 0.0, None),
+    "i": (2, 16, 16, 4096, 4096, 64, True, 0, 0.0, None),
+    "j": (4, 16, 16, 1, 4096, 64, False, 0, 0.0, None),
 }
 #: phase 18: q and k are drawn with this std, so the logits (std ~9) reach
 #: where the softcap of 50 bends them and its Jacobian moves dS by percents
@@ -398,10 +437,15 @@ BWD_ROW_FLOOR = 1e-2
 #: phase 11's step 0)
 LM_TRAIN_LAYERS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2, 6144, 6
 LM_TRAIN_GRAD_LIMIT = 1e-4
+#: phase 19: seamless-m4t-medium serving at full width and depth: requests
+#: (each MAX_ENC_FRAMES frames), prompt tokens, greedy decode steps; then
+#: training in f32: batch x tokens (frames min(seq, 4096)) and Trainer steps
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 64, 16
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 2, 4096, 3
 #: phase 18: the shapes whose backward is also timed through a library call
 #: (flex_attention compiles for each, so only the main path's global layer
-#: and the no-softcap shape, where scaled_dot_product_attention serves)
-LIBRARY_BWD_SHAPES = ("a", "d")
+#: and the no-softcap shapes, where scaled_dot_product_attention serves)
+LIBRARY_BWD_SHAPES = ("a", "d", "g", "h", "i", "j")
 #: K5's backward kernels as the profiler names them: the substrings match
 #: both the f32 tf32x3_bwd_* kernels and the bf16 wgmma_bwd_* ones, and
 #: neither holds a forward kernel's name (K5_KERNELS)
@@ -3870,7 +3914,10 @@ def flash_library(shape, q, k, v, want, tol):
                 f"{err:.3e}"
         return time_ms(fn, 5), f"{note}, max_abs_err {err:.3e}"
 
-    if kv_len is None and sq == sk and cap == 0 and window == 0:
+    # SDPA aligns a causal mask top-left, K5 right: the same function when
+    # Sq = Sk or without the mask
+    if kv_len is None and (sq == sk or not causal) and cap == 0 \
+            and window == 0:
         g = hq // hkv
         ke = k.repeat_interleave(g, dim=1)   # outside the timed region
         ve = v.repeat_interleave(g, dim=1)
@@ -4396,7 +4443,7 @@ def bwd_library(shape, q, k, v, dout, want, tol):
     import torch
     import torch.nn.functional as F
     b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
-    if kv_len is not None or sq != sk:
+    if kv_len is not None or (sq != sk and (causal or cap or window)):
         return None, "none: no PyTorch call computes this shape's function"
     g = hq // hkv
     try:
@@ -4613,77 +4660,93 @@ def k5_shares(name: str) -> dict:
     return {"k5_fwd_ms": ms(K5_KERNELS), "k5_bwd_ms": ms(K5_BWD_KERNELS)}
 
 
-def drive_lm_train():
-    """Phase 18, second part: the LM training path on the card through
-    ``launch/train_lm.py``'s functions -- gemma2-9b at full width in f32,
-    LM_TRAIN_LAYERS layers, batch LM_TRAIN_BATCH x LM_TRAIN_SEQ tokens from
-    ``TokenPipeline`` seed 0.  Step 0's loss and every gradient leaf
-    against the torch tier from the same weights; LM_TRAIN_STEPS steps of
-    ``make_train_step`` under ``Trainer`` with K5's forward and backward
-    launch counts asserted; a profiled step; two steps of the config's own
-    bf16, for K5's bf16 backward, the second timed with the peak memory of
-    both.  Returns the measurements."""
+def k5_zero() -> None:
+    """K5's launch counters, forward and backward, in all and by shape,
+    set to 0."""
+    from repro_torch.kernels import flash_attention as k5
+    for fn in (k5.flash_attention, k5.flash_attention_bwd):
+        fn.launches = 0
+        fn.by_shape.clear()
+
+
+def k5_by_shape():
+    """K5's launches since ``k5_zero`` by the wrapper's ``launch_key``: a
+    Counter, the forward's under ("fwd",) + key, the backward's under
+    ("bwd",) + key."""
+    from collections import Counter
+
+    from repro_torch.kernels import flash_attention as k5
+    out = Counter()
+    for part, fn in (("fwd", k5.flash_attention),
+                     ("bwd", k5.flash_attention_bwd)):
+        out.update({(part,) + key: n for key, n in fn.by_shape.items()})
+    return out
+
+
+def drive_lm_trainer(tcfg, tag: str, label: str, desc: str, loss_fn,
+                     want: tuple, steps: int, batch: int, seq: int) -> dict:
+    """Phases 18 and 19's training on the card through launch/train_lm.py's
+    functions: ``tcfg`` in f32 at ``batch`` x ``seq`` TokenPipeline tokens
+    (seed 0).  Step 0's loss and every gradient leaf against the torch tier
+    from the same weights (``loss_fn(params, batch, attn_impl)``);
+    ``steps`` steps of ``make_train_step`` under ``Trainer``; a profiled
+    step; two steps of the config's own bf16, for K5's bf16 backward, the
+    second timed and profiled with its own peak memory.  ``want`` is a
+    step's K5 (forward, backward) launches, asserted at step 0, over the
+    Trainer's steps and in the first bf16 step.  Prints as ``[label]``
+    (``desc`` names the run), writes the traces ``<tag>`` and
+    ``<tag>_bf16``.  Returns the measurements, ``by_shape`` the Trainer's
+    and the first bf16 step's K5 launches (``k5_by_shape``)."""
     import dataclasses
 
     import torch
     from repro_torch.kernels import flash_attention as k5
     from repro_torch.launch import train_lm
-    from repro_torch.models.transformer import TransformerLM, lm_loss
 
-    cfg = train_lm.make_config("gemma2-9b", width="full",
-                               layers=LM_TRAIN_LAYERS)
-    n_layers = cfg.num_layers
+    ckpt = str(ROOT / "build" / tag)
     trainer = train_lm.make_trainer(
-        cfg, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
-        ckpt_dir=str(ROOT / "build" / "lm_train"), device="cuda",
-        log_every=1, checkpoint_every=0)
-    batch = trainer.pipeline.batch_at(0)
-    trainer_batch1 = trainer.pipeline.batch_at(1)
-    toks = torch.as_tensor(batch["tokens"], device="cuda")
-    labels = torch.as_tensor(batch["labels"], device="cuda")
-    skel = TransformerLM(cfg, device="meta")
+        tcfg, steps=steps, batch=batch, seq=seq, ckpt_dir=ckpt,
+        device="cuda", log_every=1, checkpoint_every=0)
+    tb = {k: torch.as_tensor(v, device="cuda")
+          for k, v in trainer.pipeline.batch_at(0).items()}
 
     # -- step 0 against the torch tier, from the same weights
     state = trainer.make_state()
     leaves = {n: p.requires_grad_(True) for n, p in state.params.items()}
     torch.cuda.synchronize()
-    k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
+    k5_zero()
     t0 = time.perf_counter()
-    loss_c, _ = lm_loss(skel, toks, labels, params=leaves)
+    loss_c, _ = loss_fn(leaves, tb, "auto")
     grads_c = torch.autograd.grad(loss_c, list(leaves.values()))
     torch.cuda.synchronize()
     step0_ms = (time.perf_counter() - t0) * 1e3
     launches0 = (k5.flash_attention.launches,
                  k5.flash_attention_bwd.launches)
-    loss_t, _ = lm_loss(skel, toks, labels, params=leaves, attn_impl="torch")
+    loss_t, _ = loss_fn(leaves, tb, "torch")
     grads_t = torch.autograd.grad(loss_t, list(leaves.values()))
     loss_err = abs(loss_c.item() - loss_t.item())
     loss_tol = F32_BAND * SCALE * max(1.0, abs(loss_t.item()))
-    leaf_errs = {}
-    for n, a, w in zip(leaves, grads_c, grads_t):
-        leaf_errs[n] = ((a - w).abs().max() /
-                        w.abs().max().clamp_min(1e-30)).item()
+    leaf_errs = {n: ((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                 .item() for n, a, w in zip(leaves, grads_c, grads_t)}
     worst = max(leaf_errs, key=leaf_errs.get)
-    print(f"[lm-train] {cfg.name} f32 full width, {n_layers} layers, "
-          f"{cfg.param_count() / 1e9:.3f} B params, batch "
-          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: step 0 loss "
-          f"{loss_c.item():.6f} vs torch tier {loss_t.item():.6f} "
-          f"(|diff| {loss_err:.3e}, tol {loss_tol:.3e}); worst gradient "
-          f"leaf {worst} {leaf_errs[worst]:.3e} of its largest magnitude "
-          f"(limit {LM_TRAIN_GRAD_LIMIT:.0e}) over {len(leaf_errs)} leaves; "
-          f"K5 launches forward {launches0[0]}, backward {launches0[1]}; "
-          f"loss and gradients {step0_ms:.1f} ms host", flush=True)
-    if launches0 != (n_layers, 2 * n_layers):
-        fail(f"lm-train step 0 launched K5 {launches0} times, expected "
-             f"({n_layers}, {2 * n_layers})")
+    print(f"[{label}] {desc}: step 0 loss {loss_c.item():.6f} vs torch tier "
+          f"{loss_t.item():.6f} (|diff| {loss_err:.3e}, tol {loss_tol:.3e});"
+          f" worst gradient leaf {worst} {leaf_errs[worst]:.3e} of its "
+          f"largest magnitude (limit {LM_TRAIN_GRAD_LIMIT:.0e}) over "
+          f"{len(leaf_errs)} leaves; K5 launches forward {launches0[0]}, "
+          f"backward {launches0[1]} (expected {want}); loss and gradients "
+          f"{step0_ms:.1f} ms host", flush=True)
+    if launches0 != want:
+        fail(f"{label} step 0 launched K5 {launches0} times, expected "
+             f"{want}")
     if not (loss_err <= loss_tol and
             leaf_errs[worst] <= LM_TRAIN_GRAD_LIMIT):
-        fail(f"lm-train step 0: loss off the torch tier by {loss_err:.3e} "
+        fail(f"{label} step 0: loss off the torch tier by {loss_err:.3e} "
              f"or gradient leaf {worst} by {leaf_errs[worst]:.3e}")
-    del state, leaves, grads_c, grads_t, loss_c, loss_t
+    del state, leaves, grads_c, grads_t, loss_c, loss_t, tb
     torch.cuda.empty_cache()
 
-    # -- LM_TRAIN_STEPS steps through the Trainer
+    # -- steps through the Trainer
     events = []
     step_fn = trainer.step_fn
 
@@ -4697,122 +4760,410 @@ def drive_lm_train():
     trainer.step_fn = timed_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
+    k5_zero()
     result = trainer.run()
     torch.cuda.synchronize()
     launches = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    by_shape = k5_by_shape()
     peak = torch.cuda.max_memory_allocated()
     hist = result["history"]
     losses = [h["loss"] for h in hist]
     host_ms = [h["dt"] * 1e3 for h in hist]
     dev_ms = [a.elapsed_time(b) for a, b in events]
     for h, d_ms in zip(hist, dev_ms):
-        print(f"[lm-train] step {h['step']}: loss {h['loss']:.6f} "
+        print(f"[{label}] step {h['step']}: loss {h['loss']:.6f} "
               f"grad_norm {h['grad_norm']:.4f} lr {h['lr']:.3e}; host "
               f"{h['dt'] * 1e3:.1f} ms, CUDA events {d_ms:.1f} ms",
               flush=True)
-    want = (n_layers * LM_TRAIN_STEPS, 2 * n_layers * LM_TRAIN_STEPS)
-    print(f"[lm-train] Trainer: {len(hist)} steps, K5 launches forward "
-          f"{launches[0]}, backward {launches[1]} (expected {want}); peak "
-          f"memory {peak / 2**30:.2f} GiB", flush=True)
-    if launches != want:
-        fail(f"lm-train: the Trainer's steps launched K5 {launches} times, "
-             f"expected {want}")
-    if len(losses) != LM_TRAIN_STEPS or not all(
+    want_run = tuple(steps * n for n in want)
+    print(f"[{label}] Trainer: {len(hist)} steps, K5 launches forward "
+          f"{launches[0]}, backward {launches[1]} (expected {want_run}); "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if launches != want_run:
+        fail(f"{label}: the Trainer's steps launched K5 {launches} times, "
+             f"expected {want_run}")
+    if len(losses) != steps or not all(
             x == x and abs(x) < float("inf") for x in losses):
-        fail(f"lm-train: losses {losses} are not {LM_TRAIN_STEPS} finite "
-             f"values")
+        fail(f"{label}: losses {losses} are not {steps} finite values")
 
     # -- one profiled step from the trained state
-    state = result["state"]
-    nxt = trainer.pipeline.batch_at(LM_TRAIN_STEPS)
-    holder = {"state": state}
+    holder = {"state": result["state"]}
+    nxt = trainer.pipeline.batch_at(steps)
 
     def one():
         holder["state"] = step_fn(holder["state"], nxt)[0]
-    prof = profiled("lm_train", 1, one)
-    prof.update(k5_shares("lm_train"))
+    prof = profiled(tag, 1, one)
+    prof.update(k5_shares(tag))
     busy = prof["device_busy_ms"]
     if prof["idle_share"] is None:   # the trace holds no kernel
-        print("[lm-train] profiled step: the profiler saw no kernel; device"
-              " shares not measured", flush=True)
+        print(f"[{label}] profiled step: the profiler saw no kernel; device"
+              f" shares not measured", flush=True)
     else:
-        print(f"[lm-train] profiled step: wall {prof['wall_ms']:.1f} ms, "
+        print(f"[{label}] profiled f32 step: wall {prof['wall_ms']:.1f} ms, "
               f"device busy {busy:.1f} ms, idle share "
               f"{prof['idle_share']:.4f}, {prof['kernels']:.0f} kernels; K5 "
               f"forward {prof['k5_fwd_ms']:.2f} ms "
               f"({prof['k5_fwd_ms'] / busy:.2%} of busy), K5 backward "
               f"{prof['k5_bwd_ms']:.2f} ms ({prof['k5_bwd_ms'] / busy:.2%})",
               flush=True)
-    del state, holder, result, trainer
+    del holder, result, trainer
     torch.cuda.empty_cache()
 
     # -- two steps in the config's own bf16, for K5's bf16 backward
-    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     tr16 = train_lm.make_trainer(
-        cfg16, steps=1, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
-        ckpt_dir=str(ROOT / "build" / "lm_train"), device="cuda",
-        checkpoint_every=0)
-    st16 = tr16.make_state()
+        dataclasses.replace(tcfg, dtype="bfloat16"), steps=1, batch=batch,
+        seq=seq, ckpt_dir=ckpt, device="cuda", checkpoint_every=0)
+    h16 = {"state": tr16.make_state()}
     torch.cuda.synchronize()
-    k5.flash_attention.launches = k5.flash_attention_bwd.launches = 0
-    st16, m16 = tr16.step_fn(st16, batch)
+    k5_zero()
+    h16["state"], m16 = tr16.step_fn(h16["state"], tr16.pipeline.batch_at(0))
     torch.cuda.synchronize()
     launches16 = (k5.flash_attention.launches,
                   k5.flash_attention_bwd.launches)
+    by_shape += k5_by_shape()
     loss16 = m16["loss"].item()
     # a second step, timed and profiled, with its own peak memory: the
     # first one built and warmed the kernels
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    holder16 = {"state": st16}
+    b1 = tr16.pipeline.batch_at(1)
 
     def one16():
         e0.record()
-        holder16["state"], holder16["m"] = tr16.step_fn(holder16["state"],
-                                                       trainer_batch1)
+        h16["state"], h16["m"] = tr16.step_fn(h16["state"], b1)
         e1.record()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    prof16 = profiled("lm_train_bf16", 1, one16)
+    prof16 = profiled(tag + "_bf16", 1, one16)
     peak16 = torch.cuda.max_memory_allocated()
-    prof16.update(k5_shares("lm_train_bf16"))
+    prof16.update(k5_shares(tag + "_bf16"))
     host16, dev16 = prof16["wall_ms"], e0.elapsed_time(e1)
-    loss16b = holder16["m"]["loss"].item()
-    st16 = holder16.pop("state")
+    loss16b = h16["m"]["loss"].item()
     busy16 = prof16["device_busy_ms"]
-    print(f"[lm-train] bf16 steps: losses {loss16:.6f} {loss16b:.6f}, K5 "
+    print(f"[{label}] bf16 steps: losses {loss16:.6f} {loss16b:.6f}, K5 "
           f"launches forward {launches16[0]}, backward {launches16[1]} in "
-          f"the first; the second (profiled) {host16:.1f} ms host, CUDA "
-          f"events {dev16:.1f} ms, peak memory {peak16 / 2**30:.2f} GiB "
-          f"(reset just before it)", flush=True)
+          f"the first (expected {want}); the second (profiled) "
+          f"{host16:.1f} ms host, CUDA events {dev16:.1f} ms, peak memory "
+          f"{peak16 / 2**30:.2f} GiB (reset just before it)", flush=True)
     if prof16["idle_share"] is None:   # the trace holds no kernel
-        print("[lm-train] profiled bf16 step: the profiler saw no kernel; "
-              "device shares not measured", flush=True)
+        print(f"[{label}] profiled bf16 step: the profiler saw no kernel; "
+              f"device shares not measured", flush=True)
     else:
-        print(f"[lm-train] profiled bf16 step: device busy {busy16:.1f} ms, "
+        print(f"[{label}] profiled bf16 step: device busy {busy16:.1f} ms, "
               f"idle share {prof16['idle_share']:.4f}, "
               f"{prof16['kernels']:.0f} kernels; K5 forward "
               f"{prof16['k5_fwd_ms']:.2f} ms "
               f"({prof16['k5_fwd_ms'] / busy16:.2%} of busy), K5 backward "
               f"{prof16['k5_bwd_ms']:.2f} ms "
               f"({prof16['k5_bwd_ms'] / busy16:.2%})", flush=True)
-    if launches16 != (n_layers, 2 * n_layers) or not (
-            loss16 == loss16 and loss16b == loss16b):
-        fail(f"lm-train bf16 step: K5 launches {launches16}, losses "
-             f"{loss16} {loss16b}")
-    del st16, tr16
+    if launches16 != want or not (loss16 == loss16 and loss16b == loss16b):
+        fail(f"{label} bf16 step: K5 launches {launches16} (expected "
+             f"{want}), losses {loss16} {loss16b}")
+    del h16, tr16
     torch.cuda.empty_cache()
-    return {"layers": n_layers, "batch": LM_TRAIN_BATCH,
-            "seq": LM_TRAIN_SEQ, "params": cfg.param_count(),
+    return {"params": tcfg.param_count(), "batch": batch, "seq": seq,
             "step0_loss_err": loss_err, "step0_loss_tol": loss_tol,
             "step0_worst_leaf": worst,
             "step0_worst_leaf_err": leaf_errs[worst],
             "step0_launches": launches0, "step0_host_ms": step0_ms,
             "losses": losses, "host_ms": host_ms, "device_ms": dev_ms,
             "launches": launches, "peak_bytes": peak, "profile": prof,
-            "bf16_launches": launches16, "bf16_loss": loss16,
+            "bf16_launches": launches16, "bf16_losses": [loss16, loss16b],
             "bf16_step_host_ms": host16, "bf16_step_device_ms": dev16,
-            "bf16_peak_bytes": peak16, "bf16_profile": prof16}
+            "bf16_peak_bytes": peak16, "bf16_profile": prof16,
+            "by_shape": by_shape}
+
+
+def drive_lm_train():
+    """Phase 18, second part: the LM training path on the card -- gemma2-9b
+    at full width in f32, LM_TRAIN_LAYERS layers, batch LM_TRAIN_BATCH x
+    LM_TRAIN_SEQ tokens, LM_TRAIN_STEPS Trainer steps, through
+    ``drive_lm_trainer``; a step launches K5's forward once and its
+    backward kernels twice a layer.  Returns the measurements."""
+    from repro_torch.launch import train_lm
+    from repro_torch.models.transformer import TransformerLM, lm_loss
+
+    cfg = train_lm.make_config("gemma2-9b", width="full",
+                               layers=LM_TRAIN_LAYERS)
+    n_layers = cfg.num_layers
+    skel = TransformerLM(cfg, device="meta")
+
+    def loss_fn(params, bt, impl):
+        return lm_loss(skel, bt["tokens"], bt["labels"], params=params,
+                       attn_impl=impl)
+    out = drive_lm_trainer(
+        cfg, "lm_train", "lm-train",
+        f"{cfg.name} f32 full width, {n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B params, batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ}", loss_fn, (n_layers, 2 * n_layers),
+        LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    out["layers"] = n_layers
+    # the kernels line takes this phase's K5 launches in all; by shape
+    # (keys of tuples, not JSON) only phase 19 reads them
+    del out["by_shape"]
+    return out
+
+
+def logits_close(got, want, vocab: int, label: str) -> dict:
+    """Phase 6's hold of bf16 logits over the ``vocab`` real ids (a padded
+    id's logit is -1e30, which would set the scale): max-abs within
+    BF16_BAND of the largest magnitude and the relative Frobenius error
+    within LOGIT_FRO_LIMIT, both finite.  Returns the numbers; fails
+    outside."""
+    import torch
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    err = (got - want).abs().max().item()
+    tol = BF16_BAND * max(1.0, want.abs().max().item())
+    fro = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    if not (bool(torch.isfinite(got).all().item()) and err <= tol
+            and fro <= LOGIT_FRO_LIMIT):
+        fail(f"{label}: off by {err:.3e} (tolerance {tol:.3e}) or {fro:.3e} "
+             f"relative Frobenius error (limit {LOGIT_FRO_LIMIT:.0e})")
+    return {"max_abs_err": err, "tol": tol, "fro_rel_err": fro}
+
+
+def drive_encdec():
+    """Phase 19: seamless-m4t-medium (the audio family's enc-dec stack) at
+    full width and depth, random weights from a seeded generator, through
+    launch/steps.py's entry points; K5 on every attention but a decode
+    step's self-attention.  Serving in bf16, then f32 checks, then training
+    in f32 and one bf16 step.  Returns the measurements, with the K5
+    main-path segments' K5 launches by shape as the wrapper counted them
+    (``by_shape``, "[bwd/]<dtype>/<shape name>" over FLASH_SHAPES and
+    FLASH_BWD_SHAPES).  Fails if a segment launched K5 at a shape that
+    phase 5 (forward) or 18 (backward) does not hold."""
+    import dataclasses
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.configs.seamless_m4t_medium import MAX_ENC_FRAMES
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.launch import steps, train_lm
+    from repro_torch.models import encdec
+
+    cfg = get_config("seamless-m4t-medium")
+    n_enc, n_dec = cfg.encoder_layers, cfg.num_layers
+    b, n_prompt, n_steps = ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS
+    t0 = time.perf_counter()
+    model = encdec.init_encdec(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[encdec] {cfg.name}: {n_enc} + {n_dec} layers, d_model "
+          f"{cfg.d_model}, {cfg.attention.num_heads} heads of "
+          f"{cfg.attention.head_dim}, {n_params} parameters in {cfg.dtype} "
+          f"(param_count {cfg.param_count()}), made on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED)
+    # the frames in the model's dtype, as the reference's input specs give
+    # them; the pipeline's scale
+    frames32 = torch.as_tensor(rng.standard_normal(
+        (b, MAX_ENC_FRAMES, cfg.d_model)).astype(np.float32) * 0.02,
+        device="cuda")
+    frames = frames32.to(torch.bfloat16)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                           (b, n_prompt)), device="cuda")
+    cache = n_prompt + n_steps
+    prefill = steps.make_prefill_step(cfg, cache)
+    decode = steps.make_decode_step(cfg)
+    batch = {"frames": frames, "tokens": prompts}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    # K5 launches: a prefill one per encoder layer (g), per decoder
+    # self-attention (k: causal, the prompt) and per cross-attention (h); a
+    # decode step one per cross-attention (j)
+    want_prefill, want_step = n_enc + 2 * n_dec, n_dec
+    # the main path's launches by shape, each segment's read just after it
+    measured = Counter()
+    with torch.inference_mode():
+        prefill(model, batch)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5_zero()
+        ev[0].record()
+        lg, caches, memory, length = prefill(model, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        prefill_launches = k5.flash_attention.launches
+        measured += k5_by_shape()
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        first = lg[:, -1]
+        tok = first.argmax(-1)
+        fed, step_ms, step_logits, step_launches = [], [], [], []
+        for _ in range(n_steps):
+            fed.append(tok)
+            k5_zero()
+            ev[0].record()
+            lg, caches, length = decode(model, {
+                "token": tok[:, None], "caches": caches, "memory": memory,
+                "length": length})
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_launches.append(k5.flash_attention.launches)
+            measured += k5_by_shape()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            step_logits.append(lg[:, -1])
+            tok = lg[:, -1].argmax(-1)
+        peak = torch.cuda.max_memory_allocated()
+        toks = torch.stack(fed, 1)
+        # the decode consistency of the reference's serving test: each
+        # step's logits against one decode_stack over prompt + fed tokens
+        full, _ = encdec.decode_stack(model, torch.cat([prompts, toks], 1),
+                                      memory)
+        cons = logits_close(torch.stack([first] + step_logits, 1),
+                            full[:, n_prompt - 1:], cfg.vocab_size,
+                            "encdec decode consistency (bf16)")
+        # the padded ids' logits stay masked
+        masked = bool((full[..., cfg.vocab_size:] <= -1e29).all().item())
+        del full
+        # the cuda tier's prefill logits against the torch tier's
+        k5_zero()
+        ref = steps.make_prefill_step(cfg, cache, attn_impl="torch")(
+            model, batch)[0][:, -1]
+        torch_launches = k5.flash_attention.launches
+        tier = logits_close(first, ref, cfg.vocab_size,
+                            "encdec prefill vs torch tier")
+        prof_prefill = profiled("encdec_prefill", 1, lambda: prefill(
+            model, batch))
+        prof_prefill.update(k5_shares("encdec_prefill"))
+        prof_step = profiled("encdec_decode_step", 1, lambda: decode(
+            model, {"token": tok[:, None], "caches": caches,
+                    "memory": memory, "length": length - 1}))
+        prof_step.update(k5_shares("encdec_decode_step"))
+    dec_ms = sorted(step_ms)
+    tps = b * n_steps / (sum(step_ms) / 1e3)
+    wave_tps = b * (n_steps + 1) / ((prefill_ms + sum(step_ms)) / 1e3)
+    print(f"[encdec] serve bf16: {b} requests x {MAX_ENC_FRAMES} frames, "
+          f"{n_prompt}-token prompts: prefill {prefill_ms:.2f} ms (CUDA "
+          f"events), {n_steps} greedy decode steps median "
+          f"{dec_ms[n_steps // 2]:.3f} ms, mean "
+          f"{sum(step_ms) / n_steps:.3f} ms; {tps:.1f} tokens/s decoding, "
+          f"{wave_tps:.1f} tokens/s with the prefill; peak memory "
+          f"{peak / 2**30:.2f} GiB; K5 launches prefill {prefill_launches} "
+          f"(expected {n_enc} encoder + {n_dec} self + {n_dec} cross = "
+          f"{want_prefill}), decode steps {sorted(set(step_launches))} "
+          f"(expected {want_step} cross), torch tier {torch_launches}",
+          flush=True)
+    print(f"[encdec] prefill logits vs torch tier max_abs_err="
+          f"{tier['max_abs_err']:.3e} tol={tier['tol']:.3e} fro_rel_err="
+          f"{tier['fro_rel_err']:.3e} (limit {LOGIT_FRO_LIMIT:.0e}); decode "
+          f"consistency (prefill's and {n_steps} steps' logits vs one "
+          f"decode_stack) max_abs_err={cons['max_abs_err']:.3e} tol="
+          f"{cons['tol']:.3e} fro_rel_err={cons['fro_rel_err']:.3e}",
+          flush=True)
+    for name, pr in (("prefill", prof_prefill), ("decode step", prof_step)):
+        if pr["idle_share"] is None:
+            print(f"[encdec] profiled {name}: the profiler saw no kernel; "
+                  f"device shares not measured", flush=True)
+        else:
+            print(f"[encdec] profiled {name}: wall {pr['wall_ms']:.2f} ms, "
+                  f"device busy {pr['device_busy_ms']:.2f} ms, idle share "
+                  f"{pr['idle_share']:.4f}, {pr['kernels']:.0f} kernels, K5 "
+                  f"{pr['k5_fwd_ms']:.3f} ms "
+                  f"({pr['k5_fwd_ms'] / pr['device_busy_ms']:.2%} of busy)",
+                  flush=True)
+    if prefill_launches != want_prefill or \
+            set(step_launches) != {want_step} or torch_launches:
+        fail(f"encdec: K5 launches prefill {prefill_launches}, decode "
+             f"steps {step_launches}, torch tier {torch_launches}; expected "
+             f"{want_prefill}, {want_step} each, 0")
+    if not (masked and bool(((toks >= 0) & (toks < cfg.vocab_size))
+                            .all().item())):
+        fail(f"encdec: padded ids unmasked ({not masked}) or greedy tokens "
+             f"outside [0, {cfg.vocab_size})")
+    serve = {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+             "tokens_per_s": tps, "wave_tokens_per_s": wave_tps,
+             "peak_bytes": peak, "prefill_launches": prefill_launches,
+             "step_launches": step_launches, "vs_torch_tier": tier,
+             "decode_consistency": cons, "profile_prefill": prof_prefill,
+             "profile_decode_step": prof_step}
+    del model, caches, memory, lg, ref, first, step_logits
+    torch.cuda.empty_cache()
+
+    # -- f32: phase 7's hold of the prefill logits, one decode step
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = encdec.init_encdec(cfg32, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    batch32 = {"frames": frames32, "tokens": prompts}
+    with torch.inference_mode():
+        k5_zero()
+        got, c32, mem32, len32 = steps.make_prefill_step(cfg32, cache)(
+            m32, batch32)
+        lg32, _, _ = steps.make_decode_step(cfg32)(
+            m32, {"token": prompts[:, :1], "caches": c32, "memory": mem32,
+                  "length": len32})
+        torch.cuda.synchronize()
+        launches32 = k5.flash_attention.launches
+        measured += k5_by_shape()
+        want = steps.make_prefill_step(cfg32, cache, attn_impl="torch")(
+            m32, batch32)[0]
+        full32, _ = encdec.decode_stack(
+            m32, torch.cat([prompts, prompts[:, :1]], 1), mem32)
+    v = cfg.vocab_size   # the padded ids' -1e30 would set the scale
+    err, tol = max_err(got[..., :v], want[..., :v])
+    err_d, tol_d = max_err(lg32[:, -1, :v], full32[:, -1, :v])
+    print(f"[encdec] f32 prefill logits vs torch tier max_abs_err={err:.3e} "
+          f"tol={tol:.3e}; a decode step vs decode_stack max_abs_err="
+          f"{err_d:.3e} tol={tol_d:.3e}; K5 launches {launches32} (expected "
+          f"{want_prefill + want_step})", flush=True)
+    if launches32 != want_prefill + want_step:
+        fail(f"encdec f32: K5 launches {launches32}, expected "
+             f"{want_prefill + want_step}")
+    if not (bool(torch.isfinite(got).all().item()) and err <= tol
+            and err_d <= tol_d):
+        fail(f"encdec f32: prefill logits off the torch tier by {err:.3e} "
+             f"(tolerance {tol:.3e}) or a decode step off decode_stack by "
+             f"{err_d:.3e} (tolerance {tol_d:.3e})")
+    f32 = {"prefill_max_abs_err": err, "prefill_tol": tol,
+           "decode_max_abs_err": err_d, "decode_tol": tol_d,
+           "launches": launches32}
+    del m32, c32, mem32, got, want, full32, lg32
+    torch.cuda.empty_cache()
+
+    # -- training: f32 at full width and depth through launch/train_lm.py;
+    # a step's K5 launches: forward one per attention, then the
+    # checkpointed layers' recomputation again; backward two per attention
+    tcfg = train_lm.make_config(cfg.name, width="full")
+    skel = encdec.EncDecLM(tcfg, device="meta")
+    n_attn = n_enc + 2 * n_dec
+
+    def loss_fn(params, bt, impl):
+        return encdec.encdec_loss(skel, bt["frames"], bt["tokens"],
+                                  bt["labels"], params=params,
+                                  attn_impl=impl)
+    train = drive_lm_trainer(
+        tcfg, "encdec_train", "encdec",
+        f"train {tcfg.name} f32, {n_enc} + {n_dec} layers, "
+        f"{tcfg.param_count() / 1e6:.1f} M params, batch "
+        f"{ENCDEC_TRAIN_BATCH} x {ENCDEC_TRAIN_SEQ} tokens over "
+        f"{min(ENCDEC_TRAIN_SEQ, MAX_ENC_FRAMES)} frames", loss_fn,
+        (2 * n_attn, 2 * n_attn), ENCDEC_TRAIN_STEPS, ENCDEC_TRAIN_BATCH,
+        ENCDEC_TRAIN_SEQ)
+    measured += train.pop("by_shape")
+
+    # the segments' launches by shape: each key to the FLASH_SHAPES
+    # (forward) or FLASH_BWD_SHAPES (backward) entry of its function, at
+    # its own batch where the table has it, else at the table's
+    by_shape, lines = Counter(), []
+    for key, n in sorted(measured.items(), key=str):
+        part, dtype, b_, *rest = key
+        table = FLASH_SHAPES if part == "fwd" else FLASH_BWD_SHAPES
+        names = [nm for nm, shp in table.items()
+                 if shp[9] is None and tuple(shp[1:9]) == tuple(rest)]
+        names = [nm for nm in names if table[nm][0] == b_] or names
+        if not names:
+            fail(f"encdec: K5 {part} launched {n} times at {key}, a shape "
+                 f"that no check of phase {5 if part == 'fwd' else 18} "
+                 f"holds")
+        by_shape[("bwd/" if part == "bwd" else "") + f"{dtype}/"
+                 f"{names[0]}"] += n
+        lines.append(f"{part} {dtype} ({names[0]}) B={b_}: {n}")
+    print(f"[encdec] K5 launches by shape over the main-path segments "
+          f"(prefill, decode steps, f32 prefill and step, Trainer steps, "
+          f"first bf16 training step), as the wrapper counted them: "
+          + "; ".join(lines), flush=True)
+    return {"params": n_params, "serve": serve, "f32": f32, "train": train,
+            "by_shape": dict(by_shape)}
 
 
 def main() -> None:
@@ -5014,6 +5365,12 @@ def main() -> None:
     lm_train = drive_lm_train()
     print(f"[lm-train] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # -- 19. the enc-dec path: seamless-m4t-medium serving and training
+    t0 = time.perf_counter()
+    encdec = drive_encdec()
+    print(f"[encdec] phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -5023,6 +5380,7 @@ def main() -> None:
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "flash_bwd": flash_bwd, "lm_train": lm_train,
+         "encdec": encdec,
          "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
@@ -5141,6 +5499,32 @@ def main() -> None:
             "library_ms": rec["library_ms"],
             "frac_of_bound": rec["frac_of_bound"],
             "vs_library": rec["vs_library"]})
+    # K5 at seamless-m4t-medium's shapes (g)-(k), forward and backward:
+    # launches are phase 19's at that shape's function as the wrapper
+    # counted them (``by_shape``; the training forward's encoder and
+    # cross-attention run (g)'s function at batch 2); the backward at (h)
+    # and (j), off the training path, is in chip_smoke.json only
+    for recs, part in ((flash, ""), (flash_bwd, "bwd")):
+        for rec in recs:
+            key = "/".join(([part] if part else []) +
+                           [rec["dtype"], rec["shape"]])
+            if key not in encdec["by_shape"]:
+                continue
+            kernels.append({
+                "name": "flash_attention_" + (part + "_" if part else "")
+                + ("bf16" if rec["dtype"] == "bfloat16" else "f32")
+                + "_" + rec["shape"],
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:111",
+                "shape": rec["shape"],
+                "launches": encdec["by_shape"][key],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+                "frac_of_bound": rec["frac_of_bound"],
+                "vs_library": rec["vs_library"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,10 +3,11 @@
 A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
 (``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
 the LM part (``AttentionConfig``, ``LMConfig``, :96-195, with
-``param_count`` and ``_count_params`` :188-237 for the dense stacks the
-port runs), the training part (``ShapeSpec`` :27, ``OptimizerConfig``
-:310, ``TrainConfig`` :330) and the registry (``register``/``get_config``,
-:349-373) -- kept here so the port imports nothing of the JAX package.
+``param_count`` and ``_count_params`` :188-237 for the dense and enc-dec
+stacks the port runs), the training part (``ShapeSpec`` :27,
+``OptimizerConfig`` :310, ``TrainConfig`` :330) and the registry
+(``register``/``get_config``, :349-373) -- kept here so the port imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -110,9 +111,10 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class LMConfig:
-    """A decoder-style transformer backbone.  The MoE, SSM and enc-dec
-    fields are kept so the published configs copy over unchanged; the
-    port's model raises ``NotImplementedError`` on them."""
+    """A transformer backbone: a decoder stack, or with ``encoder_layers``
+    an enc-dec one (``models/encdec.py``).  The MoE and SSM fields are
+    kept so the published configs copy over unchanged; the port's model
+    raises ``NotImplementedError`` on them."""
 
     name: str
     family: str  # dense | moe | hybrid | ssm | vlm | audio
@@ -171,7 +173,8 @@ class LMConfig:
     def param_count(self) -> int:
         """Analytic total parameter count (embedding + layers), as the
         reference counts it (``param_count``, :188): the unpadded vocab,
-        no norm scales.  MoE, SSM and enc-dec layers raise (not
+        no norm scales; an enc-dec stack counts its encoder and the
+        decoder's cross-attention.  MoE and SSM layers raise (not
         ported)."""
         return _count_params(self)
 
@@ -186,15 +189,19 @@ def _attn_params(d_model: int, a: AttentionConfig) -> int:
 
 
 def _count_params(cfg: LMConfig) -> int:
-    """``_count_params`` (:208) for dense attention stacks."""
-    if cfg.moe is not None or cfg.ssm is not None or cfg.encoder_layers:
+    """``_count_params`` (:208) for dense attention stacks, enc-dec ones
+    included: the encoder's layers after the decoder's, each decoder layer
+    with its cross-attention (:214-224)."""
+    if cfg.moe is not None or cfg.ssm is not None:
         raise NotImplementedError(
-            f"{cfg.name}: parameter counts of MoE, SSM and enc-dec stacks "
-            f"are not ported (ROADMAP item 13.7)")
+            f"{cfg.name}: parameter counts of MoE and SSM stacks are not "
+            f"ported (ROADMAP item 13.7)")
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers + cfg.encoder_layers):
         if cfg.attention is not None:
             total += _attn_params(cfg.d_model, cfg.attention)
+            if i < cfg.num_layers and cfg.encoder_layers > 0:
+                total += _attn_params(cfg.d_model, cfg.attention)
         if cfg.d_ff > 0:
             total += _mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_activation)
     return total

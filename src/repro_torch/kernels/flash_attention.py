@@ -14,9 +14,11 @@ accumulator in f32; an all-masked row gives 0; one rounding to q's dtype.
 
 ``flash_attention`` is the wrapper: tensors on the CPU take
 ``flash_attention_plain``, CUDA tensors launch the kernel or raise.
-``flash_attention.launches`` counts the launches.  With ``return_lse=True``
-the kernel also stores each row's logsumexp ``m + log(l)`` (f32, (B, Hq,
-Sq)), which the backward needs; ``out`` is the same bit for bit.
+``flash_attention.launches`` counts the launches, and
+``flash_attention.by_shape`` the same launches by ``launch_key``.  With
+``return_lse=True`` the kernel also stores each row's logsumexp ``m +
+log(l)`` (f32, (B, Hq, Sq)), which the backward needs; ``out`` is the same
+bit for bit.
 
 The backward (no TPU kernel: the reference differentiates its XLA flash
 path, ``repro/nn/flash_vjp.py::_flash_bwd``, whose two passes this
@@ -31,7 +33,8 @@ them); f32 inputs ``tf32x3_bwd_dq_kernel`` and ``tf32x3_bwd_dkdv_kernel``,
 every product a 3xTF32 ``wgmma`` (dQ, dK and dV formed transposed, fresh
 accumulators per KV or q tile added in f32).  On the CPU
 ``flash_attention_bwd_plain``.
-``flash_attention_bwd.launches`` counts both kernels' launches.
+``flash_attention_bwd.launches`` counts both kernels' launches, and
+``flash_attention_bwd.by_shape`` the same by ``launch_key``.
 ``FlashAttention`` is the ``torch.autograd.Function`` over the two: its
 forward is K5 with the lse, its backward the two kernels.
 """
@@ -39,6 +42,7 @@ forward is K5 with the lse, its backward the two kernels.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -280,7 +284,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0, return_lse: bool = False):
     """Flash attention: a CUDA kernel for CUDA tensors, the plain version
     for tensors on the CPU.  By dtype: bf16 launches ``wgmma_kernel``, f32
-    ``tf32x3_kernel``; both count in ``flash_attention.launches``.
+    ``tf32x3_kernel``; both count in ``flash_attention.launches`` and
+    ``flash_attention.by_shape``.
 
     q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), all f32 or all bf16,
     contiguous and 16-byte aligned, Hq a multiple of Hkv, D in
@@ -298,7 +303,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = _launch(q, k, v, kv_len, causal=causal, window=window,
                   softcap=softcap, return_lse=return_lse)
     flash_attention.launches += 1
+    flash_attention.by_shape[launch_key(q, k, causal, window, softcap)] += 1
     return out
+
+
+def launch_key(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
+               softcap: float) -> tuple:
+    """A launch's key in the ``by_shape`` counters: (dtype name, B, Hq,
+    Hkv, Sq, Sk, D, causal, window, softcap)."""
+    b, hq, sq, d = q.shape
+    return (str(q.dtype).removeprefix("torch."), b, hq, k.shape[1], sq,
+            k.shape[2], d, bool(causal), int(window), float(softcap))
 
 
 def _check(q, k, v, kv_len, name: str):
@@ -374,6 +389,7 @@ def _launch(q, k, v, kv_len=None, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.by_shape = Counter()
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -388,7 +404,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors the dq pass then the dk/dv pass, both on the tensor cores
     -- bf16 ``wgmma_bwd_dq_kernel`` and ``wgmma_bwd_dkdv_kernel``, f32
     ``tf32x3_bwd_dq_kernel`` and ``tf32x3_bwd_dkdv_kernel`` -- each
-    counted in ``flash_attention_bwd.launches`` (two a call).  q, k, v,
+    counted in ``flash_attention_bwd.launches`` (two a call) and in
+    ``flash_attention_bwd.by_shape``.  q, k, v,
     out and dout share one dtype (f32 or bf16) and K5's shapes, contiguous
     and 16-byte aligned; lse is (B, Hq, Sq) f32.  Returns the gradients in
     that dtype.  ``terms=3`` (3xTF32) is the f32 kernels' arithmetic;
@@ -436,6 +453,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dkdv_fn = _build.load("flash_attention").flash_attention_bwd_dkdv
     ptrs = [t.data_ptr() if t is not None else None
             for t in (q, k, v, out, lse, dout, kv_len, delta, qs, dq, dk, dv)]
+    key = launch_key(q, k, causal, window, softcap)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         for fn in (dq_fn, dkdv_fn):   # dkdv reads what the dq pass wrote
@@ -449,10 +467,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise RuntimeError(f"flash_attention_bwd: kernel launch "
                                    f"failed with CUDA error {err}")
             flash_attention_bwd.launches += 1
+            flash_attention_bwd.by_shape[key] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.by_shape = Counter()
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,4 +1,8 @@
-"""The LM training and evaluation steps (``repro/launch/steps.py``).
+"""The LM step functions (``repro/launch/steps.py``): training,
+evaluation, prefill and decode, for both families the port runs -- dense
+decoder stacks (``models/transformer.py``) and the audio family's
+enc-dec stack (``models/encdec.py``), whose batches carry the encoder's
+``frames``.
 
 ``make_train_step`` returns ``(TrainState, batch) -> (TrainState,
 metrics)``: the loss and its gradients over the state's parameters, then
@@ -8,11 +12,14 @@ model.named_parameters())``, detached), which ``make_train_state``,
 ``train/trainer.py::Trainer`` and ``checkpoint/`` take as they are; the
 loss runs over them through ``torch.func.functional_call`` on a module
 that holds only the structure (on the ``meta`` device).  A batch is a
-dict of numpy arrays or tensors (``tokens``, ``labels``), moved to the
-parameters' device.
+dict of numpy arrays or tensors (``tokens``, ``labels``, ``frames``),
+moved to the parameters' device.
 
-The reference's prefill and decode step makers are served by ``serve/``;
-the audio family's enc-dec loss is not ported.
+``make_prefill_step`` and ``make_decode_step`` take the model itself in
+the reference's ``params`` place: ``(model, batch)`` with ``tokens`` (and
+``frames``), then ``token``, ``caches``, ``length`` (and the encoder's
+``memory``).  The serving engine (``serve/``) drives the dense family's
+own prefill and decode.
 """
 
 from __future__ import annotations
@@ -22,12 +29,36 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.config import LMConfig, OptimizerConfig
-from repro_torch.models.transformer import DTYPES, TransformerLM, lm_loss
+from repro_torch.models import encdec as encdec_lib
+from repro_torch.models.transformer import (DTYPES, TransformerLM,
+                                            lm_decode_step, lm_loss,
+                                            lm_prefill)
 from repro_torch.optim.optimizer import TrainState, adamw_update
 
 
-def _on_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def _on_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """Each entry as a tensor on ``device``, but a decode batch's
+    ``caches`` (a list of tensor pairs), which stays as it is."""
+    return {k: v if k == "caches" else torch.as_tensor(v).to(device)
+            for k, v in batch.items()}
+
+
+def _skeleton(cfg: LMConfig):
+    """The family's model on the ``meta`` device: structure only."""
+    if cfg.family == "audio":
+        return encdec_lib.EncDecLM(cfg, device="meta")
+    return TransformerLM(cfg, device="meta")
+
+
+def _loss(cfg: LMConfig, skel, batch, params, remat: str = "none"):
+    """The family's loss over ``params`` by name: ``encdec_loss`` of the
+    batch's frames, tokens and labels for the audio family (whose layers
+    are always rematerialized, as the reference's), else ``lm_loss``."""
+    if cfg.family == "audio":
+        return encdec_lib.encdec_loss(skel, batch["frames"], batch["tokens"],
+                                      batch["labels"], params=params)
+    return lm_loss(skel, batch["tokens"], batch["labels"],
+                   batch.get("embeds"), remat=remat, params=params)
 
 
 def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
@@ -39,20 +70,21 @@ def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
     0 into that many slices, each slice's gradients added into buffers of
     ``opt.accum_dtype`` in order and divided by their number, the metrics
     averaged over the slices.  ``remat`` ("none" or "full") goes to
-    ``lm_loss``.  Metrics: ``loss``, ``ce``, ``aux``, ``lr``,
-    ``grad_norm`` (0-d tensors)."""
-    if cfg.family == "audio":
-        raise NotImplementedError("the enc-dec loss (audio family) is not "
-                                  "ported")
-    skel = TransformerLM(cfg, device="meta")
+    ``lm_loss``; the audio family's ``encdec_loss`` rematerializes every
+    layer as the reference's does, whatever ``remat`` says, so there any
+    other value than the default raises.  Metrics: ``loss``, ``ce`` (and
+    ``aux`` for the dense family), ``lr``, ``grad_norm`` (0-d tensors)."""
+    if cfg.family == "audio" and remat != "none":
+        raise ValueError(f"make_train_step: the audio family's encdec_loss "
+                         f"rematerializes every layer and takes no remat "
+                         f"option; got remat={remat!r}")
+    skel = _skeleton(cfg)
     adt = DTYPES[opt.accum_dtype]
 
     def loss_and_grads(params, batch):
         leaves = {k: p.detach().requires_grad_(True)
                   for k, p in params.items()}
-        loss, metrics = lm_loss(skel, batch["tokens"], batch["labels"],
-                                batch.get("embeds"), remat=remat,
-                                params=leaves)
+        loss, metrics = _loss(cfg, skel, batch, leaves, remat)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
@@ -88,17 +120,57 @@ def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
     return train_step
 
 
+def make_prefill_step(cfg: LMConfig, cache_size: int = 0, *,
+                      attn_impl: str = "auto") -> Callable:
+    """(model, batch) -> (last logits, caches, [memory,] length)
+    (``make_prefill_step``, :75).  The audio family runs
+    ``encdec_prefill`` over ``frames`` and ``tokens``; a dense model
+    ``lm_prefill`` (frontend ``embeds`` raise there: not ported).  The
+    caches hold ``cache_size`` positions, by default the prompt's."""
+
+    def prefill_step(model, batch):
+        batch = _on_device(batch, model.device)
+        if cfg.family == "audio":
+            return encdec_lib.encdec_prefill(
+                model, batch["frames"], batch["tokens"],
+                cache_size or batch["tokens"].shape[1], attn_impl=attn_impl)
+        n_front = batch["embeds"].shape[1] if "embeds" in batch else 0
+        size = cache_size or (batch["tokens"].shape[1] + n_front)
+        return lm_prefill(model, batch["tokens"], size, batch.get("embeds"),
+                          attn_impl=attn_impl)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: LMConfig, *, attn_impl: str = "auto") -> Callable:
+    """(model, batch{token, caches, [memory,] length}) -> (logits, caches,
+    length) (``make_decode_step``, :92): ``encdec_decode_step`` for the
+    audio family, ``lm_decode_step`` for a dense model.  The new rows are
+    written into ``caches`` in place."""
+
+    def decode_step(model, batch):
+        batch = _on_device(batch, model.device)
+        if cfg.family == "audio":
+            return encdec_lib.encdec_decode_step(
+                model, batch["token"], batch["caches"], batch["memory"],
+                batch["length"], attn_impl=attn_impl)
+        return lm_decode_step(model, batch["token"], batch["caches"],
+                              batch["length"], attn_impl=attn_impl)
+
+    return decode_step
+
+
 def make_eval_step(cfg: LMConfig) -> Callable:
-    """(params, batch) -> {"ce", "aux"} without a gradient
-    (``make_eval_step``, :107)."""
-    skel = TransformerLM(cfg, device="meta")
+    """(params, batch) -> the loss's metrics without a gradient
+    (``make_eval_step``, :106): ``{"ce", "aux"}`` for a dense model,
+    ``{"ce"}`` for the audio family."""
+    skel = _skeleton(cfg)
 
     def eval_step(params, batch):
         dev = next(iter(params.values())).device
         batch = _on_device(batch, dev)
         with torch.no_grad():
-            _, metrics = lm_loss(skel, batch["tokens"], batch["labels"],
-                                 batch.get("embeds"), params=params)
+            _, metrics = _loss(cfg, skel, batch, params)
         return metrics
 
     return eval_step

@@ -8,10 +8,13 @@ its atomic checkpoints -- over a ~100M granite-family model by default:
   PYTHONPATH=src python -m repro_torch.launch.train_lm --steps 300
   PYTHONPATH=src python -m repro_torch.launch.train_lm --arch gemma2-9b \\
       --preset smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train_lm \\
+      --arch seamless-m4t-medium --width full --steps 3 --batch 2 --seq 4096
 
 On a card the attention of every layer runs K5 and its backward kernels
 (``--device cuda``, the default).  ``--arch`` takes the archs whose
-configs the port has (``granite-100m``, ``gemma2-9b``, ``granite-3-8b``),
+configs the port has (``granite-100m``, ``gemma2-9b``, ``granite-3-8b``,
+and the enc-dec ``seamless-m4t-medium``, its frames from the pipeline),
 reduced and in f32 as the example trains them (``make_config(...,
 width="full", layers=n)`` keeps the published widths and cuts the depth,
 as ``chip_smoke.py``'s phase 18 trains gemma2-9b).  Re-running the same
@@ -33,13 +36,16 @@ from repro_torch.config import (AttentionConfig, LMConfig, OptimizerConfig,
 from repro_torch.core.backend import resolve_device
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models.encdec import init_encdec
 from repro_torch.models.transformer import init_lm
 from repro_torch.optim.optimizer import make_train_state
 from repro_torch.train.trainer import Trainer
 
 #: --arch -> the port's config module (the example's MODULES, cut to the
-#: archs the port has)
-MODULES = {"gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b"}
+#: archs the port has, and the enc-dec seamless-m4t-medium, whose batches
+#: carry the encoder's frames)
+MODULES = {"gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b",
+           "seamless-m4t-medium": "seamless_m4t_medium"}
 
 
 def model_100m() -> LMConfig:
@@ -80,8 +86,8 @@ def make_trainer(cfg: LMConfig, *, steps: int, batch: int, seq: int,
                  log_every: int = 10, checkpoint_every: int = 50) -> Trainer:
     """A ``Trainer`` over ``TokenPipeline(cfg, (seq, batch), seed=0)``,
     ``make_train_step(cfg, opt)`` and ``make_train_state(init_lm(cfg))``
-    with the weights drawn from a generator seeded with 0 on ``device``
-    (the example's seeds)."""
+    (``init_encdec`` for the audio family) with the weights drawn from a
+    generator seeded with 0 on ``device`` (the example's seeds)."""
     dev = resolve_device(device)
     shape = ShapeSpec("train_cli", seq, batch, "train")
     opt = OptimizerConfig(lr=lr, warmup_steps=max(10, steps // 20),
@@ -90,9 +96,11 @@ def make_trainer(cfg: LMConfig, *, steps: int, batch: int, seq: int,
                      checkpoint_dir=ckpt_dir,
                      checkpoint_every=checkpoint_every, log_every=log_every)
 
+    init = init_encdec if cfg.family == "audio" else init_lm
+
     def make_state():
         gen = torch.Generator(device=dev).manual_seed(0)
-        model = init_lm(cfg, generator=gen, device=dev)
+        model = init(cfg, generator=gen, device=dev)
         params = {k: p.detach() for k, p in model.named_parameters()}
         return make_train_state(params, opt)
 
@@ -104,7 +112,8 @@ def make_trainer(cfg: LMConfig, *, steps: int, batch: int, seq: int,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-100m",
-                    help="granite-100m | gemma2-9b | granite-3-8b")
+                    help="granite-100m | gemma2-9b | granite-3-8b | "
+                    "seamless-m4t-medium")
     ap.add_argument("--preset", default="full",
                     choices=["full", "tiny", "smoke"])
     ap.add_argument("--steps", type=int, default=300)
@@ -112,12 +121,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="checkpoints/train_lm")
+    ap.add_argument("--width", default="reduced",
+                    choices=["reduced", "full"],
+                    help="an arch's reduced config or its published widths "
+                    "(f32 either way)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    cfg = make_config(args.arch, args.preset)
+    cfg = make_config(args.arch, args.preset, width=args.width)
     if args.preset == "smoke":
         args.steps, args.batch, args.seq = min(args.steps, 5), 2, 32
     print(f"arch={cfg.name}  params={cfg.param_count() / 1e6:.1f}M  "

@@ -20,9 +20,9 @@ Entry points (the reference's, with the module in place of ``params`` and
 ``model(tokens, labels)`` is ``lm_loss``, so ``torch.func.functional_call``
 runs the loss over a dict of parameters by name (``launch/steps.py``).
 
-Caches are a list with one ``(k, v)`` pair per layer.  MoE, SSM, the
-enc-dec family and frontend embeddings are not ported and raise
-``NotImplementedError``.
+Caches are a list with one ``(k, v)`` pair per layer.  MoE, SSM and
+frontend embeddings are not ported and raise ``NotImplementedError``; an
+enc-dec config raises too (its model is ``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -83,9 +83,12 @@ def layer_positions(cfg: LMConfig) -> List[LayerPos]:
 
 
 def _check_supported(cfg: LMConfig) -> None:
+    if cfg.encoder_layers > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: an enc-dec stack; its model is "
+            f"models/encdec.py::EncDecLM")
     missing = [what for what, off in (
         ("MoE", cfg.moe is not None), ("SSM", cfg.ssm is not None),
-        ("enc-dec", cfg.encoder_layers > 0),
         ("frontend embeddings", cfg.frontend_stub),
         ("attention-free stacks", cfg.attention is None),
         ("FFN-free blocks", cfg.d_ff <= 0)) if off]
@@ -182,25 +185,45 @@ class TransformerLM(nn.Module):
         """Load the reference's ``init_lm`` pytree (numpy leaves) in place
         (``flatten_reference`` names its leaves).  Raises on a missing or
         extra leaf or a shape mismatch."""
-        flat = flatten_reference(tree, self.cfg)
-        mine = dict(self.named_parameters())
-        if set(flat) != set(mine):
-            raise ValueError(f"parameter names differ: reference only "
-                             f"{sorted(set(flat) - set(mine))}, model only "
-                             f"{sorted(set(mine) - set(flat))}")
-        with torch.no_grad():
-            for name, value in flat.items():
-                value = torch.from_numpy(np.array(value, np.float32))
-                if tuple(value.shape) != tuple(mine[name].shape):
-                    raise ValueError(f"{name}: reference shape "
-                                     f"{tuple(value.shape)} != "
-                                     f"{tuple(mine[name].shape)}")
-                mine[name].copy_(value)
-        return self
+        return load_flat(self, flatten_reference(tree, self.cfg))
 
     def head_table(self) -> torch.Tensor:
         return (self.embed if self.cfg.tie_embeddings
                 else self.lm_head).table
+
+
+def load_flat(module: nn.Module, flat: Dict[str, np.ndarray]):
+    """Copy ``{parameter name: numpy leaf}`` into ``module``'s parameters in
+    place; returns the module.  Raises on a missing or extra name or a
+    shape mismatch."""
+    mine = dict(module.named_parameters())
+    if set(flat) != set(mine):
+        raise ValueError(f"parameter names differ: reference only "
+                         f"{sorted(set(flat) - set(mine))}, model only "
+                         f"{sorted(set(mine) - set(flat))}")
+    with torch.no_grad():
+        for name, value in flat.items():
+            value = torch.from_numpy(np.array(value, np.float32))
+            if tuple(value.shape) != tuple(mine[name].shape):
+                raise ValueError(f"{name}: reference shape "
+                                 f"{tuple(value.shape)} != "
+                                 f"{tuple(mine[name].shape)}")
+            mine[name].copy_(value)
+    return module
+
+
+def flatten_into(flat: Dict[str, np.ndarray], prefix: str, node: Dict,
+                 index: Optional[int] = None) -> None:
+    """Add the leaves of the reference's params subtree ``node`` to
+    ``flat`` under the port's names (``prefix.key...``; slice ``index`` of
+    each leaf when the subtree is stacked).  A ``{"w": ...}`` leaf maps
+    onto the parameter named by its parent key."""
+    for key, val in node.items():
+        name = prefix if key == "w" else f"{prefix}.{key}"
+        if isinstance(val, dict):
+            flatten_into(flat, name, val, index)
+        else:
+            flat[name] = val if index is None else val[index]
 
 
 def flatten_reference(tree: Dict, cfg: LMConfig) -> Dict[str, np.ndarray]:
@@ -208,26 +231,16 @@ def flatten_reference(tree: Dict, cfg: LMConfig) -> Dict[str, np.ndarray]:
     ``{parameter name: leaf}`` in the port's names.
 
     ``tree["blocks"]["pos{i}"]`` leaves are stacked ``(n_rep, ...)``; layer
-    ``rep * period + i`` takes slice ``rep``.  A ``{"w": ...}`` leaf maps
-    onto the parameter named by its parent key."""
+    ``rep * period + i`` takes slice ``rep`` (``flatten_into``)."""
     period = len(layer_positions(cfg))
     flat: Dict[str, np.ndarray] = {}
-
-    def walk(prefix, node, rep=None):
-        for key, val in node.items():
-            name = prefix if key == "w" else f"{prefix}.{key}"
-            if isinstance(val, dict):
-                walk(name, val, rep)
-            else:
-                flat[name] = val if rep is None else val[rep]
-
     for key, sub in tree.items():
         if key != "blocks":
-            walk(key, sub)
+            flatten_into(flat, key, sub)
     for pos_key, sub in tree["blocks"].items():
         i = int(pos_key[len("pos"):])
         for rep in range(cfg.num_layers // period):
-            walk(f"layers.{rep * period + i}", sub, rep)
+            flatten_into(flat, f"layers.{rep * period + i}", sub, rep)
     return flat
 
 
@@ -262,6 +275,36 @@ def _embed_inputs(model: TransformerLM, tokens: torch.Tensor,
 REMAT = ("none", "full")
 
 
+class _Bound(nn.Module):
+    """``fn`` over ``module``, so that ``torch.func.functional_call`` can
+    put tensors in place of ``module``'s parameters while ``fn`` runs."""
+
+    def __init__(self, module: nn.Module, fn):
+        super().__init__()
+        self.module, self.fn = module, fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def checkpointed(module: nn.Module, fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)``, a
+    function that reads ``module``'s parameters: only ``args`` are kept,
+    and the backward runs ``fn`` again -- with the tensors the parameters
+    hold now.  Under ``torch.func.functional_call`` (``launch/steps.py``)
+    those are the caller's, which a plain checkpoint no longer sees when
+    the backward recomputes (the call has returned and put the module's
+    own back: on a ``meta`` skeleton, tensors without data).  Without a
+    gradient there is nothing to keep: ``fn(*args)`` runs as it is."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    params = {f"module.{n}": p for n, p in module.named_parameters()}
+    bound = _Bound(module, fn)
+    return ckpt.checkpoint(
+        lambda *a: torch.func.functional_call(bound, params, a), *args,
+        use_reentrant=False)
+
+
 def _run_stack(model: TransformerLM, x: torch.Tensor, *,
                caches: Optional[Caches] = None, cache_length=None,
                make_cache: bool = False, cache_size: int = 0,
@@ -269,9 +312,9 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
     """Run the layers in order.  Returns (x, new_caches or None).
 
     ``remat="full"`` runs each period of layers under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
-    scan body): only the period's input is kept, and the backward runs the
-    period's forward again.  The reference's ``"selective"`` policy (keep
+    ``torch.utils.checkpoint`` (``checkpointed``: the reference's
+    ``jax.checkpoint`` of its scan body): only the period's input is
+    kept, and the backward runs the period's forward again.  The reference's ``"selective"`` policy (keep
     the products without batch dimensions) is not ported and raises."""
     cfg = model.cfg
     dt, period = DTYPES[cfg.dtype], layer_period(cfg)
@@ -298,13 +341,17 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
 
     for n0 in range(0, cfg.num_layers, period):
         if remat == "full":
-            x = ckpt.checkpoint(run_period, x, n0, use_reentrant=False)
+            x = checkpointed(model, run_period, x, n0)
         else:
             x = run_period(x, n0)
     return x.to(dt), (new_caches or None)
 
 
-def _logits(model: TransformerLM, x: torch.Tensor) -> torch.Tensor:
+def head_logits(model, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the last layer's output ``x``: ``final_ln``, the
+    product against ``model.head_table()``, the final softcap, the padded
+    vocabulary's ids at -1e30 (a model with ``cfg``, ``final_ln`` and
+    ``head_table``: ``TransformerLM`` or ``EncDecLM``)."""
     cfg = model.cfg
     x = model.final_ln(x, cfg.norm_eps)
     logits = softcap(unembed(model.head_table(), x), cfg.final_logit_softcap)
@@ -320,7 +367,7 @@ def lm_forward(model: TransformerLM, tokens: torch.Tensor, embeds=None, *,
     """Full-sequence forward: tokens (B, S) -> f32 logits (B, S, V)."""
     x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
                       attn_impl=attn_impl)
-    return _logits(model, x)
+    return head_logits(model, x)
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,
@@ -329,15 +376,9 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     """Next-token cross-entropy, computed CHUNKED over tokens
     (``lm_loss``, :256).  Returns ``(loss, {"ce": loss, "aux": aux})``.
 
-    The final norm's output is cut into ``ce_chunk`` tokens (all ``t`` of
-    them when ``t % ce_chunk``); each chunk's logits are the product
-    against the head table in x's dtype accumulated in f32, the final
-    softcap, the padded vocabulary's -1e30 added, ``log_softmax``, and the
-    label's negative log-likelihood, labels -100 masked.  Each chunk runs
-    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``),
-    so no (tokens, vocab) f32 logits are kept for the backward, which
-    computes each chunk's again.  Tied embeddings take gradients from the
-    lookup and the head.  ``aux`` is 0 (MoE is not ported).
+    The final norm's output goes to ``chunked_ce`` against the head
+    table.  Tied embeddings take gradients from the lookup and the head.
+    ``aux`` is 0 (MoE is not ported).
 
     ``params`` (a dict of tensors by parameter name) runs the loss through
     ``torch.func.functional_call`` with those tensors in place of the
@@ -349,8 +390,24 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     cfg = model.cfg
     x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
                       attn_impl=attn_impl, remat=remat)
-    x = model.final_ln(x, cfg.norm_eps)
-    table = model.head_table()
+    loss = chunked_ce(cfg, model.head_table(),
+                      model.final_ln(x, cfg.norm_eps), labels, ce_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + aux, {"ce": loss, "aux": aux}
+
+
+def chunked_ce(cfg: LMConfig, table: torch.Tensor, x: torch.Tensor,
+               labels: torch.Tensor, ce_chunk: int) -> torch.Tensor:
+    """The mean next-token cross-entropy of the final norm's output ``x``
+    (B, S, D) against ``labels`` (B, S), -100 masked, with logits ``x @
+    table.T``, chunked as the reference's ``lm_loss`` and ``encdec_loss``
+    chunk it: ``ce_chunk`` tokens at a time (all ``t`` of them when
+    ``ce_chunk`` does not divide ``t``); each chunk's logits are the
+    product in x's dtype accumulated in f32, the final softcap, the padded
+    vocabulary's -1e30 added, ``log_softmax`` and the labels' negative
+    log-likelihood, under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``), so no (tokens, vocab) f32 logits are kept for the
+    backward, which computes each chunk's again."""
     b, s, d = x.shape
     t = b * s
     chunk = min(ce_chunk, t)
@@ -379,9 +436,7 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
         ls, n = ckpt.checkpoint(chunk_ce, xf[c0:c0 + chunk],
                                 lf[c0:c0 + chunk], use_reentrant=False)
         tot, cnt = tot + ls, cnt + n
-    loss = tot / torch.clamp(cnt, min=1)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return loss + aux, {"ce": loss, "aux": aux}
+    return tot / torch.clamp(cnt, min=1)
 
 
 def init_caches(cfg: LMConfig, batch: int, cache_size: int,
@@ -389,6 +444,13 @@ def init_caches(cfg: LMConfig, batch: int, cache_size: int,
     """Zeroed caches, one ``(k, v)`` of (batch, Hkv, cache_size, head_dim)
     in the model's dtype per layer."""
     _check_supported(cfg)
+    return zeroed_caches(cfg, batch, cache_size, device)
+
+
+def zeroed_caches(cfg: LMConfig, batch: int, cache_size: int,
+                  device="cuda") -> Caches:
+    """``cfg.num_layers`` pairs of zeroed (batch, Hkv, cache_size,
+    head_dim) tensors in the model's dtype."""
     a = cfg.attention
     shape = (batch, a.num_kv_heads, cache_size, a.head_dim)
     dev = resolve_device(device)
@@ -404,7 +466,7 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cache_size: int,
                            make_cache=True, cache_size=cache_size,
                            attn_impl=attn_impl)
     length = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
-    return _logits(model, x[:, -1:]), caches, length
+    return head_logits(model, x[:, -1:]), caches, length
 
 
 def lm_decode_step(model: TransformerLM, token: torch.Tensor, caches: Caches,
@@ -415,4 +477,4 @@ def lm_decode_step(model: TransformerLM, token: torch.Tensor, caches: Caches,
     x, new_caches = _run_stack(model, _embed_inputs(model, token),
                                caches=caches, cache_length=length,
                                attn_impl=attn_impl)
-    return _logits(model, x), new_caches, length + 1
+    return head_logits(model, x), new_caches, length + 1

@@ -13,6 +13,10 @@ A prefill (or a training forward) runs one of three paths, chosen by
     of ``nn/flash_vjp.py``, blockwise online softmax with its own
     backward), as the reference's, with or without a gradient.
 
+``cross_attention_block`` (the enc-dec decoder's attention over the
+encoder's memory) takes the same tiers, non-causal; ``chunked_attention``
+is the reference's blockwise plain version, which no path calls.
+
 Decode (one new token against a padded KV cache whose ``length`` marks
 validity) stays plain PyTorch, as the reference leaves it outside any
 kernel.  GQA never materializes repeated K/V: the einsums run over a
@@ -93,6 +97,59 @@ def direct_attention(q, k, v, *, causal: bool, window: int, cap: float,
     s = torch.where(m, s, NEG_INF)
     o = torch.einsum("bhgqk,bhkd->bhgqd", torch.softmax(s, dim=-1), v.float())
     return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      cap: float = 0.0, q_chunk: int = 2048,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Blockwise online-softmax attention (``chunked_attention``, :100):
+    ``q_chunk`` queries against ``kv_chunk`` keys at a time, so at most
+    (q_chunk, kv_chunk) scores a (batch, head) are live.  q is cast to f32
+    and scaled by ``D^-0.5`` there; query row 0 sits at Sk - Sq.  The
+    chunks (each cut to its sequence's length) must divide the sequences,
+    as the reference asserts: no ragged last chunk."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
+    assert sq % q_chunk == 0 and sk % kv_chunk == 0, \
+        (sq, q_chunk, sk, kv_chunk)
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    q_off = sk - sq
+    qs = q.float().reshape(b, hkv, g, nq, q_chunk, d) * d ** -0.5
+    ks = k.float().reshape(b, hkv, nk, kv_chunk, d)
+    vs = v.float().reshape(b, hkv, nk, kv_chunk, d)
+    out = torch.empty((b, hkv, g, nq, q_chunk, d), dtype=torch.float32,
+                      device=q.device)
+    for qi in range(nq):
+        qc = qs[:, :, :, qi]
+        qpos = q_off + qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        shape = (b, hkv, g, q_chunk, 1)
+        m_run = torch.full(shape, NEG_INF, device=q.device)
+        l_run = torch.zeros(shape, device=q.device)
+        acc = torch.zeros(shape[:-1] + (d,), device=q.device)
+        for ki in range(nk):
+            s = softcap(torch.einsum("bhgqd,bhkd->bhgqk", qc, ks[:, :, ki]),
+                        cap)
+            kpos = ki * kv_chunk + torch.arange(kv_chunk, device=q.device)
+            m = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                           device=q.device)
+            if causal:
+                m = m & (kpos[None, :] <= qpos[:, None])
+            if window > 0:
+                m = m & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(m, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+            m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+            p = torch.where(m, torch.exp(s - m_safe), 0.0)
+            alpha = torch.exp(torch.where(m_run <= NEG_INF / 2, NEG_INF,
+                                          m_run - m_safe))
+            l_run = l_run * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                             vs[:, :, ki])
+            m_run = m_new
+        out[:, :, :, qi] = acc / torch.where(l_run == 0.0, 1.0, l_run)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def flash_attention_xla(q, k, v, *, causal: bool = True, window: int = 0,
@@ -225,3 +282,38 @@ def attention_block(p, x: torch.Tensor, cfg: AttentionConfig, *,
 
     o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return o @ p.wo.to(o.dtype), new_cache
+
+
+def cross_attention_block(p, x: torch.Tensor, memory: torch.Tensor,
+                          cfg: AttentionConfig, *,
+                          impl: str = "auto") -> torch.Tensor:
+    """Encoder-decoder cross-attention (``cross_attention_block``, :318):
+    queries from ``x`` (B, S, D), keys and values from ``memory`` (B, Sm,
+    D), projected as ``attention_block`` projects them; no rope, no mask.
+    Returns (B, S, D).
+
+    ``impl`` as ``attention_block``'s: the ``torch`` tier attends directly
+    when ``S <= DIRECT_MAX_SEQ`` and ``Sm <= DIRECT_MAX_SEQ`` and runs
+    ``flash_attention_xla(causal=False)`` otherwise (the reference's
+    switch); ``"direct"`` always attends directly; the ``cuda`` tier
+    launches K5 with ``causal=False`` at every call -- a prefill (S the
+    prompt, Sm the frames), a decode step (S = 1) and, under autograd,
+    its ``FlashAttention`` Function."""
+    b, s, _ = x.shape
+    sm = memory.shape[1]
+    q = (x @ p.wq.to(x.dtype)).view(b, s, cfg.num_heads, cfg.head_dim)
+    k = (memory @ p.wk.to(x.dtype)).view(b, sm, cfg.num_kv_heads,
+                                         cfg.head_dim)
+    v = (memory @ p.wv.to(x.dtype)).view(b, sm, cfg.num_kv_heads,
+                                         cfg.head_dim)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    tier = impl if impl == "direct" else resolve_backend(impl, x.device)
+    if tier == CUDA:
+        o = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=False, backend=CUDA)
+    elif tier == "direct" or (s <= DIRECT_MAX_SEQ and sm <= DIRECT_MAX_SEQ):
+        o = direct_attention(q, k, v, causal=False, window=0, cap=0.0)
+    else:
+        o = flash_attention_xla(q, k, v, causal=False)
+    o = o.transpose(1, 2).reshape(b, s, cfg.q_dim)
+    return o @ p.wo.to(o.dtype)

@@ -1,4 +1,5 @@
-"""Core LM layers: norms, dense/MLP, embeddings, rotary positions, softcap.
+"""Core LM layers: norms, dense/MLP, embeddings, rotary and sinusoidal
+positions, softcap.
 
 Port of ``repro/nn/layers.py``.  The functions take tensors; the modules
 hold the parameters in the reference's layouts, so that the reference's
@@ -21,6 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.core.backend import resolve_device
 
 
 def init_normal(shape, scale: float, *, dtype, device,
@@ -243,6 +246,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, *,
+                         device="cuda") -> torch.Tensor:
+    """(seq, d) f32 sinusoidal position table (``sinusoidal_positions``,
+    :134) on ``device``: even columns ``sin(pos / 10000^(i / d))``, odd
+    columns the ``cos`` of the same angle, i the even column index."""
+    dev = resolve_device(device)
+    pos = torch.arange(seq, dtype=torch.float32, device=dev)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=dev)[None, :]
+    angle = pos / (10000.0 ** (dim / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=dev)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -76,6 +76,7 @@ def test_plain_matches_pallas_and_ref(b, hq, hkv, sq, sk, d, causal, window,
                           scale=20)
     # the wrapper takes the plain version for CPU tensors
     n = k5.flash_attention.launches
+    by_shape = dict(k5.flash_attention.by_shape)
     assert_allclose_dtype(
         ops.flash_attention(*_t(q, k, v), causal=causal, window=window,
                             softcap=cap, backend="torch"), want, scale=20)
@@ -83,6 +84,7 @@ def test_plain_matches_pallas_and_ref(b, hq, hkv, sq, sk, d, causal, window,
         k5.flash_attention(*_t(q, k, v), causal=causal, window=window,
                            softcap=cap), want, scale=20)
     assert k5.flash_attention.launches == n
+    assert dict(k5.flash_attention.by_shape) == by_shape
 
 
 def test_plain_kv_len_matches_pallas():

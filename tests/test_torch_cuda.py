@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.config import CORA, reduced_graph
-from repro_torch.configs import gemma2_9b
+from repro_torch.configs import gemma2_9b, seamless_m4t_medium
 from repro_torch.core import dataflow
 from repro_torch.core import plan as tplan
 from repro_torch.core.dataflow import block_graph_arrays
@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import fused_agg_combine as k2
 from repro_torch.kernels import ops
 from repro_torch.kernels import seg_agg as k1
+from repro_torch.models import encdec
 from repro_torch.models import transformer as ttr
 from repro_torch.models.gcn import make_paper_model
 from repro_torch.nn import layers
@@ -675,6 +676,121 @@ def test_flash_kernel_refuses_gradients_and_bad_input(gpu):
             k5._launch(q, k, k, terms=2)
         with pytest.raises(ValueError, match="terms"):
             k5._launch(q.bfloat16(), k.bfloat16(), k.bfloat16(), terms=1)
+
+
+#: seamless-m4t-medium's attention at small sizes: D 64, group 1 (MHA),
+#: non-causal with Sq < Sk (a prefill's cross-attention), Sq > Sk, Sq = 1
+#: (a decode step's), and the encoder's Sq = Sk, off the 64-row tiles
+ENCDEC_SHAPES = [
+    (2, 4, 4, 100, 300, False),
+    (1, 4, 4, 300, 100, False),
+    (2, 4, 4, 1, 500, False),
+    (1, 2, 2, 130, 130, False),
+    (2, 4, 4, 200, 200, True),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,causal", ENCDEC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_encdec_shapes_match_plain(gpu, b, hq, hkv, sq, sk, causal,
+                                         dtype):
+    """K5 forward and both backward kernels at seamless-like shapes
+    against the plain versions: the right alignment (kv_len - Sq) must
+    mask nothing without ``causal``; forward within the band and the
+    per-row limit, backward within the per-row limit (f32 also the
+    relative Frobenius limit) of the plain version (in f64 for f32)."""
+    d = 64
+    gen = torch.Generator(device=gpu).manual_seed(sq * 7 + sk)
+    q, dout = (torch.randn((b, hq, sq, d), generator=gen, device=gpu)
+               .to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=gen, device=gpu)
+            .to(dtype) for _ in range(2))
+    n = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    key = k5.launch_key(q, k, causal, 0, 0.0)
+    by = (k5.flash_attention.by_shape[key],
+          k5.flash_attention_bwd.by_shape[key])
+    out, lse = k5.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = k5.flash_attention_plain(q, k, v, causal=causal)
+    _close(out, want, TOL if dtype == torch.float32 else BF16_TOL)
+    _rows_close(out, want, ROW_LIMIT[dtype])
+    if not causal:   # every query sees every key: SDPA's function too
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            q.float(), k.float(), v.float())
+        _close(out, sdpa, TOL if dtype == torch.float32 else BF16_TOL)
+    got = k5.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert (k5.flash_attention.launches - n[0],
+            k5.flash_attention_bwd.launches - n[1]) == (1, 2)
+    # the launches by shape count the same launches under this shape's key
+    assert (k5.flash_attention.by_shape[key] - by[0],
+            k5.flash_attention_bwd.by_shape[key] - by[1]) == (1, 2)
+    ref = _bwd_plain_for(dtype, q, k, v, out, lse, dout, None,
+                         causal=causal)
+    for x, y in zip(got, ref):
+        assert x.dtype == dtype and x.shape == y.shape
+        _bwd_rows_close(x, y, BWD_ROW_LIMIT[dtype])
+    if dtype == torch.float32:
+        assert _bwd_rel_errs(got, ref)[1] <= BWD_FRO_LIMIT_F32
+
+
+def _encdec_case(gpu, dtype="float32"):
+    cfg = dataclasses.replace(seamless_m4t_medium.reduced(), dtype=dtype)
+    model = encdec.init_encdec(cfg, generator=torch.Generator(
+        device=gpu).manual_seed(0), device=gpu)
+    gen = np.random.default_rng(0)
+    frames = torch.as_tensor(gen.standard_normal((2, 80, cfg.d_model)),
+                             dtype=torch.float32, device=gpu)
+    toks = torch.as_tensor(gen.integers(0, cfg.vocab_size, (2, 40)),
+                           device=gpu)
+    return cfg, model, frames, toks
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_encdec_prefill_matches_torch_tier(gpu, dtype):
+    """The reduced seamless on the cuda tier: a prefill launches K5 once
+    per encoder layer, decoder self-attention and cross-attention, a
+    decode step once per cross-attention; logits against the torch
+    tier's in the dtype's band."""
+    cfg, model, frames, toks = _encdec_case(gpu, dtype)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    with torch.inference_mode():
+        n = k5.flash_attention.launches
+        lg, caches, memory, length = encdec.encdec_prefill(
+            model, frames, toks[:, :39], 48)
+        assert k5.flash_attention.launches - n == \
+            cfg.encoder_layers + 2 * cfg.num_layers
+        want, wc, wm, wl = encdec.encdec_prefill(model, frames, toks[:, :39],
+                                                 48, attn_impl="torch")
+        _close(lg, want, tol)
+        n = k5.flash_attention.launches
+        lg2, _, _ = encdec.encdec_decode_step(model, toks[:, 39:], caches,
+                                              memory, length)
+        assert k5.flash_attention.launches - n == cfg.num_layers
+        want2, _, _ = encdec.encdec_decode_step(model, toks[:, 39:], wc, wm,
+                                                wl, attn_impl="torch")
+        _close(lg2, want2, tol)
+
+
+def test_reduced_encdec_gradients_match_torch_tier(gpu):
+    """``encdec_loss`` through K5 and its backward kernels (the
+    checkpointed layers run K5's forward twice) against the torch tier:
+    the loss, and each gradient leaf within 1e-4 of its largest
+    magnitude."""
+    cfg, model, frames, toks = _encdec_case(gpu)
+    labels = torch.roll(toks, -1, 1)
+    params = list(model.parameters())
+    n = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    loss, _ = encdec.encdec_loss(model, frames, toks, labels)
+    grads = torch.autograd.grad(loss, params)
+    n_attn = cfg.encoder_layers + 2 * cfg.num_layers
+    assert (k5.flash_attention.launches - n[0],
+            k5.flash_attention_bwd.launches - n[1]) == (2 * n_attn,
+                                                        2 * n_attn)
+    want_loss, _ = encdec.encdec_loss(model, frames, toks, labels,
+                                      attn_impl="torch")
+    want = torch.autograd.grad(want_loss, params)
+    assert abs(loss.item() - want_loss.item()) <= 1e-4 * abs(want_loss.item())
+    for g, w in zip(grads, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 def test_reduced_gemma2_cuda_tier_matches_torch_tier(gpu):

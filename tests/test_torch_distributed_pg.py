@@ -134,6 +134,8 @@ def worker(rank: int, world: int, store: str, shape: str, out_dir: str):
         }
     with open(os.path.join(out_dir, f"result-{rank}.json"), "w") as f:
         json.dump(results, f)
+    # no rank tears the group down while a peer is still in a collective
+    dist.barrier()
     dist.destroy_process_group()
 
 
@@ -214,6 +216,7 @@ def train_worker(rank: int, world: int, store: str, shape: str,
                           / (tree[n].abs().max() / 127)) for n in names_p)}
     with open(os.path.join(out_dir, f"train-{rank}.json"), "w") as f:
         json.dump(results, f)
+    dist.barrier()
     dist.destroy_process_group()
 
 

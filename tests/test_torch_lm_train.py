@@ -144,6 +144,27 @@ def test_lm_loss_at_2560_tokens_runs_flash_attention_xla(monkeypatch):
     assert calls["n"] == cfg.num_layers
 
 
+def test_train_step_with_full_remat_matches_without():
+    """``make_train_step(remat="full")``: the loss runs through
+    ``functional_call`` on a ``meta`` skeleton, and the backward's
+    recomputation of each checkpointed period must see the state's
+    parameters, not the skeleton's.  The step equals the one without
+    remat bit for bit."""
+    cfg, _, _, model = _models("gemma2")
+    opt = _opt()[0]
+    batch = TokenPipeline(cfg, ShapeSpec("t", 24, 2, "train"),
+                          seed=2).batch_at(0)
+    state = make_train_state(
+        {k: p.detach() for k, p in model.named_parameters()}, opt)
+    full, m_full = tsteps.make_train_step(cfg, opt, remat="full")(state,
+                                                                  batch)
+    none, m_none = tsteps.make_train_step(cfg, opt)(state, batch)
+    assert torch.equal(m_full["loss"], m_none["loss"])
+    assert torch.equal(m_full["grad_norm"], m_none["grad_norm"])
+    for k, p in full.params.items():
+        assert torch.equal(p, none.params[k]), k
+
+
 def test_lm_loss_refuses_selective_remat():
     cfg, _, _, model = _models("granite")
     toks, labels = _batch(cfg, 1, 8)
