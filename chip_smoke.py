@@ -119,6 +119,25 @@ Phases, each printing its own lines; any failure exits non-zero:
                 5 and 18 hold K5 at its shapes (g)-(k); every launch of
                 these segments is counted by shape at the wrapper and must
                 fall on one of them.
+ 20. moe    -- (right after phase 19) arctic-480b (128 experts, top-2, a
+                dense residual, 56 query heads over 8 KV heads at D 128)
+                at full width, depth cut, seeded random weights.  K5 at
+                its longest prompt's prefill shape (l), GQA group 7, as
+                phase 5 holds its shapes (SDPA with enable_gqa=True as the
+                library call).  In f32, one layer: lm_forward over 1024
+                tokens with K5 against the torch tier, under the route
+                rule (forward hooks read each MoE layer's top-k and kept
+                sets; a token routed differently with no difference
+                upstream of it must be a near tie, MOE_TIE_GAP; logits
+                compared at the positions before the first difference).
+                In bf16, two layers through the ServeEngine: 8 requests of
+                64-4080 prompt tokens, 16 greedy tokens each, the decode
+                step captured once and a replay bit for bit the eager
+                step; prefill ms, time to first token, decode ms, tokens/s,
+                peak memory; K5's launches by shape (one per layer a
+                prefill, none in decode), each prefill's capacity drops;
+                the first prompt's logits against the torch tier under the
+                route rule; a profiled prefill and decode step.
   8. compiled -- (run right after phase 4, on its models and graph) each of
                 the six Reddit forwards through plan.compile(), one CUDA
                 graph each: the capture's K1/K2 launches against the eager
@@ -371,7 +390,9 @@ LOGIT_FRO_LIMIT = 5e-2
 #: 4096 frames, (h) the prefill's cross-attention (its 64-token prompts
 #: over the frames), (i) the decoder's causal self-attention at the
 #: training length (2 x 4096), (j) a decode step's cross-attention (Sq 1),
-#: (k) the prefill's causal self-attention over the 64-token prompts.
+#: (k) the prefill's causal self-attention over the 64-token prompts;
+#: arctic-480b's prefill layer at phase 20's longest prompt (GQA group 7,
+#: D 128): (l), which phase 20 checks (phase 5 the others).
 FLASH_SHAPES = {
     "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
     "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
@@ -384,6 +405,7 @@ FLASH_SHAPES = {
     "i": (2, 16, 16, 4096, 4096, 64, True, 0, 0.0, None),
     "j": (4, 16, 16, 1, 4096, 64, False, 0, 0.0, None),
     "k": (4, 16, 16, 64, 64, 64, True, 0, 0.0, None),
+    "l": (1, 56, 8, 4080, 4080, 128, True, 0, 0.0, None),
 }
 #: phase 5: K5's row logsumexp (``return_lse=True``) against the plain
 #: version's, absolute, over rows with a key (an all-masked row must read
@@ -442,6 +464,26 @@ LM_TRAIN_GRAD_LIMIT = 1e-4
 #: training in f32: batch x tokens (frames min(seq, 4096)) and Trainer steps
 ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS = 4, 64, 16
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 2, 4096, 3
+#: phase 20: arctic-480b at full width, depth cut: layers of the bf16
+#: serving model and of the f32 check, the f32 check's tokens; the wave's
+#: requests (prompt lengths from default_rng(SEED) in MOE_PROMPT_RANGE and
+#: one of its upper end, K5's shape (l)), slots, cache and greedy tokens;
+#: the free device memory the phase needs before it builds (the f32 layer
+#: is 56 GB)
+MOE_LAYERS, MOE_F32_LAYERS, MOE_F32_TOKENS = 2, 1, 1024
+MOE_REQUESTS, MOE_MAX_BATCH, MOE_CACHE, MOE_TOKENS = 8, 8, 4096, 16
+MOE_PROMPT_RANGE = (64, 4080)
+MOE_MIN_FREE = 60e9
+#: phase 20's route rule (``route_rule``): where K5 and the torch tier
+#: pick different experts for a token with no difference upstream of it,
+#: the gap between its k-th and (k+1)-th router probability must be under
+#: this.  The two tiers' attention outputs
+#: differ by K5's rounding: in f32 ~1e-6 relative (ROW_LIMIT), so a router
+#: logit (7168 inputs of ~1, weights of std 7168^-0.5) moves by ~1e-6 and
+#: a probability (<= ~0.1 for the top experts of 128) by ~1e-7: 1e-5 is
+#: 100x that.  In bf16 up to one bf16 ulp (2^-8) an element, so a logit
+#: moves by up to ~2e-3 and a probability by ~3e-4: 3e-3 is 10x that.
+MOE_TIE_GAP = {"float32": 1e-5, "bfloat16": 3e-3}
 #: phase 18: the shapes whose backward is also timed through a library call
 #: (flex_attention compiles for each, so only the main path's global layer
 #: and the no-softcap shapes, where scaled_dot_product_attention serves)
@@ -3898,11 +3940,12 @@ def drop_tile_control(shape, q, k, v, tile=64):
     return out.to(q.dtype)
 
 
-def flash_library(shape, q, k, v, want, tol):
+def flash_library(shape, q, k, v, want, tol, gqa: bool = False):
     """(milliseconds, note) of one PyTorch call computing the same function
     as K5 at ``shape`` -- held against the plain version's ``want`` within
     ``tol`` -- or (None, reason).  A yardstick: the port never calls
-    these."""
+    these.  ``gqa``: scaled_dot_product_attention reads the KV heads itself
+    (``enable_gqa=True``) instead of K/V expanded beforehand."""
     import torch
     import torch.nn.functional as F
     b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
@@ -3918,6 +3961,10 @@ def flash_library(shape, q, k, v, want, tol):
     # Sq = Sk or without the mask
     if kv_len is None and (sq == sk or not causal) and cap == 0 \
             and window == 0:
+        if gqa:
+            return timed(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True),
+                "scaled_dot_product_attention, enable_gqa=True")
         g = hq // hkv
         ke = k.repeat_interleave(g, dim=1)   # outside the timed region
         ve = v.repeat_interleave(g, dim=1)
@@ -3949,18 +3996,21 @@ def flash_library(shape, q, k, v, want, tol):
             f" {str(e).splitlines()[0][:160] if str(e) else ''})"
 
 
-def check_flash():
-    """Phase 5: K5 against its plain version at FLASH_SHAPES, f32 and bf16.
-    Fails unless every launch meets the band and the per-row and Frobenius
+def check_flash(names=None, gqa: bool = False):
+    """Phase 5: K5 against its plain version at FLASH_SHAPES (or the shapes
+    ``names`` of it: phase 20 checks its (l) so), f32 and bf16.  Fails
+    unless every launch meets the band and the per-row and Frobenius
     limits, the drop-tile control (and in f32 the one-TF32-product control)
     fails both limits, and a second launch equals the first bit for bit.
-    Returns one record per (shape, dtype)."""
+    ``gqa`` goes to ``flash_library``.  Returns one record per (shape,
+    dtype)."""
     import torch
     from repro_torch.kernels import flash_attention as k5
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = []
-    for name, shape in FLASH_SHAPES.items():
+    for name in names or FLASH_SHAPES:
+        shape = FLASH_SHAPES[name]
         b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(shp, generator=gen, device="cuda",
@@ -4010,7 +4060,8 @@ def check_flash():
             peak = TF32X3_FLOPS if dtype == torch.float32 else BF16_FLOPS
             b_ms, b_by = bound(nbytes, ops, peak)
             ms = time_ms(kern, 5)
-            lib_ms, lib_note = flash_library(shape, q, k, v, out_p, tol)
+            lib_ms, lib_note = flash_library(shape, q, k, v, out_p, tol,
+                                             gqa)
             del out_p
             rec = {"name": "flash_attention", "shape": name, "dtype": dname,
                    "b": b, "hq": hq, "hkv": hkv, "sq": sq, "sk": sk, "d": d,
@@ -4150,22 +4201,16 @@ def profile_lm(model, eng, prompts):
     return rows
 
 
-def drive_lm():
-    """Phase 6: gemma2-9b at full width and depth through the port's
-    ServeEngine (attn_impl="auto": K5 for every prefill), then the same
-    wave on the torch tier on the same card with the same weights.
-    Returns the measurements."""
+def timed_engine():
+    """A ``ServeEngine`` subclass that records per request the prefill's
+    last-position logits, its time and the time to first token, and per
+    step the decode time and any K5 launch (phases 6 and 20)."""
     import numpy as np
     import torch
-    from repro_torch.config import get_config
     from repro_torch.kernels import flash_attention as k5
-    from repro_torch.models.transformer import TransformerLM
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import ServeEngine
 
     class TimedEngine(ServeEngine):
-        """ServeEngine that records per request the prefill's last-position
-        logits, its time and the time to first token, and per step the
-        decode time and any K5 launch."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
@@ -4191,6 +4236,22 @@ def drive_lm():
             self.decode_launches += k5.flash_attention.launches - n
             return done
 
+    return TimedEngine
+
+
+def drive_lm():
+    """Phase 6: gemma2-9b at full width and depth through the port's
+    ServeEngine (attn_impl="auto": K5 for every prefill), then the same
+    wave on the torch tier on the same card with the same weights.
+    Returns the measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serve.engine import Request
+
+    TimedEngine = timed_engine()
     cfg = get_config("gemma2-9b")
     t0 = time.perf_counter()
     model = TransformerLM(cfg, device="cuda", generator=torch.Generator(
@@ -5166,6 +5227,357 @@ def drive_encdec():
             "by_shape": dict(by_shape)}
 
 
+class RouteLog:
+    """Phase 20's reading of each MoE layer's routes from the layer's input,
+    by forward hooks on the model's ``MoE`` modules (the package is not
+    changed).  Per call that is not dropless (a forward or a prefill: the
+    decode step is dropless, and captured), on the device: the layer, each
+    token's top-k expert set and the set of those its capacity keeps
+    (-1 for a dropped one), the gap between its k-th and (k+1)-th router
+    probability, and the share of assignments dropped.  Use as a context
+    manager; the hooks go on exit."""
+
+    def __init__(self, model):
+        self.model, self.calls, self.handles = model, [], []
+
+    def __enter__(self):
+        for n, blk in enumerate(self.model.layers):
+            if blk.is_moe:
+                self.handles.append(blk.moe.register_forward_hook(
+                    lambda mod, args, kw, out, n=n: self._read(n, mod, args,
+                                                               kw),
+                    with_kwargs=True))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        self.handles = []
+
+    def _read(self, n, mod, args, kw):
+        import torch
+        from repro_torch.models import moe
+        if kw.get("dropless", False):
+            return
+        x, k = args[0], mod.cfg.top_k
+        with torch.no_grad():
+            probs = moe.route(mod.router, x.reshape(-1, x.shape[-1]), k)[0]
+            top, ids = torch.topk(probs, k + 1, dim=-1)
+            ids = ids[:, :k]
+            order, _, _, keep, _ = moe.dispatch(
+                ids, mod.cfg.num_experts, moe.slots(mod.cfg, probs.shape[0]))
+            kept = torch.empty_like(keep)
+            kept[order] = keep
+            kept = torch.where(kept.reshape(ids.shape), ids, -1)
+        self.calls.append({"layer": n, "ids": ids.sort(-1).values,
+                           "kept": kept.sort(-1).values,
+                           "gap": top[:, k - 1] - top[:, k],
+                           "dropped": 1 - keep.float().mean()})
+
+    def dropped(self) -> list:
+        """Each call's share of capacity-dropped assignments."""
+        return [c["dropped"].item() for c in self.calls]
+
+
+def route_rule(a: "RouteLog", b: "RouteLog", limit: float, label: str):
+    """Phase 20's route rule over two forwards of one sequence (their MoE
+    calls in layer order).  A token's top-k set may differ between the
+    runs where its router is near a tie, and downstream of that: a flip
+    at position j of layer L moves the attention of every later position
+    in the layers after L, and (capacity ranks tokens in order) may move
+    the capacity drops of later tokens in layer L.  So a differing route
+    with no differing route or kept set at an earlier layer and at or
+    before its position -- a primary one -- must be a near tie (the gap
+    under ``limit`` in one of the runs), else the phase fails; a kept set
+    may differ only after a differing route.  Returns (mask of the
+    positions before the first difference of any layer, where the logits
+    are comparable; share of (layer, token) routes that differ; the
+    largest primary gap)."""
+    import torch
+    if [c["layer"] for c in a.calls] != [c["layer"] for c in b.calls]:
+        fail(f"{label}: the two runs made other MoE calls")
+    upstream = torch.zeros_like(a.calls[0]["gap"], dtype=torch.bool)
+    seen = torch.zeros_like(upstream)
+    n_route = n_primary = n_kept = total = 0
+    worst = 0.0
+    for ca, cb in zip(a.calls, b.calls):
+        r = (ca["ids"] != cb["ids"]).any(-1)
+        kd = (ca["kept"] != cb["kept"]).any(-1) & ~r
+        primary = r & ~upstream
+        if primary.any():
+            worst = max(worst, torch.minimum(ca["gap"], cb["gap"])[primary]
+                        .max().item())
+        earlier = (torch.cumsum(r.int(), 0) - r.int()) > 0
+        if (kd & ~upstream & ~earlier).any():
+            fail(f"{label}: a kept set differs with every route at and "
+                 f"before it equal")
+        d = r | kd
+        upstream = upstream | (torch.cumsum(d.int(), 0) > 0)
+        seen |= d
+        n_route += int(r.sum())
+        n_primary += int(primary.sum())
+        n_kept += int(kd.sum())
+        total += r.numel()
+    prefix = torch.cumsum(seen.int(), 0) == 0
+    share = n_route / total
+    print(f"[moe] {label}: routes differ for {n_route} of {total} (layer, "
+          f"token) pairs ({share:.4%}), {n_primary} of them primary, "
+          f"largest primary gap {worst:.3e} (near-tie limit {limit:.0e}); "
+          f"kept sets differ after them for {n_kept} more; the first "
+          f"{int(prefix.sum())} of {prefix.numel()} positions differ in "
+          f"no layer", flush=True)
+    if worst >= limit:
+        fail(f"{label}: a primary route differs where the router is not "
+             f"near a tie (gap {worst:.3e}, limit {limit:.0e})")
+    if not prefix.any():
+        fail(f"{label}: the first position already differs: no logits to "
+             f"compare")
+    return prefix, share, worst
+
+
+def top_kernels(name: str, n: int = 6) -> list:
+    """The ``n`` kernels of the trace ``chiprun_out/traces/<name>.json``
+    that took the most device time: (name, ms, count)."""
+    from collections import defaultdict
+    events = json.loads((ROOT / "chiprun_out" / "traces" /
+                         f"{name}.json").read_text())
+    events = events.get("traceEvents", events)
+    ms, count = defaultdict(float), defaultdict(int)
+    for e in events:
+        if e.get("cat") == "kernel":
+            ms[e["name"][:80]] += e["dur"] / 1e3
+            count[e["name"][:80]] += 1
+    top = sorted(ms, key=ms.get, reverse=True)[:n]
+    return [(k, ms[k], count[k]) for k in top]
+
+
+def drive_moe():
+    """Phase 20: arctic-480b (128 experts, top-2, a dense residual, GQA 56
+    over 8 heads at D 128) at full width, depth cut, random weights from a
+    seeded generator: K5 at the longest prompt's shape (l) as phase 5
+    holds its shapes; in f32 one layer's lm_forward against the torch tier
+    under the route rule; in bf16 two layers serving a wave through the
+    ServeEngine (decode captured once, a replay bit for bit an eager
+    step), K5's launches by shape, the capacity drops, the first prompt's
+    logits against the torch tier under the route rule, a profiled
+    prefill and decode step.  Returns the measurements."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.models.transformer import (TransformerLM, lm_forward,
+                                                lm_prefill)
+    from repro_torch.serve.engine import Request
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[moe] {free / 1e9:.1f} GB of {total / 1e9:.1f} GB free on the "
+          f"card (need {MOE_MIN_FREE / 1e9:.0f})", flush=True)
+    if free < MOE_MIN_FREE:
+        fail(f"moe: {free / 1e9:.1f} GB free, the phase needs "
+             f"{MOE_MIN_FREE / 1e9:.0f}")
+    # -- K5 at (l): arctic's group of 7 at its longest prompt
+    flash = check_flash(["l"], gqa=True)
+    torch.cuda.empty_cache()
+    base = get_config("arctic-480b")
+    gen = torch.Generator(device="cuda")
+    rng = np.random.default_rng(SEED)
+
+    # -- f32: one layer, lm_forward with K5 against the torch tier
+    cfg32 = dataclasses.replace(base, dtype="float32",
+                                num_layers=MOE_F32_LAYERS)
+    t0 = time.perf_counter()
+    m32 = TransformerLM(cfg32, device="cuda", generator=gen.manual_seed(SEED))
+    torch.cuda.synchronize()
+    made32 = time.perf_counter() - t0
+    toks = torch.as_tensor(rng.integers(0, base.vocab_size,
+                                        (1, MOE_F32_TOKENS)), device="cuda")
+    with torch.inference_mode():
+        k5_zero()
+        with RouteLog(m32) as ra:
+            got = lm_forward(m32, toks)
+        launches32 = k5.flash_attention.launches
+        with RouteLog(m32) as rb:
+            want = lm_forward(m32, toks, attn_impl="torch")
+        torch_launches32 = k5.flash_attention.launches - launches32
+    agree, share32, gap32 = route_rule(ra, rb, MOE_TIE_GAP["float32"],
+                                       "f32 forward vs torch tier")
+    v = base.vocab_size
+    err, tol = max_err(got[0, agree, :v], want[0, agree, :v])
+    print(f"[moe] f32 {cfg32.name}, {cfg32.num_layers} layer "
+          f"({sum(p.numel() for p in m32.parameters())} parameters, made in "
+          f"{made32:.1f} s), lm_forward over {MOE_F32_TOKENS} tokens: K5 "
+          f"launches {launches32} (expected {cfg32.num_layers}), torch tier "
+          f"{torch_launches32}; logits at the {int(agree.sum())} positions "
+          f"before any route differs vs torch tier max_abs_err={err:.3e} tol={tol:.3e}; "
+          f"capacity drops {ra.dropped()}", flush=True)
+    if launches32 != cfg32.num_layers or torch_launches32:
+        fail(f"moe f32: K5 launches {launches32}, torch tier "
+             f"{torch_launches32}; expected {cfg32.num_layers}, 0")
+    if not (bool(torch.isfinite(got).all().item()) and err <= tol):
+        fail(f"moe f32: logits off the torch tier by {err:.3e} (tolerance "
+             f"{tol:.3e})")
+    f32 = {"layers": cfg32.num_layers, "tokens": MOE_F32_TOKENS,
+           "launches": launches32, "max_abs_err": err, "tol": tol,
+           "routes_differ_share": share32, "largest_differing_gap": gap32,
+           "agreeing_positions": int(agree.sum()), "dropped": ra.dropped()}
+    del m32, got, want, ra, rb, agree
+    torch.cuda.empty_cache()
+
+    # -- bf16: two layers serving a wave through the ServeEngine
+    cfg = dataclasses.replace(base, num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda", generator=gen.manual_seed(SEED))
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    lengths = [int(n) for n in rng.integers(
+        MOE_PROMPT_RANGE[0], MOE_PROMPT_RANGE[1] + 1, MOE_REQUESTS - 1)]
+    lengths.append(MOE_PROMPT_RANGE[1])
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    print(f"[moe] bf16 {cfg.name}, {cfg.num_layers} layers, {n_params} "
+          f"parameters ({n_params * 2 / 1e9:.1f} GB), made on the card in "
+          f"{made:.1f} s; prompts {lengths}", flush=True)
+    eng = timed_engine()(cfg, model, max_batch=MOE_MAX_BATCH,
+                         cache_size=MOE_CACHE)
+    with torch.inference_mode():      # warm-up, uncounted
+        lm_prefill(model, torch.as_tensor(prompts[-1][None], device="cuda"),
+                   MOE_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5_zero()
+    with RouteLog(model) as wave_routes:
+        t0 = time.perf_counter()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=MOE_TOKENS))
+        done = eng.run()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    by_shape = k5_by_shape()
+    launches = k5.flash_attention.launches
+    outputs = {r.rid: list(r.output) for r in done}
+    n_tok = sum(len(o) for o in outputs.values())
+    dropped = wave_routes.dropped()
+    steps = sorted(eng.step_ms)
+    replayed = sorted(eng.step_ms[2:])
+    for rid, n in enumerate(lengths):
+        print(f"[moe] prompt {n:5d} tokens: prefill "
+              f"{eng.prefill_ms[rid]:.1f} ms, time to first token "
+              f"{eng.ttft_ms[rid]:.1f} ms, capacity-dropped assignments "
+              f"{dropped[2 * rid]:.4f} / {dropped[2 * rid + 1]:.4f} "
+              f"(layers 0 / 1)", flush=True)
+    l_key = ("bfloat16",) + FLASH_SHAPES["l"][:9]
+    want_by = {("fwd", "bfloat16", 1, cfg.attention.num_heads,
+                cfg.attention.num_kv_heads, n, n, cfg.attention.head_dim,
+                True, 0, 0.0): cfg.num_layers * lengths.count(n)
+               for n in set(lengths)}
+    launches_l = by_shape.get(("fwd",) + l_key, 0)
+    print(f"[moe] K5 launches {launches} (expected {cfg.num_layers} x "
+          f"{len(prompts)} prefills), at shape (l) {launches_l} (expected "
+          f"{cfg.num_layers}), in decode steps {eng.decode_launches}; "
+          f"by shape as expected {dict(by_shape) == want_by}; "
+          f"{len(steps)} decode steps, replayed median "
+          f"{replayed[len(replayed) // 2]:.2f} ms (eager first "
+          f"{eng.step_ms[0]:.2f} ms, capturing {eng.step_ms[1]:.2f} ms), "
+          f"{eng.decode_captures} capture, {eng.decode_replays} replays; "
+          f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
+          f"decoding {MOE_REQUESTS * 1e3 / replayed[len(replayed) // 2]:.1f}"
+          f" tokens/s; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if dict(by_shape) != want_by or eng.decode_launches or \
+            launches_l != cfg.num_layers:
+        fail(f"moe: K5 launches by shape {dict(by_shape)}, in decode "
+             f"{eng.decode_launches}; expected {want_by} and none in decode")
+    if eng.decode_captures != 1 or eng.decode_replays != len(steps) - 1:
+        fail(f"moe: decode step captured {eng.decode_captures} times, "
+             f"replayed {eng.decode_replays} in {len(steps)} steps")
+    if sorted(outputs) != list(range(MOE_REQUESTS)) or any(
+            len(o) != MOE_TOKENS or not all(0 <= t < cfg.vocab_size
+                                            for t in o)
+            for o in outputs.values()):
+        fail(f"moe: outputs {outputs}")
+
+    # a replay of the captured decode step against the eager step from the
+    # same state, bit for bit
+    with torch.inference_mode():
+        state = ([(k.clone(), v.clone()) for k, v in eng._caches],
+                 eng._length.clone())
+
+        def restore():
+            for (k, v), (k0, v0) in zip(eng._caches, state[0]):
+                k.copy_(k0)
+                v.copy_(v0)
+            eng._length.copy_(state[1])
+        eng._graph[0].replay()
+        replay_logits = eng._graph[1].clone()
+        restore()
+        eager_logits = eng._decode_body().clone()
+        restore()
+        torch.cuda.synchronize()
+    replay_equal = torch.equal(replay_logits, eager_logits)
+    print(f"[moe] a replay of the captured decode step bit for bit the eager"
+          f" step from the same state: {replay_equal}", flush=True)
+    if not replay_equal:
+        fail("moe: the captured decode step's logits differ from the eager "
+             "step's")
+
+    # the first prompt's logits against the torch tier, under the route rule
+    p0 = torch.as_tensor(prompts[0][None], device="cuda")
+    with torch.inference_mode():
+        with RouteLog(model) as ra:
+            got = lm_forward(model, p0)
+        with RouteLog(model) as rb:
+            want = lm_forward(model, p0, attn_impl="torch")
+    agree, share, gap = route_rule(ra, rb, MOE_TIE_GAP["bfloat16"],
+                                   f"bf16 prompt of {lengths[0]} tokens vs "
+                                   f"torch tier")
+    tier = logits_close(got[0, agree], want[0, agree], cfg.vocab_size,
+                        "moe bf16 first prompt vs torch tier")
+    print(f"[moe] first prompt's logits at its {int(agree.sum())} positions "
+          f"before any route differs vs torch tier max_abs_err={tier['max_abs_err']:.3e} "
+          f"tol={tier['tol']:.3e} fro_rel_err={tier['fro_rel_err']:.3e} "
+          f"(limit {LOGIT_FRO_LIMIT:.0e})", flush=True)
+    del got, want, ra, rb
+
+    # where a prefill's and a decode step's time goes
+    with torch.inference_mode():
+        prof_prefill = profiled("moe_prefill", 1, lambda: lm_prefill(
+            model, torch.as_tensor(prompts[-1][None], device="cuda"),
+            MOE_CACHE))
+        prof_step = profiled("moe_decode_step", 1,
+                             lambda: eng._graph[0].replay())
+    prof_prefill.update(k5_shares("moe_prefill"),
+                        top=top_kernels("moe_prefill"))
+    prof_step.update(top=top_kernels("moe_decode_step"))
+    for name, pr in ((f"prefill of {lengths[-1]} tokens", prof_prefill),
+                     ("decode step (a replay)", prof_step)):
+        if pr["idle_share"] is None:
+            print(f"[moe] profiled {name}: the profiler saw no kernel; "
+                  f"device shares not measured", flush=True)
+            continue
+        print(f"[moe] profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
+              f"busy {pr['device_busy_ms']:.2f} ms, idle share "
+              f"{pr['idle_share']:.4f}, {pr['kernels']:.0f} kernels; most "
+              f"time: " + "; ".join(f"{k} {ms:.3f} ms x{c}"
+                                    for k, ms, c in pr["top"]), flush=True)
+    rec = {"params": n_params, "prompts": lengths,
+           "prefill_ms": eng.prefill_ms, "ttft_ms": eng.ttft_ms,
+           "decode_step_ms": eng.step_ms,
+           "replayed_step_median_ms": replayed[len(replayed) // 2],
+           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "peak_bytes": peak, "launches": launches,
+           "launches_l": launches_l, "decode_captures": eng.decode_captures,
+           "decode_replays": eng.decode_replays,
+           "replay_equal_eager": replay_equal, "dropped": dropped,
+           "vs_torch_tier": tier, "routes_differ_share": share,
+           "largest_differing_gap": gap, "profile_prefill": prof_prefill,
+           "profile_decode_step": prof_step, "f32": f32, "flash": flash}
+    del eng, model, wave_routes
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> None:
     # the flex_attention yardstick compiles with inductor and Triton: keep
     # their caches inside the checkout and compile in this process
@@ -5348,8 +5760,8 @@ def main() -> None:
     clear_plan_cache()
     torch.cuda.empty_cache()
 
-    # -- 5. K5 against its plain version
-    flash = check_flash()
+    # -- 5. K5 against its plain version (its shape (l) in phase 20)
+    flash = check_flash([n for n in FLASH_SHAPES if n != "l"])
 
     # -- 6. the LM serving path: gemma2-9b through the ServeEngine
     t0 = time.perf_counter()
@@ -5371,6 +5783,11 @@ def main() -> None:
     encdec = drive_encdec()
     print(f"[encdec] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # -- 20. MoE: arctic-480b at full width, K5 at its GQA-7 prefill
+    t0 = time.perf_counter()
+    moe = drive_moe()
+    print(f"[moe] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -5380,7 +5797,7 @@ def main() -> None:
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "flash_bwd": flash_bwd, "lm_train": lm_train,
-         "encdec": encdec,
+         "encdec": encdec, "moe": moe,
          "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
@@ -5525,6 +5942,19 @@ def main() -> None:
                 "library_ms": rec["library_ms"],
                 "frac_of_bound": rec["frac_of_bound"],
                 "vs_library": rec["vs_library"]})
+    # K5 bf16 at arctic's shape (l): launched by phase 20's wave, at its
+    # 4080-token prompt's two layers, as the wrapper counted them
+    rec = next(r for r in moe["flash"] if r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "flash_attention_bf16_l", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:111", "shape": "l",
+        "launches": moe["launches_l"], "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+        "frac_of_bound": rec["frac_of_bound"],
+        "vs_library": rec["vs_library"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 
 A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
 (``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
-the LM part (``AttentionConfig``, ``LMConfig``, :96-195, with
-``param_count`` and ``_count_params`` :188-237 for the dense and enc-dec
-stacks the port runs), the training part (``ShapeSpec`` :27,
+the LM part (``MoEConfig`` :60, ``AttentionConfig``, ``LMConfig``,
+:96-195, with ``param_count``, ``active_param_count`` and
+``_count_params`` :188-238 for the dense, MoE and enc-dec stacks the port
+runs), the training part (``ShapeSpec`` :27,
 ``OptimizerConfig`` :310, ``TrainConfig`` :330) and the registry
 (``register``/``get_config``, :349-373) -- kept here so the port imports
 nothing of the JAX package.
@@ -83,8 +84,27 @@ def reduced_graph(spec: GraphSpec, max_vertices: int = 512,
 
 
 # ---------------------------------------------------------------------------
-# LM architecture configs (``repro/config.py`` :96-195)
+# LM architecture configs (``repro/config.py`` :60-195)
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k Mixture-of-Experts (``MoEConfig``, :60); its layer
+    is ``models/moe.py``."""
+
+    num_experts: int
+    top_k: int
+    expert_d_ff: int
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # Arctic-style dense residual branch running in parallel with the experts.
+    dense_residual: bool = False
+    dense_residual_d_ff: int = 0
+    # Which layers are MoE. "all" or "every_2" (Jamba: alternate dense/MoE).
+    layer_pattern: str = "all"
+    # Aux load-balancing loss weight.
+    aux_loss_weight: float = 0.01
 
 
 @dataclass(frozen=True)
@@ -111,10 +131,11 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class LMConfig:
-    """A transformer backbone: a decoder stack, or with ``encoder_layers``
-    an enc-dec one (``models/encdec.py``).  The MoE and SSM fields are
-    kept so the published configs copy over unchanged; the port's model
-    raises ``NotImplementedError`` on them."""
+    """A transformer backbone: a decoder stack (its FFNs dense or MoE,
+    ``moe``), or with ``encoder_layers`` an enc-dec one
+    (``models/encdec.py``).  The SSM field is kept so the published
+    configs copy over unchanged; the port's models raise
+    ``NotImplementedError`` on it."""
 
     name: str
     family: str  # dense | moe | hybrid | ssm | vlm | audio
@@ -123,7 +144,7 @@ class LMConfig:
     d_ff: int
     vocab_size: int
     attention: Optional[AttentionConfig] = None
-    moe: Optional[Any] = None   # repro.config.MoEConfig (not ported)
+    moe: Optional[MoEConfig] = None
     ssm: Optional[Any] = None   # repro.config.SSMConfig (not ported)
     # hybrid (jamba): one attention layer per `attn_every` layers, rest SSM.
     attn_every: int = 0
@@ -174,9 +195,14 @@ class LMConfig:
         """Analytic total parameter count (embedding + layers), as the
         reference counts it (``param_count``, :188): the unpadded vocab,
         no norm scales; an enc-dec stack counts its encoder and the
-        decoder's cross-attention.  MoE and SSM layers raise (not
-        ported)."""
-        return _count_params(self)
+        decoder's cross-attention, an MoE layer every expert, its router
+        and its dense residual.  SSM layers raise (not ported)."""
+        return _count_params(self, active_only=False)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (``active_param_count``, :192): an MoE
+        layer counts ``top_k`` of its experts."""
+        return _count_params(self, active_only=True)
 
 
 def _mlp_params(d_model: int, d_ff: int, activation: str) -> int:
@@ -188,21 +214,35 @@ def _attn_params(d_model: int, a: AttentionConfig) -> int:
     return d_model * a.q_dim * 2 + d_model * a.kv_dim * 2
 
 
-def _count_params(cfg: LMConfig) -> int:
-    """``_count_params`` (:208) for dense attention stacks, enc-dec ones
+def _count_params(cfg: LMConfig, active_only: bool) -> int:
+    """``_count_params`` (:208) for attention stacks, enc-dec ones
     included: the encoder's layers after the decoder's, each decoder layer
-    with its cross-attention (:214-224)."""
-    if cfg.moe is not None or cfg.ssm is not None:
+    with its cross-attention (:214-224); an MoE layer (the encoder's
+    index restarting at 0, as the reference's) counts ``num_experts`` (or
+    with ``active_only`` ``top_k``) experts, the router's ``d_model x
+    num_experts`` and the dense residual (:227-236)."""
+    if cfg.ssm is not None:
         raise NotImplementedError(
-            f"{cfg.name}: parameter counts of MoE and SSM stacks are not "
-            f"ported (ROADMAP item 13.7)")
+            f"{cfg.name}: parameter counts of SSM stacks are not ported "
+            f"(ROADMAP item 13.5)")
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     for i in range(cfg.num_layers + cfg.encoder_layers):
+        li = i if i < cfg.num_layers else i - cfg.num_layers
         if cfg.attention is not None:
             total += _attn_params(cfg.d_model, cfg.attention)
             if i < cfg.num_layers and cfg.encoder_layers > 0:
                 total += _attn_params(cfg.d_model, cfg.attention)
-        if cfg.d_ff > 0:
+        if cfg.layer_is_moe(li):
+            m = cfg.moe
+            per_expert = _mlp_params(cfg.d_model, m.expert_d_ff,
+                                     cfg.mlp_activation)
+            n_active = m.top_k if active_only else m.num_experts
+            total += n_active * per_expert + cfg.d_model * m.num_experts
+            if m.dense_residual:
+                total += _mlp_params(cfg.d_model,
+                                     m.dense_residual_d_ff or cfg.d_ff,
+                                     cfg.mlp_activation)
+        elif cfg.d_ff > 0:
             total += _mlp_params(cfg.d_model, cfg.d_ff, cfg.mlp_activation)
     return total
 

@@ -26,7 +26,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 #: arch -> module under repro_torch.configs (the archs ported so far; the
 #: reference's map is ``repro/launch/train.py::MODULES``)
-MODULES = {"gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b"}
+MODULES = {"arctic-480b": "arctic_480b", "gemma2-9b": "gemma2_9b",
+           "granite-3-8b": "granite_3_8b", "kimi-k2-1t-a32b": "kimi_k2"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

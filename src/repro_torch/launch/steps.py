@@ -1,8 +1,8 @@
 """The LM step functions (``repro/launch/steps.py``): training,
-evaluation, prefill and decode, for both families the port runs -- dense
-decoder stacks (``models/transformer.py``) and the audio family's
-enc-dec stack (``models/encdec.py``), whose batches carry the encoder's
-``frames``.
+evaluation, prefill and decode, for both families the port runs --
+decoder stacks with dense or MoE FFNs (``models/transformer.py``) and
+the audio family's enc-dec stack (``models/encdec.py``), whose batches
+carry the encoder's ``frames``.
 
 ``make_train_step`` returns ``(TrainState, batch) -> (TrainState,
 metrics)``: the loss and its gradients over the state's parameters, then
@@ -18,7 +18,7 @@ moved to the parameters' device.
 ``make_prefill_step`` and ``make_decode_step`` take the model itself in
 the reference's ``params`` place: ``(model, batch)`` with ``tokens`` (and
 ``frames``), then ``token``, ``caches``, ``length`` (and the encoder's
-``memory``).  The serving engine (``serve/``) drives the dense family's
+``memory``).  The serving engine (``serve/``) drives the decoder family's
 own prefill and decode.
 """
 
@@ -73,7 +73,7 @@ def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
     ``lm_loss``; the audio family's ``encdec_loss`` rematerializes every
     layer as the reference's does, whatever ``remat`` says, so there any
     other value than the default raises.  Metrics: ``loss``, ``ce`` (and
-    ``aux`` for the dense family), ``lr``, ``grad_norm`` (0-d tensors)."""
+    ``aux`` for a decoder stack: the MoE layers' load-balance loss), ``lr``, ``grad_norm`` (0-d tensors)."""
     if cfg.family == "audio" and remat != "none":
         raise ValueError(f"make_train_step: the audio family's encdec_loss "
                          f"rematerializes every layer and takes no remat "
@@ -124,7 +124,7 @@ def make_prefill_step(cfg: LMConfig, cache_size: int = 0, *,
                       attn_impl: str = "auto") -> Callable:
     """(model, batch) -> (last logits, caches, [memory,] length)
     (``make_prefill_step``, :75).  The audio family runs
-    ``encdec_prefill`` over ``frames`` and ``tokens``; a dense model
+    ``encdec_prefill`` over ``frames`` and ``tokens``; a decoder model
     ``lm_prefill`` (frontend ``embeds`` raise there: not ported).  The
     caches hold ``cache_size`` positions, by default the prompt's."""
 
@@ -145,7 +145,7 @@ def make_prefill_step(cfg: LMConfig, cache_size: int = 0, *,
 def make_decode_step(cfg: LMConfig, *, attn_impl: str = "auto") -> Callable:
     """(model, batch{token, caches, [memory,] length}) -> (logits, caches,
     length) (``make_decode_step``, :92): ``encdec_decode_step`` for the
-    audio family, ``lm_decode_step`` for a dense model.  The new rows are
+    audio family, ``lm_decode_step`` for a decoder model.  The new rows are
     written into ``caches`` in place."""
 
     def decode_step(model, batch):
@@ -162,7 +162,7 @@ def make_decode_step(cfg: LMConfig, *, attn_impl: str = "auto") -> Callable:
 
 def make_eval_step(cfg: LMConfig) -> Callable:
     """(params, batch) -> the loss's metrics without a gradient
-    (``make_eval_step``, :106): ``{"ce", "aux"}`` for a dense model,
+    (``make_eval_step``, :106): ``{"ce", "aux"}`` for a decoder model,
     ``{"ce"}`` for the audio family."""
     skel = _skeleton(cfg)
 

@@ -20,9 +20,12 @@ Entry points (the reference's, with the module in place of ``params`` and
 ``model(tokens, labels)`` is ``lm_loss``, so ``torch.func.functional_call``
 runs the loss over a dict of parameters by name (``launch/steps.py``).
 
-Caches are a list with one ``(k, v)`` pair per layer.  MoE, SSM and
-frontend embeddings are not ported and raise ``NotImplementedError``; an
-enc-dec config raises too (its model is ``models/encdec.py``).
+Caches are a list with one ``(k, v)`` pair per layer.  A layer's FFN is
+an ``MLP``, or an ``MoE`` (``models/moe.py``) where ``cfg.layer_is_moe``;
+the stack sums the MoE layers' load-balance losses into ``lm_loss``'s
+``aux``.  SSM and frontend embeddings are not ported and raise
+``NotImplementedError``; an enc-dec config raises too (its model is
+``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from torch import nn
 
 from repro_torch.config import LMConfig
 from repro_torch.core.backend import resolve_device
+from repro_torch.models.moe import MoE
 from repro_torch.nn.attention import Attention, KVCache, attention_block
 from repro_torch.nn.layers import (MLP, Embedding, RMSNorm, embed, softcap,
                                    unembed)
@@ -88,14 +92,14 @@ def _check_supported(cfg: LMConfig) -> None:
             f"{cfg.name}: an enc-dec stack; its model is "
             f"models/encdec.py::EncDecLM")
     missing = [what for what, off in (
-        ("MoE", cfg.moe is not None), ("SSM", cfg.ssm is not None),
+        ("SSM", cfg.ssm is not None),
         ("frontend embeddings", cfg.frontend_stub),
         ("attention-free stacks", cfg.attention is None),
         ("FFN-free blocks", cfg.d_ff <= 0)) if off]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention stacks only; "
-            f"{', '.join(missing)} not ported yet")
+            f"{cfg.name}: the port runs attention stacks with dense or MoE "
+            f"FFNs only; {', '.join(missing)} not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -104,8 +108,9 @@ def _check_supported(cfg: LMConfig) -> None:
 
 
 class Block(nn.Module):
-    """One transformer block (``_apply_layer``); gemma2 adds the sandwich
-    norms ``ln1_post``/``ln2_post``."""
+    """One transformer block (``_apply_layer``): attention, then ``mlp`` or,
+    at an MoE position, ``moe``; gemma2 adds the sandwich norms
+    ``ln1_post``/``ln2_post``."""
 
     def __init__(self, cfg: LMConfig, pos: LayerPos, *, dtype, device,
                  generator: torch.Generator):
@@ -115,7 +120,11 @@ class Block(nn.Module):
         self.ln1 = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg.d_model, cfg.attention, **kw)
         self.ln2 = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
+        self.is_moe = pos.moe
+        if pos.moe:
+            self.moe = MoE(cfg.d_model, cfg.moe, cfg.mlp_activation, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
         self.sandwich = cfg.name.startswith("gemma2")
         if self.sandwich:
             self.ln1_post = RMSNorm(cfg.d_model, device=device)
@@ -124,7 +133,9 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, cfg: LMConfig, *,
                 cache: Optional[KVCache] = None, make_cache: bool = False,
                 cache_size: int = 0, attn_impl: str = "auto"):
-        """Returns (x, new_cache).
+        """Returns (x, new_cache, aux): ``aux`` is the MoE layer's f32
+        load-balance loss, None for a dense FFN.  The MoE layer is
+        dropless in decode (``cache`` given), as the reference's.
 
         The residual stream keeps the reference's roundings.  Its compiled
         scan adds a residual in f32 and feeds that unrounded sum to the next
@@ -143,10 +154,14 @@ class Block(nn.Module):
         if self.sandwich:
             out = self.ln1_post(out, eps)
         xs = x.float() + out
-        out = self.mlp(self.ln2(xs, eps, dtype=dt))
+        h, aux = self.ln2(xs, eps, dtype=dt), None
+        if self.is_moe:
+            out, aux = self.moe(h, dropless=cache is not None)
+        else:
+            out = self.mlp(h)
         if self.sandwich:
             out = self.ln2_post(out, eps)
-        return xs.to(dt).float() + out, new_cache
+        return xs.to(dt).float() + out, new_cache, aux
 
 
 class TransformerLM(nn.Module):
@@ -309,7 +324,9 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
                caches: Optional[Caches] = None, cache_length=None,
                make_cache: bool = False, cache_size: int = 0,
                attn_impl: str = "auto", remat: str = "none"):
-    """Run the layers in order.  Returns (x, new_caches or None).
+    """Run the layers in order.  Returns (x, new_caches or None, aux): the
+    MoE layers' load-balance losses summed in f32 in layer order (0 for a
+    dense stack).
 
     ``remat="full"`` runs each period of layers under
     ``torch.utils.checkpoint`` (``checkpointed``: the reference's
@@ -325,26 +342,29 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
     if remat == "full" and (caches is not None or make_cache):
         raise ValueError("remat applies to the training forward only")
     new_caches: Caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run_period(x, n0):
+    def run_period(x, aux, n0):
         x = x.to(dt)      # the reference's scan carry, rounded
         for n in range(n0, n0 + period):
             inner = None
             if caches is not None:
                 inner = KVCache(caches[n][0], caches[n][1], cache_length)
-            x, new_inner = model.layers[n](
+            x, new_inner, layer_aux = model.layers[n](
                 x, cfg, cache=inner, make_cache=make_cache,
                 cache_size=cache_size, attn_impl=attn_impl)
             if new_inner is not None:
                 new_caches.append((new_inner.k, new_inner.v))
-        return x
+            if layer_aux is not None:
+                aux = aux + layer_aux
+        return x, aux
 
     for n0 in range(0, cfg.num_layers, period):
         if remat == "full":
-            x = checkpointed(model, run_period, x, n0)
+            x, aux = checkpointed(model, run_period, x, aux, n0)
         else:
-            x = run_period(x, n0)
-    return x.to(dt), (new_caches or None)
+            x, aux = run_period(x, aux, n0)
+    return x.to(dt), (new_caches or None), aux
 
 
 def head_logits(model, x: torch.Tensor) -> torch.Tensor:
@@ -365,8 +385,8 @@ def head_logits(model, x: torch.Tensor) -> torch.Tensor:
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, embeds=None, *,
                attn_impl: str = "auto") -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> f32 logits (B, S, V)."""
-    x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
-                      attn_impl=attn_impl)
+    x, _, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
+                         attn_impl=attn_impl)
     return head_logits(model, x)
 
 
@@ -378,7 +398,8 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
 
     The final norm's output goes to ``chunked_ce`` against the head
     table.  Tied embeddings take gradients from the lookup and the head.
-    ``aux`` is 0 (MoE is not ported).
+    ``aux`` is the MoE layers' summed load-balance loss (0 for a dense
+    stack), added to the loss.
 
     ``params`` (a dict of tensors by parameter name) runs the loss through
     ``torch.func.functional_call`` with those tensors in place of the
@@ -388,11 +409,10 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             model, params, (tokens, labels, embeds),
             dict(attn_impl=attn_impl, ce_chunk=ce_chunk, remat=remat))
     cfg = model.cfg
-    x, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
-                      attn_impl=attn_impl, remat=remat)
+    x, _, aux = _run_stack(model, _embed_inputs(model, tokens, embeds),
+                           attn_impl=attn_impl, remat=remat)
     loss = chunked_ce(cfg, model.head_table(),
                       model.final_ln(x, cfg.norm_eps), labels, ce_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return loss + aux, {"ce": loss, "aux": aux}
 
 
@@ -462,9 +482,9 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cache_size: int,
                embeds=None, *, attn_impl: str = "auto"):
     """Forward + cache build.  Returns (last-token logits (B, 1, V),
     caches padded to ``cache_size``, length () int32)."""
-    x, caches = _run_stack(model, _embed_inputs(model, tokens, embeds),
-                           make_cache=True, cache_size=cache_size,
-                           attn_impl=attn_impl)
+    x, caches, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
+                              make_cache=True, cache_size=cache_size,
+                              attn_impl=attn_impl)
     length = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
     return head_logits(model, x[:, -1:]), caches, length
 
@@ -474,7 +494,7 @@ def lm_decode_step(model: TransformerLM, token: torch.Tensor, caches: Caches,
     """One-token decode.  token: (B, 1); ``length`` () or (B,) int32.
     Writes the new rows into ``caches`` in place and returns (logits
     (B, 1, V), caches, length + 1)."""
-    x, new_caches = _run_stack(model, _embed_inputs(model, token),
-                               caches=caches, cache_length=length,
-                               attn_impl=attn_impl)
+    x, new_caches, _ = _run_stack(model, _embed_inputs(model, token),
+                                  caches=caches, cache_length=length,
+                                  attn_impl=attn_impl)
     return head_logits(model, x), new_caches, length + 1

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.config import CORA, reduced_graph
-from repro_torch.configs import gemma2_9b, seamless_m4t_medium
+from repro_torch.config import MoEConfig
+from repro_torch.configs import arctic_480b, gemma2_9b, seamless_m4t_medium
 from repro_torch.core import dataflow
 from repro_torch.core import plan as tplan
 from repro_torch.core.dataflow import block_graph_arrays
@@ -26,7 +27,7 @@ from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import fused_agg_combine as k2
 from repro_torch.kernels import ops
 from repro_torch.kernels import seg_agg as k1
-from repro_torch.models import encdec
+from repro_torch.models import encdec, moe
 from repro_torch.models import transformer as ttr
 from repro_torch.models.gcn import make_paper_model
 from repro_torch.nn import layers
@@ -271,6 +272,7 @@ def gpu():
     (2, 4, 2, 8, 192, 256, True, 0, 50.0, (50, 192)),
     (1, 2, 1, 17, 17, 16, True, 4, 50.0, None),
     (1, 2, 1, 40, 40, 64, True, 0, 0.0, (3, )),     # rows with no key
+    (1, 14, 2, 130, 130, 128, True, 0, 0.0, None),  # arctic's group of 7
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
@@ -906,6 +908,79 @@ def test_serve_engine_captured_decode_matches_eager(gpu):
     assert (eng.decode_captures, eng.decode_replays) == \
         (1, eng.stats()["decode_steps"] - 1)
     assert (ref.decode_captures, ref.decode_replays) == (0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_ffn_on_the_card_matches_cpu(gpu, dtype, dropless):
+    """``moe_ffn`` at a reduced size (16 experts, top-2, a dense residual,
+    a router skewed so that expert 0 overflows and drops) on the card
+    against the same layer on the CPU: the same routes and drops, the
+    output in the dtype's band, aux within 1e-6; a repeat on the card bit
+    for bit (the gather dispatch and the ordered combine use no atomics),
+    and the dropless layer captured as a CUDA graph (no host sync) bit for
+    bit its eager call."""
+    cfg = MoEConfig(num_experts=16, top_k=2, expert_d_ff=96,
+                    dense_residual=True, dense_residual_d_ff=64)
+    cpu = moe.MoE(64, cfg, "swiglu", dtype=dtype, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        cpu.router[:, 0] += 0.05
+    on_card = moe.MoE(64, cfg, "swiglu", dtype=dtype, device=gpu,
+                   generator=torch.Generator(device=gpu).manual_seed(0))
+    on_card.load_state_dict(cpu.state_dict())
+    gen = np.random.default_rng(0)
+    x = torch.as_tensor(gen.standard_normal((4, 40, 64)) + 0.5,
+                        dtype=torch.float32).to(dtype)
+    xg = x.to(gpu)
+    with torch.no_grad():
+        want, want_aux = cpu(x, dropless=dropless)
+        got, aux = on_card(xg, dropless=dropless)
+        again, _ = on_card(xg, dropless=dropless)
+        ids = moe.route(cpu.router, x.reshape(-1, 64), 2)[2]
+        ids_g = moe.route(on_card.router, xg.reshape(-1, 64), 2)[2]
+    assert torch.equal(ids_g.cpu(), ids)
+    keep = moe.dispatch(ids, 16, moe.slots(cfg, 160, dropless))[3]
+    assert bool(keep.all()) == dropless
+    assert torch.equal(got, again)
+    _close(got.cpu(), want, TOL if dtype == torch.float32 else BF16_TOL)
+    assert abs(aux.item() - want_aux.item()) <= 1e-6
+    if dropless:
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad():
+            on_card(xg, dropless=True)       # warm-up
+            with tplan.capture_graph(graph):
+                captured, _ = on_card(xg, dropless=True)
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, got)
+
+
+def test_moe_serve_engine_captured_decode_matches_eager(gpu):
+    """Reduced arctic-480b (bf16, MoE with a dense residual) through the
+    ServeEngine on the card: K5 once per layer a prefill, none in decode;
+    the decode step captured once, its greedy tokens the eager decode's."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = arctic_480b.reduced()
+    model = ttr.TransformerLM(cfg, device=gpu)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 17, 9, 30)]
+
+    def serve(decode_graph):
+        eng = ServeEngine(cfg, model, max_batch=2, cache_size=64,
+                          decode_graph=decode_graph)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_tokens=6))
+        n = k5.flash_attention.launches
+        out = {r.rid: r.output for r in eng.run()}
+        return eng, out, k5.flash_attention.launches - n
+
+    eng, got, launches = serve(True)
+    ref, want, _ = serve(False)
+    assert launches == cfg.num_layers * len(prompts)
+    assert got == want and all(len(o) == 6 for o in got.values())
+    assert (eng.decode_captures, eng.decode_replays) == \
+        (1, eng.stats()["decode_steps"] - 1)
 
 
 def test_capture_failure_raises(card, monkeypatch):

@@ -22,14 +22,16 @@ import torch
 from tolerance import assert_allclose_dtype
 
 from repro.config import get_config as jget_config
+from repro.configs import arctic_480b as jarctic
 from repro.configs import gemma2_9b as jgemma
 from repro.configs import granite_3_8b as jgranite
+from repro.configs import kimi_k2 as jkimi
 from repro.models import transformer as jtr
 from repro.nn import layers as jlayers
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro_torch.config import get_config
-from repro_torch.configs import gemma2_9b, granite_3_8b
+from repro_torch.configs import arctic_480b, gemma2_9b, granite_3_8b, kimi_k2
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as ttr
 from repro_torch.nn import layers
@@ -63,10 +65,15 @@ def _tokens(cfg, shape, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
 
 
-@pytest.mark.parametrize("name", ["gemma2-9b", "granite-3-8b"])
+CONFIG_MODULES = {"gemma2-9b": (gemma2_9b, jgemma),
+                  "granite-3-8b": (granite_3_8b, jgranite),
+                  "arctic-480b": (arctic_480b, jarctic),
+                  "kimi-k2-1t-a32b": (kimi_k2, jkimi)}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIG_MODULES))
 def test_configs_match_reference(name):
-    mod = {"gemma2-9b": (gemma2_9b, jgemma),
-           "granite-3-8b": (granite_3_8b, jgranite)}[name]
+    mod = CONFIG_MODULES[name]
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(jget_config(name))
     assert dataclasses.asdict(mod[0].reduced()) == \
@@ -227,7 +234,7 @@ def test_decode_matches_full_forward(pair):
 
 def test_unsupported_families_raise():
     cfg = _fp32(granite_3_8b)
-    for kw in ({"moe": object()}, {"ssm": object()}, {"encoder_layers": 2},
+    for kw in ({"ssm": object()}, {"encoder_layers": 2},
                {"frontend_stub": True}):
         with pytest.raises(NotImplementedError):
             ttr.TransformerLM(dataclasses.replace(cfg, **kw), device="cpu")
@@ -269,6 +276,37 @@ def test_engine_greedy_tokens_match_reference(pair, max_batch):
     assert [len(got[i]) for i in range(5)] == [3 + i for i in range(5)]
     assert stats["decode_steps"] == jstats["decode_steps"]
     assert stats["served"] == 5 and stats["slot_assignments"] == 5
+
+
+def test_engine_greedy_tokens_match_reference_moe():
+    """Reduced arctic-480b in f32 (MoE layers with a dense residual, top-2
+    of 4 experts): prefill with capacity drops, dropless decode; five
+    requests through two slots emit the reference engine's greedy tokens."""
+    cfg = dataclasses.replace(arctic_480b.reduced(), dtype="float32")
+    jcfg = dataclasses.replace(jarctic.reduced(), dtype="float32")
+    params = jtr.init_lm(jcfg, jax.random.PRNGKey(0))
+    model = ttr.TransformerLM(cfg, device="cpu").params_from_reference(
+        jax.tree.map(np.asarray, params))
+    reqs = [(i, _tokens(cfg, 3 + 4 * i, 20 + i), 4 + i, None)
+            for i in range(5)]
+    want, jstats = _serve(JServeEngine, JRequest, jcfg, params, reqs,
+                          max_batch=2, cache_size=40)
+    got, stats = _serve(ServeEngine, Request, cfg, model, reqs,
+                        max_batch=2, cache_size=40)
+    assert got == want
+    assert stats["decode_steps"] == jstats["decode_steps"]
+
+
+@pytest.mark.parametrize("name", ["arctic-480b", "kimi-k2-1t-a32b"])
+def test_moe_param_counts_match_reference(name):
+    """``param_count`` and ``active_param_count`` of the published MoE
+    configs and their reduced ones against the reference's."""
+    mod, jmod = CONFIG_MODULES[name]
+    for cfg, jcfg in ((get_config(name), jget_config(name)),
+                      (mod.reduced(), jmod.reduced())):
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == jcfg.active_param_count()
+        assert cfg.active_param_count() < cfg.param_count()
 
 
 def test_engine_eos_and_full_cache_stop_like_reference(pair):
