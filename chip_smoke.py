@@ -138,6 +138,28 @@ Phases, each printing its own lines; any failure exits non-zero:
                 prefill, none in decode), each prefill's capacity drops;
                 the first prompt's logits against the torch tier under the
                 route rule; a profiled prefill and decode step.
+ 21. ssm    -- (right after phase 20) mamba2-2.7b (64 Mamba-2 blocks,
+                attention- and FFN-free, 80 heads x 64, d_state 128, chunk
+                256) at full width and depth, seeded random weights, plain
+                PyTorch (the reference's SSD has no Pallas kernel).  First
+                ssd_chunked against the sequential oracle ssd_reference at
+                the head shape (S 1024) in f32 at the reference's limits,
+                and its bf16 compute_dtype in the bf16 band.  Then 8
+                requests of 1-4096 prompt tokens (shorter than the conv
+                tail, within, at and past a chunk), 8 slots, 16 greedy
+                tokens each, through the ServeEngine in bf16: no kernel
+                launch of any wrapper, the decode step captured once and a
+                replay bit for bit the eager step (logits, states, conv
+                tails); each request's last decode logits against a fresh
+                prefill of its tokens -- an f32 engine's within the f32
+                band, the bf16 ones against that f32 yardstick beside a
+                bf16 prefill's (SSM_DECODE_SLACK); prefill ms, time to
+                first token, decode ms and tokens/s beside their bounds,
+                peak memory, a profiled prefill and decode step.  Then
+                training at full width, depth cut to 8 layers, in f32
+                through launch/train_lm.py's functions (drive_lm_trainer,
+                no K5 launch), and step 0's gradients of a 2-layer f32
+                model against the same weights in f64.
   8. compiled -- (run right after phase 4, on its models and graph) each of
                 the six Reddit forwards through plan.compile(), one CUDA
                 graph each: the capture's K1/K2 launches against the eager
@@ -333,7 +355,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                 trace a signature, the loss falling).
 
 The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7,
-18, 19.
+18, 19, 20, 21.
 The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
@@ -484,6 +506,30 @@ MOE_MIN_FREE = 60e9
 #: 100x that.  In bf16 up to one bf16 ulp (2^-8) an element, so a logit
 #: moves by up to ~2e-3 and a probability by ~3e-4: 3e-3 is 10x that.
 MOE_TIE_GAP = {"float32": 1e-5, "bfloat16": 3e-3}
+#: phase 21: mamba2-2.7b at full width and depth serving a wave: prompt
+#: lengths (a 1- and a 2-token prompt shorter than the conv tail, a
+#: fraction of a chunk, one chunk, one past it (padded), padded lengths and
+#: an exact multiple), slots, greedy tokens, the cache (only its length
+#: limit matters: an SSM cache is a state and a conv tail); the SSD check's
+#: tokens at the head shape; training at full width, depth cut: layers,
+#: batch x tokens, Trainer steps; the f64 yardstick's layers
+SSM_PROMPTS = (1, 2, 64, 256, 257, 1000, 2049, 4096)
+SSM_MAX_BATCH, SSM_TOKENS, SSM_CACHE = 8, 16, 4200
+SSM_CHECK_TOKENS = 1024
+SSM_TRAIN_LAYERS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = \
+    8, 2, 4096, 3
+SSM_F64_LAYERS = 2
+#: phase 21: a bf16 request's last decode logits may be at most this many
+#: times farther from the f32 yardstick (a prefill of the same tokens by
+#: the same weights in f32) than a bf16 prefill of those tokens is.  Both
+#: bf16 branches are 6-7 % off the yardstick at 64 layers of random weights
+#: (so 5e-2 between them cannot hold), while the f32 branches agree to
+#: 1e-5 (PERF.md §6); a fault of the decode branch moves it O(1) off
+SSM_DECODE_SLACK = 1.5
+#: phase 21: the chunked scan against the sequential oracle in f32, at the
+#: reference's own limits (tests/test_mamba_moe.py): |a - b| <= atol +
+#: rtol |b| for every element of y and of the final state
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-5
 #: phase 18: the shapes whose backward is also timed through a library call
 #: (flex_attention compiles for each, so only the main path's global layer
 #: and the no-softcap shapes, where scaled_dot_product_attention serves)
@@ -4203,8 +4249,9 @@ def profile_lm(model, eng, prompts):
 
 def timed_engine():
     """A ``ServeEngine`` subclass that records per request the prefill's
-    last-position logits, its time and the time to first token, and per
-    step the decode time and any K5 launch (phases 6 and 20)."""
+    last-position logits, the logits its last token was sampled from, its
+    prefill time and the time to first token, and per step the decode time
+    and any K5 launch (phases 6, 20 and 21)."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as k5
@@ -4215,6 +4262,7 @@ def timed_engine():
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.first_logits, self.prefill_ms, self.ttft_ms = {}, {}, {}
+            self.last_logits = {}
             self.step_ms, self.decode_launches = [], 0
 
         def _prefill_into_slot(self, slot, req):
@@ -4227,6 +4275,7 @@ def timed_engine():
         def _sample(self, logits, req):
             if not req.output:
                 self.first_logits[req.rid] = np.array(logits, np.float32)
+            self.last_logits[req.rid] = np.array(logits, np.float32)
             return super()._sample(logits, req)
 
         def _step(self):
@@ -5578,6 +5627,425 @@ def drive_moe():
     return rec
 
 
+def ssm_prefill_flops(cfg, s: int) -> float:
+    """FLOPs (2 per multiply-add) of one ``lm_prefill`` of ``s`` tokens
+    through ``cfg``'s Mamba-2 stack as this run computes them: per layer
+    the input projections and ``out_proj`` over the ``s`` tokens, and the
+    chunked scan over the padded length (the block pads past one chunk) --
+    the scores (Q^2 N a group), ``y_diag`` (Q^2 P a head), each chunk's
+    state contribution and its ``y_off`` (Q N P a head each) --; then the
+    last token's logits.  The elementwise work (conv, decay mask, norms,
+    gate) is left out."""
+    m = cfg.ssm
+    d, d_in, h = cfg.d_model, m.d_inner(cfg.d_model), m.n_heads(cfg.d_model)
+    cd = d_in + 2 * m.n_groups * m.d_state
+    q = min(m.chunk_size, s)
+    nc = -(-s // q)
+    proj = 2 * s * d * (d_in + cd + h) + 2 * s * d_in * d
+    scan = nc * (2 * q * q * m.d_state * m.n_groups
+                 + 2 * q * q * m.head_dim * h
+                 + 2 * 2 * q * m.d_state * m.head_dim * h)
+    return cfg.num_layers * (proj + scan) + 2 * d * cfg.padded_vocab
+
+
+def check_ssd() -> dict:
+    """Phase 21, first part: ``ssd_chunked`` against the sequential oracle
+    ``ssd_reference`` on the card at mamba2-2.7b's head shape (B 1, S
+    SSM_CHECK_TOKENS, H 80, P 64, G 1, N 128, chunk 256; inputs drawn as
+    the reference's own test draws them) in f32 at the reference's limits
+    (SSD_RTOL, SSD_ATOL), y and the final state; the config's bf16
+    compute_dtype against that f32 run in the bf16 band.  Times of the
+    chunked scan in both dtypes and of the oracle."""
+    import dataclasses
+
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models.mamba2 import ssd_chunked, ssd_reference
+
+    m = get_config("mamba2-2.7b").ssm
+    h, p = m.n_heads(2560), m.head_dim
+    g, n, s = m.n_groups, m.d_state, SSM_CHECK_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    x, bm, cm = draw(1, s, h, p), draw(1, s, g, n, scale=0.3), \
+        draw(1, s, g, n, scale=0.3)
+    dt = torch.rand((1, s, h), generator=gen, device="cuda") * 0.5 + 0.01
+    a = -(torch.rand(h, generator=gen, device="cuda") + 0.2)
+    m32 = dataclasses.replace(m, compute_dtype="float32")
+    xb, bb, cb = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    with torch.inference_mode():
+        y, st = ssd_chunked(x, bm, cm, dt, a, m32)
+        oy, ost = ssd_reference(x, bm, cm, dt, a)
+        y16, st16 = ssd_chunked(xb, bb, cb, dt, a, m)
+        ms32 = time_ms(lambda: ssd_chunked(x, bm, cm, dt, a, m32), 5)
+        ms16 = time_ms(lambda: ssd_chunked(xb, bb, cb, dt, a, m), 5)
+        ms_oracle = time_ms(lambda: ssd_reference(x, bm, cm, dt, a), 1)
+
+    def excess(got, want, tol):
+        """The largest |got - want| / (tol + tol |want|) (<= 1 passes)."""
+        return ((got - want).abs() / (tol[1] + tol[0] * want.abs())
+                ).max().item()
+    rec = {"tokens": s, "heads": h, "head_dim": p, "d_state": n,
+           "chunk": m.chunk_size,
+           "f32_y_err": (y - oy).abs().max().item(),
+           "f32_state_err": (st - ost).abs().max().item(),
+           "f32_excess": max(excess(y, oy, (SSD_RTOL, SSD_ATOL)),
+                             excess(st, ost, (SSD_RTOL, SSD_ATOL))),
+           "bf16_y_err": (y16 - y).abs().max().item(),
+           "bf16_state_err": (st16 - st).abs().max().item(),
+           "bf16_excess": max(excess(y16, y, (BF16_BAND, BF16_BAND)),
+                              excess(st16, st, (BF16_BAND, BF16_BAND))),
+           "f32_ms": ms32, "bf16_ms": ms16, "oracle_ms": ms_oracle}
+    print(f"[ssm] ssd_chunked vs ssd_reference at B 1, S {s}, H {h}, P {p}, "
+          f"G {g}, N {n}, chunk {m.chunk_size}: f32 y max_abs_err="
+          f"{rec['f32_y_err']:.3e}, state {rec['f32_state_err']:.3e}, "
+          f"largest err / (atol + rtol |oracle|) {rec['f32_excess']:.3f} "
+          f"(rtol {SSD_RTOL:.0e}, atol {SSD_ATOL:.0e}; passes <= 1); bf16 "
+          f"compute_dtype vs that f32 run: y {rec['bf16_y_err']:.3e}, "
+          f"state {rec['bf16_state_err']:.3e}, err / band "
+          f"{rec['bf16_excess']:.3f} (band {BF16_BAND}); ms: f32 "
+          f"{ms32:.3f}, bf16 {ms16:.3f}, the sequential oracle "
+          f"{ms_oracle:.1f}", flush=True)
+    finite = all(bool(torch.isfinite(t).all().item())
+                 for t in (y, st, y16, st16))
+    if not (finite and rec["f32_excess"] <= 1 and rec["bf16_excess"] <= 1):
+        fail(f"ssm: ssd_chunked off the oracle ({rec})")
+    return rec
+
+
+def ssm_f64_grads(base) -> dict:
+    """Phase 21's yardstick of a training step: mamba2-2.7b at full width,
+    SSM_F64_LAYERS layers, in f32 with an f32 compute_dtype against the
+    same weights in f64, step 0's batch (TokenPipeline seed 0, SSM_TRAIN_
+    BATCH x SSM_TRAIN_SEQ): the loss and each gradient leaf within
+    LM_TRAIN_GRAD_LIMIT of that leaf's largest magnitude."""
+    import dataclasses
+
+    import torch
+    from repro_torch.config import ShapeSpec
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.transformer import TransformerLM, lm_loss
+
+    cfg32 = dataclasses.replace(
+        base, dtype="float32", num_layers=SSM_F64_LAYERS,
+        ssm=dataclasses.replace(base.ssm, compute_dtype="float32"))
+    cfg64 = dataclasses.replace(
+        cfg32, dtype="float64",
+        ssm=dataclasses.replace(base.ssm, compute_dtype="float64"))
+    gen = torch.Generator(device="cuda")
+    m32 = TransformerLM(cfg32, device="cuda", generator=gen.manual_seed(SEED))
+    m64 = TransformerLM(cfg64, device="cuda", generator=gen.manual_seed(SEED))
+    m64.load_state_dict(m32.state_dict())
+    shape = ShapeSpec("ssm_train", SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, "train")
+    bt = {k: torch.as_tensor(v, device="cuda") for k, v in
+          TokenPipeline(cfg32, shape, seed=0).batch_at(0).items()}
+
+    def grads(model):
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in model.named_parameters()}
+        loss, _ = lm_loss(model, bt["tokens"], bt["labels"], params=leaves)
+        return loss.item(), dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    t0 = time.perf_counter()
+    loss32, g32 = grads(m32)
+    loss64, g64 = grads(m64)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    errs = {n: ((g32[n].double() - g64[n]).abs().max()
+                / g64[n].abs().max().clamp_min(1e-300)).item() for n in g64}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(loss32 - loss64)
+    loss_tol = F32_BAND * SCALE * max(1.0, abs(loss64))
+    print(f"[ssm-train] f64 yardstick: {cfg32.name} full width, "
+          f"{cfg32.num_layers} layers, f32 (compute_dtype f32) vs the same "
+          f"weights in f64 over step 0's {SSM_TRAIN_BATCH} x "
+          f"{SSM_TRAIN_SEQ} tokens: loss {loss32:.6f} vs {loss64:.6f} "
+          f"(|diff| {loss_err:.3e}, tol {loss_tol:.3e}); worst gradient "
+          f"leaf {worst} {errs[worst]:.3e} of its largest magnitude (limit "
+          f"{LM_TRAIN_GRAD_LIMIT:.0e}) over {len(errs)} leaves; "
+          f"{secs:.1f} s", flush=True)
+    if not (loss_err <= loss_tol and errs[worst] <= LM_TRAIN_GRAD_LIMIT):
+        fail(f"ssm f64 yardstick: loss off by {loss_err:.3e} or leaf "
+             f"{worst} by {errs[worst]:.3e}")
+    del m32, m64, g32, g64
+    torch.cuda.empty_cache()
+    return {"layers": cfg32.num_layers, "loss_err": loss_err,
+            "loss_tol": loss_tol, "worst_leaf": worst,
+            "worst_leaf_err": errs[worst], "seconds": secs}
+
+
+def ssm_decode_vs_prefill(cfg, model, prompts, outputs, last) -> dict:
+    """Phase 21's hold of the decode branch.  ``outputs`` are the bf16
+    wave's greedy tokens and ``last`` each request's last decode logits.
+    An f32 copy of ``model`` (the same weights, an f32 compute_dtype)
+    serves the same prompts through its own captured ServeEngine; each f32
+    request's last decode logits must agree with a fresh f32 prefill of its
+    prompt and the tokens it generated before the last within the f32
+    band x SCALE (relative Frobenius): in f32 the prefill and decode
+    branches compute the same function.  Each bf16 request's last decode
+    logits are held against the f32 model's prefill of the same tokens,
+    beside a fresh bf16 prefill's: at most SSM_DECODE_SLACK times as far
+    off.  Their distance from each other is printed beside
+    LOGIT_FRO_LIMIT.  Returns the numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import TransformerLM, lm_prefill
+    from repro_torch.serve.engine import Request
+
+    v = cfg.vocab_size
+    cfg32 = dataclasses.replace(cfg, dtype="float32", ssm=dataclasses.replace(
+        cfg.ssm, compute_dtype="float32"))
+    m32 = TransformerLM(cfg32, device="cuda")
+    m32.load_state_dict(model.state_dict())
+    eng32 = timed_engine()(cfg32, m32, max_batch=SSM_MAX_BATCH,
+                           cache_size=SSM_CACHE)
+    for rid, p in enumerate(prompts):
+        eng32.submit(Request(rid=rid, prompt=p, max_tokens=SSM_TOKENS))
+    out32 = {r.rid: list(r.output) for r in eng32.run()}
+
+    def fro(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def prefill(m, seq):
+        with torch.inference_mode():
+            return lm_prefill(m, torch.as_tensor(seq[None], device="cuda"),
+                              SSM_CACHE)[0][0, -1, :v].float().cpu()
+    f32_limit = F32_BAND * SCALE
+    rec = {"f32_captures": eng32.decode_captures}
+    for rid, p in enumerate(prompts):
+        n = len(p)
+        seq32 = np.concatenate([p, out32[rid][:-1]])
+        got32 = torch.from_numpy(eng32.last_logits[rid][:v])
+        f32_err = fro(got32, prefill(m32, seq32))
+        seq = np.concatenate([p, outputs[rid][:-1]])
+        truth, pre16 = prefill(m32, seq), prefill(model, seq)
+        dec16 = torch.from_numpy(last[rid][:v])
+        dec_off, pre_off = fro(dec16, truth), fro(pre16, truth)
+        between = fro(dec16, pre16)
+        rec[n] = {"f32_decode_vs_prefill": f32_err,
+                  "bf16_decode_vs_f32": dec_off,
+                  "bf16_prefill_vs_f32": pre_off,
+                  "bf16_decode_vs_prefill": between,
+                  "bf16_argmax_equal": int(dec16.argmax()) ==
+                  int(pre16.argmax())}
+        print(f"[ssm] prompt {n:5d}: f32 engine's last decode logits vs a "
+              f"fresh f32 prefill of its {len(seq32)} tokens fro_rel_err="
+              f"{f32_err:.3e} (limit {f32_limit:.0e}); bf16 last decode "
+              f"logits vs the f32 prefill of the same {len(seq)} tokens "
+              f"{dec_off:.3e}, a bf16 prefill's {pre_off:.3e} (limit "
+              f"{SSM_DECODE_SLACK} x), bf16 decode vs bf16 prefill "
+              f"{between:.3e} (phases 6 and 20 hold {LOGIT_FRO_LIMIT:.0e} "
+              f"there; not held here, above), argmax equal "
+              f"{rec[n]['bf16_argmax_equal']}", flush=True)
+        if not (bool(torch.isfinite(dec16).all().item())
+                and f32_err <= f32_limit
+                and dec_off <= SSM_DECODE_SLACK * pre_off):
+            fail(f"ssm: request {rid} ({n} tokens): the decode branch is "
+                 f"off ({rec[n]})")
+    if eng32.decode_captures != 1:
+        fail(f"ssm: the f32 engine captured {eng32.decode_captures} times")
+    del eng32, m32
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_ssm():
+    """Phase 21: mamba2-2.7b (64 Mamba-2 blocks, attention- and FFN-free)
+    at full width and depth, random weights from a seeded generator: the
+    SSD against its oracle (``check_ssd``); a wave of SSM_PROMPTS through
+    the ServeEngine (bf16, the decode step captured once over the SSM
+    caches, a replay bit for bit the eager step, no kernel launch of any
+    wrapper), each request's last decode logits against a fresh
+    ``lm_prefill`` over its prompt and the tokens it generated; prefill,
+    time to first token, decode step, tokens/s and peak memory beside
+    their bounds; a profiled prefill and decode step.  Then training at
+    full width, depth cut to SSM_TRAIN_LAYERS, through ``drive_lm_trainer``
+    (no K5 launch), and the f64 yardstick of a step's gradients
+    (``ssm_f64_grads``).  Returns the measurements."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_lm
+    from repro_torch.models.transformer import (TransformerLM, lm_loss,
+                                                lm_prefill)
+    from repro_torch.serve.engine import Request
+
+    ssd = check_ssd()
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    w_bytes = sum(p.numel() * p.element_size() for p in params)
+    print(f"[ssm] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} heads x "
+          f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+          f"{cfg.ssm.chunk_size}; parameters: analytic {cfg.param_count()}, "
+          f"real {n_params} (padded vocabulary, norms, conv_b, dt_bias), "
+          f"{w_bytes / 1e9:.3f} GB on the card; made in {made:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SSM_PROMPTS]
+    with torch.inference_mode():      # warm-up, uncounted
+        lm_prefill(model, torch.as_tensor(prompts[-1][None], device="cuda"),
+                   SSM_CACHE)
+    eng = timed_engine()(cfg, model, max_batch=SSM_MAX_BATCH,
+                         cache_size=SSM_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_tokens=SSM_TOKENS))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    outputs = {r.rid: list(r.output) for r in done}
+    n_tok = sum(len(o) for o in outputs.values())
+    steps = sorted(eng.step_ms)
+    replayed = sorted(eng.step_ms[2:])
+    step_med = replayed[len(replayed) // 2]
+    # the bounds: a prefill's FLOPs at the tensor cores' bf16 rate beside
+    # its weights' bytes; a decode step reads the weights once and reads
+    # and writes every slot's f32 state and conv tail
+    state_bytes = sum(t.numel() * t.element_size()
+                      for c in eng._caches for t in c)
+    step_bound = bound(w_bytes + 2 * state_bytes, 2 * n_params *
+                       SSM_MAX_BATCH, BF16_FLOPS)
+    prefill = {}
+    for rid, n in enumerate(SSM_PROMPTS):
+        pb = bound(w_bytes, ssm_prefill_flops(cfg, n), BF16_FLOPS)
+        prefill[n] = {"ms": eng.prefill_ms[rid], "ttft_ms": eng.ttft_ms[rid],
+                      "bound_ms": pb[0], "bound_by": pb[1]}
+        print(f"[ssm] prompt {n:5d} tokens: prefill {eng.prefill_ms[rid]:.1f}"
+              f" ms (bound {pb[0]:.3f} ms by {pb[1]}, "
+              f"{ssm_prefill_flops(cfg, n):.3e} FLOP), time to first token "
+              f"{eng.ttft_ms[rid]:.1f} ms", flush=True)
+    print(f"[ssm] wave: {len(steps)} decode steps, replayed median "
+          f"{step_med:.2f} ms (bound {step_bound[0]:.3f} ms by "
+          f"{step_bound[1]}: {w_bytes / 1e9:.3f} GB of weights, "
+          f"{2 * state_bytes / 1e9:.3f} GB of state and conv tails read and "
+          f"written), eager first {eng.step_ms[0]:.2f} ms, capturing "
+          f"{eng.step_ms[1]:.2f} ms; {eng.decode_captures} capture, "
+          f"{eng.decode_replays} replays; {n_tok} tokens in {wall:.2f} s = "
+          f"{n_tok / wall:.1f} tokens/s, decoding "
+          f"{SSM_MAX_BATCH * 1e3 / step_med:.1f} tokens/s; kernel launches "
+          f"{counts}; peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if any(counts.values()):
+        fail(f"ssm: the attention-free stack launched kernels {counts}")
+    if eng.decode_captures != 1 or eng.decode_replays != len(steps) - 1:
+        fail(f"ssm: decode step captured {eng.decode_captures} times, "
+             f"replayed {eng.decode_replays} in {len(steps)} steps")
+    if sorted(outputs) != list(range(len(prompts))) or any(
+            len(o) != SSM_TOKENS or not all(0 <= t < cfg.vocab_size
+                                            for t in o)
+            for o in outputs.values()):
+        fail(f"ssm: outputs {outputs}")
+
+    # a replay of the captured decode step against the eager step from the
+    # same state, bit for bit: logits and every state and conv tail
+    with torch.inference_mode():
+        saved = ([tuple(t.clone() for t in c) for c in eng._caches],
+                 eng._length.clone())
+
+        def restore():
+            for c, c0 in zip(eng._caches, saved[0]):
+                for t, t0_ in zip(c, c0):
+                    t.copy_(t0_)
+            eng._length.copy_(saved[1])
+        eng._graph[0].replay()
+        replay_logits = eng._graph[1].clone()
+        replay_caches = [tuple(t.clone() for t in c) for c in eng._caches]
+        restore()
+        eager_logits = eng._decode_body().clone()
+        replay_equal = torch.equal(replay_logits, eager_logits) and all(
+            torch.equal(a, b) for c, c0 in zip(eng._caches, replay_caches)
+            for a, b in zip(c, c0))
+        restore()
+        del replay_caches
+    print(f"[ssm] a replay of the captured decode step bit for bit the eager"
+          f" step from the same state (logits, states, conv tails): "
+          f"{replay_equal}", flush=True)
+    if not replay_equal:
+        fail("ssm: the captured decode step differs from the eager step")
+
+    # each request's last decode logits against a fresh prefill over its
+    # prompt and the tokens it generated before the last: in f32 through
+    # an f32 engine (the two branches must agree), in bf16 against that
+    # f32 yardstick
+    consistency = ssm_decode_vs_prefill(cfg, model, prompts, outputs,
+                                        eng.last_logits)
+
+    # where a prefill's and a decode step's time goes
+    with torch.inference_mode():
+        prof_prefill = profiled("ssm_prefill", 1, lambda: lm_prefill(
+            model, torch.as_tensor(prompts[-1][None], device="cuda"),
+            SSM_CACHE))
+        prof_step = profiled("ssm_decode_step", 1,
+                             lambda: eng._graph[0].replay())
+    prof_prefill.update(top=top_kernels("ssm_prefill"))
+    prof_step.update(top=top_kernels("ssm_decode_step"))
+    for name, pr in ((f"prefill of {SSM_PROMPTS[-1]} tokens", prof_prefill),
+                     ("decode step (a replay)", prof_step)):
+        if pr["idle_share"] is None:
+            print(f"[ssm] profiled {name}: the profiler saw no kernel; "
+                  f"device shares not measured", flush=True)
+            continue
+        print(f"[ssm] profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
+              f"busy {pr['device_busy_ms']:.2f} ms, idle share "
+              f"{pr['idle_share']:.4f}, {pr['kernels']:.0f} kernels; most "
+              f"time: " + "; ".join(f"{k} {ms:.3f} ms x{c}"
+                                    for k, ms, c in pr["top"]), flush=True)
+    serve = {"params_analytic": cfg.param_count(), "params": n_params,
+             "weight_bytes": w_bytes, "state_bytes": state_bytes,
+             "prompts": list(SSM_PROMPTS), "prefill": prefill,
+             "decode_step_ms": eng.step_ms, "replayed_step_median_ms":
+             step_med, "decode_step_bound_ms": step_bound[0],
+             "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+             "decode_tokens_per_s": SSM_MAX_BATCH * 1e3 / step_med,
+             "peak_bytes": peak, "launches": counts,
+             "decode_captures": eng.decode_captures,
+             "decode_replays": eng.decode_replays,
+             "replay_equal_eager": replay_equal,
+             "decode_vs_prefill": consistency,
+             "profile_prefill": prof_prefill, "profile_decode_step": prof_step}
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+    # -- training at full width, depth cut; then the f64 yardstick
+    tcfg = train_lm.make_config("mamba2-2.7b", width="full",
+                                layers=SSM_TRAIN_LAYERS)
+    skel = TransformerLM(tcfg, device="meta")
+
+    def loss_fn(params, bt, impl):
+        return lm_loss(skel, bt["tokens"], bt["labels"], params=params,
+                       attn_impl=impl)
+    train = drive_lm_trainer(
+        tcfg, "ssm_train", "ssm-train",
+        f"{tcfg.name} f32 full width (compute_dtype "
+        f"{tcfg.ssm.compute_dtype}), {tcfg.num_layers} layers, "
+        f"{tcfg.param_count() / 1e9:.3f} B params, batch {SSM_TRAIN_BATCH} x "
+        f"{SSM_TRAIN_SEQ}", loss_fn, (0, 0), SSM_TRAIN_STEPS,
+        SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    del train["by_shape"]
+    train["layers"] = tcfg.num_layers
+    train["f64"] = ssm_f64_grads(cfg)
+    return {"ssd": ssd, "serve": serve, "train": train}
+
+
 def main() -> None:
     # the flex_attention yardstick compiles with inductor and Triton: keep
     # their caches inside the checkout and compile in this process
@@ -5788,6 +6256,12 @@ def main() -> None:
     t0 = time.perf_counter()
     moe = drive_moe()
     print(f"[moe] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 21. the SSM path: mamba2-2.7b serving at full width and depth,
+    # training at full width
+    t0 = time.perf_counter()
+    ssm = drive_ssm()
+    print(f"[ssm] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -5797,7 +6271,7 @@ def main() -> None:
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "flash_bwd": flash_bwd, "lm_train": lm_train,
-         "encdec": encdec, "moe": moe,
+         "encdec": encdec, "moe": moe, "ssm": ssm,
          "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,

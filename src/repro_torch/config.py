@@ -2,10 +2,10 @@
 
 A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
 (``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
-the LM part (``MoEConfig`` :60, ``AttentionConfig``, ``LMConfig``,
-:96-195, with ``param_count``, ``active_param_count`` and
-``_count_params`` :188-238 for the dense, MoE and enc-dec stacks the port
-runs), the training part (``ShapeSpec`` :27,
+the LM part (``MoEConfig`` :60, ``SSMConfig`` :75, ``AttentionConfig``,
+``LMConfig``, :96-195, with ``param_count``, ``active_param_count`` and
+``_count_params`` :188-238 for the dense, MoE, SSM, hybrid and enc-dec
+stacks), the training part (``ShapeSpec`` :27,
 ``OptimizerConfig`` :310, ``TrainConfig`` :330) and the registry
 (``register``/``get_config``, :349-373) -- kept here so the port imports
 nothing of the JAX package.
@@ -108,6 +108,28 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block hyper-parameters (``SSMConfig``, :75); its
+    block is ``models/mamba2.py``."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+    # dtype of the intra-chunk score/decay tensors (the (B,H,Q,Q) traffic);
+    # inter-chunk state recurrence always runs in f32.
+    compute_dtype: str = "float32"
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class AttentionConfig:
     num_heads: int
     num_kv_heads: int
@@ -131,11 +153,10 @@ class AttentionConfig:
 
 @dataclass(frozen=True)
 class LMConfig:
-    """A transformer backbone: a decoder stack (its FFNs dense or MoE,
-    ``moe``), or with ``encoder_layers`` an enc-dec one
-    (``models/encdec.py``).  The SSM field is kept so the published
-    configs copy over unchanged; the port's models raise
-    ``NotImplementedError`` on it."""
+    """A backbone: a decoder stack of attention and (``ssm``) Mamba-2
+    layers, one attention layer in ``attn_every`` for a hybrid, their FFNs
+    dense, MoE (``moe``) or absent (``d_ff`` 0); or with
+    ``encoder_layers`` an enc-dec one (``models/encdec.py``)."""
 
     name: str
     family: str  # dense | moe | hybrid | ssm | vlm | audio
@@ -145,7 +166,7 @@ class LMConfig:
     vocab_size: int
     attention: Optional[AttentionConfig] = None
     moe: Optional[MoEConfig] = None
-    ssm: Optional[Any] = None   # repro.config.SSMConfig (not ported)
+    ssm: Optional[SSMConfig] = None
     # hybrid (jamba): one attention layer per `attn_every` layers, rest SSM.
     attn_every: int = 0
     # enc-dec (seamless): encoder layer count (decoder = num_layers).
@@ -196,7 +217,8 @@ class LMConfig:
         reference counts it (``param_count``, :188): the unpadded vocab,
         no norm scales; an enc-dec stack counts its encoder and the
         decoder's cross-attention, an MoE layer every expert, its router
-        and its dense residual.  SSM layers raise (not ported)."""
+        and its dense residual, an SSM layer its projections, conv, A, D
+        and norm but not ``conv_b`` and ``dt_bias``."""
         return _count_params(self, active_only=False)
 
     def active_param_count(self) -> int:
@@ -214,24 +236,33 @@ def _attn_params(d_model: int, a: AttentionConfig) -> int:
     return d_model * a.q_dim * 2 + d_model * a.kv_dim * 2
 
 
+def _ssm_params(d_model: int, s: SSMConfig) -> int:
+    """``_ssm_params`` (:206): the input projections, ``out_proj``, the
+    conv weights, A and D, the gated norm's scale."""
+    d_in = s.d_inner(d_model)
+    nh = s.n_heads(d_model)
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    in_proj = d_model * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
+    return in_proj + d_in * d_model + conv_dim * s.d_conv + 2 * nh + d_in
+
+
 def _count_params(cfg: LMConfig, active_only: bool) -> int:
-    """``_count_params`` (:208) for attention stacks, enc-dec ones
-    included: the encoder's layers after the decoder's, each decoder layer
-    with its cross-attention (:214-224); an MoE layer (the encoder's
-    index restarting at 0, as the reference's) counts ``num_experts`` (or
-    with ``active_only`` ``top_k``) experts, the router's ``d_model x
-    num_experts`` and the dense residual (:227-236)."""
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: parameter counts of SSM stacks are not ported "
-            f"(ROADMAP item 13.5)")
+    """``_count_params`` (:214-238): the encoder's layers after the
+    decoder's; a layer counts its attention where ``layer_is_attention``
+    (each decoder layer of an enc-dec stack its cross-attention too), else
+    its SSM block; an MoE layer (the encoder's index restarting at 0, as
+    the reference's) counts ``num_experts`` (or with ``active_only``
+    ``top_k``) experts, the router's ``d_model x num_experts`` and the
+    dense residual, another layer its dense FFN where ``d_ff`` > 0."""
     total = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     for i in range(cfg.num_layers + cfg.encoder_layers):
         li = i if i < cfg.num_layers else i - cfg.num_layers
-        if cfg.attention is not None:
+        if cfg.layer_is_attention(li) and cfg.attention is not None:
             total += _attn_params(cfg.d_model, cfg.attention)
             if i < cfg.num_layers and cfg.encoder_layers > 0:
                 total += _attn_params(cfg.d_model, cfg.attention)
+        elif cfg.ssm is not None:
+            total += _ssm_params(cfg.d_model, cfg.ssm)
         if cfg.layer_is_moe(li):
             m = cfg.moe
             per_expert = _mlp_params(cfg.d_model, m.expert_d_ff,

@@ -27,7 +27,9 @@ from repro_torch.serve.engine import Request, ServeEngine
 #: arch -> module under repro_torch.configs (the archs ported so far; the
 #: reference's map is ``repro/launch/train.py::MODULES``)
 MODULES = {"arctic-480b": "arctic_480b", "gemma2-9b": "gemma2_9b",
-           "granite-3-8b": "granite_3_8b", "kimi-k2-1t-a32b": "kimi_k2"}
+           "granite-3-8b": "granite_3_8b",
+           "jamba-1.5-large-398b": "jamba_1_5_large",
+           "kimi-k2-1t-a32b": "kimi_k2", "mamba2-2.7b": "mamba2_2_7b"}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -12,9 +12,11 @@ its atomic checkpoints -- over a ~100M granite-family model by default:
       --arch seamless-m4t-medium --width full --steps 3 --batch 2 --seq 4096
 
 On a card the attention of every layer runs K5 and its backward kernels
-(``--device cuda``, the default).  ``--arch`` takes the archs whose
-configs the port has (``granite-100m``, ``gemma2-9b``, ``granite-3-8b``,
-and the enc-dec ``seamless-m4t-medium``, its frames from the pipeline),
+(``--device cuda``, the default); a Mamba-2 layer is plain PyTorch under
+autograd.  ``--arch`` takes the archs whose configs the port has
+(``granite-100m``, ``gemma2-9b``, ``granite-3-8b``, the SSM
+``mamba2-2.7b``, the hybrid ``jamba-1.5-large-398b`` and the enc-dec
+``seamless-m4t-medium``, its frames from the pipeline),
 reduced and in f32 as the example trains them (``make_config(...,
 width="full", layers=n)`` keeps the published widths and cuts the depth,
 as ``chip_smoke.py``'s phase 18 trains gemma2-9b).  Re-running the same
@@ -45,6 +47,8 @@ from repro_torch.train.trainer import Trainer
 #: archs the port has, and the enc-dec seamless-m4t-medium, whose batches
 #: carry the encoder's frames)
 MODULES = {"gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b",
+           "jamba-1.5-large-398b": "jamba_1_5_large",
+           "mamba2-2.7b": "mamba2_2_7b",
            "seamless-m4t-medium": "seamless_m4t_medium"}
 
 
@@ -113,6 +117,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-100m",
                     help="granite-100m | gemma2-9b | granite-3-8b | "
+                    "mamba2-2.7b | jamba-1.5-large-398b | "
                     "seamless-m4t-medium")
     ap.add_argument("--preset", default="full",
                     choices=["full", "tiny", "smoke"])

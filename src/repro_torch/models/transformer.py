@@ -1,4 +1,4 @@
-"""Decoder LM backbone: the dense attention stack of the serving path.
+"""Decoder LM backbone: attention, SSM and hybrid stacks.
 
 Port of ``repro/models/transformer.py``.  The reference stacks the layers'
 parameters per position of a repeating PERIOD and runs them under one
@@ -6,7 +6,10 @@ parameters per position of a repeating PERIOD and runs them under one
 layer order and a Python loop runs it.  ``LayerPos`` and the period still
 say what each layer is (gemma2: even layers local, sliding-window), and
 ``params_from_reference`` maps the stacked pytree onto the list: layer
-``rep * period + i`` is slice ``rep`` of ``pos{i}``.
+``rep * period + i`` is slice ``rep`` of ``pos{i}``.  A layer is an
+attention layer or, where ``cfg.layer_is_attention`` says not, a Mamba-2
+block (``models/mamba2.py``): all of mamba2's, seven of each eight of
+jamba's.
 
 Entry points (the reference's, with the module in place of ``params`` and
 ``cfg``):
@@ -20,12 +23,13 @@ Entry points (the reference's, with the module in place of ``params`` and
 ``model(tokens, labels)`` is ``lm_loss``, so ``torch.func.functional_call``
 runs the loss over a dict of parameters by name (``launch/steps.py``).
 
-Caches are a list with one ``(k, v)`` pair per layer.  A layer's FFN is
-an ``MLP``, or an ``MoE`` (``models/moe.py``) where ``cfg.layer_is_moe``;
-the stack sums the MoE layers' load-balance losses into ``lm_loss``'s
-``aux``.  SSM and frontend embeddings are not ported and raise
-``NotImplementedError``; an enc-dec config raises too (its model is
-``models/encdec.py``).
+Caches are a list with one pair per layer: ``(k, v)`` in the model's
+dtype for an attention layer, ``(state, conv)`` in f32 for an SSM layer.
+A layer's FFN is an ``MLP``, an ``MoE`` (``models/moe.py``) where
+``cfg.layer_is_moe``, or none where ``d_ff`` is 0 (mamba2); the stack sums
+the MoE layers' load-balance losses into ``lm_loss``'s ``aux``.  Frontend
+embeddings are not ported and raise ``NotImplementedError``; an enc-dec
+config raises too (its model is ``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -41,12 +45,12 @@ from torch import nn
 
 from repro_torch.config import LMConfig
 from repro_torch.core.backend import resolve_device
+from repro_torch.models.mamba2 import Mamba2, SSMCache, conv_dim
 from repro_torch.models.moe import MoE
 from repro_torch.nn.attention import Attention, KVCache, attention_block
-from repro_torch.nn.layers import (MLP, Embedding, RMSNorm, embed, softcap,
-                                   unembed)
+from repro_torch.nn.layers import (DTYPES, MLP, Embedding, RMSNorm,
+                                   acc_dtype, embed, softcap, unembed)
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -91,15 +95,10 @@ def _check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: an enc-dec stack; its model is "
             f"models/encdec.py::EncDecLM")
-    missing = [what for what, off in (
-        ("SSM", cfg.ssm is not None),
-        ("frontend embeddings", cfg.frontend_stub),
-        ("attention-free stacks", cfg.attention is None),
-        ("FFN-free blocks", cfg.d_ff <= 0)) if off]
-    if missing:
+    if cfg.frontend_stub:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs attention stacks with dense or MoE "
-            f"FFNs only; {', '.join(missing)} not ported yet")
+            f"{cfg.name}: frontend embeddings (the reference's VLM/audio "
+            f"stub) are not ported yet (ROADMAP item 13.6)")
 
 
 # ---------------------------------------------------------------------------
@@ -108,22 +107,29 @@ def _check_supported(cfg: LMConfig) -> None:
 
 
 class Block(nn.Module):
-    """One transformer block (``_apply_layer``): attention, then ``mlp`` or,
-    at an MoE position, ``moe``; gemma2 adds the sandwich norms
-    ``ln1_post``/``ln2_post``."""
+    """One block (``_apply_layer``): ``attn``, or at an SSM position
+    (``kind`` "ssm") the Mamba-2 block ``ssm``; then ``mlp``, or at an MoE
+    position ``moe``, or no FFN sub-block (and no ``ln2``) where ``d_ff``
+    is 0; gemma2 adds the sandwich norms ``ln1_post``/``ln2_post``."""
 
     def __init__(self, cfg: LMConfig, pos: LayerPos, *, dtype, device,
                  generator: torch.Generator):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
+        self.kind = pos.kind
         self.window = cfg.attention.sliding_window if pos.local else 0
         self.ln1 = RMSNorm(cfg.d_model, device=device)
-        self.attn = Attention(cfg.d_model, cfg.attention, **kw)
-        self.ln2 = RMSNorm(cfg.d_model, device=device)
+        if pos.kind == "attn":
+            self.attn = Attention(cfg.d_model, cfg.attention, **kw)
+        else:
+            self.ssm = Mamba2(cfg.d_model, cfg.ssm, **kw)
         self.is_moe = pos.moe
+        self.has_ffn = pos.moe or cfg.d_ff > 0
+        if self.has_ffn:
+            self.ln2 = RMSNorm(cfg.d_model, device=device)
         if pos.moe:
             self.moe = MoE(cfg.d_model, cfg.moe, cfg.mlp_activation, **kw)
-        else:
+        elif self.has_ffn:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
         self.sandwich = cfg.name.startswith("gemma2")
         if self.sandwich:
@@ -131,11 +137,13 @@ class Block(nn.Module):
             self.ln2_post = RMSNorm(cfg.d_model, device=device)
 
     def forward(self, x: torch.Tensor, cfg: LMConfig, *,
-                cache: Optional[KVCache] = None, make_cache: bool = False,
+                cache=None, make_cache: bool = False,
                 cache_size: int = 0, attn_impl: str = "auto"):
         """Returns (x, new_cache, aux): ``aux`` is the MoE layer's f32
-        load-balance loss, None for a dense FFN.  The MoE layer is
-        dropless in decode (``cache`` given), as the reference's.
+        load-balance loss, None for a dense FFN or none.  ``cache`` is a
+        ``KVCache`` for an attention layer, an ``SSMCache`` for an SSM
+        one.  The MoE layer is dropless in decode (``cache`` given), as
+        the reference's.
 
         The residual stream keeps the reference's roundings.  Its compiled
         scan adds a residual in f32 and feeds that unrounded sum to the next
@@ -143,17 +151,24 @@ class Block(nn.Module):
         dtype (and the scan's carry is rounded once per period, in
         ``_run_stack``).  So ``x`` may come in as that f32 sum, and the
         block returns its own f32 sum; in an f32 model every cast here is a
-        no-op."""
+        no-op.  A block without an FFN returns the sum after its first
+        sub-block.  (An f64 model sums in f64.)"""
         eps, dt = cfg.norm_eps, DTYPES[cfg.dtype]
+        acc = acc_dtype(dt)
         h = self.ln1(x, eps, dtype=dt)
         x = x.to(dt)
-        out, new_cache = attention_block(
-            self.attn, h, cfg.attention,
-            layer_window=self.window, cache=cache, make_cache=make_cache,
-            cache_size=cache_size, impl=attn_impl)
+        if self.kind == "attn":
+            out, new_cache = attention_block(
+                self.attn, h, cfg.attention,
+                layer_window=self.window, cache=cache, make_cache=make_cache,
+                cache_size=cache_size, impl=attn_impl)
+        else:
+            out, new_cache = self.ssm(h, cache=cache, make_cache=make_cache)
         if self.sandwich:
             out = self.ln1_post(out, eps)
-        xs = x.float() + out
+        xs = x.to(acc) + out
+        if not self.has_ffn:
+            return xs, new_cache, None
         h, aux = self.ln2(xs, eps, dtype=dt), None
         if self.is_moe:
             out, aux = self.moe(h, dropless=cache is not None)
@@ -161,7 +176,7 @@ class Block(nn.Module):
             out = self.mlp(h)
         if self.sandwich:
             out = self.ln2_post(out, eps)
-        return xs.to(dt).float() + out, new_cache, aux
+        return xs.to(dt).to(acc) + out, new_cache, aux
 
 
 class TransformerLM(nn.Module):
@@ -347,14 +362,15 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
     def run_period(x, aux, n0):
         x = x.to(dt)      # the reference's scan carry, rounded
         for n in range(n0, n0 + period):
-            inner = None
+            inner, layer = None, model.layers[n]
             if caches is not None:
-                inner = KVCache(caches[n][0], caches[n][1], cache_length)
-            x, new_inner, layer_aux = model.layers[n](
+                kind = KVCache if layer.kind == "attn" else SSMCache
+                inner = kind(caches[n][0], caches[n][1], cache_length)
+            x, new_inner, layer_aux = layer(
                 x, cfg, cache=inner, make_cache=make_cache,
                 cache_size=cache_size, attn_impl=attn_impl)
             if new_inner is not None:
-                new_caches.append((new_inner.k, new_inner.v))
+                new_caches.append((new_inner[0], new_inner[1]))
             if layer_aux is not None:
                 aux = aux + layer_aux
         return x, aux
@@ -461,27 +477,43 @@ def chunked_ce(cfg: LMConfig, table: torch.Tensor, x: torch.Tensor,
 
 def init_caches(cfg: LMConfig, batch: int, cache_size: int,
                 device="cuda") -> Caches:
-    """Zeroed caches, one ``(k, v)`` of (batch, Hkv, cache_size, head_dim)
-    in the model's dtype per layer."""
+    """Zeroed caches, one pair per layer (``zeroed_caches``)."""
     _check_supported(cfg)
     return zeroed_caches(cfg, batch, cache_size, device)
 
 
 def zeroed_caches(cfg: LMConfig, batch: int, cache_size: int,
                   device="cuda") -> Caches:
-    """``cfg.num_layers`` pairs of zeroed (batch, Hkv, cache_size,
-    head_dim) tensors in the model's dtype."""
-    a = cfg.attention
-    shape = (batch, a.num_kv_heads, cache_size, a.head_dim)
+    """``cfg.num_layers`` pairs of zeroed tensors, each layer's of its kind
+    (``init_caches_abstract``, :318-340): an attention layer's ``(k, v)``
+    of (batch, Hkv, cache_size, head_dim) in the model's dtype, an SSM
+    layer's ``(state, conv)`` of (batch, H, d_state, head_dim) and (batch,
+    conv_dim, d_conv - 1) in f32 (f64 in an f64 model), whatever
+    ``cache_size``."""
     dev = resolve_device(device)
-    return [tuple(torch.zeros(shape, dtype=DTYPES[cfg.dtype], device=dev)
-                  for _ in range(2)) for _ in range(cfg.num_layers)]
+    dt = DTYPES[cfg.dtype]
+    kinds = layer_positions(cfg)
+    out: Caches = []
+    for n in range(cfg.num_layers):
+        if kinds[n % len(kinds)].kind == "attn":
+            a = cfg.attention
+            shapes = [(batch, a.num_kv_heads, cache_size, a.head_dim)] * 2
+            dtype = dt
+        else:
+            s = cfg.ssm
+            shapes = [(batch, s.n_heads(cfg.d_model), s.d_state, s.head_dim),
+                      (batch, conv_dim(cfg.d_model, s), s.d_conv - 1)]
+            dtype = acc_dtype(dt)
+        out.append(tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                         for shape in shapes))
+    return out
 
 
 def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cache_size: int,
                embeds=None, *, attn_impl: str = "auto"):
     """Forward + cache build.  Returns (last-token logits (B, 1, V),
-    caches padded to ``cache_size``, length () int32)."""
+    caches -- an attention layer's padded to ``cache_size``, an SSM
+    layer's its final state and conv tail --, length () int32)."""
     x, caches, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
                               make_cache=True, cache_size=cache_size,
                               attn_impl=attn_impl)
@@ -492,7 +524,8 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cache_size: int,
 def lm_decode_step(model: TransformerLM, token: torch.Tensor, caches: Caches,
                    length: torch.Tensor, *, attn_impl: str = "auto"):
     """One-token decode.  token: (B, 1); ``length`` () or (B,) int32.
-    Writes the new rows into ``caches`` in place and returns (logits
+    Writes the new rows (an attention layer's) and the new state and conv
+    tail (an SSM layer's) into ``caches`` in place and returns (logits
     (B, 1, V), caches, length + 1)."""
     x, new_caches, _ = _run_stack(model, _embed_inputs(model, token),
                                   caches=caches, cache_length=length,

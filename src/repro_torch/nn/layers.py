@@ -26,6 +26,18 @@ from torch import nn
 from repro_torch.core.backend import resolve_device
 
 
+#: the configs' dtype names (``LMConfig.dtype``, ``SSMConfig.
+#: compute_dtype``); float64 is the card's yardstick of an f32 gradient
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the reference computes in f32 for operands of ``dtype``:
+    f32 for bf16 and f32, f64 for an f64 yardstick."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def init_normal(shape, scale: float, *, dtype, device,
                 generator: torch.Generator) -> nn.Parameter:
     """``N(0, 1) * scale`` drawn in f32 on ``device``, cast to ``dtype``."""
@@ -41,11 +53,19 @@ def init_normal(shape, scale: float, *, dtype, device,
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6,
             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """RMSNorm computed in f32 with ``(1 + scale)``, cast to ``dtype``
-    (default: x's dtype)."""
-    xf = x.float()
+    """RMSNorm computed in f32 (f64 for f64 ``x``) with ``(1 + scale)``,
+    cast to ``dtype`` (default: x's dtype)."""
+    xf = x.to(acc_dtype(x.dtype))
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale)).to(dtype or x.dtype)
+
+
+def gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """Mamba2's norm-then-gate (``gated_rmsnorm``, :37):
+    ``rmsnorm(x * silu(z))`` with z cast to x's dtype first, the gate and
+    its product in x's dtype, the result in x's dtype."""
+    return rmsnorm(scale, x * silu(z.to(x.dtype)), eps)
 
 
 class RMSNorm(nn.Module):
@@ -203,15 +223,15 @@ def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     (``preferred_element_type=float32``); bf16 logits are never rounded to
     bf16.
 
-    f32 operands are a plain f32 product.  Reduced-precision operands on a
-    card go through ``torch.mm(..., out_dtype=torch.float32)``
+    f32 (and f64) operands are a plain product.  Reduced-precision
+    operands on a card go through ``torch.mm(..., out_dtype=torch.float32)``
     (``_UnembedF32``, differentiable for the training loss); on the CPU,
     which has no such kernel, ``UNEMBED_CHUNK`` vocab rows of the table at
     a time are upcast and multiplied in f32 (the products of bf16 values
     are exact in f32), so no f32 copy of the whole table (256000 x 3584 for
     gemma2) is made."""
     table = table.to(x.dtype)
-    if x.dtype == torch.float32:
+    if x.dtype in (torch.float32, torch.float64):
         return x @ table.t()
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type != "cpu":

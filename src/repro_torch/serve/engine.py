@@ -5,16 +5,18 @@ Port of ``repro/serve/engine.py``.  The queue/slot/stats loop is
 
   * admission is prefill-into-slot: one sequence's ``lm_prefill`` (K5 on
     every attention layer on a card) written into the batch cache at its
-    slot, with per-slot cache lengths, so a slot's RoPE positions restart
-    at 0 whatever the other slots hold;
+    slot -- an attention layer's K and V rows, an SSM layer's state and
+    conv tail --, with per-slot cache lengths, so a slot's RoPE positions
+    restart at 0 whatever the other slots hold;
   * the step is one batched ``lm_decode_step`` over every slot; on a card
     it is captured once as a CUDA graph and replayed (``_decode``);
   * greedy or temperature sampling on the host from a seeded numpy rng;
   * a request stops on EOS, on ``max_tokens`` or when its cache is full.
 
 The forward runs under ``torch.inference_mode()``.  The cache is allocated
-once at ``cache_size`` on the model's device, and the decode step writes
-its new rows into it in place.
+once at ``cache_size`` on the model's device (an SSM layer's state and
+conv tail whatever ``cache_size``), and the decode step writes its new
+rows, states and tails into it in place.
 """
 
 from __future__ import annotations
@@ -108,15 +110,23 @@ class ServeEngine(SlotServeCore):
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
         """Single-sequence prefill written into the batch cache at `slot`:
         the new sequence's rows fill positions [0, cache_size) of ITS slot
-        (zeros past the prompt) and its length is the prompt's."""
+        (zeros past the prompt), an SSM layer's state and conv tail are
+        its own, and its length is the prompt's.  Each field is written
+        whole: a prefill cache of another shape than the slot's raises
+        (a copy would broadcast it)."""
         self._ensure_caches()
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                  device=self.model.device)      # (1, L)
         logits, caches1, _ = lm_prefill(self.model, prompt, self.cache_size,
                                         attn_impl=self.attn_impl)
-        for (bk, bv), (k1, v1) in zip(self._caches, caches1):
-            bk[slot:slot + 1].copy_(k1)
-            bv[slot:slot + 1].copy_(v1)
+        for batch_fields, fields in zip(self._caches, caches1):
+            for whole, one in zip(batch_fields, fields):
+                dst = whole[slot:slot + 1]
+                if dst.shape != one.shape:
+                    raise ValueError(f"prefill cache {tuple(one.shape)} "
+                                     f"does not fill the slot's "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(one)
         self._length[slot] = prompt.shape[1]
         tok = self._sample(logits[:, -1].cpu().numpy(), req)
         req.output.append(int(tok))

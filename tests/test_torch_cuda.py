@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.config import CORA, reduced_graph
 from repro_torch.config import MoEConfig
-from repro_torch.configs import arctic_480b, gemma2_9b, seamless_m4t_medium
+from repro_torch.configs import (arctic_480b, gemma2_9b, jamba_1_5_large,
+                                 mamba2_2_7b, seamless_m4t_medium)
 from repro_torch.core import dataflow
 from repro_torch.core import plan as tplan
 from repro_torch.core.dataflow import block_graph_arrays
@@ -27,7 +28,7 @@ from repro_torch.kernels import flash_attention as k5
 from repro_torch.kernels import fused_agg_combine as k2
 from repro_torch.kernels import ops
 from repro_torch.kernels import seg_agg as k1
-from repro_torch.models import encdec, moe
+from repro_torch.models import encdec, mamba2, moe
 from repro_torch.models import transformer as ttr
 from repro_torch.models.gcn import make_paper_model
 from repro_torch.nn import layers
@@ -981,6 +982,133 @@ def test_moe_serve_engine_captured_decode_matches_eager(gpu):
     assert got == want and all(len(o) == 6 for o in got.values())
     assert (eng.decode_captures, eng.decode_replays) == \
         (1, eng.stats()["decode_steps"] - 1)
+
+
+def test_ssd_chunked_on_the_card_matches_the_oracle(gpu):
+    """mamba2-2.7b's head shape (B 1, S 1024, H 80, P 64, G 1, N 128, chunk
+    256): the chunked scan against the sequential oracle on the card in f32
+    at the reference's limits (rtol 1e-4, atol 1e-5), y and the final
+    state; with a bf16 compute_dtype in the bf16 band of that f32 run."""
+    gen = torch.Generator(device=gpu).manual_seed(0)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=gpu) * scale
+    b, s, h, p, g, n = 1, 1024, 80, 64, 1, 128
+    x, bm, cm = draw(b, s, h, p), draw(b, s, g, n, scale=0.3), \
+        draw(b, s, g, n, scale=0.3)
+    dt = torch.rand((b, s, h), generator=gen, device=gpu) * 0.5 + 0.01
+    a = -torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=gpu)))
+    cfg = mamba2_2_7b.config().ssm
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        y, st = mamba2.ssd_chunked(x, bm, cm, dt, a, cfg32)
+        oy, ost = mamba2.ssd_reference(x, bm, cm, dt, a)
+        y16, st16 = mamba2.ssd_chunked(x.bfloat16(), bm.bfloat16(),
+                                       cm.bfloat16(), dt, a, cfg)
+    torch.cuda.synchronize()
+    for got, want in ((y, oy), (st, ost)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert y16.dtype == st16.dtype == torch.float32
+    for got, want in ((y16, y), (st16, st)):
+        torch.testing.assert_close(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def _decode_replay_bitwise_eager(model, token, caches, length):
+    """One decode step captured as a CUDA graph and replayed, against the
+    eager step from the same caches: logits and every cache tensor bit for
+    bit."""
+    with torch.inference_mode():
+        saved = [tuple(t.clone() for t in c) for c in caches]
+
+        def restore():
+            for c, c0 in zip(caches, saved):
+                for t, t0 in zip(c, c0):
+                    t.copy_(t0)
+        ttr.lm_decode_step(model, token, caches, length)      # warm-up
+        restore()
+        eager = ttr.lm_decode_step(model, token, caches, length)[0].clone()
+        after = [tuple(t.clone() for t in c) for c in caches]
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with tplan.capture_graph(graph):
+            logits = ttr.lm_decode_step(model, token, caches, length)[0]
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(logits, eager)
+    assert all(torch.equal(t, t0) for c, c0 in zip(caches, after)
+               for t, t0 in zip(c, c0))
+
+
+def test_ssm_serve_engine_captured_decode_matches_eager(gpu):
+    """Reduced mamba2-2.7b (bf16, every layer a Mamba-2 block) through the
+    ServeEngine on the card: no K5 launch, the decode step captured once
+    over the SSM caches, its greedy tokens the eager decode's, 1- and
+    2-token prompts among them; a replay bit for bit the eager step."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = mamba2_2_7b.reduced()
+    model = ttr.TransformerLM(cfg, device=gpu)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (1, 17, 2, 40)]
+
+    def serve(decode_graph):
+        eng = ServeEngine(cfg, model, max_batch=2, cache_size=64,
+                          decode_graph=decode_graph)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_tokens=6))
+        n = k5.flash_attention.launches
+        out = {r.rid: r.output for r in eng.run()}
+        return eng, out, k5.flash_attention.launches - n
+
+    eng, got, launches = serve(True)
+    ref, want, _ = serve(False)
+    assert launches == 0
+    assert got == want and all(len(o) == 6 for o in got.values())
+    assert (eng.decode_captures, eng.decode_replays) == \
+        (1, eng.stats()["decode_steps"] - 1)
+    token = torch.as_tensor(eng._last_tokens, device=gpu)
+    _decode_replay_bitwise_eager(model, token, eng._caches, eng._length)
+
+
+def test_hybrid_captured_decode_step_bitwise_eager(gpu):
+    """Reduced jamba-1.5-large (attention at layer 4, MoE at odd layers,
+    SSM elsewhere) on the card: a decode step over zeroed caches of both
+    kinds (no prefill, so no K5 launch at the reduced head_dim 16),
+    captured and replayed bit for bit its eager step, the K/V rows, states
+    and conv tails included."""
+    cfg = jamba_1_5_large.reduced()
+    model = ttr.TransformerLM(cfg, device=gpu)
+    caches = ttr.init_caches(cfg, 2, 32, device=gpu)
+    assert caches[4][0].dtype == torch.bfloat16
+    assert caches[0][0].dtype == torch.float32
+    token = torch.as_tensor([[3], [7]], device=gpu)
+    length = torch.zeros((2,), dtype=torch.int32, device=gpu)
+    n = k5.flash_attention.launches
+    _decode_replay_bitwise_eager(model, token, caches, length)
+    assert k5.flash_attention.launches == n
+    assert any(c[1].any() for c in caches[:4])     # the steps moved them
+
+
+def test_mamba2_at_full_width_on_the_card(gpu):
+    """The published mamba2-2.7b (64 layers, d_model 2560) builds on the
+    card: every parameter there, the projections in bf16, A_log and the
+    other f32 leaves in f32, the analytic count plus the padded vocabulary
+    rows, the norm scales, conv_b and dt_bias."""
+    from repro_torch.config import get_config
+    cfg = get_config("mamba2-2.7b")
+    model = ttr.TransformerLM(cfg)
+    params = list(model.parameters())
+    assert all(p.device == gpu for p in params)
+    s = cfg.ssm
+    extra = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model \
+        + (cfg.num_layers + 1) * cfg.d_model + cfg.num_layers * (
+            mamba2.conv_dim(cfg.d_model, s) + s.n_heads(cfg.d_model))
+    assert sum(p.numel() for p in params) == cfg.param_count() + extra
+    blk = model.layers[0].ssm
+    assert blk.z_proj.dtype == torch.bfloat16
+    assert blk.A_log.dtype == blk.dt_bias.dtype == torch.float32
+    del model, params, blk
+    torch.cuda.empty_cache()
 
 
 def test_capture_failure_raises(card, monkeypatch):

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.config import CORA, reduced_graph
-from repro_torch.configs import granite_3_8b
+from repro_torch.configs import granite_3_8b, mamba2_2_7b
 from repro_torch.core import backend
 from repro_torch.core.dataflow import block_graph
 from repro_torch.core.gcn_layers import GCNConv
@@ -111,6 +111,25 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
         init_caches(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cuda'"):
         launch_serve.main(["--arch", "granite-3-8b", "--reduced"])
+
+
+def test_ssm_entry_points_default_to_cuda(monkeypatch):
+    """The SSM stack has no CPU fallback either: mamba2-2.7b (published and
+    reduced) and its caches raise without a card, and its module and
+    configs are among the files held to the import rules above."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "src" in p.parts}
+    assert {"models/mamba2.py", "configs/mamba2_2_7b.py",
+            "configs/jamba_1_5_large.py"} <= names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.config import get_config
+    for cfg in (get_config("mamba2-2.7b"), mamba2_2_7b.reduced()):
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            TransformerLM(cfg)
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            init_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        launch_serve.main(["--arch", "mamba2-2.7b", "--reduced"])
 
 
 def test_cuda_tier_on_cpu_tensors_raises():

@@ -234,8 +234,7 @@ def test_decode_matches_full_forward(pair):
 
 def test_unsupported_families_raise():
     cfg = _fp32(granite_3_8b)
-    for kw in ({"ssm": object()}, {"encoder_layers": 2},
-               {"frontend_stub": True}):
+    for kw in ({"encoder_layers": 2}, {"frontend_stub": True}):
         with pytest.raises(NotImplementedError):
             ttr.TransformerLM(dataclasses.replace(cfg, **kw), device="cpu")
     model = ttr.TransformerLM(cfg, device="cpu")
