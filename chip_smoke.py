@@ -160,6 +160,37 @@ Phases, each printing its own lines; any failure exits non-zero:
                 through launch/train_lm.py's functions (drive_lm_trainer,
                 no K5 launch), and step 0's gradients of a 2-layer f32
                 model against the same weights in f64.
+ 22. vlm    -- (right after phase 21) K5 at the VLM slice's shapes (m)-(q)
+                as phase 5 holds its shapes (SDPA with enable_gqa=True as
+                the library call), and its backward at (o) as phase 18
+                does.  internvl2-1b (24 layers, 14 query heads over 2 KV
+                heads at D 64, tied 151655-token vocabulary, seeded random
+                weights) at full width and depth, bf16, image+prompt
+                serving through launch/steps.py: 4 requests of
+                NUM_PATCH_TOKENS stub patch embeddings and a 768-token
+                prompt through make_prefill_step into a cache of 1040
+                rows, then 16 greedy make_decode_steps; prefill ms, decode
+                ms a step and tokens/s (CUDA events) beside their bounds,
+                peak memory, K5's launches by shape (one a layer a prefill
+                at (m), none in a decode step: the decode attention is the
+                plain one, as the reference's), the prefill logits against
+                the torch tier, and each request's last decode logits
+                against a fresh vlm_forward over its patches, prompt and
+                generated tokens -- an f32 model's within the f32 band x
+                SCALE, the bf16 ones against that f32 yardstick beside a
+                bf16 forward's (SSM_DECODE_SLACK); a profiled prefill and
+                decode step; a text-only wave through launch/serve.py.
+                Then training at full width and depth in f32 through
+                launch/train_lm.py's functions (drive_lm_trainer): 2 x
+                (256 patches + 4096 tokens) from TokenPipeline, K5's
+                forward and backward at (o).  Then gemma-7b (all 28
+                layers) and deepseek-67b (2 of 95 layers) at full width in
+                bf16 through the ServeEngine: 4 requests of up to 2048
+                prompt tokens (K5 at (p) and (q)), 16 greedy tokens each,
+                the decode step captured once and a replay bit for bit the
+                eager step, K5's launches by shape, the first prompt's
+                logits against the torch tier, prefill and decode ms, peak
+                memory.  Free device memory is checked before each model.
   8. compiled -- (run right after phase 4, on its models and graph) each of
                 the six Reddit forwards through plan.compile(), one CUDA
                 graph each: the capture's K1/K2 launches against the eager
@@ -355,7 +386,7 @@ Phases, each printing its own lines; any failure exits non-zero:
                 trace a signature, the loss falling).
 
 The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7,
-18, 19, 20, 21.
+18, 19, 20, 21, 22.
 The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
@@ -414,7 +445,13 @@ LOGIT_FRO_LIMIT = 5e-2
 #: training length (2 x 4096), (j) a decode step's cross-attention (Sq 1),
 #: (k) the prefill's causal self-attention over the 64-token prompts;
 #: arctic-480b's prefill layer at phase 20's longest prompt (GQA group 7,
-#: D 128): (l), which phase 20 checks (phase 5 the others).
+#: D 128): (l), which phase 20 checks (phase 5 the others); phase 22's,
+#: which it checks itself (VLM_FLASH): internvl2-1b (GQA group 7, D 64)
+#: (m) its image+prompt prefill (256 patches + 768 tokens), (n) a decode
+#: step's function over the 1040-row cache (held here; the decode path's
+#: attention is the plain one), (o) its training layer (256 patches + 4096
+#: tokens, batch 2); (p) gemma-7b's prefill at the wave's 2048-token prompt
+#: (group 1, D 256), (q) deepseek-67b's (group 8, D 128).
 FLASH_SHAPES = {
     "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
     "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
@@ -428,7 +465,14 @@ FLASH_SHAPES = {
     "j": (4, 16, 16, 1, 4096, 64, False, 0, 0.0, None),
     "k": (4, 16, 16, 64, 64, 64, True, 0, 0.0, None),
     "l": (1, 56, 8, 4080, 4080, 128, True, 0, 0.0, None),
+    "m": (4, 14, 2, 1024, 1024, 64, True, 0, 0.0, None),
+    "n": (4, 14, 2, 1, 1040, 64, True, 0, 0.0, (1025, 1030, 1035, 1040)),
+    "o": (2, 14, 2, 4352, 4352, 64, True, 0, 0.0, None),
+    "p": (1, 16, 16, 2048, 2048, 256, True, 0, 0.0, None),
+    "q": (1, 64, 8, 2048, 2048, 128, True, 0, 0.0, None),
 }
+#: the shapes phase 22 holds (forward; the backward at (o)), not phase 5
+VLM_FLASH = ("m", "n", "o", "p", "q")
 #: phase 5: K5's row logsumexp (``return_lse=True``) against the plain
 #: version's, absolute, over rows with a key (an all-masked row must read
 #: -1e30 in both).  f32: the scores agree to ~1e-6 relative; bf16: the
@@ -442,7 +486,8 @@ LSE_LIMIT = {"float32": 2e-5, "bfloat16": 4e-3}
 #: (g) the encoder's and the cross-attention's at phase 19's training
 #: batch (2 x 4096 tokens over 4096 frames), (i) the decoder's causal
 #: self-attention there, and off the training path, non-causal, (h) Sq <
-#: Sk and (j) Sq = 1 at the serving shapes
+#: Sk and (j) Sq = 1 at the serving shapes; internvl2-1b's training layer
+#: (o), GQA group 7 at D 64, which phase 22 holds
 FLASH_BWD_SHAPES = {
     "a": (1, 16, 8, 6144, 6144, 256, True, 0, 50.0, None),
     "b": (1, 16, 8, 6144, 6144, 256, True, 4096, 50.0, None),
@@ -453,6 +498,7 @@ FLASH_BWD_SHAPES = {
     "h": (4, 16, 16, 64, 4096, 64, False, 0, 0.0, None),
     "i": (2, 16, 16, 4096, 4096, 64, True, 0, 0.0, None),
     "j": (4, 16, 16, 1, 4096, 64, False, 0, 0.0, None),
+    "o": (2, 14, 2, 4352, 4352, 64, True, 0, 0.0, None),
 }
 #: phase 18: q and k are drawn with this std, so the logits (std ~9) reach
 #: where the softcap of 50 bends them and its Jacobian moves dS by percents
@@ -526,6 +572,21 @@ SSM_F64_LAYERS = 2
 #: (so 5e-2 between them cannot hold), while the f32 branches agree to
 #: 1e-5 (PERF.md §6); a fault of the decode branch moves it O(1) off
 SSM_DECODE_SLACK = 1.5
+#: phase 22: internvl2-1b at full width and depth: image+prompt requests
+#: (each NUM_PATCH_TOKENS patch embeddings and VLM_PROMPT tokens), the cache
+#: (patches + prompt + the greedy steps), greedy decode steps; training in
+#: f32: batch x (patches + tokens), Trainer steps; the free device memory
+#: the serving and the training models need before they are built
+VLM_BATCH, VLM_PROMPT, VLM_CACHE, VLM_STEPS = 4, 768, 1040, 16
+VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, VLM_TRAIN_STEPS = 2, 4352, 3
+VLM_MIN_FREE, VLM_TRAIN_MIN_FREE = 20e9, 50e9
+#: phase 22: the dense ServeEngine waves at full width: arch -> (layers,
+#: free device memory needed first); requests (prompt lengths from
+#: default_rng(SEED) in DENSE_PROMPT_RANGE and one of its upper end, K5's
+#: shapes (p) and (q)), greedy tokens, the cache
+DENSE_WAVES = {"gemma-7b": (28, 30e9), "deepseek-67b": (2, 15e9)}
+DENSE_REQUESTS, DENSE_TOKENS, DENSE_CACHE = 4, 16, 2080
+DENSE_PROMPT_RANGE = (64, 2048)
 #: phase 21: the chunked scan against the sequential oracle in f32, at the
 #: reference's own limits (tests/test_mamba_moe.py): |a - b| <= atol +
 #: rtol |b| for every element of y and of the final state
@@ -533,7 +594,7 @@ SSD_RTOL, SSD_ATOL = 1e-4, 1e-5
 #: phase 18: the shapes whose backward is also timed through a library call
 #: (flex_attention compiles for each, so only the main path's global layer
 #: and the no-softcap shapes, where scaled_dot_product_attention serves)
-LIBRARY_BWD_SHAPES = ("a", "d", "g", "h", "i", "j")
+LIBRARY_BWD_SHAPES = ("a", "d", "g", "h", "i", "j", "o")
 #: K5's backward kernels as the profiler names them: the substrings match
 #: both the f32 tf32x3_bwd_* kernels and the bf16 wgmma_bwd_* ones, and
 #: neither holds a forward kernel's name (K5_KERNELS)
@@ -4613,9 +4674,10 @@ def bwd_library(shape, q, k, v, dout, want, tol):
             f": {str(e).splitlines()[0][:160] if str(e) else ''})"
 
 
-def check_flash_bwd():
+def check_flash_bwd(names=None):
     """Phase 18, first part: K5's backward kernels against
-    ``flash_attention_bwd_plain`` at FLASH_BWD_SHAPES in f32 and bf16, from
+    ``flash_attention_bwd_plain`` at FLASH_BWD_SHAPES (or the shapes
+    ``names`` of it: phase 22 checks its (o) so) in f32 and bf16, from
     K5's own forward (out and lse).  Fails unless every call is finite and
     within BWD_ROW_LIMIT / BWD_FRO_LIMIT, the control exceeds both (in f32
     also the kernels with one TF32 product, terms=1), and a second call
@@ -4626,7 +4688,8 @@ def check_flash_bwd():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     records = []
-    for name, shape in FLASH_BWD_SHAPES.items():
+    for name in names or FLASH_BWD_SHAPES:
+        shape = FLASH_BWD_SHAPES[name]
         b, hq, hkv, sq, sk, d, causal, window, cap, kv_len = shape
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
@@ -5251,9 +5314,21 @@ def drive_encdec():
         ENCDEC_TRAIN_SEQ)
     measured += train.pop("by_shape")
 
-    # the segments' launches by shape: each key to the FLASH_SHAPES
-    # (forward) or FLASH_BWD_SHAPES (backward) entry of its function, at
-    # its own batch where the table has it, else at the table's
+    by_shape = named_shapes(measured, "encdec", "prefill, decode steps, "
+                            "f32 prefill and step, Trainer steps, first "
+                            "bf16 training step")
+    return {"params": n_params, "serve": serve, "f32": f32, "train": train,
+            "by_shape": by_shape}
+
+
+def named_shapes(measured, label: str, segments: str) -> dict:
+    """A phase's K5 launches by shape (``k5_by_shape`` keys, summed over its
+    main-path segments) by name: each key to the FLASH_SHAPES (forward) or
+    FLASH_BWD_SHAPES (backward) entry of its function, at its own batch
+    where the table has it, else at the table's, as
+    "[bwd/]<dtype>/<shape name>".  Fails if a launch falls on no entry: a
+    shape that no check holds."""
+    from collections import Counter
     by_shape, lines = Counter(), []
     for key, n in sorted(measured.items(), key=str):
         part, dtype, b_, *rest = key
@@ -5262,18 +5337,15 @@ def drive_encdec():
                  if shp[9] is None and tuple(shp[1:9]) == tuple(rest)]
         names = [nm for nm in names if table[nm][0] == b_] or names
         if not names:
-            fail(f"encdec: K5 {part} launched {n} times at {key}, a shape "
-                 f"that no check of phase {5 if part == 'fwd' else 18} "
-                 f"holds")
+            fail(f"{label}: K5 {part} launched {n} times at {key}, a shape "
+                 f"that no check holds")
         by_shape[("bwd/" if part == "bwd" else "") + f"{dtype}/"
                  f"{names[0]}"] += n
         lines.append(f"{part} {dtype} ({names[0]}) B={b_}: {n}")
-    print(f"[encdec] K5 launches by shape over the main-path segments "
-          f"(prefill, decode steps, f32 prefill and step, Trainer steps, "
-          f"first bf16 training step), as the wrapper counted them: "
-          + "; ".join(lines), flush=True)
-    return {"params": n_params, "serve": serve, "f32": f32, "train": train,
-            "by_shape": dict(by_shape)}
+    print(f"[{label}] K5 launches by shape over the main-path segments "
+          f"({segments}), as the wrapper counted them: " + "; ".join(lines),
+          flush=True)
+    return dict(by_shape)
 
 
 class RouteLog:
@@ -5549,24 +5621,10 @@ def drive_moe():
 
     # a replay of the captured decode step against the eager step from the
     # same state, bit for bit
-    with torch.inference_mode():
-        state = ([(k.clone(), v.clone()) for k, v in eng._caches],
-                 eng._length.clone())
-
-        def restore():
-            for (k, v), (k0, v0) in zip(eng._caches, state[0]):
-                k.copy_(k0)
-                v.copy_(v0)
-            eng._length.copy_(state[1])
-        eng._graph[0].replay()
-        replay_logits = eng._graph[1].clone()
-        restore()
-        eager_logits = eng._decode_body().clone()
-        restore()
-        torch.cuda.synchronize()
-    replay_equal = torch.equal(replay_logits, eager_logits)
+    replay_equal = decode_replay_equal(eng)
     print(f"[moe] a replay of the captured decode step bit for bit the eager"
-          f" step from the same state: {replay_equal}", flush=True)
+          f" step from the same state (logits, caches): {replay_equal}",
+          flush=True)
     if not replay_equal:
         fail("moe: the captured decode step's logits differ from the eager "
              "step's")
@@ -5807,9 +5865,6 @@ def ssm_decode_vs_prefill(cfg, model, prompts, outputs, last) -> dict:
         eng32.submit(Request(rid=rid, prompt=p, max_tokens=SSM_TOKENS))
     out32 = {r.rid: list(r.output) for r in eng32.run()}
 
-    def fro(a, b):
-        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
     def prefill(m, seq):
         with torch.inference_mode():
             return lm_prefill(m, torch.as_tensor(seq[None], device="cuda"),
@@ -5820,12 +5875,12 @@ def ssm_decode_vs_prefill(cfg, model, prompts, outputs, last) -> dict:
         n = len(p)
         seq32 = np.concatenate([p, out32[rid][:-1]])
         got32 = torch.from_numpy(eng32.last_logits[rid][:v])
-        f32_err = fro(got32, prefill(m32, seq32))
+        f32_err = fro_rel(got32, prefill(m32, seq32))
         seq = np.concatenate([p, outputs[rid][:-1]])
         truth, pre16 = prefill(m32, seq), prefill(model, seq)
         dec16 = torch.from_numpy(last[rid][:v])
-        dec_off, pre_off = fro(dec16, truth), fro(pre16, truth)
-        between = fro(dec16, pre16)
+        dec_off, pre_off = fro_rel(dec16, truth), fro_rel(pre16, truth)
+        between = fro_rel(dec16, pre16)
         rec[n] = {"f32_decode_vs_prefill": f32_err,
                   "bf16_decode_vs_f32": dec_off,
                   "bf16_prefill_vs_f32": pre_off,
@@ -5957,25 +6012,7 @@ def drive_ssm():
 
     # a replay of the captured decode step against the eager step from the
     # same state, bit for bit: logits and every state and conv tail
-    with torch.inference_mode():
-        saved = ([tuple(t.clone() for t in c) for c in eng._caches],
-                 eng._length.clone())
-
-        def restore():
-            for c, c0 in zip(eng._caches, saved[0]):
-                for t, t0_ in zip(c, c0):
-                    t.copy_(t0_)
-            eng._length.copy_(saved[1])
-        eng._graph[0].replay()
-        replay_logits = eng._graph[1].clone()
-        replay_caches = [tuple(t.clone() for t in c) for c in eng._caches]
-        restore()
-        eager_logits = eng._decode_body().clone()
-        replay_equal = torch.equal(replay_logits, eager_logits) and all(
-            torch.equal(a, b) for c, c0 in zip(eng._caches, replay_caches)
-            for a, b in zip(c, c0))
-        restore()
-        del replay_caches
+    replay_equal = decode_replay_equal(eng)
     print(f"[ssm] a replay of the captured decode step bit for bit the eager"
           f" step from the same state (logits, states, conv tails): "
           f"{replay_equal}", flush=True)
@@ -6044,6 +6081,469 @@ def drive_ssm():
     train["layers"] = tcfg.num_layers
     train["f64"] = ssm_f64_grads(cfg)
     return {"ssd": ssd, "serve": serve, "train": train}
+
+
+def need_free(label: str, need: float) -> None:
+    """Fails unless the card has ``need`` bytes free (after emptying the
+    allocator's cache), as phase 20 checks before it builds."""
+    import torch
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[vlm] {label}: {free / 1e9:.1f} GB of {total / 1e9:.1f} GB free "
+          f"on the card (need {need / 1e9:.0f})", flush=True)
+    if free < need:
+        fail(f"vlm {label}: {free / 1e9:.1f} GB free, need "
+             f"{need / 1e9:.0f}")
+
+
+def decode_replay_equal(eng) -> bool:
+    """A replay of ``eng``'s captured decode step against its eager step
+    from the same state, bit for bit: the logits and every cache tensor
+    (phases 20, 21 and 22 hold their engines so).  The state is restored
+    after each."""
+    import torch
+    with torch.inference_mode():
+        saved = ([tuple(t.clone() for t in c) for c in eng._caches],
+                 eng._length.clone())
+
+        def restore():
+            for c, c0 in zip(eng._caches, saved[0]):
+                for t, t0_ in zip(c, c0):
+                    t.copy_(t0_)
+            eng._length.copy_(saved[1])
+        eng._graph[0].replay()
+        replay_logits = eng._graph[1].clone()
+        replay_caches = [tuple(t.clone() for t in c) for c in eng._caches]
+        restore()
+        eager_logits = eng._decode_body().clone()
+        equal = torch.equal(replay_logits, eager_logits) and all(
+            torch.equal(a, b) for c, c0 in zip(eng._caches, replay_caches)
+            for a, b in zip(c, c0))
+        restore()
+        torch.cuda.synchronize()
+    return equal
+
+
+def fro_rel(a, b) -> float:
+    """||a - b|| / ||b||, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def vlm_serve(model, cfg, embeds, prompts, label: str):
+    """One image+prompt wave of phase 22 through launch/steps.py: a
+    make_prefill_step of ``embeds`` and ``prompts`` into VLM_CACHE rows
+    (after an uncounted warm-up), then VLM_STEPS greedy make_decode_steps,
+    each timed with CUDA events and its K5 launches read just after it.
+    Returns (first logits, last logits (B, V), the fed tokens (B,
+    VLM_STEPS), prefill ms, step ms, K5 launches by shape of the prefill,
+    K5 launches of each step, peak bytes, the prefill's caches)."""
+    import torch
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.launch import steps
+
+    prefill = steps.make_prefill_step(cfg, VLM_CACHE)
+    decode = steps.make_decode_step(cfg)
+    batch = {"embeds": embeds, "tokens": prompts}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.inference_mode():
+        prefill(model, batch)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k5_zero()
+        ev[0].record()
+        lg, caches, length = prefill(model, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        by_shape = k5_by_shape()
+        prefill_ms = ev[0].elapsed_time(ev[1])
+        first = lg[:, -1]
+        tok = first.argmax(-1)
+        fed, step_ms, step_launches = [], [], []
+        for _ in range(VLM_STEPS):
+            fed.append(tok)
+            k5_zero()
+            ev[0].record()
+            lg, caches, length = decode(model, {
+                "token": tok[:, None], "caches": caches, "length": length})
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_launches.append(k5.flash_attention.launches)
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            tok = lg[:, -1].argmax(-1)
+        peak = torch.cuda.max_memory_allocated()
+    if int(length) != VLM_CACHE:
+        fail(f"vlm {label}: the cache holds {int(length)} positions after "
+             f"the wave, expected {VLM_CACHE}")
+    return (first, lg[:, -1], torch.stack(fed, 1), prefill_ms, step_ms,
+            by_shape, step_launches, peak, caches)
+
+
+def serve_dense(name: str, layers: int, need: float) -> dict:
+    """Phase 22's dense waves: ``name`` at full width with ``layers`` of
+    its layers, bf16, seeded random weights, through the ServeEngine:
+    DENSE_REQUESTS prompts (the last DENSE_PROMPT_RANGE's upper end), the
+    decode step captured once and a replay bit for bit the eager step,
+    K5's launches by shape (one a layer a prefill, none in decode), the
+    first prompt's logits against the torch tier (``logits_close``),
+    prefill and decode ms, peak memory.  Returns the measurements, with
+    ``launches_2048`` the prefill launches at the longest prompt."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.models.transformer import (TransformerLM, lm_forward,
+                                                lm_prefill)
+    from repro_torch.serve.engine import Request
+
+    need_free(name, need)
+    base = get_config(name)
+    cfg = dataclasses.replace(base, num_layers=layers)
+    a = cfg.attention
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    lo, hi = DENSE_PROMPT_RANGE
+    lengths = [int(n) for n in rng.integers(lo, hi, DENSE_REQUESTS - 1)]
+    lengths.append(hi)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lengths]
+    print(f"[dense] {cfg.name} bf16, {layers} of {base.num_layers} layers, "
+          f"d_model {cfg.d_model}, {a.num_heads} query heads over "
+          f"{a.num_kv_heads} KV heads at D {a.head_dim}, {n_params} "
+          f"parameters ({n_params * 2 / 1e9:.2f} GB), made on the card in "
+          f"{made:.1f} s; prompts {lengths}", flush=True)
+    eng = timed_engine()(cfg, model, max_batch=DENSE_REQUESTS,
+                         cache_size=DENSE_CACHE)
+    with torch.inference_mode():      # warm-up, uncounted
+        lm_prefill(model, torch.as_tensor(prompts[-1][None], device="cuda"),
+                   DENSE_CACHE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k5_zero()
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_tokens=DENSE_TOKENS))
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    by_shape = k5_by_shape()
+    outputs = {r.rid: list(r.output) for r in done}
+    n_tok = sum(len(o) for o in outputs.values())
+    replayed = sorted(eng.step_ms[2:])
+    step_med = replayed[len(replayed) // 2]
+    key = ("fwd", "bfloat16", 1, a.num_heads, a.num_kv_heads)
+    want_by = {key + (n, n, a.head_dim, True, 0, 0.0):
+               layers * lengths.count(n) for n in set(lengths)}
+    launches_2048 = by_shape.get(key + (hi, hi, a.head_dim, True, 0, 0.0), 0)
+    for rid, n in enumerate(lengths):
+        print(f"[dense] {cfg.name} prompt {n:5d} tokens: prefill "
+              f"{eng.prefill_ms[rid]:.1f} ms, time to first token "
+              f"{eng.ttft_ms[rid]:.1f} ms", flush=True)
+    print(f"[dense] {cfg.name}: K5 launches {k5.flash_attention.launches} "
+          f"(expected {layers} x {len(prompts)} prefills), at the "
+          f"{hi}-token prompt {launches_2048} (expected {layers}), in "
+          f"decode steps {eng.decode_launches}; by shape as expected "
+          f"{dict(by_shape) == want_by}; {len(eng.step_ms)} decode steps, "
+          f"replayed median {step_med:.2f} ms (eager first "
+          f"{eng.step_ms[0]:.2f} ms, capturing {eng.step_ms[1]:.2f} ms), "
+          f"{eng.decode_captures} capture, {eng.decode_replays} replays; "
+          f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
+          f"decoding {DENSE_REQUESTS * 1e3 / step_med:.1f} tokens/s; peak "
+          f"memory {peak / 2**30:.2f} GiB", flush=True)
+    if dict(by_shape) != want_by or eng.decode_launches:
+        fail(f"dense {cfg.name}: K5 launches by shape {dict(by_shape)}, in "
+             f"decode {eng.decode_launches}; expected {want_by}, none")
+    if eng.decode_captures != 1 or \
+            eng.decode_replays != len(eng.step_ms) - 1:
+        fail(f"dense {cfg.name}: decode step captured "
+             f"{eng.decode_captures} times, replayed {eng.decode_replays} "
+             f"in {len(eng.step_ms)} steps")
+    if sorted(outputs) != list(range(DENSE_REQUESTS)) or any(
+            len(o) != DENSE_TOKENS or not all(0 <= t < cfg.vocab_size
+                                              for t in o)
+            for o in outputs.values()):
+        fail(f"dense {cfg.name}: outputs {outputs}")
+    replay_equal = decode_replay_equal(eng)
+    print(f"[dense] {cfg.name}: a replay of the captured decode step bit "
+          f"for bit the eager step from the same state (logits, caches): "
+          f"{replay_equal}", flush=True)
+    if not replay_equal:
+        fail(f"dense {cfg.name}: the captured decode step differs from the "
+             f"eager step")
+    p0 = torch.as_tensor(prompts[0][None], device="cuda")
+    with torch.inference_mode():
+        got = lm_forward(model, p0)
+        want = lm_forward(model, p0, attn_impl="torch")
+    tier = logits_close(got, want, cfg.vocab_size,
+                        f"dense {cfg.name} first prompt vs torch tier")
+    print(f"[dense] {cfg.name}: first prompt's ({lengths[0]} tokens) logits "
+          f"vs torch tier max_abs_err={tier['max_abs_err']:.3e} "
+          f"tol={tier['tol']:.3e} fro_rel_err={tier['fro_rel_err']:.3e} "
+          f"(limit {LOGIT_FRO_LIMIT:.0e})", flush=True)
+    rec = {"layers": layers, "params": n_params, "prompts": lengths,
+           "prefill_ms": eng.prefill_ms, "ttft_ms": eng.ttft_ms,
+           "decode_step_ms": eng.step_ms, "replayed_step_median_ms":
+           step_med, "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "peak_bytes": peak,
+           "launches": k5.flash_attention.launches,
+           "launches_2048": launches_2048,
+           "decode_captures": eng.decode_captures,
+           "decode_replays": eng.decode_replays,
+           "replay_equal_eager": replay_equal, "vs_torch_tier": tier}
+    del eng, model, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_vlm():
+    """Phase 22: K5 at (m)-(q) and its backward at (o); internvl2-1b at
+    full width and depth serving image+prompt requests through
+    launch/steps.py (bf16; an f32 copy of its weights the yardstick),
+    then a text-only wave through launch/serve.py, then training in f32
+    through ``drive_lm_trainer``; then gemma-7b and deepseek-67b waves
+    through the ServeEngine (``serve_dense``).  Returns the measurements,
+    with the main-path segments' K5 launches by shape name
+    (``named_shapes``)."""
+    import dataclasses
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.configs.internvl2_1b import NUM_PATCH_TOKENS
+    from repro_torch.kernels import flash_attention as k5
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import steps, train_lm
+    from repro_torch.models import vlm
+    from repro_torch.models.transformer import TransformerLM, lm_loss
+
+    # -- K5 at the slice's shapes: forward (m)-(q), backward (o)
+    flash = check_flash(list(VLM_FLASH), gqa=True)
+    flash_bwd = check_flash_bwd(["o"])
+    torch.cuda.empty_cache()
+
+    # -- internvl2-1b image+prompt serving, bf16
+    need_free("internvl2-1b", VLM_MIN_FREE)
+    cfg = get_config("internvl2-1b")
+    a, L, v = cfg.attention, cfg.num_layers, cfg.vocab_size
+    gen = torch.Generator(device="cuda")
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, device="cuda", generator=gen.manual_seed(SEED))
+    torch.cuda.synchronize()
+    made = time.perf_counter() - t0
+    params = list(model.parameters())
+    n_params = sum(p.numel() for p in params)
+    w_bytes = sum(p.numel() * p.element_size() for p in params)
+    embeds = vlm.stub_patch_embeds(gen.manual_seed(SEED + 1), VLM_BATCH, cfg,
+                                   device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, v, (VLM_BATCH, VLM_PROMPT)),
+                              device="cuda")
+    s_in = NUM_PATCH_TOKENS + VLM_PROMPT
+    print(f"[vlm] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{a.num_heads} query heads over {a.num_kv_heads} KV heads at D "
+          f"{a.head_dim}, vocabulary {v} ({cfg.padded_vocab} rows, tied); "
+          f"parameters: analytic {cfg.param_count()}, real {n_params} "
+          f"(padded vocabulary, norms), {w_bytes / 1e9:.3f} GB bf16, made "
+          f"on the card in {made:.1f} s; {VLM_BATCH} requests of "
+          f"{NUM_PATCH_TOKENS} patch embeddings + {VLM_PROMPT} prompt "
+          f"tokens, cache {VLM_CACHE}", flush=True)
+    (first, last16, fed, prefill_ms, step_ms, pre_by, step_launches, peak,
+     caches) = vlm_serve(model, cfg, embeds, prompts, "bf16")
+    cache_bytes = sum(t.numel() * t.element_size() for c in caches
+                      for t in c)
+    del caches
+    measured = Counter(pre_by)
+    m_key = ("fwd", "bfloat16") + FLASH_SHAPES["m"][:9]
+    want_pre = {m_key: L}
+    # the bounds: the prefill's products (every layer's weights over B x S
+    # tokens, attention's four D-wide products over its unmasked pairs, the
+    # head's over the B last positions) at the tensor cores' bf16 rate
+    # beside the weights read once and the caches written once; a decode
+    # step reads the weights and the caches' rows in use
+    table = cfg.padded_vocab * cfg.d_model
+    body = n_params - table
+    pairs = unmasked_pairs(s_in, s_in, True, 0, (s_in,) * VLM_BATCH)
+    pre_ops = 2 * body * VLM_BATCH * s_in + 4 * a.head_dim * a.num_heads * \
+        pairs * L + 2 * table * VLM_BATCH
+    pre_bound = bound(w_bytes + cache_bytes, pre_ops, BF16_FLOPS)
+    rows = s_in + VLM_STEPS / 2            # the mean cache rows in use
+    kv_read = cache_bytes * rows / VLM_CACHE
+    step_ops = 2 * n_params * VLM_BATCH + 4 * a.head_dim * a.num_heads * \
+        rows * VLM_BATCH * L
+    step_bound = bound(w_bytes + kv_read, step_ops, BF16_FLOPS)
+    dec = sorted(step_ms)
+    step_med = dec[len(dec) // 2]
+    tps = VLM_BATCH * VLM_STEPS / (sum(step_ms) / 1e3)
+    wave_tps = VLM_BATCH * (VLM_STEPS + 1) / ((prefill_ms + sum(step_ms))
+                                              / 1e3)
+    print(f"[vlm] serve bf16: prefill {prefill_ms:.2f} ms (CUDA events; "
+          f"bound {pre_bound[0]:.3f} ms by {pre_bound[1]}: {pre_ops:.3e} "
+          f"FLOP, {(w_bytes + cache_bytes) / 1e9:.3f} GB), {VLM_STEPS} "
+          f"greedy decode steps median {step_med:.3f} ms, mean "
+          f"{sum(step_ms) / VLM_STEPS:.3f} ms (bound {step_bound[0]:.4f} ms "
+          f"by {step_bound[1]}: {(w_bytes + kv_read) / 1e9:.3f} GB); "
+          f"{tps:.1f} tokens/s decoding (bound "
+          f"{VLM_BATCH * 1e3 / step_bound[0]:.1f}), {wave_tps:.1f} tokens/s "
+          f"with the prefill; peak memory {peak / 2**30:.2f} GiB; K5 "
+          f"launches prefill {dict(pre_by)} (expected {want_pre}), decode "
+          f"steps {sorted(set(step_launches))} (expected [0]: the decode "
+          f"attention is the plain one)", flush=True)
+    if dict(pre_by) != want_pre or set(step_launches) != {0}:
+        fail(f"vlm: K5 launches prefill {dict(pre_by)}, decode steps "
+             f"{step_launches}; expected {want_pre}, none")
+    if not bool(((fed >= 0) & (fed < v)).all().item()):
+        fail("vlm: greedy tokens outside the vocabulary")
+    batch = {"embeds": embeds, "tokens": prompts}
+    seq = torch.cat([prompts, fed], 1)     # the last decode step's input
+    with torch.inference_mode():
+        k5_zero()
+        ref = steps.make_prefill_step(cfg, VLM_CACHE, attn_impl="torch")(
+            model, batch)[0][:, -1]
+        torch_launches = k5.flash_attention.launches
+        tier = logits_close(first, ref, v, "vlm prefill vs torch tier")
+        pre16 = vlm.vlm_forward(model, embeds, seq)[:, -1, :v].float()
+        prof_prefill = profiled("vlm_prefill", 1, lambda: steps.
+                                make_prefill_step(cfg, VLM_CACHE)(model,
+                                                                  batch))
+        prof_prefill.update(k5_shares("vlm_prefill"),
+                            top=top_kernels("vlm_prefill"))
+        _, c1, n1 = steps.make_prefill_step(cfg, VLM_CACHE)(model, batch)
+        prof_step = profiled("vlm_decode_step", 1, lambda: steps.
+                             make_decode_step(cfg)(model, {
+                                 "token": fed[:, :1], "caches": c1,
+                                 "length": n1}))
+        prof_step.update(top=top_kernels("vlm_decode_step"))
+        del c1, ref
+    print(f"[vlm] prefill logits vs torch tier max_abs_err="
+          f"{tier['max_abs_err']:.3e} tol={tier['tol']:.3e} fro_rel_err="
+          f"{tier['fro_rel_err']:.3e} (limit {LOGIT_FRO_LIMIT:.0e}); torch "
+          f"tier K5 launches {torch_launches}", flush=True)
+    if torch_launches:
+        fail(f"vlm: the torch tier launched K5 {torch_launches} times")
+    for name, pr in (("prefill", prof_prefill), ("decode step", prof_step)):
+        if pr["idle_share"] is None:
+            print(f"[vlm] profiled {name}: the profiler saw no kernel; "
+                  f"device shares not measured", flush=True)
+            continue
+        print(f"[vlm] profiled {name}: wall {pr['wall_ms']:.2f} ms, device "
+              f"busy {pr['device_busy_ms']:.2f} ms, idle share "
+              f"{pr['idle_share']:.4f}, {pr['kernels']:.0f} kernels"
+              + (f", K5 {pr['k5_fwd_ms']:.3f} ms "
+                 f"({pr['k5_fwd_ms'] / pr['device_busy_ms']:.2%} of busy)"
+                 if "k5_fwd_ms" in pr else "")
+              + "; most time: " + "; ".join(f"{k} {ms:.3f} ms x{c}"
+                                            for k, ms, c in pr["top"]),
+              flush=True)
+
+    # -- the decode branch: an f32 copy of the weights serves the same
+    # requests (its last decode logits against its own fresh vlm_forward),
+    # and is the yardstick of the bf16 wave's
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = TransformerLM(cfg32, device="cuda", generator=gen.manual_seed(SEED))
+    m32.load_state_dict(model.state_dict())
+    (_, last32, fed32, _, _, pre_by32, _, _, c32) = vlm_serve(
+        m32, cfg32, embeds, prompts, "f32")
+    del c32
+    measured += pre_by32
+    with torch.inference_mode():
+        fwd32 = vlm.vlm_forward(m32, embeds, torch.cat([prompts, fed32], 1)
+                                )[:, -1, :v]
+        truth = vlm.vlm_forward(m32, embeds, seq)[:, -1, :v]
+    f32_limit = F32_BAND * SCALE
+    consistency = []
+    for r in range(VLM_BATCH):
+        rec = {"f32_decode_vs_forward": fro_rel(last32[r, :v], fwd32[r]),
+               "bf16_decode_vs_f32": fro_rel(last16[r, :v], truth[r]),
+               "bf16_forward_vs_f32": fro_rel(pre16[r], truth[r]),
+               "bf16_decode_vs_forward": fro_rel(last16[r, :v], pre16[r]),
+               "bf16_argmax_equal": int(last16[r, :v].argmax()) ==
+               int(pre16[r].argmax())}
+        consistency.append(rec)
+        print(f"[vlm] request {r}: f32 last decode logits vs a fresh f32 "
+              f"vlm_forward over its {VLM_CACHE} positions fro_rel_err="
+              f"{rec['f32_decode_vs_forward']:.3e} (limit {f32_limit:.0e});"
+              f" bf16 last decode logits vs the f32 forward of the same "
+              f"positions {rec['bf16_decode_vs_f32']:.3e}, a bf16 forward's "
+              f"{rec['bf16_forward_vs_f32']:.3e} (limit {SSM_DECODE_SLACK} "
+              f"x), bf16 decode vs bf16 forward "
+              f"{rec['bf16_decode_vs_forward']:.3e} (not held; phases 6 "
+              f"and 20 hold {LOGIT_FRO_LIMIT:.0e} on prefills), argmax "
+              f"equal {rec['bf16_argmax_equal']}", flush=True)
+        if not (bool(torch.isfinite(last16[r]).all().item())
+                and rec["f32_decode_vs_forward"] <= f32_limit
+                and rec["bf16_decode_vs_f32"] <=
+                SSM_DECODE_SLACK * rec["bf16_forward_vs_f32"]):
+            fail(f"vlm: request {r}: the decode branch is off ({rec})")
+    serve = {"params": n_params, "weight_bytes": w_bytes,
+             "cache_bytes": cache_bytes, "prefill_ms": prefill_ms,
+             "prefill_bound_ms": pre_bound[0],
+             "prefill_bound_by": pre_bound[1], "decode_step_ms": step_ms,
+             "decode_step_median_ms": step_med,
+             "decode_step_bound_ms": step_bound[0],
+             "decode_step_bound_by": step_bound[1], "tokens_per_s": tps,
+             "tokens_per_s_bound": VLM_BATCH * 1e3 / step_bound[0],
+             "wave_tokens_per_s": wave_tps, "peak_bytes": peak,
+             "prefill_launches": sum(pre_by.values()), "step_launches":
+             step_launches, "vs_torch_tier": tier,
+             "decode_consistency": consistency,
+             "profile_prefill": prof_prefill,
+             "profile_decode_step": prof_step}
+    del model, m32, params, embeds, first, last16, last32, pre16, fwd32
+    del truth
+    torch.cuda.empty_cache()
+
+    # -- a text-only wave through launch/serve.py (the reference's engine
+    # takes no embeddings)
+    k5_zero()
+    serve_launch.main(["--arch", "internvl2-1b", "--requests", "8",
+                       "--max-tokens", "16"])
+    text_launches = k5.flash_attention.launches
+    print(f"[vlm] text-only wave through launch/serve.py: K5 launches "
+          f"{text_launches} (expected {L} x 8 prefills)", flush=True)
+    if text_launches != 8 * L:
+        fail(f"vlm text-only wave: K5 launched {text_launches} times, "
+             f"expected {8 * L}")
+    serve["text_wave_launches"] = text_launches
+    torch.cuda.empty_cache()
+
+    # -- training at full width and depth, f32, patches + tokens
+    need_free("internvl2-1b training", VLM_TRAIN_MIN_FREE)
+    tcfg = train_lm.make_config("internvl2-1b", width="full")
+    skel = TransformerLM(tcfg, device="meta")
+
+    def loss_fn(params, bt, impl):
+        return lm_loss(skel, bt["tokens"], bt["labels"], bt["embeds"],
+                       params=params, attn_impl=impl)
+    train = drive_lm_trainer(
+        tcfg, "vlm_train", "vlm-train",
+        f"{tcfg.name} f32 full width and depth, {tcfg.num_layers} layers, "
+        f"{tcfg.param_count() / 1e9:.3f} B params, batch {VLM_TRAIN_BATCH}"
+        f" x ({NUM_PATCH_TOKENS} patches + "
+        f"{VLM_TRAIN_SEQ - NUM_PATCH_TOKENS} tokens)", loss_fn,
+        (tcfg.num_layers, 2 * tcfg.num_layers), VLM_TRAIN_STEPS,
+        VLM_TRAIN_BATCH, VLM_TRAIN_SEQ)
+    measured += train.pop("by_shape")
+
+    # -- gemma-7b and deepseek-67b through the ServeEngine at full width
+    dense = {}
+    for name, (layers, need) in DENSE_WAVES.items():
+        dense[name] = serve_dense(name, layers, need)
+        shape = "p" if name == "gemma-7b" else "q"
+        measured[("fwd", "bfloat16") + FLASH_SHAPES[shape][:9]] += \
+            dense[name]["launches_2048"]
+    by_shape = named_shapes(measured, "vlm", "bf16 and f32 image+prompt "
+                            "prefills, Trainer steps, first bf16 training "
+                            "step, the dense waves' 2048-token prefills")
+    return {"flash": flash, "flash_bwd": flash_bwd, "serve": serve,
+            "train": train, "dense": dense, "by_shape": by_shape}
 
 
 def main() -> None:
@@ -6228,8 +6728,10 @@ def main() -> None:
     clear_plan_cache()
     torch.cuda.empty_cache()
 
-    # -- 5. K5 against its plain version (its shape (l) in phase 20)
-    flash = check_flash([n for n in FLASH_SHAPES if n != "l"])
+    # -- 5. K5 against its plain version (its shape (l) in phase 20, (m)-(q)
+    # in phase 22)
+    flash = check_flash([n for n in FLASH_SHAPES
+                         if n != "l" and n not in VLM_FLASH])
 
     # -- 6. the LM serving path: gemma2-9b through the ServeEngine
     t0 = time.perf_counter()
@@ -6241,7 +6743,8 @@ def main() -> None:
 
     # -- 18. LM training: K5's backward kernels, then gemma2-9b steps
     t0 = time.perf_counter()
-    flash_bwd = check_flash_bwd()
+    flash_bwd = check_flash_bwd([n for n in FLASH_BWD_SHAPES
+                                 if n not in VLM_FLASH])
     lm_train = drive_lm_train()
     print(f"[lm-train] phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -6262,6 +6765,12 @@ def main() -> None:
     t0 = time.perf_counter()
     ssm = drive_ssm()
     print(f"[ssm] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 22. the VLM frontend: internvl2-1b serving image+prompt requests
+    # and training at full width and depth; gemma-7b and deepseek-67b waves
+    t0 = time.perf_counter()
+    vlm = drive_vlm()
+    print(f"[vlm] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -6271,7 +6780,7 @@ def main() -> None:
         {"device": kind, "nvidia_smi": smi, "launches": counts,
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "flash_bwd": flash_bwd, "lm_train": lm_train,
-         "encdec": encdec, "moe": moe, "ssm": ssm,
+         "encdec": encdec, "moe": moe, "ssm": ssm, "vlm": vlm,
          "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,
@@ -6395,11 +6904,16 @@ def main() -> None:
     # counted them (``by_shape``; the training forward's encoder and
     # cross-attention run (g)'s function at batch 2); the backward at (h)
     # and (j), off the training path, is in chip_smoke.json only
-    for recs, part in ((flash, ""), (flash_bwd, "bwd")):
+    # and phase 22's at internvl2-1b's (m) and (o), gemma-7b's (p) and
+    # deepseek-67b's (q)
+    for recs, part, by in ((flash, "", encdec["by_shape"]),
+                           (flash_bwd, "bwd", encdec["by_shape"]),
+                           (vlm["flash"], "", vlm["by_shape"]),
+                           (vlm["flash_bwd"], "bwd", vlm["by_shape"])):
         for rec in recs:
             key = "/".join(([part] if part else []) +
                            [rec["dtype"], rec["shape"]])
-            if key not in encdec["by_shape"]:
+            if key not in by:
                 continue
             kernels.append({
                 "name": "flash_attention_" + (part + "_" if part else "")
@@ -6409,7 +6923,7 @@ def main() -> None:
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:111",
                 "shape": rec["shape"],
-                "launches": encdec["by_shape"][key],
+                "launches": by[key],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],

@@ -3,19 +3,20 @@
 A copy of the parts of ``repro/config.py`` the port runs -- the GCN part
 (``GCNModelConfig``, ``GraphSpec``, the Table-2 specs, ``reduced_graph``),
 the LM part (``MoEConfig`` :60, ``SSMConfig`` :75, ``AttentionConfig``,
-``LMConfig``, :96-195, with ``param_count``, ``active_param_count`` and
-``_count_params`` :188-238 for the dense, MoE, SSM, hybrid and enc-dec
-stacks), the training part (``ShapeSpec`` :27,
-``OptimizerConfig`` :310, ``TrainConfig`` :330) and the registry
-(``register``/``get_config``, :349-373) -- kept here so the port imports
-nothing of the JAX package.
+``LMConfig``, :96-195, with ``shapes``, ``param_count``,
+``active_param_count`` and ``_count_params`` :185-238 for the dense, MoE,
+SSM, hybrid and enc-dec stacks), the training part (``ShapeSpec`` and
+the shape presets :27-51, ``OptimizerConfig`` :310, ``TrainConfig`` :330)
+and the registry (``register``, ``get_config``, ``list_archs`` and
+``override``, :349-387) -- kept here so the port imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -31,6 +32,18 @@ class ShapeSpec:
     def __post_init__(self):
         if self.kind not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown shape kind {self.kind!r}")
+
+
+#: the assigned LM input shapes (``repro/config.py`` :45-51), shared by all
+#: archs; each arch's ``shape_skips`` names the ones it does not run
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                     LONG_500K)
+SHAPES_BY_NAME: Dict[str, ShapeSpec] = {s.name: s for s in ALL_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -212,6 +225,10 @@ class LMConfig:
             return False
         return i % 2 == 0  # even layers sliding-window (gemma2 convention)
 
+    def shapes(self) -> List[ShapeSpec]:
+        """``ALL_SHAPES`` but those named in ``shape_skips``."""
+        return [s for s in ALL_SHAPES if s.name not in self.shape_skips]
+
     def param_count(self) -> int:
         """Analytic total parameter count (embedding + layers), as the
         reference counts it (``param_count``, :188): the unpadded vocab,
@@ -327,7 +344,7 @@ class TrainConfig:
 
 
 # ---------------------------------------------------------------------------
-# Registry (``repro/config.py`` :349-373)
+# Registry (``repro/config.py`` :349-387)
 # ---------------------------------------------------------------------------
 
 _REGISTRY: Dict[str, Callable[[], Any]] = {}
@@ -349,3 +366,23 @@ def get_config(name: str):
         raise KeyError(
             f"unknown arch {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_archs() -> List[str]:
+    """The registered arch names, sorted."""
+    from repro_torch import configs as _configs  # noqa: F401
+    return sorted(_REGISTRY)
+
+
+def override(cfg, **kw):
+    """``dataclasses.replace`` through nested dotted keys:
+    ``override(cfg, **{"attention.num_heads": 8, "d_model": 512})``."""
+    direct = {k: v for k, v in kw.items() if "." not in k}
+    nested: Dict[str, Dict[str, Any]] = {}
+    for k, v in kw.items():
+        if "." in k:
+            head, rest = k.split(".", 1)
+            nested.setdefault(head, {})[rest] = v
+    for head, sub in nested.items():
+        direct[head] = override(getattr(cfg, head), **sub)
+    return dataclasses.replace(cfg, **direct)

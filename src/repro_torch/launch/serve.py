@@ -24,10 +24,14 @@ from repro_torch.config import get_config
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.serve.engine import Request, ServeEngine
 
-#: arch -> module under repro_torch.configs (the archs ported so far; the
-#: reference's map is ``repro/launch/train.py::MODULES``)
-MODULES = {"arctic-480b": "arctic_480b", "gemma2-9b": "gemma2_9b",
-           "granite-3-8b": "granite_3_8b",
+#: arch -> module under repro_torch.configs: every decoder arch (the
+#: reference's map is ``repro/launch/train.py::MODULES``; the enc-dec
+#: seamless-m4t-medium is served by ``launch/steps.py``).  internvl2-1b is
+#: served text-only here, as the reference's engine serves it; its
+#: image+prompt path is ``make_prefill_step`` then ``make_decode_step``
+MODULES = {"arctic-480b": "arctic_480b", "deepseek-67b": "deepseek_67b",
+           "gemma-7b": "gemma_7b", "gemma2-9b": "gemma2_9b",
+           "granite-3-8b": "granite_3_8b", "internvl2-1b": "internvl2_1b",
            "jamba-1.5-large-398b": "jamba_1_5_large",
            "kimi-k2-1t-a32b": "kimi_k2", "mamba2-2.7b": "mamba2_2_7b"}
 

@@ -1,8 +1,9 @@
 """The LM step functions (``repro/launch/steps.py``): training,
 evaluation, prefill and decode, for both families the port runs --
-decoder stacks with dense or MoE FFNs (``models/transformer.py``) and
-the audio family's enc-dec stack (``models/encdec.py``), whose batches
-carry the encoder's ``frames``.
+decoder stacks (``models/transformer.py``), whose VLM batches carry the
+frontend's patch ``embeds`` (``models/vlm.py``), and the audio family's
+enc-dec stack (``models/encdec.py``), whose batches carry the encoder's
+``frames``.
 
 ``make_train_step`` returns ``(TrainState, batch) -> (TrainState,
 metrics)``: the loss and its gradients over the state's parameters, then
@@ -12,14 +13,14 @@ model.named_parameters())``, detached), which ``make_train_state``,
 ``train/trainer.py::Trainer`` and ``checkpoint/`` take as they are; the
 loss runs over them through ``torch.func.functional_call`` on a module
 that holds only the structure (on the ``meta`` device).  A batch is a
-dict of numpy arrays or tensors (``tokens``, ``labels``, ``frames``),
-moved to the parameters' device.
+dict of numpy arrays or tensors (``tokens``, ``labels``, ``embeds``,
+``frames``), moved to the parameters' device.
 
 ``make_prefill_step`` and ``make_decode_step`` take the model itself in
 the reference's ``params`` place: ``(model, batch)`` with ``tokens`` (and
-``frames``), then ``token``, ``caches``, ``length`` (and the encoder's
-``memory``).  The serving engine (``serve/``) drives the decoder family's
-own prefill and decode.
+``embeds`` or ``frames``), then ``token``, ``caches``, ``length`` (and the
+encoder's ``memory``).  The serving engine (``serve/``) drives the
+decoder family's own prefill and decode.
 """
 
 from __future__ import annotations
@@ -125,8 +126,9 @@ def make_prefill_step(cfg: LMConfig, cache_size: int = 0, *,
     """(model, batch) -> (last logits, caches, [memory,] length)
     (``make_prefill_step``, :75).  The audio family runs
     ``encdec_prefill`` over ``frames`` and ``tokens``; a decoder model
-    ``lm_prefill`` (frontend ``embeds`` raise there: not ported).  The
-    caches hold ``cache_size`` positions, by default the prompt's."""
+    ``lm_prefill`` over ``embeds`` (where the batch has them) and
+    ``tokens``.  The caches hold ``cache_size`` positions, by default the
+    prompt's: the frontend's positions and the tokens'."""
 
     def prefill_step(model, batch):
         batch = _on_device(batch, model.device)

@@ -14,9 +14,11 @@ its atomic checkpoints -- over a ~100M granite-family model by default:
 On a card the attention of every layer runs K5 and its backward kernels
 (``--device cuda``, the default); a Mamba-2 layer is plain PyTorch under
 autograd.  ``--arch`` takes the archs whose configs the port has
-(``granite-100m``, ``gemma2-9b``, ``granite-3-8b``, the SSM
-``mamba2-2.7b``, the hybrid ``jamba-1.5-large-398b`` and the enc-dec
-``seamless-m4t-medium``, its frames from the pipeline),
+(``granite-100m``, ``gemma2-9b``, ``gemma-7b``, ``granite-3-8b``,
+``deepseek-67b``, the SSM ``mamba2-2.7b``, the hybrid
+``jamba-1.5-large-398b``, the VLM ``internvl2-1b``, its patch embeddings
+from the pipeline -- ``--seq`` counts them and the tokens -- and the
+enc-dec ``seamless-m4t-medium``, its frames from the pipeline),
 reduced and in f32 as the example trains them (``make_config(...,
 width="full", layers=n)`` keeps the published widths and cuts the depth,
 as ``chip_smoke.py``'s phase 18 trains gemma2-9b).  Re-running the same
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.config import (AttentionConfig, LMConfig, OptimizerConfig,
                                 ShapeSpec, TrainConfig)
+from repro_torch.configs.internvl2_1b import NUM_PATCH_TOKENS
 from repro_torch.core.backend import resolve_device
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.launch.steps import make_train_step
@@ -43,10 +46,13 @@ from repro_torch.models.transformer import init_lm
 from repro_torch.optim.optimizer import make_train_state
 from repro_torch.train.trainer import Trainer
 
-#: --arch -> the port's config module (the example's MODULES, cut to the
-#: archs the port has, and the enc-dec seamless-m4t-medium, whose batches
-#: carry the encoder's frames)
-MODULES = {"gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b",
+#: --arch -> the port's config module (the example's MODULES, the VLM
+#: internvl2-1b, whose batches carry the frontend's patch embeddings, and
+#: the enc-dec seamless-m4t-medium, whose batches carry the encoder's
+#: frames)
+MODULES = {"deepseek-67b": "deepseek_67b", "gemma-7b": "gemma_7b",
+           "gemma2-9b": "gemma2_9b", "granite-3-8b": "granite_3_8b",
+           "internvl2-1b": "internvl2_1b",
            "jamba-1.5-large-398b": "jamba_1_5_large",
            "mamba2-2.7b": "mamba2_2_7b",
            "seamless-m4t-medium": "seamless_m4t_medium"}
@@ -85,13 +91,24 @@ def make_config(arch: str = "granite-100m", preset: str = "full", *,
     return cfg
 
 
+def frontend_tokens(cfg: LMConfig) -> int:
+    """Patch positions a decoder ``frontend_stub`` config's rows begin
+    with (``NUM_PATCH_TOKENS``); 0 for any other config (the audio
+    family's frontend is its encoder's frames)."""
+    return NUM_PATCH_TOKENS if cfg.frontend_stub and \
+        cfg.family != "audio" else 0
+
+
 def make_trainer(cfg: LMConfig, *, steps: int, batch: int, seq: int,
                  lr: float = 3e-4, ckpt_dir: str, device="cuda",
                  log_every: int = 10, checkpoint_every: int = 50) -> Trainer:
     """A ``Trainer`` over ``TokenPipeline(cfg, (seq, batch), seed=0)``,
     ``make_train_step(cfg, opt)`` and ``make_train_state(init_lm(cfg))``
     (``init_encdec`` for the audio family) with the weights drawn from a
-    generator seeded with 0 on ``device`` (the example's seeds)."""
+    generator seeded with 0 on ``device`` (the example's seeds).  A
+    decoder ``frontend_stub`` config's pipeline adds ``NUM_PATCH_TOKENS``
+    patch embeddings a row, which ``seq`` counts: ``seq -
+    NUM_PATCH_TOKENS`` tokens follow them."""
     dev = resolve_device(device)
     shape = ShapeSpec("train_cli", seq, batch, "train")
     opt = OptimizerConfig(lr=lr, warmup_steps=max(10, steps // 20),
@@ -110,15 +127,15 @@ def make_trainer(cfg: LMConfig, *, steps: int, batch: int, seq: int,
 
     return Trainer(tc, make_state=make_state,
                    step_fn=make_train_step(cfg, opt),
-                   pipeline=TokenPipeline(cfg, shape, seed=0))
+                   pipeline=TokenPipeline(
+                       cfg, shape, seed=0,
+                       frontend_tokens=frontend_tokens(cfg)))
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-100m",
-                    help="granite-100m | gemma2-9b | granite-3-8b | "
-                    "mamba2-2.7b | jamba-1.5-large-398b | "
-                    "seamless-m4t-medium")
+                    help="granite-100m | " + " | ".join(sorted(MODULES)))
     ap.add_argument("--preset", default="full",
                     choices=["full", "tiny", "smoke"])
     ap.add_argument("--steps", type=int, default=300)
@@ -137,7 +154,8 @@ def main(argv=None) -> dict:
                         format="%(asctime)s %(name)s %(message)s")
     cfg = make_config(args.arch, args.preset, width=args.width)
     if args.preset == "smoke":
-        args.steps, args.batch, args.seq = min(args.steps, 5), 2, 32
+        args.steps, args.batch = min(args.steps, 5), 2
+        args.seq = 32 + frontend_tokens(cfg)
     print(f"arch={cfg.name}  params={cfg.param_count() / 1e6:.1f}M  "
           f"steps={args.steps}  batch={args.batch}x{args.seq}  "
           f"device={args.device}")

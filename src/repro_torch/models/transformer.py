@@ -27,9 +27,14 @@ Caches are a list with one pair per layer: ``(k, v)`` in the model's
 dtype for an attention layer, ``(state, conv)`` in f32 for an SSM layer.
 A layer's FFN is an ``MLP``, an ``MoE`` (``models/moe.py``) where
 ``cfg.layer_is_moe``, or none where ``d_ff`` is 0 (mamba2); the stack sums
-the MoE layers' load-balance losses into ``lm_loss``'s ``aux``.  Frontend
-embeddings are not ported and raise ``NotImplementedError``; an enc-dec
-config raises too (its model is ``models/encdec.py``).
+the MoE layers' load-balance losses into ``lm_loss``'s ``aux``.
+
+``embeds`` (B, P, d_model), where given, are a frontend's embeddings (the
+VLM's patch stub, ``models/vlm.py``): they take the first P positions,
+before the tokens' embeddings, in ``lm_forward``, ``lm_loss`` (whose
+labels cover the tokens only) and ``lm_prefill`` (whose caches and length
+count them).  An enc-dec config raises (its model is
+``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -95,10 +100,6 @@ def _check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: an enc-dec stack; its model is "
             f"models/encdec.py::EncDecLM")
-    if cfg.frontend_stub:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend embeddings (the reference's VLM/audio "
-            f"stub) are not ported yet (ROADMAP item 13.6)")
 
 
 # ---------------------------------------------------------------------------
@@ -293,12 +294,15 @@ def init_lm(cfg: LMConfig, *, generator: Optional[torch.Generator] = None,
 
 def _embed_inputs(model: TransformerLM, tokens: torch.Tensor,
                   embeds=None) -> torch.Tensor:
-    if embeds is not None:
-        raise NotImplementedError("frontend embeddings (the reference's VLM/"
-                                  "audio stub) are not ported yet")
+    """The tokens' embeddings (scaled by sqrt(d) for gemma names), with a
+    frontend's ``embeds`` (B, P, d_model), cast to the table's dtype and
+    moved to its device, before them (``_embed_inputs``, :226-232)."""
     table = model.embed.table
-    return embed(table, tokens.to(table.device),
-                 scale_by_sqrt_d=model.cfg.name.startswith("gemma"))
+    x = embed(table, tokens.to(table.device),
+              scale_by_sqrt_d=model.cfg.name.startswith("gemma"))
+    if embeds is None:
+        return x
+    return torch.cat([embeds.to(device=table.device, dtype=x.dtype), x], 1)
 
 
 #: the ported ``remat`` modes of the training forward
@@ -400,7 +404,8 @@ def head_logits(model, x: torch.Tensor) -> torch.Tensor:
 
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, embeds=None, *,
                attn_impl: str = "auto") -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> f32 logits (B, S, V)."""
+    """Full-sequence forward: tokens (B, S) (after ``embeds`` (B, P, d),
+    where given) -> f32 logits (B, P + S, V)."""
     x, _, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
                          attn_impl=attn_impl)
     return head_logits(model, x)
@@ -415,7 +420,9 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     The final norm's output goes to ``chunked_ce`` against the head
     table.  Tied embeddings take gradients from the lookup and the head.
     ``aux`` is the MoE layers' summed load-balance loss (0 for a dense
-    stack), added to the loss.
+    stack), added to the loss.  With ``embeds`` the final norm's output at
+    their P positions is dropped (``lm_loss``, :272-273): ``labels`` (B,
+    S) cover the tokens only.
 
     ``params`` (a dict of tensors by parameter name) runs the loss through
     ``torch.func.functional_call`` with those tensors in place of the
@@ -427,8 +434,10 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     cfg = model.cfg
     x, _, aux = _run_stack(model, _embed_inputs(model, tokens, embeds),
                            attn_impl=attn_impl, remat=remat)
-    loss = chunked_ce(cfg, model.head_table(),
-                      model.final_ln(x, cfg.norm_eps), labels, ce_chunk)
+    x = model.final_ln(x, cfg.norm_eps)
+    if embeds is not None:   # frontend positions carry no labels
+        x = x[:, embeds.shape[1]:]
+    loss = chunked_ce(cfg, model.head_table(), x, labels, ce_chunk)
     return loss + aux, {"ce": loss, "aux": aux}
 
 
@@ -513,7 +522,9 @@ def lm_prefill(model: TransformerLM, tokens: torch.Tensor, cache_size: int,
                embeds=None, *, attn_impl: str = "auto"):
     """Forward + cache build.  Returns (last-token logits (B, 1, V),
     caches -- an attention layer's padded to ``cache_size``, an SSM
-    layer's its final state and conv tail --, length () int32)."""
+    layer's its final state and conv tail --, length () int32).  With
+    ``embeds`` (B, P, d) the caches and the length count their P positions
+    before the tokens'."""
     x, caches, _ = _run_stack(model, _embed_inputs(model, tokens, embeds),
                               make_cache=True, cache_size=cache_size,
                               attn_impl=attn_impl)

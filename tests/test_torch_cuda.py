@@ -274,6 +274,13 @@ def gpu():
     (1, 2, 1, 17, 17, 16, True, 4, 50.0, None),
     (1, 2, 1, 40, 40, 64, True, 0, 0.0, (3, )),     # rows with no key
     (1, 14, 2, 130, 130, 128, True, 0, 0.0, None),  # arctic's group of 7
+    # internvl2-1b's group of 7 at D 64: a prefill of patches + prompt off
+    # the 64-row tiles with a ragged kv_len, and its decode shape
+    (2, 14, 2, 301, 301, 64, True, 0, 0.0, (250, 301)),
+    (3, 14, 2, 1, 290, 64, True, 0, 0.0, (257, 270, 290)),
+    # gemma-7b's group 1 at D 256 past 256 keys (32-key bf16 tiles)
+    (1, 4, 4, 520, 520, 256, True, 0, 0.0, None),
+    (1, 16, 2, 200, 200, 128, True, 0, 0.0, None),  # deepseek's group of 8
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
@@ -451,6 +458,13 @@ def _bwd_rows_close(a, b, limit):
     (1, 3, 3, 100, 140, 256, True, 0, 0.0, None),
     (1, 8, 4, 256, 256, 128, True, 70, 0.0, None),
     (2, 4, 2, 100, 200, 128, True, 0, 30.0, (120, 200)),
+    # internvl2-1b's group of 7 at D 64 (dK and dV summed over 7 heads),
+    # odd lengths and a ragged kv_len; gemma-7b's group 1 at D 256 past
+    # 256 keys (one head a dq CTA); deepseek's group of 8 at D 128
+    (2, 14, 2, 301, 301, 64, True, 0, 0.0, (250, 301)),
+    (1, 14, 2, 77, 333, 64, True, 0, 0.0, None),
+    (1, 4, 4, 520, 520, 256, True, 0, 0.0, None),
+    (1, 16, 2, 200, 200, 128, True, 0, 0.0, None),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_matches_plain(gpu, b, hq, hkv, sq, sk, d, causal,
@@ -806,6 +820,48 @@ def test_reduced_gemma2_cuda_tier_matches_torch_tier(gpu):
         got = ttr.lm_forward(model, toks)
         assert k5.flash_attention.launches == n + cfg.num_layers
         _close(got, ttr.lm_forward(model, toks, attn_impl="torch"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_internvl_image_prompt_on_the_card(gpu, dtype):
+    """Reduced internvl2-1b's image+prompt path on the cuda tier against
+    the torch tier on the CPU, the same weights and inputs: a prefill of
+    NUM_PATCH_TOKENS patch embeddings and a 21-token prompt through
+    ``make_prefill_step`` (K5 once a layer, over patches + prompt), then 3
+    ``make_decode_step``s of the torch tier's greedy tokens (no K5
+    launch); each step's logits in the dtype's band."""
+    from repro_torch.configs import internvl2_1b
+    from repro_torch.launch import steps
+    from repro_torch.models import vlm
+    cfg = dataclasses.replace(internvl2_1b.reduced(), dtype=dtype)
+    model = ttr.TransformerLM(cfg, device=gpu)
+    cpu = ttr.TransformerLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    embeds = vlm.stub_patch_embeds(torch.Generator().manual_seed(0), 2, cfg,
+                                   device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 21),
+                         generator=torch.Generator().manual_seed(1))
+    size = internvl2_1b.NUM_PATCH_TOKENS + 21 + 3
+    tol = TOL if dtype == "float32" else BF16_TOL
+    batch = {"embeds": embeds, "tokens": toks}
+    with torch.inference_mode():
+        n = k5.flash_attention.launches
+        lg, caches, length = steps.make_prefill_step(cfg, size)(model, batch)
+        assert k5.flash_attention.launches - n == cfg.num_layers
+        want, wc, wl = steps.make_prefill_step(cfg, size)(cpu, batch)
+        _close(lg.cpu(), want, tol)
+        assert int(length) == int(wl) == size - 3
+        decode = steps.make_decode_step(cfg)
+        tok = want[:, -1].argmax(-1, keepdim=True)
+        for _ in range(3):
+            n = k5.flash_attention.launches
+            lg, caches, length = decode(model, {
+                "token": tok, "caches": caches, "length": length})
+            assert k5.flash_attention.launches == n
+            want, wc, wl = decode(cpu, {"token": tok, "caches": wc,
+                                        "length": wl})
+            _close(lg.cpu(), want, tol)
+            tok = want[:, -1].argmax(-1, keepdim=True)
 
 
 def _compiled_case(card, name, fused, seed=0):

@@ -132,6 +132,27 @@ def test_ssm_entry_points_default_to_cuda(monkeypatch):
         launch_serve.main(["--arch", "mamba2-2.7b", "--reduced"])
 
 
+def test_vlm_entry_points_default_to_cuda(monkeypatch):
+    """The VLM path has no CPU fallback either: internvl2-1b's model, its
+    stub patch embeddings and its launcher raise without a card, and its
+    module and the three configs that came with it are among the files
+    held to the import rules above."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "src" in p.parts}
+    assert {"models/vlm.py", "configs/internvl2_1b.py", "configs/gemma_7b.py",
+            "configs/deepseek_67b.py"} <= names
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import internvl2_1b
+    from repro_torch.models import vlm
+    cfg = internvl2_1b.reduced()
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        TransformerLM(cfg)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        vlm.stub_patch_embeds(torch.Generator(), 1, cfg)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        launch_serve.main(["--arch", "internvl2-1b", "--reduced"])
+
+
 def test_cuda_tier_on_cpu_tensors_raises():
     g = datasets.make_synthetic_graph(SPEC, device="cpu")
     x = datasets.make_features(SPEC, device="cpu")

@@ -22,16 +22,24 @@ import torch
 from tolerance import assert_allclose_dtype
 
 from repro.config import get_config as jget_config
+from repro.config import list_archs as jlist_archs
+from repro.config import override as joverride
+from repro.configs import ASSIGNED_ARCHS
 from repro.configs import arctic_480b as jarctic
+from repro.configs import deepseek_67b as jdeepseek
 from repro.configs import gemma2_9b as jgemma
+from repro.configs import gemma_7b as jgemma7
 from repro.configs import granite_3_8b as jgranite
+from repro.configs import internvl2_1b as jinternvl
 from repro.configs import kimi_k2 as jkimi
 from repro.models import transformer as jtr
 from repro.nn import layers as jlayers
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
-from repro_torch.config import get_config
-from repro_torch.configs import arctic_480b, gemma2_9b, granite_3_8b, kimi_k2
+from repro_torch.config import get_config, list_archs, override
+from repro_torch.configs import (arctic_480b, deepseek_67b, gemma2_9b,
+                                 gemma_7b, granite_3_8b, internvl2_1b,
+                                 kimi_k2)
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as ttr
 from repro_torch.nn import layers
@@ -68,7 +76,13 @@ def _tokens(cfg, shape, seed):
 CONFIG_MODULES = {"gemma2-9b": (gemma2_9b, jgemma),
                   "granite-3-8b": (granite_3_8b, jgranite),
                   "arctic-480b": (arctic_480b, jarctic),
-                  "kimi-k2-1t-a32b": (kimi_k2, jkimi)}
+                  "kimi-k2-1t-a32b": (kimi_k2, jkimi),
+                  "internvl2-1b": (internvl2_1b, jinternvl),
+                  "gemma-7b": (gemma_7b, jgemma7),
+                  "deepseek-67b": (deepseek_67b, jdeepseek)}
+#: the configs whose reduced weights load from the reference's and whose
+#: logits match it: the dense and VLM ones added with the VLM frontend
+DENSE_NEW = ("deepseek-67b", "gemma-7b", "internvl2-1b")
 
 
 @pytest.mark.parametrize("name", sorted(CONFIG_MODULES))
@@ -82,6 +96,58 @@ def test_configs_match_reference(name):
     assert cfg.padded_vocab == jget_config(name).padded_vocab
     assert [cfg.layer_is_local(i) for i in range(cfg.num_layers)] == \
         [jget_config(name).layer_is_local(i) for i in range(cfg.num_layers)]
+    assert [s.name for s in cfg.shapes()] == \
+        [s.name for s in jget_config(name).shapes()]
+    assert [dataclasses.asdict(s) for s in cfg.shapes()] == \
+        [dataclasses.asdict(s) for s in jget_config(name).shapes()]
+
+
+def test_list_archs_and_override_match_reference():
+    """Every assigned arch is registered; ``override`` replaces fields
+    through dotted keys as the reference's does."""
+    assert set(ASSIGNED_ARCHS) <= set(list_archs())
+    assert list_archs() == jlist_archs()
+    kw = {"d_model": 128, "attention.num_heads": 8,
+          "attention.head_dim": 32, "dtype": "float32"}
+    got = override(get_config("internvl2-1b"), **kw)
+    want = joverride(jget_config("internvl2-1b"), **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.attention.num_kv_heads == 2 and got.attention.q_dim == 256
+    with pytest.raises(TypeError):
+        override(get_config("gemma-7b"), **{"attention.no_such_field": 1})
+
+
+@pytest.mark.parametrize("name", DENSE_NEW)
+def test_param_counts_match_reference(name):
+    """``param_count`` of the published config and of its reduced one."""
+    mod, jmod = CONFIG_MODULES[name]
+    for cfg, jcfg in ((get_config(name), jget_config(name)),
+                      (mod.reduced(), jmod.reduced())):
+        assert cfg.param_count() == jcfg.param_count()
+        assert cfg.active_param_count() == cfg.param_count()
+
+
+@pytest.mark.parametrize("name", DENSE_NEW)
+def test_new_configs_load_reference_weights(name):
+    """``params_from_reference`` takes the reduced config's reference
+    weights unchanged (untied deepseek's ``lm_head`` too); ``lm_forward``
+    and a prefill then match the reference's in the f32 band."""
+    mod, jmod = CONFIG_MODULES[name]
+    cfg, jcfg = _fp32(mod), _fp32(jmod)
+    params = jtr.init_lm(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, params)
+    model = ttr.TransformerLM(cfg, device="cpu").params_from_reference(tree)
+    flat = ttr.flatten_reference(tree, cfg)
+    assert sorted(flat) == sorted(n for n, _ in model.named_parameters())
+    assert ("lm_head.table" in flat) == (not cfg.tie_embeddings)
+    toks = _tokens(cfg, (2, 20), 1)
+    want, _ = jtr.lm_forward(params, jcfg, jnp.asarray(toks))
+    jlg, _, _ = jtr.lm_prefill(params, jcfg, jnp.asarray(toks), 24)
+    with torch.no_grad():
+        assert_allclose_dtype(ttr.lm_forward(model, torch.from_numpy(toks)),
+                              want, scale=LM_SCALE)
+        lg, _, _ = ttr.lm_prefill(model, torch.from_numpy(toks), 24)
+        assert_allclose_dtype(lg, jlg, scale=LM_SCALE)
 
 
 def test_params_from_reference_round_trip(pair):
@@ -233,17 +299,20 @@ def test_decode_matches_full_forward(pair):
 
 
 def test_unsupported_families_raise():
+    """An enc-dec stack (its model is ``models/encdec.py``) raises in
+    ``TransformerLM`` and ``init_caches``, also with a frontend stub (the
+    audio family's seamless has one); frontend embeddings on a decoder
+    stack are held by tests/test_torch_vlm.py."""
     cfg = _fp32(granite_3_8b)
-    for kw in ({"encoder_layers": 2}, {"frontend_stub": True}):
-        with pytest.raises(NotImplementedError):
-            ttr.TransformerLM(dataclasses.replace(cfg, **kw), device="cpu")
-    model = ttr.TransformerLM(cfg, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    embeds = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="frontend"):
-        ttr.lm_forward(model, toks, embeds)
-    with pytest.raises(NotImplementedError, match="frontend"):
-        ttr.lm_prefill(model, toks, 8, embeds)
+    for kw in ({"encoder_layers": 2},
+               {"encoder_layers": 2, "frontend_stub": True}):
+        bad = dataclasses.replace(cfg, **kw)
+        with pytest.raises(NotImplementedError, match="enc-dec"):
+            ttr.TransformerLM(bad, device="cpu")
+        with pytest.raises(NotImplementedError, match="enc-dec"):
+            ttr.init_caches(bad, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        ttr.TransformerLM(get_config("seamless-m4t-medium"), device="meta")
 
 
 # ---------------------------------------------------------------------------

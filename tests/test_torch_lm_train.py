@@ -330,7 +330,7 @@ def test_train_lm_launcher_smoke_on_cpu(tmp_path, capsys):
 
 def test_train_lm_launcher_refuses_unported_archs():
     with pytest.raises(NotImplementedError, match="not ported"):
-        train_lm.make_config("deepseek-67b")
+        train_lm.make_config("kimi-k2-1t-a32b")
     assert train_lm.make_config("gemma2-9b", width="full",
                                 layers=2).d_model == 3584
 
