@@ -385,8 +385,36 @@ Phases, each printing its own lines; any failure exits non-zero:
                 120 SGD steps through plan.compile() under autograd: one
                 trace a signature, the loss falling).
 
+ 23. launch -- (right after phase 22) the LM launch layer.  (a) K5
+                through its opaque torch ops
+                (repro_torch::flash_attention and _bwd) bit for bit the
+                direct launches at (a) and (o), f32 and bf16, forward and
+                backward, with the op's host cost a call beside the
+                direct call's.  (b) granite-3-8b at its published width
+                (LAUNCH_LAYERS of 40 layers: full depth with AdamW does
+                not fit 80 GB), bf16, through launch/train.py's
+                build_trainer on a (1, 1) mesh over a world-size-1 NCCL
+                group: LAUNCH_STEPS steps of 2 x 4096 tokens, remat
+                "selective", K5's launches by shape (a forward, its
+                recompute and a backward pair a layer a step), step 0's
+                loss and every gradient bit for bit the plain step
+                without a mesh and the mesh step with remat "none", step
+                ms, idle share, peak memory.  (c) launch/dryrun.py's
+                run_cell of the same step on the same mesh over fake CUDA
+                tensors: state bytes exactly the real state's, peak
+                within LAUNCH_PEAK_TOL of the measured, the measured
+                step's model-FLOPs utilisation.  (d) python -m
+                repro_torch.launch.dryrun --arch granite-3-8b --shape
+                train_4k, --mesh single and --mesh multi, and
+                profile_cell of the single-pod cell, three subprocesses
+                started before phase 2's build and waited for right after
+                it, so that their traces share the host with the build
+                alone and with no measured phase: exit 0, each mesh's
+                peak, FLOPs, collective bytes by kind, roofline and
+                fits_80g, K5's op among the top FLOP entries.
+
 The phases run in the order 1-4, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 5-7,
-18, 19, 20, 21, 22.
+18, 19, 20, 21, 22, 23, 23 (d)'s subprocesses beside 2.
 The
 last three lines are nvidia-smi's name and power limit, one JSON object
 per kernel ({"kernels": [...]}) and the result line.  The full per-shape
@@ -395,6 +423,7 @@ table is also written to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import subprocess
@@ -6546,6 +6575,388 @@ def drive_vlm():
             "train": train, "dense": dense, "by_shape": by_shape}
 
 
+#: phase 23: granite-3-8b at its published width through launch/train.py,
+#: depth cut to LAUNCH_LAYERS of 40 (full depth with AdamW's f32 moments
+#: does not fit one card's 80 GB), LAUNCH_BATCH x LAUNCH_SEQ tokens,
+#: remat "selective", LAUNCH_STEPS steps, no checkpoints
+LAUNCH_LAYERS = 8
+LAUNCH_BATCH = 2
+LAUNCH_SEQ = 4096
+LAUNCH_STEPS = 3
+#: phase 23: the dry run's per-device peak against the measured one
+LAUNCH_PEAK_TOL = 0.25
+#: phase 23 (a): host calls timed a dispatch route
+LAUNCH_HOST_CALLS = 50
+#: phase 23 (a): host calls timed a route of a forward and backward
+LAUNCH_TRAIN_CALLS = 20
+
+
+def dryrun_start() -> list:
+    """Phase 23 (d)'s subprocesses (one default process group a process),
+    started before phase 2's build, so that their traces on the host
+    (fake tensors: no card work) share it with the build alone and with
+    no measured phase: the production dry run of granite-3-8b x train_4k
+    on the single-pod and on the multi-pod mesh, one process each, and
+    ``profile_cell`` of its single-pod cell.  Returns (name, Popen, log
+    path) triples for ``dryrun_finish``, which ``main`` calls right after
+    the build."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    procs = []
+    for name, mod, extra in (
+            ("dryrun_single", "repro_torch.launch.dryrun",
+             ["--mesh", "single"]),
+            ("dryrun_multi", "repro_torch.launch.dryrun",
+             ["--mesh", "multi"]),
+            ("profile_cell", "repro_torch.launch.profile_cell",
+             ["--mesh", "single", "--top", "12"])):
+        log = out / f"launch_{name}.log"
+        cmd = [sys.executable, "-m", mod, "--arch", "granite-3-8b",
+               "--shape", "train_4k", *extra]
+        procs.append((name, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=open(log, "w"),
+            stderr=subprocess.STDOUT), log))
+    atexit.register(dryrun_stop, procs)   # a failed phase leaves none
+    return procs
+
+
+def dryrun_stop(procs) -> None:
+    """Kill ``dryrun_start``'s processes that still run."""
+    for _, proc, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_finish(procs, timeout: float = 900) -> dict:
+    """Phase 23 (d): wait for ``dryrun_start``'s processes; each must exit
+    0.  Prints each mesh's per-device peak, FLOPs, collective bytes by
+    kind, roofline and fits_80g from the dry run's records, and fails
+    unless K5's op is among profile_cell's top FLOP entries."""
+    out = {}
+    for name, proc, log in procs:
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"launch {name}: no exit within {timeout:.0f} s")
+        text = log.read_text()
+        if rc != 0:
+            print(text[-3000:], flush=True)
+            fail(f"launch {name}: exit {rc} (log {log})")
+        out[name] = text
+    recs = {}
+    for mesh in ("single", "multi"):
+        path = ROOT / "experiments" / "dryrun_torch" / \
+            f"granite-3-8b_train_4k_{mesh}.json"
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            fail(f"launch dryrun {mesh}: {rec.get('error')}")
+        rl = rec["roofline"]
+        print(f"[launch] dry run granite-3-8b x train_4k x {mesh} "
+              f"({rec['chips']} ranks, cuda tier on fake CUDA tensors, "
+              f"remat {rec['remat']}): peak/device "
+              f"{rec['peak_bytes_per_device'] / 2**30:.2f} GiB, fits_80g "
+              f"{rec['fits_80g']}; flops {rec['flops']:.4e} (products "
+              f"{rec['dot_flops']:.4e}), bytes {rec['hbm_bytes']:.4e}; "
+              f"collective bytes {json.dumps(rec['collective'])}; "
+              f"roofline on H100: dominant {rl['dominant']}, compute "
+              f"{rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, "
+              f"collective {rl['collective_s']:.4f} s, fraction "
+              f"{rl['roofline_fraction']:.4f} (a prediction from a trace, "
+              f"not a measurement); traced in {rec['compile_s']} s",
+              flush=True)
+        recs[mesh] = rec
+    top = out["profile_cell"].split("-- top FLOPs --")[-1]
+    print("[launch] profile_cell granite-3-8b x train_4k x single, top "
+          "FLOP entries:\n" + top.strip(), flush=True)
+    if "repro_torch.flash_attention" not in top:
+        fail("launch profile_cell: K5's op is not among the top FLOP "
+             "entries")
+    return {"records": recs, "profile_top_flops": top.strip()}
+
+
+def host_us(fn, n: int) -> float:
+    """Host microseconds a call of ``fn`` (launches only: the card syncs
+    before and after, outside the clock)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def check_k5_op() -> list:
+    """Phase 23 (a): K5 through its opaque ops against the direct
+    launches (``_launch``, ``_launch_bwd``) at FLASH_SHAPES (a) and (o),
+    f32 and bf16: out, lse, dq, dk and dv bit for bit; the op's host cost
+    a forward call beside the direct launch's, and of a forward and
+    backward under ``autograd.grad`` beside a plain ``autograd.Function``
+    over the direct launches (the control: K5 before it was an op) and the
+    direct launches alone."""
+    import torch
+    from repro_torch.kernels import flash_attention as k5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for name in ("a", "o"):
+        b, hq, hkv, sq, sk, d, causal, window, cap, _ = FLASH_SHAPES[name]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (torch.randn(shp, generator=gen, device="cuda",
+                                         dtype=dtype)
+                             for shp in ((b, hq, sq, d), (b, hkv, sk, d),
+                                         (b, hkv, sk, d), (b, hq, sq, d)))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            args = (q, k, v, None, causal, window, cap, True)
+            out, lse = torch.ops.repro_torch.flash_attention(*args)
+            dout_, dlse = k5._launch(q, k, v, None, return_lse=True, **kw)
+            grads = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, out, lse, dout, None, causal, window, cap)
+            dgrads = k5._launch_bwd(q, k, v, out, lse, dout, None, **kw)
+            same = torch.equal(out, dout_) and torch.equal(lse, dlse) and \
+                all(torch.equal(a, c) for a, c in zip(grads, dgrads))
+            op_us = host_us(lambda: torch.ops.repro_torch.flash_attention(
+                *args), LAUNCH_HOST_CALLS)
+            direct_us = host_us(lambda: k5._launch(
+                q, k, v, None, return_lse=True, **kw), LAUNCH_HOST_CALLS)
+            wrap_us = host_us(lambda: k5.flash_attention(
+                q, k, v, return_lse=True, **kw), LAUNCH_HOST_CALLS)
+            qg = q.detach().requires_grad_()
+
+            class Direct(torch.autograd.Function):
+                """The control: the direct launches under a plain
+                autograd.Function, as K5 ran before it was an op."""
+
+                @staticmethod
+                def forward(ctx, q_):
+                    o, lse_ = k5._launch(q_, k, v, None, return_lse=True,
+                                         **kw)
+                    ctx.save_for_backward(q_, o, lse_)
+                    return o
+
+                @staticmethod
+                def backward(ctx, do):
+                    q_, o, lse_ = ctx.saved_tensors
+                    return k5._launch_bwd(q_, k, v, o, lse_, do.contiguous(),
+                                          None, **kw)[0]
+
+            def direct_train():
+                o, lse_ = k5._launch(q, k, v, None, return_lse=True, **kw)
+                k5._launch_bwd(q, k, v, o, lse_, dout, None, **kw)
+            train_us = host_us(lambda: torch.autograd.grad(
+                k5.flash_attention(qg, k, v, **kw), qg, dout),
+                LAUNCH_TRAIN_CALLS)
+            fn_train_us = host_us(lambda: torch.autograd.grad(
+                Direct.apply(qg), qg, dout), LAUNCH_TRAIN_CALLS)
+            direct_train_us = host_us(direct_train, LAUNCH_TRAIN_CALLS)
+            dt = str(dtype).removeprefix("torch.")
+            print(f"[launch] K5 op ({name}) {dt}: forward and backward bit "
+                  f"for bit the direct launches {same}; host us a forward "
+                  f"call: op {op_us:.1f}, flash_attention wrapper "
+                  f"{wrap_us:.1f}, direct _launch {direct_us:.1f}; a "
+                  f"forward and backward under autograd.grad: the wrapper "
+                  f"{train_us:.1f}, an autograd.Function over the direct "
+                  f"launches {fn_train_us:.1f}; the direct launches alone "
+                  f"{direct_train_us:.1f}", flush=True)
+            if not same:
+                fail(f"launch: K5's op at ({name}) {dt} is not the direct "
+                     f"launch bit for bit")
+            rows.append({"shape": name, "dtype": dt, "bitwise": same,
+                         "op_host_us": op_us, "wrapper_host_us": wrap_us,
+                         "direct_host_us": direct_us,
+                         "train_host_us": train_us,
+                         "function_train_host_us": fn_train_us,
+                         "direct_train_host_us": direct_train_us})
+            del q, k, v, dout, out, lse, grads, dgrads, dout_, dlse, qg
+    torch.cuda.empty_cache()
+    return rows
+
+
+def drive_launch() -> dict:
+    """Phase 23: the LM launch layer on the card.  (a) ``check_k5_op``;
+    (b) granite-3-8b at full width, LAUNCH_LAYERS of 40 layers, bf16,
+    through ``launch/train.py::build_trainer`` on a (1, 1) mesh over a
+    world-size-1 NCCL group: LAUNCH_STEPS steps of LAUNCH_BATCH x
+    LAUNCH_SEQ tokens with remat "selective", K5's launches by shape (a
+    step: a forward, its recompute and a backward pair a layer), step 0's
+    loss and every gradient bit for bit the same step on plain tensors
+    without a mesh and the mesh step with remat "none", step ms, idle
+    share, peak memory; (c) ``launch/dryrun.py::run_cell`` of the same
+    config, batch and remat on the same mesh over fake CUDA tensors: its
+    state bytes exactly the real state's, its peak within LAUNCH_PEAK_TOL
+    of steps 0-2's, the model-FLOPs utilisation of the measured step.
+    (d) is ``dryrun_start`` and ``dryrun_finish``, around phase 2."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.config import ShapeSpec, get_config, override
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.sharding import sharding_rules
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    k5_rows = check_k5_op()
+    smi = nvidia_smi()
+
+    store = ROOT / "build" / "launch" / "store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    cfg = override(get_config("granite-3-8b"), num_layers=LAUNCH_LAYERS)
+    opt = dryrun.default_opt(cfg)
+    shape = ShapeSpec("train_cli", LAUNCH_SEQ, LAUNCH_BATCH, "train")
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[launch] {free / 1e9:.1f} GB of {total / 1e9:.1f} GB free on "
+          f"the card before the launcher", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr, mesh, rules = build_trainer(
+        cfg, steps=LAUNCH_STEPS, batch=LAUNCH_BATCH, seq=LAUNCH_SEQ,
+        remat="selective", ckpt_dir=str(ROOT / "build" / "launch" / "ckpt"),
+        device="cuda", checkpoint_every=0, log_every=1, opt=opt)
+    k5_zero()
+    with sharding_rules(mesh, rules):
+        res = tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    by = k5_by_shape()
+    key = ("bfloat16", LAUNCH_BATCH, 32, 8, LAUNCH_SEQ, LAUNCH_SEQ, 128,
+           True, 0, 0.0)
+    want = {("fwd",) + key: 2 * LAUNCH_LAYERS * LAUNCH_STEPS,
+            ("bwd",) + key: 2 * LAUNCH_LAYERS * LAUNCH_STEPS}
+    print(f"[launch] granite-3-8b {LAUNCH_LAYERS} of 40 layers (d_model "
+          f"{cfg.d_model}, {cfg.attention.num_heads} heads over "
+          f"{cfg.attention.num_kv_heads} KV heads at D "
+          f"{cfg.attention.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, {cfg.param_count() / 1e9:.3f} B "
+          f"parameters) on a {tuple(mesh.shape)} mesh over a world-size-1 "
+          f"NCCL group: {LAUNCH_STEPS} steps of {LAUNCH_BATCH} x "
+          f"{LAUNCH_SEQ} tokens, remat selective; K5 launches by shape "
+          f"{dict(by)}", flush=True)
+    if dict(by) != want:
+        fail(f"launch: K5 launches {dict(by)}, expected {want} (a step: a "
+             f"forward, its recompute and one backward pair a layer)")
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    step_ms = [h["dt"] * 1e3 for h in hist]
+    state = res["state"]
+    state_bytes = sum(t.to_local().numel() * t.element_size()
+                      if isinstance(t, DTensor) else
+                      t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    if not all(torch.isfinite(torch.tensor(losses))):
+        fail(f"launch: losses {losses} not finite")
+    # an extra step under the profiler: device busy and idle share
+    batch3 = shard_batch(tr.pipeline.batch_at(LAUNCH_STEPS),
+                         tr.batch_shardings)
+    with sharding_rules(mesh, rules):
+        win = profiled("launch_step", 1, lambda: tr.step_fn(state, batch3))
+    del state, res, batch3
+    torch.cuda.empty_cache()
+
+    # step 0, bit for bit: the mesh step (selective and none) and the plain
+    # step on the same weights and batch
+    batch0 = tr.pipeline.batch_at(0)
+    grads = {}
+    with sharding_rules(mesh, rules):
+        s0 = tr.make_state()
+        placed = shard_batch(batch0, tr.batch_shardings)
+        for remat in ("selective", "none"):
+            g, m = make_loss_and_grads(cfg, remat)(s0.params, placed)
+            grads[remat] = (m["loss"].full_tensor(),
+                            {k: v.to_local() for k, v in g.items()})
+            del g
+        del s0, placed
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    plain = {k: p.detach() for k, p in init_lm(
+        cfg, generator=gen, device="cuda").named_parameters()}
+    gp, mp = make_loss_and_grads(cfg, "selective")(
+        plain, {k: torch.as_tensor(v).cuda() for k, v in batch0.items()})
+    grads["plain"] = (mp["loss"], gp)
+    del plain
+    ref_loss, ref = grads["plain"]
+    bitwise = {}
+    for name in ("selective", "none"):
+        loss, g = grads[name]
+        bitwise[name] = bool(torch.equal(loss, ref_loss)) and all(
+            torch.equal(g[k], ref[k]) for k in ref)
+    print(f"[launch] step 0: loss {float(ref_loss):.6f}; the (1, 1)-mesh "
+          f"step (selective) bit for bit the plain step: "
+          f"{bitwise['selective']}; the mesh step with remat none bit for "
+          f"bit it too: {bitwise['none']} ({len(ref)} gradients each)",
+          flush=True)
+    if not all(bitwise.values()):
+        diff = {n: [k for k in ref if not torch.equal(grads[n][1][k],
+                                                      ref[k])][:5]
+                for n in bitwise}
+        fail(f"launch: step 0 is not bit for bit the plain step: {diff}")
+    del grads, gp, ref
+    torch.cuda.empty_cache()
+    med = statistics.median(step_ms[1:])
+    print(f"[launch] steps: loss {['%.6f' % x for x in losses]}, host ms a "
+          f"step {['%.1f' % x for x in step_ms]} (median of steps 1-"
+          f"{LAUNCH_STEPS - 1}: {med:.1f}); a profiled step: device busy "
+          f"{win['device_busy_ms']:.1f} ms of {win['wall_ms']:.1f} ms, idle "
+          f"share {win['idle_share']:.4f}; peak memory of steps 0-"
+          f"{LAUNCH_STEPS - 1} {peak / 2**30:.2f} GiB; state "
+          f"{state_bytes / 2**30:.3f} GiB on {smi.strip()}", flush=True)
+
+    # (c) the dry run of the same step on the same mesh
+    rec = dryrun.run_cell("granite-3-8b", "train_cli", "test", cfg=cfg,
+                          shape=shape, remat="selective", mesh=mesh,
+                          device="cuda", out_dir=None, verbose=False)
+    if rec["status"] != "ok":
+        print(rec.get("traceback", ""), flush=True)
+        fail(f"launch: the dry run of the card's step failed: "
+             f"{rec.get('error')}")
+    pred = rec["peak_bytes_per_device"]
+    mfu = rec["model_flops"] / (med / 1e3 * BF16_FLOPS)
+    print(f"[launch] dry run of this step on the (1, 1) mesh (fake CUDA "
+          f"tensors, traced in {rec['compile_s']} s): state bytes "
+          f"{rec['state_bytes_per_device']} vs the real state's "
+          f"{state_bytes}; peak {pred / 2**30:.2f} GiB vs measured "
+          f"{peak / 2**30:.2f} GiB ({pred / peak - 1:+.1%}); flops "
+          f"{rec['flops']:.4e}, model flops {rec['model_flops']:.4e}; "
+          f"model-FLOPs utilisation of the measured step "
+          f"model_flops / (ms x bf16 peak {BF16_FLOPS:.3g}) = {mfu:.4f}",
+          flush=True)
+    if rec["state_bytes_per_device"] != state_bytes:
+        fail(f"launch: the dry run's state bytes "
+             f"{rec['state_bytes_per_device']} != the real state's "
+             f"{state_bytes}")
+    if abs(pred / peak - 1) > LAUNCH_PEAK_TOL:
+        fail(f"launch: the dry run's peak {pred} is off the measured "
+             f"{peak} by more than {LAUNCH_PEAK_TOL:.0%}")
+    dist.destroy_process_group()
+    t_abc = time.perf_counter() - t0
+    return {"k5_op": k5_rows, "launches": {"/".join(map(str, k)): n
+                                           for k, n in by.items()},
+            "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+            "window": win, "peak_bytes": peak, "state_bytes": state_bytes,
+            "bitwise": bitwise, "dryrun_card": {
+                k: rec[k] for k in ("flops", "dot_flops", "hbm_bytes",
+                                    "peak_bytes_per_device",
+                                    "state_bytes_per_device",
+                                    "model_flops", "compile_s")},
+            "mfu": mfu, "abc_s": t_abc, "nvidia_smi": smi}
+
+
 def main() -> None:
     # the flex_attention yardstick compiles with inductor and Triton: keep
     # their caches inside the checkout and compile in this process
@@ -6577,12 +6988,21 @@ def main() -> None:
           f"CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
+    # -- 23 (d) starts here: the production dry run's traces (host only,
+    # fake tensors) run beside the build, which no phase measures
+    procs = dryrun_start()
+
     # -- 2. build
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"[build] {len(_build.SOURCES)} kernel libraries ready; "
           f"{len(logs)} compiled now in {time.perf_counter() - t0:.1f} s "
           f"(the rest were built earlier from the same sources)", flush=True)
+    t1 = time.perf_counter()
+    dry = dryrun_finish(procs)
+    dry["wait_s"] = time.perf_counter() - t1
+    print(f"[launch] the dry runs ended {dry['wait_s']:.1f} s after the "
+          f"build; {time.perf_counter() - t0:.1f} s with it", flush=True)
     for name, log in logs.items():   # nvcc -Xptxas -v, per kernel
         arrives = 0
         for line in log.splitlines():
@@ -6771,6 +7191,14 @@ def main() -> None:
     t0 = time.perf_counter()
     vlm = drive_vlm()
     print(f"[vlm] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 23. the LM launch layer: K5 as an opaque op, granite-3-8b through
+    # launch/train.py on a (1, 1) mesh, the dry run against the card
+    t0 = time.perf_counter()
+    launch = drive_launch()
+    launch["dryrun"] = dry
+    print(f"[launch] phase took {time.perf_counter() - t0:.1f} s "
+          f"((a)-(c) {launch['abc_s']:.1f} s)", flush=True)
     print(f"[main] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -6781,6 +7209,7 @@ def main() -> None:
          "peak_bytes": peak, "records": records, "flash": flash, "lm": lm,
          "lm_f32": lm_f32, "flash_bwd": flash_bwd, "lm_train": lm_train,
          "encdec": encdec, "moe": moe, "ssm": ssm, "vlm": vlm,
+         "launch": launch,
          "sass_tf32_hgmma": sass,
          "forwards_ms": forwards, "compiled": compiled, "reports": reports,
          "decisions": decisions, "decision_launches": dlaunches,

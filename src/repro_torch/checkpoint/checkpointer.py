@@ -30,19 +30,27 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+
+def _is_sharding(x) -> bool:
+    """A ``launch/sharding.py::NamedSharding`` (a named tuple that is a
+    leaf of a shardings tree)."""
+    return hasattr(x, "placements") and hasattr(x, "place")
 
 
 def _flatten_with_paths(tree, prefix=()) -> list:
     """(path, leaf) pairs; dict keys in sorted order, named-tuple fields
-    by name, list and tuple items by index."""
+    by name, list and tuple items by index (a sharding is a leaf)."""
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten_with_paths(tree[k], prefix + (str(k),))]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields") and \
+            not _is_sharding(tree):
         return [kv for k in tree._fields
                 for kv in _flatten_with_paths(getattr(tree, k),
                                               prefix + (k,))]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_sharding(tree):
         return [kv for i, t in enumerate(tree)
                 for kv in _flatten_with_paths(t, prefix + (str(i),))]
     return [("/".join(prefix), tree)]
@@ -65,9 +73,12 @@ def _rebuild(tree, leaves: Dict[str, Any], prefix=()):
 def _to_host(leaf) -> np.ndarray:
     """A leaf as a numpy array of its own (never a view of live memory,
     since the caller may update the state while a save is in flight);
-    bf16 as f32, which holds it exactly."""
+    bf16 as f32, which holds it exactly.  A DTensor is saved whole
+    (``full_tensor()``), so a checkpoint is the same file on any mesh."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy().copy()
@@ -155,10 +166,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None):
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None):
         """Restore into the structure of ``template`` (default step: the
         latest).  Each leaf must match the template's shape; it takes the
-        template's dtype and device.  Returns (state, step, extra)."""
+        template's dtype and device, and with ``shardings`` (a tree like
+        ``template``'s of ``launch/sharding.py::NamedSharding``) its
+        placements on their mesh.  Returns (state, step, extra)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -179,4 +193,9 @@ class Checkpointer:
                                                     dtype=leaf.dtype)
             else:
                 out[key] = arr.astype(leaf.dtype)
-        return _rebuild(template, out), step, meta["extra"]
+        state = _rebuild(template, out)
+        if shardings is not None:
+            placed = dict(_flatten_with_paths(shardings))
+            state = _rebuild(template, {k: placed[k].place(v) for k, v in
+                                        _flatten_with_paths(state)})
+        return state, step, meta["extra"]

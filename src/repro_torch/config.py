@@ -325,12 +325,15 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """What ``train.trainer.Trainer`` reads (``TrainConfig``, :330): the
-    step count, logging and checkpoint cadence, where checkpoints go and
-    how many are kept.  Not ported: the ``mesh`` field (the reference's
-    ``MeshConfig``; LM training on a mesh is ROADMAP item 13.8), and
-    ``remat`` and ``microbatch``, which the port's callers pass to
-    ``launch/steps.py::make_train_step`` instead."""
+    """What ``train.trainer.Trainer`` and ``launch/train.py`` read
+    (``TrainConfig``, :330): the step count, logging and checkpoint
+    cadence, where checkpoints go and how many are kept, and the step's
+    ``remat`` ("none", "full" or "selective") and ``microbatch`` (0: no
+    gradient accumulation), which ``launch/train.py`` passes to
+    ``launch/steps.py::make_train_step``.  The reference's ``mesh``
+    field (a ``MeshConfig``) is left out: nothing there or here reads
+    it.  The mesh is the open process group's (``launch/train.py``) or
+    the dry run's ``--mesh``."""
 
     model: str
     shape: str = "train_4k"
@@ -341,6 +344,8 @@ class TrainConfig:
     checkpoint_every: int = 50
     checkpoint_dir: str = "checkpoints"
     keep_checkpoints: int = 3
+    remat: str = "none"  # "none" | "full" | "selective"
+    microbatch: int = 0  # 0 = no gradient accumulation
 
 
 # ---------------------------------------------------------------------------

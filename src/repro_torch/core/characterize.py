@@ -12,8 +12,13 @@
     collectives in compiled XLA HLO (:59); the port counts them in its
     own collectives (``core.distributed.Mesh``), under the same keys.
 
-The reference's HLO cost extraction (``cost_from_compiled``, ``cost_of``)
-for its dry run is not ported.  The default machine is ``H100``.
+  * ``shape_bytes``, ``cost_from_compiled`` and ``cost_of`` -- a step's
+    ``StepCost``: the reference lowers and compiles the step and reads
+    its HLO; the port traces it (on fake tensors, where its arguments are
+    fake) and counts its ops (``core/op_cost.py``, the counterpart of
+    ``repro/core/hlo_cost.py``).
+
+The default machine is ``H100``.
 """
 
 from __future__ import annotations
@@ -83,6 +88,51 @@ class Roofline:
             "roofline_fraction": self.roofline_fraction,
             "machine": self.machine.name,
         }
+
+
+#: bytes an element of each dtype name takes (the reference's HLO names)
+_DTYPE_BYTES = {"f64": 8, "f32": 4, "f16": 2, "bf16": 2, "s64": 8, "s32": 4,
+                "s16": 2, "s8": 1, "u8": 1, "pred": 1}
+
+
+def shape_bytes(tok_dtype: str, tok_dims: str) -> int:
+    """Bytes of a ``dtype[dims]`` shape (``shape_bytes``, :51): dims a
+    comma list, empty for a scalar."""
+    n = 1
+    for d in tok_dims.split(","):
+        if d.strip():
+            n *= int(d)
+    return n * _DTYPE_BYTES[tok_dtype]
+
+
+def cost_from_compiled(record) -> StepCost:
+    """A step's ``StepCost`` from its trace record (``core/op_cost.py::
+    OpCost``; the reference's ``cost_from_compiled``, :119, reads a
+    compiled executable): FLOPs, bytes accessed, collective bytes by kind
+    with their ``"total"``, and the peak live bytes."""
+    coll = {k: int(v) for k, v in record.collectives.items()}
+    coll["total"] = int(record.collective_bytes)
+    return StepCost(flops=record.flops, hbm_bytes=record.bytes_accessed,
+                    collective=coll,
+                    peak_memory_per_device=float(record.peak_bytes))
+
+
+def cost_of(fn, *args, fake_mode=None, **kwargs) -> StepCost:
+    """Trace ``fn(*args)`` and count it (``cost_of``, :144, which lowers
+    and compiles): args may be fake tensors (``fake_mode``, detected from
+    them when not given) or DTensors of them, so nothing is allocated and
+    no kernel launches."""
+    from torch._guards import detect_fake_mode
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.core import op_cost
+    leaves = [a for a in tree_flatten((args, kwargs))[0]
+              if hasattr(a, "shape")]
+    local = [a.to_local() if hasattr(a, "to_local") else a for a in leaves]
+    fake_mode = fake_mode or detect_fake_mode(local)
+    _, rec = op_cost.count(fn, *args, fake_mode=fake_mode, inputs=leaves,
+                           **kwargs)
+    return cost_from_compiled(rec)
 
 
 def collective_bytes(mesh) -> Dict[str, Any]:

@@ -5,8 +5,7 @@ again from those two numbers and checkpoint-resume is exact: the pipeline
 state IS the step counter.  ``TokenPipeline`` synthesizes LM token streams
 with a Zipf unigram marginal; ``GraphPipeline`` yields GraphSAGE sampled
 minibatches.  Both draw exactly what the reference draws.  ``shard_batch``
-(placing a batch by shardings) goes with distributed execution (ROADMAP
-item 11).
+places a host batch on a mesh by its shardings (DTensors).
 """
 
 from __future__ import annotations
@@ -116,3 +115,14 @@ class GraphPipeline:
     def load_state_dict(self, st):
         self.step = int(st["step"])
         self.seed = int(st["seed"])
+
+
+def shard_batch(batch: Dict[str, Any], shardings: Dict[str, Any]
+                ) -> Dict[str, Any]:
+    """A host batch as DTensors on the mesh, each entry by its sharding
+    (``launch/sharding.py::NamedSharding``; ``shard_batch``, :124);
+    entries without one stay as they are.  Every rank makes the whole
+    batch from (seed, step), so each takes its own shard and nothing is
+    sent."""
+    return {k: shardings[k].place(v) if k in shardings else v
+            for k, v in batch.items()}

@@ -12,8 +12,12 @@ kv_len: (B,) int32; GQA reads KV head ``h // (Hq // Hkv)``; q is scaled by
 ``kpos > qpos - window``; an optional tanh softcap; running max, sum and
 accumulator in f32; an all-masked row gives 0; one rounding to q's dtype.
 
-``flash_attention`` is the wrapper: tensors on the CPU take
-``flash_attention_plain``, CUDA tensors launch the kernel or raise.
+``flash_attention`` is the wrapper over the opaque op
+``repro_torch::flash_attention`` (``flash_attention_op``, defined with
+``torch.library.Library`` and a kernel per dispatch key): tensors on the
+CPU take ``flash_attention_plain``, CUDA tensors launch the kernel or
+raise, fake tensors (a ``FakeTensorMode`` trace, the dry run) get the
+shapes and the checks that need no data and launch nothing.
 ``flash_attention.launches`` counts the launches, and
 ``flash_attention.by_shape`` the same launches by ``launch_key``.  With
 ``return_lse=True`` the kernel also stores each row's logsumexp ``m +
@@ -35,8 +39,13 @@ accumulators per KV or q tile added in f32).  On the CPU
 ``flash_attention_bwd_plain``.
 ``flash_attention_bwd.launches`` counts both kernels' launches, and
 ``flash_attention_bwd.by_shape`` the same by ``launch_key``.
-``FlashAttention`` is the ``torch.autograd.Function`` over the two: its
-forward is K5 with the lse, its backward the two kernels.
+The backward is the op ``repro_torch::flash_attention_bwd``
+(``flash_attention_bwd_op``), which the forward op's Autograd kernel
+(``_FlashAttention``) calls: K5 under autograd is the forward op, with
+the lse, and these two kernels.  Both ops carry a FLOP formula
+(``flops_fwd``, ``flops_bwd``) for ``FlopCounterMode``.  On a mesh the op
+sees each rank's local tensors: ``nn/attention.py::per_shard`` places
+attention's inputs for every tier.
 """
 
 from __future__ import annotations
@@ -282,10 +291,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_len: Optional[torch.Tensor] = None, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, return_lse: bool = False):
-    """Flash attention: a CUDA kernel for CUDA tensors, the plain version
-    for tensors on the CPU.  By dtype: bf16 launches ``wgmma_kernel``, f32
-    ``tf32x3_kernel``; both count in ``flash_attention.launches`` and
-    ``flash_attention.by_shape``.
+    """Flash attention through K5's opaque op ``repro_torch::flash_attention``
+    (``flash_attention_op``): a CUDA kernel for CUDA tensors, the plain
+    version for tensors on the CPU.  By dtype: bf16 launches
+    ``wgmma_kernel``, f32 ``tf32x3_kernel``; both count in
+    ``flash_attention.launches`` and ``flash_attention.by_shape``.
 
     q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D), all f32 or all bf16,
     contiguous and 16-byte aligned, Hq a multiple of Hkv, D in
@@ -293,18 +303,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,) int32 valid keys per batch, in [0, Sk] (default Sk).  Returns
     (B, Hq, Sq, D) in q's dtype, and with ``return_lse=True`` also each
     row's logsumexp, (B, Hq, Sq) f32.  Launches on the current stream and
-    does not synchronize.  A launch has no backward of its own: under
-    autograd go through ``FlashAttention``.
+    does not synchronize.  Differentiable: the op's backward is
+    ``flash_attention_bwd_op`` (K5's two backward kernels on a card); a
+    call that needs a gradient stores the lse for it.
     """
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_len, causal=causal,
-                                     window=window, softcap=softcap,
-                                     return_lse=return_lse)
-    out = _launch(q, k, v, kv_len, causal=causal, window=window,
-                  softcap=softcap, return_lse=return_lse)
-    flash_attention.launches += 1
-    flash_attention.by_shape[launch_key(q, k, causal, window, softcap)] += 1
-    return out
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    out, lse = flash_attention_op(q, k, v, kv_len, bool(causal), int(window),
+                                  float(softcap), bool(return_lse or grad))
+    return (out, lse) if return_lse else out
 
 
 def launch_key(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
@@ -391,6 +398,150 @@ def _launch(q, k, v, kv_len=None, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 flash_attention.by_shape = Counter()
 
+_NO_LSE = (0,)
+
+#: K5's two opaque ops on a fragment of the ``repro_torch`` namespace (K1's
+#: and K2's ``custom_op``s share it), each kernel registered by dispatch
+#: key: ``torch.library.custom_op``'s Python wrappers (its argument and
+#: aliasing checks, its autograd adapter) cost a K5 call more host time
+#: than the kernel's own launch.  ``flash_attention`` returns ``(out,
+#: lse)``; without ``return_lse`` the kernel stores no lse and the second
+#: output is empty.  ``flash_attention_bwd`` returns ``(dq, dk, dv)``.
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? kv_len, "
+            "bool causal, int window, float softcap, bool return_lse) -> "
+            "(Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+            "Tensor lse, Tensor dout, Tensor? kv_len, bool causal, "
+            "int window, float softcap) -> (Tensor, Tensor, Tensor)")
+flash_attention_op = torch.ops.repro_torch.flash_attention.default
+flash_attention_bwd_op = torch.ops.repro_torch.flash_attention_bwd.default
+
+
+def _fwd_cuda(q, k, v, kv_len, causal, window, softcap, return_lse):
+    """The forward op's CUDA kernel: one ``_launch`` (which makes the
+    data-dependent checks: alignment, the card's shared memory), counted
+    in ``flash_attention.launches`` and ``flash_attention.by_shape``."""
+    out = _launch(q, k, v, kv_len, causal=causal, window=window,
+                  softcap=softcap, return_lse=return_lse)
+    flash_attention.launches += 1
+    flash_attention.by_shape[launch_key(q, k, causal, window, softcap)] += 1
+    if return_lse:
+        return out
+    return out, q.new_empty(_NO_LSE, dtype=torch.float32)
+
+
+def _fwd_cpu(q, k, v, kv_len, causal, window, softcap, return_lse):
+    """The forward op's CPU kernel: ``flash_attention_plain``."""
+    out, lse = flash_attention_plain(q, k, v, kv_len, causal=causal,
+                                     window=window, softcap=softcap,
+                                     return_lse=True)
+    if not return_lse:
+        lse = q.new_empty(_NO_LSE, dtype=torch.float32)
+    return out, lse
+
+
+def _check_static(q, k, v, kv_len, name: str) -> None:
+    """What ``_check`` and ``_build.check_args`` check that needs no data
+    (ranks, dtypes, the group, the head dim, shapes)."""
+    _check(q, k, v, kv_len, name)
+    b, _, _, d = q.shape
+    kv_shape = (b, k.shape[1], k.shape[2], d)
+    for arg, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype or tuple(t.shape) != kv_shape:
+            raise ValueError(f"{name}: {arg} is {t.dtype} {tuple(t.shape)}; "
+                             f"expected {q.dtype} {kv_shape}")
+    if kv_len is not None and (kv_len.dtype != torch.int32
+                               or tuple(kv_len.shape) != (b,)):
+        raise ValueError(f"{name}: kv_len is {kv_len.dtype} "
+                         f"{tuple(kv_len.shape)}; expected torch.int32 "
+                         f"({b},)")
+
+
+def _check_smem(name: str, need: int, d: int) -> None:
+    if need > _H100_SMEM_OPTIN:
+        raise ValueError(f"{name}: head dim {d} needs {need} bytes of shared "
+                         f"memory per block; the H100 allows "
+                         f"{_H100_SMEM_OPTIN}")
+
+
+def _fwd_fake(q, k, v, kv_len, causal, window, softcap, return_lse):
+    """The forward op's fake (and meta) kernel: the checks that need no
+    data and the outputs' shapes; it launches nothing."""
+    _check_static(q, k, v, kv_len, "flash_attention")
+    b, hq, sq, d = q.shape
+    _check_smem("flash_attention", smem_bytes(d, q.dtype, hq // k.shape[1]),
+                d)
+    lse = q.new_empty((b, hq, sq) if return_lse else _NO_LSE,
+                      dtype=torch.float32)
+    return torch.empty_like(q), lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward op's autograd: the op below autograd with the lse
+    (one K5 launch on a card), saving q, k, v, out and lse; the backward
+    is ``flash_attention_bwd_op``.  The lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, window, softcap):
+        with torch._C._AutoDispatchBelowAutograd():
+            out, lse = flash_attention_op(q, k, v, kv_len, causal, window,
+                                          softcap, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kv_len = kv_len
+        ctx.opts = (causal, window, softcap)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, out, lse,
+                                            dout.contiguous(), ctx.kv_len,
+                                            *ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def _fwd_autograd(q, k, v, kv_len, causal, window, softcap, return_lse):
+    """The forward op's Autograd kernel: ``_FlashAttention`` when a
+    gradient is wanted, else the op below autograd."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if not return_lse:
+            raise RuntimeError("flash_attention: a gradient needs the "
+                               "forward's lse (return_lse=True)")
+        return _FlashAttention.apply(q, k, v, kv_len, causal, window,
+                                     softcap)
+    with torch._C._AutoDispatchBelowAutograd():
+        return flash_attention_op(q, k, v, kv_len, causal, window, softcap,
+                                  return_lse)
+
+
+_LIB.impl("flash_attention", _fwd_cuda, "CUDA")
+_LIB.impl("flash_attention", _fwd_cpu, "CPU")
+_LIB.impl("flash_attention", _fwd_autograd, "Autograd")
+torch.library.register_fake("repro_torch::flash_attention", _fwd_fake,
+                            lib=_LIB)
+
+
+def flops_fwd(q_shape, k_shape) -> int:
+    """K5's forward FLOPs: two products of (Sq, Sk) by D a (batch, head),
+    ``4 B Hq Sq Sk D``, every masked tile counted (the reference's
+    ``flash_vjp`` scans mask and do not skip)."""
+    b, hq, sq, d = q_shape
+    return 4 * b * hq * sq * k_shape[2] * d
+
+
+def flops_bwd(q_shape, k_shape) -> int:
+    """K5's backward FLOPs as its two kernels run them: the dq pass forms
+    S = qs K^T and dP = dO V^T, then dQ = dS K (three products); the dk/dv
+    pass forms S and dP again, then dV = P^T dO and dK = dS^T qs (four).
+    Seven products of (Sq, Sk) by D a (batch, head): ``14 B Hq Sq Sk D``
+    (a single pass would do five, ``10 B Hq Sq Sk D``), masked tiles
+    counted."""
+    b, hq, sq, d = q_shape
+    return 14 * b * hq * sq * k_shape[2] * d
+
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
@@ -411,16 +562,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that dtype.  ``terms=3`` (3xTF32) is the f32 kernels' arithmetic;
     ``terms=1`` (CUDA f32 only: one TF32 product instead of three, a
     control that must fail the f32 checks) is for ``chip_smoke.py`` and
-    the card tests and is never called on a path."""
+    the card tests and is never called on a path.  ``terms=3`` goes
+    through the opaque op ``repro_torch::flash_attention_bwd``
+    (``flash_attention_bwd_op``), ``terms=1`` launches directly."""
     if terms != 3 and (terms != 1 or q.dtype != torch.float32
                        or q.device.type == "cpu"):
         raise ValueError(f"flash_attention_bwd: terms must be 3, or 1 for "
                          f"f32 CUDA tensors; got {terms} for {q.dtype} on "
                          f"{q.device}")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, kv_len,
-                                         causal=causal, window=window,
-                                         softcap=softcap)
+    if terms == 3:
+        return flash_attention_bwd_op(q, k, v, out, lse, dout, kv_len,
+                                      bool(causal), int(window),
+                                      float(softcap))
+    return _launch_bwd(q, k, v, out, lse, dout, kv_len, causal=causal,
+                       window=window, softcap=softcap, terms=terms)
+
+
+def _launch_bwd(q, k, v, out, lse, dout, kv_len=None, *, causal: bool,
+                window: int, softcap: float, terms: int = 3):
+    """Check the arguments and launch the dq pass then the dk/dv pass,
+    each counted in ``flash_attention_bwd.launches`` and ``.by_shape``."""
     kv_len = _check(q, k, v, kv_len, "flash_attention_bwd")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -475,29 +636,45 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.by_shape = Counter()
 
 
-class FlashAttention(torch.autograd.Function):
-    """K5 under autograd, K5's contract: ``apply(q, k, v, kv_len, causal,
-    window, softcap)`` with q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), the
-    kernel's own ``D^-0.5`` scale and ``kv_len`` right alignment.  The
-    forward is one ``flash_attention(..., return_lse=True)`` (one K5
-    launch on a card), which saves ``out`` and ``lse``; the backward is
-    ``flash_attention_bwd`` -- its two kernels for CUDA tensors, the plain
-    versions for CPU tensors."""
+def _bwd_cuda(q, k, v, out, lse, dout, kv_len, causal, window, softcap):
+    """The backward op's CUDA kernel: the two backward kernels
+    (``_launch_bwd``; 3xTF32 in f32)."""
+    return _launch_bwd(q, k, v, out, lse, dout, kv_len, causal=causal,
+                       window=window, softcap=softcap)
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_len, causal, window, softcap):
-        out, lse = flash_attention(q, k, v, kv_len, causal=causal,
-                                   window=window, softcap=softcap,
-                                   return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kv_len = kv_len
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), ctx.kv_len,
-                                         **ctx.opts)
-        return dq, dk, dv, None, None, None, None
+def _bwd_cpu(q, k, v, out, lse, dout, kv_len, causal, window, softcap):
+    """The backward op's CPU kernel: ``flash_attention_bwd_plain``."""
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, kv_len,
+                                     causal=causal, window=window,
+                                     softcap=softcap)
+
+
+def _bwd_fake(q, k, v, out, lse, dout, kv_len, causal, window, softcap):
+    """The backward op's fake (and meta) kernel: the shapes alone."""
+    _check_static(q, k, v, kv_len, "flash_attention_bwd")
+    d = q.shape[-1]
+    _check_smem("flash_attention_bwd", max(bwd_smem_bytes(
+        d, q.dtype, q.shape[1] // k.shape[1]).values()), d)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_LIB.impl("flash_attention_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("flash_attention_bwd", _bwd_cpu, "CPU")
+torch.library.register_fake("repro_torch::flash_attention_bwd", _bwd_fake,
+                            lib=_LIB)
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _fwd(q_shape, k_shape, *args, **kwargs) -> int:
+        return flops_fwd(q_shape, k_shape)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _bwd(q_shape, k_shape, *args, **kwargs) -> int:
+        return flops_bwd(q_shape, k_shape)
+
+
+_register_flop_formulas()

@@ -218,17 +218,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, backend: str) -> torch.Tensor:
     """Online-softmax attention, q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
-    Returns (B, Hq, Sq, D) in q's dtype.  On the ``cuda`` tier, when grad
-    is enabled and q, k or v requires a gradient, K5 runs through its
-    ``FlashAttention`` Function (the backward is K5's backward kernels);
-    the ``torch`` tier's plain version is differentiable as it stands."""
+    Returns (B, Hq, Sq, D) in q's dtype.  The ``cuda`` tier is K5's op,
+    differentiable through K5's backward kernels; the ``torch`` tier's
+    plain version is differentiable as it stands."""
     _check_tier(backend, q)
     if backend == TORCH:
         return k5.flash_attention_plain(q, k, v, kv_len, causal=causal,
                                         window=window, softcap=softcap)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return k5.FlashAttention.apply(q, k, v, kv_len, causal, window,
-                                       softcap)
     return k5.flash_attention(q, k, v, kv_len, causal=causal, window=window,
                               softcap=softcap)

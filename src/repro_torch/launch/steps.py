@@ -28,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config import LMConfig, OptimizerConfig
 from repro_torch.models import encdec as encdec_lib
@@ -39,9 +40,10 @@ from repro_torch.optim.optimizer import TrainState, adamw_update
 
 def _on_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """Each entry as a tensor on ``device``, but a decode batch's
-    ``caches`` (a list of tensor pairs), which stays as it is."""
-    return {k: v if k == "caches" else torch.as_tensor(v).to(device)
-            for k, v in batch.items()}
+    ``caches`` (a list of tensor pairs) and a DTensor (already placed on
+    its mesh), which stay as they are."""
+    return {k: v if k == "caches" or isinstance(v, DTensor)
+            else torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def _skeleton(cfg: LMConfig):
@@ -62,25 +64,12 @@ def _loss(cfg: LMConfig, skel, batch, params, remat: str = "none"):
                    batch.get("embeds"), remat=remat, params=params)
 
 
-def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
-                    remat: str = "none", microbatch: int = 0) -> Callable:
-    """(TrainState, batch) -> (TrainState, metrics) (``make_train_step``,
-    :23).
-
-    ``microbatch`` > 1 accumulates gradients: the batch is split along dim
-    0 into that many slices, each slice's gradients added into buffers of
-    ``opt.accum_dtype`` in order and divided by their number, the metrics
-    averaged over the slices.  ``remat`` ("none" or "full") goes to
-    ``lm_loss``; the audio family's ``encdec_loss`` rematerializes every
-    layer as the reference's does, whatever ``remat`` says, so there any
-    other value than the default raises.  Metrics: ``loss``, ``ce`` (and
-    ``aux`` for a decoder stack: the MoE layers' load-balance loss), ``lr``, ``grad_norm`` (0-d tensors)."""
-    if cfg.family == "audio" and remat != "none":
-        raise ValueError(f"make_train_step: the audio family's encdec_loss "
-                         f"rematerializes every layer and takes no remat "
-                         f"option; got remat={remat!r}")
+def make_loss_and_grads(cfg: LMConfig, remat: str = "none") -> Callable:
+    """(params, batch) -> (gradients by name, metrics with the ``loss``):
+    the family's loss and its gradients over ``params``, the part of
+    ``make_train_step`` before the update.  The batch must already be on
+    the parameters' device (or placed on their mesh)."""
     skel = _skeleton(cfg)
-    adt = DTYPES[opt.accum_dtype]
 
     def loss_and_grads(params, batch):
         leaves = {k: p.detach().requires_grad_(True)
@@ -90,6 +79,33 @@ def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return dict(zip(leaves, grads)), metrics
+
+    return loss_and_grads
+
+
+def make_train_step(cfg: LMConfig, opt: OptimizerConfig,
+                    remat: str = "none", microbatch: int = 0) -> Callable:
+    """(TrainState, batch) -> (TrainState, metrics) (``make_train_step``,
+    :23).
+
+    ``microbatch`` > 1 accumulates gradients: the batch is split along dim
+    0 into that many slices, each slice's gradients added into buffers of
+    ``opt.accum_dtype`` in order and divided by their number, the metrics
+    averaged over the slices.  ``remat`` ("none", "full" or "selective")
+    goes to ``lm_loss``; the audio family's ``encdec_loss``
+    rematerializes every layer as the reference's does, whatever
+    ``remat`` says, so there any other value than the default raises.
+    Metrics: ``loss``, ``ce`` (and ``aux`` for a decoder stack: the MoE
+    layers' load-balance loss), ``lr``, ``grad_norm`` (0-d tensors; on a
+    mesh, DTensors).  State and batch may be DTensors on a mesh (under
+    ``launch/sharding.py::sharding_rules``): the step is then one DTensor
+    program, the update and the global-norm clip included."""
+    if cfg.family == "audio" and remat != "none":
+        raise ValueError(f"make_train_step: the audio family's encdec_loss "
+                         f"rematerializes every layer and takes no remat "
+                         f"option; got remat={remat!r}")
+    adt = DTYPES[opt.accum_dtype]
+    loss_and_grads = make_loss_and_grads(cfg, remat)
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         dev = next(iter(state.params.values())).device

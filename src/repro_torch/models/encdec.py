@@ -45,9 +45,11 @@ from torch import nn
 
 from repro_torch.config import LMConfig
 from repro_torch.core.backend import resolve_device
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.transformer import (DTYPES, Caches, checkpointed,
                                             chunked_ce, flatten_into,
                                             head_logits, load_flat,
+                                            residual, whole_seq,
                                             zeroed_caches)
 from repro_torch.nn.attention import (Attention, KVCache, attention_block,
                                       cross_attention_block)
@@ -67,9 +69,11 @@ class EncoderLayer(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_activation, **kw)
 
     def forward(self, h: torch.Tensor, acfg, attn_impl: str = "auto"):
-        a, _ = attention_block(self.attn, self.ln1(h), acfg, impl=attn_impl)
-        h = h + a
-        return h + self.mlp(self.ln2(h))
+        a, _ = attention_block(self.attn, whole_seq(self.ln1(h)), acfg,
+                               impl=attn_impl)
+        h = h + residual(a)
+        h = h + residual(self.mlp(whole_seq(self.ln2(h))))
+        return constrain(h, "batch", "seq", "embed")
 
 
 class DecoderLayer(nn.Module):
@@ -91,14 +95,16 @@ class DecoderLayer(nn.Module):
                 cache: Optional[KVCache] = None, make_cache: bool = False,
                 cache_size: int = 0, attn_impl: str = "auto"):
         """Returns (h, the self-attention's new cache or None)."""
-        a, new_kv = attention_block(self.self_attn, self.ln1(h),
+        a, new_kv = attention_block(self.self_attn, whole_seq(self.ln1(h)),
                                     cfg.attention, cache=cache,
                                     make_cache=make_cache,
                                     cache_size=cache_size, impl=attn_impl)
-        h = h + a
-        h = h + cross_attention_block(self.cross_attn, self.ln_x(h), memory,
-                                      cfg.attention, impl=attn_impl)
-        return h + self.mlp(self.ln2(h)), new_kv
+        h = h + residual(a)
+        h = h + residual(cross_attention_block(
+            self.cross_attn, whole_seq(self.ln_x(h)), whole_seq(memory),
+            cfg.attention, impl=attn_impl))
+        h = h + residual(self.mlp(whole_seq(self.ln2(h))))
+        return constrain(h, "batch", "seq", "embed"), new_kv
 
 
 class EncDecLM(nn.Module):
@@ -190,6 +196,7 @@ def encode(model: EncDecLM, frames: torch.Tensor, *,
     cfg = model.cfg
     acfg = dataclasses.replace(cfg.attention, causal=False)
     h = frames.to(device=model.embed.table.device, dtype=DTYPES[cfg.dtype])
+    h = constrain(h, "batch", "seq", "embed")
     for layer in model.enc:
         h = checkpointed(layer, layer, h, acfg, attn_impl)
     return model.enc_ln(h)
@@ -205,7 +212,8 @@ def _dec_layers(model: EncDecLM, tokens: torch.Tensor, memory: torch.Tensor,
     ``encdec_loss``), which keeps nothing without a gradient."""
     cfg = model.cfg
     table = model.embed.table
-    x = embed(table, tokens.to(table.device))
+    x = constrain(embed(table, tokens.to(table.device)), "batch", "seq",
+                  "embed")
     memory = memory.to(device=table.device, dtype=table.dtype)
     new_caches: Caches = []
     for n, layer in enumerate(model.dec):
@@ -294,3 +302,10 @@ def init_dec_caches(cfg: LMConfig, batch: int, cache_size: int,
     head_dim) in the model's dtype per decoder layer (the reference's
     ``init_dec_caches_abstract``, :181, as real tensors)."""
     return zeroed_caches(cfg, batch, cache_size, device)
+
+
+def init_dec_caches_abstract(cfg: LMConfig, batch: int,
+                             cache_size: int) -> Caches:
+    """``init_dec_caches`` on the ``meta`` device: the shapes and dtypes,
+    no storage (``init_dec_caches_abstract``, :181)."""
+    return zeroed_caches(cfg, batch, cache_size, "meta")

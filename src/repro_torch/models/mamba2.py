@@ -35,15 +35,19 @@ Two departures, both where the reference is not what it means:
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.config import SSMConfig
+from repro_torch.launch.sharding import constrain
 from repro_torch.nn.layers import (DTYPES, RMSNorm, acc_dtype, dense,
-                                   gated_rmsnorm, init_normal, silu)
+                                   gated_rmsnorm, init_normal, shard_sums,
+                                   silu)
 
 
 class SSMCache(NamedTuple):
@@ -221,7 +225,13 @@ def mamba2_block(p: Mamba2, x: torch.Tensor, *,
     Otherwise the chunked scan, padded to a multiple of the chunk (zero
     ``dt`` in the padded steps, so the final state is exact) when S is
     longer than a chunk; ``make_cache`` returns the final state and the
-    full-width conv tail (``conv_tail``)."""
+    full-width conv tail (``conv_tail``).  On a mesh (x a DTensor) train
+    and prefill take the reference's layout (``_on_mesh``), a decode step
+    runs per batch shard (``_per_batch_shard``)."""
+    if isinstance(x, DTensor):
+        if cache is None:
+            return _on_mesh(p, x, make_cache)
+        return _per_batch_shard(p, x, cache, make_cache)
     cfg = p.cfg
     bsz, s, d_model = x.shape
     d_in, h = cfg.d_inner(d_model), cfg.n_heads(d_model)
@@ -281,5 +291,136 @@ def mamba2_block(p: Mamba2, x: torch.Tensor, *,
                 state, conv_tail(xbc_raw, cfg.d_conv),
                 torch.tensor(s, dtype=torch.int32, device=x.device))
 
+    y = gated_rmsnorm(p.norm.scale, y, z)
+    return dense(p.out_proj, y), new_cache
+
+
+_PARAMS = ("z_proj", "xbc_proj", "dt_proj", "out_proj", "conv_w", "conv_b",
+           "A_log", "D", "dt_bias")
+
+
+def _per_batch_shard(p: Mamba2, x, cache, make_cache: bool):
+    """A decode step on a mesh: each rank runs the block over its batch
+    rows with the parameters gathered (their gradients partial sums over
+    the mesh dims that split the batch), the output and caches placed by
+    the batch; every rank computes every head of its rows (train and
+    prefill split them, ``_on_mesh``)."""
+    mesh = x.device_mesh
+    rows = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+            else Replicate() for pl in x.placements]
+    sums = shard_sums(rows)
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t):
+        return t.redistribute(mesh, whole).to_local(grad_placements=sums)
+    lp = SimpleNamespace(cfg=p.cfg, norm=SimpleNamespace(
+        scale=local(p.norm.scale)), **{k: local(getattr(p, k))
+                                       for k in _PARAMS})
+    inner = None
+    if cache is not None:
+        inner = SSMCache(*(t.redistribute(mesh, rows).to_local()
+                           for t in (cache.state, cache.conv)),
+                         cache.length.full_tensor()
+                         if isinstance(cache.length, DTensor)
+                         else cache.length)
+    out, new = mamba2_block(lp, x.redistribute(mesh, rows).to_local(
+        grad_placements=rows), cache=inner, make_cache=make_cache)
+    place = lambda t: DTensor.from_local(t, mesh, rows,  # noqa: E731
+                                         run_check=False)
+    if new is not None:
+        new = SSMCache(place(new.state), place(new.conv), new.length)
+    return place(out), new
+
+
+def _local(fn, ins, outs):
+    """``fn`` over each rank's local shards: ``ins`` are (DTensor,
+    placements, gradient placements), ``outs`` the placements of ``fn``'s
+    outputs."""
+    mesh = ins[0][0].device_mesh
+    res = fn(*(t.redistribute(mesh, pl).to_local(grad_placements=gpl)
+               for t, pl, gpl in ins))
+    return tuple(DTensor.from_local(r, mesh, pl, run_check=False)
+                 for r, pl in zip(res, outs))
+
+
+def _follow(placements, src: int, dst: int) -> list:
+    """Placements of a tensor whose dim ``dst`` is split where a tensor
+    placed as ``placements`` splits its dim ``src``, and is whole
+    elsewhere (a per-channel or per-head parameter beside activations)."""
+    return [Shard(dst) if isinstance(pl, Shard) and pl.dim == src
+            else Replicate() for pl in placements]
+
+
+def _grads(placements, src: int, dst: int) -> list:
+    """The gradient placements of a ``_follow(placements, src, dst)``
+    parameter: split where it is, partial sums over the batch's mesh dims
+    (each rank sees its rows), whole elsewhere."""
+    return [Shard(dst) if isinstance(pl, Shard) and pl.dim == src
+            else Partial() if isinstance(pl, Shard) and pl.dim == 0
+            else Replicate() for pl in placements]
+
+
+def _on_mesh(p: Mamba2, x, make_cache: bool):
+    """Train and prefill on a mesh, laid out as the reference constrains
+    them (:180-234): the projections' outputs over `model` by channel
+    (``"mlp"``) and ``dt`` by head; the causal conv per channel shard;
+    x, B and C gathered over the channels, then x split by head and B, C
+    whole (each group's B and C serve all its heads); the SSD per head
+    shard and batch shard; the gated norm and ``out_proj`` as DTensor ops
+    (the norm's mean over the split d_inner a reduction)."""
+    cfg = p.cfg
+    bsz, s, d_model = x.shape
+    d_in, h = cfg.d_inner(d_model), cfg.n_heads(d_model)
+    gn = cfg.n_groups * cfg.d_state
+    acc = acc_dtype(x.dtype)
+    q = cfg.chunk_size
+    s_pad = -(-s // q) * q if s > q else s
+
+    z = constrain(dense(p.z_proj, x), "batch", None, "mlp")
+    xbc = constrain(dense(p.xbc_proj, x), "batch", None, "mlp")
+    dt = F.softplus(dense(p.dt_proj, x).to(acc) + p.dt_bias)
+    dt = constrain(dt, "batch", None, "heads")
+    xp = list(xbc.placements)
+    (xbc_act,) = _local(
+        lambda xl, w, b: (causal_conv(F.pad(xl, (0, 0, 0, s_pad - s)), w,
+                                      b),),
+        [(xbc, xp, xp), (p.conv_w, _follow(xp, 2, 0), _grads(xp, 2, 0)),
+         (p.conv_b, _follow(xp, 2, 0), _grads(xp, 2, 0))], [xp])
+    xbc_act = constrain(xbc_act, "batch", None, "mlp")
+    whole = constrain(xbc_act, "batch", None, None)
+    xs = constrain(whole[..., :d_in].reshape(bsz, s_pad, h, -1), "batch",
+                   None, "heads", None)
+    b_mat = constrain(whole[..., d_in:d_in + gn].reshape(
+        bsz, s_pad, cfg.n_groups, -1), "batch", None, None, None)
+    c_mat = constrain(whole[..., d_in + gn:].reshape(
+        bsz, s_pad, cfg.n_groups, -1), "batch", None, None, None)
+    cdt = DTYPES[cfg.compute_dtype]
+    hp, bp = list(xs.placements), list(b_mat.placements)
+    state_pl = _follow(hp, 2, 1)
+    for i, pl in enumerate(hp):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            state_pl[i] = Shard(0)
+
+    def ssd(xl, bl, cl, dtl, a_log):
+        dtl = F.pad(dtl, (0, 0, 0, s_pad - s))
+        return ssd_chunked(xl.to(cdt), bl.to(cdt), cl.to(cdt), dtl,
+                           -torch.exp(a_log.to(acc)), cfg)
+    # B and C's gradients: split by batch as they are, partial sums over
+    # the head shards that read them
+    bc_grads = [Partial() if isinstance(h_, Shard) and h_.dim == 2 else b_
+                for h_, b_ in zip(hp, bp)]
+    y, state = _local(ssd, [
+        (xs, hp, hp), (b_mat, bp, bc_grads), (c_mat, bp, bc_grads),
+        (dt, list(dt.placements), list(dt.placements)),
+        (p.A_log, _follow(hp, 2, 0), _grads(hp, 2, 0))], [hp, state_pl])
+    y = constrain(y, "batch", None, "heads", None)
+    y = y + p.D[None, None, :, None] * xs.to(acc)
+    y = y[:, :s].reshape(bsz, s, d_in).to(x.dtype)
+    new_cache = None
+    if make_cache:
+        (tail,) = _local(lambda xl: (conv_tail(xl, cfg.d_conv),),
+                         [(xbc, xp, xp)], [_follow(xp, 2, 1)])
+        new_cache = SSMCache(state, tail, torch.tensor(
+            s, dtype=torch.int32, device=x.device))
     y = gated_rmsnorm(p.norm.scale, y, z)
     return dense(p.out_proj, y), new_cache

@@ -21,8 +21,12 @@ sync (the decode step is captured as one CUDA graph):
     fixed order, the order of their sorted positions (the reference's
     scatter-add over them, ``out.at[tok].add``), without atomics.
 
-The expert-parallel ``_moe_sharded`` (shard_map, all-to-all) needs a
-mesh: ROADMAP item 13.8.
+On a mesh (an active ``launch/sharding.py::sharding_rules``) the layer is
+the reference's expert-parallel ``_moe_sharded`` / ``_moe_local_with_a2a``
+(a ``shard_map`` region with all-to-alls), which is not ported yet:
+``moe_ffn`` raises ``NotImplementedError`` there, naming expert
+parallelism, the next part of ROADMAP item 13.8.  Off a mesh nothing
+changes.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import MoEConfig
+from repro_torch.launch.sharding import active_mesh
 from repro_torch.nn.layers import MLP, gelu_tanh, init_normal, silu
 
 
@@ -141,6 +146,11 @@ def moe_ffn(moe: MoE, x: torch.Tensor, cfg: MoEConfig, activation: str,
     """x: (B, S, D) -> (out (B, S, D) in x's dtype, aux () f32): the
     reference's ``_moe_local``.  ``dropless`` sizes the buffer at the worst
     case (``slots``), as the decode path does."""
+    if active_mesh() is not None:
+        raise NotImplementedError(
+            "moe_ffn on a mesh is the reference's expert-parallel region "
+            "(models/moe.py:161 _moe_sharded, :210 _moe_local_with_a2a), "
+            "not ported yet: expert parallelism, ROADMAP item 13.8")
     b, s, d = x.shape
     t, k, e = b * s, cfg.top_k, cfg.num_experts
     n = t * k

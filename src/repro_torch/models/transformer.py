@@ -39,6 +39,7 @@ count them).  An enc-dec config raises (its model is
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -47,14 +48,19 @@ import numpy as np
 import torch
 import torch.utils.checkpoint as ckpt
 from torch import nn
+from torch.distributed.tensor import (DTensor, Replicate,
+                                      distribute_tensor)
 
 from repro_torch.config import LMConfig
 from repro_torch.core.backend import resolve_device
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import constrain
 from repro_torch.models.mamba2 import Mamba2, SSMCache, conv_dim
 from repro_torch.models.moe import MoE
 from repro_torch.nn.attention import Attention, KVCache, attention_block
 from repro_torch.nn.layers import (DTYPES, MLP, Embedding, RMSNorm,
-                                   acc_dtype, embed, softcap, unembed)
+                                   acc_dtype, embed, shard_sums, softcap,
+                                   unembed)
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -107,6 +113,22 @@ def _check_supported(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def whole_seq(h: torch.Tensor) -> torch.Tensor:
+    """A sub-block's input, whole along the sequence on a mesh (Megatron
+    sequence parallelism gathers on entry; GSPMD inserts this itself, a
+    DTensor program says it).  A no-op off a mesh."""
+    return constrain(h, "batch", None, "embed")
+
+
+def residual(out: torch.Tensor) -> torch.Tensor:
+    """A sub-block's output laid out as the residual stream (``"batch",
+    "seq", "embed"``) before it is added: where the reference leaves
+    GSPMD to reshard the partial sums at the add, a DTensor op would
+    reshard them outside autograd (the gradient would come back sharded
+    over the sequence).  A no-op off a mesh."""
+    return constrain(out, "batch", "seq", "embed")
+
+
 class Block(nn.Module):
     """One block (``_apply_layer``): ``attn``, or at an SSM position
     (``kind`` "ssm") the Mamba-2 block ``ssm``; then ``mlp``, or at an MoE
@@ -156,28 +178,32 @@ class Block(nn.Module):
         sub-block.  (An f64 model sums in f64.)"""
         eps, dt = cfg.norm_eps, DTYPES[cfg.dtype]
         acc = acc_dtype(dt)
-        h = self.ln1(x, eps, dtype=dt)
+        h = whole_seq(self.ln1(x, eps, dtype=dt))
         x = x.to(dt)
         if self.kind == "attn":
             out, new_cache = attention_block(
                 self.attn, h, cfg.attention,
                 layer_window=self.window, cache=cache, make_cache=make_cache,
                 cache_size=cache_size, impl=attn_impl)
+            out = constrain(out, "batch", "seq", "embed")
         else:
             out, new_cache = self.ssm(h, cache=cache, make_cache=make_cache)
+            out = residual(out)
         if self.sandwich:
             out = self.ln1_post(out, eps)
         xs = x.to(acc) + out
         if not self.has_ffn:
-            return xs, new_cache, None
-        h, aux = self.ln2(xs, eps, dtype=dt), None
+            return constrain(xs, "batch", "seq", "embed"), new_cache, None
+        h, aux = whole_seq(self.ln2(xs, eps, dtype=dt)), None
         if self.is_moe:
             out, aux = self.moe(h, dropless=cache is not None)
         else:
             out = self.mlp(h)
+        out = residual(out)
         if self.sandwich:
             out = self.ln2_post(out, eps)
-        return xs.to(dt).to(acc) + out, new_cache, aux
+        return constrain(xs.to(dt).to(acc) + out, "batch", "seq", "embed"), \
+            new_cache, aux
 
 
 class TransformerLM(nn.Module):
@@ -300,13 +326,28 @@ def _embed_inputs(model: TransformerLM, tokens: torch.Tensor,
     table = model.embed.table
     x = embed(table, tokens.to(table.device),
               scale_by_sqrt_d=model.cfg.name.startswith("gemma"))
-    if embeds is None:
-        return x
-    return torch.cat([embeds.to(device=table.device, dtype=x.dtype), x], 1)
+    if embeds is not None:
+        x = torch.cat([embeds.to(device=table.device, dtype=x.dtype), x], 1)
+    return constrain(x, "batch", "seq", "embed")
 
 
-#: the ported ``remat`` modes of the training forward
-REMAT = ("none", "full")
+#: the ``remat`` modes of the training forward
+REMAT = ("none", "full", "selective")
+
+#: the products without batch dims, whose outputs ``remat="selective"``
+#: keeps (a dense layer's ``x @ w`` runs as one of these on 2-D operands;
+#: attention's batched products and K5's op run as ``bmm`` and
+#: ``repro_torch::flash_attention`` and are recomputed)
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def selective_policy(ctx, func, *args, **kwargs):
+    """``remat="selective"``'s policy (the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``): keep
+    the outputs of ``SAVED_PRODUCTS``, recompute everything else."""
+    if func in SAVED_PRODUCTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class _Bound(nn.Module):
@@ -321,7 +362,7 @@ class _Bound(nn.Module):
         return self.fn(*args)
 
 
-def checkpointed(module: nn.Module, fn, *args):
+def checkpointed(module: nn.Module, fn, *args, policy=None):
     """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)``, a
     function that reads ``module``'s parameters: only ``args`` are kept,
     and the backward runs ``fn`` again -- with the tensors the parameters
@@ -329,14 +370,24 @@ def checkpointed(module: nn.Module, fn, *args):
     those are the caller's, which a plain checkpoint no longer sees when
     the backward recomputes (the call has returned and put the module's
     own back: on a ``meta`` skeleton, tensors without data).  Without a
-    gradient there is nothing to keep: ``fn(*args)`` runs as it is."""
+    gradient there is nothing to keep: ``fn(*args)`` runs as it is.
+    ``policy`` (``selective_policy``) keeps the outputs it names
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts``).
+    The recompute runs under the call's sharding context
+    (``launch/sharding.py``), which it carries along: the autograd engine
+    runs a CUDA backward on a thread of its own."""
     if not torch.is_grad_enabled():
         return fn(*args)
     params = {f"module.{n}": p for n, p in module.named_parameters()}
     bound = _Bound(module, fn)
-    return ckpt.checkpoint(
-        lambda *a: torch.func.functional_call(bound, params, a), *args,
-        use_reentrant=False)
+    kw = {} if policy is None else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, policy)}
+    rules = sharding.current()   # the recompute may run on another thread
+
+    def run(*a):
+        with sharding.restored(rules):
+            return torch.func.functional_call(bound, params, a)
+    return ckpt.checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def _run_stack(model: TransformerLM, x: torch.Tensor, *,
@@ -350,15 +401,16 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
     ``remat="full"`` runs each period of layers under
     ``torch.utils.checkpoint`` (``checkpointed``: the reference's
     ``jax.checkpoint`` of its scan body): only the period's input is
-    kept, and the backward runs the period's forward again.  The reference's ``"selective"`` policy (keep
-    the products without batch dimensions) is not ported and raises."""
+    kept, and the backward runs the period's forward again.
+    ``remat="selective"`` keeps the outputs of the products without
+    batch dims as well (``selective_policy``: the reference's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest, K5's
+    op included; the gradients are ``"none"``'s bit for bit."""
     cfg = model.cfg
     dt, period = DTYPES[cfg.dtype], layer_period(cfg)
     if remat not in REMAT:
-        raise NotImplementedError(
-            f"remat={remat!r}: the port runs {REMAT} (the reference's "
-            f"'selective' policy is ROADMAP item 13.8)")
-    if remat == "full" and (caches is not None or make_cache):
+        raise ValueError(f"remat={remat!r}: expected one of {REMAT}")
+    if remat != "none" and (caches is not None or make_cache):
         raise ValueError("remat applies to the training forward only")
     new_caches: Caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -380,8 +432,9 @@ def _run_stack(model: TransformerLM, x: torch.Tensor, *,
         return x, aux
 
     for n0 in range(0, cfg.num_layers, period):
-        if remat == "full":
-            x, aux = checkpointed(model, run_period, x, aux, n0)
+        if remat != "none":
+            x, aux = checkpointed(model, run_period, x, aux, n0, policy=(
+                selective_policy if remat == "selective" else None))
         else:
             x, aux = run_period(x, aux, n0)
     return x.to(dt), (new_caches or None), aux
@@ -399,7 +452,7 @@ def head_logits(model, x: torch.Tensor) -> torch.Tensor:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
             cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def lm_forward(model: TransformerLM, tokens: torch.Tensor, embeds=None, *,
@@ -452,7 +505,31 @@ def chunked_ce(cfg: LMConfig, table: torch.Tensor, x: torch.Tensor,
     vocabulary's -1e30 added, ``log_softmax`` and the labels' negative
     log-likelihood, under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint``), so no (tokens, vocab) f32 logits are kept for the
-    backward, which computes each chunk's again."""
+    backward, which computes each chunk's again.
+
+    A DTensor ``x`` (on a mesh) is taken shard by shard: each rank runs
+    the chunks over its own tokens against the whole table (gathered; its
+    gradient a partial sum), and the sums and counts are partial sums over
+    the mesh, so the loss is the same mean."""
+    if isinstance(x, DTensor):
+        mesh, pl = x.device_mesh, list(x.placements)
+        sums = shard_sums(pl)
+        whole = table.redistribute(mesh, [Replicate()] * mesh.ndim) \
+            .to_local(grad_placements=sums)
+        lab = labels.redistribute(mesh, pl[:]) if isinstance(
+            labels, DTensor) else distribute_tensor(labels, mesh, pl)
+        tot, cnt = _ce_sums(cfg, whole, x.to_local(grad_placements=pl),
+                            lab.to_local(), ce_chunk)
+        tot = DTensor.from_local(tot, mesh, sums, run_check=False)
+        cnt = DTensor.from_local(cnt, mesh, sums, run_check=False)
+        return tot / torch.clamp(cnt, min=1)
+    tot, cnt = _ce_sums(cfg, table, x, labels, ce_chunk)
+    return tot / torch.clamp(cnt, min=1)
+
+
+def _ce_sums(cfg: LMConfig, table: torch.Tensor, x: torch.Tensor,
+             labels: torch.Tensor, ce_chunk: int):
+    """``chunked_ce``'s summed NLL and count of valid labels."""
     b, s, d = x.shape
     t = b * s
     chunk = min(ce_chunk, t)
@@ -481,7 +558,7 @@ def chunked_ce(cfg: LMConfig, table: torch.Tensor, x: torch.Tensor,
         ls, n = ckpt.checkpoint(chunk_ce, xf[c0:c0 + chunk],
                                 lf[c0:c0 + chunk], use_reentrant=False)
         tot, cnt = tot + ls, cnt + n
-    return tot / torch.clamp(cnt, min=1)
+    return tot, cnt
 
 
 def init_caches(cfg: LMConfig, batch: int, cache_size: int,
@@ -489,6 +566,15 @@ def init_caches(cfg: LMConfig, batch: int, cache_size: int,
     """Zeroed caches, one pair per layer (``zeroed_caches``)."""
     _check_supported(cfg)
     return zeroed_caches(cfg, batch, cache_size, device)
+
+
+def init_caches_abstract(cfg: LMConfig, batch: int,
+                         cache_size: int) -> Caches:
+    """``init_caches`` on the ``meta`` device: each layer's pair with its
+    shapes and dtypes and no storage (``init_caches_abstract``, :318; the
+    reference's stacked tree, per layer)."""
+    _check_supported(cfg)
+    return zeroed_caches(cfg, batch, cache_size, "meta")
 
 
 def zeroed_caches(cfg: LMConfig, batch: int, cache_size: int,

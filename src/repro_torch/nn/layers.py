@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.backend import resolve_device
 
@@ -167,11 +168,43 @@ class Embedding(nn.Module):
 
 def embed(table: torch.Tensor, ids: torch.Tensor,
           scale_by_sqrt_d: bool = False) -> torch.Tensor:
-    """Rows of ``table``; gemma scales them by ``sqrt(d)`` in their dtype."""
+    """Rows of ``table``; gemma scales them by ``sqrt(d)`` in their dtype.
+    A DTensor table (on a mesh) is gathered whole and each rank looks up
+    its own ids (the table's gradient a partial sum over the mesh): the
+    lookup of a sharded table has no DTensor rule that keeps it sharded."""
+    if isinstance(table, DTensor):
+        return _embed_per_shard(table, ids, scale_by_sqrt_d)
     out = table[ids.long()]
     if scale_by_sqrt_d:
         out = out * (table.shape[1] ** 0.5)
     return out
+
+
+def shard_sums(placements) -> list:
+    """The placements of a sum over each rank's shard of a tensor placed as
+    ``placements``: partial over the mesh dims that split it, replicated
+    over those that hold it whole (where every rank sums the same
+    values)."""
+    return [Partial() if isinstance(p, Shard) else Replicate()
+            for p in placements]
+
+
+def _embed_per_shard(table, ids, scale_by_sqrt_d: bool):
+    """``embed`` of a DTensor table: the rows of the whole table at each
+    rank's ids, placed as the ids are (plain ids are replicated).  The
+    table's gradient is a partial sum over the mesh dims that split the
+    ids (``shard_sums``)."""
+    mesh = table.device_mesh
+    if isinstance(ids, DTensor):
+        placements, ids = ids.placements, ids.to_local()
+    else:
+        placements = [Replicate()] * mesh.ndim
+    whole = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=shard_sums(placements))
+    out = whole[ids.long()]
+    if scale_by_sqrt_d:
+        out = out * (table.shape[1] ** 0.5)
+    return DTensor.from_local(out, mesh, placements, run_check=False)
 
 
 #: vocab rows of the table upcast at a time by ``unembed`` on the CPU and

@@ -16,10 +16,14 @@
     counts steps slower than ``factor`` times it, and asks for a restart
     (checkpoint, then raise) after ``max_straggler_steps`` in a row.
 
-Sharded state and batches (``state_shardings``, ``batch_shardings``) go
-with distributed training (ROADMAP item 11b) and raise.  The port has no
-``jax.eval_shape``: the restore template is ``make_state()`` itself, whose
-leaves give the shapes, dtypes and devices the restored state takes.
+Sharded state and batches (``state_shardings``, ``batch_shardings``: trees
+of ``launch/sharding.py::NamedSharding``, as ``launch/train.py`` builds
+them) make the run a DTensor program on a mesh: each batch is placed by
+``data/pipeline.py::shard_batch``, a checkpoint saves each leaf whole
+(``full_tensor()``, the same file on any mesh), and a restore puts each
+leaf back under its placements.  The port has no ``jax.eval_shape``: the
+restore template is ``make_state()`` itself, whose leaves give the shapes,
+dtypes and devices the restored state takes.
 """
 
 from __future__ import annotations
@@ -29,9 +33,11 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.config import TrainConfig
+from repro_torch.data.pipeline import shard_batch
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -76,6 +82,13 @@ class StepWatchdog:
         return self.consecutive >= self.max_straggler_steps
 
 
+def _host(v) -> float:
+    """A metric as a Python float (a DTensor's whole value)."""
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
+    return float(v)
+
+
 def _sync(metrics: Dict[str, Any]) -> None:
     """Wait for the step's device work (its metrics are its last results)."""
     for v in metrics.values():
@@ -92,11 +105,9 @@ class Trainer:
                  step_fn: Callable, pipeline, state_shardings=None,
                  batch_shardings=None,
                  failure_injector: Optional[FailureInjector] = None):
-        if state_shardings is not None or batch_shardings is not None:
-            raise NotImplementedError(
-                "sharded training state and batches are not ported yet "
-                "(distributed training is ROADMAP item 11b)")
         self.cfg = cfg
+        self.state_shardings = state_shardings
+        self.batch_shardings = batch_shardings
         self.make_state = make_state
         self.step_fn = step_fn
         self.pipeline = pipeline
@@ -111,7 +122,8 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return None
-        state, step, extra = self.ckpt.restore(self.make_state())
+        state, step, extra = self.ckpt.restore(
+            self.make_state(), shardings=self.state_shardings)
         self.pipeline.load_state_dict(extra["pipeline"])
         log.info("restored checkpoint step=%d", step)
         return state, step
@@ -153,6 +165,8 @@ class Trainer:
         for step in range(start, steps):
             batch = self.pipeline.batch_at(step)
             self.pipeline.step = step + 1
+            if self.batch_shardings is not None:
+                batch = shard_batch(batch, self.batch_shardings)
             t0 = time.time()
             if self.failure_injector is not None:
                 self.failure_injector.check(step)
@@ -161,7 +175,7 @@ class Trainer:
             dt = time.time() - t0
             need_restart = self.watchdog.observe(step, dt)
             if step % self.cfg.log_every == 0 or step == steps - 1:
-                host = {k: float(v) for k, v in metrics.items()}
+                host = {k: _host(v) for k, v in metrics.items()}
                 host["step"] = step
                 host["dt"] = dt
                 self.metrics_history.append(host)

@@ -18,8 +18,9 @@ import torch
 
 from repro_torch.config import CORA, reduced_graph
 from repro_torch.config import MoEConfig
-from repro_torch.configs import (arctic_480b, gemma2_9b, jamba_1_5_large,
-                                 mamba2_2_7b, seamless_m4t_medium)
+from repro_torch.configs import (arctic_480b, gemma2_9b, granite_3_8b,
+                                 jamba_1_5_large, mamba2_2_7b,
+                                 seamless_m4t_medium)
 from repro_torch.core import dataflow
 from repro_torch.core import plan as tplan
 from repro_torch.core.dataflow import block_graph_arrays
@@ -600,7 +601,7 @@ def test_flash_backward_all_masked_rows_are_zero(gpu):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_function_launches_the_backward_kernels(gpu, dtype):
-    """Under autograd the cuda tier's K5 is ``FlashAttention``: one forward
+    """Under autograd the cuda tier's K5 is its op's autograd: one forward
     launch (with the lse), two backward launches, the gradients those of
     the plain versions; without a gradient the launch is the serving
     path's, bit for bit."""
@@ -674,10 +675,16 @@ def test_lm_loss_on_the_card_matches_the_torch_tier(gpu):
 
 
 def test_flash_kernel_refuses_gradients_and_bad_input(gpu):
+    """A direct launch has no backward and refuses a tensor that wants a
+    gradient; the wrapper goes through K5's op, whose Autograd kernel runs
+    the backward kernels.  Bad input raises either way."""
     q = torch.randn((1, 2, 8, 64), device=gpu, requires_grad=True)
     k = torch.randn((1, 1, 8, 64), device=gpu)
     with pytest.raises(RuntimeError, match="no backward"):
-        k5.flash_attention(q, k, k)
+        k5._launch(q, k, k)
+    out = k5.flash_attention(q, k, k)
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
     with torch.no_grad():
         k5.flash_attention(q, k, k)
         with pytest.raises(ValueError, match="contiguous"):
@@ -2351,3 +2358,78 @@ def test_capture_survives_a_dead_graph_in_a_cycle(card):
         gc.set_threshold(*old)
     graph.replay()
     _close(out, x + 1.0, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,cap", [
+    (2, 4, 2, 128, 64, 0, 0.0), (1, 8, 1, 96, 128, 32, 50.0),
+    (2, 14, 2, 200, 64, 0, 0.0)])
+def test_k5_op_bit_for_bit_the_direct_launch(gpu, dtype, b, hq, hkv, s, d,
+                                             window, cap):
+    """K5's opaque ops (``repro_torch::flash_attention`` and ``_bwd``)
+    against ``_launch`` and ``_launch_bwd``: out, lse, dq,
+    dk and dv bit for bit; the op counts one forward launch, the backward
+    op two."""
+    gen = torch.Generator(device=gpu).manual_seed(3)
+    q, k, v, dout = (torch.randn(shp, generator=gen, device=gpu, dtype=dtype)
+                     for shp in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, hq, s, d)))
+    n = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, None, True,
+                                                     window, cap, True)
+    grads = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, lse, dout, None, True, window, cap)
+    assert (k5.flash_attention.launches - n[0],
+            k5.flash_attention_bwd.launches - n[1]) == (1, 2)
+    kw = dict(causal=True, window=window, softcap=cap)
+    want, wlse = k5._launch(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, want) and torch.equal(lse, wlse)
+    for got, ref in zip(grads, k5._launch_bwd(q, k, v, out, lse, dout,
+                                              **kw)):
+        assert torch.equal(got, ref)
+    qr = q.clone().requires_grad_()
+    o = k5.flash_attention(qr, k, v, **kw)
+    (dq,) = torch.autograd.grad(o, qr, dout)
+    assert torch.equal(o, want) and torch.equal(dq, grads[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_rank_mesh_step_bit_for_bit_the_plain_step(gpu, tmp_path, dtype):
+    """Reduced granite-3-8b through ``launch/train.py::build_trainer`` on a
+    (1, 1) mesh over a world-size-1 NCCL group: step 0's loss and every
+    gradient (remat "selective" and "none") bit for bit the plain step
+    on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.config import ShapeSpec
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch.sharding import sharding_rules
+    from repro_torch.launch.steps import make_loss_and_grads
+    from repro_torch.launch.train import build_trainer
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        cfg = dataclasses.replace(granite_3_8b.reduced(), dtype=dtype)
+        tr, mesh, rules = build_trainer(cfg, steps=1, batch=4, seq=64,
+                                        ckpt_dir=str(tmp_path),
+                                        checkpoint_every=0)
+        batch = TokenPipeline(cfg, ShapeSpec("t", 64, 4, "train"),
+                              seed=0).batch_at(0)
+        m = ttr.init_lm(cfg, generator=torch.Generator(
+            device=gpu).manual_seed(0), device=gpu)
+        want, wm = make_loss_and_grads(cfg, "selective")(
+            {k: p.detach() for k, p in m.named_parameters()},
+            {k: torch.as_tensor(v).to(gpu) for k, v in batch.items()})
+        with sharding_rules(mesh, rules):
+            state = tr.make_state()
+            placed = shard_batch(batch, tr.batch_shardings)
+            for remat in ("selective", "none"):
+                got, gm = make_loss_and_grads(cfg, remat)(state.params,
+                                                          placed)
+                assert torch.equal(gm["loss"].full_tensor(), wm["loss"])
+                for key in want:
+                    assert torch.equal(got[key].to_local(), want[key]), key
+    finally:
+        dist.destroy_process_group()

@@ -9,8 +9,8 @@ offsets 0 and Sk - Sq, in the f32 band (``tests/tolerance.py``).
 K5's side: ``flash_attention_plain(return_lse=True)`` must give the
 reference ``_fwd_scan``'s row logsumexp, and ``flash_attention_bwd_plain``
 (what K5's backward kernels are held against on the card) the gradients
-of ``jax.grad`` through the reference's ``direct_attention``; the
-``FlashAttention`` Function takes the plain versions for CPU tensors, and
+of ``jax.grad`` through the reference's ``direct_attention``; K5's op
+under autograd takes the plain versions for CPU tensors, and
 ``attention_block`` routes a training forward through it (cuda tier, with
 its device check lifted) or through ``flash_attention_xla`` (torch tier,
 past 2048 tokens).  The kernels themselves need a card:
@@ -166,15 +166,15 @@ def test_plain_backward_all_masked_rows_give_zero_gradients():
 
 
 def test_flash_attention_function_on_cpu_matches_autograd():
-    """``FlashAttention`` on CPU tensors: the plain forward (with lse) and
-    the plain backward, against autograd through the plain forward; the
-    launch counters do not move."""
+    """K5's op under autograd on CPU tensors: the plain forward (with lse)
+    and the plain backward, against autograd through the plain forward;
+    the launch counters do not move."""
     q, k, v, do = _np((1, 4, 24, 16), (1, 2, 24, 16), (1, 2, 24, 16),
                       (1, 4, 24, 16))
     kw = dict(causal=True, window=10, softcap=5.0)
     n0 = (k5.flash_attention.launches, k5.flash_attention_bwd.launches)
     a = [t.requires_grad_() for t in _t(q, k, v)]
-    got = k5.FlashAttention.apply(*a, None, True, 10, 5.0)
+    got = k5.flash_attention(*a, **kw)
     ga = torch.autograd.grad(got, a, torch.from_numpy(do))
     b_ = [t.requires_grad_() for t in _t(q, k, v)]
     want = k5.flash_attention_plain(*b_, **kw)
@@ -189,7 +189,7 @@ def test_flash_attention_function_on_cpu_matches_autograd():
 @pytest.fixture
 def cuda_tier_on_cpu(monkeypatch):
     """The cuda tier with its device check lifted: K5's wrappers then get
-    CPU tensors and run their plain versions inside ``FlashAttention``."""
+    CPU tensors and run their plain versions inside the op's autograd."""
     def check(backend, x):
         assert backend in ("torch", "cuda")
     monkeypatch.setattr(ops, "_check_tier", check)
@@ -197,14 +197,15 @@ def cuda_tier_on_cpu(monkeypatch):
 
 @pytest.fixture
 def spy_function(monkeypatch):
-    """Counts ``FlashAttention`` forwards."""
+    """Counts the forwards of K5's op under autograd (``_FlashAttention``,
+    the op's Autograd kernel)."""
     count = {"n": 0}
-    fwd = k5.FlashAttention.forward
+    fwd = k5._FlashAttention.forward
 
     def spy(ctx, *args):
         count["n"] += 1
         return fwd(ctx, *args)
-    monkeypatch.setattr(k5.FlashAttention, "forward", staticmethod(spy))
+    monkeypatch.setattr(k5._FlashAttention, "forward", staticmethod(spy))
     return count
 
 
@@ -231,9 +232,9 @@ def _block_grads(impl, cfg, p, x, window):
 @pytest.mark.parametrize("window", [0, 16])
 def test_attention_block_cuda_tier_trains_through_the_function(
         cuda_tier_on_cpu, spy_function, window):
-    """Under autograd the cuda tier's prefill goes through
-    ``FlashAttention`` (its plain versions here); without a gradient it
-    does not, and its output is the same.  The gradients match the direct
+    """Under autograd the cuda tier's prefill goes through K5's op under
+    autograd (its plain versions here); without a gradient it does not,
+    and its output is the same.  The gradients match the direct
     path's."""
     cfg, p, x = _block_inputs(40)
     out, grads = _block_grads("cuda", cfg, p, x, window)

@@ -153,6 +153,40 @@ def test_vlm_entry_points_default_to_cuda(monkeypatch):
         launch_serve.main(["--arch", "internvl2-1b", "--reduced"])
 
 
+def test_launch_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The launch layer has no CPU fallback either: the training launcher,
+    the dry run and its profiler default to ``device="cuda"`` and raise
+    without a card (the dry run records the error in its cell), and their
+    modules are among the files held to the import rules above."""
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in PORT_FILES if "src" in p.parts}
+    assert {"launch/mesh.py", "launch/sharding.py", "launch/specs.py",
+            "launch/dryrun.py", "launch/profile_cell.py", "launch/train.py",
+            "core/op_cost.py"} <= names
+    import inspect
+
+    from repro_torch.launch import dryrun, profile_cell
+    from repro_torch.launch import train as launch_train
+    for fn, arg in ((launch_train.build_trainer, "device"),
+                    (dryrun.run_cell, "device"),
+                    (dryrun.build_cell, "device"),
+                    (profile_cell.profile, "device")):
+        assert inspect.signature(fn).parameters[arg].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        launch_train.main(["--arch", "granite-3-8b", "--reduced",
+                           "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        dryrun.main(["--arch", "granite-3-8b", "--shape", "train_4k",
+                     "--mesh", "single"])
+    rec = dryrun.run_cell("granite-3-8b", "train_4k", "single",
+                          out_dir=None, verbose=False)
+    assert rec["status"] == "error" and "device='cuda'" in rec["error"]
+    with pytest.raises(RuntimeError, match="device='cuda'"):
+        profile_cell.main(["--arch", "granite-3-8b", "--shape",
+                           "train_4k"])
+
+
 def test_cuda_tier_on_cpu_tensors_raises():
     g = datasets.make_synthetic_graph(SPEC, device="cpu")
     x = datasets.make_features(SPEC, device="cpu")

@@ -166,11 +166,17 @@ def test_train_step_with_full_remat_matches_without():
 
 
 def test_lm_loss_refuses_selective_remat():
+    """``remat="selective"`` is ported (the reference's
+    ``dots_with_no_batch_dims_saveable``): its loss is ``"none"``'s bit
+    for bit; a mode the port does not have is refused."""
     cfg, _, _, model = _models("granite")
     toks, labels = _batch(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="selective"):
-        ttr.lm_loss(model, torch.from_numpy(toks), torch.from_numpy(labels),
-                    remat="selective")
+    toks, labels = torch.from_numpy(toks), torch.from_numpy(labels)
+    got, _ = ttr.lm_loss(model, toks, labels, remat="selective")
+    want, _ = ttr.lm_loss(model, toks, labels)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="dots"):
+        ttr.lm_loss(model, toks, labels, remat="dots")
 
 
 def test_lm_loss_through_functional_call_matches_the_module():

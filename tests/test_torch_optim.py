@@ -317,8 +317,15 @@ def test_watchdog_flags_stragglers():
 
 
 def test_sharded_state_is_not_ported(setup, ckdir):
+    """Sharded state and batches are ported: the ``Trainer`` takes their
+    shardings (a DTensor run on a mesh, which
+    ``tests/test_torch_launch_train.py`` drives); without them the run is
+    the unsharded one above."""
     spec, g, opt, step_fn, make_state = setup
     tc = TrainConfig(model="sage", checkpoint_dir=ckdir)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(tc, make_state=make_state, step_fn=step_fn, pipeline=None,
-                state_shardings={})
+    tr = Trainer(tc, make_state=make_state, step_fn=step_fn, pipeline=None,
+                 state_shardings={}, batch_shardings={})
+    assert tr.state_shardings == {} and tr.batch_shardings == {}
+    plain = Trainer(tc, make_state=make_state, step_fn=step_fn,
+                    pipeline=None)
+    assert plain.state_shardings is None and plain.batch_shardings is None
